@@ -1,0 +1,336 @@
+"""Fused exact kNN: the scan kernel for Hopper, its plain version, and the
+end-to-end wrappers.
+
+Counterpart of opensearch_tpu/ops/pallas_knn.py (the fused path: the
+Pallas kernel ``_knn_fused_kernel`` and ``knn_fused`` /
+``knn_fused_shard`` / ``knn_fused_auto`` around it). The kernel is
+``csrc/knn_fused.cu``; its note says what bounds it and how it is laid
+out.
+
+A scan returns, per shard and query, the top-R pool under
+(score desc, doc id asc) with (-inf, -1) past the valid-doc count. Three
+score precisions:
+
+  fp32  full float32 dots, R = k, no rescore;
+  bf16  operands cast to bf16, f32 accumulate; R = 4k (floor 32, cap 512)
+        and an exact fp32 rescore;
+  int8  symmetric per-tensor int8, exact int32 dots times one scalar;
+        R = 4k and an exact fp32 rescore.
+
+Returned scores are in the serving fp32 score space at every precision.
+
+Dispatch: :func:`pool_scan` launches the kernel for CUDA tensors (or
+raises) and runs :func:`plain_pool` for CPU tensors. The policy value
+"pallas" means the kernel, "xla" the plain version, as in the reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
+from opensearch_tpu_torch.ops import cuda_lib
+from opensearch_tpu_torch.ops.topk import stable_topk
+
+FK_BLOCK = 1024   # the reference's doc block: fixes n_pad, hence k_eff and R
+FUSED_MAX_K = 128
+FUSED_RESCORE_MULT = 4
+SCORE_PRECISIONS = ("fp32", "bf16", "int8")
+KERNEL_IMPLS = ("pallas", "xla")
+
+_PREC_CODE = {"fp32": 0, "bf16": 1, "int8": 2}
+_SIM_CODE = {"l2_norm": 0, "cosine": 1, "dot_product": 2}
+_OPERAND_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16,
+                  "int8": torch.int8}
+_NEG_INF = float("-inf")
+# shared memory one CTA may use on Hopper (opt-in maximum)
+_MAX_SMEM = 232_448
+# the kernel's query tile and doc tile (kQB, kTD in csrc/knn_fused.cu)
+_QUERY_TILE = 16
+_DOC_TILE = 64
+
+# launches of the kernel made by pool_scan
+launches = cuda_lib.LaunchCounter()
+
+
+def fused_pool_width(k: int, score_precision: str) -> int:
+    """Pool width R carried through the scan. fp32 needs no rescore slack;
+    reduced precisions keep a 4x pool (floor 32) so quantization rank
+    noise around position k stays inside the exact-rescore candidate set."""
+    if score_precision == "fp32":
+        return k
+    return max(k, min(max(FUSED_RESCORE_MULT * k, 32), 512))
+
+
+def _check_precision(score_precision: str) -> None:
+    if score_precision not in SCORE_PRECISIONS:
+        raise ValueError(
+            f"unknown score precision [{score_precision}]; "
+            f"expected one of {SCORE_PRECISIONS}"
+        )
+
+
+def quantize_symmetric_int8(x: torch.Tensor):
+    """Per-tensor symmetric int8: scale = max|x| / 127 (zero-guarded).
+    Returns (q int8, scale f32 scalar) with x ~= q * scale. torch.round
+    rounds half to even, as jnp.round does."""
+    scale = torch.clamp(x.abs().max(), min=1e-30) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127.0, 127.0).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def _prep_operands(vectors, queries, score_precision: str):
+    """Cast/quantize the matmul operands once, OUTSIDE the kernel, so the
+    kernel and the plain version consume bit-identical inputs.
+    vectors is [S, n, d]; each shard is quantized on its own (the reference
+    scans shard by shard). Returns (v_x [S, n, d], q_x [B, d], scale [S])
+    where dots_f32 = dot(q_x, v_x[s]) * scale[s]."""
+    S = vectors.shape[0]
+    if score_precision == "int8":
+        q_x, sq = quantize_symmetric_int8(queries)
+        per = [quantize_symmetric_int8(vectors[s]) for s in range(S)]
+        v_x = torch.stack([p[0] for p in per])
+        scale = torch.stack([sq * p[1] for p in per])
+        return v_x, q_x, scale
+    one = torch.ones(S, dtype=torch.float32, device=vectors.device)
+    if score_precision == "bf16":
+        return vectors.to(torch.bfloat16), queries.to(torch.bfloat16), one
+    return vectors, queries, one
+
+
+def _fused_dots(q_x, v_x, score_precision: str, scale):
+    """[B, d] x [S, n, d] -> [S, B, n] f32 dots under the scan precision.
+    int8 contracts exactly (float64 holds every int8 dot of d < 2^37
+    exactly; torch has no CUDA int32 matmul), then one scalar multiply per
+    shard; bf16 products are exact in f32 and sum in f32; fp32 is full
+    float32."""
+    if score_precision == "int8":
+        dots = torch.einsum("bd,snd->sbn", q_x.to(torch.float64),
+                            v_x.to(torch.float64))
+        return dots.to(torch.int32).to(torch.float32) * scale[:, None, None]
+    return torch.einsum("bd,snd->sbn", q_x.to(torch.float32),
+                        v_x.to(torch.float32))
+
+
+def _transform_scores(dots, qsq, nsq, similarity: str):
+    """OpenSearch k-NN score-space transforms, one eager operation at a
+    time (the kernel rounds the same way). qsq and nsq broadcast against
+    dots."""
+    if similarity == "l2_norm":
+        d_sq = torch.clamp(qsq - 2.0 * dots + nsq, min=0.0)
+        return 1.0 / (1.0 + d_sq)
+    if similarity == "cosine":
+        q_norm = torch.sqrt(torch.clamp(qsq, min=1e-24))
+        v_norm = torch.sqrt(torch.clamp(nsq, min=1e-24))
+        return (1.0 + dots / (q_norm * v_norm)) / 2.0
+    return torch.where(dots >= 0, dots + 1.0, 1.0 / (1.0 - dots))
+
+
+def plain_pool(v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
+               similarity: str, score_precision: str):
+    """Plain PyTorch pool scan (counterpart of ``_fused_xla_pool``): full
+    [S, B, n] scores and a stable top-r. Returns (vals [S, B, r],
+    ids [S, B, r] int32) with (-inf, -1) past the valid count."""
+    dots = _fused_dots(q_x, v_x, score_precision, scale)
+    scores = _transform_scores(dots, qsq[None, :, None], norms_sq[:, None, :],
+                               similarity)
+    scores = torch.where(valid[:, None, :], scores, _NEG_INF)
+    vals, ids = stable_topk(scores, r)
+    ids = torch.where(vals > _NEG_INF, ids, -1).to(torch.int32)
+    return vals, ids
+
+
+def _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
+                           similarity, score_precision) -> None:
+    dev = v_x.device
+    S, n, d = v_x.shape
+    B = q_x.shape[0]
+    want = {
+        "v_x": (v_x, (S, n, d), _OPERAND_DTYPE[score_precision]),
+        "norms_sq": (norms_sq, (S, n), torch.float32),
+        "valid": (valid, (S, n), torch.bool),
+        "q_x": (q_x, (B, d), _OPERAND_DTYPE[score_precision]),
+        "qsq": (qsq, (B,), torch.float32),
+        "scale": (scale, (S,), torch.float32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if t.device != dev:
+            raise ValueError(f"[{name}] is on {t.device}, expected {dev}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"[{name}] is {t.dtype}{tuple(t.shape)}, expected "
+                f"{dtype}{shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"[{name}] must be contiguous")
+    if similarity not in _SIM_CODE:
+        raise ValueError(f"unknown similarity [{similarity}]")
+    if n < 1 or B < 1 or d < 1 or not 1 <= r <= 4096:
+        raise ValueError(f"unsupported shape n={n} B={B} d={d} r={r}")
+    if S > 65_535 or -(-B // _QUERY_TILE) > 65_535:
+        raise ValueError(f"grid too large: S={S} B={B}")
+
+
+def _launch_geometry(S: int, n: int, B: int, device) -> tuple[int, int]:
+    """(chunk, n_split): docs per CTA, a multiple of the 64-doc tile, with
+    about four CTAs per SM in the grid."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    qtiles = -(-B // _QUERY_TILE)
+    max_split = -(-n // _DOC_TILE)
+    n_split = max(1, min(max_split, -(-4 * sms // (S * qtiles))))
+    chunk = -(-(-(-n // n_split)) // _DOC_TILE) * _DOC_TILE
+    return chunk, -(-n // chunk)
+
+
+def _library() -> ctypes.CDLL:
+    """The built kernel library with its C signatures declared."""
+    lib = cuda_lib.load("knn_fused")
+    lib.knn_fused_smem_bytes.restype = ctypes.c_size_t
+    lib.knn_fused_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.knn_fused_launch.restype = ctypes.c_int
+    lib.knn_fused_launch.argtypes = ([ctypes.c_void_p] * 10
+                                     + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    return lib
+
+
+def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
+                   score_precision):
+    _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
+                           similarity, score_precision)
+    lib = _library()
+    S, n, d = v_x.shape
+    B = q_x.shape[0]
+    prec = _PREC_CODE[score_precision]
+    smem = lib.knn_fused_smem_bytes(prec, d, r)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"knn_fused needs {smem} bytes of shared memory at d={d}, r={r} "
+            f"(at most {_MAX_SMEM})")
+    dev = v_x.device
+    chunk, n_split = _launch_geometry(S, n, B, dev)
+    part_v = torch.empty((S, n_split, B, r), dtype=torch.float32, device=dev)
+    part_i = torch.empty((S, n_split, B, r), dtype=torch.int32, device=dev)
+    vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
+    ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.knn_fused_launch(
+        v_x.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+        q_x.data_ptr(), qsq.data_ptr(), scale.data_ptr(),
+        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+        S, n, d, B, r, prec, _SIM_CODE[similarity], chunk, n_split, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"knn_fused launch failed: cudaError {err}")
+    launches.add()
+    return vals, ids
+
+
+def pool_scan(v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
+              similarity: str, score_precision: str):
+    """The pool scan over stacked shards: (vals [S, B, r], ids [S, B, r]).
+    CUDA tensors launch the kernel; CPU tensors take :func:`plain_pool`."""
+    if v_x.device.type == "cuda":
+        return _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
+                              similarity=similarity,
+                              score_precision=score_precision)
+    if v_x.device.type != "cpu":
+        raise ValueError(f"unsupported device [{v_x.device}]")
+    return plain_pool(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
+                      similarity=similarity, score_precision=score_precision)
+
+
+def _fused_rescore(queries, vectors, norms_sq, valid, cand, *, k, similarity):
+    """Exact fp32 rescore of pool candidates [S, B, R] -> top-k per shard.
+    Score ties keep pool order (scan-score rank). -1 candidates are
+    clamped before the gather (negative indices wrap in torch) and masked
+    after it."""
+    cand = cand.long()
+    cand_safe = torch.clamp(cand, min=0)
+    shard = torch.arange(vectors.shape[0], device=vectors.device)[:, None, None]
+    cvec = vectors[shard, cand_safe]                       # [S, B, R, d]
+    dots = torch.einsum("bd,sbrd->sbr", queries, cvec)
+    qsq = (queries * queries).sum(dim=1)[None, :, None]
+    scores = _transform_scores(dots, qsq, norms_sq[shard, cand_safe],
+                               similarity)
+    ok = (cand >= 0) & valid[shard, cand_safe]
+    scores = torch.where(ok, scores, _NEG_INF)
+    vals, pos = stable_topk(scores, k)
+    ids = torch.gather(cand, 2, pos)
+    ids = torch.where(torch.isfinite(vals), ids, -1).to(torch.int32)
+    return vals, ids
+
+
+def knn_fused_stacked(
+    vectors: torch.Tensor,    # [S, n, d] f32
+    norms_sq: torch.Tensor,   # [S, n] f32
+    valid: torch.Tensor,      # [S, n] bool
+    queries: torch.Tensor,    # [B, d] f32
+    *,
+    k: int,
+    similarity: str = "l2_norm",
+    score_precision: str = "fp32",
+    impl: str = "pallas",
+):
+    """Fused exact kNN over S shards in one scan: prep operands -> pool
+    scan (the kernel's wrapper for impl="pallas", the plain version for
+    impl="xla") -> exact fp32 rescore at reduced precisions. Returns
+    (scores [S, B, k], ids [S, B, k] int32) with (-inf, -1) past each
+    shard's valid-doc count. k_eff and R follow the reference's padding
+    arithmetic (n rounded up to a 1024-doc block), though no row is
+    padded here."""
+    _check_precision(score_precision)
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(f"unknown impl [{impl}] (one of {KERNEL_IMPLS})")
+    S, n, _d = vectors.shape
+    B = queries.shape[0]
+    n_pad = -(-n // FK_BLOCK) * FK_BLOCK
+    k_eff = min(k, n_pad)
+    r = min(fused_pool_width(k_eff, score_precision), n_pad)
+    qsq = (queries * queries).sum(dim=1)
+    v_x, q_x, scale = _prep_operands(vectors, queries, score_precision)
+    scan = pool_scan if impl == "pallas" else plain_pool
+    pv, pi = scan(v_x.contiguous(), norms_sq.contiguous(),
+                  valid.contiguous(), q_x.contiguous(), qsq, scale,
+                  r=r, similarity=similarity, score_precision=score_precision)
+    if score_precision == "fp32":
+        vals, ids = pv[:, :, :k_eff], pi[:, :, :k_eff]
+    else:
+        vals, ids = _fused_rescore(queries, vectors, norms_sq, valid, pi,
+                                   k=k_eff, similarity=similarity)
+    if k_eff < k:
+        vals = torch.cat([vals, vals.new_full((S, B, k - k_eff), _NEG_INF)], 2)
+        ids = torch.cat([ids, ids.new_full((S, B, k - k_eff), -1)], 2)
+    return vals, ids
+
+
+def knn_fused(vectors, norms_sq, valid, queries, *, k: int,
+              similarity: str = "l2_norm", score_precision: str = "fp32",
+              impl: str = "pallas"):
+    """One shard ([n, d] vectors): (scores [B, k], ids [B, k])."""
+    vals, ids = knn_fused_stacked(
+        vectors[None], norms_sq[None], valid[None], queries, k=k,
+        similarity=similarity, score_precision=score_precision, impl=impl)
+    return vals[0], ids[0]
+
+
+def knn_fused_shard(vectors, norms_sq, valid, queries, *, k: int,
+                    similarity: str = "l2_norm",
+                    score_precision: str = "fp32", impl: str = "pallas"):
+    """Per-shard fused scan, same contract as :func:`knn_fused`."""
+    return knn_fused(vectors, norms_sq, valid, queries, k=k,
+                     similarity=similarity, score_precision=score_precision,
+                     impl=impl)
+
+
+def knn_fused_auto(vectors, norms_sq, valid, queries, *, k: int,
+                   similarity: str = "l2_norm",
+                   score_precision: str = "fp32",
+                   impl: str | None = None):
+    """Policy front door: impl None/"auto"/"pallas" -> the kernel's
+    wrapper (the kernel on CUDA tensors, its plain version on CPU
+    tensors); "xla" -> the plain version."""
+    use = "xla" if impl == "xla" else "pallas"
+    return knn_fused(vectors, norms_sq, valid, queries, k=k,
+                     similarity=similarity, score_precision=score_precision,
+                     impl=use)
