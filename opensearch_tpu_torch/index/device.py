@@ -12,12 +12,16 @@ and the vector columns. Text, keyword and numeric columns stay on the host
 until the executor that scores them is ported.
 
 Vector norms use the host formula (float64 sum, then float32), so they are
-bit-identical to the JAX package's. IVF-PQ vector fields are not ported
-yet: a mapping that asks for one raises.
+bit-identical to the JAX package's. A vector column whose mapping asks for
+method ivf_pq also gets an IVF-PQ structure (ops/ivfpq.build) when the
+segment has at least ``min_train`` present vectors; smaller segments stay
+exact.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,6 +30,16 @@ import torch
 from opensearch_tpu_torch.index.segment import HostSegment, pad_size
 
 _ANN_METHODS = ("ivf_pq", "ivfpq", "ivf")
+
+# IVF-PQ build accounting (search/ann.AnnServingConfig.snapshot): builds
+# run on the refresh/merge path, which can run beside stats readers
+_ann_build_lock = threading.Lock()
+_ann_build_stats = {"builds": 0, "build_wall_ns": 0, "last_generation": 0}
+
+
+def ann_build_stats() -> dict:
+    with _ann_build_lock:
+        return dict(_ann_build_stats)
 
 
 def _pad1(a: np.ndarray, n: int, fill=0) -> np.ndarray:
@@ -50,9 +64,10 @@ class DeviceVectorField:
     present: torch.Tensor         # bool [n_pad]
     dims: int
     similarity: str
-    # the IVF-PQ structure of the reference; always None until ANN is
-    # ported (to_device raises for an ivf_pq mapping)
+    # IVF-PQ structure (ops/ivfpq.IVFPQIndex) built at refresh when the
+    # mapping asked for method ivf_pq and the segment is big enough
     ann: object | None = None
+    nprobe_default: int = 8
 
 
 @dataclass
@@ -76,14 +91,45 @@ class DeviceSegment:
         )
 
 
-def _check_not_ann(fname: str, vf) -> None:
+def _maybe_build_ann(vf, device: torch.device | str):
+    """Build an IVF-PQ index for a sealed vector column when asked for.
+
+    Returns (ann_or_None, nprobe_default). ANN serves l2/cosine;
+    dot_product stays exact, as in the k-NN plugin."""
     method = vf.method or {}
     name = str(method.get("name", "")).lower().replace("-", "_")
-    if name in _ANN_METHODS:
-        raise NotImplementedError(
-            f"knn_vector field [{fname}] asks for method [{name}]: IVF-PQ "
-            f"is not yet ported to opensearch_tpu_torch"
-        )
+    if name not in _ANN_METHODS:
+        return None, 8
+    if vf.similarity not in ("l2_norm", "l2", "cosine", "cosinesimil"):
+        return None, 8
+    params = method.get("parameters") or {}
+    n_present = int(vf.present.sum())
+    from opensearch_tpu_torch.ops import ivfpq
+
+    min_train = int(params.get("min_train", ivfpq.MIN_TRAIN_DOCS))
+    if n_present < min_train:
+        return None, 8
+    dims = vf.dims
+    m = int(params.get("m", params.get("code_size", ivfpq.DEFAULT_M)))
+    while dims % m != 0 and m > 1:
+        m -= 1
+    doc_ids = np.nonzero(vf.present)[0].astype(np.int32)
+    t0 = time.perf_counter_ns()
+    ann = ivfpq.build(
+        vf.vectors[doc_ids],
+        doc_ids,
+        nlist=int(params.get("nlist", ivfpq.DEFAULT_NLIST)),
+        m=m,
+        ks=int(params.get("ks", ivfpq.DEFAULT_KS)),
+        iters=int(params.get("iters", 10)),
+        normalized=vf.similarity in ("cosine", "cosinesimil"),
+        device=device,
+    )
+    with _ann_build_lock:
+        _ann_build_stats["builds"] += 1
+        _ann_build_stats["build_wall_ns"] += time.perf_counter_ns() - t0
+        _ann_build_stats["last_generation"] = ann.build_generation
+    return ann, int(params.get("nprobe", ivfpq.DEFAULT_NPROBE))
 
 
 def vector_field_from_numpy(vectors: np.ndarray, present: np.ndarray, *,
@@ -108,11 +154,12 @@ def to_device(seg: HostSegment, device: torch.device | str) -> DeviceSegment:
 
     vector_fields: dict[str, DeviceVectorField] = {}
     for fname, vf in seg.vector_fields.items():
-        _check_not_ann(fname, vf)
-        vector_fields[fname] = vector_field_from_numpy(
+        dvf = vector_field_from_numpy(
             vf.vectors, vf.present, similarity=vf.similarity, n_pad=n_pad,
             device=device,
         )
+        dvf.ann, dvf.nprobe_default = _maybe_build_ann(vf, device)
+        vector_fields[fname] = dvf
 
     return DeviceSegment(
         name=seg.name,

@@ -14,6 +14,7 @@ from opensearch_tpu_torch.index.device import (
     DeviceVectorField,
     vector_field_from_numpy,
 )
+from opensearch_tpu_torch.ops.ivfpq import IVFPQIndex, IVFPQParams
 from opensearch_tpu_torch.search.distributed_serving import _IndexBundle
 
 
@@ -44,3 +45,32 @@ def segment_vectors_from_numpy(vectors: np.ndarray, present: np.ndarray, *,
     return vector_field_from_numpy(
         vectors, present, similarity=similarity,
         n_pad=vectors.shape[0] if n_pad is None else n_pad, device=device)
+
+
+def ivfpq_index_from_numpy(coarse: np.ndarray, codebooks: np.ndarray,
+                           codes: np.ndarray, ids: np.ndarray,
+                           mask: np.ndarray, *, l_pad: int, n: int,
+                           normalized: bool, device: torch.device | str,
+                           build_generation: int = 0) -> IVFPQIndex:
+    """An IVF-PQ build carried across as numpy arrays (coarse [nlist, d],
+    codebooks [m, ks, dsub], codes [nlist, L_pad, m] uint8, ids and mask
+    [nlist, L_pad]), so both packages search the same build."""
+    coarse = np.ascontiguousarray(coarse, np.float32)
+    codebooks = np.ascontiguousarray(codebooks, np.float32)
+    nlist, d = coarse.shape
+    m, ks, _dsub = codebooks.shape
+    put = lambda a, dt: torch.from_numpy(np.array(a, dtype=dt)).to(device)
+    return IVFPQIndex(
+        params=IVFPQParams(coarse=put(coarse, np.float32),
+                           codebooks=put(codebooks, np.float32),
+                           nlist=nlist, m=m, ks=ks, d=d),
+        codes=put(codes, np.uint8),
+        ids=put(ids, np.int32),
+        mask=put(mask, bool),
+        l_pad=int(l_pad),
+        n=int(n),
+        normalized=bool(normalized),
+        build_generation=build_generation,
+        coarse_host=coarse,
+        coarse_sq_host=np.sum(coarse * coarse, axis=1),
+    )

@@ -13,10 +13,12 @@ the host merge's tie-break order), stacked to [S, n_flat, d] and copied to
 the shards' device. The slabs are cached per (index, field, per-shard
 segment generations) in the shard-mesh registry; a refresh makes a new key.
 
-Not yet ported, and raised as such rather than served another way:
-filtered kNN (the filter mask needs the per-shard executor), ANN-indexed
-columns, and shard sets the stacked path cannot serve (no shard maps the
-field, or mixed similarities or dims).
+The step declines (``mesh_knn_batch`` returns None, and the service runs
+the per-shard route of search/executor.py) where the reference declines:
+an unfiltered query on an ANN-indexed column (the per-shard route answers
+it with IVF-PQ), and shard sets the stacked path cannot serve (no shard
+maps the field, or mixed similarities or dims). Filtered kNN is not yet
+ported and raises as such.
 """
 
 from __future__ import annotations
@@ -31,7 +33,11 @@ import torch
 from opensearch_tpu_torch.cluster.shard_mesh import default_registry as registry
 from opensearch_tpu_torch.index.device import vector_norms_sq
 from opensearch_tpu_torch.parallel.distributed import build_knn_serving_step
-from opensearch_tpu_torch.search.executor import ShardHit, ShardQueryResult
+from opensearch_tpu_torch.search.executor import (
+    ShardHit,
+    ShardQueryResult,
+    not_yet_ported,
+)
 
 # observability: tests and chip_smoke.py assert the serving path ran.
 # Increment via _count(): a bare `dict[k] += 1` drops counts under
@@ -48,6 +54,9 @@ def _count(key: str, n: int = 1) -> None:
     with _STATS_LOCK:
         stats[key] += n
 
+
+# kill switch (tests compare the stacked step with the per-shard route)
+enabled = True
 
 _PROGRAM_CACHE: dict[tuple, Any] = {}
 _CACHE_LOCK = threading.Lock()
@@ -98,13 +107,11 @@ class _IndexBundle:
         raise IndexError(f"flat doc {flat} out of range for shard {shard_idx}")
 
 
-def not_yet_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to opensearch_tpu_torch")
-
-
-def _can_serve(snaps: list, field: str) -> tuple[str, int]:
-    """(similarity, dims) when every shard can be served by the stacked
-    path; raises for the shapes this slice does not serve."""
+def _can_serve(snaps: list, field: str) -> tuple[str, int] | None:
+    """(similarity, dims) when every shard can be served exactly by the
+    stacked step, else None. ANN-indexed segments decline an (unfiltered)
+    query: the per-shard route answers it with IVF-PQ, and this step must
+    give what that route gives."""
     from opensearch_tpu_torch.ops.knn import canonical_similarity
 
     similarity = None
@@ -115,17 +122,14 @@ def _can_serve(snaps: list, field: str) -> tuple[str, int]:
             if vf is None:
                 continue
             if vf.ann is not None:
-                raise not_yet_ported("ANN (IVF-PQ) kNN serving")
+                return None
             sim = canonical_similarity(vf.similarity)
             if similarity is None:
                 similarity, dims = sim, vf.dims
             elif sim != similarity or vf.dims != dims:
-                raise not_yet_ported(
-                    f"kNN over shards with mixed similarities or dims for "
-                    f"[{field}]")
+                return None
     if similarity is None:
-        raise not_yet_ported(
-            f"kNN on a field no searchable segment maps ([{field}])")
+        return None
     return similarity, dims
 
 
@@ -198,10 +202,12 @@ def mesh_knn_batch(
     nodes: list,
     fetch_k: int,
     alias_filters: list | None = None,
-) -> MeshLaunchOutcome:
+) -> MeshLaunchOutcome | None:
     """Execute B KnnQuery nodes (same field/k, no filter) in ONE device
     launch. Returns the per-query per-shard results, the device-merged row
-    order and the launch attribution. Raises for what is not yet ported."""
+    order and the launch attribution; None when the step declines the
+    shard set (see :func:`_can_serve`). Raises for what is not yet
+    ported."""
     if not shards or len(shards) != len(snaps) or not nodes:
         raise ValueError("mesh_knn_batch needs shards, their snapshots and "
                          "at least one query")
@@ -214,7 +220,10 @@ def mesh_knn_batch(
             raise not_yet_ported("filtered kNN")
     if alias_filters is not None and any(f is not None for f in alias_filters):
         raise not_yet_ported("kNN through a filtered alias")
-    similarity, dims = _can_serve(snaps, first.field)
+    served = _can_serve(snaps, first.field)
+    if served is None:
+        return None
+    similarity, dims = served
     for node in nodes:
         if len(node.vector) != dims:
             raise ValueError(

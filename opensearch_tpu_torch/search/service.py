@@ -1,10 +1,13 @@
 """Search service: query phase -> merge -> fetch phase -> response.
 
 Counterpart of opensearch_tpu/search/service.py, for the slice the port
-serves so far: a top-level ``knn`` query, answered by the stacked serving
-step (search/distributed_serving.mesh_knn_batch, the route the reference's
-``_try_distributed_query_phase`` takes for a bare knn query), then the
-fetch of the winning docs. Launches are solo (no batcher), as in the
+serves so far: a top-level ``knn`` query, then the fetch of the winning
+docs. The route is the reference's ``_try_distributed_query_phase``
+choice: the stacked serving step (search/distributed_serving.
+mesh_knn_batch) unless it is switched off or declines (an ANN-indexed
+column); then the per-shard route (search/executor.execute_query_phase per
+shard, which serves IVF-PQ) and the host merge by
+(-score, shard, segment, doc). Launches are solo (no batcher), as in the
 reference with ``search.knn.batch.enabled=false``. Every other query or
 request key raises "not yet ported".
 
@@ -21,6 +24,7 @@ from typing import Any
 
 from opensearch_tpu_torch.common.errors import ParsingException
 from opensearch_tpu_torch.search import distributed_serving, query_dsl
+from opensearch_tpu_torch.search.executor import execute_query_phase
 
 DEFAULT_SIZE = 10
 # request keys this slice serves
@@ -51,14 +55,26 @@ def search(shards: list, body: dict | None) -> dict[str, Any]:
     total = 0
     max_score = None
     snaps = [s.acquire_searcher() for s in shards]
-    if shards:
-        out = distributed_serving.mesh_knn_batch(shards, snaps, [node], fetch_k)
-        merged = out.premerged[0]
-        for result in out.per_query[0]:
-            total += result.total
-            if result.max_score is not None and (
-                    max_score is None or result.max_score > max_score):
-                max_score = result.max_score
+    results = None
+    out = _try_distributed_query_phase(shards, snaps, node, fetch_k)
+    if out is not None:
+        merged, results = out.premerged[0], out.per_query[0]
+    elif shards:
+        # the per-shard route. can_match is not ported: for a knn query the
+        # reference's pre-filter always matches (search/phases.py:68)
+        results = [
+            execute_query_phase(snap, shard.mapper_service, node, size=fetch_k)
+            for shard, snap in zip(shards, snaps)
+        ]
+        merged = [(shard_idx, h) for shard_idx, result in enumerate(results)
+                  for h in result.hits]
+        merged.sort(key=lambda sh: (-sh[1].score, sh[0], sh[1].segment,
+                                    sh[1].doc))
+    for result in results or ():
+        total += result.total
+        if result.max_score is not None and (
+                max_score is None or result.max_score > max_score):
+            max_score = result.max_score
     page = merged[from_: from_ + size]
 
     source_filter = _source_filter(body.get("_source", True))
@@ -97,6 +113,18 @@ def search(shards: list, body: dict | None) -> dict[str, Any]:
                     "skipped": 0, "failed": 0},
         "hits": hits_obj,
     }
+
+
+def _try_distributed_query_phase(shards: list, snaps: list, node,
+                                 fetch_k: int):
+    """The stacked serving step's launch outcome for this query, or None
+    when the per-shard route must answer it: no shards, the step switched
+    off (``distributed_serving.enabled``), or the step declining the shard
+    set (``distributed_serving._can_serve``: among others, an unfiltered
+    query on an ANN-indexed column)."""
+    if not shards or not distributed_serving.enabled:
+        return None
+    return distributed_serving.mesh_knn_batch(shards, snaps, [node], fetch_k)
 
 
 def _source_filter(spec: Any):

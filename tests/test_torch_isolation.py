@@ -40,28 +40,43 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert "opensearch_tpu_torch" in _top_level_imports(PKG / "node.py")
 
 
-def test_search_runs_with_jax_unimportable(tmp_path):
+# an ivf_pq mapping with min_train 64 over 200 docs: the refresh builds an
+# IVF-PQ index and the search takes the per-shard ANN route
+_ANN_METHOD = {"name": "ivf_pq",
+               "parameters": {"nlist": 4, "m": 3, "min_train": 64}}
+
+
+@pytest.mark.parametrize("method,n_docs", [(None, 20), (_ANN_METHOD, 200)],
+                         ids=["exact", "ivf_pq"])
+def test_search_runs_with_jax_unimportable(tmp_path, method, n_docs):
+    mapping = {"type": "knn_vector", "dimension": 3}
+    if method is not None:
+        mapping["method"] = method
     script = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
         sys.modules["opensearch_tpu"] = None
         sys.path.insert(0, {str(PKG.parent)!r})
         from opensearch_tpu_torch.node import TorchNode
+        from opensearch_tpu_torch.search import executor
         node = TorchNode({str(tmp_path)!r}, device="cpu")
         node.create_index("i", {{"mappings": {{"properties": {{
-            "v": {{"type": "knn_vector", "dimension": 3}}}}}}}})
+            "v": {mapping!r}}}}}}})
         node.bulk([("index", {{"_index": "i", "_id": str(i)}},
-                    {{"v": [float(i), 1.0, 0.0]}}) for i in range(20)])
+                    {{"v": [float(i), 1.0, 0.0]}}) for i in range({n_docs})])
         node.refresh("i")
         r = node.search("i", {{"query": {{"knn": {{"v": {{
             "vector": [4.1, 1.0, 0.0], "k": 3}}}}}}, "size": 3}})
         print(",".join(h["_id"] for h in r["hits"]["hits"]))
+        print(executor.knn_path_stats["ann"])
         node.close()
     """)
     out = subprocess.run([sys.executable, "-c", script], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "4,5,3"
+    hits, ann = out.stdout.split()
+    assert hits == "4,5,3"
+    assert ann == ("1" if method is not None else "0")
 
 
 def test_default_device_is_the_card(tmp_path, monkeypatch):
@@ -106,12 +121,30 @@ def test_bodies_outside_the_slice_raise(node, body):
         node.search("i", body)
 
 
-def test_ivf_pq_mapping_raises_not_yet_ported(tmp_path):
+def test_ivf_pq_mapping_builds_at_min_train(tmp_path):
+    """Below min_train an ivf_pq column stays exact and serves; at or above
+    it the refresh builds an IVFPQIndex."""
+    from opensearch_tpu_torch.ops.ivfpq import IVFPQIndex
+
     n = TorchNode(tmp_path, device="cpu")
     n.create_index("ann", {"mappings": {"properties": {"v": {
         "type": "knn_vector", "dimension": 4,
-        "method": {"name": "ivf_pq"}}}}})
-    n.bulk([("index", {"_index": "ann", "_id": "1"}, {"v": [1, 2, 3, 4]})])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        n.refresh("ann")
+        "method": {"name": "ivf_pq", "parameters": {
+            "nlist": 4, "m": 2, "min_train": 40}}}}}})
+    rng = np.random.default_rng(3)
+    data = rng.standard_normal((60, 4)).astype(np.float32)
+    n.bulk([("index", {"_index": "ann", "_id": str(i)}, {"v": data[i].tolist()})
+            for i in range(20)], refresh=True)
+    (shard,) = n.indices["ann"].shards.values()
+    (_host, dev), = shard.acquire_searcher().segments
+    assert dev.vector_fields["v"].ann is None
+    r = n.search("ann", {"query": {"knn": {"v": {
+        "vector": data[7].tolist(), "k": 1}}}})
+    assert [h["_id"] for h in r["hits"]["hits"]] == ["7"]
+    n.bulk([("index", {"_index": "ann", "_id": str(i)}, {"v": data[i].tolist()})
+            for i in range(20, 60)], refresh=True)
+    anns = [dev.vector_fields["v"].ann
+            for _h, dev in shard.acquire_searcher().segments]
+    assert [type(a) for a in anns] == [type(None), IVFPQIndex]
+    assert anns[1].n == 40 and anns[1].params.m == 2
     n.close()
