@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py [--seed N] [--phases kernel,timing,main]
 
-Builds the port's CUDA kernels from the sources in this checkout (one nvcc
-per source, all started together), then, for K1 (csrc/knn_fused.cu, fused
-exact kNN) and K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan):
+Builds the port's five CUDA kernels from the sources in this checkout (one
+nvcc per source, all started together): K1 (csrc/knn_fused.cu, fused exact
+kNN), K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family
+K3 (csrc/knn_block.cu, running top-k), K4 (csrc/knn_pb.cu, per-block top-k)
+and K5 (csrc/knn_sbmax.cu, sub-block maxima). Then:
 
 1. kernel: holds each kernel against its plain PyTorch version on the card.
    K1: fp32, bf16 and int8 x l2, cosine and dot (n = 50,000, d = 128,
@@ -22,9 +24,18 @@ exact kNN) and K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan):
    rtol 1e-6 / atol 1e-6: kernel and plain add the m LUT entries in the same
    order with round-to-nearest f32 adds, so they should agree to the bit;
    the tolerance allows a rounding, never a reordering of candidates.
-2. timing: CUDA-event times of each kernel, its plain version and (K1 only)
-   a library yardstick, beside the bound, at B = 1 and 32. K1 at the
-   SIFT-1M shape (n = 1,000,000, d = 128, f32, l2, k = 10): library is
+   K3, K4, K5: n = 50,000 (ragged past both block sizes), d = 128, 3% dead
+   docs, a duplicate planted across the block boundaries, B = 5, 16 and
+   40 (three 16-query tiles), k = 10 and 100, l2, cosine and dot, K4 and
+   K5 at exact and not. The
+   data are multiples of 1/16, so every dot is exact in f32 in any order:
+   stage 1 (K3's pools, K4's per-block pools, K5's maxima) and the whole
+   entry point must equal the plain versions bit for bit, and the lower
+   id must win the planted tie. exact=False runs on the same data plus
+   2^-14, which the bf16 rounding of the operands must remove.
+2. timing: CUDA-event times of each kernel, its plain version and a library
+   yardstick where one exists, beside the bound. K1 at the SIFT-1M shape
+   (n = 1,000,000, d = 128, f32, l2, k = 10) at B = 1 and 32: library is
    torch.topk over the l2-transformed q @ v.T (never called by the port);
    bound max(bytes / 3.35 TB/s, 2*B*n*d / 67 TFLOP/s). K2 at the
    glove-100 shape (1,200,000 x 100-d, cosine, m = 20, nlist = 512,
@@ -32,20 +43,42 @@ exact kNN) and K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan):
    bound max(bytes / 3.35 TB/s, lookups / 67 T/s), both counted from the
    run's probes (adc_bound: each distinct probed list's live codes and mask
    once, the LUTs, the winners' ids, the pool); no single PyTorch call
-   computes an ADC top-R, so K2 has no library time.
+   computes an ADC top-R, so K2 has no library time. K3, K4, K5 through
+   their entry points at the SIFT-1M shape (SIFT-style integer
+   descriptors) at B = 1 and 32, and 128 for K4 and K5: first one call per
+   B with the launch counts set to 0 (their path), each answer the
+   brute-force top-10 in order with its scores bit for bit, and each
+   kernel's stage 1 bit-equal to its own plain version at every B; then
+   the call's time, its device time under torch.profiler, the plain
+   pipeline's, the library yardstick's and the bound (slab, norms, flags
+   and queries read once, what the kernel writes, against 2*B*n*d
+   operations).
 3. main: drives TorchNode on the card. Exact (K1): index A (1 shard,
    200,000 clustered 128-d docs) and index B (4 shards, 20,000 docs), 64
    knn searches each; every hit list must equal the brute-force truth in
    the same order, every search must go through the stacked serving path
-   and K1. ANN (K2): index C (1 shard, 200,000 clustered 100-d docs,
-   cosine, ivf_pq nlist 512, m 20, nprobe 8; cut from 1.2M by host
-   ingest), 64 knn searches, k = 10; every hit list must equal the plain
-   pipeline (adc_topr_auto impl="xla") on the same index and probes, every
-   search must take the per-shard ANN branch and launch K2. Recall@10
-   against exact cosine brute force is printed, not gated. Then a second
-   refresh adds 300 docs (below min_train, so an exact segment) and 16
-   searches over both segments must equal the plain pipeline and launch
-   K2 and K1 (the per-shard route's exact branch) each time.
+   and K1. Then index A on the per-shard route (distributed_serving off):
+   32 searches at k = 256, size = 10 must equal the brute force and each
+   take the streaming scan, and 64 searches from 8 threads (K1 through the
+   dispatch batcher) must equal the same searches run one at a time; in
+   the gated run (each round of 8 released together, a 50 ms batch
+   window) with a mean merged batch above 1 and fewer K1 launches than
+   searches.
+   ANN (K2): index C (1 shard, 200,000 clustered 100-d docs, cosine,
+   ivf_pq nlist 512, m 20, nprobe 8; cut from 1.2M by host ingest), 64 knn
+   searches, k = 10; every hit list must equal the plain pipeline
+   (adc_topr_auto impl="xla") on the same index and probes, every search
+   must take the per-shard ANN branch and launch K2. Recall@10 against
+   exact cosine brute force is printed, not gated. Then a second refresh
+   adds 300 docs (below min_train, so an exact segment) and 16 searches
+   over both segments must equal the plain pipeline and launch K2 and K1
+   (the per-shard route's exact branch) each time; 16 more at k = 256 must
+   take the materializing scan on the small segment and equal the plain
+   pipeline; and the 64 searches from 8 threads must equal the solo ones,
+   with fewer K2 and K1 launches than searches in the gated run. Each
+   8-thread run is repeated free-running under the default batch window
+   (measured, not gated) and with the batcher off; p50, p99 and QPS are
+   printed solo, concurrent and concurrent without the batcher.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`. Exits non-zero, with no result
@@ -59,6 +92,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -72,8 +106,9 @@ ANN_DIM = 100                 # glove-100
 ANN_M = 20
 K2_PARITY_DOCS = 100_000      # K2 kernel phase build
 GLOVE_DOCS = 1_200_000        # K2 timing phase (the glove-100 corpus size)
+SIFT_DOCS = 1_000_000         # K3-K5 timing phase (the SIFT-1M corpus size)
 ANN_MAIN_DOCS = 200_000       # index C (cut from 1.2M by host ingest)
-KERNELS = ("knn_fused", "adc_scan")
+KERNELS = ("knn_fused", "adc_scan", "knn_block", "knn_pb", "knn_sbmax")
 SIMS = ("l2_norm", "cosine", "dot_product")
 
 
@@ -253,6 +288,245 @@ def timing_phase(kf, dev, seed: int) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# K3, K4, K5: the exact-scan family
+# --------------------------------------------------------------------------
+
+FAMILY = ("knn_block", "knn_pb", "knn_sbmax")
+FAMILY_ENTRY = {"knn_block": "knn_topk_auto", "knn_pb": "knn_blocktopk_auto",
+                "knn_sbmax": "knn_sbmax_auto"}
+
+
+def sixteenths(rng, n: int, d: int) -> np.ndarray:
+    """Clustered vectors whose coordinates are multiples of 1/16 below 4 in
+    magnitude: every product and every partial sum of a dot is exact in
+    f32, so a dot comes out to the same bits in any summation order and
+    the kernels must agree with their plain versions bit for bit, ties
+    (there are many) included."""
+    x = np.round(clustered(rng, n, d) * 4.0) / 16.0
+    return np.clip(x, -63 / 16, 63 / 16).astype(np.float32)
+
+
+def sift_like(rng, n: int, d: int) -> np.ndarray:
+    """SIFT-style descriptors: clustered integer coordinates in [0, 255].
+    Dots stay below 2^24, so f32 holds them exactly in any order."""
+    centers = rng.integers(0, 120, (64, d)).astype(np.float32)
+    out = np.empty((n, d), np.float32)
+    for lo in range(0, n, 200_000):
+        hi = min(lo + 200_000, n)
+        out[lo:hi] = centers[rng.integers(0, 64, hi - lo)] + \
+            rng.normal(0.0, 12.0, (hi - lo, d)).astype(np.float32)
+    return np.clip(np.round(out), 0, 255).astype(np.float32)
+
+
+def family_stage1(kb, name: str, args, k: int, sim: str, exact: bool):
+    """(kernel, plain) stage-1 outputs of one family kernel on the same
+    padded operands."""
+    if name == "knn_block":
+        return (kb.block_topk(*args, k=k, similarity=sim),
+                kb.plain_block_topk(*args, k=k, similarity=sim))
+    if name == "knn_pb":
+        return (kb.pb_topk(*args, k=k, similarity=sim, exact=exact),
+                kb.plain_pb_topk(*args, k=k, similarity=sim, exact=exact))
+    return ((kb.sbmax(*args, similarity=sim, exact=exact),),
+            (kb.plain_sbmax(*args, similarity=sim, exact=exact),))
+
+
+def family_plain(kb, name: str, v, nrm, ok, q, k: int, sim: str = "l2_norm",
+                 exact: bool = True):
+    """The whole entry point with the plain stage 1, on the card."""
+    if name == "knn_block":
+        qp = kb._pad_queries(q, None)
+        return kb.plain_block_topk(v, nrm, ok, qp, k=k, similarity=sim)
+    qp = kb._pad_queries(q, kb.PB_QTILE)
+    if name == "knn_pb":
+        return kb.pb_merge(*kb.plain_pb_topk(v, nrm, ok, qp, k=k,
+                                             similarity=sim, exact=exact), k)
+    return kb.sbmax_rescore(kb.plain_sbmax(v, nrm, ok, qp, similarity=sim,
+                                           exact=exact),
+                            v, nrm, ok, qp, k=k, similarity=sim, exact=exact)
+
+
+def compare_stage1(kb, name, args, k, sim, exact, what: str) -> float:
+    """Kernel vs plain stage 1, bit for bit: ids (K4: on finite slots) and
+    scores. Returns max |dv| over the finite slots."""
+    got, want = family_stage1(kb, name, args, k, sim, exact)
+    torch.cuda.synchronize()
+    if not torch.equal(got[0], want[0]):
+        bad = (got[0] != want[0]).nonzero()[:5].tolist()
+        raise AssertionError(f"{what}: scores differ at {bad}")
+    fin = torch.isfinite(want[0])
+    if len(got) > 1 and not torch.equal(got[1][fin], want[1][fin]):
+        raise AssertionError(f"{what}: ids differ on finite slots")
+    return float((got[0][fin] - want[0][fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+
+
+def blocks_kernel_phase(kb, dev, seed: int) -> dict:
+    """K3, K4 and K5 against their plain versions on the card: n = 50,000
+    (a ragged tail past both block sizes), d = 128, 3% dead docs, a
+    duplicate of doc 2040 planted at 2053 (across both the 1024- and the
+    2048-doc block boundary), B = 5, 16 and 40 (three of the kernels'
+    16-query tiles, the last one partial), k = 10 and 100, l2, cosine and
+    dot, K4 and K5 at exact and not. The data are sixteenths: stage 1 must
+    match bit for bit, and the whole entry point (second stages included)
+    too. exact=False is checked on the same data plus 2^-14 on every
+    nonzero coordinate, which the bf16 rounding of the operands must take
+    away again. Returns each kernel's max |dv| against its plain version,
+    stage 1 and entry point."""
+    rng = np.random.default_rng(seed + 20)
+    n, d = 50_000, DIM
+    base = sixteenths(rng, n, d)
+    base[2053] = base[2040]
+    valid = np.ones(n, bool)
+    valid[rng.choice(n, int(0.03 * n), replace=False)] = False
+    valid[[2040, 2053]] = True
+    jitter = np.where(base != 0, np.where(rng.random((n, d)) < 0.5, 1, -1)
+                      * 2.0 ** -14, 0).astype(np.float32)
+    ok = torch.from_numpy(valid).to(dev)
+    err = dict.fromkeys(FAMILY, 0.0)
+    for exact, data in ((True, base), (False, base + jitter)):
+        v = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+        nrm = torch.from_numpy((data.astype(np.float64) ** 2).sum(1).astype(
+            np.float32)).to(dev)
+        for b in (5, 16, 40):
+            queries = data[rng.choice(n, b, replace=False)].copy()
+            queries[0] = data[2040]
+            q = torch.from_numpy(queries).to(dev)
+            for k in (10, 100):
+                for sim in SIMS:
+                    for name in FAMILY:
+                        if name == "knn_block" and not exact:
+                            continue
+                        qtile = None if name == "knn_block" else kb.PB_QTILE
+                        args = (v, nrm, ok, kb._pad_queries(q, qtile))
+                        what = f"{name} {sim} B={b} k={k} exact={exact}"
+                        err[name] = max(err[name], compare_stage1(
+                            kb, name, args, k, sim, exact, what))
+                        kw = {} if name == "knn_block" else {"exact": exact}
+                        gv, gi = getattr(kb, FAMILY_ENTRY[name])(
+                            v, nrm, ok, q, k=k, similarity=sim, **kw)
+                        pv, pi = family_plain(kb, name, v, nrm, ok, q, k, sim,
+                                              exact)
+                        if not (torch.equal(gi, pi[:b])
+                                and torch.equal(gv, pv[:b])):
+                            raise AssertionError(f"{what}: entry point differs "
+                                                 f"from its plain pipeline")
+                        fin = torch.isfinite(pv[:b])
+                        if bool(fin.any()):
+                            err[name] = max(err[name], float(
+                                (gv[fin] - pv[:b][fin]).abs().max()))
+                        if exact and sim == "l2_norm" and \
+                                gi[0, :2].tolist() != [2040, 2053]:
+                            raise AssertionError(
+                                f"{what}: planted tie gave {gi[0, :2].tolist()}")
+            log(f"K3/K4/K5 parity exact={exact} B={b}: bit-equal over k = 10, "
+                f"100 and l2, cosine, dot")
+    return err
+
+
+def blocks_bound(name: str, n: int, d: int, b: int, k: int, nb: int) -> dict:
+    """The least time of one call: the slab, norms and valid flags read
+    once, the queries, and what the kernel writes (K3 [B, k], K4 [nb, B, k]
+    values and ids, K5 [nb, B, 16] maxima), over 3.35 TB/s; against
+    2*B*n*d operations over 67 TFLOP/s."""
+    out = {"knn_block": 8 * b * k, "knn_pb": 8 * nb * b * k,
+           "knn_sbmax": 4 * nb * b * 16}[name]
+    nbytes = n * d * 4 + n * 4 + n + b * d * 4 + out
+    flops = 2 * b * n * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def blocks_timing_phase(kb, dev, seed: int) -> dict:
+    """K3, K4 and K5 through their entry points at the SIFT-1M shape
+    (1,000,000 SIFT-style 128-d f32 docs, l2, k = 10) at B = 1 and 32, and
+    B = 128 for K4 and K5 (their design tile). First the path run: the
+    launch counts are set to 0, each entry point answers once per B, and
+    each answer must be the brute-force top-10 in order, scores bit for bit
+    (the plain scores and a stable top-10: the data make every dot exact).
+    Then, at each of these B, each kernel's stage 1 (K3's pools, K4's
+    per-block pools over all 489 blocks, K5's maxima) must equal its own
+    plain version bit for bit. Then the CUDA-event time of each call, its
+    device time under torch.profiler, the plain pipeline's time, the library
+    yardstick (torch.topk over the l2-transformed q @ v.T) and the bound."""
+    rng = np.random.default_rng(seed + 21)
+    n, k = SIFT_DOCS, 10
+    v = torch.from_numpy(sift_like(rng, n, DIM)).to(dev)
+    nrm = (v.double() ** 2).sum(1).float()
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    q_all = torch.clamp(torch.round(
+        v[torch.from_numpy(rng.choice(n, 128, replace=False)).to(dev)]
+        + torch.from_numpy(rng.normal(0, 4, (128, DIM)).astype(np.float32))
+        .to(dev)), 0, 255)
+    sizes = {"knn_block": (1, 32), "knn_pb": (1, 32, 128),
+             "knn_sbmax": (1, 32, 128)}
+    for counter in (kb.block_launches, kb.pb_launches, kb.sbmax_launches):
+        counter.reset()
+    for name, bs in sizes.items():
+        for b in bs:
+            q = q_all[:b].contiguous()
+            tv, ti = getattr(kb, FAMILY_ENTRY[name])(v, nrm, ok, q, k=k)
+            bv, bi = kb.plain_block_topk(v, nrm, ok, q, k=k,
+                                         similarity="l2_norm")
+            if not (torch.equal(ti, bi) and torch.equal(tv, bv)):
+                raise AssertionError(f"{name} B={b}: not the brute-force "
+                                     f"top-10 in order")
+    launches = {"knn_block": kb.block_launches.count,
+                "knn_pb": kb.pb_launches.count,
+                "knn_sbmax": kb.sbmax_launches.count}
+    for name, bs in sizes.items():
+        if launches[name] != len(bs):
+            raise AssertionError(f"{name}: {launches[name]} launches in "
+                                 f"{len(bs)} calls")
+    log(f"K3/K4/K5 at the SIFT-1M shape: brute-force top-10 in order; "
+        f"launches {launches}")
+    out = {name: {"launches": launches[name], "stage1_err": 0.0}
+           for name in sizes}
+    for name, bs in sizes.items():
+        qtile = None if name == "knn_block" else kb.PB_QTILE
+        for b in bs:
+            args = (v, nrm, ok, kb._pad_queries(q_all[:b].contiguous(), qtile))
+            out[name]["stage1_err"] = max(out[name]["stage1_err"],
+                                          compare_stage1(
+                kb, name, args, k, "l2_norm", True,
+                f"{name} SIFT-1M shape B={b} stage 1"))
+    log("K3/K4/K5 at the SIFT-1M shape: stage 1 bit-equal to the plain "
+        "versions at every B")
+    nb = -(-n // kb.PB_BLOCK)
+    for name, bs in sizes.items():
+        entry = getattr(kb, FAMILY_ENTRY[name])
+        for b in bs:
+            q = q_all[:b].contiguous()
+            ms = time_ms(lambda: entry(v, nrm, ok, q, k=k), 10)
+            plain_ms = time_ms(lambda: family_plain(kb, name, v, nrm, ok, q, k),
+                               3)
+            qsq = (q * q).sum(1)
+
+            def library():
+                d_sq = torch.clamp(qsq[:, None] - 2.0 * (q @ v.T) + nrm[None],
+                                   min=0.0)
+                return torch.topk(1.0 / (1.0 + d_sq), k)
+
+            library_ms = time_ms(library, 10)
+            prof = device_profile(lambda: entry(v, nrm, ok, q, k=k), 5)
+            bound = blocks_bound(name, n, DIM, b, k, nb)
+            out[name][b] = {"ms": ms, "plain_ms": plain_ms,
+                            "library_ms": library_ms,
+                            "device_ms": prof and prof["device_ms"], **bound}
+            log(f"{name} SIFT-1M shape B={b}: {ms:.4f} ms (device "
+                f"{out[name][b]['device_ms']}), plain {plain_ms:.4f} ms, "
+                f"library {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} "
+                f"ms ({bound['bound_by']}); top kernels "
+                f"{prof and prof['top']}")
+    del v
+    torch.cuda.empty_cache()
+    return out
+
+
 def _bulk_index(node, name: str, data: np.ndarray, shards: int) -> None:
     node.create_index(name, {
         "settings": {"number_of_shards": shards},
@@ -278,6 +552,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
                "sift_b": (clustered(rng, 20_000, DIM), 4)}
     out = {}
     step_inputs = {}
+    truths = {}
     with tempfile.TemporaryDirectory() as tmp:
         node = TorchNode(tmp, device="cuda")
         for name, (data, shards) in corpora.items():
@@ -312,6 +587,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
                                     similarity="l2_norm",
                                     score_precision="fp32")
             truth = [[str(int(i)) for i in row] for row in ti[0].cpu()]
+            truths[name] = (queries, truth)
             if hits != truth:
                 bad = next(i for i, (h, t) in enumerate(zip(hits, truth)) if h != t)
                 raise AssertionError(
@@ -322,6 +598,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
                 f"{np.percentile(lat_ms, 99):.3f} ms, QPS {64 / sum(lat):.1f}")
         launches = kf.launches.count
         searches = distributed_serving.stats["distributed_searches"] - searches0
+        per_shard = per_shard_exact_phase(node, kf, *truths["sift_a"])
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
     # each index's shape, beside the whole search's latency above
@@ -336,7 +613,157 @@ def main_path_phase(kf, dev, seed: int) -> dict:
     if launches < 128:
         raise AssertionError(f"the kernel launched {launches} times in 128 searches")
     log(f"main path: {searches} served searches, {launches} kernel launches")
-    return {"launches": launches, "latency_s": out, "step_ms": step_ms}
+    return {"launches": launches, "latency_s": out, "step_ms": step_ms,
+            "per_shard": per_shard}
+
+
+def latency_summary(lat_s: list, wall_s: float | None = None) -> dict:
+    """p50 and p99 of per-search latencies (ms) and QPS: searches over the
+    summed latencies, or over the wall time when searches overlapped."""
+    lat_ms = np.asarray(lat_s) * 1e3
+    return {"p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "qps": len(lat_s) / (wall_s if wall_s is not None else sum(lat_s))}
+
+
+def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
+                     counters: dict) -> dict:
+    """The 64 queries one after another, then the same 64 from 8 threads of
+    8 searches each, three times. Every concurrent hit list must equal its
+    solo one: ids in order, scores to K1's rtol 1e-5 / atol 2e-3, because a
+    batch of B queries goes through PyTorch products (the IVF-PQ LUTs, the
+    exact rescore) whose f32 sums the library may order by B, and for a
+    near neighbour l2's |q|^2 - 2 q.v + |v|^2 cancels near |q|^2 ~ 2,000.
+
+    1. The gated run: each round of 8 searches leaves a barrier together,
+       and the batcher waits up to 50 ms with its tuner off, so the merge
+       does not hang on how the host schedules the threads. The batcher
+       must have merged more than one query a launch on average, and each
+       kernel in `counters` must have launched fewer times than there were
+       searches.
+    2. The measured run: the threads run free under the batcher's default
+       settings; p50, p99, QPS and the mean merged batch are reported, not
+       gated.
+    3. The same with the batcher switched off, to tell its share of the
+       concurrent numbers from the threads'."""
+    def search(qv) -> list:
+        resp = node.search(name, {"query": {"knn": {"v": {
+            "vector": qv.tolist(), "k": k}}}, "size": 10})
+        return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+
+    n = len(queries)
+    solo, solo_lat = [], []
+    for qv in queries:
+        t0 = time.perf_counter()
+        solo.append(search(qv))
+        solo_lat.append(time.perf_counter() - t0)
+
+    def threaded(together: bool = False) -> tuple[list, float]:
+        got, lat = [None] * n, [0.0] * n
+        barrier = threading.Barrier(8) if together else None
+
+        def worker(t: int) -> None:
+            try:
+                for i in range(t, n, 8):
+                    if barrier is not None:
+                        barrier.wait(timeout=120)
+                    t0 = time.perf_counter()
+                    got[i] = search(queries[i])
+                    lat[i] = time.perf_counter() - t0
+            except BaseException:
+                if barrier is not None:
+                    # release the other threads instead of leaving them
+                    # at the barrier
+                    barrier.abort()
+                raise
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(8) as pool:
+            for f in [pool.submit(worker, t) for t in range(8)]:
+                f.result()
+        wall = time.perf_counter() - t0
+        for i, (g, s) in enumerate(zip(got, solo)):
+            if [h[0] for h in g] != [h[0] for h in s] or not np.allclose(
+                    [h[1] for h in g], [h[1] for h in s], rtol=1e-5,
+                    atol=2e-3):
+                raise AssertionError(f"[{name}] concurrent query {i}: {g} != "
+                                     f"solo {s}")
+        return lat, wall
+
+    def batched_run(together: bool) -> tuple[dict, dict, tuple]:
+        node.knn_batcher.reset()
+        for counter in counters.values():
+            counter.reset()
+        timed = threaded(together)
+        stats = node.knn_batcher.snapshot_stats()
+        return stats, {key: c.count for key, c in counters.items()}, timed
+
+    batcher = node.knn_batcher
+    wait0 = batcher.max_wait_ms
+    batcher.configure(max_wait_ms=50, auto_tune=False)
+    try:
+        gated, gated_launches, _timed = batched_run(together=True)
+    finally:
+        batcher.configure(max_wait_ms=wait0, auto_tune=True)
+    if gated["mean_merged_batch"] <= 1:
+        raise AssertionError(f"[{name}] the batcher merged nothing: {gated}")
+    for key, count in gated_launches.items():
+        if not 0 < count < n:
+            raise AssertionError(f"[{name}] {key} launched {count} times in "
+                                 f"{n} concurrent searches")
+    stats, launches, (lat, wall) = batched_run(together=False)
+    batcher.configure(enabled=False)
+    try:
+        lat_off, wall_off = threaded()
+    finally:
+        batcher.configure(enabled=True)
+    out = {"solo": latency_summary(solo_lat),
+           "concurrent": latency_summary(lat, wall),
+           "concurrent_batcher_off": latency_summary(lat_off, wall_off),
+           "dispatches": stats["dispatches"],
+           "mean_merged_batch": stats["mean_merged_batch"],
+           "max_batch": stats["max_batch"], "launches": launches,
+           "gated": {"dispatches": gated["dispatches"],
+                     "mean_merged_batch": gated["mean_merged_batch"],
+                     "max_batch": gated["max_batch"],
+                     "launches": gated_launches}}
+    log(f"[{name}] 8 threads x 8 searches equal the solo ones: {out}")
+    return out
+
+
+def per_shard_exact_phase(node, kf, queries: np.ndarray, truth: list) -> dict:
+    """Index A on the per-shard route (distributed_serving.enabled off).
+    32 searches at k = 256, size = 10: one 200,000-doc segment, so each
+    takes the streaming scan once, and every hit list must be the
+    brute-force top-10 in order. Then 8 threads x 8 searches at k = 10
+    (K1 through the batcher) against the same searches one at a time."""
+    from opensearch_tpu_torch.search import distributed_serving, executor
+
+    distributed_serving.enabled = False
+    try:
+        stream0 = executor.knn_path_stats["streaming"]
+        lat = []
+        for i, qv in enumerate(queries[:32]):
+            t0 = time.perf_counter()
+            resp = node.search("sift_a", {"query": {"knn": {"v": {
+                "vector": qv.tolist(), "k": 256}}}, "size": 10})
+            lat.append(time.perf_counter() - t0)
+            hits = [h["_id"] for h in resp["hits"]["hits"]]
+            if hits != truth[i]:
+                raise AssertionError(f"[sift_a] per-shard k=256 query {i}: "
+                                     f"{hits} != truth {truth[i]}")
+        streamed = executor.knn_path_stats["streaming"] - stream0
+        if streamed != 32:
+            raise AssertionError(f"[sift_a] {streamed} of 32 k=256 searches "
+                                 f"took the streaming scan")
+        k256 = latency_summary(lat)
+        log(f"[sift_a] per-shard route, k=256 size=10: 32 searches equal the "
+            f"brute force, each streamed once; {k256}")
+        conc = concurrent_phase(node, "sift_a", queries, 10,
+                                {"knn_fused": kf.launches})
+    finally:
+        distributed_serving.enabled = True
+    return {"k256": k256, "concurrent": conc}
 
 # --------------------------------------------------------------------------
 # K2: the IVF-PQ ADC scan
@@ -507,8 +934,11 @@ def plain_shard_hits(ads, ivfpq, kf, segments, qv, k: int, dev) -> list:
     """A shard's best k (doc id, score) by the plain pipeline on the card,
     one query at a time as the per-shard route runs it: per segment the
     IVF-PQ pipeline with the plain scan (adc_topr_auto impl="xla") or the
-    plain exact scan (knn_fused impl="xla"), then the shard cut by
-    (-score, segment, doc)."""
+    plain exact scan (knn_fused impl="xla"; past FUSED_MAX_K the
+    materializing scan's scores), then the shard cut by (-score, segment,
+    doc)."""
+    from opensearch_tpu_torch.ops.knn import exact_knn_scores
+    from opensearch_tpu_torch.ops.topk import stable_topk
     from opensearch_tpu_torch.search.executor import _pad_query_batch
 
     k_bucket = 1 << (k - 1).bit_length()
@@ -528,10 +958,15 @@ def plain_shard_hits(ads, ivfpq, kf, segments, qv, k: int, dev) -> list:
                 ivfpq.host_probe_select(index, q1, 8), k=k_bucket,
                 rerank=ivfpq.default_rerank(k_bucket), similarity="cosine",
                 impl="xla")
-        else:
+        elif k_bucket <= kf.FUSED_MAX_K:
             q = torch.from_numpy(_pad_query_batch([qv])).to(dev)
             pv, pi = kf.knn_fused(vf.vectors, vf.norms_sq, valid, q,
                                   k=k_bucket, similarity="cosine", impl="xla")
+        else:
+            # the materializing scan's scores, and a stable top-k
+            q = torch.from_numpy(qv[None]).to(dev)
+            pv, pi = stable_topk(exact_knn_scores(
+                q, vf.vectors, vf.norms_sq, valid, "cosine"), k_bucket)
         pv, pi = pv[0].cpu().numpy(), pi[0].cpu().numpy()
         cands += [(float(v), seg_idx, int(d)) for v, d in zip(pv, pi)
                   if d >= 0 and np.isfinite(v)][:k]
@@ -559,9 +994,9 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     queries = (data[rng.choice(n, 64, replace=False)]
                + 0.1 * rng.standard_normal((64, ANN_DIM)).astype(np.float32))
 
-    def search(qv) -> list:
+    def search(qv, k: int = 10) -> list:
         resp = node.search(name, {"query": {"knn": {"v": {
-            "vector": qv.tolist(), "k": 10}}}, "size": 10})
+            "vector": qv.tolist(), "k": k}}}, "size": 10})
         return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -651,6 +1086,24 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
                               (vf1.present & dseg1.live)[None], q, 16, "fp32")
         compare_pools(kf, args, r, "cosine", "fp32",
                       f"K1 on the exact segment (n_pad={dseg1.n_pad})")
+        # k = 256: past FUSED_MAX_K the 300-doc segment materializes
+        paths0 = dict(executor.knn_path_stats)
+        k256_hits = [search(qv, 256) for qv in mixed_q]
+        mixed["k256"] = {key: executor.knn_path_stats[key] - paths0[key]
+                         for key in ("ann", "fused", "materializing",
+                                     "streaming")}
+        if mixed["k256"] != {"ann": 16, "fused": 0, "materializing": 16,
+                             "streaming": 0}:
+            raise AssertionError(f"two-segment k=256 branches: {mixed}")
+        for i, got in enumerate(k256_hits):
+            check_hits(f"[{name}] two segments k=256, query {i}", got,
+                       plain_shard_hits(ads, ivfpq, kf, segments, mixed_q[i],
+                                        256, dev)[:10])
+        log(f"[{name}] two segments, k=256: 16 searches equal the plain "
+            f"pipeline; the exact segment materialized each time")
+        concurrent = concurrent_phase(
+            node, name, queries, 10,
+            {"adc_scan": ads.launches, "knn_fused": kf.launches})
         node.close()
     # recall@10 against exact cosine brute force (reported, not gated)
     dn = torch.from_numpy(data).to(dev)
@@ -665,7 +1118,7 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     out = {"launches": launches, "searches": ann_searches, "recall": recall,
            "p50_ms": float(np.percentile(lat_ms, 50)),
            "p99_ms": float(np.percentile(lat_ms, 99)),
-           "qps": 64 / sum(lat), "mixed": mixed}
+           "qps": 64 / sum(lat), "mixed": mixed, "concurrent": concurrent}
     log(f"[{name}] 64 searches equal the plain pipeline; recall@10 vs exact "
         f"cosine = {recall:.4f}; p50 {out['p50_ms']:.3f} ms, p99 "
         f"{out['p99_ms']:.3f} ms, QPS {out['qps']:.1f}")
@@ -707,6 +1160,7 @@ def main() -> int:
         return 2
     from opensearch_tpu_torch.ops import adc_scan as ads
     from opensearch_tpu_torch.ops import cuda_lib, ivfpq
+    from opensearch_tpu_torch.ops import knn_blocks as kb
     from opensearch_tpu_torch.ops import knn_fused as kf
 
     smi = subprocess.run(
@@ -714,8 +1168,8 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    name = torch.cuda.get_device_name(0)
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+    kind = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     # one nvcc per source, all started together
@@ -740,11 +1194,28 @@ def main() -> int:
               "bound_by": None, "library_ms": None,
               "library_note": "none: no single PyTorch call computes an "
                               "ADC top-R over probed inverted lists"}
+    family = {
+        name: {"name": name, "route": "cuda",
+               "source": f"opensearch_tpu_torch/csrc/{name}.cu",
+               "replaces": replaces, "launches": None, "parity": None,
+               "max_abs_err": None, "ms": None, "plain_ms": None,
+               "bound_ms": None, "bound_by": None, "library_ms": None}
+        for name, replaces in (
+            ("knn_block", "opensearch_tpu/ops/pallas_knn.py:181 "
+                          "(pallas_knn_topk -> _knn_block_kernel :53)"),
+            ("knn_pb", "opensearch_tpu/ops/pallas_knn.py:325 "
+                       "(pallas_knn_blocktopk -> _knn_pb_kernel :236)"),
+            ("knn_sbmax", "opensearch_tpu/ops/pallas_knn.py:446 "
+                          "(pallas_knn_sbmax_topk -> _knn_sbmax_kernel :383)"))
+    }
     if "kernel" in phases:
         entry["max_abs_err"] = kernel_phase(kf, dev, args.seed)
         entry["parity"] = "ok"
         entry2["max_abs_err"] = adc_kernel_phase(ads, ivfpq, dev, args.seed)
         entry2["parity"] = "ok"
+        for name, e in blocks_kernel_phase(kb, dev, args.seed).items():
+            family[name]["parity"] = "bit-equal"
+            family[name]["max_abs_err"] = e
     if "timing" in phases:
         t = timing_phase(kf, dev, args.seed)
         entry.update({key: t[1][key] for key in fields})
@@ -758,6 +1229,18 @@ def main() -> int:
         entry2["build_s"] = t2["build_s"]
         entry2["device_ms"] = t2[1]["device_ms"]
         entry2["b32"] = {key: t2[32][key] for key in (*fields, "device_ms")}
+        t3 = blocks_timing_phase(kb, dev, args.seed)
+        for name, e in family.items():
+            e["launches"] = t3[name]["launches"]
+            e["max_abs_err"] = max(e["max_abs_err"] or 0.0,
+                                   t3[name]["stage1_err"])
+            e.update({key: t3[name][1][key] for key in fields})
+            e["device_ms"] = t3[name][1]["device_ms"]
+            e["shape"] = "SIFT-1M: n=1000000 d=128 fp32 l2 k=10 B=1"
+            for b in (32, 128):
+                if b in t3[name]:
+                    e[f"b{b}"] = {key: t3[name][b][key]
+                                  for key in (*fields, "device_ms")}
     if "main" in phases:
         main = main_path_phase(kf, dev, args.seed)
         entry["launches"] = main["launches"]
@@ -772,9 +1255,14 @@ def main() -> int:
         # an exact one (the per-shard route's exact branch)
         entry["launches_two_segment"] = ann["mixed"]["k1_launches"]
         entry2["launches_two_segment"] = ann["mixed"]["k2_launches"]
-    print(json.dumps({"kernels": [entry, entry2]}), flush=True)
+        # the per-shard route: index A at k = 256 (streaming) and under 8
+        # concurrent threads (K1 through the batcher), index C concurrent
+        entry["per_shard_route"] = main["per_shard"]
+        entry2["concurrent"] = ann["concurrent"]
+    print(json.dumps({"kernels": [entry, entry2, *family.values()]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -4,7 +4,9 @@ Counterpart of opensearch_tpu/node.py's ``TpuNode``, for the slice ported
 so far: ``create_index``, ``bulk``, ``refresh``, ``search`` (a top-level
 knn query) and ``close``. Every shard publishes its segments to the node's
 device; searches run the stacked serving step on it
-(search/distributed_serving.py).
+(search/distributed_serving.py), or the per-shard route, whose launches
+coalesce across concurrent searches in ``knn_batcher``
+(search/batcher.py).
 
 The device is the card unless the caller asks for the CPU::
 
@@ -34,6 +36,7 @@ from opensearch_tpu_torch.common.settings import Settings
 from opensearch_tpu_torch.index.analysis import AnalysisRegistry
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.shard import IndexShard, ShardId, translog_durability
+from opensearch_tpu_torch.search import batcher
 from opensearch_tpu_torch.search import service as search_service
 from opensearch_tpu_torch.search.distributed_serving import not_yet_ported
 
@@ -88,6 +91,8 @@ class TorchNode:
         self.device = backend.resolve_device(device)
         self.data_path = Path(data_path)
         self.indices: dict[str, IndexService] = {}
+        # the process-wide kNN dispatch batcher the per-shard route uses
+        self.knn_batcher = batcher.default_batcher
 
     # -- index lifecycle ---------------------------------------------------
 

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface. At first use it is built
 by ``nvcc`` into a shared library and loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries live under
 ``build/torch_kernels/<hash>/`` at the repository root, keyed by a hash of
-the source and the flags, so a changed source never loads a stale build.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so a changed
+source never loads a stale build.
 The directory is listed in ``.gitignore``.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
@@ -49,7 +50,8 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_ROOT / digest[:16] / f"lib{name}.so"
 

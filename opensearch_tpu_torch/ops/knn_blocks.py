@@ -1,0 +1,406 @@
+"""The exact-scan family: three exact-kNN scans over an [n, d] fp32 slab,
+their kernels for Hopper, their plain versions and their entry points.
+
+Counterpart of opensearch_tpu/ops/pallas_knn.py:49-567:
+
+  K3  ``knn_topk_auto``      running top-k scan (csrc/knn_block.cu);
+  K4  ``knn_blocktopk_auto`` top-k of every 2048-doc block, then a stable
+                             block-major merge (csrc/knn_pb.cu);
+  K5  ``knn_sbmax_auto``     maximum of every 128-doc sub-block, then the k
+                             best sub-blocks rescored exactly
+                             (csrc/knn_sbmax.cu).
+
+Each returns (scores [B, k] f32, ids [B, k] int32), best first under
+(score desc, doc id asc), with (-inf, -1) past the valid-doc count. The
+entry points keep the reference's padding arithmetic: n rounds up to the
+kernel's block (``BLOCK`` or ``PB_BLOCK``) and B to a multiple of 8 (of
+``PB_QTILE`` above it). Pad queries are zero rows, sliced off; pad docs are
+dead, so the kernels take the unpadded slab and score rows past n as -inf
+instead of copying it.
+
+Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
+the plain version in this module (``plain_block_topk``, ``plain_pb_topk``,
+``plain_sbmax``). A k past a kernel's stated limit raises ValueError on
+either device. The second stages (K4's merge, K5's selection and rescore)
+are PyTorch on both.
+
+``exact=False`` (the reference's Precision.DEFAULT, one bf16 MXU pass on
+the TPU) means bf16-rounded operands with f32 accumulation, in K4's and
+K5's scan and in K5's rescore; the kernels and the plain versions compute
+it the same way, never as TF32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
+from opensearch_tpu_torch.ops import cuda_lib
+from opensearch_tpu_torch.ops.knn_fused import (
+    _MAX_SMEM,
+    _SIM_CODE,
+    _launch_geometry,
+    _transform_scores,
+)
+from opensearch_tpu_torch.ops.topk import stable_topk
+
+BLOCK = 1024       # K3's doc block
+PB_BLOCK = 2048    # K4's and K5's doc block
+PB_QTILE = 128     # the reference's query tile (B pads to it above 128)
+SUB = 128          # K5's sub-block
+BLOCK_MAX_K = 1024  # K3: the per-query pools of a 16-query CTA in shared memory
+PB_MAX_K = PB_BLOCK  # K4: a block holds no more than PB_BLOCK docs
+
+_NEG_INF = float("-inf")
+
+# launches of each kernel, counted where its wrapper launches it
+block_launches = cuda_lib.LaunchCounter()
+pb_launches = cuda_lib.LaunchCounter()
+sbmax_launches = cuda_lib.LaunchCounter()
+
+
+def _check_operands(vectors, norms_sq, valid, queries) -> None:
+    dev = vectors.device
+    if vectors.ndim != 2:
+        raise ValueError(f"[vectors] must be [n, d], got {tuple(vectors.shape)}")
+    n, d = vectors.shape
+    B = queries.shape[0]
+    want = {
+        "vectors": (vectors, (n, d), torch.float32),
+        "norms_sq": (norms_sq, (n,), torch.float32),
+        "valid": (valid, (n,), torch.bool),
+        "queries": (queries, (B, d), torch.float32),
+    }
+    for name, (t, shape, dtype) in want.items():
+        if t.device != dev:
+            raise ValueError(f"[{name}] is on {t.device}, expected {dev}")
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(
+                f"[{name}] is {t.dtype}{tuple(t.shape)}, expected "
+                f"{dtype}{shape}")
+    if n < 1 or B < 1 or d < 1:
+        raise ValueError(f"unsupported shape n={n} B={B} d={d}")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device [{dev}]")
+
+
+def _check_k(k: int, limit: int, what: str) -> None:
+    if not 1 <= k <= limit:
+        raise ValueError(f"{what} takes 1 <= k <= {limit}, got k={k}")
+
+
+def _pad_queries(queries, qtile: int | None):
+    """Zero rows up to the reference's batch: a multiple of 8 (at least 8),
+    or of `qtile` above it."""
+    B = queries.shape[0]
+    if qtile is None or B <= qtile:
+        b_pad = max(8, -(-B // 8) * 8)
+    else:
+        b_pad = -(-B // qtile) * qtile
+    if b_pad == B:
+        return queries.contiguous()
+    return torch.cat([queries, queries.new_zeros((b_pad - B,
+                                                  queries.shape[1]))])
+
+
+def _operand(x, exact: bool):
+    """A product operand at the scan precision: as it is, or rounded to
+    bf16 and held in f32, so that every product of two operands is exact in
+    f32 and only the sum rounds."""
+    return x if exact else x.to(torch.bfloat16).to(torch.float32)
+
+
+def _plain_scores(vectors, norms_sq, valid, queries, *, similarity: str,
+                  exact: bool, n_pad: int):
+    """[B, n_pad] scores as the kernels compute them, dead and pad docs at
+    -inf."""
+    qsq = (queries * queries).sum(dim=1)
+    dots = _operand(queries, exact) @ _operand(vectors, exact).T
+    scores = _transform_scores(dots, qsq[:, None], norms_sq[None, :],
+                               similarity)
+    scores = torch.where(valid[None, :], scores, _NEG_INF)
+    pad = n_pad - vectors.shape[0]
+    if pad:
+        scores = torch.cat([scores, scores.new_full((scores.shape[0], pad),
+                                                    _NEG_INF)], dim=1)
+    return scores
+
+
+def _library(name: str, signature: dict) -> ctypes.CDLL:
+    lib = cuda_lib.load(name)
+    for fn, (restype, argtypes) in signature.items():
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# --------------------------------------------------------------------------
+# K3: running top-k scan
+# --------------------------------------------------------------------------
+
+
+def plain_block_topk(vectors, norms_sq, valid, queries, *, k: int,
+                     similarity: str):
+    """Plain K3: the full scores and a stable top-k. (vals [B, k],
+    ids [B, k] int32) with (-inf, -1) past the valid count."""
+    n_pad = -(-vectors.shape[0] // BLOCK) * BLOCK
+    scores = _plain_scores(vectors, norms_sq, valid, queries,
+                           similarity=similarity, exact=True, n_pad=n_pad)
+    vals, ids = stable_topk(scores, k)
+    return vals, torch.where(vals > _NEG_INF, ids, -1).to(torch.int32)
+
+
+def _launch_block(vectors, norms_sq, valid, queries, *, k: int,
+                  similarity: str):
+    lib = _library("knn_block", {
+        "knn_block_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 2),
+        "knn_block_launch": (ctypes.c_int, [ctypes.c_void_p] * 9
+                             + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    })
+    n, d = vectors.shape
+    B = queries.shape[0]
+    smem = lib.knn_block_smem_bytes(d, k)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"knn_block needs {smem} bytes of shared memory at "
+                         f"d={d}, k={k} (at most {_MAX_SMEM})")
+    dev = vectors.device
+    chunk, n_split = _launch_geometry(1, n, B, dev)
+    qsq = (queries * queries).sum(dim=1)
+    part_v = torch.empty((n_split, B, k), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_split, B, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    err = lib.knn_block_launch(
+        vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+        queries.data_ptr(), qsq.data_ptr(), part_v.data_ptr(),
+        part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+        n, d, B, k, _SIM_CODE[similarity], chunk, n_split, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"knn_block launch failed: cudaError {err}")
+    block_launches.add()
+    return vals, ids
+
+
+def block_topk(vectors, norms_sq, valid, queries, *, k: int,
+               similarity: str = "l2_norm"):
+    """K3 over the (padded) batch: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if vectors.device.type == "cuda":
+        return _launch_block(vectors, norms_sq, valid, queries, k=k,
+                             similarity=similarity)
+    return plain_block_topk(vectors, norms_sq, valid, queries, k=k,
+                            similarity=similarity)
+
+
+def knn_topk_auto(vectors, norms_sq, valid, queries, *, k: int,
+                  similarity: str = "l2_norm"):
+    """Exact kNN through K3: (scores [B, k], ids [B, k] int32)."""
+    _check_operands(vectors, norms_sq, valid, queries)
+    _check_k(k, BLOCK_MAX_K, "knn_topk_auto")
+    if similarity not in _SIM_CODE:
+        raise ValueError(f"unknown similarity [{similarity}]")
+    B = queries.shape[0]
+    vals, ids = block_topk(vectors.contiguous(), norms_sq.contiguous(),
+                           valid.contiguous(), _pad_queries(queries, None),
+                           k=k, similarity=similarity)
+    return vals[:B], ids[:B]
+
+
+# --------------------------------------------------------------------------
+# K4: per-block top-k, then the block-major merge
+# --------------------------------------------------------------------------
+
+
+def plain_pb_topk(vectors, norms_sq, valid, queries, *, k: int,
+                  similarity: str, exact: bool = True):
+    """Plain K4 stage 1: every 2048-doc block's own top-k, first maximum
+    first, as (vals [nb, B, k], ids [nb, B, k] int32); -inf slots carry the
+    block's first doc id, as the TPU kernel's argmax of an all -inf row
+    does."""
+    n_pad = -(-vectors.shape[0] // PB_BLOCK) * PB_BLOCK
+    nb = n_pad // PB_BLOCK
+    B = queries.shape[0]
+    scores = _plain_scores(vectors, norms_sq, valid, queries,
+                           similarity=similarity, exact=exact, n_pad=n_pad)
+    vals, pos = stable_topk(scores.reshape(B, nb, PB_BLOCK), k)
+    pos = torch.where(vals > _NEG_INF, pos, 0)
+    base = torch.arange(nb, device=pos.device)[None, :, None] * PB_BLOCK
+    return (vals.permute(1, 0, 2).contiguous(),
+            (base + pos).to(torch.int32).permute(1, 0, 2).contiguous())
+
+
+def _launch_pb(vectors, norms_sq, valid, queries, *, k: int, similarity: str,
+               exact: bool):
+    lib = _library("knn_pb", {
+        "knn_pb_smem_bytes": (ctypes.c_size_t, [ctypes.c_int]),
+        "knn_pb_launch": (ctypes.c_int, [ctypes.c_void_p] * 7
+                          + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+    })
+    n, d = vectors.shape
+    B = queries.shape[0]
+    smem = lib.knn_pb_smem_bytes(d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"knn_pb needs {smem} bytes of shared memory at "
+                         f"d={d} (at most {_MAX_SMEM})")
+    nb = -(-n // PB_BLOCK)
+    dev = vectors.device
+    qsq = (queries * queries).sum(dim=1)
+    vals = torch.empty((nb, B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((nb, B, k), dtype=torch.int32, device=dev)
+    err = lib.knn_pb_launch(
+        vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+        queries.data_ptr(), qsq.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+        n, d, B, k, nb, _SIM_CODE[similarity], int(exact), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"knn_pb launch failed: cudaError {err}")
+    pb_launches.add()
+    return vals, ids
+
+
+def pb_topk(vectors, norms_sq, valid, queries, *, k: int,
+            similarity: str = "l2_norm", exact: bool = True):
+    """K4 stage 1 over the (padded) batch: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if vectors.device.type == "cuda":
+        return _launch_pb(vectors, norms_sq, valid, queries, k=k,
+                          similarity=similarity, exact=exact)
+    return plain_pb_topk(vectors, norms_sq, valid, queries, k=k,
+                         similarity=similarity, exact=exact)
+
+
+def pb_merge(vals, ids, k: int):
+    """K4 stage 2: a stable top-k over [B, nb * k] in block-major order, so
+    a tie goes to the lower block, then the lower rank inside it; non-finite
+    winners get id -1."""
+    nb, B, _k = vals.shape
+    fv = vals.permute(1, 0, 2).reshape(B, nb * k)
+    fi = ids.permute(1, 0, 2).reshape(B, nb * k)
+    top_vals, pos = stable_topk(fv, k)
+    top_ids = torch.gather(fi, 1, pos)
+    return top_vals, torch.where(torch.isfinite(top_vals), top_ids, -1)
+
+
+def knn_blocktopk_auto(vectors, norms_sq, valid, queries, *, k: int,
+                       similarity: str = "l2_norm", exact: bool = True):
+    """Exact kNN through K4 and its merge: (scores [B, k], ids [B, k]
+    int32)."""
+    _check_operands(vectors, norms_sq, valid, queries)
+    _check_k(k, PB_MAX_K, "knn_blocktopk_auto")
+    if similarity not in _SIM_CODE:
+        raise ValueError(f"unknown similarity [{similarity}]")
+    B = queries.shape[0]
+    vals, ids = pb_topk(vectors.contiguous(), norms_sq.contiguous(),
+                        valid.contiguous(), _pad_queries(queries, PB_QTILE),
+                        k=k, similarity=similarity, exact=exact)
+    vals, ids = pb_merge(vals, ids, k)
+    return vals[:B], ids[:B]
+
+
+# --------------------------------------------------------------------------
+# K5: sub-block maxima, then selection and an exact rescore
+# --------------------------------------------------------------------------
+
+
+def plain_sbmax(vectors, norms_sq, valid, queries, *, similarity: str,
+                exact: bool = True):
+    """Plain K5 stage 1: the maximum score of every 128-doc sub-block, as
+    [nb, B, PB_BLOCK // SUB] f32."""
+    n_pad = -(-vectors.shape[0] // PB_BLOCK) * PB_BLOCK
+    nb = n_pad // PB_BLOCK
+    B = queries.shape[0]
+    scores = _plain_scores(vectors, norms_sq, valid, queries,
+                           similarity=similarity, exact=exact, n_pad=n_pad)
+    submax = scores.reshape(B, nb, PB_BLOCK // SUB, SUB).amax(dim=-1)
+    return submax.permute(1, 0, 2).contiguous()
+
+
+def _launch_sbmax(vectors, norms_sq, valid, queries, *, similarity: str,
+                  exact: bool):
+    lib = _library("knn_sbmax", {
+        "knn_sbmax_smem_bytes": (ctypes.c_size_t, [ctypes.c_int]),
+        "knn_sbmax_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
+                             + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+    })
+    n, d = vectors.shape
+    B = queries.shape[0]
+    smem = lib.knn_sbmax_smem_bytes(d)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"knn_sbmax needs {smem} bytes of shared memory at "
+                         f"d={d} (at most {_MAX_SMEM})")
+    nb = -(-n // PB_BLOCK)
+    dev = vectors.device
+    qsq = (queries * queries).sum(dim=1)
+    out = torch.empty((nb, B, PB_BLOCK // SUB), dtype=torch.float32,
+                      device=dev)
+    err = lib.knn_sbmax_launch(
+        vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+        queries.data_ptr(), qsq.data_ptr(), out.data_ptr(),
+        n, d, B, nb, _SIM_CODE[similarity], int(exact), _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"knn_sbmax launch failed: cudaError {err}")
+    sbmax_launches.add()
+    return out
+
+
+def sbmax(vectors, norms_sq, valid, queries, *, similarity: str = "l2_norm",
+          exact: bool = True):
+    """K5 stage 1 over the (padded) batch: the kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if vectors.device.type == "cuda":
+        return _launch_sbmax(vectors, norms_sq, valid, queries,
+                             similarity=similarity, exact=exact)
+    return plain_sbmax(vectors, norms_sq, valid, queries,
+                       similarity=similarity, exact=exact)
+
+
+def sbmax_rescore(submax, vectors, norms_sq, valid, queries, *, k: int,
+                  similarity: str, exact: bool = True):
+    """K5 stage 2: the k sub-blocks with the largest maxima (ties to the
+    lower one) hold every top-k doc; their ids sorted ascending keep the
+    candidates doc-id-major, so the stable top-k of the rescored
+    candidates sends ties to the lower doc id. Candidates past n are pad
+    rows: dead, and clamped before the gather."""
+    nb, B, subs = submax.shape
+    n = vectors.shape[0]
+    flat = submax.permute(1, 0, 2).reshape(B, nb * subs)
+    _, sb_ids = stable_topk(flat, k)
+    sb_ids = torch.sort(sb_ids, dim=1).values
+    cand = (sb_ids[:, :, None] * SUB
+            + torch.arange(SUB, device=sb_ids.device)[None, None, :])
+    cand = cand.reshape(B, k * SUB)
+    safe = torch.clamp(cand, max=n - 1)
+    dots = torch.einsum("bd,bcd->bc", _operand(queries, exact),
+                        _operand(vectors[safe], exact))
+    qsq = (queries * queries).sum(dim=1, keepdim=True)
+    scores = _transform_scores(dots, qsq, norms_sq[safe], similarity)
+    scores = torch.where((cand < n) & valid[safe], scores, _NEG_INF)
+    vals, pos = stable_topk(scores, k)
+    ids = torch.gather(cand, 1, pos)
+    return vals, torch.where(torch.isfinite(vals), ids, -1).to(torch.int32)
+
+
+def knn_sbmax_auto(vectors, norms_sq, valid, queries, *, k: int,
+                   similarity: str = "l2_norm", exact: bool = True):
+    """Exact kNN through K5, its selection and its rescore: (scores [B, k],
+    ids [B, k] int32). k may not exceed the sub-block count, as the
+    reference's top_k over the maxima would not."""
+    _check_operands(vectors, norms_sq, valid, queries)
+    n_sub = -(-vectors.shape[0] // PB_BLOCK) * (PB_BLOCK // SUB)
+    _check_k(k, n_sub, "knn_sbmax_auto")
+    if similarity not in _SIM_CODE:
+        raise ValueError(f"unknown similarity [{similarity}]")
+    B = queries.shape[0]
+    vectors, norms_sq, valid = (vectors.contiguous(), norms_sq.contiguous(),
+                                valid.contiguous())
+    q = _pad_queries(queries, PB_QTILE)
+    submax = sbmax(vectors, norms_sq, valid, q, similarity=similarity,
+                   exact=exact)
+    vals, ids = sbmax_rescore(submax, vectors, norms_sq, valid, q, k=k,
+                              similarity=similarity, exact=exact)
+    return vals[:B], ids[:B]

@@ -45,21 +45,14 @@ def _validate_precision(v: str) -> None:
         )
 
 
-def _policy_validator(setting: str):
-    """Validator of a kernel-policy setting (both take KERNEL_POLICIES)."""
-
-    def validate(v: str) -> None:
-        if v not in KERNEL_POLICIES:
-            raise ValueError(
-                f"unknown [{setting}] value [{v}] "
-                f"(choose from {list(KERNEL_POLICIES)})"
-            )
-
-    return validate
-
-
-_validate_kernel = _policy_validator("search.knn.ann.kernel")
-_validate_exact_kernel = _policy_validator("search.knn.kernel")
+def _validate_policy(setting: str, v: str) -> None:
+    """The one validator of both kernel-policy settings (they take the
+    same values); `setting` names the key in the error."""
+    if v not in KERNEL_POLICIES:
+        raise ValueError(
+            f"unknown [{setting}] value [{v}] "
+            f"(choose from {list(KERNEL_POLICIES)})"
+        )
 
 
 def _validate_score_precision(v: str) -> None:
@@ -84,12 +77,12 @@ RESCORE_MULTIPLIER_SETTING = Setting.int_setting(
 KERNEL_SETTING: Setting[str] = Setting(
     "search.knn.ann.kernel", "auto", str,
     Property.NODE_SCOPE, Property.DYNAMIC,
-    validator=_validate_kernel,
+    validator=lambda v: _validate_policy("search.knn.ann.kernel", v),
 )
 EXACT_KERNEL_SETTING: Setting[str] = Setting(
     "search.knn.kernel", "auto", str,
     Property.NODE_SCOPE, Property.DYNAMIC,
-    validator=_validate_exact_kernel,
+    validator=lambda v: _validate_policy("search.knn.kernel", v),
 )
 SCORE_PRECISION_SETTING: Setting[str] = Setting(
     "search.knn.score_precision", "fp32", str,
@@ -102,7 +95,7 @@ def resolve_kernel(policy: str) -> str:
     """The EFFECTIVE scan for this dispatch, on either path: "pallas" or
     "xla". "auto" is the hand-written kernel's wrapper, which never falls
     back to the plain version for a CUDA tensor."""
-    _validate_exact_kernel(policy)
+    _validate_policy("search.knn.kernel", policy)
     return "pallas" if policy == "auto" else policy
 
 
@@ -139,10 +132,10 @@ class AnnServingConfig:
         if rescore_multiplier is not None:
             self.rescore_multiplier = max(1, int(rescore_multiplier))
         if kernel is not None:
-            _validate_kernel(kernel)
+            _validate_policy(KERNEL_SETTING.key, kernel)
             self.kernel = kernel
         if exact_kernel is not None:
-            _validate_exact_kernel(exact_kernel)
+            _validate_policy(EXACT_KERNEL_SETTING.key, exact_kernel)
             self.exact_kernel = exact_kernel
         if score_precision is not None:
             _validate_score_precision(score_precision)

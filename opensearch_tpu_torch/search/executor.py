@@ -7,26 +7,32 @@ segment executor as far as a ``knn`` query needs it, and
 shard when the stacked serving step declines the query (an ANN column, or
 ``distributed_serving.enabled`` off).
 
-Per segment, ``shard_knn_selection`` takes one of two branches:
+Per segment, ``shard_knn_selection`` takes one of four branches, as the
+reference does, counted in ``knn_path_stats``:
 
-- ANN (the column has an IVF-PQ structure and the query no filter):
-  ``ops/ivfpq.search_index`` under the resolved ``search.knn.ann.kernel``
-  ("pallas": host probe selection + the fused pipeline whose scan is K2;
-  "xla": the monolithic lowering), at the live ADC precision and rescore
-  multiplier;
-- exact, for segments below ``min_train`` or without ANN: the fused exact
-  kNN (``ops/knn_fused.knn_fused_auto``, K1) under ``search.knn.kernel``.
+- ``ann`` (the column has an IVF-PQ structure): ``ops/ivfpq.search_index``
+  under the resolved ``search.knn.ann.kernel`` ("pallas": host probe
+  selection + the fused pipeline whose scan is K2; "xla": the monolithic
+  lowering), at the live ADC precision and rescore multiplier;
+- exact, for segments below ``min_train`` or without ANN:
+  - ``fused``: the fused exact kNN (``ops/knn_fused.knn_fused_auto``, K1)
+    when ``search.knn.kernel`` resolves to "pallas" and the k bucket is at
+    most ``FUSED_MAX_K``;
+  - ``streaming``: otherwise ``ops/fused.knn_topk_streaming`` for segments
+    of at least ``STREAMING_MIN_DOCS`` docs whose n_pad is a multiple of the
+    chunk and whose k bucket fits in it;
+  - ``materializing``: otherwise the [B, n_pad] scores of
+    ``ops/knn.exact_knn_scores`` and a host argpartition.
 
 Then the shard cut: the k best of all segments of the shard, by
 (-score, segment, doc). k and nprobe are bucketed to powers of two as the
 reference buckets them, so the results are the reference's.
 
-Dispatch is solo: each launch serves one query, as the reference does with
-``search.knn.batch.enabled=false`` (the dispatch batcher is not ported
-yet). Not yet ported, and raised as such: filtered kNN, the exact branch
-past ``FUSED_MAX_K``, and the streaming / materializing exact scans. The
-profiler, roofline and residency-ledger calls of the reference are left
-out.
+Every launch goes through the dispatch batcher (search/batcher.py) with
+the reference's batch keys, so concurrent queries over one segment column
+and reader generation coalesce into one launch. Not yet ported, and raised
+as such: filtered kNN. The profiler, roofline and residency-ledger calls of
+the reference are left out.
 """
 
 from __future__ import annotations
@@ -42,9 +48,16 @@ from opensearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
 )
+from opensearch_tpu_torch.search import batcher
+
+# exact-kNN scan strategy when the fused kernel does not serve: segments of
+# at least STREAMING_MIN_DOCS docs score through the chunked streaming scan,
+# smaller ones materialize their scores. Tests patch both.
+STREAMING_MIN_DOCS = 16_384
+STREAMING_CHUNK = 32_768
 
 # which branch served _exec_KnnQuery selections
-knn_path_stats = {"ann": 0, "fused": 0}
+knn_path_stats = {"streaming": 0, "materializing": 0, "ann": 0, "fused": 0}
 _knn_path_stats_lock = threading.Lock()
 
 
@@ -128,16 +141,16 @@ class ShardContext:
                 per_seg_scores.append(None)
                 continue
             valid = vf.present & dev.live
-            qv = np.asarray([node.vector], np.float32)
+            qv = np.asarray(node.vector, np.float32)
             sim = knn_ops.canonical_similarity(vf.similarity)
             k_req = max(1, min(int(node.k), host.n_docs))
             # k is bucketed to the next power of two as in the reference
-            # (its programs are shape-specialized); the shard cut below
-            # still takes exactly node.k
+            # (its programs are shape-specialized, and equal buckets share
+            # a batch); the shard cut below still takes exactly node.k
             k_bucket = 1 << (k_req - 1).bit_length()
             if vf.ann is not None:
-                a_vals, a_ids = self._ann_launch(vf, valid, qv, node,
-                                                 k_bucket)
+                a_vals, a_ids = self._ann_dispatch(vf, valid, qv, node,
+                                                   k_bucket, sim)
                 _count_knn_path("ann")
                 scores = np.full(dev.n_pad, -np.inf, np.float32)
                 hit = a_ids >= 0
@@ -149,11 +162,8 @@ class ShardContext:
                     if np.isfinite(v):
                         candidates.append((float(v), seg_idx, int(d)))
                 continue
-            vals, ids = self._fused_launch(vf, valid, qv, sim, k_bucket)
-            scores = np.full(dev.n_pad, -np.inf, np.float32)
-            hit = ids >= 0
-            scores[ids[hit]] = vals[hit]
-            _count_knn_path("fused")
+            scores = self._exact_dispatch(host, dev, vf, valid, qv, node.field,
+                                          k_bucket, sim)
             per_seg_scores.append(scores)
             n_take = min(node.k, host.n_docs)
             top = np.argpartition(-scores[: host.n_docs],
@@ -175,50 +185,136 @@ class ShardContext:
         self._knn_cache[id(node)] = out
         return out
 
-    @staticmethod
-    def _ann_launch(vf, valid, qv: np.ndarray, node, k_bucket: int):
-        """One solo IVF-PQ launch: (vals [k_bucket], ids [k_bucket]) numpy,
-        under the live ANN policy, precision and rescore multiplier."""
+    def _ann_dispatch(self, vf, valid, qv: np.ndarray, node, k_bucket: int,
+                      sim: str):
+        """The IVF-PQ launch for this query through the batcher: (vals, ids)
+        numpy rows of at least k_bucket candidates, under the live ANN
+        policy, precision and rescore multiplier. The key carries the index
+        build generation and the reader generation, so neither a rebuild
+        nor a refresh can merge into an old batch."""
         from opensearch_tpu_torch.ops import ivfpq
         from opensearch_tpu_torch.search import ann as ann_mod
 
         cfg = ann_mod.default_config
+        precision = cfg.adc_precision
+        mult = cfg.rescore_multiplier
         kernel = ann_mod.resolve_kernel(cfg.kernel)
         nprobe_req = int((node.method_parameters or {}).get(
             "nprobe", vf.nprobe_default))
         nprobe = ann_mod.bucket_nprobe(nprobe_req, vf.ann.params.nlist)
-        q_batch = _pad_query_batch([qv[0]])
-        b_vals, b_ids = ivfpq.search_index(
-            vf.ann, vf.vectors, vf.norms_sq, valid, q_batch,
-            k=k_bucket, nprobe=nprobe, similarity=vf.similarity,
-            adc_precision=cfg.adc_precision,
-            rescore_multiplier=cfg.rescore_multiplier, kernel=kernel)
-        # copying the results to the host is the fence for this launch
-        return b_vals[0].cpu().numpy(), b_ids[0].cpu().numpy()
+        gen = self.snapshot.generation
 
-    @staticmethod
-    def _fused_launch(vf, valid, qv: np.ndarray, sim: str, k_bucket: int):
-        """One solo exact launch through the fused kernel's policy front
-        door (K1): (vals [k_bucket], ids [k_bucket]) numpy."""
-        from opensearch_tpu_torch.ops import knn_fused
+        def ann_key(kb: int):
+            return ("ivfpq", id(vf), vf.ann.build_generation, gen, kb, nprobe,
+                    sim, precision, mult, kernel)
+
+        def launch_ann(rows):
+            b_vals, b_ids = ivfpq.search_index(
+                vf.ann, vf.vectors, vf.norms_sq, valid, _pad_query_batch(rows),
+                k=k_bucket, nprobe=nprobe, similarity=vf.similarity,
+                adc_precision=precision, rescore_multiplier=mult,
+                kernel=kernel)
+            return _rows(b_vals, b_ids, len(rows))
+
+        # cross-k coalescing: this request may ride a forming batch of the
+        # next-larger k buckets (its rows truncate for free); it never
+        # creates one
+        return batcher.dispatch(
+            ann_key(k_bucket), qv, launch_ann, kind="ann", rank=k_bucket,
+            alt_keys=(ann_key(k_bucket * 2), ann_key(k_bucket * 4)),
+            tune_key=("ivfpq", id(self.mapper_service), node.field, k_bucket),
+        ).value
+
+    def _exact_dispatch(self, host, dev, vf, valid, qv: np.ndarray,
+                        field: str, k_bucket: int, sim: str) -> np.ndarray:
+        """The exact scan of one segment for this query through the
+        batcher: the fused kernel, the streaming or the materializing scan,
+        as the reference picks them. Returns the segment's scores f32
+        [n_pad], -inf outside the launch's candidates."""
+        from opensearch_tpu_torch.ops import fused, knn_fused
+        from opensearch_tpu_torch.ops import knn as knn_ops
         from opensearch_tpu_torch.search.ann import (
             default_config as ann_config,
             resolve_kernel,
         )
 
+        n_pad = dev.n_pad
+        chunk = min(STREAMING_CHUNK, n_pad)
+        gen = self.snapshot.generation
         exact_kernel = resolve_kernel(ann_config.exact_kernel)
-        if k_bucket > knn_fused.FUSED_MAX_K:
-            raise not_yet_ported(
-                f"exact kNN on the per-shard route at k > "
-                f"{knn_fused.FUSED_MAX_K} (the streaming and materializing "
-                f"scans)")
-        q_batch = torch.from_numpy(_pad_query_batch([qv[0]])).to(
-            vf.vectors.device)
-        b_vals, b_ids = knn_fused.knn_fused_auto(
-            vf.vectors, vf.norms_sq, valid, q_batch, k=k_bucket,
-            similarity=sim, score_precision=ann_config.score_precision,
-            impl=exact_kernel)
-        return b_vals[0].cpu().numpy(), b_ids[0].cpu().numpy()
+        score_precision = ann_config.score_precision
+        # generation-free key family of the wait tuner: a refresh must not
+        # reset what it learned
+        tune = (id(self.mapper_service), field)
+        scores = np.full(n_pad, -np.inf, np.float32)
+        if exact_kernel == "pallas" and k_bucket <= knn_fused.FUSED_MAX_K:
+
+            def fused_key(kb: int):
+                return ("knn_fused", id(vf), gen, kb, sim, score_precision,
+                        exact_kernel)
+
+            def launch_fused(rows):
+                q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
+                    vf.vectors.device)
+                b_vals, b_ids = knn_fused.knn_fused_auto(
+                    vf.vectors, vf.norms_sq, valid, q_batch, k=k_bucket,
+                    similarity=sim, score_precision=score_precision,
+                    impl=exact_kernel)
+                return _rows(b_vals, b_ids, len(rows))
+
+            vals, ids = batcher.dispatch(
+                fused_key(k_bucket), qv, launch_fused, rank=k_bucket,
+                alt_keys=tuple(fused_key(kb)
+                               for kb in (k_bucket * 2, k_bucket * 4)
+                               if kb <= knn_fused.FUSED_MAX_K),
+                tune_key=("knn_fused", *tune, k_bucket)).value
+            hit = ids >= 0
+            scores[ids[hit]] = vals[hit]
+            _count_knn_path("fused")
+        elif (host.n_docs >= STREAMING_MIN_DOCS and n_pad % chunk == 0
+                and k_bucket <= chunk):
+            scan = fused.cached_knn_streaming(k_bucket, sim, chunk)
+
+            def stream_key(kb: int):
+                return ("knn_topk_streaming", id(vf), gen, kb, sim, chunk)
+
+            def launch_streaming(rows):
+                q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
+                    vf.vectors.device)
+                b_vals, b_ids = scan(vf.vectors, vf.norms_sq, valid, q_batch)
+                return _rows(b_vals, b_ids, len(rows))
+
+            vals, ids = batcher.dispatch(
+                stream_key(k_bucket), qv, launch_streaming, rank=k_bucket,
+                alt_keys=tuple(stream_key(kb)
+                               for kb in (k_bucket * 2, k_bucket * 4)
+                               if kb <= chunk),
+                tune_key=("knn_topk_streaming", *tune, k_bucket)).value
+            finite = np.isfinite(vals)
+            scores[ids[finite]] = vals[finite]
+            _count_knn_path("streaming")
+        else:
+
+            def launch_exact(rows):
+                q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
+                    vf.vectors.device)
+                b_scores = knn_ops.exact_knn_scores(
+                    q_batch, vf.vectors, vf.norms_sq, valid,
+                    vf.similarity).cpu().numpy()
+                return [b_scores[i] for i in range(len(rows))]
+
+            scores = batcher.dispatch(
+                ("knn_exact_scores", id(vf), gen, sim), qv, launch_exact,
+                tune_key=("knn_exact_scores", *tune)).value
+            _count_knn_path("materializing")
+        return scores
+
+
+def _rows(b_vals: torch.Tensor, b_ids: torch.Tensor, n: int) -> list:
+    """The first n rows of a batch launch as (vals, ids) numpy pairs;
+    copying them to the host is the fence for the launch."""
+    vals, ids = b_vals[:n].cpu().numpy(), b_ids[:n].cpu().numpy()
+    return [(vals[i], ids[i]) for i in range(n)]
 
 
 class SegmentExecutor:

@@ -6,10 +6,9 @@ docs. The route is the reference's ``_try_distributed_query_phase``
 choice: the stacked serving step (search/distributed_serving.
 mesh_knn_batch) unless it is switched off or declines (an ANN-indexed
 column); then the per-shard route (search/executor.execute_query_phase per
-shard, which serves IVF-PQ) and the host merge by
-(-score, shard, segment, doc). Launches are solo (no batcher), as in the
-reference with ``search.knn.batch.enabled=false``. Every other query or
-request key raises "not yet ported".
+shard, which serves IVF-PQ, and whose launches go through the dispatch
+batcher) and the host merge by (-score, shard, segment, doc). Every other
+query or request key raises "not yet ported".
 
 The response has the reference's shape: ``hits.total``, ``max_score`` and
 per hit ``_index``, ``_id``, ``_score`` and ``_source``.
