@@ -1,12 +1,16 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed N] [--phases kernel,timing,main]
+                          [--kernels knn_fused,adc_scan,knn_block,knn_pb,knn_sbmax]
 
 Builds the port's five CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together): K1 (csrc/knn_fused.cu, fused exact
 kNN), K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family
 K3 (csrc/knn_block.cu, running top-k), K4 (csrc/knn_pb.cu, per-block top-k)
-and K5 (csrc/knn_sbmax.cu, sub-block maxima). Then:
+and K5 (csrc/knn_sbmax.cu: sub-block maxima, then the selection and
+rescore, two kernels). ``--kernels`` limits the kernel and timing phases to
+the named kernels (default all five; the main phase needs K1 and K2).
+Then:
 
 1. kernel: holds each kernel against its plain PyTorch version on the card.
    K1: fp32, bf16 and int8 x l2, cosine and dot (n = 50,000, d = 128,
@@ -24,15 +28,20 @@ and K5 (csrc/knn_sbmax.cu, sub-block maxima). Then:
    rtol 1e-6 / atol 1e-6: kernel and plain add the m LUT entries in the same
    order with round-to-nearest f32 adds, so they should agree to the bit;
    the tolerance allows a rounding, never a reordering of candidates.
-   K3, K4, K5: n = 50,000 (ragged past both block sizes), d = 128, 3% dead
+   K3, K4: n = 50,000 (ragged past both block sizes), d = 128, 3% dead
    docs, a duplicate planted across the block boundaries, B = 5, 16 and
-   40 (three 16-query tiles), k = 10 and 100, l2, cosine and dot, K4 and
-   K5 at exact and not. The
+   40 (three 16-query tiles), k = 10 and 100, l2, cosine and dot, K4 at
+   exact and not. K5 (sbmax_kernel_phase) on the same kind of data with
+   one vector planted in 13 sub-blocks and one all-dead sub-block, at
+   B = 1, 5, 8, 9, 16, 32, 33, 40, 128 and 129 (its query tiles 8, 32 and
+   128, full and partial) and k = 10, 100 and n_sub = 400; each stage is
+   held against its own plain version. The
    data are multiples of 1/16, so every dot is exact in f32 in any order:
-   stage 1 (K3's pools, K4's per-block pools, K5's maxima) and the whole
-   entry point must equal the plain versions bit for bit, and the lower
-   id must win the planted tie. exact=False runs on the same data plus
-   2^-14, which the bf16 rounding of the operands must remove.
+   stage 1 (K3's pools, K4's per-block pools, K5's maxima), K5's stage 2
+   and the whole entry point must equal the plain versions bit for bit,
+   and the lower id must win the planted ties. exact=False runs on the
+   same data plus 2^-14, which the bf16 rounding of the operands must
+   remove.
 2. timing: CUDA-event times of each kernel, its plain version and a library
    yardstick where one exists, beside the bound. K1 at the SIFT-1M shape
    (n = 1,000,000, d = 128, f32, l2, k = 10) at B = 1 and 32: library is
@@ -49,10 +58,10 @@ and K5 (csrc/knn_sbmax.cu, sub-block maxima). Then:
    B with the launch counts set to 0 (their path), each answer the
    brute-force top-10 in order with its scores bit for bit, and each
    kernel's stage 1 bit-equal to its own plain version at every B; then
-   the call's time, its device time under torch.profiler, the plain
-   pipeline's, the library yardstick's and the bound (slab, norms, flags
-   and queries read once, what the kernel writes, against 2*B*n*d
-   operations).
+   the call's time, its device time under torch.profiler (K5: each
+   stage's too), the plain pipeline's, the library yardstick's and the
+   bound (slab, norms, flags and queries read once, what the kernel
+   writes, against 2*B*n*d operations).
 3. main: drives TorchNode on the card. Exact (K1): index A (1 shard,
    200,000 clustered 128-d docs) and index B (4 shards, 20,000 docs), 64
    knn searches each; every hit list must equal the brute-force truth in
@@ -171,7 +180,15 @@ def device_profile(fn, reps: int) -> dict | None:
         return None
     busy = sum(kernels.values())
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:6])
-    return {"wall_ms": wall, "device_ms": busy, "top": top}
+    return {"wall_ms": wall, "device_ms": busy, "top": top,
+            "kernels": kernels}
+
+
+def kernel_ms(prof: dict | None, part: str) -> float | None:
+    """Device ms per call of the profiled kernels whose name holds `part`."""
+    if prof is None:
+        return None
+    return sum(ms for key, ms in prof["kernels"].items() if part in key)
 
 
 def scan_inputs(kf, vectors, norms, valid, queries, k, prec):
@@ -362,13 +379,14 @@ def compare_stage1(kb, name, args, k, sim, exact, what: str) -> float:
         if bool(fin.any()) else 0.0
 
 
-def blocks_kernel_phase(kb, dev, seed: int) -> dict:
-    """K3, K4 and K5 against their plain versions on the card: n = 50,000
+def blocks_kernel_phase(kb, dev, seed: int, names) -> dict:
+    """K3 and K4 (those of `names`) against their plain versions on the
+    card: n = 50,000
     (a ragged tail past both block sizes), d = 128, 3% dead docs, a
     duplicate of doc 2040 planted at 2053 (across both the 1024- and the
     2048-doc block boundary), B = 5, 16 and 40 (three of the kernels'
     16-query tiles, the last one partial), k = 10 and 100, l2, cosine and
-    dot, K4 and K5 at exact and not. The data are sixteenths: stage 1 must
+    dot, K4 at exact and not. The data are sixteenths: stage 1 must
     match bit for bit, and the whole entry point (second stages included)
     too. exact=False is checked on the same data plus 2^-14 on every
     nonzero coordinate, which the bf16 rounding of the operands must take
@@ -384,7 +402,7 @@ def blocks_kernel_phase(kb, dev, seed: int) -> dict:
     jitter = np.where(base != 0, np.where(rng.random((n, d)) < 0.5, 1, -1)
                       * 2.0 ** -14, 0).astype(np.float32)
     ok = torch.from_numpy(valid).to(dev)
-    err = dict.fromkeys(FAMILY, 0.0)
+    err = dict.fromkeys(names, 0.0)
     for exact, data in ((True, base), (False, base + jitter)):
         v = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
         nrm = torch.from_numpy((data.astype(np.float64) ** 2).sum(1).astype(
@@ -395,7 +413,7 @@ def blocks_kernel_phase(kb, dev, seed: int) -> dict:
             q = torch.from_numpy(queries).to(dev)
             for k in (10, 100):
                 for sim in SIMS:
-                    for name in FAMILY:
+                    for name in names:
                         if name == "knn_block" and not exact:
                             continue
                         qtile = None if name == "knn_block" else kb.PB_QTILE
@@ -420,8 +438,109 @@ def blocks_kernel_phase(kb, dev, seed: int) -> dict:
                                 gi[0, :2].tolist() != [2040, 2053]:
                             raise AssertionError(
                                 f"{what}: planted tie gave {gi[0, :2].tolist()}")
-            log(f"K3/K4/K5 parity exact={exact} B={b}: bit-equal over k = 10, "
-                f"100 and l2, cosine, dot")
+            log(f"{'/'.join(names)} parity exact={exact} B={b}: bit-equal "
+                f"over k = 10, 100 and l2, cosine, dot")
+    return err
+
+
+SBMAX_COPIES = (2040, 2053, *range(6041, 50_000, 4001))  # 13 blocks
+SBMAX_DEAD = range(4096, 4224)                          # one whole sub-block
+
+
+def sbmax_kernel_phase(kb, dev, seed: int) -> float:
+    """K5's two kernels against their plain versions on the card: n =
+    50,000 sixteenths (as blocks_kernel_phase), 3% dead docs plus the
+    all-dead sub-block SBMAX_DEAD, one vector planted at the 13 docs
+    SBMAX_COPIES (one sub-block in each of 13 blocks, so the queries that
+    are that vector see 13 equal maxima and k = 10 cuts through them),
+    B = 1, 5, 8,
+    9, 16, 32, 33, 40, 128 and 129 (each query tile 8, 32 and 128, full and
+    partial, and two 128-query tiles), k = 10, 100 and n_sub = 400 (every
+    sub-block, the dead one and those past n included), l2, cosine and dot,
+    exact and not. Stage 1 must equal plain_sbmax bit for bit, stage 2
+    sbmax_rescore on the same maxima, and the entry point the plain
+    pipeline; for the planted query (l2 and cosine) the 10 lowest copies
+    come first, in id order. exact=False runs on the data plus 2^-14 (the
+    copies keep equal jitter), which the bf16 rounding must remove. Returns
+    the max |dv| of stage 1 and the entry point against the plain ones."""
+    rng = np.random.default_rng(seed + 22)
+    n, d = 50_000, DIM
+    base = sixteenths(rng, n, d)
+    base[list(SBMAX_COPIES)] = base[SBMAX_COPIES[0]]
+    valid = np.ones(n, bool)
+    valid[rng.choice(n, int(0.03 * n), replace=False)] = False
+    valid[list(SBMAX_DEAD)] = False
+    valid[list(SBMAX_COPIES)] = True
+    jitter = np.where(base != 0, np.where(rng.random((n, d)) < 0.5, 1, -1)
+                      * 2.0 ** -14, 0).astype(np.float32)
+    jitter[list(SBMAX_COPIES)] = jitter[SBMAX_COPIES[0]]
+    ok = torch.from_numpy(valid).to(dev)
+    n_sub = -(-n // kb.PB_BLOCK) * (kb.PB_BLOCK // kb.SUB)
+    err = 0.0
+    for exact, data in ((True, base), (False, base + jitter)):
+        v = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+        nrm = torch.from_numpy((data.astype(np.float64) ** 2).sum(1).astype(
+            np.float32)).to(dev)
+        for b in (1, 5, 8, 9, 16, 32, 33, 40, 128, 129):
+            queries = data[rng.choice(n, b, replace=False)].copy()
+            queries[0] = data[SBMAX_COPIES[0]]
+            q = torch.from_numpy(queries).to(dev)
+            qp = kb._pad_queries(q, kb.PB_QTILE)
+            for sim in SIMS:
+                what = f"knn_sbmax {sim} B={b} exact={exact}"
+                err = max(err, compare_stage1(kb, "knn_sbmax", (v, nrm, ok, qp),
+                                              0, sim, exact, what))
+                submax = kb.plain_sbmax(v, nrm, ok, qp, similarity=sim,
+                                        exact=exact)
+                for k in (10, 100, n_sub):
+                    what = f"knn_sbmax {sim} B={b} k={k} exact={exact}"
+                    got = kb.sbmax_select(submax, v, nrm, ok, qp, k=k,
+                                          similarity=sim, exact=exact)
+                    want = kb.sbmax_rescore(submax, v, nrm, ok, qp, k=k,
+                                            similarity=sim, exact=exact)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        raise AssertionError(f"{what}: stage 2 differs from "
+                                             f"sbmax_rescore")
+                    gv, gi = kb.knn_sbmax_auto(v, nrm, ok, q, k=k,
+                                               similarity=sim, exact=exact)
+                    pv, pi = family_plain(kb, "knn_sbmax", v, nrm, ok, q, k,
+                                          sim, exact)
+                    if not (torch.equal(gi, pi[:b]) and torch.equal(gv, pv[:b])):
+                        raise AssertionError(f"{what}: entry point differs "
+                                             f"from its plain pipeline")
+                    fin = torch.isfinite(pv[:b])
+                    if bool(fin.any()):
+                        err = max(err, float((gv[fin] - pv[:b][fin]).abs().max()))
+                    if sim != "dot_product" and \
+                            gi[0, :10].tolist() != list(SBMAX_COPIES[:10]):
+                        raise AssertionError(
+                            f"{what}: planted ties gave {gi[0, :10].tolist()}")
+            del submax
+        # stage 2 with the maxima read from device memory and its k arrays
+        # in the scratch, the layout of a row too long for shared memory
+        limit, kb.SBMAX_SELECT_SMEM = kb.SBMAX_SELECT_SMEM, 0
+        try:
+            for k in (10, n_sub):
+                submax = kb.plain_sbmax(v, nrm, ok, qp, similarity="l2_norm",
+                                        exact=exact)
+                got = kb.sbmax_select(submax, v, nrm, ok, qp, k=k,
+                                      exact=exact)
+                want = kb.sbmax_rescore(submax, v, nrm, ok, qp, k=k,
+                                        similarity="l2_norm", exact=exact)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                    raise AssertionError(f"knn_sbmax stage 2, maxima in device "
+                                         f"memory, k={k} exact={exact}: differs "
+                                         f"from sbmax_rescore")
+        finally:
+            kb.SBMAX_SELECT_SMEM = limit
+        log(f"K5 parity exact={exact}: both stages and the entry point "
+            f"bit-equal at B = 1..129, k = 10, 100, {n_sub}, l2, cosine, dot "
+            f"(stage 2 in both shared-memory layouts)")
+        del v
+        torch.cuda.empty_cache()
     return err
 
 
@@ -441,18 +560,21 @@ def blocks_bound(name: str, n: int, d: int, b: int, k: int, nb: int) -> dict:
             "bytes": nbytes, "flops": flops}
 
 
-def blocks_timing_phase(kb, dev, seed: int) -> dict:
-    """K3, K4 and K5 through their entry points at the SIFT-1M shape
-    (1,000,000 SIFT-style 128-d f32 docs, l2, k = 10) at B = 1 and 32, and
+def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
+    """K3, K4 and K5 (those of `names`) through their entry points at the
+    SIFT-1M shape (1,000,000 SIFT-style 128-d f32 docs, l2, k = 10) at
+    B = 1 and 32, and
     B = 128 for K4 and K5 (their design tile). First the path run: the
     launch counts are set to 0, each entry point answers once per B, and
     each answer must be the brute-force top-10 in order, scores bit for bit
     (the plain scores and a stable top-10: the data make every dot exact).
     Then, at each of these B, each kernel's stage 1 (K3's pools, K4's
-    per-block pools over all 489 blocks, K5's maxima) must equal its own
-    plain version bit for bit. Then the CUDA-event time of each call, its
-    device time under torch.profiler, the plain pipeline's time, the library
-    yardstick (torch.topk over the l2-transformed q @ v.T) and the bound."""
+    per-block pools over all 489 blocks, K5's maxima) and K5's stage 2 on
+    the plain maxima must equal their own plain versions bit for bit. Then
+    the CUDA-event time of each call, its device time under torch.profiler,
+    the plain pipeline's time, the library yardstick (torch.topk over the
+    l2-transformed q @ v.T) and the bound. K5 launches two kernels a call (stage 1 and stage 2, each counted) and
+    each stage's device ms is read from the profiler by kernel name."""
     rng = np.random.default_rng(seed + 21)
     n, k = SIFT_DOCS, 10
     v = torch.from_numpy(sift_like(rng, n, DIM)).to(dev)
@@ -462,9 +584,12 @@ def blocks_timing_phase(kb, dev, seed: int) -> dict:
         v[torch.from_numpy(rng.choice(n, 128, replace=False)).to(dev)]
         + torch.from_numpy(rng.normal(0, 4, (128, DIM)).astype(np.float32))
         .to(dev)), 0, 255)
-    sizes = {"knn_block": (1, 32), "knn_pb": (1, 32, 128),
-             "knn_sbmax": (1, 32, 128)}
-    for counter in (kb.block_launches, kb.pb_launches, kb.sbmax_launches):
+    sizes = {name: bs for name, bs in (("knn_block", (1, 32)),
+                                       ("knn_pb", (1, 32, 128)),
+                                       ("knn_sbmax", (1, 32, 128)))
+             if name in names}
+    for counter in (kb.block_launches, kb.pb_launches, kb.sbmax_launches,
+                    kb.sbmax_select_launches):
         counter.reset()
     for name, bs in sizes.items():
         for b in bs:
@@ -478,14 +603,20 @@ def blocks_timing_phase(kb, dev, seed: int) -> dict:
     launches = {"knn_block": kb.block_launches.count,
                 "knn_pb": kb.pb_launches.count,
                 "knn_sbmax": kb.sbmax_launches.count}
+    select_launches = kb.sbmax_select_launches.count
     for name, bs in sizes.items():
         if launches[name] != len(bs):
             raise AssertionError(f"{name}: {launches[name]} launches in "
                                  f"{len(bs)} calls")
+    if "knn_sbmax" in sizes and select_launches != len(sizes["knn_sbmax"]):
+        raise AssertionError(f"knn_sbmax stage 2: {select_launches} launches "
+                             f"in {len(sizes['knn_sbmax'])} calls")
     log(f"K3/K4/K5 at the SIFT-1M shape: brute-force top-10 in order; "
         f"launches {launches}")
     out = {name: {"launches": launches[name], "stage1_err": 0.0}
            for name in sizes}
+    if "knn_sbmax" in out:
+        out["knn_sbmax"]["select_launches"] = select_launches
     for name, bs in sizes.items():
         qtile = None if name == "knn_block" else kb.PB_QTILE
         for b in bs:
@@ -494,8 +625,17 @@ def blocks_timing_phase(kb, dev, seed: int) -> dict:
                                           compare_stage1(
                 kb, name, args, k, "l2_norm", True,
                 f"{name} SIFT-1M shape B={b} stage 1"))
-    log("K3/K4/K5 at the SIFT-1M shape: stage 1 bit-equal to the plain "
-        "versions at every B")
+            if name == "knn_sbmax":
+                submax = kb.plain_sbmax(*args, similarity="l2_norm")
+                got = kb.sbmax_select(submax, *args, k=k)
+                want = kb.sbmax_rescore(submax, *args, k=k,
+                                        similarity="l2_norm")
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                    raise AssertionError(f"knn_sbmax SIFT-1M shape B={b}: "
+                                         f"stage 2 differs from sbmax_rescore")
+    log("K3/K4/K5 at the SIFT-1M shape: stage 1 (and K5's stage 2) "
+        "bit-equal to the plain versions at every B")
     nb = -(-n // kb.PB_BLOCK)
     for name, bs in sizes.items():
         entry = getattr(kb, FAMILY_ENTRY[name])
@@ -517,6 +657,14 @@ def blocks_timing_phase(kb, dev, seed: int) -> dict:
             out[name][b] = {"ms": ms, "plain_ms": plain_ms,
                             "library_ms": library_ms,
                             "device_ms": prof and prof["device_ms"], **bound}
+            if name == "knn_sbmax":
+                out[name][b]["stage1_device_ms"] = kernel_ms(prof,
+                                                             "sbmax_stage1")
+                out[name][b]["stage2_device_ms"] = kernel_ms(prof,
+                                                             "sbmax_stage2")
+                log(f"knn_sbmax SIFT-1M shape B={b}: stage 1 device "
+                    f"{out[name][b]['stage1_device_ms']} ms, stage 2 device "
+                    f"{out[name][b]['stage2_device_ms']} ms")
             log(f"{name} SIFT-1M shape B={b}: {ms:.4f} ms (device "
                 f"{out[name][b]['device_ms']}), plain {plain_ms:.4f} ms, "
                 f"library {library_ms:.4f} ms, bound {bound['bound_ms']:.4f} "
@@ -1153,8 +1301,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--phases", default="kernel,timing,main")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="limit the kernel and timing phases to these "
+                         f"kernels (default: all of {','.join(KERNELS)})")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    chosen = set(args.kernels.split(","))
+    if not chosen <= set(KERNELS):
+        ap.error(f"unknown kernels {sorted(chosen - set(KERNELS))}")
+    family_names = [name for name in FAMILY if name in chosen]
     if not torch.cuda.is_available():
         log("no CUDA device: torch.cuda.is_available() is false")
         return 2
@@ -1208,39 +1363,57 @@ def main() -> int:
             ("knn_sbmax", "opensearch_tpu/ops/pallas_knn.py:446 "
                           "(pallas_knn_sbmax_topk -> _knn_sbmax_kernel :383)"))
     }
+    stage_ms = ("stage1_device_ms", "stage2_device_ms")
     if "kernel" in phases:
-        entry["max_abs_err"] = kernel_phase(kf, dev, args.seed)
-        entry["parity"] = "ok"
-        entry2["max_abs_err"] = adc_kernel_phase(ads, ivfpq, dev, args.seed)
-        entry2["parity"] = "ok"
-        for name, e in blocks_kernel_phase(kb, dev, args.seed).items():
+        if "knn_fused" in chosen:
+            entry["max_abs_err"] = kernel_phase(kf, dev, args.seed)
+            entry["parity"] = "ok"
+        if "adc_scan" in chosen:
+            entry2["max_abs_err"] = adc_kernel_phase(ads, ivfpq, dev,
+                                                     args.seed)
+            entry2["parity"] = "ok"
+        k34 = [name for name in family_names if name != "knn_sbmax"]
+        errs = blocks_kernel_phase(kb, dev, args.seed, k34) if k34 else {}
+        if "knn_sbmax" in chosen:
+            errs["knn_sbmax"] = sbmax_kernel_phase(kb, dev, args.seed)
+        for name, e in errs.items():
             family[name]["parity"] = "bit-equal"
             family[name]["max_abs_err"] = e
     if "timing" in phases:
-        t = timing_phase(kf, dev, args.seed)
-        entry.update({key: t[1][key] for key in fields})
-        entry["shape"] = "n=1000000 d=128 fp32 l2 k=10 B=1"
-        entry["b32"] = {key: t[32][key] for key in fields}
-        t2 = adc_timing_phase(ads, ivfpq, dev, args.seed)
-        entry2.update({key: t2[1][key] for key in fields})
-        entry2["shape"] = (f"glove-100: n={GLOVE_DOCS} d={ANN_DIM} cosine "
-                           f"nlist=512 m={ANN_M} nprobe=8 l_pad={t2['l_pad']} "
-                           f"fp32 R=64 B=1")
-        entry2["build_s"] = t2["build_s"]
-        entry2["device_ms"] = t2[1]["device_ms"]
-        entry2["b32"] = {key: t2[32][key] for key in (*fields, "device_ms")}
-        t3 = blocks_timing_phase(kb, dev, args.seed)
-        for name, e in family.items():
-            e["launches"] = t3[name]["launches"]
-            e["max_abs_err"] = max(e["max_abs_err"] or 0.0,
-                                   t3[name]["stage1_err"])
-            e.update({key: t3[name][1][key] for key in fields})
-            e["device_ms"] = t3[name][1]["device_ms"]
+        if "knn_fused" in chosen:
+            t = timing_phase(kf, dev, args.seed)
+            entry.update({key: t[1][key] for key in fields})
+            entry["shape"] = "n=1000000 d=128 fp32 l2 k=10 B=1"
+            entry["b32"] = {key: t[32][key] for key in fields}
+        if "adc_scan" in chosen:
+            t2 = adc_timing_phase(ads, ivfpq, dev, args.seed)
+            entry2.update({key: t2[1][key] for key in fields})
+            entry2["shape"] = (f"glove-100: n={GLOVE_DOCS} d={ANN_DIM} "
+                               f"cosine nlist=512 m={ANN_M} nprobe=8 "
+                               f"l_pad={t2['l_pad']} fp32 R=64 B=1")
+            entry2["build_s"] = t2["build_s"]
+            entry2["device_ms"] = t2[1]["device_ms"]
+            entry2["b32"] = {key: t2[32][key]
+                             for key in (*fields, "device_ms")}
+        t3 = blocks_timing_phase(kb, dev, args.seed, family_names) \
+            if family_names else {}
+        for name, t3n in t3.items():
+            e = family[name]
+            e["launches"] = t3n["launches"]
+            e["max_abs_err"] = max(e["max_abs_err"] or 0.0, t3n["stage1_err"])
+            e.update({key: t3n[1][key] for key in fields})
+            e["device_ms"] = t3n[1]["device_ms"]
             e["shape"] = "SIFT-1M: n=1000000 d=128 fp32 l2 k=10 B=1"
+            extra = ()
+            if name == "knn_sbmax":
+                # stage 2 is the second kernel of each call, counted apart
+                e["stage2_launches"] = t3n["select_launches"]
+                e.update({key: t3n[1][key] for key in stage_ms})
+                extra = stage_ms
             for b in (32, 128):
-                if b in t3[name]:
-                    e[f"b{b}"] = {key: t3[name][b][key]
-                                  for key in (*fields, "device_ms")}
+                if b in t3n:
+                    e[f"b{b}"] = {key: t3n[b][key]
+                                  for key in (*fields, "device_ms", *extra)}
     if "main" in phases:
         main = main_path_phase(kf, dev, args.seed)
         entry["launches"] = main["launches"]

@@ -7,8 +7,9 @@ Counterpart of opensearch_tpu/ops/pallas_knn.py:49-567:
   K4  ``knn_blocktopk_auto`` top-k of every 2048-doc block, then a stable
                              block-major merge (csrc/knn_pb.cu);
   K5  ``knn_sbmax_auto``     maximum of every 128-doc sub-block, then the k
-                             best sub-blocks rescored exactly
-                             (csrc/knn_sbmax.cu).
+                             best sub-blocks rescored exactly: two kernels
+                             (csrc/knn_sbmax.cu, stage 1 ``sbmax`` and
+                             stage 2 ``sbmax_select``).
 
 Each returns (scores [B, k] f32, ids [B, k] int32), best first under
 (score desc, doc id asc), with (-inf, -1) past the valid-doc count. The
@@ -20,9 +21,9 @@ instead of copying it.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 the plain version in this module (``plain_block_topk``, ``plain_pb_topk``,
-``plain_sbmax``). A k past a kernel's stated limit raises ValueError on
-either device. The second stages (K4's merge, K5's selection and rescore)
-are PyTorch on both.
+``plain_sbmax``, ``sbmax_rescore``). A k past a kernel's stated limit
+raises ValueError on either device. K4's merge is PyTorch on both; K5's
+selection and rescore is its second kernel on CUDA.
 
 ``exact=False`` (the reference's Precision.DEFAULT, one bf16 MXU pass on
 the TPU) means bf16-rounded operands with f32 accumulation, in K4's and
@@ -50,6 +51,9 @@ BLOCK = 1024       # K3's doc block
 PB_BLOCK = 2048    # K4's and K5's doc block
 PB_QTILE = 128     # the reference's query tile (B pads to it above 128)
 SUB = 128          # K5's sub-block
+SBMAX_QTILES = (8, 32, 128)  # K5 stage 1's query tiles
+SBMAX_SELECT_SMEM = 200_000  # K5 stage 2 keeps its row of maxima and its
+                             # k * 130 words in shared memory up to here
 BLOCK_MAX_K = 1024  # K3: the per-query pools of a 16-query CTA in shared memory
 PB_MAX_K = PB_BLOCK  # K4: a block holds no more than PB_BLOCK docs
 
@@ -58,7 +62,8 @@ _NEG_INF = float("-inf")
 # launches of each kernel, counted where its wrapper launches it
 block_launches = cuda_lib.LaunchCounter()
 pb_launches = cuda_lib.LaunchCounter()
-sbmax_launches = cuda_lib.LaunchCounter()
+sbmax_launches = cuda_lib.LaunchCounter()         # K5 stage 1
+sbmax_select_launches = cuda_lib.LaunchCounter()  # K5 stage 2
 
 
 def _check_operands(vectors, norms_sq, valid, queries) -> None:
@@ -320,28 +325,59 @@ def plain_sbmax(vectors, norms_sq, valid, queries, *, similarity: str,
     return submax.permute(1, 0, 2).contiguous()
 
 
-def _launch_sbmax(vectors, norms_sq, valid, queries, *, similarity: str,
-                  exact: bool):
-    lib = _library("knn_sbmax", {
-        "knn_sbmax_smem_bytes": (ctypes.c_size_t, [ctypes.c_int]),
+def sbmax_query_tile(b_pad: int) -> int:
+    """Stage 1's query tile for a padded batch: the smallest of
+    ``SBMAX_QTILES`` that holds it, the largest above (B pads to a multiple
+    of 128 there)."""
+    for qt in SBMAX_QTILES:
+        if b_pad <= qt:
+            return qt
+    return SBMAX_QTILES[-1]
+
+
+def _sbmax_library() -> ctypes.CDLL:
+    return _library("knn_sbmax", {
+        "knn_sbmax_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 2),
         "knn_sbmax_launch": (ctypes.c_int, [ctypes.c_void_p] * 6
-                             + [ctypes.c_int] * 6 + [ctypes.c_void_p]),
+                             + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+        "knn_sbmax_select_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 5),
+        "knn_sbmax_select_launch": (ctypes.c_int, [ctypes.c_void_p] * 11
+                                    + [ctypes.c_int] * 8
+                                    + [ctypes.c_void_p]),
     })
+
+
+def _check_sbmax_cuda(vectors, queries) -> None:
+    """What the K5 kernels take beyond the entry point's checks: rows in
+    16-byte units (cp.async and float4 loads)."""
+    d = vectors.shape[1]
+    if d % 4 or vectors.data_ptr() % 16 or queries.data_ptr() % 16:
+        raise ValueError(f"knn_sbmax takes d % 4 == 0 and 16-byte aligned "
+                         f"vectors and queries on CUDA, got d={d}")
+
+
+def _launch_sbmax(vectors, norms_sq, valid, queries, qsq, *, similarity: str,
+                  exact: bool):
+    lib = _sbmax_library()
+    _check_sbmax_cuda(vectors, queries)
     n, d = vectors.shape
     B = queries.shape[0]
-    smem = lib.knn_sbmax_smem_bytes(d)
+    qt = sbmax_query_tile(B)
+    # a wide row may not fit the large tiles: step down, 8 rows at least
+    while lib.knn_sbmax_smem_bytes(qt, d) > _MAX_SMEM and qt > SBMAX_QTILES[0]:
+        qt = SBMAX_QTILES[SBMAX_QTILES.index(qt) - 1]
+    smem = lib.knn_sbmax_smem_bytes(qt, d)
     if smem > _MAX_SMEM:
         raise ValueError(f"knn_sbmax needs {smem} bytes of shared memory at "
                          f"d={d} (at most {_MAX_SMEM})")
     nb = -(-n // PB_BLOCK)
     dev = vectors.device
-    qsq = (queries * queries).sum(dim=1)
     out = torch.empty((nb, B, PB_BLOCK // SUB), dtype=torch.float32,
                       device=dev)
     err = lib.knn_sbmax_launch(
         vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
         queries.data_ptr(), qsq.data_ptr(), out.data_ptr(),
-        n, d, B, nb, _SIM_CODE[similarity], int(exact), _stream(dev))
+        n, d, B, nb, qt, _SIM_CODE[similarity], int(exact), _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn_sbmax launch failed: cudaError {err}")
     sbmax_launches.add()
@@ -349,20 +385,77 @@ def _launch_sbmax(vectors, norms_sq, valid, queries, *, similarity: str,
 
 
 def sbmax(vectors, norms_sq, valid, queries, *, similarity: str = "l2_norm",
-          exact: bool = True):
+          exact: bool = True, qsq=None):
     """K5 stage 1 over the (padded) batch: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. ``qsq`` ([B] |q|^2), when the caller has
+    it, spares the kernel path a reduction; the plain version computes its
+    own."""
     if vectors.device.type == "cuda":
-        return _launch_sbmax(vectors, norms_sq, valid, queries,
+        if qsq is None:
+            qsq = (queries * queries).sum(dim=1)
+        return _launch_sbmax(vectors, norms_sq, valid, queries, qsq,
                              similarity=similarity, exact=exact)
     return plain_sbmax(vectors, norms_sq, valid, queries,
                        similarity=similarity, exact=exact)
 
 
+def _launch_sbmax_select(submax, vectors, norms_sq, valid, queries, qsq, *,
+                         k: int, similarity: str, exact: bool):
+    lib = _sbmax_library()
+    _check_sbmax_cuda(vectors, queries)
+    n, d = vectors.shape
+    nb, B, _subs = submax.shape
+    dev = vectors.device
+    vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    n_sub = nb * (PB_BLOCK // SUB)
+    # shared memory first for the row of maxima, then for the k arrays
+    row, use_scratch = next(
+        ((r, sc) for r, sc in ((1, 0), (1, 1), (0, 1))
+         if lib.knn_sbmax_select_smem_bytes(d, k, n_sub, r, sc)
+         <= SBMAX_SELECT_SMEM), (0, 1))
+    smem = lib.knn_sbmax_select_smem_bytes(d, k, n_sub, row, use_scratch)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"knn_sbmax selection needs {smem} bytes of shared "
+                         f"memory at d={d} (at most {_MAX_SMEM})")
+    scratch = (None, None, None)
+    if use_scratch:
+        # the selected sub-blocks, candidate scores and winners of each
+        # query go to device memory
+        scratch = (torch.empty((B, k), dtype=torch.int32, device=dev),
+                   torch.empty((B, k * SUB), dtype=torch.float32, device=dev),
+                   torch.empty((B, k), dtype=torch.int32, device=dev))
+    err = lib.knn_sbmax_select_launch(
+        submax.data_ptr(), vectors.data_ptr(), norms_sq.data_ptr(),
+        valid.data_ptr(), queries.data_ptr(), qsq.data_ptr(), vals.data_ptr(),
+        ids.data_ptr(), *(t.data_ptr() if t is not None else None
+                          for t in scratch),
+        n, d, B, nb, k, _SIM_CODE[similarity], int(exact), row, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"knn_sbmax selection launch failed: cudaError "
+                           f"{err}")
+    sbmax_select_launches.add()
+    return vals, ids
+
+
+def sbmax_select(submax, vectors, norms_sq, valid, queries, *, k: int,
+                 similarity: str = "l2_norm", exact: bool = True, qsq=None):
+    """K5 stage 2 over the (padded) batch: the selection kernel for CUDA
+    tensors, :func:`sbmax_rescore` for CPU tensors."""
+    if vectors.device.type == "cuda":
+        if qsq is None:
+            qsq = (queries * queries).sum(dim=1)
+        return _launch_sbmax_select(submax.contiguous(), vectors, norms_sq,
+                                    valid, queries, qsq, k=k,
+                                    similarity=similarity, exact=exact)
+    return sbmax_rescore(submax, vectors, norms_sq, valid, queries, k=k,
+                         similarity=similarity, exact=exact)
+
+
 def sbmax_rescore(submax, vectors, norms_sq, valid, queries, *, k: int,
                   similarity: str, exact: bool = True):
-    """K5 stage 2: the k sub-blocks with the largest maxima (ties to the
-    lower one) hold every top-k doc; their ids sorted ascending keep the
+    """Plain K5 stage 2: the k sub-blocks with the largest maxima (ties to
+    the lower one) hold every top-k doc; their ids sorted ascending keep the
     candidates doc-id-major, so the stable top-k of the rescored
     candidates sends ties to the lower doc id. Candidates past n are pad
     rows: dead, and clamped before the gather."""
@@ -399,8 +492,9 @@ def knn_sbmax_auto(vectors, norms_sq, valid, queries, *, k: int,
     vectors, norms_sq, valid = (vectors.contiguous(), norms_sq.contiguous(),
                                 valid.contiguous())
     q = _pad_queries(queries, PB_QTILE)
+    qsq = (q * q).sum(dim=1)
     submax = sbmax(vectors, norms_sq, valid, q, similarity=similarity,
-                   exact=exact)
-    vals, ids = sbmax_rescore(submax, vectors, norms_sq, valid, q, k=k,
-                              similarity=similarity, exact=exact)
+                   exact=exact, qsq=qsq)
+    vals, ids = sbmax_select(submax, vectors, norms_sq, valid, q, k=k,
+                             similarity=similarity, exact=exact, qsq=qsq)
     return vals[:B], ids[:B]
