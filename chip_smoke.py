@@ -6,9 +6,9 @@
 Builds the port's five CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together): K1 (csrc/knn_fused.cu, fused exact
 kNN), K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family
-K3 (csrc/knn_block.cu, running top-k), K4 (csrc/knn_pb.cu, per-block top-k)
-and K5 (csrc/knn_sbmax.cu: sub-block maxima, then the selection and
-rescore, two kernels). ``--kernels`` limits the kernel and timing phases to
+K3 (csrc/knn_block.cu, running top-k), K4 (csrc/knn_pb.cu: per-block top-k,
+then the block-major merge, two kernels) and K5 (csrc/knn_sbmax.cu:
+sub-block maxima, then the selection and rescore, two kernels). ``--kernels`` limits the kernel and timing phases to
 the named kernels (default all five; the main phase needs K1 and K2).
 Then:
 
@@ -28,20 +28,24 @@ Then:
    rtol 1e-6 / atol 1e-6: kernel and plain add the m LUT entries in the same
    order with round-to-nearest f32 adds, so they should agree to the bit;
    the tolerance allows a rounding, never a reordering of candidates.
-   K3, K4: n = 50,000 (ragged past both block sizes), d = 128, 3% dead
-   docs, a duplicate planted across the block boundaries, B = 5, 16 and
-   40 (three 16-query tiles), k = 10 and 100, l2, cosine and dot, K4 at
-   exact and not. K5 (sbmax_kernel_phase) on the same kind of data with
-   one vector planted in 13 sub-blocks and one all-dead sub-block, at
-   B = 1, 5, 8, 9, 16, 32, 33, 40, 128 and 129 (its query tiles 8, 32 and
-   128, full and partial) and k = 10, 100 and n_sub = 400; each stage is
-   held against its own plain version. The
-   data are multiples of 1/16, so every dot is exact in f32 in any order:
-   stage 1 (K3's pools, K4's per-block pools, K5's maxima), K5's stage 2
-   and the whole entry point must equal the plain versions bit for bit,
-   and the lower id must win the planted ties. exact=False runs on the
-   same data plus 2^-14, which the bf16 rounding of the operands must
-   remove.
+   K3: n = 50,000 (ragged past the block), d = 128, 3% dead docs, a
+   duplicate planted across the block boundary, B = 5, 16 and 40 (three
+   16-query tiles), k = 10 and 100, l2, cosine and dot. K4
+   (pb_kernel_phase): n = 50,000 with a duplicate across a block edge and
+   a run of 12 equal vectors inside a block, B = 1, 5, 8, 9, 16, 32, 33,
+   40, 128 and 129 (its query tiles 8, 32 and 128, full and partial),
+   k = 10, 32, 33, 100 and 2048 (both tiers), at d = 128, 30 (padded) and
+   768 (chunked), operands off a 16-byte boundary, and n = 300,000 (CTAs
+   walking several blocks). K5 (sbmax_kernel_phase) on the same kind of
+   data with one vector planted in 13 sub-blocks and one all-dead
+   sub-block, at the same B and k = 10, 100 and n_sub = 400, then at
+   d = 30 and off a 16-byte boundary. Each stage is held against its own
+   plain version. The data are multiples of 1/16, so every dot is exact in
+   f32 in any order: stage 1 (K3's pools, K4's per-block pools, K5's
+   maxima), K4's and K5's stage 2 and the whole entry point must equal the
+   plain versions bit for bit, and the lower id must win the planted ties.
+   exact=False runs on the same data plus 2^-14, which the bf16 rounding
+   of the operands must remove.
 2. timing: CUDA-event times of each kernel, its plain version and a library
    yardstick where one exists, beside the bound. K1 at the SIFT-1M shape
    (n = 1,000,000, d = 128, f32, l2, k = 10) at B = 1 and 32: library is
@@ -58,10 +62,10 @@ Then:
    B with the launch counts set to 0 (their path), each answer the
    brute-force top-10 in order with its scores bit for bit, and each
    kernel's stage 1 bit-equal to its own plain version at every B; then
-   the call's time, its device time under torch.profiler (K5: each
-   stage's too), the plain pipeline's, the library yardstick's and the
-   bound (slab, norms, flags and queries read once, what the kernel
-   writes, against 2*B*n*d operations).
+   the call's time, its device time under torch.profiler (K4 and K5: each
+   stage's too, by kernel name), the plain pipeline's, the library
+   yardstick's and the bound (slab, norms, flags and queries read once,
+   what the kernel writes, against 2*B*n*d operations).
 3. main: drives TorchNode on the card. Exact (K1): index A (1 shard,
    200,000 clustered 128-d docs) and index B (4 shards, 20,000 docs), 64
    knn searches each; every hit list must equal the brute-force truth in
@@ -90,7 +94,7 @@ Then:
    printed solo, concurrent and concurrent without the batcher.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
-and last `{"ok": true, "device": {...}}`. Exits non-zero, with no result
+and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
 line, when there is no CUDA device or any phase fails.
 """
 
@@ -312,6 +316,9 @@ def timing_phase(kf, dev, seed: int) -> dict:
 FAMILY = ("knn_block", "knn_pb", "knn_sbmax")
 FAMILY_ENTRY = {"knn_block": "knn_topk_auto", "knn_pb": "knn_blocktopk_auto",
                 "knn_sbmax": "knn_sbmax_auto"}
+# the profiler's kernel names of the two-kernel entry points' stages
+STAGE_KERNELS = {"knn_pb": ("knn_pb_kernel", "knn_pb_merge_kernel"),
+                 "knn_sbmax": ("sbmax_stage1", "sbmax_stage2")}
 
 
 def sixteenths(rng, n: int, d: int) -> np.ndarray:
@@ -379,67 +386,165 @@ def compare_stage1(kb, name, args, k, sim, exact, what: str) -> float:
         if bool(fin.any()) else 0.0
 
 
-def blocks_kernel_phase(kb, dev, seed: int, names) -> dict:
-    """K3 and K4 (those of `names`) against their plain versions on the
-    card: n = 50,000
-    (a ragged tail past both block sizes), d = 128, 3% dead docs, a
-    duplicate of doc 2040 planted at 2053 (across both the 1024- and the
-    2048-doc block boundary), B = 5, 16 and 40 (three of the kernels'
-    16-query tiles, the last one partial), k = 10 and 100, l2, cosine and
-    dot, K4 at exact and not. The data are sixteenths: stage 1 must
-    match bit for bit, and the whole entry point (second stages included)
-    too. exact=False is checked on the same data plus 2^-14 on every
-    nonzero coordinate, which the bf16 rounding of the operands must take
-    away again. Returns each kernel's max |dv| against its plain version,
-    stage 1 and entry point."""
+def blocks_kernel_phase(kb, dev, seed: int) -> float:
+    """K3 against its plain version on the card: n = 50,000 (a ragged tail
+    past the 1024-doc block), d = 128, 3% dead docs, a duplicate of doc
+    2040 planted at 2053 (across the block boundary), B = 5, 16 and 40
+    (three of the kernel's 16-query tiles, the last one partial), k = 10
+    and 100, l2, cosine and dot. The data are sixteenths: the pools must
+    match bit for bit, the whole entry point too, and the lower id must win
+    the planted tie. Returns the max |dv| against the plain version."""
     rng = np.random.default_rng(seed + 20)
     n, d = 50_000, DIM
-    base = sixteenths(rng, n, d)
-    base[2053] = base[2040]
+    data = sixteenths(rng, n, d)
+    data[2053] = data[2040]
     valid = np.ones(n, bool)
     valid[rng.choice(n, int(0.03 * n), replace=False)] = False
     valid[[2040, 2053]] = True
-    jitter = np.where(base != 0, np.where(rng.random((n, d)) < 0.5, 1, -1)
-                      * 2.0 ** -14, 0).astype(np.float32)
     ok = torch.from_numpy(valid).to(dev)
-    err = dict.fromkeys(names, 0.0)
-    for exact, data in ((True, base), (False, base + jitter)):
-        v = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
-        nrm = torch.from_numpy((data.astype(np.float64) ** 2).sum(1).astype(
-            np.float32)).to(dev)
-        for b in (5, 16, 40):
-            queries = data[rng.choice(n, b, replace=False)].copy()
-            queries[0] = data[2040]
-            q = torch.from_numpy(queries).to(dev)
-            for k in (10, 100):
+    v = torch.from_numpy(data).to(dev)
+    nrm = torch.from_numpy((data.astype(np.float64) ** 2).sum(1).astype(
+        np.float32)).to(dev)
+    err = 0.0
+    for b in (5, 16, 40):
+        queries = data[rng.choice(n, b, replace=False)].copy()
+        queries[0] = data[2040]
+        q = torch.from_numpy(queries).to(dev)
+        for k in (10, 100):
+            for sim in SIMS:
+                args = (v, nrm, ok, kb._pad_queries(q, None))
+                what = f"knn_block {sim} B={b} k={k}"
+                err = max(err, compare_stage1(kb, "knn_block", args, k, sim,
+                                              True, what))
+                gv, gi = kb.knn_topk_auto(v, nrm, ok, q, k=k, similarity=sim)
+                pv, pi = family_plain(kb, "knn_block", v, nrm, ok, q, k, sim)
+                if not (torch.equal(gi, pi[:b]) and torch.equal(gv, pv[:b])):
+                    raise AssertionError(f"{what}: entry point differs from "
+                                         f"its plain pipeline")
+                if sim == "l2_norm" and gi[0, :2].tolist() != [2040, 2053]:
+                    raise AssertionError(
+                        f"{what}: planted tie gave {gi[0, :2].tolist()}")
+        log(f"knn_block parity B={b}: bit-equal over k = 10, 100 and l2, "
+            f"cosine, dot")
+    return err
+
+
+def unaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x whose data starts 4 bytes past a 16-byte
+    boundary: a view the cp.async kernels cannot read as it is."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+PB_COPIES = (2040, 2053)                   # a duplicate across a block edge
+PB_RUN = tuple(range(6150, 6162))          # 12 equal vectors in block 3
+
+
+def pb_case(kb, dev, rng, n: int, d: int, exact: bool):
+    """K4's parity operands: n sixteenths of width d, 3% dead docs, the
+    duplicate PB_COPIES and the run PB_RUN planted; exact=False adds 2^-14
+    to every nonzero coordinate (equal on the planted copies), which the
+    bf16 rounding of the operands must remove."""
+    data = sixteenths(rng, n, d)
+    data[list(PB_COPIES)] = data[PB_COPIES[0]]
+    data[list(PB_RUN)] = data[PB_RUN[0]]
+    valid = np.ones(n, bool)
+    valid[rng.choice(n, int(0.03 * n), replace=False)] = False
+    valid[[*PB_COPIES, *PB_RUN]] = True
+    if not exact:
+        jitter = np.where(data != 0, np.where(rng.random((n, d)) < 0.5, 1, -1)
+                          * 2.0 ** -14, 0).astype(np.float32)
+        jitter[list(PB_COPIES)] = jitter[PB_COPIES[0]]
+        jitter[list(PB_RUN)] = jitter[PB_RUN[0]]
+        data = data + jitter
+    v = torch.from_numpy(np.ascontiguousarray(data)).to(dev)
+    nrm = torch.from_numpy((data.astype(np.float64) ** 2).sum(1).astype(
+        np.float32)).to(dev)
+    return data, v, nrm, torch.from_numpy(valid).to(dev)
+
+
+def pb_check(kb, v, nrm, ok, q, k: int, sim: str, exact: bool,
+             what: str) -> float:
+    """K4 on one case: stage 1 bit-equal to plain_pb_topk (ids on finite
+    slots), the merge kernel on plain_pb_topk's pools bit-equal to pb_merge,
+    and the entry point to the plain pipeline. Returns max |dv|."""
+    b = q.shape[0]
+    qp = kb._pad_queries(q, kb.PB_QTILE)
+    err = compare_stage1(kb, "knn_pb", (v, nrm, ok, qp), k, sim, exact,
+                         f"{what} stage 1")
+    pools = kb.plain_pb_topk(v, nrm, ok, qp, k=k, similarity=sim,
+                             exact=exact)
+    got, want = kb.pb_select(*pools, k), kb.pb_merge(*pools, k)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, w) for a, w in zip(got, want)):
+        raise AssertionError(f"{what}: the merge kernel differs from pb_merge")
+    gv, gi = kb.knn_blocktopk_auto(v, nrm, ok, q, k=k, similarity=sim,
+                                   exact=exact)
+    pv, pi = kb.pb_merge(*pools, k)
+    if not (torch.equal(gi, pi[:b]) and torch.equal(gv, pv[:b])):
+        raise AssertionError(f"{what}: entry point differs from its plain "
+                             f"pipeline")
+    if sim != "dot_product":
+        if gi[0, :2].tolist() != list(PB_COPIES):
+            raise AssertionError(f"{what}: planted tie gave "
+                                 f"{gi[0, :2].tolist()}")
+        if b > 1 and gi[1, :min(k, 10)].tolist() != list(PB_RUN[:min(k, 10)]):
+            raise AssertionError(f"{what}: planted run gave "
+                                 f"{gi[1, :10].tolist()}")
+    return err
+
+
+def pb_kernel_phase(kb, dev, seed: int) -> float:
+    """K4's two kernels against their plain versions on the card (pb_check
+    on each case): n = 50,000 sixteenths (a ragged tail past the 2048-doc
+    block), 3% dead docs, a duplicate across a block edge (PB_COPIES) and a
+    run of 12 equal vectors inside one block (PB_RUN), queried by the first
+    two queries, so k = 10 cuts through the run. At d = 128: B = 1, 5, 8,
+    9, 16, 32, 33, 40, 128 and 129 (each query tile 8, 32 and 128, full
+    and partial, and two 128-query tiles) x k = 10, 32 (PB_LIST_K, the
+    last of the list tier), 33, 100 and 2048 (PB_MAX_K) x l2, cosine, dot x
+    exact and not. At d = 30 (padded to 32 by rows_in_16_bytes) and d = 768
+    (chunked d, the query tile stepped down): B = 1, 33 and 129 x k = 10
+    and 2048 x the three similarities x exact and not. Then operands 4
+    bytes off a 16-byte boundary (copied by rows_in_16_bytes). Last n =
+    300,000 (147 blocks, more than the CTAs of a query tile, so some CTAs
+    walk two blocks): B = 9, 33 and 129 x k = 10 and 32. Returns the max
+    |dv|."""
+    rng = np.random.default_rng(seed + 23)
+    err = 0.0
+    widths = ((50_000, DIM, (1, 5, 8, 9, 16, 32, 33, 40, 128, 129),
+               (10, 32, 33, 100, 2048)),
+              (50_000, 30, (1, 33, 129), (10, 2048)),
+              (50_000, 768, (1, 33, 129), (10, 2048)),
+              (300_000, DIM, (9, 33, 129), (10, 32)))
+    for n, d, bs, ks in widths:
+        for exact in (True, False):
+            data, v, nrm, ok = pb_case(kb, dev, rng, n, d, exact)
+            for b in bs:
+                queries = data[rng.choice(n, b, replace=False)].copy()
+                queries[0] = data[PB_COPIES[0]]
+                if b > 1:
+                    queries[1] = data[PB_RUN[0]]
+                q = torch.from_numpy(queries).to(dev)
+                for k in ks:
+                    for sim in SIMS:
+                        err = max(err, pb_check(
+                            kb, v, nrm, ok, q, k, sim, exact,
+                            f"knn_pb d={d} {sim} B={b} k={k} exact={exact}"))
+            log(f"K4 parity n={n} d={d} exact={exact}: both kernels and the "
+                f"entry point bit-equal at B = {bs}, k = {ks}, l2, cosine, "
+                f"dot")
+            if n == 50_000 and d == DIM and exact:
                 for sim in SIMS:
-                    for name in names:
-                        if name == "knn_block" and not exact:
-                            continue
-                        qtile = None if name == "knn_block" else kb.PB_QTILE
-                        args = (v, nrm, ok, kb._pad_queries(q, qtile))
-                        what = f"{name} {sim} B={b} k={k} exact={exact}"
-                        err[name] = max(err[name], compare_stage1(
-                            kb, name, args, k, sim, exact, what))
-                        kw = {} if name == "knn_block" else {"exact": exact}
-                        gv, gi = getattr(kb, FAMILY_ENTRY[name])(
-                            v, nrm, ok, q, k=k, similarity=sim, **kw)
-                        pv, pi = family_plain(kb, name, v, nrm, ok, q, k, sim,
-                                              exact)
-                        if not (torch.equal(gi, pi[:b])
-                                and torch.equal(gv, pv[:b])):
-                            raise AssertionError(f"{what}: entry point differs "
-                                                 f"from its plain pipeline")
-                        fin = torch.isfinite(pv[:b])
-                        if bool(fin.any()):
-                            err[name] = max(err[name], float(
-                                (gv[fin] - pv[:b][fin]).abs().max()))
-                        if exact and sim == "l2_norm" and \
-                                gi[0, :2].tolist() != [2040, 2053]:
-                            raise AssertionError(
-                                f"{what}: planted tie gave {gi[0, :2].tolist()}")
-            log(f"{'/'.join(names)} parity exact={exact} B={b}: bit-equal "
-                f"over k = 10, 100 and l2, cosine, dot")
+                    err = max(err, pb_check(
+                        kb, unaligned(v), nrm, ok, unaligned(q[:9]), 10, sim,
+                        True, f"knn_pb unaligned {sim}"))
+                log("K4 parity, operands off a 16-byte boundary: bit-equal")
+            del v
+            torch.cuda.empty_cache()
     return err
 
 
@@ -461,8 +566,10 @@ def sbmax_kernel_phase(kb, dev, seed: int) -> float:
     sbmax_rescore on the same maxima, and the entry point the plain
     pipeline; for the planted query (l2 and cosine) the 10 lowest copies
     come first, in id order. exact=False runs on the data plus 2^-14 (the
-    copies keep equal jitter), which the bf16 rounding must remove. Returns
-    the max |dv| of stage 1 and the entry point against the plain ones."""
+    copies keep equal jitter), which the bf16 rounding must remove. Then
+    d = 30 (padded to 32 by rows_in_16_bytes) and operands 4 bytes off a
+    16-byte boundary, both stages at B = 9, k = 10. Returns the max |dv| of
+    stage 1 and the entry point against the plain ones."""
     rng = np.random.default_rng(seed + 22)
     n, d = 50_000, DIM
     base = sixteenths(rng, n, d)
@@ -541,6 +648,32 @@ def sbmax_kernel_phase(kb, dev, seed: int) -> float:
             f"(stage 2 in both shared-memory layouts)")
         del v
         torch.cuda.empty_cache()
+    # rows that are not whole 16-byte units (d = 30, padded to 32 by
+    # rows_in_16_bytes) and operands 4 bytes off a 16-byte boundary (copied)
+    data30 = sixteenths(rng, n, 30)
+    cases = (("d=30", torch.from_numpy(data30).to(dev),
+              torch.from_numpy(data30[:9].copy()).to(dev)),
+             ("unaligned", unaligned(torch.from_numpy(base).to(dev)),
+              unaligned(torch.from_numpy(base[:9].copy()).to(dev))))
+    for label, v, q in cases:
+        nrm = (v.double() ** 2).sum(1).float()
+        qp = kb._pad_queries(q, kb.PB_QTILE)
+        for exact in (True, False):
+            for sim in SIMS:
+                what = f"knn_sbmax {label} {sim} exact={exact}"
+                err = max(err, compare_stage1(kb, "knn_sbmax", (v, nrm, ok, qp),
+                                              0, sim, exact, what))
+                submax = kb.plain_sbmax(v, nrm, ok, qp, similarity=sim,
+                                        exact=exact)
+                got = kb.sbmax_select(submax, v, nrm, ok, qp, k=10,
+                                      similarity=sim, exact=exact)
+                want = kb.sbmax_rescore(submax, v, nrm, ok, qp, k=10,
+                                        similarity=sim, exact=exact)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                    raise AssertionError(f"{what}: stage 2 differs from "
+                                         f"sbmax_rescore")
+        log(f"K5 parity {label}: both stages bit-equal (B = 9, k = 10)")
     return err
 
 
@@ -570,11 +703,13 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
     (the plain scores and a stable top-10: the data make every dot exact).
     Then, at each of these B, each kernel's stage 1 (K3's pools, K4's
     per-block pools over all 489 blocks, K5's maxima) and K5's stage 2 on
-    the plain maxima must equal their own plain versions bit for bit. Then
-    the CUDA-event time of each call, its device time under torch.profiler,
-    the plain pipeline's time, the library yardstick (torch.topk over the
-    l2-transformed q @ v.T) and the bound. K5 launches two kernels a call (stage 1 and stage 2, each counted) and
-    each stage's device ms is read from the profiler by kernel name."""
+    the plain maxima, and K4's merge kernel on the plain pools, must equal
+    their own plain versions bit for bit. Then the CUDA-event time of each
+    call, its device time under torch.profiler, the plain pipeline's time,
+    the library yardstick (torch.topk over the l2-transformed q @ v.T) and
+    the bound. K4 and K5 launch two kernels a call (stage 1 and stage 2,
+    each counted), and each stage's device ms is read from the profiler by
+    kernel name (STAGE_KERNELS)."""
     rng = np.random.default_rng(seed + 21)
     n, k = SIFT_DOCS, 10
     v = torch.from_numpy(sift_like(rng, n, DIM)).to(dev)
@@ -588,8 +723,10 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
                                        ("knn_pb", (1, 32, 128)),
                                        ("knn_sbmax", (1, 32, 128)))
              if name in names}
+    second = {"knn_pb": kb.pb_merge_launches,
+              "knn_sbmax": kb.sbmax_select_launches}
     for counter in (kb.block_launches, kb.pb_launches, kb.sbmax_launches,
-                    kb.sbmax_select_launches):
+                    *second.values()):
         counter.reset()
     for name, bs in sizes.items():
         for b in bs:
@@ -603,20 +740,20 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
     launches = {"knn_block": kb.block_launches.count,
                 "knn_pb": kb.pb_launches.count,
                 "knn_sbmax": kb.sbmax_launches.count}
-    select_launches = kb.sbmax_select_launches.count
+    stage2_launches = {name: c.count for name, c in second.items()}
     for name, bs in sizes.items():
         if launches[name] != len(bs):
             raise AssertionError(f"{name}: {launches[name]} launches in "
                                  f"{len(bs)} calls")
-    if "knn_sbmax" in sizes and select_launches != len(sizes["knn_sbmax"]):
-        raise AssertionError(f"knn_sbmax stage 2: {select_launches} launches "
-                             f"in {len(sizes['knn_sbmax'])} calls")
+        if name in second and stage2_launches[name] != len(bs):
+            raise AssertionError(f"{name} stage 2: {stage2_launches[name]} "
+                                 f"launches in {len(bs)} calls")
     log(f"K3/K4/K5 at the SIFT-1M shape: brute-force top-10 in order; "
         f"launches {launches}")
     out = {name: {"launches": launches[name], "stage1_err": 0.0}
            for name in sizes}
-    if "knn_sbmax" in out:
-        out["knn_sbmax"]["select_launches"] = select_launches
+    for name in second.keys() & out.keys():
+        out[name]["stage2_launches"] = stage2_launches[name]
     for name, bs in sizes.items():
         qtile = None if name == "knn_block" else kb.PB_QTILE
         for b in bs:
@@ -634,7 +771,14 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
                 if not all(torch.equal(a, w) for a, w in zip(got, want)):
                     raise AssertionError(f"knn_sbmax SIFT-1M shape B={b}: "
                                          f"stage 2 differs from sbmax_rescore")
-    log("K3/K4/K5 at the SIFT-1M shape: stage 1 (and K5's stage 2) "
+            if name == "knn_pb":
+                pools = kb.plain_pb_topk(*args, k=k, similarity="l2_norm")
+                got, want = kb.pb_select(*pools, k), kb.pb_merge(*pools, k)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, w) for a, w in zip(got, want)):
+                    raise AssertionError(f"knn_pb SIFT-1M shape B={b}: the "
+                                         f"merge kernel differs from pb_merge")
+    log("K3/K4/K5 at the SIFT-1M shape: stage 1 (and K4's and K5's stage 2) "
         "bit-equal to the plain versions at every B")
     nb = -(-n // kb.PB_BLOCK)
     for name, bs in sizes.items():
@@ -657,12 +801,11 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
             out[name][b] = {"ms": ms, "plain_ms": plain_ms,
                             "library_ms": library_ms,
                             "device_ms": prof and prof["device_ms"], **bound}
-            if name == "knn_sbmax":
-                out[name][b]["stage1_device_ms"] = kernel_ms(prof,
-                                                             "sbmax_stage1")
-                out[name][b]["stage2_device_ms"] = kernel_ms(prof,
-                                                             "sbmax_stage2")
-                log(f"knn_sbmax SIFT-1M shape B={b}: stage 1 device "
+            if name in STAGE_KERNELS:
+                for key, part in zip(("stage1_device_ms", "stage2_device_ms"),
+                                     STAGE_KERNELS[name]):
+                    out[name][b][key] = kernel_ms(prof, part)
+                log(f"{name} SIFT-1M shape B={b}: stage 1 device "
                     f"{out[name][b]['stage1_device_ms']} ms, stage 2 device "
                     f"{out[name][b]['stage2_device_ms']} ms")
             log(f"{name} SIFT-1M shape B={b}: {ms:.4f} ms (device "
@@ -1331,6 +1474,8 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         list(pool.map(cuda_lib.build, KERNELS))
     log(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    # wall seconds of each phase, logged at the end
+    phase_s = {"build": time.perf_counter() - t0}
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entry = {"name": "knn_fused", "route": "cuda",
@@ -1365,6 +1510,7 @@ def main() -> int:
     }
     stage_ms = ("stage1_device_ms", "stage2_device_ms")
     if "kernel" in phases:
+        t0 = time.perf_counter()
         if "knn_fused" in chosen:
             entry["max_abs_err"] = kernel_phase(kf, dev, args.seed)
             entry["parity"] = "ok"
@@ -1372,14 +1518,19 @@ def main() -> int:
             entry2["max_abs_err"] = adc_kernel_phase(ads, ivfpq, dev,
                                                      args.seed)
             entry2["parity"] = "ok"
-        k34 = [name for name in family_names if name != "knn_sbmax"]
-        errs = blocks_kernel_phase(kb, dev, args.seed, k34) if k34 else {}
+        errs = {}
+        if "knn_block" in chosen:
+            errs["knn_block"] = blocks_kernel_phase(kb, dev, args.seed)
+        if "knn_pb" in chosen:
+            errs["knn_pb"] = pb_kernel_phase(kb, dev, args.seed)
         if "knn_sbmax" in chosen:
             errs["knn_sbmax"] = sbmax_kernel_phase(kb, dev, args.seed)
         for name, e in errs.items():
             family[name]["parity"] = "bit-equal"
             family[name]["max_abs_err"] = e
+        phase_s["kernel"] = time.perf_counter() - t0
     if "timing" in phases:
+        t0 = time.perf_counter()
         if "knn_fused" in chosen:
             t = timing_phase(kf, dev, args.seed)
             entry.update({key: t[1][key] for key in fields})
@@ -1405,16 +1556,18 @@ def main() -> int:
             e["device_ms"] = t3n[1]["device_ms"]
             e["shape"] = "SIFT-1M: n=1000000 d=128 fp32 l2 k=10 B=1"
             extra = ()
-            if name == "knn_sbmax":
+            if name in STAGE_KERNELS:
                 # stage 2 is the second kernel of each call, counted apart
-                e["stage2_launches"] = t3n["select_launches"]
+                e["stage2_launches"] = t3n["stage2_launches"]
                 e.update({key: t3n[1][key] for key in stage_ms})
                 extra = stage_ms
             for b in (32, 128):
                 if b in t3n:
                     e[f"b{b}"] = {key: t3n[b][key]
                                   for key in (*fields, "device_ms", *extra)}
+        phase_s["timing"] = time.perf_counter() - t0
     if "main" in phases:
+        t0 = time.perf_counter()
         main = main_path_phase(kf, dev, args.seed)
         entry["launches"] = main["launches"]
         entry["main_path_step_ms"] = main["step_ms"]
@@ -1432,6 +1585,8 @@ def main() -> int:
         # concurrent threads (K1 through the batcher), index C concurrent
         entry["per_shard_route"] = main["per_shard"]
         entry2["concurrent"] = ann["concurrent"]
+        phase_s["main"] = time.perf_counter() - t0
+    log(f"phase wall seconds: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": [entry, entry2, *family.values()]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

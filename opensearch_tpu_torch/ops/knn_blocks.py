@@ -5,7 +5,8 @@ Counterpart of opensearch_tpu/ops/pallas_knn.py:49-567:
 
   K3  ``knn_topk_auto``      running top-k scan (csrc/knn_block.cu);
   K4  ``knn_blocktopk_auto`` top-k of every 2048-doc block, then a stable
-                             block-major merge (csrc/knn_pb.cu);
+                             block-major merge: two kernels (csrc/knn_pb.cu,
+                             stage 1 ``pb_topk`` and stage 2 ``pb_select``);
   K5  ``knn_sbmax_auto``     maximum of every 128-doc sub-block, then the k
                              best sub-blocks rescored exactly: two kernels
                              (csrc/knn_sbmax.cu, stage 1 ``sbmax`` and
@@ -15,15 +16,20 @@ Each returns (scores [B, k] f32, ids [B, k] int32), best first under
 (score desc, doc id asc), with (-inf, -1) past the valid-doc count. The
 entry points keep the reference's padding arithmetic: n rounds up to the
 kernel's block (``BLOCK`` or ``PB_BLOCK``) and B to a multiple of 8 (of
-``PB_QTILE`` above it). Pad queries are zero rows, sliced off; pad docs are
-dead, so the kernels take the unpadded slab and score rows past n as -inf
-instead of copying it.
+``PB_QTILE`` above it). Pad queries are zero rows, sliced off (K4's
+kernels select and write only the caller's rows); pad docs are dead, so
+the kernels take the unpadded slab and score rows past n as -inf instead
+of copying it.
 
 Dispatch: a CUDA tensor launches the kernel or raises; a CPU tensor runs
 the plain version in this module (``plain_block_topk``, ``plain_pb_topk``,
-``plain_sbmax``, ``sbmax_rescore``). A k past a kernel's stated limit
-raises ValueError on either device. K4's merge is PyTorch on both; K5's
-selection and rescore is its second kernel on CUDA.
+``pb_merge``, ``plain_sbmax``, ``sbmax_rescore``). A k past a kernel's
+stated limit raises ValueError on either device. K4's merge and K5's
+selection and rescore are each a second kernel on CUDA.
+
+K4 and K5 read rows in 16-byte units (cp.async, float4): on CUDA
+:func:`rows_in_16_bytes` pads d to a multiple of 4 and copies an unaligned
+operand first.
 
 ``exact=False`` (the reference's Precision.DEFAULT, one bf16 MXU pass on
 the TPU) means bf16-rounded operands with f32 accumulation, in K4's and
@@ -54,6 +60,9 @@ SUB = 128          # K5's sub-block
 SBMAX_QTILES = (8, 32, 128)  # K5 stage 1's query tiles
 SBMAX_SELECT_SMEM = 200_000  # K5 stage 2 keeps its row of maxima and its
                              # k * 130 words in shared memory up to here
+PB_LIST_K = 32     # K4 stage 1 keeps per-warp lists up to this k
+PB_MERGE_SMEM = 200_000  # K4 stage 2 stages a query's nb * k candidates in
+                         # shared memory up to here
 BLOCK_MAX_K = 1024  # K3: the per-query pools of a 16-query CTA in shared memory
 PB_MAX_K = PB_BLOCK  # K4: a block holds no more than PB_BLOCK docs
 
@@ -61,7 +70,8 @@ _NEG_INF = float("-inf")
 
 # launches of each kernel, counted where its wrapper launches it
 block_launches = cuda_lib.LaunchCounter()
-pb_launches = cuda_lib.LaunchCounter()
+pb_launches = cuda_lib.LaunchCounter()            # K4 stage 1
+pb_merge_launches = cuda_lib.LaunchCounter()      # K4 stage 2
 sbmax_launches = cuda_lib.LaunchCounter()         # K5 stage 1
 sbmax_select_launches = cuda_lib.LaunchCounter()  # K5 stage 2
 
@@ -115,6 +125,21 @@ def _operand(x, exact: bool):
     bf16 and held in f32, so that every product of two operands is exact in
     f32 and only the sum rounds."""
     return x if exact else x.to(torch.bfloat16).to(torch.float32)
+
+
+def rows_in_16_bytes(vectors, queries):
+    """(vectors, queries) as K4's and K5's kernels read them: rows of whole
+    16-byte units at 16-byte aligned addresses. An odd width pads with zero
+    columns to a multiple of 4 (a zero column adds exact +0.0 terms to every
+    dot, and bf16(0) = 0); an operand that is not 16-byte aligned is
+    copied. At d % 4 == 0 with aligned operands nothing is copied. Norms
+    and |q|^2 are the caller's, from the unpadded rows."""
+    pad = -vectors.shape[1] % 4
+    if pad:
+        return (torch.nn.functional.pad(vectors, (0, pad)),
+                torch.nn.functional.pad(queries, (0, pad)))
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (vectors, queries))
 
 
 def _plain_scores(vectors, norms_sq, valid, queries, *, similarity: str,
@@ -240,28 +265,57 @@ def plain_pb_topk(vectors, norms_sq, valid, queries, *, k: int,
             (base + pos).to(torch.int32).permute(1, 0, 2).contiguous())
 
 
-def _launch_pb(vectors, norms_sq, valid, queries, *, k: int, similarity: str,
-               exact: bool):
-    lib = _library("knn_pb", {
-        "knn_pb_smem_bytes": (ctypes.c_size_t, [ctypes.c_int]),
+def pb_plan(b_pad: int, d: int, k: int, smem_bytes) -> tuple[int, int]:
+    """Stage 1's (query tile, tier) for a padded batch: the list tier (0)
+    at k <= PB_LIST_K, with the query tile of :func:`sbmax_query_tile`
+    stepped down until ``smem_bytes(qt, tier, d, k)`` fits; else the
+    scores-in-shared-memory tier (1) at 8 queries."""
+    if k <= PB_LIST_K:
+        qt = sbmax_query_tile(b_pad)
+        for tile in reversed(SBMAX_QTILES[:SBMAX_QTILES.index(qt) + 1]):
+            if smem_bytes(tile, 0, d, k) <= _MAX_SMEM:
+                return tile, 0
+    smem = smem_bytes(SBMAX_QTILES[0], 1, d, k)
+    if smem <= _MAX_SMEM:
+        return SBMAX_QTILES[0], 1
+    raise ValueError(f"knn_pb needs {smem} bytes of shared memory at d={d} "
+                     f"(at most {_MAX_SMEM})")
+
+
+def _check_rows(rows: int, B: int) -> None:
+    if not 1 <= rows <= B:
+        raise ValueError(f"rows must be in [1, {B}], got {rows}")
+
+
+def _pb_library() -> ctypes.CDLL:
+    return _library("knn_pb", {
+        "knn_pb_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 4),
         "knn_pb_launch": (ctypes.c_int, [ctypes.c_void_p] * 7
-                          + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+                          + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+        "knn_pb_merge_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 3),
+        "knn_pb_merge_launch": (ctypes.c_int, [ctypes.c_void_p] * 4
+                                + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     })
+
+
+def _launch_pb(vectors, norms_sq, valid, queries, *, k: int, similarity: str,
+               exact: bool, rows: int):
+    lib = _pb_library()
+    qsq = (queries * queries).sum(dim=1)
+    vectors, queries = rows_in_16_bytes(vectors, queries)
     n, d = vectors.shape
     B = queries.shape[0]
-    smem = lib.knn_pb_smem_bytes(d)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"knn_pb needs {smem} bytes of shared memory at "
-                         f"d={d} (at most {_MAX_SMEM})")
+    _check_rows(rows, B)
+    qt, tier = pb_plan(B, d, k, lib.knn_pb_smem_bytes)
     nb = -(-n // PB_BLOCK)
     dev = vectors.device
-    qsq = (queries * queries).sum(dim=1)
     vals = torch.empty((nb, B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((nb, B, k), dtype=torch.int32, device=dev)
     err = lib.knn_pb_launch(
         vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
         queries.data_ptr(), qsq.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-        n, d, B, k, nb, _SIM_CODE[similarity], int(exact), _stream(dev))
+        n, d, B, rows, nb, k, qt, tier, _SIM_CODE[similarity], int(exact),
+        _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn_pb launch failed: cudaError {err}")
     pb_launches.add()
@@ -269,26 +323,57 @@ def _launch_pb(vectors, norms_sq, valid, queries, *, k: int, similarity: str,
 
 
 def pb_topk(vectors, norms_sq, valid, queries, *, k: int,
-            similarity: str = "l2_norm", exact: bool = True):
+            similarity: str = "l2_norm", exact: bool = True,
+            rows: int | None = None):
     """K4 stage 1 over the (padded) batch: the kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors. ``rows`` (default all) limits the kernel
+    to the first queries: the rows past it, pad rows the caller drops, are
+    left unwritten."""
     if vectors.device.type == "cuda":
         return _launch_pb(vectors, norms_sq, valid, queries, k=k,
-                          similarity=similarity, exact=exact)
+                          similarity=similarity, exact=exact,
+                          rows=queries.shape[0] if rows is None else rows)
     return plain_pb_topk(vectors, norms_sq, valid, queries, k=k,
                          similarity=similarity, exact=exact)
 
 
 def pb_merge(vals, ids, k: int):
-    """K4 stage 2: a stable top-k over [B, nb * k] in block-major order, so
-    a tie goes to the lower block, then the lower rank inside it; non-finite
-    winners get id -1."""
+    """Plain K4 stage 2: a stable top-k over [B, nb * k] in block-major
+    order, so a tie goes to the lower block, then the lower rank inside it;
+    non-finite winners get id -1."""
     nb, B, _k = vals.shape
     fv = vals.permute(1, 0, 2).reshape(B, nb * k)
     fi = ids.permute(1, 0, 2).reshape(B, nb * k)
     top_vals, pos = stable_topk(fv, k)
     top_ids = torch.gather(fi, 1, pos)
     return top_vals, torch.where(torch.isfinite(top_vals), top_ids, -1)
+
+
+def _launch_pb_merge(vals, ids, k: int, rows: int):
+    lib = _pb_library()
+    nb, B, _k = vals.shape
+    _check_rows(rows, B)
+    row = int(lib.knn_pb_merge_smem_bytes(nb, k, 1) <= PB_MERGE_SMEM)
+    dev = vals.device
+    top_vals = torch.empty((B, k), dtype=torch.float32, device=dev)
+    top_ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    err = lib.knn_pb_merge_launch(vals.data_ptr(), ids.data_ptr(),
+                                  top_vals.data_ptr(), top_ids.data_ptr(),
+                                  B, rows, nb, k, row, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"knn_pb merge launch failed: cudaError {err}")
+    pb_merge_launches.add()
+    return top_vals, top_ids
+
+
+def pb_select(vals, ids, k: int, rows: int | None = None):
+    """K4 stage 2 over the (padded) batch: the merge kernel for CUDA
+    tensors, :func:`pb_merge` for CPU tensors. ``rows`` as for
+    :func:`pb_topk`."""
+    if vals.device.type == "cuda":
+        return _launch_pb_merge(vals.contiguous(), ids.contiguous(), k,
+                                vals.shape[1] if rows is None else rows)
+    return pb_merge(vals, ids, k)
 
 
 def knn_blocktopk_auto(vectors, norms_sq, valid, queries, *, k: int,
@@ -302,8 +387,8 @@ def knn_blocktopk_auto(vectors, norms_sq, valid, queries, *, k: int,
     B = queries.shape[0]
     vals, ids = pb_topk(vectors.contiguous(), norms_sq.contiguous(),
                         valid.contiguous(), _pad_queries(queries, PB_QTILE),
-                        k=k, similarity=similarity, exact=exact)
-    vals, ids = pb_merge(vals, ids, k)
+                        k=k, similarity=similarity, exact=exact, rows=B)
+    vals, ids = pb_select(vals, ids, k, rows=B)
     return vals[:B], ids[:B]
 
 
@@ -347,19 +432,10 @@ def _sbmax_library() -> ctypes.CDLL:
     })
 
 
-def _check_sbmax_cuda(vectors, queries) -> None:
-    """What the K5 kernels take beyond the entry point's checks: rows in
-    16-byte units (cp.async and float4 loads)."""
-    d = vectors.shape[1]
-    if d % 4 or vectors.data_ptr() % 16 or queries.data_ptr() % 16:
-        raise ValueError(f"knn_sbmax takes d % 4 == 0 and 16-byte aligned "
-                         f"vectors and queries on CUDA, got d={d}")
-
-
 def _launch_sbmax(vectors, norms_sq, valid, queries, qsq, *, similarity: str,
                   exact: bool):
     lib = _sbmax_library()
-    _check_sbmax_cuda(vectors, queries)
+    vectors, queries = rows_in_16_bytes(vectors, queries)
     n, d = vectors.shape
     B = queries.shape[0]
     qt = sbmax_query_tile(B)
@@ -402,7 +478,7 @@ def sbmax(vectors, norms_sq, valid, queries, *, similarity: str = "l2_norm",
 def _launch_sbmax_select(submax, vectors, norms_sq, valid, queries, qsq, *,
                          k: int, similarity: str, exact: bool):
     lib = _sbmax_library()
-    _check_sbmax_cuda(vectors, queries)
+    vectors, queries = rows_in_16_bytes(vectors, queries)
     n, d = vectors.shape
     nb, B, _subs = submax.shape
     dev = vectors.device

@@ -7,8 +7,9 @@ choice: the stacked serving step (search/distributed_serving.
 mesh_knn_batch) unless it is switched off or declines (an ANN-indexed
 column); then the per-shard route (search/executor.execute_query_phase per
 shard, which serves IVF-PQ, and whose launches go through the dispatch
-batcher) and the host merge by (-score, shard, segment, doc). Every other
-query or request key raises "not yet ported".
+batcher) and the host merge by (-score, shard, segment, doc). A request
+key the reference does not know is a ParsingException (400), as there;
+every other query or request key raises "not yet ported".
 
 The response has the reference's shape: ``hits.total``, ``max_score`` and
 per hit ``_index``, ``_id``, ``_score`` and ``_source``.
@@ -26,6 +27,16 @@ from opensearch_tpu_torch.search import distributed_serving, query_dsl
 from opensearch_tpu_torch.search.executor import execute_query_phase
 
 DEFAULT_SIZE = 10
+# request keys the reference knows (opensearch_tpu/search/service.py:91-98)
+KNOWN_KEYS = {
+    "query", "size", "from", "sort", "_source", "aggs", "aggregations",
+    "track_total_hits", "min_score", "search_after", "timeout", "version",
+    "seq_no_primary_term", "stored_fields", "explain", "highlight",
+    "docvalue_fields", "fields", "script_fields", "suggest", "profile",
+    "rescore", "collapse", "slice", "indices_boost",
+    "include_named_queries_score", "pre_filter_shard_size",
+    "stats",  # per-request stat groups (surfaced by indices.stats)
+}
 # request keys this slice serves
 SUPPORTED_KEYS = {"query", "size", "from", "_source", "track_total_hits"}
 
@@ -34,6 +45,9 @@ def search(shards: list, body: dict | None) -> dict[str, Any]:
     """Run one knn search over `shards` (IndexShard objects)."""
     t0 = time.monotonic()
     body = body or {}
+    unknown = set(body) - KNOWN_KEYS
+    if unknown:
+        raise ParsingException(f"unknown search request keys {sorted(unknown)}")
     unsupported = set(body) - SUPPORTED_KEYS
     if unsupported:
         raise distributed_serving.not_yet_ported(

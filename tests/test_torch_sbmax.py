@@ -272,3 +272,29 @@ def test_cpu_stages_take_the_plain_versions():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert (knn_blocks.sbmax_launches.count,
             knn_blocks.sbmax_select_launches.count) == before
+
+
+def test_odd_width_pads_without_changing_the_answer():
+    """The stage kernels read rows in 16-byte units: rows_in_16_bytes pads
+    d = 30 to 32 with zero columns (norms and |q|^2 stay the unpadded
+    ones). On the CPU both plain stages give the same bits on the padded
+    operands, at exact and not."""
+    rng = np.random.default_rng(30)
+    v = torch.from_numpy(np.round(rng.standard_normal((N_DOCS, 30)) * 16)
+                         .astype(np.float32) / 16)
+    q = knn_blocks._pad_queries(v[:9] + 0.25, knn_blocks.PB_QTILE)
+    norms = (v.double() ** 2).sum(1).float()
+    valid = torch.from_numpy(_case(9)[2])
+    pv, pq = knn_blocks.rows_in_16_bytes(v, q)
+    assert pv.shape[1] == pq.shape[1] == 32
+    for sim in ("l2_norm", "cosine", "dot_product"):
+        for exact in (True, False):
+            sm = knn_blocks.plain_sbmax(v, norms, valid, q, similarity=sim,
+                                        exact=exact)
+            assert torch.equal(sm, knn_blocks.plain_sbmax(
+                pv, norms, valid, pq, similarity=sim, exact=exact))
+            want = knn_blocks.sbmax_rescore(sm, v, norms, valid, q, k=10,
+                                            similarity=sim, exact=exact)
+            got = knn_blocks.sbmax_rescore(sm, pv, norms, valid, pq, k=10,
+                                           similarity=sim, exact=exact)
+            assert all(torch.equal(a, w) for a, w in zip(got, want))
