@@ -5,7 +5,8 @@
 
 Builds the port's five CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together): K1 (csrc/knn_fused.cu, fused exact
-kNN), K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family
+kNN: the list scan of csrc/knn_pool.cuh at fp32 with r <= 32, the tile scan
+of csrc/knn_tile.cuh otherwise), K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family
 K3 (csrc/knn_block.cu, running top-k), K4 (csrc/knn_pb.cu: per-block top-k,
 then the block-major merge, two kernels) and K5 (csrc/knn_sbmax.cu:
 sub-block maxima, then the selection and rescore, two kernels). ``--kernels`` limits the kernel and timing phases to
@@ -20,7 +21,13 @@ Then:
    products in another order (at B = 1 PyTorch's product reduces as a
    tree), and for a near neighbour l2's |q|^2 - 2 q.v + |v|^2 cancels, so
    each ulp of a dot near |q|^2 ~ 2,000 (2.4e-4) reaches the score almost
-   whole.
+   whole. K1's list scan (lists_kernel_phase) on sixteenths, bit for bit
+   with its planted ties in id order: one shard of 300,001 docs at B = 1,
+   5, 8, 9, 32, 33, 128 and 129 x r = 1, 10 and 32 (and 33, the tile scan),
+   four shards of 200,000 (one with 5 live docs), d = 30 and 768, operands
+   off a 16-byte boundary; then on clustered floats, ids equal but at near
+   ties (scores within a relative 1e-5, ranked the other way by the other
+   summation order) and scores within rtol 1e-5 / atol 2e-3.
    K2: an IVF-PQ build of n = 100,000, d = 100 (nlist 64, m 20), P = 8,
    B = 16, for fp32, bf16 and uint8 LUTs at R = 64 and R = 4096, plus the
    ragged-and-empty synthetic slab and a planted identical-code tie. int8
@@ -29,8 +36,9 @@ Then:
    order with round-to-nearest f32 adds, so they should agree to the bit;
    the tolerance allows a rounding, never a reordering of candidates.
    K3: n = 50,000 (ragged past the block), d = 128, 3% dead docs, a
-   duplicate planted across the block boundary, B = 5, 16 and 40 (three
-   16-query tiles), k = 10 and 100, l2, cosine and dot. K4
+   duplicate planted across the block boundary, B = 1, 5, 16, 40 and 129,
+   k = 10 and 32 (the list scan) and 100 (the tile scan), l2, cosine and
+   dot. K4
    (pb_kernel_phase): n = 50,000 with a duplicate across a block edge and
    a run of 12 equal vectors inside a block, B = 1, 5, 8, 9, 16, 32, 33,
    40, 128 and 129 (its query tiles 8, 32 and 128, full and partial),
@@ -47,10 +55,14 @@ Then:
    exact=False runs on the same data plus 2^-14, which the bf16 rounding
    of the operands must remove.
 2. timing: CUDA-event times of each kernel, its plain version and a library
-   yardstick where one exists, beside the bound. K1 at the SIFT-1M shape
-   (n = 1,000,000, d = 128, f32, l2, k = 10) at B = 1 and 32: library is
-   torch.topk over the l2-transformed q @ v.T (never called by the port);
-   bound max(bytes / 3.35 TB/s, 2*B*n*d / 67 TFLOP/s). K2 at the
+   yardstick where one exists, beside the bound, with the memory clock
+   read before and after each window. K1 at the SIFT-1M shape
+   (n = 1,000,000, d = 128, f32, l2, k = 10) at B = 1, 32 and 128, and at
+   the serving shapes (one shard of 200,000 docs at B = 1 and 8, four of
+   5,000 at B = 1): the list scan's time and its two kernels' device ms by
+   name, the tile scan's on the same inputs; library is torch.topk over
+   the l2-transformed q @ v.T (never called by the port); bound
+   max(bytes / 3.35 TB/s, 2*B*n*d / 67 TFLOP/s). K2 at the
    glove-100 shape (1,200,000 x 100-d, cosine, m = 20, nlist = 512,
    nprobe = 8, R = 64), built with the port's ivfpq.build on the card:
    bound max(bytes / 3.35 TB/s, lookups / 67 T/s), both counted from the
@@ -58,8 +70,8 @@ Then:
    once, the LUTs, the winners' ids, the pool); no single PyTorch call
    computes an ADC top-R, so K2 has no library time. K3, K4, K5 through
    their entry points at the SIFT-1M shape (SIFT-style integer
-   descriptors) at B = 1 and 32, and 128 for K4 and K5: first one call per
-   B with the launch counts set to 0 (their path), each answer the
+   descriptors) at B = 1, 32 and 128 (K3 beside its tile scan): first one
+   call per B with the launch counts set to 0 (their path), each answer the
    brute-force top-10 in order with its scores bit for bit, and each
    kernel's stage 1 bit-equal to its own plain version at every B; then
    the call's time, its device time under torch.profiler (K4 and K5: each
@@ -70,13 +82,14 @@ Then:
    200,000 clustered 128-d docs) and index B (4 shards, 20,000 docs), 64
    knn searches each; every hit list must equal the brute-force truth in
    the same order, every search must go through the stacked serving path
-   and K1. Then index A on the per-shard route (distributed_serving off):
+   and K1's list scan (its counter), whose step is timed (200 steps) and
+   profiled by kernel name. Then index A on the per-shard route (distributed_serving off):
    32 searches at k = 256, size = 10 must equal the brute force and each
    take the streaming scan, and 64 searches from 8 threads (K1 through the
    dispatch batcher) must equal the same searches run one at a time; in
    the gated run (each round of 8 released together, a 50 ms batch
    window) with a mean merged batch above 1 and fewer K1 launches than
-   searches.
+   searches, every K1 launch on the list scan.
    ANN (K2): index C (1 shard, 200,000 clustered 100-d docs, cosine,
    ivf_pq nlist 512, m 20, nprobe 8; cut from 1.2M by host ingest), 64 knn
    searches, k = 10; every hit list must equal the plain pipeline
@@ -188,6 +201,14 @@ def device_profile(fn, reps: int) -> dict | None:
             "kernels": kernels}
 
 
+def mem_clock() -> str:
+    """The card's memory clock now, as nvidia-smi reads it."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.mem", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
 def kernel_ms(prof: dict | None, part: str) -> float | None:
     """Device ms per call of the profiled kernels whose name holds `part`."""
     if prof is None:
@@ -206,20 +227,26 @@ def scan_inputs(kf, vectors, norms, valid, queries, k, prec):
             q_x.contiguous(), qsq, scale), r
 
 
-def compare_pools(kf, args, r, sim, prec, what: str) -> float:
-    """Kernel vs plain pool on the same operands; returns max |dv|."""
+def compare_pools(kf, args, r, sim, prec, what: str,
+                  bits: bool = False) -> float:
+    """Kernel vs plain pool on the same operands; returns max |dv|. int8
+    pools, and any pool when `bits` (data whose dots are exact in f32),
+    must be bit-equal."""
     kv, ki = kf.pool_scan(*args, r=r, similarity=sim, score_precision=prec)
     pv, pi = kf.plain_pool(*args, r=r, similarity=sim, score_precision=prec)
     torch.cuda.synchronize()
     if not torch.equal(ki, pi):
         bad = (ki != pi).nonzero()[:5].tolist()
-        raise AssertionError(f"{what}: ids differ at {bad}")
+        seen = [(tuple(i), (float(kv[tuple(i)]), int(ki[tuple(i)])),
+                 (float(pv[tuple(i)]), int(pi[tuple(i)]))) for i in bad]
+        raise AssertionError(f"{what}: ids differ at (slot, kernel (score, "
+                             f"id), plain (score, id)) {seen}")
     fin = torch.isfinite(pv)
     if not torch.equal(fin, torch.isfinite(kv)):
         raise AssertionError(f"{what}: finite slots differ")
-    if prec == "int8":
+    if prec == "int8" or bits:
         if not torch.equal(kv, pv):
-            raise AssertionError(f"{what}: int8 pool not bit-equal")
+            raise AssertionError(f"{what}: pool not bit-equal")
     elif not torch.allclose(kv[fin], pv[fin], rtol=1e-5, atol=2e-3):
         raise AssertionError(f"{what}: scores beyond rtol 1e-5 / atol 2e-3")
     return float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
@@ -271,41 +298,283 @@ def kernel_phase(kf, dev, seed: int) -> float:
     return err
 
 
+LIST_COPIES = (2303, 2304)           # a duplicate across a range edge
+LIST_RUN = tuple(range(5000, 5040))  # 40 equal vectors in one sub-block
+
+
+def lists_case(dev, rng, s: int, n: int, d: int, integer: bool = True):
+    """Operands of K1's list scan: s shards of n docs of width d
+    (sixteenths, or clustered floats when not `integer`), 3% dead docs,
+    LIST_COPIES and LIST_RUN planted in every shard and live; with four
+    shards the last keeps 5 live docs, fewer than r. Returns (shard 0's
+    data, v, norms, valid)."""
+    data = (sixteenths if integer else clustered)(rng, s * n, d).reshape(
+        s, n, d)
+    data[:, list(LIST_COPIES)] = data[:, LIST_COPIES[:1]]
+    data[:, list(LIST_RUN)] = data[:, LIST_RUN[:1]]
+    valid = rng.random((s, n)) >= 0.03
+    valid[:, [*LIST_COPIES, *LIST_RUN]] = True
+    if s == 4:
+        valid[3] = False
+        valid[3, rng.choice(n, 5, replace=False)] = True
+    v = torch.from_numpy(data).to(dev)
+    nrm = torch.from_numpy(np.concatenate([
+        (data[i].astype(np.float64) ** 2).sum(1).astype(np.float32)[None]
+        for i in range(s)])).to(dev)
+    return data[0], v, nrm, torch.from_numpy(valid).to(dev)
+
+
+def exact_scores(kf, v, nrm, q, qsq, sim: str, s: int, b: int,
+                 docs: list) -> list:
+    """The scores of `docs` of shard s for query b computed in f64: the dot
+    in f64 (exact for f32 operands), the transform in f64 on the same
+    norms and |q|^2 the kernel was given. A witness independent of both
+    f32 summation orders."""
+    idx = torch.tensor(docs, device=v.device)
+    dots = v[s, idx].double() @ q[b].double()
+    return kf._transform_scores(dots, qsq[b].double(), nrm[s, idx].double(),
+                                sim).tolist()
+
+
+def near_tie_swaps(kf, kv, ki, pv, pi, args, sim: str, what: str) -> list:
+    """Float data: the slot scores must agree to rtol 1e-5 / atol 2e-3, and
+    every slot where the kernel's id differs from plain_pool's must hold a
+    live doc of the shard, once in its row, whose f64 score
+    (exact_scores) lies within a relative 1e-5 of the f64 score of the doc
+    plain put there: a near tie, which two f32 summation orders may rank
+    either way. Returns one record per such slot: the kernel's and plain's
+    doc, each with its f64 score."""
+    v, nrm, ok, q, qsq, _scale = args
+    fin = torch.isfinite(pv)
+    if not torch.equal(fin, torch.isfinite(kv)) or not torch.allclose(
+            kv[fin], pv[fin], rtol=1e-5, atol=2e-3):
+        raise AssertionError(f"{what}: scores beyond rtol 1e-5 / atol 2e-3")
+    swaps = []
+    for s, b, j in (ki != pi).nonzero().tolist():
+        row = ki[s, b].tolist()
+        doc, other = row[j], int(pi[s, b, j])
+        if not (0 <= doc < v.shape[1] and bool(ok[s, doc])) or \
+                row.count(doc) != 1 or other < 0:
+            raise AssertionError(f"{what}: slot {(s, b, j)} holds doc {doc} "
+                                 f"(plain: {other}): not a live doc once")
+        a, c = exact_scores(kf, v, nrm, q, qsq, sim, s, b, [doc, other])
+        if abs(a - c) > 1e-5 * max(abs(a), abs(c)):
+            raise AssertionError(
+                f"{what}: slot {(s, b, j)} holds doc {doc}, plain {other} "
+                f"(f64 scores {a!r} and {c!r}: not a near tie)")
+        swaps.append({"slot": [s, b, j], "kernel": [doc, a],
+                      "plain": [other, c]})
+    return swaps
+
+
+def lists_check(kf, v, nrm, ok, q, r: int, sim: str, what: str,
+                bits: bool) -> float:
+    """One pool scan at fp32 against plain_pool: on sixteenths (`bits`) ids
+    equal and values bit-equal, the planted copies first in id order for
+    l2 and cosine; on float data ids equal but at near ties
+    (near_tie_swaps), scores within rtol 1e-5 / atol 2e-3. The list scan
+    must have served it exactly when r <= 32 (the tile scan above)."""
+    qsq = (q * q).sum(dim=1)
+    one = torch.ones(v.shape[0], device=v.device)
+    before = kf.list_launches.count
+    args = (v, nrm, ok, q, qsq, one)
+    if bits:
+        err = compare_pools(kf, args, r, sim, "fp32", what, bits=True)
+    else:
+        kv, ki = kf.pool_scan(*args, r=r, similarity=sim,
+                              score_precision="fp32")
+        pv, pi = kf.plain_pool(*args, r=r, similarity=sim,
+                               score_precision="fp32")
+        torch.cuda.synchronize()
+        swaps = near_tie_swaps(kf, kv, ki, pv, pi, args, sim, what)
+        for sw in swaps:
+            # which of the two the f64 scores put first (the id on a tie)
+            first = max((sw["kernel"][1], -sw["kernel"][0]),
+                        (sw["plain"][1], -sw["plain"][0]))
+            log(f"{what}: near tie at {sw['slot']}: kernel doc "
+                f"{sw['kernel'][0]} (f64 {sw['kernel'][1]!r}), plain doc "
+                f"{sw['plain'][0]} (f64 {sw['plain'][1]!r}); f64 puts doc "
+                f"{-first[1]} first")
+        fin = torch.isfinite(pv)
+        err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) \
+            else 0.0
+    want = 1 if r <= kf.LIST_MAX_R else 0
+    if kf.list_launches.count - before != want:
+        raise AssertionError(f"{what}: the list scan launched "
+                             f"{kf.list_launches.count - before} times, "
+                             f"want {want}")
+    if bits and sim != "dot_product" and r >= 2:
+        kv, ki = kf.pool_scan(v, nrm, ok, q, qsq, one, r=r, similarity=sim,
+                              score_precision="fp32")
+        if ki[0, 0, :2].tolist() != list(LIST_COPIES):
+            raise AssertionError(f"{what}: planted tie gave "
+                                 f"{ki[0, 0, :2].tolist()}")
+        if q.shape[0] > 1 and ki[0, 1].tolist() != list(LIST_RUN[:r]):
+            raise AssertionError(f"{what}: planted run gave "
+                                 f"{ki[0, 1].tolist()}")
+    return err
+
+
+def lists_kernel_phase(kf, dev, seed: int) -> float:
+    """K1's list scan (fp32, r <= 32) against plain_pool on the card, the
+    tile scan at r = 33 beside it. Sixteenths (every dot exact in f32, so
+    values and ids bit-equal, the planted ties in id order): one shard of
+    n = 300,001 (a ragged tail; LIST_COPIES straddle a range edge at
+    B <= 8) at B = 1, 5, 8, 9, 32, 33, 128 and 129 (query tiles 8, 32 and
+    128, full and partial, and two 128-query tiles) x r = 1, 10 and 32 in
+    l2, cosine and dot at r = 10, and r = 33; four shards of 200,000 (the
+    last with 5 live docs) at B = 1, 8 and 33 x r = 10 and 32; d = 30 and
+    768 (the two-stage ring at r = 32) at B = 1, 9 and 129; operands 4
+    bytes off a 16-byte boundary. Then clustered floats: scores within
+    rtol 1e-5 / atol 2e-3 and ids equal but at near ties held to their f64
+    scores (near_tie_swaps), at B = 1, 8, 32 and 128 in the three
+    similarities, and over four shards. Returns the max |dv|."""
+    rng = np.random.default_rng(seed + 30)
+    err = 0.0
+    cases = (
+        (1, 300_001, DIM, True, (1, 5, 8, 9, 32, 33, 128, 129),
+         ((1, "l2_norm"), (10, "l2_norm"), (32, "l2_norm"), (10, "cosine"),
+          (10, "dot_product"), (33, "l2_norm"))),
+        (4, 200_000, DIM, True, (1, 8, 33),
+         ((10, "l2_norm"), (32, "l2_norm"), (10, "cosine"))),
+        (1, 200_000, 30, True, (1, 9, 129),
+         ((10, "l2_norm"), (32, "cosine"))),
+        (1, 200_000, 768, True, (1, 9, 129),
+         ((10, "l2_norm"), (32, "l2_norm"))),
+        (1, 200_000, DIM, False, (1, 8, 32, 128),
+         ((10, "l2_norm"), (10, "cosine"), (10, "dot_product"))),
+        (4, 200_000, DIM, False, (1,), ((10, "l2_norm"), (32, "l2_norm"))),
+    )
+    for s, n, d, integer, bs, rs in cases:
+        data, v, nrm, ok = lists_case(dev, rng, s, n, d, integer)
+        for b in bs:
+            queries = data[rng.choice(n, b, replace=False)].copy()
+            queries[0] = data[LIST_COPIES[0]]
+            if b > 1:
+                queries[1] = data[LIST_RUN[0]]
+            if not integer:
+                queries = queries + 0.01 * rng.standard_normal(
+                    queries.shape).astype(np.float32)
+            q = torch.from_numpy(queries).to(dev)
+            for r, sim in rs:
+                err = max(err, lists_check(
+                    kf, v, nrm, ok, q, r, sim,
+                    f"K1 lists S={s} n={n} d={d} B={b} r={r} {sim} "
+                    f"integer={integer}", integer))
+        log(f"K1 list-scan parity S={s} n={n} d={d} integer={integer}: "
+            f"{'bit-equal' if integer else 'ids equal'} at B = {bs}, "
+            f"(r, sim) = {rs}")
+        if s == 1 and d == DIM and integer and n == 300_001:
+            for sim in ("l2_norm", "cosine"):
+                q = torch.from_numpy(data[[LIST_COPIES[0], LIST_RUN[0], 7, 9,
+                                           11]].copy()).to(dev)
+                err = max(err, lists_check(
+                    kf, unaligned(v), nrm, ok, unaligned(q), 10, sim,
+                    f"K1 lists unaligned {sim}", True))
+            log("K1 list-scan parity, operands off a 16-byte boundary: "
+                "bit-equal")
+        del v
+        torch.cuda.empty_cache()
+    return err
+
+
+# the profiler's kernel names of K1's and K3's list scan
+LIST_KERNELS = ("knn_pool_scan_kernel", "knn_pool_merge_kernel")
+
+
+def pool_bound(s: int, n: int, d: int, b: int, r: int) -> dict:
+    """The least time of one pool scan: the slab, norms and valid flags read
+    once, the queries and |q|^2, the [S, B, r] pools written, over
+    3.35 TB/s; against 2*B*S*n*d operations over 67 TFLOP/s."""
+    nbytes = s * n * (d * 4 + 4 + 1) + b * (d * 4 + 4) + s * b * r * 8
+    flops = 2 * b * s * n * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def time_pool(kf, args, r: int, q, v, nrm, k: int, label: str,
+              plain: bool = True) -> dict:
+    """One K1 shape: the list scan's CUDA-event ms and device ms of its two
+    kernels by name, the tile scan's beside it in the same window, the
+    plain version's and the library yardstick's (torch.topk over the
+    l2-transformed q @ v.T, per shard), with the memory clock read before
+    and after."""
+    clock0 = mem_clock()
+
+    def lists():
+        return kf.pool_scan(*args, r=r, similarity="l2_norm",
+                            score_precision="fp32")
+
+    def tile():
+        return kf._launch_tile(*args, r=r, similarity="l2_norm",
+                               score_precision="fp32")
+
+    qsq = args[4]
+
+    def library():
+        d_sq = torch.clamp(qsq[None, :, None] - 2.0 * torch.einsum(
+            "bd,snd->sbn", q, v) + nrm[:, None, :], min=0.0)
+        return torch.topk(1.0 / (1.0 + d_sq), k)
+
+    # 100 calls: at the serving shapes the host, not the card, sets the
+    # pace, and its noise needs the longer average
+    ms = time_ms(lists, 100)
+    tile_ms = time_ms(tile, 100)
+    ms_again = time_ms(lists, 100)
+    plain_ms = time_ms(lambda: kf.plain_pool(
+        *args, r=r, similarity="l2_norm", score_precision="fp32"), 5) \
+        if plain else None
+    library_ms = time_ms(library, 10)
+    prof = device_profile(lists, 5)
+    tile_prof = device_profile(tile, 5)
+    out = {"ms": ms, "ms_again": ms_again, "tile_ms": tile_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "device_ms": prof and prof["device_ms"],
+           "scan_device_ms": kernel_ms(prof, LIST_KERNELS[0]),
+           "merge_device_ms": kernel_ms(prof, LIST_KERNELS[1]),
+           "tile_device_ms": tile_prof and tile_prof["device_ms"],
+           "mem_clock": [clock0, mem_clock()]}
+    log(f"K1 {label}: list scan {ms:.4f} / {ms_again:.4f} ms (device "
+        f"{out['device_ms']}: scan {out['scan_device_ms']}, merge "
+        f"{out['merge_device_ms']}), tile scan {tile_ms:.4f} ms (device "
+        f"{out['tile_device_ms']}), plain {plain_ms}, library "
+        f"{library_ms:.4f} ms; memory clock {out['mem_clock']}")
+    return out
+
+
 def timing_phase(kf, dev, seed: int) -> dict:
+    """K1 (fp32, l2, k = 10: the list scan) at the SIFT-1M shape (1,000,000
+    clustered 128-d docs) at B = 1, 32 and 128, then at the serving shapes:
+    one shard of 200,000 docs at B = 1 and 8, four of 5,000 at B = 1; each
+    checked against plain_pool first, then timed (time_pool) beside its
+    bound (pool_bound)."""
     rng = np.random.default_rng(seed + 1)
-    n, k = 1_000_000, 10
-    v = torch.from_numpy(clustered(rng, n, DIM))[None].to(dev)
-    nrm = (v.double() ** 2).sum(2).float()
-    ok = torch.ones((1, n), dtype=torch.bool, device=dev)
+    k = 10
     out = {}
-    for b in (1, 32):
-        q = v[0, torch.randint(0, n, (b,), generator=torch.Generator().manual_seed(seed))
-              .to(dev)] + 0.01
-        args, r = scan_inputs(kf, v, nrm, ok, q, k, "fp32")
-        compare_pools(kf, args, r, "l2_norm", "fp32", f"SIFT-1M shape B={b}")
-        ms = time_ms(lambda: kf.pool_scan(*args, r=r, similarity="l2_norm",
-                                          score_precision="fp32"), 20)
-        plain_ms = time_ms(lambda: kf.plain_pool(
-            *args, r=r, similarity="l2_norm", score_precision="fp32"), 5)
-        qsq = args[4]
-
-        def library():
-            d_sq = torch.clamp(qsq[:, None] - 2.0 * (q @ v[0].T) + nrm[0][None],
-                               min=0.0)
-            return torch.topk(1.0 / (1.0 + d_sq), k)
-
-        library_ms = time_ms(library, 10)
-        nbytes = n * DIM * 4 + n * 4 + n * 1 + b * DIM * 4 + b * 4 + b * r * 8
-        flops = 2 * b * n * DIM
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        out[b] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                  "bound_ms": max(t_bytes, t_ops),
-                  "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                  "bytes": nbytes, "flops": flops}
-        log(f"SIFT-1M shape B={b}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" library {library_ms:.4f} ms, bound {out[b]['bound_ms']:.4f} ms "
-            f"({out[b]['bound_by']})")
+    shapes = ((1, 1_000_000, (1, 32, 128)), (1, 200_000, (1, 8)),
+              (4, 5_000, (1,)))
+    for s, n, bs in shapes:
+        v = torch.from_numpy(clustered(rng, s * n, DIM).reshape(s, n, DIM)) \
+            .to(dev)
+        nrm = (v.double() ** 2).sum(2).float()
+        ok = torch.ones((s, n), dtype=torch.bool, device=dev)
+        for b in bs:
+            q = v[0, torch.from_numpy(rng.choice(n, b, replace=False))
+                  .to(dev)] + 0.01
+            args, r = scan_inputs(kf, v, nrm, ok, q, k, "fp32")
+            label = f"S={s} n={n} B={b}"
+            compare_pools(kf, args, r, "l2_norm", "fp32", label)
+            t = time_pool(kf, args, r, q, v, nrm, k, label,
+                          plain=n * s * b <= 128_000_000)
+            t.update(pool_bound(s, n, DIM, b, r))
+            log(f"K1 {label}: bound {t['bound_ms']:.4f} ms "
+                f"({t['bound_by']})")
+            out[b if n == 1_000_000 else label] = t
+        del v
+        torch.cuda.empty_cache()
     return out
 
 
@@ -316,8 +585,10 @@ def timing_phase(kf, dev, seed: int) -> dict:
 FAMILY = ("knn_block", "knn_pb", "knn_sbmax")
 FAMILY_ENTRY = {"knn_block": "knn_topk_auto", "knn_pb": "knn_blocktopk_auto",
                 "knn_sbmax": "knn_sbmax_auto"}
-# the profiler's kernel names of the two-kernel entry points' stages
-STAGE_KERNELS = {"knn_pb": ("knn_pb_kernel", "knn_pb_merge_kernel"),
+# the profiler's kernel names of the two-kernel entry points' stages (K3 at
+# k = 10: the list scan and its split merge)
+STAGE_KERNELS = {"knn_block": ("knn_pool_scan_kernel", "knn_pool_merge_kernel"),
+                 "knn_pb": ("knn_pb_kernel", "knn_pb_merge_kernel"),
                  "knn_sbmax": ("sbmax_stage1", "sbmax_stage2")}
 
 
@@ -389,11 +660,13 @@ def compare_stage1(kb, name, args, k, sim, exact, what: str) -> float:
 def blocks_kernel_phase(kb, dev, seed: int) -> float:
     """K3 against its plain version on the card: n = 50,000 (a ragged tail
     past the 1024-doc block), d = 128, 3% dead docs, a duplicate of doc
-    2040 planted at 2053 (across the block boundary), B = 5, 16 and 40
-    (three of the kernel's 16-query tiles, the last one partial), k = 10
-    and 100, l2, cosine and dot. The data are sixteenths: the pools must
-    match bit for bit, the whole entry point too, and the lower id must win
-    the planted tie. Returns the max |dv| against the plain version."""
+    2040 planted at 2053 (across the block boundary), B = 1, 5, 16, 40
+    (three of the tile scan's 16-query tiles, the last one partial) and 129
+    (two of the list scan's 128-query tiles), k = 10 and 32 (the list scan)
+    and 100 (the tile scan), l2, cosine and dot. The data are sixteenths:
+    the pools must match bit for bit, the whole entry point too, and the
+    lower id must win the planted tie. Returns the max |dv| against the
+    plain version."""
     rng = np.random.default_rng(seed + 20)
     n, d = 50_000, DIM
     data = sixteenths(rng, n, d)
@@ -406,16 +679,21 @@ def blocks_kernel_phase(kb, dev, seed: int) -> float:
     nrm = torch.from_numpy((data.astype(np.float64) ** 2).sum(1).astype(
         np.float32)).to(dev)
     err = 0.0
-    for b in (5, 16, 40):
+    for b in (1, 5, 16, 40, 129):
         queries = data[rng.choice(n, b, replace=False)].copy()
         queries[0] = data[2040]
         q = torch.from_numpy(queries).to(dev)
-        for k in (10, 100):
+        for k in (10, 32, 100):
             for sim in SIMS:
                 args = (v, nrm, ok, kb._pad_queries(q, None))
                 what = f"knn_block {sim} B={b} k={k}"
+                before = kb.block_list_launches.count
                 err = max(err, compare_stage1(kb, "knn_block", args, k, sim,
                                               True, what))
+                lists = kb.block_list_launches.count - before
+                if lists != (1 if k <= kb.LIST_MAX_R else 0):
+                    raise AssertionError(f"{what}: {lists} list-scan "
+                                         f"launches")
                 gv, gi = kb.knn_topk_auto(v, nrm, ok, q, k=k, similarity=sim)
                 pv, pi = family_plain(kb, "knn_block", v, nrm, ok, q, k, sim)
                 if not (torch.equal(gi, pi[:b]) and torch.equal(gv, pv[:b])):
@@ -424,8 +702,8 @@ def blocks_kernel_phase(kb, dev, seed: int) -> float:
                 if sim == "l2_norm" and gi[0, :2].tolist() != [2040, 2053]:
                     raise AssertionError(
                         f"{what}: planted tie gave {gi[0, :2].tolist()}")
-        log(f"knn_block parity B={b}: bit-equal over k = 10, 100 and l2, "
-            f"cosine, dot")
+        log(f"knn_block parity B={b}: bit-equal over k = 10, 32 (list "
+            f"scan), 100 (tile scan) and l2, cosine, dot")
     return err
 
 
@@ -719,14 +997,14 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
         v[torch.from_numpy(rng.choice(n, 128, replace=False)).to(dev)]
         + torch.from_numpy(rng.normal(0, 4, (128, DIM)).astype(np.float32))
         .to(dev)), 0, 255)
-    sizes = {name: bs for name, bs in (("knn_block", (1, 32)),
+    sizes = {name: bs for name, bs in (("knn_block", (1, 32, 128)),
                                        ("knn_pb", (1, 32, 128)),
                                        ("knn_sbmax", (1, 32, 128)))
              if name in names}
     second = {"knn_pb": kb.pb_merge_launches,
               "knn_sbmax": kb.sbmax_select_launches}
-    for counter in (kb.block_launches, kb.pb_launches, kb.sbmax_launches,
-                    *second.values()):
+    for counter in (kb.block_launches, kb.block_list_launches,
+                    kb.pb_launches, kb.sbmax_launches, *second.values()):
         counter.reset()
     for name, bs in sizes.items():
         for b in bs:
@@ -741,6 +1019,11 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
                 "knn_pb": kb.pb_launches.count,
                 "knn_sbmax": kb.sbmax_launches.count}
     stage2_launches = {name: c.count for name, c in second.items()}
+    if "knn_block" in sizes and \
+            kb.block_list_launches.count != launches["knn_block"]:
+        raise AssertionError(f"K3 at k = {k}: {kb.block_list_launches.count} "
+                             f"of {launches['knn_block']} launches took the "
+                             f"list scan")
     for name, bs in sizes.items():
         if launches[name] != len(bs):
             raise AssertionError(f"{name}: {launches[name]} launches in "
@@ -785,6 +1068,7 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
         entry = getattr(kb, FAMILY_ENTRY[name])
         for b in bs:
             q = q_all[:b].contiguous()
+            clock0 = mem_clock()
             ms = time_ms(lambda: entry(v, nrm, ok, q, k=k), 10)
             plain_ms = time_ms(lambda: family_plain(kb, name, v, nrm, ok, q, k),
                                3)
@@ -801,6 +1085,16 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
             out[name][b] = {"ms": ms, "plain_ms": plain_ms,
                             "library_ms": library_ms,
                             "device_ms": prof and prof["device_ms"], **bound}
+            if name == "knn_block":
+                # the tile scan on the same call, for the two designs side
+                # by side
+                qp = kb._pad_queries(q, None)
+                tile = time_ms(lambda: kb._launch_block_tile(
+                    v, nrm, ok, qp, k=k, similarity="l2_norm"), 10)
+                out[name][b]["tile_ms"] = tile
+                log(f"knn_block SIFT-1M shape B={b}: tile scan {tile:.4f} "
+                    f"ms")
+            out[name][b]["mem_clock"] = [clock0, mem_clock()]
             if name in STAGE_KERNELS:
                 for key, part in zip(("stage1_device_ms", "stage2_device_ms"),
                                      STAGE_KERNELS[name]):
@@ -854,6 +1148,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         # the counts are read for the searches alone
         searches0 = distributed_serving.stats["distributed_searches"]
         kf.launches.reset()
+        kf.list_launches.reset()
         for name, (data, _shards) in corpora.items():
             queries = (data[rng.choice(data.shape[0], 64, replace=False)]
                        + 0.05 * rng.standard_normal((64, DIM)).astype(np.float32))
@@ -888,24 +1183,47 @@ def main_path_phase(kf, dev, seed: int) -> dict:
                 f"{np.percentile(lat_ms, 50):.3f} ms, p99 "
                 f"{np.percentile(lat_ms, 99):.3f} ms, QPS {64 / sum(lat):.1f}")
         launches = kf.launches.count
+        list_launches = kf.list_launches.count
         searches = distributed_serving.stats["distributed_searches"] - searches0
         per_shard = per_shard_exact_phase(node, kf, *truths["sift_a"])
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
-    # each index's shape, beside the whole search's latency above
-    step_ms = {}
+    # each index's shape, beside the whole search's latency above: CUDA-event
+    # ms over a window of 20 steps (the window of the earlier records) and
+    # of 200 (host-bound at these sizes, so the window moves the reading),
+    # and the profiler's device ms of the step's kernels, with the tile
+    # scan's on the same operands beside the list scan's
+    step_ms, step_device = {}, {}
     for name, (v, nrm, ok, q) in step_inputs.items():
-        step_ms[name] = time_ms(lambda: kf.knn_fused_stacked(
-            v, nrm, ok, q, k=10, similarity="l2_norm"), 20)
+        def step():
+            return kf.knn_fused_stacked(v, nrm, ok, q, k=10,
+                                        similarity="l2_norm")
+
+        args, r = scan_inputs(kf, v, nrm, ok, q, 10, "fp32")
+        step_ms[name] = {"window_20": time_ms(step, 20),
+                         "window_200": time_ms(step, 200)}
+        prof = device_profile(step, 10)
+        tile_prof = device_profile(lambda: kf._launch_tile(
+            *args, r=r, similarity="l2_norm", score_precision="fp32"), 10)
+        step_device[name] = {
+            "device_ms": prof and prof["device_ms"],
+            "scan_device_ms": kernel_ms(prof, LIST_KERNELS[0]),
+            "merge_device_ms": kernel_ms(prof, LIST_KERNELS[1]),
+            "tile_scan_device_ms": tile_prof and tile_prof["device_ms"]}
         log(f"[{name}] device step of one search (B=1, n={v.shape[1]}): "
-            f"{step_ms[name]:.4f} ms")
+            f"{step_ms[name]} ms; profiler {step_device[name]}")
     if searches != 128:
         raise AssertionError(f"{searches} of 128 searches took the serving path")
     if launches < 128:
         raise AssertionError(f"the kernel launched {launches} times in 128 searches")
-    log(f"main path: {searches} served searches, {launches} kernel launches")
-    return {"launches": launches, "latency_s": out, "step_ms": step_ms,
-            "per_shard": per_shard}
+    if list_launches != launches:
+        raise AssertionError(f"{list_launches} of {launches} K1 launches of "
+                             f"the stacked step took the list scan")
+    log(f"main path: {searches} served searches, {launches} kernel launches, "
+        f"all {list_launches} on K1's list scan (knn_pool.cuh)")
+    return {"launches": launches, "list_launches": list_launches,
+            "latency_s": out, "step_ms": step_ms,
+            "step_device": step_device, "per_shard": per_shard}
 
 
 def latency_summary(lat_s: list, wall_s: float | None = None) -> dict:
@@ -1051,9 +1369,16 @@ def per_shard_exact_phase(node, kf, queries: np.ndarray, truth: list) -> dict:
         log(f"[sift_a] per-shard route, k=256 size=10: 32 searches equal the "
             f"brute force, each streamed once; {k256}")
         conc = concurrent_phase(node, "sift_a", queries, 10,
-                                {"knn_fused": kf.launches})
+                                {"knn_fused": kf.launches,
+                                 "knn_fused_lists": kf.list_launches})
     finally:
         distributed_serving.enabled = True
+    for run in (conc["gated"]["launches"], conc["launches"]):
+        if run["knn_fused_lists"] != run["knn_fused"]:
+            raise AssertionError(f"[sift_a] per-shard K1 launches not all on "
+                                 f"the list scan: {run}")
+    log("[sift_a] per-shard route: every K1 launch through the batcher took "
+        "the list scan (knn_pool.cuh)")
     return {"k256": k256, "concurrent": conc}
 
 # --------------------------------------------------------------------------
@@ -1478,8 +1803,15 @@ def main() -> int:
     phase_s = {"build": time.perf_counter() - t0}
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    designs = {"lists": "opensearch_tpu_torch/csrc/knn_pool.cuh: the list "
+                        "scan (kernels knn_pool_scan_kernel, "
+                        "knn_pool_merge_kernel), fp32 with r <= 32",
+               "tile": "opensearch_tpu_torch/csrc/knn_tile.cuh: the tile "
+                       "scan (knn_scan_kernel, knn_merge_kernel), every "
+                       "other (precision, r)"}
     entry = {"name": "knn_fused", "route": "cuda",
              "source": "opensearch_tpu_torch/csrc/knn_fused.cu",
+             "designs": designs,
              "replaces": "opensearch_tpu/ops/pallas_knn.py:785 "
                          "(pallas_knn_fused -> _knn_fused_kernel :675)",
              "launches": None, "parity": None, "max_abs_err": None,
@@ -1508,11 +1840,15 @@ def main() -> int:
             ("knn_sbmax", "opensearch_tpu/ops/pallas_knn.py:446 "
                           "(pallas_knn_sbmax_topk -> _knn_sbmax_kernel :383)"))
     }
-    stage_ms = ("stage1_device_ms", "stage2_device_ms")
+    family["knn_block"]["designs"] = {
+        "lists": designs["lists"].replace("r <= 32", "k <= 32"),
+        "tile": designs["tile"].replace("every other (precision, r)",
+                                        "32 < k <= 1024")}
     if "kernel" in phases:
         t0 = time.perf_counter()
         if "knn_fused" in chosen:
-            entry["max_abs_err"] = kernel_phase(kf, dev, args.seed)
+            entry["max_abs_err"] = max(kernel_phase(kf, dev, args.seed),
+                                       lists_kernel_phase(kf, dev, args.seed))
             entry["parity"] = "ok"
         if "adc_scan" in chosen:
             entry2["max_abs_err"] = adc_kernel_phase(ads, ivfpq, dev,
@@ -1533,9 +1869,10 @@ def main() -> int:
         t0 = time.perf_counter()
         if "knn_fused" in chosen:
             t = timing_phase(kf, dev, args.seed)
-            entry.update({key: t[1][key] for key in fields})
+            entry.update(t.pop(1))
             entry["shape"] = "n=1000000 d=128 fp32 l2 k=10 B=1"
-            entry["b32"] = {key: t[32][key] for key in fields}
+            entry["b32"], entry["b128"] = t.pop(32), t.pop(128)
+            entry["serving_shapes"] = t
         if "adc_scan" in chosen:
             t2 = adc_timing_phase(ads, ivfpq, dev, args.seed)
             entry2.update({key: t2[1][key] for key in fields})
@@ -1552,25 +1889,22 @@ def main() -> int:
             e = family[name]
             e["launches"] = t3n["launches"]
             e["max_abs_err"] = max(e["max_abs_err"] or 0.0, t3n["stage1_err"])
-            e.update({key: t3n[1][key] for key in fields})
-            e["device_ms"] = t3n[1]["device_ms"]
+            e.update(t3n[1])
             e["shape"] = "SIFT-1M: n=1000000 d=128 fp32 l2 k=10 B=1"
-            extra = ()
-            if name in STAGE_KERNELS:
-                # stage 2 is the second kernel of each call, counted apart
+            if "stage2_launches" in t3n:
+                # K4's and K5's stage 2 is a second kernel, counted apart
                 e["stage2_launches"] = t3n["stage2_launches"]
-                e.update({key: t3n[1][key] for key in stage_ms})
-                extra = stage_ms
             for b in (32, 128):
                 if b in t3n:
-                    e[f"b{b}"] = {key: t3n[b][key]
-                                  for key in (*fields, "device_ms", *extra)}
+                    e[f"b{b}"] = t3n[b]
         phase_s["timing"] = time.perf_counter() - t0
     if "main" in phases:
         t0 = time.perf_counter()
         main = main_path_phase(kf, dev, args.seed)
         entry["launches"] = main["launches"]
+        entry["list_launches"] = main["list_launches"]
         entry["main_path_step_ms"] = main["step_ms"]
+        entry["main_path_step_device"] = main["step_device"]
         ann = ann_main_phase(ads, ivfpq, kf, dev, args.seed)
         entry2["launches"] = ann["launches"]
         entry2["main_path"] = {key: ann[key] for key in

@@ -22,9 +22,16 @@
 // merge does. That is K1's fp32 pool scan (knn_tile.cuh), bound here to its
 // own entry point with r = k. Rows past n are never read: the wrapper's
 // padding of n to a 1024-doc block is arithmetic only, pad rows being dead.
-// Not yet used: wgmma, TMA, cp.async pipelining.
+//
+// Two designs, chosen by k in the wrapper (ops/knn_blocks.block_tier),
+// never on failure: at k <= 32 the list scan of knn_pool.cuh
+// (knn_block_lists_launch: K4's cp.async ring and 4 x 8 FFMA micro-tiles,
+// per-warp lists carried across each CTA's contiguous doc range, a
+// CTA-per-query split merge), the same scan as K1's at fp32 r <= 32; at
+// 32 < k <= 1024 the tile scan above (knn_block_launch), which uses no
+// cp.async pipelining, wgmma or TMA.
 
-#include "knn_tile.cuh"
+#include "knn_pool.cuh"
 
 extern "C" {
 
@@ -46,6 +53,29 @@ int knn_block_launch(const void* v, const void* nsq, const void* valid,
       nullptr, static_cast<float*>(part_v), static_cast<int*>(part_i),
       static_cast<float*>(out_v), static_cast<int*>(out_i), 1, n, d, B, k,
       sim, chunk, n_split);
+}
+
+// bytes of dynamic shared memory the list scan needs at plan (qt, stages);
+// 0 for a plan with no kernel
+size_t knn_block_lists_smem_bytes(int qt, int stages, int d, int k) {
+  return pool::list_smem_bytes(qt, stages, d, k);
+}
+
+// The list scan + merge (k <= 32, d % 4 == 0, 16-byte aligned rows) on
+// `stream`: (vals, ids) [S, B, k], S = 1 from the wrapper, over the caller's
+// unpadded queries. Returns the first cudaError_t met.
+int knn_block_lists_launch(const void* v, const void* nsq, const void* valid,
+                           const void* q, const void* qsq, void* part_v,
+                           void* part_i, void* out_v, void* out_i, int S,
+                           int n, int d, int B, int k, int sim, int qt,
+                           int stages, int chunk, int n_split, void* stream) {
+  return (int)pool::launch_list_pool(
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(v),
+      static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid),
+      static_cast<const float*>(q), static_cast<const float*>(qsq),
+      static_cast<float*>(part_v), static_cast<int*>(part_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, k,
+      sim, qt, stages, chunk, n_split);
 }
 
 }  // extern "C"

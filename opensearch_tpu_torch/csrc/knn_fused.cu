@@ -37,9 +37,20 @@
 //    PyTorch version, which runs one eager operation at a time; at int8 the
 //    pools are bit-identical to it.
 // The scan and merge kernels live in knn_tile.cuh, which K3 (knn_block.cu)
-// instantiates at fp32. Not yet used: wgmma, TMA, cp.async pipelining.
+// instantiates at fp32.
+//
+// Two designs, chosen by (precision, r) in the wrapper
+// (ops/knn_fused.scan_tier), never on failure:
+//  - fp32 with r <= 32 (every fp32 serving search at k <= 32): the list
+//    scan of knn_pool.cuh (knn_fused_lists_launch): K4's cp.async ring and
+//    4 x 8 FFMA micro-tiles, query tiles of 8 / 32 / 128, per-warp sorted
+//    lists carried across each CTA's contiguous doc range behind a
+//    pre-transform filter, then a CTA-per-query split merge;
+//  - everything else (bf16 and int8, whose R is at least 32, and fp32 at
+//    32 < r <= 4096): the tile scan above (knn_fused_launch), which uses no
+//    cp.async pipelining, wgmma or TMA.
 
-#include "knn_tile.cuh"
+#include "knn_pool.cuh"
 
 extern "C" {
 
@@ -78,6 +89,28 @@ int knn_fused_launch(const void* v, const void* nsq, const void* valid,
                                     n_split);
   }
   return (int)e;
+}
+
+// bytes of dynamic shared memory the list scan needs at plan (qt, stages);
+// 0 for a plan with no kernel
+size_t knn_fused_lists_smem_bytes(int qt, int stages, int d, int r) {
+  return pool::list_smem_bytes(qt, stages, d, r);
+}
+
+// The list scan + merge (fp32, r <= 32, d % 4 == 0, 16-byte aligned rows)
+// on `stream`. Returns the first cudaError_t met (0 = launched).
+int knn_fused_lists_launch(const void* v, const void* nsq, const void* valid,
+                           const void* q, const void* qsq, void* part_v,
+                           void* part_i, void* out_v, void* out_i, int S,
+                           int n, int d, int B, int r, int sim, int qt,
+                           int stages, int chunk, int n_split, void* stream) {
+  return (int)pool::launch_list_pool(
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(v),
+      static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid),
+      static_cast<const float*>(q), static_cast<const float*>(qsq),
+      static_cast<float*>(part_v), static_cast<int*>(part_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, r,
+      sim, qt, stages, chunk, n_split);
 }
 
 }  // extern "C"

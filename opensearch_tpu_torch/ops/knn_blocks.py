@@ -3,7 +3,10 @@ their kernels for Hopper, their plain versions and their entry points.
 
 Counterpart of opensearch_tpu/ops/pallas_knn.py:49-567:
 
-  K3  ``knn_topk_auto``      running top-k scan (csrc/knn_block.cu);
+  K3  ``knn_topk_auto``      running top-k scan (csrc/knn_block.cu: the
+                             list scan of csrc/knn_pool.cuh at k <= 32,
+                             K1's, and the tile scan above, two kernels
+                             a call either way);
   K4  ``knn_blocktopk_auto`` top-k of every 2048-doc block, then a stable
                              block-major merge: two kernels (csrc/knn_pb.cu,
                              stage 1 ``pb_topk`` and stage 2 ``pb_select``);
@@ -16,8 +19,9 @@ Each returns (scores [B, k] f32, ids [B, k] int32), best first under
 (score desc, doc id asc), with (-inf, -1) past the valid-doc count. The
 entry points keep the reference's padding arithmetic: n rounds up to the
 kernel's block (``BLOCK`` or ``PB_BLOCK``) and B to a multiple of 8 (of
-``PB_QTILE`` above it). Pad queries are zero rows, sliced off (K4's
-kernels select and write only the caller's rows); pad docs are dead, so
+``PB_QTILE`` above it). Pad queries are zero rows, sliced off (K3's list
+scan takes the caller's rows unpadded, K4's kernels select and write only
+the caller's rows); pad docs are dead, so
 the kernels take the unpadded slab and score rows past n as -inf instead
 of copying it.
 
@@ -27,9 +31,9 @@ the plain version in this module (``plain_block_topk``, ``plain_pb_topk``,
 stated limit raises ValueError on either device. K4's merge and K5's
 selection and rescore are each a second kernel on CUDA.
 
-K4 and K5 read rows in 16-byte units (cp.async, float4): on CUDA
-:func:`rows_in_16_bytes` pads d to a multiple of 4 and copies an unaligned
-operand first.
+K3's list scan, K4 and K5 read rows in 16-byte units (cp.async, float4):
+on CUDA :func:`rows_in_16_bytes` pads d to a multiple of 4 and copies an
+unaligned operand first.
 
 ``exact=False`` (the reference's Precision.DEFAULT, one bf16 MXU pass on
 the TPU) means bf16-rounded operands with f32 accumulation, in K4's and
@@ -48,16 +52,20 @@ from opensearch_tpu_torch.ops import cuda_lib
 from opensearch_tpu_torch.ops.knn_fused import (
     _MAX_SMEM,
     _SIM_CODE,
+    LIST_MAX_R,
     _launch_geometry,
     _transform_scores,
+    launch_lists,
+    rows_in_16_bytes,
 )
+from opensearch_tpu_torch.ops.knn_fused import QUERY_TILES as SBMAX_QTILES
+from opensearch_tpu_torch.ops.knn_fused import query_tile as sbmax_query_tile
 from opensearch_tpu_torch.ops.topk import stable_topk
 
 BLOCK = 1024       # K3's doc block
 PB_BLOCK = 2048    # K4's and K5's doc block
 PB_QTILE = 128     # the reference's query tile (B pads to it above 128)
 SUB = 128          # K5's sub-block
-SBMAX_QTILES = (8, 32, 128)  # K5 stage 1's query tiles
 SBMAX_SELECT_SMEM = 200_000  # K5 stage 2 keeps its row of maxima and its
                              # k * 130 words in shared memory up to here
 PB_LIST_K = 32     # K4 stage 1 keeps per-warp lists up to this k
@@ -68,8 +76,10 @@ PB_MAX_K = PB_BLOCK  # K4: a block holds no more than PB_BLOCK docs
 
 _NEG_INF = float("-inf")
 
-# launches of each kernel, counted where its wrapper launches it
+# launches of each kernel, counted where its wrapper launches it (K3:
+# either design, and the list scan alone)
 block_launches = cuda_lib.LaunchCounter()
+block_list_launches = cuda_lib.LaunchCounter()
 pb_launches = cuda_lib.LaunchCounter()            # K4 stage 1
 pb_merge_launches = cuda_lib.LaunchCounter()      # K4 stage 2
 sbmax_launches = cuda_lib.LaunchCounter()         # K5 stage 1
@@ -127,21 +137,6 @@ def _operand(x, exact: bool):
     return x if exact else x.to(torch.bfloat16).to(torch.float32)
 
 
-def rows_in_16_bytes(vectors, queries):
-    """(vectors, queries) as K4's and K5's kernels read them: rows of whole
-    16-byte units at 16-byte aligned addresses. An odd width pads with zero
-    columns to a multiple of 4 (a zero column adds exact +0.0 terms to every
-    dot, and bf16(0) = 0); an operand that is not 16-byte aligned is
-    copied. At d % 4 == 0 with aligned operands nothing is copied. Norms
-    and |q|^2 are the caller's, from the unpadded rows."""
-    pad = -vectors.shape[1] % 4
-    if pad:
-        return (torch.nn.functional.pad(vectors, (0, pad)),
-                torch.nn.functional.pad(queries, (0, pad)))
-    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
-                 for t in (vectors, queries))
-
-
 def _plain_scores(vectors, norms_sq, valid, queries, *, similarity: str,
                   exact: bool, n_pad: int):
     """[B, n_pad] scores as the kernels compute them, dead and pad docs at
@@ -158,11 +153,18 @@ def _plain_scores(vectors, norms_sq, valid, queries, *, similarity: str,
     return scores
 
 
+_declared: dict[str, ctypes.CDLL] = {}
+
+
 def _library(name: str, signature: dict) -> ctypes.CDLL:
-    lib = cuda_lib.load(name)
-    for fn, (restype, argtypes) in signature.items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
+    """csrc/<name>.cu's library with its C signatures declared, once."""
+    lib = _declared.get(name)
+    if lib is None:
+        lib = cuda_lib.load(name)
+        for fn, (restype, argtypes) in signature.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _declared[name] = lib
     return lib
 
 
@@ -186,13 +188,46 @@ def plain_block_topk(vectors, norms_sq, valid, queries, *, k: int,
     return vals, torch.where(vals > _NEG_INF, ids, -1).to(torch.int32)
 
 
-def _launch_block(vectors, norms_sq, valid, queries, *, k: int,
-                  similarity: str):
-    lib = _library("knn_block", {
+def block_tier(k: int) -> str:
+    """K3's kernel design: "lists" (the list scan of csrc/knn_pool.cuh, as
+    K1's at fp32) at k <= LIST_MAX_R, else "tile" (the tile scan). A choice
+    by shape alone."""
+    return "lists" if k <= LIST_MAX_R else "tile"
+
+
+def _block_library() -> ctypes.CDLL:
+    """csrc/knn_block.cu's library: K3's tile scan and list scan."""
+    return _library("knn_block", {
         "knn_block_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 2),
         "knn_block_launch": (ctypes.c_int, [ctypes.c_void_p] * 9
                              + [ctypes.c_int] * 7 + [ctypes.c_void_p]),
+        "knn_block_lists_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 4),
+        "knn_block_lists_launch": (ctypes.c_int, [ctypes.c_void_p] * 9
+                                   + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
     })
+
+
+def _launch_block(vectors, norms_sq, valid, queries, *, k: int,
+                  similarity: str):
+    """Launch the design :func:`block_tier` picks."""
+    if block_tier(k) == "tile":
+        return _launch_block_tile(vectors, norms_sq, valid, queries, k=k,
+                                  similarity=similarity)
+    lib = _block_library()
+    qsq = (queries * queries).sum(dim=1)
+    vals, ids = launch_lists(lib.knn_block_lists_launch,
+                             lib.knn_block_lists_smem_bytes, vectors[None],
+                             norms_sq[None], valid[None], queries, qsq, r=k,
+                             similarity=similarity)
+    block_launches.add()
+    block_list_launches.add()
+    return vals[0], ids[0]
+
+
+def _launch_block_tile(vectors, norms_sq, valid, queries, *, k: int,
+                       similarity: str):
+    """Launch K3's tile scan (csrc/knn_tile.cuh), at any k <= 1024."""
+    lib = _block_library()
     n, d = vectors.shape
     B = queries.shape[0]
     smem = lib.knn_block_smem_bytes(d, k)
@@ -219,8 +254,9 @@ def _launch_block(vectors, norms_sq, valid, queries, *, k: int,
 
 def block_topk(vectors, norms_sq, valid, queries, *, k: int,
                similarity: str = "l2_norm"):
-    """K3 over the (padded) batch: the kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """K3 over the batch: the kernel for CUDA tensors (the list scan at
+    k <= 32, the tile scan above: :func:`block_tier`), the plain version
+    for CPU tensors."""
     if vectors.device.type == "cuda":
         return _launch_block(vectors, norms_sq, valid, queries, k=k,
                              similarity=similarity)
@@ -236,9 +272,13 @@ def knn_topk_auto(vectors, norms_sq, valid, queries, *, k: int,
     if similarity not in _SIM_CODE:
         raise ValueError(f"unknown similarity [{similarity}]")
     B = queries.shape[0]
+    # the list scan takes the caller's rows; the tile scan and the plain
+    # version the reference's padded batch
+    if block_tier(k) == "tile" or vectors.device.type != "cuda":
+        queries = _pad_queries(queries, None)
     vals, ids = block_topk(vectors.contiguous(), norms_sq.contiguous(),
-                           valid.contiguous(), _pad_queries(queries, None),
-                           k=k, similarity=similarity)
+                           valid.contiguous(), queries.contiguous(), k=k,
+                           similarity=similarity)
     return vals[:B], ids[:B]
 
 
@@ -408,16 +448,6 @@ def plain_sbmax(vectors, norms_sq, valid, queries, *, similarity: str,
                            similarity=similarity, exact=exact, n_pad=n_pad)
     submax = scores.reshape(B, nb, PB_BLOCK // SUB, SUB).amax(dim=-1)
     return submax.permute(1, 0, 2).contiguous()
-
-
-def sbmax_query_tile(b_pad: int) -> int:
-    """Stage 1's query tile for a padded batch: the smallest of
-    ``SBMAX_QTILES`` that holds it, the largest above (B pads to a multiple
-    of 128 there)."""
-    for qt in SBMAX_QTILES:
-        if b_pad <= qt:
-            return qt
-    return SBMAX_QTILES[-1]
 
 
 def _sbmax_library() -> ctypes.CDLL:

@@ -22,11 +22,21 @@ Returned scores are in the serving fp32 score space at every precision.
 Dispatch: :func:`pool_scan` launches the kernel for CUDA tensors (or
 raises) and runs :func:`plain_pool` for CPU tensors. The policy value
 "pallas" means the kernel, "xla" the plain version, as in the reference.
+
+The kernel has two designs, chosen by (precision, r) in :func:`scan_tier`,
+never on failure: at fp32 with r <= ``LIST_MAX_R`` the list scan
+(``csrc/knn_pool.cuh``: a cp.async ring, 4 x 8 FFMA micro-tiles, per-warp
+lists carried across each CTA's contiguous doc range, then a
+CTA-per-query split merge), counted on ``list_launches`` too; at bf16, at
+int8 and at fp32 with r > 32 the tile scan (``csrc/knn_tile.cuh``). The
+list scan reads rows in 16-byte units: :func:`rows_in_16_bytes` pads d to a
+multiple of 4 and copies an unaligned operand first.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -47,12 +57,21 @@ _OPERAND_DTYPE = {"fp32": torch.float32, "bf16": torch.bfloat16,
 _NEG_INF = float("-inf")
 # shared memory one CTA may use on Hopper (opt-in maximum)
 _MAX_SMEM = 232_448
-# the kernel's query tile and doc tile (kQB, kTD in csrc/knn_fused.cu)
+# the tile scan's query tile and doc tile (kQB, kTD in csrc/knn_tile.cuh)
 _QUERY_TILE = 16
 _DOC_TILE = 64
+# the list scan (csrc/knn_pool.cuh): its largest r, its query tiles, its
+# (query tile, ring stages) plans, and the sub-block its ranges are cut at
+LIST_MAX_R = 32
+QUERY_TILES = (8, 32, 128)
+LIST_PLANS = ((8, 3), (8, 2), (32, 3), (128, 4))
+LIST_SUB = 128
+_MAX_GRID = 65_535
 
-# launches of the kernel made by pool_scan
+# launches of the kernel made by pool_scan (either design), and of the list
+# scan alone
 launches = cuda_lib.LaunchCounter()
+list_launches = cuda_lib.LaunchCounter()
 
 
 def fused_pool_width(k: int, score_precision: str) -> int:
@@ -172,10 +191,74 @@ def _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
         raise ValueError(f"grid too large: S={S} B={B}")
 
 
+def scan_tier(score_precision: str, r: int) -> str:
+    """The kernel design for a scan: "lists" (the list scan) at fp32 with
+    r <= LIST_MAX_R, else "tile" (the tile scan). A choice by shape alone."""
+    return ("lists" if score_precision == "fp32" and r <= LIST_MAX_R
+            else "tile")
+
+
+def query_tile(b: int) -> int:
+    """The list scan's query tile for a batch of b: the smallest of
+    ``QUERY_TILES`` that holds it, the largest above."""
+    for qt in QUERY_TILES:
+        if b <= qt:
+            return qt
+    return QUERY_TILES[-1]
+
+
+def list_plan(b: int, d: int, r: int, smem_bytes) -> tuple[int, int]:
+    """(query tile, ring stages) of the list scan: the query tile of
+    :func:`query_tile`, stepped down until ``smem_bytes(qt, stages, d, r)``
+    fits, the two-stage ring at 8 queries last; raises ValueError when no
+    plan fits."""
+    qt = query_tile(b)
+    plans = [p for p in LIST_PLANS if p[0] <= qt
+             and 0 < smem_bytes(p[0], p[1], d, r) <= _MAX_SMEM]
+    if not plans:
+        raise ValueError(f"the list scan needs more than {_MAX_SMEM} bytes "
+                         f"of shared memory at d={d}, r={r}")
+    return max(plans, key=lambda p: (p[0], p[1]))
+
+
+def list_geometry(S: int, n: int, n_qtiles: int, sms: int) -> tuple[int, int]:
+    """(chunk, n_split) of the list scan: each shard cut into n_split
+    contiguous ranges of chunk docs (a multiple of ``LIST_SUB``; the last
+    range ragged), so that the (n_split, S, n_qtiles) grid is about one
+    wave of one CTA an SM (its shared memory allows no second) and never
+    more than one."""
+    per_shard = max(1, sms // (S * n_qtiles))
+    n_split = max(1, min(-(-n // LIST_SUB), per_shard))
+    chunk = -(-(-(-n // n_split)) // LIST_SUB) * LIST_SUB
+    return chunk, -(-n // chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The card's SM count (read once a device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def rows_in_16_bytes(vectors, queries):
+    """(vectors, queries) as the cp.async kernels read them: rows of whole
+    16-byte units at 16-byte aligned addresses. An odd width pads with zero
+    columns to a multiple of 4 (a zero column adds exact +0.0 terms to every
+    dot, and bf16(0) = 0); an operand that is not 16-byte aligned is
+    copied. At d % 4 == 0 with aligned operands nothing is copied. Norms
+    and |q|^2 are the caller's, from the unpadded rows. Vectors may carry a
+    leading shard axis."""
+    pad = -vectors.shape[-1] % 4
+    if pad:
+        return (torch.nn.functional.pad(vectors, (0, pad)),
+                torch.nn.functional.pad(queries, (0, pad)))
+    return tuple(t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (vectors, queries))
+
+
 def _launch_geometry(S: int, n: int, B: int, device) -> tuple[int, int]:
-    """(chunk, n_split): docs per CTA, a multiple of the 64-doc tile, with
-    about four CTAs per SM in the grid."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    """(chunk, n_split) of the tile scan: docs per CTA, a multiple of the
+    64-doc tile, with about four CTAs per SM in the grid."""
+    sms = sm_count(device)
     qtiles = -(-B // _QUERY_TILE)
     max_split = -(-n // _DOC_TILE)
     n_split = max(1, min(max_split, -(-4 * sms // (S * qtiles))))
@@ -183,21 +266,76 @@ def _launch_geometry(S: int, n: int, B: int, device) -> tuple[int, int]:
     return chunk, -(-n // chunk)
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+    """The built kernel library with its C signatures declared (once: the
+    declarations cost host time on every launch of a serving step)."""
     lib = cuda_lib.load("knn_fused")
     lib.knn_fused_smem_bytes.restype = ctypes.c_size_t
     lib.knn_fused_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.knn_fused_launch.restype = ctypes.c_int
     lib.knn_fused_launch.argtypes = ([ctypes.c_void_p] * 10
                                      + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    lib.knn_fused_lists_smem_bytes.restype = ctypes.c_size_t
+    lib.knn_fused_lists_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.knn_fused_lists_launch.restype = ctypes.c_int
+    lib.knn_fused_lists_launch.argtypes = ([ctypes.c_void_p] * 9
+                                           + [ctypes.c_int] * 10
+                                           + [ctypes.c_void_p])
     return lib
+
+
+def launch_lists(launch, smem_bytes, v, norms_sq, valid, q, qsq, *, r: int,
+                 similarity: str):
+    """The list scan over [S, n, d] f32 shards through the C entry point
+    ``launch`` (K1's or K3's): (vals [S, B, r], ids [S, B, r]). Pads and
+    aligns the rows, plans the query tile and ring, and cuts the shards
+    into ranges of about one wave."""
+    v, q = rows_in_16_bytes(v, q)
+    S, n, d = v.shape
+    B = q.shape[0]
+    qt, stages = list_plan(B, d, r, smem_bytes)
+    if S > _MAX_GRID or -(-B // qt) > _MAX_GRID:
+        raise ValueError(f"grid too large: S={S} B={B}")
+    dev = v.device
+    chunk, n_split = list_geometry(S, n, -(-B // qt), sm_count(dev))
+    part_v = torch.empty((S, n_split, B, r), dtype=torch.float32, device=dev)
+    part_i = torch.empty((S, n_split, B, r), dtype=torch.int32, device=dev)
+    vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
+    ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
+    err = launch(
+        v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(), q.data_ptr(),
+        qsq.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
+        vals.data_ptr(), ids.data_ptr(), S, n, d, B, r,
+        _SIM_CODE[similarity], qt, stages, chunk, n_split,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"list scan launch failed: cudaError {err}")
+    return vals, ids
 
 
 def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
                    score_precision):
+    """Launch the design :func:`scan_tier` picks."""
     _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
                            similarity, score_precision)
+    if scan_tier(score_precision, r) == "tile":
+        return _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
+                            similarity=similarity,
+                            score_precision=score_precision)
+    lib = _library()
+    vals, ids = launch_lists(lib.knn_fused_lists_launch,
+                             lib.knn_fused_lists_smem_bytes, v_x, norms_sq,
+                             valid, q_x, qsq, r=r, similarity=similarity)
+    launches.add()
+    list_launches.add()
+    return vals, ids
+
+
+def _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
+                 score_precision):
+    """Launch the tile scan (csrc/knn_tile.cuh) on checked operands, at any
+    precision and r."""
     lib = _library()
     S, n, d = v_x.shape
     B = q_x.shape[0]
@@ -229,7 +367,9 @@ def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
 def pool_scan(v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
               similarity: str, score_precision: str):
     """The pool scan over stacked shards: (vals [S, B, r], ids [S, B, r]).
-    CUDA tensors launch the kernel; CPU tensors take :func:`plain_pool`."""
+    CUDA tensors launch the kernel (the list scan at fp32 with r <= 32, the
+    tile scan otherwise: :func:`scan_tier`); CPU tensors take
+    :func:`plain_pool`."""
     if v_x.device.type == "cuda":
         return _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
                               similarity=similarity,
