@@ -28,13 +28,19 @@ Then:
    off a 16-byte boundary; then on clustered floats, ids equal but at near
    ties (scores within a relative 1e-5, ranked the other way by the other
    summation order) and scores within rtol 1e-5 / atol 2e-3.
-   K2: an IVF-PQ build of n = 100,000, d = 100 (nlist 64, m 20), P = 8,
-   B = 16, for fp32, bf16 and uint8 LUTs at R = 64 and R = 4096, plus the
-   ragged-and-empty synthetic slab and a planted identical-code tie. int8
-   pools must be bit-equal; fp32 and bf16 ids equal and scores within
-   rtol 1e-6 / atol 1e-6: kernel and plain add the m LUT entries in the same
-   order with round-to-nearest f32 adds, so they should agree to the bit;
-   the tolerance allows a rounding, never a reordering of candidates.
+   K2 (csrc/adc_scan.cu: stage 1 adc_scan_kernel, stage 2
+   adc_merge_kernel; adc_kernel_phase): an IVF-PQ build of n = 100,000,
+   d = 100 (nlist 64, m 20), P = 8, at B = 1, 8, 16, 33 and 129 x R = 1,
+   10, 63, 64, 65, 500 and 4096; random slabs at m = 8 (ragged and empty
+   lists), m = 96 (a 96 KB fp32 LUT) and m = 30 (the byte path, live < R);
+   600 identical zero-scoring rows a list, so the threshold ties across
+   parts and probes; a merge past shared memory (R = 4096 and 20,000); the
+   ragged-and-empty synthetic slab and a planted identical-code tie; each
+   for fp32, bf16 and uint8 LUTs. int8 pools must be bit-equal; fp32 and
+   bf16 ids equal and scores within rtol 1e-6 / atol 1e-6: kernel and
+   plain add the m LUT entries in the same order with round-to-nearest f32
+   adds, so they should agree to the bit; the tolerance allows a rounding,
+   never a reordering of candidates.
    K3: n = 50,000 (ragged past the block), d = 128, 3% dead docs, a
    duplicate planted across the block boundary, B = 1, 5, 16, 40 and 129,
    k = 10 and 32 (the list scan) and 100 (the tile scan), l2, cosine and
@@ -64,8 +70,10 @@ Then:
    the l2-transformed q @ v.T (never called by the port); bound
    max(bytes / 3.35 TB/s, 2*B*n*d / 67 TFLOP/s). K2 at the
    glove-100 shape (1,200,000 x 100-d, cosine, m = 20, nlist = 512,
-   nprobe = 8, R = 64), built with the port's ivfpq.build on the card:
-   bound max(bytes / 3.35 TB/s, lookups / 67 T/s), both counted from the
+   nprobe = 8, R = 64) at B = 1 and 32 and on cell C's index (200,000 such
+   docs) at B = 1 and 8, built with the port's ivfpq.build on the card,
+   each stage's device ms read by kernel name (stage1_device_ms,
+   stage2_device_ms): bound max(bytes / 3.35 TB/s, lookups / 67 T/s), both counted from the
    run's probes (adc_bound: each distinct probed list's live codes and mask
    once, the LUTs, the winners' ids, the pool); no single PyTorch call
    computes an ADC top-R, so K2 has no library time. K3, K4, K5 through
@@ -1386,10 +1394,11 @@ def per_shard_exact_phase(node, kf, queries: np.ndarray, truth: list) -> dict:
 # --------------------------------------------------------------------------
 
 
-def compare_adc_pools(ads, args, r, what: str) -> float:
-    """K2 vs its plain version on the same operands; returns max |dv|."""
+def compare_adc_pools(ads, args, r, what: str, scan=None) -> float:
+    """K2 (or `scan`, another build's launch) vs its plain version on the
+    same operands; returns max |dv|."""
     lut = args[0]
-    kv, ki = ads.adc_pool_scan(*args, r=r)
+    kv, ki = (scan or ads.adc_pool_scan)(*args, r=r)
     pv, pi = ads.plain_adc_pool(*args, r=r)
     torch.cuda.synchronize()
     if not torch.equal(ki, pi):
@@ -1428,23 +1437,122 @@ def adc_operands(ads, ivfpq, index, queries, nprobe, precision):
     return lut, index.codes, index.ids, index.mask, probes
 
 
+def adc_synthetic(ads, dev, rng, nlist: int, l_pad: int, m: int, fills,
+                  b: int, p: int, prec: str, ks: int = 256):
+    """K2 operands on a random slab: list li live on its first fills[li]
+    slots (ids a permutation, -1 where masked), b queries of p distinct
+    probes, a random LUT at `prec`'s width (uint8 direct, not through the
+    affine)."""
+    codes = rng.integers(0, ks, (nlist, l_pad, m), dtype=np.uint8)
+    ids = rng.permutation(nlist * l_pad).astype(np.int32).reshape(nlist,
+                                                                  l_pad)
+    mask = np.zeros((nlist, l_pad), bool)
+    for li, fill in enumerate(fills):
+        mask[li, :fill] = True
+    ids[~mask] = -1
+    probes = np.stack([rng.choice(nlist, p, replace=False)
+                       for _ in range(b)]).astype(np.int32)
+    return adc_slab_operands(dev, rng, codes, ids, mask, probes, prec, ks)
+
+
+def adc_slab_operands(dev, rng, codes, ids, mask, probes, prec: str,
+                      ks: int = 256, zero_column: bool = False):
+    b, p = probes.shape
+    m = codes.shape[2]
+    if prec == "int8":
+        lut = torch.from_numpy(rng.integers(0, 256, (b, p, m, ks))
+                               .astype(np.uint8)).to(dev)
+    else:
+        lut = torch.from_numpy((rng.random((b, p, m, ks)) * 8.0)
+                               .astype(np.float32)).to(dev)
+        if prec == "bf16":
+            lut = lut.to(torch.bfloat16)
+    if zero_column:
+        lut[..., 0] = 0
+    return [lut.contiguous(), *(torch.from_numpy(a).to(dev)
+                                for a in (codes, ids, mask, probes))]
+
+
 def adc_kernel_phase(ads, ivfpq, dev, seed: int) -> float:
+    """K2 against plain_adc_pool: an IVF-PQ build (m = 20) at B = 1, 8, 16,
+    33 and 129 x R = 1, 10, 63, 64, 65, 500 and 4096; random slabs at
+    m = 8 (B = 33, ragged and empty lists, R to 4096), m = 96 (a 96 KB fp32
+    LUT), m = 30 (the byte path, live < R at R = 500 and 4096); threshold
+    ties across parts and probes (600 identical zero-scoring rows a list,
+    more than R of them); a merge past shared memory (every slot of 8 lists
+    of 8192 live, R = 4096 and R = 20,000, whose sort buffer is in device
+    scratch too); the reference's ragged slab with a planted tie. Each at
+    fp32, bf16 and uint8 LUTs."""
     rng = np.random.default_rng(seed + 10)
-    n, b, nprobe = K2_PARITY_DOCS, 16, 8
+    n, nprobe = K2_PARITY_DOCS, 8
     data = ann_corpus(rng, n, ANN_DIM)
     t0 = time.perf_counter()
     index = ivfpq.build(data, nlist=64, m=ANN_M, device=dev)
     log(f"K2 parity build: n={n} d={ANN_DIM} nlist=64 m={ANN_M} "
         f"l_pad={index.l_pad} in {time.perf_counter() - t0:.1f} s")
-    queries = data[rng.choice(n, b, replace=False)] + 0.1 * \
-        rng.standard_normal((b, ANN_DIM)).astype(np.float32)
-    err = 0.0
-    for prec in ("fp32", "bf16", "int8"):
-        args = adc_operands(ads, ivfpq, index, queries, nprobe, prec)
-        for r in (64, 4096):
-            e = compare_adc_pools(ads, args, r, f"K2 {prec} R={r}")
-            err = max(err, e)
-            log(f"K2 parity {prec} R={r}: ok max_abs_err={e:.3g}")
+    precs = ("fp32", "bf16", "int8")
+    err, cases = 0.0, 0
+    for b in (1, 8, 16, 33, 129):
+        queries = data[rng.choice(n, b, replace=False)] + 0.1 * \
+            rng.standard_normal((b, ANN_DIM)).astype(np.float32)
+        for prec in precs:
+            args = adc_operands(ads, ivfpq, index, queries, nprobe, prec)
+            for r in (1, 10, 63, 64, 65, 500, 4096):
+                err = max(err, compare_adc_pools(
+                    ads, args, r, f"K2 build B={b} {prec} R={r}"))
+                cases += 1
+    log(f"K2 parity on the build: B = 1/8/16/33/129 x R = 1-4096 x 3 "
+        f"precisions ok ({cases} cases)")
+    synthetic = (
+        # (what, nlist, l_pad, m, fills, B, P, Rs)
+        ("m=8 ragged", 32, 2048, 8,
+         [0, 1, 2048, 700] + list(rng.integers(0, 2049, 28)), 33, 8,
+         (1, 10, 64, 65, 500, 4096)),
+        ("m=96 (96 KB fp32 LUT)", 16, 1024, 96,
+         list(rng.integers(300, 1025, 16)), 8, 4, (10, 64, 500)),
+        ("m=30 bytes, live < R", 16, 512, 30,
+         list(rng.integers(0, 100, 16)), 8, 4, (10, 63, 500, 4096)),
+        ("merge past shared memory", 8, 8192, 8, [8192] * 8, 2, 8,
+         (4096, 20_000)),
+    )
+    for what, nlist, l_pad, m, fills, b, p, rs in synthetic:
+        for prec in precs:
+            args = adc_synthetic(ads, dev, rng, nlist, l_pad, m, fills, b, p,
+                                 prec)
+            for r in rs:
+                e = compare_adc_pools(ads, args, r, f"K2 {what} {prec} R={r}")
+                err = max(err, e)
+        log(f"K2 parity {what}: B={b} P={p} l_pad={l_pad} R={rs} x 3 "
+            f"precisions ok")
+    # ties on the threshold across parts and probes: 600 rows a list of
+    # code 0 in every subspace, and a zero LUT column, so 600 slots a list
+    # share the best key (-0.0); the lower position must win each tie
+    nlist, l_pad, m = 16, 4096, ANN_M
+    codes = rng.integers(1, 256, (nlist, l_pad, m), dtype=np.uint8)
+    for li in range(nlist):
+        codes[li, rng.choice(3000, 600, replace=False)] = 0
+    ids = rng.permutation(nlist * l_pad).astype(np.int32).reshape(nlist,
+                                                                  l_pad)
+    mask = np.zeros((nlist, l_pad), bool)
+    mask[:, :3000] = True
+    ids[~mask] = -1
+    probes = np.stack([rng.choice(nlist, 8, replace=False)
+                       for _ in range(8)]).astype(np.int32)
+    for prec in precs:
+        args = adc_slab_operands(dev, rng, codes, ids, mask, probes, prec,
+                                 zero_column=True)
+        for r in (10, 64, 500, 4096):
+            err = max(err, compare_adc_pools(ads, args, r,
+                                             f"K2 threshold ties {prec} "
+                                             f"R={r}"))
+        _kv, ki = ads.adc_pool_scan(*args, r=10)
+        first = [int(ids[probes[0, 0], l]) for l in range(3000)
+                 if not codes[probes[0, 0], l].any()][:10]
+        if ki[0].tolist() != first:
+            raise AssertionError(f"K2 threshold ties {prec}: {ki[0].tolist()}"
+                                 f", expected the first probe's {first}")
+    log("K2 parity threshold ties (600 a list, > R, across parts and "
+        "probes) x 3 precisions ok")
     # the reference's ragged slab: one empty list, ragged fills, a full one
     nlist, l_pad, m, ks = 6, 32, 4, 16
     codes = rng.integers(0, ks, (nlist, l_pad, m), dtype=np.uint8)
@@ -1507,42 +1615,58 @@ def adc_bound(index, lut, probes, r: int) -> dict:
             "bytes": nbytes, "lookups": lookups}
 
 
+def adc_time(ads, ivfpq, index, queries, r: int, label: str) -> dict:
+    """One K2 shape: parity, the wrapper's CUDA-event ms, the plain
+    version's, the device ms of each stage read by kernel name under the
+    profiler (stage 1 adc_scan_kernel, stage 2 adc_merge_kernel), and the
+    bound."""
+    args = adc_operands(ads, ivfpq, index, queries, 8, "fp32")
+    compare_adc_pools(ads, args, r, label)
+    ms = time_ms(lambda: ads.adc_pool_scan(*args, r=r), 50)
+    plain_ms = time_ms(lambda: ads.plain_adc_pool(*args, r=r), 5)
+    prof = device_profile(lambda: ads.adc_pool_scan(*args, r=r), 20)
+    stage1 = kernel_ms(prof, "adc_scan_kernel")
+    stage2 = kernel_ms(prof, "adc_merge_kernel")
+    bound = adc_bound(index, args[0], args[4], r)
+    if prof is not None:
+        log(f"{label}: K2 under the profiler: wall {prof['wall_ms']:.4f} ms "
+            f"a call, device {prof['device_ms']:.4f} ms a call (stage 1 "
+            f"{stage1:.4f}, stage 2 {stage2:.4f}) {prof['top']}")
+    log(f"{label}: K2 {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound['bound_ms']:.6f} ms ({bound['bound_by']}; {bound['bytes']} "
+        f"bytes, {bound['lookups']} lookups)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "device_ms": prof and prof["device_ms"],
+            "stage1_device_ms": stage1, "stage2_device_ms": stage2, **bound}
+
+
 def adc_timing_phase(ads, ivfpq, dev, seed: int) -> dict:
-    """K2 at the glove-100 shape: 1.2M x 100-d cosine, m = 20,
-    nlist = 512, nprobe = 8, R = 64 (k = 10 at the default multiplier)."""
+    """K2 at the glove-100 shape (1.2M x 100-d cosine, m = 20, nlist = 512,
+    nprobe = 8, R = 64, k = 10 at the default multiplier) at B = 1 and 32,
+    and on cell C's index (200,000 such docs, nlist 512) at B = 1 and 8, the
+    per-shard route's padded batches."""
     rng = np.random.default_rng(seed + 11)
-    n, nprobe, r = GLOVE_DOCS, 8, 64
-    data = ann_corpus(rng, n, ANN_DIM)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    index = ivfpq.build(data, nlist=512, m=ANN_M, normalized=True,
-                        device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    log(f"glove-100 shape build (ivfpq.build on the card): n={n} "
-        f"d={ANN_DIM} nlist=512 m={ANN_M} l_pad={index.l_pad} in "
-        f"{build_s:.1f} s")
-    out = {"build_s": build_s, "l_pad": index.l_pad}
-    for b in (1, 32):
-        q = data[rng.choice(n, b, replace=False)]
-        q = q / np.linalg.norm(q, axis=1, keepdims=True)
-        args = adc_operands(ads, ivfpq, index, q, nprobe, "fp32")
-        compare_adc_pools(ads, args, r, f"glove-100 shape B={b}")
-        ms = time_ms(lambda: ads.adc_pool_scan(*args, r=r), 50)
-        plain_ms = time_ms(lambda: ads.plain_adc_pool(*args, r=r), 5)
-        prof = device_profile(lambda: ads.adc_pool_scan(*args, r=r), 20)
-        if prof is not None:
-            log(f"glove-100 shape B={b}: K2 under the profiler: wall "
-                f"{prof['wall_ms']:.4f} ms a call, device {prof['device_ms']:.4f}"
-                f" ms a call {prof['top']}")
-        bound = adc_bound(index, args[0], args[4], r)
-        out[b] = {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
-                  "device_ms": prof and prof["device_ms"], **bound}
-        log(f"glove-100 shape B={b}: K2 {ms:.4f} ms, plain {plain_ms:.4f} "
-            f"ms, bound {bound['bound_ms']:.6f} ms ({bound['bound_by']}; "
-            f"{bound['bytes']} bytes, {bound['lookups']} lookups)")
-    del index
-    torch.cuda.empty_cache()
+    out = {}
+    for key, n, bs in (("glove", GLOVE_DOCS, (1, 32)),
+                       ("cell_c", ANN_MAIN_DOCS, (1, 8))):
+        data = ann_corpus(rng, n, ANN_DIM)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index = ivfpq.build(data, nlist=512, m=ANN_M, normalized=True,
+                            device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        log(f"{key} index build (ivfpq.build on the card): n={n} "
+            f"d={ANN_DIM} nlist=512 m={ANN_M} l_pad={index.l_pad} in "
+            f"{build_s:.1f} s")
+        out[key] = {"n": n, "build_s": build_s, "l_pad": index.l_pad}
+        for b in bs:
+            q = data[rng.choice(n, b, replace=False)]
+            q = q / np.linalg.norm(q, axis=1, keepdims=True)
+            out[key][b] = adc_time(ads, ivfpq, index, q, 64,
+                                   f"{key} shape B={b}")
+        del index
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1875,14 +1999,18 @@ def main() -> int:
             entry["serving_shapes"] = t
         if "adc_scan" in chosen:
             t2 = adc_timing_phase(ads, ivfpq, dev, args.seed)
-            entry2.update({key: t2[1][key] for key in fields})
+            glove, cell_c = t2["glove"], t2["cell_c"]
+            stages = ("device_ms", "stage1_device_ms", "stage2_device_ms")
+            entry2.update({key: glove[1][key] for key in (*fields, *stages)})
             entry2["shape"] = (f"glove-100: n={GLOVE_DOCS} d={ANN_DIM} "
                                f"cosine nlist=512 m={ANN_M} nprobe=8 "
-                               f"l_pad={t2['l_pad']} fp32 R=64 B=1")
-            entry2["build_s"] = t2["build_s"]
-            entry2["device_ms"] = t2[1]["device_ms"]
-            entry2["b32"] = {key: t2[32][key]
-                             for key in (*fields, "device_ms")}
+                               f"l_pad={glove['l_pad']} fp32 R=64 B=1")
+            entry2["build_s"] = glove["build_s"]
+            entry2["b32"] = {key: glove[32][key] for key in (*fields, *stages)}
+            entry2["serving_shapes"] = {
+                f"cell_c n={ANN_MAIN_DOCS} l_pad={cell_c['l_pad']} B={b}": {
+                    key: cell_c[b][key] for key in (*fields, *stages)}
+                for b in (1, 8)}
         t3 = blocks_timing_phase(kb, dev, args.seed, family_names) \
             if family_names else {}
         for name, t3n in t3.items():

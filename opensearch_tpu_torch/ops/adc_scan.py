@@ -22,6 +22,8 @@ reference.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -33,11 +35,19 @@ from opensearch_tpu_torch.ops.topk import stable_topk
 
 _NEG_INF = float("-inf")
 _PREC_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
-# shared memory one CTA may use on Hopper (opt-in maximum)
+# shared memory one CTA may use on Hopper (opt-in maximum), less the
+# kernels' static shared memory (the select's histogram and counters)
 _MAX_SMEM = 232_448
-# list slots one scan CTA sorts at most, and at least when the grid is small
-_MAX_CHUNK = 2048
-_MIN_CHUNK = 512
+_STATIC_SMEM = 9 * 1024
+SMEM_BUDGET = _MAX_SMEM - _STATIC_SMEM
+# list slots one stage-1 CTA walks at most, and at least when the grid is
+# small
+MAX_SPAN = 8192
+MIN_SPAN = 512
+# the merge keeps the parts' offsets and its sort buffer in shared memory
+# up to these sizes, else in device scratch
+_MERGE_OFF_SMEM = 32 * 1024
+_MERGE_SORT_SMEM = 128 * 1024
 
 # launches of the kernel made by adc_pool_scan
 launches = cuda_lib.LaunchCounter()
@@ -101,60 +111,138 @@ def _check_kernel_operands(lut, codes, ids, mask, probes, r: int) -> None:
         raise ValueError(f"grid too large: B={B} P={P} l_pad={l_pad}")
 
 
-def _chunk(B: int, P: int, l_pad: int, device) -> int:
-    """List slots per scan CTA: a power of two of at most 2048, halved (to
-    no less than 512) while the grid holds fewer than two CTAs per SM, and
-    no larger than l_pad needs."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    ch = _MAX_CHUNK
-    while ch > _MIN_CHUNK and B * P * -(-l_pad // ch) < 2 * sms:
-        ch //= 2
-    return min(ch, 1 << max(int(l_pad - 1).bit_length(), 1))
+def _next_pow2(x: int) -> int:
+    return 1 << max(int(x) - 1, 0).bit_length()
 
 
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def scan_smem_bytes(elem_bytes: int, m: int, ks: int, span: int) -> int:
+    """Dynamic shared memory of one stage-1 CTA: the (b, p) LUT at its
+    native width, then a 32-bit key and a mask byte a list slot of its
+    range."""
+    return _align16(m * ks * elem_bytes) + 5 * span
+
+
+@functools.lru_cache(maxsize=None)
+def scan_plan(B: int, P: int, l_pad: int, m: int, ks: int, elem_bytes: int,
+              sms: int, span: int | None = None) -> tuple[int, int, int]:
+    """(span, n_parts, smem) of stage 1: list slots a CTA walks, a power of
+    two of at most MAX_SPAN, halved (to no less than MIN_SPAN) while the
+    grid (P, B, n_parts) holds fewer than two CTAs per SM or the keys do not
+    fit beside the LUT, and no larger than l_pad needs. Part c of a probe
+    covers slots [c * span, (c + 1) * span). `span` forces the size."""
+    if span is None:
+        span = min(MAX_SPAN, _next_pow2(l_pad))
+        while span > MIN_SPAN and (
+                B * P * -(-l_pad // span) < 2 * sms
+                or scan_smem_bytes(elem_bytes, m, ks, span) > SMEM_BUDGET):
+            span //= 2
+    smem = scan_smem_bytes(elem_bytes, m, ks, span)
+    if -(-l_pad // span) > 65_535:
+        raise ValueError(f"grid too large: {-(-l_pad // span)} parts of "
+                         f"{span} slots a list")
+    if smem > SMEM_BUDGET:
+        raise ValueError(
+            f"adc_scan needs {smem} bytes of shared memory at m={m}, ks={ks} "
+            f"({elem_bytes}-byte LUT entries, span {span}; at most "
+            f"{SMEM_BUDGET})")
+    return span, -(-l_pad // span), smem
+
+
+@dataclass(frozen=True)
+class MergePlan:
+    """Stage 2's layout: byte offsets in its dynamic shared memory of the
+    parts' offsets (off_at), of cand_cap candidates (cand_at) and of the
+    sort buffer of s_cap entries (sort_at), -1 where the buffer lives in
+    device scratch; smem is the total. A query with more live candidates
+    than cand_cap gathers them in device scratch (cand_scratch)."""
+    off_at: int
+    cand_at: int
+    cand_cap: int
+    sort_at: int
+    s_cap: int
+    smem: int
+    cand_scratch: bool
+
+
+@functools.lru_cache(maxsize=None)
+def merge_plan(parts: int, rp: int, r: int) -> MergePlan:
+    """The merge's layout for `parts` parts of at most rp survivors and a
+    pool of r: the offsets (4 bytes a part) and the sort buffer
+    (next_pow2(r) keys and candidate indices) in shared memory where they
+    fit, the candidates (keys and doc ids) in what is left, up to
+    parts * rp."""
+    s_cap = _next_pow2(r)
+    used = 0
+    off_at = -1
+    if _align16(4 * parts) <= _MERGE_OFF_SMEM:
+        off_at, used = 0, _align16(4 * parts)
+    sort_at = -1
+    if 8 * s_cap <= _MERGE_SORT_SMEM:
+        sort_at, used = used, used + _align16(8 * s_cap)
+    worst = parts * rp
+    cand_cap = min(worst, (SMEM_BUDGET - used) // 8) // 4 * 4
+    return MergePlan(off_at=off_at, cand_at=used, cand_cap=cand_cap,
+                     sort_at=sort_at, s_cap=s_cap, smem=used + 8 * cand_cap,
+                     cand_scratch=worst > cand_cap)
+
+
+@functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared."""
+    """The built kernel library with its C signature declared."""
     lib = cuda_lib.load("adc_scan")
-    lib.adc_scan_smem_bytes.restype = ctypes.c_size_t
-    lib.adc_scan_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.adc_scan_launch.restype = ctypes.c_int
-    lib.adc_scan_launch.argtypes = ([ctypes.c_void_p] * 9
-                                    + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    lib.adc_scan_launch.argtypes = ([ctypes.c_void_p] * 15
+                                    + [ctypes.c_int] * 15 + [ctypes.c_void_p])
     return lib
 
 
-def _launch_kernel(lut, codes, ids, mask, probes, *, r: int):
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch(lib, lut, codes, ids, mask, probes, *, r: int,
+           span: int | None = None):
+    """Stage 1 and stage 2 through `lib` (a build of csrc/adc_scan.cu) on
+    the current stream: (vals [B, r], ids [B, r]). `span` forces stage 1's
+    range (scan_plan)."""
     _check_kernel_operands(lut, codes, ids, mask, probes, r)
-    lib = _library()
     B, P, m, ks = lut.shape
     nlist, l_pad, _m = codes.shape
-    prec = _PREC_CODE[lut.dtype]
     dev = lut.device
-    ch = _chunk(B, P, l_pad, dev)
-    smem = lib.adc_scan_smem_bytes(prec, m, ks, ch)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"adc_scan needs {smem} bytes of shared memory at m={m}, ks={ks} "
-            f"({lut.dtype} LUT; at most {_MAX_SMEM})")
-    n_chunks = -(-l_pad // ch)
-    if 4 * P * n_chunks > _MAX_SMEM:
-        raise ValueError(f"adc_scan merges at most {_MAX_SMEM // 4} partial "
-                         f"pools per query (P={P} x {n_chunks} chunks)")
-    rp = min(r, ch)
-    part_v = torch.empty((B, P * n_chunks, rp), dtype=torch.float32, device=dev)
-    part_p = torch.empty((B, P * n_chunks, rp), dtype=torch.int32, device=dev)
+    span, n_parts, scan_smem = scan_plan(B, P, l_pad, m, ks,
+                                         lut.element_size(), _sm_count(dev),
+                                         span)
+    rp = min(r, span)
+    parts = P * n_parts
+    plan = merge_plan(parts, rp, r)
+    # one int32 allocation for the parts' keys, doc ids and counts, then
+    # whatever the merge keeps in device scratch (absent: null)
+    sizes = (B * parts * rp, B * parts * rp, B * parts,
+             B * parts if plan.off_at < 0 else 0,
+             *(B * parts * rp if plan.cand_scratch else 0,) * 2,
+             *(B * plan.s_cap if plan.sort_at < 0 else 0,) * 2)
+    scratch = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+    at, bufs = scratch.data_ptr(), []
+    for size in sizes:
+        bufs.append(at if size else None)
+        at += 4 * size
     vals = torch.empty((B, r), dtype=torch.float32, device=dev)
     out_ids = torch.empty((B, r), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    operands = [t.data_ptr() for t in (lut, codes, mask, ids, probes)]
+    part_k, part_i, part_n, *merge_scratch = bufs
     err = lib.adc_scan_launch(
-        lut.data_ptr(), codes.data_ptr(), mask.data_ptr(), ids.data_ptr(),
-        probes.data_ptr(), part_v.data_ptr(), part_p.data_ptr(),
-        vals.data_ptr(), out_ids.data_ptr(),
-        B, P, nlist, l_pad, m, ks, r, ch, prec, stream,
-    )
+        *operands, part_k, part_i, part_n, vals.data_ptr(),
+        out_ids.data_ptr(), *merge_scratch, B, P, nlist, l_pad, m, ks, r,
+        span, _PREC_CODE[lut.dtype], scan_smem, plan.off_at, plan.cand_at,
+        plan.cand_cap, plan.sort_at, plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"adc_scan launch failed: cudaError {err}")
-    launches.add()
     return vals, out_ids
 
 
@@ -162,7 +250,9 @@ def adc_pool_scan(lut, codes, ids, mask, probes, *, r: int):
     """The ADC pool scan: (vals [B, r], ids [B, r]). CUDA tensors launch
     the kernel; CPU tensors take :func:`plain_adc_pool`."""
     if lut.device.type == "cuda":
-        return _launch_kernel(lut, codes, ids, mask, probes, r=r)
+        out = launch(_library(), lut, codes, ids, mask, probes, r=r)
+        launches.add()
+        return out
     if lut.device.type != "cpu":
         raise ValueError(f"unsupported device [{lut.device}]")
     return plain_adc_pool(lut, codes, ids, mask, probes, r=r)
