@@ -5,11 +5,14 @@
 
 Builds the port's five CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together): K1 (csrc/knn_fused.cu, fused exact
-kNN: the list scan of csrc/knn_pool.cuh at fp32 with r <= 32, the tile scan
-of csrc/knn_tile.cuh otherwise), K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family
-K3 (csrc/knn_block.cu, running top-k), K4 (csrc/knn_pb.cu: per-block top-k,
-then the block-major merge, two kernels) and K5 (csrc/knn_sbmax.cu:
-sub-block maxima, then the selection and rescore, two kernels). ``--kernels`` limits the kernel and timing phases to
+kNN: the list scan of csrc/knn_pool.cuh at fp32 with r <= 32, its wide
+tier, csrc/knn_wide.cuh, at fp32 with 32 < r <= 1024, the tile scan of
+csrc/knn_tile.cuh otherwise), K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan)
+and the exact-scan family K3 (csrc/knn_block.cu, running top-k: the list
+scan and its wide tier), K4 (csrc/knn_pb.cu: per-block top-k, then the
+block-major merge, two kernels) and K5 (csrc/knn_sbmax.cu: sub-block
+maxima, then the selection and rescore, two kernels). ``--kernels`` limits
+the kernel and timing phases to
 the named kernels (default all five; the main phase needs K1 and K2).
 Then:
 
@@ -23,11 +26,27 @@ Then:
    each ulp of a dot near |q|^2 ~ 2,000 (2.4e-4) reaches the score almost
    whole. K1's list scan (lists_kernel_phase) on sixteenths, bit for bit
    with its planted ties in id order: one shard of 300,001 docs at B = 1,
-   5, 8, 9, 32, 33, 128 and 129 x r = 1, 10 and 32 (and 33, the tile scan),
-   four shards of 200,000 (one with 5 live docs), d = 30 and 768, operands
-   off a 16-byte boundary; then on clustered floats, ids equal but at near
-   ties (scores within a relative 1e-5, ranked the other way by the other
-   summation order) and scores within rtol 1e-5 / atol 2e-3.
+   5, 8, 9, 32, 33, 128 and 129 x r = 1, 10 and 32 (and 33, the wide
+   tier), four shards of 200,000 (one with 5 live docs), d = 30 and 768,
+   operands off a 16-byte boundary; then on clustered floats, ids equal
+   but at near ties (scores within a relative 1e-5, ranked the other way
+   by the other summation order) and scores within rtol 1e-5 / atol 2e-3.
+   The wide tier of K1 and K3 (wide_kernel_phase) on sixteenths, bit for
+   bit, at B = 1, 5, 8, 9, 32, 33 and 129 x r = 33, 64, 100, 128, 256 and
+   1024, one and four shards (one with 5 live docs, fewer than r), d = 30,
+   128 and 768, unaligned operands, n = 90 and 1,000 (ranges shorter than
+   r), planted duplicates across a range edge and within a sub-block, and
+   a shard whose near docs fill 24 whole ranges at r = 1024, so the split
+   merge's candidates overflow shared memory and it reads every slot from
+   device memory (merge_fallback_check); on clustered floats bit for bit
+   against kernel_order_pool, a brute force summed in the kernel's order
+   (plain_pool's cuBLAS order ranks some neighbours the other way at
+   r >= 100: each such slot is logged with both docs' f64 scores). The tile
+   scan, which still serves fp32 past r = 1024 and is timed beside the
+   list scan and its wide tier: bit-equal at r = 1025 and 1400 on
+   sixteenths (lists_kernel_phase), K3's copy at k = 100
+   (blocks_kernel_phase), and before each of its timings against
+   kernel_order_pool or, on integer data, plain_block_topk.
    K2 (csrc/adc_scan.cu: stage 1 adc_scan_kernel, stage 2
    adc_merge_kernel; adc_kernel_phase): an IVF-PQ build of n = 100,000,
    d = 100 (nlist 64, m 20), P = 8, at B = 1, 8, 16, 33 and 129 x R = 1,
@@ -43,7 +62,7 @@ Then:
    never a reordering of candidates.
    K3: n = 50,000 (ragged past the block), d = 128, 3% dead docs, a
    duplicate planted across the block boundary, B = 1, 5, 16, 40 and 129,
-   k = 10 and 32 (the list scan) and 100 (the tile scan), l2, cosine and
+   k = 10 and 32 (the list scan) and 100 (the wide tier), l2, cosine and
    dot. K4
    (pb_kernel_phase): n = 50,000 with a duplicate across a block edge and
    a run of 12 equal vectors inside a block, B = 1, 5, 8, 9, 16, 32, 33,
@@ -68,7 +87,11 @@ Then:
    5,000 at B = 1): the list scan's time and its two kernels' device ms by
    name, the tile scan's on the same inputs; library is torch.topk over
    the l2-transformed q @ v.T (never called by the port); bound
-   max(bytes / 3.35 TB/s, 2*B*n*d / 67 TFLOP/s). K2 at the
+   max(bytes / 3.35 TB/s, 2*B*n*d / 67 TFLOP/s). Then the wide records
+   (wide_timing_phase) at the SIFT-1M shape: K1 at fp32 r = 64, 100 and
+   128 at B = 1, 8, 32 and 128, at bf16 and int8 with k = 10 and 100 at
+   B = 1, 8 and 32, and K3 at k = 64, 128, 256 and 1024 at B = 1 and 32,
+   each beside the tile scan on the same call. K2 at the
    glove-100 shape (1,200,000 x 100-d, cosine, m = 20, nlist = 512,
    nprobe = 8, R = 64) at B = 1 and 32 and on cell C's index (200,000 such
    docs) at B = 1 and 8, built with the port's ivfpq.build on the card,
@@ -97,7 +120,11 @@ Then:
    dispatch batcher) must equal the same searches run one at a time; in
    the gated run (each round of 8 released together, a 50 ms batch
    window) with a mean merged batch above 1 and fewer K1 launches than
-   searches, every K1 launch on the list scan.
+   searches, every K1 launch on the list scan. Then index A at k = 100,
+   size = 100 (wide_main_phase): 64 searches through the stacked step,
+   32 on the per-shard route (k_bucket 128) and 8 threads x 8 through the
+   batcher, every hit list the brute-force top-100 in order, every K1
+   launch of each path (counted from 0) on the wide tier.
    ANN (K2): index C (1 shard, 200,000 clustered 100-d docs, cosine,
    ivf_pq nlist 512, m 20, nprobe 8; cut from 1.2M by host ingest), 64 knn
    searches, k = 10; every hit list must equal the plain pipeline
@@ -122,6 +149,7 @@ line, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import sys
@@ -135,6 +163,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (data sheet)
 FP32_FLOP_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+# H100 SXM peak a second by operand type (dense tensor-core rates for bf16
+# and int8), for the bound of a scan at that precision
+PEAK_OPS_PER_S = {"fp32": FP32_FLOP_PER_S, "bf16": 989e12, "int8": 1979e12}
 DIM = 128
 ANN_DIM = 100                 # glove-100
 ANN_M = 20
@@ -311,17 +342,18 @@ LIST_RUN = tuple(range(5000, 5040))  # 40 equal vectors in one sub-block
 
 
 def lists_case(dev, rng, s: int, n: int, d: int, integer: bool = True):
-    """Operands of K1's list scan: s shards of n docs of width d
-    (sixteenths, or clustered floats when not `integer`), 3% dead docs,
-    LIST_COPIES and LIST_RUN planted in every shard and live; with four
-    shards the last keeps 5 live docs, fewer than r. Returns (shard 0's
-    data, v, norms, valid)."""
+    """Operands of K1's list scan and its wide tier: s shards of n docs of
+    width d (sixteenths, or clustered floats when not `integer`), 3% dead
+    docs, LIST_COPIES and LIST_RUN planted in every shard and live (where n
+    holds them); with four shards the last keeps 5 live docs, fewer than r.
+    Returns (shard 0's data, v, norms, valid)."""
     data = (sixteenths if integer else clustered)(rng, s * n, d).reshape(
         s, n, d)
-    data[:, list(LIST_COPIES)] = data[:, LIST_COPIES[:1]]
-    data[:, list(LIST_RUN)] = data[:, LIST_RUN[:1]]
     valid = rng.random((s, n)) >= 0.03
-    valid[:, [*LIST_COPIES, *LIST_RUN]] = True
+    if n > LIST_RUN[-1]:
+        data[:, list(LIST_COPIES)] = data[:, LIST_COPIES[:1]]
+        data[:, list(LIST_RUN)] = data[:, LIST_RUN[:1]]
+        valid[:, [*LIST_COPIES, *LIST_RUN]] = True
     if s == 4:
         valid[3] = False
         valid[3, rng.choice(n, 5, replace=False)] = True
@@ -375,16 +407,92 @@ def near_tie_swaps(kf, kv, ki, pv, pi, args, sim: str, what: str) -> list:
     return swaps
 
 
+def kernel_order_pool(kf, v, nrm, ok, q, qsq, r: int, sim: str):
+    """The exact top-r pools of f32 operands under the list scan's own
+    arithmetic, on the card: every dot summed over d in ascending order in
+    one f32 accumulator, each step a fused multiply-add (the product exact
+    in f64, the sum rounded once to f64 and then to f32: a second rounding
+    can differ from the fused one only when the f64 sum lands on an f32
+    midpoint, about 2^-28 of the steps, and then by one ulp), then the
+    plain version's transform, which rounds as the kernel does. Returns
+    (vals [S, B, r], ids [S, B, r] int32), (-inf, -1) past the live
+    count."""
+    S, n, d = v.shape
+    vt = v.transpose(1, 2).contiguous()           # [S, d, n]
+    acc = torch.zeros((S, q.shape[0], n), dtype=torch.float32,
+                      device=v.device)
+    for j in range(d):
+        acc = (acc.double() + q[None, :, j, None].double()
+               * vt[:, None, j].double()).float()
+    scores = kf._transform_scores(acc, qsq[None, :, None], nrm[:, None, :],
+                                  sim)
+    scores = torch.where(ok[:, None, :], scores, float("-inf"))
+    vals, ids = kf.stable_topk(scores, r)
+    return vals, torch.where(vals > float("-inf"), ids, -1).to(torch.int32)
+
+
+def order_check(kf, kv, ki, args, r: int, sim: str, what: str,
+                pv=None, pi=None) -> None:
+    """Float data: the kernel's pools must equal kernel_order_pool's bit for
+    bit, ids and values. Where a plain version's pools (pv, pi) are given,
+    each slot whose id differs from them (a neighbour the other summation
+    order ranks the other way) is logged with both docs' f64 scores."""
+    v, nrm, ok, q, qsq, _scale = args
+    rv, ri = kernel_order_pool(kf, v, nrm, ok, q, qsq, r, sim)
+    if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
+        bad = (ki != ri).nonzero()[:5].tolist()
+        raise AssertionError(f"{what}: differs from the kernel-order "
+                             f"reference (ids differ at {bad})")
+    if pi is None:
+        return
+    for s, b, j in (ki != pi).nonzero().tolist():
+        doc, other = int(ki[s, b, j]), int(pi[s, b, j])
+        a, c = exact_scores(kf, v, nrm, q, qsq, sim, s, b, [doc, other])
+        log(f"{what}: plain_pool's order differs at {[s, b, j]}: kernel doc "
+            f"{doc} (f64 {a!r}), plain doc {other} (f64 {c!r}), relative "
+            f"gap {abs(a - c) / max(abs(a), abs(c)):.3g}")
+
+
+def tile_check(kf, args, r: int, what: str) -> None:
+    """The tile scan (kf._launch_tile), the yardstick timed beside the list
+    scan and its wide tier, on the fp32 operands `args` of clustered
+    floats: bit-equal to kernel_order_pool (order_check), since it too sums
+    each dot in ascending order with one FFMA a product."""
+    kv, ki = kf._launch_tile(*args, r=r, similarity="l2_norm",
+                             score_precision="fp32")
+    order_check(kf, kv, ki, args, r, "l2_norm", f"{what} (tile scan)")
+
+
+def block_tile_check(kb, kf, v, nrm, ok, q, k: int, what: str) -> None:
+    """K3's tile scan (kb._launch_block_tile on the padded batch), the
+    yardstick timed beside K3's wide tier, on one shard of clustered f32
+    floats: its rows for q bit-equal to kernel_order_pool."""
+    tv, ti = kb._launch_block_tile(v, nrm, ok, kb._pad_queries(q, None), k=k,
+                                   similarity="l2_norm")
+    b = q.shape[0]
+    order_check(kf, tv[None, :b], ti[None, :b],
+                (v[None], nrm[None], ok[None], q, (q * q).sum(1),
+                 torch.ones(1, device=v.device)), k, "l2_norm",
+                f"{what} (K3 tile scan)")
+
+
 def lists_check(kf, v, nrm, ok, q, r: int, sim: str, what: str,
-                bits: bool) -> float:
+                bits: bool, planted: bool = True) -> float:
     """One pool scan at fp32 against plain_pool: on sixteenths (`bits`) ids
-    equal and values bit-equal, the planted copies first in id order for
-    l2 and cosine; on float data ids equal but at near ties
-    (near_tie_swaps), scores within rtol 1e-5 / atol 2e-3. The list scan
-    must have served it exactly when r <= 32 (the tile scan above)."""
+    equal and values bit-equal, the planted copies (where `planted`) first
+    in id order for l2 and cosine; on float data scores within rtol 1e-5 /
+    atol 2e-3 and ids equal but at near ties (near_tie_swaps; the wide
+    tier: equal to kernel_order_pool bit for bit, order_check, since at
+    r >= 100 two summation orders swap neighbours further apart than
+    near_tie_swaps' 1e-5). The design scan_tier names must have served it,
+    one launch of K1: the list scan at r <= 32 (one list_launches), its
+    wide tier at r <= 1024 (one wide_launches), else the tile scan (neither
+    of them)."""
     qsq = (q * q).sum(dim=1)
     one = torch.ones(v.shape[0], device=v.device)
-    before = kf.list_launches.count
+    tier = kf.scan_tier("fp32", r)
+    counters = (kf.launches, kf.list_launches, kf.wide_launches)
+    before = [c.count for c in counters]
     args = (v, nrm, ok, q, qsq, one)
     if bits:
         err = compare_pools(kf, args, r, sim, "fp32", what, bits=True)
@@ -394,7 +502,15 @@ def lists_check(kf, v, nrm, ok, q, r: int, sim: str, what: str,
         pv, pi = kf.plain_pool(*args, r=r, similarity=sim,
                                score_precision="fp32")
         torch.cuda.synchronize()
-        swaps = near_tie_swaps(kf, kv, ki, pv, pi, args, sim, what)
+        if tier == "wide":
+            fin = torch.isfinite(pv)
+            if not torch.equal(fin, torch.isfinite(kv)) or not torch.allclose(
+                    kv[fin], pv[fin], rtol=1e-5, atol=2e-3):
+                raise AssertionError(f"{what}: scores beyond rtol 1e-5 / "
+                                     f"atol 2e-3")
+            order_check(kf, kv, ki, args, r, sim, what, pv, pi)
+        swaps = [] if tier == "wide" else near_tie_swaps(
+            kf, kv, ki, pv, pi, args, sim, what)
         for sw in swaps:
             # which of the two the f64 scores put first (the id on a tie)
             first = max((sw["kernel"][1], -sw["kernel"][0]),
@@ -406,43 +522,50 @@ def lists_check(kf, v, nrm, ok, q, r: int, sim: str, what: str,
         fin = torch.isfinite(pv)
         err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) \
             else 0.0
-    want = 1 if r <= kf.LIST_MAX_R else 0
-    if kf.list_launches.count - before != want:
-        raise AssertionError(f"{what}: the list scan launched "
-                             f"{kf.list_launches.count - before} times, "
-                             f"want {want}")
-    if bits and sim != "dot_product" and r >= 2:
+    want = [1, int(tier == "lists"), int(tier == "wide")]
+    got = [c.count - b for c, b in zip(counters, before)]
+    if got != want:
+        raise AssertionError(f"{what}: (K1, list scan, wide tier) launched "
+                             f"{got} times, want {want} ({tier})")
+    if bits and planted and sim != "dot_product" and r >= 2:
         kv, ki = kf.pool_scan(v, nrm, ok, q, qsq, one, r=r, similarity=sim,
                               score_precision="fp32")
         if ki[0, 0, :2].tolist() != list(LIST_COPIES):
             raise AssertionError(f"{what}: planted tie gave "
                                  f"{ki[0, 0, :2].tolist()}")
-        if q.shape[0] > 1 and ki[0, 1].tolist() != list(LIST_RUN[:r]):
+        run = min(r, len(LIST_RUN))
+        if q.shape[0] > 1 and ki[0, 1, :run].tolist() != list(LIST_RUN[:run]):
             raise AssertionError(f"{what}: planted run gave "
-                                 f"{ki[0, 1].tolist()}")
+                                 f"{ki[0, 1, :run].tolist()}")
     return err
 
 
 def lists_kernel_phase(kf, dev, seed: int) -> float:
-    """K1's list scan (fp32, r <= 32) against plain_pool on the card, the
-    tile scan at r = 33 beside it. Sixteenths (every dot exact in f32, so
-    values and ids bit-equal, the planted ties in id order): one shard of
+    """K1's list scan (fp32, r <= 32) against plain_pool on the card, its
+    wide tier at r = 33 and the tile scan at r = 1025 and 1400 (fp32 past
+    the wide tier; the tile scan's pools fill shared memory near r = 1460
+    at d = 128) beside it. Sixteenths (every dot exact in f32, so values
+    and ids bit-equal, the planted ties in id order): one shard of
     n = 300,001 (a ragged tail; LIST_COPIES straddle a range edge at
     B <= 8) at B = 1, 5, 8, 9, 32, 33, 128 and 129 (query tiles 8, 32 and
     128, full and partial, and two 128-query tiles) x r = 1, 10 and 32 in
-    l2, cosine and dot at r = 10, and r = 33; four shards of 200,000 (the
+    l2, cosine and dot at r = 10, and r = 33; the tile scan on another such
+    shard at B = 1, 9 and 33 in l2 and cosine; four shards of 200,000 (the
     last with 5 live docs) at B = 1, 8 and 33 x r = 10 and 32; d = 30 and
     768 (the two-stage ring at r = 32) at B = 1, 9 and 129; operands 4
     bytes off a 16-byte boundary. Then clustered floats: scores within
     rtol 1e-5 / atol 2e-3 and ids equal but at near ties held to their f64
     scores (near_tie_swaps), at B = 1, 8, 32 and 128 in the three
-    similarities, and over four shards. Returns the max |dv|."""
+    similarities, and over four shards. Each case checks which design
+    launched (lists_check). Returns the max |dv|."""
     rng = np.random.default_rng(seed + 30)
     err = 0.0
     cases = (
         (1, 300_001, DIM, True, (1, 5, 8, 9, 32, 33, 128, 129),
          ((1, "l2_norm"), (10, "l2_norm"), (32, "l2_norm"), (10, "cosine"),
           (10, "dot_product"), (33, "l2_norm"))),
+        (1, 300_001, DIM, True, (1, 9, 33),
+         ((1025, "l2_norm"), (1400, "l2_norm"), (1025, "cosine"))),
         (4, 200_000, DIM, True, (1, 8, 33),
          ((10, "l2_norm"), (32, "l2_norm"), (10, "cosine"))),
         (1, 200_000, 30, True, (1, 9, 129),
@@ -472,7 +595,8 @@ def lists_kernel_phase(kf, dev, seed: int) -> float:
         log(f"K1 list-scan parity S={s} n={n} d={d} integer={integer}: "
             f"{'bit-equal' if integer else 'ids equal'} at B = {bs}, "
             f"(r, sim) = {rs}")
-        if s == 1 and d == DIM and integer and n == 300_001:
+        if s == 1 and d == DIM and integer and n == 300_001 and \
+                rs[0][0] <= kf.LIST_MAX_R:
             for sim in ("l2_norm", "cosine"):
                 q = torch.from_numpy(data[[LIST_COPIES[0], LIST_RUN[0], 7, 9,
                                            11]].copy()).to(dev)
@@ -486,18 +610,201 @@ def lists_kernel_phase(kf, dev, seed: int) -> float:
     return err
 
 
+def block_wide_check(kb, v, nrm, ok, q, k: int, sim: str, what: str) -> float:
+    """K3's entry point (knn_topk_auto) on one shard of sixteenths against
+    plain_block_topk: ids equal and values bit-equal, served by the wide
+    tier (one block_wide_launches)."""
+    before = kb.block_wide_launches.count
+    gv, gi = kb.knn_topk_auto(v, nrm, ok, q, k=k, similarity=sim)
+    pv, pi = kb.plain_block_topk(v, nrm, ok, q, k=k, similarity=sim)
+    torch.cuda.synchronize()
+    if not (torch.equal(gi, pi) and torch.equal(gv, pv)):
+        bad = (gi != pi).nonzero()[:5].tolist()
+        raise AssertionError(f"{what}: K3 differs from plain_block_topk "
+                             f"(ids differ at {bad})")
+    if kb.block_wide_launches.count - before != 1:
+        raise AssertionError(f"{what}: K3's wide tier launched "
+                             f"{kb.block_wide_launches.count - before} times")
+    fin = torch.isfinite(pv)
+    return float((gv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+# r and similarity of the wide tier's parity cases
+WIDE_RS = (33, 64, 100, 128, 256, 1024)
+# the wide merge's stage-2 candidates in shared memory (kMergeStage in
+# csrc/knn_wide.cuh): past them it reads every slot from device memory
+WIDE_MERGE_STAGE = 16384
+
+
+def wide_merge_candidates(scores, r: int, chunk: int, n_split: int) -> int:
+    """The wide merge's stage-2 candidate count for one (shard, query) of
+    f32 scores [n] (-inf for dead docs), as knn_wide_merge_kernel counts
+    them: each range's pool (its r best under (score desc, doc id asc)),
+    t0 the r-th best of the pools' first merge_prefix slots (every live one
+    when they are no more than r), and the slots of all pools at or above
+    t0."""
+    n = scores.shape[0]
+    order = torch.sort(-scores, stable=True).indices   # score desc, id asc
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(n, device=scores.device)
+    live = scores > float("-inf")
+    pre = min(r, 4 * -(-r // n_split))                 # merge_prefix
+    pools = []
+    for p in range(n_split):
+        lo, hi = p * chunk, min(n, (p + 1) * chunk)
+        pools.append(torch.sort(rank[lo:hi][live[lo:hi]]).values[:r])
+    first = torch.cat([pool[:pre] for pool in pools])
+    t0 = torch.sort(first).values[r - 1] if first.numel() > r else n
+    return sum(int((pool <= t0).sum()) for pool in pools)
+
+
+def merge_fallback_check(kf, kb, dev, rng, k1: bool, k3: bool) -> float:
+    """The wide merge's fallback, which reads every slot from device memory
+    where the ranges' prefixes hold more than WIDE_MERGE_STAGE candidates:
+    one shard of 300,000 sixteenths whose docs in 24 whole ranges (from the
+    third on) lie within 1/16 a coordinate of the query, so each of those
+    ranges' pools is r = 1024 near docs above the merge's first bound; B = 1
+    (the stacked step's), l2 and cosine. wide_merge_candidates must count
+    more candidates than the merge stages (so the fallback ran), and K1 and
+    K3 must equal plain_pool and plain_block_topk bit for bit. Returns the
+    max |dv|."""
+    n, r, near = 300_000, 1024, 24
+    chunk, n_split = kf.list_geometry(1, n, 1, kf.sm_count(dev))
+    data = sixteenths(rng, n, DIM)
+    q0 = data[7].copy()
+    lo, hi = 2 * chunk, min(n, (2 + near) * chunk)
+    data[lo:hi] = q0 + rng.integers(-1, 2, (hi - lo, DIM)).astype(
+        np.float32) / 16
+    v = torch.from_numpy(data)[None].to(dev)
+    nrm = (v.double() ** 2).sum(2).float()
+    ok = torch.ones((1, n), dtype=torch.bool, device=dev)
+    q = torch.from_numpy(q0[None]).to(dev)
+    qsq = (q * q).sum(1)
+    err = 0.0
+    for sim in ("l2_norm", "cosine"):
+        scores = kf._transform_scores(v[0] @ q[0], qsq[0], nrm[0], sim)
+        m = wide_merge_candidates(scores, r, chunk, n_split)
+        stage = min(n_split * r, WIDE_MERGE_STAGE)
+        if m <= stage:
+            raise AssertionError(f"wide merge fallback {sim}: {m} candidates "
+                                 f"fit the merge's {stage}")
+        what = f"wide merge fallback {sim} ({m} candidates, {n_split} ranges)"
+        if k1:
+            err = max(err, lists_check(kf, v, nrm, ok, q, r, sim, f"K1 {what}",
+                                       True, planted=False))
+        if k3:
+            err = max(err, block_wide_check(kb, v[0], nrm[0], ok[0], q, r,
+                                            sim, f"K3 {what}"))
+        log(f"{what}: past the {stage} the merge stages, so read from device "
+            f"memory; bit-equal")
+    del v
+    torch.cuda.empty_cache()
+    return err
+
+
+def wide_kernel_phase(kf, kb, dev, seed: int, k1: bool, k3: bool) -> float:
+    """K1's wide tier (fp32, 32 < r <= 1024) against plain_pool and K3's
+    against plain_block_topk on the card (lists_check, block_wide_check).
+    Sixteenths (every dot exact in f32, so values and ids bit-equal, the
+    planted ties in id order: LIST_COPIES across a range edge at B <= 8,
+    LIST_RUN's 40 equal vectors within one sub-block): one shard of
+    n = 300,001 (a ragged tail) at B = 1, 5, 8, 9, 32, 33 and 129 (one,
+    two, five and seventeen 8-query tiles, full and partial) x r = 33, 64,
+    100, 128, 256 and 1024 in l2, and r = 100 in cosine and dot, K3 beside
+    K1; operands 4 bytes off a 16-byte boundary; four shards of 200,000
+    (the last with 5 live docs, fewer than r) at B = 1, 8 and 33; d = 30
+    and 768 (the two-stage rings) at B = 1, 9 and 129; n = 90 (fewer docs
+    than r, in one range shorter than a sub-block) and n = 1,000 (eight
+    ranges of 128 docs, each shorter than r); the merge's fallback from
+    device memory (merge_fallback_check). Then clustered floats: K1
+    bit-equal to kernel_order_pool, a brute force summed in the kernel's
+    order (order_check; each slot where plain_pool's cuBLAS order ranks two
+    neighbours the other way is logged with both docs' f64 scores), at
+    B = 1, 8, 32 and 129 and over four shards. Returns the max |dv|."""
+    rng = np.random.default_rng(seed + 31)
+    err = 0.0
+    all_b = (1, 5, 8, 9, 32, 33, 129)
+    cases = (
+        (1, 300_001, DIM, True, all_b,
+         tuple((r, "l2_norm") for r in WIDE_RS)
+         + ((100, "cosine"), (100, "dot_product"))),
+        (4, 200_000, DIM, True, (1, 8, 33),
+         ((64, "l2_norm"), (256, "l2_norm"), (1024, "l2_norm"),
+          (100, "cosine"))),
+        (1, 200_000, 30, True, (1, 9, 129),
+         ((100, "l2_norm"), (1024, "cosine"))),
+        (1, 200_000, 768, True, (1, 9, 129),
+         ((100, "l2_norm"), (1024, "l2_norm"))),
+        (1, 90, DIM, True, (1, 9), ((33, "l2_norm"), (100, "cosine"))),
+        (1, 1_000, DIM, True, (1, 9), ((256, "l2_norm"), (1024, "l2_norm"))),
+        (1, 200_000, DIM, False, (1, 8, 32, 129),
+         ((100, "l2_norm"), (100, "cosine"), (100, "dot_product"),
+          (1024, "l2_norm"))),
+        (4, 200_000, DIM, False, (1,), ((128, "l2_norm"),)),
+    )
+    for s, n, d, integer, bs, rs in cases:
+        data, v, nrm, ok = lists_case(dev, rng, s, n, d, integer)
+        planted = n > LIST_RUN[-1]
+        for b in bs:
+            queries = data[rng.choice(n, b, replace=b > n)].copy()
+            if planted:
+                queries[0] = data[LIST_COPIES[0]]
+                if b > 1:
+                    queries[1] = data[LIST_RUN[0]]
+            if not integer:
+                queries = queries + 0.01 * rng.standard_normal(
+                    queries.shape).astype(np.float32)
+            q = torch.from_numpy(queries).to(dev)
+            for r, sim in rs:
+                what = (f"wide S={s} n={n} d={d} B={b} r={r} {sim} "
+                        f"integer={integer}")
+                if k1:
+                    err = max(err, lists_check(kf, v, nrm, ok, q, r, sim,
+                                               f"K1 {what}", integer,
+                                               planted))
+                if k3 and s == 1 and integer:
+                    err = max(err, block_wide_check(kb, v[0], nrm[0], ok[0],
+                                                    q, r, sim, f"K3 {what}"))
+        log(f"wide-tier parity S={s} n={n} d={d} integer={integer}: "
+            f"{'bit-equal' if integer else 'ids equal'} at B = {bs}, "
+            f"(r, sim) = {rs}" + (" (K1 and K3)" if s == 1 and integer
+                                  else " (K1)"))
+        if s == 1 and d == DIM and integer and n == 300_001:
+            q = torch.from_numpy(data[[LIST_COPIES[0], LIST_RUN[0], 7, 9,
+                                       11]].copy()).to(dev)
+            for r, sim in ((100, "l2_norm"), (1024, "cosine")):
+                what = f"wide unaligned r={r} {sim}"
+                if k1:
+                    err = max(err, lists_check(kf, unaligned(v), nrm, ok,
+                                               unaligned(q), r, sim,
+                                               f"K1 {what}", True))
+                if k3:
+                    err = max(err, block_wide_check(
+                        kb, unaligned(v[0]), nrm[0], ok[0], unaligned(q), r,
+                        sim, f"K3 {what}"))
+            log("wide-tier parity, operands off a 16-byte boundary: "
+                "bit-equal")
+        del v
+        torch.cuda.empty_cache()
+    return max(err, merge_fallback_check(kf, kb, dev, rng, k1, k3))
+
+
 # the profiler's kernel names of K1's and K3's list scan
 LIST_KERNELS = ("knn_pool_scan_kernel", "knn_pool_merge_kernel")
 
 
-def pool_bound(s: int, n: int, d: int, b: int, r: int) -> dict:
-    """The least time of one pool scan: the slab, norms and valid flags read
-    once, the queries and |q|^2, the [S, B, r] pools written, over
-    3.35 TB/s; against 2*B*S*n*d operations over 67 TFLOP/s."""
-    nbytes = s * n * (d * 4 + 4 + 1) + b * (d * 4 + 4) + s * b * r * 8
+def pool_bound(s: int, n: int, d: int, b: int, r: int,
+               prec: str = "fp32") -> dict:
+    """The least time of one pool scan: the slab (4, 2 or 1 bytes an
+    element at fp32, bf16, int8), norms and valid flags read once, the
+    queries and |q|^2, the [S, B, r] pools written, over 3.35 TB/s; against
+    2*B*S*n*d operations over the card's peak for the operands' type (67
+    TFLOP/s fp32, 989 bf16, 1,979 int8)."""
+    width = {"fp32": 4, "bf16": 2, "int8": 1}[prec]
+    nbytes = s * n * (d * width + 4 + 1) + b * (d * width + 4) + s * b * r * 8
     flops = 2 * b * s * n * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / PEAK_OPS_PER_S[prec] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
@@ -557,8 +864,9 @@ def timing_phase(kf, dev, seed: int) -> dict:
     """K1 (fp32, l2, k = 10: the list scan) at the SIFT-1M shape (1,000,000
     clustered 128-d docs) at B = 1, 32 and 128, then at the serving shapes:
     one shard of 200,000 docs at B = 1 and 8, four of 5,000 at B = 1; each
-    checked against plain_pool first, then timed (time_pool) beside its
-    bound (pool_bound)."""
+    checked against plain_pool first, and the tile scan timed beside it
+    against kernel_order_pool (tile_check), then timed (time_pool) beside
+    its bound (pool_bound)."""
     rng = np.random.default_rng(seed + 1)
     k = 10
     out = {}
@@ -575,6 +883,7 @@ def timing_phase(kf, dev, seed: int) -> dict:
             args, r = scan_inputs(kf, v, nrm, ok, q, k, "fp32")
             label = f"S={s} n={n} B={b}"
             compare_pools(kf, args, r, "l2_norm", "fp32", label)
+            tile_check(kf, args, r, label)
             t = time_pool(kf, args, r, q, v, nrm, k, label,
                           plain=n * s * b <= 128_000_000)
             t.update(pool_bound(s, n, DIM, b, r))
@@ -583,6 +892,155 @@ def timing_phase(kf, dev, seed: int) -> dict:
             out[b if n == 1_000_000 else label] = t
         del v
         torch.cuda.empty_cache()
+    return out
+
+
+# the profiler's kernel names of the tile scan (K1 at bf16 and int8 and at
+# fp32 r > 1024; the yardstick beside the wide tier) and of the wide tier
+TILE_KERNELS = ("knn_scan_kernel", "knn_merge_kernel")
+WIDE_KERNELS = ("knn_wide_scan_kernel", "knn_wide_merge_kernel")
+# the shapes that ran the tile scan before the wide tier: K1 at fp32 with
+# r = 64, 100, 128; K3 at k = 64-1024; K1 at bf16 and int8 with k = 10 and
+# 100 (pools of R = 40 and 400)
+WIDE_K1 = ((64, 100, 128), (1, 8, 32, 128))
+WIDE_K3 = ((64, 128, 256, 1024), (1, 32))
+WIDE_REDUCED = (("bf16", "int8"), (10, 100), (1, 8, 32))
+
+
+def check_scan(kf, args, r: int, prec: str, what: str) -> None:
+    """A pool scan against its references on clustered floats before it is
+    timed: int8 bit-equal to plain_pool; fp32 bit-equal to
+    kernel_order_pool (order_check); bf16 (the tile scan) ids equal to
+    plain_pool but at near ties (near_tie_swaps, each logged)."""
+    if prec == "int8":
+        compare_pools(kf, args, r, "l2_norm", prec, what)
+        return
+    kv, ki = kf.pool_scan(*args, r=r, similarity="l2_norm",
+                          score_precision=prec)
+    if prec == "fp32":
+        order_check(kf, kv, ki, args, r, "l2_norm", what)
+        return
+    pv, pi = kf.plain_pool(*args, r=r, similarity="l2_norm",
+                           score_precision=prec)
+    for sw in near_tie_swaps(kf, kv, ki, pv, pi, args, "l2_norm", what):
+        log(f"{what}: near tie {sw}")
+
+
+def time_design(label: str, design, tile, plain, library, bound: dict,
+                iters: int = 20) -> dict:
+    """One shape of the wide tier's record: CUDA-event ms of the design the
+    wrapper picks (twice, the tile scan's between when it is not the same
+    design), the plain version's and the library call's; device ms of each
+    design by kernel name (WIDE_KERNELS, TILE_KERNELS); the memory clock
+    before and after."""
+    clock0 = mem_clock()
+    ms = time_ms(design, iters)
+    tile_ms = time_ms(tile, iters) if tile is not None else None
+    ms_again = time_ms(design, iters)
+    plain_ms = time_ms(plain, 3)
+    library_ms = time_ms(library, 10)
+    prof = device_profile(design, 5)
+    tile_prof = device_profile(tile, 5) if tile is not None else prof
+    out = {"ms": ms, "ms_again": ms_again, "tile_ms": tile_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "device_ms": prof and prof["device_ms"],
+           "scan_device_ms": kernel_ms(prof, WIDE_KERNELS[0]),
+           "merge_device_ms": kernel_ms(prof, WIDE_KERNELS[1]),
+           "tile_device_ms": tile_prof and tile_prof["device_ms"],
+           "tile_scan_device_ms": kernel_ms(tile_prof, TILE_KERNELS[0]),
+           "tile_merge_device_ms": kernel_ms(tile_prof, TILE_KERNELS[1]),
+           "mem_clock": [clock0, mem_clock()], **bound}
+    log(f"wide record {label}: {json.dumps(out)}")
+    return out
+
+
+def wide_timing_phase(kf, kb, dev, seed: int, k1: bool, k3: bool) -> dict:
+    """The tile scan's former shapes at the SIFT-1M shape (1,000,000
+    clustered 128-d docs, l2): K1 (pool_scan) at fp32 with r = 64, 100 and
+    128 at B = 1, 8, 32 and 128, and at bf16 and int8 with k = 10 and 100
+    at B = 1, 8 and 32; K3 (knn_topk_auto) at k = 64, 128, 256 and 1024 at
+    B = 1 and 32. Each is checked against its plain version, and at fp32
+    the tile scan beside it (`_launch_tile`, `_launch_block_tile`) against
+    kernel_order_pool (tile_check, block_tile_check), then timed by
+    time_design beside the tile scan on the same call (at bf16 and int8
+    the wrapper's design is the tile scan itself). The library call is torch.topk at the pool's width over
+    the l2-transformed q @ v.T (bf16: of bf16 operands; int8: the f32
+    product of the int8 values, exact at d = 128, scaled)."""
+    rng = np.random.default_rng(seed + 3)
+    n = SIFT_DOCS
+    v = torch.from_numpy(clustered(rng, n, DIM))[None].to(dev)
+    nrm = (v.double() ** 2).sum(2).float()
+    ok = torch.ones((1, n), dtype=torch.bool, device=dev)
+    q_all = v[0, torch.from_numpy(rng.choice(n, 128, replace=False))
+              .to(dev)] + 0.01
+    out = {}
+
+    def library_fn(args, r, prec):
+        v_x, _nrm, _ok, q_x, qsq, scale = args
+        # int8 values held as f32 (a copy made once, outside the timing)
+        v8 = v_x[0].float() if prec == "int8" else None
+
+        def library():
+            if prec == "bf16":
+                dots = (q_x @ v_x[0].T).float()
+            elif prec == "int8":
+                dots = (q_x.float() @ v8.T) * scale[0]
+            else:
+                dots = q_x @ v_x[0].T
+            d_sq = torch.clamp(qsq[:, None] - 2.0 * dots + nrm[0][None],
+                               min=0.0)
+            return torch.topk(1.0 / (1.0 + d_sq), r)
+        return library
+
+    shapes = []
+    if k1:
+        shapes += [("fp32", r, b) for r in WIDE_K1[0] for b in WIDE_K1[1]]
+        shapes += [(prec, k, b) for prec in WIDE_REDUCED[0]
+                   for k in WIDE_REDUCED[1] for b in WIDE_REDUCED[2]]
+    for prec, k, b in shapes:
+        q = q_all[:b].contiguous()
+        args, r = scan_inputs(kf, v, nrm, ok, q, k, prec)
+        label = f"K1 {prec} k={k} r={r} B={b}"
+        check_scan(kf, args, r, prec, label)
+        if prec == "fp32":
+            tile_check(kf, args, r, label)
+        design = functools.partial(kf.pool_scan, *args, r=r,
+                                   similarity="l2_norm",
+                                   score_precision=prec)
+        tile = None if prec != "fp32" else functools.partial(
+            kf._launch_tile, *args, r=r, similarity="l2_norm",
+            score_precision=prec)
+        plain = functools.partial(kf.plain_pool, *args, r=r,
+                                  similarity="l2_norm", score_precision=prec)
+        out[label] = time_design(label, design, tile, plain,
+                                 library_fn(args, r, prec),
+                                 pool_bound(1, n, DIM, b, r, prec))
+        out[label]["tier"] = kf.scan_tier(prec, r)
+    if k3:
+        for k in WIDE_K3[0]:
+            for b in WIDE_K3[1]:
+                q = q_all[:b].contiguous()
+                qsq = (q * q).sum(1)
+                one = torch.ones(1, device=dev)
+                label = f"K3 k={k} B={b}"
+                gv, gi = kb.knn_topk_auto(v[0], nrm[0], ok[0], q, k=k)
+                order_check(kf, gv[None], gi[None], (v, nrm, ok, q, qsq, one),
+                            k, "l2_norm", label)
+                block_tile_check(kb, kf, v[0], nrm[0], ok[0], q, k, label)
+                qp = kb._pad_queries(q, None)
+                design = functools.partial(kb.knn_topk_auto, v[0], nrm[0],
+                                           ok[0], q, k=k)
+                tile = functools.partial(kb._launch_block_tile, v[0], nrm[0],
+                                         ok[0], qp, k=k, similarity="l2_norm")
+                plain = functools.partial(family_plain, kb, "knn_block", v[0],
+                                          nrm[0], ok[0], q, k)
+                out[label] = time_design(
+                    label, design, tile, plain,
+                    library_fn((v, nrm, ok, q, qsq, one), k, "fp32"),
+                    blocks_bound("knn_block", n, DIM, b, k, 0))
+                out[label]["tier"] = kb.block_tier(k)
+    del v
+    torch.cuda.empty_cache()
     return out
 
 
@@ -669,9 +1127,10 @@ def blocks_kernel_phase(kb, dev, seed: int) -> float:
     """K3 against its plain version on the card: n = 50,000 (a ragged tail
     past the 1024-doc block), d = 128, 3% dead docs, a duplicate of doc
     2040 planted at 2053 (across the block boundary), B = 1, 5, 16, 40
-    (three of the tile scan's 16-query tiles, the last one partial) and 129
-    (two of the list scan's 128-query tiles), k = 10 and 32 (the list scan)
-    and 100 (the tile scan), l2, cosine and dot. The data are sixteenths:
+    and 129 (two of the list scan's 128-query tiles, seventeen of the wide
+    tier's 8-query tiles), k = 10 and 32 (the list scan) and 100 (the wide
+    tier, and the tile scan beside it, the yardstick it is timed against),
+    l2, cosine and dot. The data are sixteenths:
     the pools must match bit for bit, the whole entry point too, and the
     lower id must win the planted tie. Returns the max |dv| against the
     plain version."""
@@ -695,13 +1154,22 @@ def blocks_kernel_phase(kb, dev, seed: int) -> float:
             for sim in SIMS:
                 args = (v, nrm, ok, kb._pad_queries(q, None))
                 what = f"knn_block {sim} B={b} k={k}"
-                before = kb.block_list_launches.count
+                before = (kb.block_list_launches.count,
+                          kb.block_wide_launches.count)
                 err = max(err, compare_stage1(kb, "knn_block", args, k, sim,
                                               True, what))
-                lists = kb.block_list_launches.count - before
-                if lists != (1 if k <= kb.LIST_MAX_R else 0):
-                    raise AssertionError(f"{what}: {lists} list-scan "
-                                         f"launches")
+                got = (kb.block_list_launches.count - before[0],
+                       kb.block_wide_launches.count - before[1])
+                if got != ((1, 0) if k <= kb.LIST_MAX_R else (0, 1)):
+                    raise AssertionError(f"{what}: (list scan, wide tier) "
+                                         f"launches {got}")
+                if k > kb.LIST_MAX_R:
+                    # K3's tile scan, the yardstick of the wide tier
+                    tv, ti = kb._launch_block_tile(*args, k=k, similarity=sim)
+                    pv, pi = kb.plain_block_topk(*args, k=k, similarity=sim)
+                    if not (torch.equal(ti, pi) and torch.equal(tv, pv)):
+                        raise AssertionError(f"{what}: K3's tile scan differs "
+                                             f"from plain_block_topk")
                 gv, gi = kb.knn_topk_auto(v, nrm, ok, q, k=k, similarity=sim)
                 pv, pi = family_plain(kb, "knn_block", v, nrm, ok, q, k, sim)
                 if not (torch.equal(gi, pi[:b]) and torch.equal(gv, pv[:b])):
@@ -711,7 +1179,7 @@ def blocks_kernel_phase(kb, dev, seed: int) -> float:
                     raise AssertionError(
                         f"{what}: planted tie gave {gi[0, :2].tolist()}")
         log(f"knn_block parity B={b}: bit-equal over k = 10, 32 (list "
-            f"scan), 100 (tile scan) and l2, cosine, dot")
+            f"scan), 100 (wide tier, and the tile scan) and l2, cosine, dot")
     return err
 
 
@@ -1097,6 +1565,14 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
                 # the tile scan on the same call, for the two designs side
                 # by side
                 qp = kb._pad_queries(q, None)
+                tv, ti = kb._launch_block_tile(v, nrm, ok, qp, k=k,
+                                               similarity="l2_norm")
+                pv, pi = kb.plain_block_topk(v, nrm, ok, qp, k=k,
+                                             similarity="l2_norm")
+                if not (torch.equal(ti, pi) and torch.equal(tv, pv)):
+                    raise AssertionError(f"knn_block SIFT-1M shape B={b}: "
+                                         f"the tile scan differs from "
+                                         f"plain_block_topk")
                 tile = time_ms(lambda: kb._launch_block_tile(
                     v, nrm, ok, qp, k=k, similarity="l2_norm"), 10)
                 out[name][b]["tile_ms"] = tile
@@ -1194,6 +1670,8 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         list_launches = kf.list_launches.count
         searches = distributed_serving.stats["distributed_searches"] - searches0
         per_shard = per_shard_exact_phase(node, kf, *truths["sift_a"])
+        wide = wide_main_phase(node, kf, corpora["sift_a"][0],
+                               truths["sift_a"][0], step_inputs["sift_a"])
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
     # each index's shape, beside the whole search's latency above: CUDA-event
@@ -1231,7 +1709,127 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         f"all {list_launches} on K1's list scan (knn_pool.cuh)")
     return {"launches": launches, "list_launches": list_launches,
             "latency_s": out, "step_ms": step_ms,
-            "step_device": step_device, "per_shard": per_shard}
+            "step_device": step_device, "per_shard": per_shard,
+            "wide": wide}
+
+
+def wide_main_phase(node, kf, data: np.ndarray, queries: np.ndarray,
+                    step_input: tuple) -> dict:
+    """Index A at k = 100 on both serving routes, K1 on its wide tier:
+    64 searches through the stacked step (k = 100, size = 100: r = 100,
+    B = 1), then on the per-shard route (distributed_serving.enabled off)
+    32 searches at k = 100 (k_bucket 128: r = 128) and 8 threads x 8
+    searches through the batcher (concurrent_phase, gated and
+    free-running, size = 100). Every hit list must equal the brute-force
+    top-100 in order, summed in the kernel's order (kernel_order_pool:
+    plain_pool's cuBLAS order ranks some neighbours the other way at this
+    depth, each such slot logged with its f64 scores), the concurrent ones
+    their solo ones, and every K1
+    launch of these searches must be on the wide tier: the counts are set
+    to 0 just before each path and read just after. Logs p50, p99 and QPS,
+    and the step's device ms by kernel name beside the tile scan's on the
+    same operands (its pools first held to kernel_order_pool, tile_check)."""
+    from opensearch_tpu_torch.search import distributed_serving, executor
+
+    k = 100
+    v, nrm, ok, _q = step_input
+    q = torch.from_numpy(queries).to(v.device)
+    # |q|^2 as the serving step computes it, one query at a time
+    qsq = torch.cat([(q[i:i + 1] * q[i:i + 1]).sum(1)
+                     for i in range(q.shape[0])])
+    tv, ti = kernel_order_pool(kf, v, nrm, ok, q, qsq, k, "l2_norm")
+    truth = [[str(int(i)) for i in row] for row in ti[0].cpu()]
+    # where cuBLAS's summation order (plain_pool) ranks neighbours the
+    # other way: logged with both docs' f64 scores, not gated
+    _pv, pi = kf.plain_pool(v, nrm, ok, q, qsq, torch.ones(1, device=v.device),
+                            r=k, similarity="l2_norm", score_precision="fp32")
+    gaps = []
+    for s, b, j in (ti != pi).nonzero().tolist():
+        a, c = exact_scores(kf, v, nrm, q, qsq, "l2_norm", s, b,
+                            [int(ti[s, b, j]), int(pi[s, b, j])])
+        gaps.append(abs(a - c) / max(abs(a), abs(c)))
+    log(f"[sift_a] k={k}: the kernel-order top-{k} differs from plain_pool's "
+        f"at {len(gaps)} of {ti.numel()} slots, f64 relative gaps up to "
+        f"{max(gaps, default=0.0):.3g}")
+    del data, tv
+
+    def run(n: int, what: str) -> dict:
+        lat = []
+        for i, qv in enumerate(queries[:n]):
+            t0 = time.perf_counter()
+            resp = node.search("sift_a", {"query": {"knn": {"v": {
+                "vector": qv.tolist(), "k": k}}}, "size": k})
+            lat.append(time.perf_counter() - t0)
+            hits = [h["_id"] for h in resp["hits"]["hits"]]
+            if hits != truth[i]:
+                raise AssertionError(f"[sift_a] {what} k={k} query {i}: "
+                                     f"hits differ from the brute-force "
+                                     f"top-{k}")
+        return latency_summary(lat)
+
+    def counts() -> dict:
+        return {"knn_fused": kf.launches.count,
+                "knn_fused_wide": kf.wide_launches.count}
+
+    out = {}
+    searches0 = distributed_serving.stats["distributed_searches"]
+    kf.launches.reset()
+    kf.wide_launches.reset()
+    out["stacked"] = run(64, "stacked")
+    out["stacked"]["launches"] = counts()
+    served = distributed_serving.stats["distributed_searches"] - searches0
+    if served != 64 or out["stacked"]["launches"]["knn_fused"] < 64:
+        raise AssertionError(f"[sift_a] k={k}: {served} of 64 searches on "
+                             f"the stacked step, launches "
+                             f"{out['stacked']['launches']}")
+    distributed_serving.enabled = False
+    try:
+        fused0 = executor.knn_path_stats["fused"]
+        kf.launches.reset()
+        kf.wide_launches.reset()
+        out["per_shard"] = run(32, "per-shard")
+        out["per_shard"]["launches"] = counts()
+        if executor.knn_path_stats["fused"] - fused0 != 32:
+            raise AssertionError(f"[sift_a] per-shard k={k}: not every "
+                                 f"search took the fused kernel")
+        out["concurrent"] = concurrent_phase(
+            node, "sift_a", queries, k,
+            {"knn_fused": kf.launches, "knn_fused_wide": kf.wide_launches},
+            size=k)
+    finally:
+        distributed_serving.enabled = True
+    for what, run_counts in (
+            ("stacked", out["stacked"]["launches"]),
+            ("per-shard", out["per_shard"]["launches"]),
+            ("concurrent gated", out["concurrent"]["gated"]["launches"]),
+            ("concurrent", out["concurrent"]["launches"])):
+        if run_counts["knn_fused_wide"] != run_counts["knn_fused"]:
+            raise AssertionError(f"[sift_a] {what} k={k}: K1 launches not "
+                                 f"all on the wide tier: {run_counts}")
+    # the stacked step at k = 100 on the device, by kernel name
+    qs = q[:1]
+    args, r = scan_inputs(kf, v, nrm, ok, qs, k, "fp32")
+    tile_check(kf, args, r, f"[sift_a] step k={k}")
+    step = functools.partial(kf.knn_fused_stacked, v, nrm, ok, qs, k=k,
+                             similarity="l2_norm")
+    prof = device_profile(step, 10)
+    tile_prof = device_profile(functools.partial(
+        kf._launch_tile, *args, r=r, similarity="l2_norm",
+        score_precision="fp32"), 10)
+    out["step_ms"] = {"window_20": time_ms(step, 20),
+                      "window_200": time_ms(step, 200)}
+    out["step_device"] = {
+        "device_ms": prof and prof["device_ms"],
+        "scan_device_ms": kernel_ms(prof, WIDE_KERNELS[0]),
+        "merge_device_ms": kernel_ms(prof, WIDE_KERNELS[1]),
+        "tile_device_ms": tile_prof and tile_prof["device_ms"],
+        "tile_scan_device_ms": kernel_ms(tile_prof, TILE_KERNELS[0]),
+        "tile_merge_device_ms": kernel_ms(tile_prof, TILE_KERNELS[1])}
+    log(f"[sift_a] k={k}: stacked {out['stacked']}, per-shard "
+        f"{out['per_shard']}: every hit list the brute-force top-{k} in "
+        f"order, every K1 launch on the wide tier; step {out['step_ms']} ms, "
+        f"device {out['step_device']}")
+    return out
 
 
 def latency_summary(lat_s: list, wall_s: float | None = None) -> dict:
@@ -1244,10 +1842,10 @@ def latency_summary(lat_s: list, wall_s: float | None = None) -> dict:
 
 
 def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
-                     counters: dict) -> dict:
+                     counters: dict, size: int = 10) -> dict:
     """The 64 queries one after another, then the same 64 from 8 threads of
-    8 searches each, three times. Every concurrent hit list must equal its
-    solo one: ids in order, scores to K1's rtol 1e-5 / atol 2e-3, because a
+    8 searches each, three times, each returning `size` hits. Every
+    concurrent hit list must equal its solo one: ids in order, scores to K1's rtol 1e-5 / atol 2e-3, because a
     batch of B queries goes through PyTorch products (the IVF-PQ LUTs, the
     exact rescore) whose f32 sums the library may order by B, and for a
     near neighbour l2's |q|^2 - 2 q.v + |v|^2 cancels near |q|^2 ~ 2,000.
@@ -1265,7 +1863,7 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
        concurrent numbers from the threads'."""
     def search(qv) -> list:
         resp = node.search(name, {"query": {"knn": {"v": {
-            "vector": qv.tolist(), "k": k}}}, "size": 10})
+            "vector": qv.tolist(), "k": k}}}, "size": size})
         return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
 
     n = len(queries)
@@ -1930,6 +2528,9 @@ def main() -> int:
     designs = {"lists": "opensearch_tpu_torch/csrc/knn_pool.cuh: the list "
                         "scan (kernels knn_pool_scan_kernel, "
                         "knn_pool_merge_kernel), fp32 with r <= 32",
+               "wide": "opensearch_tpu_torch/csrc/knn_wide.cuh: the list "
+                       "scan's wide tier (kernels knn_wide_scan_kernel, "
+                       "knn_wide_merge_kernel), fp32 with 32 < r <= 1024",
                "tile": "opensearch_tpu_torch/csrc/knn_tile.cuh: the tile "
                        "scan (knn_scan_kernel, knn_merge_kernel), every "
                        "other (precision, r)"}
@@ -1966,21 +2567,27 @@ def main() -> int:
     }
     family["knn_block"]["designs"] = {
         "lists": designs["lists"].replace("r <= 32", "k <= 32"),
-        "tile": designs["tile"].replace("every other (precision, r)",
-                                        "32 < k <= 1024")}
+        "wide": designs["wide"].replace("32 < r", "32 < k")}
     if "kernel" in phases:
         t0 = time.perf_counter()
         if "knn_fused" in chosen:
             entry["max_abs_err"] = max(kernel_phase(kf, dev, args.seed),
                                        lists_kernel_phase(kf, dev, args.seed))
             entry["parity"] = "ok"
+        if chosen & {"knn_fused", "knn_block"}:
+            wide_err = wide_kernel_phase(kf, kb, dev, args.seed,
+                                         "knn_fused" in chosen,
+                                         "knn_block" in chosen)
+            if "knn_fused" in chosen:
+                entry["max_abs_err"] = max(entry["max_abs_err"], wide_err)
         if "adc_scan" in chosen:
             entry2["max_abs_err"] = adc_kernel_phase(ads, ivfpq, dev,
                                                      args.seed)
             entry2["parity"] = "ok"
         errs = {}
         if "knn_block" in chosen:
-            errs["knn_block"] = blocks_kernel_phase(kb, dev, args.seed)
+            errs["knn_block"] = max(blocks_kernel_phase(kb, dev, args.seed),
+                                    wide_err)
         if "knn_pb" in chosen:
             errs["knn_pb"] = pb_kernel_phase(kb, dev, args.seed)
         if "knn_sbmax" in chosen:
@@ -2011,6 +2618,14 @@ def main() -> int:
                 f"cell_c n={ANN_MAIN_DOCS} l_pad={cell_c['l_pad']} B={b}": {
                     key: cell_c[b][key] for key in (*fields, *stages)}
                 for b in (1, 8)}
+        if chosen & {"knn_fused", "knn_block"}:
+            wide = wide_timing_phase(kf, kb, dev, args.seed,
+                                     "knn_fused" in chosen,
+                                     "knn_block" in chosen)
+            entry["wide_shapes"] = {key: t for key, t in wide.items()
+                                    if key.startswith("K1")}
+            family["knn_block"]["wide_shapes"] = {
+                key: t for key, t in wide.items() if key.startswith("K3")}
         t3 = blocks_timing_phase(kb, dev, args.seed, family_names) \
             if family_names else {}
         for name, t3n in t3.items():
@@ -2033,6 +2648,14 @@ def main() -> int:
         entry["list_launches"] = main["list_launches"]
         entry["main_path_step_ms"] = main["step_ms"]
         entry["main_path_step_device"] = main["step_device"]
+        # index A at k = 100: the stacked step and the per-shard route, each
+        # path's K1 launches counted from 0 (all on the wide tier)
+        entry["wide_main_path"] = main["wide"]
+        entry["wide_launches"] = {
+            path: main["wide"][path]["launches"]["knn_fused_wide"]
+            for path in ("stacked", "per_shard")}
+        entry["wide_launches"]["concurrent"] = \
+            main["wide"]["concurrent"]["launches"]["knn_fused_wide"]
         ann = ann_main_phase(ads, ivfpq, kf, dev, args.seed)
         entry2["launches"] = ann["launches"]
         entry2["main_path"] = {key: ann[key] for key in

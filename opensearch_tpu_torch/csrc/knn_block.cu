@@ -24,14 +24,17 @@
 // padding of n to a 1024-doc block is arithmetic only, pad rows being dead.
 //
 // Two designs, chosen by k in the wrapper (ops/knn_blocks.block_tier),
-// never on failure: at k <= 32 the list scan of knn_pool.cuh
-// (knn_block_lists_launch: K4's cp.async ring and 4 x 8 FFMA micro-tiles,
-// per-warp lists carried across each CTA's contiguous doc range, a
-// CTA-per-query split merge), the same scan as K1's at fp32 r <= 32; at
-// 32 < k <= 1024 the tile scan above (knn_block_launch), which uses no
-// cp.async pipelining, wgmma or TMA.
+// never on failure, each the same scan as K1's at fp32 r = k: at k <= 32
+// the list scan of knn_pool.cuh (knn_block_lists_launch: K4's cp.async
+// ring and 4 x 8 FFMA micro-tiles, per-warp lists carried across each
+// CTA's contiguous doc range, a CTA-per-query split merge); at
+// 32 < k <= 1024 the wide tier of knn_wide.cuh (knn_block_wide_launch: the
+// same scan at a query tile of 8, a CTA-wide pool of k per query fed
+// through a candidate buffer and a radix select, a select-then-sort split
+// merge). The tile scan above (knn_block_launch) is no longer chosen: it
+// stays as the yardstick the wide tier is timed against.
 
-#include "knn_pool.cuh"
+#include "knn_wide.cuh"
 
 extern "C" {
 
@@ -76,6 +79,32 @@ int knn_block_lists_launch(const void* v, const void* nsq, const void* valid,
       static_cast<float*>(part_v), static_cast<int*>(part_i),
       static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, k,
       sim, qt, stages, chunk, n_split);
+}
+
+// bytes of dynamic shared memory the wide tier's scan needs at plan
+// (stages, stage_floats, cap) for rows = min(8, B) queries; 0 for a ring
+// with no kernel
+size_t knn_block_wide_smem_bytes(int stages, int stage_floats, int d, int k,
+                                 int rows, int cap) {
+  return wide::wide_smem_bytes(stages, stage_floats, d, k, rows, cap);
+}
+
+// The wide tier's scan + merge (k <= 1024, d % 4 == 0, 16-byte aligned
+// rows) on `stream`: (vals, ids) [S, B, k], S = 1 from the wrapper.
+// Returns the first cudaError_t met.
+int knn_block_wide_launch(const void* v, const void* nsq, const void* valid,
+                          const void* q, const void* qsq, void* part_v,
+                          void* part_i, void* out_v, void* out_i, int S,
+                          int n, int d, int B, int k, int sim, int stages,
+                          int stage_floats, int cap, int chunk, int n_split,
+                          void* stream) {
+  return (int)wide::launch_wide_pool(
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(v),
+      static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid),
+      static_cast<const float*>(q), static_cast<const float*>(qsq),
+      static_cast<float*>(part_v), static_cast<int*>(part_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, k,
+      sim, stages, stage_floats, cap, chunk, n_split);
 }
 
 }  // extern "C"

@@ -39,18 +39,23 @@
 // The scan and merge kernels live in knn_tile.cuh, which K3 (knn_block.cu)
 // instantiates at fp32.
 //
-// Two designs, chosen by (precision, r) in the wrapper
+// Three designs, chosen by (precision, r) in the wrapper
 // (ops/knn_fused.scan_tier), never on failure:
 //  - fp32 with r <= 32 (every fp32 serving search at k <= 32): the list
 //    scan of knn_pool.cuh (knn_fused_lists_launch): K4's cp.async ring and
 //    4 x 8 FFMA micro-tiles, query tiles of 8 / 32 / 128, per-warp sorted
 //    lists carried across each CTA's contiguous doc range behind a
 //    pre-transform filter, then a CTA-per-query split merge;
+//  - fp32 with 32 < r <= 1024 (k = 33-1024 on both serving routes): the
+//    wide tier of knn_wide.cuh (knn_fused_wide_launch): the same scan at a
+//    query tile of 8, a CTA-wide pool of r per query fed through a
+//    candidate buffer and a radix select, then a select-then-sort split
+//    merge;
 //  - everything else (bf16 and int8, whose R is at least 32, and fp32 at
-//    32 < r <= 4096): the tile scan above (knn_fused_launch), which uses no
-//    cp.async pipelining, wgmma or TMA.
+//    1024 < r <= 4096): the tile scan above (knn_fused_launch), which uses
+//    no cp.async pipelining, wgmma or TMA.
 
-#include "knn_pool.cuh"
+#include "knn_wide.cuh"
 
 extern "C" {
 
@@ -111,6 +116,31 @@ int knn_fused_lists_launch(const void* v, const void* nsq, const void* valid,
       static_cast<float*>(part_v), static_cast<int*>(part_i),
       static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, r,
       sim, qt, stages, chunk, n_split);
+}
+
+// bytes of dynamic shared memory the wide tier's scan needs at plan
+// (stages, stage_floats, cap) for rows = min(8, B) queries; 0 for a ring
+// with no kernel
+size_t knn_fused_wide_smem_bytes(int stages, int stage_floats, int d, int r,
+                                 int rows, int cap) {
+  return wide::wide_smem_bytes(stages, stage_floats, d, r, rows, cap);
+}
+
+// The wide tier's scan + merge (fp32, r <= 1024, d % 4 == 0, 16-byte
+// aligned rows) on `stream`. Returns the first cudaError_t met.
+int knn_fused_wide_launch(const void* v, const void* nsq, const void* valid,
+                          const void* q, const void* qsq, void* part_v,
+                          void* part_i, void* out_v, void* out_i, int S,
+                          int n, int d, int B, int r, int sim, int stages,
+                          int stage_floats, int cap, int chunk, int n_split,
+                          void* stream) {
+  return (int)wide::launch_wide_pool(
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(v),
+      static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid),
+      static_cast<const float*>(q), static_cast<const float*>(qsq),
+      static_cast<float*>(part_v), static_cast<int*>(part_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, r,
+      sim, stages, stage_floats, cap, chunk, n_split);
 }
 
 }  // extern "C"

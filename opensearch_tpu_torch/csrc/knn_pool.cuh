@@ -16,7 +16,8 @@
 // operations above.
 //
 // Design (the ring and the micro-tile are K4's stage 1, knn_pb.cu, copied
-// here so that file stays as it is):
+// here so that file stays as it is; fetch_tile, lane_rows and micro_tile
+// serve knn_wide.cuh's scan too):
 // - Query tile QT in {8, 32, 128}, chosen by the wrapper from B (8 is the
 //   serving case: the stacked step runs at B = 1 and the batcher merges up
 //   to 8). Each thread holds a 4-doc x 8-query register micro-tile; a warp
@@ -75,28 +76,34 @@ __host__ __device__ constexpr int subs_per_step(int qt) {
   return scan_threads(qt) / 32 / (qt / 8);
 }
 
-template <int QT, int STAGES>
-struct Tile {
-  static constexpr int kThreads = scan_threads(QT);
-  static constexpr int kWarps = kThreads / 32;
+// The ring of both range scans (this one and knn_wide.cuh's): STAGES
+// stages of STAGE_FLOATS floats, each SD docs (one step) times a d chunk of
+// kDC floats, rows XOR-swizzled in 16-byte units.
+template <int SD, int STAGES, int STAGE_FLOATS>
+struct Ring {
+  static constexpr int kSD = SD;                     // docs a step
   static constexpr int kStages = STAGES;
-  static constexpr int kStageFloats = stage_floats(QT);
-  static constexpr int kSPS = subs_per_step(QT);
-  static constexpr int kSD = kSPS * kSub;            // docs a step
+  static constexpr int kStageFloats = STAGE_FLOATS;
   static constexpr int kDC = kStageFloats / kSD;     // d chunk (floats)
   static constexpr int kU = kDC / 4;                 // 16-byte units a row
   static constexpr int kRPL = kU >= 8 ? 1 : 8 / kU;  // rows a 128-byte line
   static constexpr int kSwz = (kU >= 8 ? 8 : kU) - 1;
-  static_assert(kSPS >= 1 && kSPS * (QT / 8) == kWarps,
-                "the warps split the step's (sub-block, group) pairs");
   static_assert(kDC % 4 == 0 && (kU & (kU - 1)) == 0,
                 "a row chunk is a power of two of 16-byte units");
+  __device__ __forceinline__ static int swizzle(int row) {
+    return (row / kRPL) & kSwz;
+  }
 };
 
 template <int QT, int STAGES>
-__device__ __forceinline__ int swizzle(int row) {
-  return (row / Tile<QT, STAGES>::kRPL) & Tile<QT, STAGES>::kSwz;
-}
+struct Tile
+    : Ring<subs_per_step(QT) * kSub, STAGES, stage_floats(QT)> {
+  static constexpr int kThreads = scan_threads(QT);
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kSPS = subs_per_step(QT);
+  static_assert(kSPS >= 1 && kSPS * (QT / 8) == kWarps,
+                "the warps split the step's (sub-block, group) pairs");
+};
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
@@ -112,6 +119,69 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ------------------------------------------- the ring and the micro-tile
+
+// Copy docs [doc0, doc0 + kSD) x floats [col0, col0 + kDC) of the [*, d]
+// rows vs into the ring stage st, one 16-byte cp.async a unit, by the NT
+// threads of the CTA; rows past end and columns past d are zero-filled.
+template <class R, int NT>
+__device__ __forceinline__ void fetch_tile(float* st, const float* vs,
+                                           int doc0, int col0, int end, int d,
+                                           int tid) {
+  for (int e = tid; e < R::kSD * R::kU; e += NT) {
+    const int row = e / R::kU, u = e - row * R::kU;
+    const int doc = doc0 + row, col = col0 + u * 4;
+    const bool in = doc < end && col < d;
+    cp_async16(st + row * R::kDC + ((u ^ R::swizzle(row)) << 2),
+               in ? vs + (size_t)doc * d + col : vs, in ? 16 : 0);
+  }
+}
+
+// A lane's four rows of the 128-doc sub-block at row0 of a stage: their
+// offsets and swizzles.
+template <class R>
+__device__ __forceinline__ void lane_rows(int row0, int lane, int (&roff)[4],
+                                          int (&rsw)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + lane + 32 * i;
+    roff[i] = row * R::kDC;
+    rsw[i] = R::swizzle(row);
+  }
+}
+
+// The 4-doc x 8-query micro-tile over one stage's d chunk: acc[i][u] +=
+// the chunk's products of row i and query u (the queries at qg, dp floats
+// apart), in ascending order, one __fmaf_rn each.
+template <class R>
+__device__ __forceinline__ void micro_tile(float (&acc)[4][8],
+                                           const float* st,
+                                           const int (&roff)[4],
+                                           const int (&rsw)[4],
+                                           const float* qg, int dp) {
+#pragma unroll 4
+  for (int kk = 0; kk < R::kU; ++kk) {
+    float4 x[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      x[i] = *reinterpret_cast<const float4*>(st + roff[i] +
+                                              ((kk ^ rsw[i]) << 2));
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const float4 y = *reinterpret_cast<const float4*>(qg + u * dp + kk * 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float a = acc[i][u];
+        a = __fmaf_rn(x[i].x, y.x, a);
+        a = __fmaf_rn(x[i].y, y.y, a);
+        a = __fmaf_rn(x[i].z, y.z, a);
+        a = __fmaf_rn(x[i].w, y.w, a);
+        acc[i][u] = a;
+      }
+    }
+  }
 }
 
 // ------------------------------------------------------ list helpers
@@ -395,14 +465,8 @@ __global__ void __launch_bounds__(scan_threads(QT), 1) knn_pool_scan_kernel(
   int in_c = 0, in_doc = start;
   auto fetch = [&](int t) {
     if (t < n_tiles) {
-      float* st = ring + (t % STAGES) * kStageFloats;
-      for (int e = tid; e < T::kSD * T::kU; e += kThreads) {
-        const int row = e / T::kU, u = e - row * T::kU;
-        const int doc = in_doc + row, col = in_c * T::kDC + u * 4;
-        const bool in = doc < end && col < d;
-        cp_async16(st + row * T::kDC + ((u ^ swizzle<QT, STAGES>(row)) << 2),
-                   in ? vs + (size_t)doc * d + col : vs, in ? 16 : 0);
-      }
+      fetch_tile<T, kThreads>(ring + (t % STAGES) * kStageFloats, vs, in_doc,
+                              in_c * T::kDC, end, d, tid);
       if (++in_c == NC) {
         in_c = 0;
         in_doc += T::kSD;
@@ -412,12 +476,7 @@ __global__ void __launch_bounds__(scan_threads(QT), 1) knn_pool_scan_kernel(
   };
 
   int roff[4], rsw[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = sb * kSub + lane + 32 * i;
-    roff[i] = row * T::kDC;
-    rsw[i] = swizzle<QT, STAGES>(row);
-  }
+  lane_rows<T>(sb * kSub, lane, roff, rsw);
   // the warp's 8 queries: rows past B leave it idle
   const int gq = g * 8;
   const bool live = gq < qb;
@@ -451,30 +510,7 @@ __global__ void __launch_bounds__(scan_threads(QT), 1) knn_pool_scan_kernel(
 
     const float* st = ring + (t % STAGES) * kStageFloats;
     const float* qg = qs + gq * dp + c * T::kDC;
-    if (busy) {
-#pragma unroll 4
-      for (int kk = 0; kk < T::kU; ++kk) {
-        float4 x[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          x[i] = *reinterpret_cast<const float4*>(st + roff[i] +
-                                                  ((kk ^ rsw[i]) << 2));
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const float4 y =
-              *reinterpret_cast<const float4*>(qg + u * dp + kk * 4);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            float a = acc[i][u];
-            a = __fmaf_rn(x[i].x, y.x, a);
-            a = __fmaf_rn(x[i].y, y.y, a);
-            a = __fmaf_rn(x[i].z, y.z, a);
-            a = __fmaf_rn(x[i].w, y.w, a);
-            acc[i][u] = a;
-          }
-        }
-      }
-    }
+    if (busy) micro_tile<T>(acc, st, roff, rsw, qg, dp);
     if (++c < NC) continue;
     c = 0;
     const int this_step = step++;

@@ -3,10 +3,10 @@ their kernels for Hopper, their plain versions and their entry points.
 
 Counterpart of opensearch_tpu/ops/pallas_knn.py:49-567:
 
-  K3  ``knn_topk_auto``      running top-k scan (csrc/knn_block.cu: the
-                             list scan of csrc/knn_pool.cuh at k <= 32,
-                             K1's, and the tile scan above, two kernels
-                             a call either way);
+  K3  ``knn_topk_auto``      running top-k scan (csrc/knn_block.cu: K1's
+                             list scan, csrc/knn_pool.cuh, at k <= 32,
+                             and its wide tier, csrc/knn_wide.cuh,
+                             above, two kernels a call either way);
   K4  ``knn_blocktopk_auto`` top-k of every 2048-doc block, then a stable
                              block-major merge: two kernels (csrc/knn_pb.cu,
                              stage 1 ``pb_topk`` and stage 2 ``pb_select``);
@@ -19,9 +19,9 @@ Each returns (scores [B, k] f32, ids [B, k] int32), best first under
 (score desc, doc id asc), with (-inf, -1) past the valid-doc count. The
 entry points keep the reference's padding arithmetic: n rounds up to the
 kernel's block (``BLOCK`` or ``PB_BLOCK``) and B to a multiple of 8 (of
-``PB_QTILE`` above it). Pad queries are zero rows, sliced off (K3's list
-scan takes the caller's rows unpadded, K4's kernels select and write only
-the caller's rows); pad docs are dead, so
+``PB_QTILE`` above it). Pad queries are zero rows, sliced off (K3's kernels
+take the caller's rows unpadded, K4's kernels select and write only the
+caller's rows); pad docs are dead, so
 the kernels take the unpadded slab and score rows past n as -inf instead
 of copying it.
 
@@ -31,7 +31,7 @@ the plain version in this module (``plain_block_topk``, ``plain_pb_topk``,
 stated limit raises ValueError on either device. K4's merge and K5's
 selection and rescore are each a second kernel on CUDA.
 
-K3's list scan, K4 and K5 read rows in 16-byte units (cp.async, float4):
+K3, K4 and K5 read rows in 16-byte units (cp.async, float4):
 on CUDA :func:`rows_in_16_bytes` pads d to a multiple of 4 and copies an
 unaligned operand first.
 
@@ -56,6 +56,7 @@ from opensearch_tpu_torch.ops.knn_fused import (
     _launch_geometry,
     _transform_scores,
     launch_lists,
+    launch_wide,
     rows_in_16_bytes,
 )
 from opensearch_tpu_torch.ops.knn_fused import QUERY_TILES as SBMAX_QTILES
@@ -71,15 +72,16 @@ SBMAX_SELECT_SMEM = 200_000  # K5 stage 2 keeps its row of maxima and its
 PB_LIST_K = 32     # K4 stage 1 keeps per-warp lists up to this k
 PB_MERGE_SMEM = 200_000  # K4 stage 2 stages a query's nb * k candidates in
                          # shared memory up to here
-BLOCK_MAX_K = 1024  # K3: the per-query pools of a 16-query CTA in shared memory
+BLOCK_MAX_K = 1024  # K3: the wide tier's largest pool (WIDE_MAX_R)
 PB_MAX_K = PB_BLOCK  # K4: a block holds no more than PB_BLOCK docs
 
 _NEG_INF = float("-inf")
 
 # launches of each kernel, counted where its wrapper launches it (K3:
-# either design, and the list scan alone)
+# either design, and the list scan and its wide tier alone)
 block_launches = cuda_lib.LaunchCounter()
 block_list_launches = cuda_lib.LaunchCounter()
+block_wide_launches = cuda_lib.LaunchCounter()
 pb_launches = cuda_lib.LaunchCounter()            # K4 stage 1
 pb_merge_launches = cuda_lib.LaunchCounter()      # K4 stage 2
 sbmax_launches = cuda_lib.LaunchCounter()         # K5 stage 1
@@ -189,14 +191,15 @@ def plain_block_topk(vectors, norms_sq, valid, queries, *, k: int,
 
 
 def block_tier(k: int) -> str:
-    """K3's kernel design: "lists" (the list scan of csrc/knn_pool.cuh, as
-    K1's at fp32) at k <= LIST_MAX_R, else "tile" (the tile scan). A choice
-    by shape alone."""
-    return "lists" if k <= LIST_MAX_R else "tile"
+    """K3's kernel design, K1's at fp32 r = k: "lists" (the list scan of
+    csrc/knn_pool.cuh) at k <= LIST_MAX_R, else "wide" (its wide tier,
+    csrc/knn_wide.cuh, up to BLOCK_MAX_K). A choice by shape alone."""
+    return "lists" if k <= LIST_MAX_R else "wide"
 
 
 def _block_library() -> ctypes.CDLL:
-    """csrc/knn_block.cu's library: K3's tile scan and list scan."""
+    """csrc/knn_block.cu's library: K3's tile scan, list scan and wide
+    tier."""
     return _library("knn_block", {
         "knn_block_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 2),
         "knn_block_launch": (ctypes.c_int, [ctypes.c_void_p] * 9
@@ -204,29 +207,38 @@ def _block_library() -> ctypes.CDLL:
         "knn_block_lists_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 4),
         "knn_block_lists_launch": (ctypes.c_int, [ctypes.c_void_p] * 9
                                    + [ctypes.c_int] * 10 + [ctypes.c_void_p]),
+        "knn_block_wide_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 6),
+        "knn_block_wide_launch": (ctypes.c_int, [ctypes.c_void_p] * 9
+                                  + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
     })
 
 
 def _launch_block(vectors, norms_sq, valid, queries, *, k: int,
                   similarity: str):
     """Launch the design :func:`block_tier` picks."""
-    if block_tier(k) == "tile":
-        return _launch_block_tile(vectors, norms_sq, valid, queries, k=k,
-                                  similarity=similarity)
     lib = _block_library()
     qsq = (queries * queries).sum(dim=1)
-    vals, ids = launch_lists(lib.knn_block_lists_launch,
-                             lib.knn_block_lists_smem_bytes, vectors[None],
-                             norms_sq[None], valid[None], queries, qsq, r=k,
-                             similarity=similarity)
+    if block_tier(k) == "lists":
+        vals, ids = launch_lists(lib.knn_block_lists_launch,
+                                 lib.knn_block_lists_smem_bytes,
+                                 vectors[None], norms_sq[None], valid[None],
+                                 queries, qsq, r=k, similarity=similarity)
+        block_list_launches.add()
+    else:
+        vals, ids = launch_wide(lib.knn_block_wide_launch,
+                                lib.knn_block_wide_smem_bytes, vectors[None],
+                                norms_sq[None], valid[None], queries, qsq,
+                                r=k, similarity=similarity)
+        block_wide_launches.add()
     block_launches.add()
-    block_list_launches.add()
     return vals[0], ids[0]
 
 
 def _launch_block_tile(vectors, norms_sq, valid, queries, *, k: int,
                        similarity: str):
-    """Launch K3's tile scan (csrc/knn_tile.cuh), at any k <= 1024."""
+    """Launch K3's tile scan (csrc/knn_tile.cuh), at any k <= 1024: no
+    longer chosen by :func:`block_tier`, it is the yardstick the wide tier
+    is timed against. Counted on ``block_launches``."""
     lib = _block_library()
     n, d = vectors.shape
     B = queries.shape[0]
@@ -255,7 +267,7 @@ def _launch_block_tile(vectors, norms_sq, valid, queries, *, k: int,
 def block_topk(vectors, norms_sq, valid, queries, *, k: int,
                similarity: str = "l2_norm"):
     """K3 over the batch: the kernel for CUDA tensors (the list scan at
-    k <= 32, the tile scan above: :func:`block_tier`), the plain version
+    k <= 32, its wide tier above: :func:`block_tier`), the plain version
     for CPU tensors."""
     if vectors.device.type == "cuda":
         return _launch_block(vectors, norms_sq, valid, queries, k=k,
@@ -272,9 +284,9 @@ def knn_topk_auto(vectors, norms_sq, valid, queries, *, k: int,
     if similarity not in _SIM_CODE:
         raise ValueError(f"unknown similarity [{similarity}]")
     B = queries.shape[0]
-    # the list scan takes the caller's rows; the tile scan and the plain
-    # version the reference's padded batch
-    if block_tier(k) == "tile" or vectors.device.type != "cuda":
+    # the kernels take the caller's rows; the plain version the reference's
+    # padded batch
+    if vectors.device.type != "cuda":
         queries = _pad_queries(queries, None)
     vals, ids = block_topk(vectors.contiguous(), norms_sq.contiguous(),
                            valid.contiguous(), queries.contiguous(), k=k,

@@ -23,13 +23,17 @@ Dispatch: :func:`pool_scan` launches the kernel for CUDA tensors (or
 raises) and runs :func:`plain_pool` for CPU tensors. The policy value
 "pallas" means the kernel, "xla" the plain version, as in the reference.
 
-The kernel has two designs, chosen by (precision, r) in :func:`scan_tier`,
-never on failure: at fp32 with r <= ``LIST_MAX_R`` the list scan
-(``csrc/knn_pool.cuh``: a cp.async ring, 4 x 8 FFMA micro-tiles, per-warp
-lists carried across each CTA's contiguous doc range, then a
-CTA-per-query split merge), counted on ``list_launches`` too; at bf16, at
-int8 and at fp32 with r > 32 the tile scan (``csrc/knn_tile.cuh``). The
-list scan reads rows in 16-byte units: :func:`rows_in_16_bytes` pads d to a
+The kernel has three designs, chosen by (precision, r) in
+:func:`scan_tier`, never on failure: at fp32 with r <= ``LIST_MAX_R`` the
+list scan (``csrc/knn_pool.cuh``: a cp.async ring, 4 x 8 FFMA micro-tiles,
+per-warp lists carried across each CTA's contiguous doc range, then a
+CTA-per-query split merge), counted on ``list_launches`` too; at fp32 with
+LIST_MAX_R < r <= ``WIDE_MAX_R`` its wide tier (``csrc/knn_wide.cuh``: the
+same scan at 8-query tiles, a CTA-wide pool of r a query fed through a
+candidate buffer and a radix select, then a select-then-sort split merge),
+counted on ``wide_launches`` too; at bf16, at int8 and at fp32 with
+r > 1024 the tile scan (``csrc/knn_tile.cuh``). The list scan and its wide
+tier read rows in 16-byte units: :func:`rows_in_16_bytes` pads d to a
 multiple of 4 and copies an unaligned operand first.
 """
 
@@ -67,11 +71,21 @@ QUERY_TILES = (8, 32, 128)
 LIST_PLANS = ((8, 3), (8, 2), (32, 3), (128, 4))
 LIST_SUB = 128
 _MAX_GRID = 65_535
+# the wide tier (csrc/knn_wide.cuh): its largest r, its query tile, its
+# rings (stages, floats a stage) in order of preference, the docs of one
+# step (the least buffer a query: no step can overflow it) and the largest
+# buffer it is given
+WIDE_MAX_R = 1024
+WIDE_QUERY_TILE = 8
+WIDE_RINGS = ((3, 16384), (2, 16384), (2, 8192))
+WIDE_STEP = 1024
+WIDE_MAX_CAP = 4096
 
-# launches of the kernel made by pool_scan (either design), and of the list
-# scan alone
+# launches of the kernel made by pool_scan (any design), and of the list
+# scan and of its wide tier alone
 launches = cuda_lib.LaunchCounter()
 list_launches = cuda_lib.LaunchCounter()
+wide_launches = cuda_lib.LaunchCounter()
 
 
 def fused_pool_width(k: int, score_precision: str) -> int:
@@ -193,9 +207,11 @@ def _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
 
 def scan_tier(score_precision: str, r: int) -> str:
     """The kernel design for a scan: "lists" (the list scan) at fp32 with
-    r <= LIST_MAX_R, else "tile" (the tile scan). A choice by shape alone."""
-    return ("lists" if score_precision == "fp32" and r <= LIST_MAX_R
-            else "tile")
+    r <= LIST_MAX_R, "wide" (its wide tier) at fp32 with r <= WIDE_MAX_R,
+    else "tile" (the tile scan). A choice by shape alone."""
+    if score_precision != "fp32" or r > WIDE_MAX_R:
+        return "tile"
+    return "lists" if r <= LIST_MAX_R else "wide"
 
 
 def query_tile(b: int) -> int:
@@ -219,6 +235,26 @@ def list_plan(b: int, d: int, r: int, smem_bytes) -> tuple[int, int]:
         raise ValueError(f"the list scan needs more than {_MAX_SMEM} bytes "
                          f"of shared memory at d={d}, r={r}")
     return max(plans, key=lambda p: (p[0], p[1]))
+
+
+def wide_plan(b: int, d: int, r: int, smem_bytes) -> tuple[int, int, int]:
+    """(ring stages, floats a stage, buffer capacity) of the wide tier for a
+    batch of b: the first ring of ``WIDE_RINGS`` beside which min(8, b)
+    queries' pools of r and buffers of at least ``WIDE_STEP`` pairs fit
+    ``smem_bytes(stages, floats, d, r, rows, cap)``, the buffer as large as
+    the rest allows, in whole 128s, up to ``WIDE_MAX_CAP``; raises
+    ValueError when none fits."""
+    rows = min(WIDE_QUERY_TILE, b)
+    for stages, floats in WIDE_RINGS:
+        base = smem_bytes(stages, floats, d, r, rows, 0)
+        if base <= 0:
+            continue
+        per = smem_bytes(stages, floats, d, r, rows, 1) - base
+        cap = min(WIDE_MAX_CAP, (_MAX_SMEM - base) // per // 128 * 128)
+        if cap >= WIDE_STEP:
+            return stages, floats, cap
+    raise ValueError(f"the wide tier needs more than {_MAX_SMEM} bytes of "
+                     f"shared memory at d={d}, r={r}")
 
 
 def list_geometry(S: int, n: int, n_qtiles: int, sms: int) -> tuple[int, int]:
@@ -282,19 +318,23 @@ def _library() -> ctypes.CDLL:
     lib.knn_fused_lists_launch.argtypes = ([ctypes.c_void_p] * 9
                                            + [ctypes.c_int] * 10
                                            + [ctypes.c_void_p])
+    lib.knn_fused_wide_smem_bytes.restype = ctypes.c_size_t
+    lib.knn_fused_wide_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.knn_fused_wide_launch.restype = ctypes.c_int
+    lib.knn_fused_wide_launch.argtypes = ([ctypes.c_void_p] * 9
+                                          + [ctypes.c_int] * 11
+                                          + [ctypes.c_void_p])
     return lib
 
 
-def launch_lists(launch, smem_bytes, v, norms_sq, valid, q, qsq, *, r: int,
-                 similarity: str):
-    """The list scan over [S, n, d] f32 shards through the C entry point
-    ``launch`` (K1's or K3's): (vals [S, B, r], ids [S, B, r]). Pads and
-    aligns the rows, plans the query tile and ring, and cuts the shards
-    into ranges of about one wave."""
-    v, q = rows_in_16_bytes(v, q)
+def _launch_ranges(launch, what: str, v, norms_sq, valid, q, qsq, *, r: int,
+                   similarity: str, qt: int, plan: tuple):
+    """One launch of a range scan (the list scan or its wide tier) on rows
+    already in 16-byte units: the shards cut into ranges of about one wave
+    for query tiles of qt, scratch and outputs allocated, and ``launch``
+    called with the plan's integers before (chunk, n_split)."""
     S, n, d = v.shape
     B = q.shape[0]
-    qt, stages = list_plan(B, d, r, smem_bytes)
     if S > _MAX_GRID or -(-B // qt) > _MAX_GRID:
         raise ValueError(f"grid too large: S={S} B={B}")
     dev = v.device
@@ -307,11 +347,37 @@ def launch_lists(launch, smem_bytes, v, norms_sq, valid, q, qsq, *, r: int,
         v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(), q.data_ptr(),
         qsq.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
         vals.data_ptr(), ids.data_ptr(), S, n, d, B, r,
-        _SIM_CODE[similarity], qt, stages, chunk, n_split,
+        _SIM_CODE[similarity], *plan, chunk, n_split,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"list scan launch failed: cudaError {err}")
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")
     return vals, ids
+
+
+def launch_lists(launch, smem_bytes, v, norms_sq, valid, q, qsq, *, r: int,
+                 similarity: str):
+    """The list scan over [S, n, d] f32 shards through the C entry point
+    ``launch`` (K1's or K3's): (vals [S, B, r], ids [S, B, r]). Pads and
+    aligns the rows, plans the query tile and ring, and cuts the shards
+    into ranges of about one wave."""
+    v, q = rows_in_16_bytes(v, q)
+    qt, stages = list_plan(q.shape[0], v.shape[2], r, smem_bytes)
+    return _launch_ranges(launch, "list scan", v, norms_sq, valid, q, qsq,
+                          r=r, similarity=similarity, qt=qt,
+                          plan=(qt, stages))
+
+
+def launch_wide(launch, smem_bytes, v, norms_sq, valid, q, qsq, *, r: int,
+                similarity: str):
+    """The wide tier over [S, n, d] f32 shards through the C entry point
+    ``launch`` (K1's or K3's): (vals [S, B, r], ids [S, B, r]). Pads and
+    aligns the rows, plans the ring and the buffer (:func:`wide_plan`), and
+    cuts the shards into ranges of about one wave for 8-query tiles."""
+    v, q = rows_in_16_bytes(v, q)
+    plan = wide_plan(q.shape[0], v.shape[2], r, smem_bytes)
+    return _launch_ranges(launch, "wide tier", v, norms_sq, valid, q, qsq,
+                          r=r, similarity=similarity, qt=WIDE_QUERY_TILE,
+                          plan=plan)
 
 
 def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
@@ -319,16 +385,24 @@ def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
     """Launch the design :func:`scan_tier` picks."""
     _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
                            similarity, score_precision)
-    if scan_tier(score_precision, r) == "tile":
+    tier = scan_tier(score_precision, r)
+    if tier == "tile":
         return _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
                             similarity=similarity,
                             score_precision=score_precision)
     lib = _library()
-    vals, ids = launch_lists(lib.knn_fused_lists_launch,
-                             lib.knn_fused_lists_smem_bytes, v_x, norms_sq,
-                             valid, q_x, qsq, r=r, similarity=similarity)
+    if tier == "lists":
+        vals, ids = launch_lists(lib.knn_fused_lists_launch,
+                                 lib.knn_fused_lists_smem_bytes, v_x,
+                                 norms_sq, valid, q_x, qsq, r=r,
+                                 similarity=similarity)
+        list_launches.add()
+    else:
+        vals, ids = launch_wide(lib.knn_fused_wide_launch,
+                                lib.knn_fused_wide_smem_bytes, v_x, norms_sq,
+                                valid, q_x, qsq, r=r, similarity=similarity)
+        wide_launches.add()
     launches.add()
-    list_launches.add()
     return vals, ids
 
 
@@ -367,9 +441,9 @@ def _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
 def pool_scan(v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
               similarity: str, score_precision: str):
     """The pool scan over stacked shards: (vals [S, B, r], ids [S, B, r]).
-    CUDA tensors launch the kernel (the list scan at fp32 with r <= 32, the
-    tile scan otherwise: :func:`scan_tier`); CPU tensors take
-    :func:`plain_pool`."""
+    CUDA tensors launch the kernel (the list scan at fp32 with r <= 32, its
+    wide tier at fp32 with r <= 1024, the tile scan otherwise:
+    :func:`scan_tier`); CPU tensors take :func:`plain_pool`."""
     if v_x.device.type == "cuda":
         return _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
                               similarity=similarity,

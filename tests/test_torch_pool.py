@@ -20,8 +20,10 @@ reference's ``_fused_xla_pool`` (opensearch_tpu/ops/pallas_knn.py) on the
 same numpy inputs.
 
 Then the wrapper's choices: the ranges cover every shard once, the design
-is chosen by (precision, r) for K1 and by k for K3, the plans fit the
-card's shared memory, and a CPU tensor never launches.
+is chosen by (precision, r) for K1 (the list scan, its wide tier at fp32
+with 32 < r <= 1024, tests/test_torch_wide.py, or the tile scan) and by k
+for K3, the plans fit the card's shared memory, and a CPU tensor never
+launches.
 """
 
 from __future__ import annotations
@@ -277,15 +279,20 @@ def test_serving_shapes_fill_the_card():
 
 @pytest.mark.parametrize("precision,r,want", [
     ("fp32", 1, "lists"), ("fp32", 10, "lists"), ("fp32", 32, "lists"),
-    ("fp32", 33, "tile"), ("fp32", 128, "tile"), ("bf16", 10, "tile"),
-    ("bf16", 40, "tile"), ("int8", 32, "tile"), ("int8", 512, "tile")])
+    ("fp32", 33, "wide"), ("fp32", 128, "wide"), ("bf16", 10, "tile"),
+    ("bf16", 40, "tile"), ("int8", 32, "tile"), ("int8", 512, "tile"),
+    ("fp32", 100, "wide"), ("fp32", 1024, "wide"), ("fp32", 1025, "tile"),
+    ("fp32", 4096, "tile"), ("bf16", 400, "tile"), ("int8", 40, "tile"),
+    ("int8", 400, "tile")])
 def test_k1_design_is_chosen_by_precision_and_r(precision, r, want):
     assert knn_fused.scan_tier(precision, r) == want
 
 
 @pytest.mark.parametrize("k,want", [(1, "lists"), (10, "lists"),
-                                    (32, "lists"), (33, "tile"),
-                                    (1024, "tile")])
+                                    (32, "lists"), (33, "wide"),
+                                    (1024, "wide"), (64, "wide"),
+                                    (100, "wide"), (128, "wide"),
+                                    (256, "wide")])
 def test_k3_design_is_chosen_by_k(k, want):
     assert knn_blocks.block_tier(k) == want
 
