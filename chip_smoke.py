@@ -6,10 +6,11 @@
 Builds the port's five CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together): K1 (csrc/knn_fused.cu, fused exact
 kNN: the list scan of csrc/knn_pool.cuh at fp32 with r <= 32, its wide
-tier, csrc/knn_wide.cuh, at fp32 with 32 < r <= 1024, the tile scan of
-csrc/knn_tile.cuh otherwise), K2 (csrc/adc_scan.cu, the IVF-PQ ADC scan)
-and the exact-scan family K3 (csrc/knn_block.cu, running top-k: the list
-scan and its wide tier), K4 (csrc/knn_pb.cu: per-block top-k, then the
+tier, csrc/knn_wide.cuh, at fp32 with 32 < r <= 1024, the wide tier's
+tensor-core scan, csrc/knn_wide_mma.cuh, at bf16 and int8 with
+r <= 1024, the tile scan of csrc/knn_tile.cuh past r = 1024), K2
+(csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family K3
+(csrc/knn_block.cu, running top-k: the list scan and its wide tier), K4 (csrc/knn_pb.cu: per-block top-k, then the
 block-major merge, two kernels) and K5 (csrc/knn_sbmax.cu: sub-block
 maxima, then the selection and rescore, two kernels). ``--kernels`` limits
 the kernel and timing phases to
@@ -19,12 +20,23 @@ Then:
 1. kernel: holds each kernel against its plain PyTorch version on the card.
    K1: fp32, bf16 and int8 x l2, cosine and dot (n = 50,000, d = 128,
    B = 16, k = 10, 3% dead docs, planted duplicate vectors), and at the
-   shapes the main path gives it. int8 pools must be bit-equal; fp32 and
-   bf16 ids equal, scores within rtol 1e-5 / atol 2e-3: the two sum the d
-   products in another order (at B = 1 PyTorch's product reduces as a
-   tree), and for a near neighbour l2's |q|^2 - 2 q.v + |v|^2 cancels, so
-   each ulp of a dot near |q|^2 ~ 2,000 (2.4e-4) reaches the score almost
-   whole. K1's list scan (lists_kernel_phase) on sixteenths, bit for bit
+   shapes the main path gives it. int8 pools must be bit-equal; fp32 ids
+   equal and bf16 ids equal but at summation ties (summation_ties: two
+   docs whose f64 scores lie within what an f32 summation of the d
+   products can move them, each logged), scores within rtol 1e-5 / atol
+   2e-3: the kernel sums the d products in another order than cuBLAS (at
+   B = 1 PyTorch's product reduces as a tree; bf16 on the tensor cores),
+   and for a near neighbour l2's |q|^2 - 2 q.v + |v|^2 cancels, so each
+   ulp of a dot near |q|^2 ~ 2,000 (2.4e-4) reaches the score almost
+   whole. K1's tensor-core tier (mma_kernel_phase) at bf16 and int8 on
+   sixteenths narrow enough (mma_sixteenths: k^2 d <= 2^18) that the
+   tensor cores' f32 sums of bf16 products are exact, bit for bit with
+   the planted ties in id order: one shard of 300,001 docs at B = 1, 5,
+   8, 9, 32, 33 and 129 x r = 32, 40, 100, 400, 512 and 1024, four shards
+   of 200,000 (one with 5 live docs), d = 30, 100 and 768, n = 90 and
+   1,000, operands off a 16-byte boundary; on clustered floats int8 still
+   bit for bit, bf16 ids equal but at summation ties. K1's list scan
+   (lists_kernel_phase) on sixteenths, bit for bit
    with its planted ties in id order: one shard of 300,001 docs at B = 1,
    5, 8, 9, 32, 33, 128 and 129 x r = 1, 10 and 32 (and 33, the wide
    tier), four shards of 200,000 (one with 5 live docs), d = 30 and 768,
@@ -46,7 +58,8 @@ Then:
    list scan and its wide tier: bit-equal at r = 1025 and 1400 on
    sixteenths (lists_kernel_phase), K3's copy at k = 100
    (blocks_kernel_phase), and before each of its timings against
-   kernel_order_pool or, on integer data, plain_block_topk.
+   kernel_order_pool (fp32), plain_pool (int8 bit for bit, bf16 but at
+   summation ties) or, on integer data, plain_block_topk.
    K2 (csrc/adc_scan.cu: stage 1 adc_scan_kernel, stage 2
    adc_merge_kernel; adc_kernel_phase): an IVF-PQ build of n = 100,000,
    d = 100 (nlist 64, m 20), P = 8, at B = 1, 8, 16, 33 and 129 x R = 1,
@@ -89,9 +102,10 @@ Then:
    the l2-transformed q @ v.T (never called by the port); bound
    max(bytes / 3.35 TB/s, 2*B*n*d / 67 TFLOP/s). Then the wide records
    (wide_timing_phase) at the SIFT-1M shape: K1 at fp32 r = 64, 100 and
-   128 at B = 1, 8, 32 and 128, at bf16 and int8 with k = 10 and 100 at
-   B = 1, 8 and 32, and K3 at k = 64, 128, 256 and 1024 at B = 1 and 32,
-   each beside the tile scan on the same call. K2 at the
+   128 at B = 1, 8, 32 and 128 (the wide tier), at bf16 and int8 with
+   k = 10 and 100 at B = 1, 8 and 32 (the tensor-core tier), and K3 at
+   k = 64, 128, 256 and 1024 at B = 1 and 32, each beside the tile scan on
+   the same call. K2 at the
    glove-100 shape (1,200,000 x 100-d, cosine, m = 20, nlist = 512,
    nprobe = 8, R = 64) at B = 1 and 32 and on cell C's index (200,000 such
    docs) at B = 1 and 8, built with the port's ivfpq.build on the card,
@@ -124,7 +138,15 @@ Then:
    size = 100 (wide_main_phase): 64 searches through the stacked step,
    32 on the per-shard route (k_bucket 128) and 8 threads x 8 through the
    batcher, every hit list the brute-force top-100 in order, every K1
-   launch of each path (counted from 0) on the wide tier.
+   launch of each path (counted from 0) on the wide tier. Then index A at
+   search.knn.score_precision bf16 and int8 (reduced_main_phase), k = 10
+   and 100: 32 searches through the stacked step, 16 on the per-shard
+   route and 8 threads x 8 through the batcher (gated only), every K1
+   launch of each path on the tensor-core tier, every solo hit list the
+   plain pipeline's on the node's own slab (bf16: but at summation ties
+   of the pool), recall@k against the fp32 brute force printed; and one
+   stacked step a precision and k split by kernel name (prep, scan,
+   merge, rescore).
    ANN (K2): index C (1 shard, 200,000 clustered 100-d docs, cosine,
    ivf_pq nlist 512, m 20, nprobe 8; cut from 1.2M by host ingest), 64 knn
    searches, k = 10; every hit list must equal the plain pipeline
@@ -151,6 +173,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -227,7 +250,9 @@ def device_profile(fn, reps: int) -> dict | None:
             us = getattr(evt, "self_device_time_total", None)
             if us is None:
                 us = evt.self_cuda_time_total
-            kernels[evt.key[:60]] = us / 1e3 / reps
+            # kernels whose names share the first 60 characters add up
+            key = evt.key[:60]
+            kernels[key] = kernels.get(key, 0.0) + us / 1e3 / reps
     except Exception as exc:  # measurement only: the checks run elsewhere
         log(f"torch.profiler gave no device times ({exc!r}): not measured")
         return None
@@ -311,7 +336,11 @@ def kernel_phase(kf, dev, seed: int) -> float:
     for prec in kf.SCORE_PRECISIONS:
         for sim in SIMS:
             args, r = scan_inputs(kf, v, nrm, ok, q, k, prec)
-            e = compare_pools(kf, args, r, sim, prec, f"{prec}/{sim}")
+            if prec == "bf16":
+                # the tensor cores sum in another order than cuBLAS
+                e = bf16_float_check(kf, args, r, sim, f"{prec}/{sim}")
+            else:
+                e = compare_pools(kf, args, r, sim, prec, f"{prec}/{sim}")
             err = max(err, e)
             log(f"kernel parity {prec}/{sim}: r={r} ok max_abs_err={e:.3g}")
         # end to end, with the exact rescore at reduced precisions
@@ -341,14 +370,16 @@ LIST_COPIES = (2303, 2304)           # a duplicate across a range edge
 LIST_RUN = tuple(range(5000, 5040))  # 40 equal vectors in one sub-block
 
 
-def lists_case(dev, rng, s: int, n: int, d: int, integer: bool = True):
+def lists_case(dev, rng, s: int, n: int, d: int, integer: bool = True,
+               grid=None):
     """Operands of K1's list scan and its wide tier: s shards of n docs of
-    width d (sixteenths, or clustered floats when not `integer`), 3% dead
-    docs, LIST_COPIES and LIST_RUN planted in every shard and live (where n
-    holds them); with four shards the last keeps 5 live docs, fewer than r.
-    Returns (shard 0's data, v, norms, valid)."""
-    data = (sixteenths if integer else clustered)(rng, s * n, d).reshape(
-        s, n, d)
+    width d (sixteenths, or `grid`'s coarser ones where given, or
+    clustered floats when not `integer`), 3% dead docs, LIST_COPIES and
+    LIST_RUN planted in every shard and live (where n holds them); with
+    four shards the last keeps 5 live docs, fewer than r. Returns (shard
+    0's data, v, norms, valid)."""
+    data = ((grid or sixteenths) if integer else clustered)(
+        rng, s * n, d).reshape(s, n, d)
     valid = rng.random((s, n)) >= 0.03
     if n > LIST_RUN[-1]:
         data[:, list(LIST_COPIES)] = data[:, LIST_COPIES[:1]]
@@ -789,6 +820,214 @@ def wide_kernel_phase(kf, kb, dev, seed: int, k1: bool, k3: bool) -> float:
     return max(err, merge_fallback_check(kf, kb, dev, rng, k1, k3))
 
 
+# the wide tier's tensor-core scan (K1 at bf16 and int8): the pool widths
+# of its parity cases, its precisions and the profiler's kernel names
+MMA_RS = (32, 40, 100, 400, 512, 1024)
+REDUCED = ("bf16", "int8")
+MMA_KERNELS = ("knn_wide_mma_scan_kernel", "knn_wide_merge_kernel")
+F32_UNIT = 2.0 ** -24
+
+
+def mma_sixteenths(rng, n: int, d: int) -> np.ndarray:
+    """sixteenths() on a range narrow enough for the tensor cores' f32
+    accumulation of bf16 products to be exact in any order and alignment:
+    coordinates k/16 with |k| <= kmax = min(63, floor(sqrt(2^18 / d))) (45
+    at d = 128, 18 at 768), each exact in bf16. Every product is then a
+    multiple of 2^-8 and every partial sum of a dot at most
+    d kmax^2 2^-8 <= 2^10 in magnitude: at most 2^18 units of that grain,
+    inside the 2^20 the check allows itself and far inside the 2^24 of an
+    f32 significand, so no alignment or rounding drops a bit and the sums
+    equal cuBLAS's (plain_pool's) bit for bit."""
+    kmax = min(63, math.isqrt((1 << 18) // d))
+    x = np.round(clustered(rng, n, d) * 4.0) / 16.0
+    return np.clip(x, -kmax / 16, kmax / 16).astype(np.float32)
+
+
+def reduced_args(kf, v, nrm, ok, q, prec: str) -> tuple:
+    """The pool scan's operands at `prec` as knn_fused_stacked preps them."""
+    v_x, q_x, scale = kf._prep_operands(v, q, prec)
+    return (v_x.contiguous(), nrm, ok, q_x.contiguous(), (q * q).sum(1),
+            scale)
+
+
+def summation_ties(kf, kv, ki, pv, pi, args, sim: str, what: str) -> list:
+    """bf16 pools on float data, where the tensor cores and cuBLAS sum each
+    dot's d exact products in f32 in two orders: scores within rtol 1e-5 /
+    atol 2e-3 slot for slot, and every slot where the kernel's id differs
+    from plain_pool's must hold a live doc of the shard, once in its row,
+    that the two orders may rank either way against plain's doc: each
+    doc's f64 score (the dot in f64, exact, through the plain transform on
+    the kernel's norms) moved by up to the error bound of one f32
+    summation, gamma_d * sum |q_i v_i| with gamma_d = d u / (1 - d u),
+    u = 2^-24, on its dot, gives an interval, and the two docs' intervals
+    overlap. Returns one record a slot: both docs, their f64 scores and
+    the relative gap."""
+    v_x, nrm, ok, q_x, qsq, _scale = args
+    fin = torch.isfinite(pv)
+    if not torch.equal(fin, torch.isfinite(kv)) or not torch.allclose(
+            kv[fin], pv[fin], rtol=1e-5, atol=2e-3):
+        raise AssertionError(f"{what}: scores beyond rtol 1e-5 / atol 2e-3")
+    d = v_x.shape[2]
+    gamma = d * F32_UNIT / (1 - d * F32_UNIT)
+    ties = []
+    for s, b, j in (ki != pi).nonzero().tolist():
+        row = ki[s, b].tolist()
+        doc, other = row[j], int(pi[s, b, j])
+        if not (0 <= doc < v_x.shape[1] and bool(ok[s, doc])) or \
+                row.count(doc) != 1 or other < 0:
+            raise AssertionError(f"{what}: slot {(s, b, j)} holds doc {doc} "
+                                 f"(plain: {other}): not a live doc once")
+        idx = torch.tensor([doc, other], device=v_x.device)
+        rows, qd = v_x[s, idx].double(), q_x[b].double()
+        dots = rows @ qd
+        slack = gamma * (rows.abs() @ qd.abs())
+        qq, nn = qsq[b].double(), nrm[s, idx].double()
+        lo = kf._transform_scores(dots - slack, qq, nn, sim).tolist()
+        hi = kf._transform_scores(dots + slack, qq, nn, sim).tolist()
+        a, c = kf._transform_scores(dots, qq, nn, sim).tolist()
+        if lo[0] > hi[1] or lo[1] > hi[0]:
+            raise AssertionError(
+                f"{what}: slot {(s, b, j)} holds doc {doc}, plain {other} "
+                f"(f64 scores {a!r} and {c!r}, further apart than f32 "
+                f"summation moves them)")
+        ties.append({"slot": [s, b, j], "kernel": [doc, a],
+                     "plain": [other, c],
+                     "gap": abs(a - c) / max(abs(a), abs(c))})
+    return ties
+
+
+def bf16_float_check(kf, args, r: int, sim: str, what: str) -> float:
+    """K1 at bf16 on float data against plain_pool: summation_ties, each
+    tie logged. Returns the max |dv| over the finite slots."""
+    kv, ki = kf.pool_scan(*args, r=r, similarity=sim, score_precision="bf16")
+    pv, pi = kf.plain_pool(*args, r=r, similarity=sim,
+                           score_precision="bf16")
+    torch.cuda.synchronize()
+    for tie in summation_ties(kf, kv, ki, pv, pi, args, sim, what):
+        log(f"{what}: summation tie at {tie['slot']}: kernel doc "
+            f"{tie['kernel'][0]} (f64 {tie['kernel'][1]!r}), plain doc "
+            f"{tie['plain'][0]} (f64 {tie['plain'][1]!r}), relative gap "
+            f"{tie['gap']:.3g}")
+    fin = torch.isfinite(pv)
+    return float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def mma_check(kf, args, r: int, sim: str, prec: str, what: str,
+              integer: bool, planted: bool) -> float:
+    """One K1 pool scan at bf16 or int8 (args: the prepped operands) against
+    plain_pool, served by the tensor-core tier alone (one launch of K1, on
+    mma_launches): int8 pools bit-equal on any data, bf16 pools bit-equal
+    on mma_sixteenths (`integer`) and on floats equal but at summation
+    ties (bf16_float_check); where `planted`, LIST_COPIES first in id
+    order for query 0 and LIST_RUN for query 1 (l2 and cosine). Returns the
+    max |dv|."""
+    counters = (kf.launches, kf.list_launches, kf.wide_launches,
+                kf.mma_launches)
+    before = [c.count for c in counters]
+    if prec == "bf16" and not integer:
+        err = bf16_float_check(kf, args, r, sim, what)
+    else:
+        err = compare_pools(kf, args, r, sim, prec, what, bits=True)
+    got = [c.count - b for c, b in zip(counters, before)]
+    if got != [1, 0, 0, 1]:
+        raise AssertionError(f"{what}: (K1, list scan, wide tier, tensor-core "
+                             f"tier) launched {got} times, want [1, 0, 0, 1]")
+    if planted and sim != "dot_product":
+        _kv, ki = kf.pool_scan(*args, r=r, similarity=sim,
+                               score_precision=prec)
+        if ki[0, 0, :2].tolist() != list(LIST_COPIES):
+            raise AssertionError(f"{what}: planted tie gave "
+                                 f"{ki[0, 0, :2].tolist()}")
+        run = min(r, len(LIST_RUN))
+        if args[3].shape[0] > 1 and \
+                ki[0, 1, :run].tolist() != list(LIST_RUN[:run]):
+            raise AssertionError(f"{what}: planted run gave "
+                                 f"{ki[0, 1, :run].tolist()}")
+    return err
+
+
+def mma_kernel_phase(kf, dev, seed: int) -> float:
+    """K1's tensor-core tier (bf16 and int8, r <= 1024) against plain_pool
+    on the card (mma_check), at both precisions. mma_sixteenths, on which
+    bf16's f32 accumulation is exact in any order (values and ids
+    bit-equal, the planted ties in id order: LIST_COPIES across a range
+    edge at B <= 8, LIST_RUN's 40 equal vectors within one sub-block): one
+    shard of n = 300,001 (a ragged tail) at B = 1, 5, 8, 9, 32, 33 and 129
+    x r = 32, 40, 100, 400, 512 and 1024 in l2, r = 40 in cosine and 400 in
+    dot; operands 4 bytes off a 16-byte boundary (copied by the wrapper);
+    four shards of 200,000 (the last with 5 live docs, fewer than r) at
+    B = 1, 8 and 33; d = 30 (bf16 rows padded to 32 elements, int8 to 32),
+    100 (104 and 112) and 768 at B = 1, 9 and 129; n = 90 (fewer docs than
+    r, one range shorter than a sub-block) and n = 1,000 (ranges of 128
+    docs, each shorter than r). Then clustered floats at B = 1, 8, 32 and
+    129 and over four shards: int8 still bit-equal, bf16 ids equal but at
+    summation ties, each logged with both docs' f64 scores. Returns the
+    max |dv|."""
+    rng = np.random.default_rng(seed + 32)
+    err = 0.0
+    all_b = (1, 5, 8, 9, 32, 33, 129)
+    cases = (
+        (1, 300_001, DIM, True, all_b,
+         tuple((r, "l2_norm") for r in MMA_RS)
+         + ((40, "cosine"), (400, "dot_product"))),
+        (4, 200_000, DIM, True, (1, 8, 33),
+         ((40, "l2_norm"), (400, "l2_norm"), (1024, "cosine"))),
+        (1, 200_000, 30, True, (1, 9, 129),
+         ((40, "l2_norm"), (1024, "cosine"))),
+        (1, 200_000, 100, True, (1, 9, 129),
+         ((400, "l2_norm"), (32, "dot_product"))),
+        (1, 200_000, 768, True, (1, 9, 129),
+         ((40, "l2_norm"), (1024, "l2_norm"))),
+        (1, 90, DIM, True, (1, 9), ((32, "l2_norm"), (100, "cosine"))),
+        (1, 1_000, DIM, True, (1, 9), ((400, "l2_norm"), (1024, "l2_norm"))),
+        (1, 200_000, DIM, False, (1, 8, 32, 129),
+         ((40, "l2_norm"), (400, "l2_norm"), (400, "cosine"),
+          (512, "dot_product"))),
+        (4, 200_000, DIM, False, (1,), ((400, "l2_norm"),)),
+    )
+    for s, n, d, integer, bs, rs in cases:
+        data, v, nrm, ok = lists_case(dev, rng, s, n, d, integer,
+                                      grid=mma_sixteenths)
+        planted = integer and n > LIST_RUN[-1]
+        for b in bs:
+            queries = data[rng.choice(n, b, replace=b > n)].copy()
+            if n > LIST_RUN[-1]:
+                queries[0] = data[LIST_COPIES[0]]
+                if b > 1:
+                    queries[1] = data[LIST_RUN[0]]
+            if not integer:
+                queries = queries + 0.01 * rng.standard_normal(
+                    queries.shape).astype(np.float32)
+            q = torch.from_numpy(queries).to(dev)
+            for prec in REDUCED:
+                args = reduced_args(kf, v, nrm, ok, q, prec)
+                for r, sim in rs:
+                    err = max(err, mma_check(
+                        kf, args, r, sim, prec,
+                        f"K1 mma {prec} S={s} n={n} d={d} B={b} r={r} {sim} "
+                        f"integer={integer}", integer, planted))
+        log(f"tensor-core tier parity S={s} n={n} d={d} integer={integer}: "
+            f"{'bit-equal' if integer else 'int8 bit-equal, bf16 ids equal'}"
+            f" at B = {bs}, (r, sim) = {rs}, bf16 and int8")
+        if s == 1 and d == DIM and integer and n == 300_001:
+            q = torch.from_numpy(data[[LIST_COPIES[0], LIST_RUN[0], 7, 9,
+                                       11]].copy()).to(dev)
+            for prec in REDUCED:
+                v_x, nrm_, ok_, q_x, qsq, scale = reduced_args(
+                    kf, v, nrm, ok, q, prec)
+                args = (unaligned(v_x), nrm_, ok_, unaligned(q_x), qsq,
+                        scale)
+                for r, sim in ((40, "l2_norm"), (400, "cosine")):
+                    err = max(err, mma_check(
+                        kf, args, r, sim, prec,
+                        f"K1 mma {prec} unaligned r={r} {sim}", True, True))
+            log("tensor-core tier parity, operands off a 16-byte boundary: "
+                "bit-equal")
+        del v
+        torch.cuda.empty_cache()
+    return err
+
+
 # the profiler's kernel names of K1's and K3's list scan
 LIST_KERNELS = ("knn_pool_scan_kernel", "knn_pool_merge_kernel")
 
@@ -908,31 +1147,40 @@ WIDE_REDUCED = (("bf16", "int8"), (10, 100), (1, 8, 32))
 
 
 def check_scan(kf, args, r: int, prec: str, what: str) -> None:
-    """A pool scan against its references on clustered floats before it is
-    timed: int8 bit-equal to plain_pool; fp32 bit-equal to
-    kernel_order_pool (order_check); bf16 (the tile scan) ids equal to
-    plain_pool but at near ties (near_tie_swaps, each logged)."""
-    if prec == "int8":
-        compare_pools(kf, args, r, "l2_norm", prec, what)
-        return
-    kv, ki = kf.pool_scan(*args, r=r, similarity="l2_norm",
-                          score_precision=prec)
+    """A pool scan and the tile scan beside it against their references on
+    clustered floats before they are timed: at int8 both bit-equal to
+    plain_pool; at bf16 both ids equal to plain_pool but at summation ties
+    (summation_ties, each logged); at fp32 both bit-equal to
+    kernel_order_pool (order_check, tile_check)."""
     if prec == "fp32":
+        kv, ki = kf.pool_scan(*args, r=r, similarity="l2_norm",
+                              score_precision=prec)
         order_check(kf, kv, ki, args, r, "l2_norm", what)
+        tile_check(kf, args, r, what)
         return
     pv, pi = kf.plain_pool(*args, r=r, similarity="l2_norm",
                            score_precision=prec)
-    for sw in near_tie_swaps(kf, kv, ki, pv, pi, args, "l2_norm", what):
-        log(f"{what}: near tie {sw}")
+    for design, scan in (("", kf.pool_scan),
+                         (" (tile scan)", kf._launch_tile)):
+        kv, ki = scan(*args, r=r, similarity="l2_norm", score_precision=prec)
+        torch.cuda.synchronize()
+        if prec == "int8":
+            if not (torch.equal(ki, pi) and torch.equal(kv, pv)):
+                raise AssertionError(f"{what}{design}: not bit-equal to "
+                                     f"plain_pool")
+            continue
+        for tie in summation_ties(kf, kv, ki, pv, pi, args, "l2_norm",
+                                  what + design):
+            log(f"{what}{design}: summation tie {tie}")
 
 
 def time_design(label: str, design, tile, plain, library, bound: dict,
-                iters: int = 20) -> dict:
+                iters: int = 20, names=WIDE_KERNELS) -> dict:
     """One shape of the wide tier's record: CUDA-event ms of the design the
     wrapper picks (twice, the tile scan's between when it is not the same
     design), the plain version's and the library call's; device ms of each
-    design by kernel name (WIDE_KERNELS, TILE_KERNELS); the memory clock
-    before and after."""
+    design by kernel name (the design's `names`, scan and merge, and
+    TILE_KERNELS); the memory clock before and after."""
     clock0 = mem_clock()
     ms = time_ms(design, iters)
     tile_ms = time_ms(tile, iters) if tile is not None else None
@@ -944,8 +1192,8 @@ def time_design(label: str, design, tile, plain, library, bound: dict,
     out = {"ms": ms, "ms_again": ms_again, "tile_ms": tile_ms,
            "plain_ms": plain_ms, "library_ms": library_ms,
            "device_ms": prof and prof["device_ms"],
-           "scan_device_ms": kernel_ms(prof, WIDE_KERNELS[0]),
-           "merge_device_ms": kernel_ms(prof, WIDE_KERNELS[1]),
+           "scan_device_ms": kernel_ms(prof, names[0]),
+           "merge_device_ms": kernel_ms(prof, names[1]),
            "tile_device_ms": tile_prof and tile_prof["device_ms"],
            "tile_scan_device_ms": kernel_ms(tile_prof, TILE_KERNELS[0]),
            "tile_merge_device_ms": kernel_ms(tile_prof, TILE_KERNELS[1]),
@@ -957,15 +1205,15 @@ def time_design(label: str, design, tile, plain, library, bound: dict,
 def wide_timing_phase(kf, kb, dev, seed: int, k1: bool, k3: bool) -> dict:
     """The tile scan's former shapes at the SIFT-1M shape (1,000,000
     clustered 128-d docs, l2): K1 (pool_scan) at fp32 with r = 64, 100 and
-    128 at B = 1, 8, 32 and 128, and at bf16 and int8 with k = 10 and 100
-    at B = 1, 8 and 32; K3 (knn_topk_auto) at k = 64, 128, 256 and 1024 at
-    B = 1 and 32. Each is checked against its plain version, and at fp32
-    the tile scan beside it (`_launch_tile`, `_launch_block_tile`) against
-    kernel_order_pool (tile_check, block_tile_check), then timed by
-    time_design beside the tile scan on the same call (at bf16 and int8
-    the wrapper's design is the tile scan itself). The library call is torch.topk at the pool's width over
-    the l2-transformed q @ v.T (bf16: of bf16 operands; int8: the f32
-    product of the int8 values, exact at d = 128, scaled)."""
+    128 at B = 1, 8, 32 and 128 (the wide tier), and at bf16 and int8 with
+    k = 10 and 100 at B = 1, 8 and 32 (the tensor-core tier, pools of
+    R = 40 and 400); K3 (knn_topk_auto) at k = 64, 128, 256 and 1024 at
+    B = 1 and 32. Each, and the tile scan beside it (`_launch_tile`,
+    `_launch_block_tile`), is checked first (check_scan, block_tile_check),
+    then timed by time_design beside the tile scan on the same call. The
+    library call is torch.topk at the pool's width over the l2-transformed
+    q @ v.T (bf16: of bf16 operands; int8: the f32 product of the int8
+    values, exact at d = 128, scaled)."""
     rng = np.random.default_rng(seed + 3)
     n = SIFT_DOCS
     v = torch.from_numpy(clustered(rng, n, DIM))[None].to(dev)
@@ -1002,20 +1250,20 @@ def wide_timing_phase(kf, kb, dev, seed: int, k1: bool, k3: bool) -> dict:
         args, r = scan_inputs(kf, v, nrm, ok, q, k, prec)
         label = f"K1 {prec} k={k} r={r} B={b}"
         check_scan(kf, args, r, prec, label)
-        if prec == "fp32":
-            tile_check(kf, args, r, label)
         design = functools.partial(kf.pool_scan, *args, r=r,
                                    similarity="l2_norm",
                                    score_precision=prec)
-        tile = None if prec != "fp32" else functools.partial(
-            kf._launch_tile, *args, r=r, similarity="l2_norm",
-            score_precision=prec)
+        tile = functools.partial(kf._launch_tile, *args, r=r,
+                                 similarity="l2_norm", score_precision=prec)
         plain = functools.partial(kf.plain_pool, *args, r=r,
                                   similarity="l2_norm", score_precision=prec)
+        tier = kf.scan_tier(prec, r)
         out[label] = time_design(label, design, tile, plain,
                                  library_fn(args, r, prec),
-                                 pool_bound(1, n, DIM, b, r, prec))
-        out[label]["tier"] = kf.scan_tier(prec, r)
+                                 pool_bound(1, n, DIM, b, r, prec),
+                                 names=MMA_KERNELS if tier == "mma"
+                                 else WIDE_KERNELS)
+        out[label]["tier"] = tier
     if k3:
         for k in WIDE_K3[0]:
             for b in WIDE_K3[1]:
@@ -1186,8 +1434,9 @@ def blocks_kernel_phase(kb, dev, seed: int) -> float:
 def unaligned(x: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of x whose data starts 4 bytes past a 16-byte
     boundary: a view the cp.async kernels cannot read as it is."""
-    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
-    out = flat[1:].view(x.shape)
+    off = 4 // x.element_size()
+    flat = torch.empty(x.numel() + off, dtype=x.dtype, device=x.device)
+    out = flat[off:].view(x.shape)
     out.copy_(x)
     assert out.data_ptr() % 16 == 4 and out.is_contiguous()
     return out
@@ -1672,6 +1921,8 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         per_shard = per_shard_exact_phase(node, kf, *truths["sift_a"])
         wide = wide_main_phase(node, kf, corpora["sift_a"][0],
                                truths["sift_a"][0], step_inputs["sift_a"])
+        reduced = reduced_main_phase(node, kf, truths["sift_a"][0],
+                                     step_inputs["sift_a"])
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
     # each index's shape, beside the whole search's latency above: CUDA-event
@@ -1710,7 +1961,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
     return {"launches": launches, "list_launches": list_launches,
             "latency_s": out, "step_ms": step_ms,
             "step_device": step_device, "per_shard": per_shard,
-            "wide": wide}
+            "wide": wide, "reduced": reduced}
 
 
 def wide_main_phase(node, kf, data: np.ndarray, queries: np.ndarray,
@@ -1832,6 +2083,199 @@ def wide_main_phase(node, kf, data: np.ndarray, queries: np.ndarray,
     return out
 
 
+# k of the reduced-precision main path, and its searches a route
+REDUCED_KS = (10, 100)
+REDUCED_STACKED = 32
+REDUCED_PER_SHARD = 16
+
+
+def pool_ties(kf, slab, q, r: int, prec: str, what: str) -> list:
+    """Where a search's hits differ from the plain pipeline's at bf16: the
+    kernel's and plain_pool's pools of R for the query on the same slab,
+    every doc in one and not the other a summation tie (summation_ties)
+    at the pool's R-th score. Returns the ties."""
+    args = reduced_args(kf, *slab, q, prec)
+    kv, ki = kf.pool_scan(*args, r=r, similarity="l2_norm",
+                          score_precision=prec)
+    pv, pi = kf.plain_pool(*args, r=r, similarity="l2_norm",
+                           score_precision=prec)
+    torch.cuda.synchronize()
+    if set(ki.flatten().tolist()) == set(pi.flatten().tolist()):
+        raise AssertionError(f"{what}: the hits differ though the pools hold "
+                             f"the same docs")
+    return summation_ties(kf, kv, ki, pv, pi, args, "l2_norm", what)
+
+
+def reduced_main_phase(node, kf, queries: np.ndarray,
+                       step_input: tuple) -> dict:
+    """Index A at search.knn.score_precision bf16, then int8 (set through
+    ann.default_config as the port's tests set it; fp32 restored after),
+    on both serving routes, K1 on the wide tier's tensor-core scan: at
+    k = 10 and k = 100 (size = k), 32 searches through the stacked step
+    (R = 40 / 400), 16 on the per-shard route (k_bucket 16 / 128: R = 64 /
+    512) and the 64 searches from 8 threads through the batcher, gated
+    only (concurrent_phase: each equal to its solo search, but for the
+    order of hits whose solo scores lie within rtol 1e-5 of each other:
+    the exact fp32 rescore of a batch sums in another order than a solo
+    one, concurrent_order_swaps). Every K1 launch
+    of each path, counted from 0, is on the tensor-core tier. Each solo
+    hit list equals the plain pipeline's on the node's own slab (the
+    stacked step's bundle: knn_fused_stacked with impl="xla" at the same
+    precision and k, its exact fp32 rescore, the top k) in order; at bf16
+    a differing list is allowed only where the two pools differ by
+    summation ties (pool_ties), each logged. Recall@k against the fp32
+    brute force is printed, not gated. Then one stacked step a precision
+    and k on the device by kernel name: the whole step, and its parts
+    alone: the operand prep (cast or quantize), the scan and merge (by
+    name), and the exact rescore (gather, einsum, top-k: its kernels by
+    name)."""
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+    from opensearch_tpu_torch.search import ann, distributed_serving, executor
+
+    v, nrm, ok, _q = step_input
+    n = v.shape[1]
+    bundles = [b for key, b in default_registry._bundles.items()
+               if key[0] == "sift_a"]
+    if len(bundles) != 1:
+        raise AssertionError(f"[sift_a] {len(bundles)} serving bundles")
+    bundle = bundles[0]
+    slab = (bundle.vectors, bundle.norms_sq, bundle.valid)
+    # flat slot i of the one-segment bundle is doc "i"
+    if not torch.equal(bundle.vectors[0, :n], v[0]) or \
+            int(bundle.valid[0].sum()) != n:
+        raise AssertionError("[sift_a] the bundle is not the docs in id order")
+    dev = v.device
+    qt = torch.from_numpy(queries).to(dev)
+    one = torch.ones(1, device=dev)
+    truth = {k: kf.plain_pool(v, nrm, ok, qt, (qt * qt).sum(1), one, r=k,
+                              similarity="l2_norm",
+                              score_precision="fp32")[1][0].tolist()
+             for k in REDUCED_KS}
+
+    def plain_hits(i: int, k: int, prec: str) -> list:
+        _vals, ids = kf.knn_fused_stacked(*slab, qt[i:i + 1], k=k,
+                                          similarity="l2_norm",
+                                          score_precision=prec, impl="xla")
+        return [str(int(x)) for x in ids[0, 0].tolist() if x >= 0]
+
+    def counts() -> dict:
+        return {"knn_fused": kf.launches.count,
+                "knn_fused_mma": kf.mma_launches.count}
+
+    def run(m: int, k: int, k_route: int, prec: str, what: str) -> dict:
+        kf.launches.reset()
+        kf.mma_launches.reset()
+        lat, recall, ties = [], [], 0
+        for i, qv in enumerate(queries[:m]):
+            t0 = time.perf_counter()
+            resp = node.search("sift_a", {"query": {"knn": {"v": {
+                "vector": qv.tolist(), "k": k}}}, "size": k})
+            lat.append(time.perf_counter() - t0)
+            hits = [h["_id"] for h in resp["hits"]["hits"]]
+            want = plain_hits(i, k_route, prec)[:k]
+            if hits != want:
+                label = f"[sift_a] {what} {prec} k={k} query {i}"
+                if prec != "bf16":
+                    raise AssertionError(f"{label}: hits differ from the "
+                                         f"plain pipeline's")
+                r = kf.fused_pool_width(k_route, prec)
+                for tie in pool_ties(kf, slab, qt[i:i + 1], r, prec, label):
+                    ties += 1
+                    log(f"{label}: hits differ from the plain pipeline's at "
+                        f"a summation tie of the pool {tie}")
+            recall.append(len(set(hits) & {str(x) for x in truth[k][i]}) / k)
+        out = latency_summary(lat)
+        out.update(launches=counts(), recall=float(np.mean(recall)),
+                   summation_ties=ties)
+        return out
+
+    out = {}
+    try:
+        for prec in REDUCED:
+            ann.default_config.configure(score_precision=prec)
+            for k in REDUCED_KS:
+                key = f"{prec} k={k}"
+                res = out[key] = {}
+                searches0 = distributed_serving.stats["distributed_searches"]
+                res["stacked"] = run(REDUCED_STACKED, k, k, prec, "stacked")
+                served = (distributed_serving.stats["distributed_searches"]
+                          - searches0)
+                if served != REDUCED_STACKED:
+                    raise AssertionError(f"[sift_a] {key}: {served} of "
+                                         f"{REDUCED_STACKED} searches on the "
+                                         f"stacked step")
+                k_bucket = 1 << (k - 1).bit_length()
+                distributed_serving.enabled = False
+                try:
+                    fused0 = executor.knn_path_stats["fused"]
+                    res["per_shard"] = run(REDUCED_PER_SHARD, k, k_bucket,
+                                           prec, "per-shard")
+                    if executor.knn_path_stats["fused"] - fused0 != \
+                            REDUCED_PER_SHARD:
+                        raise AssertionError(f"[sift_a] per-shard {key}: not "
+                                             f"every search took K1")
+                    res["concurrent"] = concurrent_phase(
+                        node, "sift_a", queries, k,
+                        {"knn_fused": kf.launches,
+                         "knn_fused_mma": kf.mma_launches},
+                        size=k, reduced=True)
+                finally:
+                    distributed_serving.enabled = True
+                for what, want, got in (
+                        ("stacked", REDUCED_STACKED,
+                         res["stacked"]["launches"]),
+                        ("per-shard", REDUCED_PER_SHARD,
+                         res["per_shard"]["launches"]),
+                        ("concurrent gated", None,
+                         res["concurrent"]["gated"]["launches"])):
+                    if got["knn_fused_mma"] != got["knn_fused"] or (
+                            want is not None and got["knn_fused"] != want):
+                        raise AssertionError(
+                            f"[sift_a] {what} {key}: K1 launches not one a "
+                            f"search, all on the tensor-core tier: {got}")
+                log(f"[sift_a] {key}: stacked {res['stacked']}, per-shard "
+                    f"{res['per_shard']}, gated "
+                    f"{res['concurrent']['gated']}: every K1 launch on the "
+                    f"tensor-core tier, hits the plain pipeline's")
+    finally:
+        ann.default_config.configure(score_precision="fp32")
+    # one stacked step a precision and k on the device, whole and by parts
+    q1 = qt[:1]
+    for prec in REDUCED:
+        for k in REDUCED_KS:
+            r = kf.fused_pool_width(k, prec)
+            args = reduced_args(kf, *slab, q1, prec)
+            _pv, pi = kf.pool_scan(*args, r=r, similarity="l2_norm",
+                                   score_precision=prec)
+            step = device_profile(functools.partial(
+                kf.knn_fused_stacked, *slab, q1, k=k, similarity="l2_norm",
+                score_precision=prec), 10)
+            prep = device_profile(functools.partial(
+                kf._prep_operands, slab[0], q1, prec), 10)
+            scan = device_profile(functools.partial(
+                kf.pool_scan, *args, r=r, similarity="l2_norm",
+                score_precision=prec), 10)
+            rescore = device_profile(functools.partial(
+                kf._fused_rescore, q1, *slab, pi, k=k,
+                similarity="l2_norm"), 10)
+            split = {
+                "step_ms": time_ms(functools.partial(
+                    kf.knn_fused_stacked, *slab, q1, k=k,
+                    similarity="l2_norm", score_precision=prec), 20),
+                "step_device_ms": step and step["device_ms"],
+                "step_kernels": step and step["top"],
+                "prep_device_ms": prep and prep["device_ms"],
+                "prep_kernels": prep and prep["top"],
+                "scan_device_ms": kernel_ms(scan, MMA_KERNELS[0]),
+                "merge_device_ms": kernel_ms(scan, MMA_KERNELS[1]),
+                "rescore_device_ms": rescore and rescore["device_ms"],
+                "rescore_kernels": rescore and rescore["top"]}
+            out[f"{prec} k={k}"]["step"] = split
+            log(f"[sift_a] stacked step {prec} k={k} (B=1, "
+                f"{bundle.n_flat} slots) device split: {json.dumps(split)}")
+    return out
+
+
 def latency_summary(lat_s: list, wall_s: float | None = None) -> dict:
     """p50 and p99 of per-search latencies (ms) and QPS: searches over the
     summed latencies, or over the wall time when searches overlapped."""
@@ -1841,8 +2285,48 @@ def latency_summary(lat_s: list, wall_s: float | None = None) -> dict:
             "qps": len(lat_s) / (wall_s if wall_s is not None else sum(lat_s))}
 
 
+def concurrent_order_swaps(name: str, i: int, got: list, solo: list,
+                           order_ties: bool) -> int:
+    """A concurrent hit list against its solo one: ids in the same order,
+    each score within rtol 1e-5 / atol 2e-3 of the solo one. With
+    `order_ties` (the exact fp32 rescore of a reduced-precision scan,
+    whose batched product the library sums in another order than the solo
+    one) the ids must be the same and each score within that tolerance of
+    its doc's solo score, and the order may differ only where the two docs
+    at a position have solo scores within rtol 1e-5 of each other: a tie
+    the tolerance cannot order. Returns the positions so swapped."""
+    gid, sid = [h[0] for h in got], [h[0] for h in solo]
+    if not order_ties:
+        if gid != sid or not np.allclose([h[1] for h in got],
+                                         [h[1] for h in solo], rtol=1e-5,
+                                         atol=2e-3):
+            raise AssertionError(f"[{name}] concurrent query {i}: {got} != "
+                                 f"solo {solo}")
+        return 0
+    score = dict(solo)
+    if sorted(gid) != sorted(sid) or not np.allclose(
+            [h[1] for h in got], [score[h[0]] for h in got], rtol=1e-5,
+            atol=2e-3):
+        raise AssertionError(f"[{name}] concurrent query {i}: {got} != solo "
+                             f"{solo}")
+    swaps = 0
+    for j, (a, b) in enumerate(zip(gid, sid)):
+        if a == b:
+            continue
+        if abs(score[a] - score[b]) > 1e-5 * max(abs(score[a]),
+                                                 abs(score[b])):
+            raise AssertionError(f"[{name}] concurrent query {i} position "
+                                 f"{j}: doc {a} (solo {score[a]!r}) where "
+                                 f"solo has {b} ({score[b]!r})")
+        log(f"[{name}] concurrent query {i} position {j}: doc {a} (solo "
+            f"score {score[a]!r}) and {b} ({score[b]!r}) in the other order")
+        swaps += 1
+    return swaps
+
+
 def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
-                     counters: dict, size: int = 10) -> dict:
+                     counters: dict, size: int = 10,
+                     reduced: bool = False) -> dict:
     """The 64 queries one after another, then the same 64 from 8 threads of
     8 searches each, three times, each returning `size` hits. Every
     concurrent hit list must equal its solo one: ids in order, scores to K1's rtol 1e-5 / atol 2e-3, because a
@@ -1860,7 +2344,9 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
        settings; p50, p99, QPS and the mean merged batch are reported, not
        gated.
     3. The same with the batcher switched off, to tell its share of the
-       concurrent numbers from the threads'."""
+       concurrent numbers from the threads'.
+    At a reduced precision (`reduced`) the gated run alone, its hit lists
+    held to concurrent_order_swaps' rule for an exact rescore."""
     def search(qv) -> list:
         resp = node.search(name, {"query": {"knn": {"v": {
             "vector": qv.tolist(), "k": k}}}, "size": size})
@@ -1872,6 +2358,8 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
         t0 = time.perf_counter()
         solo.append(search(qv))
         solo_lat.append(time.perf_counter() - t0)
+
+    swaps = [0]
 
     def threaded(together: bool = False) -> tuple[list, float]:
         got, lat = [None] * n, [0.0] * n
@@ -1897,12 +2385,8 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
             for f in [pool.submit(worker, t) for t in range(8)]:
                 f.result()
         wall = time.perf_counter() - t0
-        for i, (g, s) in enumerate(zip(got, solo)):
-            if [h[0] for h in g] != [h[0] for h in s] or not np.allclose(
-                    [h[1] for h in g], [h[1] for h in s], rtol=1e-5,
-                    atol=2e-3):
-                raise AssertionError(f"[{name}] concurrent query {i}: {g} != "
-                                     f"solo {s}")
+        swaps[0] += sum(concurrent_order_swaps(name, i, g, s, reduced)
+                        for i, (g, s) in enumerate(zip(got, solo)))
         return lat, wall
 
     def batched_run(together: bool) -> tuple[dict, dict, tuple]:
@@ -1926,6 +2410,15 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
         if not 0 < count < n:
             raise AssertionError(f"[{name}] {key} launched {count} times in "
                                  f"{n} concurrent searches")
+    gated_out = {"dispatches": gated["dispatches"],
+                 "mean_merged_batch": gated["mean_merged_batch"],
+                 "max_batch": gated["max_batch"], "launches": gated_launches,
+                 "order_swaps": swaps[0]}
+    if reduced:
+        out = {"solo": latency_summary(solo_lat), "gated": gated_out}
+        log(f"[{name}] 8 threads x 8 searches, gated, equal the solo ones: "
+            f"{out}")
+        return out
     stats, launches, (lat, wall) = batched_run(together=False)
     batcher.configure(enabled=False)
     try:
@@ -1938,10 +2431,7 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
            "dispatches": stats["dispatches"],
            "mean_merged_batch": stats["mean_merged_batch"],
            "max_batch": stats["max_batch"], "launches": launches,
-           "gated": {"dispatches": gated["dispatches"],
-                     "mean_merged_batch": gated["mean_merged_batch"],
-                     "max_batch": gated["max_batch"],
-                     "launches": gated_launches}}
+           "gated": gated_out}
     log(f"[{name}] 8 threads x 8 searches equal the solo ones: {out}")
     return out
 
@@ -2531,9 +3021,12 @@ def main() -> int:
                "wide": "opensearch_tpu_torch/csrc/knn_wide.cuh: the list "
                        "scan's wide tier (kernels knn_wide_scan_kernel, "
                        "knn_wide_merge_kernel), fp32 with 32 < r <= 1024",
+               "mma": "opensearch_tpu_torch/csrc/knn_wide_mma.cuh: the wide "
+                      "tier's tensor-core scan (kernels "
+                      "knn_wide_mma_scan_kernel, knn_wide_merge_kernel), "
+                      "bf16 and int8 with r <= 1024",
                "tile": "opensearch_tpu_torch/csrc/knn_tile.cuh: the tile "
-                       "scan (knn_scan_kernel, knn_merge_kernel), every "
-                       "other (precision, r)"}
+                       "scan (knn_scan_kernel, knn_merge_kernel), r > 1024"}
     entry = {"name": "knn_fused", "route": "cuda",
              "source": "opensearch_tpu_torch/csrc/knn_fused.cu",
              "designs": designs,
@@ -2572,7 +3065,8 @@ def main() -> int:
         t0 = time.perf_counter()
         if "knn_fused" in chosen:
             entry["max_abs_err"] = max(kernel_phase(kf, dev, args.seed),
-                                       lists_kernel_phase(kf, dev, args.seed))
+                                       lists_kernel_phase(kf, dev, args.seed),
+                                       mma_kernel_phase(kf, dev, args.seed))
             entry["parity"] = "ok"
         if chosen & {"knn_fused", "knn_block"}:
             wide_err = wide_kernel_phase(kf, kb, dev, args.seed,
@@ -2656,6 +3150,15 @@ def main() -> int:
             for path in ("stacked", "per_shard")}
         entry["wide_launches"]["concurrent"] = \
             main["wide"]["concurrent"]["launches"]["knn_fused_wide"]
+        # index A at bf16 and int8, k = 10 and 100: each path's K1 launches
+        # counted from 0 (all on the tensor-core tier)
+        entry["reduced_main_path"] = main["reduced"]
+        entry["mma_launches"] = {
+            key: {"stacked": res["stacked"]["launches"]["knn_fused_mma"],
+                  "per_shard": res["per_shard"]["launches"]["knn_fused_mma"],
+                  "gated": res["concurrent"]["gated"]["launches"][
+                      "knn_fused_mma"]}
+            for key, res in main["reduced"].items()}
         ann = ann_main_phase(ads, ivfpq, kf, dev, args.seed)
         entry2["launches"] = ann["launches"]
         entry2["main_path"] = {key: ann[key] for key in

@@ -7,9 +7,10 @@
 //   l2      1 / (1 + max(|q|^2 - 2 q.v + |v|^2, 0))
 //   cosine  (1 + q.v / (max(|q|^2,1e-24)^.5 * max(|v|^2,1e-24)^.5)) / 2
 //   dot     q.v >= 0 ? q.v + 1 : 1 / (1 - q.v)
-// Dots: fp32 on FFMA (never TF32: recall 1.0 depends on it); bf16 operands
-// widened to f32 and summed in f32; int8 through __dp4a into int32 (exact),
-// then one multiply by the per-shard dequant scale.
+// Dots: fp32 on FFMA (never TF32: recall 1.0 depends on it); bf16 on the
+// tensor cores with f32 accumulation (the tile scan: widened to f32 and
+// summed on FFMA); int8 on the tensor cores into int32 (the tile scan:
+// __dp4a), exact, then one multiply by the per-shard dequant scale.
 //
 // Bound: each launch must read the slab once, n*d*w bytes (w = 4, 2 or 1 for
 // fp32, bf16, int8), plus 8n bytes of norms and valid flags (4 + 1, rounded
@@ -39,7 +40,7 @@
 // The scan and merge kernels live in knn_tile.cuh, which K3 (knn_block.cu)
 // instantiates at fp32.
 //
-// Three designs, chosen by (precision, r) in the wrapper
+// Four designs, chosen by (precision, r) in the wrapper
 // (ops/knn_fused.scan_tier), never on failure:
 //  - fp32 with r <= 32 (every fp32 serving search at k <= 32): the list
 //    scan of knn_pool.cuh (knn_fused_lists_launch): K4's cp.async ring and
@@ -51,11 +52,17 @@
 //    query tile of 8, a CTA-wide pool of r per query fed through a
 //    candidate buffer and a radix select, then a select-then-sort split
 //    merge;
-//  - everything else (bf16 and int8, whose R is at least 32, and fp32 at
-//    1024 < r <= 4096): the tile scan above (knn_fused_launch), which uses
-//    no cp.async pipelining, wgmma or TMA.
+//  - bf16 and int8 with r <= 1024 (every reduced-precision search on both
+//    serving routes: R = max(k, min(max(4k, 32), 512))): the wide tier's
+//    tensor-core scan of knn_wide_mma.cuh (knn_fused_mma_launch): the same
+//    ring, step and selection, the dots by mma.sync (m16n8k16 bf16 into
+//    f32, m16n8k32 s8 into s32), then the same split merge;
+//  - fp32 at 1024 < r <= 4096, which no serving route reaches: the tile
+//    scan above (knn_fused_launch, which takes any precision and is timed
+//    beside the other designs), with no cp.async pipelining, tensor cores
+//    or TMA.
 
-#include "knn_wide.cuh"
+#include "knn_wide_mma.cuh"
 
 extern "C" {
 
@@ -141,6 +148,32 @@ int knn_fused_wide_launch(const void* v, const void* nsq, const void* valid,
       static_cast<float*>(part_v), static_cast<int*>(part_i),
       static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, r,
       sim, stages, stage_floats, cap, chunk, n_split);
+}
+
+// bytes of dynamic shared memory the tensor-core scan needs at plan
+// (stages, stage_words, cap) for rows = min(8, B) queries of d prec
+// elements; 0 for a ring or a precision with no kernel
+size_t knn_fused_mma_smem_bytes(int prec, int stages, int stage_words, int d,
+                                int r, int rows, int cap) {
+  return mma::mma_smem_bytes(prec, stages, stage_words, d, r, rows, cap);
+}
+
+// The tensor-core scan + the wide tier's merge (bf16 or int8, r <= 1024,
+// rows of whole 16-byte units at 16-byte aligned addresses) on `stream`.
+// Returns the first cudaError_t met.
+int knn_fused_mma_launch(const void* scale, int prec, const void* v,
+                         const void* nsq, const void* valid, const void* q,
+                         const void* qsq, void* part_v, void* part_i,
+                         void* out_v, void* out_i, int S, int n, int d, int B,
+                         int r, int sim, int stages, int stage_words, int cap,
+                         int chunk, int n_split, void* stream) {
+  return (int)mma::launch_mma_pool(
+      static_cast<cudaStream_t>(stream), prec, v,
+      static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid), q,
+      static_cast<const float*>(qsq), static_cast<const float*>(scale),
+      static_cast<float*>(part_v), static_cast<int*>(part_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, r,
+      sim, stages, stage_words, cap, chunk, n_split);
 }
 
 }  // extern "C"

@@ -45,7 +45,9 @@
 //   is left for the position order, so appends may land in any order. The
 //   pool's least key then raises the filter's bound. At the range's end
 //   the group sorts its pool by the same key (a bitonic network in the
-//   emptied buffer) and writes r slots.
+//   emptied buffer) and writes r slots. The selection (Sel, init_sel,
+//   append_passers, flush_when_due, write_pool) and the merge serve the
+//   tensor-core scan of knn_wide_mma.cuh too (K1 at bf16 and int8).
 // - Why not the list scan's per-warp lists of r: at 8 queries a range of
 //   about 7,600 docs (SIFT-1M shape) gives each warp some 950, and a list
 //   of r = 128 would take about r (1 + ln(950 / r)) = 390 inserts, one at a
@@ -377,22 +379,185 @@ __host__ __device__ inline int chunked_width(int stage_floats, int d) {
   return (d + dc - 1) / dc * dc;
 }
 
+// words of shared memory the selection takes (after a scan's ring and
+// query tile): a select's scratch a warp (two keys, four ints), |q|^2,
+// |q|, the bound, the buffer count and the pool count a query, a 256-bin
+// histogram a warp, and rows = min(8, B) queries' pools of r and buffers
+// of cap pairs
+__host__ __device__ inline size_t sel_words(int r, int rows, int cap) {
+  return 8 * kWarps + 5 * kQT + kWarps * kBins +
+         2 * (size_t)rows * (r + cap);
+}
+
 // bytes of dynamic shared memory one scan CTA needs: the ring, the query
-// tile, a select's scratch a warp (two keys, four ints), |q|^2, |q|, the
-// bound, the buffer count and the pool count a query, a 256-bin histogram
-// a warp, and rows = min(8, B) queries' pools of r and buffers of cap
-// pairs
+// tile and the selection
 __host__ inline size_t scan_smem_bytes(int stages, int stage_floats, int d,
                                        int r, int rows, int cap) {
   return 4 * ((size_t)stages * stage_floats +
-              (size_t)kQT * chunked_width(stage_floats, d) + 8 * kWarps +
-              5 * kQT + kWarps * kBins + 2 * (size_t)rows * (r + cap));
+              (size_t)kQT * chunked_width(stage_floats, d) +
+              sel_words(r, rows, cap));
 }
 
 // warps a query's selection takes in a CTA of qb queries: all eight for
 // one query, one each from five
 __device__ __forceinline__ int group_warps(int qb) {
   return qb == 1 ? 8 : qb == 2 ? 4 : qb <= 4 ? 2 : 1;
+}
+
+// The selection of one scan CTA (this tier's and knn_wide_mma.cuh's), in
+// shared memory at base: sel_words(r, rows, cap) words.
+struct Sel {
+  u64* wmm;        // [8][2] select keys
+  int* pick;       // [8][4]
+  float* qsq;      // [8]
+  float* qn;       // [8] |q|
+  int* low;        // [8] the filter's bound (ord_int)
+  int* cnt;        // [8] buffer counts
+  int* pn;         // [8] pool counts
+  unsigned* hist;  // [8][256]
+  float* pool_v;   // [rows][r]
+  int* pool_i;
+  float* buf_v;    // [rows][cap]
+  int* buf_i;
+};
+
+__device__ __forceinline__ Sel carve_sel(float* base, int rows, int r,
+                                         int cap) {
+  Sel s;
+  s.wmm = reinterpret_cast<u64*>(base);
+  s.pick = reinterpret_cast<int*>(s.wmm + 2 * kWarps);
+  s.qsq = reinterpret_cast<float*>(s.pick + 4 * kWarps);
+  s.qn = s.qsq + kQT;
+  s.low = reinterpret_cast<int*>(s.qn + kQT);
+  s.cnt = s.low + kQT;
+  s.pn = s.cnt + kQT;
+  s.hist = reinterpret_cast<unsigned*>(s.pn + kQT);
+  s.pool_v = reinterpret_cast<float*>(s.hist + kWarps * kBins);
+  s.pool_i = reinterpret_cast<int*>(s.pool_v + rows * r);
+  s.buf_v = reinterpret_cast<float*>(s.pool_i + rows * r);
+  s.buf_i = reinterpret_cast<int*>(s.buf_v + rows * cap);
+  return s;
+}
+
+// |q|^2 and |q| of the CTA's qb queries from q0 (0 past them), empty pools
+// and buffers, the bounds at -inf, the histograms zero; by the CTA's
+// threads
+__device__ __forceinline__ void init_sel(const Sel& s, const float* qsq,
+                                         int q0, int qb, int tid) {
+  for (int e = tid; e < kQT; e += kThreads) {
+    const float x = e < qb ? qsq[q0 + e] : 0.0f;
+    s.qsq[e] = x;
+    s.qn[e] = __fsqrt_rn(fmaxf(x, 1e-24f));
+    s.low[e] = pool::ord_int(-INFINITY);
+    s.cnt[e] = 0;
+    s.pn[e] = 0;
+  }
+  for (int e = tid; e < kWarps * kBins; e += kThreads) s.hist[e] = 0u;
+}
+
+// A warp's passers of one step, appended to their queries' buffers: this
+// lane's docs doc[i] (live where ok[i]), with norms ns[i] and dots
+// acc[i][u] against the CTA's query u < qb. A doc passes the filter
+// against query u's bound and is appended with its transformed score: one
+// ballot a doc row and one atomicAdd a warp a query.
+__device__ __forceinline__ void append_passers(
+    const Sel& s, const float (&acc)[4][8], const bool (&ok)[4],
+    const float (&ns)[4], const int (&doc)[4], int qb, int cap, int sim,
+    int lane) {
+  float rvn[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (sim == SIM_COSINE) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rvn[i] = __frcp_rn(__fsqrt_rn(fmaxf(ns[i], 1e-24f)));
+  }
+  const unsigned lt = (1u << lane) - 1u;
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    if (u >= qb) break;
+    const float qq = s.qsq[u];
+    const float lower = pool::ord_float(s.low[u]);
+    bool pass[4];
+    unsigned mk[4];
+    int total = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pass[i] = ok[i] &&
+                pool::goodness(acc[i][u], qq, ns[i], rvn[i], sim) >= lower;
+      mk[i] = __ballot_sync(kFull, pass[i]);
+      total += __popc(mk[i]);
+    }
+    if (total == 0) continue;
+    int at = 0;
+    if (lane == 0) at = atomicAdd(&s.cnt[u], total);
+    at = __shfl_sync(kFull, at, 0);
+    float* bv = s.buf_v + u * cap;
+    int* bi = s.buf_i + u * cap;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (pass[i]) {
+        const int o = at + __popc(mk[i] & lt);
+        bv[o] = transform_score(acc[i][u], qq, ns[i], sim);
+        bi[o] = doc[i];
+      }
+      at += __popc(mk[i]);
+    }
+  }
+}
+
+// The warps [sq * G, (sq + 1) * G) of the CTA select for query sq, under
+// named barrier 1 + sq when G > 1: its group, one warp's or several's.
+template <class F>
+__device__ __forceinline__ void as_group(int G, int sq, int warp, int lane,
+                                         F&& f) {
+  if (G == 1) {
+    f(Group<true>{lane, 32, 0});
+  } else {
+    f(Group<false>{(warp - sq * G) * 32 + lane, 32 * G, 1 + sq});
+  }
+}
+
+// After a step's appends (and a barrier): query sq's group flushes its
+// buffer into its pool when the pool can fill, when the next step could
+// overflow the buffer, and at the range's end (last).
+__device__ __forceinline__ void flush_when_due(const Sel& s, int sq, int qb,
+                                               bool last, int r, int cap,
+                                               int sim, int G, int warp,
+                                               int lane) {
+  if (sq >= qb) return;
+  const int pn = s.pn[sq], cn = s.cnt[sq];
+  if (cn > 0 && (last || cn > cap - kSD || (pn < r && pn + cn >= r))) {
+    as_group(G, sq, warp, lane, [&](const auto& g) {
+      flush(s.pool_v + sq * r, s.pool_i + sq * r, s.buf_v + sq * cap,
+            s.buf_i + sq * cap, pn, cn, s.pn + sq, s.cnt + sq, s.low + sq, r,
+            s.qn[sq], sim, s.hist + sq * G * kBins, s.wmm + 2 * sq * G,
+            s.pick + 4 * sq * G, g);
+    });
+  }
+}
+
+// The range's end: query sq's group sorts its pool in the emptied buffer
+// (padded with (-inf, -1) to a power of two) and writes its r slots to
+// out_v / out_i.
+__device__ __forceinline__ void write_pool(const Sel& s, int sq, int qb,
+                                           int r, int cap, int G, int warp,
+                                           int lane, float* out_v,
+                                           int* out_i) {
+  if (sq >= qb) return;
+  const int pn = s.pn[sq], P = pow2_at_least(r);
+  float* sv = s.buf_v + sq * cap;
+  int* si = s.buf_i + sq * cap;
+  as_group(G, sq, warp, lane, [&](const auto& g) {
+    for (int j = g.gt; j < P; j += g.size()) {
+      sv[j] = j < pn ? s.pool_v[sq * r + j] : -INFINITY;
+      si[j] = j < pn ? s.pool_i[sq * r + j] : -1;
+    }
+    g.sync();
+    bitonic_desc(sv, si, P, g);
+    for (int j = g.gt; j < r; j += g.size()) {
+      out_v[j] = sv[j];
+      out_i[j] = si[j];
+    }
+  });
 }
 
 // grid (n_split, S, ceil(B / 8)); dynamic shared memory scan_smem_bytes.
@@ -426,32 +591,13 @@ __global__ void __launch_bounds__(kThreads, 1) knn_wide_scan_kernel(
   extern __shared__ __align__(16) float wide_smem[];
   float* ring = wide_smem;                       // [STAGES][kSD][kDC]
   float* qs = ring + STAGES * STAGE_FLOATS;      // [8][dp]
-  u64* wmm = reinterpret_cast<u64*>(qs + kQT * dp);  // [8][2] select keys
-  int* pick = reinterpret_cast<int*>(wmm + 2 * kWarps);  // [8][4]
-  float* qsq_s = reinterpret_cast<float*>(pick + 4 * kWarps);  // [8]
-  float* qn_s = qsq_s + kQT;                     // [8] |q|
-  int* low_s = reinterpret_cast<int*>(qn_s + kQT);  // [8] bound (ord_int)
-  int* cnt_s = low_s + kQT;                      // [8] buffer counts
-  int* pn_s = cnt_s + kQT;                       // [8] pool counts
-  unsigned* hist = reinterpret_cast<unsigned*>(pn_s + kQT);  // [8][256]
-  float* pool_v = reinterpret_cast<float*>(hist + kWarps * kBins);
-  int* pool_i = reinterpret_cast<int*>(pool_v + rows * r);   // [rows][r]
-  float* buf_v = reinterpret_cast<float*>(pool_i + rows * r);
-  int* buf_i = reinterpret_cast<int*>(buf_v + rows * cap);   // [rows][cap]
+  const Sel sel = carve_sel(qs + kQT * dp, rows, r, cap);
 
   for (int e = tid; e < kQT * dp; e += kThreads) {
     const int row = e / dp, col = e - row * dp;
     qs[e] = (row < qb && col < d) ? q[(size_t)(q0 + row) * d + col] : 0.0f;
   }
-  for (int e = tid; e < kQT; e += kThreads) {
-    const float s = e < qb ? qsq[q0 + e] : 0.0f;
-    qsq_s[e] = s;
-    qn_s[e] = __fsqrt_rn(fmaxf(s, 1e-24f));
-    low_s[e] = pool::ord_int(-INFINITY);
-    cnt_s[e] = 0;
-    pn_s[e] = 0;
-  }
-  for (int e = tid; e < kWarps * kBins; e += kThreads) hist[e] = 0u;
+  init_sel(sel, qsq, q0, qb, tid);
 
   const int n_steps = end > start ? (end - start + kSD - 1) / kSD : 0;
   const int n_tiles = n_steps * NC;
@@ -484,13 +630,9 @@ __global__ void __launch_bounds__(kThreads, 1) knn_wide_scan_kernel(
 
   for (int s = 0; s < STAGES - 1; ++s) fetch(s);
 
-  // the warps [sq * G, (sq + 1) * G) select for query sq, under named
-  // barrier 1 + sq when G > 1
+  // the warps [sq * G, (sq + 1) * G) select for query sq
   const int G = group_warps(qb);
   const int sq = warp / G;
-  const int gt = (warp - sq * G) * 32 + lane;
-  const Group<true> one = {lane, 32, 0};
-  const Group<false> grp = {gt, 32 * G, 1 + sq};
 
   int c = 0, step = 0;
   for (int t = 0; t < n_tiles; ++t) {
@@ -518,62 +660,13 @@ __global__ void __launch_bounds__(kThreads, 1) knn_wide_scan_kernel(
 
     // ---- the step's passers, appended to their queries' buffers
     if (busy) {
-      float rvn[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (sim == SIM_COSINE) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          rvn[i] = __frcp_rn(__fsqrt_rn(fmaxf(ns[i], 1e-24f)));
-      }
-      const unsigned lt = (1u << lane) - 1u;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        if (u >= qb) break;
-        const float qq = qsq_s[u];
-        const float lower = pool::ord_float(low_s[u]);
-        bool pass[4];
-        unsigned mk[4];
-        int total = 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pass[i] = ok[i] && pool::goodness(acc[i][u], qq, ns[i], rvn[i],
-                                            sim) >= lower;
-          mk[i] = __ballot_sync(kFull, pass[i]);
-          total += __popc(mk[i]);
-        }
-        if (total == 0) continue;
-        int at = 0;
-        if (lane == 0) at = atomicAdd(&cnt_s[u], total);
-        at = __shfl_sync(kFull, at, 0);
-        float* bv = buf_v + u * cap;
-        int* bi = buf_i + u * cap;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (pass[i]) {
-            const int o = at + __popc(mk[i] & lt);
-            bv[o] = transform_score(acc[i][u], qq, ns[i], sim);
-            bi[o] = docb + lane + 32 * i;
-          }
-          at += __popc(mk[i]);
-        }
-      }
+      const int doc[4] = {docb + lane, docb + lane + 32, docb + lane + 64,
+                          docb + lane + 96};
+      append_passers(sel, acc, ok, ns, doc, qb, cap, sim, lane);
     }
     __syncthreads();
     // ---- query sq's group of warps flushes its buffer when due
-    if (sq < qb) {
-      const int pn = pn_s[sq], cn = cnt_s[sq];
-      if (cn > 0 && (last || cn > cap - kSD || (pn < r && pn + cn >= r))) {
-        const auto go = [&](const auto& g) {
-          flush(pool_v + sq * r, pool_i + sq * r, buf_v + sq * cap,
-                buf_i + sq * cap, pn, cn, pn_s + sq, cnt_s + sq, low_s + sq,
-                r, qn_s[sq], sim, hist + sq * G * kBins, wmm + 2 * sq * G,
-                pick + 4 * sq * G, g);
-        };
-        if (G == 1)
-          go(one);
-        else
-          go(grp);
-      }
-    }
+    flush_when_due(sel, sq, qb, last, r, cap, sim, G, warp, lane);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -582,30 +675,9 @@ __global__ void __launch_bounds__(kThreads, 1) knn_wide_scan_kernel(
   pool::cp_async_wait<0>();
   __syncthreads();
 
-  // ---- the range's end: query sq's group sorts its pool in the emptied
-  // buffer (padded with (-inf, -1) to a power of two) and writes r slots
-  if (sq < qb) {
-    const int pn = pn_s[sq], P = pow2_at_least(r);
-    float* sv = buf_v + sq * cap;
-    int* si = buf_i + sq * cap;
-    const size_t o = (((size_t)shard * n_split + split) * B + q0 + sq) * r;
-    const auto go = [&](const auto& g) {
-      for (int j = g.gt; j < P; j += g.size()) {
-        sv[j] = j < pn ? pool_v[sq * r + j] : -INFINITY;
-        si[j] = j < pn ? pool_i[sq * r + j] : -1;
-      }
-      g.sync();
-      bitonic_desc(sv, si, P, g);
-      for (int j = g.gt; j < r; j += g.size()) {
-        part_v[o + j] = sv[j];
-        part_i[o + j] = si[j];
-      }
-    };
-    if (G == 1)
-      go(one);
-    else
-      go(grp);
-  }
+  // ---- the range's end: each query's sorted pool, r slots
+  const size_t o = (((size_t)shard * n_split + split) * B + q0 + sq) * r;
+  write_pool(sel, sq, qb, r, cap, G, warp, lane, part_v + o, part_i + o);
 }
 
 // ------------------------------------------------------ the split merge
@@ -830,6 +902,20 @@ cudaError_t launch_scan(cudaStream_t st, const float* v, const float* nsq,
   return cudaGetLastError();
 }
 
+// The split merge of the ranges' pools part_[v|i] into out_[v|i] on `st`.
+inline cudaError_t launch_merge(cudaStream_t st, const float* part_v,
+                                const int* part_i, float* out_v, int* out_i,
+                                int S, int B, int r, int n_split) {
+  const size_t smem = merge_smem_bytes(n_split, r);
+  cudaError_t e = cudaFuncSetAttribute(
+      knn_wide_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  knn_wide_merge_kernel<<<dim3(B, S), kMergeThreads, smem, st>>>(
+      part_v, part_i, out_v, out_i, n_split, B, r);
+  return cudaGetLastError();
+}
+
 // the plans with a kernel: (ring stages, floats a stage)
 inline bool known_ring(int stages, int stage_floats) {
   return (stages == 3 && stage_floats == 16384) ||
@@ -862,14 +948,7 @@ inline cudaError_t launch_wide_pool(cudaStream_t st, const float* v,
     e = launch_scan<2, 8192>(st, v, nsq, valid, q, qsq, part_v, part_i, S, n,
                              d, B, r, cap, sim, chunk, n_split);
   if (e != cudaSuccess) return e;
-  const size_t smem = merge_smem_bytes(n_split, r);
-  e = cudaFuncSetAttribute(knn_wide_merge_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  knn_wide_merge_kernel<<<dim3(B, S), kMergeThreads, smem, st>>>(
-      part_v, part_i, out_v, out_i, n_split, B, r);
-  return cudaGetLastError();
+  return launch_merge(st, part_v, part_i, out_v, out_i, S, B, r, n_split);
 }
 
 // smem bytes of the scan at a plan; 0 for a ring with no kernel

@@ -23,7 +23,7 @@ Dispatch: :func:`pool_scan` launches the kernel for CUDA tensors (or
 raises) and runs :func:`plain_pool` for CPU tensors. The policy value
 "pallas" means the kernel, "xla" the plain version, as in the reference.
 
-The kernel has three designs, chosen by (precision, r) in
+The kernel has four designs, chosen by (precision, r) in
 :func:`scan_tier`, never on failure: at fp32 with r <= ``LIST_MAX_R`` the
 list scan (``csrc/knn_pool.cuh``: a cp.async ring, 4 x 8 FFMA micro-tiles,
 per-warp lists carried across each CTA's contiguous doc range, then a
@@ -31,10 +31,13 @@ CTA-per-query split merge), counted on ``list_launches`` too; at fp32 with
 LIST_MAX_R < r <= ``WIDE_MAX_R`` its wide tier (``csrc/knn_wide.cuh``: the
 same scan at 8-query tiles, a CTA-wide pool of r a query fed through a
 candidate buffer and a radix select, then a select-then-sort split merge),
-counted on ``wide_launches`` too; at bf16, at int8 and at fp32 with
-r > 1024 the tile scan (``csrc/knn_tile.cuh``). The list scan and its wide
-tier read rows in 16-byte units: :func:`rows_in_16_bytes` pads d to a
-multiple of 4 and copies an unaligned operand first.
+counted on ``wide_launches`` too; at bf16 and int8 with r <= WIDE_MAX_R
+(every reduced-precision serving search) the wide tier's tensor-core scan
+(``csrc/knn_wide_mma.cuh``: the same ring, step, selection and merge, the
+dots by ``mma.sync``), counted on ``mma_launches`` too; at r > 1024, which
+no serving route reaches, the tile scan (``csrc/knn_tile.cuh``). The range
+scans read rows in 16-byte units: :func:`rows_in_16_bytes` pads d with zero
+columns to whole units and copies an unaligned operand first.
 """
 
 from __future__ import annotations
@@ -71,10 +74,11 @@ QUERY_TILES = (8, 32, 128)
 LIST_PLANS = ((8, 3), (8, 2), (32, 3), (128, 4))
 LIST_SUB = 128
 _MAX_GRID = 65_535
-# the wide tier (csrc/knn_wide.cuh): its largest r, its query tile, its
-# rings (stages, floats a stage) in order of preference, the docs of one
-# step (the least buffer a query: no step can overflow it) and the largest
-# buffer it is given
+# the wide tier (csrc/knn_wide.cuh) and its tensor-core scan
+# (csrc/knn_wide_mma.cuh): their largest r, their query tile, their rings
+# (stages, 32-bit words a stage: f32, or 2 bf16 or 4 int8) in order of
+# preference, the docs of one step (the least buffer a query: no step can
+# overflow it) and the largest buffer they are given
 WIDE_MAX_R = 1024
 WIDE_QUERY_TILE = 8
 WIDE_RINGS = ((3, 16384), (2, 16384), (2, 8192))
@@ -82,10 +86,11 @@ WIDE_STEP = 1024
 WIDE_MAX_CAP = 4096
 
 # launches of the kernel made by pool_scan (any design), and of the list
-# scan and of its wide tier alone
+# scan, of its wide tier and of the wide tier's tensor-core scan alone
 launches = cuda_lib.LaunchCounter()
 list_launches = cuda_lib.LaunchCounter()
 wide_launches = cuda_lib.LaunchCounter()
+mma_launches = cuda_lib.LaunchCounter()
 
 
 def fused_pool_width(k: int, score_precision: str) -> int:
@@ -208,9 +213,13 @@ def _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
 def scan_tier(score_precision: str, r: int) -> str:
     """The kernel design for a scan: "lists" (the list scan) at fp32 with
     r <= LIST_MAX_R, "wide" (its wide tier) at fp32 with r <= WIDE_MAX_R,
-    else "tile" (the tile scan). A choice by shape alone."""
-    if score_precision != "fp32" or r > WIDE_MAX_R:
+    "mma" (the wide tier's tensor-core scan) at bf16 and int8 with
+    r <= WIDE_MAX_R, else "tile" (the tile scan). A choice by shape
+    alone."""
+    if r > WIDE_MAX_R:
         return "tile"
+    if score_precision != "fp32":
+        return "mma"
     return "lists" if r <= LIST_MAX_R else "wide"
 
 
@@ -237,24 +246,47 @@ def list_plan(b: int, d: int, r: int, smem_bytes) -> tuple[int, int]:
     return max(plans, key=lambda p: (p[0], p[1]))
 
 
-def wide_plan(b: int, d: int, r: int, smem_bytes) -> tuple[int, int, int]:
-    """(ring stages, floats a stage, buffer capacity) of the wide tier for a
-    batch of b: the first ring of ``WIDE_RINGS`` beside which min(8, b)
-    queries' pools of r and buffers of at least ``WIDE_STEP`` pairs fit
-    ``smem_bytes(stages, floats, d, r, rows, cap)``, the buffer as large as
-    the rest allows, in whole 128s, up to ``WIDE_MAX_CAP``; raises
-    ValueError when none fits."""
+def _ring_plan(b: int, smem_bytes, what: str) -> tuple[int, int, int]:
+    """The first ring (stages, 32-bit words a stage) of ``WIDE_RINGS``
+    beside which min(8, b) queries' pools and buffers of at least
+    ``WIDE_STEP`` pairs fit ``smem_bytes(stages, words, rows, cap)``, with
+    the buffer capacity as large as the rest allows, in whole 128s, up to
+    ``WIDE_MAX_CAP``; raises ValueError when none fits."""
     rows = min(WIDE_QUERY_TILE, b)
-    for stages, floats in WIDE_RINGS:
-        base = smem_bytes(stages, floats, d, r, rows, 0)
+    for stages, words in WIDE_RINGS:
+        base = smem_bytes(stages, words, rows, 0)
         if base <= 0:
             continue
-        per = smem_bytes(stages, floats, d, r, rows, 1) - base
+        per = smem_bytes(stages, words, rows, 1) - base
         cap = min(WIDE_MAX_CAP, (_MAX_SMEM - base) // per // 128 * 128)
         if cap >= WIDE_STEP:
-            return stages, floats, cap
-    raise ValueError(f"the wide tier needs more than {_MAX_SMEM} bytes of "
-                     f"shared memory at d={d}, r={r}")
+            return stages, words, cap
+    raise ValueError(f"{what} needs more than {_MAX_SMEM} bytes of shared "
+                     f"memory")
+
+
+def wide_plan(b: int, d: int, r: int, smem_bytes) -> tuple[int, int, int]:
+    """(ring stages, floats a stage, buffer capacity) of the wide tier for a
+    batch of b over f32 rows of d: :func:`_ring_plan` under
+    ``smem_bytes(stages, floats, d, r, rows, cap)``."""
+    return _ring_plan(
+        b, lambda stages, floats, rows, cap: smem_bytes(
+            stages, floats, d, r, rows, cap),
+        f"the wide tier at d={d}, r={r}")
+
+
+def wide_mma_plan(b: int, d: int, r: int, score_precision: str,
+                  smem_bytes) -> tuple[int, int, int]:
+    """(ring stages, words a stage, buffer capacity) of the wide tier's
+    tensor-core scan for a batch of b over rows of d bf16 or int8 elements:
+    :func:`_ring_plan` under ``smem_bytes(prec, stages, words, d, r, rows,
+    cap)`` (the C entry point's, prec its code). A stage's words hold 1,024
+    rows of a d chunk of 32-bit words: 2 bf16 or 4 int8 elements each."""
+    prec = _PREC_CODE[score_precision]
+    return _ring_plan(
+        b, lambda stages, words, rows, cap: smem_bytes(
+            prec, stages, words, d, r, rows, cap),
+        f"the tensor-core tier at {score_precision} d={d}, r={r}")
 
 
 def list_geometry(S: int, n: int, n_qtiles: int, sms: int) -> tuple[int, int]:
@@ -277,13 +309,14 @@ def sm_count(device) -> int:
 
 def rows_in_16_bytes(vectors, queries):
     """(vectors, queries) as the cp.async kernels read them: rows of whole
-    16-byte units at 16-byte aligned addresses. An odd width pads with zero
-    columns to a multiple of 4 (a zero column adds exact +0.0 terms to every
-    dot, and bf16(0) = 0); an operand that is not 16-byte aligned is
-    copied. At d % 4 == 0 with aligned operands nothing is copied. Norms
-    and |q|^2 are the caller's, from the unpadded rows. Vectors may carry a
-    leading shard axis."""
-    pad = -vectors.shape[-1] % 4
+    16-byte units at 16-byte aligned addresses. A width that is not whole
+    units pads with zero columns to a multiple of 4 f32, 8 bf16 or 16 int8
+    (a zero column adds exact zero terms to every dot: bf16(0) and int8 0
+    are zero); an operand that is not 16-byte aligned is copied. With whole
+    units and aligned operands nothing is copied. Norms and |q|^2 are the
+    caller's, from the unpadded rows. Vectors may carry a leading shard
+    axis."""
+    pad = -vectors.shape[-1] % (16 // vectors.element_size())
     if pad:
         return (torch.nn.functional.pad(vectors, (0, pad)),
                 torch.nn.functional.pad(queries, (0, pad)))
@@ -324,15 +357,23 @@ def _library() -> ctypes.CDLL:
     lib.knn_fused_wide_launch.argtypes = ([ctypes.c_void_p] * 9
                                           + [ctypes.c_int] * 11
                                           + [ctypes.c_void_p])
+    lib.knn_fused_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.knn_fused_mma_smem_bytes.argtypes = [ctypes.c_int] * 7
+    lib.knn_fused_mma_launch.restype = ctypes.c_int
+    lib.knn_fused_mma_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                                         + [ctypes.c_void_p] * 9
+                                         + [ctypes.c_int] * 11
+                                         + [ctypes.c_void_p])
     return lib
 
 
 def _launch_ranges(launch, what: str, v, norms_sq, valid, q, qsq, *, r: int,
                    similarity: str, qt: int, plan: tuple):
-    """One launch of a range scan (the list scan or its wide tier) on rows
-    already in 16-byte units: the shards cut into ranges of about one wave
-    for query tiles of qt, scratch and outputs allocated, and ``launch``
-    called with the plan's integers before (chunk, n_split)."""
+    """One launch of a range scan (the list scan, its wide tier or the
+    wide tier's tensor-core scan) on rows already in 16-byte units: the
+    shards cut into ranges of about one wave for query tiles of qt,
+    scratch and outputs allocated, and ``launch`` called with the plan's
+    integers before (chunk, n_split)."""
     S, n, d = v.shape
     B = q.shape[0]
     if S > _MAX_GRID or -(-B // qt) > _MAX_GRID:
@@ -380,6 +421,23 @@ def launch_wide(launch, smem_bytes, v, norms_sq, valid, q, qsq, *, r: int,
                           plan=plan)
 
 
+def launch_wide_mma(lib, v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
+                    similarity: str, score_precision: str):
+    """The wide tier's tensor-core scan over [S, n, d] bf16 or int8 shards
+    through ``lib`` (K1's library): (vals [S, B, r], ids [S, B, r]). Pads
+    and aligns the rows, plans the ring and the buffer
+    (:func:`wide_mma_plan`), and cuts the shards into ranges of about one
+    wave for 8-query tiles."""
+    v, q = rows_in_16_bytes(v_x, q_x)
+    plan = wide_mma_plan(q.shape[0], v.shape[2], r, score_precision,
+                         lib.knn_fused_mma_smem_bytes)
+    launch = functools.partial(lib.knn_fused_mma_launch, scale.data_ptr(),
+                               _PREC_CODE[score_precision])
+    return _launch_ranges(launch, "tensor-core tier", v, norms_sq, valid, q,
+                          qsq, r=r, similarity=similarity,
+                          qt=WIDE_QUERY_TILE, plan=plan)
+
+
 def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
                    score_precision):
     """Launch the design :func:`scan_tier` picks."""
@@ -391,7 +449,12 @@ def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
                             similarity=similarity,
                             score_precision=score_precision)
     lib = _library()
-    if tier == "lists":
+    if tier == "mma":
+        vals, ids = launch_wide_mma(lib, v_x, norms_sq, valid, q_x, qsq,
+                                    scale, r=r, similarity=similarity,
+                                    score_precision=score_precision)
+        mma_launches.add()
+    elif tier == "lists":
         vals, ids = launch_lists(lib.knn_fused_lists_launch,
                                  lib.knn_fused_lists_smem_bytes, v_x,
                                  norms_sq, valid, q_x, qsq, r=r,
@@ -442,8 +505,9 @@ def pool_scan(v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
               similarity: str, score_precision: str):
     """The pool scan over stacked shards: (vals [S, B, r], ids [S, B, r]).
     CUDA tensors launch the kernel (the list scan at fp32 with r <= 32, its
-    wide tier at fp32 with r <= 1024, the tile scan otherwise:
-    :func:`scan_tier`); CPU tensors take :func:`plain_pool`."""
+    wide tier at fp32 with r <= 1024, the wide tier's tensor-core scan at
+    bf16 and int8 with r <= 1024, the tile scan past r = 1024:
+    :func:`scan_tier`) or raise; CPU tensors take :func:`plain_pool`."""
     if v_x.device.type == "cuda":
         return _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
                               similarity=similarity,

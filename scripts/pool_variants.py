@@ -126,12 +126,14 @@ def build(tmp: Path, name: str, subs):
         src = src.replace(old, new)
     where = tmp / name
     where.mkdir()
+    # knn_fused.cu reaches knn_pool.cuh through the other headers, whose
+    # quoted includes look beside them first: copies of them all make them
+    # find the variant's
+    for header in cuda_lib.CSRC.glob("*.cuh"):
+        shutil.copy(header, where / header.name)
     (where / "knn_pool.cuh").write_text(src)
     cu, so = where / "knn_fused.cu", where / "libknn_fused.so"
     shutil.copy(cuda_lib.CSRC / "knn_fused.cu", cu)
-    # knn_fused.cu reaches knn_pool.cuh through knn_wide.cuh, whose quoted
-    # include looks beside it first: the copy makes it find the variant's
-    shutil.copy(cuda_lib.CSRC / "knn_wide.cuh", where / "knn_wide.cuh")
     flags = [*cuda_lib.NVCC_FLAGS, "-I", str(cuda_lib.CSRC)]
     if name == "current":
         flags += ["-Xptxas", "-v"]

@@ -54,17 +54,17 @@ from opensearch_tpu_torch.ops import knn_fused as kf  # noqa: E402
 
 VARIANTS = {
     # the scan and the filter, with no doc appended (pools stay empty)
-    "filter_only": [("        if (total == 0) continue;\n",
-                     "        if (true) continue;\n")],
+    "filter_only": [("    if (total == 0) continue;\n",
+                     "    if (true) continue;\n")],
     # the current kernel counting, in device memory, the passers appended,
     # the flushes, the selecting flushes and the pairs they select from
     "counted": [
         ('#include "knn_pool.cuh"\n',
          '#include "knn_pool.cuh"\n__device__ unsigned long long '
          'wide_count[4];\n'),
-        ("        if (total == 0) continue;\n",
-         "        if (total == 0) continue;\n"
-         "        if (lane == 0) atomicAdd(&wide_count[0], "
+        ("    if (total == 0) continue;\n",
+         "    if (total == 0) continue;\n"
+         "    if (lane == 0) atomicAdd(&wide_count[0], "
          "(unsigned long long)total);\n"),
         ("  const int m = pn + cn;\n  u64 t = 0ull;\n  if (m > r) {\n",
          "  const int m = pn + cn;\n  u64 t = 0ull;\n"
@@ -109,6 +109,10 @@ def build(tmp: Path, name: str, subs):
         src = src.replace(old, new)
     where = tmp / name
     where.mkdir()
+    # copies of every header beside the variant's, so that the quoted
+    # includes of those that include it find it
+    for header in cuda_lib.CSRC.glob("*.cuh"):
+        shutil.copy(header, where / header.name)
     (where / "knn_wide.cuh").write_text(src)
     cu, so = where / "knn_fused.cu", where / "libknn_fused.so"
     shutil.copy(cuda_lib.CSRC / "knn_fused.cu", cu)

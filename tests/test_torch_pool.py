@@ -21,8 +21,9 @@ same numpy inputs.
 
 Then the wrapper's choices: the ranges cover every shard once, the design
 is chosen by (precision, r) for K1 (the list scan, its wide tier at fp32
-with 32 < r <= 1024, tests/test_torch_wide.py, or the tile scan) and by k
-for K3, the plans fit the card's shared memory, and a CPU tensor never
+with 32 < r <= 1024, tests/test_torch_wide.py, the wide tier's tensor-core
+scan at bf16 and int8 with r <= 1024, tests/test_torch_wide_mma.py, or the
+tile scan past r = 1024) and by k for K3, the plans fit the card's shared memory, and a CPU tensor never
 launches.
 """
 
@@ -279,11 +280,11 @@ def test_serving_shapes_fill_the_card():
 
 @pytest.mark.parametrize("precision,r,want", [
     ("fp32", 1, "lists"), ("fp32", 10, "lists"), ("fp32", 32, "lists"),
-    ("fp32", 33, "wide"), ("fp32", 128, "wide"), ("bf16", 10, "tile"),
-    ("bf16", 40, "tile"), ("int8", 32, "tile"), ("int8", 512, "tile"),
+    ("fp32", 33, "wide"), ("fp32", 128, "wide"), ("bf16", 10, "mma"),
+    ("bf16", 40, "mma"), ("int8", 32, "mma"), ("int8", 512, "mma"),
     ("fp32", 100, "wide"), ("fp32", 1024, "wide"), ("fp32", 1025, "tile"),
-    ("fp32", 4096, "tile"), ("bf16", 400, "tile"), ("int8", 40, "tile"),
-    ("int8", 400, "tile")])
+    ("fp32", 4096, "tile"), ("bf16", 400, "mma"), ("int8", 40, "mma"),
+    ("int8", 400, "mma")])
 def test_k1_design_is_chosen_by_precision_and_r(precision, r, want):
     assert knn_fused.scan_tier(precision, r) == want
 
