@@ -1,23 +1,38 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed N] [--phases kernel,timing,main]
+    python3 chip_smoke.py [--seed N] [--phases kernel,timing,main|filtered]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,knn_sbmax]
 
-Builds the port's five CUDA kernels from the sources in this checkout (one
+Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together): K1 (csrc/knn_fused.cu, fused exact
 kNN: the list scan of csrc/knn_pool.cuh at fp32 with r <= 32, its wide
-tier, csrc/knn_wide.cuh, at fp32 with 32 < r <= 1024, the wide tier's
-tensor-core scan, csrc/knn_wide_mma.cuh, at bf16 and int8 with
-r <= 1024, the tile scan of csrc/knn_tile.cuh past r = 1024), K2
+tier, csrc/knn_wide.cuh, at fp32 with 32 < r <= 1024, its large-r tier,
+csrc/knn_large.cuh, at fp32 past r = 1024, the wide tier's tensor-core
+scan, csrc/knn_wide_mma.cuh, at bf16 and int8 with r <= 1024, the tile
+scan of csrc/knn_tile.cuh there past r = 1024), the fixed-order rescore
+and |q|^2 (csrc/knn_rescore.cu: knn_rescore_kernel, knn_query_sq_kernel;
+no Pallas counterpart: they replace a batched einsum and a row sum, so a
+batched search gets a solo one's bits), K2
 (csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family K3
 (csrc/knn_block.cu, running top-k: the list scan and its wide tier), K4 (csrc/knn_pb.cu: per-block top-k, then the
 block-major merge, two kernels) and K5 (csrc/knn_sbmax.cu: sub-block
 maxima, then the selection and rescore, two kernels). ``--kernels`` limits
 the kernel and timing phases to
-the named kernels (default all five; the main phase needs K1 and K2).
+the named kernels (default all six; the main phase needs K1, K2 and the
+rescore).
 Then:
 
 1. kernel: holds each kernel against its plain PyTorch version on the card.
+   K1's large-r tier (large_kernel_phase) on clustered floats, bit for bit
+   against kernel_order_pool: one shard of 60,000 128-d docs at B = 1, 9
+   and 33 x r = 1025, 1400, 2000, 4096, 10,000 and 20,000 (the sort in
+   device memory), 20,000 768-d docs to r = 10,000, four shards (one with
+   5 live docs), d = 30, and r past a shard's live count, which returns
+   every live doc; the tile scan beside it at r = 1025 and 1400. The
+   rescore and |q|^2 (rescore_kernel_phase): bit-equal to their plain
+   versions on sixteenths and on floats (a float difference would be
+   logged and held to the f32 bound), every batch row its solo call's
+   bits, at B = 1, 8 and 33 x R = 40-512, d = 100, 128 and 768.
    K1: fp32, bf16 and int8 x l2, cosine and dot (n = 50,000, d = 128,
    B = 16, k = 10, 3% dead docs, planted duplicate vectors), and at the
    shapes the main path gives it. int8 pools must be bit-equal; fp32 ids
@@ -124,7 +139,9 @@ Then:
    yardstick's and the bound (slab, norms, flags and queries read once,
    what the kernel writes, against 2*B*n*d operations).
 3. main: drives TorchNode on the card. Exact (K1): index A (1 shard,
-   200,000 clustered 128-d docs) and index B (4 shards, 20,000 docs), 64
+   200,000 clustered 128-d docs, with the k-NN plugin perf-tool filtering
+   specs' age, color and taste columns from --seed) and index B (4
+   shards, 20,000 docs), 64
    knn searches each; every hit list must equal the brute-force truth in
    the same order, every search must go through the stacked serving path
    and K1's list scan (its counter), whose step is timed (200 steps) and
@@ -147,11 +164,28 @@ Then:
    of the pool), recall@k against the fp32 brute force printed; and one
    stacked step a precision and k split by kernel name (prep, scan,
    merge, rescore).
+   Then (stacked_batch_phase) 8 queries in one stacked launch against
+   each alone at fp32, bf16 and int8, k = 10 and 100: bit for bit. Then
+   filtered kNN (filtered_main_phase): the relaxed (~40%), restrictive
+   (~1%) and 50-ids filters at fp32 k = 10 and 100, bf16 and int8 k = 10,
+   8 searches each on both routes, every hit list the brute force over the
+   filtered docs (fp32, kernel order) or the plain pipeline (bf16, int8),
+   one K1 launch a search on the tier scan_tier names, each stacked one
+   counted in "filtered"; the mask build's and the filtered step's device
+   ms beside the unfiltered step's. Then the stacked step past r = 1024
+   (large_main_phase): k = 1025, 2000 and 4096 on a 768-d index of 20,000
+   docs, k = 10,000 on index A, k = 5,000 on 1,500 docs (every live doc),
+   each hit list the kernel-order brute force, one large-r launch a
+   search. Every concurrent (gated) check of a K1 path holds ids and
+   scores bit for bit to the solo search.
    ANN (K2): index C (1 shard, 200,000 clustered 100-d docs, cosine,
    ivf_pq nlist 512, m 20, nprobe 8; cut from 1.2M by host ingest), 64 knn
    searches, k = 10; every hit list must equal the plain pipeline
    (adc_topr_auto impl="xla") on the same index and probes, every search
-   must take the per-shard ANN branch and launch K2. Recall@10 against
+   must take the per-shard ANN branch and launch K2. Under the relaxed
+   filter (it has the same attribute columns) 16 searches on each route
+   are exact K1 searches with no K2 launch, equal to the cosine brute force
+   over the filtered docs. Recall@10 against
    exact cosine brute force is printed, not gated. Then a second refresh
    adds 300 docs (below min_train, so an exact segment) and 16 searches
    over both segments must equal the plain pipeline and launch K2 and K1
@@ -196,7 +230,8 @@ K2_PARITY_DOCS = 100_000      # K2 kernel phase build
 GLOVE_DOCS = 1_200_000        # K2 timing phase (the glove-100 corpus size)
 SIFT_DOCS = 1_000_000         # K3-K5 timing phase (the SIFT-1M corpus size)
 ANN_MAIN_DOCS = 200_000       # index C (cut from 1.2M by host ingest)
-KERNELS = ("knn_fused", "adc_scan", "knn_block", "knn_pb", "knn_sbmax")
+KERNELS = ("knn_fused", "adc_scan", "knn_block", "knn_pb", "knn_sbmax",
+           "knn_rescore")
 SIMS = ("l2_norm", "cosine", "dot_product")
 
 
@@ -438,16 +473,15 @@ def near_tie_swaps(kf, kv, ki, pv, pi, args, sim: str, what: str) -> list:
     return swaps
 
 
-def kernel_order_pool(kf, v, nrm, ok, q, qsq, r: int, sim: str):
-    """The exact top-r pools of f32 operands under the list scan's own
+def kernel_order_scores(kf, v, nrm, ok, q, qsq, sim: str):
+    """The [S, B, n] scores of f32 operands under the range scans' own
     arithmetic, on the card: every dot summed over d in ascending order in
     one f32 accumulator, each step a fused multiply-add (the product exact
     in f64, the sum rounded once to f64 and then to f32: a second rounding
     can differ from the fused one only when the f64 sum lands on an f32
     midpoint, about 2^-28 of the steps, and then by one ulp), then the
-    plain version's transform, which rounds as the kernel does. Returns
-    (vals [S, B, r], ids [S, B, r] int32), (-inf, -1) past the live
-    count."""
+    plain version's transform, which rounds as the kernel does; -inf for a
+    dead doc."""
     S, n, d = v.shape
     vt = v.transpose(1, 2).contiguous()           # [S, d, n]
     acc = torch.zeros((S, q.shape[0], n), dtype=torch.float32,
@@ -457,9 +491,22 @@ def kernel_order_pool(kf, v, nrm, ok, q, qsq, r: int, sim: str):
                * vt[:, None, j].double()).float()
     scores = kf._transform_scores(acc, qsq[None, :, None], nrm[:, None, :],
                                   sim)
-    scores = torch.where(ok[:, None, :], scores, float("-inf"))
+    return torch.where(ok[:, None, :], scores, float("-inf"))
+
+
+def order_top(kf, scores, r: int):
+    """The top r of kernel_order_scores' scores under (score desc, doc id
+    asc): (vals [S, B, r], ids [S, B, r] int32), (-inf, -1) past the live
+    count."""
     vals, ids = kf.stable_topk(scores, r)
     return vals, torch.where(vals > float("-inf"), ids, -1).to(torch.int32)
+
+
+def kernel_order_pool(kf, v, nrm, ok, q, qsq, r: int, sim: str):
+    """The exact top-r pools of f32 operands under the list scan's own
+    arithmetic (kernel_order_scores, order_top). Returns (vals [S, B, r],
+    ids [S, B, r] int32), (-inf, -1) past the live count."""
+    return order_top(kf, kernel_order_scores(kf, v, nrm, ok, q, qsq, sim), r)
 
 
 def order_check(kf, kv, ki, args, r: int, sim: str, what: str,
@@ -517,12 +564,13 @@ def lists_check(kf, v, nrm, ok, q, r: int, sim: str, what: str,
     r >= 100 two summation orders swap neighbours further apart than
     near_tie_swaps' 1e-5). The design scan_tier names must have served it,
     one launch of K1: the list scan at r <= 32 (one list_launches), its
-    wide tier at r <= 1024 (one wide_launches), else the tile scan (neither
-    of them)."""
+    wide tier at r <= 1024 (one wide_launches), else its large-r tier (one
+    large_launches)."""
     qsq = (q * q).sum(dim=1)
     one = torch.ones(v.shape[0], device=v.device)
     tier = kf.scan_tier("fp32", r)
-    counters = (kf.launches, kf.list_launches, kf.wide_launches)
+    counters = (kf.launches, kf.list_launches, kf.wide_launches,
+                kf.large_launches)
     before = [c.count for c in counters]
     args = (v, nrm, ok, q, qsq, one)
     if bits:
@@ -553,11 +601,13 @@ def lists_check(kf, v, nrm, ok, q, r: int, sim: str, what: str,
         fin = torch.isfinite(pv)
         err = float((kv[fin] - pv[fin]).abs().max()) if bool(fin.any()) \
             else 0.0
-    want = [1, int(tier == "lists"), int(tier == "wide")]
+    want = [1, int(tier == "lists"), int(tier == "wide"),
+            int(tier == "large")]
     got = [c.count - b for c, b in zip(counters, before)]
     if got != want:
-        raise AssertionError(f"{what}: (K1, list scan, wide tier) launched "
-                             f"{got} times, want {want} ({tier})")
+        raise AssertionError(f"{what}: (K1, list scan, wide tier, large-r "
+                             f"tier) launched {got} times, want {want} "
+                             f"({tier})")
     if bits and planted and sim != "dot_product" and r >= 2:
         kv, ki = kf.pool_scan(v, nrm, ok, q, qsq, one, r=r, similarity=sim,
                               score_precision="fp32")
@@ -573,15 +623,14 @@ def lists_check(kf, v, nrm, ok, q, r: int, sim: str, what: str,
 
 def lists_kernel_phase(kf, dev, seed: int) -> float:
     """K1's list scan (fp32, r <= 32) against plain_pool on the card, its
-    wide tier at r = 33 and the tile scan at r = 1025 and 1400 (fp32 past
-    the wide tier; the tile scan's pools fill shared memory near r = 1460
-    at d = 128) beside it. Sixteenths (every dot exact in f32, so values
+    wide tier at r = 33 and its large-r tier at r = 1025 and 1400 beside
+    it. Sixteenths (every dot exact in f32, so values
     and ids bit-equal, the planted ties in id order): one shard of
     n = 300,001 (a ragged tail; LIST_COPIES straddle a range edge at
     B <= 8) at B = 1, 5, 8, 9, 32, 33, 128 and 129 (query tiles 8, 32 and
     128, full and partial, and two 128-query tiles) x r = 1, 10 and 32 in
-    l2, cosine and dot at r = 10, and r = 33; the tile scan on another such
-    shard at B = 1, 9 and 33 in l2 and cosine; four shards of 200,000 (the
+    l2, cosine and dot at r = 10, and r = 33; the large-r tier on another
+    such shard at B = 1, 9 and 33 in l2 and cosine; four shards of 200,000 (the
     last with 5 live docs) at B = 1, 8 and 33 x r = 10 and 32; d = 30 and
     768 (the two-stage ring at r = 32) at B = 1, 9 and 129; operands 4
     bytes off a 16-byte boundary. Then clustered floats: scores within
@@ -1134,8 +1183,8 @@ def timing_phase(kf, dev, seed: int) -> dict:
     return out
 
 
-# the profiler's kernel names of the tile scan (K1 at bf16 and int8 and at
-# fp32 r > 1024; the yardstick beside the wide tier) and of the wide tier
+# the profiler's kernel names of the tile scan (K1 at bf16 and int8 past
+# r = 1024; the yardstick beside the other designs) and of the wide tier
 TILE_KERNELS = ("knn_scan_kernel", "knn_merge_kernel")
 WIDE_KERNELS = ("knn_wide_scan_kernel", "knn_wide_merge_kernel")
 # the shapes that ran the tile scan before the wide tier: K1 at fp32 with
@@ -1287,6 +1336,338 @@ def wide_timing_phase(kf, kb, dev, seed: int, k1: bool, k3: bool) -> dict:
                     library_fn((v, nrm, ok, q, qsq, one), k, "fp32"),
                     blocks_bound("knn_block", n, DIM, b, k, 0))
                 out[label]["tier"] = kb.block_tier(k)
+    del v
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# K1 at fp32 past r = 1024: the large-r tier (csrc/knn_large.cuh)
+# --------------------------------------------------------------------------
+
+# the r of the large-r tier's checks, and one past the 16,384 winners the
+# select sorts in shared memory, where it sorts in a device scratch row
+LARGE_RS = (1025, 1400, 2000, 4096, 10_000)
+LARGE_DEVICE_SORT_R = 20_000
+LARGE_KERNELS = ("knn_large_scan_kernel", "knn_large_select_kernel")
+
+
+def large_check(kf, args, scores, r: int, sim: str, what: str) -> float:
+    """One K1 scan at fp32 with r > 1024 on clustered floats: ids and
+    values bit-equal to the kernel-order brute force's top r (`scores`:
+    kernel_order_scores on the same operands, order_top), and exactly one
+    K1 launch, on the large-r tier. Returns the max |dv| (0)."""
+    before = (kf.launches.count, kf.large_launches.count)
+    kv, ki = kf.pool_scan(*args, r=r, similarity=sim, score_precision="fp32")
+    torch.cuda.synchronize()
+    got = (kf.launches.count - before[0], kf.large_launches.count - before[1])
+    if got != (1, 1):
+        raise AssertionError(f"{what}: (K1, large-r tier) launched {got} "
+                             f"times, want (1, 1)")
+    rv, ri = order_top(kf, scores, r)
+    if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
+        bad = (ki != ri).nonzero()[:5].tolist()
+        raise AssertionError(f"{what}: differs from the kernel-order brute "
+                             f"force (ids differ at {bad})")
+    fin = torch.isfinite(rv)
+    return float((kv[fin] - rv[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
+def large_kernel_phase(kf, dev, seed: int) -> float:
+    """K1's large-r tier (fp32, r > 1024) on clustered floats with 3% dead
+    docs, bit for bit against the kernel-order brute force (large_check):
+    one shard of 60,000 128-d docs at B = 1, 9 and 33 x r = 1025, 1400,
+    2000, 4096, 10,000 and 20,000 (past 16,384 winners: the sort in device
+    memory) in l2 and cosine; one of 20,000 768-d docs at the same B and
+    r up to 10,000; four shards of 12,000 (the last with 5 live docs, fewer
+    than r) at B = 1 and 9; d = 30 (padded to 32); and a shard of 1,500
+    docs at r = 2048 and 5000, past its live count, which must return
+    every live doc. Beside it the tile scan, which still serves bf16 and
+    int8 past r = 1024 and is the yardstick timed beside every design, at
+    r = 1025 and 1400 (d = 128: its pools fit shared memory) against the
+    same brute force (tile_check). Returns the max |dv|."""
+    rng = np.random.default_rng(seed + 40)
+    err = 0.0
+    lib = kf._library()
+    if not (lib.knn_fused_large_sort_slots(max(LARGE_RS)) == 0
+            < lib.knn_fused_large_sort_slots(LARGE_DEVICE_SORT_R)):
+        raise AssertionError("the large-r checks do not reach both of the "
+                             "select's sorts (shared and device memory)")
+    cases = (
+        (1, 60_000, DIM, (1, 9, 33), ("l2_norm", "cosine"),
+         LARGE_RS + (LARGE_DEVICE_SORT_R,)),
+        (1, 20_000, 768, (1, 9, 33), ("l2_norm", "cosine"), LARGE_RS),
+        (4, 12_000, DIM, (1, 9), ("l2_norm",), (1025, 4096, 10_000)),
+        (1, 5_000, 30, (1, 9), ("l2_norm",), (1025, 2000)),
+        (1, 1_500, DIM, (1, 9), ("l2_norm",), (2048, 5000)),
+    )
+    for s, n, d, bs, sims, rs in cases:
+        v = torch.from_numpy(clustered(rng, s * n, d).reshape(s, n, d)).to(dev)
+        nrm = (v.double() ** 2).sum(2).float()
+        ok = torch.from_numpy(rng.random((s, n)) >= 0.03).to(dev)
+        if s == 4:
+            ok[3] = False
+            ok[3, :5] = True
+        one = torch.ones(s, device=dev)
+        for b in bs:
+            q = v[0, torch.from_numpy(rng.choice(n, b, replace=False))
+                  .to(dev)] + 0.01 * torch.randn((b, d), device=dev)
+            qsq = (q * q).sum(1)
+            args = (v, nrm, ok, q, qsq, one)
+            for sim in sims:
+                scores = kernel_order_scores(kf, v, nrm, ok, q, qsq, sim)
+                for r in rs:
+                    what = f"K1 large S={s} n={n} d={d} B={b} r={r} {sim}"
+                    err = max(err, large_check(kf, args, scores, r, sim,
+                                               what))
+                    if r > n:
+                        kv, _ki = kf.pool_scan(*args, r=r, similarity=sim,
+                                               score_precision="fp32")
+                        live = ok.sum(1)[:, None].expand(s, b)
+                        if not torch.equal(torch.isfinite(kv).sum(2), live):
+                            raise AssertionError(f"{what}: not every live "
+                                                 f"doc returned")
+                del scores
+            if s == 1 and d == DIM and n == 60_000:
+                for r in (1025, 1400):
+                    tile_check(kf, args, r, f"K1 S=1 n={n} B={b} r={r}")
+        log(f"K1 large-r tier parity S={s} n={n} d={d}: bit-equal to the "
+            f"kernel-order brute force at B = {bs}, r = {rs}, {sims}")
+        del v
+        torch.cuda.empty_cache()
+    return err
+
+
+def large_timing(kf, dev, seed: int) -> dict:
+    """K1's large-r tier at the stacked step's shapes (one shard, B = 1, l2,
+    the serving slab's power-of-two slot count): 20,000 768-d docs in 32,768
+    slots at r = 1025, 2000 and 4096, cell A's 200,000 128-d docs in
+    262,144 slots at r = 10,000; each checked first (large_check), then
+    timed (time_design: CUDA events, device ms of its scan and select by
+    name, the tile scan beside it where its pools fit, the plain version,
+    the library call torch.topk over the l2-transformed q @ v.T) beside
+    its bound (pool_bound: the slab, norms and flags read once, the pool
+    written; the keys the design writes and reads back are its scratch and
+    are not counted)."""
+    rng = np.random.default_rng(seed + 41)
+    out = {}
+    for n_docs, slots, d, rs in ((20_000, 32_768, 768, (1025, 2000, 4096)),
+                                 (200_000, 262_144, DIM, (10_000,))):
+        data = np.zeros((1, slots, d), np.float32)
+        data[0, :n_docs] = clustered(rng, n_docs, d)
+        v = torch.from_numpy(data).to(dev)
+        nrm = (v.double() ** 2).sum(2).float()
+        ok = torch.zeros((1, slots), dtype=torch.bool, device=dev)
+        ok[0, :n_docs] = True
+        q = v[0, int(rng.integers(n_docs))][None] + 0.01
+        qsq = (q * q).sum(1)
+        args = (v, nrm, ok, q, qsq, torch.ones(1, device=dev))
+        scores = kernel_order_scores(kf, v, nrm, ok, q, qsq, "l2_norm")
+        for r in rs:
+            label = f"K1 large n={n_docs} slots={slots} d={d} r={r} B=1"
+            large_check(kf, args, scores, r, "l2_norm", label)
+            design = functools.partial(kf.pool_scan, *args, r=r,
+                                       similarity="l2_norm",
+                                       score_precision="fp32")
+            smem = kf._library().knn_fused_smem_bytes(0, d, r)
+            tile = functools.partial(
+                kf._launch_tile, *args, r=r, similarity="l2_norm",
+                score_precision="fp32") if smem <= kf._MAX_SMEM else None
+            plain = functools.partial(kf.plain_pool, *args, r=r,
+                                      similarity="l2_norm",
+                                      score_precision="fp32")
+
+            def library(r=r):
+                d_sq = torch.clamp(qsq[:, None] - 2.0 * (q @ v[0].T)
+                                   + nrm[0][None], min=0.0)
+                return torch.topk(1.0 / (1.0 + d_sq), r)
+
+            bound = pool_bound(1, slots, d, 1, r)
+            out[label] = time_design(label, design, tile, plain, library,
+                                     bound, names=LARGE_KERNELS)
+        del v, scores
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# the fixed-order rescore and |q|^2 (csrc/knn_rescore.cu)
+# --------------------------------------------------------------------------
+
+RESCORE_KERNELS = ("knn_rescore_kernel", "knn_query_sq_kernel")
+
+
+def einsum_rescore(kf, queries, vectors, norms_sq, valid, cand, k: int,
+                   similarity: str):
+    """The rescore the port ran before its kernel: a gather and one batched
+    torch.einsum (cuBLAS, which picks its summation order by the batch),
+    the transform, the mask and a stable top-k. Kept here only as the
+    yardstick the kernel's time stands beside."""
+    cand = cand.long()
+    safe = torch.clamp(cand, min=0)
+    shard = torch.arange(vectors.shape[0], device=vectors.device)[:, None, None]
+    dots = torch.einsum("bd,sbrd->sbr", queries, vectors[shard, safe])
+    qsq = (queries * queries).sum(dim=1)[None, :, None]
+    scores = kf._transform_scores(dots, qsq, norms_sq[shard, safe], similarity)
+    scores = torch.where((cand >= 0) & valid[shard, safe], scores,
+                         float("-inf"))
+    return kf.stable_topk(scores, k)
+
+
+def rescore_check(kr, v, nrm, ok, q, cand, sim: str, what: str,
+                  bits: bool) -> int:
+    """The rescore kernel and the |q|^2 kernel against their plain versions
+    on the same operands: |q|^2 bit-equal; the scores bit-equal on data
+    whose dots are exact (`bits`), and on float data either bit-equal or,
+    where not, each differing slot logged with its f64 score and both
+    within 1e-6 relative of it (the f32 bound of a d-term sum at these
+    magnitudes); a batch's rows bit-equal to each query's solo call (the
+    batcher's contract), one rescore launch a call. Returns the slots
+    that differ from plain."""
+    from opensearch_tpu_torch.ops.knn_fused import _transform_scores
+
+    before = kr.launches.count
+    qsq = kr.query_sq(q)
+    got = kr.rescore(q, qsq, v, nrm, ok, cand, similarity=sim)
+    torch.cuda.synchronize()
+    if kr.launches.count - before != 1:
+        raise AssertionError(f"{what}: the rescore launched "
+                             f"{kr.launches.count - before} times")
+    if not torch.equal(qsq, kr.plain_query_sq(q)):
+        raise AssertionError(f"{what}: |q|^2 not bit-equal to plain")
+    want = kr.plain_rescore(q, kr.plain_query_sq(q), v, nrm, ok, cand,
+                            similarity=sim)
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError(f"{what}: -inf slots differ from plain")
+    diff = (got != want) & torch.isfinite(want)
+    if bits and bool(diff.any()):
+        raise AssertionError(f"{what}: not bit-equal on exact dots at "
+                             f"{diff.nonzero()[:5].tolist()}")
+    for s, b, j in diff.nonzero().tolist():
+        c = int(cand[s, b, j])
+        exact = float(_transform_scores(
+            (v[s, c].double() * q[b].double()).sum(), qsq[b].double(),
+            nrm[s, c].double(), sim))
+        a, p = float(got[s, b, j]), float(want[s, b, j])
+        log(f"{what}: slot {(s, b, j)} doc {c}: kernel {a!r}, plain {p!r}, "
+            f"f64 {exact!r}")
+        if max(abs(a - exact), abs(p - exact)) > 1e-6 * abs(exact) + 1e-7:
+            raise AssertionError(f"{what}: slot {(s, b, j)} beyond the f32 "
+                                 f"bound")
+    for i in range(q.shape[0]):
+        solo_sq = kr.query_sq(q[i:i + 1])
+        solo = kr.rescore(q[i:i + 1], solo_sq, v, nrm, ok,
+                          cand[:, i:i + 1].contiguous(), similarity=sim)
+        if not (torch.equal(solo_sq[0], qsq[i])
+                and torch.equal(solo[:, 0], got[:, i])):
+            raise AssertionError(f"{what}: query {i} alone differs from its "
+                                 f"row of the batch")
+    return int(diff.sum())
+
+
+def rescore_kernel_phase(kr, dev, seed: int) -> int:
+    """The rescore kernel (knn_rescore_kernel) and |q|^2
+    (knn_query_sq_kernel) on the card (rescore_check): sixteenths (every dot
+    exact in f32) and clustered floats; one shard of 200,000 docs at d = 128
+    and four of 20,000 at d = 100 (cosine) and 768; B = 1, 8 and 33; R = 40,
+    64, 400 and 512 candidates a (shard, query), a tenth of them -1 and 3%
+    of the docs dead. Returns the float slots that differ from plain."""
+    rng = np.random.default_rng(seed + 50)
+    differ = 0
+    for s, n, d, sim in ((1, 200_000, DIM, "l2_norm"),
+                         (4, 20_000, 100, "cosine"),
+                         (4, 20_000, 768, "l2_norm")):
+        for bits in (True, False):
+            raw = rng.standard_normal((s, n, d)).astype(np.float32)
+            data = np.round(raw * 16) / 16 if bits else raw
+            v = torch.from_numpy(data.astype(np.float32)).to(dev)
+            nrm = (v.double() ** 2).sum(2).float()
+            ok = torch.from_numpy(rng.random((s, n)) >= 0.03).to(dev)
+            for b in (1, 8, 33):
+                q = v[0, torch.from_numpy(rng.choice(n, b)).to(dev)].clone()
+                if not bits:
+                    q += 0.01 * torch.randn_like(q)
+                for r in (40, 64, 400, 512):
+                    cand = rng.integers(0, n, (s, b, r)).astype(np.int32)
+                    cand[rng.random((s, b, r)) < 0.1] = -1
+                    differ += rescore_check(
+                        kr, v, nrm, ok, q, torch.from_numpy(cand).to(dev),
+                        sim, f"rescore S={s} n={n} d={d} {sim} B={b} R={r} "
+                        f"exact={bits}", bits)
+            del v
+            torch.cuda.empty_cache()
+    log(f"rescore and |q|^2 parity: bit-equal on exact dots, {differ} float "
+        f"slots differ from plain (each logged), every batch row its solo "
+        f"call's bits")
+    return differ
+
+
+def rescore_timing(kf, kr, dev, seed: int) -> dict:
+    """The rescore kernel at cell A's serving shapes (one shard of 200,000
+    128-d docs in 262,144 slots, l2): B = 1 with R = 40 and 400 (the
+    stacked step at bf16 and int8, k = 10 and 100) and B = 8 with R = 64
+    and 512 (the per-shard route's merged batches, k_bucket 16 and 128);
+    candidates from a bf16 pool. CUDA-event ms and device ms of the kernel
+    (with its |q|^2 launch: the rescore as the step runs it), of the plain
+    version and of the einsum rescore it replaced (einsum_rescore), beside
+    the bound: each candidate's row, norm and flag read once, the ids
+    read, the scores written. No single PyTorch call computes it (library
+    null). Then |q|^2 alone at B = 1, 8 and 64: its ms, the plain
+    version's and one torch.einsum("bd,bd->b") call's."""
+    rng = np.random.default_rng(seed + 51)
+    n, slots = 200_000, 262_144
+    data = np.zeros((1, slots, DIM), np.float32)
+    data[0, :n] = clustered(rng, n, DIM)
+    v = torch.from_numpy(data).to(dev)
+    nrm = (v.double() ** 2).sum(2).float()
+    ok = torch.zeros((1, slots), dtype=torch.bool, device=dev)
+    ok[0, :n] = True
+    out = {}
+    for b, r, k in ((1, 40, 10), (1, 400, 100), (8, 64, 16), (8, 512, 128)):
+        q = v[0, torch.from_numpy(rng.choice(n, b)).to(dev)] + 0.01
+        args = reduced_args(kf, v, nrm, ok, q, "bf16")
+        _pv, cand = kf.pool_scan(*args, r=r, similarity="l2_norm",
+                                 score_precision="bf16")
+        label = f"rescore B={b} R={r}"
+        rescore_check(kr, v, nrm, ok, q, cand, "l2_norm", label, False)
+
+        def kernel():
+            return kr.rescore(q, kr.query_sq(q), v, nrm, ok, cand,
+                              similarity="l2_norm")
+
+        def plain():
+            return kr.plain_rescore(q, kr.plain_query_sq(q), v, nrm, ok,
+                                    cand, similarity="l2_norm")
+
+        def einsum():
+            return einsum_rescore(kf, q, v, nrm, ok, cand, k, "l2_norm")
+
+        nbytes = b * r * (DIM * 4 + 4 + 1 + 4 + 4) + b * (DIM * 4 + 4)
+        prof = device_profile(kernel, 10)
+        eprof = device_profile(einsum, 10)
+        out[label] = {
+            "ms": time_ms(kernel, 50), "plain_ms": time_ms(plain, 5),
+            "einsum_ms": time_ms(einsum, 50), "library_ms": None,
+            "device_ms": prof and prof["device_ms"],
+            "rescore_device_ms": kernel_ms(prof, RESCORE_KERNELS[0]),
+            "query_sq_device_ms": kernel_ms(prof, RESCORE_KERNELS[1]),
+            "einsum_device_ms": eprof and eprof["device_ms"],
+            "einsum_kernels": eprof and eprof["top"],
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        log(f"{label}: {json.dumps(out[label])}")
+    for b in (1, 8, 64):
+        q = torch.randn((b, DIM), device=dev)
+        nbytes = b * (DIM * 4 + 4)
+        prof = device_profile(lambda: kr.query_sq(q), 10)
+        out[f"query_sq B={b}"] = {
+            "ms": time_ms(lambda: kr.query_sq(q), 50),
+            "plain_ms": time_ms(lambda: kr.plain_query_sq(q), 10),
+            "library_ms": time_ms(lambda: torch.einsum("bd,bd->b", q, q), 50),
+            "device_ms": prof and prof["device_ms"],
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes"}
+        log(f"query_sq B={b}: {json.dumps(out[f'query_sq B={b}'])}")
     del v
     torch.cuda.empty_cache()
     return out
@@ -1845,15 +2226,45 @@ def blocks_timing_phase(kb, dev, seed: int, names) -> dict:
     return out
 
 
-def _bulk_index(node, name: str, data: np.ndarray, shards: int) -> None:
+# the attribute columns of the filtering specs of the k-NN plugin's
+# perf-tool (faiss-hnsw/filtering relaxed-filter and restrictive-filter on
+# SIFT-128): age integer 0-99, color one of 6 keywords, taste one of 4
+COLORS = ("red", "green", "blue", "yellow", "white", "black")
+TASTES = ("sweet", "salty", "sour", "bitter")
+
+
+def attributes(rng, n: int) -> dict:
+    """Each doc's age, color and taste indices, uniform, from the seed."""
+    return {"age": rng.integers(0, 100, n), "color": rng.integers(0, 6, n),
+            "taste": rng.integers(0, 4, n)}
+
+
+def attribute_mapping() -> dict:
+    return {"age": {"type": "integer"}, "color": {"type": "keyword"},
+            "taste": {"type": "keyword"}}
+
+
+def attribute_doc(attrs: dict, i: int) -> dict:
+    return {"age": int(attrs["age"][i]),
+            "color": COLORS[int(attrs["color"][i])],
+            "taste": TASTES[int(attrs["taste"][i])]}
+
+
+def _bulk_index(node, name: str, data: np.ndarray, shards: int,
+                attrs: dict | None = None) -> None:
+    props = {"v": {"type": "knn_vector", "dimension": data.shape[1],
+                   "similarity": "l2_norm"}}
+    if attrs is not None:
+        props.update(attribute_mapping())
     node.create_index(name, {
         "settings": {"number_of_shards": shards},
-        "mappings": {"properties": {"v": {
-            "type": "knn_vector", "dimension": DIM, "similarity": "l2_norm"}}},
+        "mappings": {"properties": props},
     })
     for s in range(0, data.shape[0], 5000):
         resp = node.bulk([
-            ("index", {"_index": name, "_id": str(i)}, {"v": data[i].tolist()})
+            ("index", {"_index": name, "_id": str(i)},
+             {"v": data[i].tolist(),
+              **(attribute_doc(attrs, i) if attrs is not None else {})})
             for i in range(s, min(s + 5000, data.shape[0]))
         ], refresh=False)
         if resp["errors"]:
@@ -1863,25 +2274,33 @@ def _bulk_index(node, name: str, data: np.ndarray, shards: int) -> None:
 
 def main_path_phase(kf, dev, seed: int) -> dict:
     from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.ops import knn_rescore as kr
     from opensearch_tpu_torch.search import distributed_serving
 
     rng = np.random.default_rng(seed + 2)
     corpora = {"sift_a": (clustered(rng, 200_000, DIM), 1),
                "sift_b": (clustered(rng, 20_000, DIM), 4)}
+    # cell A carries the filtering specs' attribute columns
+    attrs_a = attributes(rng, 200_000)
     out = {}
     step_inputs = {}
     truths = {}
+    ingest_s = {}
     with tempfile.TemporaryDirectory() as tmp:
         node = TorchNode(tmp, device="cuda")
         for name, (data, shards) in corpora.items():
             t0 = time.perf_counter()
-            _bulk_index(node, name, data, shards)
-            log(f"[{name}] {data.shape[0]} docs, {shards} shard(s): bulk + "
-                f"refresh {time.perf_counter() - t0:.1f} s")
+            _bulk_index(node, name, data, shards,
+                        attrs_a if name == "sift_a" else None)
+            ingest_s[name] = time.perf_counter() - t0
+            log(f"[{name}] {data.shape[0]} docs, {shards} shard(s)"
+                f"{' with age, color, taste' if name == 'sift_a' else ''}: "
+                f"bulk + refresh {ingest_s[name]:.1f} s")
         # the counts are read for the searches alone
         searches0 = distributed_serving.stats["distributed_searches"]
         kf.launches.reset()
         kf.list_launches.reset()
+        kr.sq_launches.reset()
         for name, (data, _shards) in corpora.items():
             queries = (data[rng.choice(data.shape[0], 64, replace=False)]
                        + 0.05 * rng.standard_normal((64, DIM)).astype(np.float32))
@@ -1901,7 +2320,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
             ok = torch.ones((1, data.shape[0]), dtype=torch.bool, device=dev)
             q = torch.from_numpy(queries).to(dev)
             step_inputs[name] = (v, nrm, ok, q[:1])
-            _tv, ti = kf.plain_pool(v, nrm, ok, q, (q * q).sum(1),
+            _tv, ti = kf.plain_pool(v, nrm, ok, q, kr.plain_query_sq(q),
                                     torch.ones(1, device=dev), r=10,
                                     similarity="l2_norm",
                                     score_precision="fp32")
@@ -1917,12 +2336,20 @@ def main_path_phase(kf, dev, seed: int) -> dict:
                 f"{np.percentile(lat_ms, 99):.3f} ms, QPS {64 / sum(lat):.1f}")
         launches = kf.launches.count
         list_launches = kf.list_launches.count
+        sq_launches = kr.sq_launches.count
         searches = distributed_serving.stats["distributed_searches"] - searches0
         per_shard = per_shard_exact_phase(node, kf, *truths["sift_a"])
         wide = wide_main_phase(node, kf, corpora["sift_a"][0],
                                truths["sift_a"][0], step_inputs["sift_a"])
         reduced = reduced_main_phase(node, kf, truths["sift_a"][0],
                                      step_inputs["sift_a"])
+        batched = stacked_batch_phase(node, kf, truths["sift_a"][0])
+        filtered = filtered_main_phase(node, kf, attrs_a,
+                                       truths["sift_a"][0],
+                                       step_inputs["sift_a"], rng)
+        large = large_main_phase(node, kf, corpora["sift_a"][0],
+                                 truths["sift_a"][0], step_inputs["sift_a"],
+                                 rng)
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
     # each index's shape, beside the whole search's latency above: CUDA-event
@@ -1956,12 +2383,52 @@ def main_path_phase(kf, dev, seed: int) -> dict:
     if list_launches != launches:
         raise AssertionError(f"{list_launches} of {launches} K1 launches of "
                              f"the stacked step took the list scan")
+    if sq_launches != launches:
+        raise AssertionError(f"|q|^2 launched {sq_launches} times in "
+                             f"{launches} K1 launches")
     log(f"main path: {searches} served searches, {launches} kernel launches, "
-        f"all {list_launches} on K1's list scan (knn_pool.cuh)")
+        f"all {list_launches} on K1's list scan (knn_pool.cuh), "
+        f"{sq_launches} |q|^2 launches")
     return {"launches": launches, "list_launches": list_launches,
+            "query_sq_launches": sq_launches, "ingest_s": ingest_s,
             "latency_s": out, "step_ms": step_ms,
             "step_device": step_device, "per_shard": per_shard,
-            "wide": wide, "reduced": reduced}
+            "wide": wide, "reduced": reduced, "batched": batched,
+            "filtered": filtered, "large": large}
+
+
+def filtered_phase(kf, dev, seed: int) -> dict:
+    """Index A alone, built as main_path_phase builds it (200,000 clustered
+    128-d docs with the age, color and taste columns), one unfiltered
+    search to build its serving bundle, then stacked_batch_phase,
+    filtered_main_phase and large_main_phase: the quick loop for filtered
+    kNN and the stacked step past r = 1024 (``--phases filtered``)."""
+    from opensearch_tpu_torch.node import TorchNode
+
+    rng = np.random.default_rng(seed + 2)
+    data = clustered(rng, 200_000, DIM)
+    attrs = attributes(rng, 200_000)
+    queries = (data[rng.choice(200_000, 64, replace=False)]
+               + 0.05 * rng.standard_normal((64, DIM)).astype(np.float32))
+    v = torch.from_numpy(data)[None].to(dev)
+    nrm = (v.double() ** 2).sum(2).float()
+    ok = torch.ones((1, 200_000), dtype=torch.bool, device=dev)
+    step_input = (v, nrm, ok, torch.from_numpy(queries[:1]).to(dev))
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device="cuda")
+        t0 = time.perf_counter()
+        _bulk_index(node, "sift_a", data, 1, attrs)
+        log(f"[sift_a] 200000 docs with age, color, taste: bulk + refresh "
+            f"{time.perf_counter() - t0:.1f} s")
+        node.search("sift_a", {"query": {"knn": {"v": {
+            "vector": queries[0].tolist(), "k": 10}}}})
+        out = {"batched": stacked_batch_phase(node, kf, queries),
+               "filtered": filtered_main_phase(node, kf, attrs, queries,
+                                               step_input, rng),
+               "large": large_main_phase(node, kf, data, queries, step_input,
+                                         rng)}
+        node.close()
+    return out
 
 
 def wide_main_phase(node, kf, data: np.ndarray, queries: np.ndarray,
@@ -1980,14 +2447,15 @@ def wide_main_phase(node, kf, data: np.ndarray, queries: np.ndarray,
     to 0 just before each path and read just after. Logs p50, p99 and QPS,
     and the step's device ms by kernel name beside the tile scan's on the
     same operands (its pools first held to kernel_order_pool, tile_check)."""
+    from opensearch_tpu_torch.ops import knn_rescore as kr
     from opensearch_tpu_torch.search import distributed_serving, executor
 
     k = 100
     v, nrm, ok, _q = step_input
     q = torch.from_numpy(queries).to(v.device)
-    # |q|^2 as the serving step computes it, one query at a time
-    qsq = torch.cat([(q[i:i + 1] * q[i:i + 1]).sum(1)
-                     for i in range(q.shape[0])])
+    # |q|^2 as the serving step computes it: the fixed-order plain version
+    # (the kernel's bits, with no launch outside the searches)
+    qsq = kr.plain_query_sq(q)
     tv, ti = kernel_order_pool(kf, v, nrm, ok, q, qsq, k, "l2_norm")
     truth = [[str(int(i)) for i in row] for row in ti[0].cpu()]
     # where cuBLAS's summation order (plain_pool) ranks neighbours the
@@ -2114,10 +2582,9 @@ def reduced_main_phase(node, kf, queries: np.ndarray,
     k = 10 and k = 100 (size = k), 32 searches through the stacked step
     (R = 40 / 400), 16 on the per-shard route (k_bucket 16 / 128: R = 64 /
     512) and the 64 searches from 8 threads through the batcher, gated
-    only (concurrent_phase: each equal to its solo search, but for the
-    order of hits whose solo scores lie within rtol 1e-5 of each other:
-    the exact fp32 rescore of a batch sums in another order than a solo
-    one, concurrent_order_swaps). Every K1 launch
+    only (concurrent_phase: each equal to its solo search bit for bit, the
+    exact fp32 rescore of a batch summed in the solo order by the
+    fixed-order rescore kernel). Every K1 launch
     of each path, counted from 0, is on the tensor-core tier. Each solo
     hit list equals the plain pipeline's on the node's own slab (the
     stacked step's bundle: knn_fused_stacked with impl="xla" at the same
@@ -2127,9 +2594,10 @@ def reduced_main_phase(node, kf, queries: np.ndarray,
     brute force is printed, not gated. Then one stacked step a precision
     and k on the device by kernel name: the whole step, and its parts
     alone: the operand prep (cast or quantize), the scan and merge (by
-    name), and the exact rescore (gather, einsum, top-k: its kernels by
-    name)."""
+    name), and the exact rescore (the fixed-order rescore kernel with its
+    |q|^2 launch, and the top-k: its kernels by name)."""
     from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+    from opensearch_tpu_torch.ops import knn_rescore as kr
     from opensearch_tpu_torch.search import ann, distributed_serving, executor
 
     v, nrm, ok, _q = step_input
@@ -2160,11 +2628,14 @@ def reduced_main_phase(node, kf, queries: np.ndarray,
 
     def counts() -> dict:
         return {"knn_fused": kf.launches.count,
-                "knn_fused_mma": kf.mma_launches.count}
+                "knn_fused_mma": kf.mma_launches.count,
+                "knn_rescore": kr.launches.count,
+                "knn_query_sq": kr.sq_launches.count}
 
     def run(m: int, k: int, k_route: int, prec: str, what: str) -> dict:
-        kf.launches.reset()
-        kf.mma_launches.reset()
+        for counter in (kf.launches, kf.mma_launches, kr.launches,
+                        kr.sq_launches):
+            counter.reset()
         lat, recall, ties = [], [], 0
         for i, qv in enumerate(queries[:m]):
             t0 = time.perf_counter()
@@ -2217,7 +2688,9 @@ def reduced_main_phase(node, kf, queries: np.ndarray,
                     res["concurrent"] = concurrent_phase(
                         node, "sift_a", queries, k,
                         {"knn_fused": kf.launches,
-                         "knn_fused_mma": kf.mma_launches},
+                         "knn_fused_mma": kf.mma_launches,
+                         "knn_rescore": kr.launches,
+                         "knn_query_sq": kr.sq_launches},
                         size=k, reduced=True)
                 finally:
                     distributed_serving.enabled = True
@@ -2229,10 +2702,13 @@ def reduced_main_phase(node, kf, queries: np.ndarray,
                         ("concurrent gated", None,
                          res["concurrent"]["gated"]["launches"])):
                     if got["knn_fused_mma"] != got["knn_fused"] or (
-                            want is not None and got["knn_fused"] != want):
+                            want is not None and got["knn_fused"] != want) \
+                            or got["knn_rescore"] != got["knn_fused"] \
+                            or got["knn_query_sq"] != got["knn_fused"]:
                         raise AssertionError(
                             f"[sift_a] {what} {key}: K1 launches not one a "
-                            f"search, all on the tensor-core tier: {got}")
+                            f"search, all on the tensor-core tier, each with "
+                            f"one |q|^2 and one rescore launch: {got}")
                 log(f"[sift_a] {key}: stacked {res['stacked']}, per-shard "
                     f"{res['per_shard']}, gated "
                     f"{res['concurrent']['gated']}: every K1 launch on the "
@@ -2258,6 +2734,8 @@ def reduced_main_phase(node, kf, queries: np.ndarray,
             rescore = device_profile(functools.partial(
                 kf._fused_rescore, q1, *slab, pi, k=k,
                 similarity="l2_norm"), 10)
+            einsum = device_profile(functools.partial(
+                einsum_rescore, kf, q1, *slab, pi, k, "l2_norm"), 10)
             split = {
                 "step_ms": time_ms(functools.partial(
                     kf.knn_fused_stacked, *slab, q1, k=k,
@@ -2269,10 +2747,326 @@ def reduced_main_phase(node, kf, queries: np.ndarray,
                 "scan_device_ms": kernel_ms(scan, MMA_KERNELS[0]),
                 "merge_device_ms": kernel_ms(scan, MMA_KERNELS[1]),
                 "rescore_device_ms": rescore and rescore["device_ms"],
-                "rescore_kernels": rescore and rescore["top"]}
+                "rescore_kernels": rescore and rescore["top"],
+                "einsum_rescore_device_ms": einsum and einsum["device_ms"]}
             out[f"{prec} k={k}"]["step"] = split
             log(f"[sift_a] stacked step {prec} k={k} (B=1, "
                 f"{bundle.n_flat} slots) device split: {json.dumps(split)}")
+    return out
+
+
+def stacked_batch_phase(node, kf, queries: np.ndarray) -> dict:
+    """The stacked step's batch against its solo launches (the reference
+    batcher's contract on the route with no dispatch batcher): index A,
+    distributed_serving.mesh_knn_batch with 8 queries in one launch, then
+    each alone, at fp32, bf16 and int8 and k = 10 and 100. Every query's
+    device-merged hits (score, shard, segment, doc) must equal its solo
+    launch's bit for bit; one K1 launch a batch."""
+    from opensearch_tpu_torch.search import ann, distributed_serving
+    from opensearch_tpu_torch.search.query_dsl import KnnQuery
+
+    (shard,) = node.indices["sift_a"].shards.values()
+    snaps = [shard.acquire_searcher()]
+    nodes = [KnnQuery(field="v", vector=qv.tolist(), k=0)
+             for qv in queries[:8]]
+
+    def rows(out) -> list:
+        return [[(h.score, si, h.segment, h.doc) for si, h in row]
+                for row in out.premerged]
+
+    out = {}
+    try:
+        for prec in ("fp32", *REDUCED):
+            ann.default_config.configure(score_precision=prec)
+            for k in REDUCED_KS:
+                for q in nodes:
+                    q.k = k
+                kf.launches.reset()
+                batch = distributed_serving.mesh_knn_batch(
+                    [shard], snaps, nodes, k)
+                launches = kf.launches.count
+                solo = [rows(distributed_serving.mesh_knn_batch(
+                    [shard], snaps, [q], k))[0] for q in nodes]
+                got = rows(batch)
+                if launches != 1:
+                    raise AssertionError(f"[sift_a] stacked batch {prec} "
+                                         f"k={k}: {launches} K1 launches")
+                for i, (g, w) in enumerate(zip(got, solo)):
+                    if g != w:
+                        raise AssertionError(
+                            f"[sift_a] stacked batch {prec} k={k} query {i}: "
+                            f"not its solo hits bit for bit")
+                out[f"{prec} k={k}"] = {"queries": len(nodes),
+                                        "launches": launches}
+    finally:
+        ann.default_config.configure(score_precision="fp32")
+    log(f"[sift_a] stacked step, 8 queries a launch: every query's hits its "
+        f"solo launch's bit for bit at {sorted(out)}")
+    return out
+
+
+# the filters of the filtered main phase: the perf-tool's relaxed (about
+# 40% of docs) and restrictive (about 1%) specs, and 50 ids
+FILTER_IDS = 50
+
+
+def filter_bodies(rng, n: int) -> dict:
+    """(filter body, its docs as a numpy predicate over the attributes) by
+    name; the ids filter's 50 docs drawn from the seed."""
+    ids = np.sort(rng.choice(n, FILTER_IDS, replace=False))
+    return {
+        "relaxed": ({"bool": {"filter": [
+            {"range": {"age": {"gte": 20, "lt": 80}}},
+            {"terms": {"color": list(COLORS[:4])}}]}},
+            lambda a: (a["age"] >= 20) & (a["age"] < 80) & (a["color"] < 4)),
+        "restrictive": ({"bool": {"filter": [
+            {"range": {"age": {"gte": 30, "lt": 40}}},
+            {"term": {"color": COLORS[0]}}],
+            "must_not": [{"term": {"taste": TASTES[2]}}]}},
+            lambda a: (a["age"] >= 30) & (a["age"] < 40) & (a["color"] == 0)
+            & (a["taste"] != 2)),
+        "ids": ({"ids": {"values": [str(int(i)) for i in ids]}},
+                lambda a: np.isin(np.arange(len(a["age"])), ids)),
+    }
+
+
+FILTERED_QUERIES = 8
+
+
+def filtered_main_phase(node, kf, attrs: dict, queries: np.ndarray,
+                        step_input: tuple, rng) -> dict:
+    """Filtered kNN on index A (a filter inside the knn clause), through
+    the stacked step and the per-shard route (distributed_serving off):
+    the relaxed, restrictive and ids filters (filter_bodies), 8 searches
+    each at fp32 k = 10 and 100 (size = k) and at bf16 and int8 k = 10.
+    Every hit list must equal, in order, the brute force over the filtered
+    docs summed in the kernel's order (fp32: kernel_order_scores on the
+    docs the filter admits) or the plain pipeline on the node's slab with
+    the filter's docs as valid (bf16, int8: knn_fused_stacked impl="xla";
+    bf16 but at logged summation ties of the pool, pool_ties); the ids
+    filter at k = 100 returns exactly its 50 docs. Each search launches K1
+    exactly once, on the tier scan_tier names (counted from 0 on
+    list_launches, wide_launches, mma_launches), and every stacked search
+    counts in distributed_serving.stats["filtered"]. Logs the segment's
+    device bytes by column kind and each run's p50 on the host clock; then
+    the device ms of the stacked mask build
+    (_filter_valid_mask) and of the step over the filtered slab beside the
+    unfiltered step's, by kernel name."""
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+    from opensearch_tpu_torch.search import (ann, distributed_serving,
+                                             query_dsl)
+
+    v, nrm, ok, _q = step_input
+    n, dev = v.shape[1], v.device
+    (bundle,) = [b for key, b in default_registry._bundles.items()
+                 if key[0] == "sift_a"]
+    filters_ = filter_bodies(rng, n)
+    (shard,) = node.indices["sift_a"].shards.values()
+    out = {"column_nbytes": [dev_seg.column_nbytes() for _host, dev_seg
+                             in shard.acquire_searcher().segments]}
+    log(f"[sift_a] device bytes by column kind: {out['column_nbytes']}")
+    qt = torch.from_numpy(queries[:FILTERED_QUERIES]).to(dev)
+    qsq = kr.plain_query_sq(qt)
+    tier_counter = {"lists": kf.list_launches, "wide": kf.wide_launches,
+                    "mma": kf.mma_launches}
+    fkeys = (("fp32", 10), ("fp32", 100), ("bf16", 10), ("int8", 10))
+    try:
+        for fname, (body, pred) in filters_.items():
+            mask = torch.from_numpy(pred(attrs)).to(dev)
+            eligible = int(mask.sum())
+            eligible_ids = {str(int(x)) for x in mask.nonzero()[:, 0].tolist()}
+            valid_f = ok & mask[None]
+            slab_valid = bundle.valid.clone()
+            slab_valid[0, :n] &= mask
+            slab = (bundle.vectors, bundle.norms_sq, slab_valid)
+            scores = kernel_order_scores(kf, v, nrm, valid_f, qt, qsq,
+                                         "l2_norm")
+            for prec, k in fkeys:
+                ann.default_config.configure(score_precision=prec)
+                truth = [[str(int(i)) for i in row if i >= 0]
+                         for row in order_top(kf, scores, k)[1][0].tolist()]
+                for route in ("stacked", "per_shard"):
+                    distributed_serving.enabled = route == "stacked"
+                    k_route = k if route == "stacked" \
+                        else 1 << (k - 1).bit_length()
+                    r = kf.fused_pool_width(k_route, prec)
+                    tier = kf.scan_tier(prec, r)
+                    label = f"[sift_a] filtered {fname} {route} {prec} k={k}"
+                    for c in (kf.launches, *tier_counter.values()):
+                        c.reset()
+                    filtered0 = distributed_serving.stats["filtered"]
+                    lat, ties = [], 0
+                    for i in range(FILTERED_QUERIES):
+                        t0 = time.perf_counter()
+                        resp = node.search("sift_a", {"query": {"knn": {"v": {
+                            "vector": queries[i].tolist(), "k": k,
+                            "filter": body}}}, "size": k})
+                        lat.append(time.perf_counter() - t0)
+                        hits = [h["_id"] for h in resp["hits"]["hits"]]
+                        if prec == "fp32":
+                            want = truth[i]
+                        else:
+                            _vals, ids = kf.knn_fused_stacked(
+                                *slab, qt[i:i + 1], k=k_route,
+                                similarity="l2_norm", score_precision=prec,
+                                impl="xla")
+                            want = [str(int(x)) for x in ids[0, 0].tolist()
+                                    if x >= 0][:k]
+                        if hits != want:
+                            if prec != "bf16":
+                                raise AssertionError(f"{label} query {i}: "
+                                                     f"hits differ from the "
+                                                     f"brute force")
+                            for tie in pool_ties(kf, slab, qt[i:i + 1], r,
+                                                 prec, f"{label} query {i}"):
+                                ties += 1
+                                log(f"{label} query {i}: summation tie {tie}")
+                        if not set(hits) <= eligible_ids:
+                            raise AssertionError(f"{label} query {i}: a hit "
+                                                 f"outside the filter")
+                        if fname == "ids" and k >= FILTER_IDS and \
+                                len(hits) != FILTER_IDS:
+                            raise AssertionError(f"{label} query {i}: "
+                                                 f"{len(hits)} hits of the "
+                                                 f"{FILTER_IDS} docs")
+                    got = {"knn_fused": kf.launches.count,
+                           tier: tier_counter[tier].count,
+                           "filtered": distributed_serving.stats["filtered"]
+                           - filtered0}
+                    want_f = FILTERED_QUERIES if route == "stacked" else 0
+                    if got["knn_fused"] != FILTERED_QUERIES or \
+                            got[tier] != FILTERED_QUERIES or \
+                            got["filtered"] != want_f:
+                        raise AssertionError(f"{label}: not one K1 launch a "
+                                             f"search on the {tier} tier, "
+                                             f"{want_f} filtered: {got}")
+                    res = latency_summary(lat)
+                    res.update(launches=got, tier=tier, eligible=eligible,
+                               summation_ties=ties)
+                    out[f"{fname} {route} {prec} k={k}"] = res
+                    log(f"{label}: hits equal the brute force over the "
+                        f"{eligible} filtered docs; {json.dumps(res)}")
+            del scores
+    finally:
+        distributed_serving.enabled = True
+        ann.default_config.configure(score_precision="fp32")
+    # the device side of one filtered stacked search at k = 10
+    snaps = [shard.acquire_searcher()]
+    q1 = qt[:1]
+    for fname in ("relaxed", "restrictive"):
+        flt = query_dsl.parse_query(filters_[fname][0])
+        mask_prof = device_profile(functools.partial(
+            distributed_serving._filter_valid_mask, [shard], snaps, flt,
+            bundle.n_flat, dev), 10)
+        fvalid = bundle.valid & distributed_serving._filter_valid_mask(
+            [shard], snaps, flt, bundle.n_flat, dev)
+        step_f = device_profile(functools.partial(
+            kf.knn_fused_stacked, bundle.vectors, bundle.norms_sq, fvalid, q1,
+            k=10, similarity="l2_norm"), 10)
+        step_u = device_profile(functools.partial(
+            kf.knn_fused_stacked, bundle.vectors, bundle.norms_sq,
+            bundle.valid, q1, k=10, similarity="l2_norm"), 10)
+        out[f"{fname} device"] = {
+            "mask_device_ms": mask_prof and mask_prof["device_ms"],
+            "mask_wall_ms": mask_prof and mask_prof["wall_ms"],
+            "mask_kernels": mask_prof and mask_prof["top"],
+            "step_device_ms": step_f and step_f["device_ms"],
+            "unfiltered_step_device_ms": step_u and step_u["device_ms"],
+            "step_kernels": step_f and step_f["top"]}
+        log(f"[sift_a] filtered {fname} stacked k=10 device: "
+            f"{json.dumps(out[f'{fname} device'])}")
+    return out
+
+
+# the stacked step past the wide tier: k on the 768-d index, and on cell A
+LARGE_MAIN_KS = (1025, 2000, 4096)
+LARGE_MAIN_DOCS = 20_000
+LARGE_MAIN_CELL_A_K = 10_000
+
+
+def large_main_phase(node, kf, data_a: np.ndarray, queries_a: np.ndarray,
+                     step_input: tuple, rng) -> dict:
+    """The stacked step at fp32 past r = 1024, K1 on its large-r tier:
+    node.search at k = 1025, 2000 and 4096 (size = k) on a 768-d l2 index of
+    20,000 clustered docs (one shard: 32,768 slots), 4 searches each, and at
+    k = 10,000 on index A (262,144 slots), 2 searches; then k = 5,000 on an
+    index of 1,500 docs with 20 deleted (2,048 slots: r = n_flat), which
+    must return every live doc. Every hit list is the brute force summed in
+    the kernel's order (kernel_order_scores, order_top) in order, and each
+    search launches K1 exactly once, on the large-r tier (counted from 0).
+    Logs the p50 of each k on the host clock."""
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+
+    dev = step_input[0].device
+    data768 = clustered(rng, LARGE_MAIN_DOCS, 768)
+    small = clustered(rng, 1500, DIM)
+    t0 = time.perf_counter()
+    _bulk_index(node, "wide768", data768, 1)
+    _bulk_index(node, "small", small, 1)
+    deleted = [str(int(i)) for i in rng.choice(1500, 20, replace=False)]
+    node.bulk([("delete", {"_index": "small", "_id": d}, None)
+               for d in deleted], refresh=True)
+    log(f"[wide768] {LARGE_MAIN_DOCS} 768-d docs and [small] 1,500 docs: "
+        f"bulk + refresh {time.perf_counter() - t0:.1f} s")
+
+    def brute(data: np.ndarray, qs: np.ndarray, k: int, valid=None):
+        v = torch.from_numpy(data)[None].to(dev)
+        nrm = (v.double() ** 2).sum(2).float()
+        ok = torch.ones((1, data.shape[0]), dtype=torch.bool, device=dev) \
+            if valid is None else valid
+        q = torch.from_numpy(qs).to(dev)
+        scores = kernel_order_scores(kf, v, nrm, ok, q, kr.plain_query_sq(q),
+                                     "l2_norm")
+        return [[str(int(i)) for i in row if i >= 0]
+                for row in order_top(kf, scores, k)[1][0].tolist()]
+
+    def run(name: str, qs: np.ndarray, k: int, truth: list) -> dict:
+        kf.launches.reset()
+        kf.large_launches.reset()
+        lat = []
+        for i, qv in enumerate(qs):
+            t0 = time.perf_counter()
+            resp = node.search(name, {"query": {"knn": {"v": {
+                "vector": qv.tolist(), "k": k}}}, "size": k,
+                "_source": False})
+            lat.append(time.perf_counter() - t0)
+            hits = [h["_id"] for h in resp["hits"]["hits"]]
+            if hits != truth[i]:
+                bad = next((j for j, (a, b) in enumerate(zip(hits, truth[i]))
+                            if a != b), min(len(hits), len(truth[i])))
+                raise AssertionError(f"[{name}] k={k} query {i}: hits differ "
+                                     f"from the kernel-order brute force at "
+                                     f"rank {bad} ({len(hits)} hits)")
+        got = (kf.launches.count, kf.large_launches.count)
+        if got != (len(qs), len(qs)):
+            raise AssertionError(f"[{name}] k={k}: (K1, large-r tier) "
+                                 f"launched {got} times in {len(qs)} "
+                                 f"searches")
+        res = latency_summary(lat)
+        res["launches"] = {"knn_fused": got[0], "knn_fused_large": got[1]}
+        log(f"[{name}] k={k}: {len(qs)} searches, every hit list the "
+            f"kernel-order brute force, one large-r launch each; "
+            f"{json.dumps(res)}")
+        return res
+
+    out = {}
+    q768 = (data768[rng.choice(LARGE_MAIN_DOCS, 4, replace=False)]
+            + 0.05 * rng.standard_normal((4, 768)).astype(np.float32))
+    for k in LARGE_MAIN_KS:
+        out[f"wide768 k={k}"] = run("wide768", q768, k,
+                                    brute(data768, q768, k))
+    qa = queries_a[:2]
+    out[f"sift_a k={LARGE_MAIN_CELL_A_K}"] = run(
+        "sift_a", qa, LARGE_MAIN_CELL_A_K,
+        brute(data_a, qa, LARGE_MAIN_CELL_A_K))
+    live = torch.ones((1, 1500), dtype=torch.bool, device=dev)
+    live[0, [int(d) for d in deleted]] = False
+    qs = small[:2] + 0.05
+    truth = brute(small, qs, 2048, live)
+    if any(len(t) != 1480 for t in truth):
+        raise AssertionError("[small] the brute force lost a live doc")
+    out["small k=5000"] = run("small", qs, 5000, truth)
     return out
 
 
@@ -2285,54 +3079,43 @@ def latency_summary(lat_s: list, wall_s: float | None = None) -> dict:
             "qps": len(lat_s) / (wall_s if wall_s is not None else sum(lat_s))}
 
 
-def concurrent_order_swaps(name: str, i: int, got: list, solo: list,
-                           order_ties: bool) -> int:
-    """A concurrent hit list against its solo one: ids in the same order,
-    each score within rtol 1e-5 / atol 2e-3 of the solo one. With
-    `order_ties` (the exact fp32 rescore of a reduced-precision scan,
-    whose batched product the library sums in another order than the solo
-    one) the ids must be the same and each score within that tolerance of
-    its doc's solo score, and the order may differ only where the two docs
-    at a position have solo scores within rtol 1e-5 of each other: a tie
-    the tolerance cannot order. Returns the positions so swapped."""
+def concurrent_check(name: str, i: int, got: list, solo: list,
+                     bits: bool) -> None:
+    """A concurrent hit list against its solo one. With `bits` (every K1
+    path, at fp32, bf16 and int8: each dot, |q|^2 and the exact rescore
+    summed in one order whatever the batch) the ids in the same order and
+    every score the same float, bit for bit: the reference batcher's
+    contract. Without (the IVF-PQ index, whose LUT products and rescore
+    are batched library products) the ids in the same order and each score
+    within rtol 1e-5 / atol 2e-3 of the solo one."""
     gid, sid = [h[0] for h in got], [h[0] for h in solo]
-    if not order_ties:
-        if gid != sid or not np.allclose([h[1] for h in got],
-                                         [h[1] for h in solo], rtol=1e-5,
-                                         atol=2e-3):
-            raise AssertionError(f"[{name}] concurrent query {i}: {got} != "
-                                 f"solo {solo}")
-        return 0
-    score = dict(solo)
-    if sorted(gid) != sorted(sid) or not np.allclose(
-            [h[1] for h in got], [score[h[0]] for h in got], rtol=1e-5,
-            atol=2e-3):
-        raise AssertionError(f"[{name}] concurrent query {i}: {got} != solo "
-                             f"{solo}")
-    swaps = 0
-    for j, (a, b) in enumerate(zip(gid, sid)):
-        if a == b:
-            continue
-        if abs(score[a] - score[b]) > 1e-5 * max(abs(score[a]),
-                                                 abs(score[b])):
-            raise AssertionError(f"[{name}] concurrent query {i} position "
-                                 f"{j}: doc {a} (solo {score[a]!r}) where "
-                                 f"solo has {b} ({score[b]!r})")
-        log(f"[{name}] concurrent query {i} position {j}: doc {a} (solo "
-            f"score {score[a]!r}) and {b} ({score[b]!r}) in the other order")
-        swaps += 1
-    return swaps
+    if bits:
+        if got != solo:
+            bad = next(j for j, (a, b) in enumerate(zip(got, solo)) if a != b) \
+                if len(got) == len(solo) else None
+            raise AssertionError(f"[{name}] concurrent query {i}: not the "
+                                 f"solo hits bit for bit (first difference "
+                                 f"at position {bad}: {got[bad] if bad is not None else got} "
+                                 f"!= {solo[bad] if bad is not None else solo})")
+        return
+    if gid != sid or not np.allclose([h[1] for h in got],
+                                     [h[1] for h in solo], rtol=1e-5,
+                                     atol=2e-3):
+        raise AssertionError(f"[{name}] concurrent query {i}: {got} != "
+                             f"solo {solo}")
 
 
 def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
                      counters: dict, size: int = 10,
-                     reduced: bool = False) -> dict:
+                     reduced: bool = False, bits: bool = True) -> dict:
     """The 64 queries one after another, then the same 64 from 8 threads of
     8 searches each, three times, each returning `size` hits. Every
-    concurrent hit list must equal its solo one: ids in order, scores to K1's rtol 1e-5 / atol 2e-3, because a
-    batch of B queries goes through PyTorch products (the IVF-PQ LUTs, the
-    exact rescore) whose f32 sums the library may order by B, and for a
-    near neighbour l2's |q|^2 - 2 q.v + |v|^2 cancels near |q|^2 ~ 2,000.
+    concurrent hit list must equal its solo one (concurrent_check): with
+    `bits` (K1's paths) ids in order and scores bit for bit, since every
+    dot, |q|^2 and rescore sums in one order whatever the batch; without
+    (the IVF-PQ index: its LUTs and rescore are batched PyTorch products
+    whose f32 sums the library may order by B) ids in order and scores to
+    rtol 1e-5 / atol 2e-3.
 
     1. The gated run: each round of 8 searches leaves a barrier together,
        and the batcher waits up to 50 ms with its tuner off, so the merge
@@ -2345,8 +3128,7 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
        gated.
     3. The same with the batcher switched off, to tell its share of the
        concurrent numbers from the threads'.
-    At a reduced precision (`reduced`) the gated run alone, its hit lists
-    held to concurrent_order_swaps' rule for an exact rescore."""
+    At a reduced precision (`reduced`) the gated run alone."""
     def search(qv) -> list:
         resp = node.search(name, {"query": {"knn": {"v": {
             "vector": qv.tolist(), "k": k}}}, "size": size})
@@ -2358,8 +3140,6 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
         t0 = time.perf_counter()
         solo.append(search(qv))
         solo_lat.append(time.perf_counter() - t0)
-
-    swaps = [0]
 
     def threaded(together: bool = False) -> tuple[list, float]:
         got, lat = [None] * n, [0.0] * n
@@ -2385,8 +3165,8 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
             for f in [pool.submit(worker, t) for t in range(8)]:
                 f.result()
         wall = time.perf_counter() - t0
-        swaps[0] += sum(concurrent_order_swaps(name, i, g, s, reduced)
-                        for i, (g, s) in enumerate(zip(got, solo)))
+        for i, (g, s) in enumerate(zip(got, solo)):
+            concurrent_check(name, i, g, s, bits)
         return lat, wall
 
     def batched_run(together: bool) -> tuple[dict, dict, tuple]:
@@ -2412,8 +3192,7 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
                                  f"{n} concurrent searches")
     gated_out = {"dispatches": gated["dispatches"],
                  "mean_merged_batch": gated["mean_merged_batch"],
-                 "max_batch": gated["max_batch"], "launches": gated_launches,
-                 "order_swaps": swaps[0]}
+                 "max_batch": gated["max_batch"], "launches": gated_launches}
     if reduced:
         out = {"solo": latency_summary(solo_lat), "gated": gated_out}
         log(f"[{name}] 8 threads x 8 searches, gated, equal the solo ones: "
@@ -2808,6 +3587,68 @@ def check_hits(what: str, got: list, want: list) -> None:
         raise AssertionError(f"{what}: hits {got} != plain {want}")
 
 
+def ann_filtered_check(node, name: str, kf, ads, data: np.ndarray,
+                       attrs: dict, queries: np.ndarray, dev, rng) -> dict:
+    """Index C (one IVF-PQ segment) under the relaxed filter, k = 10: a
+    filtered query never takes ANN, so each search is one exact K1 launch
+    (the list scan at fp32) and no K2 launch, through the stacked step
+    (which serves the ANN column when filtered, counted in "filtered") and
+    the per-shard route. Every hit list is the cosine brute force over the
+    filtered docs summed in the kernel's order."""
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+    from opensearch_tpu_torch.search import distributed_serving, executor
+
+    body, pred = filter_bodies(rng, len(data))["relaxed"]
+    mask = torch.from_numpy(pred(attrs)).to(dev)
+    v = torch.from_numpy(data)[None].to(dev)
+    nrm = (v.double() ** 2).sum(2).float()
+    q = torch.from_numpy(queries).to(dev)
+    scores = kernel_order_scores(kf, v, nrm, mask[None], q,
+                                 kr.plain_query_sq(q), "cosine")
+    truth = [[str(int(i)) for i in row if i >= 0]
+             for row in order_top(kf, scores, 10)[1][0].tolist()]
+    del v, scores
+    out = {}
+    try:
+        for route in ("stacked", "per_shard"):
+            distributed_serving.enabled = route == "stacked"
+            kf.launches.reset()
+            kf.list_launches.reset()
+            ads.launches.reset()
+            filtered0 = distributed_serving.stats["filtered"]
+            ann0 = executor.knn_path_stats["ann"]
+            lat = []
+            for i, qv in enumerate(queries):
+                t0 = time.perf_counter()
+                resp = node.search(name, {"query": {"knn": {"v": {
+                    "vector": qv.tolist(), "k": 10, "filter": body}}},
+                    "size": 10})
+                lat.append(time.perf_counter() - t0)
+                hits = [h["_id"] for h in resp["hits"]["hits"]]
+                if hits != truth[i]:
+                    raise AssertionError(f"[{name}] filtered {route} query "
+                                         f"{i}: hits differ from the brute "
+                                         f"force over the filtered docs")
+            got = {"knn_fused": kf.launches.count,
+                   "knn_fused_lists": kf.list_launches.count,
+                   "adc_scan": ads.launches.count,
+                   "ann": executor.knn_path_stats["ann"] - ann0,
+                   "filtered": distributed_serving.stats["filtered"]
+                   - filtered0}
+            m = len(queries)
+            want = {"knn_fused": m, "knn_fused_lists": m, "adc_scan": 0,
+                    "ann": 0, "filtered": m if route == "stacked" else 0}
+            if got != want:
+                raise AssertionError(f"[{name}] filtered {route}: launches "
+                                     f"{got}, want {want}")
+            out[route] = {**latency_summary(lat), "launches": got}
+            log(f"[{name}] relaxed filter {route}: {m} exact K1 searches "
+                f"equal the brute force, no K2 launch; {json.dumps(out[route])}")
+    finally:
+        distributed_serving.enabled = True
+    return out
+
+
 def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     """Index C through TorchNode on the card: 200,000 clustered 100-d docs,
     cosine, ivf_pq (nlist 512, m 20, nprobe 8), 1 shard, 64 searches. Then
@@ -2819,6 +3660,7 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     rng = np.random.default_rng(seed + 12)
     n, name = ANN_MAIN_DOCS, "glove_c"
     data = ann_corpus(rng, n, ANN_DIM)
+    attrs = attributes(rng, n)
     queries = (data[rng.choice(n, 64, replace=False)]
                + 0.1 * rng.standard_normal((64, ANN_DIM)).astype(np.float32))
 
@@ -2836,12 +3678,13 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
                 "type": "knn_vector", "dimension": ANN_DIM,
                 "similarity": "cosine",
                 "method": {"name": "ivf_pq", "parameters": {
-                    "nlist": 512, "m": ANN_M, "nprobe": 8}}}}},
+                    "nlist": 512, "m": ANN_M, "nprobe": 8}}},
+                **attribute_mapping()}},
         })
         for s in range(0, n, 5000):
             resp = node.bulk([
                 ("index", {"_index": name, "_id": str(i)},
-                 {"v": data[i].tolist()})
+                 {"v": data[i].tolist(), **attribute_doc(attrs, i)})
                 for i in range(s, min(s + 5000, n))
             ], refresh=False)
             if resp["errors"]:
@@ -2872,6 +3715,8 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
         for i, got in enumerate(hits):
             check_hits(f"[{name}] query {i}", got, plain_shard_hits(
                 ads, ivfpq, kf, segments, queries[i], 10, dev))
+        filtered = ann_filtered_check(node, name, kf, ads, data, attrs,
+                                      queries[:16], dev, rng)
 
         # the second refresh: 64 of its docs sit next to the 16 queries, so
         # the exact segment places hits beside the IVF-PQ one
@@ -2931,7 +3776,7 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
             f"pipeline; the exact segment materialized each time")
         concurrent = concurrent_phase(
             node, name, queries, 10,
-            {"adc_scan": ads.launches, "knn_fused": kf.launches})
+            {"adc_scan": ads.launches, "knn_fused": kf.launches}, bits=False)
         node.close()
     # recall@10 against exact cosine brute force (reported, not gated)
     dn = torch.from_numpy(data).to(dev)
@@ -2946,7 +3791,8 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     out = {"launches": launches, "searches": ann_searches, "recall": recall,
            "p50_ms": float(np.percentile(lat_ms, 50)),
            "p99_ms": float(np.percentile(lat_ms, 99)),
-           "qps": 64 / sum(lat), "mixed": mixed, "concurrent": concurrent}
+           "qps": 64 / sum(lat), "mixed": mixed, "concurrent": concurrent,
+           "filtered": filtered}
     log(f"[{name}] 64 searches equal the plain pipeline; recall@10 vs exact "
         f"cosine = {recall:.4f}; p50 {out['p50_ms']:.3f} ms, p99 "
         f"{out['p99_ms']:.3f} ms, QPS {out['qps']:.1f}")
@@ -2997,6 +3843,7 @@ def main() -> int:
     from opensearch_tpu_torch.ops import cuda_lib, ivfpq
     from opensearch_tpu_torch.ops import knn_blocks as kb
     from opensearch_tpu_torch.ops import knn_fused as kf
+    from opensearch_tpu_torch.ops import knn_rescore as kr
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3025,8 +3872,12 @@ def main() -> int:
                       "tier's tensor-core scan (kernels "
                       "knn_wide_mma_scan_kernel, knn_wide_merge_kernel), "
                       "bf16 and int8 with r <= 1024",
+               "large": "opensearch_tpu_torch/csrc/knn_large.cuh: the "
+                        "large-r tier (kernels knn_large_scan_kernel, "
+                        "knn_large_select_kernel), fp32 with r > 1024",
                "tile": "opensearch_tpu_torch/csrc/knn_tile.cuh: the tile "
-                       "scan (knn_scan_kernel, knn_merge_kernel), r > 1024"}
+                       "scan (knn_scan_kernel, knn_merge_kernel), bf16 and "
+                       "int8 with r > 1024"}
     entry = {"name": "knn_fused", "route": "cuda",
              "source": "opensearch_tpu_torch/csrc/knn_fused.cu",
              "designs": designs,
@@ -3058,6 +3909,22 @@ def main() -> int:
             ("knn_sbmax", "opensearch_tpu/ops/pallas_knn.py:446 "
                           "(pallas_knn_sbmax_topk -> _knn_sbmax_kernel :383)"))
     }
+    rescore_entries = {
+        name: {"name": name, "route": "cuda",
+               "source": "opensearch_tpu_torch/csrc/knn_rescore.cu",
+               "replaces": "none (no Pallas kernel): the batched torch.einsum "
+                           "of the exact fp32 rescore, "
+                           "opensearch_tpu_torch/ops/knn_fused.py "
+                           "_fused_rescore (XLA's gather and einsum in "
+                           "opensearch_tpu/ops/pallas_knn.py knn_fused), and "
+                           "the row sum of |q|^2",
+               "launches": None, "parity": None, "max_abs_err": None,
+               "ms": None, "plain_ms": None, "bound_ms": None,
+               "bound_by": None, "library_ms": None}
+        for name in ("knn_rescore", "knn_query_sq")}
+    rescore_entries["knn_rescore"]["library_note"] = (
+        "none: no single PyTorch call gathers, dots, transforms and masks "
+        "the candidates; einsum_ms is the rescore it replaced")
     family["knn_block"]["designs"] = {
         "lists": designs["lists"].replace("r <= 32", "k <= 32"),
         "wide": designs["wide"].replace("32 < r", "32 < k")}
@@ -3073,7 +3940,16 @@ def main() -> int:
                                          "knn_fused" in chosen,
                                          "knn_block" in chosen)
             if "knn_fused" in chosen:
-                entry["max_abs_err"] = max(entry["max_abs_err"], wide_err)
+                entry["max_abs_err"] = max(entry["max_abs_err"], wide_err,
+                                           large_kernel_phase(kf, dev,
+                                                              args.seed))
+        if "knn_rescore" in chosen:
+            differ = rescore_kernel_phase(kr, dev, args.seed)
+            for e in rescore_entries.values():
+                e["parity"] = ("bit-equal" if differ == 0 else
+                               f"bit-equal but {differ} float slots within "
+                               f"the f32 bound")
+                e["max_abs_err"] = 0.0
         if "adc_scan" in chosen:
             entry2["max_abs_err"] = adc_kernel_phase(ads, ivfpq, dev,
                                                      args.seed)
@@ -3112,6 +3988,24 @@ def main() -> int:
                 f"cell_c n={ANN_MAIN_DOCS} l_pad={cell_c['l_pad']} B={b}": {
                     key: cell_c[b][key] for key in (*fields, *stages)}
                 for b in (1, 8)}
+        if "knn_fused" in chosen:
+            entry["large_shapes"] = large_timing(kf, dev, args.seed)
+        if "knn_rescore" in chosen:
+            rt = rescore_timing(kf, kr, dev, args.seed)
+            rescore_entries["knn_rescore"].update(
+                {key: rt["rescore B=1 R=40"][key] for key in
+                 (*fields, "einsum_ms", "device_ms", "einsum_device_ms")})
+            rescore_entries["knn_rescore"]["shape"] = (
+                "cell A: n=200000 in 262144 slots d=128 l2 B=1 R=40 (bf16 "
+                "k=10)")
+            rescore_entries["knn_rescore"]["serving_shapes"] = {
+                key: t for key, t in rt.items() if key.startswith("rescore")}
+            rescore_entries["knn_query_sq"].update(
+                {key: rt["query_sq B=1"][key] for key in
+                 (*fields, "device_ms")})
+            rescore_entries["knn_query_sq"]["shape"] = "B=1 d=128"
+            rescore_entries["knn_query_sq"]["serving_shapes"] = {
+                key: t for key, t in rt.items() if key.startswith("query_sq")}
         if chosen & {"knn_fused", "knn_block"}:
             wide = wide_timing_phase(kf, kb, dev, args.seed,
                                      "knn_fused" in chosen,
@@ -3140,6 +4034,21 @@ def main() -> int:
         main = main_path_phase(kf, dev, args.seed)
         entry["launches"] = main["launches"]
         entry["list_launches"] = main["list_launches"]
+        entry["ingest_s"] = main["ingest_s"]
+        # the stacked step past r = 1024: each search's K1 launches,
+        # counted from 0, all on the large-r tier
+        entry["large_main_path"] = main["large"]
+        entry["large_launches"] = sum(
+            res["launches"]["knn_fused_large"] for res in main["large"].values())
+        # filtered kNN on both routes: each run's launches counted from 0
+        entry["filtered_main_path"] = main["filtered"]
+        entry["stacked_batch"] = main["batched"]
+        rescore_entries["knn_query_sq"]["launches"] = \
+            main["query_sq_launches"]
+        rescore_entries["knn_rescore"]["launches"] = sum(
+            res[path]["launches"]["knn_rescore"]
+            for res in main["reduced"].values()
+            for path in ("stacked", "per_shard"))
         entry["main_path_step_ms"] = main["step_ms"]
         entry["main_path_step_device"] = main["step_device"]
         # index A at k = 100: the stacked step and the per-shard route, each
@@ -3173,9 +4082,18 @@ def main() -> int:
         # concurrent threads (K1 through the batcher), index C concurrent
         entry["per_shard_route"] = main["per_shard"]
         entry2["concurrent"] = ann["concurrent"]
+        entry["filtered_ann_index"] = ann["filtered"]
         phase_s["main"] = time.perf_counter() - t0
+    elif "filtered" in phases:
+        t0 = time.perf_counter()
+        fp = filtered_phase(kf, dev, args.seed)
+        entry["filtered_main_path"] = fp["filtered"]
+        entry["stacked_batch"] = fp["batched"]
+        entry["large_main_path"] = fp["large"]
+        phase_s["filtered"] = time.perf_counter() - t0
     log(f"phase wall seconds: {json.dumps(phase_s)}")
-    print(json.dumps({"kernels": [entry, entry2, *family.values()]}),
+    print(json.dumps({"kernels": [entry, entry2, *family.values(),
+                                  *rescore_entries.values()]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -57,11 +57,17 @@
 //    tensor-core scan of knn_wide_mma.cuh (knn_fused_mma_launch): the same
 //    ring, step and selection, the dots by mma.sync (m16n8k16 bf16 into
 //    f32, m16n8k32 s8 into s32), then the same split merge;
-//  - fp32 at 1024 < r <= 4096, which no serving route reaches: the tile
-//    scan above (knn_fused_launch, which takes any precision and is timed
-//    beside the other designs), with no cp.async pipelining, tensor cores
-//    or TMA.
+//  - fp32 with r > 1024 (the stacked serving step asks for r = k_shard =
+//    min(k, n_flat), with no cap, as the reference does): the large-r tier
+//    of knn_large.cuh (knn_fused_large_launch): the wide tier's scan with
+//    each (query, doc)'s score key stored instead of pooled, then a
+//    CTA-per-(query, shard) radix select and sort of the r best;
+//  - bf16 and int8 with r > 1024 (a reduced-precision k above 1024): the
+//    tile scan above (knn_fused_launch, which takes any precision and is
+//    timed beside the other designs), with no cp.async pipelining, tensor
+//    cores or TMA, as long as its pools fit shared memory.
 
+#include "knn_large.cuh"
 #include "knn_wide_mma.cuh"
 
 extern "C" {
@@ -174,6 +180,41 @@ int knn_fused_mma_launch(const void* scale, int prec, const void* v,
       static_cast<float*>(part_v), static_cast<int*>(part_i),
       static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, d, B, r,
       sim, stages, stage_words, cap, chunk, n_split);
+}
+
+// bytes of dynamic shared memory the large-r tier's scan needs at ring
+// (stages, stage_floats); 0 for a ring with no kernel
+size_t knn_fused_large_smem_bytes(int stages, int stage_floats, int d) {
+  return large::large_smem_bytes(stages, stage_floats, d);
+}
+
+// bytes of dynamic shared memory the large-r tier's select needs at r
+size_t knn_fused_large_select_smem_bytes(int r) {
+  return large::select_smem_bytes(r);
+}
+
+// slots of the large-r tier's device sort row a (shard, query) at r: 0
+// where the select sorts its winners in shared memory
+int knn_fused_large_sort_slots(int r) { return large::sort_slots(r); }
+
+// The large-r tier's scan + select (fp32, d % 4 == 0, 16-byte aligned
+// rows) on `stream`; keys [S, B, n] u32 and, where
+// knn_fused_large_sort_slots(r) = P > 0, sort_v / sort_i [S, B, P] are
+// scratch. Returns the first cudaError_t met.
+int knn_fused_large_launch(const void* v, const void* nsq, const void* valid,
+                           const void* q, const void* qsq, void* keys,
+                           void* sort_v, void* sort_i, void* out_v,
+                           void* out_i, int S, int n, int d, int B, int r,
+                           int sim, int stages, int stage_floats, int chunk,
+                           int n_split, void* stream) {
+  return (int)large::launch_large_pool(
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(v),
+      static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid),
+      static_cast<const float*>(q), static_cast<const float*>(qsq),
+      static_cast<uint32_t*>(keys), static_cast<float*>(sort_v),
+      static_cast<int*>(sort_i), static_cast<float*>(out_v),
+      static_cast<int*>(out_i), S, n, d, B, r, sim, stages, stage_floats,
+      chunk, n_split);
 }
 
 }  // extern "C"

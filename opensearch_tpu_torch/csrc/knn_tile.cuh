@@ -1,19 +1,13 @@
 // Device code shared by the exact-kNN kernels (knn_fused.cu K1, knn_block.cu
-// K3, knn_pb.cu K4, knn_sbmax.cu K5): the score transforms, the (score desc,
-// doc id asc) key, the staging and scoring of one [kQB queries x kTD docs]
-// tile, and the running top-R pool scan with its split merge (K1 and K3).
+// K3, knn_pb.cu K4, knn_sbmax.cu K5): the (score desc, doc id asc) key, the
+// staging and scoring of one [kQB queries x kTD docs] tile, and the running
+// top-R pool scan with its split merge (K1 and K3).
 //
-// Scores are the k-NN plugin score space:
-//   l2      1 / (1 + max(|q|^2 - 2 q.v + |v|^2, 0))
-//   cosine  (1 + q.v / (max(|q|^2,1e-24)^.5 * max(|v|^2,1e-24)^.5)) / 2
-//   dot     q.v >= 0 ? q.v + 1 : 1 / (1 - q.v)
+// Scores are the k-NN plugin score space (knn_score.cuh's transforms).
 // Dots: fp32 on FFMA (never TF32); bf16 operands (stored as bf16, or stored
 // as f32 and rounded to bf16 on load) widened to f32 and summed in f32, where
 // every product is exact; int8 through __dp4a into int32 (exact), then one
-// multiply by the per-shard dequant scale. The transform rounds after every
-// operation (__fmul_rn etc., and the libraries are built with -fmad=false),
-// so it rounds like the plain PyTorch versions, one eager operation at a
-// time.
+// multiply by the per-shard dequant scale.
 
 #pragma once
 
@@ -22,6 +16,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "knn_score.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -29,32 +25,12 @@ constexpr int kQB = 16;   // query rows per CTA
 constexpr int kTD = 64;   // doc rows per shared-memory tile
 constexpr int kQPT = kQB * kTD / kThreads;  // queries per thread (4)
 constexpr int kGroups = kThreads / kTD;     // query groups per tile (4)
-constexpr unsigned kFull = 0xffffffffu;
 
 // operand storage: f32, bf16, int8, or f32 rounded to bf16 as it is loaded
 enum { PREC_FP32 = 0, PREC_BF16 = 1, PREC_INT8 = 2, PREC_FP32_AS_BF16 = 3 };
-enum { SIM_L2 = 0, SIM_COSINE = 1, SIM_DOT = 2 };
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
-}
-
-__device__ __forceinline__ float transform_score(float dots, float qsq,
-                                                 float nsq, int sim) {
-  if (sim == SIM_L2) {
-    float t = __fsub_rn(qsq, __fmul_rn(2.0f, dots));
-    t = __fadd_rn(t, nsq);
-    const float d_sq = fmaxf(t, 0.0f);
-    return __fdiv_rn(1.0f, __fadd_rn(1.0f, d_sq));
-  }
-  if (sim == SIM_COSINE) {
-    const float qn = __fsqrt_rn(fmaxf(qsq, 1e-24f));
-    const float vn = __fsqrt_rn(fmaxf(nsq, 1e-24f));
-    const float c = __fdiv_rn(dots, __fmul_rn(qn, vn));
-    return __fdiv_rn(__fadd_rn(1.0f, c), 2.0f);
-  }
-  return dots >= 0.0f ? __fadd_rn(dots, 1.0f)
-                      : __fdiv_rn(1.0f, __fsub_rn(1.0f, dots));
 }
 
 template <int PREC>

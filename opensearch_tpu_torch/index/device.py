@@ -7,9 +7,16 @@ only ever see these tensors; a refresh after deletes republishes the live
 bitmap alone (:meth:`DeviceSegment.with_live`). Docs >= n_docs are padding
 (live=False).
 
-Only what the kNN slice reads goes to the device so far: the live bitmap
-and the vector columns. Text, keyword and numeric columns stay on the host
-until the executor that scores them is ported.
+What the kNN slice and its filters read goes to the device: the live
+bitmap, the vector columns, and the columns a filter-context query reads
+(search/executor.SegmentExecutor): keyword ordinals (first ordinal a doc,
+and the CSR entries' ordinals and owning docs, padded with ordinal -2 and
+doc 0), numeric columns (int64 as the two int32 words of
+segment.split_i64, floats as f32, and the presence flags) and each text
+field's postings docs and doc lengths (a term filter on a text field, and
+exists). The text postings' term frequencies come with BM25.
+:meth:`DeviceSegment.column_nbytes` counts each kind's bytes beside the
+vector slab's.
 
 Vector norms use the host formula (float64 sum, then float32), so they are
 bit-identical to the JAX package's. A vector column whose mapping asks for
@@ -22,12 +29,16 @@ from __future__ import annotations
 
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field as dc_field
 
 import numpy as np
 import torch
 
-from opensearch_tpu_torch.index.segment import HostSegment, pad_size
+from opensearch_tpu_torch.index.segment import (
+    HostSegment,
+    pad_size,
+    split_i64,
+)
 
 _ANN_METHODS = ("ivf_pq", "ivfpq", "ivf")
 
@@ -58,6 +69,32 @@ def vector_norms_sq(vectors: np.ndarray) -> np.ndarray:
 
 
 @dataclass
+class DeviceTextField:
+    postings_docs: torch.Tensor   # int32 [P_pad] (pad 0, never addressed)
+    doc_len: torch.Tensor         # float32 [n_pad] (0 = field absent)
+
+
+@dataclass
+class DeviceKeywordField:
+    first_ord: torch.Tensor       # int32 [n_pad], -1 missing
+    mv_ords: torch.Tensor         # int32 [E_pad], pad = -2
+    mv_docs: torch.Tensor         # int32 [E_pad], pad = 0
+
+
+@dataclass
+class DeviceNumericField:
+    kind: str                     # "int" | "float"
+    hi: torch.Tensor | None       # int32 [n_pad] (int kind)
+    lo: torch.Tensor | None
+    values: torch.Tensor | None   # float32 [n_pad] (float kind)
+    present: torch.Tensor         # bool [n_pad]
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+@dataclass
 class DeviceVectorField:
     vectors: torch.Tensor         # float32 [n_pad, dims]
     norms_sq: torch.Tensor        # float32 [n_pad]
@@ -77,6 +114,27 @@ class DeviceSegment:
     n_pad: int
     live: torch.Tensor            # bool [n_pad] (padding rows are False)
     vector_fields: dict[str, DeviceVectorField]
+    text_fields: dict[str, DeviceTextField] = dc_field(default_factory=dict)
+    keyword_fields: dict[str, DeviceKeywordField] = dc_field(
+        default_factory=dict)
+    numeric_fields: dict[str, DeviceNumericField] = dc_field(
+        default_factory=dict)
+
+    def column_nbytes(self) -> dict[str, int]:
+        """Device bytes of each kind of column: the vector slabs (vectors,
+        norms, presence), the filter columns (keyword, numeric, text) and
+        the live bitmap."""
+        return {
+            "vector": sum(_nbytes(f.vectors, f.norms_sq, f.present)
+                          for f in self.vector_fields.values()),
+            "keyword": sum(_nbytes(f.first_ord, f.mv_ords, f.mv_docs)
+                           for f in self.keyword_fields.values()),
+            "numeric": sum(_nbytes(f.hi, f.lo, f.values, f.present)
+                           for f in self.numeric_fields.values()),
+            "text": sum(_nbytes(f.postings_docs, f.doc_len)
+                        for f in self.text_fields.values()),
+            "live": _nbytes(self.live),
+        }
 
     def with_live(self, live_host: np.ndarray) -> "DeviceSegment":
         """Republishes the deletes bitmap (refresh after deletes)."""
@@ -88,6 +146,9 @@ class DeviceSegment:
             n_pad=self.n_pad,
             live=torch.from_numpy(live).to(self.live.device),
             vector_fields=self.vector_fields,
+            text_fields=self.text_fields,
+            keyword_fields=self.keyword_fields,
+            numeric_fields=self.numeric_fields,
         )
 
 
@@ -152,6 +213,44 @@ def to_device(seg: HostSegment, device: torch.device | str) -> DeviceSegment:
     live = np.zeros(n_pad, dtype=bool)
     live[: seg.n_docs] = seg.live
 
+    def put(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    text_fields: dict[str, DeviceTextField] = {}
+    for fname, tf in seg.text_fields.items():
+        p_pad = pad_size(max(len(tf.postings_docs), 1))
+        text_fields[fname] = DeviceTextField(
+            postings_docs=put(_pad1(np.asarray(tf.postings_docs, np.int32),
+                                    p_pad)),
+            doc_len=put(_pad1(np.asarray(tf.doc_len, np.float32), n_pad)),
+        )
+
+    keyword_fields: dict[str, DeviceKeywordField] = {}
+    for fname, kf in seg.keyword_fields.items():
+        e_pad = pad_size(max(len(kf.mv_ords), 1))
+        keyword_fields[fname] = DeviceKeywordField(
+            first_ord=put(_pad1(np.asarray(kf.first_ord, np.int32), n_pad,
+                                fill=-1)),
+            mv_ords=put(_pad1(np.asarray(kf.mv_ords, np.int32), e_pad,
+                              fill=-2)),
+            mv_docs=put(_pad1(np.asarray(kf.mv_docs, np.int32), e_pad,
+                              fill=0)),
+        )
+
+    numeric_fields: dict[str, DeviceNumericField] = {}
+    for fname, nf in seg.numeric_fields.items():
+        present = put(_pad1(np.asarray(nf.present, bool), n_pad, fill=False))
+        if nf.kind == "int":
+            hi, lo = split_i64(nf.values_i64)
+            numeric_fields[fname] = DeviceNumericField(
+                kind="int", hi=put(_pad1(hi, n_pad)), lo=put(_pad1(lo, n_pad)),
+                values=None, present=present)
+        else:
+            numeric_fields[fname] = DeviceNumericField(
+                kind="float", hi=None, lo=None,
+                values=put(_pad1(nf.values_f64.astype(np.float32), n_pad)),
+                present=present)
+
     vector_fields: dict[str, DeviceVectorField] = {}
     for fname, vf in seg.vector_fields.items():
         dvf = vector_field_from_numpy(
@@ -167,4 +266,7 @@ def to_device(seg: HostSegment, device: torch.device | str) -> DeviceSegment:
         n_pad=n_pad,
         live=torch.from_numpy(live).to(device),
         vector_fields=vector_fields,
+        text_fields=text_fields,
+        keyword_fields=keyword_fields,
+        numeric_fields=numeric_fields,
     )

@@ -23,7 +23,7 @@ Dispatch: :func:`pool_scan` launches the kernel for CUDA tensors (or
 raises) and runs :func:`plain_pool` for CPU tensors. The policy value
 "pallas" means the kernel, "xla" the plain version, as in the reference.
 
-The kernel has four designs, chosen by (precision, r) in
+The kernel has five designs, chosen by (precision, r) in
 :func:`scan_tier`, never on failure: at fp32 with r <= ``LIST_MAX_R`` the
 list scan (``csrc/knn_pool.cuh``: a cp.async ring, 4 x 8 FFMA micro-tiles,
 per-warp lists carried across each CTA's contiguous doc range, then a
@@ -34,10 +34,22 @@ candidate buffer and a radix select, then a select-then-sort split merge),
 counted on ``wide_launches`` too; at bf16 and int8 with r <= WIDE_MAX_R
 (every reduced-precision serving search) the wide tier's tensor-core scan
 (``csrc/knn_wide_mma.cuh``: the same ring, step, selection and merge, the
-dots by ``mma.sync``), counted on ``mma_launches`` too; at r > 1024, which
-no serving route reaches, the tile scan (``csrc/knn_tile.cuh``). The range
-scans read rows in 16-byte units: :func:`rows_in_16_bytes` pads d with zero
-columns to whole units and copies an unaligned operand first.
+dots by ``mma.sync``), counted on ``mma_launches`` too; at fp32 with
+r > WIDE_MAX_R its large-r tier (``csrc/knn_large.cuh``: the same scan
+storing each (query, doc)'s score key, then a radix select and sort of
+the r best a (shard, query)), counted on ``large_launches`` too; the
+stacked serving step reaches it, since it asks for r = k_shard =
+min(k, n_flat) with no cap, as the reference does. At bf16 and int8 past
+r = 1024 (a reduced-precision k above 1024) the tile scan
+(``csrc/knn_tile.cuh``) serves, as long as its pools fit shared memory;
+past that it raises, naming the limit. The range scans read rows in
+16-byte units: :func:`rows_in_16_bytes` pads d with zero columns to whole
+units and copies an unaligned operand first.
+
+The exact fp32 rescore of a reduced-precision pool and every |q|^2 go
+through ``ops/knn_rescore`` (``csrc/knn_rescore.cu``), which sums each dot
+in one order whatever the batch, so a batched search gets the bits of a
+solo one.
 """
 
 from __future__ import annotations
@@ -48,7 +60,7 @@ import functools
 import torch
 
 from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
-from opensearch_tpu_torch.ops import cuda_lib
+from opensearch_tpu_torch.ops import cuda_lib, knn_rescore
 from opensearch_tpu_torch.ops.topk import stable_topk
 
 FK_BLOCK = 1024   # the reference's doc block: fixes n_pad, hence k_eff and R
@@ -86,11 +98,13 @@ WIDE_STEP = 1024
 WIDE_MAX_CAP = 4096
 
 # launches of the kernel made by pool_scan (any design), and of the list
-# scan, of its wide tier and of the wide tier's tensor-core scan alone
+# scan, of its wide tier, of the wide tier's tensor-core scan and of the
+# large-r tier alone
 launches = cuda_lib.LaunchCounter()
 list_launches = cuda_lib.LaunchCounter()
 wide_launches = cuda_lib.LaunchCounter()
 mma_launches = cuda_lib.LaunchCounter()
+large_launches = cuda_lib.LaunchCounter()
 
 
 def fused_pool_width(k: int, score_precision: str) -> int:
@@ -204,7 +218,7 @@ def _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
             raise ValueError(f"[{name}] must be contiguous")
     if similarity not in _SIM_CODE:
         raise ValueError(f"unknown similarity [{similarity}]")
-    if n < 1 or B < 1 or d < 1 or not 1 <= r <= 4096:
+    if n < 1 or B < 1 or d < 1 or r < 1:
         raise ValueError(f"unsupported shape n={n} B={B} d={d} r={r}")
     if S > 65_535 or -(-B // _QUERY_TILE) > 65_535:
         raise ValueError(f"grid too large: S={S} B={B}")
@@ -213,11 +227,11 @@ def _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
 def scan_tier(score_precision: str, r: int) -> str:
     """The kernel design for a scan: "lists" (the list scan) at fp32 with
     r <= LIST_MAX_R, "wide" (its wide tier) at fp32 with r <= WIDE_MAX_R,
-    "mma" (the wide tier's tensor-core scan) at bf16 and int8 with
-    r <= WIDE_MAX_R, else "tile" (the tile scan). A choice by shape
-    alone."""
+    "large" (the large-r tier) at fp32 past that, "mma" (the wide tier's
+    tensor-core scan) at bf16 and int8 with r <= WIDE_MAX_R, else "tile"
+    (the tile scan). A choice by shape alone."""
     if r > WIDE_MAX_R:
-        return "tile"
+        return "large" if score_precision == "fp32" else "tile"
     if score_precision != "fp32":
         return "mma"
     return "lists" if r <= LIST_MAX_R else "wide"
@@ -287,6 +301,18 @@ def wide_mma_plan(b: int, d: int, r: int, score_precision: str,
         b, lambda stages, words, rows, cap: smem_bytes(
             prec, stages, words, d, r, rows, cap),
         f"the tensor-core tier at {score_precision} d={d}, r={r}")
+
+
+def large_plan(d: int, smem_bytes) -> tuple[int, int]:
+    """(ring stages, floats a stage) of the large-r tier's scan over f32
+    rows of d: the first ring of ``WIDE_RINGS`` whose ring and 8-query tile
+    fit ``smem_bytes(stages, floats, d)``; raises ValueError when none
+    does. r plays no part: the scan keeps no pool."""
+    for stages, floats in WIDE_RINGS:
+        if 0 < smem_bytes(stages, floats, d) <= _MAX_SMEM:
+            return stages, floats
+    raise ValueError(f"the large-r tier's scan needs more than {_MAX_SMEM} "
+                     f"bytes of shared memory for an 8-query tile at d={d}")
 
 
 def list_geometry(S: int, n: int, n_qtiles: int, sms: int) -> tuple[int, int]:
@@ -364,6 +390,16 @@ def _library() -> ctypes.CDLL:
                                          + [ctypes.c_void_p] * 9
                                          + [ctypes.c_int] * 11
                                          + [ctypes.c_void_p])
+    lib.knn_fused_large_smem_bytes.restype = ctypes.c_size_t
+    lib.knn_fused_large_smem_bytes.argtypes = [ctypes.c_int] * 3
+    lib.knn_fused_large_select_smem_bytes.restype = ctypes.c_size_t
+    lib.knn_fused_large_select_smem_bytes.argtypes = [ctypes.c_int]
+    lib.knn_fused_large_sort_slots.restype = ctypes.c_int
+    lib.knn_fused_large_sort_slots.argtypes = [ctypes.c_int]
+    lib.knn_fused_large_launch.restype = ctypes.c_int
+    lib.knn_fused_large_launch.argtypes = ([ctypes.c_void_p] * 10
+                                           + [ctypes.c_int] * 10
+                                           + [ctypes.c_void_p])
     return lib
 
 
@@ -438,6 +474,49 @@ def launch_wide_mma(lib, v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
                           qt=WIDE_QUERY_TILE, plan=plan)
 
 
+def launch_large(lib, v, norms_sq, valid, q, qsq, *, r: int,
+                 similarity: str):
+    """The large-r tier over [S, n, d] f32 shards through ``lib`` (K1's
+    library): (vals [S, B, r], ids [S, B, r]). Pads and aligns the rows,
+    plans the ring (:func:`large_plan`), cuts the shards into ranges of
+    about one wave for 8-query tiles, and allocates the keys [S, B, n] and,
+    where the select sorts in device memory, its [S, B, P] rows (P from
+    the library's ``knn_fused_large_sort_slots``)."""
+    v, q = rows_in_16_bytes(v, q)
+    S, n, d = v.shape
+    B = q.shape[0]
+    if S > _MAX_GRID or -(-B // WIDE_QUERY_TILE) > _MAX_GRID:
+        raise ValueError(f"grid too large: S={S} B={B}")
+    smem = lib.knn_fused_large_select_smem_bytes(r)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"the large-r tier's select needs {smem} bytes of "
+                         f"shared memory at r={r} (at most {_MAX_SMEM})")
+    stages, floats = large_plan(d, lib.knn_fused_large_smem_bytes)
+    dev = v.device
+    chunk, n_split = list_geometry(S, n, -(-B // WIDE_QUERY_TILE),
+                                   sm_count(dev))
+    keys = torch.empty((S, B, n), dtype=torch.int32, device=dev)
+    slots = lib.knn_fused_large_sort_slots(r)
+    if slots:
+        sort_v = torch.empty((S, B, slots), dtype=torch.float32, device=dev)
+        sort_i = torch.empty((S, B, slots), dtype=torch.int32, device=dev)
+    else:
+        sort_v = sort_i = None
+    vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
+    ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
+    err = lib.knn_fused_large_launch(
+        v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(), q.data_ptr(),
+        qsq.data_ptr(), keys.data_ptr(),
+        sort_v.data_ptr() if sort_v is not None else None,
+        sort_i.data_ptr() if sort_i is not None else None,
+        vals.data_ptr(), ids.data_ptr(), S, n, d, B, r,
+        _SIM_CODE[similarity], stages, floats, chunk, n_split,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"large-r tier launch failed: cudaError {err}")
+    return vals, ids
+
+
 def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
                    score_precision):
     """Launch the design :func:`scan_tier` picks."""
@@ -449,7 +528,11 @@ def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
                             similarity=similarity,
                             score_precision=score_precision)
     lib = _library()
-    if tier == "mma":
+    if tier == "large":
+        vals, ids = launch_large(lib, v_x, norms_sq, valid, q_x, qsq, r=r,
+                                 similarity=similarity)
+        large_launches.add()
+    elif tier == "mma":
         vals, ids = launch_wide_mma(lib, v_x, norms_sq, valid, q_x, qsq,
                                     scale, r=r, similarity=similarity,
                                     score_precision=score_precision)
@@ -472,7 +555,7 @@ def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
 def _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
                  score_precision):
     """Launch the tile scan (csrc/knn_tile.cuh) on checked operands, at any
-    precision and r."""
+    precision and r whose pools fit shared memory."""
     lib = _library()
     S, n, d = v_x.shape
     B = q_x.shape[0]
@@ -480,8 +563,10 @@ def _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
     smem = lib.knn_fused_smem_bytes(prec, d, r)
     if smem > _MAX_SMEM:
         raise ValueError(
-            f"knn_fused needs {smem} bytes of shared memory at d={d}, r={r} "
-            f"(at most {_MAX_SMEM})")
+            f"the tile scan keeps a pool of r={r} for each of its 16 "
+            f"queries, and its doc tile at d={d}, in shared memory: "
+            f"{smem} bytes, past the card's {_MAX_SMEM} a CTA (at "
+            f"{score_precision}, r > {WIDE_MAX_R} has no other design)")
     dev = v_x.device
     chunk, n_split = _launch_geometry(S, n, B, dev)
     part_v = torch.empty((S, n_split, B, r), dtype=torch.float32, device=dev)
@@ -505,9 +590,10 @@ def pool_scan(v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
               similarity: str, score_precision: str):
     """The pool scan over stacked shards: (vals [S, B, r], ids [S, B, r]).
     CUDA tensors launch the kernel (the list scan at fp32 with r <= 32, its
-    wide tier at fp32 with r <= 1024, the wide tier's tensor-core scan at
-    bf16 and int8 with r <= 1024, the tile scan past r = 1024:
-    :func:`scan_tier`) or raise; CPU tensors take :func:`plain_pool`."""
+    wide tier at fp32 with r <= 1024, its large-r tier at fp32 past that,
+    the wide tier's tensor-core scan at bf16 and int8 with r <= 1024, the
+    tile scan there past r = 1024: :func:`scan_tier`) or raise; CPU tensors
+    take :func:`plain_pool`."""
     if v_x.device.type == "cuda":
         return _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
                               similarity=similarity,
@@ -518,23 +604,23 @@ def pool_scan(v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
                       similarity=similarity, score_precision=score_precision)
 
 
-def _fused_rescore(queries, vectors, norms_sq, valid, cand, *, k, similarity):
-    """Exact fp32 rescore of pool candidates [S, B, R] -> top-k per shard.
-    Score ties keep pool order (scan-score rank). -1 candidates are
-    clamped before the gather (negative indices wrap in torch) and masked
-    after it."""
-    cand = cand.long()
-    cand_safe = torch.clamp(cand, min=0)
-    shard = torch.arange(vectors.shape[0], device=vectors.device)[:, None, None]
-    cvec = vectors[shard, cand_safe]                       # [S, B, R, d]
-    dots = torch.einsum("bd,sbrd->sbr", queries, cvec)
-    qsq = (queries * queries).sum(dim=1)[None, :, None]
-    scores = _transform_scores(dots, qsq, norms_sq[shard, cand_safe],
-                               similarity)
-    ok = (cand >= 0) & valid[shard, cand_safe]
-    scores = torch.where(ok, scores, _NEG_INF)
+def _fused_rescore(queries, vectors, norms_sq, valid, cand, *, k, similarity,
+                   qsq=None, impl: str = "pallas"):
+    """Exact fp32 rescore of pool candidates [S, B, R] -> top-k per shard:
+    every dot summed in one order whatever the batch (ops/knn_rescore: the
+    kernel for impl="pallas" on the card, its plain version for "xla" or
+    on the CPU), then a stable top-k, so score ties keep pool order
+    (scan-score rank)."""
+    plain = impl == "xla"
+    if qsq is None:
+        qsq = (knn_rescore.plain_query_sq if plain
+               else knn_rescore.query_sq)(queries)
+    score = knn_rescore.plain_rescore if plain else knn_rescore.rescore
+    scores = score(queries.contiguous(), qsq, vectors.contiguous(),
+                   norms_sq.contiguous(), valid.contiguous(),
+                   cand.to(torch.int32).contiguous(), similarity=similarity)
     vals, pos = stable_topk(scores, k)
-    ids = torch.gather(cand, 2, pos)
+    ids = torch.gather(cand.long(), 2, pos)
     ids = torch.where(torch.isfinite(vals), ids, -1).to(torch.int32)
     return vals, ids
 
@@ -565,7 +651,10 @@ def knn_fused_stacked(
     n_pad = -(-n // FK_BLOCK) * FK_BLOCK
     k_eff = min(k, n_pad)
     r = min(fused_pool_width(k_eff, score_precision), n_pad)
-    qsq = (queries * queries).sum(dim=1)
+    # |q|^2 summed in one order whatever the batch, so a batched search's
+    # scores are a solo one's bits
+    qsq = (knn_rescore.query_sq if impl == "pallas"
+           else knn_rescore.plain_query_sq)(queries)
     v_x, q_x, scale = _prep_operands(vectors, queries, score_precision)
     scan = pool_scan if impl == "pallas" else plain_pool
     pv, pi = scan(v_x.contiguous(), norms_sq.contiguous(),
@@ -575,7 +664,8 @@ def knn_fused_stacked(
         vals, ids = pv[:, :, :k_eff], pi[:, :, :k_eff]
     else:
         vals, ids = _fused_rescore(queries, vectors, norms_sq, valid, pi,
-                                   k=k_eff, similarity=similarity)
+                                   k=k_eff, similarity=similarity, qsq=qsq,
+                                   impl=impl)
     if k_eff < k:
         vals = torch.cat([vals, vals.new_full((S, B, k - k_eff), _NEG_INF)], 2)
         ids = torch.cat([ids, ids.new_full((S, B, k - k_eff), -1)], 2)

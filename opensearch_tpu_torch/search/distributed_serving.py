@@ -17,8 +17,16 @@ The step declines (``mesh_knn_batch`` returns None, and the service runs
 the per-shard route of search/executor.py) where the reference declines:
 an unfiltered query on an ANN-indexed column (the per-shard route answers
 it with IVF-PQ), and shard sets the stacked path cannot serve (no shard
-maps the field, or mixed similarities or dims). Filtered kNN is not yet
-ported and raises as such.
+maps the field, or mixed similarities or dims); each decline counts in
+``stats["fallbacks"]``.
+
+Filtered kNN: the filter's mask is built on the device by the per-shard
+route's own SegmentExecutor (:func:`_filter_valid_mask`), laid out like
+the bundle's slabs, and ANDed into ``valid``, so K1 scans the narrower
+set; a filtered query serves ANN-indexed columns exactly, as the
+per-shard route does under a filter; ``stats["filtered"]`` counts such
+launches. A batch's queries share their filter by identity. Aliases are
+not ported (``TorchNode`` has none), so a filtered alias raises.
 """
 
 from __future__ import annotations
@@ -44,6 +52,8 @@ from opensearch_tpu_torch.search.executor import (
 # concurrent read-modify-write.
 stats = {
     "distributed_searches": 0,
+    "fallbacks": 0,
+    "filtered": 0,          # dispatches that carried a filter mask
     "single_shard": 0,      # dispatches with s == 1
     "batched_queries": 0,   # total query vectors sent in B>1 dispatches
 }
@@ -107,11 +117,14 @@ class _IndexBundle:
         raise IndexError(f"flat doc {flat} out of range for shard {shard_idx}")
 
 
-def _can_serve(snaps: list, field: str) -> tuple[str, int] | None:
+def _can_serve(snaps: list, field: str, *,
+               filtered: bool = False) -> tuple[str, int] | None:
     """(similarity, dims) when every shard can be served exactly by the
-    stacked step, else None. ANN-indexed segments decline an (unfiltered)
+    stacked step, else None. ANN-indexed segments decline an unfiltered
     query: the per-shard route answers it with IVF-PQ, and this step must
-    give what that route gives."""
+    give what that route gives. Under a filter that route scans exactly
+    (executor.shard_knn_selection takes ANN only unfiltered), so ANN
+    columns are served here too."""
     from opensearch_tpu_torch.ops.knn import canonical_similarity
 
     similarity = None
@@ -121,7 +134,7 @@ def _can_serve(snaps: list, field: str) -> tuple[str, int] | None:
             vf = dev.vector_fields.get(field)
             if vf is None:
                 continue
-            if vf.ann is not None:
+            if vf.ann is not None and not filtered:
                 return None
             sim = canonical_similarity(vf.similarity)
             if similarity is None:
@@ -196,6 +209,30 @@ def _build_bundle(snaps: list, field: str, dims: int,
     )
 
 
+def _filter_valid_mask(shards: list, snaps: list, knn_filter, n_flat: int,
+                       device: torch.device) -> torch.Tensor:
+    """[S, n_flat] bool on the device: the docs the kNN filter admits, laid
+    out like the bundle's slabs (segment-ascending, doc-ascending, padding
+    False). Each segment's mask comes from the SegmentExecutor the
+    per-shard route runs for the same filter, so both routes filter
+    alike."""
+    from opensearch_tpu_torch.search.executor import (
+        SegmentExecutor,
+        ShardContext,
+    )
+
+    out = torch.zeros((len(snaps), n_flat), dtype=torch.bool, device=device)
+    for si, (shard, snap) in enumerate(zip(shards, snaps)):
+        ctx = ShardContext(snap, shard.mapper_service)
+        pos = 0
+        for host, dev in snap.segments:
+            n = host.n_docs
+            mask = SegmentExecutor(ctx, host, dev).filter_mask(knn_filter)
+            out[si, pos:pos + n] = mask[:n].to(device)
+            pos += n
+    return out
+
+
 def mesh_knn_batch(
     shards: list,
     snaps: list,
@@ -203,25 +240,28 @@ def mesh_knn_batch(
     fetch_k: int,
     alias_filters: list | None = None,
 ) -> MeshLaunchOutcome | None:
-    """Execute B KnnQuery nodes (same field/k, no filter) in ONE device
-    launch. Returns the per-query per-shard results, the device-merged row
-    order and the launch attribution; None when the step declines the
-    shard set (see :func:`_can_serve`). Raises for what is not yet
-    ported."""
+    """Execute B KnnQuery nodes (same field, k and filter object) in ONE
+    device launch. Returns the per-query per-shard results, the
+    device-merged row order and the launch attribution; None when the step
+    declines the shard set (see :func:`_can_serve`). Raises for what is
+    not yet ported."""
     if not shards or len(shards) != len(snaps) or not nodes:
         raise ValueError("mesh_knn_batch needs shards, their snapshots and "
                          "at least one query")
     s = len(shards)
     first = nodes[0]
     for node in nodes:
-        if node.field != first.field or int(node.k) != int(first.k):
-            raise ValueError("a batch must share its field and k")
-        if node.filter is not None:
-            raise not_yet_ported("filtered kNN")
+        # the filter by identity, as the reference compares it: equal
+        # filters that are distinct objects do not share a launch
+        if (node.field != first.field or int(node.k) != int(first.k)
+                or node.filter is not first.filter):
+            raise ValueError("a batch must share its field, k and filter")
     if alias_filters is not None and any(f is not None for f in alias_filters):
         raise not_yet_ported("kNN through a filtered alias")
-    served = _can_serve(snaps, first.field)
+    filtered = first.filter is not None
+    served = _can_serve(snaps, first.field, filtered=filtered)
     if served is None:
+        _count("fallbacks")
         return None
     similarity, dims = served
     for node in nodes:
@@ -239,6 +279,11 @@ def mesh_knn_batch(
     if bundle is None:
         bundle = registry.put(
             cache_key, _build_bundle(snaps, first.field, dims, device))
+
+    valid = bundle.valid
+    if filtered:
+        valid = valid & _filter_valid_mask(shards, snaps, first.filter,
+                                           bundle.n_flat, device)
 
     b = len(nodes)
     q_host = np.zeros((b, dims), np.float32)
@@ -271,7 +316,7 @@ def mesh_knn_batch(
     queries = torch.from_numpy(q_host).to(device)
     t0 = time.perf_counter_ns()
     vals, gids, counts = program(
-        bundle.vectors, bundle.norms_sq, bundle.valid, queries)
+        bundle.vectors, bundle.norms_sq, valid, queries)
     # copying the results to the host is the fence for this launch
     vals = vals.cpu().numpy()            # [b, k_final]
     gids = gids.cpu().numpy()
@@ -280,6 +325,8 @@ def mesh_knn_batch(
     launch_id = registry.next_launch_id()
     registry.record_launch_kernel(exact_kernel, score_precision)
     _count("distributed_searches")
+    if filtered:
+        _count("filtered")
     if s == 1:
         _count("single_shard")
     if b > 1:

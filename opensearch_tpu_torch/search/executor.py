@@ -30,9 +30,21 @@ reference buckets them, so the results are the reference's.
 
 Every launch goes through the dispatch batcher (search/batcher.py) with
 the reference's batch keys, so concurrent queries over one segment column
-and reader generation coalesce into one launch. Not yet ported, and raised
-as such: filtered kNN. The profiler, roofline and residency-ledger calls of
-the reference are left out.
+and reader generation coalesce into one launch.
+
+Filtered kNN (a ``filter`` inside the ``knn`` clause, the k-NN plugin's
+efficient filtering): the filter's device mask is ANDed into ``valid``,
+so the same exact scan runs on the narrower set; a filtered query never
+takes ANN (the segment runs exactly, through K1 where the policy picks
+it) and gets batch key None on every branch, so it never merges with
+another query. :class:`SegmentExecutor` computes the filter-context masks
+of ``term`` (keyword, numeric, date, boolean, ``_id``, and a text field
+through its postings), ``terms``, ``range`` (numeric, date and keyword),
+``exists``, ``ids``, ``bool``, ``constant_score``, ``match_all`` and
+``match_none``, as the reference's ``execute(node).mask``; any other node
+in a kNN filter raises "not yet ported" with its name. Their scores come
+with BM25. The profiler, roofline and residency-ledger calls of the
+reference are left out.
 """
 
 from __future__ import annotations
@@ -48,7 +60,20 @@ from opensearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
 )
+from opensearch_tpu_torch.index.mapper import (
+    FLOAT_TYPES,
+    INT_TYPES,
+    RANGE_TYPES,
+    parse_date_millis,
+    parse_date_nanos,
+)
+from opensearch_tpu_torch.index.segment import i64_query_words, pad_window
+from opensearch_tpu_torch.ops import filters
 from opensearch_tpu_torch.search import batcher
+from opensearch_tpu_torch.search import query_dsl as q
+
+I64_MIN = -(2**63)
+I64_MAX = 2**63 - 1
 
 # exact-kNN scan strategy when the fused kernel does not serve: segments of
 # at least STREAMING_MIN_DOCS docs score through the chunked streaming scan,
@@ -131,8 +156,7 @@ class ShardContext:
             return cached
         from opensearch_tpu_torch.ops import knn as knn_ops
 
-        if node.filter is not None:
-            raise not_yet_ported("filtered kNN")
+        filtered = node.filter is not None
         per_seg_scores: list[np.ndarray | None] = []
         candidates: list[tuple[float, int, int]] = []
         for seg_idx, (host, dev) in enumerate(self.snapshot.segments):
@@ -141,6 +165,10 @@ class ShardContext:
                 per_seg_scores.append(None)
                 continue
             valid = vf.present & dev.live
+            if filtered:
+                # efficient filtering: the same scan on a narrower set
+                valid = valid & SegmentExecutor(self, host, dev).filter_mask(
+                    node.filter)
             qv = np.asarray(node.vector, np.float32)
             sim = knn_ops.canonical_similarity(vf.similarity)
             k_req = max(1, min(int(node.k), host.n_docs))
@@ -148,7 +176,7 @@ class ShardContext:
             # (its programs are shape-specialized, and equal buckets share
             # a batch); the shard cut below still takes exactly node.k
             k_bucket = 1 << (k_req - 1).bit_length()
-            if vf.ann is not None:
+            if vf.ann is not None and not filtered:
                 a_vals, a_ids = self._ann_dispatch(vf, valid, qv, node,
                                                    k_bucket, sim)
                 _count_knn_path("ann")
@@ -163,7 +191,7 @@ class ShardContext:
                         candidates.append((float(v), seg_idx, int(d)))
                 continue
             scores = self._exact_dispatch(host, dev, vf, valid, qv, node.field,
-                                          k_bucket, sim)
+                                          k_bucket, sim, filtered)
             per_seg_scores.append(scores)
             n_take = min(node.k, host.n_docs)
             top = np.argpartition(-scores[: host.n_docs],
@@ -226,11 +254,14 @@ class ShardContext:
         ).value
 
     def _exact_dispatch(self, host, dev, vf, valid, qv: np.ndarray,
-                        field: str, k_bucket: int, sim: str) -> np.ndarray:
+                        field: str, k_bucket: int, sim: str,
+                        filtered: bool = False) -> np.ndarray:
         """The exact scan of one segment for this query through the
         batcher: the fused kernel, the streaming or the materializing scan,
-        as the reference picks them. Returns the segment's scores f32
-        [n_pad], -inf outside the launch's candidates."""
+        as the reference picks them. A filtered query's `valid` is its own,
+        so its key is None on every branch: it never merges. Returns the
+        segment's scores f32 [n_pad], -inf outside the launch's
+        candidates."""
         from opensearch_tpu_torch.ops import fused, knn_fused
         from opensearch_tpu_torch.ops import knn as knn_ops
         from opensearch_tpu_torch.search.ann import (
@@ -250,6 +281,8 @@ class ShardContext:
         if exact_kernel == "pallas" and k_bucket <= knn_fused.FUSED_MAX_K:
 
             def fused_key(kb: int):
+                if filtered:
+                    return None
                 return ("knn_fused", id(vf), gen, kb, sim, score_precision,
                         exact_kernel)
 
@@ -266,7 +299,8 @@ class ShardContext:
                 fused_key(k_bucket), qv, launch_fused, rank=k_bucket,
                 alt_keys=tuple(fused_key(kb)
                                for kb in (k_bucket * 2, k_bucket * 4)
-                               if kb <= knn_fused.FUSED_MAX_K),
+                               if kb <= knn_fused.FUSED_MAX_K
+                               and not filtered),
                 tune_key=("knn_fused", *tune, k_bucket)).value
             hit = ids >= 0
             scores[ids[hit]] = vals[hit]
@@ -276,6 +310,8 @@ class ShardContext:
             scan = fused.cached_knn_streaming(k_bucket, sim, chunk)
 
             def stream_key(kb: int):
+                if filtered:
+                    return None
                 return ("knn_topk_streaming", id(vf), gen, kb, sim, chunk)
 
             def launch_streaming(rows):
@@ -288,7 +324,7 @@ class ShardContext:
                 stream_key(k_bucket), qv, launch_streaming, rank=k_bucket,
                 alt_keys=tuple(stream_key(kb)
                                for kb in (k_bucket * 2, k_bucket * 4)
-                               if kb <= chunk),
+                               if kb <= chunk and not filtered),
                 tune_key=("knn_topk_streaming", *tune, k_bucket)).value
             finite = np.isfinite(vals)
             scores[ids[finite]] = vals[finite]
@@ -304,7 +340,8 @@ class ShardContext:
                 return [b_scores[i] for i in range(len(rows))]
 
             scores = batcher.dispatch(
-                ("knn_exact_scores", id(vf), gen, sim), qv, launch_exact,
+                None if filtered else ("knn_exact_scores", id(vf), gen, sim),
+                qv, launch_exact,
                 tune_key=("knn_exact_scores", *tune)).value
             _count_knn_path("materializing")
         return scores
@@ -318,13 +355,294 @@ def _rows(b_vals: torch.Tensor, b_ids: torch.Tensor, n: int) -> list:
 
 
 class SegmentExecutor:
-    """Executes a query node against one segment; only the kNN query is
-    ported."""
+    """Executes a query node against one segment: the kNN query, and the
+    filter-context masks a kNN filter names (:meth:`filter_mask`)."""
 
     def __init__(self, ctx: ShardContext, host, dev):
         self.ctx = ctx
         self.host = host
         self.dev = dev
+
+    # -- filter context ----------------------------------------------------
+
+    def filter_mask(self, node) -> torch.Tensor:
+        """The device bool [n_pad] mask of a filter-context node: the
+        reference's ``execute(node).mask``."""
+        method = getattr(self, f"_filter_{type(node).__name__}", None)
+        if method is None:
+            raise not_yet_ported(
+                f"query [{type(node).__name__}] inside a kNN filter")
+        return method(node)
+
+    def _none(self) -> torch.Tensor:
+        return torch.zeros(self.dev.n_pad, dtype=torch.bool,
+                           device=self.dev.live.device)
+
+    def _host_mask(self, mask: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(mask).to(self.dev.live.device) & self.dev.live
+
+    def _filter_MatchAllQuery(self, node) -> torch.Tensor:
+        return self.dev.live
+
+    def _filter_MatchNoneQuery(self, node) -> torch.Tensor:
+        return self._none()
+
+    def _filter_IdsQuery(self, node) -> torch.Tensor:
+        mask = np.zeros(self.dev.n_pad, dtype=bool)
+        for doc_id in node.values:
+            # doc_index (not local_doc): liveness comes from the snapshot's
+            # device mask, so a pinned reader stays point-in-time
+            d = self.host.doc_index(doc_id)
+            if d is not None:
+                mask[d] = True
+        return self._host_mask(mask)
+
+    def _filter_ConstantScoreQuery(self, node) -> torch.Tensor:
+        return self.filter_mask(node.filter)
+
+    def _filter_BoolQuery(self, node) -> torch.Tensor:
+        mask = self.dev.live
+        for sub in (*node.must, *node.filter):
+            mask = mask & self.filter_mask(sub)
+        for sub in node.must_not:
+            mask = mask & ~self.filter_mask(sub)
+        if node.should:
+            count = torch.zeros(self.dev.n_pad, dtype=torch.int32,
+                                device=mask.device)
+            for sub in node.should:
+                count = count + self.filter_mask(sub).to(torch.int32)
+            msm = node.minimum_should_match
+            if msm is None:
+                msm = 1 if not (node.must or node.filter) else 0
+            if msm > 0:
+                mask = mask & (count >= msm)
+        return mask
+
+    def _filter_ExistsQuery(self, node) -> torch.Tensor:
+        field = node.field
+        ms = self.ctx.mapper_service
+        if ms.flat_object_parent(field) is not None \
+                and ms.mappers.get(field) is None:
+            raise not_yet_ported("[exists] on a flat_object sub-path inside "
+                                 "a kNN filter")
+        dev = self.dev
+        if all(field not in cols for cols in (
+                dev.numeric_fields, dev.vector_fields, dev.keyword_fields,
+                dev.text_fields)):
+            # object prefix: exists == any mapped child exists
+            children = [name for name in ms.mappers
+                        if name.startswith(f"{field}.")]
+            if children:
+                mask = self._none()
+                for child in children:
+                    mask = mask | self._filter_ExistsQuery(
+                        q.ExistsQuery(field=child))
+                return mask
+        masks = []
+        for cols in (dev.numeric_fields, dev.vector_fields):
+            if field in cols:
+                masks.append(filters.exists_mask(cols[field].present))
+        if field in dev.keyword_fields:
+            masks.append(dev.keyword_fields[field].first_ord >= 0)
+        if field in dev.text_fields:
+            masks.append(dev.text_fields[field].doc_len > 0)
+        if not masks:
+            return self._none()
+        mask = masks[0]
+        for m in masks[1:]:
+            mask = mask | m
+        return mask & dev.live
+
+    def _mapper(self, field: str, what: str):
+        """The field's mapper; a flat_object field or sub-path, or a range
+        field, raises "not yet ported"."""
+        ms = self.ctx.mapper_service
+        mapper = ms.field_mapper(field)
+        if (mapper is None and ms.flat_object_parent(field) is not None) or (
+                mapper is not None and mapper.type in (
+                    "flat_object", *RANGE_TYPES)):
+            raise not_yet_ported(f"[{what}] on field [{field}] of type "
+                                 f"[{mapper.type if mapper else 'flat_object'}]"
+                                 f" inside a kNN filter")
+        return mapper
+
+    def _keyword_value(self, mapper, value):
+        if mapper is not None and mapper.normalizer == "lowercase" \
+                and isinstance(value, str):
+            return value.lower()
+        return value
+
+    def _text_term(self, field: str, term: str) -> torch.Tensor:
+        """Docs holding `term` in text field `field` (its postings)."""
+        dev_tf = self.dev.text_fields.get(field)
+        host_tf = self.host.text_fields.get(field)
+        if dev_tf is None or host_tf is None:
+            return self._none()
+        tid = host_tf.term_dict.get(term)
+        if tid is None:
+            return self._none()
+        off = int(host_tf.term_offsets[tid])
+        length = int(host_tf.term_offsets[tid + 1]) - off
+        return filters.docs_mask_from_postings(
+            dev_tf.postings_docs, off, length, self.dev.n_pad,
+            pad_window(length)) & self.dev.live
+
+    def _filter_TermQuery(self, node) -> torch.Tensor:
+        field, value = node.field, node.value
+        if field == "_id":
+            return self._filter_IdsQuery(q.IdsQuery(values=[str(value)]))
+        mapper = self._mapper(field, "term")
+        ftype = mapper.type if mapper else None
+        value = self._keyword_value(mapper, value)
+        if ftype == "text":
+            return self._text_term(field, str(value))
+        if ftype == "keyword" or (ftype is None
+                                  and field in self.host.keyword_fields):
+            if node.case_insensitive:
+                raise not_yet_ported("[term] with case_insensitive inside a "
+                                     "kNN filter")
+            if mapper is not None and mapper.original_type == "ip" \
+                    and "/" in str(value):
+                raise not_yet_ported("[term] on an ip subnet inside a kNN "
+                                     "filter")
+            kf_dev = self.dev.keyword_fields.get(field)
+            kf_host = self.host.keyword_fields.get(field)
+            if kf_dev is None:
+                return self._none()
+            qord = kf_host.ord_dict.get(str(value), -3)
+            return filters.term_mask_keyword(
+                kf_dev.mv_ords, kf_dev.mv_docs, qord,
+                self.dev.n_pad) & self.dev.live
+        if ftype == "boolean":
+            want = 1 if value in (True, "true", 1) else 0
+            return self._numeric_range(field, want, None, want, None)
+        if ftype == "date":
+            ms = (parse_date_nanos(value) if mapper.resolution == "nanos"
+                  else parse_date_millis(value))
+            return self._numeric_range(field, ms, None, ms, None)
+        if ftype in INT_TYPES or ftype in FLOAT_TYPES or ftype is None:
+            return self._numeric_range(field, value, None, value, None)
+        raise IllegalArgumentException(
+            f"term query on unsupported field [{field}]")
+
+    def _filter_TermsQuery(self, node) -> torch.Tensor:
+        if node.field == "_id":
+            return self._filter_IdsQuery(
+                q.IdsQuery(values=[str(v) for v in node.values]))
+        mapper = self._mapper(node.field, "terms")
+        if mapper is not None and mapper.type == "keyword":
+            kf_dev = self.dev.keyword_fields.get(node.field)
+            kf_host = self.host.keyword_fields.get(node.field)
+            if kf_dev is None:
+                return self._none()
+            ords = [kf_host.ord_dict.get(
+                str(self._keyword_value(mapper, str(v))), -3)
+                for v in node.values]
+            t_pad = max(pad_window(len(ords)), 8)
+            ords_arr = np.full(t_pad, -3, np.int32)
+            ords_arr[: len(ords)] = ords
+            return filters.terms_mask_keyword(
+                kf_dev.mv_ords, kf_dev.mv_docs,
+                torch.from_numpy(ords_arr).to(kf_dev.mv_ords.device),
+                self.dev.n_pad) & self.dev.live
+        # numeric / text: the OR of term queries
+        mask = self._none()
+        for v in node.values:
+            mask = mask | self._filter_TermQuery(
+                q.TermQuery(field=node.field, value=v))
+        return mask
+
+    def _filter_RangeQuery(self, node) -> torch.Tensor:
+        mapper = self._mapper(node.field, "range")
+        if mapper is not None and mapper.type == "keyword":
+            # lexicographic range over the sorted ordinals
+            import bisect
+
+            kf_host = self.host.keyword_fields.get(node.field)
+            kf_dev = self.dev.keyword_fields.get(node.field)
+            if kf_host is None:
+                return self._none()
+            vals = kf_host.ord_values
+            lo, hi = 0, len(vals) - 1
+            if node.gte is not None:
+                lo = bisect.bisect_left(vals, str(node.gte))
+            if node.gt is not None:
+                lo = max(lo, bisect.bisect_right(vals, str(node.gt)))
+            if node.lte is not None:
+                hi = bisect.bisect_right(vals, str(node.lte)) - 1
+            if node.lt is not None:
+                hi = min(hi, bisect.bisect_left(vals, str(node.lt)) - 1)
+            if hi < lo:
+                return self._none()
+            hit = (kf_dev.mv_ords >= lo) & (kf_dev.mv_ords <= hi)
+            return filters._docs_any(hit, kf_dev.mv_docs, self.dev.n_pad) \
+                & self.dev.live
+        return self._numeric_range(node.field, node.gte, node.gt, node.lte,
+                                   node.lt)
+
+    def _numeric_range(self, field: str, gte: Any, gt: Any, lte: Any,
+                       lt: Any) -> torch.Tensor:
+        nf_dev = self.dev.numeric_fields.get(field)
+        nf_host = self.host.numeric_fields.get(field)
+        if nf_dev is None:
+            return self._none()
+        mapper = self.ctx.mapper_service.field_mapper(field)
+        is_date = mapper is not None and mapper.type == "date"
+        nanos = is_date and mapper.resolution == "nanos"
+        unsigned = mapper is not None and \
+            mapper.original_type == "unsigned_long"
+
+        def conv(v: Any) -> Any:
+            if v is None:
+                return None
+            if nanos:
+                return parse_date_nanos(v)
+            if unsigned:
+                return int(str(v), 10) - 2**63  # biased storage
+            return parse_date_millis(v) if is_date else v
+
+        gte, gt, lte, lt = conv(gte), conv(gt), conv(lte), conv(lt)
+        if nf_host is not None and nf_host.mv_offsets is not None:
+            # multi-valued docs: a doc matches if ANY value is in range
+            mv = nf_host.mv_values
+            if nf_host.kind == "int":
+                lo_b = I64_MIN if gte is None and gt is None else (
+                    int(gte) if gte is not None else int(gt) + 1)
+                hi_b = I64_MAX if lte is None and lt is None else (
+                    int(lte) if lte is not None else int(lt) - 1)
+                sel = (mv >= lo_b) & (mv <= hi_b)
+            else:
+                lo_v = float(gte) if gte is not None else (
+                    float(gt) if gt is not None else -np.inf)
+                hi_v = float(lte) if lte is not None else (
+                    float(lt) if lt is not None else np.inf)
+                sel = np.ones(len(mv), bool)
+                sel &= (mv > lo_v) if gt is not None else (mv >= lo_v)
+                sel &= (mv < hi_v) if lt is not None else (mv <= hi_v)
+            mask = np.zeros(self.dev.n_pad, bool)
+            idx = np.nonzero(sel)[0]
+            if len(idx):
+                doc_of = np.searchsorted(nf_host.mv_offsets, idx,
+                                         side="right") - 1
+                mask[np.unique(doc_of)] = True
+            return self._host_mask(mask)
+        if nf_dev.kind == "int":
+            lo_bound = I64_MIN if gte is None and gt is None else (
+                int(gte) if gte is not None else int(gt) + 1)
+            hi_bound = I64_MAX if lte is None and lt is None else (
+                int(lte) if lte is not None else int(lt) - 1)
+            mask = filters.range_mask_i64(
+                nf_dev.hi, nf_dev.lo, nf_dev.present,
+                *i64_query_words(lo_bound), *i64_query_words(hi_bound))
+        else:
+            lo_v = float(gte) if gte is not None else (
+                float(gt) if gt is not None else -np.inf)
+            hi_v = float(lte) if lte is not None else (
+                float(lt) if lt is not None else np.inf)
+            mask = filters.range_mask_f32(
+                nf_dev.values, nf_dev.present, lo_v, hi_v, gt is not None,
+                lt is not None)
+        return mask & self.dev.live
 
     def execute(self, node) -> HostNodeResult:
         method = getattr(self, f"_exec_{type(node).__name__}", None)

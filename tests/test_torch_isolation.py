@@ -114,11 +114,20 @@ def node(tmp_path):
     {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2}}},
      "sort": ["_score"]},
     {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2,
-                             "filter": {"term": {"title": "a"}}}}}},
+                             "filter": {"match": {"title": "a"}}}}}},
 ])
 def test_bodies_outside_the_slice_raise(node, body):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         node.search("i", body)
+
+
+def test_filtered_knn_body_is_served(node):
+    """A term filter on a text field inside the kNN clause is served: every
+    doc holds "a", so the two nearest come back."""
+    resp = node.search("i", {"query": {"knn": {"v": {
+        "vector": [1, 1, 1, 1], "k": 2,
+        "filter": {"term": {"title": "a"}}}}}})
+    assert [h["_id"] for h in resp["hits"]["hits"]] == ["1", "0"]
 
 
 def test_ivf_pq_mapping_builds_at_min_train(tmp_path):

@@ -282,8 +282,8 @@ def test_serving_shapes_fill_the_card():
     ("fp32", 1, "lists"), ("fp32", 10, "lists"), ("fp32", 32, "lists"),
     ("fp32", 33, "wide"), ("fp32", 128, "wide"), ("bf16", 10, "mma"),
     ("bf16", 40, "mma"), ("int8", 32, "mma"), ("int8", 512, "mma"),
-    ("fp32", 100, "wide"), ("fp32", 1024, "wide"), ("fp32", 1025, "tile"),
-    ("fp32", 4096, "tile"), ("bf16", 400, "mma"), ("int8", 40, "mma"),
+    ("fp32", 100, "wide"), ("fp32", 1024, "wide"), ("fp32", 1025, "large"),
+    ("fp32", 4096, "large"), ("bf16", 400, "mma"), ("int8", 40, "mma"),
     ("int8", 400, "mma")])
 def test_k1_design_is_chosen_by_precision_and_r(precision, r, want):
     assert knn_fused.scan_tier(precision, r) == want
