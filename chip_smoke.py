@@ -1,25 +1,31 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed N] [--phases kernel,timing,main|filtered]
-                          [--kernels knn_fused,adc_scan,knn_block,knn_pb,knn_sbmax]
+    python3 chip_smoke.py [--seed N]
+                          [--phases kernel,timing,main|filtered,hybrid]
+                          [--kernels knn_fused,adc_scan,knn_block,knn_pb,
+                                     knn_sbmax,knn_rescore,adc_lut]
 
 Builds the port's CUDA kernels from the sources in this checkout (one
 nvcc per source, all started together): K1 (csrc/knn_fused.cu, fused exact
 kNN: the list scan of csrc/knn_pool.cuh at fp32 with r <= 32, its wide
 tier, csrc/knn_wide.cuh, at fp32 with 32 < r <= 1024, its large-r tier,
 csrc/knn_large.cuh, at fp32 past r = 1024, the wide tier's tensor-core
-scan, csrc/knn_wide_mma.cuh, at bf16 and int8 with r <= 1024, the tile
-scan of csrc/knn_tile.cuh there past r = 1024), the fixed-order rescore
-and |q|^2 (csrc/knn_rescore.cu: knn_rescore_kernel, knn_query_sq_kernel;
-no Pallas counterpart: they replace a batched einsum and a row sum, so a
-batched search gets a solo one's bits), K2
+scan, csrc/knn_wide_mma.cuh, at bf16 and int8 with r <= 1024, the large-r
+tier's tensor-core scan, csrc/knn_large_mma.cuh, there past r = 1024; the
+tile scan of csrc/knn_tile.cuh serves no shape and is timed beside them),
+the fixed-order rescore and |q|^2 (csrc/knn_rescore.cu:
+knn_rescore_kernel, knn_query_sq_kernel; no Pallas counterpart: they
+replace a batched einsum and a row sum, so a batched search gets a solo
+one's bits; the IVF-PQ rescore takes their dots alone), the IVF-PQ LUT
+build (csrc/adc_lut.cu: adc_lut_kernel, each sum in one order whatever the
+batch; no Pallas counterpart), K2
 (csrc/adc_scan.cu, the IVF-PQ ADC scan) and the exact-scan family K3
 (csrc/knn_block.cu, running top-k: the list scan and its wide tier), K4 (csrc/knn_pb.cu: per-block top-k, then the
 block-major merge, two kernels) and K5 (csrc/knn_sbmax.cu: sub-block
 maxima, then the selection and rescore, two kernels). ``--kernels`` limits
 the kernel and timing phases to
-the named kernels (default all six; the main phase needs K1, K2 and the
-rescore).
+the named kernels (default all seven; the main phase needs K1, K2, the
+rescore and the LUT kernel).
 Then:
 
 1. kernel: holds each kernel against its plain PyTorch version on the card.
@@ -29,6 +35,18 @@ Then:
    device memory), 20,000 768-d docs to r = 10,000, four shards (one with
    5 live docs), d = 30, and r past a shard's live count, which returns
    every live doc; the tile scan beside it at r = 1025 and 1400. The
+   large-r tier at bf16 and int8 (large_mma_kernel_phase) on clustered
+   floats, one shard of 60,000 128-d docs and one of 20,000 768-d docs at
+   B = 1, 9 and 33 x r = 1025, 2000, 4096 and 10,000, l2 and cosine, int8
+   bit-equal to plain_pool, bf16 ids equal but at logged summation ties
+   (at d = 768 every score within its f32 error bound, f32_bound_check);
+   on mma_sixteenths bit-equal at both precisions; four shards; the
+   r = 1025 pool's first 1024 slots the tensor-core tier's r = 1024 pool
+   bit for bit. The LUT kernel (lut_kernel_phase) bit-equal to its plain
+   version at glove-100's and cell C's shapes (B = 1, 8, 32) and 768-d
+   m = 96, through build_luts at bf16 and u8 too, each batch row its solo
+   LUT; the rescore's dots alone bit-equal to theirs; the host's batched
+   probe product against one a row, logged. The
    rescore and |q|^2 (rescore_kernel_phase): bit-equal to their plain
    versions on sixteenths and on floats (a float difference would be
    logged and held to the f32 bound), every batch row its solo call's
@@ -176,8 +194,18 @@ Then:
    (large_main_phase): k = 1025, 2000 and 4096 on a 768-d index of 20,000
    docs, k = 10,000 on index A, k = 5,000 on 1,500 docs (every live doc),
    each hit list the kernel-order brute force, one large-r launch a
-   search. Every concurrent (gated) check of a K1 path holds ids and
-   scores bit for bit to the solo search.
+   search; then at bf16 and int8 (large_reduced_main) k = 1025, 2000 and
+   4096 on the 768-d index and 10,000 on index A, each hit list the plain
+   pipeline's (bf16: but at logged summation ties of the pool), one
+   launch a search on the large-r tier's tensor-core scan, none on the
+   tile scan. msearch (msearch_main_phase): one msearch of 32 bare knn
+   bodies on index A at fp32 k = 10 and 100 and bf16 k = 10, each body's
+   hits its solo search's bit for bit, one K1 launch a run on the tier
+   scan_tier names, batched_queries up by 32; a mixed run whose fourth
+   body carries a filter goes one body at a time; the msearch p50 beside
+   32 solo searches, the B = 32 step's device ms beside 32 B = 1 steps.
+   Every concurrent (gated) check, of K1's paths and of index C's IVF-PQ
+   route, holds ids and scores bit for bit to the solo search.
    ANN (K2): index C (1 shard, 200,000 clustered 100-d docs, cosine,
    ivf_pq nlist 512, m 20, nprobe 8; cut from 1.2M by host ingest), 64 knn
    searches, k = 10; every hit list must equal the plain pipeline
@@ -195,7 +223,16 @@ Then:
    with fewer K2 and K1 launches than searches in the gated run. Each
    8-thread run is repeated free-running under the default batch window
    (measured, not gated) and with the batcher off; p50, p99 and QPS are
-   printed solo, concurrent and concurrent without the batcher.
+   printed solo, concurrent and concurrent without the batcher. An ANN
+   batch of 8 through the fused pipeline (ann_batch_check) equals its 8
+   solo calls bit for bit at fp32, bf16 and u8 ADC.
+4. hybrid (also after main): the hybrid BM25 + kNN program at
+   BASELINE.md row 4's full width (hybrid_main_phase: 1,000,000 128-d
+   docs, 64 terms x 2,000 postings, 8 query terms, window 128, k = 10,
+   4 batches of 200), ids the fp64 host hybrid's on a 50,000-doc
+   subsample but at logged f32 ties, a batch twice the same bits,
+   graft_entry.entry() on the card against its CPU run; the batch p50,
+   QPS, device split by stage and the bound.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -231,7 +268,7 @@ GLOVE_DOCS = 1_200_000        # K2 timing phase (the glove-100 corpus size)
 SIFT_DOCS = 1_000_000         # K3-K5 timing phase (the SIFT-1M corpus size)
 ANN_MAIN_DOCS = 200_000       # index C (cut from 1.2M by host ingest)
 KERNELS = ("knn_fused", "adc_scan", "knn_block", "knn_pb", "knn_sbmax",
-           "knn_rescore")
+           "knn_rescore", "adc_lut")
 SIMS = ("l2_norm", "cosine", "dot_product")
 
 
@@ -899,10 +936,73 @@ def reduced_args(kf, v, nrm, ok, q, prec: str) -> tuple:
             scale)
 
 
-def summation_ties(kf, kv, ki, pv, pi, args, sim: str, what: str) -> list:
+def f32_score_bounds(kf, rows, qd, qq, nn, sim: str):
+    """(lo, hi) in f64 around the f32 score of each of `rows` ([m, d] f64)
+    against query qd ([d] f64) with the f32 |q|^2 qq and norms nn: each dot
+    moved by the error bound of one f32 summation of its d exact products
+    (gamma_d * sum |q_i v_i|), then the transform's own f32 roundings
+    (l2: qq - 2 dot + nn to 2u of qq + 2|dot| + nn, then 1 + d_sq and the
+    division, u each; cosine: the norms, their product and the division to
+    4u relative, then 1 + c to u; dot: 2u relative), u = 2^-24. l2, cosine
+    and dot are increasing in the dot."""
+    d = rows.shape[1]
+    u = F32_UNIT
+    gamma = d * u / (1 - d * u)
+    dots = rows @ qd
+    slack = gamma * (rows.abs() @ qd.abs())
+    lo_dot, hi_dot = dots - slack, dots + slack
+    if sim == "l2_norm":
+        mag = qq + 2.0 * dots.abs() + nn + 2.0 * slack
+        t_lo = torch.clamp(qq - 2.0 * hi_dot + nn - 2 * u * mag, min=0.0)
+        t_hi = torch.clamp(qq - 2.0 * lo_dot + nn + 2 * u * mag, min=0.0)
+        return (1.0 / (1.0 + t_hi)) * (1 - 3 * u), \
+            (1.0 / (1.0 + t_lo)) * (1 + 3 * u)
+    if sim == "cosine":
+        den = torch.sqrt(torch.clamp(qq, min=1e-24)) * torch.sqrt(
+            torch.clamp(nn, min=1e-24))
+        c_lo, c_hi = lo_dot / den, hi_dot / den
+        c_lo, c_hi = c_lo - 4 * u * c_lo.abs(), c_hi + 4 * u * c_hi.abs()
+        return (1.0 + c_lo) / 2.0 - u, (1.0 + c_hi) / 2.0 + u
+    lo = kf._transform_scores(lo_dot, qq, nn, sim)
+    hi = kf._transform_scores(hi_dot, qq, nn, sim)
+    return lo - 2 * u * lo.abs(), hi + 2 * u * hi.abs()
+
+
+def f32_bound_check(kf, kv, ki, args, sim: str, what: str) -> float:
+    """Every finite slot of a pool (vals kv, ids ki over the prepped args)
+    holds a score within f32_score_bounds of its doc's exact f64 score.
+    Returns the largest |score - f64 score| met."""
+    v_x, nrm, _ok, q_x, qsq, _scale = args
+    worst = 0.0
+    for s in range(kv.shape[0]):
+        for b in range(kv.shape[1]):
+            fin = torch.isfinite(kv[s, b])
+            docs = ki[s, b][fin].long()
+            rows, qd = v_x[s, docs].double(), q_x[b].double()
+            qq, nn = qsq[b].double(), nrm[s, docs].double()
+            lo, hi = f32_score_bounds(kf, rows, qd, qq, nn, sim)
+            got = kv[s, b][fin].double()
+            out = (got < lo) | (got > hi)
+            if bool(out.any()):
+                j = int(out.nonzero()[0])
+                raise AssertionError(
+                    f"{what}: row {(s, b)} doc {int(docs[j])} score "
+                    f"{float(got[j])!r} outside its f32 bound "
+                    f"[{float(lo[j])!r}, {float(hi[j])!r}]")
+            exact = kf._transform_scores(rows @ qd, qq, nn, sim)
+            if docs.numel():
+                worst = max(worst, float((got - exact).abs().max()))
+    return worst
+
+
+def summation_ties(kf, kv, ki, pv, pi, args, sim: str, what: str,
+                   bound: bool = False) -> list:
     """bf16 pools on float data, where the tensor cores and cuBLAS sum each
     dot's d exact products in f32 in two orders: scores within rtol 1e-5 /
-    atol 2e-3 slot for slot, and every slot where the kernel's id differs
+    atol 2e-3 slot for slot (with `bound`, where a dot's f32 ulp makes
+    that tolerance too narrow, as at d = 768 with |q|^2 near 13,000: each
+    pool's every score within f32_score_bounds of its doc's exact score
+    instead), and every slot where the kernel's id differs
     from plain_pool's must hold a live doc of the shard, once in its row,
     that the two orders may rank either way against plain's doc: each
     doc's f64 score (the dot in f64, exact, through the plain transform on
@@ -913,8 +1013,12 @@ def summation_ties(kf, kv, ki, pv, pi, args, sim: str, what: str) -> list:
     the relative gap."""
     v_x, nrm, ok, q_x, qsq, _scale = args
     fin = torch.isfinite(pv)
-    if not torch.equal(fin, torch.isfinite(kv)) or not torch.allclose(
-            kv[fin], pv[fin], rtol=1e-5, atol=2e-3):
+    if not torch.equal(fin, torch.isfinite(kv)):
+        raise AssertionError(f"{what}: finite slots differ")
+    if bound:
+        for pool_v, pool_i, name in ((kv, ki, "kernel"), (pv, pi, "plain")):
+            f32_bound_check(kf, pool_v, pool_i, args, sim, f"{what} {name}")
+    elif not torch.allclose(kv[fin], pv[fin], rtol=1e-5, atol=2e-3):
         raise AssertionError(f"{what}: scores beyond rtol 1e-5 / atol 2e-3")
     d = v_x.shape[2]
     gamma = d * F32_UNIT / (1 - d * F32_UNIT)
@@ -945,14 +1049,16 @@ def summation_ties(kf, kv, ki, pv, pi, args, sim: str, what: str) -> list:
     return ties
 
 
-def bf16_float_check(kf, args, r: int, sim: str, what: str) -> float:
-    """K1 at bf16 on float data against plain_pool: summation_ties, each
-    tie logged. Returns the max |dv| over the finite slots."""
+def bf16_float_check(kf, args, r: int, sim: str, what: str,
+                     bound: bool = False) -> float:
+    """K1 at bf16 on float data against plain_pool: summation_ties (with
+    `bound`: every score within its f32 error bound), each tie logged.
+    Returns the max |dv| over the finite slots."""
     kv, ki = kf.pool_scan(*args, r=r, similarity=sim, score_precision="bf16")
     pv, pi = kf.plain_pool(*args, r=r, similarity=sim,
                            score_precision="bf16")
     torch.cuda.synchronize()
-    for tie in summation_ties(kf, kv, ki, pv, pi, args, sim, what):
+    for tie in summation_ties(kf, kv, ki, pv, pi, args, sim, what, bound):
         log(f"{what}: summation tie at {tie['slot']}: kernel doc "
             f"{tie['kernel'][0]} (f64 {tie['kernel'][1]!r}), plain doc "
             f"{tie['plain'][0]} (f64 {tie['plain'][1]!r}), relative gap "
@@ -1487,6 +1593,753 @@ def large_timing(kf, dev, seed: int) -> dict:
                                      bound, names=LARGE_KERNELS)
         del v, scores
         torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# K1 at bf16 and int8 past r = 1024: the large-r tier's tensor-core scan
+# (csrc/knn_large_mma.cuh)
+# --------------------------------------------------------------------------
+
+LARGE_MMA_RS = (1025, 2000, 4096, 10_000)
+# the shape of the large-r tensor-core scan's line in the kernels record
+LARGE_MMA_HEADLINE = "K1 large bf16 n=20000 slots=32768 d=768 r=1025 B=1"
+# (the profiler's keys are cut at 60 characters, inside the scan's name)
+LARGE_MMA_KERNELS = ("knn_large_mma_scan", "knn_large_select_kernel")
+
+
+def large_mma_check(kf, args, r: int, sim: str, prec: str, what: str,
+                    integer: bool) -> float:
+    """One K1 scan at bf16 or int8 with r > 1024 against plain_pool: int8
+    pools bit-equal on any data, bf16 pools bit-equal on mma_sixteenths
+    (`integer`) and on floats equal but at summation ties
+    (bf16_float_check, each logged; at d = 768, whose dots near 13,000 have
+    an f32 ulp of 1e-3, every score held to its f32 error bound in place of
+    the fixed tolerance); exactly one K1 launch, on the large-r
+    tier's tensor-core scan, and none of the tile scan or the tensor-core
+    tier. Returns the max |dv|."""
+    counters = (kf.launches, kf.large_launches, kf.large_mma_launches,
+                kf.mma_launches, kf.tile_launches)
+    before = [c.count for c in counters]
+    if prec == "bf16" and not integer:
+        err = bf16_float_check(kf, args, r, sim, what,
+                               bound=args[0].shape[2] >= 512)
+    else:
+        err = compare_pools(kf, args, r, sim, prec, what, bits=True)
+    got = [c.count - b for c, b in zip(counters, before)]
+    if got != [1, 1, 1, 0, 0]:
+        raise AssertionError(f"{what}: (K1, large-r tier, its tensor-core "
+                             f"scan, tensor-core tier, tile scan) launched "
+                             f"{got} times, want [1, 1, 1, 0, 0]")
+    return err
+
+
+def large_mma_kernel_phase(kf, dev, seed: int) -> float:
+    """K1's large-r tier at bf16 and int8 (r > 1024, the tensor-core tier's
+    dots feeding the large-r select) against plain_pool (large_mma_check):
+    clustered floats, one shard of 60,000 128-d docs and one of 20,000
+    768-d docs, at B = 1, 9 and 33 x r = 1025, 2000, 4096 and 10,000 in l2
+    and cosine (int8 bit-equal, bf16 ids equal but at logged summation
+    ties); mma_sixteenths (bf16's f32 sums exact, so bit-equal at both
+    precisions) at both widths, B = 1 and 9, r = 1025 and 4096; four shards
+    of 12,000 (the last with 5 live docs) at B = 1 and 9. At every
+    (width, B, precision, similarity) the first 1024 slots of the r = 1025
+    pool must be the tensor-core tier's r = 1024 pool bit for bit: a doc's
+    score is the same bits in both tiers. Returns the max |dv|."""
+    rng = np.random.default_rng(seed + 44)
+    err = 0.0
+    cases = (
+        (1, 60_000, DIM, False, (1, 9, 33), ("l2_norm", "cosine"),
+         LARGE_MMA_RS),
+        (1, 20_000, 768, False, (1, 9, 33), ("l2_norm", "cosine"),
+         LARGE_MMA_RS),
+        (1, 60_000, DIM, True, (1, 9), ("l2_norm",), (1025, 4096)),
+        (1, 20_000, 768, True, (1, 9), ("l2_norm",), (1025, 4096)),
+        (4, 12_000, DIM, False, (1, 9), ("l2_norm",), (1025, 4096)),
+    )
+    for s, n, d, integer, bs, sims, rs in cases:
+        data, v, nrm, ok = lists_case(dev, rng, s, n, d, integer,
+                                      grid=mma_sixteenths)
+        for b in bs:
+            queries = data[rng.choice(n, b, replace=False)].copy()
+            if not integer:
+                queries = queries + 0.01 * rng.standard_normal(
+                    queries.shape).astype(np.float32)
+            q = torch.from_numpy(queries).to(dev)
+            for prec in REDUCED:
+                args = reduced_args(kf, v, nrm, ok, q, prec)
+                for sim in sims:
+                    what = (f"K1 large mma {prec} S={s} n={n} d={d} B={b} "
+                            f"{sim} integer={integer}")
+                    for r in rs:
+                        err = max(err, large_mma_check(
+                            kf, args, r, sim, prec, f"{what} r={r}",
+                            integer))
+                    bv, bi = kf.pool_scan(*args, r=1025, similarity=sim,
+                                          score_precision=prec)
+                    wv, wi = kf.pool_scan(*args, r=1024, similarity=sim,
+                                          score_precision=prec)
+                    if not (torch.equal(bi[..., :1024], wi)
+                            and torch.equal(bv[..., :1024], wv)):
+                        raise AssertionError(f"{what}: the r = 1025 pool's "
+                                             f"first 1024 slots are not the "
+                                             f"tensor-core tier's r = 1024 "
+                                             f"pool")
+        log(f"K1 large-r tensor-core scan parity S={s} n={n} d={d} "
+            f"integer={integer}: "
+            f"{'bit-equal' if integer else 'int8 bit-equal, bf16 ids equal'}"
+            f" at B = {bs}, r = {rs}, {sims}; r = 1025's first 1024 slots "
+            f"the tensor-core tier's pool")
+        del v
+        torch.cuda.empty_cache()
+    return err
+
+
+def large_mma_timing(kf, dev, seed: int) -> dict:
+    """K1's large-r tier at bf16 and int8 at the stacked step's shapes (one
+    shard, B = 1, l2; as large_timing: 20,000 768-d docs in 32,768 slots at
+    r = 1025, 2000 and 4096, cell A's 200,000 128-d docs in 262,144 slots
+    at r = 10,000): each checked first (large_mma_check), then timed
+    (time_design: CUDA events, device ms of its scan and select by name,
+    the plain version, the library call: torch.topk over the l2-transformed
+    f32 product of the same bf16 or int8 operands, exact in f32, times the
+    int8 scale) beside its bound (pool_bound at the operands' width: bf16
+    2 bytes and int8 1 byte a component, against their peaks)."""
+    rng = np.random.default_rng(seed + 45)
+    out = {}
+    for n_docs, slots, d, rs in ((20_000, 32_768, 768, (1025, 2000, 4096)),
+                                 (200_000, 262_144, DIM, (10_000,))):
+        data = np.zeros((1, slots, d), np.float32)
+        data[0, :n_docs] = clustered(rng, n_docs, d)
+        v = torch.from_numpy(data).to(dev)
+        nrm = (v.double() ** 2).sum(2).float()
+        ok = torch.zeros((1, slots), dtype=torch.bool, device=dev)
+        ok[0, :n_docs] = True
+        q = v[0, int(rng.integers(n_docs))][None] + 0.01
+        for prec in REDUCED:
+            args = reduced_args(kf, v, nrm, ok, q, prec)
+            v_x, _n, _o, q_x, qsq, scale = args
+            for r in rs:
+                label = (f"K1 large {prec} n={n_docs} slots={slots} d={d} "
+                         f"r={r} B=1")
+                large_mma_check(kf, args, r, "l2_norm", prec, label, False)
+                design = functools.partial(kf.pool_scan, *args, r=r,
+                                           similarity="l2_norm",
+                                           score_precision=prec)
+                plain = functools.partial(kf.plain_pool, *args, r=r,
+                                          similarity="l2_norm",
+                                          score_precision=prec)
+
+                def library(r=r, v_x=v_x, q_x=q_x, qsq=qsq, scale=scale):
+                    dots = (q_x.float() @ v_x[0].float().T) * scale[0]
+                    d_sq = torch.clamp(qsq[:, None] - 2.0 * dots + nrm[0][None],
+                                       min=0.0)
+                    return torch.topk(1.0 / (1.0 + d_sq), r)
+
+                bound = pool_bound(1, slots, d, 1, r, prec)
+                out[label] = time_design(label, design, None, plain, library,
+                                         bound, names=LARGE_MMA_KERNELS)
+        del v
+        torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# the IVF-PQ route in one order whatever the batch: the LUT kernel
+# (csrc/adc_lut.cu) and the exact rescore's dots (csrc/knn_rescore.cu)
+# --------------------------------------------------------------------------
+
+# (what, nlist, d, m, B): glove-100 and cell C (100-d, m 20, nlist 512),
+# and MS-MARCO-class 768-d at m = 96
+LUT_SHAPES = (("glove-100 / cell C", 512, ANN_DIM, ANN_M, (1, 8, 32)),
+              ("768-d m=96", 512, 768, 96, (1, 8)))
+
+
+def einsum_lut(queries, coarse, codebooks, probes):
+    """The LUT build the kernel replaced (a batched einsum and row sums,
+    whose orders the library picks by the shape): the yardstick."""
+    m, ks, dsub = codebooks.shape
+    resid = queries[:, None, :] - coarse[probes.long()]
+    r_sub = resid.reshape(queries.shape[0], probes.shape[1], m, dsub)
+    r_dot = torch.einsum("bpms,mks->bpmk", r_sub, codebooks)
+    r_sq = (r_sub * r_sub).sum(dim=-1)
+    cb_sq = (codebooks * codebooks).sum(dim=-1)
+    return r_sq[..., None] - 2.0 * r_dot + cb_sq[None, None]
+
+
+def einsum_exact_rescore(queries, cand, vectors, norms_sq, valid,
+                         similarity: str, k_eff: int):
+    """The IVF-PQ rescore before its dots went to the fixed-order kernel
+    (a batched einsum and a row sum of |q|^2): the yardstick."""
+    from opensearch_tpu_torch.ops.topk import stable_topk
+
+    cand = cand.long()
+    safe = torch.clamp(cand, min=0)
+    cdots = torch.einsum("bd,brd->br", queries, vectors[safe])
+    q_sq = (queries * queries).sum(dim=-1, keepdim=True)
+    if similarity == "cosine":
+        raw = cdots / torch.clamp(torch.sqrt(q_sq) * torch.sqrt(
+            torch.clamp(norms_sq[safe], min=1e-24)), min=1e-12)
+        score = (1.0 + raw) / 2.0
+    else:
+        score = 1.0 / (1.0 + torch.clamp(q_sq - 2.0 * cdots + norms_sq[safe],
+                                         min=0.0))
+    score = torch.where((cand >= 0) & valid[safe], score, float("-inf"))
+    return stable_topk(score, k_eff)
+
+
+def lut_kernel_phase(dev, seed: int) -> dict:
+    """The LUT kernel against its plain version (ops/adc_lut.plain_lut) on
+    random coarse centroids and codebooks at glove-100's and cell C's
+    shapes (nlist 512, d 100, m 20, ks 256, P = 8) at B = 1, 8 and 32, and
+    at 768-d with m = 96 (dsub 8) at B = 1 and 8: the f32 LUTs bit-equal,
+    and through adc_scan.build_luts at bf16 and u8 (the downcast and the
+    per-query quantization after it) bit-equal to the plain build; each
+    batch row bit-equal to its solo call; one launch a call. The rescore's
+    dots alone (knn_rescore.rescore_dots) bit-equal to their plain version
+    at B = 1 and 8 x R = 64 and 640, d = 100 and 768, -1 ids among them.
+    Then the host's probe scores: numpy's product of a batch of 32 rows
+    against 32 products of one row each (host_probe_select takes the
+    latter), the count of rows whose bits differ logged. Returns
+    {"max_abs_err": 0.0, "probe_rows_differ": n}."""
+    from opensearch_tpu_torch.ops import adc_lut, adc_scan
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+
+    rng = np.random.default_rng(seed + 50)
+    for what, nlist, d, m, bs in LUT_SHAPES:
+        coarse = torch.from_numpy(rng.standard_normal((nlist, d)).astype(
+            np.float32) * 2.0).to(dev)
+        cb = torch.from_numpy(rng.standard_normal((m, 256, d // m)).astype(
+            np.float32)).to(dev)
+        for b in bs:
+            q = torch.from_numpy(rng.standard_normal((b, d)).astype(
+                np.float32) * 2.0).to(dev)
+            probes = torch.from_numpy(np.stack([
+                rng.choice(nlist, 8, replace=False) for _ in range(b)])
+                .astype(np.int32)).to(dev)
+            before = adc_lut.launches.count
+            got = adc_lut.lut(q, coarse, cb, probes)
+            if adc_lut.launches.count - before != 1:
+                raise AssertionError(f"LUT {what} B={b}: not one launch")
+            want = adc_lut.plain_lut(q, coarse, cb, probes)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero()[:3].tolist()
+                raise AssertionError(f"LUT {what} B={b}: not bit-equal to "
+                                     f"plain_lut (first at {bad})")
+            for prec in ("bf16", "int8"):
+                k_lut = adc_scan.build_luts(q, coarse, cb, probes,
+                                            adc_precision=prec)
+                p_lut = adc_scan.build_luts(q, coarse, cb, probes,
+                                            adc_precision=prec,
+                                            use_kernel=False)
+                if not torch.equal(k_lut, p_lut):
+                    raise AssertionError(f"LUT {what} B={b} {prec}: not "
+                                         f"bit-equal to the plain build")
+            for i in range(b):
+                solo = adc_lut.lut(q[i:i + 1], coarse, cb, probes[i:i + 1])
+                if not torch.equal(got[i:i + 1], solo):
+                    raise AssertionError(f"LUT {what} B={b}: row {i} is not "
+                                         f"its solo LUT")
+        log(f"LUT kernel {what}: bit-equal to plain_lut at B = {bs} (f32, "
+            f"and through build_luts at bf16 and u8), each row its solo "
+            f"LUT")
+    for d in (ANN_DIM, 768):
+        v = torch.from_numpy(clustered(rng, 5000, d)).to(dev)[None]
+        for b in (1, 8):
+            q = torch.from_numpy(rng.standard_normal((b, d)).astype(
+                np.float32)).to(dev)
+            for r in (64, 640):
+                cand = torch.from_numpy(rng.integers(-1, 5000, (1, b, r))
+                                        .astype(np.int32)).to(dev)
+                got = kr.rescore_dots(q, v, cand)
+                want = kr.plain_rescore_dots(q, v, cand)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"rescore dots d={d} B={b} R={r}: "
+                                         f"not bit-equal to the plain dots")
+    log("rescore dots: bit-equal to plain_rescore_dots at d = 100 and 768, "
+        "B = 1 and 8, R = 64 and 640")
+    coarse_h = rng.standard_normal((512, ANN_DIM)).astype(np.float32)
+    qh = rng.standard_normal((32, ANN_DIM)).astype(np.float32)
+    rows = np.stack([coarse_h @ x for x in qh])
+    differ = int((~np.all(qh @ coarse_h.T == rows, axis=1)).sum())
+    log(f"host probe scores: {differ} of 32 rows of numpy's batched product "
+        f"differ in their bits from one product a row (host_probe_select "
+        f"takes one a row)")
+    return {"max_abs_err": 0.0, "probe_rows_differ": differ}
+
+
+def lut_timing(dev, seed: int) -> dict:
+    """The LUT kernel and the IVF-PQ exact rescore (the fixed-order dots and
+    |q|^2 kernels, the reference's transform and the top-k) beside the
+    einsum path each replaced, at glove-100's and cell C's shapes (nlist
+    512, d 100, m 20, ks 256, P = 8; the rescore: R = 64 candidates, k = 10,
+    cosine) at B = 1, 8 and 32: CUDA-event ms, profiler device ms, the
+    plain version's ms, and the bound (bytes: the queries, each probe's
+    centroid, the codebooks and the LUTs once; operations 2 B P m ks dsub;
+    the rescore: each candidate row, its norm and flag, the ids once)."""
+    from opensearch_tpu_torch.ops import adc_lut, ivfpq
+
+    rng = np.random.default_rng(seed + 51)
+    nlist, d, m, ks, P, R, k = 512, ANN_DIM, ANN_M, 256, 8, 64, 10
+    coarse = torch.from_numpy(rng.standard_normal((nlist, d)).astype(
+        np.float32)).to(dev)
+    cb = torch.from_numpy(rng.standard_normal((m, ks, d // m)).astype(
+        np.float32)).to(dev)
+    n = ANN_MAIN_DOCS
+    vecs = torch.from_numpy(ann_corpus(rng, n, d)).to(dev)
+    vecs = vecs / torch.linalg.norm(vecs, dim=1, keepdim=True)
+    nrm = (vecs * vecs).sum(1)
+    ok = torch.ones(n, dtype=torch.bool, device=dev)
+    out = {}
+    for b in (1, 8, 32):
+        q = torch.from_numpy(rng.standard_normal((b, d)).astype(
+            np.float32)).to(dev)
+        q = q / torch.linalg.norm(q, dim=1, keepdim=True)
+        probes = torch.from_numpy(np.stack([
+            rng.choice(nlist, P, replace=False) for _ in range(b)])
+            .astype(np.int32)).to(dev)
+        cand = torch.from_numpy(rng.integers(0, n, (b, R)).astype(
+            np.int32)).to(dev)
+        kern = functools.partial(adc_lut.lut, q, coarse, cb, probes)
+        plain = functools.partial(adc_lut.plain_lut, q, coarse, cb, probes)
+        eins = functools.partial(einsum_lut, q, coarse, cb, probes)
+        nbytes = 4 * (b * d + b * P * d + m * ks * (d // m) + b * P * m * ks)
+        flops = 2 * b * P * m * ks * (d // m)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+        ms = time_ms(kern, 50)
+        eins_ms = time_ms(eins, 50)
+        ms_again = time_ms(kern, 50)
+        prof, eprof = device_profile(kern, 10), device_profile(eins, 10)
+        out[f"lut B={b}"] = {
+            "ms": ms, "ms_again": ms_again, "einsum_ms": eins_ms,
+            "plain_ms": time_ms(plain, 10), "library_ms": None,
+            "device_ms": prof and prof["device_ms"],
+            "einsum_device_ms": eprof and eprof["device_ms"],
+            "bound_ms": max(t_b, t_o),
+            "bound_by": "bytes" if t_b >= t_o else "operations"}
+        resc = functools.partial(ivfpq.exact_rescore, q, cand, vecs, nrm, ok,
+                                 similarity="cosine", k_eff=k,
+                                 impl="pallas")
+        resc_plain = functools.partial(ivfpq.exact_rescore, q, cand, vecs,
+                                       nrm, ok, similarity="cosine",
+                                       k_eff=k, impl="xla")
+        resc_eins = functools.partial(einsum_exact_rescore, q, cand, vecs,
+                                      nrm, ok, "cosine", k)
+        nbytes = b * R * (4 * d + 4 + 1 + 4) + 4 * b * d + 8 * b * k
+        rms = time_ms(resc, 50)
+        reins = time_ms(resc_eins, 50)
+        rms_again = time_ms(resc, 50)
+        rprof = device_profile(resc, 10)
+        reprof = device_profile(resc_eins, 10)
+        out[f"rescore B={b}"] = {
+            "ms": rms, "ms_again": rms_again, "einsum_ms": reins,
+            "plain_ms": time_ms(resc_plain, 10), "library_ms": None,
+            "device_ms": rprof and rprof["device_ms"],
+            "dots_device_ms": kernel_ms(rprof, "knn_rescore_kernel"),
+            "einsum_device_ms": reprof and reprof["device_ms"],
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+        log(f"LUT B={b}: {json.dumps(out[f'lut B={b}'])}; ANN rescore B={b}: "
+            f"{json.dumps(out[f'rescore B={b}'])}")
+    return out
+
+
+def ann_batch_check(ads, ivfpq, segment, queries: np.ndarray, dev) -> dict:
+    """Index C's IVF-PQ segment: 8 queries through the fused pipeline in one
+    call (search_index, kernel "pallas": the host probes, one LUT launch,
+    one K2 launch, one rescore-dots launch and one |q|^2 launch) against
+    each query alone, as stacked_batch_phase holds the stacked step: every
+    row's scores and ids its solo call's bits, at fp32, bf16 and u8 ADC."""
+    from opensearch_tpu_torch.ops import adc_lut
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+
+    _host, dseg = segment
+    vf = dseg.vector_fields["v"]
+    valid = vf.present & dseg.live
+    counters = {"adc_lut": adc_lut.launches, "adc_scan": ads.launches,
+                "knn_rescore": kr.launches, "knn_query_sq": kr.sq_launches}
+    out = {}
+    for prec in ("fp32", "bf16", "int8"):
+        def run(qs):
+            return ivfpq.search_index(vf.ann, vf.vectors, vf.norms_sq, valid,
+                                      qs, k=10, nprobe=8,
+                                      similarity="cosine",
+                                      adc_precision=prec, kernel="pallas")
+
+        before = {key: c.count for key, c in counters.items()}
+        bv, bi = run(queries[:8])
+        launches = {key: c.count - before[key] for key, c in counters.items()}
+        if set(launches.values()) != {1}:
+            raise AssertionError(f"[glove_c] ANN batch {prec}: launches "
+                                 f"{launches}, want one each")
+        for i in range(8):
+            sv, si = run(queries[i:i + 1])
+            if not (torch.equal(bv[i:i + 1], sv)
+                    and torch.equal(bi[i:i + 1], si)):
+                raise AssertionError(f"[glove_c] ANN batch {prec} query {i}: "
+                                     f"not its solo search bit for bit")
+        out[prec] = {"queries": 8, "launches": launches}
+    log(f"[glove_c] ANN batch of 8: every query its solo search bit for bit "
+        f"at {sorted(out)}: {out}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the hybrid BM25 + kNN program (ops/fused.hybrid_score_topk) at BASELINE.md
+# row 4's width, and batched _msearch kNN through the stacked step
+# --------------------------------------------------------------------------
+
+HYBRID_DOCS = 1_000_000
+HYBRID_TERMS, HYBRID_PER_TERM, HYBRID_Q_TERMS = 64, 2_000, 8
+HYBRID_WINDOW, HYBRID_K, HYBRID_BATCH, HYBRID_BATCHES = 128, 10, 200, 4
+HYBRID_SUB, HYBRID_SUB_QUERIES = 50_000, 100
+HYBRID_LEX_W, HYBRID_VEC_W = 0.3, 1.0
+
+
+def hybrid_inputs(rng, n: int, d: int = DIM) -> dict:
+    """Row 4's segment (benchmarks/baseline_configs.py row4_hybrid): n
+    standard-normal d-dim docs in the next power of two of slots, 64 terms
+    of n / 500 postings (tf 1-4, docs uniform), doc lengths 5-79; one term
+    set of 8 terms (window 128) for every query."""
+    n_pad = 1 << (n - 1).bit_length()
+    per_term = max(64, n // 500)
+    vectors = np.zeros((n_pad, d), np.float32)
+    vectors[:n] = rng.standard_normal((n, d), dtype=np.float32)
+    p_pad = 1 << (HYBRID_TERMS * per_term - 1).bit_length()
+    docs = rng.integers(0, n, HYBRID_TERMS * per_term).astype(np.int32)
+    tfs = rng.integers(1, 5, HYBRID_TERMS * per_term).astype(np.float32)
+    postings_docs = np.zeros(p_pad, np.int32)
+    postings_tfs = np.zeros(p_pad, np.float32)
+    postings_docs[:docs.size] = docs
+    postings_tfs[:tfs.size] = tfs
+    doc_len = np.zeros(n_pad, np.float32)
+    doc_len[:n] = rng.integers(5, 80, n).astype(np.float32)
+    term_ids = rng.integers(0, HYBRID_TERMS, HYBRID_Q_TERMS)
+    return {"n": n, "n_pad": n_pad, "vectors": vectors,
+            "postings_docs": postings_docs, "postings_tfs": postings_tfs,
+            "doc_len": doc_len, "avgdl": float(doc_len[:n].mean()),
+            "offsets": (term_ids * per_term).astype(np.int32),
+            "lengths": np.full(HYBRID_Q_TERMS, min(HYBRID_WINDOW, per_term),
+                               np.int32),
+            "idfs": rng.uniform(0.5, 3.0, HYBRID_Q_TERMS).astype(np.float32)}
+
+
+def hybrid_args(inp: dict, dev, queries) -> tuple:
+    """hybrid_score_topk's arguments on the card for `inp`."""
+    vectors = torch.from_numpy(inp["vectors"]).to(dev)
+    return (torch.from_numpy(inp["postings_docs"]).to(dev),
+            torch.from_numpy(inp["postings_tfs"]).to(dev),
+            torch.from_numpy(inp["doc_len"]).to(dev), vectors,
+            (vectors * vectors).sum(1),
+            torch.arange(inp["n_pad"], device=dev) < inp["n"],
+            torch.from_numpy(inp["offsets"]).to(dev),
+            torch.from_numpy(inp["lengths"]).to(dev),
+            torch.from_numpy(inp["idfs"]).to(dev),
+            torch.tensor(inp["avgdl"], device=dev), queries,
+            torch.tensor(HYBRID_LEX_W, device=dev),
+            torch.tensor(HYBRID_VEC_W, device=dev))
+
+
+def hybrid_host_reference(inp: dict, queries: np.ndarray, sub: int):
+    """Row 4's fp64 host hybrid over the first `sub` docs: (scores [B, sub]
+    f64, the f32 error bound of each score [B, sub]: the dot's f32
+    summation bound and |q|^2 - 2 q.v + |v|^2's roundings through l2's
+    derivative, and a few ulps of the BM25 sum and the blend)."""
+    u = 2.0 ** -24
+    sv = inp["vectors"][:sub].astype(np.float64)
+    q = queries.astype(np.float64)
+    d = sv.shape[1]
+    dots = q @ sv.T
+    qq, nn = (q ** 2).sum(-1, keepdims=True), (sv ** 2).sum(-1)[None, :]
+    d_sq = np.maximum(qq - 2 * dots + nn, 0.0)
+    vec = 1.0 / (1.0 + d_sq)
+    slack = (d * u / (1 - d * u)) * (np.abs(q) @ np.abs(sv).T)
+    vec_err = (2 * slack + 4 * u * (qq + 2 * np.abs(dots) + nn)) * vec ** 2 \
+        + 4 * u * vec
+    lex = np.zeros(sub)
+    k1, b, avgdl = 1.2, 0.75, inp["avgdl"]
+    pd, pt, dl = inp["postings_docs"], inp["postings_tfs"], inp["doc_len"]
+    for t in range(HYBRID_Q_TERMS):
+        lo = int(inp["offsets"][t])
+        for p in range(lo, lo + int(inp["lengths"][t])):
+            doc, tf = int(pd[p]), float(pt[p])
+            if doc < sub:
+                lex[doc] += float(inp["idfs"][t]) * tf / (
+                    tf + k1 * (1 - b + b * float(dl[doc]) / avgdl))
+    host = HYBRID_VEC_W * vec + HYBRID_LEX_W * lex[None, :]
+    err = HYBRID_VEC_W * vec_err + HYBRID_LEX_W * (
+        (HYBRID_Q_TERMS + 8) * u * lex[None, :]) + 4 * u * np.abs(host)
+    return host, err
+
+
+def hybrid_main_phase(dev, seed: int) -> dict:
+    """The hybrid BM25 + exact-kNN program (ops/fused.jit_hybrid: the
+    lexical gather and ordered segment sum, one fp32 [B, d] x [d, n]
+    product, the l2 transform and blend, blockwise_topk) at BASELINE.md
+    row 4's full width, all made from --seed: 1,000,000 128-d docs in 2^20
+    slots, 64 terms x 2,000 postings (tf 1-4), doc lengths 5-79, 8 query
+    terms, window 128, k = 10, lexical weight 0.3, vector weight 1.0, l2;
+    4 batches of 200 queries. Gates: (1) on a 50,000-doc subsample and 100
+    queries, as row 4 checks, the ids equal the fp64 host hybrid's but at
+    pairs whose fp64 scores lie within the f32 error bound of each other
+    (each logged); (2) a batch run twice gives the same bits; (3)
+    graft_entry.entry() on the card matches the plain CPU run of the same
+    function (rtol 1e-5 / atol 1e-6, ids equal where no two scores are
+    that close: tests/test_torch_hybrid.py's tolerance). Reports the p50
+    of a batch of 200 (CUDA events) and the QPS, the device split by
+    stage and kernel name, the bound and the [B, n_pad] score matrix's
+    bytes."""
+    from opensearch_tpu_torch import graft_entry
+    from opensearch_tpu_torch.ops import fused, topk
+
+    rng = np.random.default_rng(seed + 60)
+    t0 = time.perf_counter()
+    inp = hybrid_inputs(rng, HYBRID_DOCS)
+    queries = rng.standard_normal((HYBRID_BATCH * HYBRID_BATCHES, DIM),
+                                  dtype=np.float32)
+    qdev = torch.from_numpy(queries).to(dev)
+    fn = fused.jit_hybrid(HYBRID_K, HYBRID_WINDOW, "l2_norm")
+    args = hybrid_args(inp, dev, qdev[:HYBRID_BATCH])
+    log(f"[hybrid] {HYBRID_DOCS} docs in {inp['n_pad']} slots, "
+        f"{inp['postings_docs'].size} postings: made and uploaded in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def batch(i: int):
+        return fn(*args[:10], qdev[i * HYBRID_BATCH:(i + 1) * HYBRID_BATCH],
+                  *args[11:])
+
+    # (2) the same batch twice: the same bits
+    v1, i1 = batch(0)
+    v2, i2 = batch(0)
+    torch.cuda.synchronize()
+    if not (torch.equal(v1, v2) and torch.equal(i1, i2)):
+        raise AssertionError("[hybrid] a batch run twice gave other bits")
+    # timing: CUDA events around each batch of 200, three rounds of the
+    # four batches after the warm-up above
+    batch_ms = []
+    for _round in range(3):
+        for i in range(HYBRID_BATCHES):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            batch(i)
+            end.record()
+            torch.cuda.synchronize()
+            batch_ms.append(start.elapsed_time(end))
+    p50 = float(np.percentile(batch_ms, 50))
+    whole = device_profile(lambda: batch(1), 5)
+    lex_prof = device_profile(lambda: fused.lexical_scores(
+        *args[:3], *args[6:10], n_pad=inp["n_pad"], window=HYBRID_WINDOW), 5)
+    q200 = qdev[:HYBRID_BATCH]
+    vt = args[3]
+    prod_prof = device_profile(lambda: q200 @ vt.T, 5)
+    vec_prof = device_profile(lambda: fused._vector_scores(
+        q200, vt, args[4], "l2_norm"), 5)
+    scores = fused._vector_scores(q200, vt, args[4], "l2_norm")
+    topk_prof = device_profile(lambda: topk.blockwise_topk(scores, HYBRID_K),
+                               5)
+    del scores
+    n_pad = inp["n_pad"]
+    t_bytes = n_pad * DIM * 4 / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * HYBRID_BATCH * n_pad * DIM / FP32_FLOP_PER_S * 1e3
+    out = {"batch_ms": batch_ms, "p50_batch_ms": p50,
+           "qps": HYBRID_BATCH * len(batch_ms) / (sum(batch_ms) / 1e3),
+           "device_ms": whole and whole["device_ms"],
+           "device_kernels": whole and whole["top"],
+           "lexical_device_ms": lex_prof and lex_prof["device_ms"],
+           "lexical_kernels": lex_prof and lex_prof["top"],
+           "product_device_ms": prod_prof and prod_prof["device_ms"],
+           "vector_scores_device_ms": vec_prof and vec_prof["device_ms"],
+           "transform_device_ms": (vec_prof and prod_prof and
+                                   vec_prof["device_ms"]
+                                   - prod_prof["device_ms"]),
+           "topk_device_ms": topk_prof and topk_prof["device_ms"],
+           "topk_kernels": topk_prof and topk_prof["top"],
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+           "score_matrix_bytes": HYBRID_BATCH * n_pad * 4}
+    log(f"[hybrid] batch of {HYBRID_BATCH}: p50 {p50:.4f} ms, QPS "
+        f"{out['qps']:.1f}; {json.dumps(out)}")
+    del args, qdev
+    torch.cuda.empty_cache()
+
+    # (1) the subsample against the fp64 host hybrid
+    sub = HYBRID_SUB
+    sub_pad = 1 << (sub - 1).bit_length()
+    sinp = dict(inp, n=sub, n_pad=sub_pad,
+                vectors=np.pad(inp["vectors"][:sub],
+                               ((0, sub_pad - sub), (0, 0))),
+                doc_len=np.pad(inp["doc_len"][:sub], (0, sub_pad - sub)),
+                postings_docs=np.where(inp["postings_docs"] < sub,
+                                       inp["postings_docs"], 0),
+                postings_tfs=np.where(inp["postings_docs"] < sub,
+                                      inp["postings_tfs"], 0.0).astype(
+                                          np.float32))
+    q100 = queries[:HYBRID_SUB_QUERIES]
+    gv, gi = fn(*hybrid_args(sinp, dev, torch.from_numpy(q100).to(dev)))
+    gi = gi.cpu().numpy()
+    host, err = hybrid_host_reference(inp, q100, sub)
+    exact = np.stack([np.lexsort((np.arange(sub), -host[i]))[:HYBRID_K]
+                      for i in range(len(q100))])
+    ties = []
+    for i in range(len(q100)):
+        for j in np.nonzero(gi[i] != exact[i])[0]:
+            a, c = int(gi[i, j]), int(exact[i, j])
+            if abs(host[i, a] - host[i, c]) > err[i, a] + err[i, c]:
+                raise AssertionError(
+                    f"[hybrid] query {i} rank {j}: doc {a} (f64 "
+                    f"{host[i, a]!r}) where the fp64 hybrid has {c} (f64 "
+                    f"{host[i, c]!r}), further apart than f32 moves them")
+            ties.append((i, int(j), a, c))
+            log(f"[hybrid] query {i} rank {j}: doc {a} against the fp64 "
+                f"host's {c}, f64 scores {host[i, a]!r} and {host[i, c]!r} "
+                f"within their f32 bound")
+    recall = float(np.mean([len(set(gi[i]) & set(exact[i])) / HYBRID_K
+                            for i in range(len(q100))]))
+    out.update(subsample_recall=recall, subsample_ties=len(ties))
+    log(f"[hybrid] {sub}-doc subsample, {len(q100)} queries: ids the fp64 "
+        f"host hybrid's but at {len(ties)} logged f32 ties; recall@10 "
+        f"{recall:.4f}")
+
+    # (3) graft_entry on the card against its plain CPU run
+    efn, eargs = graft_entry.entry()
+    if eargs[3].device.type != "cuda":
+        raise AssertionError("graft_entry.entry() did not place its "
+                             "arguments on the card")
+    ev, ei = efn(*eargs)
+    cfn, cargs = graft_entry.entry(device="cpu")
+    cv, ci = cfn(*cargs)
+    ev, ei = ev.cpu().numpy(), ei.cpu().numpy()
+    cv, ci = cv.numpy(), ci.numpy()
+    if not np.allclose(ev, cv, rtol=1e-5, atol=1e-6):
+        raise AssertionError("[hybrid] graft_entry on the card: scores "
+                             "beyond rtol 1e-5 / atol 1e-6 of the CPU run")
+    tol = 1e-6 + 1e-5 * np.abs(cv)
+    close = np.zeros_like(ev, bool)
+    gap = np.abs(np.diff(cv, axis=1)) <= tol[:, 1:]
+    close[:, 1:] |= gap
+    close[:, :-1] |= gap
+    if not np.array_equal(ei[~close], ci[~close]):
+        raise AssertionError("[hybrid] graft_entry on the card: ids differ "
+                             "from the CPU run")
+    out["graft_entry_max_abs_err"] = float(np.abs(ev - cv).max())
+    log(f"[hybrid] graft_entry.entry() on the card matches its CPU run "
+        f"(max |dv| {out['graft_entry_max_abs_err']:.3g})")
+    return out
+
+
+MSEARCH_BODIES = 32
+
+
+def msearch_main_phase(node, kf, queries: np.ndarray) -> dict:
+    """Batched _msearch kNN on index A through TorchNode.msearch: one
+    msearch of 32 bare knn bodies at fp32 k = 10, at fp32 k = 100 and at
+    bf16 k = 10 (size = k). Gates: each batched hit list is its solo
+    node.search's bit for bit (ids and scores); the run of 32 makes
+    exactly one K1 launch, on the tier scan_tier names (the list scan, the
+    wide tier, the tensor-core tier), and distributed_serving's
+    batched_queries rises by 32. Then a mixed msearch of 8 bodies whose
+    fourth carries a filter inside its knn clause: the run goes one body
+    at a time (8 launches, none batched), each its solo search's bits.
+    Reports the msearch p50 on the host clock (5 calls) beside 32 solo
+    searches in a row, and the device ms of the B = 32 step beside 32
+    B = 1 steps."""
+    from opensearch_tpu_torch.search import ann, distributed_serving
+
+    def hits(resp) -> list:
+        return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+
+    qs = queries[:MSEARCH_BODIES]
+    out = {}
+    try:
+        for prec, k, tier in (("fp32", 10, "lists"), ("fp32", 100, "wide"),
+                              ("bf16", 10, "mma")):
+            ann.default_config.configure(score_precision=prec)
+            r = min(kf.fused_pool_width(k, prec), 1 << 18)
+            if kf.scan_tier(prec, r) != tier:
+                raise AssertionError(f"msearch {prec} k={k}: tier "
+                                     f"{kf.scan_tier(prec, r)}, want {tier}")
+            counter = {"lists": kf.list_launches, "wide": kf.wide_launches,
+                       "mma": kf.mma_launches}[tier]
+            searches = [({"index": "sift_a"}, {"query": {"knn": {"v": {
+                "vector": qv.tolist(), "k": k}}}, "size": k}) for qv in qs]
+            kf.launches.reset()
+            counter.reset()
+            batched0 = distributed_serving.stats["batched_queries"]
+            t0 = time.perf_counter()
+            resp = node.msearch(searches)
+            first_s = time.perf_counter() - t0
+            got = (kf.launches.count, counter.count,
+                   distributed_serving.stats["batched_queries"] - batched0)
+            if got != (1, 1, MSEARCH_BODIES):
+                raise AssertionError(f"[sift_a] msearch {prec} k={k}: (K1 "
+                                     f"launches, on {tier}, batched queries)"
+                                     f" = {got}, want (1, 1, 32)")
+            solo_lat, solo = [], []
+            for _h, body in searches:
+                t0 = time.perf_counter()
+                solo.append(hits(node.search("sift_a", body)))
+                solo_lat.append(time.perf_counter() - t0)
+            for i, (g, s) in enumerate(zip(resp["responses"], solo)):
+                if hits(g) != s:
+                    raise AssertionError(f"[sift_a] msearch {prec} k={k} "
+                                         f"body {i}: not its solo search bit "
+                                         f"for bit")
+            lat = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                node.msearch(searches)
+                lat.append(time.perf_counter() - t0)
+            slab = bundle_slab("sift_a")
+            qt = torch.from_numpy(qs).to(slab[0].device)
+            step32 = device_profile(functools.partial(
+                kf.knn_fused_stacked, *slab, qt, k=k, similarity="l2_norm",
+                score_precision=prec), 5)
+
+            def solo_steps():
+                for i in range(MSEARCH_BODIES):
+                    kf.knn_fused_stacked(*slab, qt[i:i + 1], k=k,
+                                         similarity="l2_norm",
+                                         score_precision=prec)
+
+            step1 = device_profile(solo_steps, 3)
+            out[f"{prec} k={k}"] = {
+                "launches": {"knn_fused": got[0], f"knn_fused_{tier}": got[1]},
+                "batched_queries": got[2],
+                "first_msearch_ms": first_s * 1e3,
+                "msearch_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                "solo_32_ms": sum(solo_lat) * 1e3,
+                "solo_p50_ms": float(np.percentile(solo_lat, 50)) * 1e3,
+                "step_b32_device_ms": step32 and step32["device_ms"],
+                "steps_32x_b1_device_ms": step1 and step1["device_ms"]}
+            log(f"[sift_a] msearch of 32 at {prec} k={k}: one K1 launch on "
+                f"{tier}, every body its solo search bit for bit; "
+                f"{json.dumps(out[f'{prec} k={k}'])}")
+    finally:
+        ann.default_config.configure(score_precision="fp32")
+    # the mixed run: a filter in the fourth body keeps the run serial
+    bodies = [{"query": {"knn": {"v": {"vector": qv.tolist(), "k": 10}}},
+               "size": 10} for qv in qs[:8]]
+    bodies[3] = {"query": {"knn": {"v": {
+        "vector": qs[3].tolist(), "k": 10,
+        "filter": {"range": {"age": {"gte": 20, "lte": 60}}}}}}, "size": 10}
+    kf.launches.reset()
+    batched0 = distributed_serving.stats["batched_queries"]
+    resp = node.msearch([({"index": "sift_a"}, b) for b in bodies])
+    got = (kf.launches.count,
+           distributed_serving.stats["batched_queries"] - batched0)
+    if got != (8, 0):
+        raise AssertionError(f"[sift_a] mixed msearch: (K1 launches, batched "
+                             f"queries) = {got}, want (8, 0)")
+    for i, (g, body) in enumerate(zip(resp["responses"], bodies)):
+        if hits(g) != hits(node.search("sift_a", body)):
+            raise AssertionError(f"[sift_a] mixed msearch body {i}: not its "
+                                 f"solo search")
+    out["mixed"] = {"bodies": 8, "launches": got[0], "batched_queries": got[1]}
+    log(f"[sift_a] mixed msearch (a filter in body 3): 8 launches, none "
+        f"batched, every body its solo search")
     return out
 
 
@@ -2344,6 +3197,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         reduced = reduced_main_phase(node, kf, truths["sift_a"][0],
                                      step_inputs["sift_a"])
         batched = stacked_batch_phase(node, kf, truths["sift_a"][0])
+        msearch = msearch_main_phase(node, kf, truths["sift_a"][0])
         filtered = filtered_main_phase(node, kf, attrs_a,
                                        truths["sift_a"][0],
                                        step_inputs["sift_a"], rng)
@@ -2394,15 +3248,16 @@ def main_path_phase(kf, dev, seed: int) -> dict:
             "latency_s": out, "step_ms": step_ms,
             "step_device": step_device, "per_shard": per_shard,
             "wide": wide, "reduced": reduced, "batched": batched,
-            "filtered": filtered, "large": large}
+            "msearch": msearch, "filtered": filtered, "large": large}
 
 
 def filtered_phase(kf, dev, seed: int) -> dict:
     """Index A alone, built as main_path_phase builds it (200,000 clustered
     128-d docs with the age, color and taste columns), one unfiltered
     search to build its serving bundle, then stacked_batch_phase,
-    filtered_main_phase and large_main_phase: the quick loop for filtered
-    kNN and the stacked step past r = 1024 (``--phases filtered``)."""
+    msearch_main_phase, filtered_main_phase and large_main_phase: the
+    quick loop for filtered kNN, msearch and the stacked step past
+    r = 1024 (``--phases filtered``)."""
     from opensearch_tpu_torch.node import TorchNode
 
     rng = np.random.default_rng(seed + 2)
@@ -2423,6 +3278,7 @@ def filtered_phase(kf, dev, seed: int) -> dict:
         node.search("sift_a", {"query": {"knn": {"v": {
             "vector": queries[0].tolist(), "k": 10}}}})
         out = {"batched": stacked_batch_phase(node, kf, queries),
+               "msearch": msearch_main_phase(node, kf, queries),
                "filtered": filtered_main_phase(node, kf, attrs, queries,
                                                step_input, rng),
                "large": large_main_phase(node, kf, data, queries, step_input,
@@ -2557,11 +3413,12 @@ REDUCED_STACKED = 32
 REDUCED_PER_SHARD = 16
 
 
-def pool_ties(kf, slab, q, r: int, prec: str, what: str) -> list:
+def pool_ties(kf, slab, q, r: int, prec: str, what: str,
+              bound: bool = False) -> list:
     """Where a search's hits differ from the plain pipeline's at bf16: the
     kernel's and plain_pool's pools of R for the query on the same slab,
-    every doc in one and not the other a summation tie (summation_ties)
-    at the pool's R-th score. Returns the ties."""
+    every doc in one and not the other a summation tie (summation_ties,
+    `bound` passed on) at the pool's R-th score. Returns the ties."""
     args = reduced_args(kf, *slab, q, prec)
     kv, ki = kf.pool_scan(*args, r=r, similarity="l2_norm",
                           score_precision=prec)
@@ -2571,7 +3428,7 @@ def pool_ties(kf, slab, q, r: int, prec: str, what: str) -> list:
     if set(ki.flatten().tolist()) == set(pi.flatten().tolist()):
         raise AssertionError(f"{what}: the hits differ though the pools hold "
                              f"the same docs")
-    return summation_ties(kf, kv, ki, pv, pi, args, "l2_norm", what)
+    return summation_ties(kf, kv, ki, pv, pi, args, "l2_norm", what, bound)
 
 
 def reduced_main_phase(node, kf, queries: np.ndarray,
@@ -3067,6 +3924,88 @@ def large_main_phase(node, kf, data_a: np.ndarray, queries_a: np.ndarray,
     if any(len(t) != 1480 for t in truth):
         raise AssertionError("[small] the brute force lost a live doc")
     out["small k=5000"] = run("small", qs, 5000, truth)
+    out.update(large_reduced_main(node, kf, q768[:2], qa))
+    return out
+
+
+def bundle_slab(name: str) -> tuple:
+    """(vectors, norms_sq, valid) of index `name`'s one serving bundle."""
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+
+    bundles = [b for key, b in default_registry._bundles.items()
+               if key[0] == name]
+    if len(bundles) != 1:
+        raise AssertionError(f"[{name}] {len(bundles)} serving bundles")
+    return bundles[0].vectors, bundles[0].norms_sq, bundles[0].valid
+
+
+def large_reduced_main(node, kf, q768: np.ndarray, qa: np.ndarray) -> dict:
+    """The stacked step at bf16 and int8 past r = 1024 (R = k), K1 on the
+    large-r tier's tensor-core scan: node.search at k = 1025, 2000 and 4096
+    (size = k) on the 768-d index, 2 searches each, and k = 10,000 on index
+    A, 2 searches, at each precision. Every hit list is the plain
+    pipeline's on the node's own slab (knn_fused_stacked impl="xla" at the
+    same precision and k) in order; at bf16 a differing list only where the
+    pools differ by summation ties (pool_ties, each logged). Each search
+    launches K1 exactly once, on the large-r tier's tensor-core scan, and
+    never the tile scan (counted from 0)."""
+    from opensearch_tpu_torch.search import ann
+
+    out = {}
+    try:
+        for prec in REDUCED:
+            ann.default_config.configure(score_precision=prec)
+            for name, qs, ks in (("wide768", q768, LARGE_MAIN_KS),
+                                 ("sift_a", qa, (LARGE_MAIN_CELL_A_K,))):
+                for k in ks:
+                    counters = (kf.launches, kf.large_launches,
+                                kf.large_mma_launches, kf.tile_launches)
+                    for c in counters:
+                        c.reset()
+                    lat, ties = [], 0
+                    for i, qv in enumerate(qs):
+                        t0 = time.perf_counter()
+                        resp = node.search(name, {"query": {"knn": {"v": {
+                            "vector": qv.tolist(), "k": k}}}, "size": k,
+                            "_source": False})
+                        lat.append(time.perf_counter() - t0)
+                        slab = bundle_slab(name)
+                        q1 = torch.from_numpy(qv[None]).to(slab[0].device)
+                        _v, ids = kf.knn_fused_stacked(
+                            *slab, q1, k=k, similarity="l2_norm",
+                            score_precision=prec, impl="xla")
+                        want = [str(int(x)) for x in ids[0, 0].tolist()
+                                if x >= 0]
+                        hits = [h["_id"] for h in resp["hits"]["hits"]]
+                        if hits != want:
+                            label = f"[{name}] {prec} k={k} query {i}"
+                            if prec != "bf16":
+                                raise AssertionError(f"{label}: hits differ "
+                                                     f"from the plain "
+                                                     f"pipeline's")
+                            for tie in pool_ties(kf, slab, q1, k, prec,
+                                                 label, bound=qv.size >= 512):
+                                ties += 1
+                                log(f"{label}: a summation tie of the pool "
+                                    f"{tie}")
+                    got = [c.count for c in counters]
+                    if got != [len(qs), len(qs), len(qs), 0]:
+                        raise AssertionError(
+                            f"[{name}] {prec} k={k}: (K1, large-r tier, its "
+                            f"tensor-core scan, tile scan) launched {got} "
+                            f"times in {len(qs)} searches")
+                    res = latency_summary(lat)
+                    res["launches"] = {"knn_fused": got[0],
+                                       "knn_fused_large": got[1],
+                                       "knn_fused_large_mma": got[2],
+                                       "knn_fused_tile": got[3]}
+                    res["summation_ties"] = ties
+                    out[f"{name} {prec} k={k}"] = res
+                    log(f"[{name}] {prec} k={k}: {len(qs)} searches, hits "
+                        f"the plain pipeline's, one launch each on the "
+                        f"large-r tier's tensor-core scan; {json.dumps(res)}")
+    finally:
+        ann.default_config.configure(score_precision="fp32")
     return out
 
 
@@ -3079,43 +4018,30 @@ def latency_summary(lat_s: list, wall_s: float | None = None) -> dict:
             "qps": len(lat_s) / (wall_s if wall_s is not None else sum(lat_s))}
 
 
-def concurrent_check(name: str, i: int, got: list, solo: list,
-                     bits: bool) -> None:
-    """A concurrent hit list against its solo one. With `bits` (every K1
-    path, at fp32, bf16 and int8: each dot, |q|^2 and the exact rescore
-    summed in one order whatever the batch) the ids in the same order and
-    every score the same float, bit for bit: the reference batcher's
-    contract. Without (the IVF-PQ index, whose LUT products and rescore
-    are batched library products) the ids in the same order and each score
-    within rtol 1e-5 / atol 2e-3 of the solo one."""
-    gid, sid = [h[0] for h in got], [h[0] for h in solo]
-    if bits:
-        if got != solo:
-            bad = next(j for j, (a, b) in enumerate(zip(got, solo)) if a != b) \
-                if len(got) == len(solo) else None
-            raise AssertionError(f"[{name}] concurrent query {i}: not the "
-                                 f"solo hits bit for bit (first difference "
-                                 f"at position {bad}: {got[bad] if bad is not None else got} "
-                                 f"!= {solo[bad] if bad is not None else solo})")
-        return
-    if gid != sid or not np.allclose([h[1] for h in got],
-                                     [h[1] for h in solo], rtol=1e-5,
-                                     atol=2e-3):
-        raise AssertionError(f"[{name}] concurrent query {i}: {got} != "
-                             f"solo {solo}")
+def concurrent_check(name: str, i: int, got: list, solo: list) -> None:
+    """A concurrent hit list against its solo one: the ids in the same order
+    and every score the same float, bit for bit (the reference batcher's
+    contract), on every path, K1's at fp32, bf16 and int8 and the IVF-PQ
+    route's: each dot, |q|^2, LUT, probe score and exact rescore sums in
+    one order whatever the batch."""
+    if got != solo:
+        bad = next(j for j, (a, b) in enumerate(zip(got, solo)) if a != b) \
+            if len(got) == len(solo) else None
+        raise AssertionError(f"[{name}] concurrent query {i}: not the "
+                             f"solo hits bit for bit (first difference "
+                             f"at position {bad}: {got[bad] if bad is not None else got} "
+                             f"!= {solo[bad] if bad is not None else solo})")
 
 
 def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
                      counters: dict, size: int = 10,
-                     reduced: bool = False, bits: bool = True) -> dict:
+                     reduced: bool = False) -> dict:
     """The 64 queries one after another, then the same 64 from 8 threads of
     8 searches each, three times, each returning `size` hits. Every
-    concurrent hit list must equal its solo one (concurrent_check): with
-    `bits` (K1's paths) ids in order and scores bit for bit, since every
-    dot, |q|^2 and rescore sums in one order whatever the batch; without
-    (the IVF-PQ index: its LUTs and rescore are batched PyTorch products
-    whose f32 sums the library may order by B) ids in order and scores to
-    rtol 1e-5 / atol 2e-3.
+    concurrent hit list must equal its solo one (concurrent_check): ids in
+    order and scores bit for bit, since every sum a hit depends on
+    (K1's dots, |q|^2, the rescore; the IVF-PQ route's probe scores, LUTs
+    and rescore) has one order whatever the batch.
 
     1. The gated run: each round of 8 searches leaves a barrier together,
        and the batcher waits up to 50 ms with its tuner off, so the merge
@@ -3166,7 +4092,7 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
                 f.result()
         wall = time.perf_counter() - t0
         for i, (g, s) in enumerate(zip(got, solo)):
-            concurrent_check(name, i, g, s, bits)
+            concurrent_check(name, i, g, s)
         return lat, wall
 
     def batched_run(together: bool) -> tuple[dict, dict, tuple]:
@@ -3655,6 +4581,7 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     a second refresh of 300 docs (below min_train, so exact) and 16
     searches over the shard's IVF-PQ and exact segments together."""
     from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.ops import adc_lut
     from opensearch_tpu_torch.search import executor
 
     rng = np.random.default_rng(seed + 12)
@@ -3697,12 +4624,14 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
         # the counts are read for the searches alone
         ann0 = executor.knn_path_stats["ann"]
         ads.launches.reset()
+        adc_lut.launches.reset()
         lat, hits = [], []
         for qv in queries:
             t0 = time.perf_counter()
             hits.append(search(qv))
             lat.append(time.perf_counter() - t0)
         launches = ads.launches.count
+        lut_launches = adc_lut.launches.count
         ann_searches = executor.knn_path_stats["ann"] - ann0
         # where a search's time goes: device kernels under the profiler, on
         # 16 more searches after the counted window
@@ -3774,9 +4703,10 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
                                         256, dev)[:10])
         log(f"[{name}] two segments, k=256: 16 searches equal the plain "
             f"pipeline; the exact segment materialized each time")
+        batch = ann_batch_check(ads, ivfpq, segments[0], queries, dev)
         concurrent = concurrent_phase(
             node, name, queries, 10,
-            {"adc_scan": ads.launches, "knn_fused": kf.launches}, bits=False)
+            {"adc_scan": ads.launches, "knn_fused": kf.launches})
         node.close()
     # recall@10 against exact cosine brute force (reported, not gated)
     dn = torch.from_numpy(data).to(dev)
@@ -3792,7 +4722,8 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
            "p50_ms": float(np.percentile(lat_ms, 50)),
            "p99_ms": float(np.percentile(lat_ms, 99)),
            "qps": 64 / sum(lat), "mixed": mixed, "concurrent": concurrent,
-           "filtered": filtered}
+           "filtered": filtered, "batch": batch,
+           "lut_launches": lut_launches}
     log(f"[{name}] 64 searches equal the plain pipeline; recall@10 vs exact "
         f"cosine = {recall:.4f}; p50 {out['p50_ms']:.3f} ms, p99 "
         f"{out['p99_ms']:.3f} ms, QPS {out['qps']:.1f}")
@@ -3811,6 +4742,9 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
                              f"branch")
     if launches < 64:
         raise AssertionError(f"K2 launched {launches} times in 64 searches")
+    if lut_launches != launches:
+        raise AssertionError(f"the LUT kernel launched {lut_launches} times "
+                             f"beside {launches} K2 launches")
     log(f"ANN main path: {ann_searches} ANN searches, {launches} K2 launches")
     if (mixed["ann"], mixed["fused"]) != (16, 16) or min(
             mixed["k1_launches"], mixed["k2_launches"]) < 16:
@@ -3875,9 +4809,14 @@ def main() -> int:
                "large": "opensearch_tpu_torch/csrc/knn_large.cuh: the "
                         "large-r tier (kernels knn_large_scan_kernel, "
                         "knn_large_select_kernel), fp32 with r > 1024",
+               "large_mma": "opensearch_tpu_torch/csrc/knn_large_mma.cuh: "
+                            "the large-r tier's tensor-core scan (kernels "
+                            "knn_large_mma_scan_kernel, "
+                            "knn_large_select_kernel), bf16 and int8 with "
+                            "r > 1024",
                "tile": "opensearch_tpu_torch/csrc/knn_tile.cuh: the tile "
-                       "scan (knn_scan_kernel, knn_merge_kernel), bf16 and "
-                       "int8 with r > 1024"}
+                       "scan (knn_scan_kernel, knn_merge_kernel): no shape, "
+                       "the yardstick timed beside the designs"}
     entry = {"name": "knn_fused", "route": "cuda",
              "source": "opensearch_tpu_torch/csrc/knn_fused.cu",
              "designs": designs,
@@ -3922,6 +4861,29 @@ def main() -> int:
                "ms": None, "plain_ms": None, "bound_ms": None,
                "bound_by": None, "library_ms": None}
         for name in ("knn_rescore", "knn_query_sq")}
+    # the large-r tier's tensor-core scan (a K1 design, listed on its own
+    # line too) and the IVF-PQ LUT kernel (no Pallas counterpart)
+    large_mma_entry = {
+        "name": "knn_large_mma", "route": "cuda",
+        "source": "opensearch_tpu_torch/csrc/knn_large_mma.cuh (built in "
+                  "knn_fused.cu)",
+        "replaces": "opensearch_tpu/ops/pallas_knn.py:785 (pallas_knn_fused "
+                    "-> _knn_fused_kernel :675) at bf16 and int8, r > 1024",
+        "launches": None, "parity": None, "max_abs_err": None, "ms": None,
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None}
+    lut_entry = {
+        "name": "adc_lut", "route": "cuda",
+        "source": "opensearch_tpu_torch/csrc/adc_lut.cu",
+        "replaces": "none (no Pallas kernel): the batched torch.einsum LUT "
+                    "build of opensearch_tpu_torch/ops/ivfpq.py "
+                    "lut_for_probes (XLA's in opensearch_tpu/ops/ivfpq.py "
+                    "lut_for_probes)",
+        "launches": None, "parity": None, "max_abs_err": None, "ms": None,
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None,
+        "library_note": "none: no single PyTorch call builds residual PQ "
+                        "lookup tables; einsum_ms is the build it replaced"}
     rescore_entries["knn_rescore"]["library_note"] = (
         "none: no single PyTorch call gathers, dots, transforms and masks "
         "the candidates; einsum_ms is the rescore it replaced")
@@ -3943,6 +4905,16 @@ def main() -> int:
                 entry["max_abs_err"] = max(entry["max_abs_err"], wide_err,
                                            large_kernel_phase(kf, dev,
                                                               args.seed))
+                large_mma_entry["max_abs_err"] = large_mma_kernel_phase(
+                    kf, dev, args.seed)
+                large_mma_entry["parity"] = ("int8 bit-equal; bf16 bit-equal "
+                                             "on exact sums, ids equal but at "
+                                             "logged summation ties on floats")
+        if "adc_lut" in chosen:
+            lut_check = lut_kernel_phase(dev, args.seed)
+            lut_entry["max_abs_err"] = lut_check["max_abs_err"]
+            lut_entry["parity"] = "bit-equal"
+            lut_entry["probe_rows_differ"] = lut_check["probe_rows_differ"]
         if "knn_rescore" in chosen:
             differ = rescore_kernel_phase(kr, dev, args.seed)
             for e in rescore_entries.values():
@@ -3990,6 +4962,20 @@ def main() -> int:
                 for b in (1, 8)}
         if "knn_fused" in chosen:
             entry["large_shapes"] = large_timing(kf, dev, args.seed)
+            lm = large_mma_timing(kf, dev, args.seed)
+            large_mma_entry.update({key: lm[LARGE_MMA_HEADLINE][key] for key in
+                                    (*fields, "device_ms", "scan_device_ms",
+                                     "merge_device_ms")})
+            large_mma_entry["shape"] = LARGE_MMA_HEADLINE
+            large_mma_entry["serving_shapes"] = lm
+        if "adc_lut" in chosen:
+            lt = lut_timing(dev, args.seed)
+            lut_entry.update({key: lt["lut B=1"][key] for key in
+                              (*fields, "einsum_ms", "device_ms",
+                               "einsum_device_ms")})
+            lut_entry["shape"] = ("glove-100 / cell C: nlist=512 d=100 m=20 "
+                                  "ks=256 P=8 B=1")
+            lut_entry["serving_shapes"] = lt
         if "knn_rescore" in chosen:
             rt = rescore_timing(kf, kr, dev, args.seed)
             rescore_entries["knn_rescore"].update(
@@ -4040,9 +5026,13 @@ def main() -> int:
         entry["large_main_path"] = main["large"]
         entry["large_launches"] = sum(
             res["launches"]["knn_fused_large"] for res in main["large"].values())
+        large_mma_entry["launches"] = sum(
+            res["launches"].get("knn_fused_large_mma", 0)
+            for res in main["large"].values())
         # filtered kNN on both routes: each run's launches counted from 0
         entry["filtered_main_path"] = main["filtered"]
         entry["stacked_batch"] = main["batched"]
+        entry["msearch_main_path"] = main["msearch"]
         rescore_entries["knn_query_sq"]["launches"] = \
             main["query_sq_launches"]
         rescore_entries["knn_rescore"]["launches"] = sum(
@@ -4070,6 +5060,8 @@ def main() -> int:
             for key, res in main["reduced"].items()}
         ann = ann_main_phase(ads, ivfpq, kf, dev, args.seed)
         entry2["launches"] = ann["launches"]
+        lut_entry["launches"] = ann["lut_launches"]
+        entry2["ann_batch"] = ann["batch"]
         entry2["main_path"] = {key: ann[key] for key in
                                ("searches", "recall", "p50_ms", "p99_ms",
                                 "qps", "device_ms", "idle_share")
@@ -4089,10 +5081,20 @@ def main() -> int:
         fp = filtered_phase(kf, dev, args.seed)
         entry["filtered_main_path"] = fp["filtered"]
         entry["stacked_batch"] = fp["batched"]
+        entry["msearch_main_path"] = fp["msearch"]
         entry["large_main_path"] = fp["large"]
+        large_mma_entry["launches"] = sum(
+            res["launches"].get("knn_fused_large_mma", 0)
+            for res in fp["large"].values())
         phase_s["filtered"] = time.perf_counter() - t0
+    if phases & {"main", "hybrid"}:
+        t0 = time.perf_counter()
+        hybrid = hybrid_main_phase(dev, args.seed)
+        log(f"hybrid program record: {json.dumps(hybrid)}")
+        phase_s["hybrid"] = time.perf_counter() - t0
     log(f"phase wall seconds: {json.dumps(phase_s)}")
-    print(json.dumps({"kernels": [entry, entry2, *family.values(),
+    print(json.dumps({"kernels": [entry, large_mma_entry, entry2, lut_entry,
+                                  *family.values(),
                                   *rescore_entries.values()]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

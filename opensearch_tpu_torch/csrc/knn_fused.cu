@@ -40,7 +40,7 @@
 // The scan and merge kernels live in knn_tile.cuh, which K3 (knn_block.cu)
 // instantiates at fp32.
 //
-// Four designs, chosen by (precision, r) in the wrapper
+// Five designs, chosen by (precision, r) in the wrapper
 // (ops/knn_fused.scan_tier), never on failure:
 //  - fp32 with r <= 32 (every fp32 serving search at k <= 32): the list
 //    scan of knn_pool.cuh (knn_fused_lists_launch): K4's cp.async ring and
@@ -62,13 +62,16 @@
 //    of knn_large.cuh (knn_fused_large_launch): the wide tier's scan with
 //    each (query, doc)'s score key stored instead of pooled, then a
 //    CTA-per-(query, shard) radix select and sort of the r best;
-//  - bf16 and int8 with r > 1024 (a reduced-precision k above 1024): the
-//    tile scan above (knn_fused_launch, which takes any precision and is
-//    timed beside the other designs), with no cp.async pipelining, tensor
-//    cores or TMA, as long as its pools fit shared memory.
+//  - bf16 and int8 with r > 1024 (a reduced-precision k above 1024 on the
+//    stacked step): the large-r tier's tensor-core scan of
+//    knn_large_mma.cuh (knn_fused_large_mma_launch): the tensor-core
+//    tier's dots, each (query, doc)'s score key stored, then the large-r
+//    tier's select.
+// The tile scan above (knn_fused_launch, any precision, no cp.async
+// pipelining, tensor cores or TMA, pools of 16 queries in shared memory)
+// serves no shape any more: it is the yardstick timed beside each design.
 
-#include "knn_large.cuh"
-#include "knn_wide_mma.cuh"
+#include "knn_large_mma.cuh"
 
 extern "C" {
 
@@ -214,6 +217,35 @@ int knn_fused_large_launch(const void* v, const void* nsq, const void* valid,
       static_cast<uint32_t*>(keys), static_cast<float*>(sort_v),
       static_cast<int*>(sort_i), static_cast<float*>(out_v),
       static_cast<int*>(out_i), S, n, d, B, r, sim, stages, stage_floats,
+      chunk, n_split);
+}
+
+// bytes of dynamic shared memory the large-r tier's tensor-core scan needs
+// at ring (stages, stage_words) for rows of d prec elements; 0 for a ring
+// or a precision with no kernel
+size_t knn_fused_large_mma_smem_bytes(int prec, int stages, int stage_words,
+                                      int d) {
+  return large_mma::large_mma_smem_bytes(prec, stages, stage_words, d);
+}
+
+// The large-r tier's tensor-core scan + select (bf16 or int8, rows of
+// whole 16-byte units at 16-byte aligned addresses) on `stream`; keys
+// [S, B, n] u32 and, where knn_fused_large_sort_slots(r) = P > 0, sort_v /
+// sort_i [S, B, P] are scratch. Returns the first cudaError_t met.
+int knn_fused_large_mma_launch(const void* scale, int prec, const void* v,
+                               const void* nsq, const void* valid,
+                               const void* q, const void* qsq, void* keys,
+                               void* sort_v, void* sort_i, void* out_v,
+                               void* out_i, int S, int n, int d, int B, int r,
+                               int sim, int stages, int stage_words,
+                               int chunk, int n_split, void* stream) {
+  return (int)large_mma::launch_large_mma_pool(
+      static_cast<cudaStream_t>(stream), prec, v,
+      static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid), q,
+      static_cast<const float*>(qsq), static_cast<const float*>(scale),
+      static_cast<uint32_t*>(keys), static_cast<float*>(sort_v),
+      static_cast<int*>(sort_i), static_cast<float*>(out_v),
+      static_cast<int*>(out_i), S, n, d, B, r, sim, stages, stage_words,
       chunk, n_split);
 }
 

@@ -2,6 +2,8 @@
 // for Hopper (sm_90a). Two kernels a call: knn_large_scan_kernel (every
 // live doc's score key, one u32 a (shard, query, doc)) and
 // knn_large_select_kernel (the r best of a (shard, query) row, sorted).
+// At bf16 and int8 knn_large_mma.cuh's tensor-core scan writes the same
+// keys and this select follows it unchanged.
 //
 // Replaces, at these shapes: opensearch_tpu/ops/pallas_knn.py::
 // _knn_fused_kernel (:675, launched by pallas_knn_fused at :785), which the
@@ -277,6 +279,22 @@ cudaError_t launch_scan(cudaStream_t st, const float* v, const float* nsq,
   return cudaGetLastError();
 }
 
+// The select on `st`: the r best of every (shard, query) row of keys
+// [S, B, n], sorted (in sort_[v|i] [S, B, P] where sort_slots(r) = P > 0).
+// Returns the first cudaError_t met.
+inline cudaError_t launch_select(cudaStream_t st, const uint32_t* keys,
+                                 float* sort_v, int* sort_i, float* out_v,
+                                 int* out_i, int S, int n, int B, int r) {
+  const size_t smem = select_smem_bytes(r);
+  const cudaError_t e = cudaFuncSetAttribute(
+      knn_large_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  knn_large_select_kernel<<<dim3(B, S), kSelThreads, smem, st>>>(
+      keys, sort_v, sort_i, out_v, out_i, n, B, r);
+  return cudaGetLastError();
+}
+
 // The scan then the select on `st` over the B queries; (stages,
 // stage_floats) is the wrapper's ring, chunk (a multiple of 128) and
 // n_split its cut of each shard; keys [S, B, n] and, where the winners'
@@ -305,14 +323,7 @@ inline cudaError_t launch_large_pool(cudaStream_t st, const float* v,
     e = launch_scan<2, 8192>(st, v, nsq, valid, q, qsq, keys, S, n, d, B,
                              sim, chunk, n_split);
   if (e != cudaSuccess) return e;
-  const size_t smem = select_smem_bytes(r);
-  e = cudaFuncSetAttribute(knn_large_select_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  knn_large_select_kernel<<<dim3(B, S), kSelThreads, smem, st>>>(
-      keys, sort_v, sort_i, out_v, out_i, n, B, r);
-  return cudaGetLastError();
+  return launch_select(st, keys, sort_v, sort_i, out_v, out_i, S, n, B, r);
 }
 
 // smem bytes of the scan at a ring; 0 for a ring with no kernel

@@ -25,7 +25,11 @@
 //   shared memory, one warp a candidate: the candidate's row gathered from
 //   the slab (coalesced: lane l reads elements l, l + 32, ...), the dot, the
 //   l2 / cosine / dot transform of knn_score.cuh (the scans' own), and
-//   -inf where the candidate id is -1 or its doc is dead.
+//   -inf where the candidate id is -1 or its doc is dead. With sim =
+//   kRawDots it writes the dot alone (0 for a -1 id): the IVF-PQ route's
+//   exact rescore (ops/ivfpq.exact_rescore) keeps the reference's own
+//   transform, whose cosine clamps the product of the norms, and takes
+//   only its dots from here.
 //
 // Bound: each candidate row read once (4 R d bytes a (shard, query)), its
 // norm and flag, the candidate ids and the scores written: at R = 40 and
@@ -43,6 +47,7 @@ namespace rescore {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kPerCta = 32;  // candidates a rescore CTA: four a warp
+constexpr int kRawDots = 3;  // the `sim` that writes the dots untransformed
 
 // x summed over the warp's lanes in the fixed butterfly; every lane gets
 // the same bits (each step adds a pair in both lanes, and f32 addition
@@ -69,7 +74,9 @@ __global__ void __launch_bounds__(kThreads) knn_query_sq_kernel(
 // grid (ceil(R / kPerCta), B, S); dynamic shared memory 4d bytes.
 // out[s, b, j] = the transformed fp32 score of candidate cand[s, b, j] of
 // shard s against query b, -inf where the id is negative or the doc is
-// dead; CTA x takes candidates [x * kPerCta, (x + 1) * kPerCta).
+// dead; at sim = kRawDots the dot itself, 0 where the id is negative (qsq,
+// nsq and valid unread); CTA x takes candidates [x * kPerCta,
+// (x + 1) * kPerCta).
 __global__ void __launch_bounds__(kThreads) knn_rescore_kernel(
     const float* __restrict__ q,        // [B, d]
     const float* __restrict__ qsq,      // [B]
@@ -87,11 +94,12 @@ __global__ void __launch_bounds__(kThreads) knn_rescore_kernel(
   for (int e = threadIdx.x; e < d; e += kThreads)
     rescore_q[e] = q[(size_t)b * d + e];
   __syncthreads();
-  const float qq = qsq[b];
+  const bool raw = sim == kRawDots;
+  const float qq = raw ? 0.0f : qsq[b];
   const size_t row = (size_t)s * B + b;
   for (int j = j0 + warp; j < j1; j += kWarps) {
     const int c = cand[row * R + j];  // the same in every lane
-    float score = -INFINITY;
+    float score = raw ? 0.0f : -INFINITY;
     if (c >= 0 && c < n) {
       const size_t doc = (size_t)s * n + c;
       const float* vr = v + doc * d;
@@ -99,7 +107,10 @@ __global__ void __launch_bounds__(kThreads) knn_rescore_kernel(
       for (int e = lane; e < d; e += 32)
         acc = __fadd_rn(acc, __fmul_rn(rescore_q[e], vr[e]));
       acc = warp_tree(acc);
-      if (valid[doc]) score = transform_score(acc, qq, nsq[doc], sim);
+      if (raw)
+        score = acc;
+      else if (valid[doc])
+        score = transform_score(acc, qq, nsq[doc], sim);
     }
     if (lane == 0) out[row * R + j] = score;
   }

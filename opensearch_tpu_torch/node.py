@@ -2,7 +2,8 @@
 
 Counterpart of opensearch_tpu/node.py's ``TpuNode``, for the slice ported
 so far: ``create_index``, ``bulk``, ``refresh``, ``search`` (a top-level
-knn query) and ``close``. Every shard publishes its segments to the node's
+knn query), ``msearch`` (runs of bare kNN bodies in one stacked launch)
+and ``close``. Every shard publishes its segments to the node's
 device; searches run the stacked serving step on it
 (search/distributed_serving.py), or the per-shard route, whose launches
 coalesce across concurrent searches in ``knn_batcher``
@@ -225,10 +226,56 @@ class TorchNode:
                 count += 1
         return {"_shards": {"total": count, "successful": count, "failed": 0}}
 
-    def search(self, index: str | None = None, body: dict | None = None) -> dict:
-        shards = [shard for name in self._resolve(index or "_all")
-                  for shard in self._get_index(name).shards.values()]
-        return search_service.search(shards, dict(body or {}))
+    def _search_shards(self, index: str | None) -> list[IndexShard]:
+        return [shard for name in self._resolve(index or "_all")
+                for shard in self._get_index(name).shards.values()]
+
+    def search(self, index: str | None = None, body: dict | None = None,
+               precomputed_results: list | None = None) -> dict:
+        return search_service.search(self._search_shards(index),
+                                     dict(body or {}), precomputed_results)
+
+    def msearch(self, searches: list[tuple[dict, dict]]) -> dict:
+        """Runs of consecutive bare-knn sub-searches against the SAME index
+        run their query phase as ONE stacked launch
+        (search_service.try_batched_knn_msearch: B query vectors in one
+        launch); everything else runs one by one, as the reference's
+        TransportMultiSearchAction fans out a sub-request at a time. An
+        error of this API (an OpenSearchTpuException) fills its own slot;
+        a body outside the port raises "not yet ported", as search does."""
+        responses: list[dict | None] = [None] * len(searches)
+        for group in search_service.msearch_groups(searches):
+            index = searches[group[0]][0].get("index")
+            precomputed = None
+            if len(group) > 1:
+                precomputed = self._try_msearch_knn_batch(
+                    index, [searches[g][1] for g in group])
+            # precomputed None: the whole run one by one (each member still
+            # eligible for the single-query stacked step)
+            for slot, g in enumerate(group):
+                try:
+                    responses[g] = self.search(
+                        searches[g][0].get("index"), searches[g][1],
+                        precomputed_results=(precomputed[slot]
+                                             if precomputed else None))
+                except OpenSearchTpuException as e:
+                    responses[g] = {"error": e.to_dict(), "status": e.status}
+        return {"took": 0, "responses": responses}
+
+    def _try_msearch_knn_batch(self, index: str,
+                               bodies: list[dict]) -> list[list] | None:
+        """Resolve `index` once, pin one set of searcher snapshots, and run
+        the batched knn query phase over them. Returns per-body
+        precomputed_results for search(), or None (the bodies one by one).
+        The reference also keeps a run on its serial path for a filtered
+        alias or an index with a default search pipeline; TorchNode has
+        neither aliases nor pipelines yet, so neither check applies."""
+        try:
+            shards = self._search_shards(index)
+        except OpenSearchTpuException:
+            return None  # the serial path reports the error per sub-search
+        snaps = [s.acquire_searcher() for s in shards]
+        return search_service.try_batched_knn_msearch(shards, bodies, snaps)
 
     def close(self) -> None:
         for name, svc in self.indices.items():

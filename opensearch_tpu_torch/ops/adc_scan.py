@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
-from opensearch_tpu_torch.ops import cuda_lib, ivfpq
+from opensearch_tpu_torch.ops import adc_lut, cuda_lib, ivfpq
 from opensearch_tpu_torch.ops import knn as knn_ops
 from opensearch_tpu_torch.ops.topk import stable_topk
 
@@ -258,15 +258,20 @@ def adc_pool_scan(lut, codes, ids, mask, probes, *, r: int):
     return plain_adc_pool(lut, codes, ids, mask, probes, r=r)
 
 
-def build_luts(queries, coarse, codebooks, probes, *, adc_precision: str):
+def build_luts(queries, coarse, codebooks, probes, *, adc_precision: str,
+               use_kernel: bool = True):
     """Per-(query, probe) residual LUTs at native width from the probe
-    table: the shared f32 LUT math (ivfpq.lut_for_probes), then a bf16
+    table: the f32 LUTs, each sum in one order whatever the batch (the
+    kernel of ops/adc_lut for CUDA tensors when `use_kernel`, else its
+    plain version, ivfpq.lut_for_probes: the same bits), then a bf16
     downcast, or a per-QUERY affine uint8 quantization (one scale across a
     query's probes keeps the integer sums comparable across probes, so the
-    scan never dequantizes). ``ivfpq.search`` quantizes per (query, probe)
-    instead; each keeps the reference's choice."""
+    scan never dequantizes), both elementwise and so the same for a query
+    in any batch. ``ivfpq.search`` quantizes per (query, probe) instead;
+    each keeps the reference's choice."""
     ivfpq.check_precision(adc_precision)
-    lut = ivfpq.lut_for_probes(queries, coarse, codebooks, probes)
+    lut = (adc_lut.lut if use_kernel else ivfpq.lut_for_probes)(
+        queries, coarse, codebooks, probes)
     if adc_precision == "bf16":
         return lut.to(torch.bfloat16)
     if adc_precision == "int8":
@@ -295,22 +300,26 @@ def fused_adc_search(coarse, codebooks, codes, ids, mask, vectors, norms_sq,
                      similarity: str = "l2_norm",
                      adc_precision: str = "fp32", use_kernel: bool = True):
     """LUT build over the host-chosen probes, native-width quantization,
-    the ADC scan (the kernel's wrapper, or the plain scan), and the exact
-    fp32 rescore. Returns (scores [B, k] in k-NN score space, doc ids
-    [B, k] int32, -1 pads): the ``ivfpq.search`` contract."""
+    the ADC scan, and the exact fp32 rescore: the kernels' wrappers (the
+    LUT kernel, K2 and the fixed-order rescore) where `use_kernel`, else
+    their plain versions, which give the same bits. Returns (scores
+    [B, k] in k-NN score space, doc ids [B, k] int32, -1 pads): the
+    ``ivfpq.search`` contract."""
     nlist, l_pad, _m = codes.shape
     probes = probes_on(probes, nlist, codes.device)
     P = probes.shape[1]
     k_eff = min(k, P * l_pad)
     r = max(k_eff, min(rerank, P * l_pad))
     lut = build_luts(queries, coarse, codebooks, probes,
-                     adc_precision=adc_precision).contiguous()
+                     adc_precision=adc_precision,
+                     use_kernel=use_kernel).contiguous()
     scan = adc_pool_scan if use_kernel else plain_adc_pool
     _vals, cand = scan(lut, codes.contiguous(), ids.contiguous(),
                        mask.contiguous(), probes, r=r)
     best, best_ids = ivfpq.exact_rescore(
         queries, cand, vectors, norms_sq, valid,
-        similarity=knn_ops.canonical_similarity(similarity), k_eff=k_eff)
+        similarity=knn_ops.canonical_similarity(similarity), k_eff=k_eff,
+        impl="pallas" if use_kernel else "xla")
     return ivfpq.pad_to_k(best, best_ids, k)
 
 

@@ -1,13 +1,20 @@
-"""Exact kNN that streams the corpus through a running top-k.
+"""Fused single-segment query programs: the hybrid BM25 + exact-kNN
+program, and exact kNN that streams the corpus through a running top-k.
 
-Counterpart of the kNN half of opensearch_tpu/ops/fused.py
-(``_vector_scores``, ``knn_topk_streaming``, ``cached_knn_streaming``). The
-reference computes these in XLA, outside any Pallas kernel, so here they
-are plain PyTorch: the [B, d] x [m, d] product is ``torch.matmul`` in full
-float32 (backend.py pins TF32 off) and the selection is ops/topk.py. The
-materializing ``knn_topk`` is left out: no serving route calls it (the
-executor's materializing branch is ops/knn.exact_knn_scores and a host
-cut). ``hybrid_score_topk`` is not ported yet.
+Counterpart of opensearch_tpu/ops/fused.py (``hybrid_score_topk``,
+``jit_hybrid``, ``_vector_scores``, ``knn_topk_streaming``,
+``cached_knn_streaming``). The reference computes these in XLA, outside
+any Pallas kernel, so here they are plain PyTorch: the [B, d] x [m, d]
+product is ``torch.matmul`` in full float32 (backend.py pins TF32 off) and
+the selection is ops/topk.py. The hybrid program's BM25 sum is
+deterministic on the card (:func:`lexical_scores`: a stable sort of the
+postings window's (doc, contribution) pairs by doc, then each doc's run
+summed in order by ``torch.segment_reduce``, whose CUDA kernel adds a
+segment's values one after another with no atomics), so the same inputs
+give the same bits run after run, which a float ``index_add_`` on the card
+does not. The materializing ``knn_topk`` is left out: no serving route
+calls it (the executor's materializing branch is ops/knn.exact_knn_scores
+and a host cut).
 """
 
 from __future__ import annotations
@@ -73,3 +80,78 @@ def cached_knn_streaming(k: int, similarity: str, chunk: int):
     a cached partial, not a compiled program."""
     return functools.partial(knn_topk_streaming, k=k, similarity=similarity,
                              chunk=chunk)
+
+
+def lexical_scores(postings_docs, postings_tfs, doc_len, offsets, lengths,
+                   idfs, avgdl, *, n_pad: int, window: int, k1: float = 1.2,
+                   b: float = 0.75) -> torch.Tensor:
+    """The BM25 sum [n_pad] of Q query terms, each a window of up to
+    `window` postings from ``offsets[q]`` (``lengths[q]`` of them live),
+    as the reference's masked gather and scatter-add compute it: a window
+    index past the postings is clamped to the last one (XLA's gather), a
+    doc id past the slots reads the last slot's length (the same) and adds
+    nothing (XLA's scatter drops it), a dead window slot adds 0 to doc 0.
+    Each
+    doc's contributions are added in the reference's update order (term by
+    term, window slot by slot) from 0, the same order on the CPU and the
+    card: the pairs are sorted by doc, stable, and each doc's run summed by
+    ``torch.segment_reduce``."""
+    device = postings_docs.device
+    p_pad = postings_docs.shape[0]
+    win = torch.arange(window, dtype=torch.int64, device=device)
+    tvalid = win[None, :] < lengths.long()[:, None]             # [Q, W]
+    idx = torch.where(tvalid, offsets.long()[:, None] + win[None, :], 0)
+    idx = torch.clamp(idx, max=p_pad - 1)
+    docs = postings_docs[idx].long()
+    tfs = postings_tfs[idx]
+    dl = doc_len[torch.clamp(docs, 0, n_pad - 1)]
+    tvalid = tvalid & (docs < n_pad)
+    avgdl = torch.clamp(torch.as_tensor(avgdl, dtype=torch.float32,
+                                        device=device), min=1e-6)
+    denom = tfs + k1 * (1.0 - b + b * dl / avgdl)
+    contrib = idfs[:, None] * tfs / torch.clamp(denom, min=1e-9)
+    contrib = torch.where(tvalid, contrib, 0.0).reshape(-1)
+    docs = torch.where(tvalid, docs, 0).reshape(-1)
+    order = torch.sort(docs, stable=True).indices
+    run_docs, counts = torch.unique_consecutive(docs[order],
+                                                return_counts=True)
+    sums = torch.segment_reduce(contrib[order], "sum", lengths=counts)
+    lex = torch.zeros(n_pad, dtype=torch.float32, device=device)
+    lex[run_docs] = sums
+    return lex
+
+
+def hybrid_score_topk(postings_docs, postings_tfs, doc_len, vectors,
+                      norms_sq, valid, offsets, lengths, idfs, avgdl,
+                      queries, lexical_weight, vector_weight, *, k: int,
+                      window: int, similarity: str = "l2_norm",
+                      k1: float = 1.2, b: float = 0.75):
+    """The hybrid BM25 + exact-kNN program over one segment's arrays:
+    (scores [B, k] f32, doc ids [B, k] int64), the reference's contract.
+
+    postings_docs int32 [p_pad], postings_tfs f32 [p_pad], doc_len f32
+    [n_pad], vectors f32 or bf16 [n_pad, d] (cast to the queries' dtype, as
+    the reference does), norms_sq f32 [n_pad], valid bool [n_pad], offsets,
+    lengths int32 [Q] and idfs f32 [Q] (one term set for the batch), avgdl
+    and the weights f32 scalars, queries f32 [B, d]. Every query's score of
+    a doc is ``vector_weight * vec + lexical_weight * lex``: vec the l2,
+    cosine or inner-product transform of one fp32 product (no TF32), lex
+    :func:`lexical_scores`; dead docs are -inf; ops/topk.blockwise_topk
+    gives the k best, ties to the lower id."""
+    n_pad = doc_len.shape[0]
+    lex = lexical_scores(postings_docs, postings_tfs, doc_len, offsets,
+                         lengths, idfs, avgdl, n_pad=n_pad, window=window,
+                         k1=k1, b=b)
+    vec = _vector_scores(queries, vectors, norms_sq, similarity)
+    scores = vector_weight * vec + lexical_weight * lex[None, :]
+    scores = torch.where(valid[None, :], scores, _NEG_INF)
+    return topk_ops.blockwise_topk(scores, k)
+
+
+@functools.lru_cache(maxsize=64)
+def jit_hybrid(k: int, window: int, similarity: str = "l2_norm"):
+    """The hybrid program bound to (k, window, similarity), cached as the
+    reference caches its jitted program. PyTorch runs eagerly, so this is
+    a cached partial, not a compiled program."""
+    return functools.partial(hybrid_score_topk, k=k, window=window,
+                             similarity=similarity)

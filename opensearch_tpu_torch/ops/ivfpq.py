@@ -19,6 +19,13 @@ engine). The heavy steps run on the tensors' device:
   takes the cooperative split instead: probes chosen on the host
   (:func:`host_probe_select`), then ops/adc_scan's fused pipeline, whose
   scan is the hand-written kernel K2 (csrc/adc_scan.cu).
+- Every sum a query's answer depends on has one order, whatever the
+  batch, so a batched search gets a solo one's bits: the probe scores are
+  one product a query row (:func:`host_probe_select`), the LUTs sum in
+  ascending element order (ops/adc_lut: the kernel csrc/adc_lut.cu on the
+  fused pipeline, :func:`lut_for_probes` its plain version), and the exact
+  rescore's dots and |q|^2 go through ops/knn_rescore's fixed-order
+  kernels (plain versions under policy "xla").
 
 Every build carries a process-unique ``build_generation``. Only l2 and
 cosine are served by ANN (cosine is l2 on unit vectors).
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from opensearch_tpu_torch import backend
+from opensearch_tpu_torch.ops import adc_lut, knn_rescore
 from opensearch_tpu_torch.ops import knn as knn_ops
 from opensearch_tpu_torch.ops.topk import stable_topk
 
@@ -307,36 +315,41 @@ def lut_for_probes(queries: torch.Tensor, coarse: torch.Tensor,
                    codebooks: torch.Tensor,
                    probes: torch.Tensor) -> torch.Tensor:
     """f32 [B, P, m, ks] residual ADC lookup tables for the probe table
-    [B, P]. Shared by the monolithic lowering (:func:`search`) and the
-    fused pipeline (ops/adc_scan.build_luts)."""
-    m, ks, dsub = codebooks.shape
-    resid = queries[:, None, :] - coarse[probes.long()]        # [B, P, d]
-    r_sub = resid.reshape(queries.shape[0], probes.shape[1], m, dsub)
-    r_dot = torch.einsum("bpms,mks->bpmk", r_sub, codebooks)
-    r_sq = (r_sub * r_sub).sum(dim=-1)                          # [B, P, m]
-    cb_sq = (codebooks * codebooks).sum(dim=-1)                 # [m, ks]
-    return r_sq[..., None] - 2.0 * r_dot + cb_sq[None, None]
+    [B, P], each sum in one order whatever the batch (ops/adc_lut's plain
+    version). The monolithic lowering (:func:`search`) builds its LUTs
+    here; the fused pipeline (ops/adc_scan.build_luts) through the kernel
+    on the card, which gives the same bits."""
+    return adc_lut.plain_lut(queries, coarse, codebooks, probes)
 
 
 def exact_rescore(queries: torch.Tensor, cand: torch.Tensor,
                   vectors: torch.Tensor, norms_sq: torch.Tensor,
-                  valid: torch.Tensor, *, similarity: str, k_eff: int):
+                  valid: torch.Tensor, *, similarity: str, k_eff: int,
+                  impl: str = "xla"):
     """Exact fp32 rescore of the [B, R] candidate pool into k-NN score
     space: (scores [B, k_eff], doc ids [B, k_eff] int32, -1 where no finite
     candidate). Ties go to the lower pool position (``lax.top_k``'s
     order). -1 candidates are clamped before the gather and masked after
-    it."""
+    it. The dots and |q|^2 sum in one order whatever the batch
+    (ops/knn_rescore: its kernels for impl="pallas" on the card, its plain
+    versions for "xla" or on the CPU); the transform is the reference's,
+    one eager operation at a time (its cosine clamps the product of the
+    norms, unlike the kernels' transform)."""
+    plain = impl == "xla"
     cand = cand.long()
     cand_safe = torch.clamp(cand, min=0)
-    cvecs = vectors[cand_safe]                                  # [B, R, d]
-    cdots = torch.einsum("bd,brd->br", queries, cvecs)
+    dots = (knn_rescore.plain_rescore_dots if plain
+            else knn_rescore.rescore_dots)
+    cdots = dots(queries.contiguous(), vectors.contiguous()[None],
+                 cand.to(torch.int32)[None].contiguous())[0]   # [B, R]
+    q_sq = (knn_rescore.plain_query_sq if plain
+            else knn_rescore.query_sq)(queries)[:, None]
     if similarity == knn_ops.COSINE:
-        q_norm = torch.sqrt((queries * queries).sum(dim=-1, keepdim=True))
+        q_norm = torch.sqrt(q_sq)
         v_norm = torch.sqrt(torch.clamp(norms_sq[cand_safe], min=1e-24))
         raw = cdots / torch.clamp(q_norm * v_norm, min=1e-12)
         score = (1.0 + raw) / 2.0
     else:
-        q_sq = (queries * queries).sum(dim=-1, keepdim=True)
         d_sq = torch.clamp(q_sq - 2.0 * cdots + norms_sq[cand_safe], min=0.0)
         score = 1.0 / (1.0 + d_sq)
     ok = (cand >= 0) & valid[cand_safe]
@@ -470,7 +483,12 @@ def host_probe_select(index: IVFPQIndex, queries: np.ndarray,
         c_sq = np.sum(coarse * coarse, axis=1)
         index.coarse_host, index.coarse_sq_host = coarse, c_sq
     nprobe = min(nprobe, index.params.nlist)
-    score = 2.0 * (queries @ coarse.T) - c_sq[None, :]
+    # one product a query row: a [B, d] x [d, nlist] product may take
+    # another BLAS routine, hence other last bits, for one row than for
+    # many, and the probes of a batched search must be its solo ones
+    dots = np.stack([coarse @ q for q in queries]) if len(queries) else \
+        np.zeros((0, coarse.shape[0]), np.float32)
+    score = 2.0 * dots - c_sq[None, :]
     part = np.argpartition(-score, nprobe - 1, axis=1)[:, :nprobe]
     rows = np.take_along_axis(score, part, axis=1)
     # per row: score desc, then list id asc (lexsort is stable)

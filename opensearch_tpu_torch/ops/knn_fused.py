@@ -37,14 +37,19 @@ counted on ``wide_launches`` too; at bf16 and int8 with r <= WIDE_MAX_R
 dots by ``mma.sync``), counted on ``mma_launches`` too; at fp32 with
 r > WIDE_MAX_R its large-r tier (``csrc/knn_large.cuh``: the same scan
 storing each (query, doc)'s score key, then a radix select and sort of
-the r best a (shard, query)), counted on ``large_launches`` too; the
-stacked serving step reaches it, since it asks for r = k_shard =
-min(k, n_flat) with no cap, as the reference does. At bf16 and int8 past
-r = 1024 (a reduced-precision k above 1024) the tile scan
-(``csrc/knn_tile.cuh``) serves, as long as its pools fit shared memory;
-past that it raises, naming the limit. The range scans read rows in
-16-byte units: :func:`rows_in_16_bytes` pads d with zero columns to whole
-units and copies an unaligned operand first.
+the r best a (shard, query)), counted on ``large_launches`` too; at bf16
+and int8 with r > WIDE_MAX_R (a reduced-precision k above 1024) the
+large-r tier behind the tensor-core tier's dots
+(``csrc/knn_large_mma.cuh``: each key is the bits the tensor-core tier
+scores the doc with, then the same select), counted on
+``large_launches`` and ``large_mma_launches`` too. The stacked serving
+step reaches the large-r tier, since it asks for r = k_shard =
+min(k, n_flat) with no cap, as the reference does. The tile scan
+(``csrc/knn_tile.cuh``, :func:`_launch_tile`, counted on
+``tile_launches``) serves no shape: it is the yardstick timed beside the
+designs. The range scans read rows in 16-byte units:
+:func:`rows_in_16_bytes` pads d with zero columns to whole units and
+copies an unaligned operand first.
 
 The exact fp32 rescore of a reduced-precision pool and every |q|^2 go
 through ``ops/knn_rescore`` (``csrc/knn_rescore.cu``), which sums each dot
@@ -97,14 +102,17 @@ WIDE_RINGS = ((3, 16384), (2, 16384), (2, 8192))
 WIDE_STEP = 1024
 WIDE_MAX_CAP = 4096
 
-# launches of the kernel made by pool_scan (any design), and of the list
-# scan, of its wide tier, of the wide tier's tensor-core scan and of the
-# large-r tier alone
+# launches of the kernel made by pool_scan or _launch_tile (any design),
+# and of the list scan, of its wide tier, of the wide tier's tensor-core
+# scan, of the large-r tier (any precision), of the large-r tier's
+# tensor-core scan and of the tile scan alone
 launches = cuda_lib.LaunchCounter()
 list_launches = cuda_lib.LaunchCounter()
 wide_launches = cuda_lib.LaunchCounter()
 mma_launches = cuda_lib.LaunchCounter()
 large_launches = cuda_lib.LaunchCounter()
+large_mma_launches = cuda_lib.LaunchCounter()
+tile_launches = cuda_lib.LaunchCounter()
 
 
 def fused_pool_width(k: int, score_precision: str) -> int:
@@ -228,10 +236,11 @@ def scan_tier(score_precision: str, r: int) -> str:
     """The kernel design for a scan: "lists" (the list scan) at fp32 with
     r <= LIST_MAX_R, "wide" (its wide tier) at fp32 with r <= WIDE_MAX_R,
     "large" (the large-r tier) at fp32 past that, "mma" (the wide tier's
-    tensor-core scan) at bf16 and int8 with r <= WIDE_MAX_R, else "tile"
-    (the tile scan). A choice by shape alone."""
+    tensor-core scan) at bf16 and int8 with r <= WIDE_MAX_R, "large_mma"
+    (the large-r tier's tensor-core scan) at bf16 and int8 past that. A
+    choice by shape alone."""
     if r > WIDE_MAX_R:
-        return "large" if score_precision == "fp32" else "tile"
+        return "large" if score_precision == "fp32" else "large_mma"
     if score_precision != "fp32":
         return "mma"
     return "lists" if r <= LIST_MAX_R else "wide"
@@ -303,16 +312,20 @@ def wide_mma_plan(b: int, d: int, r: int, score_precision: str,
         f"the tensor-core tier at {score_precision} d={d}, r={r}")
 
 
-def large_plan(d: int, smem_bytes) -> tuple[int, int]:
-    """(ring stages, floats a stage) of the large-r tier's scan over f32
-    rows of d: the first ring of ``WIDE_RINGS`` whose ring and 8-query tile
-    fit ``smem_bytes(stages, floats, d)``; raises ValueError when none
-    does. r plays no part: the scan keeps no pool."""
-    for stages, floats in WIDE_RINGS:
-        if 0 < smem_bytes(stages, floats, d) <= _MAX_SMEM:
-            return stages, floats
+def large_plan(d: int, smem_bytes,
+               score_precision: str = "fp32") -> tuple[int, int]:
+    """(ring stages, 32-bit words a stage) of the large-r tier's scan over
+    rows of d elements: the first ring of ``WIDE_RINGS`` whose ring and
+    8-query tile fit ``smem_bytes(stages, words, d)`` (at bf16 and int8
+    the tensor-core scan's C entry point with its precision code bound
+    first); raises ValueError when none does. r plays no part: the scan
+    keeps no pool."""
+    for stages, words in WIDE_RINGS:
+        if 0 < smem_bytes(stages, words, d) <= _MAX_SMEM:
+            return stages, words
     raise ValueError(f"the large-r tier's scan needs more than {_MAX_SMEM} "
-                     f"bytes of shared memory for an 8-query tile at d={d}")
+                     f"bytes of shared memory for an 8-query tile at "
+                     f"{score_precision} d={d}")
 
 
 def list_geometry(S: int, n: int, n_qtiles: int, sms: int) -> tuple[int, int]:
@@ -400,6 +413,13 @@ def _library() -> ctypes.CDLL:
     lib.knn_fused_large_launch.argtypes = ([ctypes.c_void_p] * 10
                                            + [ctypes.c_int] * 10
                                            + [ctypes.c_void_p])
+    lib.knn_fused_large_mma_smem_bytes.restype = ctypes.c_size_t
+    lib.knn_fused_large_mma_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.knn_fused_large_mma_launch.restype = ctypes.c_int
+    lib.knn_fused_large_mma_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                                               + [ctypes.c_void_p] * 10
+                                               + [ctypes.c_int] * 10
+                                               + [ctypes.c_void_p])
     return lib
 
 
@@ -474,14 +494,16 @@ def launch_wide_mma(lib, v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
                           qt=WIDE_QUERY_TILE, plan=plan)
 
 
-def launch_large(lib, v, norms_sq, valid, q, qsq, *, r: int,
-                 similarity: str):
-    """The large-r tier over [S, n, d] f32 shards through ``lib`` (K1's
-    library): (vals [S, B, r], ids [S, B, r]). Pads and aligns the rows,
-    plans the ring (:func:`large_plan`), cuts the shards into ranges of
-    about one wave for 8-query tiles, and allocates the keys [S, B, n] and,
-    where the select sorts in device memory, its [S, B, P] rows (P from
-    the library's ``knn_fused_large_sort_slots``)."""
+def launch_large(lib, v, norms_sq, valid, q, qsq, scale=None, *, r: int,
+                 similarity: str, score_precision: str = "fp32"):
+    """The large-r tier over [S, n, d] shards through ``lib`` (K1's
+    library): (vals [S, B, r], ids [S, B, r]). f32 rows take its FFMA scan,
+    bf16 and int8 rows (with their per-shard ``scale``) its tensor-core
+    scan; both feed the same select. Pads and aligns the rows, plans the
+    ring (:func:`large_plan`), cuts the shards into ranges of about one
+    wave for 8-query tiles, and allocates the keys [S, B, n] and, where the
+    select sorts in device memory, its [S, B, P] rows (P from the
+    library's ``knn_fused_large_sort_slots``)."""
     v, q = rows_in_16_bytes(v, q)
     S, n, d = v.shape
     B = q.shape[0]
@@ -491,7 +513,16 @@ def launch_large(lib, v, norms_sq, valid, q, qsq, *, r: int,
     if smem > _MAX_SMEM:
         raise ValueError(f"the large-r tier's select needs {smem} bytes of "
                          f"shared memory at r={r} (at most {_MAX_SMEM})")
-    stages, floats = large_plan(d, lib.knn_fused_large_smem_bytes)
+    if score_precision == "fp32":
+        launch = lib.knn_fused_large_launch
+        stages, words = large_plan(d, lib.knn_fused_large_smem_bytes)
+    else:
+        prec = _PREC_CODE[score_precision]
+        launch = functools.partial(lib.knn_fused_large_mma_launch,
+                                   scale.data_ptr(), prec)
+        stages, words = large_plan(
+            d, functools.partial(lib.knn_fused_large_mma_smem_bytes, prec),
+            score_precision)
     dev = v.device
     chunk, n_split = list_geometry(S, n, -(-B // WIDE_QUERY_TILE),
                                    sm_count(dev))
@@ -504,13 +535,13 @@ def launch_large(lib, v, norms_sq, valid, q, qsq, *, r: int,
         sort_v = sort_i = None
     vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
     ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
-    err = lib.knn_fused_large_launch(
+    err = launch(
         v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(), q.data_ptr(),
         qsq.data_ptr(), keys.data_ptr(),
         sort_v.data_ptr() if sort_v is not None else None,
         sort_i.data_ptr() if sort_i is not None else None,
         vals.data_ptr(), ids.data_ptr(), S, n, d, B, r,
-        _SIM_CODE[similarity], stages, floats, chunk, n_split,
+        _SIM_CODE[similarity], stages, words, chunk, n_split,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"large-r tier launch failed: cudaError {err}")
@@ -523,15 +554,14 @@ def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
     _check_kernel_operands(v_x, norms_sq, valid, q_x, qsq, scale, r,
                            similarity, score_precision)
     tier = scan_tier(score_precision, r)
-    if tier == "tile":
-        return _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
-                            similarity=similarity,
-                            score_precision=score_precision)
     lib = _library()
-    if tier == "large":
-        vals, ids = launch_large(lib, v_x, norms_sq, valid, q_x, qsq, r=r,
-                                 similarity=similarity)
+    if tier in ("large", "large_mma"):
+        vals, ids = launch_large(lib, v_x, norms_sq, valid, q_x, qsq, scale,
+                                 r=r, similarity=similarity,
+                                 score_precision=score_precision)
         large_launches.add()
+        if tier == "large_mma":
+            large_mma_launches.add()
     elif tier == "mma":
         vals, ids = launch_wide_mma(lib, v_x, norms_sq, valid, q_x, qsq,
                                     scale, r=r, similarity=similarity,
@@ -555,7 +585,8 @@ def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
 def _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
                  score_precision):
     """Launch the tile scan (csrc/knn_tile.cuh) on checked operands, at any
-    precision and r whose pools fit shared memory."""
+    precision and r whose pools fit shared memory: no shape takes it, it
+    is the yardstick timed beside the designs."""
     lib = _library()
     S, n, d = v_x.shape
     B = q_x.shape[0]
@@ -565,8 +596,7 @@ def _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
         raise ValueError(
             f"the tile scan keeps a pool of r={r} for each of its 16 "
             f"queries, and its doc tile at d={d}, in shared memory: "
-            f"{smem} bytes, past the card's {_MAX_SMEM} a CTA (at "
-            f"{score_precision}, r > {WIDE_MAX_R} has no other design)")
+            f"{smem} bytes, past the card's {_MAX_SMEM} a CTA")
     dev = v_x.device
     chunk, n_split = _launch_geometry(S, n, B, dev)
     part_v = torch.empty((S, n_split, B, r), dtype=torch.float32, device=dev)
@@ -582,6 +612,7 @@ def _launch_tile(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
     )
     if err != 0:
         raise RuntimeError(f"knn_fused launch failed: cudaError {err}")
+    tile_launches.add()
     launches.add()
     return vals, ids
 
@@ -590,10 +621,10 @@ def pool_scan(v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
               similarity: str, score_precision: str):
     """The pool scan over stacked shards: (vals [S, B, r], ids [S, B, r]).
     CUDA tensors launch the kernel (the list scan at fp32 with r <= 32, its
-    wide tier at fp32 with r <= 1024, its large-r tier at fp32 past that,
-    the wide tier's tensor-core scan at bf16 and int8 with r <= 1024, the
-    tile scan there past r = 1024: :func:`scan_tier`) or raise; CPU tensors
-    take :func:`plain_pool`."""
+    wide tier at fp32 with r <= 1024, the wide tier's tensor-core scan at
+    bf16 and int8 with r <= 1024, the large-r tier past r = 1024, behind
+    FFMA dots at fp32 and the tensor-core tier's at bf16 and int8:
+    :func:`scan_tier`) or raise; CPU tensors take :func:`plain_pool`."""
     if v_x.device.type == "cuda":
         return _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, r=r,
                               similarity=similarity,

@@ -14,9 +14,13 @@ added (no fused multiply-add), and the 32 lane sums meet in a butterfly
 (xor 16, 8, 4, 2, 1). The plain versions take the same order with
 elementwise operations, so kernel and plain version agree bit for bit.
 
+The IVF-PQ route's exact rescore (ops/ivfpq.exact_rescore) keeps the
+reference's transform and takes only the dots, from the same kernel
+(:func:`rescore_dots`, the plain :func:`plain_rescore_dots`).
+
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor
 takes the plain version. Launches are counted on ``launches`` (the
-rescore) and ``sq_launches`` (|q|^2).
+rescore and its dots alone) and ``sq_launches`` (|q|^2).
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import torch
 from opensearch_tpu_torch.ops import cuda_lib
 
 _SIM_CODE = {"l2_norm": 0, "cosine": 1, "dot_product": 2}
+# the kernel's `sim` for the dots alone (kRawDots in csrc/knn_rescore.cu)
+_RAW_DOTS = 3
 _NEG_INF = float("-inf")
 LANES = 32
 
@@ -161,6 +167,51 @@ def rescore(queries, qsq, vectors, norms_sq, valid, cand, *,
     err = _library().knn_rescore_launch(
         *(t.data_ptr() for t in args), out.data_ptr(), S, n, d, B, R,
         _SIM_CODE[similarity],
+        torch.cuda.current_stream(vectors.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"knn_rescore launch failed: cudaError {err}")
+    launches.add()
+    return out
+
+
+def plain_rescore_dots(queries, vectors, cand) -> torch.Tensor:
+    """Dots [S, B, R] of candidates cand [S, B, R] (shard-local ids, -1
+    empty: 0 there) against queries [B, d], in the kernel's order."""
+    cand = cand.long()
+    safe = torch.clamp(cand, min=0)
+    shard = torch.arange(vectors.shape[0], device=vectors.device)[:, None, None]
+    dots = fixed_order_dots(queries[None, :, None, :], vectors[shard, safe])
+    return torch.where(cand >= 0, dots, 0.0)
+
+
+def rescore_dots(queries, vectors, cand) -> torch.Tensor:
+    """The dots of :func:`rescore` without its transform and mask: the
+    kernel for CUDA tensors (or a raise), :func:`plain_rescore_dots` for
+    CPU tensors. queries [B, d] f32, vectors [S, n, d] f32, cand [S, B, R]
+    int32."""
+    if vectors.device.type == "cpu":
+        return plain_rescore_dots(queries, vectors, cand)
+    if vectors.device.type != "cuda":
+        raise ValueError(f"unsupported device [{vectors.device}]")
+    S, n, d = vectors.shape
+    B = queries.shape[0]
+    R = cand.shape[-1]
+    for name, t, shape, dtype in (
+            ("queries", queries, (B, d), torch.float32),
+            ("vectors", vectors, (S, n, d), torch.float32),
+            ("cand", cand, (S, B, R), torch.int32)):
+        if t.device != vectors.device or tuple(t.shape) != shape \
+                or t.dtype != dtype:
+            raise ValueError(f"[{name}] is {t.dtype}{tuple(t.shape)} on "
+                             f"{t.device}, expected {dtype}{shape} on "
+                             f"{vectors.device}")
+    if S > 65_535 or B > 65_535 or 4 * d > 232_448:
+        raise ValueError(f"unsupported shape S={S} B={B} d={d}")
+    q, v, c = (t.contiguous() for t in (queries, vectors, cand))
+    out = torch.empty((S, B, R), dtype=torch.float32, device=vectors.device)
+    err = _library().knn_rescore_launch(
+        q.data_ptr(), None, v.data_ptr(), None, None, c.data_ptr(),
+        out.data_ptr(), S, n, d, B, R, _RAW_DOTS,
         torch.cuda.current_stream(vectors.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_rescore launch failed: cudaError {err}")

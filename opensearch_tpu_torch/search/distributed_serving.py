@@ -233,6 +233,16 @@ def _filter_valid_mask(shards: list, snaps: list, knn_filter, n_flat: int,
     return out
 
 
+def try_distributed_knn_batch(shards: list, snaps: list, nodes: list,
+                              fetch_k: int, alias_filters: list | None = None
+                              ) -> list[list[ShardQueryResult]] | None:
+    """:func:`mesh_knn_batch`'s per-query per-shard results alone (the
+    msearch batching path), or None where the step declines."""
+    out = mesh_knn_batch(shards, snaps, nodes, fetch_k,
+                         alias_filters=alias_filters)
+    return None if out is None else out.per_query
+
+
 def mesh_knn_batch(
     shards: list,
     snaps: list,

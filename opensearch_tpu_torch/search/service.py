@@ -2,7 +2,9 @@
 
 Counterpart of opensearch_tpu/search/service.py, for the slice the port
 serves so far: a top-level ``knn`` query, then the fetch of the winning
-docs. The route is the reference's ``_try_distributed_query_phase``
+docs; and msearch's batching of bare kNN bodies (:func:`msearch_groups`,
+:func:`try_batched_knn_msearch`: B bodies' query phase in one stacked
+launch, handed to :func:`search` as ``precomputed_results``). The route is the reference's ``_try_distributed_query_phase``
 choice: the stacked serving step (search/distributed_serving.
 mesh_knn_batch) unless it is switched off or declines (an ANN-indexed
 column); then the per-shard route (search/executor.execute_query_phase per
@@ -41,8 +43,13 @@ KNOWN_KEYS = {
 SUPPORTED_KEYS = {"query", "size", "from", "_source", "track_total_hits"}
 
 
-def search(shards: list, body: dict | None) -> dict[str, Any]:
-    """Run one knn search over `shards` (IndexShard objects)."""
+def search(shards: list, body: dict | None,
+           precomputed_results: list | None = None) -> dict[str, Any]:
+    """Run one knn search over `shards` (IndexShard objects).
+    `precomputed_results`, one (shard, snapshot, ShardQueryResult) a shard
+    in order, is this body's query phase already run by a batched msearch
+    launch (:func:`try_batched_knn_msearch`): the search merges and fetches
+    from it, on its snapshots, and runs no query phase."""
     t0 = time.monotonic()
     body = body or {}
     unknown = set(body) - KNOWN_KEYS
@@ -67,18 +74,27 @@ def search(shards: list, body: dict | None) -> dict[str, Any]:
     merged: list = []
     total = 0
     max_score = None
-    snaps = [s.acquire_searcher() for s in shards]
     results = None
-    out = _try_distributed_query_phase(shards, snaps, node, fetch_k)
+    out = None
+    if precomputed_results is not None:
+        snaps = [snap for _shard, snap, _res in precomputed_results]
+        results = [res for _shard, _snap, res in precomputed_results]
+    else:
+        snaps = [s.acquire_searcher() for s in shards]
+        out = _try_distributed_query_phase(shards, snaps, node, fetch_k)
     if out is not None:
         merged, results = out.premerged[0], out.per_query[0]
     elif shards:
-        # the per-shard route. can_match is not ported: for a knn query the
-        # reference's pre-filter always matches (search/phases.py:68)
-        results = [
-            execute_query_phase(snap, shard.mapper_service, node, size=fetch_k)
-            for shard, snap in zip(shards, snaps)
-        ]
+        if results is None:
+            # the per-shard route. can_match is not ported: for a knn query
+            # the reference's pre-filter always matches (search/phases.py:68)
+            results = [
+                execute_query_phase(snap, shard.mapper_service, node,
+                                    size=fetch_k)
+                for shard, snap in zip(shards, snaps)
+            ]
+        # the host merge, the device merge's order: (-score, shard,
+        # segment, doc)
         merged = [(shard_idx, h) for shard_idx, result in enumerate(results)
                   for h in result.hits]
         merged.sort(key=lambda sh: (-sh[1].score, sh[0], sh[1].segment,
@@ -138,6 +154,88 @@ def _try_distributed_query_phase(shards: list, snaps: list, node,
     if not shards or not distributed_serving.enabled:
         return None
     return distributed_serving.mesh_knn_batch(shards, snaps, [node], fetch_k)
+
+
+# the request keys a bare kNN msearch body may carry and still share a
+# batched launch (the reference's set)
+_BATCHABLE_KNN_KEYS = {
+    "query", "size", "from", "track_total_hits", "_source",
+    "version", "seq_no_primary_term",
+}
+
+
+def msearch_knn_batchable(body) -> bool:
+    """Cheap structural test for msearch batch grouping: a bare top-level
+    knn query with only paging and source keys. The deep validation (the
+    same field and k, no filter, parseable) runs in
+    :func:`try_batched_knn_msearch`."""
+    if not isinstance(body, dict):
+        return False
+    if set(body) - _BATCHABLE_KNN_KEYS:
+        return False
+    query = body.get("query")
+    return isinstance(query, dict) and set(query) == {"knn"}
+
+
+def msearch_groups(searches: list) -> list[list[int]]:
+    """Partition msearch positions into runs: consecutive batchable kNN
+    sub-searches against the same index group together (one device
+    launch); everything else is a run of one."""
+    groups: list[list[int]] = []
+    i = 0
+    while i < len(searches):
+        header, body = searches[i]
+        index = header.get("index")
+        group = [i]
+        if index is not None and msearch_knn_batchable(body):
+            j = i + 1
+            while (j < len(searches)
+                   and searches[j][0].get("index") == index
+                   and msearch_knn_batchable(searches[j][1])):
+                group.append(j)
+                j += 1
+        groups.append(group)
+        i = group[-1] + 1
+    return groups
+
+
+def try_batched_knn_msearch(shards: list, bodies: list[dict],
+                            acquired: list) -> list[list] | None:
+    """The query phase of an msearch run whose bodies are all bare knn
+    queries on one index with the same field and k and no filter: ONE
+    stacked launch scores all B query vectors
+    (distributed_serving.try_distributed_knn_batch) instead of B launches.
+    Returns, per body, the [(shard, snapshot, result)] list :func:`search`
+    takes as ``precomputed_results``, or None when a body is not batchable
+    or the stacked step declines (the caller runs the bodies one by one,
+    each still eligible for the single-query stacked step)."""
+    if len(bodies) < 2 or not shards or not distributed_serving.enabled:
+        return None
+    nodes = []
+    fetch_k = 0
+    for body in bodies:
+        if not isinstance(body, dict) or set(body) - _BATCHABLE_KNN_KEYS:
+            return None
+        try:
+            node = query_dsl.parse_query(body.get("query"))
+        except Exception:  # noqa: BLE001 - the serial path reports it
+            return None
+        if not isinstance(node, query_dsl.KnnQuery) or node.filter is not None:
+            return None
+        nodes.append(node)
+        fetch_k = max(fetch_k, int(body.get("from", 0))
+                      + int(body.get("size", DEFAULT_SIZE)))
+    first = nodes[0]
+    if any(n.field != first.field or int(n.k) != int(first.k)
+           for n in nodes[1:]):
+        return None
+    batched = distributed_serving.try_distributed_knn_batch(
+        shards, acquired, nodes, fetch_k)
+    if batched is None:
+        return None
+    return [[(shard, snap, res)
+             for shard, snap, res in zip(shards, acquired, per_shard)]
+            for per_shard in batched]
 
 
 def _source_filter(spec: Any):

@@ -1,5 +1,6 @@
 """K1's large-r tier (opensearch_tpu_torch/csrc/knn_large.cuh: fp32 at
-r > 1024), on the CPU.
+r > 1024; csrc/knn_large_mma.cuh: bf16 and int8 at r > 1024, the
+tensor-core tier's dots feeding the same select), on the CPU.
 
 The stacked serving step asks K1 for r = k_shard = min(k, n_flat), with no
 cap, as the reference's does (opensearch_tpu/search/distributed_serving.py,
@@ -15,21 +16,29 @@ in their order). Here:
    ``ops/knn_fused.plain_pool`` bit for bit on sixteenths (every dot exact
    in f32) at r = 1025, 2000, the shard's size and past it, one and four
    shards (one with 5 live docs), the three similarities; and the JAX
-   reference's ``_fused_xla_pool`` at r = 1025 and 2000.
+   reference's ``_fused_xla_pool`` at r = 1025 and 2000. At bf16 and
+   int8 the same rule over the reduced-precision dots must equal
+   ``plain_pool`` at that precision, and its first 1024 slots the pool
+   at r = 1024 (the tensor-core tier's).
 2. The plan arithmetic: the scan keeps no pool, so its ring and 8-query
    tile fit the card's shared memory at d = 128 and 768 whatever r is; the
    select's scratch fits at every r from 1025 to n_flat (2^18 and 2^20 at
    d = 128 and 768), its winners sorted in shared memory up to 16,384 and
    in device scratch rows above; the wrapper names the tier by (precision,
-   r) alone and never loads the library for CPU tensors.
+   r) alone and never loads the library for CPU tensors. The tensor-core
+   scan's plan (ring and padded query tile of 32-bit words) fits at
+   d = 128 and 768 at both precisions.
 3. The stacked step at k = 1025 and 2000 over 768-d docs (sixteenths, so
    the deep ranks' near ties are the same scores in both frameworks):
    TorchNode (device="cpu") against TpuNode's ``mesh_knn_batch``, ids
    equal, scores to rtol 1e-5 / atol 1e-4 (as tests/test_torch_node_knn.py
-   states).
+   states); the same at bf16 and int8 (the reference's XLA pool, R = k
+   past 512, then the exact fp32 rescore).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -52,12 +61,16 @@ QT = knn_fused.WIDE_QUERY_TILE
 STEP = knn_fused.WIDE_STEP
 
 
-def _emulated_large(s: int, b: int, r: int, similarity: str):
-    """(vals [s, b, r], ids [s, b, r]) by the large-r tier's rule."""
+def _emulated_large(s: int, b: int, r: int, similarity: str,
+                    precision: str = "fp32"):
+    """(vals [s, b, r], ids [s, b, r]) by the large-r tier's rule, over the
+    dots at `precision` (the operands prepped as knn_fused_stacked preps
+    them)."""
     v, norms, valid, q = _case(s, b)
     qsq = (torch.from_numpy(q) ** 2).sum(1)
-    dots = torch.einsum("bd,snd->sbn", torch.from_numpy(q),
-                        torch.from_numpy(v))
+    v_x, q_x, scale = knn_fused._prep_operands(
+        torch.from_numpy(v), torch.from_numpy(q), precision)
+    dots = knn_fused._fused_dots(q_x, v_x, precision, scale)
     scores = knn_fused._transform_scores(
         dots, qsq[None, :, None], torch.from_numpy(norms)[:, None, :],
         similarity).numpy()
@@ -77,11 +90,13 @@ def _emulated_large(s: int, b: int, r: int, similarity: str):
     return vals, ids
 
 
-def _plain(s: int, b: int, r: int, similarity: str):
+def _plain(s: int, b: int, r: int, similarity: str,
+           precision: str = "fp32"):
     v, norms, valid, q = (torch.from_numpy(a) for a in _case(s, b))
-    return knn_fused.plain_pool(v, norms, valid, q, (q * q).sum(1),
-                                torch.ones(s), r=r, similarity=similarity,
-                                score_precision="fp32")
+    v_x, q_x, scale = knn_fused._prep_operands(v, q, precision)
+    return knn_fused.plain_pool(v_x, norms, valid, q_x, (q * q).sum(1),
+                                scale, r=r, similarity=similarity,
+                                score_precision=precision)
 
 
 @pytest.mark.parametrize("similarity", SIMS)
@@ -102,6 +117,32 @@ def test_emulated_large_tier_over_four_shards(r):
     np.testing.assert_array_equal(got_i, pi.numpy())
     np.testing.assert_array_equal(got_v, pv.numpy())
     assert (got_i[3] >= 0).sum(axis=1).tolist() == [5, 5]
+
+
+@pytest.mark.parametrize("similarity", SIMS)
+@pytest.mark.parametrize("r", (1025, 2000, N_DOCS + 500))
+@pytest.mark.parametrize("precision", ("bf16", "int8"))
+def test_emulated_reduced_large_tier_equals_plain_pool(precision, r,
+                                                       similarity):
+    """The tensor-core scan's keys (the dots at bf16 or int8, the same
+    transform) through the same select: plain_pool at that precision bit
+    for bit."""
+    got_v, got_i = _emulated_large(1, 3, r, similarity, precision)
+    pv, pi = _plain(1, 3, r, similarity, precision)
+    np.testing.assert_array_equal(got_i, pi.numpy())
+    np.testing.assert_array_equal(got_v, pv.numpy())
+
+
+@pytest.mark.parametrize("precision", ("bf16", "int8"))
+def test_reduced_large_pool_extends_the_tensor_core_pool(precision):
+    """A doc's score is the same in both tiers, so the first 1024 slots of
+    the large-r pool at r = 1025 are the r = 1024 pool (the tensor-core
+    tier's), bit for bit, and slot 1025 comes after them."""
+    big_v, big_i = _emulated_large(1, 3, 1025, "l2_norm", precision)
+    pv, pi = _plain(1, 3, 1024, "l2_norm", precision)
+    np.testing.assert_array_equal(big_i[:, :, :1024], pi.numpy())
+    np.testing.assert_array_equal(big_v[:, :, :1024], pv.numpy())
+    assert (big_v[:, :, 1024] <= big_v[:, :, 1023]).all()
 
 
 @pytest.mark.parametrize("r", (1025, 2000))
@@ -158,6 +199,40 @@ def test_large_plan_fits_the_shared_memory(d, want):
     assert _scan_smem(*plan, d) <= knn_fused._MAX_SMEM
 
 
+def _mma_scan_smem(prec: str, stages: int, words: int, d: int) -> int:
+    """csrc/knn_large_mma.cuh scan_smem_bytes: the ring and the 8-query
+    tile of 32-bit words (2 bf16 or 4 int8 a word; the row cut into whole
+    chunks of words / 1024, plus 4 words of padding); 0 for a ring with no
+    kernel."""
+    if (stages, words) not in knn_fused.WIDE_RINGS:
+        return 0
+    w = -(-d * {"bf16": 2, "int8": 1}[prec] // 4)
+    dc = words // STEP
+    return 4 * (stages * words + QT * (-(-w // dc) * dc + 4))
+
+
+@pytest.mark.parametrize("precision,d,want", [
+    ("bf16", 128, (3, 16384)), ("bf16", 768, (3, 16384)),
+    ("int8", 128, (3, 16384)), ("int8", 768, (3, 16384)),
+    ("bf16", 2400, (2, 16384)), ("int8", 4800, (2, 16384)),
+    ("bf16", 8000, (2, 8192))])
+def test_large_mma_plan_fits_the_shared_memory(precision, d, want):
+    """The tensor-core scan keeps no pool: its ring and query tile fit at
+    the serving widths at either precision, the 3 x 64 KB ring first (an
+    int8 row is half a bf16 row's words, so it steps down at twice the
+    width)."""
+    model = functools.partial(_mma_scan_smem, precision)
+    plan = knn_fused.large_plan(d, model, precision)
+    assert plan == want
+    assert model(*plan, d) <= knn_fused._MAX_SMEM
+
+
+def test_large_mma_plan_raises_when_nothing_fits():
+    with pytest.raises(ValueError, match="bf16 d=20000"):
+        knn_fused.large_plan(20_000, functools.partial(_mma_scan_smem,
+                                                       "bf16"), "bf16")
+
+
 def test_large_plan_raises_when_nothing_fits():
     with pytest.raises(ValueError, match="shared memory"):
         knn_fused.large_plan(8192, _scan_smem)
@@ -186,10 +261,27 @@ def test_a_plan_exists_for_every_r_up_to_n_flat(d, n_flat):
 
 @pytest.mark.parametrize("precision,r,want", [
     ("fp32", 1024, "wide"), ("fp32", 1025, "large"), ("fp32", 10_000, "large"),
-    ("fp32", 1 << 20, "large"), ("bf16", 1025, "tile"), ("int8", 2000,
-                                                         "tile")])
+    ("fp32", 1 << 20, "large"), ("bf16", 1025, "large_mma"),
+    ("int8", 2000, "large_mma")])
 def test_tier_past_the_wide_tier(precision, r, want):
     assert knn_fused.scan_tier(precision, r) == want
+
+
+@pytest.mark.parametrize("n_flat", (1 << 18, 1 << 20))
+@pytest.mark.parametrize("d", (128, 768))
+@pytest.mark.parametrize("precision", ("bf16", "int8"))
+def test_every_reduced_r_past_1024_has_a_design(precision, d, n_flat):
+    """Every r the stacked step can ask for at bf16 and int8 past the
+    tensor-core tier (1025 <= r <= n_flat: R = k there) is the large-r
+    tier's tensor-core scan, with a scan plan that fits and the select's
+    scratch of the fp32 tier; no r reaches the tile scan."""
+    model = functools.partial(_mma_scan_smem, precision)
+    stages, words = knn_fused.large_plan(d, model, precision)
+    assert model(stages, words, d) <= knn_fused._MAX_SMEM
+    for r in (1025, 1461, 2000, 4096, 16384, 16385, n_flat):
+        assert knn_fused.scan_tier(precision, r) == "large_mma"
+        assert _select_smem(r) <= knn_fused._MAX_SMEM
+    assert knn_fused.scan_tier(precision, 1024) == "mma"
 
 
 def test_cpu_tensors_take_plain_pool_at_large_r():
@@ -203,6 +295,23 @@ def test_cpu_tensors_take_plain_pool_at_large_r():
                               torch.ones(1), r=2000, similarity="l2_norm",
                               score_precision="fp32")
     want = _plain(1, 3, 2000, "l2_norm")
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert [c.count for c in counters] == before
+    assert cuda_lib._libs == libs
+
+
+@pytest.mark.parametrize("precision", ("bf16", "int8"))
+def test_cpu_tensors_take_plain_pool_at_reduced_large_r(precision):
+    v, norms, valid, q = (torch.from_numpy(a) for a in _case(1, 3))
+    v_x, q_x, scale = knn_fused._prep_operands(v, q, precision)
+    counters = (knn_fused.launches, knn_fused.large_launches,
+                knn_fused.large_mma_launches, knn_fused.tile_launches)
+    before = [c.count for c in counters]
+    libs = dict(cuda_lib._libs)
+    got = knn_fused.pool_scan(v_x, norms, valid, q_x, (q * q).sum(1), scale,
+                              r=2000, similarity="cosine",
+                              score_precision=precision)
+    want = _plain(1, 3, 2000, "cosine", precision)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert [c.count for c in counters] == before
     assert cuda_lib._libs == libs
@@ -272,3 +381,34 @@ def test_k_past_n_flat_returns_every_live_doc(nodes):
         "_source": False})
     ids = [h["_id"] for h in resp["hits"]["hits"]]
     assert len(ids) == LARGE_DOCS - 1 and "9" not in ids
+
+
+@pytest.mark.parametrize("k", (1025, 2000))
+@pytest.mark.parametrize("precision", ("bf16", "int8"))
+def test_reduced_stacked_step_at_large_k_matches_reference(nodes, precision,
+                                                           k):
+    """search.knn.score_precision bf16 and int8 past k = 1024 (R = k: the
+    large-r tier's tensor-core scan on the card, plain_pool here) against
+    the reference's stacked step: ids equal, scores as above."""
+    from opensearch_tpu.search import ann as jax_ann
+    from opensearch_tpu_torch.search import ann as torch_ann
+
+    ref, port, data = nodes
+    jax_ann.default_config.configure(exact_kernel="xla",
+                                     score_precision=precision)
+    torch_ann.default_config.configure(score_precision=precision)
+    try:
+        body = {"query": {"knn": {"v": {
+            "vector": (data[7] - 0.125).tolist(), "k": k}}},
+            "size": k, "_source": False}
+        r, t = ref.search("big", body), port.search("big", body)
+    finally:
+        jax_ann.default_config.configure(exact_kernel="auto",
+                                         score_precision="fp32")
+        torch_ann.default_config.configure(score_precision="fp32")
+    rh, th = r["hits"]["hits"], t["hits"]["hits"]
+    assert len(th) == k
+    assert [h["_id"] for h in th] == [h["_id"] for h in rh]
+    np.testing.assert_allclose([h["_score"] for h in th],
+                               [h["_score"] for h in rh], rtol=1e-5,
+                               atol=1e-4)

@@ -325,7 +325,8 @@ def test_fragment_reads_of_the_query_tile_meet_no_bank_twice(stage_words,
     ("bf16", 32, "mma"), ("bf16", 40, "mma"), ("bf16", 400, "mma"),
     ("bf16", 512, "mma"), ("bf16", 1024, "mma"), ("int8", 1, "mma"),
     ("int8", 40, "mma"), ("int8", 512, "mma"), ("int8", 1024, "mma"),
-    ("bf16", 1025, "tile"), ("int8", 4096, "tile"), ("fp32", 32, "lists"),
+    ("bf16", 1025, "large_mma"), ("int8", 4096, "large_mma"),
+    ("fp32", 32, "lists"),
     ("fp32", 40, "wide"), ("fp32", 1024, "wide"), ("fp32", 1025, "large")])
 def test_tier_by_precision_and_r(precision, r, want):
     assert knn_fused.scan_tier(precision, r) == want
