@@ -1,7 +1,8 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
     python3 chip_smoke.py [--seed N]
-                          [--phases kernel,timing,main|filtered,hybrid]
+                          [--phases kernel,timing,main|filtered,hybrid,
+                                    large]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -31,10 +32,17 @@ Then:
 1. kernel: holds each kernel against its plain PyTorch version on the card.
    K1's large-r tier (large_kernel_phase) on clustered floats, bit for bit
    against kernel_order_pool: one shard of 60,000 128-d docs at B = 1, 9
-   and 33 x r = 1025, 1400, 2000, 4096, 10,000 and 20,000 (the sort in
-   device memory), 20,000 768-d docs to r = 10,000, four shards (one with
-   5 live docs), d = 30, and r past a shard's live count, which returns
-   every live doc; the tile scan beside it at r = 1025 and 1400. The
+   and 33 x r = 1025, 1400, 2000, 4096, 10,000 and 20,000 (five tiles and
+   three merge rounds), 20,000 768-d docs to r = 10,000, four shards (one
+   with 5 live docs) at B = 1, 9 and 33, d = 30, r past a shard's live
+   count, which returns every live doc, and 20,000 copies of one vector
+   (every score equal); at every check the multi-CTA select again on the
+   scan's keys by both sorts and the one-CTA yardstick, all bit-equal to
+   the pool; the tile scan beside it at r = 1025 and 1400. The select on
+   key rows built to stress it (select_stress_check): every live doc one
+   score, a first-level bin of exactly the keys needed, r the live count
+   and past it, four shards, B = 33 over four shards; bit-equal to
+   plain_large_select. The
    large-r tier at bf16 and int8 (large_mma_kernel_phase) on clustered
    floats, one shard of 60,000 128-d docs and one of 20,000 768-d docs at
    B = 1, 9 and 33 x r = 1025, 2000, 4096 and 10,000, l2 and cosine, int8
@@ -193,9 +201,10 @@ Then:
    ms beside the unfiltered step's. Then the stacked step past r = 1024
    (large_main_phase): k = 1025, 2000 and 4096 on a 768-d index of 20,000
    docs, k = 10,000 on index A, k = 5,000 on 1,500 docs (every live doc),
-   each hit list the kernel-order brute force, one large-r launch a
-   search; then at bf16 and int8 (large_reduced_main) k = 1025, 2000 and
-   4096 on the 768-d index and 10,000 on index A, each hit list the plain
+   each hit list the kernel-order brute force, one large-r launch and one
+   launch of its multi-CTA select a search, none of the yardstick; then
+   at bf16 and int8 (large_reduced_main) k = 1025, 2000 and 4096 on the
+   768-d index and 10,000 on index A, each hit list the plain
    pipeline's (bf16: but at logged summation ties of the pool), one
    launch a search on the large-r tier's tensor-core scan, none on the
    tile scan. msearch (msearch_main_phase): one msearch of 32 bare knn
@@ -226,6 +235,11 @@ Then:
    printed solo, concurrent and concurrent without the batcher. An ANN
    batch of 8 through the fused pipeline (ann_batch_check) equals its 8
    solo calls bit for bit at fp32, bf16 and u8 ADC.
+``--phases large`` runs the large-r tier's kernel checks, the select's
+stress rows and the large-r records alone (the quick loop for that tier):
+each shape of PERF.md's large-r table at fp32, bf16 and int8, the tier,
+its select by each sort, the yardstick, the plain versions and the
+library calls, logged as `large record` lines.
 4. hybrid (also after main): the hybrid BM25 + kNN program at
    BASELINE.md row 4's full width (hybrid_main_phase: 1,000,000 128-d
    docs, 64 terms x 2,000 postings, 8 query terms, window 128, k = 10,
@@ -1451,64 +1465,173 @@ def wide_timing_phase(kf, kb, dev, seed: int, k1: bool, k3: bool) -> dict:
 # K1 at fp32 past r = 1024: the large-r tier (csrc/knn_large.cuh)
 # --------------------------------------------------------------------------
 
-# the r of the large-r tier's checks, and one past the 16,384 winners the
-# select sorts in shared memory, where it sorts in a device scratch row
+# the r of the large-r tier's checks, and past them one of five tiles and
+# three merge rounds
 LARGE_RS = (1025, 1400, 2000, 4096, 10_000)
-LARGE_DEVICE_SORT_R = 20_000
-LARGE_KERNELS = ("knn_large_scan_kernel", "knn_large_select_kernel")
+LARGE_MULTI_TILE_R = 20_000
+# the tier's kernels by the profiler's names (its keys are cut at 60
+# characters): the scans, the multi-CTA select's, the yardstick select
+LARGE_SCAN = "scan"
+LARGE_SELECT = ("knn_large_pass", "knn_large_collect", "knn_large_tile",
+                "knn_large_merge", "knn_large_rank", "knn_large_place")
+LARGE_YARDSTICK = "knn_large_select_kernel"
+
+
+def select_variants_check(kf, args, r: int, sim: str, prec: str,
+                          what: str) -> None:
+    """The tier's pool (pool_scan) against its select run again on the
+    scan's keys by each sort and by the yardstick (the earlier one-CTA
+    select): bit for bit."""
+    lib = kf._library()
+    want_v, want_i = kf.pool_scan(*args, r=r, similarity=sim,
+                                  score_precision=prec)
+    keys = kf.large_keys(lib, *args, similarity=sim, score_precision=prec)
+    runs = {sort: functools.partial(kf.large_select, lib, keys, r, sort)
+            for sort in kf.LARGE_SORTS}
+    runs["yardstick"] = functools.partial(kf.large_select_yardstick, lib,
+                                          keys, r)
+    for name, run in runs.items():
+        v, i = run()
+        torch.cuda.synchronize()
+        if not (torch.equal(i, want_i) and torch.equal(v, want_v)):
+            bad = (i != want_i).nonzero()[:5].tolist()
+            raise AssertionError(f"{what}: the {name} select differs from "
+                                 f"the tier's pool (ids differ at {bad})")
 
 
 def large_check(kf, args, scores, r: int, sim: str, what: str) -> float:
     """One K1 scan at fp32 with r > 1024 on clustered floats: ids and
     values bit-equal to the kernel-order brute force's top r (`scores`:
     kernel_order_scores on the same operands, order_top), and exactly one
-    K1 launch, on the large-r tier. Returns the max |dv| (0)."""
-    before = (kf.launches.count, kf.large_launches.count)
+    K1 launch, on the large-r tier and its multi-CTA select (none of the
+    yardstick); then each sort and the yardstick on the same keys
+    (select_variants_check). Returns the max |dv| (0)."""
+    counters = (kf.launches, kf.large_launches, kf.large_select_launches,
+                kf.yardstick_launches)
+    before = [c.count for c in counters]
     kv, ki = kf.pool_scan(*args, r=r, similarity=sim, score_precision="fp32")
     torch.cuda.synchronize()
-    got = (kf.launches.count - before[0], kf.large_launches.count - before[1])
-    if got != (1, 1):
-        raise AssertionError(f"{what}: (K1, large-r tier) launched {got} "
-                             f"times, want (1, 1)")
+    got = [c.count - b for c, b in zip(counters, before)]
+    if got != [1, 1, 1, 0]:
+        raise AssertionError(f"{what}: (K1, large-r tier, its select, the "
+                             f"yardstick) launched {got} times, want "
+                             f"[1, 1, 1, 0]")
     rv, ri = order_top(kf, scores, r)
     if not (torch.equal(ki, ri) and torch.equal(kv, rv)):
         bad = (ki != ri).nonzero()[:5].tolist()
         raise AssertionError(f"{what}: differs from the kernel-order brute "
                              f"force (ids differ at {bad})")
+    select_variants_check(kf, args, r, sim, "fp32", what)
     fin = torch.isfinite(rv)
     return float((kv[fin] - rv[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def score_keys(scores, valid):
+    """The scans' u32 score keys (in int32) of f32 scores [S, B, n] (-0.0
+    as +0.0): 0 for -inf and for a dead doc (valid [S, n])."""
+    u = torch.where(scores == 0, torch.zeros_like(scores), scores).view(
+        torch.int32)
+    sk = torch.where(u < 0, ~u, u | -0x80000000)
+    live = valid[:, None, :] & (scores > float("-inf"))
+    return torch.where(live, sk, torch.zeros_like(sk)).contiguous()
+
+
+def select_stress_check(kf, dev, seed: int) -> int:
+    """The multi-CTA select, by both sorts, and the yardstick on key rows
+    built to stress it, bit-equal to plain_large_select: every live doc one
+    score (every key ties: the compaction takes them in doc order, across
+    slices); a first-level bin
+    (exponent and three mantissa bits) holding exactly the keys still
+    needed; r equal to the live count and past it; four shards, one with 5
+    live docs; and B = 33 over 4 shards (132 rows: two CTAs a row) of
+    scores tied in runs. Returns the rows checked."""
+    rng = np.random.default_rng(seed + 46)
+    lib = kf._library()
+    n = 60_000
+
+    def tied(s: int, b: int, m: int) -> np.ndarray:
+        return (np.round(rng.uniform(0, 1, (s, b, m)) * 4608) / 4608).astype(
+            np.float32)
+
+    exact = rng.uniform(0.0, 0.25, n).astype(np.float32)
+    exact[:2000] = rng.uniform(0.75, 1.0, 2000)
+    exact[2000:10_000] = rng.uniform(0.5, 0.56, 8000)
+    dead = rng.random((1, n)) >= 0.03
+    four = rng.random((4, 12_000)) >= 0.03
+    four[3] = False
+    four[3, :5] = True
+    live = int(dead.sum())
+    cases = (
+        ("every live doc one score", np.full((1, 2, n), 0.5, np.float32),
+         np.ones((1, n), bool), (1025, 4096, 10_000, LARGE_MULTI_TILE_R)),
+        ("a first-level bin of exactly the keys needed", exact[None, None],
+         np.ones((1, n), bool), (10_000,)),
+        ("r the live count and past it", tied(1, 2, n), dead,
+         (live, live + 777)),
+        ("four shards, one with 5 live docs", tied(4, 9, 12_000), four,
+         (1025, 10_000)),
+        ("B = 33 over four shards", tied(4, 33, 12_000),
+         rng.random((4, 12_000)) >= 0.03, (1025, 4096, 10_000)),
+    )
+    rows = 0
+    for what, scores, valid, rs in cases:
+        keys = score_keys(torch.from_numpy(scores).to(dev),
+                          torch.from_numpy(valid).to(dev))
+        for r in rs:
+            want_v, want_i = kf.plain_large_select(keys, r)
+            runs = {sort: functools.partial(kf.large_select, lib, keys, r,
+                                            sort) for sort in kf.LARGE_SORTS}
+            runs["yardstick"] = functools.partial(kf.large_select_yardstick,
+                                                  lib, keys, r)
+            for name, run in runs.items():
+                v, i = run()
+                torch.cuda.synchronize()
+                if not (torch.equal(i, want_i) and torch.equal(v, want_v)):
+                    bad = (i != want_i).nonzero()[:5].tolist()
+                    raise AssertionError(f"select stress [{what}] r={r}: "
+                                         f"the {name} select differs from "
+                                         f"plain_large_select at {bad}")
+            rows += keys.shape[0] * keys.shape[1]
+        log(f"K1 large-r select stress [{what}]: both sorts and the "
+            f"yardstick bit-equal to plain_large_select at r = {rs}")
+    return rows
+
+
 def large_kernel_phase(kf, dev, seed: int) -> float:
     """K1's large-r tier (fp32, r > 1024) on clustered floats with 3% dead
-    docs, bit for bit against the kernel-order brute force (large_check):
-    one shard of 60,000 128-d docs at B = 1, 9 and 33 x r = 1025, 1400,
-    2000, 4096, 10,000 and 20,000 (past 16,384 winners: the sort in device
-    memory) in l2 and cosine; one of 20,000 768-d docs at the same B and
-    r up to 10,000; four shards of 12,000 (the last with 5 live docs, fewer
-    than r) at B = 1 and 9; d = 30 (padded to 32); and a shard of 1,500
-    docs at r = 2048 and 5000, past its live count, which must return
-    every live doc. Beside it the tile scan, which still serves bf16 and
-    int8 past r = 1024 and is the yardstick timed beside every design, at
-    r = 1025 and 1400 (d = 128: its pools fit shared memory) against the
-    same brute force (tile_check). Returns the max |dv|."""
+    docs, bit for bit against the kernel-order brute force, and each sort of
+    its select and the yardstick against its pool (large_check): one shard
+    of 60,000 128-d docs at B = 1, 9 and 33 x r = 1025, 1400, 2000, 4096,
+    10,000 and 20,000 (five tiles, three merge rounds) in l2 and cosine;
+    one of 20,000 768-d docs at the same B and r up to 10,000; four shards
+    of 12,000 (the last with 5 live docs, fewer than r) at B = 1, 9 and 33;
+    d = 30 (padded to 32); a shard of 1,500 docs at r = 2048 and 5000, past
+    its live count, which must return every live doc; and a shard of
+    20,000 copies of one vector (every score equal: the select's threshold
+    is decided by doc order). Beside it the tile scan, the yardstick
+    timed beside every design, at r = 1025 and 1400 (d = 128: its pools fit
+    shared memory) against the same brute force (tile_check). Returns the
+    max |dv|."""
     rng = np.random.default_rng(seed + 40)
     err = 0.0
-    lib = kf._library()
-    if not (lib.knn_fused_large_sort_slots(max(LARGE_RS)) == 0
-            < lib.knn_fused_large_sort_slots(LARGE_DEVICE_SORT_R)):
-        raise AssertionError("the large-r checks do not reach both of the "
-                             "select's sorts (shared and device memory)")
+    if LARGE_MULTI_TILE_R <= 4 * kf.LARGE_TILE:
+        raise AssertionError("the large-r checks do not reach three merge "
+                             "rounds of the select's sort")
     cases = (
         (1, 60_000, DIM, (1, 9, 33), ("l2_norm", "cosine"),
-         LARGE_RS + (LARGE_DEVICE_SORT_R,)),
-        (1, 20_000, 768, (1, 9, 33), ("l2_norm", "cosine"), LARGE_RS),
-        (4, 12_000, DIM, (1, 9), ("l2_norm",), (1025, 4096, 10_000)),
-        (1, 5_000, 30, (1, 9), ("l2_norm",), (1025, 2000)),
-        (1, 1_500, DIM, (1, 9), ("l2_norm",), (2048, 5000)),
+         LARGE_RS + (LARGE_MULTI_TILE_R,), False),
+        (1, 20_000, 768, (1, 9, 33), ("l2_norm", "cosine"), LARGE_RS, False),
+        (4, 12_000, DIM, (1, 9, 33), ("l2_norm",), (1025, 4096, 10_000),
+         False),
+        (1, 5_000, 30, (1, 9), ("l2_norm",), (1025, 2000), False),
+        (1, 1_500, DIM, (1, 9), ("l2_norm",), (2048, 5000), False),
+        (1, 20_000, DIM, (1, 9), ("l2_norm",), (1025, 4096, 10_000), True),
     )
-    for s, n, d, bs, sims, rs in cases:
-        v = torch.from_numpy(clustered(rng, s * n, d).reshape(s, n, d)).to(dev)
+    for s, n, d, bs, sims, rs, same in cases:
+        data = clustered(rng, s * n, d).reshape(s, n, d)
+        if same:
+            data[:] = data[0, 0]
+        v = torch.from_numpy(data).to(dev)
         nrm = (v.double() ** 2).sum(2).float()
         ok = torch.from_numpy(rng.random((s, n)) >= 0.03).to(dev)
         if s == 4:
@@ -1523,7 +1646,8 @@ def large_kernel_phase(kf, dev, seed: int) -> float:
             for sim in sims:
                 scores = kernel_order_scores(kf, v, nrm, ok, q, qsq, sim)
                 for r in rs:
-                    what = f"K1 large S={s} n={n} d={d} B={b} r={r} {sim}"
+                    what = (f"K1 large S={s} n={n} d={d} B={b} r={r} {sim}"
+                            f"{' one vector' if same else ''}")
                     err = max(err, large_check(kf, args, scores, r, sim,
                                                what))
                     if r > n:
@@ -1537,28 +1661,98 @@ def large_kernel_phase(kf, dev, seed: int) -> float:
             if s == 1 and d == DIM and n == 60_000:
                 for r in (1025, 1400):
                     tile_check(kf, args, r, f"K1 S=1 n={n} B={b} r={r}")
-        log(f"K1 large-r tier parity S={s} n={n} d={d}: bit-equal to the "
-            f"kernel-order brute force at B = {bs}, r = {rs}, {sims}")
+        log(f"K1 large-r tier parity S={s} n={n} d={d}"
+            f"{' (one vector)' if same else ''}: bit-equal to the "
+            f"kernel-order brute force at B = {bs}, r = {rs}, {sims}; both "
+            f"sorts and the yardstick equal")
         del v
         torch.cuda.empty_cache()
     return err
+
+
+def time_large(kf, label: str, args, r: int, prec: str, plain, library,
+               bound: dict) -> dict:
+    """One shape of the large-r record: CUDA-event ms of the tier
+    (pool_scan, twice, around the rest), of its select alone on the scan's
+    keys by each sort and by the yardstick, of the plain versions
+    (plain_pool, plain_large_select) and of the library calls (the tier's:
+    `library`; the select's: torch.topk over the keys' scores, decoded
+    before timing); device ms of each by kernel name (the select's share
+    of the tier: its device ms less the scan's, the state's zeroing
+    included); the select's bound (the keys read once, the r winners
+    written); the memory clock before and after."""
+    lib = kf._library()
+    clock0 = mem_clock()
+    tier = functools.partial(kf.pool_scan, *args, r=r, similarity="l2_norm",
+                             score_precision=prec)
+    keys = kf.large_keys(lib, *args, similarity="l2_norm",
+                         score_precision=prec)
+    scores = kf.key_scores(keys)
+    sel = {sort: functools.partial(kf.large_select, lib, keys, r, sort)
+           for sort in kf.LARGE_SORTS}
+    yard = functools.partial(kf.large_select_yardstick, lib, keys, r)
+    ms = time_ms(tier, 20)
+    sel_ms = {sort: time_ms(fn, 20) for sort, fn in sel.items()}
+    yard_ms = time_ms(yard, 10)
+    ms_again = time_ms(tier, 20)
+    plain_ms = time_ms(plain, 3)
+    sel_plain_ms = time_ms(functools.partial(kf.plain_large_select, keys, r),
+                           3)
+    library_ms = time_ms(library, 10)
+    sel_library_ms = time_ms(lambda: torch.topk(scores, r), 10)
+    prof = device_profile(tier, 5)
+    sel_prof = {sort: device_profile(fn, 5) for sort, fn in sel.items()}
+    yard_prof = device_profile(yard, 5)
+    scan_ms = kernel_ms(prof, LARGE_SCAN)
+    S, B, n = keys.shape
+    sel_bytes = 4 * S * B * n + 8 * S * B * r
+    out = {"ms": ms, "ms_again": ms_again, "plain_ms": plain_ms,
+           "library_ms": library_ms,
+           "device_ms": prof and prof["device_ms"],
+           "scan_device_ms": scan_ms,
+           "select_device_ms": prof and prof["device_ms"] - scan_ms,
+           "select_kernels": {part: kernel_ms(prof, part)
+                              for part in LARGE_SELECT},
+           "sort": kf.large_sort_plan(r),
+           "select_ms": sel_ms,
+           "select_device": {sort: p and p["device_ms"]
+                             for sort, p in sel_prof.items()},
+           "select_kernels_by_sort": {
+               sort: {part: kernel_ms(p, part) for part in LARGE_SELECT}
+               for sort, p in sel_prof.items()},
+           "yardstick_ms": yard_ms,
+           "yardstick_device_ms": kernel_ms(yard_prof, LARGE_YARDSTICK),
+           "select_plain_ms": sel_plain_ms,
+           "select_library_ms": sel_library_ms,
+           "select_bound_ms": sel_bytes / HBM_BYTES_PER_S * 1e3,
+           "select_bound_by": "bytes",
+           "mem_clock": [clock0, mem_clock()], **bound}
+    log(f"large record {label}: {json.dumps(out)}")
+    return out
+
+
+# (docs, slots, d, r) of the large-r records: the 768-d index's slab and
+# cell A's
+LARGE_SHAPES = ((20_000, 32_768, 768, (1025, 2000, 4096)),
+                (200_000, 262_144, DIM, (10_000, LARGE_MULTI_TILE_R)))
+# the shape of the select's line in the kernels record
+LARGE_SELECT_HEADLINE = "K1 large n=200000 slots=262144 d=128 r=10000 B=1"
 
 
 def large_timing(kf, dev, seed: int) -> dict:
     """K1's large-r tier at the stacked step's shapes (one shard, B = 1, l2,
     the serving slab's power-of-two slot count): 20,000 768-d docs in 32,768
     slots at r = 1025, 2000 and 4096, cell A's 200,000 128-d docs in
-    262,144 slots at r = 10,000; each checked first (large_check), then
-    timed (time_design: CUDA events, device ms of its scan and select by
-    name, the tile scan beside it where its pools fit, the plain version,
-    the library call torch.topk over the l2-transformed q @ v.T) beside
-    its bound (pool_bound: the slab, norms and flags read once, the pool
+    262,144 slots at r = 10,000 and 20,000; each checked first
+    (large_check), then timed (time_large: the tier, its select by each
+    sort, the yardstick, the plain versions and the library calls:
+    torch.topk over the l2-transformed q @ v.T for the tier) beside its
+    bound (pool_bound: the slab, norms and flags read once, the pool
     written; the keys the design writes and reads back are its scratch and
     are not counted)."""
     rng = np.random.default_rng(seed + 41)
     out = {}
-    for n_docs, slots, d, rs in ((20_000, 32_768, 768, (1025, 2000, 4096)),
-                                 (200_000, 262_144, DIM, (10_000,))):
+    for n_docs, slots, d, rs in LARGE_SHAPES:
         data = np.zeros((1, slots, d), np.float32)
         data[0, :n_docs] = clustered(rng, n_docs, d)
         v = torch.from_numpy(data).to(dev)
@@ -1572,13 +1766,6 @@ def large_timing(kf, dev, seed: int) -> dict:
         for r in rs:
             label = f"K1 large n={n_docs} slots={slots} d={d} r={r} B=1"
             large_check(kf, args, scores, r, "l2_norm", label)
-            design = functools.partial(kf.pool_scan, *args, r=r,
-                                       similarity="l2_norm",
-                                       score_precision="fp32")
-            smem = kf._library().knn_fused_smem_bytes(0, d, r)
-            tile = functools.partial(
-                kf._launch_tile, *args, r=r, similarity="l2_norm",
-                score_precision="fp32") if smem <= kf._MAX_SMEM else None
             plain = functools.partial(kf.plain_pool, *args, r=r,
                                       similarity="l2_norm",
                                       score_precision="fp32")
@@ -1588,9 +1775,8 @@ def large_timing(kf, dev, seed: int) -> dict:
                                    + nrm[0][None], min=0.0)
                 return torch.topk(1.0 / (1.0 + d_sq), r)
 
-            bound = pool_bound(1, slots, d, 1, r)
-            out[label] = time_design(label, design, tile, plain, library,
-                                     bound, names=LARGE_KERNELS)
+            out[label] = time_large(kf, label, args, r, "fp32", plain,
+                                    library, pool_bound(1, slots, d, 1, r))
         del v, scores
         torch.cuda.empty_cache()
     return out
@@ -1604,8 +1790,6 @@ def large_timing(kf, dev, seed: int) -> dict:
 LARGE_MMA_RS = (1025, 2000, 4096, 10_000)
 # the shape of the large-r tensor-core scan's line in the kernels record
 LARGE_MMA_HEADLINE = "K1 large bf16 n=20000 slots=32768 d=768 r=1025 B=1"
-# (the profiler's keys are cut at 60 characters, inside the scan's name)
-LARGE_MMA_KERNELS = ("knn_large_mma_scan", "knn_large_select_kernel")
 
 
 def large_mma_check(kf, args, r: int, sim: str, prec: str, what: str,
@@ -1616,10 +1800,13 @@ def large_mma_check(kf, args, r: int, sim: str, prec: str, what: str,
     (bf16_float_check, each logged; at d = 768, whose dots near 13,000 have
     an f32 ulp of 1e-3, every score held to its f32 error bound in place of
     the fixed tolerance); exactly one K1 launch, on the large-r
-    tier's tensor-core scan, and none of the tile scan or the tensor-core
-    tier. Returns the max |dv|."""
+    tier's tensor-core scan and its multi-CTA select, and none of the tile
+    scan, the tensor-core tier or the yardstick; then each sort and the
+    yardstick on the same keys (select_variants_check). Returns the max
+    |dv|."""
     counters = (kf.launches, kf.large_launches, kf.large_mma_launches,
-                kf.mma_launches, kf.tile_launches)
+                kf.mma_launches, kf.tile_launches, kf.large_select_launches,
+                kf.yardstick_launches)
     before = [c.count for c in counters]
     if prec == "bf16" and not integer:
         err = bf16_float_check(kf, args, r, sim, what,
@@ -1627,10 +1814,12 @@ def large_mma_check(kf, args, r: int, sim: str, prec: str, what: str,
     else:
         err = compare_pools(kf, args, r, sim, prec, what, bits=True)
     got = [c.count - b for c, b in zip(counters, before)]
-    if got != [1, 1, 1, 0, 0]:
+    if got != [1, 1, 1, 0, 0, 1, 0]:
         raise AssertionError(f"{what}: (K1, large-r tier, its tensor-core "
-                             f"scan, tensor-core tier, tile scan) launched "
-                             f"{got} times, want [1, 1, 1, 0, 0]")
+                             f"scan, tensor-core tier, tile scan, select, "
+                             f"yardstick) launched {got} times, want "
+                             f"[1, 1, 1, 0, 0, 1, 0]")
+    select_variants_check(kf, args, r, sim, prec, what)
     return err
 
 
@@ -1642,24 +1831,31 @@ def large_mma_kernel_phase(kf, dev, seed: int) -> float:
     and cosine (int8 bit-equal, bf16 ids equal but at logged summation
     ties); mma_sixteenths (bf16's f32 sums exact, so bit-equal at both
     precisions) at both widths, B = 1 and 9, r = 1025 and 4096; four shards
-    of 12,000 (the last with 5 live docs) at B = 1 and 9. At every
-    (width, B, precision, similarity) the first 1024 slots of the r = 1025
-    pool must be the tensor-core tier's r = 1024 pool bit for bit: a doc's
-    score is the same bits in both tiers. Returns the max |dv|."""
+    of 12,000 (the last with 5 live docs) at B = 1, 9 and 33; 20,000 copies
+    of one mma_sixteenths vector (every score equal) at B = 1 and 9. At
+    every (width, B, precision, similarity) the first 1024 slots of the
+    r = 1025 pool must be the tensor-core tier's r = 1024 pool bit for bit:
+    a doc's score is the same bits in both tiers. Returns the max |dv|."""
     rng = np.random.default_rng(seed + 44)
     err = 0.0
     cases = (
         (1, 60_000, DIM, False, (1, 9, 33), ("l2_norm", "cosine"),
-         LARGE_MMA_RS),
+         LARGE_MMA_RS, False),
         (1, 20_000, 768, False, (1, 9, 33), ("l2_norm", "cosine"),
-         LARGE_MMA_RS),
-        (1, 60_000, DIM, True, (1, 9), ("l2_norm",), (1025, 4096)),
-        (1, 20_000, 768, True, (1, 9), ("l2_norm",), (1025, 4096)),
-        (4, 12_000, DIM, False, (1, 9), ("l2_norm",), (1025, 4096)),
+         LARGE_MMA_RS, False),
+        (1, 60_000, DIM, True, (1, 9), ("l2_norm",), (1025, 4096), False),
+        (1, 20_000, 768, True, (1, 9), ("l2_norm",), (1025, 4096), False),
+        (4, 12_000, DIM, False, (1, 9, 33), ("l2_norm",), (1025, 4096),
+         False),
+        (1, 20_000, DIM, True, (1, 9), ("l2_norm",), (1025, 10_000), True),
     )
-    for s, n, d, integer, bs, sims, rs in cases:
+    for s, n, d, integer, bs, sims, rs, same in cases:
         data, v, nrm, ok = lists_case(dev, rng, s, n, d, integer,
                                       grid=mma_sixteenths)
+        if same:
+            data[:] = data[0]
+            v[:] = v[0, 0]
+            nrm[:] = nrm[0, 0]
         for b in bs:
             queries = data[rng.choice(n, b, replace=False)].copy()
             if not integer:
@@ -1670,7 +1866,8 @@ def large_mma_kernel_phase(kf, dev, seed: int) -> float:
                 args = reduced_args(kf, v, nrm, ok, q, prec)
                 for sim in sims:
                     what = (f"K1 large mma {prec} S={s} n={n} d={d} B={b} "
-                            f"{sim} integer={integer}")
+                            f"{sim} integer={integer}"
+                            f"{' one vector' if same else ''}")
                     for r in rs:
                         err = max(err, large_mma_check(
                             kf, args, r, sim, prec, f"{what} r={r}",
@@ -1686,10 +1883,11 @@ def large_mma_kernel_phase(kf, dev, seed: int) -> float:
                                              f"tensor-core tier's r = 1024 "
                                              f"pool")
         log(f"K1 large-r tensor-core scan parity S={s} n={n} d={d} "
-            f"integer={integer}: "
+            f"integer={integer}{' (one vector)' if same else ''}: "
             f"{'bit-equal' if integer else 'int8 bit-equal, bf16 ids equal'}"
             f" at B = {bs}, r = {rs}, {sims}; r = 1025's first 1024 slots "
-            f"the tensor-core tier's pool")
+            f"the tensor-core tier's pool; both sorts and the yardstick "
+            f"equal")
         del v
         torch.cuda.empty_cache()
     return err
@@ -1699,16 +1897,15 @@ def large_mma_timing(kf, dev, seed: int) -> dict:
     """K1's large-r tier at bf16 and int8 at the stacked step's shapes (one
     shard, B = 1, l2; as large_timing: 20,000 768-d docs in 32,768 slots at
     r = 1025, 2000 and 4096, cell A's 200,000 128-d docs in 262,144 slots
-    at r = 10,000): each checked first (large_mma_check), then timed
-    (time_design: CUDA events, device ms of its scan and select by name,
-    the plain version, the library call: torch.topk over the l2-transformed
-    f32 product of the same bf16 or int8 operands, exact in f32, times the
-    int8 scale) beside its bound (pool_bound at the operands' width: bf16
-    2 bytes and int8 1 byte a component, against their peaks)."""
+    at r = 10,000 and 20,000): each checked first (large_mma_check), then
+    timed (time_large; the tier's library call: torch.topk over the
+    l2-transformed f32 product of the same bf16 or int8 operands, exact in
+    f32, times the int8 scale) beside its bound (pool_bound at the
+    operands' width: bf16 2 bytes and int8 1 byte a component, against
+    their peaks)."""
     rng = np.random.default_rng(seed + 45)
     out = {}
-    for n_docs, slots, d, rs in ((20_000, 32_768, 768, (1025, 2000, 4096)),
-                                 (200_000, 262_144, DIM, (10_000,))):
+    for n_docs, slots, d, rs in LARGE_SHAPES:
         data = np.zeros((1, slots, d), np.float32)
         data[0, :n_docs] = clustered(rng, n_docs, d)
         v = torch.from_numpy(data).to(dev)
@@ -1723,9 +1920,6 @@ def large_mma_timing(kf, dev, seed: int) -> dict:
                 label = (f"K1 large {prec} n={n_docs} slots={slots} d={d} "
                          f"r={r} B=1")
                 large_mma_check(kf, args, r, "l2_norm", prec, label, False)
-                design = functools.partial(kf.pool_scan, *args, r=r,
-                                           similarity="l2_norm",
-                                           score_precision=prec)
                 plain = functools.partial(kf.plain_pool, *args, r=r,
                                           similarity="l2_norm",
                                           score_precision=prec)
@@ -1736,9 +1930,9 @@ def large_mma_timing(kf, dev, seed: int) -> dict:
                                        min=0.0)
                     return torch.topk(1.0 / (1.0 + d_sq), r)
 
-                bound = pool_bound(1, slots, d, 1, r, prec)
-                out[label] = time_design(label, design, None, plain, library,
-                                         bound, names=LARGE_MMA_KERNELS)
+                out[label] = time_large(kf, label, args, r, prec, plain,
+                                        library,
+                                        pool_bound(1, slots, d, 1, r, prec))
         del v
         torch.cuda.empty_cache()
     return out
@@ -3879,8 +4073,10 @@ def large_main_phase(node, kf, data_a: np.ndarray, queries_a: np.ndarray,
                 for row in order_top(kf, scores, k)[1][0].tolist()]
 
     def run(name: str, qs: np.ndarray, k: int, truth: list) -> dict:
-        kf.launches.reset()
-        kf.large_launches.reset()
+        counters = (kf.launches, kf.large_launches, kf.large_select_launches,
+                    kf.yardstick_launches)
+        for c in counters:
+            c.reset()
         lat = []
         for i, qv in enumerate(qs):
             t0 = time.perf_counter()
@@ -3895,13 +4091,15 @@ def large_main_phase(node, kf, data_a: np.ndarray, queries_a: np.ndarray,
                 raise AssertionError(f"[{name}] k={k} query {i}: hits differ "
                                      f"from the kernel-order brute force at "
                                      f"rank {bad} ({len(hits)} hits)")
-        got = (kf.launches.count, kf.large_launches.count)
-        if got != (len(qs), len(qs)):
-            raise AssertionError(f"[{name}] k={k}: (K1, large-r tier) "
-                                 f"launched {got} times in {len(qs)} "
-                                 f"searches")
+        got = [c.count for c in counters]
+        if got != [len(qs), len(qs), len(qs), 0]:
+            raise AssertionError(f"[{name}] k={k}: (K1, large-r tier, its "
+                                 f"multi-CTA select, the yardstick) launched "
+                                 f"{got} times in {len(qs)} searches")
         res = latency_summary(lat)
-        res["launches"] = {"knn_fused": got[0], "knn_fused_large": got[1]}
+        res["launches"] = {"knn_fused": got[0], "knn_fused_large": got[1],
+                           "knn_large_select": got[2],
+                           "knn_large_yardstick": got[3]}
         log(f"[{name}] k={k}: {len(qs)} searches, every hit list the "
             f"kernel-order brute force, one large-r launch each; "
             f"{json.dumps(res)}")
@@ -3959,7 +4157,9 @@ def large_reduced_main(node, kf, q768: np.ndarray, qa: np.ndarray) -> dict:
                                  ("sift_a", qa, (LARGE_MAIN_CELL_A_K,))):
                 for k in ks:
                     counters = (kf.launches, kf.large_launches,
-                                kf.large_mma_launches, kf.tile_launches)
+                                kf.large_mma_launches, kf.tile_launches,
+                                kf.large_select_launches,
+                                kf.yardstick_launches)
                     for c in counters:
                         c.reset()
                     lat, ties = [], 0
@@ -3989,16 +4189,20 @@ def large_reduced_main(node, kf, q768: np.ndarray, qa: np.ndarray) -> dict:
                                 log(f"{label}: a summation tie of the pool "
                                     f"{tie}")
                     got = [c.count for c in counters]
-                    if got != [len(qs), len(qs), len(qs), 0]:
+                    n_q = len(qs)
+                    if got != [n_q, n_q, n_q, 0, n_q, 0]:
                         raise AssertionError(
                             f"[{name}] {prec} k={k}: (K1, large-r tier, its "
-                            f"tensor-core scan, tile scan) launched {got} "
-                            f"times in {len(qs)} searches")
+                            f"tensor-core scan, tile scan, multi-CTA select, "
+                            f"yardstick) launched {got} times in {n_q} "
+                            f"searches")
                     res = latency_summary(lat)
                     res["launches"] = {"knn_fused": got[0],
                                        "knn_fused_large": got[1],
                                        "knn_fused_large_mma": got[2],
-                                       "knn_fused_tile": got[3]}
+                                       "knn_fused_tile": got[3],
+                                       "knn_large_select": got[4],
+                                       "knn_large_yardstick": got[5]}
                     res["summation_ties"] = ties
                     out[f"{name} {prec} k={k}"] = res
                     log(f"[{name}] {prec} k={k}: {len(qs)} searches, hits "
@@ -4757,6 +4961,56 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     return out
 
 
+def large_kernels(kf, dev, seed: int, entry: dict, large_mma_entry: dict,
+                  select_entry: dict) -> None:
+    """K1's large-r checks (both scans, the select's stress rows) into the
+    kernels record."""
+    entry["max_abs_err"] = max(entry["max_abs_err"] or 0.0,
+                               large_kernel_phase(kf, dev, seed))
+    large_mma_entry["max_abs_err"] = large_mma_kernel_phase(kf, dev, seed)
+    large_mma_entry["parity"] = ("int8 bit-equal; bf16 bit-equal on exact "
+                                 "sums, ids equal but at logged summation "
+                                 "ties on floats")
+    rows = select_stress_check(kf, dev, seed)
+    select_entry["max_abs_err"] = 0.0
+    select_entry["parity"] = (f"bit-equal, both sorts and the yardstick: to "
+                              f"the tier's pool at every large-r check, to "
+                              f"plain_large_select on {rows} stress rows")
+
+
+def large_records(kf, dev, seed: int, entry: dict, large_mma_entry: dict,
+                  select_entry: dict) -> None:
+    """K1's large-r records (both scans, the select) into the kernels
+    record."""
+    fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    large = large_timing(kf, dev, seed)
+    entry["large_shapes"] = large
+    lm = large_mma_timing(kf, dev, seed)
+    large_mma_entry.update({key: lm[LARGE_MMA_HEADLINE][key] for key in
+                            (*fields, "device_ms", "scan_device_ms",
+                             "select_device_ms")})
+    large_mma_entry["shape"] = LARGE_MMA_HEADLINE
+    large_mma_entry["serving_shapes"] = lm
+    head = large[LARGE_SELECT_HEADLINE]
+    sort = head["sort"]
+    select_entry.update({
+        "ms": head["select_ms"][sort],
+        "device_ms": head["select_device"][sort],
+        "plain_ms": head["select_plain_ms"],
+        "bound_ms": head["select_bound_ms"],
+        "bound_by": head["select_bound_by"],
+        "library_ms": head["select_library_ms"],
+        "yardstick_ms": head["yardstick_ms"],
+        "yardstick_device_ms": head["yardstick_device_ms"],
+        "sort": sort, "shape": LARGE_SELECT_HEADLINE + " fp32"})
+    select_entry["serving_shapes"] = {
+        label: {key: rec[key] for key in
+                ("sort", "select_ms", "select_device", "select_device_ms",
+                 "yardstick_ms", "yardstick_device_ms", "select_plain_ms",
+                 "select_library_ms", "select_bound_ms")}
+        for label, rec in {**large, **lm}.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4807,13 +5061,15 @@ def main() -> int:
                       "knn_wide_mma_scan_kernel, knn_wide_merge_kernel), "
                       "bf16 and int8 with r <= 1024",
                "large": "opensearch_tpu_torch/csrc/knn_large.cuh: the "
-                        "large-r tier (kernels knn_large_scan_kernel, "
-                        "knn_large_select_kernel), fp32 with r > 1024",
+                        "large-r tier (kernel knn_large_scan_kernel, then "
+                        "the multi-CTA select: knn_large_pass_kernel, "
+                        "knn_large_collect_kernel, knn_large_tile_kernel "
+                        "and knn_large_merge_kernel or knn_large_rank_kernel "
+                        "and knn_large_place_kernel), fp32 with r > 1024",
                "large_mma": "opensearch_tpu_torch/csrc/knn_large_mma.cuh: "
-                            "the large-r tier's tensor-core scan (kernels "
-                            "knn_large_mma_scan_kernel, "
-                            "knn_large_select_kernel), bf16 and int8 with "
-                            "r > 1024",
+                            "the large-r tier's tensor-core scan (kernel "
+                            "knn_large_mma_scan_kernel, then the same "
+                            "select), bf16 and int8 with r > 1024",
                "tile": "opensearch_tpu_torch/csrc/knn_tile.cuh: the tile "
                        "scan (knn_scan_kernel, knn_merge_kernel): no shape, "
                        "the yardstick timed beside the designs"}
@@ -4872,6 +5128,24 @@ def main() -> int:
         "launches": None, "parity": None, "max_abs_err": None, "ms": None,
         "plain_ms": None, "bound_ms": None, "bound_by": None,
         "library_ms": None}
+    # the large-r tier's multi-CTA select (a K1 stage behind both large-r
+    # scans, listed on its own line; the earlier one-CTA select, its
+    # yardstick, timed beside it)
+    select_entry = {
+        "name": "knn_large_select", "route": "cuda",
+        "source": "opensearch_tpu_torch/csrc/knn_large.cuh (built in "
+                  "knn_fused.cu): knn_large_pass_kernel, "
+                  "knn_large_collect_kernel, knn_large_tile_kernel, "
+                  "knn_large_merge_kernel, knn_large_rank_kernel, "
+                  "knn_large_place_kernel",
+        "replaces": "opensearch_tpu/ops/pallas_knn.py:785 (pallas_knn_fused "
+                    "-> _knn_fused_kernel :675) at r > 1024: the running "
+                    "top-R's selection, behind the large-r scans",
+        "launches": None, "parity": None, "max_abs_err": None, "ms": None,
+        "plain_ms": None, "bound_ms": None, "bound_by": None,
+        "library_ms": None,
+        "library_note": "torch.topk over the keys' f32 scores (decoded "
+                        "before timing)"}
     lut_entry = {
         "name": "adc_lut", "route": "cuda",
         "source": "opensearch_tpu_torch/csrc/adc_lut.cu",
@@ -4902,14 +5176,10 @@ def main() -> int:
                                          "knn_fused" in chosen,
                                          "knn_block" in chosen)
             if "knn_fused" in chosen:
-                entry["max_abs_err"] = max(entry["max_abs_err"], wide_err,
-                                           large_kernel_phase(kf, dev,
-                                                              args.seed))
-                large_mma_entry["max_abs_err"] = large_mma_kernel_phase(
-                    kf, dev, args.seed)
-                large_mma_entry["parity"] = ("int8 bit-equal; bf16 bit-equal "
-                                             "on exact sums, ids equal but at "
-                                             "logged summation ties on floats")
+                entry["max_abs_err"] = max(entry["max_abs_err"], wide_err)
+        if "knn_fused" in chosen:
+            large_kernels(kf, dev, args.seed, entry, large_mma_entry,
+                          select_entry)
         if "adc_lut" in chosen:
             lut_check = lut_kernel_phase(dev, args.seed)
             lut_entry["max_abs_err"] = lut_check["max_abs_err"]
@@ -4961,13 +5231,8 @@ def main() -> int:
                     key: cell_c[b][key] for key in (*fields, *stages)}
                 for b in (1, 8)}
         if "knn_fused" in chosen:
-            entry["large_shapes"] = large_timing(kf, dev, args.seed)
-            lm = large_mma_timing(kf, dev, args.seed)
-            large_mma_entry.update({key: lm[LARGE_MMA_HEADLINE][key] for key in
-                                    (*fields, "device_ms", "scan_device_ms",
-                                     "merge_device_ms")})
-            large_mma_entry["shape"] = LARGE_MMA_HEADLINE
-            large_mma_entry["serving_shapes"] = lm
+            large_records(kf, dev, args.seed, entry, large_mma_entry,
+                          select_entry)
         if "adc_lut" in chosen:
             lt = lut_timing(dev, args.seed)
             lut_entry.update({key: lt["lut B=1"][key] for key in
@@ -5015,6 +5280,14 @@ def main() -> int:
                 if b in t3n:
                     e[f"b{b}"] = t3n[b]
         phase_s["timing"] = time.perf_counter() - t0
+    if "large" in phases:
+        # the large-r tier's checks and records alone (the quick loop)
+        t0 = time.perf_counter()
+        large_kernels(kf, dev, args.seed, entry, large_mma_entry,
+                      select_entry)
+        large_records(kf, dev, args.seed, entry, large_mma_entry,
+                      select_entry)
+        phase_s["large"] = time.perf_counter() - t0
     if "main" in phases:
         t0 = time.perf_counter()
         main = main_path_phase(kf, dev, args.seed)
@@ -5028,6 +5301,9 @@ def main() -> int:
             res["launches"]["knn_fused_large"] for res in main["large"].values())
         large_mma_entry["launches"] = sum(
             res["launches"].get("knn_fused_large_mma", 0)
+            for res in main["large"].values())
+        select_entry["launches"] = sum(
+            res["launches"]["knn_large_select"]
             for res in main["large"].values())
         # filtered kNN on both routes: each run's launches counted from 0
         entry["filtered_main_path"] = main["filtered"]
@@ -5086,6 +5362,9 @@ def main() -> int:
         large_mma_entry["launches"] = sum(
             res["launches"].get("knn_fused_large_mma", 0)
             for res in fp["large"].values())
+        select_entry["launches"] = sum(
+            res["launches"]["knn_large_select"]
+            for res in fp["large"].values())
         phase_s["filtered"] = time.perf_counter() - t0
     if phases & {"main", "hybrid"}:
         t0 = time.perf_counter()
@@ -5093,7 +5372,8 @@ def main() -> int:
         log(f"hybrid program record: {json.dumps(hybrid)}")
         phase_s["hybrid"] = time.perf_counter() - t0
     log(f"phase wall seconds: {json.dumps(phase_s)}")
-    print(json.dumps({"kernels": [entry, large_mma_entry, entry2, lut_entry,
+    print(json.dumps({"kernels": [entry, large_mma_entry, select_entry,
+                                  entry2, lut_entry,
                                   *family.values(),
                                   *rescore_entries.values()]}),
           flush=True)

@@ -59,14 +59,16 @@
 //    f32, m16n8k32 s8 into s32), then the same split merge;
 //  - fp32 with r > 1024 (the stacked serving step asks for r = k_shard =
 //    min(k, n_flat), with no cap, as the reference does): the large-r tier
-//    of knn_large.cuh (knn_fused_large_launch): the wide tier's scan with
-//    each (query, doc)'s score key stored instead of pooled, then a
-//    CTA-per-(query, shard) radix select and sort of the r best;
+//    of knn_large.cuh (knn_fused_large_scan_launch): the wide tier's scan
+//    with each (query, doc)'s score key stored instead of pooled, then a
+//    radix select and sort of the r best of each (query, shard) row by
+//    many CTAs a row (knn_fused_large_select_launch; the earlier one-CTA
+//    select is kept as its yardstick, knn_fused_large_yardstick_launch);
 //  - bf16 and int8 with r > 1024 (a reduced-precision k above 1024 on the
 //    stacked step): the large-r tier's tensor-core scan of
-//    knn_large_mma.cuh (knn_fused_large_mma_launch): the tensor-core
-//    tier's dots, each (query, doc)'s score key stored, then the large-r
-//    tier's select.
+//    knn_large_mma.cuh (knn_fused_large_mma_scan_launch): the
+//    tensor-core tier's dots, each (query, doc)'s score key stored, then
+//    the large-r tier's select.
 // The tile scan above (knn_fused_launch, any precision, no cp.async
 // pipelining, tensor cores or TMA, pools of 16 queries in shared memory)
 // serves no shape any more: it is the yardstick timed beside each design.
@@ -191,33 +193,73 @@ size_t knn_fused_large_smem_bytes(int stages, int stage_floats, int d) {
   return large::large_smem_bytes(stages, stage_floats, d);
 }
 
-// bytes of dynamic shared memory the large-r tier's select needs at r
-size_t knn_fused_large_select_smem_bytes(int r) {
-  return large::select_smem_bytes(r);
+// bytes of shared memory the large-r tier's multi-CTA select takes (all
+// static, whatever r), the ints of a row's state and histogram, which the
+// caller zeroes, and the bins of the last level a CTA keeps
+size_t knn_fused_large_select_smem_bytes() {
+  return large::multi_select_smem_bytes();
 }
+int knn_fused_large_state_words() { return large::kStateWords; }
+int knn_fused_large_slice_bins() { return large::kLastBins; }
 
-// slots of the large-r tier's device sort row a (shard, query) at r: 0
-// where the select sorts its winners in shared memory
-int knn_fused_large_sort_slots(int r) { return large::sort_slots(r); }
-
-// The large-r tier's scan + select (fp32, d % 4 == 0, 16-byte aligned
-// rows) on `stream`; keys [S, B, n] u32 and, where
-// knn_fused_large_sort_slots(r) = P > 0, sort_v / sort_i [S, B, P] are
-// scratch. Returns the first cudaError_t met.
-int knn_fused_large_launch(const void* v, const void* nsq, const void* valid,
-                           const void* q, const void* qsq, void* keys,
-                           void* sort_v, void* sort_i, void* out_v,
-                           void* out_i, int S, int n, int d, int B, int r,
-                           int sim, int stages, int stage_floats, int chunk,
-                           int n_split, void* stream) {
-  return (int)large::launch_large_pool(
+// The large-r tier's scan alone (fp32, d % 4 == 0, 16-byte aligned rows)
+// on `stream`: every (query, doc)'s score key to keys [S, B, n] u32.
+// Returns the first cudaError_t met.
+int knn_fused_large_scan_launch(const void* v, const void* nsq,
+                                const void* valid, const void* q,
+                                const void* qsq, void* keys, int S, int n,
+                                int d, int B, int sim, int stages,
+                                int stage_floats, int chunk, int n_split,
+                                void* stream) {
+  return (int)large::launch_large_scan(
       static_cast<cudaStream_t>(stream), static_cast<const float*>(v),
       static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid),
       static_cast<const float*>(q), static_cast<const float*>(qsq),
-      static_cast<uint32_t*>(keys), static_cast<float*>(sort_v),
-      static_cast<int*>(sort_i), static_cast<float*>(out_v),
-      static_cast<int*>(out_i), S, n, d, B, r, sim, stages, stage_floats,
+      static_cast<uint32_t*>(keys), S, n, d, B, sim, stages, stage_floats,
       chunk, n_split);
+}
+
+// The large-r tier's multi-CTA select on `stream`: the r best of every
+// (shard, query) row of keys [S, B, n], sorted, to out_v / out_i
+// [S, B, r]; G CTAs a row of chunk docs each; state [S, B,
+// knn_fused_large_state_words()] int32, zeroed; slices [S, B, G,
+// knn_fused_large_slice_bins()] int32; win [S, B, r] int64; sort 0
+// (tiles and merge rounds: tmp [S, B, r] int64 where r > 4096) or 1 (rank
+// by count: rank [S, B, r] int32, zeroed, C slices of the winners).
+// Returns the first cudaError_t met.
+int knn_fused_large_select_launch(const void* keys, void* state,
+                                  void* slices, void* win, void* tmp,
+                                  void* rank, void* out_v, void* out_i, int S,
+                                  int n, int B, int r, int G, int chunk,
+                                  int sort, int C, void* stream) {
+  return (int)large::launch_multi_select(
+      static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(keys),
+      static_cast<int*>(state), static_cast<int*>(slices),
+      static_cast<wide::u64*>(win),
+      static_cast<wide::u64*>(tmp), static_cast<unsigned*>(rank),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, B, r, G,
+      chunk, sort, C);
+}
+
+// The yardstick: the earlier one-CTA select over the same keys (no shape takes
+// it). Its dynamic shared memory at r, and the slots of its device sort
+// row a (shard, query): 0 where it sorts in shared memory.
+size_t knn_fused_large_yardstick_smem_bytes(int r) {
+  return large::select_smem_bytes(r);
+}
+int knn_fused_large_yardstick_slots(int r) { return large::sort_slots(r); }
+
+// The yardstick select on `stream`; sort_v / sort_i [S, B, P] scratch where
+// knn_fused_large_yardstick_slots(r) = P > 0. Returns the first cudaError_t
+// met.
+int knn_fused_large_yardstick_launch(const void* keys, void* sort_v,
+                                     void* sort_i, void* out_v, void* out_i,
+                                     int S, int n, int B, int r,
+                                     void* stream) {
+  return (int)large::launch_select_yardstick(
+      static_cast<cudaStream_t>(stream), static_cast<const uint32_t*>(keys),
+      static_cast<float*>(sort_v), static_cast<int*>(sort_i),
+      static_cast<float*>(out_v), static_cast<int*>(out_i), S, n, B, r);
 }
 
 // bytes of dynamic shared memory the large-r tier's tensor-core scan needs
@@ -228,24 +270,22 @@ size_t knn_fused_large_mma_smem_bytes(int prec, int stages, int stage_words,
   return large_mma::large_mma_smem_bytes(prec, stages, stage_words, d);
 }
 
-// The large-r tier's tensor-core scan + select (bf16 or int8, rows of
-// whole 16-byte units at 16-byte aligned addresses) on `stream`; keys
-// [S, B, n] u32 and, where knn_fused_large_sort_slots(r) = P > 0, sort_v /
-// sort_i [S, B, P] are scratch. Returns the first cudaError_t met.
-int knn_fused_large_mma_launch(const void* scale, int prec, const void* v,
-                               const void* nsq, const void* valid,
-                               const void* q, const void* qsq, void* keys,
-                               void* sort_v, void* sort_i, void* out_v,
-                               void* out_i, int S, int n, int d, int B, int r,
-                               int sim, int stages, int stage_words,
-                               int chunk, int n_split, void* stream) {
-  return (int)large_mma::launch_large_mma_pool(
+// The large-r tier's tensor-core scan alone (bf16 or int8, rows of whole
+// 16-byte units at 16-byte aligned addresses) on `stream`: every (query,
+// doc)'s score key to keys [S, B, n] u32. Returns the first cudaError_t
+// met.
+int knn_fused_large_mma_scan_launch(const void* scale, int prec,
+                                    const void* v, const void* nsq,
+                                    const void* valid, const void* q,
+                                    const void* qsq, void* keys, int S, int n,
+                                    int d, int B, int sim, int stages,
+                                    int stage_words, int chunk, int n_split,
+                                    void* stream) {
+  return (int)large_mma::launch_large_mma_scan(
       static_cast<cudaStream_t>(stream), prec, v,
       static_cast<const float*>(nsq), static_cast<const uint8_t*>(valid), q,
       static_cast<const float*>(qsq), static_cast<const float*>(scale),
-      static_cast<uint32_t*>(keys), static_cast<float*>(sort_v),
-      static_cast<int*>(sort_i), static_cast<float*>(out_v),
-      static_cast<int*>(out_i), S, n, d, B, r, sim, stages, stage_words,
+      static_cast<uint32_t*>(keys), S, n, d, B, sim, stages, stage_words,
       chunk, n_split);
 }
 

@@ -1,8 +1,8 @@
 // The large-r tier's tensor-core scan: K1's pool scan at bf16 and int8 with
-// r > 1024 (csrc/knn_fused.cu), for Hopper (sm_90a). Two kernels a call:
-// knn_large_mma_scan_kernel (every live doc's score key, one u32 a (shard,
-// query, doc), the dots on the tensor cores) and knn_large.cuh's
-// knn_large_select_kernel (the r best of a (shard, query) row, sorted),
+// r > 1024 (csrc/knn_fused.cu), for Hopper (sm_90a). A scan and a select
+// a call: knn_large_mma_scan_kernel (every live doc's score key, one u32 a
+// (shard, query, doc), the dots on the tensor cores) and knn_large.cuh's
+// multi-CTA select (the r best of a (shard, query) row, sorted),
 // unchanged.
 //
 // Replaces, at these shapes: opensearch_tpu/ops/pallas_knn.py::
@@ -35,8 +35,7 @@
 // memory and runs out of it past about r = 1,460 at d = 128 and at every
 // r > 1024 from d of about 302. This scan keeps no pool, so its shared
 // memory is the ring and the query tile whatever r is, and the select
-// holds up to 16,384 winners in shared memory and the rest in device
-// scratch rows.
+// keeps its winners in device scratch rows, sorted by many CTAs a row.
 //
 // Design: knn_wide_mma_scan_kernel's loop (256 threads, an 8-query tile,
 // each warp one 128-doc sub-block of a 1,024-doc step, doc rows of 32-bit
@@ -254,35 +253,28 @@ cudaError_t launch_ring(cudaStream_t st, const void* v, const float* nsq,
                                     S, n, w, B, sim, chunk, n_split);
 }
 
-// The tensor-core scan then the large-r tier's select on `st` over the B
-// queries; d elements a row of prec (bf16 or int8) operands in whole
-// 16-byte units; (stages, stage_words) is the wrapper's ring, chunk (a
-// multiple of 128) and n_split its cut of each shard; keys [S, B, n] and,
-// where the winners' power of two exceeds large::kSortSmem, sort_[v|i]
-// [S, B, P] are its scratch. Returns the first cudaError_t met.
-inline cudaError_t launch_large_mma_pool(
+// The tensor-core scan alone on `st` over the B queries: keys [S, B, n]
+// for the large-r tier's select; d elements a row of prec (bf16 or int8)
+// operands in whole 16-byte units; (stages, stage_words) is the wrapper's
+// ring, chunk (a multiple of 128) and n_split its cut of each shard.
+// Returns the first cudaError_t met.
+inline cudaError_t launch_large_mma_scan(
     cudaStream_t st, int prec, const void* v, const float* nsq,
     const uint8_t* valid, const void* q, const float* qsq,
-    const float* scale, uint32_t* keys, float* sort_v, int* sort_i,
-    float* out_v, int* out_i, int S, int n, int d, int B, int r, int sim,
+    const float* scale, uint32_t* keys, int S, int n, int d, int B, int sim,
     int stages, int stage_words, int chunk, int n_split) {
   const int eb = mma::elem_bytes(prec);
-  if (eb == 0 || r < 1 || d * eb % 16 != 0 || chunk % kSub != 0 || B < 1 ||
-      !wide::known_ring(stages, stage_words) ||
-      (large::sort_slots(r) && (!sort_v || !sort_i)))
+  if (eb == 0 || d * eb % 16 != 0 || chunk % kSub != 0 || B < 1 ||
+      !wide::known_ring(stages, stage_words))
     return cudaErrorInvalidValue;
   const int w = d * eb / 4;
-  const cudaError_t e =
-      prec == PREC_BF16
-          ? launch_ring<PREC_BF16>(st, v, nsq, valid, q, qsq, scale, keys, S,
-                                   n, w, B, sim, stages, stage_words, chunk,
-                                   n_split)
-          : launch_ring<PREC_INT8>(st, v, nsq, valid, q, qsq, scale, keys, S,
-                                   n, w, B, sim, stages, stage_words, chunk,
-                                   n_split);
-  if (e != cudaSuccess) return e;
-  return large::launch_select(st, keys, sort_v, sort_i, out_v, out_i, S, n,
-                              B, r);
+  return prec == PREC_BF16
+             ? launch_ring<PREC_BF16>(st, v, nsq, valid, q, qsq, scale, keys,
+                                      S, n, w, B, sim, stages, stage_words,
+                                      chunk, n_split)
+             : launch_ring<PREC_INT8>(st, v, nsq, valid, q, qsq, scale, keys,
+                                      S, n, w, B, sim, stages, stage_words,
+                                      chunk, n_split);
 }
 
 // smem bytes of the scan at a ring for rows of d prec elements; 0 for a

@@ -37,7 +37,8 @@ counted on ``wide_launches`` too; at bf16 and int8 with r <= WIDE_MAX_R
 dots by ``mma.sync``), counted on ``mma_launches`` too; at fp32 with
 r > WIDE_MAX_R its large-r tier (``csrc/knn_large.cuh``: the same scan
 storing each (query, doc)'s score key, then a radix select and sort of
-the r best a (shard, query)), counted on ``large_launches`` too; at bf16
+the r best of each (shard, query) row by many CTAs a row,
+:func:`large_select`), counted on ``large_launches`` too; at bf16
 and int8 with r > WIDE_MAX_R (a reduced-precision k above 1024) the
 large-r tier behind the tensor-core tier's dots
 (``csrc/knn_large_mma.cuh``: each key is the bits the tensor-core tier
@@ -101,11 +102,22 @@ WIDE_QUERY_TILE = 8
 WIDE_RINGS = ((3, 16384), (2, 16384), (2, 8192))
 WIDE_STEP = 1024
 WIDE_MAX_CAP = 4096
+# the large-r tier's select (csrc/knn_large.cuh): its sorts (the C code's
+# order), the keys a tile CTA sorts, the winners a rank CTA counts for and
+# the least slice it counts them over, and the largest r its plan sorts
+# by rank (on the card the rank's r^2 compares beat the tiles and merge
+# rounds at 10,000 winners and lose at 20,000: PERF.md)
+LARGE_SORTS = ("merge", "rank")
+LARGE_TILE = 4096
+_RANK_BLOCK = 1024
+_RANK_MIN_SPAN = 64
+LARGE_RANK_MAX_R = 3 * LARGE_TILE
 
 # launches of the kernel made by pool_scan or _launch_tile (any design),
 # and of the list scan, of its wide tier, of the wide tier's tensor-core
 # scan, of the large-r tier (any precision), of the large-r tier's
-# tensor-core scan and of the tile scan alone
+# tensor-core scan, of the tile scan alone, of the large-r tier's
+# multi-CTA select and of its one-CTA yardstick
 launches = cuda_lib.LaunchCounter()
 list_launches = cuda_lib.LaunchCounter()
 wide_launches = cuda_lib.LaunchCounter()
@@ -113,6 +125,8 @@ mma_launches = cuda_lib.LaunchCounter()
 large_launches = cuda_lib.LaunchCounter()
 large_mma_launches = cuda_lib.LaunchCounter()
 tile_launches = cuda_lib.LaunchCounter()
+large_select_launches = cuda_lib.LaunchCounter()
+yardstick_launches = cuda_lib.LaunchCounter()
 
 
 def fused_pool_width(k: int, score_precision: str) -> int:
@@ -406,20 +420,33 @@ def _library() -> ctypes.CDLL:
     lib.knn_fused_large_smem_bytes.restype = ctypes.c_size_t
     lib.knn_fused_large_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.knn_fused_large_select_smem_bytes.restype = ctypes.c_size_t
-    lib.knn_fused_large_select_smem_bytes.argtypes = [ctypes.c_int]
-    lib.knn_fused_large_sort_slots.restype = ctypes.c_int
-    lib.knn_fused_large_sort_slots.argtypes = [ctypes.c_int]
-    lib.knn_fused_large_launch.restype = ctypes.c_int
-    lib.knn_fused_large_launch.argtypes = ([ctypes.c_void_p] * 10
-                                           + [ctypes.c_int] * 10
-                                           + [ctypes.c_void_p])
+    lib.knn_fused_large_select_smem_bytes.argtypes = []
+    lib.knn_fused_large_state_words.restype = ctypes.c_int
+    lib.knn_fused_large_state_words.argtypes = []
+    lib.knn_fused_large_slice_bins.restype = ctypes.c_int
+    lib.knn_fused_large_slice_bins.argtypes = []
+    lib.knn_fused_large_scan_launch.restype = ctypes.c_int
+    lib.knn_fused_large_scan_launch.argtypes = ([ctypes.c_void_p] * 6
+                                                + [ctypes.c_int] * 9
+                                                + [ctypes.c_void_p])
+    lib.knn_fused_large_select_launch.restype = ctypes.c_int
+    lib.knn_fused_large_select_launch.argtypes = ([ctypes.c_void_p] * 8
+                                                  + [ctypes.c_int] * 8
+                                                  + [ctypes.c_void_p])
+    lib.knn_fused_large_yardstick_smem_bytes.restype = ctypes.c_size_t
+    lib.knn_fused_large_yardstick_smem_bytes.argtypes = [ctypes.c_int]
+    lib.knn_fused_large_yardstick_slots.restype = ctypes.c_int
+    lib.knn_fused_large_yardstick_slots.argtypes = [ctypes.c_int]
+    lib.knn_fused_large_yardstick_launch.restype = ctypes.c_int
+    lib.knn_fused_large_yardstick_launch.argtypes = ([ctypes.c_void_p] * 5
+                                                     + [ctypes.c_int] * 4
+                                                     + [ctypes.c_void_p])
     lib.knn_fused_large_mma_smem_bytes.restype = ctypes.c_size_t
     lib.knn_fused_large_mma_smem_bytes.argtypes = [ctypes.c_int] * 4
-    lib.knn_fused_large_mma_launch.restype = ctypes.c_int
-    lib.knn_fused_large_mma_launch.argtypes = ([ctypes.c_void_p, ctypes.c_int]
-                                               + [ctypes.c_void_p] * 10
-                                               + [ctypes.c_int] * 10
-                                               + [ctypes.c_void_p])
+    lib.knn_fused_large_mma_scan_launch.restype = ctypes.c_int
+    lib.knn_fused_large_mma_scan_launch.argtypes = (
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
+        + [ctypes.c_int] * 9 + [ctypes.c_void_p])
     return lib
 
 
@@ -494,31 +521,53 @@ def launch_wide_mma(lib, v_x, norms_sq, valid, q_x, qsq, scale, *, r: int,
                           qt=WIDE_QUERY_TILE, plan=plan)
 
 
-def launch_large(lib, v, norms_sq, valid, q, qsq, scale=None, *, r: int,
-                 similarity: str, score_precision: str = "fp32"):
-    """The large-r tier over [S, n, d] shards through ``lib`` (K1's
-    library): (vals [S, B, r], ids [S, B, r]). f32 rows take its FFMA scan,
-    bf16 and int8 rows (with their per-shard ``scale``) its tensor-core
-    scan; both feed the same select. Pads and aligns the rows, plans the
-    ring (:func:`large_plan`), cuts the shards into ranges of about one
-    wave for 8-query tiles, and allocates the keys [S, B, n] and, where the
-    select sorts in device memory, its [S, B, P] rows (P from the
-    library's ``knn_fused_large_sort_slots``)."""
+def large_select_geometry(S: int, n: int, B: int,
+                          sms: int) -> tuple[int, int]:
+    """(G, chunk) of the large-r tier's multi-CTA select: each of the S * B
+    rows cut into G slices of chunk docs (a multiple of 32; the last
+    slice ragged), G about two waves of CTAs over the rows and at least 2
+    wherever a row has more than 32 docs."""
+    want = max(2, -(-2 * sms // (S * B)))
+    chunk = -(-(-(-n // want)) // 32) * 32
+    return -(-n // chunk), chunk
+
+
+def large_sort_plan(r: int) -> str:
+    """The select's sort at r: "rank" (each winner's slot counted by many
+    CTAs, then placed) up to ``LARGE_RANK_MAX_R`` winners, "merge" (tiles of
+    ``LARGE_TILE`` sorted in shared memory, then merge rounds) above."""
+    return "rank" if r <= LARGE_RANK_MAX_R else "merge"
+
+
+def rank_slices(S: int, B: int, r: int, sms: int) -> int:
+    """C, the slices of the winners a rank CTA counts over: about two waves
+    of CTAs in all (each CTA ``_RANK_BLOCK`` winners against one slice),
+    with slices of at least ``_RANK_MIN_SPAN`` winners, so the ranks take
+    few atomics."""
+    blocks = -(-r // _RANK_BLOCK)
+    return max(1, min(-(-r // _RANK_MIN_SPAN),
+                      -(-2 * sms // (blocks * S * B))))
+
+
+def large_keys(lib, v, norms_sq, valid, q, qsq, scale=None, *,
+               similarity: str, score_precision: str = "fp32"):
+    """The large-r tier's scan over [S, n, d] shards through ``lib`` (K1's
+    library): every (query, doc)'s score key, keys [S, B, n] int32 (the
+    u32 bits; 0 for a dead doc). f32 rows take its FFMA scan, bf16 and int8
+    rows (with their per-shard ``scale``) its tensor-core scan. Pads and
+    aligns the rows, plans the ring (:func:`large_plan`) and cuts the
+    shards into ranges of about one wave for 8-query tiles."""
     v, q = rows_in_16_bytes(v, q)
     S, n, d = v.shape
     B = q.shape[0]
     if S > _MAX_GRID or -(-B // WIDE_QUERY_TILE) > _MAX_GRID:
         raise ValueError(f"grid too large: S={S} B={B}")
-    smem = lib.knn_fused_large_select_smem_bytes(r)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"the large-r tier's select needs {smem} bytes of "
-                         f"shared memory at r={r} (at most {_MAX_SMEM})")
     if score_precision == "fp32":
-        launch = lib.knn_fused_large_launch
+        launch = lib.knn_fused_large_scan_launch
         stages, words = large_plan(d, lib.knn_fused_large_smem_bytes)
     else:
         prec = _PREC_CODE[score_precision]
-        launch = functools.partial(lib.knn_fused_large_mma_launch,
+        launch = functools.partial(lib.knn_fused_large_mma_scan_launch,
                                    scale.data_ptr(), prec)
         stages, words = large_plan(
             d, functools.partial(lib.knn_fused_large_mma_smem_bytes, prec),
@@ -527,24 +576,109 @@ def launch_large(lib, v, norms_sq, valid, q, qsq, scale=None, *, r: int,
     chunk, n_split = list_geometry(S, n, -(-B // WIDE_QUERY_TILE),
                                    sm_count(dev))
     keys = torch.empty((S, B, n), dtype=torch.int32, device=dev)
-    slots = lib.knn_fused_large_sort_slots(r)
+    err = launch(
+        v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(), q.data_ptr(),
+        qsq.data_ptr(), keys.data_ptr(), S, n, d, B, _SIM_CODE[similarity],
+        stages, words, chunk, n_split,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"large-r tier scan failed: cudaError {err}")
+    return keys
+
+
+def large_select(lib, keys, r: int, sort: str | None = None):
+    """The large-r tier's multi-CTA select through ``lib``: the r best of
+    every (shard, query) row of keys [S, B, n] under (score desc, doc id
+    asc), sorted, (vals [S, B, r], ids [S, B, r]) with (-inf, -1) past the
+    live count. G CTAs a row (:func:`large_select_geometry`); the sort by
+    :func:`large_sort_plan` unless ``sort`` names one. Allocates the rows'
+    state (zeroed), each CTA's histogram of the last level, the winners
+    and the sort's scratch."""
+    S, B, n = keys.shape
+    if S > _MAX_GRID or B > _MAX_GRID or r < 1:
+        raise ValueError(f"unsupported select S={S} B={B} r={r}")
+    smem = lib.knn_fused_large_select_smem_bytes()
+    if smem > _MAX_SMEM:
+        raise ValueError(f"the large-r tier's select needs {smem} bytes of "
+                         f"shared memory (at most {_MAX_SMEM})")
+    sort = sort or large_sort_plan(r)
+    dev = keys.device
+    sms = sm_count(dev)
+    G, chunk = large_select_geometry(S, n, B, sms)
+    # the rows' state and, for the rank, the ranks: one zeroed buffer
+    words = S * B * lib.knn_fused_large_state_words()
+    zeroed = torch.zeros(words + (S * B * r if sort == "rank" else 0),
+                         dtype=torch.int32, device=dev)
+    state = zeroed[:words]
+    rank = zeroed[words:] if sort == "rank" else None
+    last_bins = torch.empty((S, B, G, lib.knn_fused_large_slice_bins()),
+                            dtype=torch.int32, device=dev)
+    win = torch.empty((S, B, r), dtype=torch.int64, device=dev)
+    tmp = None
+    n_slices = 1
+    if sort == "rank":
+        n_slices = rank_slices(S, B, r, sms)
+    elif r > LARGE_TILE:
+        tmp = torch.empty((S, B, r), dtype=torch.int64, device=dev)
+    vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
+    ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
+    err = lib.knn_fused_large_select_launch(
+        keys.data_ptr(), state.data_ptr(), last_bins.data_ptr(),
+        win.data_ptr(),
+        tmp.data_ptr() if tmp is not None else None,
+        rank.data_ptr() if rank is not None else None,
+        vals.data_ptr(), ids.data_ptr(), S, n, B, r, G, chunk,
+        LARGE_SORTS.index(sort), n_slices,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"large-r tier select failed: cudaError {err}")
+    large_select_launches.add()
+    return vals, ids
+
+
+def large_select_yardstick(lib, keys, r: int):
+    """The earlier one-CTA-a-row select over the same keys: the yardstick timed
+    beside :func:`large_select`; no shape takes it. Allocates its device
+    sort rows where its winners pass 16,384."""
+    S, B, n = keys.shape
+    smem = lib.knn_fused_large_yardstick_smem_bytes(r)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"the yardstick select needs {smem} bytes of "
+                         f"shared memory at r={r} (at most {_MAX_SMEM})")
+    dev = keys.device
+    slots = lib.knn_fused_large_yardstick_slots(r)
+    sort_v = sort_i = None
     if slots:
         sort_v = torch.empty((S, B, slots), dtype=torch.float32, device=dev)
         sort_i = torch.empty((S, B, slots), dtype=torch.int32, device=dev)
-    else:
-        sort_v = sort_i = None
     vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
     ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
-    err = launch(
-        v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(), q.data_ptr(),
-        qsq.data_ptr(), keys.data_ptr(),
+    err = lib.knn_fused_large_yardstick_launch(
+        keys.data_ptr(),
         sort_v.data_ptr() if sort_v is not None else None,
         sort_i.data_ptr() if sort_i is not None else None,
-        vals.data_ptr(), ids.data_ptr(), S, n, d, B, r,
-        _SIM_CODE[similarity], stages, words, chunk, n_split,
+        vals.data_ptr(), ids.data_ptr(), S, n, B, r,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"large-r tier launch failed: cudaError {err}")
+        raise RuntimeError(f"yardstick select failed: cudaError {err}")
+    yardstick_launches.add()
+    return vals, ids
+
+
+def key_scores(keys):
+    """The f32 scores of order-preserving score keys (int32 holding the u32
+    bits, as the large-r scan writes them): -inf for 0."""
+    neg = keys < 0  # the top bit: a score >= +0.0
+    bits = torch.where(neg, keys & 0x7FFFFFFF, ~keys)
+    return torch.where(keys == 0, _NEG_INF, bits.view(torch.float32))
+
+
+def plain_large_select(keys, r: int):
+    """Plain PyTorch version of :func:`large_select`: the keys' scores and a
+    stable top-r (ties to the lower doc id), (-inf, -1) past the live
+    count."""
+    vals, ids = stable_topk(key_scores(keys), r)
+    ids = torch.where(vals > _NEG_INF, ids, -1).to(torch.int32)
     return vals, ids
 
 
@@ -556,9 +690,10 @@ def _launch_kernel(v_x, norms_sq, valid, q_x, qsq, scale, *, r, similarity,
     tier = scan_tier(score_precision, r)
     lib = _library()
     if tier in ("large", "large_mma"):
-        vals, ids = launch_large(lib, v_x, norms_sq, valid, q_x, qsq, scale,
-                                 r=r, similarity=similarity,
-                                 score_precision=score_precision)
+        keys = large_keys(lib, v_x, norms_sq, valid, q_x, qsq, scale,
+                          similarity=similarity,
+                          score_precision=score_precision)
+        vals, ids = large_select(lib, keys, r)
         large_launches.add()
         if tier == "large_mma":
             large_mma_launches.add()
