@@ -7,7 +7,8 @@ one NVIDIA H100 by default; every entry point takes an explicit ``device``
 and runs on the CPU only when asked (see backend.py). The hot kernels are
 hand-written CUDA under ``csrc/``, built at first use (ops/cuda_lib.py).
 
-Ported so far: exact-kNN ``_search`` on one node (node.TorchNode).
+Ported so far: kNN ``_search`` on one node (node.TorchNode) and the
+REST server over it (rest/http.py).
 """
 
 __version__ = "0.1.0"

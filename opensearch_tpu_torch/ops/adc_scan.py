@@ -16,7 +16,8 @@ position asc), with (-inf, -1) past the live-candidate count.
 Dispatch: :func:`adc_pool_scan` launches the kernel for CUDA tensors (or
 raises) and runs :func:`plain_adc_pool` for CPU tensors. The policy value
 "pallas" means the kernel's wrapper, "xla" the plain scan, as in the
-reference.
+reference. :func:`adc_topr_auto` is profiled
+(search/profile.profiled_kernel) as the reference's "ivfpq_adc_pallas".
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
 from opensearch_tpu_torch.ops import adc_lut, cuda_lib, ivfpq
 from opensearch_tpu_torch.ops import knn as knn_ops
 from opensearch_tpu_torch.ops.topk import stable_topk
+from opensearch_tpu_torch.search.profile import profiled_kernel
 
 _NEG_INF = float("-inf")
 _PREC_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -323,6 +325,7 @@ def fused_adc_search(coarse, codebooks, codes, ids, mask, vectors, norms_sq,
     return ivfpq.pad_to_k(best, best_ids, k)
 
 
+@profiled_kernel("ivfpq_adc_pallas")
 def adc_topr_auto(coarse, codebooks, codes, ids, mask, vectors, norms_sq,
                   valid, queries, probes, *, k: int, rerank: int,
                   similarity: str = "l2_norm", adc_precision: str = "fp32",

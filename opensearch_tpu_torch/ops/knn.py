@@ -7,7 +7,8 @@ plugin's conventions so `_score` values are drop-in comparable:
   dot/inner -> d >= 0 ? d + 1 : 1 / (1 - d)  ("innerproduct")
 
 float32 products run in full float32 (backend.pin_float32): TF32 would
-flip near-tie neighbours on the exact path.
+flip near-tie neighbours on the exact path. Both entry points are
+profiled (search/profile.profiled_kernel) under the reference's names.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
+from opensearch_tpu_torch.search.profile import profiled_kernel
 
 L2 = "l2_norm"
 COSINE = "cosine"
@@ -34,6 +36,7 @@ def canonical_similarity(name: str) -> str:
     return sim
 
 
+@profiled_kernel("knn_raw_similarity")
 def raw_similarity(
     queries: torch.Tensor,     # [B, d] float32
     vectors: torch.Tensor,     # [n_pad, d] float32
@@ -65,6 +68,7 @@ def knn_score(raw: torch.Tensor, similarity: str) -> torch.Tensor:
     return torch.where(raw >= 0, raw + 1.0, 1.0 / (1.0 - raw))
 
 
+@profiled_kernel("knn_exact_scores")
 def exact_knn_scores(
     queries: torch.Tensor,
     vectors: torch.Tensor,

@@ -56,6 +56,9 @@ The exact fp32 rescore of a reduced-precision pool and every |q|^2 go
 through ``ops/knn_rescore`` (``csrc/knn_rescore.cu``), which sums each dot
 in one order whatever the batch, so a batched search gets the bits of a
 solo one.
+
+:func:`knn_fused_stacked` and :func:`knn_fused_auto` are profiled
+(search/profile.profiled_kernel) as the reference's "knn_fused_pallas".
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ import torch
 from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
 from opensearch_tpu_torch.ops import cuda_lib, knn_rescore
 from opensearch_tpu_torch.ops.topk import stable_topk
+from opensearch_tpu_torch.search.profile import profiled_kernel
 
 FK_BLOCK = 1024   # the reference's doc block: fixes n_pad, hence k_eff and R
 FUSED_MAX_K = 128
@@ -791,6 +795,7 @@ def _fused_rescore(queries, vectors, norms_sq, valid, cand, *, k, similarity,
     return vals, ids
 
 
+@profiled_kernel("knn_fused_pallas")
 def knn_fused_stacked(
     vectors: torch.Tensor,    # [S, n, d] f32
     norms_sq: torch.Tensor,   # [S, n] f32
@@ -857,6 +862,7 @@ def knn_fused_shard(vectors, norms_sq, valid, queries, *, k: int,
                      impl=impl)
 
 
+@profiled_kernel("knn_fused_pallas")
 def knn_fused_auto(vectors, norms_sq, valid, queries, *, k: int,
                    similarity: str = "l2_norm",
                    score_precision: str = "fp32",

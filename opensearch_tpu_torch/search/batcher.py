@@ -30,14 +30,17 @@ whose rows it truncates; it never opens one. The pending queue is bounded
 (index/pressure.QueuePressure): past the bound a request is shed with
 RejectedExecutionException (HTTP 429).
 
-Left out, as the port's executor leaves out the profiler and roofline
-calls: the residency-ledger compile accounting and the tracing span events
-of a flush, the metrics registry, the ``retraced`` flag (PyTorch runs
-eagerly: nothing is traced), the launch wall time each outcome carried
-for the profiler, and the cross-shard counters (no mesh-wide launch
-dispatches through the batcher yet). Left out until the port classifies
-requests into lanes and has a settings path: the background lane's wider
-window and ``apply_settings``.
+Each outcome carries the launch's wall time (fenced by the launch's copy
+of its results to the host) and whether it was the first launch under its
+signature, for the profiler (search/profile.py): a launch closure returns
+its per-payload results, or (results, retraced) as the reference's do. The
+active priority lane (search/lanes.py) widens the window of a background
+entry, as in the reference.
+
+Left out until telemetry and the settings path are ported: the
+residency-ledger compile accounting and the tracing span events of a
+flush, the metrics registry, ``apply_settings``, and the cross-shard
+counters (no mesh-wide launch dispatches through the batcher yet).
 
 Settings (the defaults of ``configure``):
   search.knn.batch.max_wait_ms     flush deadline ceiling (default 2ms)
@@ -50,6 +53,7 @@ Settings (the defaults of ``configure``):
 from __future__ import annotations
 
 import threading
+import time
 from typing import Any, Callable, Sequence
 
 from opensearch_tpu_torch.common import timeutil
@@ -81,6 +85,10 @@ AUTO_TUNE_SETTING = Setting.bool_setting(
 # skip the wait window for idle-device arrivals
 _SOLO_EWMA_THRESHOLD = 1.25
 _EWMA_DECAY = 0.7
+# background-lane entries accept this multiple of the configured wait:
+# they are throughput traffic, and a longer window earns bigger merges;
+# interactive entries in the same bucket still flush it at THEIR deadline
+_BACKGROUND_WAIT_FACTOR = 4
 # per-key tuner table bound (LRU)
 _MAX_TUNERS = 256
 
@@ -149,7 +157,8 @@ class _KeyTuner:
 
 class _Entry:
     __slots__ = ("payload", "enq_ms", "taken", "done", "result", "error",
-                 "batch_size", "wait_ms", "launch", "rank", "tune_key")
+                 "batch_size", "wait_ms", "launch", "rank", "tune_key",
+                 "wall_ns", "retraced")
 
     def __init__(self, payload: Any, enq_ms: int, launch=None, rank: int = 0,
                  tune_key: Any = None):
@@ -161,6 +170,8 @@ class _Entry:
         self.error: BaseException | None = None
         self.batch_size = 1
         self.wait_ms = 0
+        self.wall_ns = 0
+        self.retraced = False
         # the entry's own launch closure and its k-bucket rank: a batch is
         # launched by the closure of its largest-rank member, so a smaller-k
         # joiner can ride a bigger-k launch but never shrink one
@@ -182,12 +193,32 @@ class _Bucket:
 class DispatchOutcome:
     """What one query learns about the launch that served it."""
 
-    __slots__ = ("value", "merged", "wait_ms")
+    __slots__ = ("value", "merged", "wall_ns", "retraced", "wait_ms")
 
-    def __init__(self, value: Any, merged: int, wait_ms: int):
+    def __init__(self, value: Any, merged: int, wall_ns: int,
+                 retraced: bool, wait_ms: int):
         self.value = value
         self.merged = merged          # live queries in the batch
+        self.wall_ns = wall_ns        # fenced wall of the whole launch
+        self.retraced = retraced
         self.wait_ms = wait_ms        # time this query spent queued
+
+    @property
+    def kernel_share_ns(self) -> int:
+        """This query's share of the fenced kernel time (profiler entry)."""
+        return self.wall_ns // max(self.merged, 1)
+
+
+def _launch_timed(launch, payloads: list) -> tuple[list, bool, int]:
+    """(per-payload results, retraced, wall ns) of one launch: a closure
+    returns its results, or (results, retraced)."""
+    t0 = time.perf_counter_ns()
+    out = launch(payloads)
+    wall_ns = time.perf_counter_ns() - t0
+    if isinstance(out, tuple):
+        results, retraced = out
+        return results, bool(retraced), wall_ns
+    return out, False, wall_ns
 
 
 class KnnDispatchBatcher:
@@ -304,7 +335,8 @@ class KnnDispatchBatcher:
         """Run `payload` through the batch identified by `key`.
 
         `launch(payloads)` performs ONE launch for the whole batch (padding
-        the width as it sees fit) and returns the per-payload results.
+        the width as it sees fit) and returns the per-payload results, or
+        (results, retraced).
         Every payload sharing a key MUST be servable by any member's launch
         closure: the key is the caller's promise that the kernel and its
         device-resident arguments are identical. key=None means "not
@@ -315,9 +347,15 @@ class KnnDispatchBatcher:
         request may ride if one already has a batch forming; `rank` orders
         the k buckets, and a batch launches with its largest-rank member's
         closure. `tune_key` names the generation-free key family of the
-        wait tuner (defaults to `key`)."""
+        wait tuner (defaults to `key`). The active priority lane
+        (search/lanes.py) widens the window for background entries."""
         if key is None or not self.enabled or self.max_batch_size <= 1:
             return self._solo(payload, launch, kind)
+        from opensearch_tpu_torch.search import lanes as lanes_mod
+
+        # the lanes kill switch governs the wait widening too
+        background = (lanes_mod.default_config.enabled
+                      and lanes_mod.active_lane() == lanes_mod.BACKGROUND)
         if tune_key is None:
             tune_key = key
         with self._cond:
@@ -331,6 +369,11 @@ class KnnDispatchBatcher:
                 eff_wait = tuner.effective_wait(self.max_wait_ms)
             else:
                 eff_wait = self.max_wait_ms
+            if background:
+                # never BELOW the configured ceiling, so a tuned-down
+                # interactive window does not shrink it
+                eff_wait = max(self.max_wait_ms, eff_wait) \
+                    * _BACKGROUND_WAIT_FACTOR
             deadline = entry.enq_ms + max(eff_wait, 0)
             for alt in alt_keys:
                 alt_bucket = self._buckets.get(alt)
@@ -372,14 +415,15 @@ class KnnDispatchBatcher:
                 if entry.error is not None:
                     raise entry.error
                 return DispatchOutcome(entry.result, entry.batch_size,
+                                       entry.wall_ns, entry.retraced,
                                        entry.wait_ms)
 
     # -- internals ---------------------------------------------------------
 
     def _solo(self, payload: Any, launch, kind: str) -> DispatchOutcome:
-        results = launch([payload])
+        results, retraced, wall_ns = _launch_timed(launch, [payload])
         self._record_launch(1, kind)
-        return DispatchOutcome(results[0], 1, 0)
+        return DispatchOutcome(results[0], 1, wall_ns, retraced, 0)
 
     def _tuner_locked(self, tune_key: Any) -> _KeyTuner:
         """The key family's controller (caller holds the lock); LRU touch
@@ -447,7 +491,8 @@ class KnnDispatchBatcher:
         # result is a prefix of that launch's rows
         launch = max(batch, key=lambda e: e.rank).launch
         try:
-            results = launch([e.payload for e in batch])
+            results, retraced, wall_ns = _launch_timed(
+                launch, [e.payload for e in batch])
         except BaseException as err:
             with self._cond:
                 for e in batch:
@@ -459,12 +504,15 @@ class KnnDispatchBatcher:
             for e, r in zip(batch, results):
                 e.result = r
                 e.batch_size = len(batch)
+                e.wall_ns = wall_ns
+                e.retraced = retraced
                 e.done = True
             self._finish_locked(key, batch)
         self._record_launch(len(batch), kind)
         if not any(e is own for e in batch):
             return None
-        return DispatchOutcome(own.result, len(batch), own.wait_ms)
+        return DispatchOutcome(own.result, len(batch), wall_ns, retraced,
+                               own.wait_ms)
 
     def _finish_locked(self, key: Any, batch: list[_Entry]) -> None:
         merged = len(batch)

@@ -43,13 +43,21 @@ through its postings), ``terms``, ``range`` (numeric, date and keyword),
 ``exists``, ``ids``, ``bool``, ``constant_score``, ``match_all`` and
 ``match_none``, as the reference's ``execute(node).mask``; any other node
 in a kNN filter raises "not yet ported" with its name. Their scores come
-with BM25. The profiler, roofline and residency-ledger calls of the
+with BM25.
+
+Under ``"profile": true`` (search/profile.py) every executed node is an
+operator of the shard's profile tree, each batched launch records its
+share of the fenced launch wall under the reference's kernel names
+(``knn_fused_pallas``, ``knn_topk_streaming``, ``knn_exact_scores``,
+``ivfpq_adc_pallas`` / ``ivfpq_search``), and the shard's top-k cut is
+its collector time. The roofline and residency-ledger calls of the
 reference are left out.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from dataclasses import dataclass, field as dc_field
 from typing import Any
 
@@ -69,7 +77,7 @@ from opensearch_tpu_torch.index.mapper import (
 )
 from opensearch_tpu_torch.index.segment import i64_query_words, pad_window
 from opensearch_tpu_torch.ops import filters
-from opensearch_tpu_torch.search import batcher
+from opensearch_tpu_torch.search import batcher, profile
 from opensearch_tpu_torch.search import query_dsl as q
 
 I64_MIN = -(2**63)
@@ -231,27 +239,41 @@ class ShardContext:
             "nprobe", vf.nprobe_default))
         nprobe = ann_mod.bucket_nprobe(nprobe_req, vf.ann.params.nlist)
         gen = self.snapshot.generation
+        # the profiler's kernel family: the scan K2 serves, or the
+        # monolithic lowering
+        family = "ivfpq_adc_pallas" if kernel == "pallas" else "ivfpq_search"
 
         def ann_key(kb: int):
             return ("ivfpq", id(vf), vf.ann.build_generation, gen, kb, nprobe,
                     sim, precision, mult, kernel)
 
         def launch_ann(rows):
-            b_vals, b_ids = ivfpq.search_index(
-                vf.ann, vf.vectors, vf.norms_sq, valid, _pad_query_batch(rows),
-                k=k_bucket, nprobe=nprobe, similarity=vf.similarity,
-                adc_precision=precision, rescore_multiplier=mult,
-                kernel=kernel)
-            return _rows(b_vals, b_ids, len(rows))
+            q_batch = _pad_query_batch(rows)
+            with profile.profiling(None):
+                b_vals, b_ids = ivfpq.search_index(
+                    vf.ann, vf.vectors, vf.norms_sq, valid, q_batch,
+                    k=k_bucket, nprobe=nprobe, similarity=vf.similarity,
+                    adc_precision=precision, rescore_multiplier=mult,
+                    kernel=kernel)
+            return _rows(b_vals, b_ids, len(rows)), profile.signature_retraced(
+                "ivfpq_search", (vf.vectors, q_batch),
+                (k_bucket, nprobe, precision, mult, kernel))
 
         # cross-k coalescing: this request may ride a forming batch of the
         # next-larger k buckets (its rows truncate for free); it never
         # creates one
-        return batcher.dispatch(
+        out = batcher.dispatch(
             ann_key(k_bucket), qv, launch_ann, kind="ann", rank=k_bucket,
             alt_keys=(ann_key(k_bucket * 2), ann_key(k_bucket * 4)),
             tune_key=("ivfpq", id(self.mapper_service), node.field, k_bucket),
-        ).value
+        )
+        _record_kernel(family, out, qv, {
+            "adc_precision": precision,
+            "rescore_candidates": ivfpq.rescore_pool(
+                vf.ann, k_bucket, nprobe,
+                ivfpq.default_rerank(k_bucket, mult)),
+            "nprobe": nprobe, "kernel": kernel})
+        return out.value
 
     def _exact_dispatch(self, host, dev, vf, valid, qv: np.ndarray,
                         field: str, k_bucket: int, sim: str,
@@ -289,19 +311,26 @@ class ShardContext:
             def launch_fused(rows):
                 q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
                     vf.vectors.device)
-                b_vals, b_ids = knn_fused.knn_fused_auto(
-                    vf.vectors, vf.norms_sq, valid, q_batch, k=k_bucket,
-                    similarity=sim, score_precision=score_precision,
-                    impl=exact_kernel)
-                return _rows(b_vals, b_ids, len(rows))
+                with profile.profiling(None):
+                    b_vals, b_ids = knn_fused.knn_fused_auto(
+                        vf.vectors, vf.norms_sq, valid, q_batch, k=k_bucket,
+                        similarity=sim, score_precision=score_precision,
+                        impl=exact_kernel)
+                return _rows(b_vals, b_ids, len(rows)), \
+                    profile.signature_retraced(
+                        "knn_fused_pallas", (vf.vectors, q_batch),
+                        (k_bucket, sim, score_precision, exact_kernel))
 
-            vals, ids = batcher.dispatch(
+            out = batcher.dispatch(
                 fused_key(k_bucket), qv, launch_fused, rank=k_bucket,
                 alt_keys=tuple(fused_key(kb)
                                for kb in (k_bucket * 2, k_bucket * 4)
                                if kb <= knn_fused.FUSED_MAX_K
                                and not filtered),
-                tune_key=("knn_fused", *tune, k_bucket)).value
+                tune_key=("knn_fused", *tune, k_bucket))
+            _record_kernel("knn_fused_pallas", out, qv, {
+                "score_precision": score_precision, "kernel": exact_kernel})
+            vals, ids = out.value
             hit = ids >= 0
             scores[ids[hit]] = vals[hit]
             _count_knn_path("fused")
@@ -317,15 +346,22 @@ class ShardContext:
             def launch_streaming(rows):
                 q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
                     vf.vectors.device)
-                b_vals, b_ids = scan(vf.vectors, vf.norms_sq, valid, q_batch)
-                return _rows(b_vals, b_ids, len(rows))
+                with profile.profiling(None):
+                    b_vals, b_ids = scan(vf.vectors, vf.norms_sq, valid,
+                                         q_batch)
+                return _rows(b_vals, b_ids, len(rows)), \
+                    profile.signature_retraced(
+                        "knn_topk_streaming", (vf.vectors, q_batch),
+                        (k_bucket, sim, chunk))
 
-            vals, ids = batcher.dispatch(
+            out = batcher.dispatch(
                 stream_key(k_bucket), qv, launch_streaming, rank=k_bucket,
                 alt_keys=tuple(stream_key(kb)
                                for kb in (k_bucket * 2, k_bucket * 4)
                                if kb <= chunk and not filtered),
-                tune_key=("knn_topk_streaming", *tune, k_bucket)).value
+                tune_key=("knn_topk_streaming", *tune, k_bucket))
+            _record_kernel("knn_topk_streaming", out, qv)
+            vals, ids = out.value
             finite = np.isfinite(vals)
             scores[ids[finite]] = vals[finite]
             _count_knn_path("streaming")
@@ -334,17 +370,32 @@ class ShardContext:
             def launch_exact(rows):
                 q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
                     vf.vectors.device)
-                b_scores = knn_ops.exact_knn_scores(
-                    q_batch, vf.vectors, vf.norms_sq, valid,
-                    vf.similarity).cpu().numpy()
-                return [b_scores[i] for i in range(len(rows))]
+                with profile.profiling(None):
+                    b_scores = knn_ops.exact_knn_scores(
+                        q_batch, vf.vectors, vf.norms_sq, valid,
+                        vf.similarity).cpu().numpy()
+                return [b_scores[i] for i in range(len(rows))], \
+                    profile.signature_retraced(
+                        "knn_exact_scores", (vf.vectors, q_batch), (sim,))
 
-            scores = batcher.dispatch(
+            out = batcher.dispatch(
                 None if filtered else ("knn_exact_scores", id(vf), gen, sim),
                 qv, launch_exact,
-                tune_key=("knn_exact_scores", *tune)).value
+                tune_key=("knn_exact_scores", *tune))
+            _record_kernel("knn_exact_scores", out, qv)
+            scores = out.value
             _count_knn_path("materializing")
         return scores
+
+
+def _record_kernel(name: str, out, qv: np.ndarray,
+                   annotations: dict | None = None) -> None:
+    """A batched launch's share of its fenced wall, on the active
+    profiler's current operator (a merged launch splits evenly)."""
+    prof = profile.active()
+    if prof is not None:
+        prof.record_kernel(name, out.kernel_share_ns, int(qv.nbytes),
+                           out.retraced, annotations)
 
 
 def _rows(b_vals: torch.Tensor, b_ids: torch.Tensor, n: int) -> list:
@@ -649,7 +700,12 @@ class SegmentExecutor:
         if method is None:
             raise ParsingException(
                 f"unexecutable query node [{type(node).__name__}]")
-        return method(node)
+        prof = profile.active()
+        if prof is None:
+            return method(node)
+        # the same node across segments accumulates into one operator
+        with prof.operator(type(node).__name__, profile.describe_node(node)):
+            return method(node)
 
     def _exec_KnnQuery(self, node) -> HostNodeResult:
         # k applies per SHARD: the ShardContext caches the shard-wide
@@ -673,18 +729,24 @@ class SegmentExecutor:
 
 
 def execute_query_phase(snapshot, mapper_service, query_node,
-                        size: int) -> ShardQueryResult:
+                        size: int,
+                        min_score: float | None = None) -> ShardQueryResult:
     """The query phase of one shard, for the unsorted kNN path: every
     segment's selection, the total, and the shard's best `size` hits by
-    (-score, segment, doc)."""
+    (-score, segment, doc). `min_score` drops docs below it from the hits
+    AND the total, as the reference's query phase does."""
     ctx = ShardContext(snapshot, mapper_service)
     total = 0
     max_score: float | None = None
     all_hits: list[ShardHit] = []
+    prof = profile.active()
     for seg_idx, (host, dev) in enumerate(snapshot.segments):
         result = SegmentExecutor(ctx, host, dev).execute(query_node)
+        t_collect = time.perf_counter_ns()
         mask_h = result.host_mask
         scores_h = result.host_scores
+        if min_score is not None:
+            mask_h = mask_h & (scores_h >= np.float32(min_score))
         total += int(mask_h.sum())
         if size > 0:
             for d in np.nonzero(mask_h)[0]:
@@ -692,7 +754,13 @@ def execute_query_phase(snapshot, mapper_service, query_node,
                 all_hits.append(ShardHit(v, seg_idx, int(d)))
                 if max_score is None or v > max_score:
                     max_score = v
+        if prof is not None:
+            # the shard's top-k cut is this engine's collector
+            prof.collect_ns += time.perf_counter_ns() - t_collect
+    t_final = time.perf_counter_ns()
     all_hits.sort(key=lambda h: (-h.score, h.segment, h.doc))
+    if prof is not None:
+        prof.collect_ns += time.perf_counter_ns() - t_final
     return ShardQueryResult(hits=all_hits[:size], total=total,
                             max_score=max_score)
 
