@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
-                                    hybrid,large]
+                                    hybrid,large,lexical]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -225,7 +225,7 @@ Then:
    _msearch of 32 in one K1 launch; 8 HTTP clients x 8 searches on the
    stacked step and the per-shard route, each its solo search's bits;
    "profile": true of the in-process profile's shape with its K1 launch's
-   device_time_in_nanos > 0; a match query and GET /_cat/indices the 500
+   device_time_in_nanos > 0; a script query and GET /_cat/indices the 500
    "not yet ported" envelope on a connection that then serves a search;
    and the in-process p50 with the profiler's hooks and without.
    ``--phases rest`` builds index A and runs this phase alone.
@@ -263,6 +263,22 @@ library calls, logged as `large record` lines.
    subsample but at logged f32 ties, a batch twice the same bits,
    graft_entry.entry() on the card against its CPU run; the batch p50,
    QPS, device split by stage and the bound.
+
+5. lexical (also after main): the lexical query phase on index L
+   (lexical_main_phase: 200,000 docs of MS MARCO passage-shaped text over
+   a Zipf vocabulary, a title, a Zipf keyword tag, views, a date and cell
+   A's vectors rounded to eighths, one shard by host _bulk), 64 searches
+   of each of 18 types: match (or, and), match_phrase, multi_match,
+   query_string, bool, term, terms, range on views and on ts, prefix and
+   wildcard on the tag, a ts-desc sort paged 3 deep by search_after,
+   rescore (window 50, match_phrase), collapse on the tag, bool{should:
+   [match, knn]}, knn filtered by a match and by a prefix. Gates: BM25
+   ids the fp64 numpy BM25's but at logged pairs within the f32 bound;
+   totals the exact numpy counts; sorted pages numpy's order; each query
+   twice the same bits; the kNN types' K1 launches on the tier scan_tier
+   names and their hits under search.knn.kernel xla (K1's plain version)
+   bit for bit; 8 of each type over HTTP the in-process hits; _count the
+   total. ``--phases lexical`` runs it alone.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -2650,7 +2666,7 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
        merged batch beside concurrent_phase's in-process figures;
     6. "profile": true: the operator tree of the in-process profile's
        shape, the K1 launch's device_time_in_nanos > 0;
-    7. a match query and GET /_cat/indices answer the 500 envelope with
+    7. a script query and GET /_cat/indices answer the 500 envelope with
        their "not yet ported" reason, and the next search on the same
        connection succeeds.
     Then DELETE /rest_b, whose stacked slabs must leave the registry. Also
@@ -2889,8 +2905,8 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
         # 7. not yet ported, then the same connection serves a search
         envelopes = {}
         for method, path, req in (
-                ("POST", "/sift_a/_search", {"query": {"match": {
-                    "color": "red"}}}),
+                ("POST", "/sift_a/_search", {"query": {"script": {
+                    "script": {"source": "doc['age'].value > 10"}}}}),
                 ("GET", "/_cat/indices", None)):
             status, payload = client(method, path, req)
             reason = (payload or {}).get("error", {}).get("reason", "")
@@ -5459,6 +5475,716 @@ def large_records(kf, dev, seed: int, entry: dict, large_mma_entry: dict,
         for label, rec in {**large, **lm}.items()}
 
 
+# index L: MS MARCO passage-shaped text (BEIR, Thakur et al. 2021, Table 1:
+# 55.98 words a passage, 5.96 a query) over a Zipf vocabulary, beside
+# cell A's clustered vectors
+LEXICAL_DOCS = 200_000
+LEXICAL_VOCAB = 100_000
+LEXICAL_ZIPF_S = 1.07
+LEXICAL_TAGS = 1_000
+LEXICAL_QUERIES = 64         # searches of each type
+LEXICAL_TRUTH = 16           # of them held to the fp64 numpy BM25
+LEXICAL_HTTP = 8             # of them over HTTP
+LEXICAL_PER_SHARD = 16       # filtered kNN searches on the per-shard route
+BM25_K1, BM25_B = 1.2, 0.75
+LEXICAL_TS0 = 1_672_531_200_000   # 2023-01-01T00:00:00Z, epoch ms
+
+
+def lexical_word(i: int) -> str:
+    """The i-th synthetic word, letters only, so the standard analyzer
+    keeps it as one token."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    out = ""
+    i += 27
+    while i:
+        out = letters[i % 26] + out
+        i //= 26
+    return out
+
+
+def zipf_probs(n: int, s: float) -> np.ndarray:
+    p = np.arange(1, n + 1, dtype=np.float64) ** -s
+    return p / p.sum()
+
+
+class TokenIndex:
+    """An inverted index over a flat token CSR (tokens [T] int32 and each
+    doc's offsets [n+1]), built with numpy alone: the fp64 truth's view of
+    a text field, independent of the port's segment code."""
+
+    def __init__(self, tokens: np.ndarray, offsets: np.ndarray):
+        self.tokens, self.offsets = tokens, offsets
+        n = len(offsets) - 1
+        self.doc_len = np.diff(offsets).astype(np.float64)
+        doc_of = np.repeat(np.arange(n, dtype=np.int32), np.diff(offsets))
+        order = np.argsort(tokens, kind="stable")
+        self.sorted_docs = doc_of[order]
+        self.bounds = np.searchsorted(tokens[order],
+                                      np.arange(LEXICAL_VOCAB + 1))
+        self.n = n
+        self.avgdl = float(self.doc_len.sum()) / n
+
+    def postings(self, t: int) -> tuple[np.ndarray, np.ndarray]:
+        docs = self.sorted_docs[self.bounds[t]:self.bounds[t + 1]]
+        return np.unique(docs, return_counts=True)
+
+    def term_scores(self, t: int) -> tuple[np.ndarray, np.ndarray]:
+        """(docs, fp64 BM25 term scores) of term t: Lucene's idf and
+        idf * tf / (tf + k1 * (1 - b + b * dl / avgdl))."""
+        docs, tf = self.postings(t)
+        df = len(docs)
+        idf = math.log(1.0 + (self.n - df + 0.5) / (df + 0.5))
+        dl = self.doc_len[docs]
+        tf = tf.astype(np.float64)
+        return docs, idf * tf / (tf + BM25_K1 * (1 - BM25_B
+                                                 + BM25_B * dl / self.avgdl))
+
+    def match(self, terms: list[int]) -> tuple[np.ndarray, np.ndarray]:
+        """(fp64 scores [n], matched-term counts [n]) of an OR of terms."""
+        scores = np.zeros(self.n)
+        counts = np.zeros(self.n, np.int64)
+        for t in terms:
+            docs, s = self.term_scores(t)
+            scores[docs] += s
+            counts[docs] += 1
+        return scores, counts
+
+    def phrase(self, terms: list[int]) -> np.ndarray:
+        """bool [n]: docs holding the terms at consecutive positions."""
+        counts = self.match(terms)[1]
+        out = np.zeros(self.n, bool)
+        for d in np.nonzero(counts == len(terms))[0]:
+            seq = self.tokens[self.offsets[d]:self.offsets[d + 1]]
+            hit = np.ones(len(seq) - len(terms) + 1, bool) \
+                if len(seq) >= len(terms) else np.zeros(0, bool)
+            for j, t in enumerate(terms):
+                hit &= seq[j:len(seq) - len(terms) + 1 + j] == t
+            out[d] = bool(hit.any())
+        return out
+
+
+def lexical_corpus(rng, n: int) -> dict:
+    """Index L's columns from the seed: body token ids (28-84 a doc, mean
+    56, Zipf s = 1.07 over 100,000 words), title token ids (5-12), a Zipf
+    tag of 1,000 values, views (long, log-normal), ts (a date within a
+    year, ms) and cell A's clustered 128-d vectors rounded to eighths, so
+    every dot is exact in f32 in any order and K1 and its plain version
+    give the same bits."""
+    p = zipf_probs(LEXICAL_VOCAB, LEXICAL_ZIPF_S)
+    body_len = rng.integers(28, 85, n)
+    title_len = rng.integers(5, 13, n)
+    body = rng.choice(LEXICAL_VOCAB, int(body_len.sum()), p=p).astype(
+        np.int32)
+    title = rng.choice(LEXICAL_VOCAB, int(title_len.sum()), p=p).astype(
+        np.int32)
+    return {
+        "body": body, "body_off": np.concatenate(([0], np.cumsum(body_len))),
+        "title": title,
+        "title_off": np.concatenate(([0], np.cumsum(title_len))),
+        "tag": rng.choice(LEXICAL_TAGS, n,
+                          p=zipf_probs(LEXICAL_TAGS, LEXICAL_ZIPF_S)),
+        "views": np.minimum(rng.lognormal(6.0, 2.0, n), 2**40).astype(
+            np.int64),
+        "ts": LEXICAL_TS0 + rng.integers(0, 365 * 86_400_000, n),
+        "v": np.round(clustered(rng, n, DIM) * 8.0) / 8.0,
+    }
+
+
+def lexical_ingest(node, name: str, corpus: dict, words: list) -> float:
+    """Index L into one shard by host _bulk (5,000 docs a request) and one
+    refresh; returns the wall seconds."""
+    node.create_index(name, {
+        "settings": {"number_of_shards": 1},
+        "mappings": {"properties": {
+            "body": {"type": "text"}, "title": {"type": "text"},
+            "tag": {"type": "keyword"}, "views": {"type": "long"},
+            "ts": {"type": "date"},
+            "v": {"type": "knn_vector", "dimension": DIM,
+                  "similarity": "l2_norm"}}}})
+    body, bo = corpus["body"], corpus["body_off"]
+    title, to = corpus["title"], corpus["title_off"]
+    n = len(bo) - 1
+    t0 = time.perf_counter()
+    for s in range(0, n, 5000):
+        ops = []
+        for i in range(s, min(s + 5000, n)):
+            ops.append(("index", {"_index": name, "_id": str(i)}, {
+                "body": " ".join([words[t] for t in body[bo[i]:bo[i + 1]]]),
+                "title": " ".join([words[t]
+                                   for t in title[to[i]:to[i + 1]]]),
+                "tag": f"g{int(corpus['tag'][i])}",
+                "views": int(corpus["views"][i]),
+                "ts": int(corpus["ts"][i]),
+                "v": corpus["v"][i].tolist()}))
+        if node.bulk(ops, refresh=False)["errors"]:
+            raise AssertionError(f"bulk into [{name}] reported errors")
+    node.refresh(name)
+    return time.perf_counter() - t0
+
+
+def f32_bound(a: float, b: float, n_terms: int) -> float:
+    """How far f32 arithmetic can move two fp64 BM25 sums of n_terms terms
+    apart: each term's score takes about eight roundings (idf, avgdl, the
+    quotient, the products), the sum one more a term."""
+    return (8 + 2 * n_terms) * 2.0 ** -24 * (abs(a) + abs(b))
+
+
+def ranked_check(label: str, got: list, scores: np.ndarray, mask: np.ndarray,
+                 k: int, n_terms: int) -> list:
+    """Hit ids (ints) against the fp64 top-k by (-score, doc) over `mask`:
+    equal, apart from pairs whose fp64 scores lie within the f32 bound of
+    each other, each returned (and logged by the caller)."""
+    cand = np.nonzero(mask)[0]
+    want = cand[np.lexsort((cand, -scores[cand]))][:k].tolist()
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} hits, the fp64 BM25 "
+                             f"has {len(want)}")
+    pairs = []
+    for g, w in zip(got, want):
+        if g == w:
+            continue
+        if not mask[g] or abs(scores[g] - scores[w]) > f32_bound(
+                scores[g], scores[w], n_terms):
+            raise AssertionError(
+                f"{label}: hit {g} (fp64 {scores[g]!r}) where the fp64 "
+                f"BM25 ranks {w} ({scores[w]!r})")
+        pairs.append((g, w, float(scores[g]), float(scores[w])))
+    return pairs
+
+
+def lexical_bodies(rng, corpus: dict, words: list, n: int) -> dict:
+    """LEXICAL_QUERIES request bodies of each type, from the seed, each
+    with what the checks need: query terms drawn from a random doc (so a
+    query matches something), phrases of consecutive tokens whose terms are
+    not among the 100 most common, tags and bounds from the columns."""
+    bo, body = corpus["body_off"], corpus["body"]
+    tag_counts = np.bincount(corpus["tag"], minlength=LEXICAL_TAGS)
+    mid_tags = np.nonzero((tag_counts >= 30) & (tag_counts <= 2000))[0]
+    src = {"excludes": ["v"]}
+
+    def doc_terms(i: int) -> np.ndarray:
+        return body[bo[i]:bo[i + 1]]
+
+    def distinct(seq: np.ndarray, m: int) -> list[int]:
+        out = []
+        for t in seq[rng.permutation(len(seq))]:
+            if int(t) not in out:
+                out.append(int(t))
+            if len(out) == m:
+                break
+        return out
+
+    def phrase_terms(i: int, m: int) -> list[int] | None:
+        seq = doc_terms(i)
+        starts = [s for s in range(len(seq) - m + 1)
+                  if seq[s:s + m].min() >= 100
+                  and len(set(seq[s:s + m].tolist())) == m]
+        if not starts:
+            return None
+        s = starts[int(rng.integers(len(starts)))]
+        return [int(t) for t in seq[s:s + m]]
+
+    def text(terms: list[int]) -> str:
+        return " ".join(words[t] for t in terms)
+
+    def qvec(i: int) -> list:
+        q = corpus["v"][i] + np.round(
+            rng.standard_normal(DIM) * 0.4 * 8) / 8
+        return q.astype(np.float32).tolist()
+
+    out = {name: [] for name in (
+        "match_or", "match_and", "match_phrase", "multi_match",
+        "query_string", "bool", "term", "terms", "range_views", "range_ts",
+        "prefix", "wildcard", "sort_search_after", "rescore", "collapse",
+        "bool_knn", "knn_match_filter", "knn_prefix_filter")}
+    views_q = np.quantile(corpus["views"], [0.2, 0.5, 0.9])
+    while min(len(v) for v in out.values()) < LEXICAL_QUERIES:
+        i = int(rng.integers(n))
+        seq = doc_terms(i)
+        tag = f"g{int(corpus['tag'][i])}"
+        if len(out["match_or"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 6)
+            out["match_or"].append(({"query": {"match": {"body": text(
+                terms)}}}, {"terms": terms}))
+        if len(out["match_and"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 2)
+            out["match_and"].append(({"query": {"match": {"body": {
+                "query": text(terms), "operator": "and"}}}},
+                {"terms": terms}))
+        ph = phrase_terms(i, 2 + int(rng.integers(2)))
+        if ph is not None and len(out["match_phrase"]) < LEXICAL_QUERIES:
+            out["match_phrase"].append(({"query": {"match_phrase": {
+                "body": text(ph)}}}, {"terms": ph}))
+        if len(out["multi_match"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 3)
+            out["multi_match"].append(({"query": {"multi_match": {
+                "query": text(terms), "fields": ["body", "title"]}}},
+                {"terms": terms}))
+        if len(out["query_string"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 3)
+            out["query_string"].append(({"query": {"query_string": {
+                "query": f"{words[terms[0]]} AND ({words[terms[1]]} OR "
+                         f"{words[terms[2]]})", "fields": ["body"]}}},
+                {"terms": terms}))
+        if len(out["bool"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 3)
+            ts_cut = int(np.quantile(corpus["ts"], 0.1))
+            out["bool"].append(({"query": {"bool": {
+                "must": [{"match": {"body": text(terms)}}],
+                "filter": [{"term": {"tag": tag}},
+                           {"range": {"views": {"lte": int(views_q[2])}}}],
+                "must_not": [{"range": {"ts": {"lt": ts_cut}}}]}}},
+                {"terms": terms, "tag": int(corpus["tag"][i]),
+                 "views_lte": int(views_q[2]), "ts_lt": ts_cut}))
+        if len(out["term"]) < LEXICAL_QUERIES:
+            out["term"].append(({"query": {"term": {"tag": tag}}},
+                                {"tags": [int(corpus["tag"][i])]}))
+        if len(out["terms"]) < LEXICAL_QUERIES:
+            tags = sorted({int(corpus["tag"][i]),
+                           int(rng.integers(LEXICAL_TAGS)),
+                           int(rng.integers(LEXICAL_TAGS))})
+            out["terms"].append(({"query": {"terms": {
+                "tag": [f"g{t}" for t in tags]}}}, {"tags": tags}))
+        if len(out["range_views"]) < LEXICAL_QUERIES:
+            lo = int(corpus["views"][i])
+            hi = lo + int(views_q[1])
+            out["range_views"].append(({"query": {"range": {"views": {
+                "gte": lo, "lt": hi}}}}, {"gte": lo, "lt": hi}))
+        if len(out["range_ts"]) < LEXICAL_QUERIES:
+            lo = int(corpus["ts"][i])
+            hi = lo + 7 * 86_400_000
+            out["range_ts"].append(({"query": {"range": {"ts": {
+                "gt": lo, "lte": hi}}}}, {"gt": lo, "lte": hi}))
+        if len(out["prefix"]) < LEXICAL_QUERIES:
+            pre = tag[: 2 + int(rng.integers(2))]
+            out["prefix"].append(({"query": {"prefix": {"tag": pre}}},
+                                  {"prefix": pre}))
+        if len(out["wildcard"]) < LEXICAL_QUERIES and len(tag) >= 3:
+            j = 1 + int(rng.integers(len(tag) - 1))
+            pat = tag[:j] + "?" + tag[j + 1:] + "*"
+            out["wildcard"].append(({"query": {"wildcard": {"tag": pat}}},
+                                    {"pattern": pat}))
+        if len(out["sort_search_after"]) < LEXICAL_QUERIES:
+            t = int(mid_tags[int(rng.integers(len(mid_tags)))])
+            out["sort_search_after"].append(({"query": {"term": {
+                "tag": f"g{t}"}}, "sort": [{"ts": "desc"}]}, {"tags": [t]}))
+        if ph is not None and len(out["rescore"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 3)
+            out["rescore"].append(({"query": {"match": {"body": text(
+                terms)}}, "rescore": {"window_size": 50, "query": {
+                    "rescore_query": {"match_phrase": {"body": text(ph)}}}}},
+                {"terms": terms}))
+        if len(out["collapse"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 2)
+            out["collapse"].append(({"query": {"match": {"body": text(
+                terms)}}, "collapse": {"field": "tag"}}, {"terms": terms}))
+        if len(out["bool_knn"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 3)
+            out["bool_knn"].append(({"query": {"bool": {"should": [
+                {"match": {"body": text(terms)}},
+                {"knn": {"v": {"vector": qvec(i), "k": 10}}}]}}},
+                {"terms": terms}))
+        if len(out["knn_match_filter"]) < LEXICAL_QUERIES:
+            terms = distinct(seq, 2)
+            out["knn_match_filter"].append(({"query": {"knn": {"v": {
+                "vector": qvec(i), "k": 10,
+                "filter": {"match": {"body": text(terms)}}}}}},
+                {"terms": terms}))
+        if len(out["knn_prefix_filter"]) < LEXICAL_QUERIES:
+            pre = tag[: 2 + int(rng.integers(2))]
+            out["knn_prefix_filter"].append(({"query": {"knn": {"v": {
+                "vector": qvec(i), "k": 10,
+                "filter": {"prefix": {"tag": pre}}}}}}, {"prefix": pre}))
+    for runs in out.values():
+        for body, _meta in runs:
+            body["size"] = 10
+            body["_source"] = src
+    return out
+
+
+def lexical_truth_mask(kind: str, meta: dict, corpus: dict,
+                       tag_names: np.ndarray, body_idx: TokenIndex):
+    """The exact numpy set of docs a query matches (structured types), or
+    (fp64 scores, mask, n_terms) of a BM25 type; None where not checked."""
+    import fnmatch
+
+    if kind in ("term", "terms", "sort_search_after"):
+        return np.isin(corpus["tag"], meta["tags"])
+    if kind == "range_views":
+        return (corpus["views"] >= meta["gte"]) & (corpus["views"] < meta["lt"])
+    if kind == "range_ts":
+        return (corpus["ts"] > meta["gt"]) & (corpus["ts"] <= meta["lte"])
+    if kind in ("prefix", "knn_prefix_filter"):
+        ok = np.asarray([t.startswith(meta["prefix"]) for t in tag_names])
+        return ok[corpus["tag"]]
+    if kind == "wildcard":
+        ok = np.asarray([fnmatch.fnmatchcase(t, meta["pattern"])
+                         for t in tag_names])
+        return ok[corpus["tag"]]
+    if kind in ("collapse", "knn_match_filter"):
+        return body_idx.match(meta["terms"])[1] > 0
+    return None
+
+
+def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
+    """The lexical query phase on index L (LEXICAL_DOCS docs: a text body
+    shaped like MS MARCO passages, a title, a Zipf keyword tag, views, a
+    date ts and cell A's clustered vectors rounded to eighths; all from
+    the seed), one shard, written by host _bulk and one refresh. Then
+    LEXICAL_QUERIES searches (size 10) of each type of lexical_bodies,
+    each run twice (the same bits), with these gates:
+
+    1. BM25 types (match or / and, match_phrase, multi_match over body
+       and title, query_string, bool of a must match, a filter term and
+       range and a must_not): the first LEXICAL_TRUTH searches' ids equal
+       an fp64 numpy BM25 over the generated tokens (TokenIndex), apart
+       from pairs within the f32 error bound of their scores, each logged;
+       their totals the numpy counts;
+    2. structured types (term, terms, range on views and on ts, prefix,
+       wildcard, the ts-desc sort): totals the exact numpy counts, the
+       sort paged 3 deep by search_after equal to numpy's (-ts, doc)
+       order; collapse: the match's total, one hit a tag;
+    3. bool{should: [match, knn]} and knn filtered by a match and by a
+       prefix: K1 launches (kf.launches and the counter of the tier
+       scan_tier names), one a segment a search on the per-shard route
+       (the bool) and one a search on the stacked step (the filtered knn;
+       LEXICAL_PER_SHARD more on the per-shard route), every filtered hit
+       inside the filter's docs; then the same searches under
+       search.knn.kernel xla (K1's plain version) give the same hits bit
+       for bit;
+    4. over the port's HTTP server, LEXICAL_HTTP searches of each type give
+       the in-process response's hits, and _count equals hits.total for
+       each type, in process and over HTTP.
+    Recorded: ingest s, p50 / p99 / QPS of each type, the profiler's
+    device ms of bm25_term_scores alone and of one match search with its
+    top kernels beside the search's host wall, and K1's launches."""
+    from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.ops import bm25 as bm25_ops
+    from opensearch_tpu_torch.search import distributed_serving
+
+    rng = np.random.default_rng(seed + 15)
+    words = [lexical_word(i) for i in range(LEXICAL_VOCAB)]
+    corpus = lexical_corpus(rng, n_docs)
+    body_idx = TokenIndex(corpus["body"], corpus["body_off"])
+    title_idx = TokenIndex(corpus["title"], corpus["title_off"])
+    tag_names = np.asarray([f"g{t}" for t in range(LEXICAL_TAGS)])
+    bodies = lexical_bodies(rng, corpus, words, n_docs)
+    out = {"docs": n_docs, "types": {}}
+    tier_counter = {"lists": kf.list_launches, "wide": kf.wide_launches,
+                    "mma": kf.mma_launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device=dev)
+        out["ingest_s"] = lexical_ingest(node, "lex", corpus, words)
+        (shard,) = node.indices["lex"].shards.values()
+        segments = shard.acquire_searcher().segments
+        out["segments"] = len(segments)
+        log(f"[lex] {n_docs} docs (body mean "
+            f"{body_idx.avgdl:.2f} tokens), {len(segments)} segment(s): "
+            f"bulk + refresh {out['ingest_s']:.1f} s")
+        responses = {}
+        for kind, runs in bodies.items():
+            label = f"[lex] {kind}"
+            for c in (kf.launches, *tier_counter.values()):
+                c.reset()
+            filtered0 = distributed_serving.stats["filtered"]
+            lat, resps, pairs = [], [], 0
+            for j, (body, meta) in enumerate(runs):
+                if kind == "sort_search_after":
+                    t0 = time.perf_counter()
+                    pages = sorted_pages(node, body)
+                    lat.append((time.perf_counter() - t0) / 3)
+                    resp = pages[0]
+                    got = [int(h["_id"]) for p in pages
+                           for h in p["hits"]["hits"]]
+                    mask = lexical_truth_mask(kind, meta, corpus, tag_names,
+                                              body_idx)
+                    cand = np.nonzero(mask)[0]
+                    want = cand[np.lexsort((cand, -corpus["ts"][cand]))][
+                        :30].tolist()
+                    if got != want:
+                        raise AssertionError(f"{label} query {j}: pages "
+                                             f"{got} != numpy {want}")
+                    resps.append([p["hits"] for p in pages])
+                else:
+                    t0 = time.perf_counter()
+                    resp = node.search("lex", dict(body))
+                    lat.append(time.perf_counter() - t0)
+                    resps.append(resp["hits"])
+                total = resp["hits"]["total"]["value"]
+                ids = [int(h["_id"]) for h in resp["hits"]["hits"]]
+                if j < LEXICAL_TRUTH:
+                    pairs += lexical_gate(kind, meta, label, j, resp, ids,
+                                          total, corpus, tag_names,
+                                          body_idx, title_idx)
+                if kind in ("knn_match_filter", "knn_prefix_filter"):
+                    allowed = lexical_truth_mask(kind, meta, corpus,
+                                                 tag_names, body_idx)
+                    if not all(allowed[d] for d in ids) or not ids:
+                        raise AssertionError(f"{label} query {j}: a hit "
+                                             f"outside the filter")
+                if kind == "collapse" and len({h["fields"]["tag"][0] for h in
+                                               resp["hits"]["hits"]}) \
+                        != len(ids):
+                    raise AssertionError(f"{label} query {j}: two hits of "
+                                         f"one tag")
+            got_launches = {"knn_fused": kf.launches.count,
+                            **{t: c.count for t, c in tier_counter.items()},
+                            "filtered": distributed_serving.stats["filtered"]
+                            - filtered0}
+            res = latency_summary(lat)
+            res.update(launches=got_launches, f32_tie_pairs=pairs)
+            if kind in ("bool_knn", "knn_match_filter", "knn_prefix_filter"):
+                lexical_k1_gate(kf, label, kind, got_launches,
+                                len(segments))
+            # the same bits run after run
+            for j, (body, _meta) in enumerate(runs):
+                again = ([p["hits"] for p in sorted_pages(node, body)]
+                         if kind == "sort_search_after"
+                         else node.search("lex", dict(body))["hits"])
+                if again != resps[j]:
+                    raise AssertionError(f"{label} query {j}: a second run "
+                                         f"gave other hits or bits")
+            # _count equals hits.total
+            count = node.count("lex", {"query": runs[0][0]["query"]})
+            want_total = (resps[0][0] if kind == "sort_search_after"
+                          else resps[0])["total"]["value"]
+            if count["count"] != want_total:
+                raise AssertionError(f"{label}: _count {count} != "
+                                     f"hits.total {want_total}")
+            responses[kind] = resps
+            out["types"][kind] = res
+            log(f"{label}: {json.dumps(res)}")
+        out["knn"] = lexical_knn_checks(node, kf, bodies, responses,
+                                        tier_counter, len(segments))
+        out["http"] = lexical_http_checks(node, bodies, responses)
+        out["profile"] = lexical_profile(node, shard, bodies, bm25_ops)
+        node.close()
+    return out
+
+
+def sorted_pages(node, body: dict) -> list:
+    """Three pages of a sorted body through search_after, each cursor the
+    previous page's last sort values."""
+    pages = [node.search("lex", dict(body))]
+    for _ in range(2):
+        after = pages[-1]["hits"]["hits"][-1]["sort"]
+        pages.append(node.search("lex", {**body, "search_after": after}))
+    return pages
+
+
+def lexical_gate(kind: str, meta: dict, label: str, j: int, resp: dict,
+                 ids: list, total: int, corpus: dict, tag_names,
+                 body_idx: TokenIndex, title_idx: TokenIndex) -> int:
+    """Gates 1 and 2 of one search: the fp64 BM25 ranking (pairs within
+    the f32 bound logged and counted) and the exact numpy totals."""
+    pairs = []
+    if kind in ("match_or", "match_and", "match_phrase", "query_string",
+                "bool", "multi_match"):
+        terms = meta["terms"]
+        scores, counts = body_idx.match(terms)
+        if kind == "match_or":
+            mask = counts > 0
+        elif kind == "match_and":
+            mask = counts == len(terms)
+        elif kind == "match_phrase":
+            mask = body_idx.phrase(terms)
+        elif kind == "query_string":
+            # t0 AND (t1 OR t2): each matched term's score summed
+            has = [body_idx.match([t])[1] > 0 for t in terms]
+            mask = has[0] & (has[1] | has[2])
+        elif kind == "bool":
+            mask = ((counts > 0) & (corpus["tag"] == meta["tag"])
+                    & (corpus["views"] <= meta["views_lte"])
+                    & ~(corpus["ts"] < meta["ts_lt"]))
+        else:  # multi_match best_fields: the better field's score
+            t_scores, t_counts = title_idx.match(terms)
+            mask = (counts > 0) | (t_counts > 0)
+            scores = np.maximum(scores, t_scores)
+        pairs = ranked_check(f"{label} query {j}", ids, scores, mask, 10,
+                             len(terms))
+        for g, w, sg, sw in pairs:
+            log(f"{label} query {j}: docs {g} and {w} swap within the f32 "
+                f"bound (fp64 {sg!r} / {sw!r})")
+        if total != int(mask.sum()):
+            raise AssertionError(f"{label} query {j}: total {total} != "
+                                 f"numpy {int(mask.sum())}")
+        return len(pairs)
+    mask = lexical_truth_mask(kind, meta, corpus, tag_names, body_idx)
+    if mask is not None and kind not in ("knn_match_filter",
+                                         "knn_prefix_filter"):
+        if total != int(mask.sum()):
+            raise AssertionError(f"{label} query {j}: total {total} != "
+                                 f"numpy {int(mask.sum())}")
+        if kind != "collapse" and not set(ids) <= set(
+                np.nonzero(mask)[0].tolist()):
+            raise AssertionError(f"{label} query {j}: a hit outside the "
+                                 f"numpy set")
+    return 0
+
+
+def lexical_k1_gate(kf, label: str, kind: str, got: dict,
+                    n_segments: int) -> None:
+    """K1 launched for every search of a kNN type, on the tier scan_tier
+    names: one a segment a search on the per-shard route (a knn inside a
+    bool, k bucketed to 16), one a search on the stacked step (a filtered
+    knn)."""
+    if kind == "bool_knn":
+        want, r = LEXICAL_QUERIES * n_segments, kf.fused_pool_width(16,
+                                                                     "fp32")
+        want_filtered = 0
+    else:
+        want, r = LEXICAL_QUERIES, kf.fused_pool_width(10, "fp32")
+        want_filtered = LEXICAL_QUERIES
+    tier = kf.scan_tier("fp32", r)
+    if got["knn_fused"] != want or got[tier] != want or \
+            got["filtered"] != want_filtered:
+        raise AssertionError(f"{label}: want {want} K1 launches on the "
+                             f"{tier} tier and {want_filtered} filtered "
+                             f"stacked searches: {got}")
+
+
+def lexical_knn_checks(node, kf, bodies: dict, responses: dict,
+                       tier_counter: dict, n_segments: int) -> dict:
+    """The filtered knn types on the per-shard route too (K1 through the
+    batcher, one launch a segment), then every kNN type under
+    search.knn.kernel xla, K1's plain version (the stacked step's
+    impl="xla" scan, the per-shard route's streaming scan): the same hits
+    as the kernel's, bit for bit (index L's vectors are eighths, so every
+    dot is exact in any order)."""
+    from opensearch_tpu_torch.search import ann, distributed_serving
+
+    out = {}
+    try:
+        distributed_serving.enabled = False
+        for kind in ("knn_match_filter", "knn_prefix_filter"):
+            for c in (kf.launches, *tier_counter.values()):
+                c.reset()
+            lat = []
+            for j, (body, _meta) in enumerate(
+                    bodies[kind][:LEXICAL_PER_SHARD]):
+                t0 = time.perf_counter()
+                hits = node.search("lex", dict(body))["hits"]
+                lat.append(time.perf_counter() - t0)
+                if hits != responses[kind][j]:
+                    raise AssertionError(f"[lex] {kind} per-shard query "
+                                         f"{j}: not the stacked step's bits")
+            tier = kf.scan_tier("fp32", kf.fused_pool_width(16, "fp32"))
+            want = LEXICAL_PER_SHARD * n_segments
+            if kf.launches.count != want or tier_counter[tier].count != want:
+                raise AssertionError(f"[lex] {kind} per-shard: "
+                                     f"{kf.launches.count} K1 launches, "
+                                     f"want {want} on the {tier} tier")
+            res = latency_summary(lat)
+            res["launches"] = {"knn_fused": kf.launches.count,
+                               tier: tier_counter[tier].count}
+            out[f"{kind} per_shard"] = res
+            log(f"[lex] {kind} on the per-shard route: the stacked step's "
+                f"hits bit for bit; {json.dumps(res)}")
+        distributed_serving.enabled = True
+        ann.default_config.configure(exact_kernel="xla")
+        kf.launches.reset()
+        for kind in ("bool_knn", "knn_match_filter", "knn_prefix_filter"):
+            for j, (body, _meta) in enumerate(bodies[kind]):
+                hits = node.search("lex", dict(body))["hits"]
+                if hits != responses[kind][j]:
+                    raise AssertionError(f"[lex] {kind} query {j}: K1's "
+                                         f"plain version gave other hits")
+        if kf.launches.count:
+            raise AssertionError(f"[lex] K1 launched {kf.launches.count} "
+                                 f"times under search.knn.kernel xla")
+        out["xla_equal"] = True
+        log("[lex] bool + knn and filtered knn under search.knn.kernel xla "
+            "(K1's plain version): the kernel's hits bit for bit")
+    finally:
+        distributed_serving.enabled = True
+        ann.default_config.configure(exact_kernel="auto")
+    return out
+
+
+def lexical_http_checks(node, bodies: dict, responses: dict) -> dict:
+    """LEXICAL_HTTP searches of each type over the port's HTTP server: the
+    in-process hits as JSON gives them, and _count over HTTP the hits'
+    total."""
+    from opensearch_tpu_torch.rest.http import HttpServer
+
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    client = RestClient(server.port)
+    out = {}
+    try:
+        for kind, runs in bodies.items():
+            lat = []
+            for j, (body, _meta) in enumerate(runs[:LEXICAL_HTTP]):
+                t0 = time.perf_counter()
+                payload = client.ok("POST", "/lex/_search", body)
+                lat.append(time.perf_counter() - t0)
+                want = responses[kind][j]
+                if kind == "sort_search_after":
+                    want = want[0]
+                if payload["hits"] != json_view({"h": want})["h"]:
+                    raise AssertionError(f"[lex] {kind} query {j} over HTTP: "
+                                         f"not the in-process hits")
+            count = client.ok("POST", "/lex/_count",
+                              {"query": runs[0][0]["query"]})
+            want = responses[kind][0]
+            want = (want[0] if kind == "sort_search_after" else want)
+            if count["count"] != want["total"]["value"]:
+                raise AssertionError(f"[lex] {kind}: _count over HTTP "
+                                     f"{count} != {want['total']}")
+            out[kind] = latency_summary(lat)
+        log(f"[lex] over HTTP: {LEXICAL_HTTP} searches of each type the "
+            f"in-process hits, _count the totals; "
+            f"{json.dumps({k: round(v['p50_ms'], 3) for k, v in out.items()})}"
+            f" p50 ms")
+    finally:
+        client.close()
+        server.stop_thread()
+    return out
+
+
+def lexical_profile(node, shard, bodies: dict, bm25_ops) -> dict:
+    """The profiler's device ms of one match search (BEIR-length query,
+    six terms) and its top kernels beside the search's host wall, and of
+    bm25_term_scores alone on the same term rows."""
+    from opensearch_tpu_torch.search import executor
+
+    body = bodies["match_or"][0][0]
+    prof = device_profile(lambda: node.search("lex", dict(body)), 10)
+    snap = shard.acquire_searcher()
+    host, dev_seg = snap.segments[0]
+    ctx = executor.ShardContext(snap, shard.mapper_service)
+    terms = shard.mapper_service.analyze_query_text(
+        "body", body["query"]["match"]["body"])
+    htf, dtf = host.text_fields["body"], dev_seg.text_fields["body"]
+    doc_count, avgdl = ctx.text_stats("body")
+    tids = [htf.term_dict[t] for t in terms if t in htf.term_dict]
+    offs = np.asarray([htf.term_offsets[t] for t in tids], np.int32)
+    lens = np.asarray([htf.term_offsets[t + 1] - htf.term_offsets[t]
+                       for t in tids], np.int32)
+    idfs = np.asarray([bm25_ops.idf(ctx.text_df("body", t), doc_count)
+                       for t in terms if t in htf.term_dict], np.float32)
+    window = int(2 ** math.ceil(math.log2(max(int(lens.max()), 8))))
+    bm = device_profile(lambda: bm25_ops.bm25_term_scores(
+        dtf.postings_docs, dtf.postings_tfs, dtf.doc_len, offs, lens, idfs,
+        np.float32(avgdl), n_pad=dev_seg.n_pad, window=window), 10)
+    lat = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        node.search("lex", dict(body))
+        lat.append(time.perf_counter() - t0)
+    out = {"search_device_ms": prof and prof["device_ms"],
+           "search_profiled_wall_ms": prof and prof["wall_ms"],
+           "search_top_kernels": prof and prof["top"],
+           "search_wall_ms": float(np.median(lat) * 1e3),
+           "bm25_term_scores_device_ms": bm and bm["device_ms"],
+           "bm25_term_scores_wall_ms": bm and bm["wall_ms"],
+           "bm25_top_kernels": bm and bm["top"],
+           "postings_window": window, "query_terms": len(tids),
+           "postings_read": int(lens.sum())}
+    log(f"[lex] match search profile: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5821,6 +6547,22 @@ def main() -> int:
         t0 = time.perf_counter()
         entry["rest_main_path"] = rest_phase(kf, dev, args.seed)
         phase_s["rest"] = time.perf_counter() - t0
+    if phases & {"main", "lexical"}:
+        # the lexical query phase on index L: its kNN types' K1 launches,
+        # each type's counted from 0
+        t0 = time.perf_counter()
+        lexical = lexical_main_phase(kf, dev, args.seed)
+        entry["lexical_main_path"] = lexical
+        entry["lexical_launches"] = {
+            qtype: lexical["types"][qtype]["launches"]["knn_fused"]
+            for qtype in ("bool_knn", "knn_match_filter",
+                          "knn_prefix_filter")}
+        for qtype in ("knn_match_filter", "knn_prefix_filter"):
+            entry["lexical_launches"][f"{qtype} per_shard"] = \
+                lexical["knn"][f"{qtype} per_shard"]["launches"]["knn_fused"]
+        if entry["launches"] is None:
+            entry["launches"] = sum(entry["lexical_launches"].values())
+        phase_s["lexical"] = time.perf_counter() - t0
     if phases & {"main", "hybrid"}:
         t0 = time.perf_counter()
         hybrid = hybrid_main_phase(dev, args.seed)

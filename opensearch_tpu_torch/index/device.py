@@ -7,14 +7,14 @@ only ever see these tensors; a refresh after deletes republishes the live
 bitmap alone (:meth:`DeviceSegment.with_live`). Docs >= n_docs are padding
 (live=False).
 
-What the kNN slice and its filters read goes to the device: the live
-bitmap, the vector columns, and the columns a filter-context query reads
+What the query phase reads goes to the device: the live bitmap, the
+vector columns, and the columns the scoring executor reads
 (search/executor.SegmentExecutor): keyword ordinals (first ordinal a doc,
 and the CSR entries' ordinals and owning docs, padded with ordinal -2 and
 doc 0), numeric columns (int64 as the two int32 words of
 segment.split_i64, floats as f32, and the presence flags) and each text
-field's postings docs and doc lengths (a term filter on a text field, and
-exists). The text postings' term frequencies come with BM25.
+field's postings (docs and term frequencies) and doc lengths, which BM25
+(ops/bm25.py) reads.
 :meth:`DeviceSegment.column_nbytes` counts each kind's bytes beside the
 vector slab's.
 
@@ -71,6 +71,7 @@ def vector_norms_sq(vectors: np.ndarray) -> np.ndarray:
 @dataclass
 class DeviceTextField:
     postings_docs: torch.Tensor   # int32 [P_pad] (pad 0, never addressed)
+    postings_tfs: torch.Tensor    # float32 [P_pad] (pad 0)
     doc_len: torch.Tensor         # float32 [n_pad] (0 = field absent)
 
 
@@ -131,7 +132,7 @@ class DeviceSegment:
                            for f in self.keyword_fields.values()),
             "numeric": sum(_nbytes(f.hi, f.lo, f.values, f.present)
                            for f in self.numeric_fields.values()),
-            "text": sum(_nbytes(f.postings_docs, f.doc_len)
+            "text": sum(_nbytes(f.postings_docs, f.postings_tfs, f.doc_len)
                         for f in self.text_fields.values()),
             "live": _nbytes(self.live),
         }
@@ -222,6 +223,8 @@ def to_device(seg: HostSegment, device: torch.device | str) -> DeviceSegment:
         text_fields[fname] = DeviceTextField(
             postings_docs=put(_pad1(np.asarray(tf.postings_docs, np.int32),
                                     p_pad)),
+            postings_tfs=put(_pad1(np.asarray(tf.postings_tfs, np.float32),
+                                   p_pad)),
             doc_len=put(_pad1(np.asarray(tf.doc_len, np.float32), n_pad)),
         )
 

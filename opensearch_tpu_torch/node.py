@@ -6,7 +6,8 @@ so far: the index lifecycle (``create_index``, ``delete_index``,
 and bulk writes (``index_doc``, ``get_doc``, ``delete_doc``,
 ``update_doc`` with a partial ``doc``, ``doc_as_upsert``, ``upsert`` and
 ``detect_noop``; ``bulk`` with index, create, update and delete),
-``refresh``, ``search`` (a top-level knn query with the fetch options),
+``refresh``, ``search`` (the scoring query DSL with sort, search_after,
+rescore, collapse, named queries and the fetch options), ``count``,
 ``msearch`` (runs of bare kNN bodies in one stacked launch),
 ``cluster_health`` and ``close``. Every shard publishes its segments to the
 node's device; searches run the stacked serving step on it
@@ -631,9 +632,52 @@ class TorchNode:
         stat_groups = body.get("stats")
         if stat_groups is not None and not isinstance(stat_groups, list):
             raise ParsingException("[stats] must be an array of group names")
-        return search_service.search(
-            self._search_shards(index, ignore_unavailable), body,
-            precomputed_results)
+        sort_spec = body.get("sort")
+        for spec in ([sort_spec] if isinstance(sort_spec, (str, dict))
+                     else sort_spec or []):
+            fname = spec if isinstance(spec, str) else next(iter(spec), None)
+            if fname == "_shard_doc":
+                raise ActionRequestValidationException(
+                    "Validation Failed: 1: [_shard_doc] sort field is only "
+                    "supported with point-in-time (PIT) searches;")
+        shards = self._search_shards(index, ignore_unavailable)
+        if body.get("indices_boost") is not None:
+            body["indices_boost"] = self._resolve_indices_boost(
+                body["indices_boost"], ignore_unavailable=ignore_unavailable)
+        return search_service.search(shards, body, precomputed_results)
+
+    def _resolve_indices_boost(self, spec,
+                               ignore_unavailable: bool = False) -> dict:
+        """indices_boost: {index: boost} or [{index-or-pattern: boost}, ...]
+        resolved to concrete index names; an unknown name is a 404, as in
+        the reference (SearchService.resolveIndexBoosts)."""
+        if isinstance(spec, dict):
+            entries = [(k, float(v)) for k, v in spec.items()]
+        elif isinstance(spec, list):
+            entries = []
+            for item in spec:
+                if not isinstance(item, dict) or len(item) != 1:
+                    raise IllegalArgumentException(
+                        "[indices_boost] must contain one entry per object")
+                k, v = next(iter(item.items()))
+                entries.append((k, float(v)))
+        else:
+            raise IllegalArgumentException(
+                "[indices_boost] must be an object or an array")
+        out: dict[str, float] = {}
+        for name, boost in entries:
+            for concrete in self.resolve_indices(
+                    name, ignore_unavailable=ignore_unavailable):
+                out.setdefault(concrete, boost)  # the first match wins
+        return out
+
+    def count(self, index: str, body: dict | None = None) -> dict:
+        """``_count``: the search's total at size 0."""
+        body = dict(body or {})
+        body["size"] = 0
+        resp = self.search(index, body)
+        return {"count": resp["hits"]["total"]["value"],
+                "_shards": resp["_shards"]}
 
     def msearch(self, searches: list[tuple[dict, dict]]) -> dict:
         """Runs of consecutive bare-knn sub-searches against the SAME index

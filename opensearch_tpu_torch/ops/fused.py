@@ -7,12 +7,12 @@ Counterpart of opensearch_tpu/ops/fused.py (``hybrid_score_topk``,
 any Pallas kernel, so here they are plain PyTorch: the [B, d] x [m, d]
 product is ``torch.matmul`` in full float32 (backend.py pins TF32 off) and
 the selection is ops/topk.py. The hybrid program's BM25 sum is
-deterministic on the card (:func:`lexical_scores`: a stable sort of the
-postings window's (doc, contribution) pairs by doc, then each doc's run
-summed in order by ``torch.segment_reduce``, whose CUDA kernel adds a
-segment's values one after another with no atomics), so the same inputs
-give the same bits run after run, which a float ``index_add_`` on the card
-does not. The materializing ``knn_topk`` is left out: no serving route
+ops/bm25.py's, deterministic on the card (:func:`lexical_scores`: a stable
+sort of the postings window's (doc, contribution) pairs by doc, then each
+doc's run summed in order by ``torch.segment_reduce``, whose CUDA kernel
+adds a segment's values one after another with no atomics), so the same
+inputs give the same bits run after run, which a float ``index_add_`` on
+the card does not. The materializing ``knn_topk`` is left out: no serving route
 calls it (the executor's materializing branch is ops/knn.exact_knn_scores
 and a host cut).
 """
@@ -24,6 +24,7 @@ import functools
 import torch
 
 from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
+from opensearch_tpu_torch.ops import bm25
 from opensearch_tpu_torch.ops import topk as topk_ops
 
 _NEG_INF = float("-inf")
@@ -87,38 +88,18 @@ def lexical_scores(postings_docs, postings_tfs, doc_len, offsets, lengths,
                    b: float = 0.75) -> torch.Tensor:
     """The BM25 sum [n_pad] of Q query terms, each a window of up to
     `window` postings from ``offsets[q]`` (``lengths[q]`` of them live),
-    as the reference's masked gather and scatter-add compute it: a window
-    index past the postings is clamped to the last one (XLA's gather), a
-    doc id past the slots reads the last slot's length (the same) and adds
-    nothing (XLA's scatter drops it), a dead window slot adds 0 to doc 0.
-    Each
-    doc's contributions are added in the reference's update order (term by
-    term, window slot by slot) from 0, the same order on the CPU and the
-    card: the pairs are sorted by doc, stable, and each doc's run summed by
-    ``torch.segment_reduce``."""
-    device = postings_docs.device
-    p_pad = postings_docs.shape[0]
-    win = torch.arange(window, dtype=torch.int64, device=device)
-    tvalid = win[None, :] < lengths.long()[:, None]             # [Q, W]
-    idx = torch.where(tvalid, offsets.long()[:, None] + win[None, :], 0)
-    idx = torch.clamp(idx, max=p_pad - 1)
-    docs = postings_docs[idx].long()
-    tfs = postings_tfs[idx]
-    dl = doc_len[torch.clamp(docs, 0, n_pad - 1)]
-    tvalid = tvalid & (docs < n_pad)
+    as the reference's hybrid program computes it: ops/bm25.py's window
+    gather and per-slot scores with avgdl clamped to 1e-6, and its
+    deterministic sum (each doc's contributions added in the reference's
+    update order from 0, the same bits on the CPU and the card)."""
+    idx, docs, valid = bm25.postings_window(postings_docs, offsets, lengths,
+                                            n_pad=n_pad, window=window)
     avgdl = torch.clamp(torch.as_tensor(avgdl, dtype=torch.float32,
-                                        device=device), min=1e-6)
-    denom = tfs + k1 * (1.0 - b + b * dl / avgdl)
-    contrib = idfs[:, None] * tfs / torch.clamp(denom, min=1e-9)
-    contrib = torch.where(tvalid, contrib, 0.0).reshape(-1)
-    docs = torch.where(tvalid, docs, 0).reshape(-1)
-    order = torch.sort(docs, stable=True).indices
-    run_docs, counts = torch.unique_consecutive(docs[order],
-                                                return_counts=True)
-    sums = torch.segment_reduce(contrib[order], "sum", lengths=counts)
-    lex = torch.zeros(n_pad, dtype=torch.float32, device=device)
-    lex[run_docs] = sums
-    return lex
+                                        device=postings_docs.device),
+                        min=1e-6)
+    contrib = bm25.bm25_contributions(postings_tfs, doc_len, idx, docs,
+                                      valid, idfs, avgdl, k1, b)
+    return bm25.doc_sums(docs, contrib, valid, n_pad)[0]
 
 
 def hybrid_score_topk(postings_docs, postings_tfs, doc_len, vectors,

@@ -1,9 +1,9 @@
 """Top-k selection with the doc-id-ascending tie-break.
 
-Counterpart of opensearch_tpu/ops/topk.py, without ``segment_top_k`` and
-``merge_shard_hits``: no code of the port calls them yet (the per-shard
-query phase cuts on the host, and search/service.py merges by (-score,
-shard, segment, doc)). The contract (reference
+Counterpart of opensearch_tpu/ops/topk.py, without ``merge_shard_hits``
+(the cross-node reduce; search/service.py merges one node's shards by
+(-score, shard, segment, doc)). :func:`segment_top_k` is the general query
+phase's cut of one segment's masked score column. The contract (reference
 ops/topk.py:3-6,81-83): among equal scores the LOWER position wins, which
 reproduces Lucene/OpenSearch's doc-id-ascending tie-break because the
 score column is indexed by local doc id. ``torch.topk`` promises no order
@@ -26,6 +26,17 @@ BLOCKWISE_MIN_N = 32_768
 MAX_ITERATIVE_K = 128
 
 
+def segment_top_k(scores: torch.Tensor,
+                  k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values [k], local doc ids [k]) of a [n_pad] score column, or [B, k]
+    of a [B, n_pad] batch; non-matching, deleted and padding docs must
+    already be -inf. Ties go to the lower doc id."""
+    if scores.dim() == 1:
+        vals, ids = blockwise_topk(scores[None, :], k)
+        return vals[0], ids[0]
+    return blockwise_topk(scores, k)
+
+
 def stable_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """(values [..., k], positions [..., k]) over the last dim, best first,
     ties to the lower position. k may exceed the row length: the tail is
@@ -40,21 +51,26 @@ def stable_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tenso
 
 
 def _iterative_topk(s: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact top-k over the last dim of [B, m] by k argmax-and-mask passes
-    (the reference's small-k strategy). ``torch.argmax`` returns the first
-    maximal index, which is the doc-id-ascending tie-break. Works on a copy:
-    the caller's scores are left as they were."""
+    """Exact top-k over the last dim of [B, m] scores of at most float32
+    precision by k argmax-and-mask passes (the reference's small-k
+    strategy). ``torch.argmax`` returns the first
+    maximal index, which is the doc-id-ascending tie-break. The passes run
+    on int32 keys that order as the float scores do (-0.0 taken as 0.0),
+    so a picked slot is masked below every score, -inf included: a row
+    with fewer than k finite scores fills its tail with its lowest -inf
+    positions, each once, as one stable sort does. (The reference masks
+    with -inf and so picks its first -inf position again and again.) The
+    caller's scores are left as they were."""
     B = s.shape[0]
-    s = s.clone()
+    bits = (s.float() + 0.0).view(torch.int32)
+    keys = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
     rows = torch.arange(B, device=s.device)
-    vals = torch.full((B, k), float("-inf"), dtype=s.dtype, device=s.device)
     ids = torch.zeros((B, k), dtype=torch.int64, device=s.device)
     for i in range(k):
-        idx = torch.argmax(s, dim=-1)
-        vals[:, i] = s[rows, idx]
+        idx = torch.argmax(keys, dim=-1)
         ids[:, i] = idx
-        s[rows, idx] = float("-inf")
-    return vals, ids
+        keys[rows, idx] = torch.iinfo(torch.int32).min
+    return torch.gather(s, 1, ids), ids
 
 
 def blockwise_topk(scores: torch.Tensor, k: int,

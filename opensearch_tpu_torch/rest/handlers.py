@@ -5,8 +5,8 @@ registers every (method, path) of the reference's router. The handlers of
 the API the port serves are copies of the reference's: the root info, the
 index lifecycle (create, delete, get, HEAD, mappings, settings), document
 writes and reads (index, create, auto-id index, get, HEAD, `_source`,
-delete, `_update`), NDJSON `_bulk`, `_refresh`, `_search`, `_msearch`
-and `_cluster/health`. Every other route answers through
+delete, `_update`), NDJSON `_bulk`, `_refresh`, `_search`, `_count`,
+`_msearch` and `_cluster/health`. Every other route answers through
 :func:`_not_yet_ported`, which raises "<METHOD> <path> is not yet ported
 to opensearch_tpu_torch" (the HTTP server's 500 envelope). Handlers
 receive (node, params, query, body) and return (status, payload); the
@@ -148,6 +148,10 @@ def build_router() -> Router:
     reg("GET", "/_msearch", msearch)
     reg("POST", "/_msearch", msearch)
     reg("POST", "/{index}/_msearch", msearch)
+    reg("GET", "/{index}/_count", count)
+    reg("POST", "/{index}/_count", count)
+    reg("GET", "/_count", count_all)
+    reg("POST", "/_count", count_all)
     # maintenance
     reg("POST", "/{index}/_refresh", refresh)
     reg("GET", "/{index}/_refresh", refresh)
@@ -788,6 +792,14 @@ def search_all(node: TorchNode, params, query, body):
     return 200, _totals_as_int(resp, query)
 
 
+def count(node: TorchNode, params, query, body):
+    return 200, node.count(params["index"], _body_with_query_params(query, body))
+
+
+def count_all(node: TorchNode, params, query, body):
+    return 200, node.count("_all", _body_with_query_params(query, body))
+
+
 def msearch(node: TorchNode, params, query, body):
     if not isinstance(body, list):
         raise IllegalArgumentException("msearch body must be NDJSON lines")
@@ -899,10 +911,6 @@ UNPORTED_ROUTES = (
     ("POST", "/_mtermvectors"),
     ("GET", "/{index}/_mtermvectors"),
     ("POST", "/{index}/_mtermvectors"),
-    ("GET", "/{index}/_count"),
-    ("POST", "/{index}/_count"),
-    ("GET", "/_count"),
-    ("POST", "/_count"),
     ("GET", "/_search/scroll"),
     ("POST", "/_search/scroll"),
     ("GET", "/_search/scroll/{scroll_id}"),

@@ -227,7 +227,7 @@ def _filter_valid_mask(shards: list, snaps: list, knn_filter, n_flat: int,
         pos = 0
         for host, dev in snap.segments:
             n = host.n_docs
-            mask = SegmentExecutor(ctx, host, dev).filter_mask(knn_filter)
+            mask = SegmentExecutor(ctx, host, dev).execute(knn_filter).mask
             out[si, pos:pos + n] = mask[:n].to(device)
             pos += n
     return out

@@ -1,14 +1,18 @@
-"""Per-shard query execution, for the kNN query.
+"""Per-shard query execution: query node tree -> device score and mask.
 
-Counterpart of the kNN part of opensearch_tpu/search/executor.py: the
-shard-wide kNN selection (``ShardContext.shard_knn_selection``), the
-segment executor as far as a ``knn`` query needs it, and
-``execute_query_phase`` for the unsorted path. The service runs this per
-shard when the stacked serving step declines the query (an ANN column, or
-``distributed_serving.enabled`` off).
+Counterpart of opensearch_tpu/search/executor.py. Each query node runs
+against each segment's device columns and gives a dense (scores [n_pad]
+f32, mask [n_pad] bool) pair, a :class:`NodeResult`; a bool query composes
+its children elementwise. Scoring follows Lucene: BM25 (ops/bm25.py) with
+shard-level statistics (idf over the summed per-segment doc freqs, avgdl
+over all segments), a constant ``boost`` for filter-like queries in
+scoring position, 0 for filter-only bools. Multi-term queries (prefix,
+wildcard, regexp, fuzzy) walk the term dictionary on the host and send
+one doc mask to the device; a phrase verifies positions on the host.
 
-Per segment, ``shard_knn_selection`` takes one of four branches, as the
-reference does, counted in ``knn_path_stats``:
+The kNN query (``ShardContext.shard_knn_selection``) takes one of four
+branches per segment, as the reference does, counted in
+``knn_path_stats``:
 
 - ``ann`` (the column has an IVF-PQ structure): ``ops/ivfpq.search_index``
   under the resolved ``search.knn.ann.kernel`` ("pallas": host probe
@@ -26,36 +30,44 @@ reference does, counted in ``knn_path_stats``:
 
 Then the shard cut: the k best of all segments of the shard, by
 (-score, segment, doc). k and nprobe are bucketed to powers of two as the
-reference buckets them, so the results are the reference's.
+reference buckets them, so the results are the reference's. Every launch
+goes through the dispatch batcher (search/batcher.py) with the
+reference's batch keys, so concurrent queries over one segment column and
+reader generation coalesce into one launch. The selection comes back as a
+:class:`HostNodeResult`; a knn inside a bool, a rescore or a function
+score reads it as device tensors.
 
-Every launch goes through the dispatch batcher (search/batcher.py) with
-the reference's batch keys, so concurrent queries over one segment column
-and reader generation coalesce into one launch.
+Filtered kNN (a ``filter`` inside the ``knn`` clause): the filter is any
+executable node, and its ``execute(node).mask`` is ANDed into ``valid``,
+as the reference's ``shard_knn_selection`` does, so the same exact scan
+runs on the narrower set; a filtered query never takes ANN and gets batch
+key None on every branch, so it never merges with another query.
 
-Filtered kNN (a ``filter`` inside the ``knn`` clause, the k-NN plugin's
-efficient filtering): the filter's device mask is ANDed into ``valid``,
-so the same exact scan runs on the narrower set; a filtered query never
-takes ANN (the segment runs exactly, through K1 where the policy picks
-it) and gets batch key None on every branch, so it never merges with
-another query. :class:`SegmentExecutor` computes the filter-context masks
-of ``term`` (keyword, numeric, date, boolean, ``_id``, and a text field
-through its postings), ``terms``, ``range`` (numeric, date and keyword),
-``exists``, ``ids``, ``bool``, ``constant_score``, ``match_all`` and
-``match_none``, as the reference's ``execute(node).mask``; any other node
-in a kNN filter raises "not yet ported" with its name. Their scores come
-with BM25.
+:func:`execute_query_phase` cuts each segment's masked scores with
+``ops/topk.segment_top_k`` (or, for a bare knn, reads the host selection),
+counts the total on the host, applies ``min_score`` to hits and total,
+and sorts by fields on the host's exact int64 / float64 columns.
+
+Not yet ported, each raising "not yet ported" with its name: ``script``,
+``script_score``, ``terms_set``, the ``geo_*`` queries, ``nested``,
+``has_child``, ``has_parent``, ``parent_id``, ``percolate``,
+``more_like_this``, ``hybrid``, ``rank_feature``, ``distance_feature``
+and ``slice`` (a ``script_score`` function inside function_score is
+refused by the parser, as in the reference).
 
 Under ``"profile": true`` (search/profile.py) every executed node is an
-operator of the shard's profile tree, each batched launch records its
-share of the fenced launch wall under the reference's kernel names
+operator of the shard's profile tree, BM25 records its fenced launch under
+``bm25_term_scores``, each batched kNN launch records its share of the
+fenced launch wall under the reference's kernel names
 (``knn_fused_pallas``, ``knn_topk_streaming``, ``knn_exact_scores``,
-``ivfpq_adc_pallas`` / ``ivfpq_search``), and the shard's top-k cut is
-its collector time. The roofline and residency-ledger calls of the
+``ivfpq_adc_pallas`` / ``ivfpq_search``), and the top-k cut or field sort
+is the collector time. The roofline and residency-ledger calls of the
 reference are left out.
 """
 
 from __future__ import annotations
 
+import re
 import threading
 import time
 from dataclasses import dataclass, field as dc_field
@@ -76,9 +88,13 @@ from opensearch_tpu_torch.index.mapper import (
     parse_date_nanos,
 )
 from opensearch_tpu_torch.index.segment import i64_query_words, pad_window
-from opensearch_tpu_torch.ops import filters
+from opensearch_tpu_torch.ops import bm25, filters
 from opensearch_tpu_torch.search import batcher, profile
 from opensearch_tpu_torch.search import query_dsl as q
+from opensearch_tpu_torch.search.fetch import (
+    _edit_distance_at_most,
+    _fuzziness_distance,
+)
 
 I64_MIN = -(2**63)
 I64_MAX = 2**63 - 1
@@ -135,16 +151,38 @@ class ShardQueryResult:
 
 
 class HostNodeResult:
-    """A host-resident selection (the bare-kNN path): the shard cut already
-    picked <= k winners on the host, so the query phase reads them here."""
+    """NodeResult duck type for a host-resident selection (the bare-kNN
+    path): the shard cut already picked <= k winners on the host, so a
+    top-level consumer (execute_query_phase's host fast path) reads them
+    here. A compound parent (knn inside bool, a rescore, ...) reading
+    ``.scores`` / ``.mask`` gets device tensors, copied once on first use
+    and kept, so query semantics never change."""
 
-    __slots__ = ("host_scores", "host_mask", "scoring")
+    __slots__ = ("host_scores", "host_mask", "scoring", "device",
+                 "_dev_scores", "_dev_mask")
 
     def __init__(self, host_scores: np.ndarray, host_mask: np.ndarray,
-                 scoring: bool = True):
+                 scoring: bool = True, device=None):
         self.host_scores = host_scores    # f32 [n_pad], 0 where unselected
         self.host_mask = host_mask        # bool [n_pad]
         self.scoring = scoring
+        self.device = device
+        self._dev_scores = None
+        self._dev_mask = None
+
+    @property
+    def scores(self) -> torch.Tensor:
+        if self._dev_scores is None:
+            self._dev_scores = torch.from_numpy(
+                np.ascontiguousarray(self.host_scores)).to(self.device)
+        return self._dev_scores
+
+    @property
+    def mask(self) -> torch.Tensor:
+        if self._dev_mask is None:
+            self._dev_mask = torch.from_numpy(
+                np.ascontiguousarray(self.host_mask)).to(self.device)
+        return self._dev_mask
 
 
 class ShardContext:
@@ -154,6 +192,74 @@ class ShardContext:
         # knn nodes select k docs PER SHARD (k-NN plugin semantics), so the
         # top-k cut spans all segments of the shard; cached per query node
         self._knn_cache: dict[int, list] = {}
+        # query_string trees are parsed once per shard, not per segment
+        self._qs_cache: dict[int, Any] = {}
+
+    def rewritten_query_string(self, node) -> Any:
+        """A query_string / simple_query_string node's text parsed once per
+        shard into a query tree (QueryStringQueryBuilder's rewrite)."""
+        cached = self._qs_cache.get(id(node))
+        if cached is not None:
+            return cached
+        from opensearch_tpu_torch.search.query_string import (
+            parse_query_string,
+            parse_simple_query_string,
+        )
+
+        fields = node.fields or self.default_text_fields()
+        if isinstance(node, q.SimpleQueryStringQuery):
+            tree = parse_simple_query_string(node.query, fields,
+                                             node.default_operator)
+        else:
+            tree = parse_query_string(node.query, fields,
+                                      node.default_operator)
+        self._qs_cache[id(node)] = tree
+        return tree
+
+    def default_text_fields(self) -> list[str]:
+        fields = [name for name, m in self.mapper_service.mappers.items()
+                  if m.type in ("text", "keyword")]
+        for host, _dev in self.snapshot.segments:
+            for name in host.text_fields:
+                if name not in fields:
+                    fields.append(name)
+        return fields or ["_all_absent_"]
+
+    # -- shard-level statistics (Lucene's collection statistics) -----------
+
+    def text_stats(self, field: str) -> tuple[int, float]:
+        """(doc_count, avgdl) across all segments of the shard."""
+        doc_count = 0
+        total_terms = 0.0
+        for host, _ in self.snapshot.segments:
+            tf = host.text_fields.get(field)
+            if tf is not None:
+                doc_count += tf.docs_with_field
+                total_terms += tf.total_terms
+        if doc_count == 0:
+            return 0, 1.0
+        return doc_count, total_terms / doc_count
+
+    def text_df(self, field: str, term: str) -> int:
+        return sum(host.text_fields[field].doc_freq(term)
+                   for host, _ in self.snapshot.segments
+                   if field in host.text_fields)
+
+    def keyword_df(self, field: str, value: str) -> int:
+        df = 0
+        for host, _ in self.snapshot.segments:
+            kf = host.keyword_fields.get(field)
+            if kf is None:
+                continue
+            o = kf.ord_dict.get(value)
+            if o is not None:
+                df += int(np.sum(kf.mv_ords == o))
+        return df
+
+    def keyword_doc_count(self, field: str) -> int:
+        return sum(int((host.keyword_fields[field].first_ord >= 0).sum())
+                   for host, _ in self.snapshot.segments
+                   if field in host.keyword_fields)
 
     def shard_knn_selection(self, node) -> list:
         """Per-segment (sel_mask bool[n_pad], scores f32[n_pad]) numpy pairs
@@ -175,8 +281,8 @@ class ShardContext:
             valid = vf.present & dev.live
             if filtered:
                 # efficient filtering: the same scan on a narrower set
-                valid = valid & SegmentExecutor(self, host, dev).filter_mask(
-                    node.filter)
+                valid = valid & SegmentExecutor(self, host, dev).execute(
+                    node.filter).mask
             qv = np.asarray(node.vector, np.float32)
             sim = knn_ops.canonical_similarity(vf.similarity)
             k_req = max(1, min(int(node.k), host.n_docs))
@@ -405,238 +511,481 @@ def _rows(b_vals: torch.Tensor, b_ids: torch.Tensor, n: int) -> list:
     return [(vals[i], ids[i]) for i in range(n)]
 
 
+
+# query nodes the port does not execute yet, by class, with the name of
+# the query in the DSL
+_NOT_YET_PORTED = {
+    "ScriptQuery": "script",
+    "ScriptScoreQuery": "script_score",
+    "GenericScriptScoreQuery": "script_score",
+    "TermsSetQuery": "terms_set",
+    "GeoDistanceQuery": "geo_distance",
+    "GeoBoundingBoxQuery": "geo_bounding_box",
+    "GeoShapeQuery": "geo_shape",
+    "NestedQuery": "nested",
+    "HasChildQuery": "has_child",
+    "HasParentQuery": "has_parent",
+    "ParentIdQuery": "parent_id",
+    "PercolateQuery": "percolate",
+    "MoreLikeThisQuery": "more_like_this",
+    "HybridQuery": "hybrid",
+    "RankFeatureQuery": "rank_feature",
+    "DistanceFeatureQuery": "distance_feature",
+    "SliceQuery": "slice",
+}
+
+
+# --------------------------------------------------------------------------
+# Node execution against one segment
+# --------------------------------------------------------------------------
+
+
+def _phrase_match(lists: list, slop: int, terms: list | None = None) -> bool:
+    """True iff one position per term can be chosen with total displacement
+    cost sum |p_i - p_{i-1} - 1| <= slop (slop 0 = exact adjacency; adjacent
+    swaps cost 2, Lucene's sloppy-phrase distance). Repeated query terms
+    must land on distinct positions (SloppyPhraseScorer repeats)."""
+    if any(len(lst) == 0 for lst in lists):
+        return False
+    if terms is not None and len(set(terms)) < len(terms):
+        # exhaustive search with the distinct-position constraint for
+        # repeated terms; per-doc tf keeps the space tiny, but cap it
+        def rec(i: int, prev_p: int | None, cost: int,
+                used: dict[str, set], budget: list[int]) -> bool:
+            if budget[0] <= 0:
+                return False
+            if cost > slop:
+                return False
+            if i == len(lists):
+                return True
+            t = terms[i]
+            for p in lists[i]:
+                p = int(p)
+                if p in used.get(t, ()):
+                    continue
+                budget[0] -= 1
+                step = 0 if prev_p is None else abs(p - prev_p - 1)
+                used.setdefault(t, set()).add(p)
+                if rec(i + 1, p, cost + step, used, budget):
+                    return True
+                used[t].discard(p)
+            return False
+
+        return rec(0, None, 0, {}, [200_000])
+    prev = {int(p): 0 for p in lists[0]}
+    for lst in lists[1:]:
+        cur: dict[int, int] = {}
+        for p in lst:
+            p = int(p)
+            cur[p] = min(c + abs(p - pq - 1) for pq, c in prev.items())
+        prev = cur
+        if min(prev.values()) > slop:
+            return False  # costs only grow downstream
+    return min(prev.values()) <= slop
+
+
+@dataclass
+class NodeResult:
+    scores: torch.Tensor           # f32 [n_pad], 0 where not matching
+    mask: torch.Tensor             # bool [n_pad]
+    scoring: bool                  # False => pure filter (score ignored)
+
+
+def _f32(x: float, device) -> torch.Tensor:
+    """A float32 scalar on `device`: the reference's jnp.float32(x)."""
+    return torch.tensor(np.float32(x), dtype=torch.float32, device=device)
+
+
+def _const_result(mask: torch.Tensor, boost: float,
+                  scoring: bool) -> NodeResult:
+    # a fill with the boost already rounded to float32: the reference's
+    # bits, with no host-to-device copy (which would wait for the stream)
+    scores = torch.where(mask, float(np.float32(boost)), 0.0)
+    return NodeResult(scores=scores, mask=mask, scoring=scoring)
+
+
+def _empty(dev) -> NodeResult:
+    device = dev.live.device
+    return NodeResult(
+        scores=torch.zeros(dev.n_pad, dtype=torch.float32, device=device),
+        mask=torch.zeros(dev.n_pad, dtype=torch.bool, device=device),
+        scoring=False)
+
+
 class SegmentExecutor:
-    """Executes a query node against one segment: the kNN query, and the
-    filter-context masks a kNN filter names (:meth:`filter_mask`)."""
+    """Executes a query node tree against one segment's device columns."""
 
     def __init__(self, ctx: ShardContext, host, dev):
         self.ctx = ctx
         self.host = host
         self.dev = dev
+        self.device = dev.live.device
 
-    # -- filter context ----------------------------------------------------
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
-    def filter_mask(self, node) -> torch.Tensor:
-        """The device bool [n_pad] mask of a filter-context node: the
-        reference's ``execute(node).mask``."""
-        method = getattr(self, f"_filter_{type(node).__name__}", None)
+    # -- text scoring ------------------------------------------------------
+
+    def _bm25(self, field: str, terms: list[str],
+              boost: float) -> tuple[NodeResult, torch.Tensor]:
+        """Returns (result, per-doc matched-term counts)."""
+        dev_tf = self.dev.text_fields.get(field)
+        host_tf = self.host.text_fields.get(field)
+        if dev_tf is None or host_tf is None or not terms:
+            return _empty(self.dev), torch.zeros(
+                self.dev.n_pad, dtype=torch.int32, device=self.device)
+        doc_count, avgdl = self.ctx.text_stats(field)
+        offs, lens, idfs = [], [], []
+        for t in terms:
+            tid = host_tf.term_dict.get(t)
+            if tid is None:
+                offs.append(0)
+                lens.append(0)
+                idfs.append(0.0)
+            else:
+                offs.append(int(host_tf.term_offsets[tid]))
+                lens.append(int(host_tf.term_offsets[tid + 1]
+                                - host_tf.term_offsets[tid]))
+                idfs.append(bm25.idf(self.ctx.text_df(field, t), doc_count))
+        window = pad_window(max(lens) if lens else 1)
+        # the per-term rows stay host numpy: they are the path's only
+        # per-query transfer (the postings live on the device), and the
+        # profiler counts transfer bytes from host-typed arguments
+        scores, counts = bm25.bm25_term_scores(
+            dev_tf.postings_docs, dev_tf.postings_tfs, dev_tf.doc_len,
+            np.asarray(offs, np.int32), np.asarray(lens, np.int32),
+            np.asarray(idfs, np.float32), np.float32(avgdl),
+            n_pad=self.dev.n_pad, window=window)
+        mask = counts > 0
+        return NodeResult(scores=scores * boost, mask=mask,
+                          scoring=True), counts
+
+    # -- dispatch ----------------------------------------------------------
+
+    def execute(self, node: q.QueryNode) -> NodeResult:
+        name = type(node).__name__
+        method = getattr(self, f"_exec_{name}", None)
         if method is None:
-            raise not_yet_ported(
-                f"query [{type(node).__name__}] inside a kNN filter")
-        return method(node)
+            if name in _NOT_YET_PORTED:
+                raise not_yet_ported(f"query [{_NOT_YET_PORTED[name]}]")
+            raise ParsingException(f"unexecutable query node [{name}]")
+        prof = profile.active()
+        if prof is None:
+            return method(node)
+        # nested execute() calls (bool children, rescore, function_score
+        # inners) build the operator tree; the same node across segments
+        # accumulates into one operator
+        with prof.operator(name, profile.describe_node(node)):
+            return method(node)
 
-    def _none(self) -> torch.Tensor:
-        return torch.zeros(self.dev.n_pad, dtype=torch.bool,
-                           device=self.dev.live.device)
+    def _exec_MatchAllQuery(self, node: q.MatchAllQuery) -> NodeResult:
+        return _const_result(self.dev.live, node.boost, scoring=True)
 
-    def _host_mask(self, mask: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(mask).to(self.dev.live.device) & self.dev.live
+    def _exec_MatchNoneQuery(self, node: q.MatchNoneQuery) -> NodeResult:
+        return _empty(self.dev)
 
-    def _filter_MatchAllQuery(self, node) -> torch.Tensor:
-        return self.dev.live
+    def _exec_MatchQuery(self, node: q.MatchQuery) -> NodeResult:
+        ms = self.ctx.mapper_service
+        mapper = ms.field_mapper(node.field)
+        if (mapper is None and ms.flat_object_parent(node.field)) or (
+                mapper is not None and mapper.type != "text"):
+            # match on a non-text field is a term query (no analysis)
+            return self._exec_TermQuery(q.TermQuery(
+                field=node.field, value=node.query, boost=node.boost))
+        terms = ms.analyze_query_text(node.field, node.query)
+        if not terms:
+            # zero analyzed tokens (all stopwords) match nothing, like the
+            # reference's MatchNoDocsQuery rewrite
+            return _empty(self.dev)
+        result, counts = self._bm25(node.field, terms, node.boost)
+        mask = result.mask
+        if node.operator == "and":
+            mask = counts >= len(terms)
+        elif node.minimum_should_match is not None:
+            mask = counts >= node.minimum_should_match
+        return NodeResult(result.scores, mask & self.dev.live, True)
 
-    def _filter_MatchNoneQuery(self, node) -> torch.Tensor:
-        return self._none()
+    def _exec_MatchPhraseQuery(self, node: q.MatchPhraseQuery) -> NodeResult:
+        # the device conjunction narrows the candidates; the host segment's
+        # positions CSR verifies adjacency (Lucene's PhraseQuery)
+        terms = self.ctx.mapper_service.analyze_query_text(node.field,
+                                                           node.query)
+        if not terms:
+            return _empty(self.dev)
+        result, counts = self._bm25(node.field, terms, node.boost)
+        conj = (counts >= len(terms)) & self.dev.live
+        host_tf = self.host.text_fields.get(node.field)
+        if len(terms) <= 1 or host_tf is None or not host_tf.has_positions:
+            # one term, or a segment without positions: the conjunction is
+            # the best available answer
+            return NodeResult(result.scores, conj, True)
+        cand = np.nonzero(conj.cpu().numpy()[: self.host.n_docs])[0]
+        verified = np.zeros(self.dev.n_pad, bool)
+        for d in cand:
+            lists = [host_tf.term_positions(t, int(d)) for t in terms]
+            if _phrase_match(lists, node.slop, terms):
+                verified[d] = True
+        mask = self._to_device(verified)
+        return NodeResult(torch.where(mask, result.scores, 0.0), mask, True)
 
-    def _filter_IdsQuery(self, node) -> torch.Tensor:
-        mask = np.zeros(self.dev.n_pad, dtype=bool)
-        for doc_id in node.values:
-            # doc_index (not local_doc): liveness comes from the snapshot's
-            # device mask, so a pinned reader stays point-in-time
-            d = self.host.doc_index(doc_id)
-            if d is not None:
+    def _exec_IntervalsQuery(self, node: q.IntervalsQuery) -> NodeResult:
+        from opensearch_tpu_torch.search import intervals as iv
+
+        host_tf = self.host.text_fields.get(node.field)
+        if host_tf is None or not host_tf.has_positions:
+            return _empty(self.dev)
+        ms = self.ctx.mapper_service
+
+        def analyze(text: str, analyzer: str | None) -> list[str]:
+            if analyzer:
+                return ms.analysis.get(analyzer).analyze(text)
+            return ms.analyze_query_text(node.field, text)
+
+        ctx = iv.IntervalContext(
+            analyze=analyze,
+            vocab=host_tf.terms,
+            positions=lambda t, d: host_tf.term_positions(t, d),
+            edit_distance_at_most=_edit_distance_at_most,
+            fuzziness_distance=_fuzziness_distance,
+        )
+        # candidate docs: the union of every involved term's postings
+        cand: set[int] = set()
+        for t in ctx.leaf_terms(node.source):
+            tid = host_tf.term_dict.get(t)
+            if tid is None:
+                continue
+            off = int(host_tf.term_offsets[tid])
+            end = int(host_tf.term_offsets[tid + 1])
+            cand.update(int(d) for d in host_tf.postings_docs[off:end])
+        live = self.dev.live.cpu().numpy()
+        mask = np.zeros(self.dev.n_pad, bool)
+        for d in sorted(cand):
+            if live[d] and iv.evaluate(node.source, ctx, d):
                 mask[d] = True
-        return self._host_mask(mask)
+        return _const_result(self._to_device(mask), node.boost, scoring=True)
 
-    def _filter_ConstantScoreQuery(self, node) -> torch.Tensor:
-        return self.filter_mask(node.filter)
+    def _exec_MultiMatchQuery(self, node: q.MultiMatchQuery) -> NodeResult:
+        msm = node.minimum_should_match
 
-    def _filter_BoolQuery(self, node) -> torch.Tensor:
-        mask = self.dev.live
-        for sub in (*node.must, *node.filter):
-            mask = mask & self.filter_mask(sub)
-        for sub in node.must_not:
-            mask = mask & ~self.filter_mask(sub)
-        if node.should:
-            count = torch.zeros(self.dev.n_pad, dtype=torch.int32,
-                                device=mask.device)
-            for sub in node.should:
-                count = count + self.filter_mask(sub).to(torch.int32)
-            msm = node.minimum_should_match
-            if msm is None:
-                msm = 1 if not (node.must or node.filter) else 0
-            if msm > 0:
-                mask = mask & (count >= msm)
-        return mask
+        def fboost(f: str) -> float:
+            return node.boost * node.field_boosts.get(f, 1.0)
 
-    def _filter_ExistsQuery(self, node) -> torch.Tensor:
-        field = node.field
-        ms = self.ctx.mapper_service
-        if ms.flat_object_parent(field) is not None \
-                and ms.mappers.get(field) is None:
-            raise not_yet_ported("[exists] on a flat_object sub-path inside "
-                                 "a kNN filter")
-        dev = self.dev
-        if all(field not in cols for cols in (
-                dev.numeric_fields, dev.vector_fields, dev.keyword_fields,
-                dev.text_fields)):
-            # object prefix: exists == any mapped child exists
-            children = [name for name in ms.mappers
-                        if name.startswith(f"{field}.")]
-            if children:
-                mask = self._none()
-                for child in children:
-                    mask = mask | self._filter_ExistsQuery(
-                        q.ExistsQuery(field=child))
-                return mask
-        masks = []
-        for cols in (dev.numeric_fields, dev.vector_fields):
-            if field in cols:
-                masks.append(filters.exists_mask(cols[field].present))
-        if field in dev.keyword_fields:
-            masks.append(dev.keyword_fields[field].first_ord >= 0)
-        if field in dev.text_fields:
-            masks.append(dev.text_fields[field].doc_len > 0)
-        if not masks:
-            return self._none()
-        mask = masks[0]
-        for m in masks[1:]:
-            mask = mask | m
-        return mask & dev.live
+        if node.type == "bool_prefix":
+            per_field = [
+                self._exec_MatchBoolPrefixQuery(q.MatchBoolPrefixQuery(
+                    field=f, query=node.query, operator=node.operator,
+                    minimum_should_match=msm, fuzziness=node.fuzziness,
+                    analyzer=node.analyzer, boost=fboost(f)))
+                for f in node.fields]
+        elif node.type == "phrase":
+            per_field = [
+                self._exec_MatchPhraseQuery(q.MatchPhraseQuery(
+                    field=f, query=node.query, slop=node.slop,
+                    boost=fboost(f)))
+                for f in node.fields]
+        elif node.type == "phrase_prefix":
+            per_field = [
+                self._exec_MatchPhrasePrefixQuery(q.MatchPhrasePrefixQuery(
+                    field=f, query=node.query, boost=fboost(f)))
+                for f in node.fields]
+        else:
+            per_field = None
+        if per_field is not None:
+            if not per_field:
+                return _empty(self.dev)
+            mask = per_field[0].mask
+            scores = per_field[0].scores
+            for s in per_field[1:]:
+                mask = mask | s.mask
+                scores = torch.maximum(scores, s.scores)
+            return NodeResult(scores=scores, mask=mask, scoring=True)
+        subs = [
+            self._exec_MatchQuery(q.MatchQuery(
+                field=f, query=node.query, boost=fboost(f),
+                operator=node.operator,
+                minimum_should_match=(
+                    int(msm) if isinstance(msm, int) or
+                    (isinstance(msm, str) and msm.lstrip("-").isdigit())
+                    else None)))
+            for f in node.fields]
+        if not subs:
+            return _empty(self.dev)
+        mask = subs[0].mask
+        for s in subs[1:]:
+            mask = mask | s.mask
+        if node.type == "most_fields":
+            scores = subs[0].scores
+            for s in subs[1:]:
+                scores = scores + s.scores
+        else:  # best_fields: max over fields
+            scores = subs[0].scores
+            for s in subs[1:]:
+                scores = torch.maximum(scores, s.scores)
+        return NodeResult(scores=scores, mask=mask, scoring=True)
 
-    def _mapper(self, field: str, what: str):
-        """The field's mapper; a flat_object field or sub-path, or a range
-        field, raises "not yet ported"."""
-        ms = self.ctx.mapper_service
-        mapper = ms.field_mapper(field)
-        if (mapper is None and ms.flat_object_parent(field) is not None) or (
-                mapper is not None and mapper.type in (
-                    "flat_object", *RANGE_TYPES)):
-            raise not_yet_ported(f"[{what}] on field [{field}] of type "
-                                 f"[{mapper.type if mapper else 'flat_object'}]"
-                                 f" inside a kNN filter")
-        return mapper
-
-    def _keyword_value(self, mapper, value):
-        if mapper is not None and mapper.normalizer == "lowercase" \
-                and isinstance(value, str):
+    def _normalize_kw(self, field: str, value: str) -> str:
+        mapper = self.ctx.mapper_service.field_mapper(field)
+        if mapper is not None and mapper.normalizer == "lowercase":
             return value.lower()
         return value
 
-    def _text_term(self, field: str, term: str) -> torch.Tensor:
-        """Docs holding `term` in text field `field` (its postings)."""
-        dev_tf = self.dev.text_fields.get(field)
-        host_tf = self.host.text_fields.get(field)
-        if dev_tf is None or host_tf is None:
-            return self._none()
-        tid = host_tf.term_dict.get(term)
-        if tid is None:
-            return self._none()
-        off = int(host_tf.term_offsets[tid])
-        length = int(host_tf.term_offsets[tid + 1]) - off
-        return filters.docs_mask_from_postings(
-            dev_tf.postings_docs, off, length, self.dev.n_pad,
-            pad_window(length)) & self.dev.live
-
-    def _filter_TermQuery(self, node) -> torch.Tensor:
+    def _exec_TermQuery(self, node: q.TermQuery) -> NodeResult:
         field, value = node.field, node.value
         if field == "_id":
-            return self._filter_IdsQuery(q.IdsQuery(values=[str(value)]))
-        mapper = self._mapper(field, "term")
+            return self._exec_IdsQuery(q.IdsQuery(values=[str(value)],
+                                                  boost=node.boost))
+        ms = self.ctx.mapper_service
+        mapper = ms.field_mapper(field)
+        if mapper is None:
+            # a flat_object sub-path: a term on the shared "{root}#paths"
+            # column with a "sub.path=value" entry
+            flat = ms.flat_object_parent(field)
+            if flat is not None:
+                root, subpath = flat
+                return self._exec_TermQuery(q.TermQuery(
+                    field=f"{root}#paths", value=f"{subpath}={value}",
+                    case_insensitive=node.case_insensitive,
+                    boost=node.boost))
         ftype = mapper.type if mapper else None
-        value = self._keyword_value(mapper, value)
+        if ftype == "flat_object":
+            ftype = "keyword"
+        if mapper is not None and mapper.normalizer == "lowercase" \
+                and isinstance(value, str):
+            value = value.lower()
         if ftype == "text":
-            return self._text_term(field, str(value))
+            result, _counts = self._bm25(field, [str(value)], node.boost)
+            return NodeResult(result.scores, result.mask & self.dev.live,
+                              True)
         if ftype == "keyword" or (ftype is None
                                   and field in self.host.keyword_fields):
             if node.case_insensitive:
-                raise not_yet_ported("[term] with case_insensitive inside a "
-                                     "kNN filter")
+                want = str(value).lower()
+                return self._multi_term_result(
+                    field, lambda t: t.lower() == want, node.boost)
             if mapper is not None and mapper.original_type == "ip" \
                     and "/" in str(value):
-                raise not_yet_ported("[term] on an ip subnet inside a kNN "
-                                     "filter")
+                # a CIDR term: any stored address inside the subnet
+                import ipaddress
+
+                try:
+                    net = ipaddress.ip_network(str(value), strict=False)
+                except ValueError as e:
+                    raise IllegalArgumentException(
+                        f"invalid IP subnet [{value}]: {e}") from None
+                return self._multi_term_result(
+                    field,
+                    lambda t: (lambda a: a is not None and a in net)(
+                        _try_ip(t)),
+                    node.boost)
             kf_dev = self.dev.keyword_fields.get(field)
             kf_host = self.host.keyword_fields.get(field)
             if kf_dev is None:
-                return self._none()
+                return _empty(self.dev)
             qord = kf_host.ord_dict.get(str(value), -3)
-            return filters.term_mask_keyword(
+            mask = filters.term_mask_keyword(
                 kf_dev.mv_ords, kf_dev.mv_docs, qord,
                 self.dev.n_pad) & self.dev.live
+            # keyword term scoring: norms omitted, idf * tf / (tf + k1), tf 1
+            df = self.ctx.keyword_df(field, str(value))
+            doc_count = max(self.ctx.keyword_doc_count(field), 1)
+            score = (bm25.idf(df, doc_count) / (1.0 + bm25.K1_DEFAULT)
+                     if df else 0.0)
+            return _const_result(mask, score * node.boost, scoring=True)
         if ftype == "boolean":
             want = 1 if value in (True, "true", 1) else 0
-            return self._numeric_range(field, want, None, want, None)
+            return self._numeric_range(field, want, None, want, None,
+                                       node.boost)
         if ftype == "date":
-            ms = (parse_date_nanos(value) if mapper.resolution == "nanos"
-                  else parse_date_millis(value))
-            return self._numeric_range(field, ms, None, ms, None)
+            ms_v = (parse_date_nanos(value) if mapper.resolution == "nanos"
+                    else parse_date_millis(value))
+            return self._numeric_range(field, ms_v, None, ms_v, None,
+                                       node.boost)
         if ftype in INT_TYPES or ftype in FLOAT_TYPES or ftype is None:
-            return self._numeric_range(field, value, None, value, None)
+            return self._numeric_range(field, value, None, value, None,
+                                       node.boost)
         raise IllegalArgumentException(
             f"term query on unsupported field [{field}]")
 
-    def _filter_TermsQuery(self, node) -> torch.Tensor:
+    def _exec_TermsQuery(self, node: q.TermsQuery) -> NodeResult:
         if node.field == "_id":
-            return self._filter_IdsQuery(
-                q.IdsQuery(values=[str(v) for v in node.values]))
-        mapper = self._mapper(node.field, "terms")
-        if mapper is not None and mapper.type == "keyword":
+            return self._exec_IdsQuery(q.IdsQuery(
+                values=[str(v) for v in node.values], boost=node.boost))
+        ms = self.ctx.mapper_service
+        mapper = ms.field_mapper(node.field)
+        if mapper is None:
+            flat = ms.flat_object_parent(node.field)
+            if flat is not None:
+                root, subpath = flat
+                return self._exec_TermsQuery(q.TermsQuery(
+                    field=f"{root}#paths",
+                    values=[f"{subpath}={v}" for v in node.values],
+                    boost=node.boost))
+        ftype = mapper.type if mapper else None
+        if ftype in ("keyword", "flat_object"):
             kf_dev = self.dev.keyword_fields.get(node.field)
             kf_host = self.host.keyword_fields.get(node.field)
             if kf_dev is None:
-                return self._none()
+                return _empty(self.dev)
             ords = [kf_host.ord_dict.get(
-                str(self._keyword_value(mapper, str(v))), -3)
+                self._normalize_kw(node.field, str(v)), -3)
                 for v in node.values]
             t_pad = max(pad_window(len(ords)), 8)
             ords_arr = np.full(t_pad, -3, np.int32)
             ords_arr[: len(ords)] = ords
-            return filters.terms_mask_keyword(
-                kf_dev.mv_ords, kf_dev.mv_docs,
-                torch.from_numpy(ords_arr).to(kf_dev.mv_ords.device),
+            mask = filters.terms_mask_keyword(
+                kf_dev.mv_ords, kf_dev.mv_docs, self._to_device(ords_arr),
                 self.dev.n_pad) & self.dev.live
+            return _const_result(mask, node.boost, scoring=True)
         # numeric / text: the OR of term queries
-        mask = self._none()
+        out: NodeResult | None = None
         for v in node.values:
-            mask = mask | self._filter_TermQuery(
-                q.TermQuery(field=node.field, value=v))
-        return mask
+            r = self._exec_TermQuery(q.TermQuery(field=node.field, value=v,
+                                                 boost=node.boost))
+            out = r if out is None else NodeResult(
+                torch.maximum(out.scores, r.scores), out.mask | r.mask, True)
+        return out if out is not None else _empty(self.dev)
 
-    def _filter_RangeQuery(self, node) -> torch.Tensor:
-        mapper = self._mapper(node.field, "range")
-        if mapper is not None and mapper.type == "keyword":
-            # lexicographic range over the sorted ordinals
-            import bisect
+    def _exec_range_field(self, node: q.RangeQuery, mapper) -> NodeResult:
+        """A range query against a range field (doc values are intervals in
+        the `{field}#lo` / `{field}#hi` columns):
+          intersects: doc.lo <= q.hi AND doc.hi >= q.lo
+          contains:   doc.lo <= q.lo AND doc.hi >= q.hi
+          within:     doc.lo >= q.lo AND doc.hi <= q.hi"""
+        from opensearch_tpu_torch.index.mapper import range_value_bounds
 
-            kf_host = self.host.keyword_fields.get(node.field)
-            kf_dev = self.dev.keyword_fields.get(node.field)
-            if kf_host is None:
-                return self._none()
-            vals = kf_host.ord_values
-            lo, hi = 0, len(vals) - 1
-            if node.gte is not None:
-                lo = bisect.bisect_left(vals, str(node.gte))
-            if node.gt is not None:
-                lo = max(lo, bisect.bisect_right(vals, str(node.gt)))
-            if node.lte is not None:
-                hi = bisect.bisect_right(vals, str(node.lte)) - 1
-            if node.lt is not None:
-                hi = min(hi, bisect.bisect_left(vals, str(node.lt)) - 1)
-            if hi < lo:
-                return self._none()
-            hit = (kf_dev.mv_ords >= lo) & (kf_dev.mv_ords <= hi)
-            return filters._docs_any(hit, kf_dev.mv_docs, self.dev.n_pad) \
-                & self.dev.live
-        return self._numeric_range(node.field, node.gte, node.gt, node.lte,
-                                   node.lt)
+        try:
+            q_lo, q_hi = range_value_bounds(
+                mapper.type,
+                {"gte": node.gte, "gt": node.gt,
+                 "lte": node.lte, "lt": node.lt},
+                mapper.format)
+        except (ValueError, TypeError) as e:
+            raise IllegalArgumentException(
+                f"failed to parse range query on [{node.field}]: {e}"
+            ) from None
+        lo_f, hi_f = f"{node.field}#lo", f"{node.field}#hi"
+        relation = node.relation or "intersects"
+        if relation == "contains":
+            a = self._numeric_range(lo_f, None, None, q_lo, None, 1.0)
+            b = self._numeric_range(hi_f, q_hi, None, None, None, 1.0)
+        elif relation == "within":
+            a = self._numeric_range(lo_f, q_lo, None, None, None, 1.0)
+            b = self._numeric_range(hi_f, None, None, q_hi, None, 1.0)
+        elif relation == "intersects":
+            a = self._numeric_range(lo_f, None, None, q_hi, None, 1.0)
+            b = self._numeric_range(hi_f, q_lo, None, None, None, 1.0)
+        else:
+            raise IllegalArgumentException(
+                f"[range] unknown relation [{relation}]")
+        mask = a.mask & b.mask & self.dev.live
+        return _const_result(mask, node.boost, scoring=True)
 
     def _numeric_range(self, field: str, gte: Any, gt: Any, lte: Any,
-                       lt: Any) -> torch.Tensor:
+                       lt: Any, boost: float) -> NodeResult:
         nf_dev = self.dev.numeric_fields.get(field)
         nf_host = self.host.numeric_fields.get(field)
         if nf_dev is None:
-            return self._none()
+            return _empty(self.dev)
         mapper = self.ctx.mapper_service.field_mapper(field)
         is_date = mapper is not None and mapper.type == "date"
         nanos = is_date and mapper.resolution == "nanos"
@@ -655,6 +1004,7 @@ class SegmentExecutor:
         gte, gt, lte, lt = conv(gte), conv(gt), conv(lte), conv(lt)
         if nf_host is not None and nf_host.mv_offsets is not None:
             # multi-valued docs: a doc matches if ANY value is in range
+            # (SortedNumericDocValues), a host scan of the CSR
             mv = nf_host.mv_values
             if nf_host.kind == "int":
                 lo_b = I64_MIN if gte is None and gt is None else (
@@ -670,13 +1020,15 @@ class SegmentExecutor:
                 sel = np.ones(len(mv), bool)
                 sel &= (mv > lo_v) if gt is not None else (mv >= lo_v)
                 sel &= (mv < hi_v) if lt is not None else (mv <= hi_v)
-            mask = np.zeros(self.dev.n_pad, bool)
+            mask_host = np.zeros(self.dev.n_pad, bool)
             idx = np.nonzero(sel)[0]
             if len(idx):
+                # entry index -> owning doc through the CSR offsets
                 doc_of = np.searchsorted(nf_host.mv_offsets, idx,
                                          side="right") - 1
-                mask[np.unique(doc_of)] = True
-            return self._host_mask(mask)
+                mask_host[np.unique(doc_of)] = True
+            return _const_result(self._to_device(mask_host) & self.dev.live,
+                                 boost, scoring=True)
         if nf_dev.kind == "int":
             lo_bound = I64_MIN if gte is None and gt is None else (
                 int(gte) if gte is not None else int(gt) + 1)
@@ -693,85 +1045,842 @@ class SegmentExecutor:
             mask = filters.range_mask_f32(
                 nf_dev.values, nf_dev.present, lo_v, hi_v, gt is not None,
                 lt is not None)
-        return mask & self.dev.live
+        return _const_result(mask & self.dev.live, boost, scoring=True)
 
-    def execute(self, node) -> HostNodeResult:
-        method = getattr(self, f"_exec_{type(node).__name__}", None)
-        if method is None:
-            raise ParsingException(
-                f"unexecutable query node [{type(node).__name__}]")
-        prof = profile.active()
-        if prof is None:
-            return method(node)
-        # the same node across segments accumulates into one operator
-        with prof.operator(type(node).__name__, profile.describe_node(node)):
-            return method(node)
+    def _exec_RangeQuery(self, node: q.RangeQuery) -> NodeResult:
+        ms = self.ctx.mapper_service
+        mapper = ms.field_mapper(node.field)
+        if mapper is not None and mapper.type in RANGE_TYPES:
+            return self._exec_range_field(node, mapper)
+        if mapper is not None and mapper.type == "flat_object":
+            # the root column is keyword-shaped: a lexicographic range
+            from opensearch_tpu_torch.index.mapper import FieldMapper
 
-    def _exec_KnnQuery(self, node) -> HostNodeResult:
+            mapper = FieldMapper(node.field, "keyword")
+        if mapper is None:
+            flat = ms.flat_object_parent(node.field)
+            if flat is not None:
+                root, sub = flat
+                # a lexicographic range inside the "sub=value" entries; the
+                # constant "sub=" prefix keeps the bounds in this sub-path
+                return self._exec_RangeQuery(q.RangeQuery(
+                    field=f"{root}#paths",
+                    gte=(f"{sub}={node.gte}" if node.gte is not None
+                         else f"{sub}="),
+                    gt=f"{sub}={node.gt}" if node.gt is not None else None,
+                    lte=(f"{sub}={node.lte}" if node.lte is not None
+                         else f"{sub}=\uffff"),
+                    lt=f"{sub}={node.lt}" if node.lt is not None else None,
+                    boost=node.boost))
+        if mapper is not None and mapper.type == "keyword":
+            # a lexicographic range over the sorted ordinals
+            import bisect
+
+            kf_host = self.host.keyword_fields.get(node.field)
+            kf_dev = self.dev.keyword_fields.get(node.field)
+            if kf_host is None:
+                return _empty(self.dev)
+            vals = kf_host.ord_values
+            lo, hi = 0, len(vals) - 1
+            if node.gte is not None:
+                lo = bisect.bisect_left(vals, str(node.gte))
+            if node.gt is not None:
+                lo = max(lo, bisect.bisect_right(vals, str(node.gt)))
+            if node.lte is not None:
+                hi = bisect.bisect_right(vals, str(node.lte)) - 1
+            if node.lt is not None:
+                hi = min(hi, bisect.bisect_left(vals, str(node.lt)) - 1)
+            if hi < lo:
+                return _empty(self.dev)
+            in_range = (kf_dev.mv_ords >= lo) & (kf_dev.mv_ords <= hi)
+            mask = filters._docs_any(in_range, kf_dev.mv_docs,
+                                     self.dev.n_pad) & self.dev.live
+            return _const_result(mask, node.boost, scoring=True)
+        return self._numeric_range(node.field, node.gte, node.gt, node.lte,
+                                   node.lt, node.boost)
+
+    def _exec_ExistsQuery(self, node: q.ExistsQuery) -> NodeResult:
+        field = node.field
+        ms = self.ctx.mapper_service
+        flat = ms.flat_object_parent(field)
+        if flat is not None and ms.mappers.get(field) is None:
+            root, subpath = flat
+            # a sub-path exists: any "{subpath}=value" entry in #paths, or
+            # any deeper "{subpath}.x=value" entry
+            r1 = self._exec_PrefixQuery(q.PrefixQuery(
+                field=f"{root}#paths", value=f"{subpath}=", boost=node.boost))
+            r2 = self._exec_PrefixQuery(q.PrefixQuery(
+                field=f"{root}#paths", value=f"{subpath}.", boost=node.boost))
+            return NodeResult(torch.maximum(r1.scores, r2.scores),
+                              r1.mask | r2.mask, True)
+        dev = self.dev
+        if all(field not in cols for cols in (
+                dev.numeric_fields, dev.vector_fields, dev.keyword_fields,
+                dev.text_fields)):
+            # an object prefix: exists == any mapped child exists
+            children = [name for name in ms.mappers
+                        if name.startswith(f"{field}.")]
+            out = None
+            for child in children:
+                r = self._exec_ExistsQuery(q.ExistsQuery(field=child,
+                                                         boost=node.boost))
+                out = r if out is None else NodeResult(
+                    torch.maximum(out.scores, r.scores), out.mask | r.mask,
+                    True)
+            if out is not None:
+                return out
+        masks = []
+        for cols in (dev.numeric_fields, dev.vector_fields):
+            if field in cols:
+                masks.append(filters.exists_mask(cols[field].present))
+        if field in dev.keyword_fields:
+            masks.append(dev.keyword_fields[field].first_ord >= 0)
+        if field in dev.text_fields:
+            masks.append(dev.text_fields[field].doc_len > 0)
+        if not masks:
+            return _empty(dev)
+        mask = masks[0]
+        for m in masks[1:]:
+            mask = mask | m
+        return _const_result(mask & dev.live, node.boost, scoring=True)
+
+    def _exec_IdsQuery(self, node: q.IdsQuery) -> NodeResult:
+        mask_host = np.zeros(self.dev.n_pad, dtype=bool)
+        for doc_id in node.values:
+            # doc_index (not local_doc): liveness comes from the snapshot's
+            # device mask, so a pinned reader stays point-in-time
+            d = self.host.doc_index(doc_id)
+            if d is not None:
+                mask_host[d] = True
+        return _const_result(self._to_device(mask_host) & self.dev.live,
+                             node.boost, True)
+
+    def _exec_ConstantScoreQuery(self,
+                                 node: q.ConstantScoreQuery) -> NodeResult:
+        inner = self.execute(node.filter)
+        return _const_result(inner.mask, node.boost, scoring=True)
+
+    def _exec_BoolQuery(self, node: q.BoolQuery) -> NodeResult:
+        n_pad = self.dev.n_pad
+        mask = self.dev.live
+        scores = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+        any_scoring = False
+        for sub in node.must:
+            r = self.execute(sub)
+            mask = mask & r.mask
+            if r.scoring:
+                any_scoring = True
+            scores = scores + r.scores
+        for sub in node.filter:
+            mask = mask & self.execute(sub).mask
+        for sub in node.must_not:
+            mask = mask & ~self.execute(sub).mask
+        if node.should:
+            should_results = [self.execute(sub) for sub in node.should]
+            should_count = torch.zeros(n_pad, dtype=torch.int32,
+                                       device=self.device)
+            for r in should_results:
+                should_count = should_count + r.mask.to(torch.int32)
+                scores = scores + torch.where(r.mask, r.scores, 0.0)
+                if r.scoring:
+                    any_scoring = True
+            msm = node.minimum_should_match
+            if msm is None:
+                msm = 1 if not (node.must or node.filter) else 0
+            if msm > 0:
+                mask = mask & (should_count >= msm)
+        # the scores of non-matching docs are zeroed (a must_not can strike
+        # a doc that a should scored)
+        scores = torch.where(mask, scores, 0.0) * node.boost
+        return NodeResult(scores=scores, mask=mask, scoring=any_scoring)
+
+    def _exec_KnnQuery(self, node: q.KnnQuery) -> NodeResult:
         # k applies per SHARD: the ShardContext caches the shard-wide
         # selection per query node
         selections = self.ctx.shard_knn_selection(node)
         seg_idx = next(
             i for i, (_h, d) in enumerate(self.ctx.snapshot.segments)
-            if d is self.dev
-        )
+            if d is self.dev)
         sel_host, scores_host = selections[seg_idx]
         if scores_host is None:
-            return HostNodeResult(np.zeros(self.dev.n_pad, np.float32),
-                                  np.zeros(self.dev.n_pad, bool),
-                                  scoring=False)
+            return _empty(self.dev)
+        # a host-resident result: the shard cut already chose the winners;
+        # device tensors are made only if a compound parent reads them
         out_scores = np.where(
             sel_host & np.isfinite(scores_host), scores_host, 0.0
         ).astype(np.float32)
         if node.boost != 1.0:
             out_scores *= np.float32(node.boost)
-        return HostNodeResult(out_scores, sel_host, scoring=True)
+        return HostNodeResult(out_scores, sel_host, scoring=True,
+                              device=self.device)
+
+    # -- multi-term (term-enumeration) queries -----------------------------
+    # Rewritten to constant score over the matching term set (Lucene's
+    # CONSTANT_SCORE_REWRITE): the term dictionary walk runs on the host,
+    # and only the final doc mask goes to the device.
+
+    def _host_mask_for_terms(self, field: str, match_fn) -> np.ndarray:
+        mask = np.zeros(self.dev.n_pad, bool)
+        host_tf = self.host.text_fields.get(field)
+        if host_tf is not None:
+            for tid, term in enumerate(host_tf.terms):
+                if match_fn(term):
+                    off = int(host_tf.term_offsets[tid])
+                    end = int(host_tf.term_offsets[tid + 1])
+                    mask[host_tf.postings_docs[off:end]] = True
+        kf = self.host.keyword_fields.get(field)
+        if kf is not None:
+            ords = [o for o, v in enumerate(kf.ord_values) if match_fn(v)]
+            if ords:
+                sel = np.isin(kf.mv_ords, np.asarray(ords, kf.mv_ords.dtype))
+                mask[kf.mv_docs[sel]] = True
+        return mask
+
+    def _multi_term_result(self, field: str, match_fn,
+                           boost: float) -> NodeResult:
+        mask = self._to_device(self._host_mask_for_terms(field, match_fn)) \
+            & self.dev.live
+        return _const_result(mask, boost, scoring=True)
+
+    def _flat_node(self, node, make):
+        """A multi-term query on a flat_object sub-path, rewritten onto the
+        "{root}#paths" column with a "sub.path=value" pattern, or None."""
+        ms = self.ctx.mapper_service
+        if ms.field_mapper(node.field) is not None:
+            return None
+        flat = ms.flat_object_parent(node.field)
+        if flat is None:
+            return None
+        root, subpath = flat
+        return make(f"{root}#paths", f"{subpath}={node.value}")
+
+    def _exec_PrefixQuery(self, node: q.PrefixQuery) -> NodeResult:
+        flat = self._flat_node(node, lambda f, v: q.PrefixQuery(
+            field=f, value=v, case_insensitive=node.case_insensitive,
+            boost=node.boost))
+        if flat is not None:
+            return self._exec_PrefixQuery(flat)
+        prefix = self._normalize_kw(node.field, node.value)
+        if node.case_insensitive:
+            prefix = prefix.lower()
+            return self._multi_term_result(
+                node.field, lambda t: t.lower().startswith(prefix),
+                node.boost)
+        return self._multi_term_result(
+            node.field, lambda t: t.startswith(prefix), node.boost)
+
+    def _exec_WildcardQuery(self, node: q.WildcardQuery) -> NodeResult:
+        flat = self._flat_node(node, lambda f, v: q.WildcardQuery(
+            field=f, value=v, case_insensitive=node.case_insensitive,
+            boost=node.boost))
+        if flat is not None:
+            return self._exec_WildcardQuery(flat)
+        wc_value = self._normalize_kw(node.field, node.value)
+        m_wc = self.ctx.mapper_service.field_mapper(node.field)
+        if m_wc is not None and m_wc.type == "text":
+            # wildcard patterns normalize through the analyzer chain
+            # (lowercase), like the classic parser's multi-term handling
+            wc_value = wc_value.lower()
+        rx = _wildcard_to_regex(wc_value, node.case_insensitive)
+        return self._multi_term_result(
+            node.field, lambda t: rx.match(t) is not None, node.boost)
+
+    def _exec_RegexpQuery(self, node: q.RegexpQuery) -> NodeResult:
+        value = self._normalize_kw(node.field, node.value)
+        m = self.ctx.mapper_service.field_mapper(node.field)
+        if m is not None and m.type == "text":
+            # analyzed text is lowercased; the classic parser normalizes
+            # multi-term patterns through the analyzer chain
+            value = value.lower()
+        if len(value) > 1000:
+            raise IllegalArgumentException(
+                f"The length of regex [{len(value)}] used in the "
+                f"Regexp Query request has exceeded the allowed maximum "
+                f"of [1000]. This maximum can be set by changing the "
+                f"[index.max_regex_length] index level setting.")
+        try:
+            rx = re.compile(value,
+                            re.IGNORECASE if node.case_insensitive else 0)
+        except re.error as e:
+            raise IllegalArgumentException(f"invalid regexp [{value}]: {e}")
+        return self._multi_term_result(
+            node.field, lambda t: rx.fullmatch(t) is not None, node.boost)
+
+    def _exec_FuzzyQuery(self, node: q.FuzzyQuery) -> NodeResult:
+        value = node.value
+        max_d = _fuzziness_distance(node.fuzziness, value)
+        plen = node.prefix_length
+
+        def match(t: str) -> bool:
+            if plen and t[:plen] != value[:plen]:
+                return False
+            if abs(len(t) - len(value)) > max_d:
+                return False
+            return _edit_distance_at_most(value, t, max_d)
+
+        return self._multi_term_result(node.field, match, node.boost)
+
+    def _exec_MatchPhrasePrefixQuery(
+            self, node: q.MatchPhrasePrefixQuery) -> NodeResult:
+        terms = self.ctx.mapper_service.analyze_query_text(node.field,
+                                                           node.query)
+        if not terms:
+            return _empty(self.dev)
+        *body_terms, last = terms
+        result = None
+        if body_terms:
+            r, counts = self._bm25(node.field, body_terms, node.boost)
+            result = NodeResult(r.scores, counts >= len(body_terms), True)
+        # the final term expands as a prefix, bounded by max_expansions
+        # (MultiPhrasePrefixQuery's expansion)
+        expansions = 0
+
+        def match(t: str) -> bool:
+            nonlocal expansions
+            if expansions >= node.max_expansions:
+                return False
+            if t.startswith(last):
+                expansions += 1
+                return True
+            return False
+
+        prefix_mask = self._to_device(
+            self._host_mask_for_terms(node.field, match))
+        if result is None:
+            return _const_result(prefix_mask & self.dev.live, node.boost,
+                                 True)
+        mask = result.mask & prefix_mask & self.dev.live
+        return NodeResult(torch.where(mask, result.scores, 0.0), mask, True)
+
+    def _exec_MatchBoolPrefixQuery(
+            self, node: q.MatchBoolPrefixQuery) -> NodeResult:
+        ms = self.ctx.mapper_service
+        if node.analyzer:
+            terms = ms.analysis.get(node.analyzer).analyze(node.query)
+        else:
+            terms = ms.analyze_query_text(node.field, node.query)
+        if not terms:
+            return _empty(self.dev)
+        *body_terms, last = terms
+
+        def term_clause(t: str) -> q.QueryNode:
+            if node.fuzziness is not None:
+                return q.FuzzyQuery(field=node.field, value=t,
+                                    fuzziness=node.fuzziness)
+            return q.TermQuery(field=node.field, value=t)
+
+        subs: list[q.QueryNode] = [term_clause(t) for t in body_terms]
+        subs.append(q.PrefixQuery(field=node.field, value=last))
+        if node.operator == "and":
+            return self._exec_BoolQuery(q.BoolQuery(must=subs,
+                                                    boost=node.boost))
+        msm = node.minimum_should_match
+        if msm is not None:
+            try:
+                msm = int(str(msm).rstrip("%"))
+                if str(node.minimum_should_match).endswith("%"):
+                    msm = max(1, (len(subs) * msm) // 100)
+            except ValueError:
+                msm = None
+        return self._exec_BoolQuery(q.BoolQuery(
+            should=subs, minimum_should_match=msm, boost=node.boost))
+
+    # -- query-string family -----------------------------------------------
+
+    def _exec_QueryStringQuery(self, node: q.QueryStringQuery) -> NodeResult:
+        r = self.execute(self.ctx.rewritten_query_string(node))
+        return NodeResult(r.scores * node.boost, r.mask, r.scoring)
+
+    def _exec_SimpleQueryStringQuery(
+            self, node: q.SimpleQueryStringQuery) -> NodeResult:
+        r = self.execute(self.ctx.rewritten_query_string(node))
+        return NodeResult(r.scores * node.boost, r.mask, r.scoring)
+
+    # -- compound scoring queries ------------------------------------------
+
+    def _exec_BoostingQuery(self, node: q.BoostingQuery) -> NodeResult:
+        pos = self.execute(node.positive)
+        neg = self.execute(node.negative)
+        scores = torch.where(
+            neg.mask, pos.scores * _f32(node.negative_boost, self.device),
+            pos.scores)
+        return NodeResult(scores * node.boost, pos.mask, True)
+
+    def _exec_DisMaxQuery(self, node: q.DisMaxQuery) -> NodeResult:
+        if not node.queries:
+            return _empty(self.dev)
+        subs = [self.execute(sq) for sq in node.queries]
+        mask = subs[0].mask
+        best = subs[0].scores
+        total = subs[0].scores
+        for s in subs[1:]:
+            mask = mask | s.mask
+            best = torch.maximum(best, s.scores)
+            total = total + s.scores
+        scores = best + _f32(node.tie_breaker, self.device) * (total - best)
+        return NodeResult(torch.where(mask, scores, 0.0) * node.boost, mask,
+                          True)
+
+    def _exec_FunctionScoreQuery(self,
+                                 node: q.FunctionScoreQuery) -> NodeResult:
+        base = self.execute(node.query)
+        n_pad = self.dev.n_pad
+        dev = self.device
+        f32 = torch.float32
+        fvals: list[tuple[torch.Tensor, torch.Tensor]] = []  # (value, applies)
+        for fn in node.functions:
+            applies = base.mask
+            if fn.filter is not None:
+                applies = applies & self.execute(fn.filter).mask
+            val = self._function_value(fn)
+            if fn.weight is not None:
+                val = val * _f32(fn.weight, dev)
+            fvals.append((val, applies))
+
+        if not fvals:
+            factor = torch.ones(n_pad, dtype=f32, device=dev)
+        else:
+            mode = node.score_mode
+            if mode == "first":
+                factor = torch.ones(n_pad, dtype=f32, device=dev)
+                assigned = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+                for val, applies in fvals:
+                    take = applies & ~assigned
+                    factor = torch.where(take, val, factor)
+                    assigned = assigned | applies
+            elif mode in ("sum", "avg"):
+                total = torch.zeros(n_pad, dtype=f32, device=dev)
+                cnt = torch.zeros(n_pad, dtype=f32, device=dev)
+                for val, applies in fvals:
+                    total = total + torch.where(applies, val, 0.0)
+                    cnt = cnt + applies.to(f32)
+                factor = torch.where(cnt > 0, total, 1.0)
+                if mode == "avg":
+                    factor = torch.where(
+                        cnt > 0, total / torch.clamp(cnt, min=1.0), 1.0)
+            elif mode in ("max", "min"):
+                acc = torch.full((n_pad,), -np.inf if mode == "max"
+                                 else np.inf, dtype=f32, device=dev)
+                pick = torch.maximum if mode == "max" else torch.minimum
+                for val, applies in fvals:
+                    acc = torch.where(applies, pick(acc, val), acc)
+                factor = torch.where(torch.isfinite(acc), acc, 1.0)
+            else:  # multiply (the default)
+                factor = torch.ones(n_pad, dtype=f32, device=dev)
+                for val, applies in fvals:
+                    factor = factor * torch.where(applies, val, 1.0)
+        if np.isfinite(node.max_boost):
+            factor = torch.minimum(factor, _f32(node.max_boost, dev))
+
+        qs = base.scores
+        bm = node.boost_mode
+        if bm == "replace":
+            scores = factor
+        elif bm == "sum":
+            scores = qs + factor
+        elif bm == "avg":
+            scores = (qs + factor) / 2.0
+        elif bm == "max":
+            scores = torch.maximum(qs, factor)
+        elif bm == "min":
+            scores = torch.minimum(qs, factor)
+        else:  # multiply
+            scores = qs * factor
+        mask = base.mask
+        if node.min_score is not None:
+            mask = mask & (scores >= _f32(node.min_score, dev))
+        scores = torch.where(mask, scores, 0.0) * node.boost
+        return NodeResult(scores, mask, True)
+
+    def _function_value(self, fn: q.ScoreFunction) -> torch.Tensor:
+        n_pad = self.dev.n_pad
+        dev = self.device
+        if fn.kind == "weight":
+            return torch.ones(n_pad, dtype=torch.float32, device=dev)
+        if fn.kind == "random_score":
+            # a deterministic per-doc hash in uint32 arithmetic (the
+            # reference's seeded random_score), carried in int64
+            idx = torch.arange(n_pad, dtype=torch.int64, device=dev)
+            salt = (fn.seed * 40503 + 1) % 2**32
+            h = (idx * 2654435761 + salt) % 2**32 & 0x7FFFFFFF
+            return h.to(torch.float32) / _f32(0x7FFFFFFF, dev)
+        if fn.kind == "field_value_factor":
+            vals, present = self._numeric_doc_values(fn.field)
+            if fn.missing is not None:
+                vals = torch.where(present, vals, _f32(fn.missing, dev))
+            else:
+                vals = torch.where(present, vals, 1.0)
+            v = vals * _f32(fn.factor, dev)
+            m = fn.modifier
+            if m == "log":
+                v = torch.log10(torch.clamp(v, min=1e-9))
+            elif m == "log1p":
+                v = torch.log10(v + 1.0)
+            elif m == "log2p":
+                v = torch.log10(v + 2.0)
+            elif m == "ln":
+                v = torch.log(torch.clamp(v, min=1e-9))
+            elif m == "ln1p":
+                v = torch.log1p(v)
+            elif m == "ln2p":
+                v = torch.log(v + 2.0)
+            elif m == "square":
+                v = v * v
+            elif m == "sqrt":
+                v = torch.sqrt(torch.clamp(v, min=0.0))
+            elif m == "reciprocal":
+                v = 1.0 / torch.clamp(v, min=1e-9)
+            return v
+        if fn.kind == "decay":
+            mapper = self.ctx.mapper_service.field_mapper(fn.field)
+            if mapper is not None and mapper.type == "date":
+                origin = (float(parse_date_millis(fn.origin))
+                          if fn.origin is not None else 0.0)
+                scale = float(_duration_millis(fn.scale))
+                offset = (float(_duration_millis(fn.offset)) if fn.offset
+                          else 0.0)
+            else:
+                origin = float(fn.origin if fn.origin is not None else 0.0)
+                scale = float(fn.scale)
+                offset = float(fn.offset or 0.0)
+            vals, present = self._numeric_doc_values(fn.field)
+            dist = torch.clamp(torch.abs(vals - _f32(origin, dev))
+                               - _f32(offset, dev), min=0.0)
+            if fn.decay_type == "gauss":
+                sigma2 = -(scale ** 2) / (2.0 * np.log(fn.decay))
+                out = torch.exp(-(dist ** 2) / _f32(2 * sigma2, dev))
+            elif fn.decay_type == "exp":
+                lam = np.log(fn.decay) / scale
+                out = torch.exp(_f32(lam, dev) * dist)
+            else:  # linear
+                s = scale / (1.0 - fn.decay)
+                out = torch.clamp((_f32(s, dev) - dist) / _f32(s, dev),
+                                  min=0.0)
+            return torch.where(present, out, 1.0)
+        raise IllegalArgumentException(f"unknown score function [{fn.kind}]")
+
+    def _numeric_doc_values(self, field: str
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(float32 values, present) of a numeric or date field here."""
+        nf_dev = self.dev.numeric_fields.get(field)
+        nf_host = self.host.numeric_fields.get(field)
+        if nf_dev is None or nf_host is None:
+            return (torch.zeros(self.dev.n_pad, dtype=torch.float32,
+                                device=self.device),
+                    torch.zeros(self.dev.n_pad, dtype=torch.bool,
+                                device=self.device))
+        n = self.host.n_docs
+        vals = np.zeros(self.dev.n_pad, np.float32)
+        if nf_host.kind == "int":
+            vals[:n] = nf_host.values_i64.astype(np.float64)[:n]
+        else:
+            vals[:n] = nf_host.values_f64[:n]
+        return self._to_device(vals), nf_dev.present
 
 
-def execute_query_phase(snapshot, mapper_service, query_node,
-                        size: int,
+def _wildcard_to_regex(pattern: str, case_insensitive: bool) -> re.Pattern:
+    out = []
+    for ch in pattern:
+        if ch == "*":
+            out.append(".*")
+        elif ch == "?":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("".join(out) + r"\Z",
+                      re.IGNORECASE if case_insensitive else 0)
+
+
+def _try_ip(value: str):
+    import ipaddress
+
+    try:
+        return ipaddress.ip_address(value)
+    except ValueError:
+        return None
+
+
+def _duration_millis(v: Any) -> int:
+    """A date-math duration like "10d", "2h", "30m" in milliseconds."""
+    if isinstance(v, (int, float)):
+        return int(v)
+    m = re.fullmatch(r"(\d+(?:\.\d+)?)(nanos|micros|ms|s|m|h|d|w)",
+                     str(v).strip())
+    if not m:
+        raise IllegalArgumentException(f"invalid duration [{v}]")
+    n = float(m.group(1))
+    mult = {"nanos": 1e-6, "micros": 1e-3, "ms": 1, "s": 1000, "m": 60_000,
+            "h": 3_600_000, "d": 86_400_000, "w": 604_800_000}[m.group(2)]
+    return int(n * mult) if m.group(2) not in ("nanos", "micros") \
+        else n * mult
+
+
+# --------------------------------------------------------------------------
+# Shard-level query phase
+# --------------------------------------------------------------------------
+
+
+def execute_query_phase(snapshot, mapper_service, query_node, size: int,
+                        sort: list | None = None, need_masks: bool = False,
                         min_score: float | None = None) -> ShardQueryResult:
-    """The query phase of one shard, for the unsorted kNN path: every
-    segment's selection, the total, and the shard's best `size` hits by
-    (-score, segment, doc). `min_score` drops docs below it from the hits
-    AND the total, as the reference's query phase does."""
+    """The query phase of one shard: every segment's result, the total
+    (counted on the host from each segment's mask), and the shard's best
+    `size` hits, by (-score, segment, doc) through ``segment_top_k`` or by
+    `sort` on the host columns. `min_score` drops docs below it from the
+    hits AND the total, as the reference's query phase does. A bare knn's
+    host selection is read on the host (the reference's fast path)."""
+    from opensearch_tpu_torch.ops.topk import segment_top_k
+
     ctx = ShardContext(snapshot, mapper_service)
+    masks: list[np.ndarray] = []
+    score_arrays: list[np.ndarray] = []
     total = 0
     max_score: float | None = None
     all_hits: list[ShardHit] = []
     prof = profile.active()
     for seg_idx, (host, dev) in enumerate(snapshot.segments):
         result = SegmentExecutor(ctx, host, dev).execute(query_node)
-        t_collect = time.perf_counter_ns()
-        mask_h = result.host_mask
-        scores_h = result.host_scores
+        if isinstance(result, HostNodeResult) and not sort:
+            t_collect = time.perf_counter_ns()
+            mask_h = result.host_mask
+            scores_h = result.host_scores
+            if min_score is not None:
+                mask_h = mask_h & (scores_h >= np.float32(min_score))
+            if need_masks:
+                masks.append(mask_h[: host.n_docs])
+                score_arrays.append(scores_h[: host.n_docs])
+            total += int(mask_h.sum())
+            if size > 0:
+                for d in np.nonzero(mask_h)[0]:
+                    v = float(scores_h[d])
+                    all_hits.append(ShardHit(v, seg_idx, int(d)))
+                    if max_score is None or v > max_score:
+                        max_score = v
+            if prof is not None:
+                # the shard's top-k cut is this engine's collector
+                prof.collect_ns += time.perf_counter_ns() - t_collect
+            continue
+        mask = result.mask & dev.live
         if min_score is not None:
-            mask_h = mask_h & (scores_h >= np.float32(min_score))
-        total += int(mask_h.sum())
+            # min_score excludes docs from hits AND total (QueryPhase's
+            # MinScoreCollectorContext runs before counting)
+            mask = mask & (result.scores >= _f32(min_score, mask.device))
+        mask_host = mask.cpu().numpy()[: host.n_docs]
+        if need_masks:
+            masks.append(mask_host)
+            score_arrays.append(result.scores.cpu().numpy()[: host.n_docs])
+        total += int(mask_host.sum())
+        t_collect = time.perf_counter_ns()
         if size > 0:
-            for d in np.nonzero(mask_h)[0]:
-                v = float(scores_h[d])
-                all_hits.append(ShardHit(v, seg_idx, int(d)))
-                if max_score is None or v > max_score:
-                    max_score = v
+            if not sort:
+                k = min(size, dev.n_pad)
+                masked = torch.where(mask, result.scores, float("-inf"))
+                vals, ids = segment_top_k(masked, k)
+                vals_h, ids_h = vals.cpu().numpy(), ids.cpu().numpy()
+                for v, d in zip(vals_h, ids_h):
+                    if np.isfinite(v):
+                        all_hits.append(ShardHit(float(v), seg_idx, int(d)))
+                        if max_score is None or v > max_score:
+                            max_score = float(v)
+            else:
+                scores_h = result.scores.cpu().numpy()[: host.n_docs]
+                all_hits.extend(_sorted_segment_hits(
+                    host, mask_host, scores_h, sort, size, seg_idx,
+                    mapper_service))
         if prof is not None:
-            # the shard's top-k cut is this engine's collector
+            # the top-k cut or the field sort is this engine's collector
             prof.collect_ns += time.perf_counter_ns() - t_collect
     t_final = time.perf_counter_ns()
-    all_hits.sort(key=lambda h: (-h.score, h.segment, h.doc))
+    if not sort:
+        all_hits.sort(key=lambda h: (-h.score, h.segment, h.doc))
+    else:
+        all_hits.sort(key=_sort_key_fn(sort))
+    all_hits = all_hits[:size]
     if prof is not None:
         prof.collect_ns += time.perf_counter_ns() - t_final
-    return ShardQueryResult(hits=all_hits[:size], total=total,
-                            max_score=max_score)
+    return ShardQueryResult(hits=all_hits, total=total, max_score=max_score,
+                            masks=masks, score_arrays=score_arrays)
 
 
-def _parse_geo_origin(origin: Any) -> tuple[float, float]:
-    """(lat, lon) from the geo_point literal forms."""
-    if isinstance(origin, dict) and "lat" in origin and "lon" in origin:
-        return float(origin["lat"]), float(origin["lon"])
-    if isinstance(origin, list) and len(origin) >= 2:
-        return float(origin[1]), float(origin[0])  # [lon, lat]
-    if isinstance(origin, str) and "," in origin:
-        parts = origin.split(",")
-        return float(parts[0]), float(parts[1])
-    raise IllegalArgumentException(f"invalid geo origin [{origin!r}]")
+def _field_sort_values(host, field: str, docs: np.ndarray, mapper_service,
+                       mode: str | None = None
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """(values int64 / float64, present bool) for the requested docs. A
+    field absent from the whole segment means every doc's value is missing
+    (sorted by the `missing` policy, not an error). `mode` picks the
+    multi-value reduction (SortedNumericSortField's min / max / sum / avg /
+    median; the caller defaults to min asc, max desc)."""
+    nf = host.numeric_fields.get(field)
+    if nf is not None:
+        mapper = mapper_service.field_mapper(field)
+        unsigned = mapper is not None and \
+            getattr(mapper, "original_type", None) == "unsigned_long"
+        vals = nf.values_i64 if nf.kind == "int" else nf.values_f64
+        if unsigned:
+            # unbias in exact python-int space (np int64 would overflow)
+            def _avg_exact(vv):
+                # unsigned_long reduces in BigInteger space: exact half-up
+                s_ = sum(vv)
+                n_ = len(vv)
+                return (2 * s_ + n_) // (2 * n_)
+
+            def _median_exact(vv):
+                sv = sorted(vv)
+                n_ = len(sv)
+                if n_ % 2:
+                    return sv[n_ // 2]
+                return (sv[n_ // 2 - 1] + sv[n_ // 2] + 1) // 2
+
+            def _sum_wrap(vv):
+                return sum(vv) % 2**64  # unsigned sums wrap at 2^64
+
+            red = {"min": min, "max": max, "sum": _sum_wrap,
+                   "avg": _avg_exact, "median": _median_exact,
+                   }.get(mode or "min", min)
+            out = np.empty(len(docs), dtype=object)
+            for i, d in enumerate(docs):
+                if nf.present[d]:
+                    vv = [int(x) + 2**63 for x in nf.doc_values(int(d))]
+                    out[i] = red(vv) if vv else 0
+                else:
+                    out[i] = 0
+            return out, nf.present[docs]
+        if mode and nf.mv_offsets is not None:
+            is_int = nf.kind == "int"
+
+            def _sum(a):
+                if not is_int:
+                    return np.sum(a)
+                return sum(int(x) for x in a)  # exact python-int sum
+
+            def _avg(a):
+                if not is_int:
+                    return float(np.mean(a))
+                # long avg: exact sum -> double -> truncated to long
+                return int(float(_sum(a)) / len(a))
+
+            def _median(a):
+                sa = np.sort(a)
+                n_ = len(sa)
+                if n_ % 2:
+                    return sa[n_ // 2]
+                lo_, hi_ = sa[n_ // 2 - 1], sa[n_ // 2]
+                if not is_int:
+                    return (float(lo_) + float(hi_)) / 2.0
+                return int(float(int(lo_) + int(hi_)) / 2.0)
+
+            red = {"min": np.min, "max": np.max, "sum": _sum,
+                   "avg": _avg, "median": _median}.get(mode, np.min)
+            out = np.array([
+                red(nf.doc_values(int(d))) if nf.present[d] else 0
+                for d in docs])
+            return out, nf.present[docs]
+        return vals[docs], nf.present[docs]
+    kf = host.keyword_fields.get(field)
+    if kf is not None:
+        # segment ordinals do not order across segments: the caller turns
+        # them into the string values
+        ords = kf.first_ord[docs]
+        return ords, ords >= 0
+    return np.zeros(len(docs)), np.zeros(len(docs), bool)
+
+
+def _sorted_segment_hits(host, mask: np.ndarray, scores: np.ndarray,
+                         sort: list, size: int, seg_idx: int,
+                         mapper_service) -> list[ShardHit]:
+    docs = np.nonzero(mask)[0]
+    if len(docs) == 0:
+        return []
+    hits = []
+    sort_cols = []
+    for spec in sort:
+        fname, order, _missing = _sort_spec(spec)
+        if fname == "_score":
+            sort_cols.append((scores[docs], np.ones(len(docs), bool), order,
+                              None))
+        elif fname in ("_doc", "_shard_doc"):
+            sort_cols.append((docs.astype(np.float64),
+                              np.ones(len(docs), bool), order, None))
+        else:
+            spec_conf = spec if isinstance(spec, dict) else {}
+            conf = (spec_conf.get(fname)
+                    if isinstance(spec_conf.get(fname), dict) else {})
+            mode = conf.get("mode") or ("max" if order == "desc" else "min")
+            vals, present = _field_sort_values(host, fname, docs,
+                                               mapper_service, mode=mode)
+            kf = host.keyword_fields.get(fname)
+            sort_cols.append((vals, present, order,
+                              kf.ord_values if kf is not None else None))
+    for i, d in enumerate(docs):
+        sv = []
+        for vals, present, _order, ord_values in sort_cols:
+            if not present[i]:
+                sv.append(None)
+            elif ord_values is not None:
+                sv.append(ord_values[int(vals[i])])
+            else:
+                v = vals[i]
+                sv.append(int(v) if isinstance(v, (np.integer, int))
+                          else float(v))
+        hits.append(ShardHit(float(scores[d]), seg_idx, int(d),
+                             sort_values=sv))
+    hits.sort(key=_sort_key_fn(sort))
+    return hits[:size]
+
+
+def _sort_spec(spec: dict | str) -> tuple[str, str, Any]:
+    if isinstance(spec, str):
+        return spec, ("desc" if spec == "_score" else "asc"), None
+    if len(spec) != 1:
+        raise ParsingException("each sort entry must have a single field")
+    fname, conf = next(iter(spec.items()))
+    if isinstance(conf, str):
+        return fname, conf, None
+    return (fname, conf.get("order", "desc" if fname == "_score" else "asc"),
+            conf.get("missing"))
+
+
+def _sort_key_fn(sort: list):
+    specs = [_sort_spec(s) for s in sort]
+
+    def key(hit: ShardHit):
+        parts = []
+        for i, (fname, order, missing) in enumerate(specs):
+            if fname == "_score":
+                v = hit.score
+                parts.append(-v if order == "desc" else v)
+                continue
+            if fname == "_doc":
+                parts.append((hit.segment, hit.doc) if order == "asc"
+                             else (-hit.segment, -hit.doc))
+                continue
+            v = hit.sort_values[i] if i < len(hit.sort_values) else None
+            if v is None and missing not in (None, "_last", "_first"):
+                v = missing  # the user-provided missing value
+            if v is None:
+                # _last (the default) sorts after every real value in
+                # either order; _first before
+                parts.append((-1, 0) if missing == "_first" else (1, 0))
+            elif isinstance(v, str):
+                # desc string order through a reflected comparison
+                parts.append((0, _StrKey(v, order == "desc")))
+            else:
+                parts.append((0, -v if order == "desc" else v))
+        parts.append((hit.segment, hit.doc))
+        return tuple(parts)
+
+    return key
+
+
+class _StrKey:
+    __slots__ = ("v", "desc")
+
+    def __init__(self, v: str, desc: bool):
+        self.v = v
+        self.desc = desc
+
+    def __lt__(self, other: "_StrKey") -> bool:
+        return (self.v > other.v) if self.desc else (self.v < other.v)
+
+    def __eq__(self, other: object) -> bool:
+        return isinstance(other, _StrKey) and self.v == other.v

@@ -2,7 +2,7 @@
 
 A copy of opensearch_tpu/search/fetch.py (host-only), with the fuzzy
 edit distance the highlighter needs brought along from the reference's
-executor; highlighting a query_string query waits for its parser. The
+executor (search/executor.py imports them from here). The
 analog of the reference's FetchPhase + fetch/subphase/* chain
 (search/fetch/FetchPhase.java:99 runs 17 sub-phases per winning doc:
 FetchSourcePhase, HighlightPhase, FetchDocValuesPhase, FetchFieldsPhase,
@@ -20,7 +20,10 @@ from __future__ import annotations
 import re
 from typing import Any, Callable
 
-from opensearch_tpu_torch.common.errors import IllegalArgumentException
+from opensearch_tpu_torch.common.errors import (
+    IllegalArgumentException,
+    ParsingException,
+)
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.search import query_dsl as q
 
@@ -99,9 +102,22 @@ def field_term_predicates(
             if n.query is not None:
                 walk(n.query)
         elif isinstance(n, (q.QueryStringQuery, q.SimpleQueryStringQuery)):
-            raise NotImplementedError(
-                "highlighting a query_string query is not yet ported to "
-                "opensearch_tpu_torch")
+            from opensearch_tpu_torch.search.query_string import (
+                parse_query_string,
+                parse_simple_query_string,
+            )
+
+            fields = n.fields or [
+                name for name, m in ms.mappers.items()
+                if m.type in ("text", "keyword")
+            ]
+            parse = (parse_simple_query_string
+                     if isinstance(n, q.SimpleQueryStringQuery)
+                     else parse_query_string)
+            try:
+                walk(parse(n.query, fields, n.default_operator))
+            except ParsingException:
+                pass
 
     walk(node)
     return out

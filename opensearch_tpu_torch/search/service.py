@@ -1,30 +1,42 @@
 """Search service: query phase -> merge -> fetch phase -> response.
 
-Counterpart of opensearch_tpu/search/service.py, for the slice the port
-serves so far: a top-level ``knn`` query, then the fetch of the winning
-docs with the reference's fetch options; and msearch's batching of bare
-kNN bodies (:func:`msearch_groups`, :func:`try_batched_knn_msearch`: B
+Counterpart of opensearch_tpu/search/service.py without aggregations,
+``suggest``, ``script_fields`` and ``slice`` (each raises "not yet
+ported"): any parsed query (search/executor.py), ``sort`` (with
+``_score`` and ``_doc``; ``_shard_doc`` needs a point in time, which the
+node does not keep yet) and ``search_after``,
+``track_total_hits``, ``min_score``, ``indices_boost``,
+``pre_filter_shard_size`` with ``can_match``, ``rescore``, ``collapse``,
+named queries (``matched_queries``, ``include_named_queries_score``),
+``timeout``, ``stats`` and ``profile``; and msearch's batching of bare kNN
+bodies (:func:`msearch_groups`, :func:`try_batched_knn_msearch`: B
 bodies' query phase in one stacked launch, handed to :func:`search` as
-``precomputed_results``). The route is the reference's
-``_try_distributed_query_phase`` choice: the stacked serving step
+``precomputed_results``).
+
+The route is the reference's ``_try_distributed_query_phase`` choice: a
+bare ``knn`` query takes the stacked serving step
 (search/distributed_serving.mesh_knn_batch) unless it is switched off, a
-``min_score`` is set, or the step declines (an ANN-indexed column); then
-the per-shard route (search/executor.execute_query_phase per shard, which
-serves IVF-PQ, and whose launches go through the dispatch batcher) and
-the host merge by (-score, shard, segment, doc). A request key the
-reference does not know is a ParsingException (400), as there; every
-other query or request key raises "not yet ported".
+``min_score``, ``sort`` or ``search_after`` is set, or the step declines
+(an ANN-indexed column); every other query, and those, take the per-shard
+route: ``phases.can_match`` (the rewrite step), then
+search/executor.execute_query_phase per shard (whose kNN launches go
+through the dispatch batcher), the host merge by (-score, shard, segment,
+doc) or by the sort key, the ``search_after`` cut, rescore and collapse.
+A request key the reference does not know is a ParsingException (400),
+as there.
 
 The fetch phase is the reference's (its sub-phases in search/fetch.py):
 ``_source`` includes / excludes, ``stored_fields`` (``_none_`` drops
 ``_id`` and ``_source``; stored fields without an explicit ``_source``
 suppress it), ``docvalue_fields``, ``fields``, ``highlight``, ``explain``,
 ``version`` and ``seq_no_primary_term`` (read from the snapshot's
-seal-time doc values). ``"profile": true`` builds the reference's
-``profile.shards[*]`` tree (search/profile.py): the stacked step's one
-launch shared across its shards (``record_sharded_launch``), or the
-per-shard route's operators and batched launches, and the fetch
-sub-phases. The response has the reference's shape.
+seal-time doc values), ``sort`` values, ``matched_queries`` and a
+collapsed hit's field and ``inner_hits``. ``"profile": true`` builds the
+reference's ``profile.shards[*]`` tree (search/profile.py): the stacked
+step's one launch shared across its shards (``record_sharded_launch``),
+or the per-shard route's operators, kernels and collector, with
+``can_match`` as the rewrite time, and the fetch sub-phases. The response
+has the reference's shape.
 """
 
 from __future__ import annotations
@@ -38,9 +50,18 @@ from opensearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
 )
-from opensearch_tpu_torch.search import distributed_serving, fetch, query_dsl
+from opensearch_tpu_torch.search import distributed_serving, fetch, phases
 from opensearch_tpu_torch.search import profile as search_profile
-from opensearch_tpu_torch.search.executor import execute_query_phase
+from opensearch_tpu_torch.search import query_dsl
+from opensearch_tpu_torch.search.executor import (
+    SegmentExecutor,
+    ShardContext,
+    ShardQueryResult,
+    _sort_key_fn,
+    _sort_spec,
+    _StrKey,
+    execute_query_phase,
+)
 
 DEFAULT_SIZE = 10
 # request keys the reference knows (opensearch_tpu/search/service.py:91-98)
@@ -53,19 +74,20 @@ KNOWN_KEYS = {
     "include_named_queries_score", "pre_filter_shard_size",
     "stats",  # per-request stat groups (surfaced by indices.stats)
 }
-# request keys this slice serves: paging and totals, the fetch options
-# that apply to a kNN query, min_score, timeout, stats and profile
-SUPPORTED_KEYS = {
-    "query", "size", "from", "_source", "track_total_hits", "min_score",
-    "timeout", "version", "seq_no_primary_term", "stored_fields",
-    "explain", "highlight", "docvalue_fields", "fields", "profile",
-    "stats",
-}
+# request keys the port does not serve yet
+UNPORTED_KEYS = {"aggs", "aggregations", "suggest", "script_fields", "slice"}
+SUPPORTED_KEYS = KNOWN_KEYS - UNPORTED_KEYS
+
+
+def _sort_has_score(sort) -> bool:
+    return any(
+        (spec if isinstance(spec, str) else next(iter(spec), None))
+        == "_score" for spec in (sort or []))
 
 
 def search(shards: list, body: dict | None,
            precomputed_results: list | None = None) -> dict[str, Any]:
-    """Run one knn search over `shards` (IndexShard objects).
+    """Run one search over `shards` (IndexShard objects).
     `precomputed_results`, one (shard, snapshot, ShardQueryResult) a shard
     in order, is this body's query phase already run by a batched msearch
     launch (:func:`try_batched_knn_msearch`): the search merges and fetches
@@ -75,37 +97,47 @@ def search(shards: list, body: dict | None,
     unknown = set(body) - KNOWN_KEYS
     if unknown:
         raise ParsingException(f"unknown search request keys {sorted(unknown)}")
-    unsupported = set(body) - SUPPORTED_KEYS
+    unsupported = set(body) & UNPORTED_KEYS
     if unsupported:
         raise distributed_serving.not_yet_ported(
             f"search request keys {sorted(unsupported)}")
     node = query_dsl.parse_query(body.get("query"))
-    if not isinstance(node, query_dsl.KnnQuery):
-        raise distributed_serving.not_yet_ported(
-            f"query [{type(node).__name__}] (only a top-level knn query is "
-            f"served)")
-    if any(n.name for n in query_dsl.iter_query_nodes(node)):
-        raise distributed_serving.not_yet_ported(
-            "named queries (matched_queries)")
     size = int(body.get("size", DEFAULT_SIZE))
     from_ = int(body.get("from", 0))
     if size < 0 or from_ < 0:
         raise ParsingException("[size] and [from] must be >= 0")
-    track_total = body.get("track_total_hits", True)
+    sort = body.get("sort")
+    if isinstance(sort, (str, dict)):
+        sort = [sort]
     min_score = body.get("min_score")
+    search_after = body.get("search_after")
+    if search_after is not None and not sort:
+        raise ParsingException("[search_after] requires [sort] to be set")
+    if search_after is not None and from_ > 0:
+        raise ParsingException(
+            "[from] parameter must be set to 0 when [search_after] is used")
+    track_total = body.get("track_total_hits", True)
     want_profile = bool(body.get("profile"))
     fetch_k = from_ + size
+    if body.get("rescore") is not None:
+        # the query phase must collect the whole rescore window
+        stages = body["rescore"]
+        for stage in (stages if isinstance(stages, list) else [stages]):
+            if isinstance(stage, dict):
+                fetch_k = max(fetch_k, int(stage.get("window_size", 10)))
 
     # one deep profiler per shard (search/profile.ShardProfiler)
     shard_profilers: list = []
     shard_query_ns: list[int] = []
+    skipped_shards = 0
     premerged = None
     if precomputed_results is not None:
         per_shard_results = precomputed_results
     else:
         snaps = [s.acquire_searcher() for s in shards]
-        out = _try_distributed_query_phase(shards, snaps, node, fetch_k,
-                                           min_score)
+        out = _try_distributed_query_phase(
+            shards, snaps, node, fetch_k, min_score, sort=sort,
+            search_after=search_after)
         if out is not None:
             premerged = out.premerged[0]
             per_shard_results = list(zip(shards, snaps, out.per_query[0]))
@@ -124,16 +156,34 @@ def search(shards: list, body: dict | None,
                     shard_profilers.append(prof)
                     shard_query_ns.append(out.wall_ns // max(out.shards, 1))
         else:
-            # the per-shard route. can_match is not ported: for a knn query
-            # the reference's pre-filter always matches (search/phases.py:68)
             per_shard_results = []
             for shard, snap in zip(shards, snaps):
                 prof = (search_profile.ShardProfiler()
                         if want_profile else None)
+                # can_match (CanMatchPreFilterSearchPhase): skip a shard
+                # whose segment min / max PROVE no doc matches; it is this
+                # engine's rewrite step
+                t_rw = time.perf_counter_ns()
+                matched = phases.can_match(snap, shard.mapper_service, node)
+                if prof is not None:
+                    prof.rewrite_ns += time.perf_counter_ns() - t_rw
+                if not matched:
+                    skipped_shards += 1
+                    if want_profile:
+                        shard_query_ns.append(0)
+                        shard_profilers.append(prof)
+                    per_shard_results.append((shard, snap, ShardQueryResult(
+                        hits=[], total=0, max_score=None)))
+                    continue
                 t_q = time.perf_counter_ns()
                 with search_profile.profiling(prof):
                     result = execute_query_phase(
-                        snap, shard.mapper_service, node, size=fetch_k,
+                        snap, shard.mapper_service, node,
+                        # a search_after cursor can reach arbitrarily deep
+                        # into a shard: every matching doc of the shard
+                        size=(snap.max_doc if search_after is not None
+                              else fetch_k),
+                        sort=sort,
                         min_score=(float(min_score) if min_score is not None
                                    else None))
                 if want_profile:
@@ -141,8 +191,23 @@ def search(shards: list, body: dict | None,
                     shard_profilers.append(prof)
                 per_shard_results.append((shard, snap, result))
 
-    # ---- reduce: the device merge's order, or the host merge by
-    # (-score, shard, segment, doc) ----
+    # ---- reduce: the device merge's order, the host merge by (-score,
+    # shard, segment, doc), or the sort key ----
+    # indices_boost ({index: factor}, resolved by the node): a per-index
+    # score factor applied before the cross-shard merge (a query-level
+    # boost on each shard)
+    index_boosts = body.get("indices_boost")
+    if not isinstance(index_boosts, dict):
+        index_boosts = {}
+    if index_boosts:
+        for shard, _snap, result in per_shard_results:
+            factor = index_boosts.get(shard.shard_id.index)
+            if factor is None or factor == 1.0:
+                continue
+            for h in result.hits:
+                h.score *= factor
+            if result.max_score is not None:
+                result.max_score *= factor
     total = 0
     max_score = None
     merged: list = []
@@ -152,19 +217,47 @@ def search(shards: list, body: dict | None,
                 max_score is None or result.max_score > max_score):
             max_score = result.max_score
         merged.extend((shard_idx, h) for h in result.hits)
-    if premerged is not None:
+    if sort:
+        key_fn = _sort_key_fn(sort)
+        merged.sort(key=lambda sh: key_fn(sh[1]))
+        if search_after is not None:
+            ms_view = _MultiMapperView([s.mapper_service for s in shards])
+            cursor = _search_after_key(
+                sort, _coerce_search_after(sort, search_after, ms_view)
+                if shards else search_after)
+            merged = [sh for sh in merged
+                      if _sort_values_key(sort, sh[1]) > cursor]
+    elif premerged is not None and not index_boosts:
+        # the device merge's rows are already in (-score, shard, segment,
+        # doc) order
         merged = premerged
     else:
         merged.sort(key=lambda sh: (-sh[1].score, sh[0], sh[1].segment,
                                     sh[1].doc))
+    collapse = None
+    if body.get("rescore") is not None:
+        if sort:
+            raise ParsingException("[rescore] cannot be used with a [sort]")
+        merged = phases.apply_rescore(body["rescore"], merged,
+                                      per_shard_results, shards)
+    if body.get("collapse") is not None:
+        merged, *collapse = phases.apply_collapse(
+            body["collapse"], merged, per_shard_results)
     page = merged[from_: from_ + size]
 
     fetch_prof = (search_profile.FetchProfiler(len(per_shard_results))
                   if want_profile else None)
     hits_json = _fetch_phase(body, node, shards, per_shard_results, page,
-                             fetch_prof)
+                             fetch_prof, sort=sort, from_=from_,
+                             collapse=collapse)
 
-    hits_obj: dict[str, Any] = {"max_score": max_score, "hits": hits_json}
+    sort_by_score = bool(sort) and _sort_has_score(sort)
+    if sort_by_score and max_score is None and merged:
+        max_score = max(h.score for _i, h in merged)
+    hits_obj: dict[str, Any] = {
+        "max_score": max_score if (not sort or sort_by_score) else None,
+        "hits": hits_json,
+    }
     # track_total_hits: True -> exact; int N -> capped with relation gte;
     # False -> no total object
     if track_total is True:
@@ -178,8 +271,14 @@ def search(shards: list, body: dict | None,
     response: dict[str, Any] = {
         "took": int((time.monotonic() - t0) * 1000),
         "timed_out": False,
-        "_shards": {"total": len(shards), "successful": len(shards),
-                    "skipped": 0, "failed": 0},
+        "_shards": {
+            "total": len(shards), "successful": len(shards),
+            # the reference pre-filters (and reports skips) only at
+            # pre_filter_shard_size (default 128) shards or more; below it
+            # can_match runs inside the query phase and skipped stays 0
+            "skipped": (skipped_shards if len(shards) >= int(
+                body.get("pre_filter_shard_size", 128) or 128) else 0),
+            "failed": 0},
         "hits": hits_obj,
     }
     if want_profile:
@@ -190,10 +289,13 @@ def search(shards: list, body: dict | None,
 
 
 def _fetch_phase(body: dict, node, shards: list, per_shard_results: list,
-                 page: list, fetch_prof) -> list[dict]:
+                 page: list, fetch_prof, sort: list | None = None,
+                 from_: int = 0, collapse: list | None = None) -> list[dict]:
     """The reference's fetch phase for the winning docs: each hit's
     metadata, then the sub-phases the request asks for (search/fetch.py),
-    timed per shard when `fetch_prof` is set."""
+    timed per shard when `fetch_prof` is set; each hit's sort values,
+    named queries and, with `collapse` (field, values, inner hits), its
+    collapse field and inner hits."""
     fields_specs = body.get("fields")
     stored_specs = body.get("stored_fields")
     if isinstance(stored_specs, str):
@@ -237,9 +339,16 @@ def _fetch_phase(body: dict, node, shards: list, per_shard_results: list,
     if highlight_conf:
         preds_by_field = fetch.field_term_predicates(
             node, _MultiMapperView([s.mapper_service for s in shards]))
+    named_nodes = _named_nodes(body, node)
+    include_nq_scores = str(
+        body.get("include_named_queries_score", "false")).lower() in (
+            "true", "")
+    named_cache: dict = {}
+    collapse_field, collapse_values, collapse_inner = collapse or (
+        None, None, None)
     now_ns = time.perf_counter_ns
     hits_json = []
-    for shard_idx, h in page:
+    for page_i, (shard_idx, h) in enumerate(page):
         shard, snapshot, _result = per_shard_results[shard_idx]
         host = snapshot.segments[h.segment][0]
         ms = shard.mapper_service
@@ -248,7 +357,8 @@ def _fetch_phase(body: dict, node, shards: list, per_shard_results: list,
         hit: dict[str, Any] = {
             "_index": shard.shard_id.index,
             "_id": host.doc_ids[h.doc],
-            "_score": h.score,
+            "_score": h.score if (not sort or _sort_has_score(sort))
+            else None,
         }
         if stored_none:
             # stored_fields: _none_ drops per-hit metadata (_id/_source)
@@ -269,6 +379,8 @@ def _fetch_phase(body: dict, node, shards: list, per_shard_results: list,
             hit["_source"] = src
         if fetch_prof is not None:
             fetch_prof.add(shard_idx, "load_source", t0)
+        if sort:
+            hit["sort"] = h.sort_values
         if docvalue_specs:
             t0 = now_ns() if fetch_prof is not None else 0
             dv = fetch.docvalue_fields_for_doc(docvalue_specs, host, h.doc, ms)
@@ -320,8 +432,88 @@ def _fetch_phase(body: dict, node, shards: list, per_shard_results: list,
         if want_seqno:
             hit["_seq_no"] = int(host.doc_seq_nos[h.doc])
             hit["_primary_term"] = 1
+        if named_nodes:
+            mq: dict[str, float] = {}
+            for nn in named_nodes:
+                key = (shard_idx, h.segment, id(nn))
+                if key not in named_cache:
+                    dev = snapshot.segments[h.segment][1]
+                    r = SegmentExecutor(ShardContext(snapshot, ms), host,
+                                        dev).execute(nn)
+                    named_cache[key] = (r.mask.cpu().numpy(),
+                                        r.scores.cpu().numpy())
+                n_mask, n_scores = named_cache[key]
+                if h.doc < len(n_mask) and n_mask[h.doc]:
+                    mq[nn.name] = float(n_scores[h.doc])
+            if mq:
+                hit["matched_queries"] = (mq if include_nq_scores
+                                          else sorted(mq))
+        if collapse_field is not None:
+            hit.setdefault("fields", {})[collapse_field] = [
+                collapse_values[from_ + page_i]]
+            inner_map = (collapse_inner[from_ + page_i]
+                         if collapse_inner else None)
+            if inner_map:
+                hit["inner_hits"] = _inner_hits_json(inner_map,
+                                                     per_shard_results)
         hits_json.append(hit)
     return hits_json
+
+
+def _named_nodes(body: dict, node) -> list:
+    """The named nodes (``_name``) of the main query tree and of any
+    rescore stage's query."""
+    named = [n for n in query_dsl.iter_query_nodes(node) if n.name]
+    rescore = body.get("rescore")
+    for stage in (rescore if isinstance(rescore, list)
+                  else [rescore] if rescore else []):
+        rq = ((stage or {}).get("query") or {}).get("rescore_query")
+        if rq is not None:
+            try:
+                rnode = query_dsl.parse_query(rq)
+            except ParsingException:
+                continue
+            named.extend(n for n in query_dsl.iter_query_nodes(rnode)
+                         if n.name)
+    return named
+
+
+def _inner_hits_json(inner_map: dict, per_shard_results: list) -> dict:
+    """A collapsed hit's ``inner_hits``: each named group's hits."""
+    out: dict[str, Any] = {}
+    for name, g in inner_map.items():
+        sub_hits = []
+        best = None
+        spec = g["spec"]
+        for s_i, h_ in g["hits"]:
+            sh_shard, sh_snap, _ = per_shard_results[s_i]
+            sh_host = sh_snap.segments[h_.segment][0]
+            sub: dict[str, Any] = {
+                "_index": sh_shard.shard_id.index,
+                "_id": sh_host.doc_ids[h_.doc],
+                "_score": h_.score,
+                "_source": json.loads(sh_host.sources[h_.doc]),
+            }
+            if spec.get("version"):
+                sub["_version"] = int(sh_host.doc_versions[h_.doc])
+            if spec.get("seq_no_primary_term"):
+                sub["_seq_no"] = int(sh_host.doc_seq_nos[h_.doc])
+                sub["_primary_term"] = 1
+            if spec.get("fields") or spec.get("docvalue_fields"):
+                fv = fetch.docvalue_fields_for_doc(
+                    spec.get("fields") or spec.get("docvalue_fields"),
+                    sh_host, h_.doc, sh_shard.mapper_service)
+                if fv:
+                    sub["fields"] = fv
+            if best is None or (h_.score or 0) > best:
+                best = h_.score
+            sub_hits.append(sub)
+        out[name] = {"hits": {
+            "total": {"value": g["total"], "relation": "eq"},
+            "max_score": best,
+            "hits": sub_hits,
+        }}
+    return out
 
 
 def _profile_response(body: dict, node, per_shard_results: list,
@@ -377,14 +569,17 @@ def _profile_response(body: dict, node, per_shard_results: list,
 
 
 def _try_distributed_query_phase(shards: list, snaps: list, node,
-                                 fetch_k: int, min_score=None):
+                                 fetch_k: int, min_score=None, sort=None,
+                                 search_after=None):
     """The stacked serving step's launch outcome for this query, or None
-    when the per-shard route must answer it: no shards, a ``min_score``
-    (the reference's step declines it too), the step switched off
+    when the per-shard route must answer it: a query other than a bare
+    ``knn``, no shards, a ``min_score``, ``sort`` or ``search_after`` (the
+    reference's step declines them too), the step switched off
     (``distributed_serving.enabled``), or the step declining the shard
     set (``distributed_serving._can_serve``: among others, an unfiltered
     query on an ANN-indexed column)."""
-    if (not shards or min_score is not None
+    if (not isinstance(node, query_dsl.KnnQuery) or not shards
+            or min_score is not None or sort or search_after is not None
             or not distributed_serving.enabled):
         return None
     return distributed_serving.mesh_knn_batch(shards, snaps, [node], fetch_k)
@@ -503,6 +698,76 @@ class _MultiMapperView:
         if self.services:
             return self.services[0].analyze_query_text(field, text)
         return [text]
+
+
+def _values_key(sort: list, values: list) -> tuple:
+    """The ordering key of a row of sort values, consistent with
+    executor._sort_key_fn (without its (segment, doc) tiebreak tail)."""
+    specs = [_sort_spec(s) for s in sort]
+    parts = []
+    for (fname, order, _missing), v in zip(specs, values):
+        if fname == "_score":
+            parts.append(-v if order == "desc" else v)
+        elif v is None:
+            parts.append((1, 0))
+        elif isinstance(v, str):
+            parts.append((0, _StrKey(v, order == "desc")))
+        else:
+            parts.append((0, -v if order == "desc" else v))
+    return tuple(parts)
+
+
+def _sort_values_key(sort: list, hit) -> tuple:
+    return _values_key(sort, hit.sort_values)
+
+
+def _search_after_key(sort: list, search_after: list) -> tuple:
+    if len(search_after) != len(sort):
+        raise ParsingException(
+            f"search_after must have {len(sort)} value(s) matching sort")
+    return _values_key(sort, search_after)
+
+
+def _coerce_search_after(sort: list, search_after: list, ms) -> list:
+    """Cursor values arrive as JSON (dates as strings, numbers as ints);
+    each is coerced to its sort column's native type so the cursor
+    compares against sort_values without type mismatches."""
+    from opensearch_tpu_torch.index.mapper import (
+        FLOAT_TYPES,
+        INT_TYPES,
+        parse_date_millis,
+        parse_date_nanos,
+    )
+
+    out = []
+    for spec, v in zip([_sort_spec(s) for s in sort], search_after):
+        fname = spec[0]
+        mapper = ms.field_mapper(fname) if hasattr(ms, "field_mapper") \
+            else None
+        if v is None or fname == "_score":
+            out.append(v)
+        elif mapper is not None and \
+                getattr(mapper, "original_type", None) == "unsigned_long":
+            try:
+                out.append(int(str(v), 10))
+            except ValueError:
+                out.append(v)
+        elif mapper is not None and mapper.type == "date" \
+                and isinstance(v, str):
+            if getattr(mapper, "resolution", "millis") == "nanos":
+                out.append(parse_date_nanos(v))
+            else:
+                out.append(float(parse_date_millis(v)))
+        elif mapper is not None and (
+                mapper.type in INT_TYPES or mapper.type in FLOAT_TYPES
+                or mapper.type == "boolean") and isinstance(v, str):
+            try:
+                out.append(float(v))
+            except ValueError:
+                out.append(v)
+        else:
+            out.append(v)
+    return out
 
 
 def _source_filter(spec: Any):

@@ -167,10 +167,26 @@ def test_stats_must_be_a_list(nodes):
 
 
 def test_named_knn_query_is_not_yet_ported(nodes):
-    _ref, port, data = nodes
-    with pytest.raises(NotImplementedError, match="named queries"):
-        port.search(_index(1, "l2_norm"), {"query": {"knn": {"v": {
-            "vector": data[3].tolist(), "k": 2, "_name": "near"}}}})
+    """Named queries are served now: a named knn's hits carry the
+    reference's ``matched_queries``, with and without their scores."""
+    ref, port, data = nodes
+    for extra in ({}, {"include_named_queries_score": True}):
+        body = {"query": {"knn": {"v": {
+            "vector": data[3].tolist(), "k": 2, "_name": "near"}}}, **extra}
+        want = ref.search(_index(1, "l2_norm"), dict(body))
+        got = port.search(_index(1, "l2_norm"), dict(body))
+        for w, g in zip(want["hits"]["hits"], got["hits"]["hits"]):
+            mq_w, mq_g = w.pop("matched_queries"), g.pop("matched_queries")
+            if isinstance(mq_w, dict):
+                # kNN scores: the two frameworks sum d products in another
+                # order (tests/test_torch_node_knn.py's tolerance)
+                assert set(mq_g) == set(mq_w)
+                for k in mq_w:
+                    assert mq_g[k] == pytest.approx(mq_w[k], rel=1e-5,
+                                                    abs=1e-4)
+            else:
+                assert mq_g == mq_w == ["near"]
+        _assert_same(_strip(want), _strip(got))
 
 
 @pytest.mark.parametrize("shards", SHARDS)

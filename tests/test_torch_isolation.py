@@ -108,13 +108,15 @@ def node(tmp_path):
 
 
 @pytest.mark.parametrize("body", [
-    {"query": {"match": {"title": "a"}}},
+    {"query": {"script": {"script": {"source": "true"}}}},
     {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2}}},
      "aggs": {"t": {"terms": {"field": "title"}}}},
     {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2}}},
-     "sort": ["_score"]},
+     "suggest": {"s": {"text": "a", "term": {"field": "title"}}}},
     {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2,
-                             "filter": {"match": {"title": "a"}}}}}},
+                             "filter": {"nested": {
+                                 "path": "n",
+                                 "query": {"match": {"title": "a"}}}}}}}},
 ])
 def test_bodies_outside_the_slice_raise(node, body):
     with pytest.raises(NotImplementedError, match="not yet ported"):

@@ -233,7 +233,9 @@ def test_stacked_step_off_runs_one_by_one(nodes):
 def test_body_outside_the_port_raises(nodes):
     _ref, port = nodes
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        port.msearch([({"index": "vecs"}, {"query": {"match_all": {}}})])
+        port.msearch([({"index": "vecs"}, {
+            "query": {"match_all": {}},
+            "aggs": {"n": {"value_count": {"field": "v"}}}})])
 
 
 def test_reference_counts_one_launch_too(nodes):

@@ -461,8 +461,9 @@ def test_unported_routes_answer_the_500_envelope_and_keep_the_connection(
         c("PUT", "/v/_doc/1?refresh=true", {"v": [1.0, 0.0]})
         for method, path, body in (
                 ("GET", "/_cat/indices", None),
-                ("POST", "/v/_search", {"query": {"match": {"t": "x"}}}),
-                ("POST", "/v/_count", {}),
+                ("POST", "/v/_search", {"query": {"script": {
+                    "script": {"source": "true"}}}}),
+                ("GET", "/v/_stats", None),
                 ("POST", "/v/_update/1", {"script": "ctx._source.a = 1"}),
                 ("POST", "/v/_search?scroll=1m", {"query": {"knn": {"v": {
                     "vector": [1.0, 0.0], "k": 1}}}})):

@@ -52,9 +52,9 @@ def test_unknown_key_is_the_references_parsing_exception(nodes, extra):
 
 @pytest.mark.parametrize("extra", [
     {"aggs": {"t": {"terms": {"field": "title"}}}},
-    {"sort": ["_score"]}, {"collapse": {"field": "title"}},
-    {"rescore": {"window_size": 5,
-                 "query": {"rescore_query": {"match_all": {}}}}}])
+    {"suggest": {"s": {"text": "t0", "term": {"field": "title"}}}},
+    {"script_fields": {"x": {"script": {"source": "1"}}}},
+    {"slice": {"id": 0, "max": 1}}])
 def test_known_unported_key_is_not_yet_ported(nodes, extra):
     ref, port = nodes
     body = {"query": KNN, **extra}
