@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
-                                    hybrid,large,lexical]
+                                    hybrid,large,lexical,mesh]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -279,6 +279,32 @@ library calls, logged as `large record` lines.
    names and their hits under search.knn.kernel xla (K1's plain version)
    bit for bit; 8 of each type over HTTP the in-process hits; _count the
    total. ``--phases lexical`` runs it alone.
+
+6. telemetry (after main and lexical): the residency ledger on index C's
+   and index L's live nodes (ledger_gate: the identity, the resident bytes
+   the numel * element_size of the node's registered tensors and at most
+   torch.cuda.memory_allocated(), one search span a search, a "profile":
+   true search's roofline fields and residency rows, an index delete
+   dropping its share; on index C each search one ivfpq_adc_pallas and
+   one knn_fused_pallas roofline launch); then telemetry_phase: the peaks
+   calibrated on the card (CUDA events, a 4096^3 fp32 product and a 1 GiB
+   copy) within 0.3-1.05x of the data sheet's 3.35 TB/s and 67 TFLOP/s,
+   and GET /_roofline over the port's HTTP server: the accounting
+   identity, rows for mesh_knn_fused, ivfpq_adc_pallas and
+   bm25_term_scores, the stacked families' launches equal to the stacked
+   launches since the main phase began; each family's unclamped fraction
+   printed.
+
+7. mesh (also after main; mesh_phase): graft_entry.dryrun_multichip(8)
+   with one K1 launch, then the tensor-parallel hybrid program
+   (parallel/distributed.build_distributed_search) at row 4's width:
+   hybrid_main_phase's segment in 4 data shards of 262,144 slots, 4
+   batches of 200, n_model 1 and 2, each with the all-gather and the
+   ring; ids hybrid_score_topk's but at logged f32 ties, the ring the
+   all-gather's values bit for bit, each run the same bits twice, and on
+   a copy in eighths every run's values hybrid_score_topk's bit for bit;
+   the CUDA-event ms of a batch, the device ms by stage and the peak
+   memory beside hybrid_score_topk's. ``--phases mesh`` runs it alone.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -2299,6 +2325,29 @@ def hybrid_host_reference(inp: dict, queries: np.ndarray, sub: int):
     return host, err
 
 
+def f32_tie_gate(label: str, got: np.ndarray, want: np.ndarray,
+                 what: str, scores) -> list:
+    """Ids `got` [B, k] against `want` [B, k] from `what`: where a rank
+    holds another doc, the two docs' f64 scores (scores(i, docs) -> (f64
+    scores, f32 error bounds)) must lie within their f32 bounds of each
+    other. Each such tie is logged; returns them as (query, rank, got doc,
+    wanted doc)."""
+    ties = []
+    for i in range(got.shape[0]):
+        for j in np.nonzero(got[i] != want[i])[0]:
+            a, c = int(got[i, j]), int(want[i, j])
+            (sa, sc), (ea, ec) = scores(i, [a, c])
+            if abs(sa - sc) > ea + ec:
+                raise AssertionError(
+                    f"[{label}] query {i} rank {j}: doc {a} (f64 {sa!r}) "
+                    f"where {what} has {c} (f64 {sc!r}), further apart "
+                    f"than f32 moves them")
+            ties.append((i, int(j), a, c))
+            log(f"[{label}] query {i} rank {j}: doc {a} against {what}'s "
+                f"{c}, f64 scores {sa!r} and {sc!r} within their f32 bound")
+    return ties
+
+
 def hybrid_main_phase(dev, seed: int) -> dict:
     """The hybrid BM25 + exact-kNN program (ops/fused.jit_hybrid: the
     lexical gather and ordered segment sum, one fp32 [B, d] x [d, n]
@@ -2409,19 +2458,8 @@ def hybrid_main_phase(dev, seed: int) -> dict:
     host, err = hybrid_host_reference(inp, q100, sub)
     exact = np.stack([np.lexsort((np.arange(sub), -host[i]))[:HYBRID_K]
                       for i in range(len(q100))])
-    ties = []
-    for i in range(len(q100)):
-        for j in np.nonzero(gi[i] != exact[i])[0]:
-            a, c = int(gi[i, j]), int(exact[i, j])
-            if abs(host[i, a] - host[i, c]) > err[i, a] + err[i, c]:
-                raise AssertionError(
-                    f"[hybrid] query {i} rank {j}: doc {a} (f64 "
-                    f"{host[i, a]!r}) where the fp64 hybrid has {c} (f64 "
-                    f"{host[i, c]!r}), further apart than f32 moves them")
-            ties.append((i, int(j), a, c))
-            log(f"[hybrid] query {i} rank {j}: doc {a} against the fp64 "
-                f"host's {c}, f64 scores {host[i, a]!r} and {host[i, c]!r} "
-                f"within their f32 bound")
+    ties = f32_tie_gate("hybrid", gi, exact, "the fp64 host hybrid",
+                        lambda i, docs: (host[i, docs], err[i, docs]))
     recall = float(np.mean([len(set(gi[i]) & set(exact[i])) / HYBRID_K
                             for i in range(len(q100))]))
     out.update(subsample_recall=recall, subsample_ties=len(ties))
@@ -2453,6 +2491,565 @@ def hybrid_main_phase(dev, seed: int) -> dict:
     out["graft_entry_max_abs_err"] = float(np.abs(ev - cv).max())
     log(f"[hybrid] graft_entry.entry() on the card matches its CPU run "
         f"(max |dv| {out['graft_entry_max_abs_err']:.3g})")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the mesh: graft_entry.dryrun_multichip and the tensor-parallel hybrid
+# program (parallel/distributed.build_distributed_search) at row 4's width
+# --------------------------------------------------------------------------
+
+MESH_SHARDS = 4
+MESH_RUNS = tuple((n_model, ring) for n_model in (1, 2)
+                  for ring in (False, True))
+
+
+def hybrid_pair_scores(inp: dict, query: np.ndarray, docs) -> tuple:
+    """Row 4's fp64 host hybrid score of one query against `docs`, and the
+    f32 error bound of each (hybrid_host_reference's bound, for any
+    summation order of the dot)."""
+    u = 2.0 ** -24
+    docs = np.asarray(docs)
+    sv = inp["vectors"][docs].astype(np.float64)
+    q = query.astype(np.float64)
+    d = sv.shape[1]
+    dots = sv @ q
+    qq, nn = float(q @ q), (sv ** 2).sum(-1)
+    vec = 1.0 / (1.0 + np.maximum(qq - 2 * dots + nn, 0.0))
+    slack = (d * u / (1 - d * u)) * (np.abs(sv) @ np.abs(q))
+    vec_err = (2 * slack + 4 * u * (qq + 2 * np.abs(dots) + nn)) * vec ** 2 \
+        + 4 * u * vec
+    k1, b, avgdl = 1.2, 0.75, inp["avgdl"]
+    lex = np.zeros(len(docs))
+    for t in range(HYBRID_Q_TERMS):
+        lo = int(inp["offsets"][t])
+        for p in range(lo, lo + int(inp["lengths"][t])):
+            tf = float(inp["postings_tfs"][p])
+            for j in np.nonzero(docs == inp["postings_docs"][p])[0]:
+                dl = float(inp["doc_len"][docs[j]])
+                lex[j] += float(inp["idfs"][t]) * tf / (
+                    tf + k1 * (1 - b + b * dl / avgdl))
+    host = HYBRID_VEC_W * vec + HYBRID_LEX_W * lex
+    err = HYBRID_VEC_W * vec_err + HYBRID_LEX_W * (
+        (HYBRID_Q_TERMS + 8) * u * lex) + 4 * u * np.abs(host)
+    return host, err
+
+
+def mesh_shard_postings(inp: dict, s: int, n_shard: int) -> tuple:
+    """Shard s's postings: of each query term's window (its first
+    `lengths[t]` postings), those whose doc falls in the shard's slots, in
+    their order, with shard-local doc ids; and the shard's offsets and
+    lengths. Returns (docs, tfs, offsets, lengths)."""
+    docs, tfs, offsets, lengths = [], [], [], []
+    pos = 0
+    for t in range(HYBRID_Q_TERMS):
+        lo = int(inp["offsets"][t])
+        win = slice(lo, lo + int(inp["lengths"][t]))
+        wd, wt = inp["postings_docs"][win], inp["postings_tfs"][win]
+        mine = (wd >= s * n_shard) & (wd < (s + 1) * n_shard)
+        docs.append(wd[mine] - s * n_shard)
+        tfs.append(wt[mine])
+        offsets.append(pos)
+        lengths.append(int(mine.sum()))
+        pos += int(mine.sum())
+    return (np.concatenate(docs).astype(np.int32),
+            np.concatenate(tfs).astype(np.float32),
+            np.asarray(offsets, np.int32), np.asarray(lengths, np.int32))
+
+
+def mesh_segments(inp: dict, vectors, norms, valid, dev):
+    """The tensor-parallel program's segments and per-shard term rows for
+    `inp` split into MESH_SHARDS data shards: the vectors, norms and valid
+    flags are views of the one-shard tensors; each shard's postings are
+    its slice of the query terms' windows; every shard gets the one-shard
+    IDFs and avgdl, so every doc's BM25 contributions add in the one-shard
+    order."""
+    from opensearch_tpu_torch.parallel.distributed import ShardedSegments
+
+    s_n = MESH_SHARDS
+    n_shard = inp["n_pad"] // s_n
+    parts = [mesh_shard_postings(inp, s, n_shard) for s in range(s_n)]
+    p_pad = max(1, max(len(p[0]) for p in parts))
+    pdocs = np.zeros((s_n, p_pad), np.int32)
+    ptfs = np.zeros((s_n, p_pad), np.float32)
+    for s, (d_s, t_s, _o, _l) in enumerate(parts):
+        pdocs[s, :len(d_s)] = d_s
+        ptfs[s, :len(t_s)] = t_s
+    segs = ShardedSegments(
+        vectors=vectors.view(s_n, n_shard, vectors.shape[1]),
+        norms_sq=norms.view(s_n, n_shard),
+        valid=valid.view(s_n, n_shard),
+        postings_docs=torch.from_numpy(pdocs).to(dev),
+        postings_tfs=torch.from_numpy(ptfs).to(dev),
+        doc_len=torch.from_numpy(inp["doc_len"]).to(dev).view(s_n, n_shard))
+    rows = {"offsets": np.stack([p[2] for p in parts]),
+            "lengths": np.stack([p[3] for p in parts])}
+    return segs, rows
+
+
+def mesh_query_args(inp: dict, rows: dict, queries, dev):
+    from opensearch_tpu_torch.parallel.distributed import QueryArgs
+
+    s_n = MESH_SHARDS
+    return QueryArgs(
+        query_vectors=queries,
+        term_offsets=torch.from_numpy(rows["offsets"]).to(dev),
+        term_lengths=torch.from_numpy(rows["lengths"]).to(dev),
+        term_idfs=torch.from_numpy(np.tile(inp["idfs"], (s_n, 1))).to(dev),
+        avgdl=torch.full((s_n,), np.float32(inp["avgdl"]), device=dev),
+        lexical_weight=torch.tensor(HYBRID_LEX_W, device=dev),
+        vector_weight=torch.tensor(HYBRID_VEC_W, device=dev))
+
+
+def ring_tie_check(label: str, vals, ids, want_vals, want_ids) -> int:
+    """The ring's result against another merge's: the same values bit for
+    bit, so a rank that holds another doc holds one of equal score (the
+    ring's tie order is slot 0's: shard 0, then S - 1, S - 2, ...). Returns
+    the number of such ranks, each logged."""
+    if not torch.equal(vals, want_vals):
+        raise AssertionError(f"[{label}] the ring's values are not the "
+                             f"other merge's bits")
+    differ = (ids != want_ids).nonzero().tolist()
+    for i, j in differ:
+        log(f"[{label}] query {i} rank {j}: the ring's doc "
+            f"{int(ids[i, j])} against {int(want_ids[i, j])}, both "
+            f"scoring {float(vals[i, j])!r} (the ring's tie order)")
+    return len(differ)
+
+
+def mesh_stage_profiles(segs, q, n_model: int, ring: bool) -> dict:
+    """The profiler's device ms of one batch by stage: the partial products
+    (each slice's product, their rank-order sum and |q|^2), the score
+    transforms, the lexical sums, the per-shard blend and top-k, and the
+    merge."""
+    from opensearch_tpu_torch.parallel import distributed as tp
+
+    s_n = segs.vectors.shape[0]
+    shards = range(s_n)
+    dots = [tp._vector_dots(q.query_vectors, segs.vectors[s], n_model)
+            for s in shards]
+    vecs = [tp._vector_scores(d_s, qsq, segs.norms_sq[s], "l2_norm")
+            for s, (d_s, qsq) in enumerate(dots)]
+    del dots
+    lexs = [tp._shard_lexical(segs, q, s, window=HYBRID_WINDOW)
+            for s in shards]
+
+    def topk():
+        out = []
+        for s in shards:
+            sc = q.vector_weight * vecs[s] + q.lexical_weight * lexs[s][None]
+            sc = torch.where(segs.valid[s][None], sc, float("-inf"))
+            out.append(tp.blockwise_topk(sc, HYBRID_K))
+        return out
+
+    pools = topk()
+    tv = torch.stack([v for v, _i in pools])
+    ti = torch.stack([i + s * segs.vectors.shape[1]
+                      for s, (_v, i) in enumerate(pools)])
+    profs = {
+        "partial_products": device_profile(lambda: [
+            tp._vector_dots(q.query_vectors, segs.vectors[s], n_model)
+            for s in shards], 3),
+        "transforms": None,
+        "lexical": device_profile(lambda: [
+            tp._shard_lexical(segs, q, s, window=HYBRID_WINDOW)
+            for s in shards], 3),
+        "per_shard_topk": device_profile(topk, 3),
+        "merge": device_profile(
+            (lambda: tp._ring_merge(tv, ti, HYBRID_K, s_n)) if ring else
+            (lambda: tp._allgather_merge(tv, ti, HYBRID_K)), 3),
+    }
+    del vecs
+    dots = [tp._vector_dots(q.query_vectors, segs.vectors[s], n_model)
+            for s in shards]
+    profs["transforms"] = device_profile(lambda: [
+        tp._vector_scores(d_s, qsq, segs.norms_sq[s], "l2_norm")
+        for s, (d_s, qsq) in enumerate(dots)], 3)
+    return {stage: prof and prof["device_ms"]
+            for stage, prof in profs.items()}
+
+
+def mesh_phase(kf, dev, seed: int, n_docs: int = HYBRID_DOCS) -> dict:
+    """The mesh (``--phases mesh``; after main by default):
+
+    1. graft_entry.dryrun_multichip(8) on the card: its 4-shard kNN
+       _search must take the stacked serving step (distributed_searches up
+       by one, which the dry run gates) and launch K1 once (its counter set
+       to 0 just before), then the tensor-parallel program on the
+       reference's tiny mesh of 4 x 2 slots.
+    2. The tensor-parallel hybrid program at BASELINE.md row 4's width:
+       hybrid_main_phase's segment (hybrid_inputs, --seed + 60: 1,000,000
+       128-d docs in 2^20 slots, 8 query terms of 2,000 postings, window
+       128, k = 10, l2) split into 4 data shards of 262,144 slots (views of
+       the one-shard tensors; each shard's postings the slice of each
+       query term's window that falls in it, in order; every shard the
+       one-shard IDFs and avgdl), 4 batches of 200 queries, run at n_model
+       1 and 2, each with the all-gather and the ring. Gates: each run's
+       ids, mapped back to docs, are hybrid_score_topk's over the one-shard
+       tensors but at logged f32 ties (f32_tie_gate, the fp64 host hybrid
+       of the two docs); the ring gives the all-gather's values bit for bit
+       and its ids but at equal scores (logged: the ring's tie order); each
+       run gives the same bits twice; on a copy of the inputs in eighths
+       (every dot exact in any order) every run's values are
+       hybrid_score_topk's bit for bit, the all-gather's ids too, the
+       ring's but at logged equal scores. Reports, per run and beside
+       hybrid_score_topk: the CUDA-event ms of a batch of 200 (median of
+       3 rounds x 4 batches), the profiler's device ms by stage and
+       torch.cuda.max_memory_allocated over a batch."""
+    from opensearch_tpu_torch import graft_entry
+    from opensearch_tpu_torch.ops import fused
+    from opensearch_tpu_torch.parallel import distributed as tp
+    from opensearch_tpu_torch.parallel.mesh import build_mesh
+
+    out: dict = {}
+    # (1) the dry run
+    kf.launches.reset()
+    graft_entry.dryrun_multichip(8)
+    out["dryrun_k1_launches"] = kf.launches.count
+    if kf.launches.count != 1:
+        raise AssertionError(f"dryrun_multichip launched K1 "
+                             f"{kf.launches.count} times, not once")
+    log(f"[mesh] dryrun_multichip(8): both OK lines, one K1 launch")
+
+    # (2) the tensor-parallel program at row 4's width
+    rng = np.random.default_rng(seed + 60)
+    t0 = time.perf_counter()
+    inp = hybrid_inputs(rng, n_docs)
+    queries = rng.standard_normal((HYBRID_BATCH * HYBRID_BATCHES, DIM),
+                                  dtype=np.float32)
+    qdev = torch.from_numpy(queries).to(dev)
+    args = list(hybrid_args(inp, dev, qdev[:HYBRID_BATCH]))
+    segs, rows = mesh_segments(inp, args[3], args[4], args[5], dev)
+    n_shard = inp["n_pad"] // MESH_SHARDS
+    log(f"[mesh] {n_docs} docs in {MESH_SHARDS} shards of {n_shard} slots, "
+        f"shard postings {rows['lengths'].sum(1).tolist()} (of "
+        f"{int(inp['lengths'].sum())} in the windows): made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hybrid = fused.jit_hybrid(HYBRID_K, HYBRID_WINDOW, "l2_norm")
+
+    def batches(q_all):
+        return [q_all[i * HYBRID_BATCH:(i + 1) * HYBRID_BATCH]
+                for i in range(HYBRID_BATCHES)]
+
+    def one_shard(qb):
+        return hybrid(*args[:10], qb, *args[11:])
+
+    # the query rows are made once; a batch swaps its query vectors in
+    base_q = mesh_query_args(inp, rows, qdev[:HYBRID_BATCH], dev)
+    programs = {
+        (n_model, ring): tp.build_distributed_search(
+            build_mesh(MESH_SHARDS, n_model, devices=[dev]), k=HYBRID_K,
+            window=HYBRID_WINDOW, similarity="l2_norm", ring=ring)
+        for n_model, ring in MESH_RUNS}
+
+    def run(key, qb):
+        return programs[key](segs, base_q._replace(query_vectors=qb))
+
+    def measure(fn) -> dict:
+        for qb in batches(qdev):
+            fn(qb)
+        ms = []
+        for _round in range(3):
+            for qb in batches(qdev):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn(qb)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(qdev[:HYBRID_BATCH])
+        torch.cuda.synchronize()
+        return {"p50_batch_ms": float(np.median(ms)), "batch_ms": ms,
+                "qps": HYBRID_BATCH * len(ms) / (sum(ms) / 1e3),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "memory_allocated_before": base}
+
+    def check_runs(label: str, exact: bool) -> dict:
+        res = {}
+        for b, qb in enumerate(batches(qdev)):
+            wv, wi = one_shard(qb)
+            ag = {}
+            for key in MESH_RUNS:
+                n_model, ring = key
+                name = f"{label} n_model={n_model} " + (
+                    "ring" if ring else "all-gather")
+                v1, i1 = run(key, qb)
+                v2, i2 = run(key, qb)
+                if not (torch.equal(v1, v2) and torch.equal(i1, i2)):
+                    raise AssertionError(f"[mesh] {name}: a batch run twice "
+                                         f"gave other bits")
+                cell = res.setdefault(name, {"f32_ties": 0,
+                                             "ring_ties": 0})
+                if not ring:
+                    ag[n_model] = (v1, i1)
+                else:
+                    cell["ring_ties"] += ring_tie_check(
+                        f"mesh {name} batch {b}", v1, i1, *ag[n_model])
+                if exact:
+                    if not torch.equal(v1, wv):
+                        raise AssertionError(
+                            f"[mesh] {name} batch {b}: values are not "
+                            f"hybrid_score_topk's bits on eighths")
+                    if not ring and not torch.equal(i1, wi):
+                        raise AssertionError(
+                            f"[mesh] {name} batch {b}: ids are not "
+                            f"hybrid_score_topk's on eighths")
+                    if ring:
+                        cell["ring_ties"] += ring_tie_check(
+                            f"mesh {name} batch {b} vs one shard", v1, i1,
+                            wv, wi)
+                else:
+                    qh = queries[b * HYBRID_BATCH:(b + 1) * HYBRID_BATCH]
+                    cell["f32_ties"] += len(f32_tie_gate(
+                        f"mesh {name} batch {b}", i1.cpu().numpy(),
+                        wi.cpu().numpy(), "hybrid_score_topk",
+                        lambda i, docs, qh=qh: hybrid_pair_scores(
+                            inp, qh[i], docs)))
+        return res
+
+    out["floats"] = check_runs("floats", exact=False)
+    log(f"[mesh] floats: every run hybrid_score_topk's ids but at logged "
+        f"f32 ties, the ring the all-gather's bits but at logged ties, a "
+        f"batch twice the same bits: {json.dumps(out['floats'])}")
+    runs = {"hybrid_score_topk": measure(one_shard)}
+    for key in MESH_RUNS:
+        n_model, ring = key
+        name = f"n_model={n_model} " + ("ring" if ring else "all-gather")
+        runs[name] = measure(lambda qb, key=key: run(key, qb))
+        runs[name]["device_ms_by_stage"] = mesh_stage_profiles(
+            segs, base_q, n_model, ring)
+    whole = device_profile(lambda: one_shard(qdev[:HYBRID_BATCH]), 3)
+    runs["hybrid_score_topk"]["device_ms"] = whole and whole["device_ms"]
+    out["runs"] = runs
+    for name, r in runs.items():
+        log(f"[mesh] {name}: batch of {HYBRID_BATCH} p50 "
+            f"{r['p50_batch_ms']:.4f} ms, QPS {r['qps']:.1f}, peak "
+            f"{r['max_memory_allocated'] / 2**30:.3f} GiB (from "
+            f"{r['memory_allocated_before'] / 2**30:.3f}); "
+            f"{json.dumps({k: v for k, v in r.items() if k != 'batch_ms'})}")
+
+    # the same inputs in eighths: every dot exact in any order
+    vectors = args[3]
+    vectors.mul_(8.0).round_().div_(8.0)
+    args[4] = (vectors * vectors).sum(1)
+    segs = segs._replace(norms_sq=args[4].view(MESH_SHARDS, n_shard))
+    qdev = torch.round(qdev * 8.0) / 8.0
+    base_q = base_q._replace(query_vectors=qdev[:HYBRID_BATCH])
+    out["eighths"] = check_runs("eighths", exact=True)
+    log(f"[mesh] eighths: every run hybrid_score_topk's values bit for bit "
+        f"and the all-gather's ids too, the ring's but at logged equal "
+        f"scores: {json.dumps(out['eighths'])}")
+    del args, segs, qdev, vectors, base_q
+    torch.cuda.empty_cache()
+    return out
+
+
+# --------------------------------------------------------------------------
+# telemetry: the residency ledger, the calibrated peaks and the roofline
+# --------------------------------------------------------------------------
+
+# H100 SXM data sheet figures the calibration is held to: HBM3 and fp32
+# outside the tensor cores
+PEAK_GATE = (0.3, 1.05)
+
+
+def node_tensor_bytes(node) -> int:
+    """numel * element_size of every tensor the node's indices keep on the
+    device: each published segment's columns and live bitmap and IVF-PQ
+    slabs, and the resident serving bundles of its indices."""
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+
+    total = 0
+    for svc in node.indices.values():
+        for shard in svc.shards.values():
+            for _host, seg in shard.engine.acquire_searcher().segments:
+                total += sum(seg.column_nbytes().values())
+                total += sum(vf.ann.nbytes for vf in
+                             seg.vector_fields.values()
+                             if vf.ann is not None)
+    return total + sum(r["bytes"] for r in default_registry.resident()
+                       if r["index"] in node.indices)
+
+
+def roofline_launches() -> dict:
+    """The roofline's launches so far, by base family."""
+    from opensearch_tpu_torch.telemetry import roofline
+
+    out: dict = {}
+    for name, row in roofline.default_recorder.snapshot_stats()[
+            "families"].items():
+        base = roofline.base_family(name)
+        out[base] = out.get(base, 0) + row["launches"]
+    return out
+
+
+def ledger_gate(node, label: str, index: str, bodies: list, base: int,
+                per_search: dict | None = None) -> dict:
+    """The telemetry gates on a live node, before it closes: the ledger's
+    identity holds; its resident bytes (above `base`, what was resident
+    before the node's ingest) are the numel * element_size of the node's
+    registered tensors and at most torch.cuda.memory_allocated(); each of
+    `bodies` searched (one at a time) leaves one search span on
+    node.telemetry.tracer and adds `per_search` launches to each named
+    roofline family; a "profile": true search of the first body (its
+    launches counted too) has roofline fields on a kernel row and
+    residency rows; deleting `index` drops the resident bytes by its
+    share."""
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    default_ledger.verify_identity()
+    resident = default_ledger.resident_bytes()
+    walked = node_tensor_bytes(node)
+    allocated = torch.cuda.memory_allocated()
+    if resident - base != walked:
+        raise AssertionError(f"[{label}] the ledger holds {resident - base} "
+                             f"bytes for the node, its tensors {walked}")
+    if resident > allocated:
+        raise AssertionError(f"[{label}] the ledger's {resident} resident "
+                             f"bytes exceed memory_allocated {allocated}")
+    node.telemetry.tracer.clear()
+    launches0 = roofline_launches()
+    for body in bodies:
+        node.search(index, dict(body))
+    spans = [s for s in node.telemetry.tracer.finished_spans()
+             if s.name == "search"]
+    if len(spans) != len(bodies):
+        raise AssertionError(f"[{label}] {len(bodies)} searches left "
+                             f"{len(spans)} search spans")
+    prof = node.search(index, {**bodies[0], "profile": True})["profile"]
+    launches1 = roofline_launches()
+    for family, n in (per_search or {}).items():
+        got = launches1.get(family, 0) - launches0.get(family, 0)
+        if got != n * (len(bodies) + 1):
+            raise AssertionError(f"[{label}] {len(bodies) + 1} searches "
+                                 f"added {got} {family} launches to the "
+                                 f"roofline, not {n} each")
+    rows = [k for sh in prof["shards"] for q in sh["searches"][0]["query"]
+            for k in q.get("kernels", [])]
+    fielded = sorted({k["name"] for k in rows if "roofline_fraction" in k})
+    if not fielded or not prof["device"]:
+        raise AssertionError(f"[{label}] profile: kernel rows "
+                             f"{[k['name'] for k in rows]} with roofline "
+                             f"fields {fielded}, {len(prof['device'])} "
+                             f"residency rows")
+    share = sum(r["bytes"] for r in default_ledger.structures(index=index))
+    before = default_ledger.resident_bytes()
+    node.delete_index(index)
+    dropped = before - default_ledger.resident_bytes()
+    default_ledger.verify_identity()
+    if dropped != share:
+        raise AssertionError(f"[{label}] deleting {index} dropped "
+                             f"{dropped} resident bytes, its share is "
+                             f"{share}")
+    out = {"resident_bytes": resident - base, "tensor_bytes": walked,
+           "memory_allocated": allocated, "search_spans": len(spans),
+           "profile_roofline_rows": fielded,
+           "roofline_launches_a_search": per_search or {},
+           "residency_rows": len(prof["device"]),
+           "deleted_share_bytes": share}
+    log(f"[{label}] ledger: identity holds, resident bytes the node's "
+        f"tensors', under memory_allocated; one span a search; profile "
+        f"rows; the delete dropped its share: {json.dumps(out)}")
+    return out
+
+
+def telemetry_counters() -> dict:
+    """The counter the stacked families' launches are held to: each
+    stacked launch counts one distributed search. (The batcher's dispatch
+    counters are reset by the concurrency checks, so the ANN families are
+    held per search in ledger_gate instead.)"""
+    from opensearch_tpu_torch.search import distributed_serving
+
+    return {"stacked": distributed_serving.stats["distributed_searches"]}
+
+
+def telemetry_phase(dev, since: dict) -> dict:
+    """After the main and lexical phases: the calibrated peaks (measured
+    on the card at the first TorchNode, CUDA events) beside the data sheet
+    figures, each within PEAK_GATE of it; GET /_roofline over the port's
+    HTTP server: the accounting identity (accounted_flops the families'
+    model FLOPs summed), a mesh_knn_fused row (the stacked kNN searches;
+    the stacked families' launches are the stacked launches since
+    `since`), an ivfpq_adc_pallas row (the ANN searches; ledger_gate holds
+    its launches to the searches one by one) and a bm25_term_scores row
+    (a "profile": true match); each family's unclamped roofline fraction
+    printed as a finding."""
+    from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.rest.http import HttpServer
+    from opensearch_tpu_torch.telemetry import roofline
+
+    peaks = roofline.current_peaks()
+    sheet = {"peak_bytes_per_s": HBM_BYTES_PER_S,
+             "peak_flops_per_s": FP32_FLOP_PER_S}
+    got = {"peak_bytes_per_s": peaks.bytes_per_s,
+           "peak_flops_per_s": peaks.flops_per_s}
+    ratios = {key: got[key] / sheet[key] for key in sheet}
+    log(f"[telemetry] calibrated peaks {json.dumps(peaks.to_dict())}; data "
+        f"sheet {json.dumps(sheet)}; ratio {json.dumps(ratios)}")
+    if peaks.source != "measured" or \
+            peaks.platform != torch.cuda.get_device_name(dev):
+        raise AssertionError(f"[telemetry] the peaks were not measured on "
+                             f"the card: {peaks.to_dict()}")
+    for key, r in ratios.items():
+        if not PEAK_GATE[0] <= r <= PEAK_GATE[1]:
+            raise AssertionError(f"[telemetry] {key} is {r:.3f}x the data "
+                                 f"sheet's, outside {PEAK_GATE}")
+    now = telemetry_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device=dev)
+        server = HttpServer(node, "127.0.0.1", 0)
+        server.start_in_thread()
+        client = RestClient(server.port)
+        try:
+            report = client.ok("GET", "/_roofline")
+        finally:
+            client.close()
+            server.stop_thread()
+            node.close()
+    rows = {r["family"]: r for r in report["families"]}
+    flops = sum(r["flops"] for r in report["families"])
+    if not report["identity_ok"] or \
+            flops != report["counters"]["accounted_flops"]:
+        raise AssertionError(f"[telemetry] /_roofline identity: families' "
+                             f"flops {flops}, accounted "
+                             f"{report['counters']['accounted_flops']}")
+
+    def launches(*bases) -> int:
+        return sum(r["launches"] for name, r in rows.items()
+                   if roofline.base_family(name) in bases)
+
+    want = {"stacked": now["stacked"] - since["stacked"]}
+    have = {"stacked": launches("mesh_knn", "mesh_knn_fused")}
+    for base in ("mesh_knn_fused", "ivfpq_adc_pallas", "bm25_term_scores"):
+        if not any(roofline.base_family(n) == base for n in rows):
+            raise AssertionError(f"[telemetry] /_roofline has no {base} row: "
+                                 f"{sorted(rows)}")
+    if have != want:
+        raise AssertionError(f"[telemetry] roofline launches {have}, the "
+                             f"routes' launches {want}")
+    fractions = {}
+    for name, r in rows.items():
+        unclamped = (r["achieved_gflops"] / r["roofline_gflops"]
+                     if r["roofline_gflops"] else None)
+        fractions[name] = {
+            "launches": r["launches"], "bound": r["bound"],
+            "intensity": r["intensity"],
+            "achieved_gflops": r["achieved_gflops"],
+            "roofline_gflops": r["roofline_gflops"],
+            "unclamped_fraction": unclamped}
+        log(f"[telemetry] finding: roofline {name}: {json.dumps(fractions[name])}")
+    out = {"peaks": peaks.to_dict(), "data_sheet": sheet,
+           "peak_ratios": ratios, "launches": {
+               **have, "ann": launches("ivfpq_search", "ivfpq_adc_pallas")},
+           "identity_ok": report["identity_ok"],
+           "top_offender": report["top_offender"], "families": fractions}
+    log(f"[telemetry] /_roofline over HTTP: identity holds, launches "
+        f"{have} equal the routes' {want}; top offender "
+        f"{report['top_offender']}")
     return out
 
 
@@ -5047,6 +5644,8 @@ def adc_kernel_phase(ads, ivfpq, dev, seed: int) -> float:
                 f"K2 planted tie: {ki[1, :2].tolist()}, expected the "
                 f"earlier probe's doc {int(ids[4, 5])} first")
         log(f"K2 parity ragged/empty lists + planted tie {lut.dtype}: ok")
+    # a build made outside a segment: its owner frees its ledger entry
+    index.allocation.free(reason="dropped")
     return err
 
 
@@ -5126,6 +5725,8 @@ def adc_timing_phase(ads, ivfpq, dev, seed: int) -> dict:
             q = q / np.linalg.norm(q, axis=1, keepdims=True)
             out[key][b] = adc_time(ads, ivfpq, index, q, 64,
                                    f"{key} shape B={b}")
+        # a build made outside a segment: its owner frees its ledger entry
+        index.allocation.free(reason="dropped")
         del index
         torch.cuda.empty_cache()
     return out
@@ -5264,6 +5865,9 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
             "vector": qv.tolist(), "k": k}}}, "size": 10})
         return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
 
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    ledger_base = default_ledger.resident_bytes()
     with tempfile.TemporaryDirectory() as tmp:
         node = TorchNode(tmp, device=dev)
         t0 = time.perf_counter()
@@ -5375,6 +5979,14 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
         concurrent = concurrent_phase(
             node, name, queries, 10,
             {"adc_scan": ads.launches, "knn_fused": kf.launches})
+        # the residency ledger over index C's exact columns, IVF-PQ slab,
+        # exact second segment and filtered searches' serving bundle
+        # a search over the IVF-PQ segment and the exact one: one K2
+        # launch and one K1 launch, each one roofline launch
+        ledger = ledger_gate(node, name, name, [
+            {"query": {"knn": {"v": {"vector": qv.tolist(), "k": 10}}},
+             "size": 10} for qv in queries[:4]], ledger_base,
+            per_search={"ivfpq_adc_pallas": 1, "knn_fused_pallas": 1})
         node.close()
     # recall@10 against exact cosine brute force (reported, not gated)
     dn = torch.from_numpy(data).to(dev)
@@ -5391,7 +6003,7 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
            "p99_ms": float(np.percentile(lat_ms, 99)),
            "qps": 64 / sum(lat), "mixed": mixed, "concurrent": concurrent,
            "filtered": filtered, "batch": batch,
-           "lut_launches": lut_launches}
+           "lut_launches": lut_launches, "ledger": ledger}
     log(f"[{name}] 64 searches equal the plain pipeline; recall@10 vs exact "
         f"cosine = {recall:.4f}; p50 {out['p50_ms']:.3f} ms, p99 "
         f"{out['p99_ms']:.3f} ms, QPS {out['qps']:.1f}")
@@ -5872,6 +6484,9 @@ def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
     out = {"docs": n_docs, "types": {}}
     tier_counter = {"lists": kf.list_launches, "wide": kf.wide_launches,
                     "mma": kf.mma_launches}
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    ledger_base = default_ledger.resident_bytes()
     with tempfile.TemporaryDirectory() as tmp:
         node = TorchNode(tmp, device=dev)
         out["ingest_s"] = lexical_ingest(node, "lex", corpus, words)
@@ -5958,6 +6573,11 @@ def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
                                         tier_counter, len(segments))
         out["http"] = lexical_http_checks(node, bodies, responses)
         out["profile"] = lexical_profile(node, shard, bodies, bm25_ops)
+        # the ledger over index L's text, keyword, numeric and vector
+        # columns; the profiled match leaves the bm25_term_scores row
+        out["ledger"] = ledger_gate(
+            node, "lex", "lex", [dict(b) for b, _m in bodies["match_or"][:4]],
+            ledger_base)
         node.close()
     return out
 
@@ -6463,6 +7083,12 @@ def main() -> int:
                       select_entry)
         phase_s["large"] = time.perf_counter() - t0
     if "main" in phases:
+        # the roofline's rows are read after the main and lexical phases,
+        # against the stacked and ANN launches made from here
+        from opensearch_tpu_torch.telemetry import roofline
+
+        roofline.default_recorder.reset()
+        telemetry_since = telemetry_counters()
         t0 = time.perf_counter()
         main = main_path_phase(kf, dev, args.seed)
         entry["launches"] = main["launches"]
@@ -6563,11 +7189,25 @@ def main() -> int:
         if entry["launches"] is None:
             entry["launches"] = sum(entry["lexical_launches"].values())
         phase_s["lexical"] = time.perf_counter() - t0
+    if "main" in phases:
+        t0 = time.perf_counter()
+        telemetry = telemetry_phase(dev, telemetry_since)
+        log(f"telemetry record: {json.dumps(telemetry)}")
+        phase_s["telemetry"] = time.perf_counter() - t0
     if phases & {"main", "hybrid"}:
         t0 = time.perf_counter()
         hybrid = hybrid_main_phase(dev, args.seed)
         log(f"hybrid program record: {json.dumps(hybrid)}")
         phase_s["hybrid"] = time.perf_counter() - t0
+    if phases & {"main", "mesh"}:
+        t0 = time.perf_counter()
+        mesh = mesh_phase(kf, dev, args.seed)
+        # the dry run's stacked search: K1's launches, counted from 0
+        entry["mesh_dryrun_launches"] = mesh["dryrun_k1_launches"]
+        if entry["launches"] is None:
+            entry["launches"] = mesh["dryrun_k1_launches"]
+        log(f"mesh record: {json.dumps(mesh)}")
+        phase_s["mesh"] = time.perf_counter() - t0
     log(f"phase wall seconds: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": [entry, large_mma_entry, select_entry,
                                   entry2, lut_entry,

@@ -85,12 +85,17 @@ _ENGINE_SEQ = 0
 class Engine:
     def __init__(self, path: str | Path, mapper_service: MapperService,
                  durability: str = "request",
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 shard_label: tuple[str, int] | None = None):
         self.path = Path(path)
         self.path.mkdir(parents=True, exist_ok=True)
         self.mapper_service = mapper_service
         # every segment this engine publishes goes to this device
         self.device = torch.device(device)
+        # (index name, shard number) for device-residency attribution:
+        # every to_device publish below runs inside an upload_scope carrying
+        # it, so the ledger's per-structure rows name their owner
+        self.shard_label = shard_label
         self.translog = Translog(self.path / "translog")
         # "request" = fsync once per request before ack (the reference's
         # index.translog.durability=REQUEST — TransportWriteAction syncs at
@@ -317,6 +322,27 @@ class Engine:
     def acquire_searcher(self) -> SearcherSnapshot:
         return self._searcher
 
+    # -- device residency ---------------------------------------------------
+
+    def _upload_scope(self):
+        """Attribution scope for every device publish this engine makes:
+        the residency ledger's (index, shard, generation, device) columns
+        come from here (see telemetry/device_ledger.upload_scope)."""
+        from opensearch_tpu_torch.telemetry.device_ledger import upload_scope
+
+        index, shard = self.shard_label or (f"engine:{self.instance_id}", 0)
+        return upload_scope(index=index, shard=shard,
+                            generation=self._refresh_generation + 1,
+                            device=str(self.device))
+
+    @staticmethod
+    def _retire_devices(pairs, reason: str) -> None:
+        """Free the ledger allocations of retired (host, dev) pairs. Old
+        searcher snapshots may still pin the tensors briefly: the ledger
+        tracks the PUBLISHED set, which these just left."""
+        for _host, dev in pairs:
+            dev.free_allocations(reason=reason)
+
     # -- refresh / flush ---------------------------------------------------
 
     def refresh(self) -> SearcherSnapshot:
@@ -340,16 +366,18 @@ class Engine:
                 [self.version_map[d].version if d in self.version_map else 1
                  for d in host.doc_ids], _np.int64,
             )
-            dev = to_device(host, self.device)
+            with self._upload_scope():
+                dev = to_device(host, self.device)
             self._segments.append((host, dev))
             self._buffer = []
             self._buffer_pos = {}
         if self._dirty_live:
-            self._segments = [
-                (h, d.with_live(h.live) if h.name in self._dirty_live
-                 else d)
-                for h, d in self._segments
-            ]
+            with self._upload_scope():
+                self._segments = [
+                    (h, d.with_live(h.live) if h.name in self._dirty_live
+                     else d)
+                    for h, d in self._segments
+                ]
             self._dirty_live.clear()
         self._maybe_merge()
         self._refresh_generation += 1
@@ -419,6 +447,7 @@ class Engine:
         if live_total == 0:
             # pure-tombstone segments simply drop
             self._segments = keep
+            self._retire_devices(chosen, reason="merged")
             self._dirty_live -= {h.name for h, _ in chosen}
             self.stats["merge_total"] = self.stats.get("merge_total", 0) + 1
             return
@@ -441,7 +470,9 @@ class Engine:
         import numpy as _np
 
         merged.doc_versions = _np.asarray(versions, _np.int64)
-        self._segments = keep + [(merged, to_device(merged, self.device))]
+        with self._upload_scope():
+            self._segments = keep + [(merged, to_device(merged, self.device))]
+        self._retire_devices(chosen, reason="merged")
         self._dirty_live -= {h.name for h, _ in chosen}
         self.stats["merge_total"] = self.stats.get("merge_total", 0) + 1
 
@@ -557,9 +588,18 @@ class Engine:
         name list — the replica mirrors it exactly so doc-id tie-breaks and
         segment ordering match across copies."""
         existing = {h.name: (h, d) for h, d in self._segments}
-        for host in new_hosts:
-            existing[host.name] = (host, to_device(host, self.device))
+        old_devs = {id(d): (h, d) for h, d in self._segments}
+        with self._upload_scope():
+            for host in new_hosts:
+                existing[host.name] = (host, to_device(host, self.device))
         self._segments = [existing[n] for n in order if n in existing]
+        # replaced same-name copies and merged-away segments the primary
+        # dropped both leave the published set: release their residency
+        kept = {id(d) for _h, d in self._segments}
+        self._retire_devices(
+            [pair for oid, pair in old_devs.items() if oid not in kept],
+            reason="replicated-install",
+        )
         # seal-time doc columns refresh the version map so realtime GET and
         # seq-no stale checks see replicated docs — only the NEWLY adopted
         # hosts need scanning (kept segments were processed on first install)
@@ -656,9 +696,11 @@ class Engine:
         if commit_path.exists():
             commit = json.loads(commit_path.read_text())
             seg_dir = self.path / "segments"
-            for name in commit["segments"]:
-                host = load_segment(seg_dir, name)
-                self._segments.append((host, to_device(host, self.device)))
+            with self._upload_scope():
+                for name in commit["segments"]:
+                    host = load_segment(seg_dir, name)
+                    self._segments.append(
+                        (host, to_device(host, self.device)))
             self.tracker = LocalCheckpointTracker(
                 max_seq_no=commit["max_seq_no"],
                 local_checkpoint=commit["local_checkpoint"],
@@ -719,3 +761,6 @@ class Engine:
 
     def close(self) -> None:
         self.translog.close()
+        # release the published set's device-residency entries (shard
+        # removal, index delete, node shutdown all land here)
+        self._retire_devices(self._segments, reason="closed")

@@ -80,7 +80,8 @@ class IndexShard:
         self.shard_id = shard_id
         self.mapper_service = mapper_service
         self.engine = Engine(path, mapper_service, durability=durability,
-                             device=device)
+                             device=device,
+                             shard_label=(shard_id.index, shard_id.shard))
         self.primary = True
         self.replication = replication
         # peer-recovery bookkeeping (IndexShard.recoveryState analog, read

@@ -15,6 +15,7 @@ from opensearch_tpu_torch.index.device import (
     vector_field_from_numpy,
 )
 from opensearch_tpu_torch.ops.ivfpq import IVFPQIndex, IVFPQParams
+from opensearch_tpu_torch.parallel.distributed import QueryArgs, ShardedSegments
 from opensearch_tpu_torch.search.distributed_serving import _IndexBundle
 
 
@@ -74,3 +75,44 @@ def ivfpq_index_from_numpy(coarse: np.ndarray, codebooks: np.ndarray,
         coarse_host=coarse,
         coarse_sq_host=np.sum(coarse * coarse, axis=1),
     )
+
+
+def sharded_segments_from_numpy(vectors: np.ndarray, norms_sq: np.ndarray,
+                                valid: np.ndarray, postings_docs: np.ndarray,
+                                postings_tfs: np.ndarray, doc_len: np.ndarray,
+                                *, device: torch.device | str
+                                ) -> ShardedSegments:
+    """The tensor-parallel program's segments from the numpy arrays the
+    reference's ShardedSegments holds: vectors [S, n_pad, d] f32, norms_sq
+    [S, n_pad] f32, valid [S, n_pad] bool, postings_docs [S, p_pad] int32,
+    postings_tfs [S, p_pad] f32, doc_len [S, n_pad] f32."""
+    put = lambda a, dt: torch.from_numpy(
+        np.ascontiguousarray(a, dtype=dt)).to(device)
+    return ShardedSegments(
+        vectors=put(vectors, np.float32), norms_sq=put(norms_sq, np.float32),
+        valid=put(valid, bool), postings_docs=put(postings_docs, np.int32),
+        postings_tfs=put(postings_tfs, np.float32),
+        doc_len=put(doc_len, np.float32))
+
+
+def query_args_from_numpy(query_vectors: np.ndarray, term_offsets: np.ndarray,
+                          term_lengths: np.ndarray, term_idfs: np.ndarray,
+                          avgdl: np.ndarray, lexical_weight: float,
+                          vector_weight: float, *, k1: float = 1.2,
+                          b: float = 0.75,
+                          device: torch.device | str) -> QueryArgs:
+    """The tensor-parallel program's query arguments from numpy: queries
+    [B, d] f32, per-shard term offsets and lengths [S, Q] int32, IDFs
+    [S, Q] f32, avgdl [S] f32; the weights, k1 and b as f32 scalars."""
+    put = lambda a, dt: torch.from_numpy(
+        np.ascontiguousarray(a, dtype=dt)).to(device)
+    scalar = lambda x: torch.tensor(np.float32(x), device=device)
+    return QueryArgs(
+        query_vectors=put(query_vectors, np.float32),
+        term_offsets=put(term_offsets, np.int32),
+        term_lengths=put(term_lengths, np.int32),
+        term_idfs=put(term_idfs, np.float32),
+        avgdl=put(np.reshape(avgdl, -1), np.float32),
+        lexical_weight=scalar(lexical_weight),
+        vector_weight=scalar(vector_weight),
+        k1=scalar(k1), b=scalar(b))

@@ -15,6 +15,17 @@ node's device; searches run the stacked serving step on it
 coalesce across concurrent searches in ``knn_batcher``
 (search/batcher.py).
 
+Telemetry (telemetry/): each node has its own ``telemetry`` (a tracer and
+a metrics registry; every search is one ``search`` span with the
+``search.total`` / ``search.took_ms`` metrics), a search and an indexing
+slow log configured from the indices' ``search.slowlog`` /
+``indexing.slowlog`` thresholds, and is the metrics sink of the
+process-wide batcher, shard-mesh registry and roofline recorder, whose
+peaks it calibrates on its device at construction.
+:meth:`TorchNode.apply_dynamic_settings` applies the shard-mesh budget
+and the heat settings from a flat settings map (the ``_cluster/settings``
+API is not ported yet).
+
 Still raising "not yet ported": wildcard index expressions, aliases,
 ingest pipelines, scripted updates.
 
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import base64
 import difflib
+import json
 import os
 import shutil
 import time
@@ -184,8 +196,63 @@ class TorchNode:
         self.data_path = Path(data_path)
         self.node_name = node_name
         self.indices: dict[str, IndexService] = {}
-        # the process-wide kNN dispatch batcher the per-shard route uses
+        from opensearch_tpu_torch.telemetry import roofline
+        from opensearch_tpu_torch.telemetry.slowlog import SlowLog
+        from opensearch_tpu_torch.telemetry.tracing import Telemetry
+
+        self.telemetry = Telemetry()  # per node: metrics must not leak
+        # the process-wide kNN dispatch batcher the per-shard route uses;
+        # the last-constructed node is its fallback metrics sink (a search
+        # records into its own node's registry through activate())
         self.knn_batcher = batcher.default_batcher
+        self.knn_batcher.metrics = self.telemetry.metrics
+        shard_mesh.default_registry.metrics = self.telemetry.metrics
+        # the roofline recorder is process-wide like the batcher; its peaks
+        # calibrate HERE on this node's device, once per process and
+        # platform (a stub installed earlier wins), never inside a stats
+        # read
+        roofline.default_recorder.metrics = self.telemetry.metrics
+        roofline.ensure_peaks(self.device)
+        self.search_slowlog = SlowLog("search")
+        self.indexing_slowlog = SlowLog("indexing")
+        self._configure_slowlogs()
+
+    def _configure_slowlogs(self) -> None:
+        """Pick up index.search.slowlog.threshold.query.* and
+        index.indexing.slowlog.threshold.index.* from any index's settings
+        (node-wide loggers; the reference scopes them per index).
+        Thresholds reset first so a deleted or changed index leaves no
+        stale level."""
+        from opensearch_tpu_torch.telemetry.slowlog import LEVELS
+
+        for sl in (self.search_slowlog, self.indexing_slowlog):
+            sl.thresholds = {lvl: -1 for lvl in LEVELS}
+        for svc in self.indices.values():
+            s = svc.settings
+            q = (((s.get("search") or {}).get("slowlog") or {})
+                 .get("threshold") or {}).get("query") or {}
+            if q:
+                self.search_slowlog.configure(q)
+            i = (((s.get("indexing") or {}).get("slowlog") or {})
+                 .get("threshold") or {}).get("index") or {}
+            if i:
+                self.indexing_slowlog.configure(i)
+
+    def apply_dynamic_settings(self, flat: dict) -> None:
+        """Apply the dynamic node settings this port honours from a flat
+        settings map: ``search.mesh.hbm_budget_bytes`` (the shard-mesh
+        registry) and ``telemetry.heat.*`` (the residency ledger's touch
+        accounting), each only where the map names one of its keys. Both
+        are process-wide, like the batcher."""
+        from opensearch_tpu_torch.telemetry.device_ledger import (
+            HEAT_SETTINGS,
+            default_ledger,
+        )
+
+        if any(st.key in flat for st in shard_mesh.MESH_SETTINGS):
+            shard_mesh.default_registry.apply_settings(flat)
+        if any(st.key in flat for st in HEAT_SETTINGS):
+            default_ledger.apply_heat_settings(flat)
 
     # -- index lifecycle ---------------------------------------------------
 
@@ -206,6 +273,7 @@ class TorchNode:
         self.indices[name] = IndexService(
             name, self._index_path(name), nested, body.get("mappings"),
             self.device)
+        self._configure_slowlogs()
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
 
     def _index_path(self, name: str) -> Path:
@@ -237,6 +305,7 @@ class TorchNode:
             del self.indices[name]
             shard_mesh.default_registry.invalidate_index(name)
             shutil.rmtree(self._index_path(name), ignore_errors=True)
+        self._configure_slowlogs()
         return {"acknowledged": True}
 
     def _get_index(self, name: str) -> IndexService:
@@ -324,12 +393,15 @@ class TorchNode:
                   if_primary_term: int | None = None) -> dict:
         if pipeline is not None:
             raise not_yet_ported("ingest pipelines")
+        t0 = time.monotonic()
         resp, shard = self._index_doc(
             index, doc_id, source, routing, op_type or "index", if_seq_no,
             version, version_type, if_primary_term)
         shard.maybe_sync_translog()
         if refresh:
             shard.refresh()
+        self.indexing_slowlog.maybe_log(
+            (time.monotonic() - t0) * 1000, index, f"id[{resp['_id']}]")
         return resp
 
     def _index_doc(self, index: str, doc_id: str | None, source: dict,
@@ -644,7 +716,34 @@ class TorchNode:
         if body.get("indices_boost") is not None:
             body["indices_boost"] = self._resolve_indices_boost(
                 body["indices_boost"], ignore_unavailable=ignore_unavailable)
-        return search_service.search(shards, body, precomputed_results)
+        names = sorted({sh.shard_id.index for sh in shards})
+        expr = ",".join(names) or "_none"
+        from opensearch_tpu_torch.search import lanes as lanes_mod
+        from opensearch_tpu_torch.telemetry import tracing
+
+        # activate() scopes library spans and the process-wide singletons'
+        # metrics to THIS node; the slowlog and the metrics record inside
+        # the span, so the slowlog entry and the histogram exemplar carry
+        # its trace id
+        metrics = self.telemetry.metrics
+        with tracing.activate(self.telemetry.tracer), \
+                self.telemetry.tracer.start_span(
+                    "search", {"indices": expr}) as span:
+            resp = search_service.search(shards, body, precomputed_results)
+            took = resp.get("took", 0)
+            span.set_attribute("took_ms", took)
+            self.search_slowlog.maybe_log(
+                took, expr, json.dumps(body.get("query") or {}))
+            metrics.counter("search.total").add(1)
+            metrics.histogram("search.took_ms").record(took)
+            # per-index and per-lane series under the same metric name
+            if len(names) == 1:
+                metrics.histogram("search.took_ms",
+                                  labels={"index": expr}).record(took)
+            metrics.histogram(
+                "search.took_ms",
+                labels={"lane": lanes_mod.active_lane()}).record(took)
+        return resp
 
     def _resolve_indices_boost(self, spec,
                                ignore_unavailable: bool = False) -> dict:

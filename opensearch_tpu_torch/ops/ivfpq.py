@@ -30,8 +30,9 @@ engine). The heavy steps run on the tensors' device:
 Every build carries a process-unique ``build_generation``. Only l2 and
 cosine are served by ANN (cosine is l2 on unit vectors).
 
-Not ported: the device-residency ledger registration of a build (the
-ledger itself is not ported yet).
+Each build registers its slab (packed lists and codebooks) in the
+device-residency ledger (telemetry/device_ledger.py); the owning segment
+frees it when it retires.
 """
 
 from __future__ import annotations
@@ -234,6 +235,9 @@ class IVFPQIndex:
     normalized: bool       # True when built for cosine (unit vectors)
     # process-unique id of this build (a rebuild gets a fresh one)
     build_generation: int = 0
+    # device-residency ledger handle for this build's slab (freed when the
+    # owning segment retires: the engine's retirement path walks it)
+    allocation: object | None = None
     # host copies of the coarse centroids and their squared norms: probe
     # selection runs on the host (host_probe_select)
     coarse_host: np.ndarray | None = None
@@ -292,7 +296,7 @@ def build(
         packed_mask[li, : len(rows)] = True
 
     coarse_host = params.coarse.cpu().numpy().astype(np.float32)
-    return IVFPQIndex(
+    out = IVFPQIndex(
         params=params,
         codes=torch.from_numpy(packed_codes).to(device),
         ids=torch.from_numpy(packed_ids).to(device),
@@ -304,6 +308,18 @@ def build(
         coarse_host=coarse_host,
         coarse_sq_host=np.sum(coarse_host * coarse_host, axis=1),
     )
+    # residency accounting: the slab stays on the device until the owning
+    # segment retires (index/field attribution rides the caller's
+    # upload_scope; the generation is this build's own id)
+    from opensearch_tpu_torch.telemetry.device_ledger import (
+        KIND_IVFPQ,
+        default_ledger,
+    )
+
+    out.allocation = default_ledger.register(
+        KIND_IVFPQ, out.nbytes, generation=out.build_generation,
+        device=str(out.codes.device))
+    return out
 
 
 # --------------------------------------------------------------------------

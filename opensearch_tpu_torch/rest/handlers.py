@@ -6,7 +6,9 @@ the API the port serves are copies of the reference's: the root info, the
 index lifecycle (create, delete, get, HEAD, mappings, settings), document
 writes and reads (index, create, auto-id index, get, HEAD, `_source`,
 delete, `_update`), NDJSON `_bulk`, `_refresh`, `_search`, `_count`,
-`_msearch` and `_cluster/health`. Every other route answers through
+`_msearch`, `_cluster/health`, the kernel roofline report and its
+re-calibration (`GET /_roofline`, `POST /_roofline/calibrate`) and the
+what-if tiering advisor (`GET /_tiering/advise`). Every other route answers through
 :func:`_not_yet_ported`, which raises "<METHOD> <path> is not yet ported
 to opensearch_tpu_torch" (the HTTP server's 500 envelope). Handlers
 receive (node, params, query, body) and return (status, payload); the
@@ -159,6 +161,13 @@ def build_router() -> Router:
     # cluster
     reg("GET", "/_cluster/health", cluster_health)
     reg("GET", "/_cluster/health/{index}", cluster_health)
+    # kernel roofline report (telemetry/roofline.py): families ranked by
+    # lost time, plus the re-calibration button
+    reg("GET", "/_roofline", roofline_report)
+    reg("POST", "/_roofline/calibrate", roofline_calibrate)
+    # what-if tiering advisor (telemetry/device_ledger.py): replay the
+    # recorded access stream against a candidate device-memory budget
+    reg("GET", "/_tiering/advise", tiering_advise)
     # the rest of the reference's surface
     for method, template in UNPORTED_ROUTES:
         reg(method, template, _not_yet_ported(method, template))
@@ -886,6 +895,55 @@ def cluster_health(node: TorchNode, params, query, body):
     return 200, resp
 
 
+def roofline_report(node: TorchNode, params, query, body):
+    """GET /_roofline — kernel families ranked by LOST TIME (cumulative
+    fenced wall x gap-to-roofline) against the calibrated peaks. The
+    recorder is process-wide (one process == one device), so nodes in one
+    process share one report."""
+    from opensearch_tpu_torch.telemetry import roofline
+
+    return 200, roofline.default_recorder.report()
+
+
+def roofline_calibrate(node: TorchNode, params, query, body):
+    """POST /_roofline/calibrate — re-run the one-shot product/copy probe
+    on the node's device and swap the peak table every roofline fraction
+    divides by."""
+    from opensearch_tpu_torch.telemetry import roofline
+
+    peaks = roofline.calibrate(force=True, device=node.device)
+    return 200, {"acknowledged": True, "peaks": peaks.to_dict()}
+
+
+def tiering_advise(node: TorchNode, params, query, body):
+    """GET /_tiering/advise?hbm_budget=... — the what-if tiering advisor
+    (telemetry/device_ledger.py): replay the recorded structure-access
+    stream against a device-memory tier of the given budget (the
+    shard-mesh registry's LRU-by-bytes semantics) and report projected hit
+    bytes, re-upload traffic and estimated added latency per structure,
+    with an HBM / host-RAM / evicted tier recommendation. `hbm_budget`
+    accepts human-readable sizes ("512mb"); absent, the current
+    `search.mesh.hbm_budget_bytes` is simulated."""
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+    from opensearch_tpu_torch.common.settings import parse_bytes
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    raw = query.get("hbm_budget")
+    if raw in (None, ""):
+        budget = default_registry.hbm_budget_bytes
+    else:
+        try:
+            budget = parse_bytes(raw)
+        except (ValueError, TypeError):
+            raise IllegalArgumentException(
+                f"failed to parse [hbm_budget] value [{raw}]")
+        if budget < 0:
+            raise IllegalArgumentException(
+                f"[hbm_budget] must be >= 0 (0 simulates an unbounded "
+                f"tier), got [{raw}]")
+    return 200, default_ledger.advise_tiering(budget)
+
+
 # every (method, path) of the reference's router that the port does not
 # serve yet: each answers "not yet ported" (a 500), never a 404 or 405
 UNPORTED_ROUTES = (
@@ -1033,9 +1091,6 @@ UNPORTED_ROUTES = (
     ("POST", "/{index}/_delete_by_query"),
     ("GET", "/_prometheus/metrics"),
     ("POST", "/_otel/flush"),
-    ("GET", "/_roofline"),
-    ("POST", "/_roofline/calibrate"),
-    ("GET", "/_tiering/advise"),
     ("GET", "/_tasks"),
     ("GET", "/_tasks/{task_id}"),
     ("POST", "/_tasks/_cancel"),

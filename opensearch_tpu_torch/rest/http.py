@@ -12,9 +12,10 @@ Executors, as the reference's: one serial data worker (writes and
 everything else), one management worker (`_tasks`), and a parallel
 search pool split by priority lane (search/lanes.py), so concurrent HTTP
 searches reach the stacked serving step and the kNN dispatch batcher
-together; the lane rides a contextvar into the batcher. The reference's
-tracing span and circuit breakers are read off the node and are absent
-until telemetry and breakers are ported.
+together; the lane rides a contextvar into the batcher. Each request is one
+``http_request`` span on the node's tracer (node.telemetry), under which
+a handler's spans parent. The reference's circuit breakers are read off
+the node and are absent until breakers are ported.
 
 Run (on the card; ``--device cpu`` runs it on the CPU)::
 
@@ -262,8 +263,8 @@ class HttpServer:
                 breakers.in_flight_requests.add_estimate_and_maybe_break(
                     len(raw_body), "<http_request>"
                 )
-            metrics = getattr(getattr(self.node, "telemetry", None),
-                              "metrics", None)
+            telemetry = self.node.telemetry
+            metrics = telemetry.metrics
             lane_cfg = lanes_mod.default_config
             lane = (lanes_mod.classify_rest(path, query)
                     if lane_cfg.enabled else lanes_mod.INTERACTIVE)
@@ -298,19 +299,24 @@ class HttpServer:
                     metrics, lane, self.lane_tracker.depth(lane))
             else:
                 executor = self._executor
+            span_cm = telemetry.tracer.start_span(
+                "http_request", {"method": method, "path": path,
+                                 "lane": lane})
             try:
-                # handlers are synchronous work; run them off the event loop
-                # so slow searches don't stall socket IO. The contextvars
-                # context is copied into the worker thread, so the lane
-                # scope rides it into the dispatch batcher.
-                def run_handler():
-                    with lanes_mod.lane_scope(lane):
-                        return handler(self.node, params, query, body)
+                with span_cm as span:
+                    # handlers are synchronous work; run them off the event
+                    # loop so slow searches don't stall socket IO. The
+                    # contextvars context is copied into the worker thread,
+                    # so handler spans parent under this span and the lane
+                    # scope rides it into the dispatch batcher.
+                    def run_handler():
+                        with lanes_mod.lane_scope(lane):
+                            return handler(self.node, params, query, body)
 
-                ctx = contextvars.copy_context()
-                status, payload = await asyncio.get_running_loop().run_in_executor(
-                    executor, ctx.run, run_handler,
-                )
+                    ctx = contextvars.copy_context()
+                    status, payload = await asyncio.get_running_loop(
+                    ).run_in_executor(executor, ctx.run, run_handler)
+                    span.set_attribute("status", status)
             finally:
                 if tracked:
                     self.lane_tracker.complete(lane)

@@ -37,10 +37,16 @@ its per-payload results, or (results, retraced) as the reference's do. The
 active priority lane (search/lanes.py) widens the window of a background
 entry, as in the reference.
 
-Left out until telemetry and the settings path are ported: the
-residency-ledger compile accounting and the tracing span events of a
-flush, the metrics registry, ``apply_settings``, and the cross-shard
-counters (no mesh-wide launch dispatches through the batcher yet).
+Telemetry, as in the reference: a noteworthy flush (a merged batch, or a
+size / deadline / backlog decision) rides the leader's span as a
+``knn.batch.flush`` event, a launch under a new signature counts one
+entry for its kernel ``family`` in the device-residency ledger's compile
+table, and each launch records ``knn.batch.size``,
+``knn.batch.queue_wait_ms`` and the dispatch counters into the EXECUTING
+node's metrics (``tracing.active_metrics``), else the attached
+``metrics`` sink. Left out until the settings path is ported:
+``apply_settings``, and the cross-shard counters (no mesh-wide launch
+dispatches through the batcher yet).
 
 Settings (the defaults of ``configure``):
   search.knn.batch.max_wait_ms     flush deadline ceiling (default 2ms)
@@ -243,6 +249,7 @@ class KnnDispatchBatcher:
         limit = (max_queue if max_queue is not None
                  else MAX_QUEUE_SETTING.default(Settings.EMPTY))
         self.pressure = QueuePressure(limit, operation="knn batch dispatch")
+        self.metrics = None          # optional telemetry MetricsRegistry
         self._cond = threading.Condition()
         self._buckets: dict[Any, _Bucket] = {}
         self._in_flight: dict[Any, int] = {}
@@ -331,6 +338,7 @@ class KnnDispatchBatcher:
                  launch: Callable[[Sequence[Any]], list], *,
                  kind: str = "exact", rank: int = 0,
                  alt_keys: Sequence[Any] = (),
+                 family: str | None = None,
                  tune_key: Any = None) -> DispatchOutcome:
         """Run `payload` through the batch identified by `key`.
 
@@ -346,11 +354,13 @@ class KnnDispatchBatcher:
         are larger-k-bucket variants of `key`, nearest first, that this
         request may ride if one already has a batch forming; `rank` orders
         the k buckets, and a batch launches with its largest-rank member's
-        closure. `tune_key` names the generation-free key family of the
+        closure. `family` names the kernel family for the residency
+        ledger's compile table (a launch whose first-signature flag fires
+        counts one entry there). `tune_key` names the generation-free key family of the
         wait tuner (defaults to `key`). The active priority lane
         (search/lanes.py) widens the window for background entries."""
         if key is None or not self.enabled or self.max_batch_size <= 1:
-            return self._solo(payload, launch, kind)
+            return self._solo(payload, launch, kind, family)
         from opensearch_tpu_torch.search import lanes as lanes_mod
 
         # the lanes kill switch governs the wait widening too
@@ -391,26 +401,29 @@ class KnnDispatchBatcher:
             solo_now = (tuner.solo if tuner is not None
                         else self._ewma <= _SOLO_EWMA_THRESHOLD)
             if len(bucket.entries) >= self.max_batch_size:
-                batch = self._take_locked(key)
+                batch, reason = self._take_locked(key), "size"
             elif self.max_wait_ms <= 0 or (
                 self._in_flight.get(key, 0) == 0 and solo_now
             ):
                 if len(bucket.entries) == 1:
                     self.stats["solo_fast_path"] += 1
-                batch = self._take_locked(key)
+                batch, reason = self._take_locked(key), "solo"
             else:
-                batch = None
+                batch, reason = None, ""
         while True:
             if batch is not None:
-                out = self._run_batch(key, batch, own=entry, kind=kind)
+                out = self._run_batch(key, batch, own=entry, kind=kind,
+                                      family=family, reason=reason)
                 if out is not None:
                     return out
                 # we led a batch that did not include our own entry (the
                 # size bound shrank under us): keep waiting for ours
                 batch = None
                 continue
-            batch = self._await_or_lead(key, entry, deadline)
-            if batch is None:
+            led = self._await_or_lead(key, entry, deadline)
+            if led is not None:
+                batch, reason = led
+            else:
                 # another leader served us
                 if entry.error is not None:
                     raise entry.error
@@ -420,10 +433,33 @@ class KnnDispatchBatcher:
 
     # -- internals ---------------------------------------------------------
 
-    def _solo(self, payload: Any, launch, kind: str) -> DispatchOutcome:
+    def _solo(self, payload: Any, launch, kind: str,
+              family: str | None) -> DispatchOutcome:
         results, retraced, wall_ns = _launch_timed(launch, [payload])
-        self._record_launch(1, kind)
+        self._record_launch(1, (0,), kind)
+        self._after_launch(kind, family, retraced, wall_ns, merged=1,
+                           reason="unbatched")
         return DispatchOutcome(results[0], 1, wall_ns, retraced, 0)
+
+    def _after_launch(self, kind: str, family: str | None, retraced: bool,
+                      wall_ns: int, merged: int, reason: str) -> None:
+        """Post-launch observability: a noteworthy flush (a merged batch or
+        a size / deadline / backlog decision) rides the leader's span as an
+        event, the solo fast path stays event-free; a launch under a new
+        signature counts one entry (first-launch wall: any kernel build
+        and the run) in the residency ledger's compile table."""
+        if merged > 1 or reason in ("size", "deadline", "backlog"):
+            from opensearch_tpu_torch.telemetry.tracing import add_span_event
+
+            add_span_event("knn.batch.flush", {
+                "reason": reason, "merged": merged, "kind": kind,
+            })
+        if retraced and family is not None:
+            from opensearch_tpu_torch.telemetry.device_ledger import (
+                default_ledger,
+            )
+
+            default_ledger.record_compile(family, wall_ns)
 
     def _tuner_locked(self, tune_key: Any) -> _KeyTuner:
         """The key family's controller (caller holds the lock); LRU touch
@@ -456,9 +492,10 @@ class KnnDispatchBatcher:
         return batch
 
     def _await_or_lead(self, key: Any, entry: _Entry,
-                       deadline: int) -> list[_Entry] | None:
+                       deadline: int) -> tuple[list[_Entry], str] | None:
         """Wait until the entry is served, or its bucket qualifies for a
-        flush it can lead. Returns the batch to lead, or None if done."""
+        flush it can lead. Returns (batch, flush reason) to lead, or None
+        if done."""
         with self._cond:
             while True:
                 if entry.done:
@@ -473,9 +510,12 @@ class KnnDispatchBatcher:
                 if bucket is not None and (
                         len(bucket.entries) >= self.max_batch_size
                         or bucket.flush_now):
-                    return self._take_locked(key)
+                    reason = ("size"
+                              if len(bucket.entries) >= self.max_batch_size
+                              else "backlog")
+                    return self._take_locked(key), reason
                 if now >= deadline:
-                    return self._take_locked(key)
+                    return self._take_locked(key), "deadline"
                 remaining = max((deadline - now) / 1000.0, 0.0)
                 signaled = self._cond.wait(remaining)
                 if not signaled and timeutil.monotonic_millis() <= now:
@@ -484,7 +524,8 @@ class KnnDispatchBatcher:
                     deadline = now
 
     def _run_batch(self, key: Any, batch: list[_Entry], own: _Entry,
-                   kind: str) -> DispatchOutcome | None:
+                   kind: str, family: str | None = None,
+                   reason: str = "") -> DispatchOutcome | None:
         """Launch one batch; returns the outcome for `own`, or None when
         `own` was not part of this batch (its caller keeps waiting)."""
         # the largest-rank member's closure: every smaller-k joiner's
@@ -508,7 +549,10 @@ class KnnDispatchBatcher:
                 e.retraced = retraced
                 e.done = True
             self._finish_locked(key, batch)
-        self._record_launch(len(batch), kind)
+        self._record_launch(len(batch), tuple(e.wait_ms for e in batch),
+                            kind)
+        self._after_launch(kind, family, retraced, wall_ns,
+                           merged=len(batch), reason=reason or "lead")
         if not any(e is own for e in batch):
             return None
         return DispatchOutcome(own.result, len(batch), wall_ns, retraced,
@@ -540,7 +584,8 @@ class KnnDispatchBatcher:
             bucket.flush_now = True
         self._cond.notify_all()
 
-    def _record_launch(self, merged: int, kind: str) -> None:
+    def _record_launch(self, merged: int, wait_ms_per_entry: Sequence[int],
+                       kind: str) -> None:
         with self._cond:
             self.stats["dispatches"] += 1
             self.stats["merged_queries"] += merged
@@ -551,6 +596,21 @@ class KnnDispatchBatcher:
                 self.stats["ann_dispatches"] += 1
             else:
                 self.stats["exact_dispatches"] += 1
+        # the EXECUTING node's registry when a request scope is active
+        # (nodes in one process share this batcher), else the attached sink
+        from opensearch_tpu_torch.telemetry.tracing import active_metrics
+
+        metrics = active_metrics() or self.metrics
+        if metrics is not None:
+            metrics.histogram("knn.batch.size").record(merged)
+            # one observation PER ENTRY with its measured queue wait
+            for w in wait_ms_per_entry:
+                metrics.histogram("knn.batch.queue_wait_ms").record(w)
+            metrics.counter("knn.batch.dispatches").add(1)
+            if kind == "ann":
+                metrics.counter("knn.dispatch.ann").add(1)
+            else:
+                metrics.counter("knn.dispatch.exact").add(1)
 
 
 # process-wide default: the executor's dispatch sites are module-level code
@@ -561,7 +621,8 @@ default_batcher = KnnDispatchBatcher()
 
 def dispatch(key: Any, payload: Any, launch, *, kind: str = "exact",
              rank: int = 0, alt_keys: Sequence[Any] = (),
+             family: str | None = None,
              tune_key: Any = None) -> DispatchOutcome:
     return default_batcher.dispatch(key, payload, launch, kind=kind,
                                     rank=rank, alt_keys=alt_keys,
-                                    tune_key=tune_key)
+                                    family=family, tune_key=tune_key)

@@ -27,6 +27,14 @@ set; a filtered query serves ANN-indexed columns exactly, as the
 per-shard route does under a filter; ``stats["filtered"]`` counts such
 launches. A batch's queries share their filter by identity. Aliases are
 not ported (``TorchNode`` has none), so a filtered alias raises.
+
+Telemetry, as in the reference: a bundle's slabs are one
+device-residency-ledger allocation (freed by the shard-mesh registry on
+eviction), the query batch and a filter mask are transient uploads, and
+each launch feeds the registry's launch wall, the roofline (family
+``mesh_knn`` for the plain einsum branch, ``mesh_knn_fused[<precision>]``
+for K1), a heat touch of the bundle and, on a program-cache miss, the
+ledger's compile table.
 """
 
 from __future__ import annotations
@@ -97,13 +105,17 @@ class _IndexBundle:
     """[S, n_flat, d] device slabs + host-side flat->segment maps."""
 
     def __init__(self, vectors, norms_sq, valid, n_flat: int,
-                 seg_offsets: list[list[tuple[int, int, int]]]):
+                 seg_offsets: list[list[tuple[int, int, int]]],
+                 allocation=None):
         self.vectors = vectors          # torch [S, n_flat, d] on the device
         self.norms_sq = norms_sq        # torch [S, n_flat]
         self.valid = valid              # torch [S, n_flat] bool
         self.n_flat = n_flat
         # per shard: [(flat_start, seg_idx, n_docs)] in segment order
         self.seg_offsets = seg_offsets
+        # device-residency ledger handle; the ShardMeshRegistry frees it
+        # on eviction/invalidation (and on a lost duplicate-build race)
+        self.allocation = allocation
 
     @property
     def nbytes(self) -> int:
@@ -146,8 +158,9 @@ def _can_serve(snaps: list, field: str, *,
     return similarity, dims
 
 
-def _build_bundle(snaps: list, field: str, dims: int,
-                  device: torch.device) -> _IndexBundle:
+def _build_bundle(snaps: list, field: str, dims: int, device: torch.device,
+                  index_name: str = "_unattributed",
+                  generations: tuple = ()) -> _IndexBundle:
     per_shard_vecs: list[np.ndarray] = []
     per_shard_norms: list[np.ndarray] = []
     per_shard_valid: list[np.ndarray] = []
@@ -200,13 +213,24 @@ def _build_bundle(snaps: list, field: str, dims: int,
             out[i, : a.shape[0]] = a
         return torch.from_numpy(out).to(device)
 
-    return _IndexBundle(
+    bundle = _IndexBundle(
         vectors=stack(per_shard_vecs),
         norms_sq=stack(per_shard_norms),
         valid=stack(per_shard_valid, fill=False),
         n_flat=n_flat,
         seg_offsets=seg_offsets,
     )
+    # device residency: the slab stays on the device until the registry
+    # evicts it (superseded generation, byte budget, invalidation)
+    from opensearch_tpu_torch.telemetry.device_ledger import (
+        KIND_MESH_BUNDLE,
+        default_ledger,
+    )
+
+    bundle.allocation = default_ledger.register(
+        KIND_MESH_BUNDLE, bundle.nbytes, index=index_name, field=field,
+        generation=tuple(generations), device=str(torch.device(device)))
+    return bundle
 
 
 def _filter_valid_mask(shards: list, snaps: list, knn_filter, n_flat: int,
@@ -287,13 +311,27 @@ def mesh_knn_batch(
     cache_key = registry.residency_key(index_name, first.field, shards, snaps)
     bundle = registry.get(cache_key)
     if bundle is None:
+        # built outside the registry lock; a same-key race wastes one
+        # upload at worst, and registry.put frees the loser's allocation
         bundle = registry.put(
-            cache_key, _build_bundle(snaps, first.field, dims, device))
+            cache_key, _build_bundle(snaps, first.field, dims, device,
+                                     index_name=index_name,
+                                     generations=cache_key[4]))
+
+    from opensearch_tpu_torch.telemetry.device_ledger import (
+        KIND_QUERY_BATCH,
+        default_ledger,
+    )
 
     valid = bundle.valid
     if filtered:
-        valid = valid & _filter_valid_mask(shards, snaps, first.filter,
-                                           bundle.n_flat, device)
+        fmask = _filter_valid_mask(shards, snaps, first.filter,
+                                   bundle.n_flat, device)
+        # per-request mask, consumed by this launch: transient in the
+        # residency ledger (allocated and freed in one step)
+        default_ledger.record_transient(KIND_QUERY_BATCH,
+                                        fmask.numel() * fmask.element_size())
+        valid = valid & fmask
 
     b = len(nodes)
     q_host = np.zeros((b, dims), np.float32)
@@ -311,6 +349,7 @@ def mesh_knn_batch(
 
     exact_kernel = resolve_kernel(ann_config.exact_kernel)
     score_precision = ann_config.score_precision
+    fused = (exact_kernel, score_precision) != ("xla", "fp32")
     prog_key = (s, bundle.n_flat, dims, k_shard, k_final, similarity,
                 exact_kernel, score_precision)
     with _CACHE_LOCK:
@@ -333,7 +372,37 @@ def mesh_knn_batch(
     counts = counts.cpu().numpy()        # [s, b]
     wall_ns = time.perf_counter_ns() - t0
     launch_id = registry.next_launch_id()
+    registry.record_launch_wall(wall_ns)
     registry.record_launch_kernel(exact_kernel, score_precision)
+    # roofline accounting: ONE stacked launch against the mesh cost model
+    # (every shard's scan + the on-device merge; one device)
+    from opensearch_tpu_torch.telemetry import roofline
+
+    launch_params = dict(b=b, s=s, n_flat=bundle.n_flat, d=dims,
+                         k_shard=k_shard, devices=1)
+    if fused:
+        from opensearch_tpu_torch.ops.knn_fused import fused_pool_width
+
+        launch_params.update(
+            precision=score_precision,
+            r=fused_pool_width(k_shard, score_precision),
+            kernel=exact_kernel,
+        )
+        mesh_family = "mesh_knn_fused"
+        roofline.record_launch(
+            f"mesh_knn_fused[{score_precision}]", wall_ns, **launch_params)
+    else:
+        mesh_family = "mesh_knn"
+        roofline.record_launch("mesh_knn", wall_ns, **launch_params)
+    default_ledger.record_transient(KIND_QUERY_BATCH, q_host.nbytes)
+    # heat touch against the bundle this launch scanned, bytes from the
+    # same cost model the roofline fold used
+    default_ledger.touch([bundle.allocation], family=mesh_family,
+                         params=launch_params)
+    if retraced:
+        # program-cache miss: a fresh entry for the mesh kernel family; the
+        # first launch wall includes any kernel build
+        default_ledger.record_compile(mesh_family, wall_ns)
     _count("distributed_searches")
     if filtered:
         _count("filtered")

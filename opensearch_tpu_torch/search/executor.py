@@ -61,8 +61,12 @@ operator of the shard's profile tree, BM25 records its fenced launch under
 fenced launch wall under the reference's kernel names
 (``knn_fused_pallas``, ``knn_topk_streaming``, ``knn_exact_scores``,
 ``ivfpq_adc_pallas`` / ``ivfpq_search``), and the top-k cut or field sort
-is the collector time. The roofline and residency-ledger calls of the
-reference are left out.
+is the collector time. Each batched launch, profiled or not, folds its
+fenced wall into the roofline (telemetry/roofline.py) under its family's
+cost model and records a heat touch of the structures it read (the vector
+column, the live bitmap and, on the IVF-PQ route, the slab) in the
+device-residency ledger, where its padded query batch is a transient
+upload.
 """
 
 from __future__ import annotations
@@ -95,6 +99,11 @@ from opensearch_tpu_torch.search.fetch import (
     _edit_distance_at_most,
     _fuzziness_distance,
 )
+from opensearch_tpu_torch.telemetry import roofline
+from opensearch_tpu_torch.telemetry.device_ledger import (
+    KIND_QUERY_BATCH,
+    default_ledger,
+)
 
 I64_MIN = -(2**63)
 I64_MAX = 2**63 - 1
@@ -122,13 +131,37 @@ def not_yet_ported(what: str) -> NotImplementedError:
 
 def _pad_query_batch(rows: list) -> np.ndarray:
     """Stack per-request query vectors into a [B_pad, d] batch, B padded to
-    the next power of two with zero rows (the caller slices them off)."""
+    the next power of two with zero rows (the caller slices them off). The
+    padded batch is a per-launch upload: the residency ledger counts it as
+    transient (allocated and freed in one step)."""
     b = len(rows)
     b_pad = 1 << (b - 1).bit_length()
     out = np.zeros((b_pad, len(rows[0])), np.float32)
     for i, row in enumerate(rows):
         out[i] = row
+    default_ledger.record_transient(KIND_QUERY_BATCH, out.nbytes)
     return out
+
+
+def _touch_targets(dev, field: str, ann=None) -> list:
+    """The ledger allocations a kNN launch over this segment READS: the
+    vector column, the live bitmap and (IVF-PQ route) the slab. The launch
+    closures record a heat touch against them with the launch's modeled
+    bytes."""
+    allocs = dev.allocations or {}
+    out = [allocs.get(field), allocs.get("_live")]
+    if ann is not None:
+        out.append(ann.allocation)
+    return [a for a in out if a is not None]
+
+
+def _account_launch(family: str, t0_ns: int, touch: list,
+                    touch_family: str | None = None, **params) -> None:
+    """One fenced launch of `family` since `t0_ns`: fold it into the
+    roofline under the family's cost model, and touch the structures it
+    read with the bytes of the same model."""
+    roofline.record_launch(family, time.perf_counter_ns() - t0_ns, **params)
+    default_ledger.touch(touch, family=touch_family or family, params=params)
 
 
 @dataclass
@@ -291,7 +324,7 @@ class ShardContext:
             # a batch); the shard cut below still takes exactly node.k
             k_bucket = 1 << (k_req - 1).bit_length()
             if vf.ann is not None and not filtered:
-                a_vals, a_ids = self._ann_dispatch(vf, valid, qv, node,
+                a_vals, a_ids = self._ann_dispatch(dev, vf, valid, qv, node,
                                                    k_bucket, sim)
                 _count_knn_path("ann")
                 scores = np.full(dev.n_pad, -np.inf, np.float32)
@@ -327,7 +360,8 @@ class ShardContext:
         self._knn_cache[id(node)] = out
         return out
 
-    def _ann_dispatch(self, vf, valid, qv: np.ndarray, node, k_bucket: int,
+    def _ann_dispatch(self, dev, vf, valid, qv: np.ndarray, node,
+                      k_bucket: int,
                       sim: str):
         """The IVF-PQ launch for this query through the batcher: (vals, ids)
         numpy rows of at least k_bucket candidates, under the live ANN
@@ -353,15 +387,29 @@ class ShardContext:
             return ("ivfpq", id(vf), vf.ann.build_generation, gen, kb, nprobe,
                     sim, precision, mult, kernel)
 
+        rescore = ivfpq.rescore_pool(vf.ann, k_bucket, nprobe,
+                                     ivfpq.default_rerank(k_bucket, mult))
+        touch = _touch_targets(dev, node.field, ann=vf.ann)
+
         def launch_ann(rows):
             q_batch = _pad_query_batch(rows)
+            t0 = time.perf_counter_ns()
             with profile.profiling(None):
                 b_vals, b_ids = ivfpq.search_index(
                     vf.ann, vf.vectors, vf.norms_sq, valid, q_batch,
                     k=k_bucket, nprobe=nprobe, similarity=vf.similarity,
                     adc_precision=precision, rescore_multiplier=mult,
                     kernel=kernel)
-            return _rows(b_vals, b_ids, len(rows)), profile.signature_retraced(
+            out = _rows(b_vals, b_ids, len(rows))
+            # one fenced launch against the variant's cost model, keyed per
+            # ADC precision
+            _account_launch(
+                f"{family}[{precision}]", t0, touch,
+                b=int(q_batch.shape[0]), nlist=vf.ann.params.nlist,
+                d=vf.ann.params.d, m=vf.ann.params.m, ks=vf.ann.params.ks,
+                nprobe=nprobe, l_pad=vf.ann.l_pad, rescore=rescore,
+                adc_precision=precision)
+            return out, profile.signature_retraced(
                 "ivfpq_search", (vf.vectors, q_batch),
                 (k_bucket, nprobe, precision, mult, kernel))
 
@@ -371,13 +419,11 @@ class ShardContext:
         out = batcher.dispatch(
             ann_key(k_bucket), qv, launch_ann, kind="ann", rank=k_bucket,
             alt_keys=(ann_key(k_bucket * 2), ann_key(k_bucket * 4)),
+            family=family,
             tune_key=("ivfpq", id(self.mapper_service), node.field, k_bucket),
         )
         _record_kernel(family, out, qv, {
-            "adc_precision": precision,
-            "rescore_candidates": ivfpq.rescore_pool(
-                vf.ann, k_bucket, nprobe,
-                ivfpq.default_rerank(k_bucket, mult)),
+            "adc_precision": precision, "rescore_candidates": rescore,
             "nprobe": nprobe, "kernel": kernel})
         return out.value
 
@@ -405,6 +451,8 @@ class ShardContext:
         # generation-free key family of the wait tuner: a refresh must not
         # reset what it learned
         tune = (id(self.mapper_service), field)
+        touch = _touch_targets(dev, field)
+        n_rows, dims = int(vf.vectors.shape[0]), int(vf.vectors.shape[1])
         scores = np.full(n_pad, -np.inf, np.float32)
         if exact_kernel == "pallas" and k_bucket <= knn_fused.FUSED_MAX_K:
 
@@ -417,13 +465,20 @@ class ShardContext:
             def launch_fused(rows):
                 q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
                     vf.vectors.device)
+                t0 = time.perf_counter_ns()
                 with profile.profiling(None):
                     b_vals, b_ids = knn_fused.knn_fused_auto(
                         vf.vectors, vf.norms_sq, valid, q_batch, k=k_bucket,
                         similarity=sim, score_precision=score_precision,
                         impl=exact_kernel)
-                return _rows(b_vals, b_ids, len(rows)), \
-                    profile.signature_retraced(
+                out = _rows(b_vals, b_ids, len(rows))
+                _account_launch(
+                    f"knn_fused_pallas[{score_precision}]", t0, touch,
+                    touch_family="knn_fused_pallas",
+                    b=int(q_batch.shape[0]), n=n_rows, d=dims, k=k_bucket,
+                    r=knn_fused.fused_pool_width(k_bucket, score_precision),
+                    precision=score_precision)
+                return out, profile.signature_retraced(
                         "knn_fused_pallas", (vf.vectors, q_batch),
                         (k_bucket, sim, score_precision, exact_kernel))
 
@@ -433,6 +488,7 @@ class ShardContext:
                                for kb in (k_bucket * 2, k_bucket * 4)
                                if kb <= knn_fused.FUSED_MAX_K
                                and not filtered),
+                family="knn_fused_pallas",
                 tune_key=("knn_fused", *tune, k_bucket))
             _record_kernel("knn_fused_pallas", out, qv, {
                 "score_precision": score_precision, "kernel": exact_kernel})
@@ -452,11 +508,15 @@ class ShardContext:
             def launch_streaming(rows):
                 q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
                     vf.vectors.device)
+                t0 = time.perf_counter_ns()
                 with profile.profiling(None):
                     b_vals, b_ids = scan(vf.vectors, vf.norms_sq, valid,
                                          q_batch)
-                return _rows(b_vals, b_ids, len(rows)), \
-                    profile.signature_retraced(
+                out = _rows(b_vals, b_ids, len(rows))
+                _account_launch("knn_topk_streaming", t0, touch,
+                                b=int(q_batch.shape[0]), n=n_rows, d=dims,
+                                k=k_bucket)
+                return out, profile.signature_retraced(
                         "knn_topk_streaming", (vf.vectors, q_batch),
                         (k_bucket, sim, chunk))
 
@@ -465,6 +525,7 @@ class ShardContext:
                 alt_keys=tuple(stream_key(kb)
                                for kb in (k_bucket * 2, k_bucket * 4)
                                if kb <= chunk and not filtered),
+                family="knn_topk_streaming",
                 tune_key=("knn_topk_streaming", *tune, k_bucket))
             _record_kernel("knn_topk_streaming", out, qv)
             vals, ids = out.value
@@ -476,17 +537,20 @@ class ShardContext:
             def launch_exact(rows):
                 q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
                     vf.vectors.device)
+                t0 = time.perf_counter_ns()
                 with profile.profiling(None):
                     b_scores = knn_ops.exact_knn_scores(
                         q_batch, vf.vectors, vf.norms_sq, valid,
                         vf.similarity).cpu().numpy()
+                _account_launch("knn_exact_scores", t0, touch,
+                                b=int(q_batch.shape[0]), n=n_rows, d=dims)
                 return [b_scores[i] for i in range(len(rows))], \
                     profile.signature_retraced(
                         "knn_exact_scores", (vf.vectors, q_batch), (sim,))
 
             out = batcher.dispatch(
                 None if filtered else ("knn_exact_scores", id(vf), gen, sim),
-                qv, launch_exact,
+                qv, launch_exact, family="knn_exact_scores",
                 tune_key=("knn_exact_scores", *tune))
             _record_kernel("knn_exact_scores", out, qv)
             scores = out.value

@@ -22,9 +22,12 @@ executor and the ops' entry points record into it without a handle
 threaded through every signature. When no profiler is active an
 instrumented path costs one contextvar read and no fence.
 
-Left out until telemetry is ported: the kernel rows' roofline fields
-(achieved GFLOP/s, intensity, roofline fraction, bound) and the device
-ledger's compile table.
+Each kernel row carries its family's roofline fields
+(telemetry/roofline.py: EWMA achieved GFLOP/s, arithmetic intensity,
+fraction of the calibrated roofline, bound verdict), and each fenced
+``profiled_kernel`` launch is folded into the roofline from its argument
+shapes and, the first time under its signature, counts one entry in the
+device-residency ledger's compile table.
 """
 
 from __future__ import annotations
@@ -148,9 +151,14 @@ class OpProfile:
             "retraced": self.retraced,
         }
         if self.kernels:
+            from opensearch_tpu_torch.telemetry.roofline import (
+                default_recorder,
+            )
+
             out["kernels"] = [
                 {"name": name, "calls": c[0], "time_in_nanos": c[1],
                  "transfer_bytes": c[2], "retraces": c[3],
+                 **default_recorder.kernel_row_fields(name),
                  **(self.kernel_annotations.get(name) or {})}
                 for name, c in sorted(self.kernels.items())
             ]
@@ -404,8 +412,21 @@ def profiled_kernel(name: str) -> Callable:
                 out = fn(*args, **kwargs)
             for dev in devices:
                 torch.cuda.synchronize(dev)
-            prof.record_kernel(name, time.perf_counter_ns() - t0, transfer,
-                               retraced)
+            elapsed = time.perf_counter_ns() - t0
+            prof.record_kernel(name, elapsed, transfer, retraced)
+            # roofline accounting: the fenced wall and the call's argument
+            # shapes are what the family's cost model needs
+            from opensearch_tpu_torch.telemetry import roofline
+            from opensearch_tpu_torch.telemetry.device_ledger import (
+                default_ledger,
+            )
+
+            roofline.observe_kernel(name, args, kwargs, elapsed)
+            if retraced:
+                # first launch under this signature: one entry for the
+                # family in the ledger's compile table (its wall includes
+                # any kernel build)
+                default_ledger.record_compile(name, elapsed)
             return out
 
         return wrapper

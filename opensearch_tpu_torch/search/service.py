@@ -522,7 +522,9 @@ def _profile_response(body: dict, node, per_shard_results: list,
     """The reference's ``profile`` section: per shard the operator tree,
     rewrite and collector times, the device rollup (under the reference's
     ``tpu`` key) and the fetch sub-phases. ``device`` lists the
-    residency ledger's rows, which the port does not keep yet."""
+    residency ledger's per-structure rows (telemetry/device_ledger.py) of
+    the indices this request touched, each touched structure with its
+    heat summary."""
     profs = shard_profilers or [None] * len(per_shard_results)
     shards_profile = []
     for shard_idx, ((shard, _snap, _r), prof) in enumerate(
@@ -565,7 +567,14 @@ def _profile_response(body: dict, node, per_shard_results: list,
                      "jit_retrace": False}),
             "aggregations": [],
         })
-    return {"shards": shards_profile, "device": []}
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    device_rows: list[dict] = []
+    for index_name in sorted({shard.shard_id.index
+                              for shard, _snap, _r in per_shard_results}):
+        device_rows.extend(default_ledger.structures(index=index_name,
+                                                     with_heat=True))
+    return {"shards": shards_profile, "device": device_rows}
 
 
 def _try_distributed_query_phase(shards: list, snaps: list, node,

@@ -40,7 +40,8 @@ from opensearch_tpu_torch.search import profile
 
 DIM = 8
 N_DOCS = 90
-# the roofline's fields on a kernel row: telemetry, not ported yet
+# the roofline's fields on a kernel row: their values follow each
+# framework's measured peaks and walls, so their keys and types count
 ROOFLINE_FIELDS = {"achieved_gflops", "intensity", "roofline_fraction",
                    "bound"}
 
@@ -97,10 +98,12 @@ def route(request):
 
 
 def _shape(obj, path="$"):
-    """Keys, list lengths, strings and leaf types; roofline fields out."""
+    """Keys, list lengths, strings and leaf types; the roofline fields'
+    types alone."""
     if isinstance(obj, dict):
-        return {k: _shape(v, f"{path}.{k}") for k, v in obj.items()
-                if k not in ROOFLINE_FIELDS}
+        return {k: (type(v).__name__ if k in ROOFLINE_FIELDS
+                    else _shape(v, f"{path}.{k}"))
+                for k, v in obj.items()}
     if isinstance(obj, list):
         return [_shape(v, f"{path}[{i}]") for i, v in enumerate(obj)]
     if isinstance(obj, str):
@@ -138,7 +141,16 @@ def test_profile_has_the_references_shape(nodes, route, shards):
     json.dumps(got)  # the server sends it as JSON: no numpy or torch scalar
     wp, gp = want["profile"], got["profile"]
     assert list(gp) == list(wp) == ["shards", "device"]
-    assert gp["device"] == []
+    # the residency rows: the same structures, keys and heat summaries
+    # (the device label and the touch clock differ by framework)
+    assert [(r["index"], r["field"], r["kind"], r["generation"])
+            for r in gp["device"]] == \
+        [(r["index"], r["field"], r["kind"], r["generation"])
+         for r in wp["device"]]
+    assert [sorted(r) for r in gp["device"]] == \
+        [sorted(r) for r in wp["device"]]
+    assert [sorted(r.get("heat", {})) for r in gp["device"]] == \
+        [sorted(r.get("heat", {})) for r in wp["device"]]
     assert _shape(gp["shards"]) == _shape(wp["shards"])
     # what the reference times, the port times too
     assert _positive_times(wp["shards"]) <= _positive_times(gp["shards"])
