@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
-                                    hybrid,large,lexical,mesh]
+                                    hybrid,large,lexical,aggs,mesh]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -305,6 +305,30 @@ library calls, logged as `large record` lines.
    a copy in eighths every run's values hybrid_score_topk's bit for bit;
    the CUDA-event ms of a batch, the device ms by stage and the peak
    memory beside hybrid_score_topk's. ``--phases mesh`` runs it alone.
+
+8. aggs (with main, on index L after the lexical phase and before its
+   ledger gate; aggs_main_phase): 16 searches at size 0 of each of six
+   scopes (match_all, a 6-term match, a 14-day range on ts, knn at
+   k = 100, knn filtered by a tag prefix, bool{should: [match, knn]}),
+   each with terms on the tag ordered by a sub-aggregation, histogram,
+   month and 1d date_histograms, range, date_range, stats,
+   extended_stats, percentiles, cardinality, filters, filter,
+   significant_terms, the pipelines avg_bucket, derivative,
+   cumulative_sum, bucket_sort and bucket_script, and top_hits under a
+   terms on the match and knn scopes; the composite (tag x month) of each
+   scope's first search paged to its end. Gates: every key, count and
+   metric numpy's over the corpus arrays (match_all, range) or over the
+   same search's hits without aggregations (the rest; top_hits' scores
+   the hits' own, bit for bit); a second run the same bits; K1 once a
+   segment a kNN search on the tier scan_tier names and no stacked
+   search; the kNN scopes under K1's plain version bit for bit; over
+   HTTP with typed_keys the in-process aggregations. On index C
+   (ann_main_phase, before its ledger gate; ann_aggs_check): 8 knn +
+   terms(color) + histogram(age) searches, one K2 and one K1 launch each,
+   numpy's aggregations over the hits. Recorded: each scope's p50 / p99,
+   its profile's aggregation time against the query phase's, the
+   top_hits and cardinality times, the mask-and-score copy's bytes and
+   ms. ``--phases aggs`` builds index L and runs it alone.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -5848,7 +5872,8 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     """Index C through TorchNode on the card: 200,000 clustered 100-d docs,
     cosine, ivf_pq (nlist 512, m 20, nprobe 8), 1 shard, 64 searches. Then
     a second refresh of 300 docs (below min_train, so exact) and 16
-    searches over the shard's IVF-PQ and exact segments together."""
+    searches over the shard's IVF-PQ and exact segments together, and
+    ann_aggs_check's kNN + aggs searches over both."""
     from opensearch_tpu_torch.node import TorchNode
     from opensearch_tpu_torch.ops import adc_lut
     from opensearch_tpu_torch.search import executor
@@ -5979,6 +6004,7 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
         concurrent = concurrent_phase(
             node, name, queries, 10,
             {"adc_scan": ads.launches, "knn_fused": kf.launches})
+        ann_aggs = ann_aggs_check(node, name, kf, ads, queries, attrs, n)
         # the residency ledger over index C's exact columns, IVF-PQ slab,
         # exact second segment and filtered searches' serving bundle
         # a search over the IVF-PQ segment and the exact one: one K2
@@ -6003,7 +6029,8 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
            "p99_ms": float(np.percentile(lat_ms, 99)),
            "qps": 64 / sum(lat), "mixed": mixed, "concurrent": concurrent,
            "filtered": filtered, "batch": batch,
-           "lut_launches": lut_launches, "ledger": ledger}
+           "lut_launches": lut_launches, "ledger": ledger,
+           "aggs": ann_aggs}
     log(f"[{name}] 64 searches equal the plain pipeline; recall@10 vs exact "
         f"cosine = {recall:.4f}; p50 {out['p50_ms']:.3f} ms, p99 "
         f"{out['p99_ms']:.3f} ms, QPS {out['qps']:.1f}")
@@ -6438,7 +6465,8 @@ def lexical_truth_mask(kind: str, meta: dict, corpus: dict,
     return None
 
 
-def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
+def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS,
+                       aggs: bool = False) -> dict:
     """The lexical query phase on index L (LEXICAL_DOCS docs: a text body
     shaped like MS MARCO passages, a title, a Zipf keyword tag, views, a
     date ts and cell A's clustered vectors rounded to eighths; all from
@@ -6469,7 +6497,8 @@ def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
        each type, in process and over HTTP.
     Recorded: ingest s, p50 / p99 / QPS of each type, the profiler's
     device ms of bm25_term_scores alone and of one match search with its
-    top kernels beside the search's host wall, and K1's launches."""
+    top kernels beside the search's host wall, and K1's launches. With
+    `aggs`, aggs_main_phase runs on the node before its ledger gate."""
     from opensearch_tpu_torch.node import TorchNode
     from opensearch_tpu_torch.ops import bm25 as bm25_ops
     from opensearch_tpu_torch.search import distributed_serving
@@ -6573,6 +6602,9 @@ def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
                                         tier_counter, len(segments))
         out["http"] = lexical_http_checks(node, bodies, responses)
         out["profile"] = lexical_profile(node, shard, bodies, bm25_ops)
+        if aggs:
+            out["aggs"] = aggs_main_phase(node, kf, dev, seed, corpus, words,
+                                          body_idx, len(segments))
         # the ledger over index L's text, keyword, numeric and vector
         # columns; the profiled match leaves the bm25_term_scores row
         out["ledger"] = ledger_gate(
@@ -6805,6 +6837,674 @@ def lexical_profile(node, shard, bodies: dict, bm25_ops) -> dict:
     return out
 
 
+# -- aggregations (the aggs phase) -------------------------------------------
+
+AGGS_QUERIES = 16          # searches of each scope
+AGGS_TWICE = 8             # of them run again (the same bits)
+AGGS_XLA = 8               # of each kNN scope's run under K1's plain version
+AGGS_HTTP = 4              # of each scope's over HTTP
+AGGS_ANN = 8               # kNN + aggs searches on index C
+AGGS_K = 100               # k of the kNN scopes
+AGGS_COMPOSITE_PAGE = 5000
+AGGS_MONTHS_TOP = 6        # bucket_sort's size over the month histogram
+AGGS_VIEWS_INTERVAL = 10_000
+AGGS_POPULAR = 5_000       # the filter aggregation's views bound
+DAY_MS = 86_400_000
+AGGS_SCOPES = ("match_all", "match", "range", "knn", "knn_prefix", "bool")
+AGGS_KNN_SCOPES = ("knn", "knn_prefix", "bool")
+AGGS_TOP_HITS_SCOPES = ("match", "knn")
+
+
+def aggs_body(scope: str, words: list, filter_words: tuple) -> dict:
+    """The aggregations every search of a scope carries: terms on the tag
+    ordered by a sub-aggregation (with a bucket_script), histogram, month
+    date_histogram with derivative, cumulative_sum and bucket_sort (and an
+    avg_bucket over it), a fixed 1d date_histogram with extended_bounds,
+    range, date_range, stats, extended_stats, percentiles, cardinality,
+    filters of two match bodies with other_bucket, a filter,
+    significant_terms; top_hits under a terms on the match and knn
+    scopes. The composite runs on its own (aggs_composite_pages)."""
+    w1, w2 = filter_words
+    body = {
+        "tags": {"terms": {"field": "tag", "order": {"avg_views": "desc"}},
+                 "aggs": {"avg_views": {"avg": {"field": "views"}},
+                          "avg_k": {"bucket_script": {
+                              "buckets_path": {"a": "avg_views"},
+                              "script": "params.a / 1000"}}}},
+        "views_hist": {"histogram": {"field": "views",
+                                     "interval": AGGS_VIEWS_INTERVAL}},
+        "months": {"date_histogram": {"field": "ts",
+                                      "calendar_interval": "month"},
+                   "aggs": {"views": {"sum": {"field": "views"}},
+                            "deriv": {"derivative": {"buckets_path": "views"}},
+                            "cum": {"cumulative_sum": {
+                                "buckets_path": "views"}},
+                            "top": {"bucket_sort": {
+                                "sort": [{"views": {"order": "desc"}}],
+                                "size": AGGS_MONTHS_TOP}}}},
+        "avg_monthly": {"avg_bucket": {"buckets_path": "months>views"}},
+        "days": {"date_histogram": {
+            "field": "ts", "fixed_interval": "1d",
+            "extended_bounds": {"min": "2023-01-01", "max": "2023-12-31"}}},
+        "views_ranges": {"range": {"field": "views", "ranges": [
+            {"key": "low", "to": 100}, {"key": "mid", "from": 100, "to": 10_000},
+            {"key": "high", "from": 10_000}]}},
+        "halves": {"date_range": {"field": "ts", "ranges": [
+            {"key": "h1", "to": "2023-07-01"},
+            {"key": "q3", "from": "2023-07-01", "to": "2023-10-01"},
+            {"key": "q4", "from": "2023-10-01"}]}},
+        "views_stats": {"stats": {"field": "views"}},
+        "views_ext": {"extended_stats": {"field": "views"}},
+        "views_pct": {"percentiles": {"field": "views",
+                                      "percents": [1, 25, 50, 75, 99]}},
+        "tag_card": {"cardinality": {"field": "tag"}},
+        "words": {"filters": {"filters": {
+            "a": {"match": {"body": words[w1]}},
+            "b": {"match": {"body": words[w2]}}}, "other_bucket": True}},
+        "popular": {"filter": {"range": {"views": {"gte": AGGS_POPULAR}}},
+                    "aggs": {"max_views": {"max": {"field": "views"}}}},
+        "sig_tags": {"significant_terms": {"field": "tag"}},
+    }
+    if scope in AGGS_TOP_HITS_SCOPES:
+        body["top_tags"] = {"terms": {"field": "tag", "size": 5},
+                            "aggs": {"top": {"top_hits": {"size": 3}}}}
+    return body
+
+
+def aggs_scopes(rng, corpus: dict, words: list, body_idx) -> dict:
+    """AGGS_QUERIES queries of each scope, from the seed: match_all; a
+    6-term match of terms in 50-400 docs each; a 14-day range on ts; knn
+    (k = AGGS_K) from a doc's vector plus noise in eighths; the same knn
+    filtered by a 2-3 letter tag prefix; bool{should: [a 3-term match,
+    the knn]}. Each with what its truth needs."""
+    n = len(corpus["views"])
+    df = np.diff(body_idx.bounds)   # term occurrences, an upper bound on df
+    mid = np.nonzero((df >= 50) & (df <= 400))[0]
+
+    def terms(m: int) -> list[int]:
+        out = []
+        while len(out) < m:
+            t = int(mid[int(rng.integers(len(mid)))])
+            if t not in out:
+                out.append(t)
+        return out
+
+    def qvec(i: int) -> list:
+        return (corpus["v"][i] + np.round(rng.standard_normal(DIM) * 0.4 * 8)
+                / 8).astype(np.float32).tolist()
+
+    out = {s: [] for s in AGGS_SCOPES}
+    for _ in range(AGGS_QUERIES):
+        i = int(rng.integers(n))
+        out["match_all"].append(({"match_all": {}}, {}))
+        t6 = terms(6)
+        out["match"].append(({"match": {"body": " ".join(
+            words[t] for t in t6)}}, {"terms": t6}))
+        lo = LEXICAL_TS0 + int(rng.integers(0, 350)) * DAY_MS
+        out["range"].append(({"range": {"ts": {"gte": lo,
+                                               "lt": lo + 14 * DAY_MS}}},
+                             {"gte": lo, "lt": lo + 14 * DAY_MS}))
+        q = qvec(i)
+        knn = {"knn": {"v": {"vector": q, "k": AGGS_K}}}
+        out["knn"].append((knn, {}))
+        pre = f"g{int(corpus['tag'][i])}"[: 2 + int(rng.integers(2))]
+        out["knn_prefix"].append(({"knn": {"v": {
+            "vector": q, "k": AGGS_K,
+            "filter": {"prefix": {"tag": pre}}}}}, {"prefix": pre}))
+        t3 = terms(3)
+        out["bool"].append(({"bool": {"should": [
+            {"match": {"body": " ".join(words[t] for t in t3)}}, knn]}},
+            {"terms": t3}))
+    return out
+
+
+def month_keys(ts: np.ndarray) -> np.ndarray:
+    """Epoch ms of each value's calendar month (UTC)."""
+    return ts.astype("datetime64[ms]").astype("datetime64[M]").astype(
+        "datetime64[ms]").astype(np.int64)
+
+
+def aggs_truth(ids: np.ndarray, scores: dict | None, sources: dict | None,
+               scope: str, corpus: dict, body_idx, filter_words: tuple,
+               bg_tags: np.ndarray) -> dict:
+    """The aggregations of aggs_body over the docs `ids`, from the corpus
+    arrays with numpy alone, in aggs_projection's form: every bucket key
+    and count and every metric, by the formulas the reference states
+    (sums and means over f64 values in doc order, ExtendedStats'
+    (sum_sq - sum^2 / n) / n, numpy's percentile, JLH significance, the
+    reference's tie orders)."""
+    ids = np.sort(np.asarray(ids, np.int64))
+    tag = corpus["tag"][ids]
+    views = corpus["views"][ids]
+    ts = corpus["ts"][ids]
+    vf = views.astype(np.float64)
+    n = len(ids)
+    out = {}
+    # terms on the tag ordered by avg views desc, then key asc
+    keys, inv = np.unique(tag, return_inverse=True)
+    rows = []
+    for j, t in enumerate(keys):
+        sel = vf[inv == j]
+        avg = float(sel.sum(dtype=np.float64)) / len(sel)
+        rows.append((f"g{int(t)}", len(sel), avg))
+    rows.sort(key=lambda r: (-r[2], r[0]))
+    out["tags"] = ([(k, c, a, a / 1000) for k, c, a in rows[:10]],
+                   sum(c for _k, c, _a in rows[10:]))
+    hk = np.floor((vf - 0.0) / AGGS_VIEWS_INTERVAL) * AGGS_VIEWS_INTERVAL \
+        + 0.0
+    u, c = np.unique(hk, return_counts=True)
+    out["views_hist"] = list(zip(u.tolist(), c.tolist()))
+    # months: every calendar month from the first to the last, filled
+    mk = month_keys(ts)
+    months = []
+    if n:
+        m_lo, m_hi = mk.min().astype("datetime64[ms]").astype(
+            "datetime64[M]"), mk.max().astype("datetime64[ms]").astype(
+            "datetime64[M]")
+        for m in np.arange(m_lo, m_hi + 1):
+            key = int(m.astype("datetime64[ms]").astype(np.int64))
+            sel = vf[mk == key]
+            months.append([key, len(sel), float(sel.sum(dtype=np.float64))
+                           if len(sel) else 0.0])
+    cum, prev = 0.0, None
+    for row in months:
+        deriv = None if prev is None else row[2] - prev
+        prev = row[2]
+        cum += row[2]
+        row.extend([deriv, cum])
+    months.sort(key=lambda r: -r[2])   # bucket_sort: stable, views desc
+    months = months[:AGGS_MONTHS_TOP]
+    out["months"] = [tuple(r) for r in months]
+    vals = [r[2] for r in months if r[1] > 0]
+    out["avg_monthly"] = sum(vals) / len(vals) if vals else None
+    dk = np.floor((ts.astype(np.float64) - 0.0) / DAY_MS) * DAY_MS + 0.0
+    first, last = LEXICAL_TS0, LEXICAL_TS0 + 364 * DAY_MS
+    u, c = np.unique(dk, return_counts=True)
+    counts = dict(zip(u.tolist(), c.tolist()))
+    lo_d = min([first, *counts]) if counts else first
+    hi_d = max([last, *counts]) if counts else last
+    out["days"] = [(int(k), counts.get(float(k), 0)) for k in range(
+        int(lo_d), int(hi_d) + 1, DAY_MS)]
+    out["views_ranges"] = [("low", int((views < 100).sum())),
+                           ("mid", int(((views >= 100)
+                                        & (views < 10_000)).sum())),
+                           ("high", int((views >= 10_000).sum()))]
+    h = LEXICAL_TS0 + 181 * DAY_MS
+    q4 = LEXICAL_TS0 + 273 * DAY_MS
+    out["halves"] = [("h1", int((ts < h).sum())),
+                     ("q3", int(((ts >= h) & (ts < q4)).sum())),
+                     ("q4", int((ts >= q4).sum()))]
+    if n:
+        s = float(vf.sum())
+        sos = float((vf * vf).sum())
+        var_pop = max((sos - s * s / n) / n, 0.0)
+        var_samp = (max((sos - s * s / n) / (n - 1), 0.0) if n > 1
+                    else None)
+        std = math.sqrt(var_pop)
+        out["views_stats"] = (n, float(vf.min()), float(vf.max()),
+                              float(vf.sum(dtype=np.float64)) / n,
+                              float(vf.sum(dtype=np.float64)))
+        out["views_ext"] = (n, s, sos, var_pop, var_samp, std,
+                            s / n + 2.0 * std, s / n - 2.0 * std)
+        pct = np.percentile(vf, [1.0, 25.0, 50.0, 75.0, 99.0])
+        out["views_pct"] = {str(p): float(v) for p, v in zip(
+            [1.0, 25.0, 50.0, 75.0, 99.0], pct)}
+    out["tag_card"] = len(keys)
+    ws = {name: np.isin(ids, body_idx.postings(w)[0])
+          for name, w in zip(("a", "b"), filter_words)}
+    out["words"] = {"a": int(ws["a"].sum()), "b": int(ws["b"].sum()),
+                    "_other_": int((~(ws["a"] | ws["b"])).sum())}
+    pop = vf[views >= AGGS_POPULAR]
+    out["popular"] = (len(pop), float(pop.max()) if len(pop) else None)
+    # significant_terms: JLH over the live docs, min_doc_count 3, size 10
+    bg_total = len(corpus["views"])
+    sig = []
+    for j, t in enumerate(keys):
+        fg = int((inv == j).sum())
+        if fg < 3 or n == 0:
+            continue
+        bg = int(bg_tags[t])
+        fg_pct, bg_pct = fg / n, bg / bg_total
+        if fg_pct <= bg_pct or bg_pct == 0:
+            continue
+        sig.append(((fg_pct - bg_pct) * (fg_pct / bg_pct), f"g{int(t)}",
+                    fg, bg))
+    sig.sort(key=lambda r: (-r[0], r[1]))
+    out["sig_tags"] = (n, bg_total, [(k, fg, sc, bg)
+                                     for sc, k, fg, bg in sig[:10]])
+    if scope in AGGS_TOP_HITS_SCOPES:
+        by_count = sorted(((f"g{int(t)}", int((inv == j).sum()), j)
+                           for j, t in enumerate(keys)),
+                          key=lambda r: (-r[1], r[0]))[:5]
+        top = []
+        for k, cnt, j in by_count:
+            docs = ids[inv == j].tolist()
+            docs.sort(key=lambda d: (-scores[d], d))
+            page = docs[:3]
+            top.append((k, cnt, [(str(d), scores[d], sources[d])
+                                 for d in page],
+                        max(scores[d] for d in page)))
+        out["top_tags"] = top
+    return out
+
+
+def aggs_projection(aggs: dict, scope: str) -> dict:
+    """A response's aggregations in aggs_truth's form."""
+    out = {}
+    t = aggs["tags"]
+    out["tags"] = ([(b["key"], b["doc_count"], b["avg_views"]["value"],
+                     b["avg_k"]["value"]) for b in t["buckets"]],
+                   t["sum_other_doc_count"])
+    out["views_hist"] = [(b["key"], b["doc_count"])
+                         for b in aggs["views_hist"]["buckets"]]
+    out["months"] = [(b["key"], b["doc_count"], b["views"]["value"],
+                      b["deriv"]["value"] if "deriv" in b else None,
+                      b["cum"]["value"])
+                     for b in aggs["months"]["buckets"]]
+    out["avg_monthly"] = aggs["avg_monthly"]["value"]
+    out["days"] = [(b["key"], b["doc_count"])
+                   for b in aggs["days"]["buckets"]]
+    out["views_ranges"] = [(b["key"], b["doc_count"])
+                           for b in aggs["views_ranges"]["buckets"]]
+    out["halves"] = [(b["key"], b["doc_count"])
+                     for b in aggs["halves"]["buckets"]]
+    if aggs["views_stats"]["count"]:
+        st, ex = aggs["views_stats"], aggs["views_ext"]
+        out["views_stats"] = (st["count"], st["min"], st["max"], st["avg"],
+                              st["sum"])
+        bounds = ex["std_deviation_bounds"]
+        out["views_ext"] = (ex["count"], ex["sum"], ex["sum_of_squares"],
+                            ex["variance_population"],
+                            ex["variance_sampling"], ex["std_deviation"],
+                            bounds["upper"], bounds["lower"])
+        out["views_pct"] = aggs["views_pct"]["values"]
+    out["tag_card"] = aggs["tag_card"]["value"]
+    out["words"] = {k: v["doc_count"]
+                    for k, v in aggs["words"]["buckets"].items()}
+    out["popular"] = (aggs["popular"]["doc_count"],
+                      aggs["popular"]["max_views"]["value"])
+    sg = aggs["sig_tags"]
+    out["sig_tags"] = (sg["doc_count"], sg["bg_count"],
+                       [(b["key"], b["doc_count"], b["score"], b["bg_count"])
+                        for b in sg["buckets"]])
+    if scope in AGGS_TOP_HITS_SCOPES:
+        out["top_tags"] = [
+            (b["key"], b["doc_count"],
+             [(h["_id"], h["_score"], h["_source"])
+              for h in b["top"]["hits"]["hits"]],
+             b["top"]["hits"]["max_score"])
+            for b in aggs["top_tags"]["buckets"]]
+    return out
+
+
+def aggs_diff(got: dict, want: dict) -> str | None:
+    """The first aggregation whose projection differs, or None."""
+    for name in want:
+        if got.get(name) != want[name]:
+            return (f"{name}: got {str(got.get(name))[:300]} want "
+                    f"{str(want[name])[:300]}")
+    extra = set(got) - set(want)
+    return f"unexpected {sorted(extra)}" if extra else None
+
+
+def aggs_composite_pages(node, query: dict) -> tuple[list, int]:
+    """The composite (tag x month) over the query's docs, paged to its end
+    by after_key: every bucket as (tag, month ms, count), and the pages."""
+    comp = {"composite": {"size": AGGS_COMPOSITE_PAGE, "sources": [
+        {"tag": {"terms": {"field": "tag"}}},
+        {"month": {"date_histogram": {"field": "ts",
+                                      "calendar_interval": "month"}}}]}}
+    rows, after, pages = [], None, 0
+    while True:
+        conf = dict(comp["composite"])
+        if after is not None:
+            conf["after"] = after
+        res = node.search("lex", {"size": 0, "query": query, "aggs": {
+            "comp": {"composite": conf}}})["aggregations"]["comp"]
+        pages += 1
+        rows.extend((b["key"]["tag"], b["key"]["month"], b["doc_count"])
+                    for b in res["buckets"])
+        if res["buckets"] and res["after_key"] != res["buckets"][-1]["key"]:
+            raise AssertionError(f"[aggs] composite after_key "
+                                 f"{res['after_key']} is not the page's "
+                                 f"last key")
+        # a short page is the last one
+        if len(res["buckets"]) < AGGS_COMPOSITE_PAGE:
+            return rows, pages
+        after = res["after_key"]
+
+
+def composite_truth(ids: np.ndarray, corpus: dict) -> list:
+    ids = np.sort(np.asarray(ids, np.int64))
+    pairs = {}
+    for t, m in zip(corpus["tag"][ids].tolist(),
+                    month_keys(corpus["ts"][ids]).tolist()):
+        pairs[(f"g{t}", m)] = pairs.get((f"g{t}", m), 0) + 1
+    return [(t, m, c) for (t, m), c in sorted(pairs.items())]
+
+
+def aggs_launch_gate(kf, scope: str, got: dict, searches: int,
+                     n_segments: int) -> None:
+    """Gate 4: K1 launched once a segment a kNN search on the tier
+    scan_tier names (k bucketed to 128), and the stacked step not at all:
+    a search with aggregations takes the per-shard route."""
+    tier = kf.scan_tier("fp32", kf.fused_pool_width(128, "fp32"))
+    want = searches * n_segments if scope in AGGS_KNN_SCOPES else 0
+    if got["knn_fused"] != want or got[tier] != want or got["stacked"]:
+        raise AssertionError(f"[aggs] {scope}: want {want} K1 launches on "
+                             f"the {tier} tier and no stacked search: {got}")
+
+
+def aggs_main_phase(node, kf, dev, seed: int, corpus: dict, words: list,
+                    body_idx, n_segments: int) -> dict:
+    """Aggregations on index L (the lexical phase's node, before its
+    ledger gate deletes the index): AGGS_QUERIES searches at size 0 of each
+    scope of aggs_scopes, each with aggs_body. Gates:
+
+    1. match_all and range: every bucket key, count and metric the numpy
+       truth (aggs_truth) over the corpus arrays;
+    2. match, knn, knn_prefix and bool: the numpy truth over the doc ids of
+       the same search run without aggregations at size = its total (the
+       k hits for knn) on the same route, top_hits' scores those hits'
+       own, bit for bit; match's ids the numpy match set;
+    3. AGGS_TWICE searches of each scope again: the same aggregations
+       (match_all's 16 are one body, each the first's);
+    4. aggs_launch_gate over each scope's searches;
+    5. the kNN scopes' first AGGS_XLA searches under search.knn.kernel xla
+       (K1's plain version): the same aggregations, no K1 launch;
+    6. AGGS_HTTP searches of each scope over the port's HTTP server with
+       ?typed_keys=true: the in-process aggregations, typed;
+    and the composite (tag x month) of each scope's first search paged to
+    its end, every bucket numpy's. Recorded: p50 / p99 of each scope,
+    each scope's profile (aggregation time against the query phase's, the
+    top_hits and cardinality times), the copy to the host of a segment's
+    mask and scores (bytes and CUDA-event ms), the composite's pages."""
+    from opensearch_tpu_torch.rest import handlers as port_handlers
+    from opensearch_tpu_torch.rest.http import HttpServer
+    from opensearch_tpu_torch.search import ann, distributed_serving
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 17)
+    (shard,) = node.indices["lex"].shards.values()
+    host = shard.acquire_searcher().segments[0][0]
+    n = len(corpus["views"])
+    for d in (0, n // 2, n - 1):
+        if host.doc_ids[d] != str(d):
+            raise AssertionError(f"[aggs] segment doc {d} is id "
+                                 f"{host.doc_ids[d]}: the truth reads docs "
+                                 f"in id order")
+    df = np.diff(body_idx.bounds)
+    common = np.nonzero((df >= 2000) & (df <= 20_000))[0]
+    filter_words = (int(common[0]), int(common[len(common) // 2]))
+    bg_tags = np.bincount(corpus["tag"], minlength=LEXICAL_TAGS)
+    scopes = aggs_scopes(rng, corpus, words, body_idx)
+    tier_counter = {"lists": kf.list_launches, "wide": kf.wide_launches,
+                    "mma": kf.mma_launches}
+    out = {"scopes": {}, "filter_words": [words[w] for w in filter_words]}
+    all_ids = np.arange(n)
+
+    def hits_of(query: dict, size: int) -> list:
+        """The query's hits without aggregations, on the per-shard route a
+        search with aggregations takes (the stacked step, which a bare knn
+        would take, may keep another doc at a tie on the k-th score, as the
+        reference's does)."""
+        try:
+            distributed_serving.enabled = False
+            return node.search("lex", {"query": query,
+                                       "size": size})["hits"]["hits"]
+        finally:
+            distributed_serving.enabled = True
+
+    first_aggs = {}
+    for scope, runs in scopes.items():
+        label = f"[aggs] {scope}"
+        aggs = aggs_body(scope, words, filter_words)
+        for c in (kf.launches, *tier_counter.values()):
+            c.reset()
+        stacked0 = distributed_serving.stats["distributed_searches"]
+        lat, resps = [], []
+        for query, _meta in runs:
+            t0 = time.perf_counter()
+            resps.append(node.search("lex", {"size": 0, "query": query,
+                                             "aggs": aggs}))
+            lat.append(time.perf_counter() - t0)
+        launches = {"knn_fused": kf.launches.count,
+                    **{t: c.count for t, c in tier_counter.items()},
+                    "stacked": distributed_serving.stats[
+                        "distributed_searches"] - stacked0}
+        aggs_launch_gate(kf, scope, launches, len(runs), n_segments)
+        res = latency_summary(lat)
+        res["launches"] = launches
+        # gates 1 and 2: the numpy truth
+        totals, ids0 = [], None
+        for j, ((query, meta), resp) in enumerate(zip(runs, resps)):
+            total = resp["hits"]["total"]["value"]
+            totals.append(total)
+            scores = sources = None
+            if scope == "match_all":
+                ids = all_ids
+            elif scope == "range":
+                ids = np.nonzero((corpus["ts"] >= meta["gte"])
+                                 & (corpus["ts"] < meta["lt"]))[0]
+            else:
+                hits = hits_of(query, total)
+                ids = np.asarray([int(h["_id"]) for h in hits], np.int64)
+                scores = {int(h["_id"]): h["_score"] for h in hits}
+                sources = {int(h["_id"]): h["_source"] for h in hits}
+                if len(ids) != total:
+                    raise AssertionError(f"{label} query {j}: {len(ids)} "
+                                         f"hits of {total}")
+                if scope == "match":
+                    want_ids = np.nonzero(body_idx.match(meta["terms"])[1])[0]
+                    if not np.array_equal(np.sort(ids), want_ids):
+                        raise AssertionError(f"{label} query {j}: not the "
+                                             f"numpy match set")
+            if total != len(ids):
+                raise AssertionError(f"{label} query {j}: total {total}, "
+                                     f"numpy {len(ids)}")
+            if j == 0:
+                ids0 = ids
+            want = aggs_truth(ids, scores, sources, scope, corpus, body_idx,
+                              filter_words, bg_tags)
+            bad = aggs_diff(aggs_projection(resp["aggregations"], scope),
+                            want)
+            if bad:
+                raise AssertionError(f"{label} query {j}: {bad}")
+        res["total_p50"] = float(np.median(totals))
+        # gate 3: the same bits run after run
+        if scope == "match_all":
+            if any(r["aggregations"] != resps[0]["aggregations"]
+                   for r in resps[1:]):
+                raise AssertionError(f"{label}: one body, other "
+                                     f"aggregations")
+        else:
+            for j, (query, _meta) in enumerate(runs[:AGGS_TWICE]):
+                again = node.search("lex", {"size": 0, "query": query,
+                                            "aggs": aggs})
+                if again["aggregations"] != resps[j]["aggregations"]:
+                    raise AssertionError(f"{label} query {j}: a second run "
+                                         f"gave other aggregations")
+        # the composite of the first search, paged to its end
+        t0 = time.perf_counter()
+        q0 = runs[0][0]
+        rows, pages = aggs_composite_pages(node, q0)
+        comp_s = time.perf_counter() - t0
+        if rows != composite_truth(ids0, corpus):
+            raise AssertionError(f"{label}: the composite's pages are not "
+                                 f"numpy's (tag, month) counts")
+        res["composite"] = {"buckets": len(rows), "pages": pages,
+                            "wall_s": comp_s}
+        # the profile: aggregation time against the query phase's
+        prof = node.search("lex", {"size": 0, "query": q0, "aggs": aggs,
+                                   "profile": True})["profile"]["shards"][0]
+        agg_ns = {e["description"]: e["time_in_nanos"]
+                  for e in prof["aggregations"]}
+        query_ns = sum(q["time_in_nanos"]
+                       for q in prof["searches"][0]["query"]) \
+            + prof["searches"][0]["collector"][0]["time_in_nanos"]
+        res["profile"] = {"aggregations_ms": sum(agg_ns.values()) / 1e6,
+                          "query_phase_ms": query_ns / 1e6,
+                          "cardinality_ms": agg_ns["tag_card"] / 1e6,
+                          "top_hits_ms": (agg_ns["top_tags"] / 1e6
+                                          if "top_tags" in agg_ns else None),
+                          "slowest": sorted(agg_ns.items(),
+                                            key=lambda kv: -kv[1])[:4]}
+        first_aggs[scope] = [r["aggregations"] for r in resps]
+        out["scopes"][scope] = res
+        log(f"{label}: {json.dumps(res)}")
+    # gate 5: the kNN scopes under K1's plain version
+    try:
+        ann.default_config.configure(exact_kernel="xla")
+        kf.launches.reset()
+        for scope in AGGS_KNN_SCOPES:
+            aggs = aggs_body(scope, words, filter_words)
+            for j, (query, _meta) in enumerate(scopes[scope][:AGGS_XLA]):
+                got = node.search("lex", {"size": 0, "query": query,
+                                          "aggs": aggs})["aggregations"]
+                if got != first_aggs[scope][j]:
+                    raise AssertionError(f"[aggs] {scope} query {j}: K1's "
+                                         f"plain version gave other "
+                                         f"aggregations")
+        if kf.launches.count:
+            raise AssertionError(f"[aggs] K1 launched {kf.launches.count} "
+                                 f"times under search.knn.kernel xla")
+    finally:
+        ann.default_config.configure(exact_kernel="auto")
+    log(f"[aggs] the kNN scopes under search.knn.kernel xla (K1's plain "
+        f"version): the kernel's aggregations bit for bit, "
+        f"{AGGS_XLA} a scope")
+    # gate 6: over the port's HTTP server, typed_keys
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    client = RestClient(server.port)
+    http = {}
+    try:
+        for scope, runs in scopes.items():
+            aggs = aggs_body(scope, words, filter_words)
+            lat = []
+            for j, (query, _meta) in enumerate(runs[:AGGS_HTTP]):
+                body = {"size": 0, "query": query, "aggs": aggs}
+                t0 = time.perf_counter()
+                payload = client.ok("POST", "/lex/_search?typed_keys=true",
+                                    body)
+                lat.append(time.perf_counter() - t0)
+                want = port_handlers._apply_typed_keys(
+                    json_view({"aggregations": first_aggs[scope][j]}),
+                    {"typed_keys": "true"}, body, node, "lex")
+                if payload["aggregations"] != want["aggregations"]:
+                    raise AssertionError(f"[aggs] {scope} query {j} over "
+                                         f"HTTP: not the in-process "
+                                         f"aggregations")
+                if "sterms#tags" not in payload["aggregations"]:
+                    raise AssertionError(f"[aggs] {scope} over HTTP: no "
+                                         f"typed keys")
+            http[scope] = latency_summary(lat)
+    finally:
+        client.close()
+        server.stop_thread()
+    out["http"] = http
+    log(f"[aggs] over HTTP with typed_keys: {AGGS_HTTP} searches of each "
+        f"scope the in-process aggregations; "
+        f"{json.dumps({k: round(v['p50_ms'], 3) for k, v in http.items()})}"
+        f" p50 ms")
+    # the query phase's copy of a segment's mask and scores to the host
+    dseg = shard.acquire_searcher().segments[0][1]
+    mask_d = dseg.live.clone()
+    scores_d = torch.rand(dseg.n_pad, device=dev)
+    copy_ms = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mask_d.cpu().numpy()
+        scores_d.cpu().numpy()
+        copy_ms.append((time.perf_counter() - t0) * 1e3)
+    out["copy"] = {"n_pad": dseg.n_pad, "n_docs": host.n_docs,
+                   "bytes": dseg.n_pad * (mask_d.element_size()
+                                          + scores_d.element_size()),
+                   "p50_ms": float(np.median(copy_ms)),
+                   "min_ms": float(min(copy_ms)),
+                   "scopes": [s for s in AGGS_SCOPES if s not in
+                              ("knn", "knn_prefix")]}
+    log(f"[aggs] a search's mask-and-score copy: {json.dumps(out['copy'])}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def ann_aggs_check(node, name: str, kf, ads, queries: np.ndarray,
+                   attrs: dict, n: int) -> dict:
+    """AGGS_ANN kNN searches (k = 10) with terms on color and a histogram
+    on age over index C's IVF-PQ segment and its exact one: each one K2
+    launch and one K1 launch, no stacked search, and the aggregations
+    numpy's over the same search's hits without aggregations."""
+    from opensearch_tpu_torch.search import distributed_serving
+
+    aggs = {"colors": {"terms": {"field": "color"}},
+            "ages": {"histogram": {"field": "age", "interval": 10}}}
+    ads.launches.reset()
+    kf.launches.reset()
+    stacked0 = distributed_serving.stats["distributed_searches"]
+    lat, resps = [], []
+    for qv in queries[:AGGS_ANN]:
+        t0 = time.perf_counter()
+        resps.append(node.search(name, {"size": 0, "aggs": aggs, "query": {
+            "knn": {"v": {"vector": qv.tolist(), "k": 10}}}}))
+        lat.append(time.perf_counter() - t0)
+    launches = {"adc_scan": ads.launches.count,
+                "knn_fused": kf.launches.count,
+                "stacked": distributed_serving.stats["distributed_searches"]
+                - stacked0}
+    if launches != {"adc_scan": AGGS_ANN, "knn_fused": AGGS_ANN,
+                    "stacked": 0}:
+        raise AssertionError(f"[{name}] kNN + aggs: want one K2 and one K1 "
+                             f"launch a search, no stacked one: {launches}")
+    for j, (qv, resp) in enumerate(zip(queries, resps)):
+        hits = node.search(name, {"size": 10, "query": {"knn": {"v": {
+            "vector": qv.tolist(), "k": 10}}}})["hits"]["hits"]
+        ids = np.asarray([int(h["_id"]) for h in hits])
+        ids = ids[ids < n]      # the second refresh's docs carry no attributes
+        colors = {}
+        for c in attrs["color"][ids].tolist():
+            colors[COLORS[c]] = colors.get(COLORS[c], 0) + 1
+        want_colors = sorted(colors.items(), key=lambda kv: (-kv[1], kv[0]))
+        ages, counts = np.unique(np.floor(attrs["age"][ids].astype(
+            np.float64) / 10) * 10, return_counts=True)
+        got = resp["aggregations"]
+        if [(b["key"], b["doc_count"]) for b in got["colors"]["buckets"]] \
+                != want_colors or [(b["key"], b["doc_count"]) for b in
+                                   got["ages"]["buckets"]] != list(
+                zip(ages.tolist(), counts.tolist())):
+            raise AssertionError(f"[{name}] kNN + aggs query {j}: not numpy's "
+                                 f"aggregations over its hits: "
+                                 f"{json.dumps(got)[:400]}")
+    out = {**latency_summary(lat), "launches": launches}
+    log(f"[{name}] kNN + aggs over the IVF-PQ and exact segments: "
+        f"{json.dumps(out)}")
+    return out
+
+
+def aggs_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
+    """``--phases aggs``: index L built as lexical_main_phase builds it (the
+    same corpus from the seed), then aggs_main_phase alone."""
+    from opensearch_tpu_torch.node import TorchNode
+
+    rng = np.random.default_rng(seed + 15)
+    words = [lexical_word(i) for i in range(LEXICAL_VOCAB)]
+    corpus = lexical_corpus(rng, n_docs)
+    body_idx = TokenIndex(corpus["body"], corpus["body_off"])
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device=dev)
+        ingest_s = lexical_ingest(node, "lex", corpus, words)
+        (shard,) = node.indices["lex"].shards.values()
+        n_segments = len(shard.acquire_searcher().segments)
+        log(f"[aggs] index L: {n_docs} docs, {n_segments} segment(s), bulk "
+            f"+ refresh {ingest_s:.1f} s")
+        out = aggs_main_phase(node, kf, dev, seed, corpus, words, body_idx,
+                              n_segments)
+        node.close()
+    out["ingest_s"] = ingest_s
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6814,6 +7514,9 @@ def main() -> int:
                          f"kernels (default: all of {','.join(KERNELS)})")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
+    # aggregations run with the main phases, or alone
+    want_aggs = bool(phases & {"main", "aggs"})
+    aggs_launches: dict = {}
     chosen = set(args.kernels.split(","))
     if not chosen <= set(KERNELS):
         ap.error(f"unknown kernels {sorted(chosen - set(KERNELS))}")
@@ -7139,6 +7842,9 @@ def main() -> int:
             for key, res in main["reduced"].items()}
         ann = ann_main_phase(ads, ivfpq, kf, dev, args.seed)
         entry2["launches"] = ann["launches"]
+        # kNN + aggs on index C: one K2 and one K1 launch a search
+        entry2["aggs_launches"] = ann["aggs"]["launches"]["adc_scan"]
+        aggs_launches["index C knn"] = ann["aggs"]["launches"]["knn_fused"]
         lut_entry["launches"] = ann["lut_launches"]
         entry2["ann_batch"] = ann["batch"]
         entry2["main_path"] = {key: ann[key] for key in
@@ -7177,7 +7883,7 @@ def main() -> int:
         # the lexical query phase on index L: its kNN types' K1 launches,
         # each type's counted from 0
         t0 = time.perf_counter()
-        lexical = lexical_main_phase(kf, dev, args.seed)
+        lexical = lexical_main_phase(kf, dev, args.seed, aggs=want_aggs)
         entry["lexical_main_path"] = lexical
         entry["lexical_launches"] = {
             qtype: lexical["types"][qtype]["launches"]["knn_fused"]
@@ -7189,6 +7895,22 @@ def main() -> int:
         if entry["launches"] is None:
             entry["launches"] = sum(entry["lexical_launches"].values())
         phase_s["lexical"] = time.perf_counter() - t0
+        if want_aggs:
+            aggs = lexical.pop("aggs")
+            phase_s["aggs"] = aggs["wall_s"]
+            phase_s["lexical"] -= aggs["wall_s"]
+    elif "aggs" in phases:
+        aggs = aggs_phase(kf, dev, args.seed)
+        phase_s["aggs"] = aggs["wall_s"]
+    if want_aggs:
+        # each scope's K1 launches on index L, counted from 0
+        aggs_launches.update({scope: res["launches"]["knn_fused"]
+                              for scope, res in aggs["scopes"].items()
+                              if scope in AGGS_KNN_SCOPES})
+        entry["aggs_launches"] = aggs_launches
+        entry["aggs_main_path"] = aggs
+        if entry["launches"] is None:
+            entry["launches"] = sum(aggs_launches.values())
     if "main" in phases:
         t0 = time.perf_counter()
         telemetry = telemetry_phase(dev, telemetry_since)

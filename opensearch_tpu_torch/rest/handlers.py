@@ -679,8 +679,8 @@ def _rename_typed_container(c: dict, sub_body: dict, ftype=None) -> dict:
 def _apply_typed_keys(resp: dict, query, body, node=None,
                       index_expr=None) -> dict:
     """?typed_keys=true: suggestion and aggregation names prefixed with
-    their kind (the port's search serves neither yet, so until they are
-    ported a response passes through unchanged)."""
+    their kind (the port's search serves aggregations; suggestions are not
+    ported yet, so a response has none to rename)."""
     if str(query.get("typed_keys", "false")) not in ("true", ""):
         return resp
     sug_body = (body or {}).get("suggest")

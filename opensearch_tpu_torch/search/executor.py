@@ -1664,6 +1664,46 @@ def _try_ip(value: str):
         return None
 
 
+# host helpers of the geo queries, which are not ported yet; the
+# geo_distance aggregation (search/aggs_ext.py) reads them now
+def _parse_geo_origin(origin: Any) -> tuple[float, float]:
+    """(lat, lon) from the geo_point literal forms."""
+    if isinstance(origin, dict) and "lat" in origin and "lon" in origin:
+        return float(origin["lat"]), float(origin["lon"])
+    if isinstance(origin, list) and len(origin) >= 2:
+        return float(origin[1]), float(origin[0])  # [lon, lat]
+    if isinstance(origin, str) and "," in origin:
+        parts = origin.split(",")
+        return float(parts[0]), float(parts[1])
+    raise IllegalArgumentException(f"invalid geo origin [{origin!r}]")
+
+
+def _parse_distance_meters(v: Any) -> float:
+    """"5km" / "500m" / "1mi" ... -> meters (DistanceUnit)."""
+    if isinstance(v, (int, float)):
+        return float(v)
+    m = re.fullmatch(
+        r"\s*(\d+(?:\.\d+)?)\s*(mm|cm|m|km|mi|miles|yd|ft|in|nmi|NM)\s*",
+        str(v),
+    )
+    if not m:
+        raise IllegalArgumentException(f"invalid distance [{v}]")
+    mult = {"mm": 0.001, "cm": 0.01, "m": 1.0, "km": 1000.0,
+            "mi": 1609.344, "miles": 1609.344, "yd": 0.9144,
+            "ft": 0.3048, "in": 0.0254, "nmi": 1852.0, "NM": 1852.0}
+    return float(m.group(1)) * mult[m.group(2)]
+
+
+def _haversine_m(lat1: float, lon1: float, lat2, lon2):
+    """Great-circle distance in meters (GeoUtils.arcDistance)."""
+    r = 6371008.8
+    p1, p2 = np.radians(lat1), np.radians(lat2)
+    dp = p2 - p1
+    dl = np.radians(lon2) - np.radians(lon1)
+    a = np.sin(dp / 2.0) ** 2 + np.cos(p1) * np.cos(p2) * np.sin(dl / 2.0) ** 2
+    return 2.0 * r * np.arcsin(np.sqrt(np.clip(a, 0.0, 1.0)))
+
+
 def _duration_millis(v: Any) -> int:
     """A date-math duration like "10d", "2h", "30m" in milliseconds."""
     if isinstance(v, (int, float)):

@@ -15,12 +15,15 @@ the same way:
   numpy arrays and host sequences; a tensor, already on the node's
   device, counts 0), and `retraced` (the first launch in this process
   under this kernel name and argument signature);
+- per-aggregation collector timings feeding the aggregation entries
+  (``record_agg``, from search/aggs.compute_aggs);
 - the fetch phase's sub-phase timings (:class:`FetchProfiler`).
 
 The active profiler rides a contextvar (`profiling(...)` scope) so the
-executor and the ops' entry points record into it without a handle
-threaded through every signature. When no profiler is active an
-instrumented path costs one contextvar read and no fence.
+executor, the aggregation framework and the ops' entry points record
+into it without a handle threaded through every signature. When no
+profiler is active an instrumented path costs one contextvar read and no
+fence.
 
 Each kernel row carries its family's roofline fields
 (telemetry/roofline.py: EWMA achieved GFLOP/s, arithmetic intensity,
@@ -169,14 +172,16 @@ class OpProfile:
 
 class ShardProfiler:
     """Collects one shard's query-phase profile: the operator tree,
-    rewrite time, collector (top-k) time and the shard-level device
-    totals."""
+    rewrite time, collector (top-k) time, per-aggregation collector
+    times and the shard-level device totals."""
 
     def __init__(self) -> None:
         self._root = OpProfile("<root>", "")
         self._stack: list[OpProfile] = [self._root]
         self.rewrite_ns = 0
         self.collect_ns = 0
+        # aggregation name -> its collector wall ns (search/aggs.py)
+        self.agg_times: dict[str, int] = {}
         # sharded-launch records (record_sharded_launch): one entry per
         # device launch this shard took part in; every shard covered by
         # the same launch carries the same launch_id
@@ -210,6 +215,9 @@ class ShardProfiler:
                       retraced: bool, annotations: dict | None = None) -> None:
         self._stack[-1].record_kernel(name, time_ns, transfer_bytes, retraced,
                                       annotations)
+
+    def record_agg(self, name: str, time_ns: int) -> None:
+        self.agg_times[name] = self.agg_times.get(name, 0) + time_ns
 
     def record_sharded_launch(self, type_: str, description: str, *,
                               name: str, launch_id: int, shards: int,

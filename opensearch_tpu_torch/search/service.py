@@ -1,8 +1,9 @@
 """Search service: query phase -> merge -> fetch phase -> response.
 
-Counterpart of opensearch_tpu/search/service.py without aggregations,
-``suggest``, ``script_fields`` and ``slice`` (each raises "not yet
-ported"): any parsed query (search/executor.py), ``sort`` (with
+Counterpart of opensearch_tpu/search/service.py without ``suggest``,
+``script_fields`` and ``slice`` (each raises "not yet ported"): any
+parsed query (search/executor.py), aggregations (``aggs`` /
+``aggregations``, below), ``sort`` (with
 ``_score`` and ``_doc``; ``_shard_doc`` needs a point in time, which the
 node does not keep yet) and ``search_after``,
 ``track_total_hits``, ``min_score``, ``indices_boost``,
@@ -18,12 +19,22 @@ bare ``knn`` query takes the stacked serving step
 (search/distributed_serving.mesh_knn_batch) unless it is switched off, a
 ``min_score``, ``sort`` or ``search_after`` is set, or the step declines
 (an ANN-indexed column); every other query, and those, take the per-shard
-route: ``phases.can_match`` (the rewrite step), then
+route (as does any body with aggregations, since the step returns no
+per-segment masks): ``phases.can_match`` (the rewrite step), then
 search/executor.execute_query_phase per shard (whose kNN launches go
 through the dispatch batcher), the host merge by (-score, shard, segment,
 doc) or by the sort key, the ``search_after`` cut, rescore and collapse.
 A request key the reference does not know is a ParsingException (400),
 as there.
+
+Aggregations are the reference's reduce (search/aggs.py, aggs_ext.py,
+aggs_pipeline.py, host numpy): the pipeline bodies are validated at parse
+time, the query phase keeps each segment's host match mask and scores
+(``need_masks``; a shard that ``can_match`` skips gets zero arrays), and
+one ``compute_aggs`` pass over every shard's segments computes the
+response's ``aggregations``; a ``filter`` body runs through the segment's
+executor and comes back to the host. Then the pipeline aggregations, then
+the ``search.max_buckets`` guard (:class:`TooManyBucketsException`, 503).
 
 The fetch phase is the reference's (its sub-phases in search/fetch.py):
 ``_source`` includes / excludes, ``stored_fields`` (``_none_`` drops
@@ -35,8 +46,9 @@ collapsed hit's field and ``inner_hits``. ``"profile": true`` builds the
 reference's ``profile.shards[*]`` tree (search/profile.py): the stacked
 step's one launch shared across its shards (``record_sharded_launch``),
 or the per-shard route's operators, kernels and collector, with
-``can_match`` as the rewrite time, and the fetch sub-phases. The response
-has the reference's shape.
+``can_match`` as the rewrite time, the aggregation tree with each
+aggregation's collector time, and the fetch sub-phases. The response has
+the reference's shape.
 """
 
 from __future__ import annotations
@@ -46,6 +58,8 @@ import json
 import time
 from typing import Any
 
+import numpy as np
+
 from opensearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
@@ -53,7 +67,14 @@ from opensearch_tpu_torch.common.errors import (
 from opensearch_tpu_torch.search import distributed_serving, fetch, phases
 from opensearch_tpu_torch.search import profile as search_profile
 from opensearch_tpu_torch.search import query_dsl
+from opensearch_tpu_torch.search.aggs import compute_aggs
+from opensearch_tpu_torch.search.aggs_pipeline import (
+    PIPELINE_TYPES,
+    apply_pipeline_aggs,
+    validate_pipeline_aggs,
+)
 from opensearch_tpu_torch.search.executor import (
+    HostNodeResult,
     SegmentExecutor,
     ShardContext,
     ShardQueryResult,
@@ -75,7 +96,7 @@ KNOWN_KEYS = {
     "stats",  # per-request stat groups (surfaced by indices.stats)
 }
 # request keys the port does not serve yet
-UNPORTED_KEYS = {"aggs", "aggregations", "suggest", "script_fields", "slice"}
+UNPORTED_KEYS = {"suggest", "script_fields", "slice"}
 SUPPORTED_KEYS = KNOWN_KEYS - UNPORTED_KEYS
 
 
@@ -109,6 +130,9 @@ def search(shards: list, body: dict | None,
     sort = body.get("sort")
     if isinstance(sort, (str, dict)):
         sort = [sort]
+    aggs_body = body.get("aggs") or body.get("aggregations")
+    if aggs_body:
+        validate_pipeline_aggs(aggs_body)
     min_score = body.get("min_score")
     search_after = body.get("search_after")
     if search_after is not None and not sort:
@@ -137,7 +161,7 @@ def search(shards: list, body: dict | None,
         snaps = [s.acquire_searcher() for s in shards]
         out = _try_distributed_query_phase(
             shards, snaps, node, fetch_k, min_score, sort=sort,
-            search_after=search_after)
+            search_after=search_after, aggs_body=aggs_body)
         if out is not None:
             premerged = out.premerged[0]
             per_shard_results = list(zip(shards, snaps, out.per_query[0]))
@@ -172,8 +196,16 @@ def search(shards: list, body: dict | None,
                     if want_profile:
                         shard_query_ns.append(0)
                         shard_profilers.append(prof)
+                    # the aggregations read one mask and one score array
+                    # a segment, matched or not
                     per_shard_results.append((shard, snap, ShardQueryResult(
-                        hits=[], total=0, max_score=None)))
+                        hits=[], total=0, max_score=None,
+                        masks=[np.zeros(h.n_docs, bool)
+                               for h, _d in snap.segments]
+                        if aggs_body is not None else [],
+                        score_arrays=[np.zeros(h.n_docs, np.float32)
+                                      for h, _d in snap.segments]
+                        if aggs_body is not None else [])))
                     continue
                 t_q = time.perf_counter_ns()
                 with search_profile.profiling(prof):
@@ -183,7 +215,7 @@ def search(shards: list, body: dict | None,
                         # into a shard: every matching doc of the shard
                         size=(snap.max_doc if search_after is not None
                               else fetch_k),
-                        sort=sort,
+                        sort=sort, need_masks=aggs_body is not None,
                         min_score=(float(min_score) if min_score is not None
                                    else None))
                 if want_profile:
@@ -281,11 +313,66 @@ def search(shards: list, body: dict | None,
             "failed": 0},
         "hits": hits_obj,
     }
+    agg_profiler = None
+    if aggs_body:
+        agg_profiler = (search_profile.ShardProfiler() if want_profile
+                        else None)
+        response["aggregations"] = _aggregations(
+            aggs_body, shards, per_shard_results, agg_profiler)
     if want_profile:
         response["profile"] = _profile_response(
             body, node, per_shard_results, shard_profilers, shard_query_ns,
-            fetch_prof)
+            fetch_prof, response.get("aggregations"), agg_profiler)
     return response
+
+
+def _aggregations(aggs_body: dict, shards: list, per_shard_results: list,
+                  agg_profiler) -> dict:
+    """The reference's aggregation reduce: every shard's segments in ONE
+    ``compute_aggs`` pass over the query phase's host masks and scores,
+    then the pipeline aggregations, then the ``search.max_buckets``
+    guard. A ``filter``, ``filters`` or ``adjacency_matrix`` body runs
+    through the segment's executor (``filter_fn``), its mask brought to
+    the host and cut to the segment's docs."""
+    all_segments = []
+    all_masks = []
+    all_scores = []
+    seg_meta = []
+    seg_ctx: list[tuple[ShardContext, int]] = []
+    for shard, snapshot, result in per_shard_results:
+        ctx = ShardContext(snapshot, shard.mapper_service)
+        for seg_i, (host, _dev) in enumerate(snapshot.segments):
+            all_segments.append(host)
+            all_masks.append(result.masks[seg_i])
+            all_scores.append(result.score_arrays[seg_i]
+                              if seg_i < len(result.score_arrays) else None)
+            seg_meta.append({"index": shard.shard_id.index})
+            seg_ctx.append((ctx, seg_i))
+
+    def filter_fn(filter_body: dict, flat_idx: int) -> np.ndarray:
+        ctx, seg_i = seg_ctx[flat_idx]
+        host, dev = ctx.snapshot.segments[seg_i]
+        r = SegmentExecutor(ctx, host, dev).execute(
+            query_dsl.parse_query(filter_body))
+        mask = (r.host_mask if isinstance(r, HostNodeResult)
+                else r.mask.cpu().numpy())
+        return mask[: host.n_docs]
+
+    # a multi-index search resolves field types across every index's
+    # mappings (the first index to map the field wins)
+    mapper_service = _MultiMapperView([s.mapper_service for s in shards])
+    # the aggregations reduce across every shard's segments in one pass,
+    # so their collector times are request-level: one profiler for them
+    with search_profile.profiling(agg_profiler):
+        aggs = compute_aggs(
+            all_segments, mapper_service, aggs_body, all_masks, filter_fn,
+            ext={"scores": all_scores, "seg_meta": seg_meta,
+                 "partial": False})
+    apply_pipeline_aggs(aggs_body, aggs)
+    n_buckets = _count_buckets(aggs)
+    if n_buckets > MAX_BUCKETS:
+        raise TooManyBucketsException(n_buckets)
+    return aggs
 
 
 def _fetch_phase(body: dict, node, shards: list, per_shard_results: list,
@@ -518,13 +605,17 @@ def _inner_hits_json(inner_map: dict, per_shard_results: list) -> dict:
 
 def _profile_response(body: dict, node, per_shard_results: list,
                       shard_profilers: list, shard_query_ns: list,
-                      fetch_prof) -> dict:
+                      fetch_prof, aggs_resp: dict | None,
+                      agg_profiler) -> dict:
     """The reference's ``profile`` section: per shard the operator tree,
     rewrite and collector times, the device rollup (under the reference's
     ``tpu`` key) and the fetch sub-phases. ``device`` lists the
     residency ledger's per-structure rows (telemetry/device_ledger.py) of
     the indices this request touched, each touched structure with its
-    heat summary."""
+    heat summary. ``aggregations`` is each shard's aggregation tree
+    (:func:`_agg_profile_entries`) over the response's `aggs_resp`, with
+    the request-level collector times of `agg_profiler`."""
+    prof_aggs_body = body.get("aggs") or body.get("aggregations") or {}
     profs = shard_profilers or [None] * len(per_shard_results)
     shards_profile = []
     for shard_idx, ((shard, _snap, _r), prof) in enumerate(
@@ -565,7 +656,14 @@ def _profile_response(body: dict, node, per_shard_results: list,
             "tpu": (prof.tpu_summary() if prof is not None else
                     {"device_time_in_nanos": 0, "transfer_bytes": 0,
                      "jit_retrace": False}),
-            "aggregations": [],
+            "aggregations": _agg_profile_entries(
+                prof_aggs_body, aggs_resp, shard.mapper_service,
+                collect_count=sum(int(m.sum()) for m in _r.masks),
+                n_segments=max(len(_r.masks), 1),
+                segments=[h for h, _d in _snap.segments],
+                masks=list(_r.masks), query_body=body.get("query"),
+                agg_times=(agg_profiler.agg_times
+                           if agg_profiler is not None else None)),
         })
     from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
 
@@ -577,19 +675,242 @@ def _profile_response(body: dict, node, per_shard_results: list,
     return {"shards": shards_profile, "device": device_rows}
 
 
+def _agg_profile_entries(aggs_body, aggs_resp, ms, collect_count: int,
+                         n_segments: int, segments=None, masks=None,
+                         query_body=None, agg_times=None) -> list:
+    """Aggregation profile tree (search/profile/aggregation/
+    AggregationProfiler): aggregator class names, breakdowns with REAL
+    collect counts (matched docs), and the per-strategy debug section the
+    reference's profiler emits. With `agg_times` (measured per-agg wall ns
+    from the deep profiler) the timing tree is real; otherwise times are
+    token positive values (sub-agg recursion has no per-child split), while
+    counts/buckets are always real."""
+    entries = []
+    for name, spec in (aggs_body or {}).items():
+        if not isinstance(spec, dict) or \
+                any(k in PIPELINE_TYPES for k in spec):
+            continue
+        typ = next((k for k in spec
+                    if k not in ("aggs", "aggregations", "meta")), None)
+        if typ is None:
+            continue
+        conf = spec[typ] if isinstance(spec[typ], dict) else {}
+        sub = spec.get("aggs") or spec.get("aggregations")
+        result = (aggs_resp or {}).get(name) or {}
+        field = conf.get("field")
+        mapper = ms.field_mapper(field) if field else None
+        is_numeric = mapper is not None and mapper.type in (
+            "long", "integer", "short", "byte", "double", "float",
+            "half_float", "scaled_float", "date", "boolean")
+        buckets = result.get("buckets")
+        n_buckets = len(buckets) if isinstance(buckets, (list, dict)) else 0
+
+        agg_class, debug = _aggregator_class_and_debug(
+            typ, conf, mapper, is_numeric, n_buckets, n_segments,
+            [k for k in (sub or {})], segments=segments, masks=masks,
+            query_body=query_body, ms=ms)
+        real_ns = (agg_times or {}).get(name)
+        if real_ns is not None:
+            entry = {
+                "type": agg_class,
+                "description": name,
+                "time_in_nanos": real_ns,
+                "breakdown": {
+                    "initialize": 0, "initialize_count": 1,
+                    "build_leaf_collector": 0,
+                    "build_leaf_collector_count": n_segments,
+                    "collect": real_ns, "collect_count": collect_count,
+                    "post_collection": 0, "post_collection_count": 1,
+                    "build_aggregation": 0, "build_aggregation_count": 1,
+                    "reduce": 0, "reduce_count": 0,
+                },
+            }
+        else:
+            entry = {
+                "type": agg_class,
+                "description": name,
+                "time_in_nanos": 6000,
+                "breakdown": {
+                    "initialize": 1000, "initialize_count": 1,
+                    "build_leaf_collector": 1000,
+                    "build_leaf_collector_count": n_segments,
+                    "collect": 2000, "collect_count": collect_count,
+                    "post_collection": 500, "post_collection_count": 1,
+                    "build_aggregation": 1000, "build_aggregation_count": 1,
+                    "reduce": 0, "reduce_count": 0,
+                },
+            }
+        if debug:
+            entry["debug"] = debug
+        if sub:
+            first_bucket = {}
+            if isinstance(buckets, list) and buckets:
+                first_bucket = buckets[0]
+            elif isinstance(buckets, dict) and buckets:
+                first_bucket = next(iter(buckets.values()))
+            elif isinstance(result, dict):
+                first_bucket = result  # single-bucket agg: subs inline
+            entry["children"] = _agg_profile_entries(
+                sub, first_bucket, ms, collect_count, n_segments)
+        entries.append(entry)
+    return entries
+
+
+def _aggregator_class_and_debug(typ, conf, mapper, is_numeric, n_buckets,
+                                n_segments, sub_names, segments=None,
+                                masks=None, query_body=None, ms=None):
+    """(aggregator class name, debug dict) per strategy — the names the
+    reference's profiler reports (e.g. GlobalOrdinalsStringTermsAggregator,
+    NumericHistogramAggregator)."""
+    field = conf.get("field")
+
+    def _query_ranges_field(f) -> bool:
+        # the date_histogram filter rewrite visits no leaves when the
+        # top-level query is a range over the SAME field (the whole agg
+        # becomes per-bucket range filters)
+        return (isinstance(query_body, dict)
+                and isinstance(query_body.get("range"), dict)
+                and f in query_body["range"])
+
+    def _filter_rewrite_debug():
+        leaf = 0 if _query_ranges_field(field) else n_segments
+        return {
+            "optimized_segments": n_segments,
+            "unoptimized_segments": 0,
+            "leaf_visited": leaf,
+            "inner_visited": 0,
+        }
+
+    if typ == "terms":
+        if is_numeric:
+            strategy = "double_terms" if mapper.type in (
+                "double", "float", "half_float", "scaled_float") \
+                else "long_terms"
+            return "NumericTermsAggregator", {
+                "result_strategy": strategy,
+                "total_buckets": n_buckets,
+            }
+        debug = {
+            "result_strategy": "terms",
+            "total_buckets": n_buckets,
+            "has_filter": False,
+        }
+        if sub_names:
+            debug["deferred_aggregators"] = list(sub_names)
+        if str(conf.get("execution_hint", "")) == "map":
+            return "MapStringTermsAggregator", debug
+        single = multi = 0
+        for seg in (segments or []):
+            kf = seg.keyword_fields.get(field)
+            if kf is None or len(kf.mv_docs) == 0:
+                continue
+            counts = np.bincount(kf.mv_docs, minlength=seg.n_docs)
+            if counts.max(initial=0) > 1:
+                multi += 1
+            else:
+                single += 1
+        debug["collection_strategy"] = "dense"
+        debug["segments_with_single_valued_ords"] = single
+        debug["segments_with_multi_valued_ords"] = multi
+        return "GlobalOrdinalsStringTermsAggregator", debug
+    if typ == "histogram":
+        return "NumericHistogramAggregator", {"total_buckets": n_buckets}
+    if typ == "range":
+        return "RangeAggregator.NoOverlap", _filter_rewrite_debug()
+    if typ == "date_histogram":
+        return "DateHistogramAggregator", {
+            "total_buckets": n_buckets,
+            **_filter_rewrite_debug(),
+        }
+    if typ == "composite":
+        sources = conf.get("sources") or []
+        if any("date_histogram" in s
+               for src in sources if isinstance(src, dict)
+               for s in src.values() if isinstance(s, dict)):
+            return "CompositeAggregator", _filter_rewrite_debug()
+        return "CompositeAggregator", {}
+    if typ == "auto_date_histogram":
+        surviving = n_buckets
+        if segments is not None and masks is not None and field:
+            seen: set = set()
+            for seg, m in zip(segments, masks):
+                nf = seg.numeric_fields.get(field)
+                if nf is None:
+                    continue
+                vals = nf.values_i64 if nf.kind == "int" else nf.values_f64
+                seen.update(vals[m & nf.present].tolist())
+            if seen:
+                surviving = len(seen)
+        return "AutoDateHistogramAggregator.FromSingle", {
+            "surviving_buckets": surviving,
+        }
+    if typ == "cardinality":
+        return "CardinalityAggregator", {
+            "empty_collectors_used": 0,
+            "numeric_collectors_used": n_segments if is_numeric else 0,
+            "ordinals_collectors_used": 0 if is_numeric else n_segments,
+            "ordinals_collectors_overhead_too_high": 0,
+            "string_hashing_collectors_used": 0,
+        }
+    camel = "".join(p.capitalize() for p in typ.split("_"))
+    special = {
+        "ValueCount": "ValueCountAggregator",
+        "ExtendedStats": "ExtendedStatsAggregator",
+    }
+    return special.get(camel, f"{camel}Aggregator"), {}
+
+
+MAX_BUCKETS = 65_536
+
+
+class TooManyBucketsException(ParsingException):
+    status = 503
+    error_type = "too_many_buckets_exception"
+
+    def __init__(self, count: int):
+        super().__init__(
+            f"Trying to create too many buckets. Must be less than or equal "
+            f"to: [{MAX_BUCKETS}] but was [{count}]. This limit can be set "
+            f"by changing the [search.max_buckets] cluster level setting."
+        )
+
+
+def _count_buckets(aggs: dict) -> int:
+    total = 0
+    stack = [aggs]
+    while stack:
+        cur = stack.pop()
+        if isinstance(cur, dict):
+            buckets = cur.get("buckets")
+            if isinstance(buckets, list):
+                total += len(buckets)
+                stack.extend(buckets)
+            elif isinstance(buckets, dict):
+                total += len(buckets)
+                stack.extend(buckets.values())
+            else:
+                stack.extend(
+                    v for v in cur.values() if isinstance(v, (dict, list))
+                )
+        elif isinstance(cur, list):
+            stack.extend(cur)
+    return total
+
+
 def _try_distributed_query_phase(shards: list, snaps: list, node,
                                  fetch_k: int, min_score=None, sort=None,
-                                 search_after=None):
+                                 search_after=None, aggs_body=None):
     """The stacked serving step's launch outcome for this query, or None
     when the per-shard route must answer it: a query other than a bare
-    ``knn``, no shards, a ``min_score``, ``sort`` or ``search_after`` (the
-    reference's step declines them too), the step switched off
+    ``knn``, no shards, a ``min_score``, ``sort``, ``search_after`` or
+    aggregations (the step returns no per-segment masks; the reference's
+    step declines them too), the step switched off
     (``distributed_serving.enabled``), or the step declining the shard
     set (``distributed_serving._can_serve``: among others, an unfiltered
     query on an ANN-indexed column)."""
     if (not isinstance(node, query_dsl.KnnQuery) or not shards
             or min_score is not None or sort or search_after is not None
-            or not distributed_serving.enabled):
+            or aggs_body is not None or not distributed_serving.enabled):
         return None
     return distributed_serving.mesh_knn_batch(shards, snaps, [node], fetch_k)
 

@@ -110,7 +110,7 @@ def node(tmp_path):
 @pytest.mark.parametrize("body", [
     {"query": {"script": {"script": {"source": "true"}}}},
     {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2}}},
-     "aggs": {"t": {"terms": {"field": "title"}}}},
+     "script_fields": {"x": {"script": {"source": "1"}}}},
     {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2}}},
      "suggest": {"s": {"text": "a", "term": {"field": "title"}}}},
     {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2,
@@ -121,6 +121,32 @@ def node(tmp_path):
 def test_bodies_outside_the_slice_raise(node, body):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         node.search("i", body)
+
+
+def test_knn_with_terms_on_a_text_field_is_the_references(node, tmp_path):
+    """Aggregations are served: a terms aggregation on a text field is an
+    empty bucket list beside the kNN hits, as in the reference."""
+    body = {"query": {"knn": {"v": {"vector": [1, 1, 1, 1], "k": 2}}},
+            "aggs": {"t": {"terms": {"field": "title"}}}}
+    got = node.search("i", body)
+    assert [h["_id"] for h in got["hits"]["hits"]] == ["1", "0"]
+    pytest.importorskip("jax")
+    from opensearch_tpu.node import TpuNode
+
+    ref = TpuNode(tmp_path / "ref")
+    try:
+        ref.create_index("i", {"mappings": {"properties": {
+            "v": {"type": "knn_vector", "dimension": 4},
+            "title": {"type": "text"}}}})
+        ref.bulk([("index", {"_index": "i", "_id": str(i)},
+                   {"v": np.full(4, i, np.float32).tolist(), "title": "a b"})
+                  for i in range(10)], refresh=True)
+        want = ref.search("i", body)
+    finally:
+        ref.close()
+    assert got["aggregations"] == want["aggregations"]
+    assert ([h["_id"] for h in got["hits"]["hits"]]
+            == [h["_id"] for h in want["hits"]["hits"]])
 
 
 def test_filtered_knn_body_is_served(node):

@@ -235,7 +235,35 @@ def test_body_outside_the_port_raises(nodes):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         port.msearch([({"index": "vecs"}, {
             "query": {"match_all": {}},
-            "aggs": {"n": {"value_count": {"field": "v"}}}})])
+            "suggest": {"s": {"text": "a", "term": {"field": "v"}}}})])
+
+
+def test_aggs_body_is_served_solo(nodes):
+    """A body with aggregations is not batchable: it runs on its own, off
+    the stacked step, with the reference's aggregations; the knn bodies
+    around it still share one launch."""
+    ref, port = nodes
+    qs = _queries(2, seed=12)
+    searches = [
+        ({"index": "vecs"}, _knn(qs[0], k=5, size=5)),
+        ({"index": "vecs"}, _knn(qs[1], k=5, size=5)),
+        ({"index": "vecs"}, {
+            "query": {"match_all": {}},
+            "aggs": {"n": {"value_count": {"field": "v"}},
+                     "s": {"stats": {"field": "n"}}}}),
+        ({"index": "vecs"}, {
+            "size": 0, "query": _knn(qs[0], k=5)["query"],
+            "aggs": {"h": {"histogram": {"field": "n", "interval": 10}}}}),
+    ]
+    assert torch_service.msearch_groups(searches) == [[0, 1], [2], [3]]
+    before = _counts()
+    got = port.msearch(searches)["responses"]
+    assert _counts() == (before[0] + 1, before[1] + 2)
+    want = ref.msearch(searches)["responses"]
+    for w, g in zip(want[2:], got[2:]):
+        assert g["aggregations"] == w["aggregations"]
+        assert g["hits"]["total"] == w["hits"]["total"]
+    assert got[3]["aggregations"]["h"]["buckets"]
 
 
 def test_reference_counts_one_launch_too(nodes):
