@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
-                                    hybrid,large,lexical,aggs,mesh]
+                                    hybrid,large,lexical,aggs,dsl,mesh]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -225,8 +225,8 @@ Then:
    _msearch of 32 in one K1 launch; 8 HTTP clients x 8 searches on the
    stacked step and the per-shard route, each its solo search's bits;
    "profile": true of the in-process profile's shape with its K1 launch's
-   device_time_in_nanos > 0; a script query and GET /_cat/indices the 500
-   "not yet ported" envelope on a connection that then serves a search;
+   device_time_in_nanos > 0; a ?scroll search and GET /_cat/indices the
+   500 "not yet ported" envelope on a connection that then serves a search;
    and the in-process p50 with the profiler's hooks and without.
    ``--phases rest`` builds index A and runs this phase alone.
    Every concurrent (gated) check, of K1's paths and of index C's IVF-PQ
@@ -329,6 +329,32 @@ library calls, logged as `large record` lines.
    its profile's aggregation time against the query phase's, the
    top_hits and cardinality times, the mask-and-score copy's bytes and
    ms. ``--phases aggs`` builds index L and runs it alone.
+
+9. dsl (with main, on index L after the aggregations and before its
+   ledger gate; dsl_main_phase): index L gains a geo_point ``loc`` (1,000
+   city centres with a few km of jitter), a rank_feature ``pop`` (Zipf)
+   and a long ``need`` (1-3) from a generator of their own; index J (a
+   Q&A forum: 4,000 questions and 16,000 routed answers, a join field,
+   nested comments, 128-d eighths) and index P (2,000 stored percolator
+   queries over index L's fields) on the same node. 16 searches of each
+   type (4 script filters): geo_distance, geo_bounding_box, geo_shape,
+   distance_feature on ts and loc, rank_feature (saturation, log,
+   sigmoid), terms_set, more_like_this (text and doc), slice, script,
+   script_score (knn_score, cosineSimilarity, painless, over a knn),
+   script_fields, term and phrase suggesters on typos, a stored mustache
+   template, hybrid match + knn (k = 100) under a normalization and an
+   RRF pipeline; knn at k = 10 and 100 filtered by geo_distance,
+   geo_bounding_box, terms_set, script (1 a k) and more_like_this; on J
+   has_child, has_parent, parent_id, nested, has_parent-filtered knn,
+   100 scripted updates and a scripted_upsert; on P 8 percolate searches.
+   Gates: numpy truths (haversine in float64, the rank and distance
+   formulas' float32 bits, terms_set counts, murmur3 partitions, the MLT
+   rewrite's tf-idf bool, knn_score bit for bit on eighths, the fused
+   hybrid scores of the sub-queries' own results, typo words suggested,
+   templates, join and percolate sets, updates read back); one K1 launch
+   a kNN-bearing search on its tier and K1's plain version bit for bit;
+   HTTP the in-process hits; no percolate bytes left in the ledger.
+   ``--phases dsl`` builds index L and runs it alone.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -3287,7 +3313,7 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
        merged batch beside concurrent_phase's in-process figures;
     6. "profile": true: the operator tree of the in-process profile's
        shape, the K1 launch's device_time_in_nanos > 0;
-    7. a script query and GET /_cat/indices answer the 500 envelope with
+    7. a ?scroll search and GET /_cat/indices answer the 500 envelope with
        their "not yet ported" reason, and the next search on the same
        connection succeeds.
     Then DELETE /rest_b, whose stacked slabs must leave the registry. Also
@@ -3526,8 +3552,8 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
         # 7. not yet ported, then the same connection serves a search
         envelopes = {}
         for method, path, req in (
-                ("POST", "/sift_a/_search", {"query": {"script": {
-                    "script": {"source": "doc['age'].value > 10"}}}}),
+                ("POST", "/sift_a/_search?scroll=1m", {"query": {"knn": {
+                    "v": {"vector": queries[2].tolist(), "k": 10}}}}),
                 ("GET", "/_cat/indices", None)):
             status, payload = client(method, path, req)
             reason = (payload or {}).get("error", {}).get("reason", "")
@@ -6231,7 +6257,8 @@ def lexical_corpus(rng, n: int) -> dict:
 
 def lexical_ingest(node, name: str, corpus: dict, words: list) -> float:
     """Index L into one shard by host _bulk (5,000 docs a request) and one
-    refresh; returns the wall seconds."""
+    refresh, with the dsl phase's fields (dsl_fields); returns the wall
+    seconds."""
     node.create_index(name, {
         "settings": {"number_of_shards": 1},
         "mappings": {"properties": {
@@ -6239,7 +6266,9 @@ def lexical_ingest(node, name: str, corpus: dict, words: list) -> float:
             "tag": {"type": "keyword"}, "views": {"type": "long"},
             "ts": {"type": "date"},
             "v": {"type": "knn_vector", "dimension": DIM,
-                  "similarity": "l2_norm"}}}})
+                  "similarity": "l2_norm"},
+            "loc": {"type": "geo_point"}, "pop": {"type": "rank_feature"},
+            "need": {"type": "long"}}}})
     body, bo = corpus["body"], corpus["body_off"]
     title, to = corpus["title"], corpus["title_off"]
     n = len(bo) - 1
@@ -6254,7 +6283,11 @@ def lexical_ingest(node, name: str, corpus: dict, words: list) -> float:
                 "tag": f"g{int(corpus['tag'][i])}",
                 "views": int(corpus["views"][i]),
                 "ts": int(corpus["ts"][i]),
-                "v": corpus["v"][i].tolist()}))
+                "v": corpus["v"][i].tolist(),
+                "loc": {"lat": float(corpus["lat"][i]),
+                        "lon": float(corpus["lon"][i])},
+                "pop": float(corpus["pop"][i]),
+                "need": int(corpus["need"][i])}))
         if node.bulk(ops, refresh=False)["errors"]:
             raise AssertionError(f"bulk into [{name}] reported errors")
     node.refresh(name)
@@ -6466,7 +6499,7 @@ def lexical_truth_mask(kind: str, meta: dict, corpus: dict,
 
 
 def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS,
-                       aggs: bool = False) -> dict:
+                       aggs: bool = False, dsl: bool = False) -> dict:
     """The lexical query phase on index L (LEXICAL_DOCS docs: a text body
     shaped like MS MARCO passages, a title, a Zipf keyword tag, views, a
     date ts and cell A's clustered vectors rounded to eighths; all from
@@ -6498,7 +6531,8 @@ def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS,
     Recorded: ingest s, p50 / p99 / QPS of each type, the profiler's
     device ms of bm25_term_scores alone and of one match search with its
     top kernels beside the search's host wall, and K1's launches. With
-    `aggs`, aggs_main_phase runs on the node before its ledger gate."""
+    `aggs`, aggs_main_phase runs on the node before its ledger gate, and
+    with `dsl` dsl_main_phase after it."""
     from opensearch_tpu_torch.node import TorchNode
     from opensearch_tpu_torch.ops import bm25 as bm25_ops
     from opensearch_tpu_torch.search import distributed_serving
@@ -6506,6 +6540,7 @@ def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS,
     rng = np.random.default_rng(seed + 15)
     words = [lexical_word(i) for i in range(LEXICAL_VOCAB)]
     corpus = lexical_corpus(rng, n_docs)
+    corpus.update(dsl_fields(seed, n_docs))
     body_idx = TokenIndex(corpus["body"], corpus["body_off"])
     title_idx = TokenIndex(corpus["title"], corpus["title_off"])
     tag_names = np.asarray([f"g{t}" for t in range(LEXICAL_TAGS)])
@@ -6605,6 +6640,9 @@ def lexical_main_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS,
         if aggs:
             out["aggs"] = aggs_main_phase(node, kf, dev, seed, corpus, words,
                                           body_idx, len(segments))
+        if dsl:
+            out["dsl"] = dsl_main_phase(node, kf, dev, seed, corpus, words,
+                                        body_idx, len(segments))
         # the ledger over index L's text, keyword, numeric and vector
         # columns; the profiled match leaves the bm25_term_scores row
         out["ledger"] = ledger_gate(
@@ -7490,6 +7528,7 @@ def aggs_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
     rng = np.random.default_rng(seed + 15)
     words = [lexical_word(i) for i in range(LEXICAL_VOCAB)]
     corpus = lexical_corpus(rng, n_docs)
+    corpus.update(dsl_fields(seed, n_docs))
     body_idx = TokenIndex(corpus["body"], corpus["body_off"])
     with tempfile.TemporaryDirectory() as tmp:
         node = TorchNode(tmp, device=dev)
@@ -7505,6 +7544,1124 @@ def aggs_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
     return out
 
 
+# -- the rest of the query DSL (the dsl phase) --------------------------------
+
+DSL_QUERIES = 16           # searches of each type
+DSL_SCRIPT = 4             # script-filter searches (a painless run a doc)
+DSL_SCRIPT_KNN = 1         # script-filtered kNN searches at each k
+DSL_HTTP = 4               # of each type over HTTP (1 of the script filter)
+DSL_PERCOLATE = 8          # percolate searches on index P
+DSL_UPDATES = 100          # scripted updates on index J
+DSL_CITIES = 1_000
+DSL_J_QUESTIONS = 4_000
+DSL_J_ANSWERS = 16_000
+DSL_P_QUERIES = 2_000
+DSL_KS = (10, 100)
+EARTH_R_M = 6371008.8      # GeoUtils.EARTH_MEAN_RADIUS
+
+
+def dsl_fields(seed: int, n: int) -> dict:
+    """Index L's three dsl fields from a generator of their own (the
+    other columns keep their bits): ``loc``, a geo_point about one of
+    DSL_CITIES city centres with a jitter of a few km, as hotel or listing
+    search holds; ``pop``, a rank_feature of Zipf page popularity; ``need``,
+    terms_set's per-doc count, a long from 1 to 3."""
+    rng = np.random.default_rng([seed, 18])
+    c_lat = rng.uniform(-55.0, 65.0, DSL_CITIES)
+    c_lon = rng.uniform(-170.0, 170.0, DSL_CITIES)
+    city = rng.integers(0, DSL_CITIES, n)
+    return {"city_lat": c_lat, "city_lon": c_lon,
+            "lat": np.round(c_lat[city] + rng.normal(0.0, 0.02, n), 6),
+            "lon": np.round(c_lon[city] + rng.normal(0.0, 0.03, n), 6),
+            "pop": np.minimum(rng.zipf(1.6, n), 1_000_000).astype(np.float64),
+            "need": rng.integers(1, 4, n)}
+
+
+def haversine_np(lat1: float, lon1: float, lat2, lon2):
+    """Great-circle metres in float64 (GeoUtils.arcDistance's haversine)."""
+    p1, p2 = np.radians(lat1), np.radians(lat2)
+    dp = p2 - p1
+    dl = np.radians(lon2) - np.radians(lon1)
+    a = np.sin(dp / 2.0) ** 2 + np.cos(p1) * np.cos(p2) * np.sin(dl / 2.0) ** 2
+    return 2.0 * EARTH_R_M * np.arcsin(np.sqrt(np.clip(a, 0.0, 1.0)))
+
+
+def murmur3_ids(n: int) -> np.ndarray:
+    """uint32 murmur3_x86_32 (seed 0) of the ASCII ids "0" .. str(n - 1),
+    vectorized in numpy: slice's partition of _id."""
+    mask = np.uint64(0xFFFFFFFF)
+    out = np.zeros(n, np.uint64)
+
+    def rotl(x, r):
+        return ((x << np.uint64(r)) | (x >> np.uint64(32 - r))) & mask
+
+    def mix(k):
+        k = (k * np.uint64(0xCC9E2D51)) & mask
+        k = rotl(k, 15)
+        return (k * np.uint64(0x1B873593)) & mask
+
+    ids = np.arange(n)
+    for length in range(1, len(str(n - 1)) + 1):
+        sel = ids[(ids >= (10 ** (length - 1) if length > 1 else 0))
+                  & (ids < 10 ** length)]
+        if not len(sel):
+            continue
+        raw = np.frombuffer("".join(str(i) for i in sel).encode(),
+                            np.uint8).reshape(len(sel), length)
+        b = raw.astype(np.uint64)
+        h = np.zeros(len(sel), np.uint64)
+        nblocks = length // 4
+        for j in range(nblocks):
+            k = (b[:, 4 * j] | (b[:, 4 * j + 1] << np.uint64(8))
+                 | (b[:, 4 * j + 2] << np.uint64(16))
+                 | (b[:, 4 * j + 3] << np.uint64(24)))
+            h ^= mix(k)
+            h = rotl(h, 13)
+            h = (h * np.uint64(5) + np.uint64(0xE6546B64)) & mask
+        tail = length - 4 * nblocks
+        if tail:
+            k = np.zeros(len(sel), np.uint64)
+            for t in range(tail):
+                k ^= b[:, 4 * nblocks + t] << np.uint64(8 * t)
+            h ^= mix(k)
+        h ^= np.uint64(length)
+        h ^= h >> np.uint64(16)
+        h = (h * np.uint64(0x85EBCA6B)) & mask
+        h ^= h >> np.uint64(13)
+        h = (h * np.uint64(0xC2B2AE35)) & mask
+        h ^= h >> np.uint64(16)
+        out[sel] = h
+    return out.astype(np.uint32)
+
+
+def first_ids(mask: np.ndarray, k: int = 10) -> list:
+    """The first k docs of a constant-score result: doc order."""
+    return np.nonzero(mask)[0][:k].tolist()
+
+
+def ranked_ids(scores32: np.ndarray, mask: np.ndarray, k: int = 10) -> list:
+    """The k best docs by (-float32 score, doc) over `mask`."""
+    cand = np.nonzero(mask)[0]
+    return cand[np.lexsort((cand, -scores32[cand].astype(np.float64)))][
+        :k].tolist()
+
+
+def dsl_typo(word: str) -> str:
+    """A misspelling of a three-letter word from "g" that no corpus word
+    has: the last letter doubled (the vocabulary's four-letter words run
+    from "baaa" to "fpxx")."""
+    return word + word[-1]
+
+
+def dsl_bodies(rng, corpus: dict, words: list, body_idx) -> dict:
+    """DSL_QUERIES request bodies (fewer where noted) of each index-L type,
+    each with what its truth needs."""
+    n = len(corpus["views"])
+    lat, lon = corpus["lat"], corpus["lon"]
+    df = np.diff(body_idx.bounds)
+    # document frequencies relative to the corpus: 1,000-20,000, 2,000
+    # and 100 of index L's 200,000 docs
+    mid = np.nonzero((df >= n // 200) & (df <= n // 10))[0]
+    common = np.nonzero(df >= n // 100)[0]
+    # three-letter words from "g": a typo of one (dsl_typo) is a
+    # four-letter string past the vocabulary's last word
+    typo_ok = np.nonzero((df >= n // 2000) & np.asarray(
+        [len(w) == 3 and w[0] >= "g" for w in words]))[0]
+    bo, body = corpus["body_off"], corpus["body"]
+    out: dict = {k: [] for k in (
+        "geo_distance", "geo_bounding_box", "geo_shape",
+        "distance_feature_ts", "distance_feature_loc",
+        "rank_feature_saturation", "rank_feature_log",
+        "rank_feature_sigmoid", "terms_set", "mlt_text", "mlt_doc",
+        "slice", "script", "script_score_knn", "script_score_cosine",
+        "script_score_painless", "script_score_over_knn", "script_fields",
+        "suggest_term", "suggest_phrase", "template", "hybrid_norm",
+        "hybrid_rrf")}
+
+    def city():
+        c = int(rng.integers(0, DSL_CITIES))
+        return float(corpus["city_lat"][c]), float(corpus["city_lon"][c])
+
+    def qvec():
+        return corpus["v"][int(rng.integers(0, n))].tolist()
+
+    for j in range(DSL_QUERIES):
+        c_lat, c_lon = city()
+        out["geo_distance"].append((
+            {"query": {"geo_distance": {"distance": "5km", "loc": {
+                "lat": c_lat, "lon": c_lon}}}},
+            {"mask": haversine_np(c_lat, c_lon, lat, lon) <= 5000.0}))
+        c_lat, c_lon = city()
+        top, bottom = c_lat + 0.04, c_lat - 0.04
+        left, right = c_lon - 0.06, c_lon + 0.06
+        out["geo_bounding_box"].append((
+            {"query": {"geo_bounding_box": {"loc": {
+                "top_left": {"lat": top, "lon": left},
+                "bottom_right": {"lat": bottom, "lon": right}}}}},
+            {"mask": (lat <= top) & (lat >= bottom) & (lon >= left)
+             & (lon <= right)}))
+        c_lat, c_lon = city()
+        top, bottom = c_lat + 0.03, c_lat - 0.05
+        left, right = c_lon - 0.04, c_lon + 0.05
+        out["geo_shape"].append((
+            {"query": {"geo_shape": {"loc": {"shape": {
+                "type": "envelope",
+                "coordinates": [[left, top], [right, bottom]]}}}}},
+            {"mask": (lat >= bottom) & (lat <= top) & (lon >= left)
+             & (lon <= right)}))
+        day = int(rng.integers(0, 365))
+        origin_ms = LEXICAL_TS0 + day * DAY_MS
+        origin = time.strftime("%Y-%m-%dT%H:%M:%SZ",
+                               time.gmtime(origin_ms / 1000))
+        pivot = 7 * DAY_MS
+        dist = np.abs(corpus["ts"].astype(np.float64) - float(origin_ms))
+        out["distance_feature_ts"].append((
+            {"query": {"distance_feature": {"field": "ts", "origin": origin,
+                                            "pivot": "7d"}}},
+            {"scores": (float(pivot) / (float(pivot) + dist)).astype(
+                np.float32), "mask": np.ones(n, bool)}))
+        c_lat, c_lon = city()
+        dist = haversine_np(c_lat, c_lon, lat, lon)
+        out["distance_feature_loc"].append((
+            {"query": {"distance_feature": {
+                "field": "loc", "origin": {"lat": c_lat, "lon": c_lon},
+                "pivot": "50km"}}},
+            {"scores": (50000.0 / (50000.0 + dist)).astype(np.float32),
+             "mask": np.ones(n, bool)}))
+        pop = corpus["pop"]
+        pivot_sat = max(float(pop.sum()) / n, 1e-9)
+        boost = float(1 + j % 3)
+        out["rank_feature_saturation"].append((
+            {"query": {"rank_feature": {"field": "pop", "boost": boost}}},
+            {"scores": ((pop / (pop + pivot_sat)) * boost).astype(
+                np.float32), "mask": np.ones(n, bool)}))
+        sf = float(1 + j)
+        out["rank_feature_log"].append((
+            {"query": {"rank_feature": {"field": "pop", "log": {
+                "scaling_factor": sf}}}},
+            {"scores": np.log(np.maximum(sf + pop, 1e-12)).astype(
+                np.float32), "mask": np.ones(n, bool)}))
+        piv, ex = float(2 + j), 0.6
+        ve = np.power(pop, ex)
+        out["rank_feature_sigmoid"].append((
+            {"query": {"rank_feature": {"field": "pop", "sigmoid": {
+                "pivot": piv, "exponent": ex}}}},
+            {"scores": (ve / (ve + piv ** ex)).astype(np.float32),
+             "mask": np.ones(n, bool)}))
+        terms = [int(t) for t in rng.choice(mid, 4, replace=False)]
+        counts = np.zeros(n, np.int64)
+        for t in terms:
+            counts[body_idx.postings(t)[0]] += 1
+        out["terms_set"].append((
+            {"query": {"terms_set": {"body": {
+                "terms": [words[t] for t in terms],
+                "minimum_should_match_field": "need"}}}},
+            {"mask": (counts >= corpus["need"]) & (counts > 0)}))
+        d = int(rng.integers(0, n))
+        like = [int(t) for t in rng.choice(mid, 12)] + \
+            body[bo[d]:bo[d + 1]][:6].tolist()
+        out["mlt_text"].append((
+            {"query": {"more_like_this": {
+                "fields": ["body"], "like": " ".join(words[t] for t in like),
+                "min_term_freq": 1, "min_doc_freq": 5,
+                "max_query_terms": 12}}},
+            {"like": like}))
+        d = int(rng.integers(0, n))
+        out["mlt_doc"].append((
+            {"query": {"more_like_this": {
+                "fields": ["body"], "like": [{"_id": str(d)}],
+                "min_term_freq": 1, "min_doc_freq": 5,
+                "max_query_terms": 12}}},
+            {"like": body[bo[d]:bo[d + 1]].tolist()}))
+        out["slice"].append((
+            {"query": {"match_all": {}}, "size": 0,
+             "slice": {"id": j % 4, "max": 4}}, {"slice": j % 4}))
+        w = int(rng.choice(mid))
+        qv = qvec()
+        out["script_score_knn"].append((
+            {"query": {"script_score": {
+                "query": {"match": {"body": words[w]}},
+                "script": {"source": "knn_score", "lang": "knn", "params": {
+                    "field": "v", "query_value": qv,
+                    "space_type": "l2"}}}}},
+            {"terms": [w], "qv": qv}))
+        w = int(rng.choice(mid))
+        qv = qvec()
+        out["script_score_cosine"].append((
+            {"query": {"script_score": {
+                "query": {"match": {"body": words[w]}},
+                "script": {"source": "cosineSimilarity(params.query_vector, "
+                                     "doc['v']) + 1.0",
+                           "params": {"query_vector": qv}}}}},
+            {"terms": [w], "qv": qv}))
+        w = int(rng.choice(mid))
+        out["script_score_painless"].append((
+            {"query": {"script_score": {
+                "query": {"match": {"body": words[w]}},
+                "script": {"source": "doc['views'].value * 0.001 + "
+                                     "doc['need'].value"}}}},
+            {"terms": [w]}))
+        qv = qvec()
+        out["script_score_over_knn"].append((
+            {"query": {"script_score": {
+                "query": {"knn": {"v": {"vector": qv, "k": 100}}},
+                "script": {"source": "knn_score", "lang": "knn", "params": {
+                    "field": "v", "query_value": qv,
+                    "space_type": "l2"}}}}},
+            {"qv": qv}))
+        w = int(rng.choice(mid))
+        out["script_fields"].append((
+            {"query": {"match": {"body": words[w]}}, "script_fields": {
+                "views2": {"script": {"source": "doc['views'].value * 2"}},
+                "need_k": {"script": {"source": "doc['need'].value + "
+                                                "params.k",
+                                      "params": {"k": 10 + j}}}}},
+            {"terms": [w], "k": 10 + j}))
+        word = words[int(rng.choice(typo_ok))]
+        out["suggest_term"].append((
+            {"size": 0, "suggest": {"fix": {"text": dsl_typo(word),
+                                            "term": {"field": "body"}}}},
+            {"word": word}))
+        ws = [words[int(t)] for t in rng.choice(common, 2, replace=False)]
+        word = words[int(rng.choice(typo_ok))]
+        out["suggest_phrase"].append((
+            {"size": 0, "suggest": {"fix": {
+                "text": f"{ws[0]} {dsl_typo(word)} {ws[1]}",
+                "phrase": {"field": "body"}}}},
+            {"phrase": f"{ws[0]} {word} {ws[1]}"}))
+        w = int(rng.choice(mid))
+        v_gte = int(rng.integers(0, 2_000))
+        out["template"].append((
+            {"id": "dsl-template", "params": {"q": words[w], "v": v_gte}},
+            {"rendered": {"query": {"bool": {
+                "must": [{"match": {"body": words[w]}}],
+                "filter": [{"range": {"views": {"gte": v_gte}}}]}},
+                "size": 10}}))
+        for kind, pid in (("hybrid_norm", "dsl-norm"),
+                          ("hybrid_rrf", "dsl-rrf")):
+            ts = [int(t) for t in rng.choice(mid, 2, replace=False)]
+            qv = qvec()
+            subs = [{"match": {"body": " ".join(words[t] for t in ts)}},
+                    {"knn": {"v": {"vector": qv, "k": 100}}}]
+            out[kind].append(({"query": {"hybrid": {"queries": subs}}},
+                              {"pipeline": pid, "subs": subs}))
+    for j in range(DSL_SCRIPT):
+        v_gt = int(rng.integers(100, 2_000))
+        need = int(rng.integers(1, 4))
+        out["script"].append((
+            {"query": {"script": {"script": {
+                "source": "doc['views'].value > params.v && "
+                          "doc['need'].value == params.n",
+                "params": {"v": v_gt, "n": need}}}}},
+            {"mask": (corpus["views"] > v_gt) & (corpus["need"] == need)}))
+    return out
+
+
+def dsl_knn_bodies(rng, corpus: dict, words: list, body_idx,
+                   bodies: dict) -> dict:
+    """knn at k = 10 and 100 filtered by geo_distance, geo_bounding_box,
+    terms_set, script (DSL_SCRIPT_KNN a k: a painless run a doc) and
+    more_like_this: each filter
+    a body of the same type above, widened to hold k docs."""
+    n = len(corpus["views"])
+    out = {}
+    for k in DSL_KS:
+        for name, source in (("geo_distance", "geo_distance"),
+                             ("geo_bounding_box", "geo_bounding_box"),
+                             ("terms_set", "terms_set"),
+                             ("script", "script"), ("mlt", "mlt_text")):
+            runs = []
+            count = DSL_SCRIPT_KNN if name == "script" else DSL_QUERIES
+            for j in range(count):
+                body, meta = bodies[source][j]
+                filt = json.loads(json.dumps(body["query"]))
+                if name == "geo_distance":
+                    filt["geo_distance"]["distance"] = "40km"
+                    g = filt["geo_distance"]["loc"]
+                    meta = {"mask": haversine_np(
+                        g["lat"], g["lon"], corpus["lat"],
+                        corpus["lon"]) <= 40000.0}
+                elif name == "mlt":
+                    meta = {"mask": dsl_mlt_bool(meta["like"], words,
+                                                 body_idx, n)[1]}
+                elif name == "geo_bounding_box":
+                    box = filt["geo_bounding_box"]["loc"]
+                    for corner, sign in (("top_left", 1), ("bottom_right",
+                                                           -1)):
+                        box[corner]["lat"] += sign * 0.3
+                        box[corner]["lon"] -= sign * 0.3
+                    t, b = box["top_left"]["lat"], box["bottom_right"]["lat"]
+                    le, r = box["top_left"]["lon"], box["bottom_right"]["lon"]
+                    meta = {"mask": (corpus["lat"] <= t) & (corpus["lat"] >= b)
+                            & (corpus["lon"] >= le) & (corpus["lon"] <= r)}
+                qv = corpus["v"][int(rng.integers(0, n))].tolist()
+                runs.append(({"query": {"knn": {"v": {
+                    "vector": qv, "k": k, "filter": filt}}}}, meta))
+            out[f"knn_{name} k={k}"] = runs
+    return out
+
+
+def dsl_mlt_bool(like: list, words: list, body_idx, n: int,
+                 min_doc_freq: int = 5, max_terms: int = 12) -> tuple:
+    """The more_like_this rewrite by numpy tf-idf: each like term's tf
+    times log(1 + n / df) over the shard, the best max_terms by (-score,
+    field, term), minimum_should_match 30% (at least 1). Returns the
+    explicit bool body and its match set."""
+    tf: dict = {}
+    for t in like:
+        tf[t] = tf.get(t, 0) + 1
+    scored = []
+    for t, c in tf.items():
+        df = len(body_idx.postings(t)[0])
+        if df < min_doc_freq or df == 0:
+            continue
+        scored.append((c * math.log(1.0 + n / df), "body", words[t], t))
+    scored.sort(key=lambda s: (-s[0], s[1], s[2]))
+    top = scored[:max_terms]
+    msm = max(int(len(top) * 30 / 100), 1)
+    query = {"bool": {"should": [{"term": {"body": {"value": w, "boost": s}}}
+                                 for s, _f, w, _t in top],
+                      "minimum_should_match": msm}}
+    counts = body_idx.match([t for *_r, t in top])[1]
+    return query, counts >= msm
+
+
+def dsl_hits(resp: dict) -> list:
+    return [(int(h["_id"]), h["_score"]) for h in resp["hits"]["hits"]]
+
+
+def dsl_truth_gate(node, kind: str, j: int, body: dict, meta: dict,
+                   resp: dict, corpus: dict, words: list, body_idx,
+                   slice_hash: np.ndarray) -> None:
+    """One index-L search against its numpy truth."""
+    label = f"[dsl] {kind} query {j}"
+    n = len(corpus["views"])
+    total = resp["hits"]["total"]["value"]
+    hits = resp["hits"]["hits"]
+    ids = [int(h["_id"]) for h in hits]
+    if "scores" in meta:
+        want = ranked_ids(meta["scores"], meta["mask"])
+        got_scores = np.asarray([h["_score"] for h in hits], np.float32)
+        if ids != want or not np.array_equal(
+                got_scores, meta["scores"][want]):
+            raise AssertionError(f"{label}: {ids} != numpy {want} (or not "
+                                 f"its score bits)")
+        if total != int(meta["mask"].sum()):
+            raise AssertionError(f"{label}: total {total} != numpy "
+                                 f"{int(meta['mask'].sum())}")
+        return
+    if "mask" in meta:
+        if ids != first_ids(meta["mask"]) or total != int(meta["mask"].sum()):
+            raise AssertionError(f"{label}: {ids} / {total} != numpy "
+                                 f"{first_ids(meta['mask'])} / "
+                                 f"{int(meta['mask'].sum())}")
+        return
+    if kind == "slice":
+        want = int(((slice_hash % np.uint32(4)) == meta["slice"]).sum())
+        if total != want:
+            raise AssertionError(f"{label}: total {total} != numpy murmur3 "
+                                 f"partition {want}")
+        return
+    if kind in ("mlt_text", "mlt_doc"):
+        query, mask = dsl_mlt_bool(meta["like"], words, body_idx, n)
+        want = node.search("lex", {"query": query})
+        if resp["hits"] != want["hits"] or total != int(mask.sum()):
+            raise AssertionError(f"{label}: not the hits of the explicit "
+                                 f"bool of its numpy tf-idf terms, or not "
+                                 f"its numpy total {int(mask.sum())}")
+        return
+    if kind in ("script_score_knn", "script_score_cosine"):
+        mask = body_idx.match(meta["terms"])[1] > 0
+        q = np.asarray(meta["qv"], np.float32)
+        v = corpus["v"].astype(np.float32)
+        dots = v @ q
+        if kind == "script_score_knn":
+            d2 = (np.float32(q @ q) - np.float32(2.0) * dots
+                  + (v * v).sum(1, dtype=np.float32))
+            scores = np.float32(1.0) / (np.float32(1.0) + d2)
+        else:
+            qn = np.sqrt(np.float32(q @ q))
+            vn = np.sqrt((v * v).sum(1, dtype=np.float32))
+            scores = (dots / np.maximum(qn * vn, np.float32(1e-12))
+                      + np.float32(1.0))
+        want = ranked_ids(scores, mask)
+        got = np.asarray([h["_score"] for h in hits], np.float32)
+        if kind == "script_score_knn":
+            if ids != want or not np.array_equal(got, scores[want]):
+                raise AssertionError(f"{label}: not numpy's knn_score "
+                                     f"ranking on eighths bit for bit")
+        elif not np.allclose(got, scores[ids], rtol=1e-6, atol=0) or \
+                not np.allclose(scores[ids], scores[want], rtol=1e-6, atol=0):
+            raise AssertionError(f"{label}: cosine scores off numpy's")
+        if total != int(mask.sum()):
+            raise AssertionError(f"{label}: total {total} != {mask.sum()}")
+        return
+    if kind == "script_score_painless":
+        mask = body_idx.match(meta["terms"])[1] > 0
+        scores = (corpus["views"].astype(np.float64) * 0.001
+                  + corpus["need"]).astype(np.float32)
+        want = ranked_ids(scores, mask)
+        got = np.asarray([h["_score"] for h in hits], np.float32)
+        if ids != want or not np.array_equal(got, scores[want]) or \
+                total != int(mask.sum()):
+            raise AssertionError(f"{label}: not numpy's painless scores")
+        return
+    if kind == "script_score_over_knn":
+        plain = node.search("lex", {"query": {"bool": {"must": [
+            body["query"]["script_score"]["query"]]}}})
+        if dsl_hits(resp) != dsl_hits(plain) or total != 100:
+            raise AssertionError(f"{label}: not the knn's own hits and l2 "
+                                 f"scores")
+        return
+    if kind == "script_fields":
+        for h in hits:
+            d = int(h["_id"])
+            want = {"views2": [int(corpus["views"][d]) * 2],
+                    "need_k": [int(corpus["need"][d]) + meta["k"]]}
+            if h.get("fields") != want:
+                raise AssertionError(f"{label}: doc {d} fields "
+                                     f"{h.get('fields')} != {want}")
+        plain = node.search("lex", {"query": body["query"]})
+        if dsl_hits(resp) != dsl_hits(plain):
+            raise AssertionError(f"{label}: not the match's hits")
+        return
+    if kind == "suggest_term":
+        opts = [o["text"] for o in resp["suggest"]["fix"][0]["options"]]
+        if meta["word"] not in opts:
+            raise AssertionError(f"{label}: {opts} lacks {meta['word']}")
+        return
+    if kind == "suggest_phrase":
+        opts = [o["text"] for o in resp["suggest"]["fix"][0]["options"]]
+        if meta["phrase"] not in opts:
+            raise AssertionError(f"{label}: {opts} lacks {meta['phrase']}")
+        return
+    if kind == "template":
+        want = node.search("lex", meta["rendered"])
+        if resp["hits"] != want["hits"] or not hits:
+            raise AssertionError(f"{label}: not the rendered body's hits")
+        return
+    if kind in ("hybrid_norm", "hybrid_rrf"):
+        dsl_fusion_gate(node, label, kind, meta, resp)
+        return
+    raise AssertionError(f"{label}: no truth")
+
+
+def dsl_fusion_gate(node, label: str, kind: str, meta: dict,
+                    resp: dict) -> None:
+    """A hybrid search's fused scores against a numpy fusion of its two
+    sub-queries' own results (each alone, size 10, on the per-shard route
+    the hybrid query phase takes): min_max a sub-query over its hits (a
+    0.001 floor), the arithmetic mean under weights [0.3, 0.7]; or RRF,
+    1 / (60 + rank) summed; rtol 1e-6."""
+    from opensearch_tpu_torch.search import distributed_serving
+
+    subs = []
+    try:
+        distributed_serving.enabled = False
+        for sub in meta["subs"]:
+            subs.append(dsl_hits(node.search("lex", {"query": sub})))
+    finally:
+        distributed_serving.enabled = True
+    fused: dict = {}
+    if kind == "hybrid_rrf":
+        for hits in subs:
+            for rank, (d, _s) in enumerate(sorted(
+                    hits, key=lambda h: (-h[1], h[0]))):
+                fused[d] = fused.get(d, 0.0) + 1.0 / (60 + rank + 1)
+    else:
+        for w, hits in zip((0.3, 0.7), subs):
+            s = np.asarray([h[1] for h in hits], np.float64)
+            lo, hi = s.min(), s.max()
+            for d, sc in hits:
+                norm = max((sc - lo) / (hi - lo), 0.001) if hi > lo else 1.0
+                fused[d] = fused.get(d, 0.0) + w * norm
+        fused = {d: f / (0.3 + 0.7) for d, f in fused.items()}
+    got = dsl_hits(resp)
+    want = sorted(fused.items(), key=lambda kv: (-kv[1], kv[0]))[:10]
+    # the same ranking, hits whose fused scores tie within rtol 1e-6 free
+    # to swap
+    if len(got) != len(want) or not np.allclose(
+            [s for _d, s in got], [s for _d, s in want], rtol=1e-6, atol=0):
+        raise AssertionError(f"{label}: {got} not numpy's fusion {want}")
+    for d, s in got:
+        if abs(s - fused[d]) > 1e-6 * abs(fused[d]):
+            raise AssertionError(f"{label}: doc {d} fused {s!r}, numpy "
+                                 f"{fused[d]!r}")
+
+
+def dsl_k1_gate(kf, label: str, got: dict, searches: int, k: int,
+                stacked: bool) -> None:
+    """One K1 launch a search on the tier scan_tier names: the stacked
+    step's pool width for k (a filtered knn), or the per-shard route's for
+    k's power-of-two bucket (a knn inside hybrid or script_score; one
+    segment)."""
+    kb = k if stacked else 1 << (k - 1).bit_length()
+    tier = kf.scan_tier("fp32", kf.fused_pool_width(kb, "fp32"))
+    route = "stacked, filtered" if stacked else "per-shard"
+    if got["knn_fused"] != searches or got[tier] != searches or \
+            got["filtered"] != (searches if stacked else 0):
+        raise AssertionError(f"{label}: want {searches} K1 launches on the "
+                             f"{tier} tier ({route}): {got}")
+
+
+def dsl_index_j(node, seed: int, words: list) -> dict:
+    """Index J, a Q&A forum in one shard: DSL_J_QUESTIONS questions and
+    DSL_J_ANSWERS answers (a join field ``qa``, question -> answer, each
+    answer routed to its question), body text, a keyword tag, votes, a
+    nested ``comments`` (author, stars) on answers and a 128-d ``v`` in
+    eighths; by host _bulk and one refresh."""
+    rng = np.random.default_rng([seed, 18, 1])
+    nq, na = DSL_J_QUESTIONS, DSL_J_ANSWERS
+    n = nq + na
+    parent = rng.integers(0, nq, na)
+    tags = rng.integers(0, 40, n)
+    votes = rng.integers(0, 100, n)
+    authors = [rng.integers(0, 200, int(rng.integers(1, 4)))
+               for _ in range(na)]
+    stars = [rng.integers(1, 6, len(a)) for a in authors]
+    vecs = np.round(clustered(rng, n, DIM) * 8.0) / 8.0
+    bodies = rng.integers(0, 5_000, (n, 12))
+    node.create_index("qa", {"settings": {"number_of_shards": 1},
+                             "mappings": {"properties": {
+        "qa": {"type": "join", "relations": {"question": "answer"}},
+        "body": {"type": "text"}, "tag": {"type": "keyword"},
+        "votes": {"type": "long"},
+        "comments": {"type": "nested", "properties": {
+            "author": {"type": "keyword"}, "stars": {"type": "long"}}},
+        "v": {"type": "knn_vector", "dimension": DIM,
+              "similarity": "l2_norm"}}}})
+    t0 = time.perf_counter()
+    ops = []
+    for i in range(n):
+        doc = {"body": " ".join(words[t] for t in bodies[i]),
+               "tag": f"t{int(tags[i])}", "votes": int(votes[i]),
+               "v": vecs[i].tolist()}
+        if i < nq:
+            doc["qa"] = "question"
+            ops.append(("index", {"_index": "qa", "_id": f"q{i}"}, doc))
+        else:
+            a = i - nq
+            p = f"q{int(parent[a])}"
+            doc["qa"] = {"name": "answer", "parent": p}
+            doc["comments"] = [{"author": f"u{int(x)}", "stars": int(s)}
+                               for x, s in zip(authors[a], stars[a])]
+            ops.append(("index", {"_index": "qa", "_id": f"a{a}",
+                                  "routing": p}, doc))
+        if len(ops) == 5000 or i == n - 1:
+            if node.bulk(ops)["errors"]:
+                raise AssertionError("bulk into [qa] reported errors")
+            ops = []
+    node.refresh("qa")
+    return {"parent": parent, "tags": tags, "votes": votes,
+            "authors": authors, "v": vecs, "ingest_s":
+            time.perf_counter() - t0}
+
+
+def dsl_j_bodies(rng, j: dict) -> dict:
+    """DSL_QUERIES bodies of each index-J type with their numpy doc
+    masks over J's docs in ingest order (questions, then answers)."""
+    nq, na = DSL_J_QUESTIONS, DSL_J_ANSWERS
+    n = nq + na
+    out = {k: [] for k in ("has_child", "has_parent", "parent_id",
+                           "nested", "knn_has_parent")}
+    a_votes = j["votes"][nq:]
+    for _ in range(DSL_QUERIES):
+        x = int(rng.integers(30, 90))
+        m = int(rng.integers(1, 4))
+        cnt = np.bincount(j["parent"][a_votes >= x], minlength=nq)
+        mask = np.zeros(n, bool)
+        mask[:nq] = cnt >= m
+        out["has_child"].append((
+            {"query": {"has_child": {"type": "answer", "min_children": m,
+                                     "query": {"range": {
+                                         "votes": {"gte": x}}}}}},
+            {"mask": mask}))
+        t = int(rng.integers(0, 40))
+        mask = np.zeros(n, bool)
+        mask[nq:] = j["tags"][:nq][j["parent"]] == t
+        out["has_parent"].append((
+            {"query": {"has_parent": {"parent_type": "question", "query": {
+                "term": {"tag": f"t{t}"}}}}}, {"mask": mask}))
+        q = int(rng.integers(0, nq))
+        mask = np.zeros(n, bool)
+        mask[nq:] = j["parent"] == q
+        out["parent_id"].append((
+            {"query": {"parent_id": {"type": "answer", "id": f"q{q}"}}},
+            {"mask": mask}))
+        u = int(rng.integers(0, 200))
+        mask = np.zeros(n, bool)
+        mask[nq:] = [u in a for a in j["authors"]]
+        out["nested"].append((
+            {"query": {"nested": {"path": "comments", "query": {
+                "term": {"comments.author": f"u{u}"}}}}}, {"mask": mask}))
+        t = int(rng.integers(0, 40))
+        mask = np.zeros(n, bool)
+        mask[nq:] = j["tags"][:nq][j["parent"]] == t
+        qv = j["v"][int(rng.integers(0, n))].tolist()
+        out["knn_has_parent"].append((
+            {"query": {"knn": {"v": {"vector": qv, "k": 10, "filter": {
+                "has_parent": {"parent_type": "question", "query": {
+                    "term": {"tag": f"t{t}"}}}}}}}}, {"mask": mask}))
+    return out
+
+
+def dsl_j_id(i: int) -> str:
+    nq = DSL_J_QUESTIONS
+    return f"q{i}" if i < nq else f"a{i - nq}"
+
+
+def dsl_index_p(node, rng, corpus: dict, words: list, body_idx) -> list:
+    """Index P, a percolator index of DSL_P_QUERIES stored queries over
+    index L's fields and vocabulary: term on tag, range on views, match on
+    one body word, and a bool of two of those. Returns each query's
+    (kind, args) for the numpy truth."""
+    df = np.diff(body_idx.bounds)
+    common = np.nonzero(df >= len(corpus["views"]) // 40)[0]
+    tag_p = np.bincount(corpus["tag"], minlength=LEXICAL_TAGS).astype(
+        np.float64)
+    tag_p /= tag_p.sum()
+    node.create_index("perc", {"settings": {"number_of_shards": 1},
+                               "mappings": {"properties": {
+        "q": {"type": "percolator"}, "body": {"type": "text"},
+        "tag": {"type": "keyword"}, "views": {"type": "long"}}}})
+
+    def one():
+        kind = int(rng.integers(0, 3))
+        if kind == 0:
+            t = int(rng.choice(LEXICAL_TAGS, p=tag_p))
+            return {"term": {"tag": f"g{t}"}}, ("tag", t)
+        if kind == 1:
+            lo = int(rng.integers(0, 2_000))
+            hi = lo + int(rng.integers(100, 5_000))
+            return {"range": {"views": {"gte": lo, "lte": hi}}}, \
+                ("views", lo, hi)
+        w = int(rng.choice(common))
+        return {"match": {"body": words[w]}}, ("word", w)
+
+    spec, ops = [], []
+    for i in range(DSL_P_QUERIES):
+        if i % 4 == 3:
+            (q1, s1), (q2, s2) = one(), one()
+            query, s = {"bool": {"must": [q1, q2]}}, ("and", s1, s2)
+        else:
+            query, s = one()
+        spec.append(s)
+        ops.append(("index", {"_index": "perc", "_id": str(i)}, {"q": query}))
+    if node.bulk(ops, refresh=True)["errors"]:
+        raise AssertionError("bulk into [perc] reported errors")
+    return spec
+
+
+def dsl_percolate_truth(spec: list, doc: dict) -> set:
+    def holds(s) -> bool:
+        if s[0] == "and":
+            return holds(s[1]) and holds(s[2])
+        if s[0] == "tag":
+            return doc["tag"] == s[1]
+        if s[0] == "views":
+            return s[1] <= doc["views"] <= s[2]
+        return s[1] in doc["tokens"]
+
+    return {str(i) for i, s in enumerate(spec) if holds(s)}
+
+
+def dsl_main_phase(node, kf, dev, seed: int, corpus: dict, words: list,
+                   body_idx, n_segments: int) -> dict:
+    """The rest of the query DSL on index L (the lexical phase's node,
+    after the aggregations and before its ledger gate), on index J (a
+    Q&A forum) and on index P (a percolator index). Gates, each a
+    non-zero exit on a miss:
+
+    1. index L's 23 types (dsl_bodies): hits and totals numpy's
+       (dsl_truth_gate): haversine in float64, exact boxes, the rank and
+       distance formulas' float32 bits, terms_set's counts, the murmur3
+       partitions (summing to the live count), the MLT rewrite's hits
+       those of the explicit bool of its numpy tf-idf terms, knn_score on
+       eighths bit for bit, cosine within 1e-6, painless scores'
+       bits, script fields, each suggester offering the word its typo
+       came from, each template's hits the rendered body's, each hybrid's
+       fused scores a numpy fusion of its sub-queries' own results
+       (rtol 1e-6); script_score over a knn the knn's own hits;
+    2. knn at k = 10 and 100 filtered by geo_distance, geo_bounding_box,
+       terms_set, script and more_like_this, and on index J by has_parent:
+       every hit inside the filter's numpy set, min(k, set) hits;
+    3. every kNN-bearing search one K1 launch on the tier scan_tier names
+       (dsl_k1_gate), and under search.knn.kernel xla (K1's plain
+       version) the same hits bit for bit and no K1 launch;
+    4. index J: has_child (min_children), has_parent, parent_id, nested:
+       numpy's sets; DSL_UPDATES scripted updates and a scripted_upsert,
+       each doc read back with its new value;
+    5. index P: DSL_PERCOLATE percolate searches of documents of index L:
+       the stored queries numpy's evaluation matches, and the residency
+       ledger's bytes unchanged by each (the throwaway segment freed);
+    6. DSL_HTTP searches of each type over the port's HTTP server (the
+       pipelines and the template made through their routes): the
+       in-process hits.
+    Recorded: each type's p50 / p99 / QPS, the device ms beside the host
+    wall of the K1-filtered types, the host cost a doc of the script and
+    join loops, percolate's cost a stored query."""
+    from opensearch_tpu_torch.rest.http import HttpServer
+    from opensearch_tpu_torch.search import ann, distributed_serving
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng([seed, 18, 2])
+    n = len(corpus["views"])
+    (shard,) = node.indices["lex"].shards.values()
+    host = shard.acquire_searcher().segments[0][0]
+    if n_segments != 1 or host.doc_ids[n - 1] != str(n - 1):
+        raise AssertionError("[dsl] the truth reads index L's one segment "
+                             "in id order")
+    slice_hash = murmur3_ids(n)
+    from opensearch_tpu_torch.common.hashing import murmur3_x86_32
+
+    for d in (0, 9, 10, n // 2, n - 1):
+        if murmur3_x86_32(str(d).encode()) & 0xFFFFFFFF != int(
+                slice_hash[d]):
+            raise AssertionError(f"[dsl] numpy murmur3 of id {d} is not "
+                                 f"the hashing module's")
+    tier_counter = {"lists": kf.list_launches, "wide": kf.wide_launches,
+                    "mma": kf.mma_launches}
+    out = {"types": {}, "launches": {}}
+    bodies = dsl_bodies(rng, corpus, words, body_idx)
+    knn_bodies = dsl_knn_bodies(rng, corpus, words, body_idx, bodies)
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    client = RestClient(server.port)
+    try:
+        # the pipelines and the template through their routes
+        client.ok("PUT", "/_search/pipeline/dsl-norm", {
+            "phase_results_processors": [{"normalization-processor": {
+                "normalization": {"technique": "min_max"},
+                "combination": {"technique": "arithmetic_mean",
+                                "parameters": {"weights": [0.3, 0.7]}}}}]})
+        client.ok("PUT", "/_search/pipeline/dsl-rrf", {
+            "phase_results_processors": [{"score-ranker-processor": {
+                "combination": {"technique": "rrf", "rank_constant": 60}}}]})
+        client.ok("PUT", "/_scripts/dsl-template", {"script": {
+            "lang": "mustache",
+            "source": '{"query": {"bool": {"must": [{"match": {"body": '
+                      '"{{q}}"}}], "filter": [{"range": {"views": {"gte": '
+                      '{{v}}}}}]}}, "size": 10}'}})
+
+        def run(kind: str, body: dict, meta: dict, index: str = "lex"):
+            if kind == "template":
+                return node.search_template(index, dict(body))
+            return node.search(index, dict(body),
+                               search_pipeline=meta.get("pipeline"))
+
+        responses: dict = {}
+        knn_kinds = {"script_score_over_knn": (100, False),
+                     "hybrid_norm": (100, False),
+                     "hybrid_rrf": (100, False)}
+        for kind, runs in list(bodies.items()) + list(knn_bodies.items()):
+            label = f"[dsl] {kind}"
+            for c in (kf.launches, *tier_counter.values()):
+                c.reset()
+            filtered0 = distributed_serving.stats["filtered"]
+            lat, resps = [], []
+            for body, meta in runs:
+                t0 = time.perf_counter()
+                resps.append(run(kind, body, meta))
+                lat.append(time.perf_counter() - t0)
+            launches = {"knn_fused": kf.launches.count,
+                        **{t: c.count for t, c in tier_counter.items()},
+                        "filtered": distributed_serving.stats["filtered"]
+                        - filtered0}
+            res = latency_summary(lat)
+            res["launches"] = launches
+            if kind.startswith("knn_"):
+                k = int(kind.split("k=")[1])
+                dsl_k1_gate(kf, label, launches, len(runs), k, stacked=True)
+                for j, ((body, meta), resp) in enumerate(zip(runs, resps)):
+                    ids = [int(h["_id"]) for h in resp["hits"]["hits"]]
+                    allowed = meta["mask"]
+                    want_n = min(10, int(allowed.sum()))
+                    if len(ids) != want_n or not all(allowed[d] for d in ids):
+                        raise AssertionError(f"{label} query {j}: {len(ids)}"
+                                             f" hits (want {want_n}), all "
+                                             f"inside the filter's set")
+            else:
+                if kind in knn_kinds:
+                    dsl_k1_gate(kf, label, launches, len(runs),
+                                knn_kinds[kind][0], stacked=False)
+                elif launches["knn_fused"]:
+                    raise AssertionError(f"{label}: {launches} K1 launches "
+                                         f"with no knn in the body")
+                for j, ((body, meta), resp) in enumerate(zip(runs, resps)):
+                    dsl_truth_gate(node, kind, j, body, meta, resp, corpus,
+                                   words, body_idx, slice_hash)
+            if kind == "script":
+                res["host_us_a_doc"] = float(np.median(lat)) / n * 1e6
+            responses[kind] = resps
+            out["types"][kind] = res
+            out["launches"][kind] = launches["knn_fused"]
+            log(f"{label}: {json.dumps(res)}")
+        slices = [r["hits"]["total"]["value"]
+                  for r in responses["slice"][:4]]
+        if sum(slices) != n:
+            raise AssertionError(f"[dsl] slice totals {slices} do not sum "
+                                 f"to the live count {n}")
+        # index J and index P
+        jout = dsl_j_phase(node, kf, seed, words, tier_counter, rng)
+        out["index_j"] = jout.pop("summary")
+        responses.update(jout["responses"])
+        out["types"].update(jout["types"])
+        out["launches"].update(jout["launches"])
+        out["index_p"] = dsl_p_phase(node, rng, corpus, words, body_idx,
+                                     default_ledger)
+        responses["percolate"] = out["index_p"].pop("responses")
+        p_bodies = out["index_p"].pop("bodies")
+        # gate 3: every kNN-bearing type under K1's plain version
+        xla = [k for k in responses if k.startswith("knn_")
+               or k in knn_kinds]
+        try:
+            ann.default_config.configure(exact_kernel="xla")
+            kf.launches.reset()
+            for kind in xla:
+                runs = (knn_bodies.get(kind) or bodies.get(kind)
+                        or jout["bodies"][kind])
+                index = "qa" if kind == "knn_has_parent" else "lex"
+                for j, (body, meta) in enumerate(runs):
+                    got = run(kind, body, meta, index)
+                    if got["hits"] != responses[kind][j]["hits"]:
+                        raise AssertionError(f"[dsl] {kind} query {j}: K1's "
+                                             f"plain version gave other "
+                                             f"hits")
+            if kf.launches.count:
+                raise AssertionError(f"[dsl] K1 launched {kf.launches.count}"
+                                     f" times under search.knn.kernel xla")
+        finally:
+            ann.default_config.configure(exact_kernel="auto")
+        log(f"[dsl] {len(xla)} kNN-bearing types under search.knn.kernel "
+            f"xla (K1's plain version): the kernel's hits bit for bit")
+        # gate 6: over HTTP
+        out["http"] = dsl_http(client, bodies, knn_bodies, jout["bodies"],
+                               p_bodies, responses)
+        out["index_j"].update(dsl_j_updates(node, jout["j"], rng))
+        # the device time beside the host wall of the K1-filtered types
+        out["device"] = {}
+        for kind in ("knn_geo_distance k=10", "knn_terms_set k=10",
+                     "knn_mlt k=10", "hybrid_norm"):
+            body, meta = (knn_bodies.get(kind) or bodies[kind])[0]
+            prof = device_profile(lambda: run(kind, body, meta), 5)
+            out["device"][kind] = prof and {
+                "device_ms": prof["device_ms"], "wall_ms": prof["wall_ms"],
+                "top": prof["top"]}
+        log(f"[dsl] device ms against host wall: "
+            f"{json.dumps(out['device'])}")
+    finally:
+        client.close()
+        server.stop_thread()
+    for name in ("qa", "perc"):
+        node.delete_index(name)
+    default_ledger.verify_identity()
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def dsl_j_phase(node, kf, seed: int, words: list, tier_counter: dict,
+                rng) -> dict:
+    """Index J's searches, its K1-filtered knn, the scripted updates."""
+    from opensearch_tpu_torch.search import distributed_serving
+
+    j = dsl_index_j(node, seed, words)
+    bodies = dsl_j_bodies(rng, j)
+    out = {"types": {}, "launches": {}, "responses": {}, "bodies": bodies}
+    nq = DSL_J_QUESTIONS
+    for kind, runs in bodies.items():
+        label = f"[dsl] J {kind}"
+        for c in (kf.launches, *tier_counter.values()):
+            c.reset()
+        filtered0 = distributed_serving.stats["filtered"]
+        lat, resps = [], []
+        for body, _meta in runs:
+            t0 = time.perf_counter()
+            resps.append(node.search("qa", dict(body)))
+            lat.append(time.perf_counter() - t0)
+        launches = {"knn_fused": kf.launches.count,
+                    **{t: c.count for t, c in tier_counter.items()},
+                    "filtered": distributed_serving.stats["filtered"]
+                    - filtered0}
+        if kind == "knn_has_parent":
+            dsl_k1_gate(kf, label, launches, len(runs), 10, stacked=True)
+        elif launches["knn_fused"]:
+            raise AssertionError(f"{label}: K1 launched without a knn")
+        for i, ((_body, meta), resp) in enumerate(zip(runs, resps)):
+            ids = [h["_id"] for h in resp["hits"]["hits"]]
+            total = resp["hits"]["total"]["value"]
+            if kind == "knn_has_parent":
+                allowed = {dsl_j_id(d) for d in np.nonzero(meta["mask"])[0]}
+                if len(ids) != min(10, len(allowed)) or \
+                        not set(ids) <= allowed:
+                    raise AssertionError(f"{label} query {i}: hits outside "
+                                         f"the has_parent set")
+                continue
+            want = [dsl_j_id(d) for d in first_ids(meta["mask"])]
+            if ids != want or total != int(meta["mask"].sum()):
+                raise AssertionError(f"{label} query {i}: {ids} / {total} "
+                                     f"!= numpy {want} / "
+                                     f"{int(meta['mask'].sum())}")
+        res = latency_summary(lat)
+        res["launches"] = launches
+        if kind in ("has_child", "has_parent"):
+            res["host_us_a_doc"] = float(np.median(lat)) / (
+                nq + DSL_J_ANSWERS) * 1e6
+        out["types"][f"J {kind}"] = res
+        out["launches"][f"J {kind}"] = launches["knn_fused"]
+        out["responses"][kind] = resps
+        log(f"{label}: {json.dumps(res)}")
+    out["summary"] = {"docs": nq + DSL_J_ANSWERS, "ingest_s": j["ingest_s"]}
+    out["j"] = j
+    return out
+
+
+def dsl_j_updates(node, j: dict, rng) -> dict:
+    """DSL_UPDATES scripted updates of index J's answers and one
+    scripted_upsert, each doc read back with its new value, and the count
+    of docs past 100 votes numpy's."""
+    nq = DSL_J_QUESTIONS
+    picks = rng.choice(DSL_J_ANSWERS, DSL_UPDATES, replace=False)
+    deltas = rng.integers(1, 50, DSL_UPDATES)
+    t0 = time.perf_counter()
+    for a, d in zip(picks.tolist(), deltas.tolist()):
+        node.update_doc("qa", f"a{a}", {"script": {
+            "source": "ctx._source.votes += params.d", "params": {"d": d}}},
+            routing=f"q{int(j['parent'][a])}")
+    node.update_doc("qa", "a_new", {
+        "scripted_upsert": True, "script": {
+            "source": "ctx._source.votes += 100"},
+        "upsert": {"votes": 1, "tag": "t0"}}, routing="q0")
+    update_s = time.perf_counter() - t0
+    node.refresh("qa")
+    for a, d in zip(picks.tolist(), deltas.tolist()):
+        got = node.get_doc("qa", f"a{a}", routing=f"q{int(j['parent'][a])}")
+        if got["_source"]["votes"] != int(j["votes"][nq + a]) + d:
+            raise AssertionError(f"[dsl] J update of a{a}: votes "
+                                 f"{got['_source']['votes']}")
+    if node.get_doc("qa", "a_new", routing="q0")["_source"]["votes"] != 101:
+        raise AssertionError("[dsl] J scripted_upsert: not 101 votes")
+    total = node.count("qa", {"query": {"range": {"votes": {"gte": 101}}}})
+    want = int(((j["votes"][nq:][picks] + deltas) >= 101).sum()) + 1 + int(
+        (j["votes"] >= 101).sum())
+    if total["count"] != want:
+        raise AssertionError(f"[dsl] J after the updates: {total} docs with "
+                             f"votes >= 101, numpy {want}")
+    out = {"updates": DSL_UPDATES + 1,
+           "update_ms_each": update_s / (DSL_UPDATES + 1) * 1e3}
+    log(f"[dsl] J scripted updates, read back: {json.dumps(out)}")
+    return out
+
+
+def dsl_p_phase(node, rng, corpus: dict, words: list, body_idx,
+                ledger) -> dict:
+    """DSL_PERCOLATE percolate searches of index-L documents on index P."""
+    t0 = time.perf_counter()
+    spec = dsl_index_p(node, rng, corpus, words, body_idx)
+    ingest_s = time.perf_counter() - t0
+    bo, body = corpus["body_off"], corpus["body"]
+    lat, resps, p_bodies = [], [], []
+    for i in range(DSL_PERCOLATE):
+        d = int(rng.integers(0, len(corpus["views"])))
+        tokens = body[bo[d]:bo[d + 1]]
+        doc = {"body": " ".join(words[t] for t in tokens),
+               "tag": f"g{int(corpus['tag'][d])}",
+               "views": int(corpus["views"][d])}
+        p_bodies.append({"size": DSL_P_QUERIES, "query": {
+            "percolate": {"field": "q", "document": doc}}})
+        before = ledger.resident_bytes()
+        t1 = time.perf_counter()
+        resp = node.search("perc", dict(p_bodies[-1]))
+        lat.append(time.perf_counter() - t1)
+        ledger.verify_identity()
+        if ledger.resident_bytes() != before:
+            raise AssertionError(f"[dsl] percolate {i}: the ledger holds "
+                                 f"{ledger.resident_bytes() - before} more "
+                                 f"bytes (the throwaway segment leaked)")
+        want = dsl_percolate_truth(spec, {
+            "tag": int(corpus["tag"][d]), "views": int(corpus["views"][d]),
+            "tokens": set(tokens.tolist())})
+        got = {h["_id"] for h in resp["hits"]["hits"]}
+        if got != want or resp["hits"]["total"]["value"] != len(want):
+            raise AssertionError(f"[dsl] percolate {i}: {len(got)} stored "
+                                 f"queries, numpy {len(want)}")
+        resps.append(resp)
+    res = latency_summary(lat)
+    res.update(stored_queries=DSL_P_QUERIES, ingest_s=ingest_s,
+               matched_p50=float(np.median(
+                   [r["hits"]["total"]["value"] for r in resps])),
+               ms_a_stored_query=float(np.median(lat)) / DSL_P_QUERIES * 1e3)
+    log(f"[dsl] P percolate: {json.dumps(res)}")
+    res.update(responses=resps, bodies=p_bodies)
+    return res
+
+
+def dsl_http(client, bodies: dict, knn_bodies: dict, j_bodies: dict,
+             p_bodies: list, responses: dict) -> dict:
+    """DSL_HTTP searches of each type over the port's server: the
+    in-process hits (and suggestions)."""
+    out = {}
+    for kind, runs in (list(bodies.items()) + list(knn_bodies.items())
+                       + list(j_bodies.items())
+                       + [("percolate", [(b, {}) for b in p_bodies])]):
+        index = ("qa" if kind in j_bodies
+                 else "perc" if kind == "percolate" else "lex")
+        lat = []
+        # a script filter costs one painless run a doc of index L
+        depth = 1 if kind == "script" else DSL_HTTP
+        for j, (body, meta) in enumerate(runs[:depth]):
+            path = f"/{index}/_search"
+            if kind == "template":
+                path = f"/{index}/_search/template"
+            elif meta.get("pipeline"):
+                path += f"?search_pipeline={meta['pipeline']}"
+            t0 = time.perf_counter()
+            payload = client.ok("POST", path, body)
+            lat.append(time.perf_counter() - t0)
+            want = json_view(responses[kind][j])
+            for key in ("hits", "suggest"):
+                if payload.get(key) != want.get(key):
+                    raise AssertionError(f"[dsl] {kind} query {j} over "
+                                         f"HTTP: not the in-process {key}")
+        out[kind] = latency_summary(lat)
+    log(f"[dsl] over HTTP: {DSL_HTTP} searches of each type the in-process "
+        f"hits; "
+        f"{json.dumps({k: round(v['p50_ms'], 3) for k, v in out.items()})}"
+        f" p50 ms")
+    return out
+
+
+def dsl_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
+    """``--phases dsl``: index L built as lexical_main_phase builds it (the
+    same corpus and dsl fields from the seed), then dsl_main_phase alone,
+    then the ledger gate."""
+    from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    rng = np.random.default_rng(seed + 15)
+    words = [lexical_word(i) for i in range(LEXICAL_VOCAB)]
+    corpus = lexical_corpus(rng, n_docs)
+    corpus.update(dsl_fields(seed, n_docs))
+    body_idx = TokenIndex(corpus["body"], corpus["body_off"])
+    base = default_ledger.resident_bytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device=dev)
+        ingest_s = lexical_ingest(node, "lex", corpus, words)
+        (shard,) = node.indices["lex"].shards.values()
+        n_segments = len(shard.acquire_searcher().segments)
+        log(f"[dsl] index L: {n_docs} docs, {n_segments} segment(s), bulk "
+            f"+ refresh {ingest_s:.1f} s")
+        out = dsl_main_phase(node, kf, dev, seed, corpus, words, body_idx,
+                             n_segments)
+        # match bodies: the profiled one leaves a bm25_term_scores row
+        out["ledger"] = ledger_gate(node, "dsl", "lex", [
+            {"query": {"match": {"body": f"{words[w]} {words[w + 40]}"}}}
+            for w in (5, 9)], base)
+        node.close()
+    out["ingest_s"] = ingest_s
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7514,8 +8671,9 @@ def main() -> int:
                          f"kernels (default: all of {','.join(KERNELS)})")
     args = ap.parse_args()
     phases = set(args.phases.split(","))
-    # aggregations run with the main phases, or alone
+    # aggregations run with the main phases, or alone; so does the dsl
     want_aggs = bool(phases & {"main", "aggs"})
+    want_dsl = bool(phases & {"main", "dsl"})
     aggs_launches: dict = {}
     chosen = set(args.kernels.split(","))
     if not chosen <= set(KERNELS):
@@ -7883,7 +9041,8 @@ def main() -> int:
         # the lexical query phase on index L: its kNN types' K1 launches,
         # each type's counted from 0
         t0 = time.perf_counter()
-        lexical = lexical_main_phase(kf, dev, args.seed, aggs=want_aggs)
+        lexical = lexical_main_phase(kf, dev, args.seed, aggs=want_aggs,
+                                     dsl=want_dsl)
         entry["lexical_main_path"] = lexical
         entry["lexical_launches"] = {
             qtype: lexical["types"][qtype]["launches"]["knn_fused"]
@@ -7899,9 +9058,18 @@ def main() -> int:
             aggs = lexical.pop("aggs")
             phase_s["aggs"] = aggs["wall_s"]
             phase_s["lexical"] -= aggs["wall_s"]
-    elif "aggs" in phases:
-        aggs = aggs_phase(kf, dev, args.seed)
-        phase_s["aggs"] = aggs["wall_s"]
+        if want_dsl:
+            dsl = lexical.pop("dsl")
+            phase_s["dsl"] = dsl["wall_s"]
+            phase_s["lexical"] -= dsl["wall_s"]
+    else:
+        # each alone builds its own index L
+        if "aggs" in phases:
+            aggs = aggs_phase(kf, dev, args.seed)
+            phase_s["aggs"] = aggs["wall_s"]
+        if "dsl" in phases:
+            dsl = dsl_phase(kf, dev, args.seed)
+            phase_s["dsl"] = dsl["wall_s"]
     if want_aggs:
         # each scope's K1 launches on index L, counted from 0
         aggs_launches.update({scope: res["launches"]["knn_fused"]
@@ -7911,6 +9079,13 @@ def main() -> int:
         entry["aggs_main_path"] = aggs
         if entry["launches"] is None:
             entry["launches"] = sum(aggs_launches.values())
+    if want_dsl:
+        # each kNN-bearing dsl type's K1 launches, counted from 0
+        entry["dsl_launches"] = {kind: n for kind, n in
+                                 dsl["launches"].items() if n}
+        entry["dsl_main_path"] = dsl
+        if entry["launches"] is None:
+            entry["launches"] = sum(entry["dsl_launches"].values())
     if "main" in phases:
         t0 = time.perf_counter()
         telemetry = telemetry_phase(dev, telemetry_since)

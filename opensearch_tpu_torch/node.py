@@ -4,10 +4,19 @@ Counterpart of opensearch_tpu/node.py's ``TpuNode``, for the slice ported
 so far: the index lifecycle (``create_index``, ``delete_index``,
 ``get_mapping``, ``get_settings``, ``resolve_indices``), single-document
 and bulk writes (``index_doc``, ``get_doc``, ``delete_doc``,
-``update_doc`` with a partial ``doc``, ``doc_as_upsert``, ``upsert`` and
-``detect_noop``; ``bulk`` with index, create, update and delete),
-``refresh``, ``search`` (the scoring query DSL with sort, search_after,
-rescore, collapse, named queries and the fetch options), ``count``,
+``update_doc`` with a partial ``doc``, ``doc_as_upsert``, ``upsert``,
+``detect_noop``, a painless ``script`` and ``scripted_upsert``; ``bulk``
+with index, create, update and delete), ``refresh``, ``search`` (the
+whole query DSL with sort, search_after, rescore, collapse, named
+queries, the fetch options, ``script_fields``, ``suggest`` and ``slice``;
+a ``more_like_this`` doc reference resolved to its text first; the
+``search_pipeline`` parameter, a body key of that name or the index's
+``search.default_pipeline`` applying a search pipeline's request and
+response processors and fusing a ``hybrid`` query), stored scripts
+(``put_stored_script``, ``get_stored_script``, ``delete_stored_script``,
+kept in the data path's ``stored_scripts.json``) and search templates
+(``render_search_template``, ``search_template``), the search pipelines
+of ``search_pipelines`` (search/pipeline.py), ``count``,
 ``msearch`` (runs of bare kNN bodies in one stacked launch),
 ``cluster_health`` and ``close``. Every shard publishes its segments to the
 node's device; searches run the stacked serving step on it
@@ -27,7 +36,7 @@ and the heat settings from a flat settings map (the ``_cluster/settings``
 API is not ported yet).
 
 Still raising "not yet ported": wildcard index expressions, aliases,
-ingest pipelines, scripted updates.
+ingest pipelines, scroll and point-in-time reads.
 
 The device is the card unless the caller asks for the CPU::
 
@@ -38,6 +47,7 @@ The device is the card unless the caller asks for the CPU::
 from __future__ import annotations
 
 import base64
+import copy
 import difflib
 import json
 import os
@@ -59,6 +69,7 @@ from opensearch_tpu_torch.common.errors import (
     OpenSearchTpuException,
     ParsingException,
     ResourceAlreadyExistsException,
+    ResourceNotFoundException,
     VersionConflictException,
 )
 from opensearch_tpu_torch.common.hashing import shard_id_for_routing
@@ -73,6 +84,8 @@ from opensearch_tpu_torch.index.shard import IndexShard, ShardId, translog_durab
 from opensearch_tpu_torch.search import batcher
 from opensearch_tpu_torch.search import service as search_service
 from opensearch_tpu_torch.search.distributed_serving import not_yet_ported
+from opensearch_tpu_torch.search.fetch import _flatten_source
+from opensearch_tpu_torch.search.pipeline import SearchPipelineService
 
 # ASCII, not starting with _ - + (MetadataCreateIndexService.validateIndexName)
 _INVALID_INDEX_CHARS = set(' "*\\<>|,/?#:')
@@ -213,6 +226,8 @@ class TorchNode:
         # read
         roofline.default_recorder.metrics = self.telemetry.metrics
         roofline.ensure_peaks(self.device)
+        self.search_pipelines = SearchPipelineService(
+            self.data_path / "search_pipelines.json")
         self.search_slowlog = SlowLog("search")
         self.indexing_slowlog = SlowLog("indexing")
         self._configure_slowlogs()
@@ -499,8 +514,8 @@ class TorchNode:
                    routing: str | None = None, refresh: bool = False,
                    if_seq_no: int | None = None,
                    require_alias: bool = False) -> dict:
-        """Partial update by a doc merge, or an upsert
-        (action/update/UpdateHelper.java). A `script` is not ported."""
+        """Partial update by a doc merge, a painless script or an upsert
+        (action/update/UpdateHelper.java)."""
         if require_alias:
             # no aliases on this node: the target is never one
             e = IndexNotFoundException(index)
@@ -564,7 +579,8 @@ class TorchNode:
                     f"[{if_seq_no}], current document has seqNo "
                     f"[{current_seq}]")
         if "script" in body:
-            raise not_yet_ported("scripted updates")
+            return self._scripted_update(index, doc_id, body, routing,
+                                         current, shard)
         if "doc" in body:
             if current is None:
                 if body.get("doc_as_upsert"):
@@ -593,6 +609,53 @@ class TorchNode:
             return self._index_doc(index, doc_id, body["upsert"], routing,
                                    "index")
         raise IllegalArgumentException("update requires [doc] or [upsert]")
+
+    def _scripted_update(self, index: str, doc_id: str, body: dict,
+                         routing: str | None, current: dict | None,
+                         shard: IndexShard
+                         ) -> tuple[dict, IndexShard | None]:
+        """An update by a painless script over ``ctx._source``: the script
+        may set ``ctx.op`` to "none" (a noop) or "delete"; a missing doc
+        takes the ``upsert`` document, run through the script first under
+        ``scripted_upsert``."""
+        from opensearch_tpu_torch.script import default_script_service
+
+        noop_shards = {"total": 0, "successful": 0, "failed": 0}
+        if current is None:
+            if "upsert" not in body:
+                raise DocumentMissingException(f"[{doc_id}]: document missing")
+            if not body.get("scripted_upsert"):
+                return self._index_doc(index, doc_id, body["upsert"],
+                                       routing, "index")
+            ctx = {"_source": dict(body["upsert"]), "op": "create",
+                   "_index": index, "_id": doc_id}
+            ast, params = default_script_service.compile(body["script"])
+            default_script_service.execute_update(ast, params, ctx)
+            if ctx.get("op") in ("none", "noop"):
+                return {"_index": index, "_id": doc_id, "result": "noop",
+                        "_shards": noop_shards}, None
+            return self._index_doc(index, doc_id, ctx["_source"], routing,
+                                   "index")
+        ctx = {"_source": dict(current["_source"]), "op": "index",
+               "_index": index, "_id": doc_id,
+               "_version": current["_version"], "_seq_no": current["_seq_no"]}
+        ast, params = default_script_service.compile(body["script"])
+        default_script_service.execute_update(ast, params, ctx)
+        op = ctx.get("op", "index")
+        if op in ("none", "noop"):
+            eng = shard.engine
+            eng.stats["noop_update_total"] = \
+                eng.stats.get("noop_update_total", 0) + 1
+            return {"_index": index, "_id": doc_id, "result": "noop",
+                    "_version": current["_version"],
+                    "_seq_no": current["_seq_no"], "_primary_term": 1,
+                    "_shards": noop_shards}, None
+        if op == "delete":
+            return self._delete_doc(index, doc_id, routing)
+        out, shard = self._index_doc(index, doc_id, ctx["_source"], routing,
+                                     "index")
+        out["result"] = "updated"
+        return out, shard
 
     def bulk(self, operations: list[tuple[str, dict, dict | None]],
              refresh: bool = False, pipeline: str | None = None) -> dict:
@@ -679,6 +742,74 @@ class TorchNode:
         return {"took": int((time.monotonic() - t0) * 1000),
                 "errors": errors, "items": items}
 
+    # -- stored scripts and search templates ---------------------------------
+
+    def _scripts_file(self) -> Path:
+        return self.data_path / "stored_scripts.json"
+
+    def _load_scripts(self) -> dict:
+        if self._scripts_file().exists():
+            return json.loads(self._scripts_file().read_text())
+        return {}
+
+    def put_stored_script(self, script_id: str, body: dict) -> dict:
+        script = (body or {}).get("script")
+        if not isinstance(script, dict) or "source" not in script:
+            raise IllegalArgumentException(
+                "stored script requires [script] with [source]")
+        data = self._load_scripts()
+        data[script_id] = {
+            "lang": script.get("lang", "painless"),
+            "source": script["source"],
+            **({"options": script["options"]} if "options" in script
+               else {}),
+        }
+        self.data_path.mkdir(parents=True, exist_ok=True)
+        self._scripts_file().write_text(json.dumps(data))
+        return {"acknowledged": True}
+
+    def get_stored_script(self, script_id: str) -> dict:
+        data = self._load_scripts()
+        if script_id not in data:
+            return {"_id": script_id, "found": False}
+        return {"_id": script_id, "found": True, "script": data[script_id]}
+
+    def delete_stored_script(self, script_id: str) -> dict:
+        data = self._load_scripts()
+        if script_id not in data:
+            raise ResourceNotFoundException(
+                f"stored script [{script_id}] does not exist")
+        del data[script_id]
+        self._scripts_file().write_text(json.dumps(data))
+        return {"acknowledged": True}
+
+    def render_search_template(self, body: dict,
+                               template_id: str | None = None) -> dict:
+        """A template (inline ``source`` or a stored ``id``) and its
+        ``params`` rendered to a search body (script/mustache.py)."""
+        from opensearch_tpu_torch.script.mustache import (
+            render_search_template,
+        )
+
+        body = body or {}
+        source = body.get("source")
+        sid = template_id or body.get("id")
+        if source is None and sid is not None:
+            stored = self.get_stored_script(str(sid))
+            if not stored.get("found"):
+                raise ResourceNotFoundException(
+                    f"search template [{sid}] does not exist")
+            source = stored["script"]["source"]
+        if source is None:
+            raise IllegalArgumentException(
+                "search template requires [source] or [id]")
+        return render_search_template(source, body.get("params"))
+
+    def search_template(self, index: str | None, body: dict,
+                        template_id: str | None = None, **kwargs) -> dict:
+        return self.search(index, self.render_search_template(
+            body, template_id), **kwargs)
+
     # -- refresh / search ----------------------------------------------------
 
     def refresh(self, index: str = "_all") -> dict:
@@ -697,8 +828,12 @@ class TorchNode:
 
     def search(self, index: str | None = None, body: dict | None = None,
                precomputed_results: list | None = None,
-               ignore_unavailable: bool = False) -> dict:
+               ignore_unavailable: bool = False,
+               search_pipeline: str | None = None) -> dict:
         body = dict(body or {})
+        # the body key is always taken out; the parameter wins over it
+        body_pipeline = body.pop("search_pipeline", None)
+        pipeline_id = search_pipeline or body_pipeline
         # per-request stat groups feed indices.stats in the reference,
         # which is not ported: the key is checked and accepted
         stat_groups = body.get("stats")
@@ -718,6 +853,13 @@ class TorchNode:
                 body["indices_boost"], ignore_unavailable=ignore_unavailable)
         names = sorted({sh.shard_id.index for sh in shards})
         expr = ",".join(names) or "_none"
+        body = self._resolve_mlt_doc_refs(body, names)
+        pl, pr_config = self._resolve_search_pipeline(pipeline_id, names)
+        pl_ctx = {}
+        if pl is not None:
+            body = self.search_pipelines.transform_request(pl, body)
+            if "_original_size" in body:
+                pl_ctx["_original_size"] = body.pop("_original_size")
         from opensearch_tpu_torch.search import lanes as lanes_mod
         from opensearch_tpu_torch.telemetry import tracing
 
@@ -729,7 +871,8 @@ class TorchNode:
         with tracing.activate(self.telemetry.tracer), \
                 self.telemetry.tracer.start_span(
                     "search", {"indices": expr}) as span:
-            resp = search_service.search(shards, body, precomputed_results)
+            resp = search_service.search(shards, body, precomputed_results,
+                                         phase_results_config=pr_config)
             took = resp.get("took", 0)
             span.set_attribute("took_ms", took)
             self.search_slowlog.maybe_log(
@@ -743,7 +886,90 @@ class TorchNode:
             metrics.histogram(
                 "search.took_ms",
                 labels={"lane": lanes_mod.active_lane()}).record(took)
+        if pl is not None:
+            resp = self.search_pipelines.transform_response(
+                pl, {**body, **pl_ctx}, resp)
         return resp
+
+    def _resolve_search_pipeline(self, pipeline_id: str | None,
+                                 index_names: list[str]
+                                 ) -> tuple[dict | None, dict | None]:
+        """(pipeline, its phase-results config): the explicit
+        ``search_pipeline`` over ``index.search.default_pipeline``;
+        "_none" is none."""
+        if pipeline_id == "_none":
+            return None, None
+        if pipeline_id is None:
+            for name in index_names:
+                svc = self.indices.get(name)
+                default = ((svc.settings.get("search") or {}).get(
+                    "default_pipeline") if svc else None)
+                if default and default != "_none":
+                    pipeline_id = default
+                    break
+        if pipeline_id is None:
+            return None, None
+        pl = self.search_pipelines.get(pipeline_id)
+        return pl, self.search_pipelines.phase_results_config(pl)
+
+    def _resolve_mlt_doc_refs(self, body: dict,
+                              index_names: list[str] | None = None) -> dict:
+        """A more_like_this ``like`` doc reference ({_index, _id}) replaced
+        by the doc's field texts before the shards run (the two-phase
+        rewrite of MoreLikeThisQueryBuilder, which multi-gets the docs)."""
+
+        def likes_of(mlt: dict) -> list:
+            like = mlt.get("like")
+            return (like if isinstance(like, list)
+                    else [like] if like is not None else [])
+
+        def has_refs(obj) -> bool:
+            if isinstance(obj, dict):
+                mlt = obj.get("more_like_this")
+                if isinstance(mlt, dict) and any(
+                        isinstance(x, dict) for x in likes_of(mlt)):
+                    return True
+                return any(has_refs(v) for v in obj.values())
+            if isinstance(obj, list):
+                return any(has_refs(x) for x in obj)
+            return False
+
+        if not has_refs(body):
+            return body
+        body = copy.deepcopy(body)
+        default_index = (index_names or [""])[0]
+
+        def resolve(obj) -> None:
+            if isinstance(obj, dict):
+                mlt = obj.get("more_like_this")
+                if isinstance(mlt, dict):
+                    likes = likes_of(mlt)
+                    texts = [x for x in likes if isinstance(x, str)]
+                    fields = mlt.get("fields")
+                    for ref in (x for x in likes if isinstance(x, dict)):
+                        try:
+                            got = self.get_doc(
+                                str(ref.get("_index", default_index)),
+                                str(ref.get("_id", "")))
+                        except OpenSearchTpuException:
+                            continue
+                        if not got.get("found"):
+                            continue
+                        for fname, val in _flatten_source(
+                                got["_source"]).items():
+                            if fields and fname not in fields:
+                                continue
+                            vals = val if isinstance(val, list) else [val]
+                            texts.extend(str(v) for v in vals)
+                    mlt["like"] = texts
+                for v in obj.values():
+                    resolve(v)
+            elif isinstance(obj, list):
+                for x in obj:
+                    resolve(x)
+
+        resolve(body)
+        return body
 
     def _resolve_indices_boost(self, spec,
                                ignore_unavailable: bool = False) -> dict:
@@ -810,13 +1036,18 @@ class TorchNode:
         """Resolve `index` once, pin one set of searcher snapshots, and run
         the batched knn query phase over them. Returns per-body
         precomputed_results for search(), or None (the bodies one by one).
-        The reference also keeps a run on its serial path for a filtered
-        alias or an index with a default search pipeline; TorchNode has
-        neither aliases nor pipelines yet, so neither check applies."""
+        An index with a default search pipeline keeps the run on its
+        serial path, where the pipeline rewrites each request first (a
+        body with its own ``search_pipeline`` key is never batchable); the
+        reference's filtered-alias check does not apply (no aliases)."""
         try:
             shards = self._search_shards(index)
         except OpenSearchTpuException:
             return None  # the serial path reports the error per sub-search
+        for name in {sh.shard_id.index for sh in shards}:
+            if (self.indices[name].settings.get("search") or {}).get(
+                    "default_pipeline"):
+                return None
         snaps = [s.acquire_searcher() for s in shards]
         return search_service.try_batched_knn_msearch(shards, bodies, snaps)
 

@@ -6,7 +6,10 @@ the API the port serves are copies of the reference's: the root info, the
 index lifecycle (create, delete, get, HEAD, mappings, settings), document
 writes and reads (index, create, auto-id index, get, HEAD, `_source`,
 delete, `_update`), NDJSON `_bulk`, `_refresh`, `_search`, `_count`,
-`_msearch`, `_cluster/health`, the kernel roofline report and its
+`_msearch` (each taking ``?search_pipeline``), stored scripts
+(`_scripts/{id}`, `_script_context`, `_script_language`), search
+templates (`_search/template`, `_render/template`), search pipelines
+(`_search/pipeline`), `_cluster/health`, the kernel roofline report and its
 re-calibration (`GET /_roofline`, `POST /_roofline/calibrate`) and the
 what-if tiering advisor (`GET /_tiering/advise`). Every other route answers through
 :func:`_not_yet_ported`, which raises "<METHOD> <path> is not yet ported
@@ -168,6 +171,26 @@ def build_router() -> Router:
     # what-if tiering advisor (telemetry/device_ledger.py): replay the
     # recorded access stream against a candidate device-memory budget
     reg("GET", "/_tiering/advise", tiering_advise)
+    # stored scripts and search templates (the lang-mustache module)
+    reg("PUT", "/_scripts/{id}", put_stored_script)
+    reg("POST", "/_scripts/{id}", put_stored_script)
+    reg("GET", "/_scripts/{id}", get_stored_script)
+    reg("DELETE", "/_scripts/{id}", delete_stored_script)
+    reg("GET", "/_script_context", get_script_context)
+    reg("GET", "/_script_language", get_script_languages)
+    reg("GET", "/_search/template", search_template_all)
+    reg("POST", "/_search/template", search_template_all)
+    reg("GET", "/{index}/_search/template", search_template)
+    reg("POST", "/{index}/_search/template", search_template)
+    reg("GET", "/_render/template", render_template)
+    reg("POST", "/_render/template", render_template)
+    reg("GET", "/_render/template/{id}", render_template)
+    reg("POST", "/_render/template/{id}", render_template)
+    # search pipelines
+    reg("PUT", "/_search/pipeline/{id}", put_search_pipeline)
+    reg("GET", "/_search/pipeline", get_search_pipelines)
+    reg("GET", "/_search/pipeline/{id}", get_search_pipeline)
+    reg("DELETE", "/_search/pipeline/{id}", delete_search_pipeline)
     # the rest of the reference's surface
     for method, template in UNPORTED_ROUTES:
         reg(method, template, _not_yet_ported(method, template))
@@ -770,11 +793,10 @@ def _validate_search_params(query, body=None):
 
 def _unported_search_params(query) -> None:
     """The search parameters whose machinery the port does not have yet
-    (scroll contexts, search pipelines, workload groups) raise; a request
-    cache hint is accepted (the port caches nothing, and a cached
-    response is the same response)."""
+    (scroll contexts, workload groups) raise; a request cache hint is
+    accepted (the port caches nothing, and a cached response is the same
+    response)."""
     for param, what in (("scroll", "scroll"),
-                        ("search_pipeline", "search pipelines"),
                         ("query_group", "workload management")):
         if query.get(param) is not None:
             raise not_yet_ported(what)
@@ -786,7 +808,8 @@ def search(node: TorchNode, params, query, body):
     resp = node.search(params["index"], _body_with_query_params(query, body),
                        ignore_unavailable=str(
                            query.get("ignore_unavailable", "false")
-                       ) in ("true", ""))
+                       ) in ("true", ""),
+                       search_pipeline=query.get("search_pipeline"))
     resp = _with_reduce_phases(resp, query)
     resp = _apply_typed_keys(resp, query, body, node, params.get("index"))
     return 200, _totals_as_int(resp, query)
@@ -795,7 +818,8 @@ def search(node: TorchNode, params, query, body):
 def search_all(node: TorchNode, params, query, body):
     _validate_search_params(query, body)
     _unported_search_params(query)
-    resp = node.search(None, _body_with_query_params(query, body))
+    resp = node.search(None, _body_with_query_params(query, body),
+                       search_pipeline=query.get("search_pipeline"))
     resp = _with_reduce_phases(resp, query)
     resp = _apply_typed_keys(resp, query, body, node)
     return 200, _totals_as_int(resp, query)
@@ -844,6 +868,94 @@ def msearch(node: TorchNode, params, query, body):
             r = {**r, "status": 200}
         out.append(r)
     return 200, {**resp, "responses": out}
+
+
+# -- stored scripts and search templates -------------------------------------
+
+
+def put_stored_script(node: TorchNode, params, query, body):
+    return 200, node.put_stored_script(params["id"], body or {})
+
+
+def get_stored_script(node: TorchNode, params, query, body):
+    resp = node.get_stored_script(params["id"])
+    return (200 if resp.get("found") else 404), resp
+
+
+def delete_stored_script(node: TorchNode, params, query, body):
+    return 200, node.delete_stored_script(params["id"])
+
+
+def get_script_context(node: TorchNode, params, query, body):
+    """GET /_script_context (GetScriptContextAction): the contexts the
+    painless subset serves."""
+    return 200, {"contexts": [
+        {"name": name, "methods": [{"name": "execute",
+                                    "return_type": return_type,
+                                    "params": []}]}
+        for name, return_type in (
+            ("aggs", "java.lang.Object"),
+            ("aggs_combine", "java.lang.Object"),
+            ("field", "java.lang.Object"),
+            ("filter", "boolean"),
+            ("ingest", "void"),
+            ("score", "double"),
+            ("update", "void"))]}
+
+
+def get_script_languages(node: TorchNode, params, query, body):
+    """GET /_script_language (GetScriptLanguageAction)."""
+    return 200, {
+        "types_allowed": ["inline", "stored"],
+        "language_contexts": [
+            {"language": "mustache", "contexts": ["template"]},
+            {"language": "painless", "contexts": [
+                "aggs", "field", "filter", "ingest", "score", "update"]},
+        ],
+    }
+
+
+def search_template(node: TorchNode, params, query, body):
+    if query.get("scroll") is not None:
+        raise not_yet_ported("scroll")
+    resp = node.search_template(
+        params["index"], body or {},
+        search_pipeline=query.get("search_pipeline"))
+    return 200, _totals_as_int(resp, query)
+
+
+def search_template_all(node: TorchNode, params, query, body):
+    if query.get("scroll") is not None:
+        raise not_yet_ported("scroll")
+    resp = node.search_template(
+        None, body or {}, search_pipeline=query.get("search_pipeline"))
+    return 200, _totals_as_int(resp, query)
+
+
+def render_template(node: TorchNode, params, query, body):
+    return 200, {"template_output": node.render_search_template(
+        body or {}, params.get("id"))}
+
+
+# -- search pipelines ---------------------------------------------------------
+
+
+def put_search_pipeline(node: TorchNode, params, query, body):
+    node.search_pipelines.put(params["id"], body or {})
+    return 200, {"acknowledged": True}
+
+
+def get_search_pipelines(node: TorchNode, params, query, body):
+    return 200, dict(node.search_pipelines.pipelines)
+
+
+def get_search_pipeline(node: TorchNode, params, query, body):
+    return 200, {params["id"]: node.search_pipelines.get(params["id"])}
+
+
+def delete_search_pipeline(node: TorchNode, params, query, body):
+    node.search_pipelines.delete(params["id"])
+    return 200, {"acknowledged": True}
 
 
 # -- maintenance -------------------------------------------------------------
@@ -1052,24 +1164,6 @@ UNPORTED_ROUTES = (
     ("POST", "/{index}/_analyze"),
     ("GET", "/_analyze"),
     ("POST", "/_analyze"),
-    ("PUT", "/_scripts/{id}"),
-    ("POST", "/_scripts/{id}"),
-    ("GET", "/_scripts/{id}"),
-    ("DELETE", "/_scripts/{id}"),
-    ("GET", "/_script_context"),
-    ("GET", "/_script_language"),
-    ("GET", "/_search/template"),
-    ("POST", "/_search/template"),
-    ("GET", "/{index}/_search/template"),
-    ("POST", "/{index}/_search/template"),
-    ("GET", "/_render/template"),
-    ("POST", "/_render/template"),
-    ("GET", "/_render/template/{id}"),
-    ("POST", "/_render/template/{id}"),
-    ("PUT", "/_search/pipeline/{id}"),
-    ("GET", "/_search/pipeline"),
-    ("GET", "/_search/pipeline/{id}"),
-    ("DELETE", "/_search/pipeline/{id}"),
     ("PUT", "/_snapshot/{repo}"),
     ("POST", "/_snapshot/{repo}"),
     ("GET", "/_snapshot"),

@@ -48,12 +48,20 @@ key None on every branch, so it never merges with another query.
 counts the total on the host, applies ``min_score`` to hits and total,
 and sorts by fields on the host's exact int64 / float64 columns.
 
-Not yet ported, each raising "not yet ported" with its name: ``script``,
-``script_score``, ``terms_set``, the ``geo_*`` queries, ``nested``,
-``has_child``, ``has_parent``, ``parent_id``, ``percolate``,
-``more_like_this``, ``hybrid``, ``rank_feature``, ``distance_feature``
-and ``slice`` (a ``script_score`` function inside function_score is
-refused by the parser, as in the reference).
+The rest of the DSL runs as in the reference: ``terms_set``,
+``distance_feature``, ``rank_feature`` (the default pivot a float64 mean
+over every segment of the shard, on the host), the ``geo_*`` queries over
+the point columns (haversine in float64 on the host), ``slice`` (murmur3
+of ``_id``, cached on the host segment), ``nested`` (flattened),
+``more_like_this`` (a tf-idf rewrite to a ``bool`` of terms, once per
+shard), ``percolate`` (each stored query run against a throwaway segment
+of the documents on the node's device, freed from the residency ledger
+after the query), ``has_child`` / ``has_parent`` / ``parent_id`` (masks
+over the shard's join columns), ``script`` and the generic
+``script_score`` (one painless evaluation a doc on the host), the vector
+``script_score`` forms (``ops/knn`` products on the device) and
+``hybrid`` without a pipeline (a dis_max; with one, search/service.py
+runs each sub-query apart). Every node can serve as a kNN filter.
 
 Under ``"profile": true`` (search/profile.py) every executed node is an
 operator of the shard's profile tree, BM25 records its fenced launch under
@@ -71,6 +79,9 @@ upload.
 
 from __future__ import annotations
 
+import copy
+import json
+import math
 import re
 import threading
 import time
@@ -84,6 +95,7 @@ from opensearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
 )
+from opensearch_tpu_torch.common.hashing import murmur3_x86_32
 from opensearch_tpu_torch.index.mapper import (
     FLOAT_TYPES,
     INT_TYPES,
@@ -218,6 +230,18 @@ class HostNodeResult:
         return self._dev_mask
 
 
+def host_mask(r) -> np.ndarray:
+    """A node result's mask on the host (a host selection's own array)."""
+    return r.host_mask if isinstance(r, HostNodeResult) \
+        else r.mask.cpu().numpy()
+
+
+def host_scores(r) -> np.ndarray:
+    """A node result's scores on the host."""
+    return r.host_scores if isinstance(r, HostNodeResult) \
+        else r.scores.cpu().numpy()
+
+
 class ShardContext:
     def __init__(self, snapshot, mapper_service):
         self.snapshot = snapshot
@@ -293,6 +317,184 @@ class ShardContext:
         return sum(int((host.keyword_fields[field].first_ord >= 0).sum())
                    for host, _ in self.snapshot.segments
                    if field in host.keyword_fields)
+
+    # -- shard-level rewrites and masks ------------------------------------
+
+    def mlt_rewrite(self, node) -> Any:
+        """MoreLikeThisQuery -> a bool of should term queries, picked by
+        tf-idf over the shard's statistics (MoreLikeThisQueryBuilder's term
+        selection); cached per shard."""
+        cached = self._qs_cache.get(("mlt", id(node)))
+        if cached is not None:
+            return cached
+        fields = node.fields or [
+            f for f, m in self.mapper_service.mappers.items()
+            if m.type == "text"]
+        total_docs = max(self.snapshot.num_docs, 1)
+        scored: list[tuple[float, str, str]] = []
+        for field in fields:
+            tf_counts: dict[str, int] = {}
+            for text in node.like_texts:
+                for term in self.mapper_service.analyze_query_text(field,
+                                                                   text):
+                    tf_counts[term] = tf_counts.get(term, 0) + 1
+            for term, tf in tf_counts.items():
+                if tf < node.min_term_freq:
+                    continue
+                df = self.text_df(field, term)
+                if df < node.min_doc_freq or df == 0:
+                    continue  # an absent term can never match this shard
+                idf = math.log(1.0 + total_docs / df)
+                scored.append((tf * idf, field, term))
+        scored.sort(key=lambda s: (-s[0], s[1], s[2]))
+        should = [q.TermQuery(field=f, value=t, boost=w)
+                  for w, f, t in scored[: node.max_query_terms]]
+        msm = node.minimum_should_match
+        try:
+            if isinstance(msm, str) and msm.endswith("%"):
+                msm_n = int(len(should) * int(msm[:-1]) / 100)
+            else:
+                msm_n = int(msm)
+        except ValueError:
+            raise ParsingException(
+                f"unsupported [minimum_should_match] value [{msm}] for "
+                "[more_like_this] (use an integer or \"N%\")") from None
+        tree = q.BoolQuery(should=should, minimum_should_match=max(msm_n, 1),
+                           boost=node.boost) if should else q.MatchNoneQuery()
+        self._qs_cache[("mlt", id(node))] = tree
+        return tree
+
+    def _device(self):
+        segs = self.snapshot.segments
+        return segs[0][1].live.device if segs else torch.device("cpu")
+
+    def percolate_masks(self, node) -> list:
+        """Per-segment host masks of a PercolateQuery: the live docs whose
+        stored query (at node.field in _source) matches ANY of the given
+        documents. The documents make one throwaway segment on the node's
+        device, against which each stored query runs (the percolator
+        module's memory index); its residency-ledger entries are freed
+        when the masks are made. Cached per shard."""
+        cached = self._qs_cache.get(("perc", id(node)))
+        if cached is not None:
+            return cached
+        from opensearch_tpu_torch.index.device import to_device
+        from opensearch_tpu_torch.index.engine import SearcherSnapshot
+        from opensearch_tpu_torch.index.segment import SegmentBuilder
+
+        # a search never changes the index's mappings: the documents parse
+        # against a copy, so their dynamic fields stay with this query
+        tmp_ms = copy.copy(self.mapper_service)
+        tmp_ms.mappers = dict(self.mapper_service.mappers)
+        builder = SegmentBuilder(tmp_ms, "_percolate_tmp")
+        for i, doc in enumerate(node.documents):
+            builder.add(tmp_ms.parse_document(f"_tmp_{i}", doc), seq_no=i)
+        tmp_host = builder.build()
+        tmp_dev = to_device(tmp_host, self._device())
+        tmp_ex = SegmentExecutor(
+            ShardContext(SearcherSnapshot(segments=[(tmp_host, tmp_dev)],
+                                          generation=0), tmp_ms),
+            tmp_host, tmp_dev)
+        try:
+            masks = []
+            for host, dev in self.snapshot.segments:
+                mask = np.zeros(dev.n_pad, bool)
+                for d in range(host.n_docs):
+                    if not host.live[d]:
+                        continue
+                    stored = json.loads(host.sources[d]).get(node.field)
+                    if not isinstance(stored, dict):
+                        continue
+                    try:
+                        r = tmp_ex.execute(q.parse_query(stored))
+                        if bool(host_mask(r)[: tmp_host.n_docs].any()):
+                            mask[d] = True
+                    except Exception:  # noqa: BLE001
+                        # a stored query that cannot run never matches
+                        continue
+                masks.append(mask)
+        finally:
+            tmp_dev.free_allocations(reason="percolate-transient")
+        self._qs_cache[("perc", id(node))] = masks
+        return masks
+
+    def join_masks(self, node) -> list:
+        """Per-segment host masks of has_child / has_parent / parent_id.
+        Children are routed to their parent's shard, so the join closes
+        over this shard's segments (the parent-join module's invariant);
+        cached per shard."""
+        cached = self._qs_cache.get(("join", id(node)))
+        if cached is not None:
+            return cached
+        join_field = next((f for f, m in self.mapper_service.mappers.items()
+                           if m.type == "join"), None)
+
+        def column(host, suffix: str) -> list:
+            """The join column's value of each doc (None where absent)."""
+            kf = (host.keyword_fields.get(f"{join_field}#{suffix}")
+                  if join_field else None)
+            if kf is None:
+                return [None] * host.n_docs
+            return [kf.ord_values[o] if o >= 0 else None
+                    for o in kf.first_ord[: host.n_docs].tolist()]
+
+        masks = []
+        segments = self.snapshot.segments
+        if isinstance(node, q.ParentIdQuery):
+            for host, dev in segments:
+                mask = np.zeros(dev.n_pad, bool)
+                for d, (rel, par) in enumerate(zip(column(host, "name"),
+                                                   column(host, "parent"))):
+                    if host.live[d] and rel == node.type and par == node.id:
+                        mask[d] = True
+                masks.append(mask)
+        elif isinstance(node, q.HasChildQuery):
+            # the relations whose children include node.type (a mid-level
+            # relation of a multi-level join is a child and a parent)
+            join_mapper = self.mapper_service.mappers.get(join_field)
+            parent_names = {
+                p for p, children in ((join_mapper.relations or {})
+                                      if join_mapper else {}).items()
+                if node.type in children}
+            # pass 1: the matching children's parent ids, over all segments
+            parent_counts: dict[str, int] = {}
+            for host, dev in segments:
+                child = host_mask(SegmentExecutor(self, host, dev).execute(
+                    node.query))
+                for d, (rel, par) in enumerate(zip(column(host, "name"),
+                                                   column(host, "parent"))):
+                    if host.live[d] and child[d] and rel == node.type \
+                            and par is not None:
+                        parent_counts[par] = parent_counts.get(par, 0) + 1
+            wanted = {p for p, c in parent_counts.items()
+                      if node.min_children <= c <= node.max_children}
+            # pass 2: docs of a parent relation whose _id is in the set
+            for host, dev in segments:
+                mask = np.zeros(dev.n_pad, bool)
+                for d, rel in enumerate(column(host, "name")):
+                    if host.live[d] and host.doc_ids[d] in wanted \
+                            and rel in parent_names:
+                        mask[d] = True
+                masks.append(mask)
+        elif isinstance(node, q.HasParentQuery):
+            # pass 1: the matching parents' _ids
+            parent_ids: set[str] = set()
+            for host, dev in segments:
+                pmask = host_mask(SegmentExecutor(self, host, dev).execute(
+                    node.query))
+                for d, rel in enumerate(column(host, "name")):
+                    if host.live[d] and pmask[d] \
+                            and rel == node.parent_type:
+                        parent_ids.add(host.doc_ids[d])
+            # pass 2: the children pointing at them
+            for host, dev in segments:
+                mask = np.zeros(dev.n_pad, bool)
+                for d, par in enumerate(column(host, "parent")):
+                    if host.live[d] and par in parent_ids:
+                        mask[d] = True
+                masks.append(mask)
+        self._qs_cache[("join", id(node))] = masks
+        return masks
 
     def shard_knn_selection(self, node) -> list:
         """Per-segment (sel_mask bool[n_pad], scores f32[n_pad]) numpy pairs
@@ -576,29 +778,6 @@ def _rows(b_vals: torch.Tensor, b_ids: torch.Tensor, n: int) -> list:
 
 
 
-# query nodes the port does not execute yet, by class, with the name of
-# the query in the DSL
-_NOT_YET_PORTED = {
-    "ScriptQuery": "script",
-    "ScriptScoreQuery": "script_score",
-    "GenericScriptScoreQuery": "script_score",
-    "TermsSetQuery": "terms_set",
-    "GeoDistanceQuery": "geo_distance",
-    "GeoBoundingBoxQuery": "geo_bounding_box",
-    "GeoShapeQuery": "geo_shape",
-    "NestedQuery": "nested",
-    "HasChildQuery": "has_child",
-    "HasParentQuery": "has_parent",
-    "ParentIdQuery": "parent_id",
-    "PercolateQuery": "percolate",
-    "MoreLikeThisQuery": "more_like_this",
-    "HybridQuery": "hybrid",
-    "RankFeatureQuery": "rank_feature",
-    "DistanceFeatureQuery": "distance_feature",
-    "SliceQuery": "slice",
-}
-
-
 # --------------------------------------------------------------------------
 # Node execution against one segment
 # --------------------------------------------------------------------------
@@ -730,8 +909,6 @@ class SegmentExecutor:
         name = type(node).__name__
         method = getattr(self, f"_exec_{name}", None)
         if method is None:
-            if name in _NOT_YET_PORTED:
-                raise not_yet_ported(f"query [{_NOT_YET_PORTED[name]}]")
             raise ParsingException(f"unexecutable query node [{name}]")
         prof = profile.active()
         if prof is None:
@@ -1278,6 +1455,361 @@ class SegmentExecutor:
         return HostNodeResult(out_scores, sel_host, scoring=True,
                               device=self.device)
 
+    # -- the rest of the DSL -------------------------------------------------
+    # Per-doc values come from the host segment's exact columns (float64
+    # and int64), as the reference computes them in numpy; the mask or
+    # the float32 scores go to the device once.
+
+    def _host_result(self, mask_host: np.ndarray, boost: float,
+                     scoring: bool = True) -> NodeResult:
+        """A constant-score result over a host mask of the segment's docs
+        (or of its n_pad slots), ANDed with the live bitmap."""
+        mask = np.zeros(self.dev.n_pad, bool)
+        mask[: len(mask_host)] = mask_host
+        return _const_result(self._to_device(mask) & self.dev.live, boost,
+                             scoring)
+
+    def _host_scores(self, scores: np.ndarray,
+                     mask_host: np.ndarray) -> NodeResult:
+        """A scoring result from float32 host scores [n_pad] and a host
+        mask of the segment's docs, ANDed with the live bitmap."""
+        mask = np.zeros(self.dev.n_pad, bool)
+        mask[: len(mask_host)] = mask_host
+        mask_d = self._to_device(mask) & self.dev.live
+        return NodeResult(torch.where(mask_d, self._to_device(scores), 0.0),
+                          mask_d, True)
+
+    def _exec_SliceQuery(self, node: q.SliceQuery) -> NodeResult:
+        """A sliced read: murmur3(_id) % max == id (SliceBuilder's default
+        partitioning by _id); each doc's hash made once a segment."""
+        host = self.host
+        cache = getattr(host, "_slice_hash_cache", None)
+        if cache is None:
+            cache = np.asarray([murmur3_x86_32(i.encode()) & 0xFFFFFFFF
+                                for i in host.doc_ids], np.uint32)
+            host._slice_hash_cache = cache
+        return self._host_result((cache % np.uint32(node.max)) == node.id,
+                                 node.boost, scoring=False)
+
+    def _exec_TermsSetQuery(self, node: q.TermsSetQuery) -> NodeResult:
+        """Each doc's matching terms counted against its own
+        minimum_should_match (TermsSetQueryBuilder -> CoveringQuery)."""
+        field = node.field
+        ms = self.ctx.mapper_service
+        mapper = ms.field_mapper(field)
+        if mapper is None:
+            flat = ms.flat_object_parent(field)
+            if flat is not None:
+                root, subpath = flat
+                return self._exec_TermsSetQuery(q.TermsSetQuery(
+                    field=f"{root}#paths",
+                    terms=[f"{subpath}={t}" for t in node.terms],
+                    minimum_should_match_field=node.minimum_should_match_field,
+                    minimum_should_match_script=(
+                        node.minimum_should_match_script),
+                    boost=node.boost))
+        n = self.host.n_docs
+        kf_host = self.host.keyword_fields.get(field)
+        counts = np.zeros(n, np.int64)
+        if kf_host is not None:
+            for v in node.terms:
+                o = kf_host.ord_dict.get(self._normalize_kw(field, str(v)))
+                if o is None:
+                    continue
+                np.add.at(counts, kf_host.mv_docs[kf_host.mv_ords == o], 1)
+        elif mapper is not None and mapper.type == "text":
+            tf_host = self.host.text_fields.get(field)
+            if tf_host is not None:
+                for v in node.terms:
+                    tid = tf_host.term_dict.get(str(v))
+                    if tid is None:
+                        continue
+                    off = int(tf_host.term_offsets[tid])
+                    end = int(tf_host.term_offsets[tid + 1])
+                    counts[tf_host.postings_docs[off:end]] += 1
+        if node.minimum_should_match_field:
+            nf = self.host.numeric_fields.get(node.minimum_should_match_field)
+            if nf is None:
+                return _empty(self.dev)
+            msm = np.where(nf.present[:n],
+                           (nf.values_i64 if nf.kind == "int"
+                            else nf.values_f64)[:n],
+                           np.iinfo(np.int32).max)
+        elif node.minimum_should_match_script:
+            src = str(node.minimum_should_match_script.get("source", ""))
+            # the common forms: params.num_terms, or a constant
+            if "num_terms" in src:
+                msm = np.full(n, len(node.terms))
+            else:
+                try:
+                    msm = np.full(n, int(float(src)))
+                except ValueError:
+                    msm = np.full(n, 1)
+        else:
+            raise IllegalArgumentException(
+                "[terms_set] requires [minimum_should_match_field] or "
+                "[minimum_should_match_script]")
+        return self._host_result((counts >= msm) & (counts > 0), node.boost)
+
+    def _exec_DistanceFeatureQuery(self,
+                                   node: q.DistanceFeatureQuery) -> NodeResult:
+        """score = boost * pivot / (pivot + distance(origin, value)), in
+        float64 on the host, rounded to float32 once."""
+        field = node.field
+        mapper = self.ctx.mapper_service.field_mapper(field)
+        n = self.host.n_docs
+        lat_f = self.host.numeric_fields.get(f"{field}#lat")
+        if mapper is not None and mapper.type == "geo_point" \
+                or lat_f is not None:
+            lon_f = self.host.numeric_fields.get(f"{field}#lon")
+            if lat_f is None or lon_f is None:
+                return _empty(self.dev)
+            o_lat, o_lon = _parse_geo_origin(node.origin)
+            pivot_m = _parse_distance_meters(node.pivot)
+            dist = _haversine_m(o_lat, o_lon, lat_f.values_f64[:n],
+                                lon_f.values_f64[:n])
+            score = np.where(lat_f.present[:n], pivot_m / (pivot_m + dist),
+                             0.0)
+        else:
+            nf = self.host.numeric_fields.get(field)
+            if nf is None:
+                return _empty(self.dev)
+            is_date = mapper is not None and mapper.type == "date"
+            if is_date and getattr(mapper, "resolution", "millis") == "nanos":
+                origin = float(parse_date_nanos(str(node.origin)))
+                pivot = float(_duration_millis(node.pivot)) * 1e6
+            elif is_date:
+                origin = float(_parse_date_or_now(node.origin))
+                pivot = float(_duration_millis(node.pivot))
+            else:
+                origin = float(node.origin)
+                pivot = float(node.pivot)
+            vals = (nf.values_i64 if nf.kind == "int" else nf.values_f64)[:n]
+            dist = np.abs(vals.astype(np.float64) - origin)
+            score = np.where(nf.present[:n], pivot / (pivot + dist), 0.0)
+        scores = np.zeros(self.dev.n_pad, np.float32)
+        scores[:n] = score * node.boost
+        return self._host_scores(scores, scores > 0)
+
+    def _exec_RankFeatureQuery(self, node: q.RankFeatureQuery) -> NodeResult:
+        """saturation: v / (v + pivot), the default pivot the mean over
+        the whole shard; log: ln(scaling_factor + v); sigmoid: v^e /
+        (v^e + pivot^e); linear: v. float64 on the host."""
+        nf = self.host.numeric_fields.get(node.field)
+        if nf is None:
+            return _empty(self.dev)
+        n = self.host.n_docs
+        vals = (nf.values_i64 if nf.kind == "int" else nf.values_f64)[:n]
+        vals = vals.astype(np.float64)
+        present = nf.present[:n]
+
+        def default_pivot() -> float:
+            # over the WHOLE shard in float64, as the reference sums it (a
+            # per-segment pivot would rank equal features apart)
+            total, count = 0.0, 0
+            for h, _d in self.ctx.snapshot.segments:
+                f = h.numeric_fields.get(node.field)
+                if f is None:
+                    continue
+                v = (f.values_i64 if f.kind == "int" else f.values_f64)[
+                    : h.n_docs]
+                p = f.present[: h.n_docs]
+                total += float(v[p].sum())
+                count += int(p.sum())
+            return max(total / count if count else 1.0, 1e-9)
+
+        if node.function == "log":
+            score = np.log(np.maximum(node.scaling_factor + vals, 1e-12))
+        elif node.function == "linear":
+            score = vals
+        elif node.function == "sigmoid":
+            pivot = node.pivot if node.pivot is not None else default_pivot()
+            ve = np.power(vals, node.exponent)
+            score = ve / (ve + pivot ** node.exponent)
+        else:  # saturation
+            pivot = node.pivot if node.pivot is not None else default_pivot()
+            score = vals / (vals + pivot)
+        scores = np.zeros(self.dev.n_pad, np.float32)
+        scores[:n] = np.where(present, score, 0.0) * node.boost
+        return self._host_scores(scores, present)
+
+    def _geo_match_docs(self, field: str, point_pred) -> np.ndarray | None:
+        """bool [n_docs]: a doc matches if ANY of its points satisfies
+        `point_pred(lat_array, lon_array)` (a multi-valued geo_point keeps
+        parallel lat / lon CSRs)."""
+        lat_f = self.host.numeric_fields.get(f"{field}#lat")
+        lon_f = self.host.numeric_fields.get(f"{field}#lon")
+        if lat_f is None or lon_f is None:
+            return None
+        n = self.host.n_docs
+        out = np.zeros(n, bool)
+        if lat_f.mv_offsets is not None and lon_f.mv_offsets is not None:
+            idx = np.nonzero(point_pred(lat_f.mv_values, lon_f.mv_values))[0]
+            if len(idx):
+                doc_of = np.searchsorted(lat_f.mv_offsets, idx,
+                                         side="right") - 1
+                out[np.unique(doc_of)] = True
+            return out
+        sel = point_pred(lat_f.values_f64[:n], lon_f.values_f64[:n])
+        out[:n] = lat_f.present[:n] & sel
+        return out
+
+    def _geo_result(self, field: str, point_pred, boost: float) -> NodeResult:
+        sel = self._geo_match_docs(field, point_pred)
+        if sel is None:
+            return _empty(self.dev)
+        return self._host_result(sel, boost)
+
+    def _exec_GeoDistanceQuery(self, node: q.GeoDistanceQuery) -> NodeResult:
+        o_lat, o_lon = _parse_geo_origin(node.point)
+        radius = _parse_distance_meters(node.distance)
+        return self._geo_result(
+            node.field,
+            lambda la, lo: _haversine_m(o_lat, o_lon, la, lo) <= radius,
+            node.boost)
+
+    def _exec_GeoShapeQuery(self, node: q.GeoShapeQuery) -> NodeResult:
+        """geo_shape over point columns: the shape's bounding box is the
+        region (exact for an envelope or a point; a polygon matches by its
+        box, the reference's stated approximation)."""
+        shape = node.shape or {}
+        styp = str(shape.get("type", "")).lower()
+        coords = shape.get("coordinates")
+        if styp == "point":
+            lons, lats = [coords[0]], [coords[1]]
+        elif styp == "envelope":
+            (tl_lon, tl_lat), (br_lon, br_lat) = coords
+            lons, lats = [tl_lon, br_lon], [tl_lat, br_lat]
+        elif styp in ("polygon", "multipoint", "linestring"):
+            flat = coords[0] if styp == "polygon" else coords
+            lons = [c[0] for c in flat]
+            lats = [c[1] for c in flat]
+        else:
+            raise IllegalArgumentException(
+                f"[geo_shape] unsupported shape type [{styp}]")
+        lat_hi, lat_lo = max(lats), min(lats)
+        lon_hi, lon_lo = max(lons), min(lons)
+
+        def pred(la, lo):
+            inside = (la >= lat_lo) & (la <= lat_hi) \
+                & (lo >= lon_lo) & (lo <= lon_hi)
+            return ~inside if node.relation == "disjoint" else inside
+
+        return self._geo_result(node.field, pred, node.boost)
+
+    def _exec_GeoBoundingBoxQuery(self,
+                                  node: q.GeoBoundingBoxQuery) -> NodeResult:
+        tl_lat, tl_lon = _parse_geo_origin(node.top_left)
+        br_lat, br_lon = _parse_geo_origin(node.bottom_right)
+
+        def pred(la, lo):
+            box = (la <= tl_lat) & (la >= br_lat)
+            if tl_lon <= br_lon:
+                return box & (lo >= tl_lon) & (lo <= br_lon)
+            return box & ((lo >= tl_lon) | (lo <= br_lon))
+
+        return self._geo_result(node.field, pred, node.boost)
+
+    def _exec_NestedQuery(self, node: q.NestedQuery) -> NodeResult:
+        # flattened: arrays of objects are multi-valued dotted columns, so
+        # the inner query already addresses path.field
+        r = self.execute(node.query)
+        return NodeResult(r.scores * node.boost, r.mask, r.scoring)
+
+    def _exec_MoreLikeThisQuery(self, node: q.MoreLikeThisQuery) -> NodeResult:
+        return self.execute(self.ctx.mlt_rewrite(node))
+
+    def _seg_index(self) -> int:
+        for i, (host, _dev) in enumerate(self.ctx.snapshot.segments):
+            if host is self.host:
+                return i
+        return 0
+
+    def _exec_PercolateQuery(self, node: q.PercolateQuery) -> NodeResult:
+        return self._host_result(
+            self.ctx.percolate_masks(node)[self._seg_index()], node.boost)
+
+    def _join_result(self, node) -> NodeResult:
+        return self._host_result(
+            self.ctx.join_masks(node)[self._seg_index()], node.boost)
+
+    _exec_HasChildQuery = _join_result
+    _exec_HasParentQuery = _join_result
+    _exec_ParentIdQuery = _join_result
+
+    def _exec_HybridQuery(self, node: q.HybridQuery) -> NodeResult:
+        # without a search pipeline: the sub-queries' best score (with one,
+        # search/service.py runs each sub-query apart and fuses them)
+        return self._exec_DisMaxQuery(q.DisMaxQuery(
+            queries=node.queries, tie_breaker=0.0, boost=node.boost))
+
+    # -- script nodes --------------------------------------------------------
+
+    def _inner_or_all(self, inner) -> NodeResult:
+        return self.execute(inner) if inner else \
+            self._exec_MatchAllQuery(q.MatchAllQuery())
+
+    def _exec_ScriptScoreQuery(self, node: q.ScriptScoreQuery) -> NodeResult:
+        """The k-NN scoring-script forms: knn_score, cosineSimilarity,
+        dotProduct and l2Squared over the inner query's docs, one float32
+        product of the query vector with the segment's vector column on
+        the device (ops/knn)."""
+        from opensearch_tpu_torch.ops import knn as knn_ops
+
+        inner = self._inner_or_all(node.query)
+        vf = self.dev.vector_fields.get(node.field)
+        if vf is None:
+            return _empty(self.dev)
+        valid = vf.present & inner.mask
+        qv = self._to_device(np.asarray([node.query_vector], np.float32))
+        if node.function == "knn_score":
+            scores = knn_ops.exact_knn_scores(qv, vf.vectors, vf.norms_sq,
+                                              valid, node.space_type)[0]
+            scores = torch.where(valid, scores, 0.0)
+        else:
+            raw = knn_ops.raw_similarity(
+                qv, vf.vectors, vf.norms_sq,
+                "l2_norm" if node.space_type == "l2_raw"
+                else node.space_type)[0]
+            if node.space_type == "l2_raw":
+                raw = torch.clamp(-raw, min=0.0)  # l2Squared: the distance
+            scores = torch.where(valid, raw + node.add_constant, 0.0)
+        return NodeResult(scores * node.boost, valid, True)
+
+    def _exec_GenericScriptScoreQuery(
+            self, node: q.GenericScriptScoreQuery) -> NodeResult:
+        """One painless evaluation a matching doc on the host (the
+        reference's ScriptScoreFunction runs a script a collected doc)."""
+        from opensearch_tpu_torch.script import default_script_service
+
+        inner = self._inner_or_all(node.query)
+        ast, params = default_script_service.compile(node.script)
+        n = self.host.n_docs
+        mask_host = host_mask(inner)[:n]
+        base = host_scores(inner)[:n]
+        scores = np.zeros(self.dev.n_pad, np.float32)
+        ms = self.ctx.mapper_service
+        for d in np.nonzero(mask_host)[0]:
+            scores[d] = default_script_service.score(
+                ast, params, self.host, int(d), ms, score=float(base[d]))
+        return NodeResult(self._to_device(scores) * node.boost, inner.mask,
+                          True)
+
+    def _exec_ScriptQuery(self, node: q.ScriptQuery) -> NodeResult:
+        """Keeps the live docs for which the script is true: one painless
+        evaluation a live doc on the host."""
+        from opensearch_tpu_torch.script import default_script_service
+
+        ast, params = default_script_service.compile(node.script)
+        live = self.dev.live.cpu().numpy()[: self.host.n_docs]
+        mask = np.zeros(self.dev.n_pad, bool)
+        ms = self.ctx.mapper_service
+        for d in np.nonzero(live)[0]:
+            if default_script_service.field(ast, params, self.host, int(d),
+                                            ms):
+                mask[d] = True
+        return _const_result(self._to_device(mask), node.boost, True)
+
     # -- multi-term (term-enumeration) queries -----------------------------
     # Rewritten to constant score over the matching term set (Lucene's
     # CONSTANT_SCORE_REWRITE): the term dictionary walk runs on the host,
@@ -1702,6 +2234,19 @@ def _haversine_m(lat1: float, lon1: float, lat2, lon2):
     dl = np.radians(lon2) - np.radians(lon1)
     a = np.sin(dp / 2.0) ** 2 + np.cos(p1) * np.cos(p2) * np.sin(dl / 2.0) ** 2
     return 2.0 * r * np.arcsin(np.sqrt(np.clip(a, 0.0, 1.0)))
+
+
+def _parse_date_or_now(v: Any) -> int:
+    """A date literal, or date math anchored at now ("now", "now-7d")."""
+    s = str(v).strip() if not hasattr(v, "isoformat") else v.isoformat()
+    if s.startswith("now"):
+        base = int(time.time() * 1000)
+        rest = s[3:]
+        if not rest:
+            return base
+        sign = 1 if rest[0] == "+" else -1
+        return base + sign * _duration_millis(rest[1:].split("/")[0])
+    return parse_date_millis(v)
 
 
 def _duration_millis(v: Any) -> int:

@@ -1,9 +1,10 @@
 """Search service: query phase -> merge -> fetch phase -> response.
 
-Counterpart of opensearch_tpu/search/service.py without ``suggest``,
-``script_fields`` and ``slice`` (each raises "not yet ported"): any
-parsed query (search/executor.py), aggregations (``aggs`` /
-``aggregations``, below), ``sort`` (with
+Counterpart of opensearch_tpu/search/service.py: any parsed query
+(search/executor.py), ``slice`` (a murmur3 partition of ``_id`` ANDed
+into the query as a filter), aggregations (``aggs`` /
+``aggregations``, below), ``suggest`` (search/suggest.py, host term
+dictionaries), ``sort`` (with
 ``_score`` and ``_doc``; ``_shard_doc`` needs a point in time, which the
 node does not keep yet) and ``search_after``,
 ``track_total_hits``, ``min_score``, ``indices_boost``,
@@ -13,6 +14,13 @@ named queries (``matched_queries``, ``include_named_queries_score``),
 bodies (:func:`msearch_groups`, :func:`try_batched_knn_msearch`: B
 bodies' query phase in one stacked launch, handed to :func:`search` as
 ``precomputed_results``).
+
+A ``hybrid`` query is the reference's hybrid query phase: each
+sub-query's query phase runs apart a shard (``execute_query_phase``, the
+per-shard route: never the stacked step), then
+search/pipeline.fuse_hybrid_results fuses the sub-queries' scores over
+every shard under the search pipeline's phase-results processor, then the
+merge and fetch.
 
 The route is the reference's ``_try_distributed_query_phase`` choice: a
 bare ``knn`` query takes the stacked serving step
@@ -39,7 +47,8 @@ the ``search.max_buckets`` guard (:class:`TooManyBucketsException`, 503).
 The fetch phase is the reference's (its sub-phases in search/fetch.py):
 ``_source`` includes / excludes, ``stored_fields`` (``_none_`` drops
 ``_id`` and ``_source``; stored fields without an explicit ``_source``
-suppress it), ``docvalue_fields``, ``fields``, ``highlight``, ``explain``,
+suppress it), ``docvalue_fields``, ``fields``, ``script_fields`` (one
+painless evaluation a hit on the host), ``highlight``, ``explain``,
 ``version`` and ``seq_no_primary_term`` (read from the snapshot's
 seal-time doc values), ``sort`` values, ``matched_queries`` and a
 collapsed hit's field and ``inner_hits``. ``"profile": true`` builds the
@@ -64,6 +73,7 @@ from opensearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
 )
+from opensearch_tpu_torch.script import default_script_service
 from opensearch_tpu_torch.search import distributed_serving, fetch, phases
 from opensearch_tpu_torch.search import profile as search_profile
 from opensearch_tpu_torch.search import query_dsl
@@ -74,7 +84,6 @@ from opensearch_tpu_torch.search.aggs_pipeline import (
     validate_pipeline_aggs,
 )
 from opensearch_tpu_torch.search.executor import (
-    HostNodeResult,
     SegmentExecutor,
     ShardContext,
     ShardQueryResult,
@@ -82,7 +91,10 @@ from opensearch_tpu_torch.search.executor import (
     _sort_spec,
     _StrKey,
     execute_query_phase,
+    host_mask,
 )
+from opensearch_tpu_torch.search.pipeline import fuse_hybrid_results
+from opensearch_tpu_torch.search.suggest import compute_suggest
 
 DEFAULT_SIZE = 10
 # request keys the reference knows (opensearch_tpu/search/service.py:91-98)
@@ -95,9 +107,6 @@ KNOWN_KEYS = {
     "include_named_queries_score", "pre_filter_shard_size",
     "stats",  # per-request stat groups (surfaced by indices.stats)
 }
-# request keys the port does not serve yet
-UNPORTED_KEYS = {"suggest", "script_fields", "slice"}
-SUPPORTED_KEYS = KNOWN_KEYS - UNPORTED_KEYS
 
 
 def _sort_has_score(sort) -> bool:
@@ -107,22 +116,32 @@ def _sort_has_score(sort) -> bool:
 
 
 def search(shards: list, body: dict | None,
-           precomputed_results: list | None = None) -> dict[str, Any]:
+           precomputed_results: list | None = None,
+           phase_results_config: dict | None = None) -> dict[str, Any]:
     """Run one search over `shards` (IndexShard objects).
     `precomputed_results`, one (shard, snapshot, ShardQueryResult) a shard
     in order, is this body's query phase already run by a batched msearch
     launch (:func:`try_batched_knn_msearch`): the search merges and fetches
-    from it, on its snapshots, and runs no query phase."""
+    from it, on its snapshots, and runs no query phase.
+    `phase_results_config` is the search pipeline's phase-results
+    processor, which fuses a hybrid query's sub-queries."""
     t0 = time.monotonic()
     body = body or {}
     unknown = set(body) - KNOWN_KEYS
     if unknown:
         raise ParsingException(f"unknown search request keys {sorted(unknown)}")
-    unsupported = set(body) & UNPORTED_KEYS
-    if unsupported:
-        raise distributed_serving.not_yet_ported(
-            f"search request keys {sorted(unsupported)}")
     node = query_dsl.parse_query(body.get("query"))
+    if body.get("slice") is not None:
+        # a sliced read: the doc space partitioned by murmur3(_id) % max
+        # (search/slice/SliceBuilder.java)
+        sl = body["slice"]
+        sl_max = int(sl.get("max", 1))
+        sl_id = int(sl.get("id", 0))
+        if not 0 <= sl_id < sl_max:
+            raise ParsingException(
+                f"[slice.id] must be in [0, {sl_max}) but was {sl_id}")
+        node = query_dsl.BoolQuery(
+            must=[node], filter=[query_dsl.SliceQuery(id=sl_id, max=sl_max)])
     size = int(body.get("size", DEFAULT_SIZE))
     from_ = int(body.get("from", 0))
     if size < 0 or from_ < 0:
@@ -155,7 +174,12 @@ def search(shards: list, body: dict | None,
     shard_query_ns: list[int] = []
     skipped_shards = 0
     premerged = None
-    if precomputed_results is not None:
+    if isinstance(node, query_dsl.HybridQuery):
+        per_shard_results = _hybrid_query_phase(
+            shards, node, fetch_k, min_score, aggs_body, sort, search_after,
+            phase_results_config, want_profile, shard_profilers,
+            shard_query_ns)
+    elif precomputed_results is not None:
         per_shard_results = precomputed_results
     else:
         snaps = [s.acquire_searcher() for s in shards]
@@ -319,11 +343,54 @@ def search(shards: list, body: dict | None,
                         else None)
         response["aggregations"] = _aggregations(
             aggs_body, shards, per_shard_results, agg_profiler)
+    if body.get("suggest"):
+        response["suggest"] = compute_suggest(
+            body["suggest"],
+            [snap.segments for _, snap, _ in per_shard_results],
+            [s.mapper_service for s in shards])
     if want_profile:
         response["profile"] = _profile_response(
             body, node, per_shard_results, shard_profilers, shard_query_ns,
             fetch_prof, response.get("aggregations"), agg_profiler)
     return response
+
+
+def _hybrid_query_phase(shards: list, node, fetch_k: int,
+                        min_score, aggs_body, sort, search_after,
+                        phase_results_config: dict | None,
+                        want_profile: bool, shard_profilers: list,
+                        shard_query_ns: list) -> list:
+    """The hybrid query phase (reference search/service.py): one
+    execute_query_phase a sub-query a shard on the per-shard route, then
+    the scores fused over every shard by the pipeline's phase-results
+    processor (search/pipeline.fuse_hybrid_results) before the merge."""
+    if sort:
+        raise ParsingException("[sort] is not supported with [hybrid] query")
+    if search_after is not None:
+        raise ParsingException(
+            "[search_after] is not supported with [hybrid] query")
+    shard_snaps = []
+    per_shard_subs = []
+    for shard in shards:
+        snapshot = shard.acquire_searcher()
+        prof = search_profile.ShardProfiler() if want_profile else None
+        t_q = time.perf_counter_ns()
+        with search_profile.profiling(prof):
+            per_shard_subs.append([
+                execute_query_phase(
+                    snapshot, shard.mapper_service, sub, size=fetch_k,
+                    need_masks=aggs_body is not None,
+                    min_score=(float(min_score) if min_score is not None
+                               else None))
+                for sub in node.queries])
+        if want_profile:
+            shard_query_ns.append(time.perf_counter_ns() - t_q)
+            shard_profilers.append(prof)
+        shard_snaps.append((shard, snapshot))
+    fused = fuse_hybrid_results(per_shard_subs, phase_results_config,
+                                fetch_k)
+    return [(shard, snap, res)
+            for (shard, snap), res in zip(shard_snaps, fused)]
 
 
 def _aggregations(aggs_body: dict, shards: list, per_shard_results: list,
@@ -354,8 +421,7 @@ def _aggregations(aggs_body: dict, shards: list, per_shard_results: list,
         host, dev = ctx.snapshot.segments[seg_i]
         r = SegmentExecutor(ctx, host, dev).execute(
             query_dsl.parse_query(filter_body))
-        mask = (r.host_mask if isinstance(r, HostNodeResult)
-                else r.mask.cpu().numpy())
+        mask = host_mask(r)
         return mask[: host.n_docs]
 
     # a multi-index search resolves field types across every index's
@@ -419,6 +485,11 @@ def _fetch_phase(body: dict, node, shards: list, per_shard_results: list,
     source_filter = _source_filter(src_spec)
     highlight_conf = body.get("highlight")
     docvalue_specs = body.get("docvalue_fields")
+    script_fields = body.get("script_fields") or {}
+    compiled_scripts = {
+        sf_name: default_script_service.compile(
+            (sf_conf or {}).get("script") or {})
+        for sf_name, sf_conf in script_fields.items()}
     want_explain = bool(body.get("explain"))
     want_version = bool(body.get("version"))
     want_seqno = bool(body.get("seq_no_primary_term"))
@@ -506,6 +577,15 @@ def _fetch_phase(body: dict, node, shards: list, per_shard_results: list,
                 hit["highlight"] = hl
             if fetch_prof is not None:
                 fetch_prof.add(shard_idx, "highlight", t0)
+        if compiled_scripts:
+            t0 = now_ns() if fetch_prof is not None else 0
+            for sf_name, (ast, sf_params) in compiled_scripts.items():
+                val = default_script_service.field(
+                    ast, sf_params, host, h.doc, ms, source=raw_source)
+                hit.setdefault("fields", {})[sf_name] = (
+                    val if isinstance(val, list) else [val])
+            if fetch_prof is not None:
+                fetch_prof.add(shard_idx, "script_fields", t0)
         if want_explain:
             t0 = now_ns() if fetch_prof is not None else 0
             hit["_explanation"] = fetch.explain_for_hit(h.score, node)

@@ -289,10 +289,15 @@ def test_filter_mask_matches_reference(segments, body):
     {"bool": {"filter": [{"more_like_this": {"fields": ["title"],
                                              "like": "brown"}}]}}])
 def test_other_nodes_in_a_knn_filter_raise(segments, body):
-    node = torch_dsl.parse_query(body)
-    _ref, port_ex = segments[0]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port_ex.execute(node)
+    """nested, geo_distance and more_like_this, outside the port before,
+    are served now: each segment's mask is the reference's."""
+    rnode = jax_dsl.parse_query(body)
+    pnode = torch_dsl.parse_query(body)
+    for ref_ex, port_ex in segments:
+        want = np.asarray(ref_ex.execute(rnode).mask)
+        got = port_ex.execute(pnode).mask
+        assert got.dtype == torch.bool and got.shape == want.shape
+        np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_filter_columns_are_on_the_device_and_counted(segments):

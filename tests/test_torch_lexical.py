@@ -516,12 +516,32 @@ def test_count_matches_reference(nodes, index, body):
                           "pivot": "7d"}},
     {"percolate": {"field": "q", "document": {"title": "brown"}}},
 ])
-def test_unported_nodes_raise_by_name(nodes, body):
-    _ref, port, _docs = nodes
-    name = next(iter(body))
-    with pytest.raises(NotImplementedError,
-                       match=rf"\[{name}\] is not yet ported"):
-        port.search("items", {"query": body})
+def test_unported_nodes_raise_by_name(nodes, body, monkeypatch):
+    """These nodes are ported now: each answers as the reference does
+    (the same ids, totals and scores, or the same error), the clock fixed
+    for ``distance_feature``'s "now"."""
+    import time as time_mod
+
+    ref, port, _docs = nodes
+    monkeypatch.setattr(time_mod, "time", lambda: 1_709_251_200.0)
+    request = {"query": body}
+    try:
+        want = ref.search("items", dict(request))
+    except Exception as e:  # noqa: BLE001 - the reference's error is the answer
+        with pytest.raises(Exception) as got:
+            port.search("items", dict(request))
+        assert type(got.value).__name__ == type(e).__name__
+        assert str(got.value) == str(e)
+        assert getattr(got.value, "status", None) == getattr(e, "status",
+                                                             None)
+        return
+    got = port.search("items", dict(request))
+    assert got["hits"]["total"] == want["hits"]["total"]
+    assert [h["_id"] for h in got["hits"]["hits"]] == \
+        [h["_id"] for h in want["hits"]["hits"]]
+    np.testing.assert_allclose(
+        [h["_score"] for h in got["hits"]["hits"]],
+        [h["_score"] for h in want["hits"]["hits"]], rtol=RTOL)
 
 
 def test_count_and_lexical_search_over_http(nodes):

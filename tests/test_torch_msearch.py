@@ -231,11 +231,17 @@ def test_stacked_step_off_runs_one_by_one(nodes):
 
 
 def test_body_outside_the_port_raises(nodes):
-    _ref, port = nodes
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port.msearch([({"index": "vecs"}, {
-            "query": {"match_all": {}},
-            "suggest": {"s": {"text": "a", "term": {"field": "v"}}}})])
+    """A suggest body, outside the port before, is served now: its slot
+    answers as the reference's does."""
+    ref, port = nodes
+    searches = [({"index": "vecs"}, {
+        "query": {"match_all": {}},
+        "suggest": {"s": {"text": "a", "term": {"field": "v"}}}})]
+    want = ref.msearch(searches)["responses"][0]
+    got = port.msearch(searches)["responses"][0]
+    assert "error" not in got
+    assert got["suggest"] == want["suggest"]
+    assert _hits(got) == _hits(want)
 
 
 def test_aggs_body_is_served_solo(nodes):

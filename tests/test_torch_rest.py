@@ -7,6 +7,9 @@ request sequence: root info, the index lifecycle, HEAD, document CRUD with
 versions, 404 and 409, `_update` with `doc` / `doc_as_upsert` / `upsert`
 and `detect_noop`, an NDJSON `_bulk` with an update action, `_refresh`,
 kNN `_search` (GET and POST, URL `size` / `from` / `_source`), `_msearch`,
+stored scripts, `_render/template` and `_search/template`, search
+pipelines (their CRUD, `?search_pipeline`, a body's `search_pipeline` in
+`_msearch`), scripted `_update` and `scripted_upsert`,
 `filter_path`, `rest_total_hits_as_int`, a 413, a malformed
 Content-Length and `_cluster/health`. Each step's JSON bodies must be
 equal with `took` removed (and an index's uuid and creation date, which
@@ -268,6 +271,54 @@ def _sequence(c: Client) -> list[tuple[str, int, object]]:
         {}, _knn(qs[4], k=3, size=3), {}, _knn(qs[5], k=3, size=3)])
     step("msearch_total_int", "POST", "/vecs/_msearch?rest_total_hits_as_int=true",
          ndjson=[{}, _knn(qs[4], k=2, size=2)])
+    # stored scripts, search templates, search pipelines, scripted updates
+    step("put_script", "PUT", "/_scripts/by_color", {"script": {
+        "lang": "mustache",
+        "source": '{"query": {"term": {"color": "{{c}}"}}, "size": {{n}}}'}})
+    step("get_script", "GET", "/_scripts/by_color")
+    step("get_script_missing", "GET", "/_scripts/nope")
+    step("put_script_bad", "POST", "/_scripts/bad", {"script": {"lang": "x"}})
+    step("script_context", "GET", "/_script_context")
+    step("script_language", "GET", "/_script_language")
+    step("render_stored", "POST", "/_render/template/by_color",
+         {"params": {"c": "red", "n": 3}})
+    step("render_inline", "GET", "/_render/template", {
+        "source": {"query": {"match": {"title": "{{t}}"}}},
+        "params": {"t": "number"}})
+    step("render_missing", "POST", "/_render/template", {"id": "nope"})
+    step("search_template", "POST", "/vecs/_search/template",
+         {"id": "by_color", "params": {"c": "blue", "n": 4}})
+    step("search_template_all", "GET", "/_search/template?rest_total_hits_"
+         "as_int=true", {"source": {"query": {"term": {"color": "{{c}}"}}},
+                        "params": {"c": "green"}})
+    step("delete_script", "DELETE", "/_scripts/by_color")
+    step("delete_script_again", "DELETE", "/_scripts/by_color")
+    step("put_pipeline", "PUT", "/_search/pipeline/trunc", {
+        "request_processors": [{"filter_query": {"query": {
+            "term": {"color": "red"}}}}],
+        "response_processors": [{"truncate_hits": {"target_size": 2}}]})
+    step("put_pipeline_bad", "PUT", "/_search/pipeline/bad", {
+        "response_processors": [{"nope": {}}]})
+    step("get_pipelines", "GET", "/_search/pipeline")
+    step("get_pipeline", "GET", "/_search/pipeline/trunc")
+    step("search_pipeline_param", "POST", "/vecs/_search?search_pipeline="
+         "trunc", _knn(qs[0], k=6, size=6))
+    step("search_pipeline_missing", "POST", "/vecs/_search?search_pipeline="
+         "nope", _knn(qs[0]))
+    step("msearch_pipeline_key", "POST", "/vecs/_msearch", ndjson=[
+        {}, {**_knn(qs[1], k=6, size=6), "search_pipeline": "trunc"},
+        {}, _knn(qs[2], k=3, size=3)])
+    step("delete_pipeline", "DELETE", "/_search/pipeline/trunc")
+    step("get_pipeline_deleted", "GET", "/_search/pipeline/trunc")
+    step("update_script", "POST", "/vecs/_update/7", {"script": {
+        "source": "ctx._source.age += params.d", "params": {"d": 5}}})
+    step("update_script_noop", "POST", "/vecs/_update/7", {"script": {
+        "source": "ctx.op = 'none'"}})
+    step("update_scripted_upsert", "POST", "/vecs/_update/s1", {
+        "scripted_upsert": True, "upsert": {"age": 1},
+        "script": {"source": "ctx._source.age += 100"}})
+    step("get_s1", "GET", "/vecs/_doc/s1")
+    step("get_7", "GET", "/vecs/_doc/7")
     # the transport's own answers
     status, body = c.raw(b"POST /vecs/_doc/big HTTP/1.1\r\nHost: x\r\n"
                          b"Content-Length: 200000000\r\n\r\n")
@@ -360,7 +411,15 @@ STEPS = [
     "search_total_int", "search_total_int_bad", "search_filter_path",
     "search_track_total", "search_unknown_key", "search_missing_index",
     "search_ignore_unavailable", "search_bad_search_type", "msearch",
-    "msearch_index_path", "msearch_total_int", "too_large",
+    "msearch_index_path", "msearch_total_int", "put_script", "get_script",
+    "get_script_missing", "put_script_bad", "script_context",
+    "script_language", "render_stored", "render_inline", "render_missing",
+    "search_template", "search_template_all", "delete_script",
+    "delete_script_again", "put_pipeline", "put_pipeline_bad",
+    "get_pipelines", "get_pipeline", "search_pipeline_param",
+    "search_pipeline_missing", "msearch_pipeline_key", "delete_pipeline",
+    "get_pipeline_deleted", "update_script", "update_script_noop",
+    "update_scripted_upsert", "get_s1", "get_7", "too_large",
     "bad_content_length", "malformed_json", "no_handler",
     "wrong_method", "health_end", "delete_index", "delete_missing",
     "delete_missing_ignored",
@@ -461,10 +520,11 @@ def test_unported_routes_answer_the_500_envelope_and_keep_the_connection(
         c("PUT", "/v/_doc/1?refresh=true", {"v": [1.0, 0.0]})
         for method, path, body in (
                 ("GET", "/_cat/indices", None),
-                ("POST", "/v/_search", {"query": {"script": {
-                    "script": {"source": "true"}}}}),
+                ("POST", "/v/_update_by_query", {"script": {
+                    "source": "ctx._source.a = 1"}}),
                 ("GET", "/v/_stats", None),
-                ("POST", "/v/_update/1", {"script": "ctx._source.a = 1"}),
+                ("POST", "/v/_search/template?scroll=1m", {"source": {
+                    "query": {"match_all": {}}}}),
                 ("POST", "/v/_search?scroll=1m", {"query": {"knn": {"v": {
                     "vector": [1.0, 0.0], "k": 1}}}})):
             status, payload = c(method, path, body)
@@ -539,3 +599,26 @@ def test_concurrent_http_searches_equal_their_solo_ones(tmp_path):
     assert len(results) == len(bodies)
     for i, hits in results:
         assert hits == solo[i], i
+
+
+def test_scripts_templates_and_pipelines_are_served(transcripts):
+    """The script, template and pipeline steps compared above are the
+    served answers, not errors."""
+    for label in ("put_script", "get_script", "render_stored",
+                  "search_template", "search_template_all", "put_pipeline",
+                  "get_pipeline", "search_pipeline_param", "update_script",
+                  "update_scripted_upsert"):
+        _ref, (status, _body) = transcripts[label]
+        assert status == 200, label
+    _ref, (_s, body) = transcripts["search_pipeline_param"]
+    hits = body["hits"]["hits"]
+    assert len(hits) == 2 and all(h["_source"]["color"] == "red"
+                                  for h in hits)
+    _ref, (_s, body) = transcripts["msearch_pipeline_key"]
+    assert [len(r["hits"]["hits"]) for r in body["responses"]] == [2, 3]
+    _ref, (_s, body) = transcripts["search_template"]
+    assert body["hits"]["hits"] and len(body["hits"]["hits"]) <= 4
+    _ref, (_s, body) = transcripts["get_s1"]
+    assert body["_source"]["age"] == 101
+    _ref, (_s, body) = transcripts["update_script_noop"]
+    assert body["result"] == "noop"

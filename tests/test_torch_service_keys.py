@@ -1,9 +1,7 @@
 """Request keys of `_search` on TorchNode(device="cpu") against TpuNode:
 a key the reference does not know is the reference's ParsingException (a
-400, "unknown search request keys [...]") on both nodes; a key the
-reference knows and the port does not serve yet raises "not yet ported" on
-the port and is served by the reference; ``aggs``, served now, answers as
-the reference's does."""
+400, "unknown search request keys [...]") on both nodes; every key
+the reference knows answers as the reference's does."""
 
 from __future__ import annotations
 
@@ -57,25 +55,28 @@ def test_unknown_key_is_the_references_parsing_exception(nodes, extra):
     {"script_fields": {"x": {"script": {"source": "1"}}}},
     {"slice": {"id": 0, "max": 1}}])
 def test_known_unported_key_is_not_yet_ported(nodes, extra):
-    """``aggs`` is served now and answers as the reference does; the
-    other keys still raise "not yet ported"."""
+    """Every key the reference knows is served now: ``aggs``,
+    ``suggest``, ``script_fields`` and ``slice`` answer as the
+    reference's do (the same hits, aggregations, suggestions and script
+    fields)."""
     ref, port = nodes
     body = {"query": KNN, **extra}
     want = ref.search("i", body)
     assert want["hits"]["hits"]
-    if set(extra) <= service.SUPPORTED_KEYS:
-        got = port.search("i", body)
-        assert got["aggregations"] == want["aggregations"]
+    got = port.search("i", body)
+    assert ([(h["_id"], h.get("fields")) for h in got["hits"]["hits"]]
+            == [(h["_id"], h.get("fields")) for h in want["hits"]["hits"]])
+    assert got["hits"]["total"] == want["hits"]["total"]
+    for key in ("aggregations", "suggest"):
+        assert got.get(key) == want.get(key)
+    if "aggs" in extra:
         assert got["aggregations"]["t"]["buckets"]
-        assert ([h["_id"] for h in got["hits"]["hits"]]
-                == [h["_id"] for h in want["hits"]["hits"]])
-        return
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        port.search("i", body)
+    if "script_fields" in extra:
+        assert all(h["fields"]["x"] == [1] for h in got["hits"]["hits"])
 
 
 def test_known_keys_are_the_references():
-    """The port's copy of the reference's key set: every key the port
-    serves is one the reference knows."""
-    assert service.SUPPORTED_KEYS <= service.KNOWN_KEYS
+    """The port's copy of the reference's key set, every key of it
+    served: no request key is left outside the port."""
+    assert not hasattr(service, "UNPORTED_KEYS")
     assert len(service.KNOWN_KEYS) == 28
