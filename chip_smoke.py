@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
-                                    hybrid,large,lexical,aggs,dsl,mesh]
+                                    hybrid,large,lexical,aggs,dsl,mesh,
+                                    contexts]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -225,8 +226,8 @@ Then:
    _msearch of 32 in one K1 launch; 8 HTTP clients x 8 searches on the
    stacked step and the per-shard route, each its solo search's bits;
    "profile": true of the in-process profile's shape with its K1 launch's
-   device_time_in_nanos > 0; a ?scroll search and GET /_cat/indices the
-   500 "not yet ported" envelope on a connection that then serves a search;
+   device_time_in_nanos > 0; GET /_cluster/pending_tasks and GET
+   /_cat/indices the 500 "not yet ported" envelope on a connection that then serves a search;
    and the in-process p50 with the profiler's hooks and without.
    ``--phases rest`` builds index A and runs this phase alone.
    Every concurrent (gated) check, of K1's paths and of index C's IVF-PQ
@@ -355,6 +356,27 @@ library calls, logged as `large record` lines.
    a kNN-bearing search on its tier and K1's plain version bit for bit;
    HTTP the in-process hits; no percolate bytes left in the ledger.
    ``--phases dsl`` builds index L and runs it alone.
+
+10. contexts (with main, last on the main node, after large_main_phase;
+   contexts_main_phase): search contexts, aliases and admission on cell A
+   and B. Filtered aliases (a term and a range filter, added in process
+   and over HTTP): 16 kNN searches at k = 10 and 16 at k = 100 through
+   each, one filtered K1 launch each on its tier, the knn.filter bits and
+   the brute force over the filter's docs; a write alias's 100 docs seen
+   after a refresh. A point in time across 1,000 deletes of the top hits:
+   the pre-delete bits through it, the post-delete brute force live,
+   search_after pages on _shard_doc the one-shot hits, the registry's
+   rebuilds over PIT / live alternations, device memory beside the ledger.
+   A k = 1,000 scroll in 10 pages, one K1 launch a page. The request
+   cache: a miss one K1 launch, 15 hits none and the miss's JSON, a write
+   (a delete) a miss. Admission: 8 threads x 8 under an enforced workload group (each
+   admitted search its solo bits, each rejection a 429), no task left,
+   the in-flight breaker at 0 after an HTTP _msearch, a cancelled search
+   with no K1 launch. _cluster/settings, _flush and a restart on the same
+   path: indices, counts, aliases and the persistent setting back on the
+   card, the same kNN bits; a PIT on B across _forcemerge, whose held
+   segments leave device memory at close_pit. ``--phases contexts``
+   builds cell A and B and runs it alone.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -3313,7 +3335,8 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
        merged batch beside concurrent_phase's in-process figures;
     6. "profile": true: the operator tree of the in-process profile's
        shape, the K1 launch's device_time_in_nanos > 0;
-    7. a ?scroll search and GET /_cat/indices answer the 500 envelope with
+    7. GET /_cluster/pending_tasks and GET /_cat/indices answer the 500
+       envelope with
        their "not yet ported" reason, and the next search on the same
        connection succeeds.
     Then DELETE /rest_b, whose stacked slabs must leave the registry. Also
@@ -3552,8 +3575,7 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
         # 7. not yet ported, then the same connection serves a search
         envelopes = {}
         for method, path, req in (
-                ("POST", "/sift_a/_search?scroll=1m", {"query": {"knn": {
-                    "v": {"vector": queries[2].tolist(), "k": 10}}}}),
+                ("GET", "/_cluster/pending_tasks", None),
                 ("GET", "/_cat/indices", None)):
             status, payload = client(method, path, req)
             reason = (payload or {}).get("error", {}).get("reason", "")
@@ -4503,6 +4525,9 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         large = large_main_phase(node, kf, corpora["sift_a"][0],
                                  truths["sift_a"][0], step_inputs["sift_a"],
                                  rng)
+        contexts, node = contexts_main_phase(
+            node, kf, tmp, corpora["sift_a"][0], attrs_a,
+            truths["sift_a"][0], corpora["sift_b"][0], rng)
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
     # each index's shape, beside the whole search's latency above: CUDA-event
@@ -4553,7 +4578,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
             "step_device": step_device, "per_shard": per_shard,
             "wide": wide, "reduced": reduced, "batched": batched,
             "msearch": msearch, "rest": rest, "filtered": filtered,
-            "large": large}
+            "large": large, "contexts": contexts}
 
 
 def filtered_phase(kf, dev, seed: int) -> dict:
@@ -5120,9 +5145,9 @@ def filtered_main_phase(node, kf, attrs: dict, queries: np.ndarray,
         flt = query_dsl.parse_query(filters_[fname][0])
         mask_prof = device_profile(functools.partial(
             distributed_serving._filter_valid_mask, [shard], snaps, flt,
-            bundle.n_flat, dev), 10)
+            None, bundle.n_flat, dev), 10)
         fvalid = bundle.valid & distributed_serving._filter_valid_mask(
-            [shard], snaps, flt, bundle.n_flat, dev)
+            [shard], snaps, flt, None, bundle.n_flat, dev)
         step_f = device_profile(functools.partial(
             kf.knn_fused_stacked, bundle.vectors, bundle.norms_sq, fvalid, q1,
             k=10, similarity="l2_norm"), 10)
@@ -5234,6 +5259,662 @@ def large_main_phase(node, kf, data_a: np.ndarray, queries_a: np.ndarray,
         raise AssertionError("[small] the brute force lost a live doc")
     out["small k=5000"] = run("small", qs, 5000, truth)
     out.update(large_reduced_main(node, kf, q768[:2], qa))
+    return out
+
+
+# the search-contexts phase (contexts_main_phase): searches of each gate
+CONTEXT_QUERIES = 16
+CONTEXT_DELETES = 1_000       # deleted under an open PIT, among the top hits
+CONTEXT_WRITES = 100          # docs written through the write alias
+CONTEXT_PAGES = 4             # queries paged by search_after on _shard_doc
+CONTEXT_SCROLL_K = 1_000
+CONTEXT_SCROLL_SIZE = 100
+CONTEXT_ALTERNATIONS = 4      # PIT / live kNN pairs
+CONTEXT_CACHE_REPEATS = 15
+CONTEXT_CACHE_MISSES = 8
+CONTEXT_THREADS = 8
+CONTEXT_B_DELETES = 200       # deleted in index B before its force merge
+CONTEXT_WLM_CPU = 0.05        # the group's share: 3 of wlm's 64 permits
+
+
+def _ctx_hits(resp: dict) -> list:
+    """(_id, _score) of each hit, the scores as the JSON floats they are."""
+    return [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]]
+
+
+def _ctx_knn(qv, k: int, **extra) -> dict:
+    return {"query": {"knn": {"v": {"vector": qv.tolist(), "k": k}}},
+            "size": k, "_source": False, **extra}
+
+
+def contexts_main_phase(node, kf, data_path: str, data_a: np.ndarray,
+                        attrs_a: dict, queries: np.ndarray,
+                        data_b: np.ndarray, rng) -> tuple:
+    """Search contexts, aliases and admission on cell A and B, after the
+    other phases of the main node (its deletes and writes change cell A,
+    so every truth is computed after the change it follows):
+
+    1. filtered aliases: ``a_red`` (term color) in process and ``a_age``
+       (range age) through POST /_aliases over the port's HTTP server;
+       16 kNN searches at k = 10 and 16 at k = 100 through each, every
+       search one K1 launch on the tier scan_tier names, counted in
+       distributed_serving.stats["filtered"], its hits the same kNN with
+       the filter in knn.filter bit for bit and the brute force over the
+       filter's docs summed in the kernel's order (kernel_order_scores)
+       in order; 4 of each over HTTP equal to in process;
+    2. the request cache (while cell A has one segment): size 0, kNN
+       k = 100, terms on color and a histogram on age: the miss one K1
+       launch, 15 hits none and equal to the miss as JSON, a write (a
+       delete) + refresh a miss with one launch, POST /_cache/clear
+       empties it; hit and miss p50; then a write alias takes 100 docs
+       through _bulk, seen only after a refresh;
+    3. point in time: a PIT on A, 1,000 of the current top hits deleted
+       and refreshed, 16 kNN searches through the PIT the pre-delete hits
+       bit for bit, the live index the post-delete brute force;
+       search_after on [_score, _shard_doc] in pages of 10 over a k = 100
+       kNN through the PIT concatenating to the one-shot hits; the
+       shard-mesh registry's builds and each search's host ms over 4 PIT
+       / live alternations; memory_allocated beside the ledger's resident
+       bytes before, during and after the PIT;
+    4. scroll: a k = 1,000 kNN at size 100 with scroll=1m, its 10 pages
+       the one-shot size 1,000 hits bit for bit, one K1 launch a page;
+       clear_scroll frees the context;
+    5. admission: 8 threads x 8 kNN searches under an enforced workload
+       group admitting 3, each admitted search its solo bits, each
+       rejection the reference's 429; no task left registered; the
+       in-flight breaker at 0 after an HTTP _msearch of 32; a search
+       cancelled as its task registers raises task_cancelled_exception
+       and launches no K1;
+    6. settings and restart: PUT /_cluster/settings (a persistent batcher
+       key, a transient cache size) takes effect; _flush both indices,
+       close the node, open a new TorchNode on the path with no device
+       argument: the indices, doc counts, aliases and the persistent key
+       come back on the card, the transient one does not, and 16 kNN
+       searches on each index equal the pre-restart bits through K1;
+       then a PIT on B held across _forcemerge?max_num_segments=1 (after
+       200 deletes): the hits the same bits, the device memory the PIT
+       holds above the ledger released by close_pit.
+
+    Returns (record, the reopened node)."""
+    import gc
+
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+    from opensearch_tpu_torch.common.errors import OpenSearchTpuException
+    from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+    from opensearch_tpu_torch.rest.http import HttpServer
+    from opensearch_tpu_torch.search import distributed_serving
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    t_phase = time.perf_counter()
+    dev = node.device
+    # what a tensor on the node's device names its device (cuda:0)
+    dev_name = str(torch.empty(0, device=dev).device)
+    out: dict = {}
+    # the earlier phases' other indices leave: the restart below reopens
+    # cell A and B alone
+    extra = sorted(n for n in node.indices if n not in ("sift_a", "sift_b"))
+    if extra:
+        node.delete_index(",".join(extra))
+    out["deleted_before"] = extra
+    n_a = data_a.shape[0]
+    vecs = data_a.copy()
+    attrs = {k: np.asarray(v).copy() for k, v in attrs_a.items()}
+    live = np.ones(n_a, bool)
+    qs = queries[:CONTEXT_QUERIES]
+    qt = torch.from_numpy(qs).to(dev)
+    qsq = kr.plain_query_sq(qt)
+    tier_counter = {"lists": kf.list_launches, "wide": kf.wide_launches,
+                    "mma": kf.mma_launches}
+
+    def brute(valid: np.ndarray, k: int, q=None, q_sq=None) -> list:
+        v = torch.from_numpy(vecs)[None].to(dev)
+        nrm = (v.double() ** 2).sum(2).float()
+        ok = torch.from_numpy(valid)[None].to(dev)
+        scores = kernel_order_scores(kf, v, nrm, ok, qt if q is None else q,
+                                     qsq if q_sq is None else q_sq, "l2_norm")
+        return [[str(int(i)) for i in row if i >= 0]
+                for row in order_top(kf, scores, k)[1][0].tolist()]
+
+    def k1_run(label: str, fn, n: int, tier: str | None,
+               filtered: int | None = None) -> dict:
+        """fn() over n searches, counted from 0: one K1 launch each (on
+        `tier` when named), `filtered` of them counted filtered."""
+        for c in (kf.launches, *tier_counter.values()):
+            c.reset()
+        f0 = distributed_serving.stats["filtered"]
+        result = fn()
+        got = {"knn_fused": kf.launches.count,
+               "filtered": distributed_serving.stats["filtered"] - f0}
+        if tier is not None:
+            got[tier] = tier_counter[tier].count
+        if got["knn_fused"] != n or (tier is not None and got[tier] != n) \
+                or (filtered is not None and got["filtered"] != filtered):
+            raise AssertionError(f"{label}: {got} launches in {n} searches "
+                                 f"(want one K1 launch each on {tier}, "
+                                 f"{filtered} filtered)")
+        return {"launches": got, "result": result}
+
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    client = RestClient(server.port)
+    try:
+        # -- 1. filtered aliases -------------------------------------------
+        t0 = time.perf_counter()
+        red = {"term": {"color": COLORS[0]}}
+        age = {"range": {"age": {"gte": 30, "lt": 60}}}
+        node.update_aliases({"actions": [
+            {"add": {"index": "sift_a", "alias": "a_red", "filter": red}}]})
+        client.ok("POST", "/_aliases", {"actions": [
+            {"add": {"index": "sift_a", "alias": "a_age", "filter": age}}]})
+        aliases = client.ok("GET", "/sift_a/_alias")
+        if set(aliases["sift_a"]["aliases"]) != {"a_red", "a_age"}:
+            raise AssertionError(f"GET /sift_a/_alias: {aliases}")
+        preds = {"a_red": (red, attrs["color"] == 0),
+                 "a_age": (age, (attrs["age"] >= 30) & (attrs["age"] < 60))}
+        for alias, (flt, pred) in preds.items():
+            for k in (10, 100):
+                r = kf.fused_pool_width(k, "fp32")
+                tier = kf.scan_tier("fp32", r)
+                label = f"[sift_a] alias {alias} k={k}"
+                truth = brute(live & pred, k)
+                lat = []
+
+                def through_alias():
+                    got = []
+                    for i in range(CONTEXT_QUERIES):
+                        t1 = time.perf_counter()
+                        got.append(_ctx_hits(node.search(alias, _ctx_knn(
+                            qs[i], k))))
+                        lat.append(time.perf_counter() - t1)
+                    return got
+
+                def body_filter():
+                    return [_ctx_hits(node.search("sift_a", {"query": {
+                        "knn": {"v": {"vector": qs[i].tolist(), "k": k,
+                                      "filter": flt}}},
+                        "size": k, "_source": False}))
+                        for i in range(CONTEXT_QUERIES)]
+
+                via = k1_run(label, through_alias, CONTEXT_QUERIES, tier,
+                             CONTEXT_QUERIES)
+                body = k1_run(f"{label} knn.filter", body_filter,
+                              CONTEXT_QUERIES, tier, CONTEXT_QUERIES)
+                for i in range(CONTEXT_QUERIES):
+                    if via["result"][i] != body["result"][i]:
+                        raise AssertionError(f"{label} query {i}: not the "
+                                             f"knn.filter search's bits")
+                    if [h for h, _s in via["result"][i]] != truth[i]:
+                        raise AssertionError(f"{label} query {i}: not the "
+                                             f"brute force over the filter: "
+                                             f"{via['result'][i]} != "
+                                             f"{truth[i]}")
+                for i in range(4):
+                    got = client.ok("POST", f"/{alias}/_search",
+                                    _ctx_knn(qs[i], k))
+                    if _ctx_hits(got) != via["result"][i]:
+                        raise AssertionError(f"{label} query {i}: HTTP "
+                                             f"differs from in process")
+                res = latency_summary(lat)
+                res.update(launches=via["launches"], tier=tier,
+                           eligible=int((live & pred).sum()))
+                out[f"alias {alias} k={k}"] = res
+                log(f"{label}: 16 searches, one filtered K1 launch each on "
+                    f"the {tier} tier, the knn.filter bits and the brute "
+                    f"force; 4 over HTTP the same; {json.dumps(res)}")
+        # -- 2. request cache ------------------------------------------------
+        t0 = time.perf_counter()
+        cache_body = {"size": 0, "query": {"knn": {"v": {
+            "vector": qs[1].tolist(), "k": 100}}},
+            "aggs": {"colors": {"terms": {"field": "color"}},
+                     "ages": {"histogram": {"field": "age",
+                                            "interval": 10}}}}
+
+        def timed_search() -> tuple:
+            t1 = time.perf_counter()
+            resp = node.search("sift_a", cache_body)
+            return resp, time.perf_counter() - t1
+
+        def launches_of(fn) -> tuple:
+            kf.launches.reset()
+            res = fn()
+            return res, kf.launches.count
+
+        node.request_cache.clear()
+        (miss, miss_s), n_miss = launches_of(timed_search)
+        miss_launches = [n_miss]
+        hit_s, hit_launches = [], 0
+        for _ in range(CONTEXT_CACHE_REPEATS):
+            (got, dt), n = launches_of(timed_search)
+            hit_s.append(dt)
+            hit_launches += n
+            if json_view(got) != json_view(miss):
+                raise AssertionError("request cache: a hit differs from "
+                                     "its miss as JSON")
+        # a write (a delete: the index keeps one segment, so a miss stays
+        # one K1 launch) and a refresh move the generation
+        gone = int(rng.choice(np.flatnonzero(live)))
+        node.delete_doc("sift_a", str(gone))
+        node.refresh("sift_a")
+        live[gone] = False
+        (_r, dt), n_write = launches_of(timed_search)
+        miss_launches.append(n_write)
+        miss_lat = [miss_s, dt]
+        for _ in range(CONTEXT_CACHE_MISSES - 2):
+            node.request_cache.clear()
+            (_r, dt), n = launches_of(timed_search)
+            miss_lat.append(dt)
+            miss_launches.append(n)
+        cleared = client.ok("POST", "/_cache/clear")
+        stats = node.request_cache.stats()
+        if miss_launches != [1] * CONTEXT_CACHE_MISSES or hit_launches != 0 \
+                or cleared["cleared"] < 1 or stats["entries"] != 0:
+            raise AssertionError(f"request cache: misses {miss_launches}, "
+                                 f"hits {hit_launches} launches (the second "
+                                 f"miss after a write); cleared {cleared}, "
+                                 f"{stats}")
+        out["cache"] = {"miss_launches": miss_launches,
+                        "hit_launches": hit_launches,
+                        "hit": latency_summary(hit_s),
+                        "miss": latency_summary(miss_lat),
+                        "wall_s": time.perf_counter() - t0}
+        log(f"[sift_a] request cache: the miss one K1 launch, "
+            f"{CONTEXT_CACHE_REPEATS} hits none and the miss's JSON, a write "
+            f"+ refresh a miss; {json.dumps(out['cache'])}")
+
+        # a write alias takes CONTEXT_WRITES docs, visible after a refresh
+        node.update_aliases({"actions": [{"add": {
+            "index": "sift_a", "alias": "a_write", "is_write_index": True}}]})
+        new = (data_a[rng.choice(n_a, CONTEXT_WRITES, replace=False)]
+               + 0.01 * rng.standard_normal((CONTEXT_WRITES, DIM))
+               .astype(np.float32))
+        new_attrs = attributes(rng, CONTEXT_WRITES)
+        ids = [str(n_a + j) for j in range(CONTEXT_WRITES)]
+        resp = node.bulk([("index", {"_index": "a_write", "_id": ids[j]},
+                           {"v": new[j].tolist(),
+                            **attribute_doc(new_attrs, j)})
+                          for j in range(CONTEXT_WRITES)])
+        if resp["errors"] or {it["index"]["_index"] for it in resp["items"]} \
+                != {"sift_a"}:
+            raise AssertionError("the write alias's _bulk did not land in "
+                                 "sift_a")
+
+        def nearest(j: int) -> str:
+            return node.search("a_write", _ctx_knn(new[j], 1))["hits"][
+                "hits"][0]["_id"]
+
+        before = [nearest(j) for j in range(4)]
+        node.refresh("a_write")
+        after = [nearest(j) for j in range(4)]
+        if any(b == ids[j] for j, b in enumerate(before)) or \
+                after != ids[:4]:
+            raise AssertionError(f"write alias: before refresh {before}, "
+                                 f"after {after}")
+        vecs = np.concatenate([vecs, new])
+        attrs = {k: np.concatenate([attrs[k], new_attrs[k]]) for k in attrs}
+        live = np.concatenate([live, np.ones(CONTEXT_WRITES, bool)])
+        out["aliases_s"] = time.perf_counter() - t0
+        log(f"[sift_a] write alias: {CONTEXT_WRITES} docs through _bulk, "
+            f"unseen before the refresh, the nearest after it; aliases "
+            f"{out['aliases_s']:.1f} s")
+
+        # -- 3. point in time ------------------------------------------------
+        t0 = time.perf_counter()
+        mem0 = (torch.cuda.memory_allocated(), default_ledger.resident_bytes())
+        pit = client.ok("POST", "/sift_a/_search/point_in_time?keep_alive=5m")
+        pid = pit["pit_id"]
+        mem1 = (torch.cuda.memory_allocated(), default_ledger.resident_bytes())
+        pre_truth = brute(live, 10)
+        pre_100 = brute(live, 100)
+        pre = [_ctx_hits(node.search("sift_a", _ctx_knn(qs[i], 10)))
+               for i in range(CONTEXT_QUERIES)]
+        if [[h for h, _s in p] for p in pre] != pre_truth:
+            raise AssertionError("[sift_a] pre-delete hits are not the "
+                                 "brute force")
+        top = list(dict.fromkeys(h for row in pre_100 for h in row))
+        victims = top[:CONTEXT_DELETES]
+        if len(victims) < CONTEXT_DELETES:
+            pool = np.setdiff1d(np.flatnonzero(live),
+                                np.asarray(victims, np.int64))
+            victims += [str(int(x)) for x in rng.choice(
+                pool, CONTEXT_DELETES - len(victims), replace=False)]
+        resp = node.bulk([("delete", {"_index": "sift_a", "_id": d}, None)
+                          for d in victims], refresh=True)
+        if resp["errors"]:
+            raise AssertionError("deleting under the PIT reported errors")
+        live[np.asarray(victims, np.int64)] = False
+        post_truth = brute(live, 10)
+
+        def pit_search(i: int, k: int = 10, **extra) -> dict:
+            return node.search(None, {"pit": {"id": pid},
+                                      **_ctx_knn(qs[i], k, **extra)})
+
+        pit_run = k1_run("[sift_a] PIT", lambda: [
+            _ctx_hits(pit_search(i)) for i in range(CONTEXT_QUERIES)],
+            CONTEXT_QUERIES, "lists")
+        live_run = k1_run("[sift_a] live after the deletes", lambda: [
+            _ctx_hits(node.search("sift_a", _ctx_knn(qs[i], 10)))
+            for i in range(CONTEXT_QUERIES)], CONTEXT_QUERIES, "lists")
+        for i in range(CONTEXT_QUERIES):
+            if pit_run["result"][i] != pre[i]:
+                raise AssertionError(f"[sift_a] PIT query {i}: not the "
+                                     f"pre-delete bits")
+            if [h for h, _s in live_run["result"][i]] != post_truth[i]:
+                raise AssertionError(f"[sift_a] live query {i}: not the "
+                                     f"post-delete brute force")
+        # search_after on _shard_doc in pages of 10 over a k = 100 kNN
+        sort = [{"_score": "desc"}, {"_shard_doc": "asc"}]
+        for i in range(CONTEXT_PAGES):
+            whole = pit_search(i, 100, sort=sort)
+            pages, after_key = [], None
+            for _p in range(10):
+                extra_ = {"sort": sort}
+                if after_key is not None:
+                    extra_["search_after"] = after_key
+                page = node.search(None, {"pit": {"id": pid}, **_ctx_knn(
+                    qs[i], 100, **extra_), "size": 10})
+                pages.extend(_ctx_hits(page))
+                after_key = page["hits"]["hits"][-1]["sort"]
+            if pages != _ctx_hits(whole) or \
+                    [h for h, _s in pages] != pre_100[i]:
+                raise AssertionError(f"[sift_a] PIT query {i}: search_after "
+                                     f"pages are not the one-shot k=100 "
+                                     f"hits")
+        # PIT / live alternation: each rebuilds its generation's slab
+        builds0 = default_registry.stats["builds"]
+        alt = []
+        for j in range(CONTEXT_ALTERNATIONS):
+            for kind in ("pit", "live"):
+                t1 = time.perf_counter()
+                hits = _ctx_hits(pit_search(j) if kind == "pit" else
+                                 node.search("sift_a", _ctx_knn(qs[j], 10)))
+                alt.append((kind, (time.perf_counter() - t1) * 1e3))
+                want = pre[j] if kind == "pit" else live_run["result"][j]
+                if hits != want:
+                    raise AssertionError(f"[sift_a] alternation {j} {kind}: "
+                                         f"not its generation's bits")
+        builds = default_registry.stats["builds"] - builds0
+        mem2 = (torch.cuda.memory_allocated(), default_ledger.resident_bytes())
+        closed = client.ok("DELETE", "/_search/point_in_time",
+                           {"pit_id": [pid]})
+        if closed["pits"] != [{"pit_id": pid, "successful": True}] or \
+                node.list_all_pits()["pits"]:
+            raise AssertionError(f"close PIT: {closed}")
+        gc.collect()
+        mem3 = (torch.cuda.memory_allocated(), default_ledger.resident_bytes())
+        out["pit"] = {
+            "deleted": CONTEXT_DELETES, "pit_launches": pit_run["launches"],
+            "live_launches": live_run["launches"],
+            "alternation_builds": builds,
+            "alternation_ms": [round(ms, 3) for _k, ms in alt],
+            "memory_allocated": [mem0[0], mem1[0], mem2[0], mem3[0]],
+            "ledger_resident": [mem0[1], mem1[1], mem2[1], mem3[1]],
+            "wall_s": time.perf_counter() - t0}
+        log(f"[sift_a] PIT: 16 searches the pre-delete bits after "
+            f"{CONTEXT_DELETES} deletes, the live index the post-delete "
+            f"brute force, search_after pages of 10 the one-shot k=100 "
+            f"hits; {json.dumps(out['pit'])}")
+
+        # -- 4. scroll -------------------------------------------------------
+        t0 = time.perf_counter()
+        k, size = CONTEXT_SCROLL_K, CONTEXT_SCROLL_SIZE
+        r = kf.fused_pool_width(k, "fp32")
+        tier = kf.scan_tier("fp32", r)
+        one = k1_run("[sift_a] scroll one-shot", lambda: node.search(
+            "sift_a", _ctx_knn(qs[0], k)), 1, tier)["result"]
+        per_page = []
+        pages = []
+        for c in (kf.launches, *tier_counter.values()):
+            c.reset()
+        resp = client.ok("POST", "/sift_a/_search?scroll=1m",
+                         {**_ctx_knn(qs[0], k), "size": size})
+        sid = resp["_scroll_id"]
+        while resp["hits"]["hits"]:
+            per_page.append(kf.launches.count)
+            pages.extend(_ctx_hits(resp))
+            resp = client.ok("POST", "/_search/scroll",
+                             {"scroll_id": sid, "scroll": "1m"})
+        launches = np.diff([0] + per_page).tolist()
+        if pages != _ctx_hits(one) or len(pages) != k or \
+                launches != [1] * (k // size):
+            raise AssertionError(f"[sift_a] scroll: {len(pages)} hits, "
+                                 f"launches a page {launches}")
+        cleared = client.ok("DELETE", "/_search/scroll", {"scroll_id": sid})
+        if cleared["num_freed"] != 1 or any(
+                c["kind"] == "scroll" for c in node._reader_contexts.values()):
+            raise AssertionError(f"clear_scroll: {cleared}")
+        out["scroll"] = {"pages": len(launches), "launches_a_page": launches,
+                         "tier": tier, "wall_s": time.perf_counter() - t0}
+        log(f"[sift_a] scroll k={k} size={size}: {len(launches)} pages the "
+            f"one-shot hits, K1 launches a page {launches} ({tier} tier); "
+            f"clear_scroll freed it")
+
+        # -- 5. admission ----------------------------------------------------
+        t0 = time.perf_counter()
+        group = client.ok("PUT", "/_wlm/query_group", {
+            "name": "ctx", "resiliency_mode": "enforced",
+            "resource_limits": {"cpu": CONTEXT_WLM_CPU}})["query_group"]
+        solo = [_ctx_hits(node.search("sift_a", _ctx_knn(qs[i], 10)))
+                for i in range(CONTEXT_THREADS)]
+        barrier = threading.Barrier(CONTEXT_THREADS)
+        results: dict = {}
+
+        def worker(t: int) -> None:
+            got = []
+            for _round in range(8):
+                barrier.wait()
+                try:
+                    got.append(_ctx_hits(node.search(
+                        "sift_a", _ctx_knn(qs[t], 10), query_group="ctx")))
+                except OpenSearchTpuException as e:
+                    got.append((e.status, e.error_type))
+            results[t] = got
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(CONTEXT_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        admitted = rejected = 0
+        for t, got in results.items():
+            for g in got:
+                if isinstance(g, tuple):
+                    if g != (429, "rejected_execution_exception"):
+                        raise AssertionError(f"admission: thread {t}: {g}")
+                    rejected += 1
+                elif g != solo[t]:
+                    raise AssertionError(f"admission: thread {t}: not its "
+                                         f"solo bits")
+                else:
+                    admitted += 1
+        if admitted + rejected != CONTEXT_THREADS * 8 or admitted == 0 or \
+                node.task_manager.list_tasks():
+            raise AssertionError(f"admission: {admitted} admitted, "
+                                 f"{rejected} rejected, tasks "
+                                 f"{node.task_manager.list_tasks()}")
+        totals = node.query_groups.totals().get(group["_id"], {})
+        lines = []
+        for i in range(32):
+            lines += [{"index": "sift_a"}, _ctx_knn(qs[i % CONTEXT_QUERIES],
+                                                    10)]
+        ms = client.ok("POST", "/_msearch", ndjson=lines)
+        if any(r["status"] != 200 for r in ms["responses"]) or \
+                node.breakers.in_flight_requests.used != 0:
+            raise AssertionError(f"_msearch of 32: breaker at "
+                                 f"{node.breakers.in_flight_requests.used}")
+        # a cancellation that lands as the search's task registers
+        register = node.task_manager.register
+
+        def register_cancelled(*a, **kw):
+            task = register(*a, **kw)
+            node.task_manager.cancel(task.id)
+            return task
+
+        node.task_manager.register = register_cancelled
+        kf.launches.reset()
+        try:
+            node.search("sift_a", _ctx_knn(qs[0], 10))
+            raise AssertionError("a cancelled search returned")
+        except OpenSearchTpuException as e:
+            if e.error_type != "task_cancelled_exception":
+                raise
+        finally:
+            node.task_manager.register = register
+        if kf.launches.count != 0 or node.task_manager.list_tasks() or \
+                node.knn_batcher.pressure.current != 0:
+            raise AssertionError(f"the cancelled search launched "
+                                 f"{kf.launches.count} K1 or left a task "
+                                 f"or a batcher slot")
+        out["admission"] = {"admitted": admitted, "rejected": rejected,
+                            "group_totals": totals,
+                            "wall_s": time.perf_counter() - t0}
+        log(f"[sift_a] admission: {admitted} admitted (each its solo bits), "
+            f"{rejected} rejected with 429 under an enforced group of cpu "
+            f"{CONTEXT_WLM_CPU}; no task left; the in-flight breaker at 0 "
+            f"after an HTTP _msearch of 32; a cancelled search raised "
+            f"task_cancelled_exception with no K1 launch")
+
+        # -- 6. settings and restart -----------------------------------------
+        t0 = time.perf_counter()
+        put = client.ok("PUT", "/_cluster/settings", {
+            "persistent": {"search.knn.batch.max_wait_ms": "3ms"},
+            "transient": {"indices.requests.cache.size": "1mb"}})
+        if node.knn_batcher.max_wait_ms != 3 or \
+                node.request_cache.max_bytes != 1 << 20:
+            raise AssertionError(f"_cluster/settings did not apply: {put}")
+        qb = (data_b[rng.choice(data_b.shape[0], CONTEXT_QUERIES,
+                                replace=False)]
+              + 0.05 * rng.standard_normal((CONTEXT_QUERIES, DIM))
+              .astype(np.float32))
+        before = {name: [_ctx_hits(node.search(name, _ctx_knn(q, 10)))
+                         for q in (qs if name == "sift_a" else qb)]
+                  for name in ("sift_a", "sift_b")}
+        counts = {name: node.count(name)["count"]
+                  for name in ("sift_a", "sift_b")}
+        alias_view = node.get_alias()
+        t1 = time.perf_counter()
+        for name in ("sift_a", "sift_b"):
+            client.ok("POST", f"/{name}/_flush")
+        flush_s = time.perf_counter() - t1
+    finally:
+        client.close()
+        server.stop_thread()
+    node.close()
+    del node
+    gc.collect()
+    # the batcher is process-wide: back to its default, so the reopened
+    # node's boot must set the persisted value again
+    from opensearch_tpu_torch.search import batcher
+
+    batcher.default_batcher.configure(max_wait_ms=2)
+    t1 = time.perf_counter()
+    node = TorchNode(data_path)
+    recover_s = time.perf_counter() - t1
+    ledger_after = default_ledger.resident_bytes()
+    devices = {str(seg.vector_fields["v"].vectors.device)
+               for svc in node.indices.values()
+               for shard in svc.shards.values()
+               for _h, seg in shard.acquire_searcher().segments}
+    got_counts = {name: node.count(name)["count"] for name in counts}
+    settings = node.get_cluster_settings(flat=True)
+    if sorted(node.indices) != ["sift_a", "sift_b"] or got_counts != counts \
+            or node.get_alias() != alias_view or devices != {dev_name} or \
+            settings["persistent"] != {
+                "search.knn.batch.max_wait_ms": "3ms"} or \
+            settings["transient"] != {} or \
+            node.knn_batcher.max_wait_ms != 3 or \
+            node.request_cache.max_bytes == 1 << 20:
+        raise AssertionError(f"restart: indices {sorted(node.indices)}, "
+                             f"counts {got_counts} (want {counts}), devices "
+                             f"{devices}, settings {settings}")
+    for name in ("sift_a", "sift_b"):
+        after = k1_run(f"[{name}] after the restart", lambda: [
+            _ctx_hits(node.search(name, _ctx_knn(q, 10)))
+            for q in (qs if name == "sift_a" else qb)],
+            CONTEXT_QUERIES, None)
+        if after["result"] != before[name]:
+            raise AssertionError(f"[{name}] after the restart: not the "
+                                 f"pre-restart bits")
+    out["restart"] = {"flush_s": flush_s, "recover_s": recover_s,
+                      "ledger_resident_after": ledger_after,
+                      "counts": got_counts,
+                      "wall_s": time.perf_counter() - t0}
+    log(f"restart: flush both indices {flush_s:.1f} s, a new TorchNode "
+        f"recovered them on the card in {recover_s:.1f} s (ledger "
+        f"{ledger_after} B resident); counts, aliases, the persistent key "
+        f"back, the transient one not; 16 kNN searches on each index the "
+        f"pre-restart bits")
+    # a PIT on B held across _forcemerge: B's merged-away segments stay
+    # alive while it is open, above the ledger's published set
+    t0 = time.perf_counter()
+    node.put_cluster_settings({"persistent": {
+        "search.knn.batch.max_wait_ms": None}})
+    doomed = [str(int(x)) for x in rng.choice(data_b.shape[0],
+                                              CONTEXT_B_DELETES,
+                                              replace=False)]
+    node.bulk([("delete", {"_index": "sift_b", "_id": d}, None)
+               for d in doomed], refresh=True)
+    hits_b = [_ctx_hits(node.search("sift_b", _ctx_knn(q, 10))) for q in qb]
+    gap0 = torch.cuda.memory_allocated() - default_ledger.resident_bytes()
+    pid = node.open_pit("sift_b", "5m")["pit_id"]
+    held = sum(sum(seg.column_nbytes().values())
+               for ctx in node._reader_contexts.values()
+               for snap in ctx["snapshots"] for _h, seg in snap.segments)
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    client = RestClient(server.port)
+    try:
+        client.ok("POST", "/sift_b/_forcemerge?max_num_segments=1")
+    finally:
+        client.close()
+        server.stop_thread()
+    pit_hits = [_ctx_hits(node.search(None, {"pit": {"id": pid},
+                                             **_ctx_knn(q, 10)}))
+                for q in qb]
+    merged = [_ctx_hits(node.search("sift_b", _ctx_knn(q, 10))) for q in qb]
+    if merged != hits_b or pit_hits != hits_b:
+        raise AssertionError("[sift_b] force merge: not the same bits")
+    gap1 = torch.cuda.memory_allocated() - default_ledger.resident_bytes()
+    node.close_pit([pid])
+    gap2 = torch.cuda.memory_allocated() - default_ledger.resident_bytes()
+    if gap1 - gap0 < 0.9 * held or abs(gap2 - gap0) > 0.1 * held:
+        raise AssertionError(f"[sift_b] PIT across a force merge: device "
+                             f"bytes above the ledger {gap0} / {gap1} / "
+                             f"{gap2} (the PIT's segments {held} B)")
+    out["forcemerge"] = {"pit_segment_bytes": held,
+                         "allocated_minus_ledger": [gap0, gap1, gap2],
+                         "wall_s": time.perf_counter() - t0}
+    log(f"[sift_b] force merge to one segment after {CONTEXT_B_DELETES} "
+        f"deletes: the same bits live and through a PIT; device bytes above "
+        f"the ledger before / PIT open / closed {gap0} / {gap1} / {gap2} "
+        f"(the PIT's segments {held} B)")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"contexts phase: {out['wall_s']:.1f} s")
+    return out, node
+
+
+def contexts_phase(kf, dev, seed: int) -> dict:
+    """Cell A and B built as main_path_phase builds them (the same seed
+    draws), then contexts_main_phase alone (``--phases contexts``)."""
+    from opensearch_tpu_torch.node import TorchNode
+
+    rng = np.random.default_rng(seed + 2)
+    data_a = clustered(rng, 200_000, DIM)
+    data_b = clustered(rng, 20_000, DIM)
+    attrs = attributes(rng, 200_000)
+    queries = (data_a[rng.choice(200_000, 64, replace=False)]
+               + 0.05 * rng.standard_normal((64, DIM)).astype(np.float32))
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device="cuda")
+        t0 = time.perf_counter()
+        _bulk_index(node, "sift_a", data_a, 1, attrs)
+        _bulk_index(node, "sift_b", data_b, 4)
+        log(f"[sift_a] 200000 and [sift_b] 20000 docs: bulk + refresh "
+            f"{time.perf_counter() - t0:.1f} s")
+        out, node = contexts_main_phase(node, kf, tmp, data_a, attrs,
+                                        queries, data_b, rng)
+        node.close()
     return out
 
 
@@ -7198,7 +7879,8 @@ def aggs_composite_pages(node, query: dict) -> tuple[list, int]:
         if after is not None:
             conf["after"] = after
         res = node.search("lex", {"size": 0, "query": query, "aggs": {
-            "comp": {"composite": conf}}})["aggregations"]["comp"]
+            "comp": {"composite": conf}}},
+            request_cache=False)["aggregations"]["comp"]
         pages += 1
         rows.extend((b["key"]["tag"], b["key"]["month"], b["doc_count"])
                     for b in res["buckets"])
@@ -7303,8 +7985,10 @@ def aggs_main_phase(node, kf, dev, seed: int, corpus: dict, words: list,
         lat, resps = [], []
         for query, _meta in runs:
             t0 = time.perf_counter()
+            # uncached: the phase measures the aggregation path
             resps.append(node.search("lex", {"size": 0, "query": query,
-                                             "aggs": aggs}))
+                                             "aggs": aggs},
+                                     request_cache=False))
             lat.append(time.perf_counter() - t0)
         launches = {"knn_fused": kf.launches.count,
                     **{t: c.count for t, c in tier_counter.items()},
@@ -7358,7 +8042,8 @@ def aggs_main_phase(node, kf, dev, seed: int, corpus: dict, words: list,
         else:
             for j, (query, _meta) in enumerate(runs[:AGGS_TWICE]):
                 again = node.search("lex", {"size": 0, "query": query,
-                                            "aggs": aggs})
+                                            "aggs": aggs},
+                                    request_cache=False)
                 if again["aggregations"] != resps[j]["aggregations"]:
                     raise AssertionError(f"{label} query {j}: a second run "
                                          f"gave other aggregations")
@@ -7398,7 +8083,8 @@ def aggs_main_phase(node, kf, dev, seed: int, corpus: dict, words: list,
             aggs = aggs_body(scope, words, filter_words)
             for j, (query, _meta) in enumerate(scopes[scope][:AGGS_XLA]):
                 got = node.search("lex", {"size": 0, "query": query,
-                                          "aggs": aggs})["aggregations"]
+                                          "aggs": aggs},
+                                  request_cache=False)["aggregations"]
                 if got != first_aggs[scope][j]:
                     raise AssertionError(f"[aggs] {scope} query {j}: K1's "
                                          f"plain version gave other "
@@ -7423,8 +8109,9 @@ def aggs_main_phase(node, kf, dev, seed: int, corpus: dict, words: list,
             for j, (query, _meta) in enumerate(runs[:AGGS_HTTP]):
                 body = {"size": 0, "query": query, "aggs": aggs}
                 t0 = time.perf_counter()
-                payload = client.ok("POST", "/lex/_search?typed_keys=true",
-                                    body)
+                payload = client.ok(
+                    "POST", "/lex/_search?typed_keys=true&request_cache=false",
+                    body)
                 lat.append(time.perf_counter() - t0)
                 want = port_handlers._apply_typed_keys(
                     json_view({"aggregations": first_aggs[scope][j]}),
@@ -7485,7 +8172,8 @@ def ann_aggs_check(node, name: str, kf, ads, queries: np.ndarray,
     for qv in queries[:AGGS_ANN]:
         t0 = time.perf_counter()
         resps.append(node.search(name, {"size": 0, "aggs": aggs, "query": {
-            "knn": {"v": {"vector": qv.tolist(), "k": 10}}}}))
+            "knn": {"v": {"vector": qv.tolist(), "k": 10}}}},
+            request_cache=False))
         lat.append(time.perf_counter() - t0)
     launches = {"adc_scan": ads.launches.count,
                 "knn_fused": kf.launches.count,
@@ -8345,10 +9033,14 @@ def dsl_main_phase(node, kf, dev, seed: int, corpus: dict, words: list,
                       '{{v}}}}}]}}, "size": 10}'}})
 
         def run(kind: str, body: dict, meta: dict, index: str = "lex"):
+            # uncached: a repeated size 0 body (a slice, a suggester) runs
+            # its query phase each time
             if kind == "template":
-                return node.search_template(index, dict(body))
+                return node.search_template(index, dict(body),
+                                            request_cache=False)
             return node.search(index, dict(body),
-                               search_pipeline=meta.get("pipeline"))
+                               search_pipeline=meta.get("pipeline"),
+                               request_cache=False)
 
         responses: dict = {}
         knn_kinds = {"script_score_over_knn": (100, False),
@@ -9018,7 +9710,10 @@ def main() -> int:
         entry["per_shard_route"] = main["per_shard"]
         entry2["concurrent"] = ann["concurrent"]
         entry["filtered_ann_index"] = ann["filtered"]
+        # search contexts, aliases and admission: K1's launches of each gate
+        entry["contexts_main_path"] = main["contexts"]
         phase_s["main"] = time.perf_counter() - t0
+        phase_s["contexts"] = main["contexts"]["wall_s"]
     elif "filtered" in phases:
         t0 = time.perf_counter()
         fp = filtered_phase(kf, dev, args.seed)
@@ -9037,6 +9732,15 @@ def main() -> int:
         t0 = time.perf_counter()
         entry["rest_main_path"] = rest_phase(kf, dev, args.seed)
         phase_s["rest"] = time.perf_counter() - t0
+    elif "contexts" in phases:
+        t0 = time.perf_counter()
+        ctx = contexts_phase(kf, dev, args.seed)
+        entry["contexts_main_path"] = ctx
+        entry["launches"] = sum(
+            res["launches"]["knn_fused"] for res in ctx.values()
+            if isinstance(res, dict) and "launches" in res)
+        phase_s["contexts"] = ctx["wall_s"]
+        phase_s["contexts_build"] = time.perf_counter() - t0 - ctx["wall_s"]
     if phases & {"main", "lexical"}:
         # the lexical query phase on index L: its kNN types' K1 launches,
         # each type's counted from 0

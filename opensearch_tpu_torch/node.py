@@ -24,6 +24,34 @@ node's device; searches run the stacked serving step on it
 coalesce across concurrent searches in ``knn_batcher``
 (search/batcher.py).
 
+Search contexts, aliases and admission, as the reference's ``search``
+runs them: a point in time (``open_pit``, ``list_all_pits``,
+``close_pit``, a body's ``pit``) and a scroll (``search(scroll=)``,
+``scroll``, ``clear_scroll``) pin one set of searcher snapshots in the
+reader-context registry, and every page or PIT search reads them; aliases
+(``update_aliases``, ``put_alias``, ``delete_alias``, ``get_alias``,
+``create_index``'s ``aliases``) resolve for searches, with a filtered
+alias's filter ANDed into its shards' queries (one filtered K1 launch on
+the stacked step), and for writes through a write alias with its routing;
+the request cache (index/request_cache.py) answers a repeated ``size: 0``
+body keyed by the pinned snapshots' generations; each search runs as a
+task (``task_manager``, tasks/manager.py, cancellable before each
+launch) behind search backpressure (``search_backpressure``) and its
+workload group's admission (``query_groups``, wlm.py); ``breakers``
+(common/breaker.py) carries the HTTP server's in-flight bytes;
+``flush`` and ``force_merge`` call the engines'.
+
+The index registry (``indices.json``: each index's settings, mappings and
+aliases) is written on every change; ``TorchNode(path)`` reopens every
+index from it, each shard from its commit and translog, on the node's
+device. ``put_cluster_settings`` / ``get_cluster_settings`` keep the
+persistent section in ``cluster_settings.json`` (re-applied at boot) and
+a transient one in memory, and apply them to the batcher, the ANN config,
+the lanes, the residency routing, the shard-mesh budget and the heat
+ledger (process-wide: each only where its keys are named), the request
+cache's budget and the span exporter (telemetry/export.py, closed in
+``close``).
+
 Telemetry (telemetry/): each node has its own ``telemetry`` (a tracer and
 a metrics registry; every search is one ``search`` span with the
 ``search.total`` / ``search.took_ms`` metrics), a search and an indexing
@@ -31,12 +59,9 @@ slow log configured from the indices' ``search.slowlog`` /
 ``indexing.slowlog`` thresholds, and is the metrics sink of the
 process-wide batcher, shard-mesh registry and roofline recorder, whose
 peaks it calibrates on its device at construction.
-:meth:`TorchNode.apply_dynamic_settings` applies the shard-mesh budget
-and the heat settings from a flat settings map (the ``_cluster/settings``
-API is not ported yet).
 
-Still raising "not yet ported": wildcard index expressions, aliases,
-ingest pipelines, scroll and point-in-time reads.
+Still raising "not yet ported": wildcard index expressions and ingest
+pipelines.
 
 The device is the card unless the caller asks for the CPU::
 
@@ -70,6 +95,7 @@ from opensearch_tpu_torch.common.errors import (
     ParsingException,
     ResourceAlreadyExistsException,
     ResourceNotFoundException,
+    SearchContextMissingException,
     VersionConflictException,
 )
 from opensearch_tpu_torch.common.hashing import shard_id_for_routing
@@ -78,12 +104,16 @@ from opensearch_tpu_torch.common.settings import (
     setting_str,
     settings_section,
 )
+from opensearch_tpu_torch.common.timeutil import (
+    now_millis,
+    parse_time_value_millis,
+)
 from opensearch_tpu_torch.index.analysis import AnalysisRegistry
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.shard import IndexShard, ShardId, translog_durability
 from opensearch_tpu_torch.search import batcher
 from opensearch_tpu_torch.search import service as search_service
-from opensearch_tpu_torch.search.distributed_serving import not_yet_ported
+from opensearch_tpu_torch.search.executor import not_yet_ported
 from opensearch_tpu_torch.search.fetch import _flatten_source
 from opensearch_tpu_torch.search.pipeline import SearchPipelineService
 
@@ -105,6 +135,25 @@ INDEX_SETTING_DEFAULTS = {
     "index.translog.durability": "REQUEST",
     "index.translog.flush_threshold_size": "512mb",
 }
+
+
+def simple_match(name: str, pattern: str) -> bool:
+    """`*`-only wildcard match (the reference's Regex.simpleMatch): unlike
+    fnmatch, `?` and `[...]` are literal characters, so an alias named
+    `logs-[old]` can be addressed exactly."""
+    parts = pattern.split("*")
+    if len(parts) == 1:
+        return name == pattern
+    if not name.startswith(parts[0]) or not name.endswith(parts[-1]):
+        return False
+    pos = len(parts[0])
+    for mid in parts[1:-1]:
+        i = name.find(mid, pos,
+                      len(name) - len(parts[-1]) if parts[-1] else None)
+        if i < 0:
+            return False
+        pos = i + len(mid)
+    return pos + len(parts[-1]) <= len(name)
 
 
 def _valid_index_name(name: str) -> bool:
@@ -184,6 +233,9 @@ class IndexService:
         self.creation_date = int(time.time() * 1000)
         # index UUID (IndexMetadata.INDEX_UUID): 22-char url-safe base64
         self.uuid = base64.urlsafe_b64encode(os.urandom(16)).decode()[:22]
+        # alias name -> config ({"filter":..., "routing":...,
+        # "is_write_index":...}); the per-index slice of AliasMetadata
+        self.aliases: dict[str, dict] = {}
         durability = translog_durability(settings)
         self.shards: dict[int, IndexShard] = {
             s: IndexShard(ShardId(name, s), path / str(s),
@@ -191,6 +243,14 @@ class IndexService:
                           device=device)
             for s in range(self.num_shards)
         }
+
+    def setting(self, key: str, default=None):
+        """An index setting by dotted key, bare or "index."-prefixed
+        (IndexSettings.getValue); `self.settings` holds the nested form."""
+        flat = Settings.from_nested(self.settings or {}).as_dict()
+        if key in flat:
+            return flat[key]
+        return flat.get(f"index.{key}", default)
 
     def shard_for(self, doc_id: str, routing: str | None) -> IndexShard:
         return self.shards[shard_id_for_routing(routing or doc_id,
@@ -209,6 +269,28 @@ class TorchNode:
         self.data_path = Path(data_path)
         self.node_name = node_name
         self.indices: dict[str, IndexService] = {}
+        # scroll and PIT reader contexts (SearchService's ReaderContext
+        # registry): each pins one searcher snapshot a shard
+        self._reader_contexts: dict[str, dict] = {}
+        self._state_file = self.data_path / "indices.json"
+        # every registered index reopens on this node's device, each shard
+        # from its commit and translog
+        self._recover_indices()
+        from opensearch_tpu_torch.common.breaker import HierarchyBreakerService
+        from opensearch_tpu_torch.index.request_cache import RequestCache
+        from opensearch_tpu_torch.search.backpressure import (
+            SearchBackpressureService,
+        )
+        from opensearch_tpu_torch.tasks import TaskManager
+        from opensearch_tpu_torch.wlm import QueryGroupService
+
+        self.task_manager = TaskManager(node_name)
+        self.breakers = HierarchyBreakerService()
+        self.search_backpressure = SearchBackpressureService(
+            self.task_manager)
+        self.query_groups = QueryGroupService(
+            self.data_path / "query_groups.json")
+        self.request_cache = RequestCache()
         from opensearch_tpu_torch.telemetry import roofline
         from opensearch_tpu_torch.telemetry.slowlog import SlowLog
         from opensearch_tpu_torch.telemetry.tracing import Telemetry
@@ -231,6 +313,9 @@ class TorchNode:
         self.search_slowlog = SlowLog("search")
         self.indexing_slowlog = SlowLog("indexing")
         self._configure_slowlogs()
+        # the persisted dynamic settings re-apply at boot
+        self.get_cluster_settings()
+        self._apply_dynamic_node_settings()
 
     def _configure_slowlogs(self) -> None:
         """Pick up index.search.slowlog.threshold.query.* and
@@ -253,23 +338,34 @@ class TorchNode:
             if i:
                 self.indexing_slowlog.configure(i)
 
-    def apply_dynamic_settings(self, flat: dict) -> None:
-        """Apply the dynamic node settings this port honours from a flat
-        settings map: ``search.mesh.hbm_budget_bytes`` (the shard-mesh
-        registry) and ``telemetry.heat.*`` (the residency ledger's touch
-        accounting), each only where the map names one of its keys. Both
-        are process-wide, like the batcher."""
-        from opensearch_tpu_torch.telemetry.device_ledger import (
-            HEAT_SETTINGS,
-            default_ledger,
-        )
-
-        if any(st.key in flat for st in shard_mesh.MESH_SETTINGS):
-            shard_mesh.default_registry.apply_settings(flat)
-        if any(st.key in flat for st in HEAT_SETTINGS):
-            default_ledger.apply_heat_settings(flat)
-
     # -- index lifecycle ---------------------------------------------------
+
+    def _persist_index_registry(self) -> None:
+        self.data_path.mkdir(parents=True, exist_ok=True)
+        registry = {
+            name: {
+                "settings": svc.settings,
+                "mappings": svc.mapper_service.to_dict(),
+                "aliases": svc.aliases,
+            }
+            for name, svc in list(self.indices.items())
+        }
+        self._state_file.write_text(json.dumps(registry))
+
+    def _recover_indices(self) -> None:
+        """Reopen every index of the registry: each shard's engine loads
+        its committed segments to the node's device, under the residency
+        ledger's upload_scope (index/engine.py ``_recover``), and replays
+        its translog tail."""
+        if not self._state_file.exists():
+            return
+        registry = json.loads(self._state_file.read_text())
+        for name, meta in registry.items():
+            svc = IndexService(name, self._index_path(name),
+                               meta["settings"], meta["mappings"],
+                               self.device)
+            svc.aliases = meta.get("aliases", {})
+            self.indices[name] = svc
 
     def create_index(self, name: str, body: dict | None = None) -> dict:
         if not _valid_index_name(name):
@@ -277,17 +373,26 @@ class TorchNode:
         if name in self.indices:
             raise ResourceAlreadyExistsException(f"index [{name}] already exists")
         body = body or {}
-        unknown = set(body) - {"settings", "mappings"}
+        unknown = set(body) - {"settings", "mappings", "aliases"}
         if unknown:
             raise not_yet_ported(f"create-index keys {sorted(unknown)}")
+        aliases = dict(body.get("aliases") or {})
         # accept both flat ("index.number_of_shards") and nested forms
         flat = Settings.from_nested(body.get("settings") or {}).as_dict()
         norm = {(k[len("index."):] if k.startswith("index.") else k): v
                 for k, v in flat.items()}
         nested = Settings.from_flat(norm).as_nested()
-        self.indices[name] = IndexService(
+        svc = IndexService(
             name, self._index_path(name), nested, body.get("mappings"),
             self.device)
+        for alias, conf in aliases.items():
+            if alias in self.indices:
+                svc.close()
+                raise IllegalArgumentException(
+                    f"alias [{alias}] clashes with an index name")
+            svc.aliases[alias] = dict(conf or {})
+        self.indices[name] = svc
+        self._persist_index_registry()
         self._configure_slowlogs()
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
 
@@ -299,6 +404,7 @@ class TorchNode:
         """DELETE /{index}: every named index (or every index for `_all`
         and `*`) closes, leaves the node, has its stacked serving slabs
         released from device memory and its files removed."""
+        alias_map = self._alias_map()
         targets: list[str] = []
         matched_any = False
         for part in expr.split(","):
@@ -308,6 +414,12 @@ class TorchNode:
                 matched_any = True
             elif _has_wildcard(part):
                 raise not_yet_ported("wildcard index expressions")
+            elif part in alias_map:
+                if ignore_unavailable:
+                    continue
+                raise IllegalArgumentException(
+                    f"The provided expression [{part}] matches an alias, "
+                    f"specify the corresponding concrete indices instead.")
             elif part in self.indices:
                 targets.append(part)
                 matched_any = True
@@ -320,6 +432,7 @@ class TorchNode:
             del self.indices[name]
             shard_mesh.default_registry.invalidate_index(name)
             shutil.rmtree(self._index_path(name), ignore_errors=True)
+        self._persist_index_registry()
         self._configure_slowlogs()
         return {"acknowledged": True}
 
@@ -337,11 +450,12 @@ class TorchNode:
     def resolve_indices(self, expr: str, *, ignore_unavailable: bool = False,
                         allow_no_indices: bool = True,
                         expand_wildcards: str = "open") -> list[str]:
-        """Index name resolution: a comma list of concrete names, or every
-        index for `_all`, `*` and the empty expression. Wildcard patterns
-        and aliases are not ported; `ignore_unavailable` drops missing
-        names instead of a 404; an empty result 404s when
-        `allow_no_indices` is false."""
+        """Index name resolution: a comma list of concrete names and
+        aliases (each expanding to its member indices), or every index for
+        `_all`, `*` and the empty expression. Wildcard patterns are not
+        ported; `ignore_unavailable` drops missing names instead of a 404;
+        an empty result 404s when `allow_no_indices` is false."""
+        alias_map = self._alias_map()
         expand = {w.strip() for w in str(expand_wildcards).split(",")}
         if expr in ("_all", "*", ""):
             names = sorted(self.indices) if "none" not in expand else []
@@ -353,6 +467,9 @@ class TorchNode:
             part = part.strip()
             if _has_wildcard(part):
                 raise not_yet_ported("wildcard index expressions")
+            if part in alias_map:
+                names.extend(alias_map[part])
+                continue
             if part not in self.indices:
                 if ignore_unavailable:
                     continue
@@ -361,6 +478,329 @@ class TorchNode:
         if not names and not allow_no_indices:
             raise IndexNotFoundException(expr)
         return list(dict.fromkeys(names))
+
+    # -- aliases (AliasMetadata + TransportIndicesAliasesAction) -------------
+
+    def _alias_map(self) -> dict[str, list[str]]:
+        """alias name -> sorted member index names, over a list() snapshot:
+        searches resolve aliases on the parallel pool while the serial
+        data worker may be inserting or deleting indices."""
+        out: dict[str, list[str]] = {}
+        for name, svc in list(self.indices.items()):
+            for alias in list(svc.aliases):
+                out.setdefault(alias, []).append(name)
+        return {a: sorted(ns) for a, ns in out.items()}
+
+    def update_aliases(self, body: dict) -> dict:
+        """POST /_aliases: add, remove and remove_index actions, validated
+        and staged first, then applied at once (one cluster-state update in
+        the reference); a remove naming no existing alias fails the whole
+        request with 404 unless `must_exist` is false."""
+        actions = (body or {}).get("actions")
+        if not isinstance(actions, list) or not actions:
+            raise IllegalArgumentException("[aliases] requires [actions]")
+        staged: list[tuple[str, str, str, dict | None]] = []
+        # indices removed by THIS request: an added alias may take a name
+        # a remove_index in the same atomic batch is freeing
+        removing_indices: set[str] = set()
+        for action in actions:
+            if isinstance(action, dict) and "remove_index" in action:
+                conf0 = action["remove_index"]
+                if isinstance(conf0, dict):
+                    for iexpr in (conf0.get("indices")
+                                  or ([conf0["index"]]
+                                      if conf0.get("index") else [])):
+                        try:
+                            removing_indices.update(self.resolve_indices(
+                                iexpr, expand_wildcards="all"))
+                        except OpenSearchTpuException:
+                            pass
+        for action in actions:
+            if not isinstance(action, dict) or len(action) != 1:
+                raise IllegalArgumentException(
+                    "each alias action must be a single-key object")
+            kind, conf = next(iter(action.items()))
+            if kind not in ("add", "remove", "remove_index"):
+                raise IllegalArgumentException(f"unknown alias action [{kind}]")
+            if not isinstance(conf, dict):
+                raise IllegalArgumentException(
+                    f"[aliases] action [{kind}] requires an object body")
+            indices = conf.get("indices") or (
+                [conf["index"]] if conf.get("index") else [])
+            aliases = conf.get("aliases") or (
+                [conf["alias"]] if conf.get("alias") else [])
+            resolved: list[str] = []
+            for iexpr in indices:
+                resolved.extend(self.resolve_indices(
+                    iexpr, expand_wildcards="all"))
+            if not resolved:
+                raise IllegalArgumentException(
+                    f"[aliases] action [{kind}] requires an index")
+            if kind == "remove_index":
+                staged.extend((kind, name, "", None) for name in resolved)
+                continue
+            if not aliases:
+                if "aliases" in conf:
+                    raise IllegalArgumentException("[aliases] can't be empty")
+                raise IllegalArgumentException(
+                    f"[aliases] action [{kind}] requires an alias")
+            for name in resolved:
+                for alias in aliases:
+                    if kind == "add" and alias in self.indices \
+                            and alias not in removing_indices:
+                        raise IllegalArgumentException(
+                            f"alias [{alias}] clashes with an index name")
+                    staged.append((kind, name, alias, conf))
+        # removes must name an alias that exists somewhere in the action's
+        # scope: the whole request fails with aliases_not_found (404) before
+        # anything changes (must_exist=false opts out)
+        remove_matched: dict[str, bool] = {}
+        remove_opt_out: set[str] = set()
+        for kind, name, alias, conf in staged:
+            if kind != "remove":
+                continue
+            if (conf or {}).get("must_exist") is False:
+                remove_opt_out.add(alias)
+            svc = self._get_index(name)
+            hit = alias in svc.aliases or any(
+                simple_match(a, alias) for a in svc.aliases)
+            remove_matched[alias] = remove_matched.get(alias, False) or hit
+        missing = sorted(a for a, hit in remove_matched.items()
+                         if not hit and a not in remove_opt_out)
+        if missing:
+            raise ResourceNotFoundException(
+                f"aliases [{','.join(missing)}] missing")
+        # alias changes first, index deletions last: a remove_index in the
+        # middle of the list must not invalidate later staged actions
+        to_delete = [n for k, n, _, _ in staged if k == "remove_index"]
+        for kind, name, alias, conf in staged:
+            if kind == "remove_index":
+                continue
+            svc = self._get_index(name)
+            if kind == "add":
+                entry: dict = {}
+                for key in ("filter", "routing", "index_routing",
+                            "search_routing", "is_write_index", "is_hidden"):
+                    if conf.get(key) is not None:
+                        entry[key] = conf[key]
+                svc.aliases[alias] = entry
+            else:
+                for a in list(svc.aliases):
+                    if a == alias or simple_match(a, alias):
+                        del svc.aliases[a]
+        for name in to_delete:
+            # by CONCRETE name: an add in this batch may have just taken
+            # the name as an alias
+            svc = self.indices.pop(name, None)
+            if svc is not None:
+                svc.close()
+                shard_mesh.default_registry.invalidate_index(name)
+                shutil.rmtree(self._index_path(name), ignore_errors=True)
+        if to_delete:
+            self._configure_slowlogs()
+        self._persist_index_registry()
+        return {"acknowledged": True}
+
+    def put_alias(self, index_expr: str, alias: str,
+                  body: dict | None = None) -> dict:
+        conf = dict(body or {})
+        conf["alias"] = alias
+        conf["indices"] = self.resolve_indices(index_expr,
+                                               expand_wildcards="all")
+        return self.update_aliases({"actions": [{"add": conf}]})
+
+    def delete_alias(self, index_expr: str, alias_expr: str) -> dict:
+        import fnmatch
+
+        names = self.resolve_indices(index_expr, expand_wildcards="all")
+        removed = False
+        for name in names:
+            svc = self._get_index(name)
+            for alias in list(svc.aliases):
+                if alias_expr in ("_all", "*") or fnmatch.fnmatch(
+                        alias, alias_expr):
+                    del svc.aliases[alias]
+                    removed = True
+        if not removed:
+            raise ResourceNotFoundException(
+                f"aliases [{alias_expr}] missing on indices {names}")
+        self._persist_index_registry()
+        return {"acknowledged": True}
+
+    def get_alias(self, index_expr: str | None = None,
+                  alias_expr: str | None = None,
+                  expand_wildcards: str = "all") -> dict:
+        """GET [/{index}]/_alias[/{name}] (TransportGetAliasesAction):
+        `name` takes comma lists, wildcards and "-pattern" exclusions
+        applied in order; a CONCRETE requested alias that resolves to
+        nothing makes the whole response a 404 that still carries the
+        found entries (the handler reads the `status` / `error` riders)."""
+        import fnmatch
+
+        names = (self.resolve_indices(index_expr,
+                                      expand_wildcards=expand_wildcards)
+                 if index_expr else sorted(self.indices))
+
+        def echo(conf: dict) -> dict:
+            # "routing" renders as index_routing + search_routing
+            # (AliasMetadata's response shape); routing values are strings
+            conf = dict(conf or {})
+            if "routing" in conf:
+                conf.setdefault("index_routing", str(conf["routing"]))
+                conf.setdefault("search_routing", str(conf["routing"]))
+                del conf["routing"]
+            for k in ("index_routing", "search_routing"):
+                if k in conf:
+                    conf[k] = str(conf[k])
+            return conf
+
+        all_alias_names = {
+            a for name in names for a in self._get_index(name).aliases}
+        if alias_expr in ("_all", "*"):
+            alias_expr = "*"  # explicit catch-all: alias-less indices drop
+        parts = ([p.strip() for p in str(alias_expr).split(",") if p.strip()]
+                 if alias_expr not in (None, "") else None)
+        missing: list[str] = []
+        selected: set | None = None
+        if parts is not None:
+            selected = set()
+            # a leading "-name" with nothing selected yet is a LITERAL
+            # alias request (dash included) and 404s; once any wildcard or
+            # plain part appeared, "-x" is a plain exclusion
+            active = False
+            for part in parts:
+                wildcard = "*" in part or "?" in part
+                if part.startswith("-"):
+                    pat = part[1:]
+                    hits = {a for a in selected if fnmatch.fnmatch(a, pat)}
+                    if hits:
+                        selected -= hits
+                    elif not wildcard and not active:
+                        missing.append(part)
+                    if wildcard:
+                        active = True
+                elif wildcard:
+                    selected |= {a for a in all_alias_names
+                                 if fnmatch.fnmatch(a, part)}
+                    active = True
+                else:
+                    active = True
+                    if part in all_alias_names:
+                        selected.add(part)
+                    else:
+                        missing.append(part)
+        out: dict[str, Any] = {}
+        for name in names:
+            svc = self._get_index(name)
+            matched = {a: echo(c) for a, c in svc.aliases.items()
+                       if selected is None or a in selected}
+            if matched or parts is None:
+                out[name] = {"aliases": matched}
+        if missing:
+            missing.sort()
+            label = "aliases" if len(missing) > 1 else "alias"
+            out["error"] = f"{label} [{','.join(missing)}] missing"
+            out["status"] = 404
+        return out
+
+    def resolve_write_target(self, name: str, for_write: bool = True) -> str:
+        """Alias -> its write index (TransportBulkAction's write-alias
+        resolution); a concrete name passes through (and may autocreate).
+        Reads (`for_write=False`) ignore write-index designations."""
+        targets = self._alias_targets(name)
+        if not targets:
+            return name
+        if len(targets) == 1:
+            if for_write and targets[0][1].get("is_write_index") is False:
+                raise IllegalArgumentException(
+                    f"no write index is defined for alias [{name}]. The "
+                    f"write index may be explicitly disabled using "
+                    f"is_write_index=false or the alias points to multiple "
+                    f"indices without one being designated as a write index")
+            return targets[0][0]
+        writes = [n for n, c in targets if c.get("is_write_index")]
+        if not for_write and len(writes) != 1:
+            names_l = ", ".join(sorted(n for n, _c in targets))
+            raise IllegalArgumentException(
+                f"alias [{name}] has more than one index associated with "
+                f"it [{names_l}], can't execute a single index op")
+        if len(writes) != 1:
+            raise IllegalArgumentException(
+                f"no write index is defined for alias [{name}]. The write "
+                f"index may be explicitly disabled using is_write_index="
+                f"false or the alias points to multiple indices without one "
+                f"being designated as a write index")
+        return writes[0]
+
+    def _resolve_write_alias(self, index: str, routing: str | None,
+                             for_write: bool = True
+                             ) -> tuple[str, str | None]:
+        """(concrete index, effective routing) for a write or a read by
+        id: the alias's write index, and its index routing where the
+        request names none."""
+        concrete = self.resolve_write_target(index, for_write=for_write)
+        if concrete != index and routing is None:
+            conf = self.indices[concrete].aliases.get(index) or {}
+            routing = conf.get("index_routing", conf.get("routing"))
+        return concrete, routing
+
+    def _alias_targets(self, alias: str) -> list[tuple[str, dict]]:
+        return [(name, svc.aliases[alias])
+                for name, svc in sorted(list(self.indices.items()))
+                if alias in svc.aliases]
+
+    def resolve_search_shards(self, expr: str,
+                              ignore_unavailable: bool = False
+                              ) -> tuple[list, list, list]:
+        """(shards, per-shard alias filter bodies, index names) for a
+        search expression. A filtered alias contributes its filter to
+        exactly its member shards (the per-shard aliasFilter of
+        ShardSearchRequest); an unfiltered route to an index drops its
+        filters, and two filtered aliases of one index OR theirs."""
+        alias_map = self._alias_map()
+        per_index_filters: dict[str, list] = {}
+        names: list[str] = []
+
+        def add_index(name: str, filt: dict | None) -> None:
+            if name not in per_index_filters:
+                names.append(name)
+                per_index_filters[name] = []
+            if filt is not None:
+                per_index_filters[name].append(filt)
+            else:
+                per_index_filters[name] = [None]
+
+        if expr in ("_all", "*", ""):
+            for name in sorted(self.indices):
+                add_index(name, None)
+        else:
+            for part in expr.split(","):
+                part = part.strip()
+                if _has_wildcard(part):
+                    raise not_yet_ported("wildcard index expressions")
+                if part in alias_map:
+                    for name, conf in self._alias_targets(part):
+                        add_index(name, conf.get("filter"))
+                elif part in self.indices:
+                    add_index(part, None)
+                elif ignore_unavailable:
+                    continue
+                else:
+                    raise IndexNotFoundException(part)
+        shards: list = []
+        filters: list = []
+        for name in names:
+            flist = per_index_filters[name]
+            if None in flist or not flist:
+                filt = None
+            elif len(flist) == 1:
+                filt = flist[0]
+            else:
+                filt = {"bool": {"should": flist, "minimum_should_match": 1}}
+            for shard in self._get_index(name).shards.values():
+                shards.append(shard)
+                filters.append(filt)
+        return shards, filters, names
 
     def get_mapping(self, index: str, *, ignore_unavailable: bool = False,
                     allow_no_indices: bool = True,
@@ -439,6 +879,7 @@ class TorchNode:
             raise ActionRequestValidationException(
                 "Validation Failed: 1: create operations only support "
                 "internal versioning. use index instead;")
+        index, routing = self._resolve_write_alias(index, routing)
         svc = self._get_or_autocreate(index)
         doc_id = uuid.uuid4().hex[:20] if doc_id is None else str(doc_id)
         if len(doc_id.encode()) > 512:
@@ -450,16 +891,24 @@ class TorchNode:
             raise VersionConflictException(
                 f"[{doc_id}]: version conflict, document already exists "
                 "(current version [1])")
+        mappers_before = len(svc.mapper_service.mappers)
         result = shard.apply_index_on_primary(
             doc_id, source, routing, if_seq_no=if_seq_no, version=version,
             version_type=version_type)
+        if len(svc.mapper_service.mappers) != mappers_before:
+            # a dynamic mapping update: the registry keeps the new fields
+            # for a restart
+            self._persist_index_registry()
         return self._write_response(index, doc_id, result), shard
 
     def get_doc(self, index: str, doc_id: str, routing: str | None = None,
                 realtime: bool = True, version: int | None = None,
                 refresh: bool = False) -> dict:
         """Realtime GET through the shard's version map and buffer
-        (IndexShard.get); `refresh` refreshes the shard first."""
+        (IndexShard.get); `refresh` refreshes the shard first. An alias
+        with one member reads from it."""
+        index, routing = self._resolve_write_alias(index, routing,
+                                                   for_write=False)
         shard = self._get_index(index).shard_for(doc_id, routing)
         if refresh:
             shard.refresh()
@@ -495,6 +944,7 @@ class TorchNode:
                     if_seq_no: int | None = None, version: int | None = None,
                     version_type: str = "internal"
                     ) -> tuple[dict, IndexShard]:
+        index, routing = self._resolve_write_alias(index, routing)
         shard = self._get_index(index).shard_for(doc_id, routing)
         result = shard.apply_delete_on_primary(
             doc_id, if_seq_no=if_seq_no, version=version,
@@ -516,8 +966,7 @@ class TorchNode:
                    require_alias: bool = False) -> dict:
         """Partial update by a doc merge, a painless script or an upsert
         (action/update/UpdateHelper.java)."""
-        if require_alias:
-            # no aliases on this node: the target is never one
+        if require_alias and index not in self._alias_map():
             e = IndexNotFoundException(index)
             e.reason = (
                 f"no such index [{index}] and [require_alias] request "
@@ -564,6 +1013,7 @@ class TorchNode:
                 hint = f" did you mean [{near[0]}]?" if near else ""
                 raise IllegalArgumentException(
                     f"[UpdateRequest] unknown field [{key}]{hint}")
+        index, routing = self._resolve_write_alias(index, routing)
         # updates auto-create the target index like index ops do
         svc = self._get_or_autocreate(index)
         shard = svc.shard_for(doc_id, routing)
@@ -658,14 +1108,30 @@ class TorchNode:
         return out, shard
 
     def bulk(self, operations: list[tuple[str, dict, dict | None]],
-             refresh: bool = False, pipeline: str | None = None) -> dict:
+             refresh: bool = False, pipeline: str | None = None,
+             query_group: str | None = None) -> dict:
         """operations: [(action, metadata, source)]; action in
         index|create|update|delete. The translog is fsynced once per
         request for every shard it touched, before the response, as the
-        reference does under durability=request."""
+        reference does under durability=request. `query_group` tags the
+        request for its workload group's bulk admission (a 429 past the
+        group's slot share); the request runs as a non-cancellable
+        ``indices:data/write/bulk`` task."""
         if pipeline is not None:
             raise not_yet_ported("ingest pipelines")
         t0 = time.monotonic()
+        release_admission = self.query_groups.admit_bulk(query_group)
+        try:
+            with self.task_manager.task_scope(
+                    "indices:data/write/bulk",
+                    description=f"requests[{len(operations)}]",
+                    cancellable=False):
+                return self._bulk_inner(operations, refresh, t0)
+        finally:
+            release_admission()
+
+    def _bulk_inner(self, operations: list, refresh: bool,
+                    t0: float) -> dict:
         items = []
         errors = False
         touched: dict[int, IndexShard] = {}
@@ -683,7 +1149,8 @@ class TorchNode:
                         "if _id is specified it must not be empty")
                 if meta.get("pipeline") is not None:
                     raise not_yet_ported("ingest pipelines")
-                if meta.get("require_alias") in (True, "true"):
+                if meta.get("require_alias") in (True, "true") and \
+                        index not in self._alias_map():
                     e = IndexNotFoundException(index)
                     e.reason = (
                         f"no such index [{index}] and [require_alias] "
@@ -820,25 +1287,79 @@ class TorchNode:
                 count += 1
         return {"_shards": {"total": count, "successful": count, "failed": 0}}
 
-    def _search_shards(self, index: str | None,
-                       ignore_unavailable: bool = False) -> list[IndexShard]:
-        return [shard for name in self.resolve_indices(
-                    index or "_all", ignore_unavailable=ignore_unavailable)
-                for shard in self._get_index(name).shards.values()]
+    def flush(self, index: str = "_all") -> dict:
+        """POST [/{index}]/_flush: each shard's engine commits (refresh,
+        segments and commit point to disk, translog rolled)."""
+        count = 0
+        for name in self.resolve_indices(index):
+            for shard in self._get_index(name).shards.values():
+                shard.flush()
+                count += 1
+        return {"_shards": {"total": count, "successful": count, "failed": 0}}
+
+    def force_merge(self, index: str = "_all", max_num_segments: int = 1,
+                    only_expunge_deletes: bool = False,
+                    flush: bool = True) -> dict:
+        """POST [/{index}]/_forcemerge: each shard's engine fuses its
+        segments down to `max_num_segments` (the merged segment published
+        to the device), then flushes unless `flush` is false."""
+        count = 0
+        for name in self.resolve_indices(index):
+            for shard in self._get_index(name).shards.values():
+                shard.engine.force_merge(
+                    max_num_segments=max_num_segments,
+                    only_expunge_deletes=only_expunge_deletes)
+                if flush:
+                    shard.flush()
+                count += 1
+        return {"_shards": {"total": count, "successful": count, "failed": 0}}
 
     def search(self, index: str | None = None, body: dict | None = None,
                precomputed_results: list | None = None,
                ignore_unavailable: bool = False,
-               search_pipeline: str | None = None) -> dict:
+               search_pipeline: str | None = None,
+               scroll: str | None = None,
+               query_group: str | None = None,
+               request_cache: bool | None = None) -> dict:
+        """One search, as the reference's ``search`` runs it: a body's
+        ``pit`` reads the point in time's pinned snapshots; otherwise the
+        expression resolves to shards and their alias filters, a
+        ``scroll`` starts a scroll context, a cacheable body is answered
+        from the request cache (keyed by the snapshots acquired first),
+        and the search runs behind search backpressure, its workload
+        group's admission and an ``indices:data/read/search`` task."""
         body = dict(body or {})
-        # the body key is always taken out; the parameter wins over it
-        body_pipeline = body.pop("search_pipeline", None)
-        pipeline_id = search_pipeline or body_pipeline
         # per-request stat groups feed indices.stats in the reference,
         # which is not ported: the key is checked and accepted
         stat_groups = body.get("stats")
         if stat_groups is not None and not isinstance(stat_groups, list):
             raise ParsingException("[stats] must be an array of group names")
+        # the body key is always taken out; the parameter wins over it
+        body_pipeline = body.pop("search_pipeline", None)
+        pipeline_id = search_pipeline or body_pipeline
+        pit = body.pop("pit", None)
+        if pit is not None:
+            if scroll is not None:
+                raise IllegalArgumentException(
+                    "[scroll] cannot be used with a point-in-time")
+            if index is not None:
+                raise IllegalArgumentException(
+                    "[pit] cannot be used with an index in the request path")
+            ctx = self._resolve_reader_context(str(pit.get("id", "")), "pit")
+            if pit.get("keep_alive"):
+                ctx["expires_at"] = now_millis() + parse_time_value_millis(
+                    pit["keep_alive"], "keep_alive", positive=True)
+            pit_names = sorted({s.shard_id.index for s in ctx["shards"]})
+            self.search_backpressure.admit()
+            with self.task_manager.task_scope(
+                    "indices:data/read/search",
+                    description=f"pit[{ctx['id']}]") as task:
+                resp = self._search_with_pipeline(
+                    pipeline_id, pit_names, ctx["shards"], body,
+                    acquired=ctx["snapshots"],
+                    shard_filters=ctx.get("shard_filters"), task=task)
+            resp["pit_id"] = ctx["id"]
+            return resp
         sort_spec = body.get("sort")
         for spec in ([sort_spec] if isinstance(sort_spec, (str, dict))
                      else sort_spec or []):
@@ -847,22 +1368,85 @@ class TorchNode:
                 raise ActionRequestValidationException(
                     "Validation Failed: 1: [_shard_doc] sort field is only "
                     "supported with point-in-time (PIT) searches;")
-        shards = self._search_shards(index, ignore_unavailable)
+        expr = index if index is not None else "_all"
+        shards, shard_filters, names = self.resolve_search_shards(
+            expr, ignore_unavailable=ignore_unavailable)
         if body.get("indices_boost") is not None:
             body["indices_boost"] = self._resolve_indices_boost(
                 body["indices_boost"], ignore_unavailable=ignore_unavailable)
-        names = sorted({sh.shard_id.index for sh in shards})
-        expr = ",".join(names) or "_none"
-        body = self._resolve_mlt_doc_refs(body, names)
-        pl, pr_config = self._resolve_search_pipeline(pipeline_id, names)
+        if scroll is not None:
+            if int(body.get("from", 0)) > 0:
+                raise IllegalArgumentException(
+                    "[from] is not supported with scroll")
+            if body.get("search_after") is not None:
+                raise IllegalArgumentException(
+                    "[search_after] is not supported with scroll")
+            if int(body.get("size", search_service.DEFAULT_SIZE)) == 0:
+                raise IllegalArgumentException(
+                    "[size] cannot be [0] in a scroll context")
+            return self._start_scroll(shards, body, scroll,
+                                      pipeline_id=pipeline_id, names=names,
+                                      shard_filters=shard_filters)
+        from opensearch_tpu_torch.index.request_cache import RequestCache
+
+        cache_on = request_cache
+        if cache_on is None:
+            for n in names:
+                svc = self.indices.get(n)
+                if svc is not None and str(svc.setting(
+                        "requests.cache.enable", True)).lower() == "false":
+                    cache_on = False
+                    break
+        cache_key = None
+        cache_snaps = None
+        if RequestCache.cacheable(body, cache_on) and \
+                precomputed_results is None:
+            # acquire the snapshots FIRST and key by THEIR generations: a
+            # refresh between a separate generation read and the acquire
+            # could cache a pre-refresh response under the post-refresh key
+            cache_snaps = [s.acquire_searcher() for s in shards]
+            cache_key = RequestCache.key(
+                tuple(sorted(names)),
+                [(s.shard_id.index, s.shard_id.shard, s.engine.engine_uuid)
+                 for s in shards],
+                [snap.generation for snap in cache_snaps], body)
+            cached = self.request_cache.get(cache_key)
+            if cached is not None:
+                return json.loads(cached)
+        self.search_backpressure.admit()
+        with self.query_groups.admit(query_group), \
+                self.task_manager.task_scope(
+                    "indices:data/read/search",
+                    description=f"indices[{expr}]") as task:
+            resp = self._search_with_pipeline(
+                pipeline_id, names, shards, body, acquired=cache_snaps,
+                shard_filters=shard_filters, task=task,
+                precomputed_results=precomputed_results)
+        if cache_key is not None:
+            self.request_cache.put(cache_key, json.dumps(resp, default=str))
+        return resp
+
+    def _search_with_pipeline(self, pipeline_id: str | None,
+                              index_names: list[str], shards: list,
+                              body: dict, acquired: list | None = None,
+                              shard_filters: list | None = None, task=None,
+                              precomputed_results: list | None = None
+                              ) -> dict:
+        """search_service.search wrapped in the search pipeline's request
+        and response steps. The telemetry (span, metrics, slow log) lives
+        here, so PIT and scroll searches are covered too."""
+        from opensearch_tpu_torch.search import lanes as lanes_mod
+        from opensearch_tpu_torch.telemetry import tracing
+
+        expr = ",".join(index_names) or "_pit"
+        body = self._resolve_mlt_doc_refs(body, index_names)
+        pl, pr_config = self._resolve_search_pipeline(pipeline_id,
+                                                      index_names)
         pl_ctx = {}
         if pl is not None:
             body = self.search_pipelines.transform_request(pl, body)
             if "_original_size" in body:
                 pl_ctx["_original_size"] = body.pop("_original_size")
-        from opensearch_tpu_torch.search import lanes as lanes_mod
-        from opensearch_tpu_torch.telemetry import tracing
-
         # activate() scopes library spans and the process-wide singletons'
         # metrics to THIS node; the slowlog and the metrics record inside
         # the span, so the slowlog entry and the histogram exemplar carry
@@ -871,8 +1455,10 @@ class TorchNode:
         with tracing.activate(self.telemetry.tracer), \
                 self.telemetry.tracer.start_span(
                     "search", {"indices": expr}) as span:
-            resp = search_service.search(shards, body, precomputed_results,
-                                         phase_results_config=pr_config)
+            resp = search_service.search(
+                shards, body, precomputed_results,
+                phase_results_config=pr_config, acquired=acquired,
+                shard_filters=shard_filters, task=task)
             took = resp.get("took", 0)
             span.set_attribute("took_ms", took)
             self.search_slowlog.maybe_log(
@@ -880,7 +1466,7 @@ class TorchNode:
             metrics.counter("search.total").add(1)
             metrics.histogram("search.took_ms").record(took)
             # per-index and per-lane series under the same metric name
-            if len(names) == 1:
+            if len(index_names) == 1:
                 metrics.histogram("search.took_ms",
                                   labels={"index": expr}).record(took)
             metrics.histogram(
@@ -996,6 +1582,147 @@ class TorchNode:
                 out.setdefault(concrete, boost)  # the first match wins
         return out
 
+    # -- reader contexts: scroll and point in time (ReaderContext registry) --
+    #
+    # A context holds its shards, one pinned searcher snapshot a shard and
+    # its alias filters. The snapshots keep their segments' device tensors
+    # alive after a merge or refresh has retired them from the engine (the
+    # residency ledger counts the engine's published set, so it
+    # under-counts device memory while a context is open, as the
+    # reference's does); closing the context drops the last reference.
+
+    def _check_keep_alive(self, keep_ms: int, raw: str) -> None:
+        """search.max_keep_alive cap (SearchService.validateKeepAlives)."""
+        max_raw = self.effective_cluster_setting("search.max_keep_alive",
+                                                 "24h")
+        max_ms = parse_time_value_millis(str(max_raw), "search.max_keep_alive",
+                                         positive=True)
+        if keep_ms > max_ms:
+            raise IllegalArgumentException(
+                f"Keep alive for request ({raw}) is too large. It must be "
+                f"less than ({max_raw}). This limit can be set by changing "
+                f"the [search.max_keep_alive] cluster level setting.")
+
+    def _reap_expired_contexts(self) -> None:
+        now = now_millis()
+        # searches run on the parallel pool: iterate a list() snapshot and
+        # pop(), so a context a concurrent reap removed is simply gone
+        for cid, ctx in list(self._reader_contexts.items()):
+            if ctx["expires_at"] < now:
+                self._reader_contexts.pop(cid, None)
+
+    def _resolve_reader_context(self, cid: str, kind: str) -> dict:
+        self._reap_expired_contexts()
+        ctx = self._reader_contexts.get(cid)
+        if ctx is None or ctx["kind"] != kind:
+            raise SearchContextMissingException(cid)
+        return ctx
+
+    def _start_scroll(self, shards: list, body: dict, scroll: str,
+                      pipeline_id: str | None = None,
+                      names: list[str] | None = None,
+                      shard_filters: list | None = None) -> dict:
+        self._reap_expired_contexts()
+        keep_ms = parse_time_value_millis(scroll, "scroll", positive=True)
+        self._check_keep_alive(keep_ms, scroll)
+        cid = f"scroll_{uuid.uuid4().hex}"
+        snapshots = [s.acquire_searcher() for s in shards]
+        size = int(body.get("size", search_service.DEFAULT_SIZE))
+        ctx = {
+            "id": cid, "kind": "scroll", "shards": shards,
+            "snapshots": snapshots, "body": body, "seen": size,
+            "size": size, "keep_alive_ms": keep_ms,
+            "expires_at": now_millis() + keep_ms,
+            "pipeline_id": pipeline_id, "names": names or [],
+            "shard_filters": shard_filters,
+        }
+        self.search_backpressure.admit()
+        with self.task_manager.task_scope(
+                "indices:data/read/search",
+                description=f"scroll[{cid}]") as task:
+            resp = self._search_with_pipeline(
+                pipeline_id, names or [], shards, body, acquired=snapshots,
+                shard_filters=shard_filters, task=task)
+        self._reader_contexts[cid] = ctx
+        resp["_scroll_id"] = cid
+        return resp
+
+    def scroll(self, scroll_id: str, scroll: str | None = None) -> dict:
+        """The next scroll page. Pages deepen from + size against the
+        PINNED snapshots (a deterministic order on an immutable view), as
+        the reference's do: a kNN scroll's page p is one query phase at
+        fetch depth (p + 1) * size."""
+        ctx = self._resolve_reader_context(scroll_id, "scroll")
+        if scroll is not None:
+            keep_ms = parse_time_value_millis(scroll, "scroll", positive=True)
+            self._check_keep_alive(keep_ms, scroll)
+            ctx["keep_alive_ms"] = keep_ms
+        ctx["expires_at"] = now_millis() + ctx["keep_alive_ms"]
+        page_body = {k: v for k, v in ctx["body"].items()
+                     if k not in ("aggs", "aggregations")}
+        page_body["from"] = ctx["seen"]
+        page_body["size"] = ctx["size"]
+        self.search_backpressure.admit()
+        with self.task_manager.task_scope(
+                "indices:data/read/search",
+                description=f"scroll[{scroll_id}]") as task:
+            resp = self._search_with_pipeline(
+                ctx.get("pipeline_id"), ctx.get("names", []), ctx["shards"],
+                page_body, acquired=ctx["snapshots"],
+                shard_filters=ctx.get("shard_filters"), task=task)
+        ctx["seen"] += len(resp["hits"]["hits"])
+        resp["_scroll_id"] = scroll_id
+        return resp
+
+    def clear_scroll(self, scroll_ids: list[str] | None) -> dict:
+        self._reap_expired_contexts()
+        freed = 0
+        ids = scroll_ids or [c for c, x in list(self._reader_contexts.items())
+                             if x["kind"] == "scroll"]
+        for cid in list(ids):
+            if self._reader_contexts.pop(cid, None) is not None:
+                freed += 1
+        return {"succeeded": True, "num_freed": freed}
+
+    def open_pit(self, index: str, keep_alive: str) -> dict:
+        self._reap_expired_contexts()
+        keep_ms = parse_time_value_millis(keep_alive, "keep_alive",
+                                          positive=True)
+        shards, shard_filters, _ = self.resolve_search_shards(index)
+        cid = f"pit_{uuid.uuid4().hex}"
+        created = int(time.time() * 1000)
+        self._reader_contexts[cid] = {
+            "id": cid, "kind": "pit", "shards": shards,
+            "snapshots": [s.acquire_searcher() for s in shards],
+            "shard_filters": shard_filters,
+            "keep_alive_ms": keep_ms, "expires_at": now_millis() + keep_ms,
+            "creation_time": created,
+        }
+        return {"pit_id": cid, "_shards": {"total": len(shards),
+                                           "successful": len(shards),
+                                           "skipped": 0, "failed": 0},
+                "creation_time": created}
+
+    def list_all_pits(self) -> dict:
+        """GET /_search/point_in_time/_all (RestGetAllPitsAction): every
+        live PIT with its keep_alive and creation time."""
+        self._reap_expired_contexts()
+        return {"pits": [
+            {"pit_id": cid, "creation_time": ctx.get("creation_time", 0),
+             "keep_alive": ctx["keep_alive_ms"]}
+            for cid, ctx in list(self._reader_contexts.items())
+            if ctx["kind"] == "pit"]}
+
+    def close_pit(self, pit_ids: list[str] | None) -> dict:
+        self._reap_expired_contexts()
+        ids = pit_ids or [c for c, x in list(self._reader_contexts.items())
+                          if x["kind"] == "pit"]
+        pits = []
+        for cid in list(ids):
+            ok = self._reader_contexts.pop(cid, None) is not None
+            pits.append({"pit_id": cid, "successful": ok})
+        return {"pits": pits}
+
     def count(self, index: str, body: dict | None = None) -> dict:
         """``_count``: the search's total at size 0."""
         body = dict(body or {})
@@ -1024,6 +1751,7 @@ class TorchNode:
             for slot, g in enumerate(group):
                 try:
                     responses[g] = self.search(
+                        # no index (None) keeps a PIT body legal
                         searches[g][0].get("index"), searches[g][1],
                         precomputed_results=(precomputed[slot]
                                              if precomputed else None))
@@ -1038,15 +1766,18 @@ class TorchNode:
         precomputed_results for search(), or None (the bodies one by one).
         An index with a default search pipeline keeps the run on its
         serial path, where the pipeline rewrites each request first (a
-        body with its own ``search_pipeline`` key is never batchable); the
-        reference's filtered-alias check does not apply (no aliases)."""
+        body with its own ``search_pipeline`` key is never batchable). A
+        shard with an alias filter keeps the run on the serial path too:
+        each sub-search is still one filtered launch of the stacked
+        step."""
         try:
-            shards = self._search_shards(index)
+            shards, shard_filters, names = self.resolve_search_shards(index)
         except OpenSearchTpuException:
             return None  # the serial path reports the error per sub-search
-        for name in {sh.shard_id.index for sh in shards}:
-            if (self.indices[name].settings.get("search") or {}).get(
-                    "default_pipeline"):
+        if any(f is not None for f in shard_filters):
+            return None
+        for name in names:
+            if self.indices[name].setting("search.default_pipeline"):
                 return None
         snaps = [s.acquire_searcher() for s in shards]
         return search_service.try_batched_knn_msearch(shards, bodies, snaps)
@@ -1123,7 +1854,136 @@ class TorchNode:
             out["indices"] = per_index
         return out
 
+    # -- cluster settings (single node) ---------------------------------------
+
+    def effective_cluster_setting(self, key: str, default=None):
+        """transient over persistent over default (ClusterSettings.get)."""
+        t = getattr(self, "_transient_cluster_settings", {}) or {}
+        p = getattr(self, "_cluster_settings", {}) or {}
+        return t.get(key, p.get(key, default))
+
+    def _settings_view(self, flat_map: dict, flat: bool) -> dict:
+        return settings_section(flat_map, flat)
+
+    # the reference test cluster starts nodes with node.attr.testattr=test;
+    # surfaced by ?include_defaults
+    _CLUSTER_SETTING_DEFAULTS = {
+        "node.attr.testattr": "test",
+        "cluster.routing.allocation.enable": "all",
+        "search.max_buckets": "65536",
+        "search.allow_expensive_queries": "true",
+    }
+
+    def _apply_dynamic_node_settings(self, changed=()) -> None:
+        """Push the effective dynamic cluster settings into the components
+        that read them (the addSettingsUpdateConsumer of one node).
+
+        The batcher, the ANN config, the lanes, the residency routing, the
+        shard-mesh budget and the heat ledger are PROCESS-wide, so each is
+        touched only when this node's effective settings carry one of its
+        keys or this update (`changed`, the keys just PUT, null deletions
+        included) names one: another node of the process updating an
+        unrelated key, or merely booting, must not reset live
+        configuration to its defaults. A null deletion restores the
+        default: the deleted key is in `changed`, and apply_settings
+        resolves an absent key to its default. The request cache's budget
+        and the span exporter are per node and apply unconditionally."""
+        from opensearch_tpu_torch.cluster import residency
+        from opensearch_tpu_torch.cluster.cluster_settings import effective
+        from opensearch_tpu_torch.index.request_cache import (
+            CACHE_SIZE_SETTING,
+        )
+        from opensearch_tpu_torch.search import ann, lanes
+        from opensearch_tpu_torch.search.batcher import BATCH_SETTINGS
+        from opensearch_tpu_torch.telemetry.device_ledger import (
+            HEAT_SETTINGS,
+            default_ledger,
+        )
+        from opensearch_tpu_torch.telemetry.export import (
+            apply_tracing_settings,
+        )
+
+        eff = effective(getattr(self, "_cluster_settings", {}),
+                        getattr(self, "_transient_cluster_settings", {}))
+
+        def named(settings) -> bool:
+            return any(st.key in eff or st.key in changed for st in settings)
+
+        if named(BATCH_SETTINGS):
+            self.knn_batcher.apply_settings(eff)
+        if named(ann.ANN_SETTINGS):
+            ann.default_config.apply_settings(eff)
+        if named(shard_mesh.MESH_SETTINGS):
+            shard_mesh.default_registry.apply_settings(eff)
+        if named(lanes.LANE_SETTINGS):
+            lanes.default_config.apply_settings(eff)
+        if named(residency.ROUTING_SETTINGS):
+            residency.default_config.apply_settings(eff)
+        if named(HEAT_SETTINGS):
+            default_ledger.apply_heat_settings(eff)
+        self.request_cache.set_max_bytes(
+            CACHE_SIZE_SETTING.get(Settings.from_flat(eff)))
+        # absent keys resolve to the "none" exporter: a null deletion
+        # detaches a live one
+        apply_tracing_settings(self.telemetry, eff, self.data_path,
+                               service_name=self.node_name)
+
+    def put_cluster_settings(self, body: dict, *, flat: bool = False) -> dict:
+        """Single-node /_cluster/settings: validated, merged into the
+        persistent and transient sections (null deletes a key), applied,
+        and the persistent section written to ``cluster_settings.json``.
+        The response echoes both sections after the update."""
+        from opensearch_tpu_torch.cluster.cluster_settings import (
+            flatten,
+            merge,
+            validate_settings,
+        )
+
+        persistent = flatten((body or {}).get("persistent") or {})
+        transient = flatten((body or {}).get("transient") or {})
+        validate_settings(persistent)
+        validate_settings(transient)
+        self._cluster_settings = merge(
+            getattr(self, "_cluster_settings", {}), persistent)
+        self._transient_cluster_settings = merge(
+            getattr(self, "_transient_cluster_settings", {}), transient)
+        self._apply_dynamic_node_settings(
+            changed=set(persistent) | set(transient))
+        self.data_path.mkdir(parents=True, exist_ok=True)
+        (self.data_path / "cluster_settings.json").write_text(
+            json.dumps(self._cluster_settings))
+        return {
+            "acknowledged": True,
+            "persistent": self._settings_view(self._cluster_settings, flat),
+            "transient": self._settings_view(
+                self._transient_cluster_settings, flat),
+        }
+
+    def get_cluster_settings(self, *, flat: bool = False,
+                             include_defaults: bool = False) -> dict:
+        if not hasattr(self, "_cluster_settings"):
+            path = self.data_path / "cluster_settings.json"
+            self._cluster_settings = (json.loads(path.read_text())
+                                      if path.exists() else {})
+        transient = getattr(self, "_transient_cluster_settings", {})
+        out = {
+            "persistent": self._settings_view(self._cluster_settings, flat),
+            "transient": self._settings_view(transient, flat),
+        }
+        if include_defaults:
+            out["defaults"] = self._settings_view(
+                {k: v for k, v in self._CLUSTER_SETTING_DEFAULTS.items()
+                 if k not in self._cluster_settings and k not in transient},
+                flat)
+        return out
+
     def close(self) -> None:
+        # flush on shutdown: buffered trace fragments decide and drain
+        from opensearch_tpu_torch.telemetry.export import close_exporter
+
+        close_exporter(self.telemetry)
+        # open scroll and PIT contexts pin snapshots: they end with the node
+        self._reader_contexts.clear()
         for name, svc in self.indices.items():
             svc.close()
             # the stacked serving slabs of this index leave device memory

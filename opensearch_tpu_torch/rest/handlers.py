@@ -10,8 +10,15 @@ delete, `_update`), NDJSON `_bulk`, `_refresh`, `_search`, `_count`,
 (`_scripts/{id}`, `_script_context`, `_script_language`), search
 templates (`_search/template`, `_render/template`), search pipelines
 (`_search/pipeline`), `_cluster/health`, the kernel roofline report and its
-re-calibration (`GET /_roofline`, `POST /_roofline/calibrate`) and the
-what-if tiering advisor (`GET /_tiering/advise`). Every other route answers through
+re-calibration (`GET /_roofline`, `POST /_roofline/calibrate`), the
+what-if tiering advisor (`GET /_tiering/advise`), and the search contexts,
+aliases and admission: scroll (`_search/scroll`), point in time
+(`_search/point_in_time`), `_flush`, `_forcemerge`, `_cache/clear`,
+`_aliases` and `_alias`, `_tasks` (list, get, cancel), the workload groups
+(`_wlm/query_group`, `_wlm/stats`, `_list/wlm_stats`),
+`_cluster/settings` and `_otel/flush`; `_search` reads `scroll`,
+`query_group` and `request_cache`, `_bulk` reads `query_group`. Every
+other route answers through
 :func:`_not_yet_ported`, which raises "<METHOD> <path> is not yet ported
 to opensearch_tpu_torch" (the HTTP server's 500 envelope). Handlers
 receive (node, params, query, body) and return (status, payload); the
@@ -30,10 +37,11 @@ from opensearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     IndexNotFoundException,
     OpenSearchTpuException,
+    ResourceNotFoundException,
 )
 from opensearch_tpu_torch.node import TorchNode
 from opensearch_tpu_torch.rest.router import Router
-from opensearch_tpu_torch.search.distributed_serving import not_yet_ported
+from opensearch_tpu_torch.search.executor import not_yet_ported
 from opensearch_tpu_torch.search.service import _source_filter
 
 logger = logging.getLogger(__name__)
@@ -157,13 +165,65 @@ def build_router() -> Router:
     reg("POST", "/{index}/_count", count)
     reg("GET", "/_count", count_all)
     reg("POST", "/_count", count_all)
+    # search contexts: scroll and point in time
+    reg("GET", "/_search/scroll", scroll)
+    reg("POST", "/_search/scroll", scroll)
+    reg("GET", "/_search/scroll/{scroll_id}", scroll)
+    reg("POST", "/_search/scroll/{scroll_id}", scroll)
+    reg("DELETE", "/_search/scroll", clear_scroll)
+    reg("DELETE", "/_search/scroll/{scroll_id}", clear_scroll)
+    reg("POST", "/{index}/_search/point_in_time", open_pit)
+    reg("DELETE", "/_search/point_in_time", close_pit)
+    reg("DELETE", "/_search/point_in_time/_all", close_all_pits)
+    reg("GET", "/_search/point_in_time/_all", get_all_pits)
     # maintenance
     reg("POST", "/{index}/_refresh", refresh)
     reg("GET", "/{index}/_refresh", refresh)
     reg("POST", "/_refresh", refresh_all)
+    reg("POST", "/{index}/_flush", flush)
+    reg("POST", "/_flush", flush_all)
+    reg("POST", "/{index}/_forcemerge", forcemerge)
+    reg("POST", "/_forcemerge", forcemerge)
+    reg("POST", "/{index}/_cache/clear", clear_cache)
+    reg("POST", "/_cache/clear", clear_cache_all)
+    # aliases
+    reg("POST", "/_aliases", update_aliases)
+    reg("PUT", "/{index}/_alias/{name}", put_alias)
+    reg("POST", "/{index}/_alias/{name}", put_alias)
+    reg("PUT", "/{index}/_alias", put_alias)
+    reg("POST", "/{index}/_alias", put_alias)
+    reg("PUT", "/_alias/{name}", put_alias)
+    reg("POST", "/_alias/{name}", put_alias)
+    reg("PUT", "/_alias", put_alias)
+    reg("POST", "/_alias", put_alias)
+    reg("PUT", "/{index}/_aliases/{name}", put_alias)
+    reg("DELETE", "/{index}/_alias/{name}", delete_alias)
+    reg("DELETE", "/{index}/_aliases/{name}", delete_alias)
+    reg("GET", "/_alias", get_alias_all)
+    reg("GET", "/_alias/{name}", get_alias_by_name)
+    reg("GET", "/{index}/_alias", get_alias_index)
+    reg("GET", "/{index}/_alias/{name}", get_alias_index_name)
+    reg("HEAD", "/_alias/{name}", exists_alias)
+    reg("HEAD", "/{index}/_alias/{name}", exists_alias)
+    # span export
+    reg("POST", "/_otel/flush", otel_flush)
+    # tasks
+    reg("GET", "/_tasks", list_tasks)
+    reg("GET", "/_tasks/{task_id}", get_task)
+    reg("POST", "/_tasks/_cancel", cancel_tasks)
+    reg("POST", "/_tasks/{task_id}/_cancel", cancel_task)
     # cluster
     reg("GET", "/_cluster/health", cluster_health)
     reg("GET", "/_cluster/health/{index}", cluster_health)
+    reg("GET", "/_cluster/settings", get_cluster_settings)
+    reg("PUT", "/_cluster/settings", put_cluster_settings)
+    # workload management (query groups)
+    reg("PUT", "/_wlm/query_group", put_query_group)
+    reg("GET", "/_wlm/query_group", get_query_groups)
+    reg("GET", "/_wlm/query_group/{name}", get_query_group)
+    reg("DELETE", "/_wlm/query_group/{name}", delete_query_group)
+    reg("GET", "/_wlm/stats", wlm_stats)
+    reg("GET", "/_list/wlm_stats", wlm_stats_list)
     # kernel roofline report (telemetry/roofline.py): families ranked by
     # lost time, plus the re-calibration button
     reg("GET", "/_roofline", roofline_report)
@@ -540,7 +600,8 @@ def bulk(node: TorchNode, params, query, body):
             i += 1
         ops.append((action, meta, source))
     return 200, node.bulk(ops, refresh=_refresh_param(query),
-                          pipeline=query.get("pipeline"))
+                          pipeline=query.get("pipeline"),
+                          query_group=query.get("query_group"))
 
 
 # -- search ------------------------------------------------------------------
@@ -791,34 +852,29 @@ def _validate_search_params(query, body=None):
             )
 
 
-def _unported_search_params(query) -> None:
-    """The search parameters whose machinery the port does not have yet
-    (scroll contexts, workload groups) raise; a request cache hint is
-    accepted (the port caches nothing, and a cached response is the same
-    response)."""
-    for param, what in (("scroll", "scroll"),
-                        ("query_group", "workload management")):
-        if query.get(param) is not None:
-            raise not_yet_ported(what)
-
-
 def search(node: TorchNode, params, query, body):
     _validate_search_params(query, body)
-    _unported_search_params(query)
+    rc = query.get("request_cache")
     resp = node.search(params["index"], _body_with_query_params(query, body),
+                       scroll=query.get("scroll"),
+                       search_pipeline=query.get("search_pipeline"),
                        ignore_unavailable=str(
                            query.get("ignore_unavailable", "false")
                        ) in ("true", ""),
-                       search_pipeline=query.get("search_pipeline"))
+                       query_group=query.get("query_group"),
+                       request_cache=(None if rc is None
+                                      else str(rc) in ("true", "")))
     resp = _with_reduce_phases(resp, query)
     resp = _apply_typed_keys(resp, query, body, node, params.get("index"))
     return 200, _totals_as_int(resp, query)
 
 
 def search_all(node: TorchNode, params, query, body):
+    # index=None (not "_all"): a PIT body carries its own shard set and is
+    # only legal without an index in the path
     _validate_search_params(query, body)
-    _unported_search_params(query)
     resp = node.search(None, _body_with_query_params(query, body),
+                       scroll=query.get("scroll"),
                        search_pipeline=query.get("search_pipeline"))
     resp = _with_reduce_phases(resp, query)
     resp = _apply_typed_keys(resp, query, body, node)
@@ -916,19 +972,16 @@ def get_script_languages(node: TorchNode, params, query, body):
 
 
 def search_template(node: TorchNode, params, query, body):
-    if query.get("scroll") is not None:
-        raise not_yet_ported("scroll")
     resp = node.search_template(
-        params["index"], body or {},
+        params["index"], body or {}, scroll=query.get("scroll"),
         search_pipeline=query.get("search_pipeline"))
     return 200, _totals_as_int(resp, query)
 
 
 def search_template_all(node: TorchNode, params, query, body):
-    if query.get("scroll") is not None:
-        raise not_yet_ported("scroll")
     resp = node.search_template(
-        None, body or {}, search_pipeline=query.get("search_pipeline"))
+        None, body or {}, scroll=query.get("scroll"),
+        search_pipeline=query.get("search_pipeline"))
     return 200, _totals_as_int(resp, query)
 
 
@@ -1056,6 +1109,440 @@ def tiering_advise(node: TorchNode, params, query, body):
     return 200, default_ledger.advise_tiering(budget)
 
 
+# -- search contexts ----------------------------------------------------------
+
+
+def scroll(node: TorchNode, params, query, body):
+    body = body or {}
+    # body params override path/query (RestSearchScrollAction)
+    scroll_id = (body.get("scroll_id") or params.get("scroll_id")
+                 or query.get("scroll_id"))
+    if not scroll_id:
+        raise IllegalArgumentException("scroll_id is required")
+    keep = body.get("scroll") or query.get("scroll")
+    return 200, _totals_as_int(node.scroll(str(scroll_id), keep), query)
+
+
+def clear_scroll(node: TorchNode, params, query, body):
+    body = body or {}
+    ids = (body.get("scroll_id") or params.get("scroll_id")
+           or query.get("scroll_id"))
+    if not ids:
+        raise IllegalArgumentException(
+            "scroll_id is required (use _all to clear every scroll)")
+    if isinstance(ids, str):
+        ids = None if ids == "_all" else ids.split(",")
+    resp = node.clear_scroll(ids)
+    # explicit ids that freed nothing -> 404 (RestClearScrollAction status)
+    status = 404 if ids and resp.get("num_freed", 0) == 0 else 200
+    return status, resp
+
+
+def open_pit(node: TorchNode, params, query, body):
+    keep_alive = query.get("keep_alive")
+    if not keep_alive:
+        raise IllegalArgumentException(
+            "[keep_alive] is required to open a PIT")
+    return 200, node.open_pit(params["index"], keep_alive)
+
+
+def close_pit(node: TorchNode, params, query, body):
+    body = body or {}
+    ids = body.get("pit_id")
+    if not ids:
+        raise IllegalArgumentException(
+            "pit_id is required (DELETE /_search/point_in_time/_all closes "
+            "all)")
+    if isinstance(ids, str):
+        ids = [ids]
+    return 200, node.close_pit(ids)
+
+
+def close_all_pits(node: TorchNode, params, query, body):
+    return 200, node.close_pit(None)
+
+
+def get_all_pits(node: TorchNode, params, query, body):
+    return 200, node.list_all_pits()
+
+
+# -- flush, force merge, request cache ----------------------------------------
+
+
+def flush(node: TorchNode, params, query, body):
+    return 200, node.flush(params["index"])
+
+
+def flush_all(node: TorchNode, params, query, body):
+    return 200, node.flush("_all")
+
+
+def forcemerge(node: TorchNode, params, query, body):
+    return 200, node.force_merge(
+        params.get("index", "_all"),
+        max_num_segments=int(query.get("max_num_segments", 1)),
+        only_expunge_deletes=(
+            str(query.get("only_expunge_deletes", "false")).lower() == "true"),
+        flush=str(query.get("flush", "true")).lower() != "false")
+
+
+def clear_cache(node: TorchNode, params, query, body):
+    n = node.request_cache.clear(params.get("index"))
+    return 200, {"_shards": {"total": 1, "successful": 1, "failed": 0},
+                 "cleared": n}
+
+
+def clear_cache_all(node: TorchNode, params, query, body):
+    n = node.request_cache.clear(None)
+    return 200, {"_shards": {"total": 1, "successful": 1, "failed": 0},
+                 "cleared": n}
+
+
+# -- aliases -------------------------------------------------------------------
+
+
+def update_aliases(node: TorchNode, params, query, body):
+    return 200, node.update_aliases(body or {})
+
+
+def put_alias(node: TorchNode, params, query, body):
+    # the body's index/alias OVERRIDE the path parts (RestIndexPutAliasAction
+    # reads both forms); one of each must resolve
+    body = body or {}
+    if not isinstance(body, dict):
+        raise IllegalArgumentException(
+            "put alias request body must be an object")
+    index = body.get("index") or params.get("index")
+    name = body.get("alias") or params.get("name")
+    if not index or not name:
+        raise IllegalArgumentException(
+            "put alias requires an index and an alias name")
+    if any(c in str(name) for c in '*?"<>| ,#'):
+        raise IllegalArgumentException(f"invalid alias name [{name}]")
+    conf = {k: v for k, v in body.items() if k not in ("index", "alias")}
+    unknown = set(conf) - {"filter", "routing", "index_routing",
+                           "search_routing", "is_write_index", "is_hidden",
+                           "must_exist"}
+    if unknown:
+        raise IllegalArgumentException(
+            f"unknown field [{sorted(unknown)[0]}]")
+    return 200, node.put_alias(str(index), str(name), conf)
+
+
+def delete_alias(node: TorchNode, params, query, body):
+    return 200, node.delete_alias(params["index"], params["name"])
+
+
+def _alias_response(resp: dict):
+    # the 404 body KEEPS the status/error riders beside the found aliases;
+    # "status" and "error" are legal INDEX names too, whose entries are
+    # dicts
+    status = resp.get("status")
+    if isinstance(status, int) and isinstance(resp.get("error"), str):
+        return status, resp
+    return 200, resp
+
+
+def exists_alias(node: TorchNode, params, query, body):
+    resp = node.get_alias(
+        index_expr=params.get("index"), alias_expr=params["name"],
+        expand_wildcards=str(query.get("expand_wildcards", "all")))
+    found = any(v.get("aliases") for v in resp.values()
+                if isinstance(v, dict))
+    missed = isinstance(resp.get("error"), str) and \
+        isinstance(resp.get("status"), int)
+    return (200 if found and not missed else 404), ""
+
+
+def get_alias_all(node: TorchNode, params, query, body):
+    return _alias_response(node.get_alias(
+        expand_wildcards=str(query.get("expand_wildcards", "all"))))
+
+
+def get_alias_by_name(node: TorchNode, params, query, body):
+    return _alias_response(node.get_alias(
+        alias_expr=params["name"],
+        expand_wildcards=str(query.get("expand_wildcards", "all"))))
+
+
+def get_alias_index(node: TorchNode, params, query, body):
+    return _alias_response(node.get_alias(
+        index_expr=params["index"],
+        expand_wildcards=str(query.get("expand_wildcards", "all"))))
+
+
+def get_alias_index_name(node: TorchNode, params, query, body):
+    return _alias_response(node.get_alias(
+        index_expr=params["index"], alias_expr=params["name"],
+        expand_wildcards=str(query.get("expand_wildcards", "all"))))
+
+
+# -- tasks -----------------------------------------------------------------------
+
+
+def _parse_task_id(raw: str) -> int:
+    # accepts both "<id>" and "<node>:<id>" forms
+    try:
+        return int(raw.rsplit(":", 1)[-1])
+    except ValueError:
+        raise IllegalArgumentException(f"malformed task id [{raw}]") from None
+
+
+def list_tasks(node: TorchNode, params, query, body):
+    # the listing request itself runs as a task
+    # (TransportListTasksAction registers), so the map is never empty
+    detailed = str(query.get("detailed", "false")) in ("true", "")
+    with node.task_manager.task_scope(
+            "cluster:monitor/tasks/lists", description="task list"):
+        tasks = node.task_manager.list_tasks(query.get("actions"))
+        task_map = {}
+        for t in tasks:
+            d = t.to_dict()
+            full = t.resource_stats()
+            rs = {"total": {
+                # a still-running task has accrued no scope CPU yet;
+                # floor at 1ns like the reference's sampled minimum
+                "cpu_time_in_nanos": max(
+                    full["total"]["cpu_time_in_nanos"], 1),
+                "memory_in_bytes": full["total"]["memory_in_bytes"],
+            }}
+            if detailed:
+                rs["thread_info"] = dict(
+                    full["thread_info"],
+                    thread_executions=max(
+                        full["thread_info"]["thread_executions"], 1))
+            d.setdefault("resource_stats", rs)
+            task_map[f"{t.node}:{t.id}"] = d
+    group_by = str(query.get("group_by", "nodes"))
+    if group_by == "none":
+        # ListTasksResponse renders an ARRAY for group_by=none
+        return 200, {"tasks": list(task_map.values())}
+    if group_by == "parents":
+        return 200, {"tasks": task_map}
+    return 200, {"nodes": {node.node_name: {
+        "name": node.node_name,
+        "transport_address": "127.0.0.1:9300",
+        "host": "127.0.0.1",
+        "ip": "127.0.0.1:9300",
+        "roles": ["cluster_manager", "data", "ingest",
+                  "remote_cluster_client"],
+        "tasks": task_map,
+    }}}
+
+
+def get_task(node: TorchNode, params, query, body):
+    raw = str(params["task_id"])
+    owner = raw.rsplit(":", 1)[0] if ":" in raw else node.node_name
+    if owner not in (node.node_name, "node-0"):
+        raise ResourceNotFoundException(
+            f"task [{raw}] belongs to the node [{owner}] which isn't part "
+            f"of the cluster and there is no record of the task")
+    task, completed = node.task_manager.get_any(
+        _parse_task_id(params["task_id"]))
+    return 200, {"completed": completed, "task": task.to_dict()}
+
+
+def cancel_tasks(node: TorchNode, params, query, body):
+    cancelled = node.task_manager.cancel_matching(query.get("actions"))
+    # nodes with nothing cancelled are omitted (TransportTasksAction only
+    # reports nodes that matched)
+    nodes = ({node.node_name: {"cancelled_task_ids": cancelled}}
+             if cancelled else {})
+    return 200, {"nodes": nodes, "node_failures": [], "task_failures": []}
+
+
+def cancel_task(node: TorchNode, params, query, body):
+    cancelled = node.task_manager.cancel(_parse_task_id(params["task_id"]))
+    return 200, {"nodes": {node.node_name: {"cancelled_task_ids": cancelled}},
+                 "node_failures": [], "task_failures": []}
+
+
+# -- cluster settings, span export --------------------------------------------
+
+
+def get_cluster_settings(node: TorchNode, params, query, body):
+    return 200, node.get_cluster_settings(
+        flat=str(query.get("flat_settings", "false")) in ("true", ""),
+        include_defaults=str(query.get("include_defaults", "false"))
+        in ("true", ""))
+
+
+def put_cluster_settings(node: TorchNode, params, query, body):
+    return 200, node.put_cluster_settings(
+        body or {},
+        flat=str(query.get("flat_settings", "false")) in ("true", ""))
+
+
+def otel_flush(node: TorchNode, params, query, body):
+    """POST /_otel/flush: the span exporter decides every pending trace
+    fragment and drains to its sink; the response carries the exporter's
+    ledger and the device-memory residency snapshot."""
+    from opensearch_tpu_torch.telemetry import device_ledger
+
+    exporter = node.telemetry.tracer.exporter
+    if exporter is not None:
+        exporter.flush()
+    return 200, {
+        "_nodes": {"total": 1, "successful": 1, "failed": 0},
+        "cluster_name": "opensearch-tpu",
+        "nodes": {"node-0": {
+            "name": node.node_name,
+            "flushed": exporter is not None,
+            "exporter": (exporter.snapshot_stats()
+                         if exporter is not None else None),
+            "device": device_ledger.stats_section(),
+        }},
+    }
+
+
+# -- workload management ---------------------------------------------------------
+
+
+def put_query_group(node: TorchNode, params, query, body):
+    return 200, node.query_groups.put(body or {})
+
+
+def get_query_groups(node: TorchNode, params, query, body):
+    return 200, node.query_groups.get()
+
+
+def get_query_group(node: TorchNode, params, query, body):
+    return 200, node.query_groups.get(params["name"])
+
+
+def delete_query_group(node: TorchNode, params, query, body):
+    return 200, node.query_groups.delete(params["name"])
+
+
+def wlm_stats(node: TorchNode, params, query, body):
+    return 200, {"query_groups": node.query_groups.stats()}
+
+
+def wlm_stats_list(node: TorchNode, params, query, body):
+    """GET /_list/wlm_stats (the workload-management plugin's paginated
+    list): a text table of per-(node, workload group) lifetime counters."""
+    if query.get("size") is not None:
+        try:
+            size = int(query["size"])
+        except ValueError:
+            size = -1
+        if not 1 <= size <= 100:
+            raise IllegalArgumentException(
+                "Invalid value for 'size'. Allowed range: 1 to 100")
+    else:
+        size = 10
+    sort = str(query.get("sort", "node_id"))
+    if sort not in ("node_id", "workload_group"):
+        raise IllegalArgumentException(
+            "Invalid value for 'sort'. Allowed: 'node_id', 'workload_group'")
+    order = str(query.get("order", "asc"))
+    if order not in ("asc", "desc"):
+        raise IllegalArgumentException(
+            "Invalid value for 'order'. Allowed: 'asc', 'desc'")
+    if query.get("next_token"):
+        # the single-node list never hands out a token, so any presented
+        # token is from a previous pagination epoch
+        return 400, {
+            "error": "Pagination state has changed (e.g., new workload "
+                     "groups added or removed). Please restart pagination "
+                     "from the beginning by omitting the 'next_token' "
+                     "parameter.",
+            "status": 400,
+        }
+    rows = [
+        {"NODE_ID": "node-0",
+         "WORKLOAD_GROUP_ID": gid,
+         "TOTAL_COMPLETIONS": t["total_completions"],
+         "TOTAL_REJECTIONS": t["total_rejections"],
+         "TOTAL_CANCELLATIONS": t["total_cancellations"]}
+        for gid, t in node.query_groups.totals().items()
+    ]
+    key = "NODE_ID" if sort == "node_id" else "WORKLOAD_GROUP_ID"
+    rows.sort(key=lambda r: str(r[key]), reverse=(order == "desc"))
+    return 200, _cat_format(query, rows[:size])
+
+
+def _cat_format(query, rows: list[dict], cols: list[str] | None = None,
+                aliases: dict[str, str] | None = None,
+                help_cols: list[str] | None = None) -> Any:
+    """Render a _cat table (rest/action/cat/ RestTable): `help` lists the
+    columns (help_cols may include hidden non-default ones), `h`
+    selects/orders them (accepting per-API column aliases), `s` sorts
+    rows, `v` adds headers."""
+    cols = cols or (list(rows[0].keys()) if rows else [])
+    if str(query.get("help", "false")) in ("true", ""):
+        return "".join(f"{c} | | \n" for c in (help_cols or cols))
+    if query.get("format") == "json":
+        return rows
+    def _listy(v):
+        return [str(x) for x in v] if isinstance(v, list) \
+            else [x.strip() for x in str(v).split(",")]
+
+    if query.get("s"):
+        for key in reversed(_listy(query["s"])):
+            key, _, order = key.partition(":")
+            key = (aliases or {}).get(key, key)
+            rows = sorted(rows, key=lambda r: str(r.get(key, "")),
+                          reverse=(order == "desc"))
+    disp = None
+    if query.get("h"):
+        # wildcard selections expand against EVERY available column (row
+        # keys), not just the default display set; headers echo the
+        # REQUESTED name (aliases stay aliases in the header row)
+        universe = list(rows[0].keys()) if rows else cols
+        sel = []
+        disp = []
+        for raw in _listy(query["h"]):
+            c = (aliases or {}).get(raw, raw)
+            if "*" in c:
+                import fnmatch as _fnm
+
+                for u in universe:
+                    if _fnm.fnmatch(u, c):
+                        sel.append(u)
+                        disp.append(u)
+            elif c:
+                sel.append(c)
+                disp.append(raw)
+        cols = sel
+    show_header = str(query.get("v", "false")) in ("true", "")
+    if not rows and not show_header:
+        return ""
+    disp = disp or cols
+    widths = {
+        c: max(len(str(d)) if show_header else 0,
+               *(len(str(r.get(c, ""))) for r in rows), 0)
+        for c, d in zip(cols, disp)
+    }
+
+    import re as _re
+
+    def _numeric_cell(v) -> bool:
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            return True
+        # byte-size / percent strings right-justify like numbers
+        return bool(_re.fullmatch(r"-?\d+(\.\d+)?([kmgtp]?b|%)?", str(v)))
+
+    def render(values, header=False):
+        # every cell pads to column width EXCEPT the last (RestTable emits
+        # no trailing pad after the final cell); numbers right-justify
+        cells = []
+        for c, v in zip(cols, values):
+            cells.append(str(v).rjust(widths[c])
+                         if _numeric_cell(v) and not header
+                         else str(v).ljust(widths[c]))
+        if cells and (header or not _numeric_cell(values[-1])):
+            cells[-1] = str(values[-1])
+        return " ".join(cells)
+
+    lines = []
+    if show_header:
+        lines.append(render(disp, header=True))
+    for r in rows:
+        lines.append(render([r.get(c, "") for c in cols]))
+    return "\n".join(lines) + "\n"
+
+
 # every (method, path) of the reference's router that the port does not
 # serve yet: each answers "not yet ported" (a 500), never a 404 or 405
 UNPORTED_ROUTES = (
@@ -1081,22 +1568,6 @@ UNPORTED_ROUTES = (
     ("POST", "/_mtermvectors"),
     ("GET", "/{index}/_mtermvectors"),
     ("POST", "/{index}/_mtermvectors"),
-    ("GET", "/_search/scroll"),
-    ("POST", "/_search/scroll"),
-    ("GET", "/_search/scroll/{scroll_id}"),
-    ("POST", "/_search/scroll/{scroll_id}"),
-    ("DELETE", "/_search/scroll"),
-    ("DELETE", "/_search/scroll/{scroll_id}"),
-    ("POST", "/{index}/_search/point_in_time"),
-    ("DELETE", "/_search/point_in_time"),
-    ("DELETE", "/_search/point_in_time/_all"),
-    ("GET", "/_search/point_in_time/_all"),
-    ("POST", "/{index}/_flush"),
-    ("POST", "/_flush"),
-    ("POST", "/{index}/_forcemerge"),
-    ("POST", "/_forcemerge"),
-    ("POST", "/{index}/_cache/clear"),
-    ("POST", "/_cache/clear"),
     ("PUT", "/_ingest/pipeline/{id}"),
     ("GET", "/_ingest/pipeline"),
     ("GET", "/_ingest/pipeline/{id}"),
@@ -1105,24 +1576,6 @@ UNPORTED_ROUTES = (
     ("GET", "/_ingest/pipeline/{id}/_simulate"),
     ("POST", "/_ingest/pipeline/_simulate"),
     ("GET", "/_ingest/pipeline/_simulate"),
-    ("POST", "/_aliases"),
-    ("PUT", "/{index}/_alias/{name}"),
-    ("POST", "/{index}/_alias/{name}"),
-    ("PUT", "/{index}/_alias"),
-    ("POST", "/{index}/_alias"),
-    ("PUT", "/_alias/{name}"),
-    ("POST", "/_alias/{name}"),
-    ("PUT", "/_alias"),
-    ("POST", "/_alias"),
-    ("PUT", "/{index}/_aliases/{name}"),
-    ("DELETE", "/{index}/_alias/{name}"),
-    ("DELETE", "/{index}/_aliases/{name}"),
-    ("GET", "/_alias"),
-    ("GET", "/_alias/{name}"),
-    ("GET", "/{index}/_alias"),
-    ("GET", "/{index}/_alias/{name}"),
-    ("HEAD", "/_alias/{name}"),
-    ("HEAD", "/{index}/_alias/{name}"),
     ("PUT", "/_template/{name}"),
     ("POST", "/_template/{name}"),
     ("GET", "/_template"),
@@ -1184,13 +1637,6 @@ UNPORTED_ROUTES = (
     ("POST", "/{index}/_update_by_query"),
     ("POST", "/{index}/_delete_by_query"),
     ("GET", "/_prometheus/metrics"),
-    ("POST", "/_otel/flush"),
-    ("GET", "/_tasks"),
-    ("GET", "/_tasks/{task_id}"),
-    ("POST", "/_tasks/_cancel"),
-    ("POST", "/_tasks/{task_id}/_cancel"),
-    ("GET", "/_cluster/settings"),
-    ("PUT", "/_cluster/settings"),
     ("GET", "/_cluster/stats"),
     ("GET", "/_stats"),
     ("GET", "/_stats/{metric}"),
@@ -1217,12 +1663,6 @@ UNPORTED_ROUTES = (
     ("POST", "/_remotestore/_restore"),
     ("POST", "/{index}/_remotestore/_sync"),
     ("GET", "/_remotestore/stats/{index}"),
-    ("PUT", "/_wlm/query_group"),
-    ("GET", "/_wlm/query_group"),
-    ("GET", "/_wlm/query_group/{name}"),
-    ("DELETE", "/_wlm/query_group/{name}"),
-    ("GET", "/_wlm/stats"),
-    ("GET", "/_list/wlm_stats"),
     ("GET", "/_nodes"),
     ("GET", "/_nodes/stats"),
     ("GET", "/_nodes/{node_id}/stats"),

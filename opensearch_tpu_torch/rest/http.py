@@ -14,8 +14,10 @@ search pool split by priority lane (search/lanes.py), so concurrent HTTP
 searches reach the stacked serving step and the kNN dispatch batcher
 together; the lane rides a contextvar into the batcher. Each request is one
 ``http_request`` span on the node's tracer (node.telemetry), under which
-a handler's spans parent. The reference's circuit breakers are read off
-the node and are absent until breakers are ported.
+a handler's spans parent. Each request's body bytes are charged to the
+node's in-flight request breaker (``node.breakers``, common/breaker.py)
+before it is dispatched, and released once on every way out: a response,
+the bounded background lane's 429, an error, or an exception.
 
 Run (on the card; ``--device cpu`` runs it on the CPU)::
 
@@ -256,72 +258,20 @@ class HttpServer:
         try:
             handler, params = self.router.resolve(method, path)
             body = _parse_body(path, raw_body)
-            # in-flight request bytes against the node's breakers, where it
-            # has them
-            breakers = getattr(self.node, "breakers", None)
-            if breakers is not None and raw_body:
+            # in-flight request bytes against the breaker (the reference's
+            # in_flight_requests child tracks transport payload bytes); a
+            # trip raises CircuitBreakingException (429) with nothing held
+            breakers = self.node.breakers
+            charged = len(raw_body)
+            if charged:
                 breakers.in_flight_requests.add_estimate_and_maybe_break(
-                    len(raw_body), "<http_request>"
-                )
-            telemetry = self.node.telemetry
-            metrics = telemetry.metrics
-            lane_cfg = lanes_mod.default_config
-            lane = (lanes_mod.classify_rest(path, query)
-                    if lane_cfg.enabled else lanes_mod.INTERACTIVE)
-            # the lane reaches handlers through the lane_scope contextvar
-            # below, never the query dict (strict handlers reject unknown
-            # parameters)
-            tracked = False
-            if path.startswith("/_tasks"):
-                executor = self._mgmt_executor
-            elif self._is_parallel_search(path, query):
-                tracked = True
-                if lane_cfg.enabled and lane == lanes_mod.BACKGROUND:
-                    executor = self._background_executor
-                    if not self.lane_tracker.try_submit(
-                            lane, lane_cfg.background_max_queue):
-                        # bounded background lane: shed, never queue
-                        # without bound
-                        lanes_mod.record_lane_shed(metrics, lane)
-                        if breakers is not None and raw_body:
-                            breakers.in_flight_requests.release(len(raw_body))
-                        return 429, {
-                            "error": {
-                                "type": "rejected_execution_exception",
-                                "reason": "background lane queue is full",
-                            },
-                            "status": 429,
-                        }, "application/json"
-                else:
-                    executor = self._search_executor
-                    self.lane_tracker.try_submit(lane)
-                lanes_mod.record_lane_metrics(
-                    metrics, lane, self.lane_tracker.depth(lane))
-            else:
-                executor = self._executor
-            span_cm = telemetry.tracer.start_span(
-                "http_request", {"method": method, "path": path,
-                                 "lane": lane})
+                    charged, "<http_request>")
             try:
-                with span_cm as span:
-                    # handlers are synchronous work; run them off the event
-                    # loop so slow searches don't stall socket IO. The
-                    # contextvars context is copied into the worker thread,
-                    # so handler spans parent under this span and the lane
-                    # scope rides it into the dispatch batcher.
-                    def run_handler():
-                        with lanes_mod.lane_scope(lane):
-                            return handler(self.node, params, query, body)
-
-                    ctx = contextvars.copy_context()
-                    status, payload = await asyncio.get_running_loop(
-                    ).run_in_executor(executor, ctx.run, run_handler)
-                    span.set_attribute("status", status)
+                status, payload = await self._run_handler(
+                    handler, params, method, path, query, body)
             finally:
-                if tracked:
-                    self.lane_tracker.complete(lane)
-                if breakers is not None and raw_body:
-                    breakers.in_flight_requests.release(len(raw_body))
+                if charged:
+                    breakers.in_flight_requests.release(charged)
             if "filter_path" in query and status < 400:
                 payload = apply_filter_path(payload, query["filter_path"])
             content_type = (
@@ -342,6 +292,69 @@ class HttpServer:
                 "error": {"type": "exception", "reason": str(e)},
                 "status": 500,
             }, "application/json"
+
+    async def _run_handler(self, handler, params, method: str, path: str,
+                           query: dict, body) -> tuple[int, Any]:
+        """Pick the executor (the management worker for `_tasks`, the
+        search pool of the request's priority lane, or the serial data
+        worker) and run the handler there under an ``http_request`` span.
+        The bounded background lane sheds with a 429 instead of queueing."""
+        telemetry = self.node.telemetry
+        metrics = telemetry.metrics
+        lane_cfg = lanes_mod.default_config
+        lane = (lanes_mod.classify_rest(path, query)
+                if lane_cfg.enabled else lanes_mod.INTERACTIVE)
+        # the lane reaches handlers through the lane_scope contextvar
+        # below, never the query dict (strict handlers reject unknown
+        # parameters)
+        tracked = False
+        if path.startswith("/_tasks"):
+            executor = self._mgmt_executor
+        elif self._is_parallel_search(path, query):
+            if lane_cfg.enabled and lane == lanes_mod.BACKGROUND:
+                executor = self._background_executor
+                if not self.lane_tracker.try_submit(
+                        lane, lane_cfg.background_max_queue):
+                    # bounded background lane: shed, never queue without
+                    # bound
+                    lanes_mod.record_lane_shed(metrics, lane)
+                    return 429, {
+                        "error": {
+                            "type": "rejected_execution_exception",
+                            "reason": "background lane queue is full",
+                        },
+                        "status": 429,
+                    }
+            else:
+                executor = self._search_executor
+                self.lane_tracker.try_submit(lane)
+            tracked = True
+        else:
+            executor = self._executor
+        try:
+            if tracked:
+                lanes_mod.record_lane_metrics(
+                    metrics, lane, self.lane_tracker.depth(lane))
+            with telemetry.tracer.start_span(
+                    "http_request", {"method": method, "path": path,
+                                     "lane": lane}) as span:
+                # handlers are synchronous work; run them off the event
+                # loop so slow searches don't stall socket IO. The
+                # contextvars context is copied into the worker thread, so
+                # handler spans parent under this span and the lane scope
+                # rides it into the dispatch batcher.
+                def run_handler():
+                    with lanes_mod.lane_scope(lane):
+                        return handler(self.node, params, query, body)
+
+                ctx = contextvars.copy_context()
+                status, payload = await asyncio.get_running_loop(
+                ).run_in_executor(executor, ctx.run, run_handler)
+                span.set_attribute("status", status)
+        finally:
+            if tracked:
+                self.lane_tracker.complete(lane)
+        return status, payload
 
     async def _write_response(
         self, writer, status: int, payload: Any, content_type: str,

@@ -90,6 +90,12 @@ SCORE_PRECISION_SETTING: Setting[str] = Setting(
     validator=_validate_score_precision,
 )
 
+# the keys `PUT /_cluster/settings` validates and applies
+# (cluster/cluster_settings.py; AnnServingConfig.apply_settings)
+ANN_SETTINGS = (ADC_PRECISION_SETTING, RESCORE_MULTIPLIER_SETTING,
+                KERNEL_SETTING, EXACT_KERNEL_SETTING,
+                SCORE_PRECISION_SETTING)
+
 
 def resolve_kernel(policy: str) -> str:
     """The EFFECTIVE scan for this dispatch, on either path: "pallas" or
@@ -140,6 +146,20 @@ class AnnServingConfig:
         if score_precision is not None:
             _validate_score_precision(score_precision)
             self.score_precision = score_precision
+
+    def apply_settings(self, flat: dict) -> None:
+        """Pick this config's keys out of a flat effective-settings map
+        (the cluster-settings update consumer; absent keys -> defaults)."""
+        s = Settings.from_flat({
+            st.key: flat[st.key] for st in ANN_SETTINGS if st.key in flat
+        })
+        self.configure(
+            adc_precision=ADC_PRECISION_SETTING.get(s),
+            rescore_multiplier=RESCORE_MULTIPLIER_SETTING.get(s),
+            kernel=KERNEL_SETTING.get(s),
+            exact_kernel=EXACT_KERNEL_SETTING.get(s),
+            score_precision=SCORE_PRECISION_SETTING.get(s),
+        )
 
     def snapshot(self) -> dict:
         from opensearch_tpu_torch.index.device import ann_build_stats

@@ -44,11 +44,12 @@ entry for its kernel ``family`` in the device-residency ledger's compile
 table, and each launch records ``knn.batch.size``,
 ``knn.batch.queue_wait_ms`` and the dispatch counters into the EXECUTING
 node's metrics (``tracing.active_metrics``), else the attached
-``metrics`` sink. Left out until the settings path is ported:
-``apply_settings``, and the cross-shard counters (no mesh-wide launch
-dispatches through the batcher yet).
+``metrics`` sink. Left out: the cross-shard counters (no mesh-wide
+launch dispatches through the batcher yet).
 
-Settings (the defaults of ``configure``):
+Settings (``BATCH_SETTINGS``; ``PUT /_cluster/settings`` reaches them
+through :meth:`KnnDispatchBatcher.apply_settings`, absent keys the
+defaults):
   search.knn.batch.max_wait_ms     flush deadline ceiling (default 2ms)
   search.knn.batch.max_batch_size  flush size bound  (default 32)
   search.knn.batch.max_queue       pending-query bound (default 1024)
@@ -85,6 +86,11 @@ ENABLED_SETTING = Setting.bool_setting(
 AUTO_TUNE_SETTING = Setting.bool_setting(
     "search.knn.batch.auto_tune", True,
     Property.NODE_SCOPE, Property.DYNAMIC,
+)
+
+BATCH_SETTINGS = (
+    MAX_WAIT_MS_SETTING, MAX_BATCH_SIZE_SETTING, MAX_QUEUE_SETTING,
+    ENABLED_SETTING, AUTO_TUNE_SETTING,
 )
 
 # EWMA of merged batch sizes at/below this -> no recent concurrency ->
@@ -289,6 +295,20 @@ class KnnDispatchBatcher:
             self.pressure.set_limit(max_queue)
         with self._cond:
             self._cond.notify_all()
+
+    def apply_settings(self, flat: dict) -> None:
+        """Pick this batcher's keys out of a flat effective-settings map
+        (the cluster-settings update consumer; absent keys -> defaults)."""
+        s = Settings.from_flat({
+            st.key: flat[st.key] for st in BATCH_SETTINGS if st.key in flat
+        })
+        self.configure(
+            max_wait_ms=MAX_WAIT_MS_SETTING.get(s),
+            max_batch_size=MAX_BATCH_SIZE_SETTING.get(s),
+            max_queue=MAX_QUEUE_SETTING.get(s),
+            enabled=ENABLED_SETTING.get(s),
+            auto_tune=AUTO_TUNE_SETTING.get(s),
+        )
 
     def snapshot_stats(self) -> dict:
         with self._cond:

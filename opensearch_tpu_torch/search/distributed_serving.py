@@ -25,8 +25,11 @@ route's own SegmentExecutor (:func:`_filter_valid_mask`), laid out like
 the bundle's slabs, and ANDed into ``valid``, so K1 scans the narrower
 set; a filtered query serves ANN-indexed columns exactly, as the
 per-shard route does under a filter; ``stats["filtered"]`` counts such
-launches. A batch's queries share their filter by identity. Aliases are
-not ported (``TorchNode`` has none), so a filtered alias raises.
+launches. A batch's queries share their filter by identity. A filtered
+alias gives each shard its own filter (``alias_filters``, one parsed node
+or None a shard): the mask ANDs each shard's alias filter with the kNN
+filter, so a kNN through a filtered alias is one K1 launch, counted in
+``stats["filtered"]`` like a body filter.
 
 Telemetry, as in the reference: a bundle's slabs are one
 device-residency-ledger allocation (freed by the shard-mesh registry on
@@ -52,7 +55,6 @@ from opensearch_tpu_torch.parallel.distributed import build_knn_serving_step
 from opensearch_tpu_torch.search.executor import (
     ShardHit,
     ShardQueryResult,
-    not_yet_ported,
 )
 
 # observability: tests and chip_smoke.py assert the serving path ran.
@@ -233,13 +235,14 @@ def _build_bundle(snaps: list, field: str, dims: int, device: torch.device,
     return bundle
 
 
-def _filter_valid_mask(shards: list, snaps: list, knn_filter, n_flat: int,
+def _filter_valid_mask(shards: list, snaps: list, knn_filter,
+                       alias_filters: list | None, n_flat: int,
                        device: torch.device) -> torch.Tensor:
-    """[S, n_flat] bool on the device: the docs the kNN filter admits, laid
-    out like the bundle's slabs (segment-ascending, doc-ascending, padding
-    False). Each segment's mask comes from the SegmentExecutor the
-    per-shard route runs for the same filter, so both routes filter
-    alike."""
+    """[S, n_flat] bool on the device: the docs the kNN filter and each
+    shard's alias filter admit, laid out like the bundle's slabs
+    (segment-ascending, doc-ascending, padding False). Each segment's mask
+    comes from the SegmentExecutor the per-shard route runs for the same
+    filter, so both routes filter alike."""
     from opensearch_tpu_torch.search.executor import (
         SegmentExecutor,
         ShardContext,
@@ -247,12 +250,18 @@ def _filter_valid_mask(shards: list, snaps: list, knn_filter, n_flat: int,
 
     out = torch.zeros((len(snaps), n_flat), dtype=torch.bool, device=device)
     for si, (shard, snap) in enumerate(zip(shards, snaps)):
+        fnodes = [f for f in (knn_filter,
+                              alias_filters[si] if alias_filters else None)
+                  if f is not None]
         ctx = ShardContext(snap, shard.mapper_service)
         pos = 0
         for host, dev in snap.segments:
             n = host.n_docs
-            mask = SegmentExecutor(ctx, host, dev).execute(knn_filter).mask
-            out[si, pos:pos + n] = mask[:n].to(device)
+            mask = torch.ones(n, dtype=torch.bool, device=device)
+            for fnode in fnodes:
+                mask &= SegmentExecutor(ctx, host, dev).execute(
+                    fnode).mask[:n].to(device)
+            out[si, pos:pos + n] = mask
             pos += n
     return out
 
@@ -275,10 +284,10 @@ def mesh_knn_batch(
     alias_filters: list | None = None,
 ) -> MeshLaunchOutcome | None:
     """Execute B KnnQuery nodes (same field, k and filter object) in ONE
-    device launch. Returns the per-query per-shard results, the
+    device launch, each shard narrowed by its alias filter
+    (`alias_filters`). Returns the per-query per-shard results, the
     device-merged row order and the launch attribution; None when the step
-    declines the shard set (see :func:`_can_serve`). Raises for what is
-    not yet ported."""
+    declines the shard set (see :func:`_can_serve`)."""
     if not shards or len(shards) != len(snaps) or not nodes:
         raise ValueError("mesh_knn_batch needs shards, their snapshots and "
                          "at least one query")
@@ -290,9 +299,9 @@ def mesh_knn_batch(
         if (node.field != first.field or int(node.k) != int(first.k)
                 or node.filter is not first.filter):
             raise ValueError("a batch must share its field, k and filter")
-    if alias_filters is not None and any(f is not None for f in alias_filters):
-        raise not_yet_ported("kNN through a filtered alias")
-    filtered = first.filter is not None
+    filtered = first.filter is not None or (
+        alias_filters is not None
+        and any(f is not None for f in alias_filters))
     served = _can_serve(snaps, first.field, filtered=filtered)
     if served is None:
         _count("fallbacks")
@@ -326,7 +335,7 @@ def mesh_knn_batch(
     valid = bundle.valid
     if filtered:
         fmask = _filter_valid_mask(shards, snaps, first.filter,
-                                   bundle.n_flat, device)
+                                   alias_filters, bundle.n_flat, device)
         # per-request mask, consumed by this launch: transient in the
         # residency ledger (allocated and freed in one step)
         default_ledger.record_transient(KIND_QUERY_BATCH,

@@ -4,9 +4,8 @@ Counterpart of opensearch_tpu/search/service.py: any parsed query
 (search/executor.py), ``slice`` (a murmur3 partition of ``_id`` ANDed
 into the query as a filter), aggregations (``aggs`` /
 ``aggregations``, below), ``suggest`` (search/suggest.py, host term
-dictionaries), ``sort`` (with
-``_score`` and ``_doc``; ``_shard_doc`` needs a point in time, which the
-node does not keep yet) and ``search_after``,
+dictionaries), ``sort`` (with ``_score``, ``_doc`` and, over a point in
+time, ``_shard_doc``: :func:`pack_shard_doc`) and ``search_after``,
 ``track_total_hits``, ``min_score``, ``indices_boost``,
 ``pre_filter_shard_size`` with ``can_match``, ``rescore``, ``collapse``,
 named queries (``matched_queries``, ``include_named_queries_score``),
@@ -14,6 +13,16 @@ named queries (``matched_queries``, ``include_named_queries_score``),
 bodies (:func:`msearch_groups`, :func:`try_batched_knn_msearch`: B
 bodies' query phase in one stacked launch, handed to :func:`search` as
 ``precomputed_results``).
+
+A search context hands its pinned snapshots in as ``acquired`` (a scroll's
+pages and a point in time read one immutable view whatever refreshes come
+after). A filtered alias hands each shard its filter in
+``shard_filters``: each distinct filter body is parsed once (keyed by
+``id``) and ANDed into its shard's query, on the stacked step as a part
+of K1's ``valid`` mask (distributed_serving's ``alias_filters``). A
+``task`` (tasks/manager.py) is checked for cancellation before each
+launch: before the stacked step's, and before each shard's on the
+per-shard route; never between a launch and its readback.
 
 A ``hybrid`` query is the reference's hybrid query phase: each
 sub-query's query phase runs apart a shard (``execute_query_phase``, the
@@ -109,6 +118,17 @@ KNOWN_KEYS = {
 }
 
 
+def pack_shard_doc(shard_idx: int, segment: int, doc: int) -> int:
+    """_shard_doc PIT tiebreak value: (shard, segment, doc) packed into one
+    orderable int that round-trips through search_after cursors.
+
+    Bit layout 13/13/27 (shard/segment/doc): doc must clear 2^21 docs a
+    segment, and the total must stay under 2^53 so float64 JSON clients
+    echo the cursor exactly.
+    """
+    return (shard_idx << 40) | (segment << 27) | doc
+
+
 def _sort_has_score(sort) -> bool:
     return any(
         (spec if isinstance(spec, str) else next(iter(spec), None))
@@ -117,8 +137,15 @@ def _sort_has_score(sort) -> bool:
 
 def search(shards: list, body: dict | None,
            precomputed_results: list | None = None,
-           phase_results_config: dict | None = None) -> dict[str, Any]:
+           phase_results_config: dict | None = None,
+           acquired: list | None = None,
+           shard_filters: list | None = None,
+           task=None) -> dict[str, Any]:
     """Run one search over `shards` (IndexShard objects).
+    `acquired` pins the searcher snapshots to use, one a shard in order
+    (the scroll and point-in-time path). `shard_filters`, one alias filter
+    body or None a shard, restricts each shard to its alias's docs.
+    `task` is checked for cancellation before each launch.
     `precomputed_results`, one (shard, snapshot, ShardQueryResult) a shard
     in order, is this body's query phase already run by a batched msearch
     launch (:func:`try_batched_knn_msearch`): the search merges and fetches
@@ -162,6 +189,23 @@ def search(shards: list, body: dict | None,
     track_total = body.get("track_total_hits", True)
     want_profile = bool(body.get("profile"))
     fetch_k = from_ + size
+    # per-shard alias filters (the aliasFilter of ShardSearchRequest):
+    # parse each distinct filter body once, AND it into that shard's query
+    filter_nodes: list = [None] * len(shards)
+    if shard_filters:
+        parsed: dict[int, Any] = {}
+        for i, f in enumerate(shard_filters[: len(shards)]):
+            if f is not None:
+                if id(f) not in parsed:
+                    parsed[id(f)] = query_dsl.parse_query(f)
+                filter_nodes[i] = parsed[id(f)]
+
+    def shard_node(base, shard_i: int):
+        f = filter_nodes[shard_i]
+        if f is None:
+            return base
+        return query_dsl.BoolQuery(must=[base], filter=[f])
+
     if body.get("rescore") is not None:
         # the query phase must collect the whole rescore window
         stages = body["rescore"]
@@ -178,14 +222,16 @@ def search(shards: list, body: dict | None,
         per_shard_results = _hybrid_query_phase(
             shards, node, fetch_k, min_score, aggs_body, sort, search_after,
             phase_results_config, want_profile, shard_profilers,
-            shard_query_ns)
+            shard_query_ns, acquired, shard_node, task)
     elif precomputed_results is not None:
         per_shard_results = precomputed_results
     else:
-        snaps = [s.acquire_searcher() for s in shards]
+        snaps = (list(acquired) if acquired is not None
+                 else [s.acquire_searcher() for s in shards])
         out = _try_distributed_query_phase(
             shards, snaps, node, fetch_k, min_score, sort=sort,
-            search_after=search_after, aggs_body=aggs_body)
+            search_after=search_after, aggs_body=aggs_body,
+            filter_nodes=filter_nodes, task=task)
         if out is not None:
             premerged = out.premerged[0]
             per_shard_results = list(zip(shards, snaps, out.per_query[0]))
@@ -205,14 +251,19 @@ def search(shards: list, body: dict | None,
                     shard_query_ns.append(out.wall_ns // max(out.shards, 1))
         else:
             per_shard_results = []
-            for shard, snap in zip(shards, snaps):
+            for shard_i, (shard, snap) in enumerate(zip(shards, snaps)):
+                # cooperative cancellation at the phase boundary, before
+                # this shard's launches
+                if task is not None:
+                    task.ensure_not_cancelled()
                 prof = (search_profile.ShardProfiler()
                         if want_profile else None)
                 # can_match (CanMatchPreFilterSearchPhase): skip a shard
                 # whose segment min / max PROVE no doc matches; it is this
                 # engine's rewrite step
                 t_rw = time.perf_counter_ns()
-                matched = phases.can_match(snap, shard.mapper_service, node)
+                matched = phases.can_match(snap, shard.mapper_service,
+                                           shard_node(node, shard_i))
                 if prof is not None:
                     prof.rewrite_ns += time.perf_counter_ns() - t_rw
                 if not matched:
@@ -234,7 +285,7 @@ def search(shards: list, body: dict | None,
                 t_q = time.perf_counter_ns()
                 with search_profile.profiling(prof):
                     result = execute_query_phase(
-                        snap, shard.mapper_service, node,
+                        snap, shard.mapper_service, shard_node(node, shard_i),
                         # a search_after cursor can reach arbitrarily deep
                         # into a shard: every matching doc of the shard
                         size=(snap.max_doc if search_after is not None
@@ -273,6 +324,16 @@ def search(shards: list, body: dict | None,
                 max_score is None or result.max_score > max_score):
             max_score = result.max_score
         merged.extend((shard_idx, h) for h in result.hits)
+    # _shard_doc: the global PIT tiebreak value (shard, segment, doc)
+    # packed into one int so cursors round-trip through search_after
+    for i, spec in enumerate(sort or []):
+        fname = spec if isinstance(spec, str) else next(iter(spec), None)
+        if fname != "_shard_doc":
+            continue
+        for shard_idx, h in merged:
+            while len(h.sort_values) <= i:
+                h.sort_values.append(None)
+            h.sort_values[i] = pack_shard_doc(shard_idx, h.segment, h.doc)
     if sort:
         key_fn = _sort_key_fn(sort)
         merged.sort(key=lambda sh: key_fn(sh[1]))
@@ -359,7 +420,8 @@ def _hybrid_query_phase(shards: list, node, fetch_k: int,
                         min_score, aggs_body, sort, search_after,
                         phase_results_config: dict | None,
                         want_profile: bool, shard_profilers: list,
-                        shard_query_ns: list) -> list:
+                        shard_query_ns: list, acquired: list | None,
+                        shard_node, task) -> list:
     """The hybrid query phase (reference search/service.py): one
     execute_query_phase a sub-query a shard on the per-shard route, then
     the scores fused over every shard by the pipeline's phase-results
@@ -371,14 +433,18 @@ def _hybrid_query_phase(shards: list, node, fetch_k: int,
             "[search_after] is not supported with [hybrid] query")
     shard_snaps = []
     per_shard_subs = []
-    for shard in shards:
-        snapshot = shard.acquire_searcher()
+    for shard_i, shard in enumerate(shards):
+        if task is not None:
+            task.ensure_not_cancelled()
+        snapshot = (acquired[shard_i] if acquired is not None
+                    else shard.acquire_searcher())
         prof = search_profile.ShardProfiler() if want_profile else None
         t_q = time.perf_counter_ns()
         with search_profile.profiling(prof):
             per_shard_subs.append([
                 execute_query_phase(
-                    snapshot, shard.mapper_service, sub, size=fetch_k,
+                    snapshot, shard.mapper_service, shard_node(sub, shard_i),
+                    size=fetch_k,
                     need_masks=aggs_body is not None,
                     min_score=(float(min_score) if min_score is not None
                                else None))
@@ -979,7 +1045,9 @@ def _count_buckets(aggs: dict) -> int:
 
 def _try_distributed_query_phase(shards: list, snaps: list, node,
                                  fetch_k: int, min_score=None, sort=None,
-                                 search_after=None, aggs_body=None):
+                                 search_after=None, aggs_body=None,
+                                 filter_nodes: list | None = None,
+                                 task=None):
     """The stacked serving step's launch outcome for this query, or None
     when the per-shard route must answer it: a query other than a bare
     ``knn``, no shards, a ``min_score``, ``sort``, ``search_after`` or
@@ -987,12 +1055,18 @@ def _try_distributed_query_phase(shards: list, snaps: list, node,
     step declines them too), the step switched off
     (``distributed_serving.enabled``), or the step declining the shard
     set (``distributed_serving._can_serve``: among others, an unfiltered
-    query on an ANN-indexed column)."""
+    query on an ANN-indexed column). `filter_nodes`, one parsed alias
+    filter or None a shard, narrow the launch's ``valid`` mask; `task` is
+    checked for cancellation before the launch."""
     if (not isinstance(node, query_dsl.KnnQuery) or not shards
             or min_score is not None or sort or search_after is not None
             or aggs_body is not None or not distributed_serving.enabled):
         return None
-    return distributed_serving.mesh_knn_batch(shards, snaps, [node], fetch_k)
+    # the same cooperative cancellation point the per-shard loop honours
+    if task is not None:
+        task.ensure_not_cancelled()
+    return distributed_serving.mesh_knn_batch(
+        shards, snaps, [node], fetch_k, alias_filters=filter_nodes)
 
 
 # the request keys a bare kNN msearch body may carry and still share a

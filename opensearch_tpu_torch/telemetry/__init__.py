@@ -1,8 +1,9 @@
 """Telemetry of the PyTorch port: tracing spans, metrics, the slow logs,
 the device-residency ledger and the kernel roofline.
 
-Counterpart of opensearch_tpu/telemetry/. The span exporters
-(telemetry/export.py: OTLP, Prometheus) are not ported yet.
+Counterpart of opensearch_tpu/telemetry/. Span export
+(telemetry/export.py: the tail-keeping sampler and the OTLP-JSON file
+sink) is ported; the Prometheus exposition is not yet.
 """
 
 from opensearch_tpu_torch.telemetry.tracing import (

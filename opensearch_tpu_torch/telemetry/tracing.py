@@ -8,7 +8,9 @@ MetricsRegistry SPI):
   contextvars, so child spans parent automatically across the executor
   boundaries the HTTP server uses.
 - Spans collect into a bounded in-memory ring; tests and stats surfaces
-  read the ring (the span exporters are not ported yet).
+  read the ring, and an attached exporter (telemetry/export.py, set by
+  the ``telemetry.tracing.*`` cluster settings) is offered every finished
+  span.
 - MetricsRegistry: counters + histograms with label support and
   exemplars.
 - `current_trace_context()` serializes the active (trace_id, span_id) pair

@@ -10,8 +10,8 @@ the reference's. The wiring runs on the port alone: every column, IVF-PQ
 slab and stacked serving bundle registers with bytes equal to its
 tensors' numel * element_size and frees when it retires; the mesh
 registry's byte budget frees ledger allocations; searches heat what they
-read; ``"profile": true`` returns the residency rows; the heat settings
-apply through ``TorchNode.apply_dynamic_settings``.
+read; ``"profile": true`` returns the residency rows; the mesh budget and
+the heat settings apply through ``TorchNode.put_cluster_settings``.
 """
 
 from __future__ import annotations
@@ -520,8 +520,8 @@ def test_index_delete_and_budget_eviction_clear_mesh_heat(node):
                         if r["index"] == "he1")
     old_budget = port_registry.hbm_budget_bytes
     try:
-        node.apply_dynamic_settings({
-            "search.mesh.hbm_budget_bytes": int(bundle_bytes * 1.5)})
+        node.put_cluster_settings({"transient": {
+            "search.mesh.hbm_budget_bytes": int(bundle_bytes * 1.5)}})
         rng2 = _knn_index(node, "he2")
         _knn_search(node, "he2", rng2)
         assert not any(r["kind"] == "mesh_bundle"
@@ -546,20 +546,23 @@ def test_profile_rows_carry_residency_and_heat(node):
 
 
 def test_heat_settings_apply_through_the_node(node):
-    from opensearch_tpu_torch.common.settings import SettingsException
+    from opensearch_tpu_torch.common.errors import IllegalArgumentException
 
     rng = _knn_index(node, "hk")
     try:
-        node.apply_dynamic_settings({"telemetry.heat.enabled": "false"})
+        node.put_cluster_settings(
+            {"transient": {"telemetry.heat.enabled": "false"}})
         assert default_ledger.heat_config["enabled"] is False
         before = default_ledger.heat_counters["touches"]
         _knn_search(node, "hk", rng)
         assert default_ledger.heat_counters["touches"] == before
-        node.apply_dynamic_settings({"telemetry.heat.enabled": "true",
-                                     "telemetry.heat.ring": "128"})
+        node.put_cluster_settings({"transient": {
+            "telemetry.heat.enabled": "true", "telemetry.heat.ring": "128"}})
         assert default_ledger.heat_config == {"enabled": True, "ring": 128}
-        with pytest.raises((ValueError, SettingsException)):
-            node.apply_dynamic_settings({"telemetry.heat.ring": "2"})
+        # the reference's 400 for a value its validator rejects
+        with pytest.raises(IllegalArgumentException):
+            node.put_cluster_settings(
+                {"transient": {"telemetry.heat.ring": "2"}})
     finally:
         default_ledger.configure_heat(enabled=True, ring=4096)
 

@@ -40,6 +40,59 @@ def test_no_module_imports_jax_or_the_jax_package():
     assert "opensearch_tpu_torch" in _top_level_imports(PKG / "node.py")
 
 
+# the modules of the search-contexts slice, each at its reference path
+CONTEXT_MODULES = ("tasks/__init__.py", "tasks/manager.py",
+                   "search/backpressure.py", "common/breaker.py", "wlm.py",
+                   "index/request_cache.py", "telemetry/export.py",
+                   "cluster/cluster_settings.py", "cluster/residency.py",
+                   "common/randutil.py")
+
+
+@pytest.mark.parametrize("rel", CONTEXT_MODULES)
+def test_context_modules_stand_alone(rel):
+    """Each module of the search-contexts slice sits at its reference
+    path, imports nothing of jax or the JAX package, and its imports of
+    the port resolve (no module of the reference under a port name)."""
+    path = PKG / rel
+    assert path.exists() and (PKG.parent / "opensearch_tpu" / rel).exists()
+    assert not _top_level_imports(path) & FORBIDDEN
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level == 0 and \
+                node.module.startswith("opensearch_tpu_torch"):
+            rel_mod = node.module.replace(".", "/")
+            assert (PKG.parent / f"{rel_mod}.py").exists() or \
+                (PKG.parent / rel_mod / "__init__.py").exists(), node.module
+
+
+def test_context_modules_import_with_jax_unimportable(tmp_path):
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["opensearch_tpu"] = None
+        sys.path.insert(0, {str(PKG.parent)!r})
+        import opensearch_tpu_torch.tasks
+        import opensearch_tpu_torch.search.backpressure
+        import opensearch_tpu_torch.common.breaker
+        import opensearch_tpu_torch.wlm
+        import opensearch_tpu_torch.index.request_cache
+        import opensearch_tpu_torch.telemetry.export
+        import opensearch_tpu_torch.cluster.cluster_settings
+        import opensearch_tpu_torch.cluster.residency
+        from opensearch_tpu_torch.node import TorchNode
+        node = TorchNode({str(tmp_path)!r}, device="cpu")
+        node.create_index("i", {{"aliases": {{"a": {{}}}}}})
+        node.put_cluster_settings({{"persistent": {{
+            "search.max_keep_alive": "1h"}}}})
+        pit = node.open_pit("a", "1m")
+        print(len(node.close_pit([pit["pit_id"]])["pits"]))
+        node.close()
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["1"]
+
+
 # an ivf_pq mapping with min_train 64 over 200 docs: the refresh builds an
 # IVF-PQ index and the search takes the per-shard ANN route
 _ANN_METHOD = {"name": "ivf_pq",

@@ -19,6 +19,14 @@ and explains (the frameworks sum the d products in other orders, and l2
 cancels near a neighbour). `GET /` differs only where it names the
 package.
 
+The search-context, alias and admission steps (`_context_steps`) follow:
+`_flush` and `_forcemerge`, the request cache and `_cache/clear`, every
+alias route (filtered, routed and write aliases, 404 riders, HEAD),
+scroll and point in time through each of their routes, `_tasks`,
+`_cluster/settings`, the workload-group routes with a tagged search and
+`_bulk`, and `_otel/flush`; context ids, task clocks, workload-group ids
+and the device-ledger section are left out of the comparison.
+
 Every (method, path) of the reference's router resolves in the port's: to
 the same ported handler, or to one that answers "not yet ported" (the
 500 envelope), never to a 404 or 405.
@@ -146,9 +154,11 @@ def _sequence(c: Client) -> list[tuple[str, int, object]]:
     rng = np.random.default_rng(11)
     qs = [rng.standard_normal(DIM).round(4).tolist() for _ in range(6)]
 
-    def step(label, method, path, body=None, ndjson=None):
+    def step(label, method, path, body=None, ndjson=None, norm=None):
         status, payload = c(method, path, body, ndjson)
-        out.append((label, status, payload))
+        out.append((label, status,
+                    norm(payload) if norm and payload else payload))
+        return payload
 
     step("root", "GET", "/")
     step("create", "PUT", "/vecs", {
@@ -319,6 +329,7 @@ def _sequence(c: Client) -> list[tuple[str, int, object]]:
         "script": {"source": "ctx._source.age += 100"}})
     step("get_s1", "GET", "/vecs/_doc/s1")
     step("get_7", "GET", "/vecs/_doc/7")
+    _context_steps(step, docs, qs)
     # the transport's own answers
     status, body = c.raw(b"POST /vecs/_doc/big HTTP/1.1\r\nHost: x\r\n"
                          b"Content-Length: 200000000\r\n\r\n")
@@ -337,6 +348,202 @@ def _sequence(c: Client) -> list[tuple[str, int, object]]:
     step("delete_missing", "DELETE", "/vecs")
     step("delete_missing_ignored", "DELETE", "/vecs?ignore_unavailable=true")
     return out
+
+
+def _no_context_ids(obj):
+    """Context ids and creation times differ between two servers."""
+    if isinstance(obj, dict):
+        return {k: _no_context_ids(v) for k, v in obj.items()
+                if k not in ("pit_id", "_scroll_id", "creation_time")}
+    if isinstance(obj, list):
+        return [_no_context_ids(v) for v in obj]
+    return obj
+
+
+def _no_task_clocks(obj):
+    """A task's clocks and id differ between two servers: a task map keyed
+    by "<node>:<id>" becomes the list of its tasks."""
+    if isinstance(obj, dict):
+        if obj and all(re.fullmatch(r"node-0:\d+", k) for k in obj):
+            return [_no_task_clocks(v) for v in obj.values()]
+        return {k: _no_task_clocks(v) for k, v in obj.items()
+                if k not in ("id", "start_time_in_millis",
+                             "running_time_in_nanos", "resource_stats")}
+    if isinstance(obj, list):
+        return [_no_task_clocks(v) for v in obj]
+    return obj
+
+
+def _no_group_ids(obj):
+    """A workload group's `_id` is random."""
+    if isinstance(obj, dict):
+        if "query_groups" in obj and isinstance(obj["query_groups"], dict):
+            return {"query_groups": sorted(obj["query_groups"].values(),
+                                           key=str)}
+        return {k: _no_group_ids(v) for k, v in obj.items() if k != "_id"}
+    if isinstance(obj, list):
+        rows = [_no_group_ids(v) for v in obj]
+        for r in rows:
+            if isinstance(r, dict) and r.get("WORKLOAD_GROUP_ID") not in (
+                    None, "DEFAULT_WORKLOAD_GROUP"):
+                r["WORKLOAD_GROUP_ID"] = "<group>"
+        return sorted(rows, key=str) if all(
+            isinstance(r, dict) for r in rows) else rows
+    return obj
+
+
+def _no_device(obj):
+    """`_otel/flush`'s device-ledger section differs between packages."""
+    for node in obj.get("nodes", {}).values():
+        node.pop("device", None)
+    return obj
+
+
+# the search-context, alias and admission steps (the 47 routes the port
+# serves since the search-contexts slice), run after the kNN steps
+CONTEXT_STEPS = []
+
+
+def _context_steps(step, docs, qs) -> None:
+    def ctx(label, *args, **kw):
+        if label not in CONTEXT_STEPS:
+            CONTEXT_STEPS.append(label)
+        return step(label, *args, **kw)
+
+    # flush, force merge, the request cache
+    ctx("ctx_flush", "POST", "/vecs/_flush")
+    ctx("ctx_flush_all", "POST", "/_flush")
+    ctx("ctx_flush_missing", "POST", "/nope/_flush")
+    ctx("ctx_forcemerge", "POST", "/vecs/_forcemerge?max_num_segments=1")
+    ctx("ctx_forcemerge_all", "POST", "/_forcemerge?flush=false")
+    cached = {"size": 0, "query": {"term": {"color": "red"}},
+              "aggs": {"a": {"avg": {"field": "age"}}}}
+    ctx("ctx_cache_fill", "POST", "/vecs/_search?request_cache=true", cached)
+    ctx("ctx_cache_hit", "POST", "/vecs/_search", cached)
+    ctx("ctx_cache_clear", "POST", "/vecs/_cache/clear")
+    ctx("ctx_cache_clear_all", "POST", "/_cache/clear")
+    # aliases: every route
+    ctx("ctx_aliases", "POST", "/_aliases", {"actions": [{"add": {
+        "index": "vecs", "alias": "reds",
+        "filter": {"term": {"color": "red"}}}}]})
+    ctx("ctx_aliases_missing", "POST", "/_aliases", {"actions": [
+        {"remove": {"index": "vecs", "alias": "nope"}}]})
+    ctx("ctx_aliases_malformed", "POST", "/_aliases", {"actions": [
+        {"add": None}]})
+    ctx("ctx_put_alias", "PUT", "/vecs/_alias/al1")
+    ctx("ctx_post_alias", "POST", "/vecs/_alias/al2", {"routing": "1"})
+    ctx("ctx_put_alias_body", "PUT", "/vecs/_alias", {"alias": "al3"})
+    ctx("ctx_post_alias_body", "POST", "/vecs/_alias",
+        {"alias": "al4", "is_write_index": True})
+    ctx("ctx_put_alias_name", "PUT", "/_alias/al5", {"index": "vecs"})
+    ctx("ctx_post_alias_name", "POST", "/_alias/al6",
+        {"index": "vecs", "search_routing": "2"})
+    ctx("ctx_put_alias_bare", "PUT", "/_alias",
+        {"index": "vecs", "alias": "al7"})
+    ctx("ctx_post_alias_bare", "POST", "/_alias",
+        {"index": "vecs", "alias": "al8"})
+    ctx("ctx_put_aliases", "PUT", "/vecs/_aliases/al9")
+    ctx("ctx_put_alias_no_index", "PUT", "/_alias", {"alias": "x"})
+    ctx("ctx_put_alias_bad_name", "PUT", "/vecs/_alias/bad*name")
+    ctx("ctx_put_alias_unknown_key", "PUT", "/vecs/_alias/al0",
+        {"bogus": 1})
+    ctx("ctx_get_alias_all", "GET", "/_alias")
+    ctx("ctx_get_alias_name", "GET", "/_alias/al1")
+    ctx("ctx_get_alias_index", "GET", "/vecs/_alias")
+    ctx("ctx_get_alias_index_name", "GET", "/vecs/_alias/al*,-al3")
+    ctx("ctx_get_alias_missing", "GET", "/_alias/al1,nope")
+    ctx("ctx_head_alias", "HEAD", "/_alias/al1")
+    ctx("ctx_head_alias_missing", "HEAD", "/vecs/_alias/nope")
+    ctx("ctx_delete_alias", "DELETE", "/vecs/_alias/al1")
+    ctx("ctx_delete_aliases", "DELETE", "/vecs/_aliases/al2")
+    ctx("ctx_delete_alias_missing", "DELETE", "/vecs/_alias/al1")
+    ctx("ctx_search_filtered_alias", "POST", "/reds/_search",
+        _knn(qs[0], k=6, size=6))
+    ctx("ctx_count_filtered_alias", "GET", "/reds/_count")
+    ctx("ctx_write_alias", "PUT", "/al4/_doc/wa?refresh=true", docs[11])
+    ctx("ctx_get_write_alias", "GET", "/al4/_doc/wa")
+    ctx("ctx_delete_index_via_alias", "DELETE", "/al4")
+    # scroll
+    norm = _no_context_ids
+    first = ctx("ctx_scroll_start", "POST", "/vecs/_search?scroll=1m",
+                _knn(qs[0], k=12, size=5), norm=norm)
+    sid = first["_scroll_id"]
+    ctx("ctx_scroll_get_body", "GET", "/_search/scroll", {"scroll_id": sid},
+        norm=norm)
+    ctx("ctx_scroll_post_body", "POST", "/_search/scroll",
+        {"scroll_id": sid, "scroll": "2m"}, norm=norm)
+    ctx("ctx_scroll_get_path", "GET", f"/_search/scroll/{sid}", norm=norm)
+    ctx("ctx_scroll_post_path", "POST", f"/_search/scroll/{sid}?scroll=1m",
+        norm=norm)
+    ctx("ctx_scroll_clear_path", "DELETE", f"/_search/scroll/{sid}")
+    ctx("ctx_scroll_clear_again", "DELETE", "/_search/scroll",
+        {"scroll_id": [sid]})
+    ctx("ctx_scroll_missing", "POST", "/_search/scroll",
+        {"scroll_id": "scroll_gone"})
+    ctx("ctx_scroll_no_id", "DELETE", "/_search/scroll")
+    ctx("ctx_scroll_size_zero", "POST", "/vecs/_search?scroll=1m&size=0", {})
+    ctx("ctx_scroll_restart", "POST", "/vecs/_search?scroll=1m",
+        {"size": 3, "query": {"term": {"color": "green"}}}, norm=norm)
+    ctx("ctx_scroll_clear_all", "DELETE", "/_search/scroll",
+        {"scroll_id": "_all"})
+    # point in time
+    pid = ctx("ctx_pit_open", "POST",
+              "/vecs/_search/point_in_time?keep_alive=1m", norm=norm)
+    pid = pid["pit_id"]
+    ctx("ctx_pit_search", "POST", "/_search",
+        {"pit": {"id": pid}, **_knn(qs[2], k=5, size=5)}, norm=norm)
+    ctx("ctx_pit_with_index", "POST", "/vecs/_search", {"pit": {"id": pid}})
+    ctx("ctx_pit_list", "GET", "/_search/point_in_time/_all", norm=norm)
+    ctx("ctx_pit_close", "DELETE", "/_search/point_in_time",
+        {"pit_id": pid}, norm=norm)
+    ctx("ctx_pit_close_no_id", "DELETE", "/_search/point_in_time")
+    ctx("ctx_pit_reopen", "POST",
+        "/vecs/_search/point_in_time?keep_alive=2m", norm=norm)
+    ctx("ctx_pit_close_all", "DELETE", "/_search/point_in_time/_all",
+        norm=norm)
+    ctx("ctx_pit_no_keep_alive", "POST", "/vecs/_search/point_in_time")
+    # tasks
+    ctx("ctx_tasks", "GET", "/_tasks", norm=_no_task_clocks)
+    ctx("ctx_tasks_none", "GET", "/_tasks?group_by=none&detailed=true",
+        norm=_no_task_clocks)
+    ctx("ctx_task_malformed", "GET", "/_tasks/abc")
+    ctx("ctx_task_missing", "GET", "/_tasks/node-0:99999")
+    ctx("ctx_tasks_cancel", "POST", "/_tasks/_cancel?actions=indices:*")
+    ctx("ctx_task_cancel_missing", "POST", "/_tasks/99999/_cancel")
+    # cluster settings
+    ctx("ctx_settings_get", "GET", "/_cluster/settings")
+    ctx("ctx_settings_put", "PUT", "/_cluster/settings", {
+        "persistent": {"search.max_keep_alive": "1h"},
+        "transient": {"search": {"knn": {"batch": {"max_wait_ms": "3ms"}}}}})
+    ctx("ctx_settings_get_flat", "GET",
+        "/_cluster/settings?flat_settings=true&include_defaults=true")
+    ctx("ctx_settings_unknown", "PUT", "/_cluster/settings",
+        {"persistent": {"x.y": 1}})
+    ctx("ctx_settings_invalid", "PUT", "/_cluster/settings",
+        {"transient": {"search.knn.batch.max_batch_size": 0}})
+    ctx("ctx_settings_delete", "PUT", "/_cluster/settings?flat_settings=true",
+        {"persistent": {"search.max_keep_alive": None},
+         "transient": {"search.knn.batch.max_wait_ms": None}})
+    # workload management
+    groups = _no_group_ids
+    ctx("ctx_wlm_put", "PUT", "/_wlm/query_group", {
+        "name": "g1", "resiliency_mode": "enforced",
+        "resource_limits": {"cpu": 0.5}}, norm=groups)
+    ctx("ctx_wlm_put_bad", "PUT", "/_wlm/query_group", {
+        "name": "g2", "resource_limits": {"cpu": 7}})
+    ctx("ctx_wlm_get", "GET", "/_wlm/query_group", norm=groups)
+    ctx("ctx_wlm_get_name", "GET", "/_wlm/query_group/g1", norm=groups)
+    ctx("ctx_wlm_get_missing", "GET", "/_wlm/query_group/none")
+    ctx("ctx_search_group", "POST", "/vecs/_search?query_group=g1",
+        _knn(qs[1]))
+    ctx("ctx_bulk_group", "POST", "/_bulk?query_group=g1&refresh=true",
+        ndjson=[{"index": {"_index": "vecs", "_id": "g"}}, docs[12]])
+    ctx("ctx_wlm_stats", "GET", "/_wlm/stats", norm=groups)
+    ctx("ctx_wlm_list", "GET", "/_list/wlm_stats?format=json", norm=groups)
+    ctx("ctx_wlm_list_bad", "GET", "/_list/wlm_stats?size=0")
+    ctx("ctx_wlm_delete", "DELETE", "/_wlm/query_group/g1")
+    # span export
+    ctx("ctx_otel_flush", "POST", "/_otel/flush", norm=_no_device)
 
 
 @pytest.fixture(scope="module")
@@ -426,7 +633,39 @@ STEPS = [
 ]
 
 
-@pytest.mark.parametrize("label", STEPS)
+CONTEXT_LABELS = [
+    "ctx_flush", "ctx_flush_all", "ctx_flush_missing", "ctx_forcemerge",
+    "ctx_forcemerge_all", "ctx_cache_fill", "ctx_cache_hit",
+    "ctx_cache_clear", "ctx_cache_clear_all", "ctx_aliases",
+    "ctx_aliases_missing", "ctx_aliases_malformed", "ctx_put_alias",
+    "ctx_post_alias", "ctx_put_alias_body", "ctx_post_alias_body",
+    "ctx_put_alias_name", "ctx_post_alias_name", "ctx_put_alias_bare",
+    "ctx_post_alias_bare", "ctx_put_aliases", "ctx_put_alias_no_index",
+    "ctx_put_alias_bad_name", "ctx_put_alias_unknown_key",
+    "ctx_get_alias_all", "ctx_get_alias_name", "ctx_get_alias_index",
+    "ctx_get_alias_index_name", "ctx_get_alias_missing", "ctx_head_alias",
+    "ctx_head_alias_missing", "ctx_delete_alias", "ctx_delete_aliases",
+    "ctx_delete_alias_missing", "ctx_search_filtered_alias",
+    "ctx_count_filtered_alias", "ctx_write_alias", "ctx_get_write_alias",
+    "ctx_delete_index_via_alias", "ctx_scroll_start", "ctx_scroll_get_body",
+    "ctx_scroll_post_body", "ctx_scroll_get_path", "ctx_scroll_post_path",
+    "ctx_scroll_clear_path", "ctx_scroll_clear_again", "ctx_scroll_missing",
+    "ctx_scroll_no_id", "ctx_scroll_size_zero", "ctx_scroll_restart",
+    "ctx_scroll_clear_all", "ctx_pit_open", "ctx_pit_search",
+    "ctx_pit_with_index", "ctx_pit_list", "ctx_pit_close",
+    "ctx_pit_close_no_id", "ctx_pit_reopen", "ctx_pit_close_all",
+    "ctx_pit_no_keep_alive", "ctx_tasks", "ctx_tasks_none",
+    "ctx_task_malformed", "ctx_task_missing", "ctx_tasks_cancel",
+    "ctx_task_cancel_missing", "ctx_settings_get", "ctx_settings_put",
+    "ctx_settings_get_flat", "ctx_settings_unknown", "ctx_settings_invalid",
+    "ctx_settings_delete", "ctx_wlm_put", "ctx_wlm_put_bad", "ctx_wlm_get",
+    "ctx_wlm_get_name", "ctx_wlm_get_missing", "ctx_search_group",
+    "ctx_bulk_group", "ctx_wlm_stats", "ctx_wlm_list", "ctx_wlm_list_bad",
+    "ctx_wlm_delete", "ctx_otel_flush",
+]
+
+
+@pytest.mark.parametrize("label", STEPS + CONTEXT_LABELS)
 def test_response_equals_the_references(transcripts, label):
     (ref_status, ref_body), (port_status, port_body) = transcripts[label]
     assert port_status == ref_status, (port_body, ref_body)
@@ -434,7 +673,8 @@ def test_response_equals_the_references(transcripts, label):
 
 
 def test_every_step_is_compared(transcripts):
-    assert set(STEPS) | {"root"} == set(transcripts)
+    assert set(STEPS) | set(CONTEXT_LABELS) | {"root"} == set(transcripts)
+    assert CONTEXT_STEPS == CONTEXT_LABELS
 
 
 def test_root_info_names_the_port(transcripts):
@@ -523,10 +763,9 @@ def test_unported_routes_answer_the_500_envelope_and_keep_the_connection(
                 ("POST", "/v/_update_by_query", {"script": {
                     "source": "ctx._source.a = 1"}}),
                 ("GET", "/v/_stats", None),
-                ("POST", "/v/_search/template?scroll=1m", {"source": {
-                    "query": {"match_all": {}}}}),
-                ("POST", "/v/_search?scroll=1m", {"query": {"knn": {"v": {
-                    "vector": [1.0, 0.0], "k": 1}}}})):
+                ("GET", "/_cluster/pending_tasks", None),
+                ("POST", "/_reindex", {"source": {"index": "v"},
+                                       "dest": {"index": "w"}})):
             status, payload = c(method, path, body)
             assert status == 500, (path, payload)
             assert payload["status"] == 500
@@ -622,3 +861,73 @@ def test_scripts_templates_and_pipelines_are_served(transcripts):
     assert body["_source"]["age"] == 101
     _ref, (_s, body) = transcripts["update_script_noop"]
     assert body["result"] == "noop"
+
+
+# the 47 routes the search-contexts slice serves: each resolves to a ported
+# handler (the sequence above compares its answers with the reference's)
+CONTEXT_ROUTES = (
+    ("GET", "/_search/scroll"), ("POST", "/_search/scroll"),
+    ("GET", "/_search/scroll/{scroll_id}"),
+    ("POST", "/_search/scroll/{scroll_id}"),
+    ("DELETE", "/_search/scroll"), ("DELETE", "/_search/scroll/{scroll_id}"),
+    ("POST", "/{index}/_search/point_in_time"),
+    ("DELETE", "/_search/point_in_time"),
+    ("DELETE", "/_search/point_in_time/_all"),
+    ("GET", "/_search/point_in_time/_all"),
+    ("POST", "/{index}/_flush"), ("POST", "/_flush"),
+    ("POST", "/{index}/_forcemerge"), ("POST", "/_forcemerge"),
+    ("POST", "/{index}/_cache/clear"), ("POST", "/_cache/clear"),
+    ("POST", "/_aliases"), ("PUT", "/{index}/_alias/{name}"),
+    ("POST", "/{index}/_alias/{name}"), ("PUT", "/{index}/_alias"),
+    ("POST", "/{index}/_alias"), ("PUT", "/_alias/{name}"),
+    ("POST", "/_alias/{name}"), ("PUT", "/_alias"), ("POST", "/_alias"),
+    ("PUT", "/{index}/_aliases/{name}"), ("DELETE", "/{index}/_alias/{name}"),
+    ("DELETE", "/{index}/_aliases/{name}"), ("GET", "/_alias"),
+    ("GET", "/_alias/{name}"), ("GET", "/{index}/_alias"),
+    ("GET", "/{index}/_alias/{name}"), ("HEAD", "/_alias/{name}"),
+    ("HEAD", "/{index}/_alias/{name}"), ("POST", "/_otel/flush"),
+    ("GET", "/_tasks"), ("GET", "/_tasks/{task_id}"),
+    ("POST", "/_tasks/_cancel"), ("POST", "/_tasks/{task_id}/_cancel"),
+    ("GET", "/_cluster/settings"), ("PUT", "/_cluster/settings"),
+    ("PUT", "/_wlm/query_group"), ("GET", "/_wlm/query_group"),
+    ("GET", "/_wlm/query_group/{name}"),
+    ("DELETE", "/_wlm/query_group/{name}"), ("GET", "/_wlm/stats"),
+    ("GET", "/_list/wlm_stats"),
+)
+
+
+def test_context_routes_are_served():
+    assert len(CONTEXT_ROUTES) == len(set(CONTEXT_ROUTES)) == 47
+    assert len(port_handlers.UNPORTED_ROUTES) == 158
+    assert not set(CONTEXT_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
+    assert ("GET", "/_cluster/pending_tasks") in port_handlers.UNPORTED_ROUTES
+    assert ("GET", "/_cat/pending_tasks") in port_handlers.UNPORTED_ROUTES
+    for method, template in CONTEXT_ROUTES:
+        ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
+        handler, _ = PORT_ROUTER.resolve(method, _concrete(template))
+        assert getattr(port_handlers, ref_handler.__name__) is handler
+
+
+def test_context_steps_are_not_vacuous(transcripts):
+    """The context steps compared above answered what they should."""
+    def port(label):
+        return transcripts[label][1]
+
+    assert port("ctx_search_filtered_alias")[0] == 200
+    hits = port("ctx_search_filtered_alias")[1]["hits"]["hits"]
+    assert hits and all(h["_source"]["color"] == "red" for h in hits)
+    assert port("ctx_cache_clear")[1]["cleared"] == 1
+    assert len(port("ctx_scroll_get_body")[1]["hits"]["hits"]) == 5
+    assert port("ctx_scroll_clear_path")[1] == {"succeeded": True,
+                                                "num_freed": 1}
+    assert port("ctx_scroll_clear_again")[0] == 404
+    assert port("ctx_scroll_missing")[0] == 404
+    assert port("ctx_pit_search")[0] == 200 and \
+        port("ctx_pit_search")[1]["hits"]["hits"]
+    assert port("ctx_get_alias_missing")[0] == 404
+    assert port("ctx_head_alias")[0] == 200
+    assert port("ctx_head_alias_missing")[0] == 404
+    assert port("ctx_get_write_alias")[1]["_index"] == "vecs"
+    assert port("ctx_settings_unknown")[0] == 400
+    assert port("ctx_task_malformed")[0] == 400
+    assert port("ctx_wlm_list")[0] == 200
