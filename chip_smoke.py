@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
                                     hybrid,large,lexical,aggs,dsl,mesh,
-                                    contexts]
+                                    contexts,ops]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -227,7 +227,7 @@ Then:
    stacked step and the per-shard route, each its solo search's bits;
    "profile": true of the in-process profile's shape with its K1 launch's
    device_time_in_nanos > 0; GET /_cluster/pending_tasks and GET
-   /_cat/indices the 500 "not yet ported" envelope on a connection that then serves a search;
+   /_cat/recovery the 500 "not yet ported" envelope on a connection that then serves a search;
    and the in-process p50 with the profiler's hooks and without.
    ``--phases rest`` builds index A and runs this phase alone.
    Every concurrent (gated) check, of K1's paths and of index C's IVF-PQ
@@ -377,6 +377,27 @@ library calls, logged as `large record` lines.
    card, the same kNN bits; a PIT on B across _forcemerge, whose held
    segments leave device memory at close_pit. ``--phases contexts``
    builds cell A and B and runs it alone.
+
+11. ops (with main, on the main node after contexts; ops_main_phase):
+   ingest pipelines, index templates, wildcard expressions and the
+   node's stats surface. A component and a composable template `vec-*`
+   and the pipeline vec-in (json, remove, convert, set, a painless
+   script, drop of ~1 % spam) over HTTP; 20,000 of cell A's 128-d docs
+   through _bulk into vec-2026.10 (auto-created by the template) and
+   without a pipeline into vec-twin: the template's mappings and
+   settings, docs.count = _count = the kept docs, the fed slab the
+   twin's kept rows bit for bit, 256 _sources _simulate's output. 16 kNN
+   searches at k = 10 and 100 through the name and through
+   vec-*,-vec-twin: one K1 launch each on its tier, the twin's hits
+   under a knn.filter and the brute force in the kernel's order;
+   query_total moved by one a search an index. Then the ledger-to-
+   allocator gap with no reader context open, and 9 observability routes
+   read 16 times each over HTTP (_nodes/stats, its device, knn_batch and
+   ingest sections, _stats, _cluster/stats, _prometheus/metrics,
+   _cat/indices, shards, segments, health): no launch counter and no
+   memory_allocated() move across them, ingest.pipelines.vec-in.count
+   20,000, the knn_batch Prometheus series moving as _nodes/stats does.
+   At most 45 s. ``--phases ops`` runs it alone on a fresh node.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -3335,7 +3356,7 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
        merged batch beside concurrent_phase's in-process figures;
     6. "profile": true: the operator tree of the in-process profile's
        shape, the K1 launch's device_time_in_nanos > 0;
-    7. GET /_cluster/pending_tasks and GET /_cat/indices answer the 500
+    7. GET /_cluster/pending_tasks and GET /_cat/recovery answer the 500
        envelope with
        their "not yet ported" reason, and the next search on the same
        connection succeeds.
@@ -3576,7 +3597,7 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
         envelopes = {}
         for method, path, req in (
                 ("GET", "/_cluster/pending_tasks", None),
-                ("GET", "/_cat/indices", None)):
+                ("GET", "/_cat/recovery", None)):
             status, payload = client(method, path, req)
             reason = (payload or {}).get("error", {}).get("reason", "")
             if status != 500 or payload.get("status") != 500 or \
@@ -4528,6 +4549,15 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         contexts, node = contexts_main_phase(
             node, kf, tmp, corpora["sift_a"][0], attrs_a,
             truths["sift_a"][0], corpora["sift_b"][0], rng)
+        # the brute-force operands this phase keeps on the card for the
+        # device-step timing below: device bytes outside the ledger
+        held = {"bytes": sum(t.numel() * t.element_size()
+                             for inputs in step_inputs.values()
+                             for t in inputs),
+                "what": [f"{name} (v, norms, valid, query): "
+                         f"{sum(t.numel() * t.element_size() for t in ts)} B"
+                         for name, ts in step_inputs.items()]}
+        ops = ops_main_phase(node, kf, seed, held)
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
     # each index's shape, beside the whole search's latency above: CUDA-event
@@ -4578,7 +4608,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
             "step_device": step_device, "per_shard": per_shard,
             "wide": wide, "reduced": reduced, "batched": batched,
             "msearch": msearch, "rest": rest, "filtered": filtered,
-            "large": large, "contexts": contexts}
+            "large": large, "contexts": contexts, "ops": ops}
 
 
 def filtered_phase(kf, dev, seed: int) -> dict:
@@ -5916,6 +5946,407 @@ def contexts_phase(kf, dev, seed: int) -> dict:
                                         queries, data_b, rng)
         node.close()
     return out
+
+
+# --------------------------------------------------------------------------
+# ingest pipelines, index templates, wildcard expressions and the stats
+# surface (the ops phase)
+# --------------------------------------------------------------------------
+
+OPS_DOCS = 20_000
+OPS_SPAM = 0.01              # share of docs tagged spam, dropped by the pipeline
+OPS_QUERIES = 16             # kNN searches at each k through each expression
+OPS_KS = (10, 100)
+OPS_SAMPLES = 256            # _sources held to _simulate's output
+OPS_READS = 16               # reads of each observability route
+OPS_BATCHED = 4              # per-shard searches through the kNN batcher
+OPS_INGESTED_AT = "2026-10-01T00:00:00Z"
+OPS_ROUTES = ("/_nodes/stats", "/_nodes/stats/device,knn_batch,ingest",
+              "/_stats", "/_cluster/stats", "/_prometheus/metrics",
+              "/_cat/indices?format=json", "/_cat/shards", "/_cat/segments",
+              "/_cat/health")
+
+
+def _http_get(client, path: str) -> tuple[int, object]:
+    """GET over a RestClient's connection: JSON, or a _cat / Prometheus
+    table as text."""
+    client.conn.request("GET", path)
+    resp = client.conn.getresponse()
+    raw = resp.read()
+    if (resp.getheader("content-type") or "").startswith("text/plain"):
+        return resp.status, raw.decode()
+    return resp.status, json.loads(raw)
+
+
+def _launch_counts() -> dict:
+    """Every kernel wrapper's launch counter, by module and name."""
+    from opensearch_tpu_torch.ops import adc_lut, adc_scan, knn_blocks
+    from opensearch_tpu_torch.ops import knn_fused, knn_rescore
+    from opensearch_tpu_torch.ops.cuda_lib import LaunchCounter
+
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": c.count
+            for mod in (knn_fused, knn_rescore, adc_scan, adc_lut, knn_blocks)
+            for name, c in vars(mod).items() if isinstance(c, LaunchCounter)}
+
+
+def _knn_batch_series(text: str) -> dict:
+    """The unlabeled opensearch_tpu_knn_batch_* samples of a scrape."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("opensearch_tpu_knn_batch_") and "{" not in line:
+            name, value = line.rsplit(" ", 1)
+            out[name[len("opensearch_tpu_knn_batch_"):]] = float(value)
+    return out
+
+
+def ops_main_phase(node, kf, seed: int, held: dict | None = None) -> dict:
+    """Ingest pipelines, index templates, wildcard expressions and the
+    node's stats surface, on the main node after the contexts phase (or
+    alone on a fresh node, ``--phases ops``):
+
+    1. over HTTP, a component template (a 128-d l2 knn_vector `v`, a
+       keyword `tag`, a long `views`, one shard, index.default_pipeline
+       vec-in) and a composable template `vec-*` built from it; the
+       pipeline vec-in: json (the vector from the string `v_json`),
+       remove, convert (`views` to long), set (`ingested_at`, a fixed
+       value), a painless script on one small field and a drop of docs
+       tagged spam (about 1 %, drawn from the seed);
+    2. _bulk of OPS_DOCS docs of cell A's 128-d distribution with explicit
+       ids into vec-2026.10, which the template auto-creates, and of the
+       same docs without a pipeline (``pipeline=_none``) into vec-twin;
+       each bulk's host seconds a doc; the index's mappings and settings
+       the template's; docs.count = _count = the docs less the drops; the
+       fed index's device slab holds each kept doc's twin row bit for bit
+       and no live slot for a drop; 256 sampled _sources equal
+       _simulate's output for the same docs;
+    3. OPS_QUERIES kNN searches at k = 10 and at k = 100, each through
+       vec-2026.10 and through vec-*,-vec-twin: one K1 launch each (the
+       list scan at k = 10, the wide tier at k = 100), the hits (ids and
+       scores) the twin's under a knn.filter that drops the spam docs,
+       and the brute force over the kept docs in the kernel's order;
+       query_total moves by one a search on each index it names;
+    4. OPS_BATCHED searches on the per-shard route (the kNN batcher), then
+       the ledger-to-allocator gap with no reader context open, and the
+       observability routes read OPS_READS times each over the port's
+       HTTP server, with no launch counter and no memory_allocated() move
+       across them; ingest.pipelines.vec-in.count is OPS_DOCS, and the
+       opensearch_tpu_knn_batch_* Prometheus series move as
+       _nodes/stats/knn_batch does."""
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+    from opensearch_tpu_torch.rest.http import HttpServer
+    from opensearch_tpu_torch.search import distributed_serving
+    from opensearch_tpu_torch.telemetry import device_ledger
+
+    t_phase = time.perf_counter()
+    dev = node.device
+    rng = np.random.default_rng(seed + 20)
+    data = clustered(rng, OPS_DOCS, DIM)
+    spam = rng.random(OPS_DOCS) < OPS_SPAM
+    views = rng.integers(0, 1_000_000, OPS_DOCS)
+    qs = (data[rng.choice(OPS_DOCS, OPS_QUERIES, replace=False)]
+          + 0.05 * rng.standard_normal((OPS_QUERIES, DIM)).astype(np.float32))
+    kept = np.flatnonzero(~spam)
+    tags = np.where(spam, "spam", "ham")
+    raw = [{"v_json": json.dumps(data[i].tolist()), "tag": str(tags[i]),
+            "views": str(int(views[i]))} for i in range(OPS_DOCS)]
+    plain = [{"v": data[i].tolist(), "tag": str(tags[i]),
+              "views": int(views[i])} for i in range(OPS_DOCS)]
+    pipeline = {"description": "vectors from strings, spam dropped",
+                "processors": [
+                    {"json": {"field": "v_json", "target_field": "v"}},
+                    {"remove": {"field": "v_json"}},
+                    {"convert": {"field": "views", "type": "long"}},
+                    {"set": {"field": "ingested_at",
+                             "value": OPS_INGESTED_AT}},
+                    {"script": {"lang": "painless",
+                                "source": "ctx.views_k = ctx.views / 1000"}},
+                    {"drop": {"if": "ctx.tag == 'spam'"}}]}
+    out: dict = {}
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    client = RestClient(server.port)
+    try:
+        # -- 1. templates and the pipeline, over HTTP ----------------------
+        client.ok("PUT", "/_component_template/vec-base", {"template": {
+            "settings": {"number_of_shards": 1, "number_of_replicas": 0,
+                         "index": {"default_pipeline": "vec-in"}},
+            "mappings": {"properties": {
+                "v": {"type": "knn_vector", "dimension": DIM,
+                      "similarity": "l2_norm"},
+                "tag": {"type": "keyword"}, "views": {"type": "long"}}}}})
+        client.ok("PUT", "/_index_template/vec", {
+            "index_patterns": ["vec-*"], "composed_of": ["vec-base"],
+            "priority": 10})
+        client.ok("PUT", "/_ingest/pipeline/vec-in", pipeline)
+        # -- 2. the pipeline-fed index and its twin ------------------------
+        ops = [("index", {"_index": "vec-2026.10", "_id": str(i)}, raw[i])
+               for i in range(OPS_DOCS)]
+        t0 = time.perf_counter()
+        fed = node.bulk(ops)
+        fed_s = time.perf_counter() - t0
+        twin_ops = [("index", {"_index": "vec-twin", "_id": str(i)},
+                     plain[i]) for i in range(OPS_DOCS)]
+        t0 = time.perf_counter()
+        twin = node.bulk(twin_ops, pipeline="_none")
+        twin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        node.refresh("vec-*")
+        refresh_s = time.perf_counter() - t0
+        if fed["errors"] or twin["errors"]:
+            raise AssertionError("[ops] a bulk item failed")
+        dropped = sum(1 for it in fed["items"]
+                      if it["index"]["result"] == "noop")
+        if dropped != int(spam.sum()):
+            raise AssertionError(f"[ops] {dropped} docs dropped, "
+                                 f"{int(spam.sum())} tagged spam")
+        out["ingest"] = {
+            "docs": OPS_DOCS, "dropped": dropped,
+            "fed_us_a_doc": fed_s / OPS_DOCS * 1e6,
+            "twin_us_a_doc": twin_s / OPS_DOCS * 1e6,
+            "pipeline_us_a_doc": (fed_s - twin_s) / OPS_DOCS * 1e6,
+            "refresh_s": refresh_s}
+        log(f"[ops] _bulk {OPS_DOCS} docs through vec-in into vec-2026.10 "
+            f"(auto-created by the template): {out['ingest']['fed_us_a_doc']:.2f}"
+            f" us a doc, the twin without a pipeline "
+            f"{out['ingest']['twin_us_a_doc']:.2f} us a doc (the pipeline "
+            f"{out['ingest']['pipeline_us_a_doc']:.2f} us a doc); {dropped} "
+            f"dropped; refresh {refresh_s:.2f} s")
+        mapping = node.get_mapping("vec-2026.10")["vec-2026.10"]["mappings"]
+        settings = node.get_settings("vec-2026.10")["vec-2026.10"][
+            "settings"]["index"]
+        props = mapping["properties"]
+        if props["tag"]["type"] != "keyword" or \
+                props["views"]["type"] != "long" or \
+                props["v"].get("dims", props["v"].get("dimension")) != DIM \
+                or settings.get("default_pipeline") != "vec-in" \
+                or settings["number_of_shards"] != "1":
+            raise AssertionError(f"[ops] vec-2026.10 is not the template's: "
+                                 f"{mapping} {settings}")
+        n_kept = OPS_DOCS - dropped
+        count = node.count("vec-2026.10")["count"]
+        docs = node.index_stats("vec-2026.10", metrics=["docs"])[
+            "indices"]["vec-2026.10"]["primaries"]["docs"]["count"]
+        if not count == docs == n_kept:
+            raise AssertionError(f"[ops] _count {count}, docs.count {docs}, "
+                                 f"{n_kept} docs kept")
+        # the fed slab: each kept doc's twin row, no live slot for a drop
+        body = {"query": {"knn": {"v": {"vector": qs[0].tolist(), "k": 1}}}}
+        node.search("vec-2026.10", body)
+        node.search("vec-twin", body)
+        fv, _fn, fok = bundle_slab("vec-2026.10")
+        tv, _tn, tok = bundle_slab("vec-twin")
+        if int(fok.sum()) != n_kept or int(tok.sum()) != OPS_DOCS:
+            raise AssertionError(f"[ops] live slots {int(fok.sum())} / "
+                                 f"{int(tok.sum())}")
+        kept_t = torch.from_numpy(kept).to(dev)
+        if not torch.equal(fv[0, :n_kept], tv[0, kept_t]):
+            raise AssertionError("[ops] the fed slab is not the twin's rows")
+        sample = np.sort(rng.choice(OPS_DOCS, OPS_SAMPLES, replace=False))
+        sim = client.ok("POST", "/_ingest/pipeline/vec-in/_simulate", {
+            "docs": [{"_index": "vec-2026.10", "_id": str(i),
+                      "_source": raw[i]} for i in sample]})
+        for i, res in zip(sample, sim["docs"]):
+            got = node.get_doc("vec-2026.10", str(i))
+            want = res["doc"]
+            if (want is None) != (not got["found"]) or (
+                    want is not None and want["_source"] != got["_source"]):
+                raise AssertionError(f"[ops] doc {i}: _source "
+                                     f"{got.get('_source')} != _simulate's "
+                                     f"{want}")
+        log(f"[ops] vec-2026.10 has the template's mappings and settings; "
+            f"docs.count = _count = {n_kept}; the fed slab is the twin's "
+            f"kept rows bit for bit; {OPS_SAMPLES} sampled _sources equal "
+            f"_simulate's")
+        # -- 3. kNN through the name and the pattern, against the twin ------
+        qt = torch.from_numpy(qs).to(dev)
+        v = torch.from_numpy(data)[None].to(dev)
+        nrm = (v.double() ** 2).sum(2).float()
+        ok = torch.from_numpy(~spam)[None].to(dev)
+        scores = kernel_order_scores(kf, v, nrm, ok, qt, kr.plain_query_sq(qt),
+                                     "l2_norm")
+        # this phase's brute-force operands: device bytes outside the ledger
+        own_bytes = sum(t.numel() * t.element_size()
+                        for t in (v, nrm, ok, qt, scores))
+        tier_counter = {"lists": kf.list_launches, "wide": kf.wide_launches}
+        no_spam = {"bool": {"must_not": [{"term": {"tag": "spam"}}]}}
+        stats0 = {n: node.indices[n].search_stats["query_total"]
+                  for n in ("vec-2026.10", "vec-twin")}
+        knn = {}
+        for k in OPS_KS:
+            r = kf.fused_pool_width(k, "fp32")
+            tier = kf.scan_tier("fp32", r)
+            truth = [[str(int(i)) for i in row if i >= 0]
+                     for row in order_top(kf, scores, k)[1][0].tolist()]
+            twin_hits = [_ctx_hits(node.search("vec-twin", {
+                "query": {"knn": {"v": {"vector": q.tolist(), "k": k,
+                                        "filter": no_spam}}},
+                "size": k, "_source": False})) for q in qs]
+            for expr in ("vec-2026.10", "vec-*,-vec-twin"):
+                for c in (kf.launches, *tier_counter.values()):
+                    c.reset()
+                d0 = distributed_serving.stats["distributed_searches"]
+                lat = []
+                got = []
+                for q in qs:
+                    t0 = time.perf_counter()
+                    got.append(_ctx_hits(node.search(expr, _ctx_knn(q, k))))
+                    lat.append(time.perf_counter() - t0)
+                launches = {"knn_fused": kf.launches.count,
+                            tier: tier_counter[tier].count,
+                            "stacked": distributed_serving.stats[
+                                "distributed_searches"] - d0}
+                label = f"[ops] {expr} k={k}"
+                if set(launches.values()) != {OPS_QUERIES}:
+                    raise AssertionError(f"{label}: {launches} in "
+                                         f"{OPS_QUERIES} searches (one K1 "
+                                         f"launch each on {tier})")
+                if got != twin_hits:
+                    raise AssertionError(f"{label}: not the twin's hits")
+                if [[h for h, _s in row] for row in got] != truth:
+                    raise AssertionError(f"{label}: not the brute force")
+                lat_ms = np.asarray(lat) * 1e3
+                knn[f"{expr} k={k}"] = {
+                    "launches": launches,
+                    "p50_ms": float(np.percentile(lat_ms, 50)),
+                    "p99_ms": float(np.percentile(lat_ms, 99))}
+                log(f"{label}: {OPS_QUERIES} searches, one K1 launch each "
+                    f"on {tier}; the twin's hits and the brute force in "
+                    f"order; p50 {knn[f'{expr} k={k}']['p50_ms']:.3f} ms")
+        moved = {n: node.indices[n].search_stats["query_total"] - stats0[n]
+                 for n in stats0}
+        want_moved = {"vec-2026.10": 2 * len(OPS_KS) * OPS_QUERIES,
+                      "vec-twin": len(OPS_KS) * OPS_QUERIES}
+        if moved != want_moved:
+            raise AssertionError(f"[ops] query_total moved {moved}, want "
+                                 f"{want_moved}")
+        out["knn"] = knn
+        out["query_total_moved"] = moved
+        # -- 4. the stats surface --------------------------------------------
+        knn_batch0 = node.knn_batcher.snapshot_stats()
+        prom0 = _knn_batch_series(_http_get(client,
+                                            "/_prometheus/metrics")[1])
+        distributed_serving.enabled = False
+        try:
+            for q in qs[:OPS_BATCHED]:
+                node.search("vec-2026.10", _ctx_knn(q, 10))
+        finally:
+            distributed_serving.enabled = True
+        torch.cuda.synchronize()
+        resident_b = device_ledger.default_ledger.resident_bytes()
+        allocated = torch.cuda.memory_allocated()
+        # cuBLAS keeps a workspace a (handle, stream) in the caching
+        # allocator: freed here, its bytes are what memory_allocated drops
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        after_clear = torch.cuda.memory_allocated()
+        out["ledger_gap"] = {
+            "ledger_resident_bytes": resident_b,
+            "memory_allocated": allocated,
+            "gap_bytes": allocated - resident_b,
+            "cublas_workspace_bytes": allocated - after_clear,
+            "gap_after_cublas_bytes": after_clear - resident_b,
+            "held_by_earlier_phases_bytes": (held or {}).get("bytes", 0),
+            "held_by_earlier_phases": (held or {}).get("what", []),
+            "brute_force_operands_bytes": own_bytes}
+        left = after_clear - resident_b - own_bytes - \
+            out["ledger_gap"]["held_by_earlier_phases_bytes"]
+        out["ledger_gap"]["unexplained_bytes"] = left
+        log(f"[ops] device memory, no reader context open: ledger resident "
+            f"{resident_b} B, memory_allocated {allocated} B, gap "
+            f"{allocated - resident_b} B; cuBLAS workspaces "
+            f"{allocated - after_clear} B; this phase's brute-force "
+            f"operands {own_bytes} B; tensors the earlier phases hold "
+            f"{out['ledger_gap']['held_by_earlier_phases_bytes']} B; what "
+            f"is left {left} B")
+        counts0 = _launch_counts()
+        mem0 = torch.cuda.memory_allocated()
+        reads = {}
+        for path in OPS_ROUTES:
+            lat = []
+            for _ in range(OPS_READS):
+                t0 = time.perf_counter()
+                status, payload = _http_get(client, path)
+                lat.append(time.perf_counter() - t0)
+                if status != 200:
+                    raise AssertionError(f"[ops] GET {path}: HTTP {status}")
+            lat_ms = np.asarray(lat) * 1e3
+            reads[path] = {"p50_ms": float(np.percentile(lat_ms, 50)),
+                           "p99_ms": float(np.percentile(lat_ms, 99)),
+                           "bytes": len(json.dumps(payload) if not
+                                        isinstance(payload, str)
+                                        else payload)}
+            if path == "/_nodes/stats/device,knn_batch,ingest":
+                node_stats = payload["nodes"]["node-0"]
+            elif path == "/_prometheus/metrics":
+                prom1 = _knn_batch_series(payload)
+            elif path == "/_cat/indices?format=json":
+                cat_rows = {r["index"]: r for r in payload}
+        torch.cuda.synchronize()
+        counts1 = _launch_counts()
+        mem1 = torch.cuda.memory_allocated()
+        if counts1 != counts0 or mem1 != mem0:
+            moved_c = {k: counts1[k] - counts0[k] for k in counts0
+                       if counts1[k] != counts0[k]}
+            raise AssertionError(f"[ops] the stats reads launched {moved_c} "
+                                 f"and moved memory_allocated by "
+                                 f"{mem1 - mem0} B")
+        ingest = node_stats["ingest"]["pipelines"]["vec-in"]
+        if ingest["count"] != OPS_DOCS or ingest["failed"]:
+            raise AssertionError(f"[ops] ingest stats {ingest}")
+        if int(cat_rows["vec-2026.10"]["docs.count"]) != n_kept:
+            raise AssertionError(f"[ops] _cat/indices {cat_rows}")
+        knn_batch1 = node_stats["knn_batch"]
+        d_snap = {"dispatches": knn_batch1["dispatches"]
+                  - knn_batch0["dispatches"],
+                  "merged_queries": knn_batch1["merged_queries"]
+                  - knn_batch0["merged_queries"]}
+        d_prom = {"dispatches": prom1.get("dispatches", 0)
+                  - prom0.get("dispatches", 0),
+                  "merged_queries": prom1.get("size_sum", 0)
+                  - prom0.get("size_sum", 0),
+                  "size_count": prom1.get("size_count", 0)
+                  - prom0.get("size_count", 0)}
+        if d_snap["dispatches"] < 1 or \
+                d_prom["dispatches"] != d_snap["dispatches"] or \
+                d_prom["size_count"] != d_snap["dispatches"] or \
+                d_prom["merged_queries"] != d_snap["merged_queries"]:
+            raise AssertionError(f"[ops] knn_batch series moved {d_prom}, "
+                                 f"_nodes/stats/knn_batch {d_snap}")
+        out["reads"] = reads
+        out["knn_batch_moved"] = d_snap
+        out["ingest_stats"] = {"count": ingest["count"],
+                               "time_in_millis": ingest["time_in_millis"],
+                               "processors": [
+                                   {t: p[t]["stats"]["count"]} for p in
+                                   ingest["processors"] for t in p]}
+        log(f"[ops] {len(OPS_ROUTES)} observability routes x {OPS_READS} "
+            f"reads over HTTP: no launch, memory_allocated unchanged; p50 ms "
+            f"{json.dumps({p: round(r['p50_ms'], 3) for p, r in reads.items()})}"
+            f"; ingest.pipelines.vec-in.count {ingest['count']}; the "
+            f"knn_batch series moved as _nodes/stats ({d_snap})")
+    finally:
+        client.close()
+        server.stop_thread()
+    node.delete_index("vec-*")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"ops phase: {out['wall_s']:.1f} s")
+    if out["wall_s"] > 45:
+        raise AssertionError(f"[ops] the phase took {out['wall_s']:.1f} s "
+                             f"(at most 45)")
+    return out
+
+
+def ops_phase(kf, dev, seed: int) -> dict:
+    """ops_main_phase alone on its own fresh node (``--phases ops``)."""
+    from opensearch_tpu_torch.node import TorchNode
+
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device="cuda")
+        try:
+            return ops_main_phase(node, kf, seed)
+        finally:
+            node.close()
 
 
 def bundle_slab(name: str) -> tuple:
@@ -9712,8 +10143,15 @@ def main() -> int:
         entry["filtered_ann_index"] = ann["filtered"]
         # search contexts, aliases and admission: K1's launches of each gate
         entry["contexts_main_path"] = main["contexts"]
+        # ingest, templates, wildcards and the stats surface: each
+        # expression's K1 launches, counted from 0
+        entry["ops_main_path"] = main["ops"]
+        entry["ops_launches"] = {
+            key: res["launches"]["knn_fused"]
+            for key, res in main["ops"]["knn"].items()}
         phase_s["main"] = time.perf_counter() - t0
         phase_s["contexts"] = main["contexts"]["wall_s"]
+        phase_s["ops"] = main["ops"]["wall_s"]
     elif "filtered" in phases:
         t0 = time.perf_counter()
         fp = filtered_phase(kf, dev, args.seed)
@@ -9732,6 +10170,15 @@ def main() -> int:
         t0 = time.perf_counter()
         entry["rest_main_path"] = rest_phase(kf, dev, args.seed)
         phase_s["rest"] = time.perf_counter() - t0
+    elif "ops" in phases:
+        t0 = time.perf_counter()
+        ops = ops_phase(kf, dev, args.seed)
+        entry["ops_main_path"] = ops
+        entry["ops_launches"] = {key: res["launches"]["knn_fused"]
+                                 for key, res in ops["knn"].items()}
+        entry["launches"] = sum(entry["ops_launches"].values())
+        phase_s["ops"] = ops["wall_s"]
+        phase_s["ops_node"] = time.perf_counter() - t0 - ops["wall_s"]
     elif "contexts" in phases:
         t0 = time.perf_counter()
         ctx = contexts_phase(kf, dev, args.seed)

@@ -1,8 +1,9 @@
-"""Bounded-queue admission control for the kNN dispatch batcher.
+"""Bounded-queue admission control for the kNN dispatch batcher, and
+indexing pressure.
 
-Counterpart of opensearch_tpu/index/pressure.py, for the part the port
-runs: :class:`QueuePressure`. ``IndexingPressure`` (the write-path byte
-budget) is not ported yet.
+Counterpart of opensearch_tpu/index/pressure.py: :class:`QueuePressure`
+and the write path's byte budget, :class:`IndexingPressure`, whose
+counters are the `indexing_pressure` section of `_nodes/stats`.
 """
 
 from __future__ import annotations
@@ -55,3 +56,82 @@ class QueuePressure:
                 "rejections": self.rejections,
                 "limit": self.limit,
             }
+
+
+DEFAULT_LIMIT_BYTES = 512 << 20  # 10% of a 5G budget, reference default style
+
+
+class IndexingPressure:
+    def __init__(self, limit_bytes: int = DEFAULT_LIMIT_BYTES):
+        self.limit = int(limit_bytes)
+        self.current_bytes = 0
+        self.total_bytes = 0
+        self.rejections = 0
+        self._lock = threading.Lock()
+
+    def acquire(self, bytes_: int, operation: str = "indexing") -> "_Release":
+        bytes_ = int(bytes_)
+        with self._lock:
+            if self.current_bytes + bytes_ > self.limit:
+                self.rejections += 1
+                raise RejectedExecutionException(
+                    f"rejected execution of {operation} operation "
+                    f"[coordinating_and_primary_bytes="
+                    f"{self.current_bytes + bytes_}, "
+                    f"max_coordinating_and_primary_bytes={self.limit}]"
+                )
+            self.current_bytes += bytes_
+            self.total_bytes += bytes_
+        return _Release(self, bytes_)
+
+    def _release(self, bytes_: int) -> None:
+        with self._lock:
+            self.current_bytes = max(0, self.current_bytes - bytes_)
+
+    def stats(self) -> dict:
+        # snapshot under the lock acquire()/_release() hold: the three
+        # counters must be mutually consistent in one stats read
+        with self._lock:
+            current = self.current_bytes
+            total = self.total_bytes
+            rejections = self.rejections
+        return {
+            "memory": {
+                "current": {
+                    "combined_coordinating_and_primary_in_bytes": current,
+                    "coordinating_in_bytes": current,
+                    "primary_in_bytes": 0,
+                    "replica_in_bytes": 0,
+                    "all_in_bytes": current,
+                },
+                "total": {
+                    "combined_coordinating_and_primary_in_bytes": total,
+                    "coordinating_in_bytes": total,
+                    "primary_in_bytes": 0,
+                    "replica_in_bytes": 0,
+                    "all_in_bytes": total,
+                    "coordinating_rejections": rejections,
+                    "primary_rejections": 0,
+                    "replica_rejections": 0,
+                },
+                "limit_in_bytes": self.limit,
+            }
+        }
+
+
+class _Release:
+    def __init__(self, pressure: IndexingPressure, bytes_: int):
+        self._pressure = pressure
+        self._bytes = bytes_
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        return False
+
+    def close(self) -> None:
+        if self._pressure is not None:
+            self._pressure._release(self._bytes)
+            self._pressure = None

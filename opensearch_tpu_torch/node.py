@@ -60,8 +60,22 @@ slow log configured from the indices' ``search.slowlog`` /
 process-wide batcher, shard-mesh registry and roofline recorder, whose
 peaks it calibrates on its device at construction.
 
-Still raising "not yet ported": wildcard index expressions and ingest
-pipelines.
+Index expressions (``resolve_indices``, ``resolve_search_shards``,
+``delete_index``) take comma lists of names, aliases, ``*`` / ``?``
+patterns over both, ``-`` exclusions after a pattern, date-math names and
+``expand_wildcards`` (a pattern skips an ``index.hidden`` index unless
+``hidden`` or ``all`` is asked; every index is open, so ``closed`` alone
+matches nothing). Ingest pipelines (ingest/, ``ingest``, kept in
+``ingest_pipelines.json``) run before a document is indexed: the
+request's ``pipeline``, else ``index.default_pipeline``, then the landing
+index's ``index.final_pipeline``, with ``drop`` and ``_index`` /
+``_routing`` reroutes, on single writes and each ``_bulk`` item.
+Composable, component and legacy index templates (``templates.json``)
+layer under ``create_index``'s body, an auto-created index's too. The
+node's stats: ``monitor`` (common/monitor.py), ``index_stats`` (the
+``_stats`` API, per-index search counters as the reference counts them)
+and the sections ``rest/handlers.py`` assembles for ``_nodes/stats``,
+``_cat`` and ``_prometheus/metrics``.
 
 The device is the card unless the caller asks for the CPU::
 
@@ -74,7 +88,9 @@ from __future__ import annotations
 import base64
 import copy
 import difflib
+import fnmatch
 import json
+import re
 import os
 import shutil
 import time
@@ -177,8 +193,6 @@ def index_settings_entry(raw_settings: dict, *, num_shards: int,
     """One index's GET _settings entry: values stringified, `name` filters
     by flat dotted key (wildcards OK), flat vs nested, and the defaults
     section."""
-    import fnmatch
-
     patterns = None
     if name and name not in ("_all", "*"):
         patterns = [p.strip() for p in str(name).split(",") if p.strip()]
@@ -236,6 +250,9 @@ class IndexService:
         # alias name -> config ({"filter":..., "routing":...,
         # "is_write_index":...}); the per-index slice of AliasMetadata
         self.aliases: dict[str, dict] = {}
+        # the _stats API's index-level search totals and stat groups
+        self.search_stats = {"query_total": 0, "fetch_total": 0}
+        self.search_group_stats: dict[str, dict] = {}
         durability = translog_durability(settings)
         self.shards: dict[int, IndexShard] = {
             s: IndexShard(ShardId(name, s), path / str(s),
@@ -310,6 +327,20 @@ class TorchNode:
         roofline.ensure_peaks(self.device)
         self.search_pipelines = SearchPipelineService(
             self.data_path / "search_pipelines.json")
+        from opensearch_tpu_torch.common.monitor import MonitorService
+        from opensearch_tpu_torch.ingest import IngestService
+
+        from opensearch_tpu_torch.index.pressure import IndexingPressure
+
+        self.ingest = IngestService(self.data_path / "ingest_pipelines.json")
+        self.monitor = MonitorService(self.data_path)
+        # every write entry point accounts its bytes (IndexingPressure)
+        self.indexing_pressure = IndexingPressure()
+        from opensearch_tpu_torch.search import lanes
+
+        # the priority lanes' depths and sheds: the HTTP server submits
+        # against this tracker, the `tail` stats section reads it
+        self.lane_tracker = lanes.LaneTracker()
         self.search_slowlog = SlowLog("search")
         self.indexing_slowlog = SlowLog("indexing")
         self._configure_slowlogs()
@@ -376,15 +407,22 @@ class TorchNode:
         unknown = set(body) - {"settings", "mappings", "aliases"}
         if unknown:
             raise not_yet_ported(f"create-index keys {sorted(unknown)}")
+        settings = body.get("settings") or {}
+        mappings = body.get("mappings")
         aliases = dict(body.get("aliases") or {})
+        # composable index templates: the template layers under the body
+        tmpl = self._template_for_index(name)
+        if tmpl is not None:
+            settings = _deep_merge(tmpl["settings"], settings)
+            mappings = _deep_merge(tmpl["mappings"], mappings or {}) or None
+            aliases = {**tmpl["aliases"], **aliases}
         # accept both flat ("index.number_of_shards") and nested forms
-        flat = Settings.from_nested(body.get("settings") or {}).as_dict()
+        flat = Settings.from_nested(settings).as_dict()
         norm = {(k[len("index."):] if k.startswith("index.") else k): v
                 for k, v in flat.items()}
         nested = Settings.from_flat(norm).as_nested()
         svc = IndexService(
-            name, self._index_path(name), nested, body.get("mappings"),
-            self.device)
+            name, self._index_path(name), nested, mappings, self.device)
         for alias, conf in aliases.items():
             if alias in self.indices:
                 svc.close()
@@ -401,19 +439,33 @@ class TorchNode:
 
     def delete_index(self, expr: str, *, ignore_unavailable: bool = False,
                      allow_no_indices: bool = True) -> dict:
-        """DELETE /{index}: every named index (or every index for `_all`
-        and `*`) closes, leaves the node, has its stacked serving slabs
-        released from device memory and its files removed."""
+        """DELETE /{index}: every named index (every index for `_all` and
+        `*`, the concrete indices a pattern matches, less a later "-"
+        exclusion) closes, leaves the node, has its stacked serving slabs
+        released from device memory and its files removed; an alias name
+        is refused (strict concrete-index resolution)."""
         alias_map = self._alias_map()
         targets: list[str] = []
         matched_any = False
+        wildcard_seen = False
         for part in expr.split(","):
             part = part.strip()
             if part in ("_all", "*"):
                 targets.extend(list(self.indices))
                 matched_any = True
+            elif part.startswith("-") and wildcard_seen:
+                # an exclusion after a pattern drops what it names
+                targets = [n for n in targets
+                           if not fnmatch.fnmatch(n, part[1:])]
             elif _has_wildcard(part):
-                raise not_yet_ported("wildcard index expressions")
+                wildcard_seen = True
+                hits = [n for n in list(self.indices)
+                        if fnmatch.fnmatch(n, part)]
+                targets.extend(hits)
+                matched_any = matched_any or bool(hits)
+                if not hits and not allow_no_indices:
+                    # per expression: an empty pattern fails fast
+                    raise IndexNotFoundException(part)
             elif part in alias_map:
                 if ignore_unavailable:
                     continue
@@ -447,34 +499,157 @@ class TorchNode:
             self.create_index(name, {})
         return self.indices[name]
 
+    @staticmethod
+    def _resolve_date_math_name(name: str) -> str:
+        """"<logstash-{now/M}>" -> "logstash-2026.07.01"
+        (IndexNameExpressionResolver.DateMathExpressionResolver; default
+        format uuuu.MM.dd, rounding by the date-math unit)."""
+        if not (name.startswith("<") and name.endswith(">")):
+            return name
+        import datetime as _dt
+
+        inner = name[1:-1]
+
+        def repl(m):
+            expr = m.group(1)
+            fmt = "%Y.%m.%d"
+            if "{" in expr:  # a custom format: {now/M{yyyy.MM}}
+                expr, _, f = expr.partition("{")
+                f = f.rstrip("}")
+                fmt = (f.replace("yyyy", "%Y").replace("uuuu", "%Y")
+                       .replace("MM", "%m").replace("dd", "%d"))
+            now = _dt.datetime.now(_dt.timezone.utc)
+            rest = expr[3:] if expr.startswith("now") else ""
+            while rest:
+                m2 = re.match(r"([+-]\d+[yMwdhHms]|/[yMwdhHms])", rest)
+                if not m2:
+                    break
+                op = m2.group(1)
+                rest = rest[len(op):]
+                if op.startswith("/"):
+                    unit = op[1:]
+                    if unit == "M":
+                        now = now.replace(day=1, hour=0, minute=0,
+                                          second=0, microsecond=0)
+                    elif unit == "d":
+                        now = now.replace(hour=0, minute=0, second=0,
+                                          microsecond=0)
+                    elif unit == "y":
+                        now = now.replace(month=1, day=1, hour=0, minute=0,
+                                          second=0, microsecond=0)
+                else:
+                    sign = 1 if op[0] == "+" else -1
+                    n_, unit = int(op[1:-1]), op[-1]
+                    delta = {"d": _dt.timedelta(days=n_),
+                             "w": _dt.timedelta(weeks=n_),
+                             "h": _dt.timedelta(hours=n_),
+                             "H": _dt.timedelta(hours=n_),
+                             "m": _dt.timedelta(minutes=n_),
+                             "s": _dt.timedelta(seconds=n_)}.get(
+                        unit, _dt.timedelta())
+                    now = now + sign * delta
+            return now.strftime(fmt)
+
+        return re.sub(r"\{([^}]*(?:\{[^}]*\})?)\}", repl, inner)
+
+    def _is_hidden(self, name: str) -> bool:
+        return str(self.indices[name].setting("hidden", False)).lower() \
+            == "true"
+
+    def _expression_names(self, expr: str, alias_map: dict,
+                          expand: set[str], *, ignore_unavailable: bool,
+                          allow_no_indices: bool
+                          ) -> list[tuple[str, bool, set[str]]]:
+        """(index or alias name, named explicitly, its member indices an
+        exclusion dropped) for each part of a comma expression, in order
+        (IndexNameExpressionResolver): a concrete name or alias as it
+        stands (a missing one 404s unless `ignore_unavailable`), a `*` /
+        `?` pattern over index and alias names, and after a pattern a
+        "-name" or "-pattern" exclusion of the concrete indices it names
+        from everything selected before it. A pattern skips an
+        `index.hidden` index (or an `is_hidden` alias) unless `expand`
+        holds hidden or all; a dot pattern still reaches a dot-prefixed
+        hidden index."""
+        wildcards_on = "none" not in expand
+        show_hidden = bool(expand & {"hidden", "all"})
+        candidates = sorted(set(self.indices) | set(alias_map))
+        selected: dict[str, tuple[bool, set[str]]] = {}
+        wildcard_seen = False
+        for part in expr.split(","):
+            part = self._resolve_date_math_name(part.strip())
+            if part.startswith("-") and wildcard_seen:
+                pat = part[1:]
+                dropped = {m for n in candidates
+                           if fnmatch.fnmatch(n, pat)
+                           for m in alias_map.get(n, [n])}
+                for _explicit, drops in selected.values():
+                    drops |= dropped
+                continue
+            if _has_wildcard(part):
+                wildcard_seen = True
+                if not wildcards_on:
+                    continue
+                matched = False
+                for n in candidates:
+                    if not fnmatch.fnmatch(n, part):
+                        continue
+                    if not show_hidden and self._hidden_name(
+                            n, alias_map) and not (
+                            part.startswith(".") and n.startswith(".")):
+                        continue
+                    selected[n] = (selected.get(n, (False,))[0], set())
+                    matched = True
+                if not matched and not allow_no_indices:
+                    raise IndexNotFoundException(part)
+            elif part in alias_map or part in self.indices:
+                selected[part] = (True, set())
+            elif not ignore_unavailable:
+                raise IndexNotFoundException(part)
+        return [(n, explicit, drops)
+                for n, (explicit, drops) in selected.items()]
+
+    def _hidden_name(self, name: str, alias_map: dict) -> bool:
+        if name in alias_map:
+            return any(str((self.indices[m].aliases.get(name) or {}).get(
+                "is_hidden", False)).lower() == "true"
+                for m in alias_map[name] if m in self.indices)
+        return self._is_hidden(name)
+
     def resolve_indices(self, expr: str, *, ignore_unavailable: bool = False,
                         allow_no_indices: bool = True,
                         expand_wildcards: str = "open") -> list[str]:
-        """Index name resolution: a comma list of concrete names and
-        aliases (each expanding to its member indices), or every index for
-        `_all`, `*` and the empty expression. Wildcard patterns are not
-        ported; `ignore_unavailable` drops missing names instead of a 404;
-        an empty result 404s when `allow_no_indices` is false."""
+        """Index name, pattern and alias resolution (comma lists, `*` / `?`
+        patterns over index AND alias names, "-" exclusions, date math,
+        `_all`); aliases expand to their member indices, as the
+        reference's IndexNameExpressionResolver does.
+        `ignore_unavailable` drops missing concrete names instead of a
+        404; `expand_wildcards=none` turns patterns off, `hidden` / `all`
+        lets them reach hidden indices, and every index is open (close is
+        not ported), so `closed` alone matches nothing; an empty result
+        404s when `allow_no_indices` is false."""
         alias_map = self._alias_map()
         expand = {w.strip() for w in str(expand_wildcards).split(",")}
+        # every index is open: a pattern selects it unless only closed
+        # indices are asked for
+        open_ok = "open" in expand or "all" in expand or \
+            not (expand & {"open", "closed"})
         if expr in ("_all", "*", ""):
-            names = sorted(self.indices) if "none" not in expand else []
+            names = ([n for n in sorted(self.indices)
+                      if not self._is_hidden(n)
+                      or expand & {"hidden", "all"}]
+                     if "none" not in expand and open_ok else [])
             if not names and not allow_no_indices:
                 raise IndexNotFoundException(expr or "_all")
             return names
         names: list[str] = []
-        for part in expr.split(","):
-            part = part.strip()
-            if _has_wildcard(part):
-                raise not_yet_ported("wildcard index expressions")
-            if part in alias_map:
-                names.extend(alias_map[part])
+        for name, explicit, dropped in self._expression_names(
+                expr, alias_map, expand,
+                ignore_unavailable=ignore_unavailable,
+                allow_no_indices=allow_no_indices):
+            if not explicit and not open_ok:
                 continue
-            if part not in self.indices:
-                if ignore_unavailable:
-                    continue
-                raise IndexNotFoundException(part)
-            names.append(part)
+            names.extend(m for m in alias_map.get(name, [name])
+                         if m not in dropped)
         if not names and not allow_no_indices:
             raise IndexNotFoundException(expr)
         return list(dict.fromkeys(names))
@@ -610,8 +785,6 @@ class TorchNode:
         return self.update_aliases({"actions": [{"add": conf}]})
 
     def delete_alias(self, index_expr: str, alias_expr: str) -> dict:
-        import fnmatch
-
         names = self.resolve_indices(index_expr, expand_wildcards="all")
         removed = False
         for name in names:
@@ -635,8 +808,6 @@ class TorchNode:
         applied in order; a CONCRETE requested alias that resolves to
         nothing makes the whole response a 404 that still carries the
         found entries (the handler reads the `status` / `error` riders)."""
-        import fnmatch
-
         names = (self.resolve_indices(index_expr,
                                       expand_wildcards=expand_wildcards)
                  if index_expr else sorted(self.indices))
@@ -771,22 +942,19 @@ class TorchNode:
                 per_index_filters[name] = [None]
 
         if expr in ("_all", "*", ""):
-            for name in sorted(self.indices):
+            for name in self.resolve_indices(expr):
                 add_index(name, None)
         else:
-            for part in expr.split(","):
-                part = part.strip()
-                if _has_wildcard(part):
-                    raise not_yet_ported("wildcard index expressions")
-                if part in alias_map:
-                    for name, conf in self._alias_targets(part):
-                        add_index(name, conf.get("filter"))
-                elif part in self.indices:
-                    add_index(part, None)
-                elif ignore_unavailable:
-                    continue
-                else:
-                    raise IndexNotFoundException(part)
+            for name, _explicit, dropped in self._expression_names(
+                    expr, alias_map, {"open"},
+                    ignore_unavailable=ignore_unavailable,
+                    allow_no_indices=True):
+                if name in alias_map:
+                    for member, conf in self._alias_targets(name):
+                        if member not in dropped:
+                            add_index(member, conf.get("filter"))
+                elif name not in dropped:
+                    add_index(name, None)
         shards: list = []
         filters: list = []
         for name in names:
@@ -846,13 +1014,17 @@ class TorchNode:
                   pipeline: str | None = None, version: int | None = None,
                   version_type: str = "internal",
                   if_primary_term: int | None = None) -> dict:
-        if pipeline is not None:
-            raise not_yet_ported("ingest pipelines")
         t0 = time.monotonic()
-        resp, shard = self._index_doc(
-            index, doc_id, source, routing, op_type or "index", if_seq_no,
-            version, version_type, if_primary_term)
-        shard.maybe_sync_translog()
+        with self.indexing_pressure.acquire(
+                len(json.dumps(source)) if source is not None else 0,
+                "index"):
+            resp, shard = self._index_doc(
+                index, doc_id, source, routing, op_type or "index",
+                if_seq_no, version, version_type, if_primary_term,
+                pipeline=pipeline)
+            if shard is None:  # an ingest drop: nothing was written
+                return resp
+            shard.maybe_sync_translog()
         if refresh:
             shard.refresh()
         self.indexing_slowlog.maybe_log(
@@ -863,8 +1035,13 @@ class TorchNode:
                    routing: str | None, op_type: str,
                    if_seq_no: int | None = None, version: int | None = None,
                    version_type: str = "internal",
-                   if_primary_term: int | None = None
-                   ) -> tuple[dict, IndexShard]:
+                   if_primary_term: int | None = None,
+                   pipeline: str | None = None
+                   ) -> tuple[dict, IndexShard | None]:
+        """(response, the shard written): the write runs the ingest
+        pipelines first (``_run_pipelines``), so the shard is the one the
+        document landed on after an ``_index`` / ``_routing`` reroute, and
+        None when a ``drop`` discarded it."""
         if if_primary_term is not None and if_seq_no is None:
             raise ActionRequestValidationException(
                 "Validation Failed: 1: ifSeqNo is unassigned, but "
@@ -880,6 +1057,15 @@ class TorchNode:
                 "Validation Failed: 1: create operations only support "
                 "internal versioning. use index instead;")
         index, routing = self._resolve_write_alias(index, routing)
+        landed = self._run_pipelines(pipeline, index, doc_id, source, routing)
+        if landed is None:
+            return {
+                "_index": index, "_id": doc_id, "_version": -3,
+                "result": "noop",
+                "_shards": {"total": 0, "successful": 0, "failed": 0},
+                "_seq_no": 0, "_primary_term": 0,
+            }, None
+        index, doc_id, source, routing = landed
         svc = self._get_or_autocreate(index)
         doc_id = uuid.uuid4().hex[:20] if doc_id is None else str(doc_id)
         if len(doc_id.encode()) > 512:
@@ -900,6 +1086,52 @@ class TorchNode:
             # for a restart
             self._persist_index_registry()
         return self._write_response(index, doc_id, result), shard
+
+    def _run_pipelines(self, pipeline: str | None, index: str,
+                       doc_id: str | None, source: dict,
+                       routing: str | None) -> tuple | None:
+        """The ingest chain of a write, resolved BEFORE any auto-creation
+        (so a drop or an ``_index`` reroute leaves no stray empty index):
+        the request's pipeline, else the target's
+        ``index.default_pipeline`` ("_none" is none), then the
+        ``index.final_pipeline`` of the index the document lands in. An
+        index the write will auto-create takes them from the template
+        that will create it (IngestService.resolvePipelines reads the
+        matching template), where the reference reads none.
+        (index, id, source, routing) after the pipelines, or None for a
+        drop."""
+        def setting_of(name: str, key: str):
+            svc = self.indices.get(name)
+            if svc is not None:
+                return _index_setting(svc.settings, key)
+            tmpl = self._template_for_index(name)
+            return (_index_setting(tmpl["settings"], key)
+                    if tmpl is not None else None)
+
+        resolved = pipeline
+        if resolved is None:
+            resolved = setting_of(index, "default_pipeline")
+        if resolved == "_none":
+            resolved = None
+        chain = [resolved] if resolved else []
+        ran_final = False
+        while chain or not ran_final:
+            if chain:
+                pipe_id = chain.pop(0)
+            else:
+                ran_final = True
+                pipe_id = setting_of(index, "final_pipeline")
+                if not pipe_id or pipe_id == "_none":
+                    break
+            out = self.ingest.execute(pipe_id, index, doc_id, source,
+                                      routing)
+            if out is None:
+                return None
+            source = out.source
+            index = out.meta["_index"]
+            doc_id = out.meta["_id"]
+            routing = out.meta["_routing"]
+        return index, doc_id, source, routing
 
     def get_doc(self, index: str, doc_id: str, routing: str | None = None,
                 realtime: bool = True, version: int | None = None,
@@ -933,9 +1165,11 @@ class TorchNode:
                    refresh: bool = False, if_seq_no: int | None = None,
                    version: int | None = None,
                    version_type: str = "internal") -> dict:
-        resp, shard = self._delete_doc(index, doc_id, routing, if_seq_no,
-                                       version, version_type)
-        shard.maybe_sync_translog()
+        # a delete carries no source: a small fixed cost is accounted
+        with self.indexing_pressure.acquire(64, "delete"):
+            resp, shard = self._delete_doc(index, doc_id, routing, if_seq_no,
+                                           version, version_type)
+            shard.maybe_sync_translog()
         if refresh:
             shard.refresh()
         return resp
@@ -972,11 +1206,13 @@ class TorchNode:
                 f"no such index [{index}] and [require_alias] request "
                 f"flag is [true] and [{index}] is not an alias")
             raise e
-        out, shard = self._update_doc(index, doc_id, body, routing, if_seq_no)
-        if shard is not None:
-            shard.maybe_sync_translog()
-            if refresh:
-                shard.refresh()
+        with self.indexing_pressure.acquire(len(json.dumps(body)), "update"):
+            out, shard = self._update_doc(index, doc_id, body, routing,
+                                          if_seq_no)
+            if shard is not None:
+                shard.maybe_sync_translog()
+        if shard is not None and refresh:
+            shard.refresh()
         return out
 
 
@@ -1109,29 +1345,39 @@ class TorchNode:
 
     def bulk(self, operations: list[tuple[str, dict, dict | None]],
              refresh: bool = False, pipeline: str | None = None,
-             query_group: str | None = None) -> dict:
+             query_group: str | None = None,
+             payload_bytes: int | None = None) -> dict:
         """operations: [(action, metadata, source)]; action in
         index|create|update|delete. The translog is fsynced once per
         request for every shard it touched, before the response, as the
         reference does under durability=request. `query_group` tags the
         request for its workload group's bulk admission (a 429 past the
         group's slot share); the request runs as a non-cancellable
-        ``indices:data/write/bulk`` task."""
-        if pipeline is not None:
-            raise not_yet_ported("ingest pipelines")
+        ``indices:data/write/bulk`` task. Its bytes (`payload_bytes`, the
+        HTTP body's size, else the sources serialized) count against the
+        indexing pressure budget."""
         t0 = time.monotonic()
+        if payload_bytes is None:
+            payload_bytes = sum(len(json.dumps(source))
+                                for _, _, source in operations
+                                if source is not None)
         release_admission = self.query_groups.admit_bulk(query_group)
         try:
-            with self.task_manager.task_scope(
-                    "indices:data/write/bulk",
-                    description=f"requests[{len(operations)}]",
-                    cancellable=False):
-                return self._bulk_inner(operations, refresh, t0)
+            with self.indexing_pressure.acquire(int(payload_bytes), "bulk"), \
+                    self.task_manager.task_scope(
+                        "indices:data/write/bulk",
+                        description=f"requests[{len(operations)}]",
+                        cancellable=False):
+                return self._bulk_inner(operations, refresh, pipeline, t0)
         finally:
             release_admission()
 
     def _bulk_inner(self, operations: list, refresh: bool,
-                    t0: float) -> dict:
+                    pipeline: str | None, t0: float) -> dict:
+        """Each item as the reference's bulk runs it; an index or create
+        item takes its own ``pipeline`` over the request's. The shards
+        touched are the ones the documents landed on after the pipelines'
+        reroutes, and only those are synced and refreshed."""
         items = []
         errors = False
         touched: dict[int, IndexShard] = {}
@@ -1147,8 +1393,6 @@ class TorchNode:
                 if doc_id == "":
                     raise IllegalArgumentException(
                         "if _id is specified it must not be empty")
-                if meta.get("pipeline") is not None:
-                    raise not_yet_ported("ingest pipelines")
                 if meta.get("require_alias") in (True, "true") and \
                         index not in self._alias_map():
                     e = IndexNotFoundException(index)
@@ -1167,7 +1411,8 @@ class TorchNode:
                         index, doc_id, source, routing, action,
                         if_seq_no=int(m_seq) if m_seq is not None else None,
                         if_primary_term=(int(m_pt) if m_pt is not None
-                                         else None))
+                                         else None),
+                        pipeline=meta.get("pipeline", pipeline))
                     status = 201 if resp["result"] == "created" else 200
                 elif action == "update":
                     if meta.get("_source") is not None and \
@@ -1277,6 +1522,225 @@ class TorchNode:
         return self.search(index, self.render_search_template(
             body, template_id), **kwargs)
 
+    # -- index templates (MetadataIndexTemplateService: composable
+    # templates, component templates and legacy /_template ones) ------------
+
+    def _templates_file(self) -> Path:
+        return self.data_path / "templates.json"
+
+    def _load_templates(self) -> dict:
+        if self._templates_file().exists():
+            return json.loads(self._templates_file().read_text())
+        return {"index_templates": {}, "component_templates": {}}
+
+    def _save_templates(self, data: dict) -> None:
+        self.data_path.mkdir(parents=True, exist_ok=True)
+        self._templates_file().write_text(json.dumps(data))
+
+    def put_index_template(self, name: str, body: dict) -> dict:
+        body = body or {}
+        patterns = body.get("index_patterns")
+        if not isinstance(patterns, list) or not patterns:
+            raise IllegalArgumentException(
+                "index template requires [index_patterns]"
+            )
+        data = self._load_templates()
+        for comp in body.get("composed_of") or []:
+            if comp not in data["component_templates"]:
+                raise IllegalArgumentException(
+                    f"component template [{comp}] not found"
+                )
+        data["index_templates"][name] = body
+        self._save_templates(data)
+        return {"acknowledged": True}
+
+    def get_index_template(self, name: str | None = None) -> dict:
+        data = self._load_templates()
+        if name is None:
+            items = data["index_templates"]
+        else:
+            items = {
+                n: t for n, t in data["index_templates"].items()
+                if fnmatch.fnmatch(n, name)
+            }
+            if not items and "*" not in name:
+                raise ResourceNotFoundException(
+                    f"index template matching [{name}] not found"
+                )
+        return {"index_templates": [
+            {"name": n, "index_template": t} for n, t in sorted(items.items())
+        ]}
+
+    def delete_index_template(self, name: str) -> dict:
+        data = self._load_templates()
+        if name not in data["index_templates"]:
+            raise ResourceNotFoundException(
+                f"index template matching [{name}] not found"
+            )
+        del data["index_templates"][name]
+        self._save_templates(data)
+        return {"acknowledged": True}
+
+    def put_component_template(self, name: str, body: dict) -> dict:
+        if not isinstance((body or {}).get("template"), dict):
+            raise IllegalArgumentException(
+                "component template requires [template]"
+            )
+        data = self._load_templates()
+        data["component_templates"][name] = body
+        self._save_templates(data)
+        return {"acknowledged": True}
+
+    def get_component_template(self, name: str | None = None) -> dict:
+        data = self._load_templates()
+        items = data["component_templates"]
+        if name is not None:
+            if name not in items:
+                raise ResourceNotFoundException(
+                    f"component template matching [{name}] not found"
+                )
+            items = {name: items[name]}
+        return {"component_templates": [
+            {"name": n, "component_template": t} for n, t in sorted(items.items())
+        ]}
+
+    def delete_component_template(self, name: str) -> dict:
+        data = self._load_templates()
+        if name not in data["component_templates"]:
+            raise ResourceNotFoundException(
+                f"component template matching [{name}] not found"
+            )
+        del data["component_templates"][name]
+        self._save_templates(data)
+        return {"acknowledged": True}
+
+    # -- legacy (v1) templates: /_template (MetadataIndexTemplateService
+    # legacy API; composable /_index_template templates shadow these) ------
+
+    def put_legacy_template(self, name: str, body: dict,
+                            create: bool = False) -> dict:
+        body = body or {}
+        patterns = body.get("index_patterns")
+        if isinstance(patterns, str):
+            patterns = [patterns]
+        if not patterns:
+            raise IllegalArgumentException(
+                f"index_template [{name}] index patterns are missing"
+            )
+        data = self._load_templates()
+        legacy = data.setdefault("legacy_templates", {})
+        if create and name in legacy:
+            raise IllegalArgumentException(
+                f"index_template [{name}] already exists"
+            )
+        # settings persist FLAT with the index. prefix and string values
+        # (IndexTemplateMetadata stores Settings; GET re-nests by default)
+        flat_settings = {}
+        for k, v in Settings.from_nested(
+                body.get("settings") or {}).as_dict().items():
+            if not k.startswith("index."):
+                k = f"index.{k}"
+            flat_settings[k] = str(v) if not isinstance(v, (dict, list)) \
+                else v
+        aliases = {}
+        for aname, conf in (body.get("aliases") or {}).items():
+            conf = dict(conf or {})
+            routing = conf.pop("routing", None)
+            if routing is not None:
+                conf.setdefault("index_routing", str(routing))
+                conf.setdefault("search_routing", str(routing))
+            aliases[aname] = conf
+        entry: dict[str, Any] = {
+            "order": int(body.get("order", 0)),
+            "index_patterns": list(patterns),
+            "settings": flat_settings,
+            "mappings": body.get("mappings") or {},
+            "aliases": aliases,
+        }
+        if body.get("version") is not None:
+            entry["version"] = int(body["version"])
+        legacy[name] = entry
+        self._save_templates(data)
+        return {"acknowledged": True}
+
+    def get_legacy_templates(self, name: str | None = None) -> dict:
+        legacy = self._load_templates().get("legacy_templates", {})
+        if name is None:
+            return dict(sorted(legacy.items()))
+        out = {}
+        for pat in str(name).split(","):
+            for n, t in legacy.items():
+                if fnmatch.fnmatch(n, pat):
+                    out[n] = t
+        if not out and not any(c in str(name) for c in "*,?"):
+            raise ResourceNotFoundException(
+                f"index_template [{name}] missing"
+            )
+        return dict(sorted(out.items()))
+
+    def delete_legacy_template(self, name: str) -> dict:
+        data = self._load_templates()
+        legacy = data.setdefault("legacy_templates", {})
+        victims = [n for n in legacy if fnmatch.fnmatch(n, name)]
+        if not victims and not any(c in name for c in "*?"):
+            raise ResourceNotFoundException(
+                f"index_template [{name}] missing"
+            )
+        for n in victims:
+            del legacy[n]
+        self._save_templates(data)
+        return {"acknowledged": True}
+
+    def _legacy_template_for_index(self, name: str) -> dict | None:
+        """Merged {settings, mappings, aliases} of matching v1 templates,
+        ascending order (higher order overrides)."""
+        legacy = self._load_templates().get("legacy_templates", {})
+        matching = sorted(
+            (t for t in legacy.values()
+             if any(fnmatch.fnmatch(name, p) for p in t["index_patterns"])),
+            key=lambda t: int(t.get("order", 0)),
+        )
+        if not matching:
+            return None
+        merged: dict = {"settings": {}, "mappings": {}, "aliases": {}}
+        for t in matching:
+            merged["settings"] = _deep_merge(
+                merged["settings"], t.get("settings") or {})
+            merged["mappings"] = _deep_merge(
+                merged["mappings"], t.get("mappings") or {})
+            merged["aliases"].update(t.get("aliases") or {})
+        return merged
+
+    def _template_for_index(self, name: str) -> dict | None:
+        """Composed {settings, mappings, aliases} of the highest-priority
+        matching template (components first, template's own last).
+        Composable templates shadow legacy /_template ones entirely."""
+        data = self._load_templates()
+        best = None
+        best_prio = -1
+        for tmpl in data["index_templates"].values():
+            if any(fnmatch.fnmatch(name, p) for p in tmpl["index_patterns"]):
+                prio = int(tmpl.get("priority", 0))
+                if prio > best_prio:
+                    best, best_prio = tmpl, prio
+        if best is None:
+            return self._legacy_template_for_index(name)
+        merged: dict = {"settings": {}, "mappings": {}, "aliases": {}}
+        layers = [
+            data["component_templates"].get(c, {}).get("template", {})
+            for c in best.get("composed_of") or []
+        ]
+        layers.append(best.get("template") or {})
+        for layer in layers:
+            merged["settings"] = _deep_merge(
+                merged["settings"], layer.get("settings") or {}
+            )
+            merged["mappings"] = _deep_merge(
+                merged["mappings"], layer.get("mappings") or {}
+            )
+            merged["aliases"].update(layer.get("aliases") or {})
+        return merged
+
     # -- refresh / search ----------------------------------------------------
 
     def refresh(self, index: str = "_all") -> dict:
@@ -1329,11 +1793,12 @@ class TorchNode:
         and the search runs behind search backpressure, its workload
         group's admission and an ``indices:data/read/search`` task."""
         body = dict(body or {})
-        # per-request stat groups feed indices.stats in the reference,
-        # which is not ported: the key is checked and accepted
+        # per-request stat groups ("stats": [...]) feed the _stats API's
+        # search.groups counters (SearchRequest.stats)
         stat_groups = body.get("stats")
         if stat_groups is not None and not isinstance(stat_groups, list):
             raise ParsingException("[stats] must be an array of group names")
+        self._count_search(index, stat_groups)
         # the body key is always taken out; the parameter wins over it
         body_pipeline = body.pop("search_pipeline", None)
         pipeline_id = search_pipeline or body_pipeline
@@ -1425,6 +1890,32 @@ class TorchNode:
         if cache_key is not None:
             self.request_cache.put(cache_key, json.dumps(resp, default=str))
         return resp
+
+    def _count_search(self, index: str | None,
+                      stat_groups: list | None) -> None:
+        """One search on each index its expression names (`_all` for none,
+        as a PIT search is too): the index-level query and fetch totals
+        and the request's stat groups the _stats API reports, counted as
+        the reference counts them, once a search whatever its route (the
+        stacked step or the per-shard one)."""
+        try:
+            for name in self.resolve_indices(
+                    index if index is not None else "_all",
+                    ignore_unavailable=True):
+                svc = self.indices.get(name)
+                if svc is None:
+                    continue
+                svc.search_stats["query_total"] += 1
+                svc.search_stats["fetch_total"] += 1
+                for g in stat_groups or ():
+                    e = svc.search_group_stats.setdefault(str(g), {
+                        "query_total": 0, "query_time_in_millis": 0,
+                        "query_current": 0, "fetch_total": 0,
+                        "fetch_time_in_millis": 0, "fetch_current": 0})
+                    e["query_total"] += 1
+                    e["fetch_total"] += 1
+        except OpenSearchTpuException:
+            pass  # stats accounting never fails a search
 
     def _search_with_pipeline(self, pipeline_id: str | None,
                               index_names: list[str], shards: list,
@@ -1977,6 +2468,263 @@ class TorchNode:
                 flat)
         return out
 
+    # -- the _stats API (IndicesStatsAction / CommonStats) ---------------------
+
+    _STATS_SECTIONS = (
+        "docs", "store", "indexing", "get", "search", "merges", "refresh",
+        "flush", "warmer", "query_cache", "fielddata", "completion",
+        "segments", "translog", "request_cache", "recovery",
+    )
+    # REST metric name -> response section (IndicesStatsRequest flags)
+    _METRIC_ALIASES = {"merge": "merges"}
+
+    @staticmethod
+    def _field_bytes(shard, field: str) -> int:
+        """Estimated columnar (fielddata-class) bytes for one field across
+        a shard's sealed segments."""
+        total = 0
+        for host, _dev in shard.engine._segments:
+            kf = host.keyword_fields.get(field)
+            if kf is not None:
+                total += int(kf.mv_ords.nbytes + kf.first_ord.nbytes)
+            nf = host.numeric_fields.get(field)
+            if nf is not None:
+                total += 8 * host.n_docs
+            tf = host.text_fields.get(field)
+            if tf is not None:
+                total += int(tf.doc_len.nbytes)
+        return total
+
+    def _completion_fields_of(self, svc) -> list[str]:
+        # completion fields store keyword-style with mapper.completion=True
+        return [n for n, m in svc.mapper_service.mappers.items()
+                if m.type == "completion" or getattr(m, "completion", False)]
+
+    def _full_shard_stats(self, svc, shard, *, f_pats, c_pats,
+                          groups, file_sizes, human) -> dict:
+        eng = shard.engine
+        seg = eng.segment_stats()
+        tlog = eng.translog.stats()
+        store_bytes = tlog["size_in_bytes"]
+        for host, _dev in eng._segments:
+            store_bytes += sum(len(s) for s in host.sources)
+        st: dict[str, Any] = {
+            "docs": {"count": eng.num_docs,
+                     "deleted": max(seg["docs"] - seg["live_docs"], 0)},
+            "store": {"size_in_bytes": store_bytes, "reserved_in_bytes": 0},
+            "indexing": {
+                "index_total": eng.stats["index_total"],
+                "index_time_in_millis": int(eng.stats["index_time_ms"]),
+                "index_current": 0, "index_failed": 0,
+                "delete_total": eng.stats["delete_total"],
+                "delete_time_in_millis": 0, "delete_current": 0,
+                "noop_update_total": eng.stats.get("noop_update_total", 0),
+                "is_throttled": False, "throttle_time_in_millis": 0,
+            },
+            "get": {"total": 0, "time_in_millis": 0, "exists_total": 0,
+                    "exists_time_in_millis": 0, "missing_total": 0,
+                    "missing_time_in_millis": 0, "current": 0},
+            "search": {"open_contexts": 0, "query_total": 0,
+                       "query_time_in_millis": 0, "query_current": 0,
+                       "fetch_total": 0, "fetch_time_in_millis": 0,
+                       "fetch_current": 0, "scroll_total": 0,
+                       "scroll_time_in_millis": 0, "scroll_current": 0},
+            "merges": {"current": 0, "current_docs": 0,
+                       "current_size_in_bytes": 0, "total": 0,
+                       "total_time_in_millis": 0, "total_docs": 0,
+                       "total_size_in_bytes": 0},
+            "refresh": {"total": eng.stats["refresh_total"],
+                        "total_time_in_millis": 0,
+                        "external_total": eng.stats["refresh_total"],
+                        "external_total_time_in_millis": 0, "listeners": 0},
+            "flush": {"total": eng.stats["flush_total"], "periodic": 0,
+                      "total_time_in_millis": 0},
+            "warmer": {"current": 0, "total": 0, "total_time_in_millis": 0},
+            "query_cache": {"memory_size_in_bytes": 0, "total_count": 0,
+                            "hit_count": 0, "miss_count": 0,
+                            "cache_size": 0, "cache_count": 0,
+                            "evictions": 0},
+            "fielddata": {
+                # resident column bytes across this shard's fields — the
+                # engine's analog of loaded fielddata (always resident here)
+                "memory_size_in_bytes": sum(
+                    self._field_bytes(shard, fname)
+                    for fname, m in svc.mapper_service.mappers.items()
+                    if not getattr(m, "completion", False)),
+                "evictions": 0,
+            },
+            "completion": {"size_in_bytes": 0},
+            "segments": {
+                "count": seg["count"],
+                "memory_in_bytes": 0, "terms_memory_in_bytes": 0,
+                "stored_fields_memory_in_bytes": 0,
+                "term_vectors_memory_in_bytes": 0,
+                "norms_memory_in_bytes": 0, "points_memory_in_bytes": 0,
+                "doc_values_memory_in_bytes": 0,
+                "index_writer_memory_in_bytes": 0,
+                "version_map_memory_in_bytes": 0,
+                "fixed_bit_set_memory_in_bytes": 0,
+                "max_unsafe_auto_id_timestamp": -1,
+                "file_sizes": {},
+            },
+            "translog": tlog,
+            "request_cache": {"memory_size_in_bytes": 0, "evictions": 0,
+                              "hit_count": 0, "miss_count": 0},
+            "recovery": {"current_as_source": 0, "current_as_target": 0,
+                         "throttle_time_in_millis": 0},
+        }
+        if human:
+            st["get"]["time"] = "0s"
+            st["get"]["getTime"] = "0s"
+        if file_sizes:
+            st["segments"]["file_sizes"] = {
+                "src": {"size_in_bytes": store_bytes,
+                        "description": "source documents"},
+            }
+        # per-field fielddata/completion breakdowns (?fields= patterns)
+        if f_pats:
+            fields = {}
+            for fname in sorted(svc.mapper_service.mappers):
+                m = svc.mapper_service.mappers[fname]
+                if getattr(m, "completion", False):
+                    continue
+                if any(fnmatch.fnmatch(fname, p) for p in f_pats):
+                    b = self._field_bytes(shard, fname)
+                    fields[fname] = {"memory_size_in_bytes": max(b, 1)}
+            if fields:
+                st["fielddata"]["fields"] = fields
+                st["fielddata"]["memory_size_in_bytes"] = sum(
+                    f["memory_size_in_bytes"] for f in fields.values())
+        comp_total = 0
+        comp_fields = {}
+        for fname in self._completion_fields_of(svc):
+            size = 0
+            for host, _dev in shard.engine._segments:
+                w = host.completion_weights.get(fname)
+                if w:
+                    size += sum(len(k) + 8 for k in w)
+            if size == 0:
+                # no explicit inputs: the FST size scales with the
+                # completion column's stored values
+                size = self._field_bytes(shard, fname)
+            comp_total += size
+            if c_pats and any(fnmatch.fnmatch(fname, p) for p in c_pats):
+                comp_fields[fname] = {"size_in_bytes": max(size, 1)}
+        st["completion"]["size_in_bytes"] = comp_total
+        if comp_fields:
+            st["completion"]["fields"] = comp_fields
+        return st
+
+    @staticmethod
+    def _merge_stats(a: dict, b: dict) -> dict:
+        out = dict(a)
+        for k, v in b.items():
+            cur = out.get(k)
+            if isinstance(v, dict):
+                out[k] = TorchNode._merge_stats(cur or {}, v)
+            elif isinstance(v, (int, float)) and not isinstance(v, bool) \
+                    and isinstance(cur, (int, float)):
+                out[k] = cur + v
+            elif cur is None:
+                out[k] = v
+        return out
+
+    def index_stats(self, index: str = "_all", *, metrics=None, fields=None,
+                    completion_fields=None, fielddata_fields=None,
+                    groups=None, level: str = "indices",
+                    include_segment_file_sizes: bool = False,
+                    human: bool = False) -> dict:
+        """GET [/{index}]/_stats[/{metric}] (IndicesStatsAction /
+        CommonStats; reference rest-api-spec indices.stats)."""
+        sections = set(self._STATS_SECTIONS)
+        if metrics:
+            want = set()
+            for m in metrics:
+                m = self._METRIC_ALIASES.get(m, m)
+                if m == "_all":
+                    want = set(self._STATS_SECTIONS)
+                    break
+                if m not in self._STATS_SECTIONS:
+                    msg = (f"request [/_stats/{','.join(metrics)}] contains "
+                           f"unrecognized metric: [{m}]")
+                    close = difflib.get_close_matches(
+                        m, self._STATS_SECTIONS, n=3)
+                    if close:
+                        msg += " -> did you mean " + (
+                            f"[{close[0]}]?" if len(close) == 1
+                            else f"any of {sorted(close)}?")
+                    raise IllegalArgumentException(msg)
+                want.add(m)
+            sections = want
+        f_pats = [p for p in (fields or "").split(",") if p] or \
+            [p for p in (fielddata_fields or "").split(",") if p]
+        c_pats = [p for p in (fields or "").split(",") if p] or \
+            [p for p in (completion_fields or "").split(",") if p]
+        group_list = [g for g in (groups or "").split(",") if g]
+
+        out: dict[str, Any] = {
+            "_shards": {"total": 0, "successful": 0, "failed": 0},
+            "_all": {"primaries": {}, "total": {}},
+            "indices": {},
+        }
+        all_prim: dict = {}
+        for name in self.resolve_indices(index):
+            svc = self._get_index(name)
+            prim: dict = {}
+            shards_out: dict = {}
+            for sid, shard in sorted(svc.shards.items()):
+                sstats = self._full_shard_stats(
+                    svc, shard, f_pats=f_pats, c_pats=c_pats,
+                    groups=group_list,
+                    file_sizes=include_segment_file_sizes, human=human)
+                sstats = {k: v for k, v in sstats.items() if k in sections}
+                prim = self._merge_stats(prim, sstats)
+                # total counts every targeted copy (primaries + replicas);
+                # successful counts the copies that reported (primaries on
+                # this single node)
+                out["_shards"]["total"] += 1 + svc.num_replicas
+                out["_shards"]["successful"] += 1
+                if level == "shards":
+                    entry = dict(sstats)
+                    entry["routing"] = {
+                        "state": "STARTED", "primary": True,
+                        "node": self.node_name,
+                    }
+                    entry["commit"] = {
+                        "id": shard.engine.engine_uuid,
+                        "generation": shard.engine.translog.checkpoint.generation,
+                        "num_docs": shard.engine.num_docs,
+                        "user_data": {},
+                    }
+                    shards_out[str(sid)] = [entry]
+            # search totals and stat-group counters are INDEX-level (the
+            # per-shard merge would multiply them by shard count)
+            if "search" in sections and "search" in prim:
+                totals = svc.search_stats
+                prim["search"]["query_total"] = totals["query_total"]
+                prim["search"]["fetch_total"] = totals["fetch_total"]
+                if group_list:
+                    tracked = svc.search_group_stats
+                    matched = {
+                        g: dict(c) for g, c in tracked.items()
+                        if any(fnmatch.fnmatch(g, p) for p in group_list)
+                    }
+                    if matched:
+                        prim["search"]["groups"] = matched
+            idx_entry: dict[str, Any] = {
+                "uuid": svc.uuid,
+                "primaries": prim,
+                "total": prim,
+            }
+            if level == "shards":
+                idx_entry["shards"] = shards_out
+            out["indices"][name] = idx_entry
+            all_prim = self._merge_stats(all_prim, prim)
+        out["_all"] = {"primaries": all_prim, "total": all_prim}
+        if level == "cluster":
+            out.pop("indices")
+        return out
+
     def close(self) -> None:
         # flush on shutdown: buffered trace fragments decide and drain
         from opensearch_tpu_torch.telemetry.export import close_exporter
@@ -1989,3 +2737,16 @@ class TorchNode:
             # the stacked serving slabs of this index leave device memory
             shard_mesh.default_registry.invalidate_index(name)
         self.indices.clear()
+
+
+def _index_setting(settings: dict, name: str):
+    """An index-scoped setting from the flat ("index.default_pipeline"),
+    nested ({"index": {"default_pipeline": ...}}) or top-level shape."""
+    v = settings.get(name)
+    if v is None:
+        v = settings.get(f"index.{name}")
+    if v is None:
+        nested = settings.get("index")
+        if isinstance(nested, dict):
+            v = nested.get(name)
+    return v

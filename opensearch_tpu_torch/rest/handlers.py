@@ -17,8 +17,14 @@ aliases and admission: scroll (`_search/scroll`), point in time
 `_aliases` and `_alias`, `_tasks` (list, get, cancel), the workload groups
 (`_wlm/query_group`, `_wlm/stats`, `_list/wlm_stats`),
 `_cluster/settings` and `_otel/flush`; `_search` reads `scroll`,
-`query_group` and `request_cache`, `_bulk` reads `query_group`. Every
-other route answers through
+`query_group` and `request_cache`, `_bulk` reads `query_group`; ingest
+pipelines (`_ingest/pipeline`, with `_simulate`), index templates
+(`_template`, `_index_template`, `_component_template`), `_segments`,
+`_stats`, `_cluster/stats`, `_nodes` (info and stats by metric, with the
+`ingest`, `device`, `knn_batch`, `roofline` and `heat` sections),
+`_prometheus/metrics` and `_cat` (all but recovery, pending_tasks,
+repositories and snapshots), each stats read from host counters only.
+Every other route answers through
 :func:`_not_yet_ported`, which raises "<METHOD> <path> is not yet ported
 to opensearch_tpu_torch" (the HTTP server's 500 envelope). Handlers
 receive (node, params, query, body) and return (status, payload); the
@@ -27,9 +33,16 @@ HTTP server is transport-only.
 
 from __future__ import annotations
 
+import copy
+import difflib
 import fnmatch
 import logging
+import os
 import re
+import resource
+import threading
+import time
+from datetime import datetime, timezone
 from typing import Any
 
 from opensearch_tpu_torch import __version__
@@ -39,10 +52,12 @@ from opensearch_tpu_torch.common.errors import (
     OpenSearchTpuException,
     ResourceNotFoundException,
 )
+from opensearch_tpu_torch.common.settings import Settings
 from opensearch_tpu_torch.node import TorchNode
 from opensearch_tpu_torch.rest.router import Router
 from opensearch_tpu_torch.search.executor import not_yet_ported
 from opensearch_tpu_torch.search.service import _source_filter
+from opensearch_tpu_torch.telemetry import device_ledger, roofline
 
 logger = logging.getLogger(__name__)
 
@@ -251,6 +266,78 @@ def build_router() -> Router:
     reg("GET", "/_search/pipeline", get_search_pipelines)
     reg("GET", "/_search/pipeline/{id}", get_search_pipeline)
     reg("DELETE", "/_search/pipeline/{id}", delete_search_pipeline)
+    # ingest pipelines
+    reg("PUT", "/_ingest/pipeline/{id}", put_pipeline)
+    reg("GET", "/_ingest/pipeline", get_pipelines)
+    reg("GET", "/_ingest/pipeline/{id}", get_pipeline)
+    reg("DELETE", "/_ingest/pipeline/{id}", delete_pipeline)
+    reg("POST", "/_ingest/pipeline/{id}/_simulate", simulate_pipeline)
+    reg("GET", "/_ingest/pipeline/{id}/_simulate", simulate_pipeline)
+    reg("POST", "/_ingest/pipeline/_simulate", simulate_inline)
+    reg("GET", "/_ingest/pipeline/_simulate", simulate_inline)
+    # index templates: legacy, composable and component
+    reg("PUT", "/_template/{name}", put_legacy_template)
+    reg("POST", "/_template/{name}", put_legacy_template)
+    reg("GET", "/_template", get_legacy_templates)
+    reg("GET", "/_template/{name}", get_legacy_templates)
+    reg("HEAD", "/_template/{name}", legacy_template_exists)
+    reg("DELETE", "/_template/{name}", delete_legacy_template)
+    reg("PUT", "/_index_template/{name}", put_index_template)
+    reg("POST", "/_index_template/{name}", put_index_template)
+    reg("GET", "/_index_template", get_index_templates)
+    reg("GET", "/_index_template/{name}", get_index_template)
+    reg("DELETE", "/_index_template/{name}", delete_index_template)
+    reg("PUT", "/_component_template/{name}", put_component_template)
+    reg("POST", "/_component_template/{name}", put_component_template)
+    reg("GET", "/_component_template", get_component_templates)
+    reg("GET", "/_component_template/{name}", get_component_template)
+    reg("DELETE", "/_component_template/{name}", delete_component_template)
+    # the node's stats: _stats, _segments, _cluster/stats, _nodes,
+    # Prometheus and _cat
+    reg("GET", "/_segments", indices_segments)
+    reg("GET", "/{index}/_segments", indices_segments)
+    reg("GET", "/_prometheus/metrics", prometheus_metrics)
+    reg("GET", "/_cluster/stats", cluster_stats)
+    reg("GET", "/_stats", all_stats)
+    reg("GET", "/_stats/{metric}", all_stats)
+    reg("GET", "/{index}/_stats", index_stats)
+    reg("GET", "/{index}/_stats/{metric}", index_stats)
+    reg("GET", "/_nodes", nodes_info)
+    reg("GET", "/_nodes/stats", nodes_stats)
+    reg("GET", "/_nodes/{node_id}/stats", nodes_stats)
+    reg("GET", "/_nodes/stats/{metric}", nodes_stats)
+    reg("GET", "/_nodes/stats/{metric}/{index_metric}", nodes_stats)
+    reg("GET", "/_nodes/{node_id}/stats/{metric}", nodes_stats)
+    reg("GET", "/_nodes/{node_id}/stats/{metric}/{index_metric}",
+        nodes_stats)
+    reg("GET", "/_nodes/{node_id}", nodes_info)
+    reg("GET", "/_nodes/{node_id}/{metric}", nodes_info)
+    reg("GET", "/_cat", cat_help)
+    reg("GET", "/_cat/indices", cat_indices)
+    reg("GET", "/_cat/indices/{index}", cat_indices)
+    reg("GET", "/_cat/health", cat_health)
+    reg("GET", "/_cat/shards", cat_shards)
+    reg("GET", "/_cat/shards/{index}", cat_shards)
+    reg("GET", "/_cat/count", cat_count)
+    reg("GET", "/_cat/count/{index}", cat_count)
+    reg("GET", "/_cat/aliases", cat_aliases)
+    reg("GET", "/_cat/aliases/{name}", cat_aliases)
+    reg("GET", "/_cat/allocation", cat_allocation)
+    reg("GET", "/_cat/allocation/{node_id}", cat_allocation)
+    reg("GET", "/_cat/nodes", cat_nodes)
+    reg("GET", "/_cat/master", cat_master)
+    reg("GET", "/_cat/cluster_manager", cat_master)
+    reg("GET", "/_cat/nodeattrs", cat_nodeattrs)
+    reg("GET", "/_cat/plugins", cat_plugins)
+    reg("GET", "/_cat/templates", cat_templates)
+    reg("GET", "/_cat/templates/{name}", cat_templates)
+    reg("GET", "/_cat/thread_pool", cat_thread_pool)
+    reg("GET", "/_cat/thread_pool/{pattern}", cat_thread_pool)
+    reg("GET", "/_cat/segments", cat_segments)
+    reg("GET", "/_cat/segments/{index}", cat_segments)
+    reg("GET", "/_cat/tasks", cat_tasks)
+    reg("GET", "/_cat/fielddata", cat_fielddata)
+    reg("GET", "/_cat/fielddata/{fields}", cat_fielddata)
     # the rest of the reference's surface
     for method, template in UNPORTED_ROUTES:
         reg(method, template, _not_yet_ported(method, template))
@@ -300,6 +387,17 @@ def delete_index(node: TorchNode, params, query, body):
     )
 
 
+def _alias_echo(conf: dict | None) -> dict:
+    """An index's alias as GET /{index} shows it: `routing` as
+    index_routing and search_routing."""
+    c = dict(conf or {})
+    if "routing" in c:
+        c.setdefault("index_routing", c["routing"])
+        c.setdefault("search_routing", c["routing"])
+        del c["routing"]
+    return c
+
+
 def get_index(node: TorchNode, params, query, body):
     out = {}
     for name in node.resolve_indices(
@@ -309,8 +407,8 @@ def get_index(node: TorchNode, params, query, body):
         allow_no_indices=str(query.get("allow_no_indices", "true")) != "false",
     ):
         out[name] = {
-            # aliases are not ported: an index has none
-            "aliases": {},
+            "aliases": {a: _alias_echo(c)
+                        for a, c in node.indices[name].aliases.items()},
             "mappings": node.indices[name].mapper_service.to_dict(),
             "settings": node.get_settings(name)[name]["settings"],
         }
@@ -358,14 +456,14 @@ def _refresh_param(query) -> bool:
     return v in ("true", "", "wait_for")
 
 
-def _check_require_alias(index: str, query) -> None:
+def _check_require_alias(node: TorchNode, index: str, query) -> None:
     """require_alias: the write target must be an alias, never a concrete
-    (or auto-created) index (RestIndexAction / DocWriteRequest). The port
-    has no aliases, so the flag always refuses."""
+    (or auto-created) index (RestIndexAction / DocWriteRequest)."""
     if query.get("require_alias") not in ("true", ""):
         return
-    raise IndexNotFoundException(
-        f"[{index}] is not an alias and require_alias is set")
+    if index not in node._alias_map():
+        raise IndexNotFoundException(
+            f"[{index}] is not an alias and require_alias is set")
 
 
 def _forced_refresh(resp: dict, query) -> dict:
@@ -399,7 +497,7 @@ def index_doc(node: TorchNode, params, query, body):
         raise IllegalArgumentException("request body is required")
     if_seq_no = query.get("if_seq_no")
     if_pt = query.get("if_primary_term")
-    _check_require_alias(params["index"], query)
+    _check_require_alias(node, params["index"], query)
     resp = node.index_doc(
         params["index"], params["id"], body,
         routing=_routing_param(query),
@@ -417,7 +515,7 @@ def index_doc(node: TorchNode, params, query, body):
 def index_doc_auto_id(node: TorchNode, params, query, body):
     if body is None:
         raise IllegalArgumentException("request body is required")
-    _check_require_alias(params["index"], query)
+    _check_require_alias(node, params["index"], query)
     resp = node.index_doc(
         params["index"], None, body,
         routing=_routing_param(query), refresh=_refresh_param(query),
@@ -601,7 +699,8 @@ def bulk(node: TorchNode, params, query, body):
         ops.append((action, meta, source))
     return 200, node.bulk(ops, refresh=_refresh_param(query),
                           pipeline=query.get("pipeline"),
-                          query_group=query.get("query_group"))
+                          query_group=query.get("query_group"),
+                          payload_bytes=query.get("_payload_bytes"))
 
 
 # -- search ------------------------------------------------------------------
@@ -1543,6 +1642,1084 @@ def _cat_format(query, rows: list[dict], cols: list[str] | None = None,
     return "\n".join(lines) + "\n"
 
 
+# -- ingest, templates, segments and the node's stats ---------------------
+
+
+def put_pipeline(node: TorchNode, params, query, body):
+    if not isinstance(body, dict):
+        raise IllegalArgumentException("request body is required")
+    return 200, node.ingest.put_pipeline(params["id"], body)
+
+
+def get_pipelines(node: TorchNode, params, query, body):
+    return 200, node.ingest.get_pipeline(None)
+
+
+def get_pipeline(node: TorchNode, params, query, body):
+    return 200, node.ingest.get_pipeline(params["id"])
+
+
+def delete_pipeline(node: TorchNode, params, query, body):
+    return 200, node.ingest.delete_pipeline(params["id"])
+
+
+def simulate_pipeline(node: TorchNode, params, query, body):
+    verbose = str(query.get("verbose", "false")) in ("true", "")
+    return 200, node.ingest.simulate(body or {}, pipeline_id=params["id"],
+                                     verbose=verbose)
+
+
+def simulate_inline(node: TorchNode, params, query, body):
+    verbose = str(query.get("verbose", "false")) in ("true", "")
+    return 200, node.ingest.simulate(body or {}, verbose=verbose)
+
+
+def put_index_template(node: TorchNode, params, query, body):
+    return 200, node.put_index_template(params["name"], body or {})
+
+
+def put_legacy_template(node: TorchNode, params, query, body):
+    return 200, node.put_legacy_template(
+        params["name"], body or {},
+        create=str(query.get("create", "false")) in ("true", ""))
+
+
+def get_legacy_templates(node: TorchNode, params, query, body):
+    out = node.get_legacy_templates(params.get("name"))
+    if str(query.get("flat_settings", "false")) not in ("true", ""):
+        out = {n: {**t, "settings":
+                   Settings.from_flat(t.get("settings") or {}).as_nested()}
+               for n, t in out.items()}
+    return 200, out
+
+
+def legacy_template_exists(node: TorchNode, params, query, body):
+    try:
+        node.get_legacy_templates(params["name"])
+        return 200, ""
+    except ResourceNotFoundException:
+        return 404, ""
+
+
+def delete_legacy_template(node: TorchNode, params, query, body):
+    return 200, node.delete_legacy_template(params["name"])
+
+
+def get_index_templates(node: TorchNode, params, query, body):
+    return 200, node.get_index_template()
+
+
+def get_index_template(node: TorchNode, params, query, body):
+    return 200, node.get_index_template(params["name"])
+
+
+def delete_index_template(node: TorchNode, params, query, body):
+    return 200, node.delete_index_template(params["name"])
+
+
+def put_component_template(node: TorchNode, params, query, body):
+    return 200, node.put_component_template(params["name"], body or {})
+
+
+def get_component_templates(node: TorchNode, params, query, body):
+    return 200, node.get_component_template()
+
+
+def get_component_template(node: TorchNode, params, query, body):
+    return 200, node.get_component_template(params["name"])
+
+
+def delete_component_template(node: TorchNode, params, query, body):
+    return 200, node.delete_component_template(params["name"])
+
+
+def _admin_indices(node: TorchNode, params, query,
+                   expand_default: str = "open") -> list[str]:
+    return node.resolve_indices(
+        params.get("index", "_all"),
+        ignore_unavailable=str(query.get("ignore_unavailable", "false"))
+        in ("true", ""),
+        allow_no_indices=str(query.get("allow_no_indices", "true"))
+        in ("true", ""),
+        expand_wildcards=str(query.get("expand_wildcards", expand_default)),
+    )
+
+
+def indices_segments(node: TorchNode, params, query, body):
+    """GET [/{index}]/_segments (IndicesSegmentsAction): the sealed
+    segment inventory per shard."""
+    # every index of the port is open (close is not ported)
+    names = _admin_indices(node, params, query)
+    out_indices = {}
+    n_shards = 0
+    for name in names:
+        svc = node.indices[name]
+        shards_out = {}
+        for sid, shard in sorted(svc.shards.items()):
+            n_shards += 1
+            segments = {}
+            for gen, (host, _dev) in enumerate(shard.engine._segments):
+                live = int(host.live.sum())
+                segments[f"_{gen}"] = {
+                    "generation": gen,
+                    "num_docs": live,
+                    "deleted_docs": host.n_docs - live,
+                    "size_in_bytes": sum(len(s) for s in host.sources),
+                    "committed": True,
+                    "search": True,
+                    "version": "10.3.0",
+                    "compound": True,
+                }
+            shards_out[str(sid)] = [{
+                "routing": {"state": "STARTED", "primary": True,
+                            "node": "node-0"},
+                "num_committed_segments": len(segments),
+                "num_search_segments": len(segments),
+                "segments": segments,
+            }]
+        out_indices[name] = {"shards": shards_out}
+    return 200, {
+        "_shards": {"total": n_shards, "successful": n_shards, "failed": 0},
+        "indices": out_indices,
+    }
+
+
+def cluster_stats(node: TorchNode, params, query, body):
+    stats = node.index_stats("_all")
+    doc_count = (stats["_all"]["primaries"].get("docs") or {}).get("count", 0)
+    return 200, {
+        "cluster_name": "opensearch-tpu",
+        "status": "green",
+        "indices": {
+            "count": len(node.indices),
+            "docs": {"count": doc_count},
+            "shards": {
+                "total": sum(s.num_shards for s in node.indices.values()),
+            },
+        },
+        "nodes": {
+            "count": {"total": 1, "data": 1, "cluster_manager": 1,
+                      "master": 1, "ingest": 1,
+                      "remote_cluster_client": 1, "coordinating_only": 0,
+                      "search": 0, "warm": 0},
+            "versions": [__version__],
+            "discovery_types": {"zen": 1},
+            "packaging_types": [{"type": "tar", "count": 1}],
+        },
+    }
+
+
+_STATS_PARAMS = {
+    "fields", "completion_fields", "fielddata_fields", "groups", "level",
+    "include_segment_file_sizes", "include_unloaded_segments",
+    "forbid_closed_indices", "expand_wildcards", "ignore_unavailable",
+    "human", "error_trace", "pretty", "filter_path",
+}
+
+
+def _do_stats(node: TorchNode, params, query):
+    bad = [k for k in query if k not in _STATS_PARAMS]
+    if bad:
+        raise IllegalArgumentException(
+            f"request [/_stats] contains unrecognized parameter: [{bad[0]}]"
+        )
+    metric = params.get("metric")
+    return 200, node.index_stats(
+        params.get("index", "_all"),
+        metrics=(str(metric).split(",") if metric else None),
+        fields=query.get("fields"),
+        completion_fields=query.get("completion_fields"),
+        fielddata_fields=query.get("fielddata_fields"),
+        groups=query.get("groups"),
+        level=str(query.get("level", "indices")),
+        include_segment_file_sizes=str(
+            query.get("include_segment_file_sizes", "false")) in ("true", ""),
+        human=str(query.get("human", "false")) in ("true", ""),
+    )
+
+
+def all_stats(node: TorchNode, params, query, body):
+    return _do_stats(node, params, query)
+
+
+def index_stats(node: TorchNode, params, query, body):
+    return _do_stats(node, params, query)
+
+
+def _prom_name(name: str) -> str:
+    return "opensearch_tpu_" + re.sub(r"[^a-zA-Z0-9_]", "_", name)
+
+
+def _prom_fmt(v) -> str:
+    f = float(v)
+    return str(int(f)) if f.is_integer() else repr(f)
+
+
+def _prom_labels(labels: dict | None, extra: dict | None = None) -> str:
+    merged = {**(labels or {}), **(extra or {})}
+    if not merged:
+        return ""
+    inner = ",".join(f'{k}="{v}"' for k, v in merged.items())
+    return "{" + inner + "}"
+
+
+def _prom_registry_lines(stats: dict, labels: dict | None,
+                         declare_types: bool,
+                         want_exemplars: bool) -> list[str]:
+    """Render one MetricsRegistry.stats() snapshot. With `want_exemplars`,
+    histogram buckets that carry an exemplar append it in OpenMetrics
+    exemplar syntax — `... # {trace_id="..."} value` — so a p99 bucket
+    links directly to the trace the span exporter can ship (the closed
+    telemetry loop). That suffix is only legal in the OpenMetrics format,
+    so it is opt-in: the default exposition stays classic-text-parseable
+    by a stock Prometheus scrape."""
+    lines: list[str] = []
+    for name in sorted(stats.get("counters", {})):
+        m = _prom_name(name)
+        if declare_types:
+            lines.append(f"# TYPE {m} counter")
+        lines.append(
+            f"{m}{_prom_labels(labels)} {_prom_fmt(stats['counters'][name])}")
+
+    def histogram_series(m: str, h: dict, series_labels: dict | None,
+                         with_minmax: bool) -> None:
+        exemplars = ({e["le"]: e for e in h.get("exemplars", [])}
+                     if want_exemplars else {})
+
+        def bucket_line(le_text, count, le_key):
+            line = (f'{m}_bucket'
+                    f'{_prom_labels(series_labels, {"le": le_text})} '
+                    f"{_prom_fmt(count)}")
+            ex = exemplars.get(le_key)
+            if ex is not None:
+                line += (f' # {{trace_id="{ex["trace_id"]}"}} '
+                         f'{_prom_fmt(ex["value"])}')
+            return line
+
+        for b in h.get("buckets", []):
+            lines.append(bucket_line(_prom_fmt(b["le"]), b["count"], b["le"]))
+        lines.append(bucket_line("+Inf", h["count"], "+Inf"))
+        lines.append(
+            f"{m}_count{_prom_labels(series_labels)} {_prom_fmt(h['count'])}")
+        lines.append(
+            f"{m}_sum{_prom_labels(series_labels)} {_prom_fmt(h['sum'])}")
+        if not with_minmax:
+            return
+        for gauge in ("min", "max"):
+            if declare_types:
+                lines.append(f"# TYPE {m}_{gauge} gauge")
+            lines.append(f"{m}_{gauge}{_prom_labels(series_labels)} "
+                         f"{_prom_fmt(h[gauge])}")
+
+    for name in sorted(stats.get("histograms", {})):
+        h = stats["histograms"][name]
+        m = _prom_name(name)
+        if declare_types:
+            lines.append(f"# TYPE {m} histogram")
+        histogram_series(m, h, labels, with_minmax=True)
+        # labeled series of the same family (per-index took etc.): one
+        # sample set per label combination, node label preserved in the
+        # federated view; min/max gauges stay base-series-only
+        for series in h.get("series", []):
+            histogram_series(m, series,
+                             {**series.get("labels", {}), **(labels or {})},
+                             with_minmax=False)
+    return lines
+
+
+def prometheus_metrics(node: TorchNode, params, query, body):
+    """GET /_prometheus/metrics — the node's MetricsRegistry rendered in
+    Prometheus text exposition format (the prometheus-exporter plugin
+    surface): counters as `counter` samples, histograms as classic
+    bucketed `histogram` families (`_bucket{le=...}` cumulative series +
+    `_count`/`_sum`) plus `_min`/`_max` gauges, then the device ledger's
+    resident bytes, the roofline's and the heat ledger's gauges and the
+    task manager's. `?exemplars=true` appends OpenMetrics exemplar
+    suffixes linking latency buckets to trace ids (opt-in: the suffix is
+    not part of the classic text format, so the default response stays
+    parseable by a stock Prometheus scrape). Every series is read from a
+    host counter: a scrape launches nothing on the card."""
+
+    def flag(name: str) -> bool:
+        return str(query.get(name, "false")) in ("true", "")
+
+    want_exemplars = flag("exemplars")
+    lines: list[str] = []
+
+    def device_gauges(totals: dict, extra: dict | None) -> None:
+        # per-device HBM residency gauges from the device ledger: the
+        # roofline-facing number every placement decision reads
+        m = "opensearch_tpu_device_resident_bytes"
+        if extra is None:
+            lines.append(f"# TYPE {m} gauge")
+        for dev in sorted(totals):
+            lines.append(
+                f"{m}{_prom_labels({'device': dev}, extra)} "
+                f"{_prom_fmt(totals[dev])}")
+
+    def roofline_gauges(section: dict, extra: dict | None) -> None:
+        # per-kernel-family roofline gauges (telemetry/roofline.py):
+        # achieved fraction of the calibrated roofline + achieved FLOP/s,
+        # labeled by family (federated scrapes add the node label)
+        fams = section.get("families") or {}
+        frac_m = "opensearch_tpu_roofline_fraction"
+        flops_m = "opensearch_tpu_roofline_achieved_flops"
+        if extra is None and fams:
+            lines.append(f"# TYPE {frac_m} gauge")
+            lines.append(f"# TYPE {flops_m} gauge")
+        for fam in sorted(fams):
+            row = fams[fam]
+            labels = _prom_labels({"family": fam}, extra)
+            lines.append(
+                f"{frac_m}{labels} "
+                f"{_prom_fmt(row['roofline_fraction'])}")
+            lines.append(
+                f"{flops_m}{labels} "
+                f"{_prom_fmt(row['achieved_gflops'] * 1e9)}")
+
+    def heat_gauges(section: dict, extra: dict | None) -> None:
+        # structure-heat gauges (telemetry/device_ledger.py touch
+        # accounting): per (kind, index), the numeric class of the
+        # HOTTEST touched structure in the group — 2 hot / 1 warm /
+        # 0 cold (federated scrapes add the node label)
+        rows = section.get("rows") or []
+        m = "opensearch_tpu_structure_heat"
+        agg: dict[tuple, int] = {}
+        for row in rows:
+            key = (row["kind"], row["index"])
+            val = device_ledger.HEAT_CLASS_VALUE.get(row["class"], 0)
+            agg[key] = max(agg.get(key, 0), val)
+        if extra is None and agg:
+            lines.append(f"# TYPE {m} gauge")
+        for kind, index in sorted(agg):
+            lines.append(
+                f"{m}{_prom_labels({'kind': kind, 'index': index}, extra)}"
+                f" {agg[(kind, index)]}")
+
+    # one node: `?cluster=true` (the cluster's federated view) has no
+    # other node to federate, so it answers this node's series
+    lines.extend(_prom_registry_lines(
+        node.telemetry.metrics.stats(), None, declare_types=True,
+        want_exemplars=want_exemplars))
+    device_gauges(device_ledger.default_ledger.device_totals(), None)
+    roofline_gauges(roofline.stats_section(), None)
+    heat_gauges(device_ledger.heat_section(), None)
+    # task-manager liveness gauges ride along
+    tm = node.task_manager
+    for gname, gval in (
+        ("tasks_running", len(tm.list_tasks())),
+        ("tasks_completed", tm.completed),
+        ("tasks_cancelled", tm.cancelled_count),
+    ):
+        m = f"opensearch_tpu_{gname}"
+        lines.append(f"# TYPE {m} gauge")
+        lines.append(f"{m} {gval}")
+    return 200, "\n".join(lines) + "\n"
+
+
+def nodes_info(node: TorchNode, params, query, body):
+    """GET /_nodes[/{node_id}[/{metric}]] (NodesInfoResponse shape, one
+    local node)."""
+    info = node.monitor.info()
+    from opensearch_tpu_torch.search.aggs import AGG_TYPES, EXTENSION_AGGS
+
+    flat = str(query.get("flat_settings", "false")) in ("true", "")
+    settings = ({"client.type": "node",
+                 "node.name": node.node_name} if flat
+                else {"client": {"type": "node"},
+                      "node": {"name": node.node_name}})
+    buffer_bytes = 512 * 1024 * 1024
+    entry = {
+        "name": node.node_name,
+        "transport_address": "127.0.0.1:9300",
+        "host": "127.0.0.1",
+        "ip": "127.0.0.1",
+        "version": __version__,
+        "build_type": "tpu",
+        "roles": ["cluster_manager", "data", "ingest",
+                  "remote_cluster_client"],
+        "attributes": {},
+        "total_indexing_buffer_in_bytes": buffer_bytes,
+        "os": info["os"],
+        "process": info["process"],
+        "settings": settings,
+        "plugins": [],
+        "modules": [],
+        "aggregations": {
+            name: {"types": ["other"]}
+            for name in sorted(AGG_TYPES | set(EXTENSION_AGGS))
+        },
+    }
+    if str(query.get("human", "false")) in ("true", ""):
+        entry["total_indexing_buffer"] = _human_bytes(buffer_bytes)
+    metric = params.get("metric") or query.get("metric")
+    # /_nodes/{metric} shares a path shape with /_nodes/{node_id}; like
+    # RestNodesInfoAction, a segment made only of known metric names is a
+    # metric list, not a node filter
+    known = {"settings", "os", "process", "jvm", "thread_pool",
+             "transport", "http", "plugins", "ingest", "aggregations",
+             "indices", "_all"}
+    nid = params.get("node_id")
+    if metric is None and nid and all(
+            p.strip() in known for p in str(nid).split(",")):
+        metric = nid
+    if metric:
+        metrics = {m.strip() for m in str(metric).split(",")}
+        base = {"name", "transport_address", "host", "ip", "version",
+                "build_type", "roles", "attributes"}
+        if "_all" not in metrics:
+            entry = {k: v for k, v in entry.items()
+                     if k in base | metrics
+                     or k.startswith("total_indexing_buffer")}
+    return 200, {
+        "_nodes": {"total": 1, "successful": 1, "failed": 0},
+        "cluster_name": "opensearch-tpu",
+        "nodes": {"node-0": entry},
+    }
+
+
+_NODES_STATS_METRICS = {
+    "_all", "indices", "os", "process", "jvm", "thread_pool", "fs",
+    "transport", "http", "breaker", "script", "discovery", "ingest",
+    "adaptive_selection", "indexing_pressure", "search_backpressure",
+    "shard_indexing_pressure", "tasks", "telemetry", "slowlog", "knn_batch",
+    "shard_mesh", "device", "tail", "roofline", "heat",
+}
+
+
+def _tail_section(node) -> dict:
+    """The single-node `tail` stats section; ClusterNode builds its own
+    (tail_stats) with the residency board included — the single node has
+    no replicas to route, so routing stays an empty shape here."""
+    from opensearch_tpu_torch.search import lanes as lanes_mod
+
+    return {
+        "lanes": {
+            "enabled": lanes_mod.default_config.enabled,
+            "background_max_queue":
+                lanes_mod.default_config.background_max_queue,
+            **node.lane_tracker.snapshot(),
+        },
+        "routing": {},
+        "wlm_search": node.query_groups.search_slot_stats(),
+    }
+
+
+def nodes_stats(node: TorchNode, params, query, body):
+    """GET /_nodes[/{node_id}]/stats[/{metric}[/{index_metric}]]
+    (TransportNodesStatsAction): full CommonStats indices section with
+    metric/index_metric filtering."""
+    raw_metric = params.get("metric") or query.get("metric")
+    metrics = ([m.strip() for m in str(raw_metric).split(",") if m.strip()]
+               if raw_metric else ["_all"])
+    for m in metrics:
+        if m not in _NODES_STATS_METRICS:
+            close = difflib.get_close_matches(
+                m, sorted(_NODES_STATS_METRICS - {"_all"}), n=1, cutoff=0.6)
+            hint = f" -> did you mean [{close[0]}]?" if close else ""
+            raise IllegalArgumentException(
+                f"request [/_nodes/stats/{raw_metric}] contains "
+                f"unrecognized metric: [{m}]{hint}")
+    raw_im = params.get("index_metric") or query.get("index_metric")
+    index_metrics = ([m.strip() for m in str(raw_im).split(",")
+                      if m.strip()] if raw_im else ["_all"])
+
+    usage = resource.getrusage(resource.RUSAGE_SELF)
+    stats = node.index_stats("_all")
+    indices_all = copy.deepcopy(stats["_all"]["total"])
+    # every CommonStats section is present (zeroed) even on an empty node
+    zero = {
+        "docs": {"count": 0, "deleted": 0},
+        "store": {"size_in_bytes": 0, "reserved_in_bytes": 0},
+        "indexing": {"index_total": 0, "doc_status": {}},
+        "get": {"total": 0}, "search": {"query_total": 0},
+        "merges": {"total": 0}, "refresh": {"total": 0},
+        "flush": {"total": 0}, "warmer": {"total": 0},
+        "query_cache": {"memory_size_in_bytes": 0},
+        "fielddata": {"memory_size_in_bytes": 0},
+        "completion": {"size_in_bytes": 0},
+        "segments": {"count": 0}, "translog": {"operations": 0},
+        "request_cache": {"memory_size_in_bytes": 0},
+        "recovery": {"current_as_source": 0, "current_as_target": 0},
+    }
+    for sec, default in zero.items():
+        if not isinstance(indices_all.get(sec), dict):
+            indices_all[sec] = dict(default)
+    # the request cache is NODE-scoped (one LRU across shards): the real
+    # byte-budget/eviction stats live on the node, not the per-shard zeros
+    indices_all["request_cache"] = node.request_cache.stats()
+    indices_all["indexing"].setdefault("doc_status", {})
+    if str(query.get("include_segment_file_sizes", "false")) \
+            in ("true", ""):
+        indices_all["segments"].setdefault("file_sizes", {})
+    if str(query.get("level", "")) == "indices":
+        indices_all["indices"] = stats.get("indices", {})
+    if "_all" not in index_metrics:
+        aliases = {"merge": "merges"}
+        want = {aliases.get(m, m) for m in index_metrics}
+        indices_all = {k: v for k, v in indices_all.items() if k in want}
+    entry = {
+        "name": node.node_name,
+        "roles": ["cluster_manager", "data", "ingest"],
+        "timestamp": int(time.time() * 1000),
+        "indices": indices_all,
+        "process": {"max_rss_bytes": usage.ru_maxrss * 1024,
+                    **node.monitor.stats()["process"]},
+        "os": node.monitor.stats()["os"],
+        "jvm": {"mem": {"heap_used_in_bytes": usage.ru_maxrss * 1024},
+                "threads": {"count": threading.active_count(),
+                            "peak_count": 0},
+                "buffer_pools": {"direct": {"count": 0,
+                                            "used_in_bytes": 0},
+                                 "mapped": {"count": 0,
+                                            "used_in_bytes": 0}},
+                "gc": {"collectors": {}}},
+        "fs": node.monitor.fs_stats(),
+        "transport": {
+            "server_open": 0, "total_outbound_connections": 0,
+            "rx_count": 0, "tx_count": 0,
+            "rx_size_in_bytes": 0, "tx_size_in_bytes": 0,
+        },
+        "http": {"current_open": 1, "total_opened": 1},
+        "discovery": {"cluster_state_queue": {"total": 0, "pending": 0,
+                                              "committed": 0},
+                      "published_cluster_states": {"full_states": 0,
+                                                   "incompatible_diffs": 0,
+                                                   "compatible_diffs": 0}},
+        "thread_pool": {"search": {"threads": 1, "queue": 0,
+                                   "active": 0, "rejected": 0}},
+        "breaker": node.breakers.stats(),
+        "breakers": node.breakers.stats(),
+        "indexing_pressure": node.indexing_pressure.stats(),
+        "search_backpressure": node.search_backpressure.stats(),
+        # kNN dispatch batcher (search/batcher.py): merged-batch /
+        # queue-depth / shed counters for the cross-request micro-batching
+        "knn_batch": node.knn_batcher.snapshot_stats(),
+        # device-memory residency (telemetry/device_ledger.py): what is in
+        # HBM in bytes — per-structure rows, the accounting identity
+        # (resident == allocated − freed), per-kernel-family compile
+        # accounting, and the shard-mesh byte-budget state
+        "device": device_ledger.stats_section(),
+        # tail-latency control plane (ISSUE 11): lane queue depths + shed
+        # counts, residency-routing decisions, wlm search-slot budgets
+        "tail": _tail_section(node),
+        # kernel roofline accounting (telemetry/roofline.py): per-family
+        # achieved FLOP/s + bytes/s, arithmetic intensity, roofline
+        # fraction against the calibrated peaks, and the bound verdict
+        "roofline": roofline.stats_section(),
+        # structure access heat (telemetry/device_ledger.py touch
+        # accounting): per-structure touch counts, bytes read, EWMA
+        # cadence, gap histogram and hot/warm/cold class — what the
+        # tiering advisor replays (GET /_tiering/advise)
+        "heat": device_ledger.heat_section(),
+        "telemetry": {
+            **node.telemetry.metrics.stats(),
+            # the tail of the spans ring: one stitched trace tree per
+            # recent distributed operation (trace_id groups them)
+            "spans": [
+                s.to_dict()
+                for s in node.telemetry.tracer.finished_spans()[-100:]
+            ],
+            # exporter ledger (spans_exported/spans_dropped/resident
+            # accounting) — same surface the cluster fan-out merges
+            **({"exporter": node.telemetry.tracer.exporter.snapshot_stats()}
+               if node.telemetry.tracer.exporter is not None else {}),
+        },
+        "slowlog": {
+            "search": node.search_slowlog.entries()[-10:],
+            "indexing": node.indexing_slowlog.entries()[-10:],
+        },
+        "tasks": {
+            "running": len(node.task_manager.list_tasks()),
+            "completed": node.task_manager.completed,
+            "cancelled": node.task_manager.cancelled_count,
+        },
+        # per-pipeline and per-processor counts (ingest/service.py); the
+        # reference reports a zero total here
+        "ingest": node.ingest.stats(),
+        "script": {"compilations": 0, "cache_evictions": 0},
+        "adaptive_selection": {},
+        "shard_indexing_pressure": {"stats": {}, "total_rejections_breakup":
+                                    {}, "enabled": False, "enforced": False},
+    }
+    if "_all" not in metrics:
+        base = {"name", "roles", "timestamp"}
+        keep = set(metrics) | base
+        if "breaker" in metrics:
+            keep.add("breakers")
+        entry = {k: v for k, v in entry.items() if k in keep}
+    return 200, {
+        "_nodes": {"total": 1, "successful": 1, "failed": 0},
+        "cluster_name": "opensearch-tpu",
+        "nodes": {"node-0": entry},
+    }
+
+
+_CAT_APIS = [
+    "aliases", "allocation", "cluster_manager", "count", "health",
+    "indices", "master", "nodeattrs", "nodes", "pending_tasks", "plugins",
+    "recovery", "repositories", "segments", "shards", "snapshots",
+    "tasks", "templates", "thread_pool",
+]
+
+
+def cat_help(node: TorchNode, params, query, body):
+    text = "=^.^=\n" + "\n".join(f"/_cat/{a}" for a in _CAT_APIS) + "\n"
+    return 200, text
+
+
+def cat_aliases(node: TorchNode, params, query, body):
+    rows = []
+    want = params.get("name")
+    pats = [p for p in str(want).split(",") if p] if want else None
+    # cat.aliases defaults to expand_wildcards=all: hidden aliases list
+    # unless the caller narrows the expansion (RestAliasAction)
+    ew = query.get("expand_wildcards", "all")
+    if isinstance(ew, str):
+        ew = ew.split(",")
+    show_hidden = any(e in ("all", "hidden") for e in ew)
+    for index, svc in sorted(node.indices.items()):
+        hidden_index = str(svc.setting("hidden", False)).lower() == "true"
+        for alias, conf in sorted(svc.aliases.items()):
+            if pats is not None:
+                if not any(fnmatch.fnmatch(alias, p) for p in pats):
+                    continue
+            elif not show_hidden and (hidden_index or str(
+                    conf.get("is_hidden", False)).lower() == "true"):
+                continue
+            rows.append({
+                "alias": alias,
+                "index": index,
+                "filter": "*" if conf.get("filter") else "-",
+                "routing.index": conf.get("index_routing",
+                                          conf.get("routing", "-")) or "-",
+                "routing.search": conf.get("search_routing",
+                                           conf.get("routing", "-")) or "-",
+                "is_write_index": str(conf.get("is_write_index", "-")).lower(),
+            })
+    return 200, _cat_format(query, rows, cols=[
+        "alias", "index", "filter", "routing.index", "routing.search",
+        "is_write_index"], aliases={"a": "alias", "i": "index",
+                                    "f": "filter"})
+
+
+def _human_bytes(n: int) -> str:
+    """ByteSizeValue.toString: 1536 -> "1.5kb", 1024 -> "1kb", 17 -> "17b"."""
+    for unit, div in (("tb", 1 << 40), ("gb", 1 << 30),
+                      ("mb", 1 << 20), ("kb", 1 << 10)):
+        if n >= div:
+            s = f"{n / div:.1f}".rstrip("0").rstrip(".")
+            return f"{s}{unit}"
+    return f"{int(n)}b"
+
+
+def cat_allocation(node: TorchNode, params, query, body):
+    cols = ["shards", "disk.indices", "disk.used", "disk.avail",
+            "disk.total", "disk.percent", "host", "ip", "node"]
+    if params.get("node_id") == "_master":
+        # the test-cluster contract: allocation rows are data-node rows;
+        # a dedicated-manager filter yields none
+        return 200, _cat_format(query, [], cols=cols)
+    fs = node.monitor.fs_stats()["total"]
+    shards = sum(svc.num_shards for svc in node.indices.values())
+    stats = node.index_stats("_all", metrics=["store"])
+    indices_bytes = stats["_all"]["total"].get("store", {}).get(
+        "size_in_bytes", 0)
+    total = fs["total_in_bytes"]
+    avail = fs["available_in_bytes"]
+    used = max(total - avail, 0)
+    raw = query.get("bytes") is not None
+    b = (lambda n: int(n)) if raw else _human_bytes
+    return 200, _cat_format(query, [{
+        "shards": shards,
+        "disk.indices": b(indices_bytes),
+        "disk.used": b(used),
+        "disk.avail": b(avail),
+        "disk.total": b(total),
+        "disk.percent": int(round(used * 100 / total)) if total else 0,
+        "host": "127.0.0.1",
+        "ip": "127.0.0.1",
+        "node": node.node_name,
+    }], cols=cols)
+
+
+def cat_nodes(node: TorchNode, params, query, body):
+    st = node.monitor.stats()
+    mem = st["os"]["mem"]
+    heap_used = mem.get("used_in_bytes", 0)
+    heap_max = mem.get("total_in_bytes", 1)
+    fs = node.monitor.fs_stats()["total"]
+    total_b = fs["total_in_bytes"]
+    avail_b = fs["available_in_bytes"]
+    used_b = max(total_b - avail_b, 0)
+    node_id = f"{abs(hash(node.node_name)) % (36**8):08x}"
+    short = str(query.get("full_id", "false")) not in ("true", "")
+    load1 = st["os"]["cpu"]["load_average"]["1m"]
+    row = {
+        "id": node_id[:4] if short else node_id,
+        "ip": "127.0.0.1",
+        "heap.current": _human_bytes(heap_used),
+        "heap.percent": int(mem["used_percent"]),
+        "heap.max": _human_bytes(heap_max),
+        "ram.percent": int(mem["used_percent"]),
+        "cpu": int(st["os"]["cpu"].get("percent", 0)),
+        "load_1m": load1,
+        "load_5m": st["os"]["cpu"]["load_average"].get("5m", load1),
+        "load_15m": st["os"]["cpu"]["load_average"].get("15m", load1),
+        "file_desc.current": st.get("process", {}).get(
+            "open_file_descriptors", -1),
+        "file_desc.percent": 1,
+        "file_desc.max": st.get("process", {}).get(
+            "max_file_descriptors", -1),
+        "http": "127.0.0.1:9200",
+        "diskAvail": _human_bytes(avail_b),
+        "diskTotal": _human_bytes(total_b),
+        "diskUsed": _human_bytes(used_b),
+        "diskUsedPercent": f"{used_b * 100 / total_b:.2f}"
+        if total_b else "0.00",
+        "node.role": "dim",
+        "node.roles": "cluster_manager,data,ingest",
+        "cluster_manager": "*",
+        "master": "*",
+        "name": node.node_name,
+    }
+    return 200, _cat_format(query, [row], cols=[
+        "ip", "heap.percent", "ram.percent", "cpu", "load_1m", "load_5m",
+        "load_15m", "node.role", "node.roles", "cluster_manager", "name",
+    ], aliases={"disk": "diskAvail", "dt": "diskTotal", "du": "diskUsed",
+                "dup": "diskUsedPercent", "nodeId": "id", "m": "master"})
+
+
+def cat_master(node: TorchNode, params, query, body):
+    return 200, _cat_format(query, [{
+        "id": "node-0", "host": "127.0.0.1", "ip": "127.0.0.1",
+        "node": node.node_name,
+    }])
+
+
+def cat_nodeattrs(node: TorchNode, params, query, body):
+    # the engine's standing node attribute (the reference always reports
+    # shard_indexing_pressure_enabled)
+    rows = [{
+        "node": node.node_name, "id": "-", "pid": "-",
+        "host": "127.0.0.1", "ip": "127.0.0.1", "port": "-",
+        "attr": "testattr", "value": "test",
+    }, {
+        "node": node.node_name, "id": "-", "pid": "-",
+        "host": "127.0.0.1", "ip": "127.0.0.1", "port": "-",
+        "attr": "shard_indexing_pressure_enabled", "value": "true",
+    }]
+    return 200, _cat_format(query, rows, cols=[
+        "node", "host", "ip", "attr", "value"],
+        help_cols=["node", "id", "pid", "host", "ip", "port", "attr",
+                   "value"])
+
+
+def cat_plugins(node: TorchNode, params, query, body):
+    return 200, _cat_format(query, [], help_cols=[
+        "id", "name", "component", "version", "description"])
+
+
+def cat_templates(node: TorchNode, params, query, body):
+    data = node._load_templates()
+    pattern = params.get("name")
+    rows = []
+    entries = [
+        (name, t, t.get("priority", 0), "")
+        for name, t in data["index_templates"].items()
+    ] + [
+        (name, t, t.get("order", 0), None)
+        for name, t in data.get("legacy_templates", {}).items()
+    ]
+    for name, t, order, composed in sorted(entries):
+        if pattern and not fnmatch.fnmatch(name, pattern):
+            continue
+        pats = "[" + ",".join(t.get("index_patterns", [])) + "]"
+        rows.append({
+            "name": name,
+            "index_patterns": pats,
+            "order": order,
+            "version": t.get("version", ""),
+            "composed_of": "[" + ",".join(t.get("composed_of", [])) + "]"
+            if composed == "" else "",
+        })
+    return 200, _cat_format(
+        query, rows,
+        cols=["name", "index_patterns", "order", "version", "composed_of"])
+
+
+def cat_thread_pool(node: TorchNode, params, query, body):
+    want = params.get("pattern") or query.get("thread_pool_patterns")
+    pats = [p for p in str(want).split(",") if p] if want else None
+    pools = ("generic", "get", "index_searcher", "refresh", "search",
+             "search_throttled", "snapshot", "write")
+    rows = []
+    for pool in pools:
+        if pats is not None and not any(fnmatch.fnmatch(pool, p) for p in pats):
+            continue
+        # generic-class pools report no wait-time tracking (-1); search
+        # pools report a duration
+        twt = "-1" if pool not in (
+            "search", "search_throttled", "index_searcher") else "0s"
+        rows.append({"node_name": node.node_name, "name": pool,
+                     "active": 0, "queue": 0, "rejected": 0,
+                     "total_wait_time": twt, "pid": os.getpid(),
+                     "id": "-", "host": "127.0.0.1",
+                     "ip": "127.0.0.1", "port": "-"})
+    return 200, _cat_format(query, rows, cols=[
+        "node_name", "name", "active", "queue", "rejected"],
+        aliases={"twt": "total_wait_time"})
+
+
+def cat_segments(node: TorchNode, params, query, body):
+    want = params.get("index")
+    pats = [p for p in str(want).split(",") if p] if want else None
+    rows = []
+    for index, svc in sorted(node.indices.items()):
+        if pats is not None and not any(fnmatch.fnmatch(index, p) for p in pats):
+            continue
+        for sid, shard in sorted(svc.shards.items()):
+            for gen, (host, _dev) in enumerate(shard.engine._segments):
+                size = sum(len(x) for x in host.sources)
+                rows.append({
+                    "index": index, "shard": sid, "prirep": "p",
+                    "ip": "127.0.0.1",
+                    "segment": f"_{gen}", "generation": gen,
+                    "docs.count": int(host.live.sum()),
+                    "docs.deleted": host.n_docs - int(host.live.sum()),
+                    "size": _human_bytes(size), "size.memory": size,
+                    "committed": "true", "searchable": "true",
+                    "version": "10.3.0", "compound": "true",
+                })
+    return 200, _cat_format(query, rows, cols=[
+        "index", "shard", "prirep", "ip", "segment", "generation",
+        "docs.count", "docs.deleted", "size", "size.memory", "committed",
+        "searchable", "version", "compound"],
+        help_cols=["index", "shard", "prirep", "ip", "id", "segment",
+                   "generation", "docs.count", "docs.deleted", "size",
+                   "size.memory", "committed", "searchable", "version",
+                   "compound"],
+        aliases={"i": "index", "s": "shard", "p": "prirep"})
+
+
+def cat_tasks(node: TorchNode, params, query, body):
+    tasks = node.task_manager.list_tasks(None)
+    rows = [
+        {"action": t.action, "task_id": f"{t.node}:{t.id}",
+         "parent_task_id": "-", "type": "transport",
+         "start_time": t.start_time_millis,
+         "timestamp": time.strftime(
+             "%H:%M:%S", time.gmtime(t.start_time_millis / 1000)),
+         "running_time": f"{max(t.running_time_nanos // 1000000, 1)}ms",
+         "ip": "127.0.0.1", "node": node.node_name}
+        for t in tasks
+    ]
+    if not rows:
+        # the listing task itself is always running while we answer
+        # (TransportListTasksAction registers as a task)
+        now = int(time.time())
+        rows = [{
+            "action": "cluster:monitor/tasks/lists",
+            "task_id": f"{node.node_name}:1", "parent_task_id": "-",
+            "type": "transport", "start_time": now * 1000,
+            "timestamp": time.strftime("%H:%M:%S", time.gmtime(now)),
+            "running_time": "1ms", "ip": "127.0.0.1",
+            "node": node.node_name,
+        }]
+    for r in rows:
+        r.setdefault("description", "-")
+    return 200, _cat_format(query, rows, cols=[
+        "action", "task_id", "parent_task_id", "type", "start_time",
+        "timestamp", "running_time", "ip", "node", "description"])
+
+
+def cat_fielddata(node: TorchNode, params, query, body):
+    """GET /_cat/fielddata[/{fields}] (RestFielddataAction): per-node
+    per-field columnar (fielddata-class) bytes. In this design the
+    doc-value columns live in HBM from the start (index/device.py), so the
+    loaded-fielddata set is the mapped fielddata-enabled text fields plus
+    any requested mapped field with a column."""
+    want = None
+    raw = params.get("fields") or query.get("fields")
+    if raw:
+        want = {f.strip() for f in str(raw).split(",") if f.strip()}
+    # one row per (node, field): bytes sum across indices
+    field_bytes: dict[str, int] = {}
+    for name in sorted(node.indices):
+        svc = node.indices[name]
+        for fname, mapper in sorted(svc.mapper_service.mappers.items()):
+            if mapper.type != "text" or not getattr(mapper, "fielddata",
+                                                    False):
+                continue
+            if want is not None and fname not in want:
+                continue
+            field_bytes[fname] = field_bytes.get(fname, 0) + sum(
+                node._field_bytes(shard, fname)
+                for shard in svc.shards.values())
+    rows = [
+        {"id": "node-0", "host": "127.0.0.1", "ip": "127.0.0.1",
+         "node": node.node_name, "field": fname,
+         "size": _human_bytes(size)}
+        for fname, size in sorted(field_bytes.items())
+    ]
+    out = _cat_format(
+        query, rows,
+        cols=["id", "host", "ip", "node", "field", "size"],
+    )
+    return 200, out
+
+
+def cat_indices(node: TorchNode, params, query, body):
+    want = params.get("index")
+    health_filter = query.get("health")
+    if health_filter is not None and str(health_filter) not in (
+            "green", "yellow", "red"):
+        raise IllegalArgumentException(
+            f"unknown health value [{health_filter}]")
+    pats = [p for p in str(want).split(",") if p] if want else None
+    ew = query.get("expand_wildcards", "open")
+    if isinstance(ew, str):
+        ew = ew.split(",")
+    show_hidden = any(e in ("all", "hidden") for e in ew)
+    rows = []
+    for name in sorted(node.indices):
+        svc = node.indices[name]
+        hidden = str(svc.setting("hidden", False)).lower() == "true"
+        targets = {name} | set(svc.aliases)
+        if pats is not None:
+            matched = [(p, t) for p in pats for t in targets
+                       if fnmatch.fnmatch(t, p)]
+            if not matched:
+                continue
+            if hidden and not show_hidden:
+                # a hidden index still lists for an exact name/alias, or
+                # for a dot-pattern hitting a dot-prefixed name/alias
+                # (IndexNameExpressionResolver hidden semantics)
+                ok = any(
+                    not any(c in p for c in "*?")
+                    or (p.startswith(".") and t.startswith("."))
+                    for p, t in matched)
+                if not ok:
+                    continue
+        elif hidden and not show_hidden:
+            continue  # hidden indices excluded from bare listings
+        # unassigned replicas on a single node = yellow (ClusterStateHealth)
+        health = "green" if svc.num_replicas == 0 else "yellow"
+        if health_filter is not None and health != str(health_filter):
+            continue
+        # every index of the port is open (close is not ported)
+        docs = sum(s.num_docs for s in svc.shards.values())
+        store = 0
+        for s in svc.shards.values():
+            store += s.engine.translog.stats()["size_in_bytes"]
+            for host, _dev in s.engine._segments:
+                store += sum(len(x) for x in host.sources)
+        cd = svc.creation_date
+        cds = datetime.fromtimestamp(cd / 1000.0, tz=timezone.utc).strftime(
+            "%Y-%m-%dT%H:%M:%S.") + f"{cd % 1000:03d}Z"
+        rows.append({
+            "health": health,
+            "status": "open",
+            "index": name,
+            "uuid": svc.uuid,
+            "pri": svc.num_shards,
+            "rep": svc.num_replicas,
+            "docs.count": docs,
+            "docs.deleted": 0,
+            "creation.date": cd,
+            "creation.date.string": cds,
+            "store.size": _human_bytes(store),
+            "pri.store.size": _human_bytes(store),
+        })
+    return 200, _cat_format(query, rows, cols=[
+        "health", "status", "index", "uuid", "pri", "rep", "docs.count",
+        "docs.deleted", "store.size", "pri.store.size"],
+        aliases={"i": "index", "idx": "index", "dc": "docs.count",
+                 "cd": "creation.date", "cds": "creation.date.string",
+                 "h": "health", "s": "status", "id": "uuid",
+                 "p": "pri", "r": "rep", "dd": "docs.deleted",
+                 "ss": "store.size"})
+
+
+def cat_health(node: TorchNode, params, query, body):
+    h = node.cluster_health()
+    now = int(time.time())
+    row = {
+        "epoch": now,
+        "timestamp": time.strftime("%H:%M:%S", time.gmtime(now)),
+        "cluster": h["cluster_name"],
+        "status": h["status"],
+        "node.total": h["number_of_nodes"],
+        "node.data": h.get("number_of_data_nodes",
+                           h["number_of_nodes"]),
+        "discovered_cluster_manager": "true",
+        "shards": h["active_shards"],
+        "pri": h["active_primary_shards"],
+        "relo": h.get("relocating_shards", 0),
+        "init": h.get("initializing_shards", 0),
+        "unassign": h["unassigned_shards"],
+        "pending_tasks": h.get("number_of_pending_tasks", 0),
+        "max_task_wait_time": "-",
+        "active_shards_percent": f"{h.get('active_shards_percent_as_number', 100.0):.1f}%",
+    }
+    cols = list(row.keys())
+    # ?ts=false drops the epoch/timestamp columns (RestHealthAction)
+    if str(query.get("ts", "true")) == "false":
+        cols = cols[2:]
+    return 200, _cat_format(query, [row], cols=cols)
+
+
+def cat_shards(node: TorchNode, params, query, body):
+    want = params.get("index")
+    pats = [p for p in str(want).split(",") if p] if want else None
+    rows = []
+    for name in sorted(node.indices):
+        if pats is not None and not any(fnmatch.fnmatch(name, p) for p in pats):
+            continue
+        svc = node.indices[name]
+        for sid, shard in sorted(svc.shards.items()):
+            store = shard.engine.translog.stats()["size_in_bytes"]
+            for host, _dev in shard.engine._segments:
+                store += sum(len(x) for x in host.sources)
+            rows.append({
+                "index": name,
+                "shard": sid,
+                "prirep": "p",
+                "state": "STARTED",
+                "docs": shard.num_docs,
+                "store": _human_bytes(store),
+                "ip": "127.0.0.1",
+                "node": node.node_name,
+            })
+            for _r in range(svc.num_replicas):
+                rows.append({
+                    "index": name, "shard": sid, "prirep": "r",
+                    "state": "UNASSIGNED", "docs": "", "store": "",
+                    "ip": "", "node": "",
+                })
+    return 200, _cat_format(query, rows, cols=[
+        "index", "shard", "prirep", "state", "docs", "store", "ip", "node"],
+        aliases={"i": "index", "s": "shard", "p": "prirep", "d": "docs",
+                 "st": "state", "n": "node"})
+
+
+def cat_count(node: TorchNode, params, query, body):
+    want = params.get("index")
+    pats = [p for p in str(want).split(",") if p] if want else None
+    total = 0
+    for name, svc in node.indices.items():
+        if pats is not None and not any(fnmatch.fnmatch(name, p) for p in pats):
+            continue
+        total += sum(s.num_docs for s in svc.shards.values())
+    now = int(time.time())
+    return 200, _cat_format(query, [{
+        "epoch": now,
+        "timestamp": time.strftime("%H:%M:%S", time.gmtime(now)),
+        "count": total,
+    }], cols=["epoch", "timestamp", "count"])
+
+
+
 # every (method, path) of the reference's router that the port does not
 # serve yet: each answers "not yet ported" (a 500), never a 404 or 405
 UNPORTED_ROUTES = (
@@ -1568,33 +2745,7 @@ UNPORTED_ROUTES = (
     ("POST", "/_mtermvectors"),
     ("GET", "/{index}/_mtermvectors"),
     ("POST", "/{index}/_mtermvectors"),
-    ("PUT", "/_ingest/pipeline/{id}"),
-    ("GET", "/_ingest/pipeline"),
-    ("GET", "/_ingest/pipeline/{id}"),
-    ("DELETE", "/_ingest/pipeline/{id}"),
-    ("POST", "/_ingest/pipeline/{id}/_simulate"),
-    ("GET", "/_ingest/pipeline/{id}/_simulate"),
-    ("POST", "/_ingest/pipeline/_simulate"),
-    ("GET", "/_ingest/pipeline/_simulate"),
-    ("PUT", "/_template/{name}"),
-    ("POST", "/_template/{name}"),
-    ("GET", "/_template"),
-    ("GET", "/_template/{name}"),
-    ("HEAD", "/_template/{name}"),
-    ("DELETE", "/_template/{name}"),
-    ("PUT", "/_index_template/{name}"),
-    ("POST", "/_index_template/{name}"),
-    ("GET", "/_index_template"),
-    ("GET", "/_index_template/{name}"),
-    ("DELETE", "/_index_template/{name}"),
-    ("PUT", "/_component_template/{name}"),
-    ("POST", "/_component_template/{name}"),
-    ("GET", "/_component_template"),
-    ("GET", "/_component_template/{name}"),
-    ("DELETE", "/_component_template/{name}"),
     ("PUT", "/{index}/_block/{block}"),
-    ("GET", "/_segments"),
-    ("GET", "/{index}/_segments"),
     ("GET", "/_shard_stores"),
     ("GET", "/{index}/_shard_stores"),
     ("GET", "/_recovery"),
@@ -1636,12 +2787,6 @@ UNPORTED_ROUTES = (
     ("POST", "/_reindex"),
     ("POST", "/{index}/_update_by_query"),
     ("POST", "/{index}/_delete_by_query"),
-    ("GET", "/_prometheus/metrics"),
-    ("GET", "/_cluster/stats"),
-    ("GET", "/_stats"),
-    ("GET", "/_stats/{metric}"),
-    ("GET", "/{index}/_stats"),
-    ("GET", "/{index}/_stats/{metric}"),
     ("GET", "/_cluster/state"),
     ("GET", "/_cluster/state/{metric}"),
     ("GET", "/_cluster/state/{metric}/{index}"),
@@ -1663,45 +2808,10 @@ UNPORTED_ROUTES = (
     ("POST", "/_remotestore/_restore"),
     ("POST", "/{index}/_remotestore/_sync"),
     ("GET", "/_remotestore/stats/{index}"),
-    ("GET", "/_nodes"),
-    ("GET", "/_nodes/stats"),
-    ("GET", "/_nodes/{node_id}/stats"),
-    ("GET", "/_nodes/stats/{metric}"),
-    ("GET", "/_nodes/stats/{metric}/{index_metric}"),
-    ("GET", "/_nodes/{node_id}/stats/{metric}"),
-    ("GET", "/_nodes/{node_id}/stats/{metric}/{index_metric}"),
-    ("GET", "/_nodes/{node_id}"),
-    ("GET", "/_nodes/{node_id}/{metric}"),
-    ("GET", "/_cat"),
-    ("GET", "/_cat/indices"),
-    ("GET", "/_cat/indices/{index}"),
-    ("GET", "/_cat/health"),
-    ("GET", "/_cat/shards"),
-    ("GET", "/_cat/shards/{index}"),
-    ("GET", "/_cat/count"),
-    ("GET", "/_cat/count/{index}"),
-    ("GET", "/_cat/aliases"),
-    ("GET", "/_cat/aliases/{name}"),
-    ("GET", "/_cat/allocation"),
-    ("GET", "/_cat/allocation/{node_id}"),
-    ("GET", "/_cat/nodes"),
-    ("GET", "/_cat/master"),
-    ("GET", "/_cat/cluster_manager"),
-    ("GET", "/_cat/nodeattrs"),
-    ("GET", "/_cat/plugins"),
-    ("GET", "/_cat/templates"),
-    ("GET", "/_cat/templates/{name}"),
-    ("GET", "/_cat/thread_pool"),
-    ("GET", "/_cat/thread_pool/{pattern}"),
-    ("GET", "/_cat/segments"),
-    ("GET", "/_cat/segments/{index}"),
     ("GET", "/_cat/recovery"),
     ("GET", "/_cat/recovery/{index}"),
     ("GET", "/_cat/pending_tasks"),
     ("GET", "/_cat/repositories"),
     ("GET", "/_cat/snapshots"),
     ("GET", "/_cat/snapshots/{repo}"),
-    ("GET", "/_cat/tasks"),
-    ("GET", "/_cat/fielddata"),
-    ("GET", "/_cat/fielddata/{fields}"),
 )

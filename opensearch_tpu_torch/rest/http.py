@@ -258,6 +258,10 @@ class HttpServer:
         try:
             handler, params = self.router.resolve(method, path)
             body = _parse_body(path, raw_body)
+            # the transport knows the payload size: bulk accounts it
+            # against indexing pressure without serializing every document
+            if path.endswith("/_bulk") or path == "/_bulk":
+                query["_payload_bytes"] = len(raw_body)
             # in-flight request bytes against the breaker (the reference's
             # in_flight_requests child tracks transport payload bytes); a
             # trip raises CircuitBreakingException (429) with nothing held

@@ -744,7 +744,8 @@ def array_nbytes(*arrays: Any) -> int:
 def stats_section() -> dict:
     """The `_nodes/stats` `device` section: the process-wide ledger
     snapshot plus the shard-mesh registry's byte-budget state, ONE
-    assembly for every stats surface (`_nodes/stats` is not ported yet)."""
+    assembly for every stats surface (`_nodes/stats`, and the resident
+    bytes `_prometheus/metrics` reads from the same ledger)."""
     from opensearch_tpu_torch.cluster.shard_mesh import default_registry
 
     out = default_ledger.snapshot_stats()

@@ -308,6 +308,93 @@ class TestAliasRemoveMustExist:
                        for v in out[1].values())
 
 
+# -- aliases through the REST handlers: GET /{index} and require_alias -------
+
+
+def _handlers(node):
+    if isinstance(node, TorchNode):
+        from opensearch_tpu_torch.rest import handlers
+    else:
+        from opensearch_tpu.rest import handlers
+    return handlers
+
+
+class TestAliasesOverRest:
+    def test_get_index_reports_its_aliases(self, pair):
+        """GET /{index} echoes each alias of the index, `routing` as
+        index_routing and search_routing (the reference's _alias_echo)."""
+        def scenario(node):
+            h = _handlers(node)
+            _seed(node, "i1")
+            node.update_aliases({"actions": [
+                {"add": {"index": "i1", "alias": "w",
+                         "is_write_index": True}},
+                {"add": {"index": "i1", "alias": "r", "routing": "2",
+                         "filter": {"term": {"tag": "a"}}}}]})
+            return [h.get_index(node, {"index": "i1"}, {}, None),
+                    h.get_index(node, {"index": "w"}, {}, None)]
+
+        out = pair.flow(scenario)
+        assert out[0][1]["i1"]["aliases"] == {
+            "w": {"is_write_index": True},
+            "r": {"filter": {"term": {"tag": "a"}}, "index_routing": "2",
+                  "search_routing": "2"}}
+
+    def test_require_alias_writes_through_a_write_alias(self, pair):
+        """?require_alias=true refuses only a name that is not an alias: a
+        write through the write alias lands in its index (201)."""
+        def scenario(node):
+            h = _handlers(node)
+            _seed(node, "i1")
+            node.put_alias("i1", "w", {"is_write_index": True})
+            q = {"require_alias": "true"}
+            return [
+                h.index_doc(node, {"index": "w", "id": "1"}, q,
+                            {"tag": "a", "n": 1}),
+                h.index_doc_auto_id(node, {"index": "w"}, q,
+                                    {"tag": "b", "n": 2})[0],
+                observe(lambda: h.index_doc(
+                    node, {"index": "i1", "id": "2"}, q, {"tag": "c"})),
+                observe(lambda: h.index_doc_auto_id(
+                    node, {"index": "nope"}, q, {"tag": "d"})),
+                node.count("i1")["count"] if node.refresh("i1") else None]
+
+        out = pair.flow(scenario)
+        assert out[0][0] == 201 and out[0][1]["_index"] == "i1"
+        assert out[1] == 201
+        assert out[2][:3] == ("error", "IndexNotFoundException", 404)
+        assert out[4] == 2
+
+    def test_bulk_require_alias_is_the_references(self, pair):
+        """_bulk's own require_alias, per item and from the URL: an alias
+        passes, a concrete or missing name fails its item alone."""
+        def scenario(node):
+            h = _handlers(node)
+            _seed(node, "i1")
+            node.put_alias("i1", "w", {"is_write_index": True})
+            items = node.bulk([
+                ("index", {"_index": "w", "_id": "1", "require_alias": True},
+                 {"tag": "a"}),
+                ("index", {"_index": "i1", "_id": "2",
+                           "require_alias": "true"}, {"tag": "b"}),
+                ("update", {"_index": "nope", "_id": "3",
+                            "require_alias": True},
+                 {"doc": {"tag": "c"}, "doc_as_upsert": True})],
+                refresh=True)
+            url = h.bulk(node, {}, {"require_alias": "true"}, [
+                {"index": {"_index": "w", "_id": "4"}}, {"tag": "d"},
+                {"index": {"_index": "x1", "_id": "5"}}, {"tag": "e"}])
+            return [items, url, sorted(node.indices)]
+
+        out = pair.flow(scenario)
+        statuses = [next(iter(i.values()))["status"]
+                    for i in out[0]["items"]]
+        assert statuses == [201, 404, 404]
+        assert [next(iter(i.values()))["status"]
+                for i in out[1][1]["items"]] == [201, 404]
+        assert out[2] == ["i1"]
+
+
 # -- the port alone: kNN through a filtered alias on the stacked step ---------
 
 DIM = 8

@@ -27,6 +27,14 @@ scroll and point in time through each of their routes, `_tasks`,
 `_bulk`, and `_otel/flush`; context ids, task clocks, workload-group ids
 and the device-ledger section are left out of the comparison.
 
+The ingest, template and stats steps (`_ops_steps`) follow: the
+`_ingest/pipeline` CRUD and `_simulate`, `pipeline=` on a write and a
+`_bulk`, component, composable and legacy templates with an index a write
+auto-creates, index patterns, `_segments`, `_stats`, `_cluster/stats`,
+`_nodes` info and stats by metric, `_prometheus/metrics` and the `_cat`
+tables; the volatile fields each mask names (NODE_VOLATILE,
+_CAT_VOLATILE, `_no_prom_values`) are left out of the comparison.
+
 Every (method, path) of the reference's router resolves in the port's: to
 the same ported handler, or to one that answers "not yet ported" (the
 500 envelope), never to a 404 or 405.
@@ -109,6 +117,8 @@ class Client:
         raw = resp.read()
         if resp.getheader("connection") == "close":
             self.conn.close()
+        if (resp.getheader("content-type") or "").startswith("text/plain"):
+            return resp.status, raw.decode()  # a _cat table, Prometheus text
         return resp.status, (json.loads(raw) if raw else None)
 
     def raw(self, request: bytes):
@@ -330,6 +340,7 @@ def _sequence(c: Client) -> list[tuple[str, int, object]]:
     step("get_s1", "GET", "/vecs/_doc/s1")
     step("get_7", "GET", "/vecs/_doc/7")
     _context_steps(step, docs, qs)
+    _ops_steps(step, docs)
     # the transport's own answers
     status, body = c.raw(b"POST /vecs/_doc/big HTTP/1.1\r\nHost: x\r\n"
                          b"Content-Length: 200000000\r\n\r\n")
@@ -546,6 +557,289 @@ def _context_steps(step, docs, qs) -> None:
     ctx("ctx_otel_flush", "POST", "/_otel/flush", norm=_no_device)
 
 
+# what a stats read differs in by nature between two runs of the same
+# sequence, masked by name: clocks and uptimes, the os / process / jvm /
+# fs probes of the host, the device sections (byte sizes of device
+# tensors, the roofline's and heat ledger's kernel families, which name
+# each package's own kernels), the telemetry ring's span and took
+# timings, and the slow log's timings
+NODE_VOLATILE = {"timestamp", "os", "process", "jvm", "fs", "device",
+                 "roofline", "heat", "telemetry", "slowlog", "threads",
+                 "uptime_in_millis", "start_time_in_millis"}
+# and what differs by design: the `ingest` section (the port counts each
+# pipeline and processor, IngestStats, where the reference reports a zero
+# total) and `knn_batch` (the reference's stacked step dispatches through
+# the kNN batcher, the port's launches K1 itself: ROADMAP Queue 1 item 1)
+NODE_DIFFERENT = {"ingest", "knn_batch"}
+
+
+def _no_timings(obj):
+    """Every `*time_in_millis` of a stats body is a wall-clock timing."""
+    if isinstance(obj, dict):
+        return {k: _no_timings(v) for k, v in obj.items()
+                if "time_in_millis" not in k}
+    if isinstance(obj, list):
+        return [_no_timings(v) for v in obj]
+    return obj
+
+
+def _no_node_probes(obj):
+    if isinstance(obj, dict):
+        # the request cache's bytes measure the cached responses, whose
+        # `took` is a clock
+        if "hit_count" in obj and "memory_size_in_bytes" in obj:
+            obj = {k: v for k, v in obj.items()
+                   if k != "memory_size_in_bytes"}
+        return {k: _no_node_probes(v) for k, v in _no_timings(obj).items()
+                if k not in NODE_VOLATILE | NODE_DIFFERENT}
+    if isinstance(obj, list):
+        return [_no_node_probes(v) for v in obj]
+    return obj
+
+
+def _no_commit_ids(obj):
+    """`level=shards`: a shard's commit id is its engine's random uuid."""
+    obj = _no_timings(obj)
+    for shards in (obj.get("indices") or {}).values():
+        for copies in (shards.get("shards") or {}).values():
+            for c in copies:
+                c.get("commit", {}).pop("id", None)
+    return obj
+
+
+def _no_cat_dates(rows):
+    """A `_cat/indices?format=json` row's creation date is a clock."""
+    return [{k: v for k, v in r.items()
+             if k not in ("creation.date", "creation.date.string")}
+            for r in rows]
+
+
+def _no_ingest_clock(obj):
+    """`_ingest.timestamp` is the clock at the pipeline's run."""
+    if isinstance(obj, dict):
+        return {k: (_no_ingest_clock({x: y for x, y in v.items()
+                                      if x != "timestamp"})
+                    if k == "_ingest" and isinstance(v, dict)
+                    else _no_ingest_clock(v)) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_no_ingest_clock(v) for v in obj]
+    return obj
+
+
+# _cat columns that differ by nature, masked in the text: an index's
+# uuid (22 url-safe characters), clocks (epoch seconds and milliseconds,
+# HH:MM:SS), the host's load, memory, cpu and disk figures (`_cat/nodes`,
+# `_cat/allocation`), the process id (`_cat/thread_pool?h=pid`) and a
+# running task's time
+_CAT_VOLATILE = (
+    (re.compile(r"(?<![\w-])[\w-]{22}(?![\w-])"), "<uuid>"),
+    (re.compile(r"\b\d{13}\b"), "<ms>"),
+    (re.compile(r"\b\d{10}\b"), "<epoch>"),
+    (re.compile(r"\b\d{2}:\d{2}:\d{2}\b"), "<hh:mm:ss>"),
+    (re.compile(r"\b\d+(\.\d+)?[kmgt]?b\b"), "<bytes>"),
+    (re.compile(r"\b\d+\.\d+\b"), "<float>"),
+    (re.compile(r"\b\d+ms\b"), "<ms>"),
+)
+
+
+def masked_cat(text):
+    if not isinstance(text, str):
+        return text
+    for pattern, token in _CAT_VOLATILE:
+        text = pattern.sub(token, text)
+    return re.sub(r" +", " ", text)
+
+
+def _no_prom_values(text):
+    """Prometheus text with each sample's value masked where it is a
+    time, a byte size or a gauge of the device (the series names and
+    labels, and the counters', stay)."""
+    out = []
+    for line in text.splitlines():
+        name = (line.split()[2] if line.startswith("# TYPE")
+                else line.split("{")[0].split(" ")[0])
+        if name.startswith(("opensearch_tpu_knn_batch",
+                            "opensearch_tpu_knn_dispatch")):
+            continue  # the batcher's series: NODE_DIFFERENT's knn_batch
+        if "roofline" in name:
+            continue  # its `family` labels name each package's kernels
+        if name == "opensearch_tpu_device_resident_bytes":
+            continue  # its `device` labels name each package's devices
+        if name == "opensearch_tpu_structure_heat":
+            continue  # the heat ledger is process-wide: other nodes' rows
+        if not line.startswith("#") and any(w in name for w in (
+                "took", "_ms", "seconds", "bytes", "roofline", "heat")):
+            line = line.rsplit(" ", 1)[0] + " <v>"
+        out.append(line)
+    return "\n".join(out)
+
+
+def _ops_steps(step, docs) -> None:
+    """Ingest pipelines, index templates and the node's stats: one step at
+    least for each of the 67 routes this slice serves, over the `vecs`
+    index the steps above built, with the named volatile fields masked."""
+    def st(label, method, path, body=None, ndjson=None, norm=None):
+        if label not in OPS_STEPS:
+            OPS_STEPS.append(label)
+        return step(label, method, path, body, ndjson, norm)
+
+    # ingest pipelines: CRUD, _simulate, pipeline= on writes and _bulk
+    tagger = {"description": "tags a doc", "processors": [
+        {"uppercase": {"field": "color", "target_field": "color_up"}},
+        {"set": {"field": "ingested", "value": "yes"}},
+        {"drop": {"if": "ctx.age > 85"}}]}
+    st("ops_ing_put", "PUT", "/_ingest/pipeline/tagger", tagger)
+    st("ops_ing_put_bad", "PUT", "/_ingest/pipeline/bad",
+       {"processors": [{"nope": {}}]})
+    st("ops_ing_get_all", "GET", "/_ingest/pipeline")
+    st("ops_ing_get", "GET", "/_ingest/pipeline/tagger")
+    st("ops_ing_get_missing", "GET", "/_ingest/pipeline/nope")
+    sim_docs = {"docs": [{"_source": docs[0]}, {"_source": {"age": 99}}]}
+    st("ops_ing_sim", "POST", "/_ingest/pipeline/tagger/_simulate",
+       sim_docs, norm=_no_ingest_clock)
+    st("ops_ing_sim_get", "GET",
+       "/_ingest/pipeline/tagger/_simulate?verbose=true", sim_docs,
+       norm=_no_ingest_clock)
+    st("ops_ing_sim_inline", "POST", "/_ingest/pipeline/_simulate",
+       {"pipeline": tagger, **sim_docs}, norm=_no_ingest_clock)
+    st("ops_ing_sim_inline_get", "GET", "/_ingest/pipeline/_simulate",
+       sim_docs)
+    st("ops_ing_index", "PUT", "/vecs/_doc/p1?pipeline=tagger&refresh=true",
+       docs[13])
+    st("ops_ing_get_doc", "GET", "/vecs/_doc/p1")
+    st("ops_ing_bulk", "POST", "/_bulk?pipeline=tagger&refresh=true", ndjson=[
+        {"index": {"_index": "vecs", "_id": "p2"}}, docs[14],
+        {"index": {"_index": "vecs", "_id": "p3", "pipeline": "_none"}},
+        docs[15], {"index": {"_index": "vecs", "_id": "p4"}},
+        {**docs[16], "age": 99}])
+    st("ops_ing_get_bulk_doc", "GET", "/vecs/_doc/p2")
+    st("ops_ing_missing_pipeline", "PUT", "/vecs/_doc/p5?pipeline=nope",
+       docs[17])
+    # templates: component, composable and legacy
+    st("ops_tpl_comp_put", "PUT", "/_component_template/base", {"template": {
+        "settings": {"number_of_shards": 1, "number_of_replicas": 0},
+        "mappings": {"properties": {
+            "v": {"type": "knn_vector", "dimension": DIM}}}}})
+    st("ops_tpl_comp_post", "POST", "/_component_template/extra",
+       {"template": {"mappings": {"properties": {
+           "tag": {"type": "keyword"}}}}})
+    st("ops_tpl_comp_bad", "PUT", "/_component_template/bad", {})
+    st("ops_tpl_comp_get_all", "GET", "/_component_template")
+    st("ops_tpl_comp_get", "GET", "/_component_template/base")
+    st("ops_tpl_comp_get_missing", "GET", "/_component_template/nope")
+    st("ops_tpl_put", "PUT", "/_index_template/logs", {
+        "index_patterns": ["logs-*"], "composed_of": ["base", "extra"],
+        "priority": 5, "template": {"aliases": {"all-logs": {}}}})
+    st("ops_tpl_post", "POST", "/_index_template/logs2",
+       {"index_patterns": ["logs-x*"], "priority": 1})
+    st("ops_tpl_put_bad", "PUT", "/_index_template/bad",
+       {"index_patterns": ["z*"], "composed_of": ["nope"]})
+    st("ops_tpl_get_all", "GET", "/_index_template")
+    st("ops_tpl_get", "GET", "/_index_template/logs*")
+    st("ops_tpl_get_missing", "GET", "/_index_template/nope")
+    st("ops_tpl_auto_create", "PUT", "/logs-1/_doc/1?refresh=true",
+       {"v": docs[0]["v"], "tag": "a"})
+    st("ops_tpl_get_index", "GET", "/logs-1")
+    st("ops_tpl_search_alias", "POST", "/all-logs/_search",
+       _knn(docs[0]["v"], k=1))
+    st("ops_leg_put", "PUT", "/_template/old", {
+        "index_patterns": ["old-*"], "order": 1,
+        "settings": {"number_of_shards": 2},
+        "aliases": {"olds": {"routing": "1"}}})
+    st("ops_leg_post_create", "POST", "/_template/old?create=true",
+       {"index_patterns": ["old-*"]})
+    st("ops_leg_get_all", "GET", "/_template")
+    st("ops_leg_get", "GET", "/_template/old?flat_settings=true")
+    st("ops_leg_get_missing", "GET", "/_template/nope")
+    st("ops_leg_head", "HEAD", "/_template/old")
+    st("ops_leg_head_missing", "HEAD", "/_template/nope")
+    st("ops_leg_create_index", "PUT", "/old-1", {})
+    st("ops_leg_get_index", "GET", "/old-1")
+    # wildcard expressions
+    # (a "-" exclusion is the port's alone: tests/test_torch_wildcards.py)
+    st("ops_wild_search", "POST", "/v*,logs-*/_search",
+       _knn(docs[1]["v"], k=3))
+    st("ops_wild_count", "GET", "/*/_count")
+    st("ops_wild_mapping", "GET", "/l*/_mapping")
+    st("ops_wild_none", "GET", "/zz*/_mapping?allow_no_indices=false")
+    # _segments, _stats, _cluster/stats
+    st("ops_segments", "GET", "/_segments")
+    st("ops_segments_index", "GET", "/vecs/_segments")
+    st("ops_stats", "GET", "/_stats", norm=_no_timings)
+    st("ops_stats_metric", "GET", "/_stats/docs,search", norm=_no_timings)
+    st("ops_stats_index", "GET", "/vecs/_stats", norm=_no_timings)
+    st("ops_stats_index_metric", "GET",
+       "/vecs/_stats/indexing,refresh?level=shards", norm=_no_commit_ids)
+    st("ops_stats_bad_metric", "GET", "/_stats/bogus")
+    st("ops_stats_bad_param", "GET", "/_stats?nope=1")
+    st("ops_stats_pattern", "GET", "/logs-*,old-*/_stats/docs")
+    st("ops_cluster_stats", "GET", "/_cluster/stats")
+    # _nodes: info and stats
+    st("ops_nodes", "GET", "/_nodes", norm=_no_node_probes)
+    st("ops_nodes_id", "GET", "/_nodes/node-0", norm=_no_node_probes)
+    st("ops_nodes_metric", "GET", "/_nodes/node-0/settings",
+       norm=_no_node_probes)
+    st("ops_nodes_stats", "GET", "/_nodes/stats", norm=_no_node_probes)
+    st("ops_nodes_id_stats", "GET", "/_nodes/node-0/stats",
+       norm=_no_node_probes)
+    st("ops_nodes_stats_metric", "GET", "/_nodes/stats/indices,breaker",
+       norm=_no_node_probes)
+    st("ops_nodes_stats_index_metric", "GET",
+       "/_nodes/stats/indices/docs,search", norm=_no_node_probes)
+    st("ops_nodes_id_stats_metric", "GET", "/_nodes/node-0/stats/tasks",
+       norm=_no_node_probes)
+    st("ops_nodes_id_stats_index_metric", "GET",
+       "/_nodes/node-0/stats/indices/indexing", norm=_no_node_probes)
+    st("ops_nodes_stats_bad", "GET", "/_nodes/stats/knn_batc")
+    st("ops_prometheus", "GET", "/_prometheus/metrics",
+       norm=_no_prom_values)
+    # _cat
+    cat = masked_cat
+    st("ops_cat", "GET", "/_cat")
+    st("ops_cat_indices", "GET", "/_cat/indices?v=true&s=index", norm=cat)
+    st("ops_cat_indices_json", "GET",
+       "/_cat/indices/logs-*?format=json&h=index,docs.count,pri",
+       norm=_no_cat_dates)
+    st("ops_cat_health", "GET", "/_cat/health?v=true", norm=cat)
+    st("ops_cat_shards", "GET", "/_cat/shards?s=index,shard,prirep",
+       norm=cat)
+    st("ops_cat_shards_index", "GET", "/_cat/shards/vecs?v=true", norm=cat)
+    st("ops_cat_count", "GET", "/_cat/count?h=count")
+    st("ops_cat_count_index", "GET", "/_cat/count/vecs?h=count")
+    st("ops_cat_aliases", "GET", "/_cat/aliases?v=true&s=alias")
+    st("ops_cat_aliases_name", "GET", "/_cat/aliases/all-*")
+    st("ops_cat_allocation", "GET", "/_cat/allocation?h=shards,node")
+    st("ops_cat_allocation_node", "GET", "/_cat/allocation/_master?v=true")
+    st("ops_cat_nodes", "GET", "/_cat/nodes?h=ip,node.role,name",
+       norm=cat)
+    st("ops_cat_master", "GET", "/_cat/master")
+    st("ops_cat_cluster_manager", "GET", "/_cat/cluster_manager?v=true")
+    st("ops_cat_nodeattrs", "GET", "/_cat/nodeattrs")
+    st("ops_cat_plugins", "GET", "/_cat/plugins?v=true")
+    st("ops_cat_templates", "GET", "/_cat/templates?v=true&s=name")
+    st("ops_cat_templates_name", "GET", "/_cat/templates/log*")
+    st("ops_cat_thread_pool", "GET", "/_cat/thread_pool")
+    st("ops_cat_thread_pool_pattern", "GET", "/_cat/thread_pool/sea*?v=true")
+    st("ops_cat_segments", "GET", "/_cat/segments?s=index,shard", norm=cat)
+    st("ops_cat_segments_index", "GET",
+       "/_cat/segments/vecs?h=index,shard,docs.count")
+    st("ops_cat_tasks", "GET", "/_cat/tasks?h=action,type,node")
+    st("ops_cat_fielddata", "GET", "/_cat/fielddata")
+    st("ops_cat_fielddata_fields", "GET", "/_cat/fielddata/title?v=true")
+    # clean-up: pipelines and templates deleted, the made indices too
+    st("ops_ing_delete", "DELETE", "/_ingest/pipeline/tagger")
+    st("ops_ing_delete_missing", "DELETE", "/_ingest/pipeline/tagger")
+    st("ops_tpl_delete", "DELETE", "/_index_template/logs")
+    st("ops_tpl_delete_missing", "DELETE", "/_index_template/logs")
+    st("ops_tpl_comp_delete", "DELETE", "/_component_template/extra")
+    st("ops_leg_delete", "DELETE", "/_template/ol*")
+    st("ops_delete_made", "DELETE", "/logs-*,old-1")
+    st("ops_get_made", "GET", "/logs-1")
+
+
+OPS_STEPS: list[str] = []
+
+
 @pytest.fixture(scope="module")
 def transcripts(tmp_path_factory):
     prev_peaks = roofline.current_peaks()
@@ -665,7 +959,43 @@ CONTEXT_LABELS = [
 ]
 
 
-@pytest.mark.parametrize("label", STEPS + CONTEXT_LABELS)
+OPS_LABELS = [
+    "ops_ing_put", "ops_ing_put_bad", "ops_ing_get_all", "ops_ing_get",
+    "ops_ing_get_missing", "ops_ing_sim", "ops_ing_sim_get",
+    "ops_ing_sim_inline", "ops_ing_sim_inline_get", "ops_ing_index",
+    "ops_ing_get_doc", "ops_ing_bulk", "ops_ing_get_bulk_doc",
+    "ops_ing_missing_pipeline", "ops_tpl_comp_put", "ops_tpl_comp_post",
+    "ops_tpl_comp_bad", "ops_tpl_comp_get_all", "ops_tpl_comp_get",
+    "ops_tpl_comp_get_missing", "ops_tpl_put", "ops_tpl_post",
+    "ops_tpl_put_bad", "ops_tpl_get_all", "ops_tpl_get",
+    "ops_tpl_get_missing", "ops_tpl_auto_create", "ops_tpl_get_index",
+    "ops_tpl_search_alias", "ops_leg_put", "ops_leg_post_create",
+    "ops_leg_get_all", "ops_leg_get", "ops_leg_get_missing", "ops_leg_head",
+    "ops_leg_head_missing", "ops_leg_create_index", "ops_leg_get_index",
+    "ops_wild_search", "ops_wild_count", "ops_wild_mapping", "ops_wild_none",
+    "ops_segments", "ops_segments_index", "ops_stats", "ops_stats_metric",
+    "ops_stats_index", "ops_stats_index_metric", "ops_stats_bad_metric",
+    "ops_stats_bad_param", "ops_stats_pattern", "ops_cluster_stats",
+    "ops_nodes", "ops_nodes_id", "ops_nodes_metric", "ops_nodes_stats",
+    "ops_nodes_id_stats", "ops_nodes_stats_metric",
+    "ops_nodes_stats_index_metric", "ops_nodes_id_stats_metric",
+    "ops_nodes_id_stats_index_metric", "ops_nodes_stats_bad",
+    "ops_prometheus", "ops_cat", "ops_cat_indices", "ops_cat_indices_json",
+    "ops_cat_health", "ops_cat_shards", "ops_cat_shards_index",
+    "ops_cat_count", "ops_cat_count_index", "ops_cat_aliases",
+    "ops_cat_aliases_name", "ops_cat_allocation", "ops_cat_allocation_node",
+    "ops_cat_nodes", "ops_cat_master", "ops_cat_cluster_manager",
+    "ops_cat_nodeattrs", "ops_cat_plugins", "ops_cat_templates",
+    "ops_cat_templates_name", "ops_cat_thread_pool",
+    "ops_cat_thread_pool_pattern", "ops_cat_segments",
+    "ops_cat_segments_index", "ops_cat_tasks", "ops_cat_fielddata",
+    "ops_cat_fielddata_fields", "ops_ing_delete", "ops_ing_delete_missing",
+    "ops_tpl_delete", "ops_tpl_delete_missing", "ops_tpl_comp_delete",
+    "ops_leg_delete", "ops_delete_made", "ops_get_made",
+]
+
+
+@pytest.mark.parametrize("label", STEPS + CONTEXT_LABELS + OPS_LABELS)
 def test_response_equals_the_references(transcripts, label):
     (ref_status, ref_body), (port_status, port_body) = transcripts[label]
     assert port_status == ref_status, (port_body, ref_body)
@@ -673,8 +1003,10 @@ def test_response_equals_the_references(transcripts, label):
 
 
 def test_every_step_is_compared(transcripts):
-    assert set(STEPS) | set(CONTEXT_LABELS) | {"root"} == set(transcripts)
+    assert set(STEPS) | set(CONTEXT_LABELS) | set(OPS_LABELS) | {"root"} \
+        == set(transcripts)
     assert CONTEXT_STEPS == CONTEXT_LABELS
+    assert OPS_STEPS == OPS_LABELS
 
 
 def test_root_info_names_the_port(transcripts):
@@ -759,10 +1091,10 @@ def test_unported_routes_answer_the_500_envelope_and_keep_the_connection(
             "v": {"type": "knn_vector", "dimension": 2}}}})
         c("PUT", "/v/_doc/1?refresh=true", {"v": [1.0, 0.0]})
         for method, path, body in (
-                ("GET", "/_cat/indices", None),
+                ("GET", "/_cat/recovery", None),
                 ("POST", "/v/_update_by_query", {"script": {
                     "source": "ctx._source.a = 1"}}),
-                ("GET", "/v/_stats", None),
+                ("GET", "/v/_recovery", None),
                 ("GET", "/_cluster/pending_tasks", None),
                 ("POST", "/_reindex", {"source": {"index": "v"},
                                        "dest": {"index": "w"}})):
@@ -898,7 +1230,7 @@ CONTEXT_ROUTES = (
 
 def test_context_routes_are_served():
     assert len(CONTEXT_ROUTES) == len(set(CONTEXT_ROUTES)) == 47
-    assert len(port_handlers.UNPORTED_ROUTES) == 158
+    assert len(port_handlers.UNPORTED_ROUTES) == 91
     assert not set(CONTEXT_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
     assert ("GET", "/_cluster/pending_tasks") in port_handlers.UNPORTED_ROUTES
     assert ("GET", "/_cat/pending_tasks") in port_handlers.UNPORTED_ROUTES
@@ -906,6 +1238,89 @@ def test_context_routes_are_served():
         ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
         handler, _ = PORT_ROUTER.resolve(method, _concrete(template))
         assert getattr(port_handlers, ref_handler.__name__) is handler
+
+
+# the 67 routes of the ingest, templates and stats slice: each resolves
+# to a ported handler (the `ops_` steps above compare its answers)
+OPS_ROUTES = (
+    ("PUT", "/_ingest/pipeline/{id}"), ("GET", "/_ingest/pipeline"),
+    ("GET", "/_ingest/pipeline/{id}"), ("DELETE", "/_ingest/pipeline/{id}"),
+    ("POST", "/_ingest/pipeline/{id}/_simulate"),
+    ("GET", "/_ingest/pipeline/{id}/_simulate"),
+    ("POST", "/_ingest/pipeline/_simulate"),
+    ("GET", "/_ingest/pipeline/_simulate"),
+    ("PUT", "/_template/{name}"), ("POST", "/_template/{name}"),
+    ("GET", "/_template"), ("GET", "/_template/{name}"),
+    ("HEAD", "/_template/{name}"), ("DELETE", "/_template/{name}"),
+    ("PUT", "/_index_template/{name}"), ("POST", "/_index_template/{name}"),
+    ("GET", "/_index_template"), ("GET", "/_index_template/{name}"),
+    ("DELETE", "/_index_template/{name}"),
+    ("PUT", "/_component_template/{name}"),
+    ("POST", "/_component_template/{name}"),
+    ("GET", "/_component_template"), ("GET", "/_component_template/{name}"),
+    ("DELETE", "/_component_template/{name}"),
+    ("GET", "/_segments"), ("GET", "/{index}/_segments"),
+    ("GET", "/_prometheus/metrics"), ("GET", "/_cluster/stats"),
+    ("GET", "/_stats"), ("GET", "/_stats/{metric}"),
+    ("GET", "/{index}/_stats"), ("GET", "/{index}/_stats/{metric}"),
+    ("GET", "/_nodes"), ("GET", "/_nodes/stats"),
+    ("GET", "/_nodes/{node_id}/stats"), ("GET", "/_nodes/stats/{metric}"),
+    ("GET", "/_nodes/stats/{metric}/{index_metric}"),
+    ("GET", "/_nodes/{node_id}/stats/{metric}"),
+    ("GET", "/_nodes/{node_id}/stats/{metric}/{index_metric}"),
+    ("GET", "/_nodes/{node_id}"), ("GET", "/_nodes/{node_id}/{metric}"),
+    ("GET", "/_cat"), ("GET", "/_cat/indices"),
+    ("GET", "/_cat/indices/{index}"), ("GET", "/_cat/health"),
+    ("GET", "/_cat/shards"), ("GET", "/_cat/shards/{index}"),
+    ("GET", "/_cat/count"), ("GET", "/_cat/count/{index}"),
+    ("GET", "/_cat/aliases"), ("GET", "/_cat/aliases/{name}"),
+    ("GET", "/_cat/allocation"), ("GET", "/_cat/allocation/{node_id}"),
+    ("GET", "/_cat/nodes"), ("GET", "/_cat/master"),
+    ("GET", "/_cat/cluster_manager"), ("GET", "/_cat/nodeattrs"),
+    ("GET", "/_cat/plugins"), ("GET", "/_cat/templates"),
+    ("GET", "/_cat/templates/{name}"), ("GET", "/_cat/thread_pool"),
+    ("GET", "/_cat/thread_pool/{pattern}"), ("GET", "/_cat/segments"),
+    ("GET", "/_cat/segments/{index}"), ("GET", "/_cat/tasks"),
+    ("GET", "/_cat/fielddata"), ("GET", "/_cat/fielddata/{fields}"),
+)
+
+
+def test_ops_routes_are_served():
+    """The slice's 67 routes left UNPORTED_ROUTES (158 -> 91); the four
+    `_cat` tables that need later modules stay unported."""
+    assert len(OPS_ROUTES) == len(set(OPS_ROUTES)) == 67
+    assert not set(OPS_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
+    for route in (("GET", "/_cat/recovery"), ("GET", "/_cat/pending_tasks"),
+                  ("GET", "/_cat/repositories"), ("GET", "/_cat/snapshots")):
+        assert route in port_handlers.UNPORTED_ROUTES
+    for method, template in OPS_ROUTES:
+        ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
+        handler, _ = PORT_ROUTER.resolve(method, _concrete(template))
+        assert getattr(port_handlers, ref_handler.__name__) is handler
+
+
+def test_ops_steps_are_not_vacuous(transcripts):
+    """The ingest, template and stats steps answered what they should."""
+    def port(label):
+        return transcripts[label][1]
+
+    assert port("ops_ing_get_doc")[1]["_source"]["color_up"] == \
+        port("ops_ing_get_doc")[1]["_source"]["color"].upper()
+    bulk = port("ops_ing_bulk")[1]["items"]
+    assert [i["index"]["result"] for i in bulk] == ["created", "created",
+                                                    "noop"]
+    assert port("ops_ing_get_bulk_doc")[1]["_source"]["ingested"] == "yes"
+    mapping = port("ops_tpl_get_index")[1]["logs-1"]["mappings"]
+    assert set(mapping["properties"]) == {"v", "tag"}
+    assert port("ops_tpl_get_index")[1]["logs-1"]["aliases"] == {
+        "all-logs": {}}
+    assert port("ops_tpl_search_alias")[1]["hits"]["hits"]
+    assert port("ops_leg_get_index")[1]["old-1"]["aliases"] == {
+        "olds": {"index_routing": "1", "search_routing": "1"}}
+    assert port("ops_stats")[1]["_all"]["primaries"]["docs"]["count"] > 0
+    assert "opensearch_tpu_search_total" in port("ops_prometheus")[1]
+    assert "vecs" in port("ops_cat_indices")[1]
+    assert port("ops_get_made")[0] == 404
 
 
 def test_context_steps_are_not_vacuous(transcripts):
