@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
                                     hybrid,large,lexical,aggs,dsl,mesh,
-                                    contexts,ops]
+                                    contexts,ops,admin]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -398,6 +398,26 @@ library calls, logged as `large record` lines.
    memory_allocated() move across them, ingest.pipelines.vec-in.count
    20,000, the knn_batch Prometheus series moving as _nodes/stats does.
    At most 45 s. ``--phases ops`` runs it alone on a fresh node.
+12. admin (with main, on the main node after ops, whose vec-2026.10 and
+   vec-twin it reuses; admin_main_phase): cross-request batching on the
+   stacked step, index management and document reads. The concurrent
+   checks on the stacked step (cell A at k = 10 and 100, at bf16 and
+   int8 gated, int8 on queries of one quantization scale, cell B at
+   k = 10): each concurrent hit list its solo one bit for bit, the mean
+   merged batch above 1, fewer K1 launches than searches, a cross-shard
+   launch on B; int8 queries of 64 scales launch apart. Then over HTTP: PUT _mapping adds
+   v2 to vec-twin (2,000 docs carry it; 16 kNN on v2, one launch each,
+   the brute force; 16 on v, the hits of before bit for bit); a write
+   block refusing a _bulk and lifted by _settings; _split of vec-2026.10
+   into 2 shards (32 kNN, one stacked launch each, the source's hits);
+   _close (a kNN 400 with no launch, _cat/indices `close`, vec-* skips
+   it) and _open (the hits of before bit for bit); _rollover of a write
+   alias vec-w over 2 x 2,000 docs (16 kNN over both indices, one launch
+   each, the brute force); _explain of 8 kNN top hits (the value the
+   _score bit for bit), _mget of 64 ids, _field_caps, and
+   _validate/query, _search_shards and _analyze with no launch. At most
+   30 s. ``--phases admin`` builds cells A and B and the ops phase's
+   indices on a fresh node and runs it alone.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -4557,7 +4577,10 @@ def main_path_phase(kf, dev, seed: int) -> dict:
                 "what": [f"{name} (v, norms, valid, query): "
                          f"{sum(t.numel() * t.element_size() for t in ts)} B"
                          for name, ts in step_inputs.items()]}
-        ops = ops_main_phase(node, kf, seed, held)
+        kept: dict = {}
+        ops = ops_main_phase(node, kf, seed, held, keep=kept)
+        admin = admin_main_phase(node, kf, seed, kept, truths["sift_a"][0],
+                                 truths["sift_b"][0])
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
     # each index's shape, beside the whole search's latency above: CUDA-event
@@ -4608,7 +4631,8 @@ def main_path_phase(kf, dev, seed: int) -> dict:
             "step_device": step_device, "per_shard": per_shard,
             "wide": wide, "reduced": reduced, "batched": batched,
             "msearch": msearch, "rest": rest, "filtered": filtered,
-            "large": large, "contexts": contexts, "ops": ops}
+            "large": large, "contexts": contexts, "ops": ops,
+            "admin": admin}
 
 
 def filtered_phase(kf, dev, seed: int) -> dict:
@@ -5999,7 +6023,8 @@ def _knn_batch_series(text: str) -> dict:
     return out
 
 
-def ops_main_phase(node, kf, seed: int, held: dict | None = None) -> dict:
+def ops_main_phase(node, kf, seed: int, held: dict | None = None,
+                   keep: dict | None = None) -> dict:
     """Ingest pipelines, index templates, wildcard expressions and the
     node's stats surface, on the main node after the contexts phase (or
     alone on a fresh node, ``--phases ops``):
@@ -6031,7 +6056,10 @@ def ops_main_phase(node, kf, seed: int, held: dict | None = None) -> dict:
        HTTP server, with no launch counter and no memory_allocated() move
        across them; ingest.pipelines.vec-in.count is OPS_DOCS, and the
        opensearch_tpu_knn_batch_* Prometheus series move as
-       _nodes/stats/knn_batch does."""
+       _nodes/stats/knn_batch does.
+
+    With `keep` (a dict), the vec-* indices stay for the admin phase and
+    `keep` gets the corpus (`data`, `spam`); else they are deleted."""
     from opensearch_tpu_torch.ops import knn_rescore as kr
     from opensearch_tpu_torch.rest.http import HttpServer
     from opensearch_tpu_torch.search import distributed_serving
@@ -6328,7 +6356,10 @@ def ops_main_phase(node, kf, seed: int, held: dict | None = None) -> dict:
     finally:
         client.close()
         server.stop_thread()
-    node.delete_index("vec-*")
+    if keep is None:
+        node.delete_index("vec-*")
+    else:
+        keep.update(data=data, spam=spam)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"ops phase: {out['wall_s']:.1f} s")
     if out["wall_s"] > 45:
@@ -6345,6 +6376,501 @@ def ops_phase(kf, dev, seed: int) -> dict:
         node = TorchNode(tmp, device="cuda")
         try:
             return ops_main_phase(node, kf, seed)
+        finally:
+            node.close()
+
+
+# --------------------------------------------------------------------------
+# cross-request batching on the stacked step, index management and document
+# reads (the admin phase)
+# --------------------------------------------------------------------------
+
+ADMIN_QUERIES = 16           # kNN searches of each check
+ADMIN_V2_DOCS = 2_000        # docs carrying only the new field v2
+ADMIN_ROLL_DOCS = 2_000      # docs written through vec-w before and after
+ADMIN_EXPLAIN = 8            # kNN top hits explained
+ADMIN_MGET = 64              # ids of the _mget
+ADMIN_READS = 8              # timed reads of each document-read route
+ADMIN_WALL_S = 30
+
+
+def brute_ids(kf, rows: np.ndarray, qs: np.ndarray, k: int, ids: list,
+              dev) -> list:
+    """The top-k doc ids of each query over `rows` under the range scans'
+    own arithmetic (kernel_order_scores), ties in row order."""
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+
+    v = torch.from_numpy(rows)[None].to(dev)
+    nrm = (v.double() ** 2).sum(2).float()
+    ok = torch.ones(v.shape[:2], dtype=torch.bool, device=dev)
+    qt = torch.from_numpy(qs).to(dev)
+    scores = kernel_order_scores(kf, v, nrm, ok, qt, kr.plain_query_sq(qt),
+                                 "l2_norm")
+    top = order_top(kf, scores, k)[1][0].tolist()
+    return [[ids[i] for i in row if i >= 0] for row in top]
+
+
+def tie_swaps(label: str, got: list, want: list) -> int:
+    """(_id, _score) hit lists that must be equal, but where a doc may
+    stand in for another of the same score (an exact tie, kept in another
+    doc order): the scores must be equal place by place; the lists whose
+    ids differ are logged and counted."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} != {len(want)} lists")
+    swaps = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g == w:
+            continue
+        if [sc for _d, sc in g] != [sc for _d, sc in w]:
+            raise AssertionError(f"{label} query {i}: {g} != {w}")
+        swaps += 1
+        log(f"{label} query {i}: ties swapped "
+            f"{[(a, b) for a, b in zip(g, w) if a != b]}")
+    return swaps
+
+
+def admin_main_phase(node, kf, seed: int, corpus: dict,
+                     queries_a: np.ndarray, queries_b: np.ndarray) -> dict:
+    """Cross-request batching on the stacked step, index management and
+    document reads, on the main node after the ops phase (whose vec-2026.10
+    and vec-twin it reuses), or alone on a fresh node (``--phases admin``):
+
+    1. the concurrent checks (concurrent_phase) on the stacked step: cell
+       A at k = 10 and 100, at bf16 and int8 (gated only; int8 on queries
+       of one quantization scale, and on queries of 64 scales, which must
+       launch apart), cell B at k = 10; every concurrent hit list its
+       solo one bit for bit, the mean merged batch above 1, fewer K1
+       launches than searches, and on B a cross-shard launch; QPS with
+       the batcher on and off;
+    2. PUT vec-twin/_mapping adds v2 (a 128-d l2 knn_vector), ADMIN_V2_DOCS
+       docs carrying only v2 (``pipeline=_none``), refresh; ADMIN_QUERIES
+       kNN on v2, one K1 launch each, the kernel-order brute force over
+       those docs; ADMIN_QUERIES kNN on v, the hits of before the update
+       bit for bit;
+    3. PUT vec-twin/_block/write: a _bulk refused with the reference's
+       block error, docs.count unmoved, a kNN still one launch; the
+       block lifted by _settings;
+    4. vec-2026.10 write-blocked and split into vec-split (2 shards);
+       ADMIN_QUERIES kNN at k = 10 and at k = 100 through it, one stacked
+       launch each over 2 shards, vec-2026.10's hits (an exact tie on a
+       score may swap two docs: logged);
+    5. _close vec-split: a kNN answers 400 index_closed_exception with no
+       launch, _cat/indices says close, vec-* skips it, the ledger's
+       resident bytes before and after; _open: the kNN of before the
+       close bit for bit, the registry's builds and the first search's
+       latency reported;
+    6. vec-000001 with write alias vec-w, through the template,
+       ADMIN_ROLL_DOCS docs; _rollover under max_docs ADMIN_ROLL_DOCS / 2
+       (1,000) to vec-000002,
+       ADMIN_ROLL_DOCS more through vec-w; ADMIN_QUERIES kNN through vec-w,
+       one stacked launch each over both indices' shards, the brute force
+       over all the docs;
+    7. _explain of ADMIN_EXPLAIN kNN top hits (matched, value the hit's
+       _score bit for bit, the per-shard route's launches), _mget of
+       ADMIN_MGET ids against as many GET _doc, _field_caps?fields=v*
+       (the reference's dense_vector for v and v2), and _validate/query, _search_shards and _analyze with
+       no launch and no memory_allocated() move; each route group once
+       over HTTP and the p50 of _explain, _mget and _field_caps.
+    At most ADMIN_WALL_S seconds."""
+    from opensearch_tpu_torch.rest.http import HttpServer
+    from opensearch_tpu_torch.search import ann as ann_mod
+    from opensearch_tpu_torch.search import distributed_serving
+    from opensearch_tpu_torch.telemetry import device_ledger
+
+    t_phase = time.perf_counter()
+    dev = node.device
+    rng = np.random.default_rng(seed + 30)
+    data, spam = corpus["data"], corpus["spam"]
+    qs = (data[rng.choice(len(data), ADMIN_QUERIES, replace=False)]
+          + 0.05 * rng.standard_normal((ADMIN_QUERIES, DIM)).astype(
+              np.float32))
+    registry = distributed_serving.registry
+    out: dict = {"phases": {}}
+
+    def lap(name: str, t0: float) -> None:
+        out["phases"][name] = time.perf_counter() - t0
+
+    def one_launch_each(label: str, searches, tier: str) -> list:
+        """Run the searches one by one: each one stacked K1 launch on
+        `tier`; returns the hit lists."""
+        counter = {"lists": kf.list_launches, "wide": kf.wide_launches}[tier]
+        kf.launches.reset()
+        counter.reset()
+        d0 = distributed_serving.stats["distributed_searches"]
+        got = [_ctx_hits(fn()) for fn in searches]
+        launches = {"knn_fused": kf.launches.count, tier: counter.count,
+                    "stacked": distributed_serving.stats[
+                        "distributed_searches"] - d0}
+        if set(launches.values()) != {len(got)}:
+            raise AssertionError(f"{label}: {launches} in {len(got)} "
+                                 f"searches (one stacked K1 launch each)")
+        out.setdefault("launches", {})[label] = launches
+        return got
+
+    # -- 1. batching on the stacked step ---------------------------------
+    t0 = time.perf_counter()
+    lists = {"knn_fused": kf.launches, "lists": kf.list_launches}
+    batching = {
+        "A k=10": concurrent_phase(node, "sift_a", queries_a, 10, lists),
+        # k = 100 on the wide tier, the first 10 hits fetched: the fetch of
+        # 100 hits a search would outweigh the launch the batcher merges
+        "A k=100": concurrent_phase(
+            node, "sift_a", queries_a, 100,
+            {"knn_fused": kf.launches, "wide": kf.wide_launches})}
+    # an int8 batch is quantized with one scale, max|q| / 127 over the
+    # batch, so the stacked key merges int8 queries of one scale only: the
+    # merge is gated on queries whose largest component is set to the
+    # set's largest (one scale), and queries of other scales must launch
+    # apart
+    one_scale = queries_a.copy()
+    rows = np.arange(len(one_scale))
+    peak = np.abs(one_scale).argmax(axis=1)
+    one_scale[rows, peak] = np.sign(one_scale[rows, peak]) * \
+        np.abs(queries_a).max()
+    if len({kf.int8_query_scale(q) for q in queries_a}) != len(queries_a):
+        raise AssertionError("[admin] two queries share an int8 scale")
+    mma = {"knn_fused": kf.launches, "mma": kf.mma_launches}
+    for label, prec, qs_prec, merges in (
+            ("bf16", "bf16", queries_a, True),
+            ("int8", "int8", one_scale, True),
+            ("int8 other scales", "int8", queries_a, False)):
+        ann_mod.default_config.configure(score_precision=prec)
+        try:
+            batching[f"A {label} k=10"] = concurrent_phase(
+                node, "sift_a", qs_prec, 10, mma, reduced=True,
+                merges=merges)
+        finally:
+            ann_mod.default_config.configure(score_precision="fp32")
+    batching["B k=10"] = concurrent_phase(node, "sift_b", queries_b, 10,
+                                          lists)
+    if batching["B k=10"]["gated"]["cross_shard_launches"] < 1:
+        raise AssertionError(f"[admin] cell B: no cross-shard launch: "
+                             f"{batching['B k=10']['gated']}")
+    out["batching"] = batching
+    lap("batching", t0)
+
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    client = RestClient(server.port)
+    try:
+        # -- 2. a knn_vector added by a mapping update -------------------
+        t0 = time.perf_counter()
+        before_v = [_ctx_hits(node.search("vec-twin", _ctx_knn(q, 10)))
+                    for q in qs]
+        client.ok("PUT", "/vec-twin/_mapping", {"properties": {"v2": {
+            "type": "knn_vector", "dimension": DIM,
+            "similarity": "l2_norm"}}})
+        v2 = clustered(rng, ADMIN_V2_DOCS, DIM)
+        v2_ids = [f"v2-{i}" for i in range(ADMIN_V2_DOCS)]
+        resp = node.bulk([("index", {"_index": "vec-twin", "_id": v2_ids[i]},
+                           {"v2": v2[i].tolist()})
+                          for i in range(ADMIN_V2_DOCS)], refresh=True,
+                         pipeline="_none")
+        if resp["errors"]:
+            raise AssertionError("[admin] the v2 bulk reported errors")
+        q2 = (v2[rng.choice(ADMIN_V2_DOCS, ADMIN_QUERIES, replace=False)]
+              + 0.05 * rng.standard_normal((ADMIN_QUERIES, DIM)).astype(
+                  np.float32))
+        got_v2 = one_launch_each("v2 k=10", [
+            lambda q=q: node.search("vec-twin", {"query": {"knn": {"v2": {
+                "vector": q.tolist(), "k": 10}}}, "size": 10,
+                "_source": False}) for q in q2], "lists")
+        if [[h for h, _s in row] for row in got_v2] != \
+                brute_ids(kf, v2, q2, 10, v2_ids, dev):
+            raise AssertionError("[admin] kNN on v2: not the brute force "
+                                 "over the docs written after the update")
+        after_v = one_launch_each("v k=10 after the update", [
+            lambda q=q: node.search("vec-twin", _ctx_knn(q, 10))
+            for q in qs], "lists")
+        if after_v != before_v:
+            raise AssertionError("[admin] kNN on v moved with the mapping "
+                                 "update")
+        log(f"[admin] PUT vec-twin/_mapping added v2; {ADMIN_V2_DOCS} docs "
+            f"carry it; {ADMIN_QUERIES} kNN on v2, one K1 launch each, the "
+            f"brute force over those docs; {ADMIN_QUERIES} kNN on v, the "
+            f"hits of before the update bit for bit")
+        lap("mapping", t0)
+
+        # -- 3. a write block -------------------------------------------
+        t0 = time.perf_counter()
+        client.ok("PUT", "/vec-twin/_block/write")
+        docs0 = node.count("vec-twin")["count"]
+        status, blocked = client("POST", "/_bulk?pipeline=_none", ndjson=[
+            {"index": {"_index": "vec-twin", "_id": "blocked"}},
+            {"v": data[0].tolist()}])
+        item = blocked["items"][0]["index"] if status == 200 else {}
+        if status != 200 or not blocked["errors"] or \
+                item.get("error", {}).get("type") != \
+                "cluster_block_exception":
+            raise AssertionError(f"[admin] a _bulk under the write block: "
+                                 f"HTTP {status} {json.dumps(blocked)[:300]}")
+        node.refresh("vec-twin")
+        if node.count("vec-twin")["count"] != docs0:
+            raise AssertionError("[admin] docs.count moved under the block")
+        blocked_knn = one_launch_each("v under the write block", [
+            lambda: node.search("vec-twin", _ctx_knn(qs[0], 10))], "lists")
+        if blocked_knn[0] != before_v[0]:
+            raise AssertionError("[admin] kNN under the block moved")
+        client.ok("PUT", "/vec-twin/_settings", {"index.blocks.write": False})
+        client.ok("PUT", "/vec-twin/_doc/unblocked?pipeline=_none",
+                  {"v": data[0].tolist()}, status=(200, 201))
+        out["block"] = {"status": item.get("status"),
+                        "reason": item["error"]["reason"]}
+        log(f"[admin] vec-twin write-blocked: _bulk item "
+            f"{item.get('status')} {item['error']['reason']}; docs.count "
+            f"{docs0} unmoved; a kNN one launch; lifted by _settings")
+        lap("block", t0)
+
+        # -- 4. split ----------------------------------------------------
+        t0 = time.perf_counter()
+        client.ok("PUT", "/vec-2026.10/_block/write")
+        t_split = time.perf_counter()
+        client.ok("PUT", "/vec-2026.10/_split/vec-split", {"settings": {
+            "index.number_of_shards": 2}})
+        out["split_s"] = time.perf_counter() - t_split
+        if node.count("vec-split")["count"] != \
+                node.count("vec-2026.10")["count"]:
+            raise AssertionError("[admin] vec-split does not hold "
+                                 "vec-2026.10's docs")
+        split = {}
+        ties = 0
+        for k, tier in ((10, "lists"), (100, "wide")):
+            src = [_ctx_hits(node.search("vec-2026.10", _ctx_knn(q, k)))
+                   for q in qs]
+            x0 = node.knn_batcher.snapshot_stats()["cross_shard_launches"]
+            got = one_launch_each(f"vec-split k={k}", [
+                lambda q=q: node.search("vec-split", _ctx_knn(q, k))
+                for q in qs], tier)
+            cross = node.knn_batcher.snapshot_stats()[
+                "cross_shard_launches"] - x0
+            if cross != ADMIN_QUERIES:
+                raise AssertionError(f"[admin] vec-split k={k}: {cross} "
+                                     f"cross-shard launches")
+            ties += tie_swaps(f"[admin] vec-split k={k}", got, src)
+            split[k] = got
+        out["split_tie_swaps"] = ties
+        log(f"[admin] _split vec-2026.10 -> vec-split (2 shards) in "
+            f"{out['split_s']:.2f} s; {ADMIN_QUERIES} kNN at k = 10 and at "
+            f"k = 100, one stacked launch each over 2 shards, vec-2026.10's "
+            f"hits ({ties} tie swaps)")
+        lap("split", t0)
+
+        # -- 5. close and open -------------------------------------------
+        t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        resident0 = device_ledger.default_ledger.resident_bytes()
+        client.ok("POST", "/vec-split/_close")
+        resident1 = device_ledger.default_ledger.resident_bytes()
+        kf.launches.reset()
+        status, err = client("POST", "/vec-split/_search",
+                             _ctx_knn(qs[0], 10))
+        if status != 400 or err["error"]["type"] != \
+                "index_closed_exception" or kf.launches.count:
+            raise AssertionError(f"[admin] a kNN on the closed index: HTTP "
+                                 f"{status} {err}, {kf.launches.count} "
+                                 f"launches")
+        _st, cat = _http_get(client, "/_cat/indices/vec-split?h=status")
+        if cat.strip() != "close":
+            raise AssertionError(f"[admin] _cat/indices: {cat!r}")
+        pattern = client.ok("POST", "/vec-*/_search", _ctx_knn(qs[0], 10))
+        if any(h["_index"] == "vec-split" for h in pattern["hits"]["hits"]):
+            raise AssertionError("[admin] vec-* reached the closed index")
+        builds0 = registry.snapshot_stats()["builds"]
+        client.ok("POST", "/vec-split/_open")
+        t_first = time.perf_counter()
+        first = _ctx_hits(node.search("vec-split", _ctx_knn(qs[0], 10)))
+        first_ms = (time.perf_counter() - t_first) * 1e3
+        reopened = one_launch_each("vec-split k=10 after _open", [
+            lambda q=q: node.search("vec-split", _ctx_knn(q, 10))
+            for q in qs], "lists")
+        if reopened != split[10] or first != split[10][0]:
+            raise AssertionError("[admin] after _open: not the hits of "
+                                 "before the close")
+        out["close_open"] = {
+            "resident_bytes_before_close": resident0,
+            "resident_bytes_after_close": resident1,
+            "bundle_builds_after_open": registry.snapshot_stats()["builds"]
+            - builds0,
+            "first_knn_after_open_ms": first_ms}
+        log(f"[admin] _close vec-split: ledger resident {resident0} B "
+            f"before, {resident1} B after; a kNN 400 index_closed_exception "
+            f"with no launch; _cat/indices 'close'; vec-* skips it; _open: "
+            f"{out['close_open']['bundle_builds_after_open']} bundle "
+            f"build(s), the first kNN {first_ms:.3f} ms, {ADMIN_QUERIES} "
+            f"kNN the hits of before the close bit for bit")
+        lap("close_open", t0)
+
+        # -- 6. rollover -------------------------------------------------
+        t0 = time.perf_counter()
+        client.ok("PUT", "/vec-000001", {"aliases": {
+            "vec-w": {"is_write_index": True}}})
+        rows = clustered(rng, 2 * ADMIN_ROLL_DOCS, DIM)
+        row_ids = [f"r-{i}" for i in range(2 * ADMIN_ROLL_DOCS)]
+
+        def write(lo: int, hi: int) -> None:
+            resp = node.bulk([("index", {"_index": "vec-w",
+                                         "_id": row_ids[i]},
+                               {"v": rows[i].tolist()})
+                              for i in range(lo, hi)], refresh=True,
+                             pipeline="_none")
+            if resp["errors"]:
+                raise AssertionError("[admin] a vec-w bulk reported errors")
+
+        write(0, ADMIN_ROLL_DOCS)
+        rolled = client.ok("POST", "/vec-w/_rollover", {"conditions": {
+            "max_docs": ADMIN_ROLL_DOCS // 2}})
+        if not rolled["rolled_over"] or rolled["new_index"] != "vec-000002":
+            raise AssertionError(f"[admin] _rollover: {rolled}")
+        write(ADMIN_ROLL_DOCS, 2 * ADMIN_ROLL_DOCS)
+        counts = {n: node.count(n)["count"]
+                  for n in ("vec-000001", "vec-000002")}
+        if set(counts.values()) != {ADMIN_ROLL_DOCS} or \
+                node.get_mapping("vec-000002")["vec-000002"]["mappings"][
+                    "properties"]["v"]["type"] not in ("knn_vector",
+                                                       "dense_vector"):
+            raise AssertionError(f"[admin] after the rollover: {counts}")
+        qr = (rows[rng.choice(len(rows), ADMIN_QUERIES, replace=False)]
+              + 0.05 * rng.standard_normal((ADMIN_QUERIES, DIM)).astype(
+                  np.float32))
+        x0 = node.knn_batcher.snapshot_stats()["cross_shard_launches"]
+        got = one_launch_each("vec-w k=10", [
+            lambda q=q: node.search("vec-w", _ctx_knn(q, 10)) for q in qr],
+            "lists")
+        if node.knn_batcher.snapshot_stats()["cross_shard_launches"] - x0 \
+                != ADMIN_QUERIES:
+            raise AssertionError("[admin] vec-w: not one launch over both "
+                                 "indices' shards")
+        if [[h for h, _s in row] for row in got] != \
+                brute_ids(kf, rows, qr, 10, row_ids, dev):
+            raise AssertionError("[admin] kNN through vec-w: not the brute "
+                                 "force over both indices' docs")
+        out["rollover"] = {"counts": counts, "conditions":
+                           rolled["conditions"]}
+        log(f"[admin] _rollover vec-w under max_docs "
+            f"{ADMIN_ROLL_DOCS // 2}: vec-000002 "
+            f"through the template; {counts}; {ADMIN_QUERIES} kNN through "
+            f"vec-w, one stacked launch each over both indices' shards, the "
+            f"brute force over {2 * ADMIN_ROLL_DOCS} docs")
+        lap("rollover", t0)
+
+        # -- 7. document reads and query tools ---------------------------
+        t0 = time.perf_counter()
+        shard = node.indices["vec-twin"].shards[0]
+        with_v = sum(1 for _h, d in shard.acquire_searcher().segments
+                     if "v" in d.vector_fields)
+        explained = []
+        for i, q in enumerate(qs[:ADMIN_EXPLAIN]):
+            body = _ctx_knn(q, 10)
+            hit = node.search("vec-twin", body)["hits"]["hits"][0]
+            kf.launches.reset()
+            ex = (client.ok("POST", f"/vec-twin/_explain/{hit['_id']}",
+                            {"query": body["query"]}) if i == 0 else
+                  node.explain("vec-twin", hit["_id"],
+                               {"query": body["query"]}))
+            if not ex["matched"] or \
+                    ex["explanation"]["value"] != hit["_score"] or \
+                    kf.launches.count != with_v:
+                raise AssertionError(
+                    f"[admin] _explain {hit['_id']}: matched "
+                    f"{ex['matched']}, value {ex['explanation']['value']} "
+                    f"!= _score {hit['_score']}, {kf.launches.count} K1 "
+                    f"launches (want {with_v})")
+            explained.append(hit["_id"])
+        ids = [str(i) for i in rng.choice(len(data), ADMIN_MGET,
+                                          replace=False)]
+        mget = client.ok("POST", "/vec-twin/_mget", {"ids": ids})["docs"]
+        singles = [node.get_doc("vec-twin", i) for i in ids]
+        if json.loads(json.dumps(singles)) != mget:
+            raise AssertionError("[admin] _mget is not the GET _doc calls")
+        # the reference maps a knn_vector to its dense_vector type, and
+        # _field_caps reports that type
+        caps = client.ok("GET", "/vec-*/_field_caps?fields=v*")["fields"]
+        if any(set(caps.get(f, ())) != {"dense_vector"} for f in ("v", "v2")):
+            raise AssertionError(f"[admin] _field_caps: {caps}")
+        torch.cuda.synchronize()
+        counts0 = _launch_counts()
+        mem0 = torch.cuda.memory_allocated()
+        valid = client.ok("POST", "/vec-twin/_validate/query?explain=true",
+                          {"query": _ctx_knn(qs[0], 10)["query"]})
+        shards = client.ok("GET", "/vec-split/_search_shards")
+        tokens = client.ok("POST", "/vec-twin/_analyze", {
+            "analyzer": "standard", "text": "The split Index's vectors"})
+        torch.cuda.synchronize()
+        if _launch_counts() != counts0 or \
+                torch.cuda.memory_allocated() != mem0 or \
+                not valid["valid"] or len(shards["shards"]) != 2 or \
+                [t["token"] for t in tokens["tokens"]] != [
+                    "the", "split", "index's", "vectors"]:
+            raise AssertionError(f"[admin] the query tools launched or "
+                                 f"moved memory: {valid} {shards} {tokens}")
+        reads = {}
+        for label, method, path, body in (
+                ("_explain", "POST", f"/vec-twin/_explain/{explained[0]}",
+                 {"query": _ctx_knn(qs[0], 10)["query"]}),
+                ("_mget", "POST", "/vec-twin/_mget", {"ids": ids}),
+                ("_field_caps", "GET", "/vec-*/_field_caps?fields=v*",
+                 None)):
+            lat = []
+            for _ in range(ADMIN_READS):
+                t1 = time.perf_counter()
+                client.ok(method, path, body)
+                lat.append(time.perf_counter() - t1)
+            reads[label] = float(np.percentile(np.asarray(lat) * 1e3, 50))
+        out["reads_p50_ms"] = reads
+        log(f"[admin] _explain of {ADMIN_EXPLAIN} kNN top hits: matched, "
+            f"the value the _score bit for bit, {with_v} K1 launch(es) "
+            f"each; _mget of {ADMIN_MGET} = GET _doc; _field_caps v, v2 "
+            f"dense_vector; _validate/query, _search_shards, _analyze: no "
+            f"launch, memory_allocated unmoved; p50 ms {json.dumps(reads)}")
+        lap("reads", t0)
+    finally:
+        client.close()
+        server.stop_thread()
+    node.delete_index("vec-*")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"admin phase: {out['wall_s']:.1f} s ({json.dumps(out['phases'])})")
+    if out["wall_s"] > ADMIN_WALL_S:
+        raise AssertionError(f"[admin] the phase took {out['wall_s']:.1f} s "
+                             f"(at most {ADMIN_WALL_S})")
+    return out
+
+
+def admin_launches(adm: dict) -> dict:
+    """K1's launches of each admin check, counted from 0: the gated
+    concurrent runs' and the one-a-search checks'."""
+    out = {f"concurrent {key}": res["gated"]["launches"]["knn_fused"]
+           for key, res in adm["batching"].items()}
+    out.update({key: res["knn_fused"] for key, res in adm["launches"].items()})
+    return out
+
+
+def admin_phase(kf, dev, seed: int) -> dict:
+    """Cell A and B built as main_path_phase builds them (the same seed
+    draws), the ops phase keeping its indices, then admin_main_phase, on
+    a fresh node (``--phases admin``)."""
+    from opensearch_tpu_torch.node import TorchNode
+
+    rng = np.random.default_rng(seed + 2)
+    data_a = clustered(rng, 200_000, DIM)
+    data_b = clustered(rng, 20_000, DIM)
+    attrs = attributes(rng, 200_000)
+    queries = {}
+    for name, data in (("sift_a", data_a), ("sift_b", data_b)):
+        queries[name] = (data[rng.choice(data.shape[0], 64, replace=False)]
+                         + 0.05 * rng.standard_normal((64, DIM)).astype(
+                             np.float32))
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device="cuda")
+        try:
+            t0 = time.perf_counter()
+            _bulk_index(node, "sift_a", data_a, 1, attrs)
+            _bulk_index(node, "sift_b", data_b, 4)
+            log(f"[sift_a] 200000 and [sift_b] 20000 docs: bulk + refresh "
+                f"{time.perf_counter() - t0:.1f} s")
+            kept: dict = {}
+            ops_main_phase(node, kf, seed, keep=kept)
+            return admin_main_phase(node, kf, seed, kept, queries["sift_a"],
+                                    queries["sift_b"])
         finally:
             node.close()
 
@@ -6462,7 +6988,7 @@ def concurrent_check(name: str, i: int, got: list, solo: list) -> None:
 
 def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
                      counters: dict, size: int = 10,
-                     reduced: bool = False) -> dict:
+                     reduced: bool = False, merges: bool = True) -> dict:
     """The 64 queries one after another, then the same 64 from 8 threads of
     8 searches each, three times, each returning `size` hits. Every
     concurrent hit list must equal its solo one (concurrent_check): ids in
@@ -6481,7 +7007,10 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
        gated.
     3. The same with the batcher switched off, to tell its share of the
        concurrent numbers from the threads'.
-    At a reduced precision (`reduced`) the gated run alone."""
+    At a reduced precision (`reduced`) the gated run alone. Without
+    `merges` (queries the batcher must keep apart: int8 queries of other
+    quantization scales on the stacked step) the gated run must launch
+    each search alone."""
     def search(qv) -> list:
         resp = node.search(name, {"query": {"knn": {"v": {
             "vector": qv.tolist(), "k": k}}}, "size": size})
@@ -6537,15 +7066,23 @@ def concurrent_phase(node, name: str, queries: np.ndarray, k: int,
         gated, gated_launches, _timed = batched_run(together=True)
     finally:
         batcher.configure(max_wait_ms=wait0, auto_tune=True)
-    if gated["mean_merged_batch"] <= 1:
+    if not merges:
+        if gated["mean_merged_batch"] != 1 or \
+                set(gated_launches.values()) != {n}:
+            raise AssertionError(f"[{name}] searches the batcher must keep "
+                                 f"apart shared a launch: {gated} "
+                                 f"{gated_launches}")
+    elif gated["mean_merged_batch"] <= 1:
         raise AssertionError(f"[{name}] the batcher merged nothing: {gated}")
     for key, count in gated_launches.items():
-        if not 0 < count < n:
+        if merges and not 0 < count < n:
             raise AssertionError(f"[{name}] {key} launched {count} times in "
                                  f"{n} concurrent searches")
     gated_out = {"dispatches": gated["dispatches"],
                  "mean_merged_batch": gated["mean_merged_batch"],
-                 "max_batch": gated["max_batch"], "launches": gated_launches}
+                 "max_batch": gated["max_batch"],
+                 "cross_shard_launches": gated["cross_shard_launches"],
+                 "launches": gated_launches}
     if reduced:
         out = {"solo": latency_summary(solo_lat), "gated": gated_out}
         log(f"[{name}] 8 threads x 8 searches, gated, equal the solo ones: "
@@ -10149,9 +10686,14 @@ def main() -> int:
         entry["ops_launches"] = {
             key: res["launches"]["knn_fused"]
             for key, res in main["ops"]["knn"].items()}
+        # batching on the stacked step, index management and document
+        # reads: each check's K1 launches, counted from 0
+        entry["admin_main_path"] = main["admin"]
+        entry["admin_launches"] = admin_launches(main["admin"])
         phase_s["main"] = time.perf_counter() - t0
         phase_s["contexts"] = main["contexts"]["wall_s"]
         phase_s["ops"] = main["ops"]["wall_s"]
+        phase_s["admin"] = main["admin"]["wall_s"]
     elif "filtered" in phases:
         t0 = time.perf_counter()
         fp = filtered_phase(kf, dev, args.seed)
@@ -10179,6 +10721,14 @@ def main() -> int:
         entry["launches"] = sum(entry["ops_launches"].values())
         phase_s["ops"] = ops["wall_s"]
         phase_s["ops_node"] = time.perf_counter() - t0 - ops["wall_s"]
+    elif "admin" in phases:
+        t0 = time.perf_counter()
+        adm = admin_phase(kf, dev, args.seed)
+        entry["admin_main_path"] = adm
+        entry["admin_launches"] = admin_launches(adm)
+        entry["launches"] = sum(entry["admin_launches"].values())
+        phase_s["admin"] = adm["wall_s"]
+        phase_s["admin_node"] = time.perf_counter() - t0 - adm["wall_s"]
     elif "contexts" in phases:
         t0 = time.perf_counter()
         ctx = contexts_phase(kf, dev, args.seed)

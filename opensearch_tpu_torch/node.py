@@ -20,8 +20,8 @@ of ``search_pipelines`` (search/pipeline.py), ``count``,
 ``msearch`` (runs of bare kNN bodies in one stacked launch),
 ``cluster_health`` and ``close``. Every shard publishes its segments to the
 node's device; searches run the stacked serving step on it
-(search/distributed_serving.py), or the per-shard route, whose launches
-coalesce across concurrent searches in ``knn_batcher``
+(search/distributed_serving.py), or the per-shard route; on either,
+launches coalesce across concurrent searches in ``knn_batcher``
 (search/batcher.py).
 
 Search contexts, aliases and admission, as the reference's ``search``
@@ -64,8 +64,8 @@ Index expressions (``resolve_indices``, ``resolve_search_shards``,
 ``delete_index``) take comma lists of names, aliases, ``*`` / ``?``
 patterns over both, ``-`` exclusions after a pattern, date-math names and
 ``expand_wildcards`` (a pattern skips an ``index.hidden`` index unless
-``hidden`` or ``all`` is asked; every index is open, so ``closed`` alone
-matches nothing). Ingest pipelines (ingest/, ``ingest``, kept in
+``hidden`` or ``all`` is asked; ``open`` / ``closed`` select by state).
+Ingest pipelines (ingest/, ``ingest``, kept in
 ``ingest_pipelines.json``) run before a document is indexed: the
 request's ``pipeline``, else ``index.default_pipeline``, then the landing
 index's ``index.final_pipeline``, with ``drop`` and ``_index`` /
@@ -76,6 +76,19 @@ node's stats: ``monitor`` (common/monitor.py), ``index_stats`` (the
 ``_stats`` API, per-index search counters as the reference counts them)
 and the sections ``rest/handlers.py`` assembles for ``_nodes/stats``,
 ``_cat`` and ``_prometheus/metrics``.
+
+Index management and document reads, as the reference's: mapping and
+settings updates (``put_mapping``, open and closed indices;
+``put_index_settings``, whose readers see the new values through
+``IndexService.settings_changed``), blocks (``index.blocks.write`` and
+``read_only`` refuse writes at ``_resolve_write_alias``), close and open
+(``IndexService.closed``, kept in the registry; a closed index keeps its
+engines and device columns, and refuses reads, writes and searches),
+``rollover``, ``resize_index`` (``_shrink``, ``_split``, ``_clone``: a
+re-layout of the source's live docs through the sealed-segment path),
+``analyze``, ``mget``, ``explain`` (the query phase restricted to the
+doc), ``field_caps``, ``termvectors``, ``mtermvectors`` and
+``search_shards``.
 
 The device is the card unless the caller asks for the CPU::
 
@@ -104,9 +117,13 @@ from opensearch_tpu_torch import backend
 from opensearch_tpu_torch.cluster import shard_mesh
 from opensearch_tpu_torch.common.errors import (
     ActionRequestValidationException,
+    ClusterBlockException,
     DocumentMissingException,
     IllegalArgumentException,
+    IllegalStateException,
+    IndexClosedException,
     IndexNotFoundException,
+    InputCoercionException,
     OpenSearchTpuException,
     ParsingException,
     ResourceAlreadyExistsException,
@@ -127,10 +144,13 @@ from opensearch_tpu_torch.common.timeutil import (
 from opensearch_tpu_torch.index.analysis import AnalysisRegistry
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.shard import IndexShard, ShardId, translog_durability
-from opensearch_tpu_torch.search import batcher
+from opensearch_tpu_torch.search import batcher, query_dsl
 from opensearch_tpu_torch.search import service as search_service
-from opensearch_tpu_torch.search.executor import not_yet_ported
-from opensearch_tpu_torch.search.fetch import _flatten_source
+from opensearch_tpu_torch.search.executor import (
+    execute_query_phase,
+    not_yet_ported,
+)
+from opensearch_tpu_torch.search.fetch import _flatten_source, explain_for_hit
 from opensearch_tpu_torch.search.pipeline import SearchPipelineService
 
 # ASCII, not starting with _ - + (MetadataCreateIndexService.validateIndexName)
@@ -229,6 +249,116 @@ def _deep_merge(base: dict, overlay: dict) -> dict:
     return out
 
 
+def _object_parents(ms) -> dict[str, str]:
+    """Object and nested paths implied by dotted leaf names: any proper
+    prefix of a mapper name that is not itself a mapper (multi-field
+    parents ARE mappers and are excluded): the reference's ObjectMapper
+    tree, recovered from the flattened registry."""
+    parents: dict[str, str] = {}
+    for fname in ms.mappers:
+        parts = fname.split(".")
+        for i in range(1, len(parts)):
+            prefix = ".".join(parts[:i])
+            if prefix in ms.mappers:
+                continue
+            parents[prefix] = (
+                "nested" if prefix in getattr(ms, "nested_paths", set())
+                else "object"
+            )
+    return parents
+
+
+def build_field_caps(names: list, mapper_for, patterns: list,
+                     include_unmapped: bool = False) -> dict:
+    """Per-index field capabilities merged into the FieldCapabilities wire
+    shape: per (field, type) the `indices` list appears when the field is
+    not single-typed across the queried indices (include_unmapped's
+    pseudo-type "unmapped" counts), mixed searchability and
+    aggregatability surface as `non_searchable_indices` /
+    `non_aggregatable_indices`, and mapping `meta` merges into key ->
+    sorted list of distinct values."""
+    # field -> type -> {"indices": [...], "searchable": {idx: bool},
+    #                   "aggregatable": {idx: bool}, "meta": [dict, ...]}
+    by_field: dict[str, dict[str, dict]] = {}
+
+    def slot_for(fname: str, ftype: str) -> dict:
+        return by_field.setdefault(fname, {}).setdefault(
+            ftype, {"indices": [], "searchable": {}, "aggregatable": {},
+                    "meta": []})
+
+    for name in names:
+        ms = mapper_for(name)
+        for fname, mapper in ms.mappers.items():
+            if not any(fnmatch.fnmatch(fname, p) for p in patterns):
+                continue
+            if mapper.type == "alias":
+                # an alias reports its target's capabilities under the
+                # queried name
+                resolved = ms.field_mapper(fname)
+                if resolved is None or resolved.type == "alias":
+                    continue
+                mapper = resolved
+            ftype = mapper.original_type or mapper.type
+            slot = slot_for(fname, ftype)
+            slot["indices"].append(name)
+            slot["searchable"][name] = bool(mapper.index)
+            slot["aggregatable"][name] = bool(
+                mapper.doc_values and mapper.type != "text")
+            if mapper.meta:
+                slot["meta"].append(mapper.meta)
+        for pname, ptype in _object_parents(ms).items():
+            if not any(fnmatch.fnmatch(pname, p) for p in patterns):
+                continue
+            slot = slot_for(pname, ptype)
+            slot["indices"].append(name)
+            slot["searchable"][name] = False
+            slot["aggregatable"][name] = False
+
+    if include_unmapped:
+        for fname, types in by_field.items():
+            mapped: set = set()
+            for slot in types.values():
+                mapped.update(slot["indices"])
+            missing = [n for n in names if n not in mapped]
+            if missing:
+                un = slot_for(fname, "unmapped")
+                for n in missing:
+                    un["indices"].append(n)
+                    un["searchable"][n] = False
+                    un["aggregatable"][n] = False
+
+    caps: dict[str, dict[str, dict]] = {}
+    for fname, types in sorted(by_field.items()):
+        conflicted = len(types) > 1
+        caps[fname] = {}
+        for ftype, slot in types.items():
+            s_vals = list(slot["searchable"].values())
+            a_vals = list(slot["aggregatable"].values())
+            entry: dict[str, Any] = {
+                "type": ftype,
+                "searchable": bool(s_vals) and all(s_vals),
+                "aggregatable": bool(a_vals) and all(a_vals),
+            }
+            if conflicted:
+                # every type of a multi-typed field lists its members
+                entry["indices"] = sorted(slot["indices"])
+            if any(s_vals) and not all(s_vals):
+                entry["non_searchable_indices"] = sorted(
+                    n for n, v in slot["searchable"].items() if not v)
+            if any(a_vals) and not all(a_vals):
+                entry["non_aggregatable_indices"] = sorted(
+                    n for n, v in slot["aggregatable"].items() if not v)
+            merged_meta: dict[str, set] = {}
+            for m in slot["meta"]:
+                for k, v in m.items():
+                    merged_meta.setdefault(k, set()).add(str(v))
+            if merged_meta:
+                entry["meta"] = {
+                    k: sorted(vs) for k, vs in sorted(merged_meta.items())}
+            caps[fname][ftype] = entry
+    return {"indices": names, "fields": caps}
+
+
 class IndexService:
     """Per-index container (index module + its shards)."""
 
@@ -250,6 +380,10 @@ class IndexService:
         # alias name -> config ({"filter":..., "routing":...,
         # "is_write_index":...}); the per-index slice of AliasMetadata
         self.aliases: dict[str, dict] = {}
+        # a closed index keeps its shards, engines and device columns (the
+        # reference only flags it): reads and writes refuse it, reopening
+        # rebuilds nothing
+        self.closed = False
         # the _stats API's index-level search totals and stat groups
         self.search_stats = {"query_total": 0, "fetch_total": 0}
         self.search_group_stats: dict[str, dict] = {}
@@ -263,11 +397,19 @@ class IndexService:
 
     def setting(self, key: str, default=None):
         """An index setting by dotted key, bare or "index."-prefixed
-        (IndexSettings.getValue); `self.settings` holds the nested form."""
-        flat = Settings.from_nested(self.settings or {}).as_dict()
+        (IndexSettings.getValue); `self.settings` holds the nested form.
+        The flat view is cached and dropped by :meth:`settings_changed`."""
+        flat = getattr(self, "_flat_settings", None)
+        if flat is None:
+            flat = self._flat_settings = \
+                Settings.from_nested(self.settings or {}).as_dict()
         if key in flat:
             return flat[key]
         return flat.get(f"index.{key}", default)
+
+    def settings_changed(self) -> None:
+        """Drop the cached flat-settings view after a settings update."""
+        self._flat_settings = None
 
     def shard_for(self, doc_id: str, routing: str | None) -> IndexShard:
         return self.shards[shard_id_for_routing(routing or doc_id,
@@ -285,6 +427,7 @@ class TorchNode:
         self.device = backend.resolve_device(device)
         self.data_path = Path(data_path)
         self.node_name = node_name
+        self.cluster_uuid = uuid.uuid4().hex[:22]
         self.indices: dict[str, IndexService] = {}
         # scroll and PIT reader contexts (SearchService's ReaderContext
         # registry): each pins one searcher snapshot a shard
@@ -378,6 +521,7 @@ class TorchNode:
                 "settings": svc.settings,
                 "mappings": svc.mapper_service.to_dict(),
                 "aliases": svc.aliases,
+                "closed": svc.closed,
             }
             for name, svc in list(self.indices.items())
         }
@@ -396,6 +540,7 @@ class TorchNode:
                                meta["settings"], meta["mappings"],
                                self.device)
             svc.aliases = meta.get("aliases", {})
+            svc.closed = meta.get("closed", False)
             self.indices[name] = svc
 
     def create_index(self, name: str, body: dict | None = None) -> dict:
@@ -624,20 +769,27 @@ class TorchNode:
         reference's IndexNameExpressionResolver does.
         `ignore_unavailable` drops missing concrete names instead of a
         404; `expand_wildcards=none` turns patterns off, `hidden` / `all`
-        lets them reach hidden indices, and every index is open (close is
-        not ported), so `closed` alone matches nothing; an empty result
-        404s when `allow_no_indices` is false."""
+        lets them reach hidden indices, and `open` / `closed` / `all`
+        select by state what a pattern reaches (a concrete name is taken
+        whatever its state); an empty result 404s when
+        `allow_no_indices` is false."""
         alias_map = self._alias_map()
         expand = {w.strip() for w in str(expand_wildcards).split(",")}
-        # every index is open: a pattern selects it unless only closed
-        # indices are asked for
-        open_ok = "open" in expand or "all" in expand or \
-            not (expand & {"open", "closed"})
+        if "all" in expand:
+            expand |= {"open", "closed"}
+
+        def state_ok(name: str) -> bool:
+            # wildcard expansion honours the open / closed selection
+            # (IndicesOptions.expandWildcards*)
+            if self.indices[name].closed:
+                return "closed" in expand
+            return "open" in expand or not (expand & {"open", "closed"})
+
         if expr in ("_all", "*", ""):
             names = ([n for n in sorted(self.indices)
-                      if not self._is_hidden(n)
-                      or expand & {"hidden", "all"}]
-                     if "none" not in expand and open_ok else [])
+                      if state_ok(n) and (not self._is_hidden(n)
+                                          or expand & {"hidden", "all"})]
+                     if "none" not in expand else [])
             if not names and not allow_no_indices:
                 raise IndexNotFoundException(expr or "_all")
             return names
@@ -646,10 +798,9 @@ class TorchNode:
                 expr, alias_map, expand,
                 ignore_unavailable=ignore_unavailable,
                 allow_no_indices=allow_no_indices):
-            if not explicit and not open_ok:
-                continue
             names.extend(m for m in alias_map.get(name, [name])
-                         if m not in dropped)
+                         if m not in dropped
+                         and (explicit or state_ok(m)))
         if not names and not allow_no_indices:
             raise IndexNotFoundException(expr)
         return list(dict.fromkeys(names))
@@ -808,9 +959,13 @@ class TorchNode:
         applied in order; a CONCRETE requested alias that resolves to
         nothing makes the whole response a 404 that still carries the
         found entries (the handler reads the `status` / `error` riders)."""
-        names = (self.resolve_indices(index_expr,
-                                      expand_wildcards=expand_wildcards)
-                 if index_expr else sorted(self.indices))
+        names = (
+            self.resolve_indices(index_expr,
+                                 expand_wildcards=expand_wildcards)
+            if index_expr else sorted(
+                n for n in self.indices
+                if "closed" in expand_wildcards or "all" in expand_wildcards
+                or not self.indices[n].closed))
 
         def echo(conf: dict) -> dict:
             # "routing" renders as index_routing + search_routing
@@ -904,15 +1059,31 @@ class TorchNode:
         return writes[0]
 
     def _resolve_write_alias(self, index: str, routing: str | None,
-                             for_write: bool = True
+                             for_write: bool = True,
+                             check_blocks: bool | None = None
                              ) -> tuple[str, str | None]:
         """(concrete index, effective routing) for a write or a read by
         id: the alias's write index, and its index routing where the
-        request names none."""
+        request names none. A closed index refuses both; a write
+        (`check_blocks`, by default `for_write`) refuses an index under
+        ``index.blocks.write`` or ``index.blocks.read_only``, as the
+        reference's TransportWriteAction gate does."""
         concrete = self.resolve_write_target(index, for_write=for_write)
         if concrete != index and routing is None:
             conf = self.indices[concrete].aliases.get(index) or {}
             routing = conf.get("index_routing", conf.get("routing"))
+        if concrete in self.indices and self.indices[concrete].closed:
+            raise IndexClosedException(concrete)
+        if check_blocks is None:
+            check_blocks = for_write
+        if check_blocks and concrete in self.indices:
+            svc = self.indices[concrete]
+            for setting in ("blocks.write", "blocks.read_only"):
+                bid, desc, _levels = self._INDEX_BLOCKS[setting]
+                if str(svc.setting(setting, "false")).lower() == "true":
+                    raise ClusterBlockException(
+                        f"index [{concrete}] blocked by: "
+                        f"[FORBIDDEN/{bid}/{desc}];")
         return concrete, routing
 
     def _alias_targets(self, alias: str) -> list[tuple[str, dict]]:
@@ -932,7 +1103,14 @@ class TorchNode:
         per_index_filters: dict[str, list] = {}
         names: list[str] = []
 
-        def add_index(name: str, filt: dict | None) -> None:
+        def add_index(name: str, filt: dict | None,
+                      explicit: bool = False) -> None:
+            # a closed index named outright refuses the search; one a
+            # pattern or an alias reaches is skipped
+            if self._get_index(name).closed:
+                if explicit:
+                    raise IndexClosedException(name)
+                return
             if name not in per_index_filters:
                 names.append(name)
                 per_index_filters[name] = []
@@ -945,7 +1123,7 @@ class TorchNode:
             for name in self.resolve_indices(expr):
                 add_index(name, None)
         else:
-            for name, _explicit, dropped in self._expression_names(
+            for name, explicit, dropped in self._expression_names(
                     expr, alias_map, {"open"},
                     ignore_unavailable=ignore_unavailable,
                     allow_no_indices=True):
@@ -953,8 +1131,10 @@ class TorchNode:
                     for member, conf in self._alias_targets(name):
                         if member not in dropped:
                             add_index(member, conf.get("filter"))
+                            if explicit and self._get_index(member).closed:
+                                raise IndexClosedException(member)
                 elif name not in dropped:
-                    add_index(name, None)
+                    add_index(name, None, explicit=explicit)
         shards: list = []
         filters: list = []
         for name in names:
@@ -1002,6 +1182,403 @@ class TorchNode:
                 },
             )
         return out
+
+    # -- index management: mappings, settings, blocks, close / open,
+    # rollover, resize and _analyze (the reference's MetadataRolloverService,
+    # TransportCloseIndexAction, TransportResizeAction and
+    # TransportAnalyzeAction) ------------------------------------------------
+
+    # index-level block settings -> (block id, description, levels), as in
+    # cluster/block/ClusterBlockLevel + IndexMetadata.INDEX_*_BLOCK
+    _INDEX_BLOCKS = {
+        "blocks.read_only": (5, "index read-only (api)",
+                             ["write", "metadata_write"]),
+        "blocks.read": (7, "index read (api)", ["read"]),
+        "blocks.write": (8, "index write (api)", ["write"]),
+        "blocks.metadata": (9, "index metadata (api)",
+                            ["metadata_read", "metadata_write"]),
+        "blocks.read_only_allow_delete": (
+            12, "disk usage exceeded flood-stage watermark, "
+                "index has read-only-allow-delete block",
+            ["write"]),
+    }
+
+    def put_mapping(self, index: str, body: dict) -> dict:
+        """PUT /{index}/_mapping: the mappings merge into every named index,
+        open or closed (PutMappingRequest expands both). A new
+        ``knn_vector`` field reaches the device at the next refresh: the
+        segments sealed before it carry no column for it, so their docs
+        never match it."""
+        for name in self.resolve_indices(index, expand_wildcards="all"):
+            self._get_index(name).mapper_service.merge(body)
+        self._persist_index_registry()
+        return {"acknowledged": True}
+
+    def put_index_settings(self, index_expr: str, body: dict) -> dict:
+        """PUT /{index}/_settings: merge dynamic index settings (the
+        IndexScopedSettings update path); ``number_of_shards`` is final.
+        Every reader of an index setting goes through the index's cached
+        flat view, which ``settings_changed`` drops: the request cache's
+        ``requests.cache.enable``, the pipelines' ``default_pipeline`` /
+        ``final_pipeline`` and ``blocks.*`` take the new values at once,
+        and the slow logs are reconfigured."""
+        settings = body.get("settings", body) or {}
+        flat = Settings.from_nested(settings).as_dict()
+        norm = {(k[len("index."):] if k.startswith("index.") else k): v
+                for k, v in flat.items()}
+        if "number_of_shards" in norm:
+            raise IllegalArgumentException(
+                "final index setting [index.number_of_shards], not updateable"
+            )
+        for name in self.resolve_indices(index_expr,
+                                         expand_wildcards="all"):
+            svc = self._get_index(name)
+            svc.settings = _deep_merge(svc.settings,
+                                       Settings.from_flat(norm).as_nested())
+            svc.settings_changed()
+            if "number_of_replicas" in norm:
+                svc.num_replicas = int(norm["number_of_replicas"])
+        self._persist_index_registry()
+        self._configure_slowlogs()
+        return {"acknowledged": True}
+
+    def close_index(self, expr: str) -> dict:
+        """POST /{index}/_close: each index flushes every shard (a closed
+        index recovers from its commit) and is flagged closed. Its engines
+        and device columns stay resident, as in the reference, so
+        reopening rebuilds nothing."""
+        # open and close expand both states (Open/CloseIndexRequest)
+        for name in self.resolve_indices(expr, expand_wildcards="all"):
+            svc = self._get_index(name)
+            for shard in svc.shards.values():
+                shard.flush()
+            svc.closed = True
+        self._persist_index_registry()
+        return {"acknowledged": True, "shards_acknowledged": True}
+
+    def open_index(self, expr: str) -> dict:
+        for name in self.resolve_indices(expr, expand_wildcards="all"):
+            self._get_index(name).closed = False
+        self._persist_index_registry()
+        return {"acknowledged": True, "shards_acknowledged": True}
+
+    def _get_open_index(self, name: str) -> IndexService:
+        svc = self._get_index(name)
+        if svc.closed:
+            raise IndexClosedException(name)
+        return svc
+
+    def rollover(self, alias: str, body: dict | None = None) -> dict:
+        """POST /{alias}/_rollover[/{new_index}]: when a condition holds
+        (or none is given) a new index is made, through the templates like
+        any other, and the alias's write flag moves to it; ``dry_run``
+        only evaluates the conditions."""
+        body = body or {}
+        old_index = self.resolve_write_target(alias)
+        if old_index == alias:
+            raise IllegalArgumentException(
+                f"rollover target [{alias}] is not an alias")
+        new_index = body.get("new_index")
+        if not new_index:
+            m = re.match(r"^(.*?)-?(\d+)$", old_index)
+            if not m:
+                raise IllegalArgumentException(
+                    f"index name [{old_index}] does not end with a number; "
+                    "specify [new_index] explicitly")
+            new_index = f"{m.group(1)}-{int(m.group(2)) + 1:06d}"
+        conditions = body.get("conditions") or {}
+        svc = self._get_index(old_index)
+        doc_count = sum(s.num_docs for s in svc.shards.values())
+        age_ms = int(time.time() * 1000) - svc.creation_date
+        met: dict[str, bool] = {}
+        if "max_docs" in conditions:
+            met[f"[max_docs: {conditions['max_docs']}]"] = (
+                doc_count >= int(conditions["max_docs"]))
+        if "max_age" in conditions:
+            max_age_ms = parse_time_value_millis(conditions["max_age"],
+                                                 "max_age")
+            met[f"[max_age: {conditions['max_age']}]"] = age_ms >= max_age_ms
+        rolled = (not conditions) or any(met.values())
+        dry_run = bool(body.get("dry_run"))
+        if rolled and not dry_run:
+            self.create_index(new_index, {
+                k: v for k, v in body.items()
+                if k in ("settings", "mappings", "aliases")})
+            old_svc = self._get_index(old_index)
+            alias_conf = dict(old_svc.aliases.get(alias) or {})
+            if alias_conf.get("is_write_index"):
+                # an explicit write alias stays on the old index for reads;
+                # the write flag moves
+                old_svc.aliases[alias] = {**alias_conf,
+                                          "is_write_index": False}
+            else:
+                del old_svc.aliases[alias]
+            self._get_index(new_index).aliases[alias] = {
+                **alias_conf, "is_write_index": True}
+            self._persist_index_registry()
+        return {
+            "acknowledged": rolled and not dry_run,
+            "shards_acknowledged": rolled and not dry_run,
+            "old_index": old_index,
+            "new_index": new_index,
+            "rolled_over": rolled and not dry_run,
+            "dry_run": dry_run,
+            "conditions": met,
+        }
+
+    def resize_index(self, kind: str, source: str, target: str,
+                     body: dict | None = None) -> dict:
+        """_shrink / _split / _clone: a re-layout of the source's live
+        docs onto the target's shards (same ids and sources, new routing)
+        through the sealed-segment path every write takes, so the target
+        is a fresh index of the same docs: its segments upload to the
+        device and register in the residency ledger at its refresh. The
+        source must be write-blocked; the shard-count factor rules and
+        their error order are the reference's."""
+        body = body or {}
+        if source not in self.indices:
+            raise IndexNotFoundException(source)
+        if not _valid_index_name(target):
+            raise IllegalArgumentException(f"invalid index name [{target}]")
+        if target in self.indices:
+            raise ResourceAlreadyExistsException(
+                f"index [{target}] already exists")
+        svc = self.indices[source]
+        src_shards = svc.num_shards
+        flat_tgt = Settings.from_nested(
+            dict(body.get("settings") or {})).as_dict()
+
+        def tgt_setting(name, default=None):
+            return flat_tgt.get(name, flat_tgt.get(f"index.{name}", default))
+
+        if tgt_setting("number_of_routing_shards") is not None:
+            raise IllegalArgumentException(
+                "cannot provide index.number_of_routing_shards on resize")
+        for blk in ("blocks.metadata", "blocks.read_only"):
+            if str(tgt_setting(blk, "false")).lower() == "true":
+                raise ActionRequestValidationException(
+                    f"Validation Failed: 1: target index [{target}] will "
+                    f"be blocked by [index.{blk}=true], this will disable "
+                    f"metadata writes and cause the shards to be "
+                    f"unassigned;")
+        defaults = {"shrink": 1, "split": src_shards * 2, "clone": src_shards}
+        tgt_shards = int(tgt_setting("number_of_shards", defaults[kind]))
+        if kind == "shrink" and src_shards % tgt_shards != 0:
+            raise IllegalArgumentException(
+                f"the number of source shards [{src_shards}] must be a "
+                f"multiple of [{tgt_shards}]")
+        if kind == "split" and tgt_shards % src_shards != 0:
+            raise IllegalArgumentException(
+                f"the number of source shards [{src_shards}] must be a "
+                f"factor of [{tgt_shards}]")
+        if kind == "clone" and tgt_shards != src_shards:
+            raise IllegalArgumentException(
+                f"cannot clone from [{src_shards}] shards to "
+                f"[{tgt_shards}] shards")
+        # every kind needs a write-blocked source (the copy must not race
+        # live writes), checked after the shard-count rules
+        if str(svc.setting("blocks.write", "false")).lower() != "true":
+            raise IllegalStateException(
+                f"index {source} must be read-only to resize index. use "
+                f"\"index.blocks.write=true\"")
+        # the target's settings: the source's, overridden by the
+        # request's; an explicit null unsets an inherited key
+        merged = dict(Settings.from_nested(svc.settings or {}).as_dict())
+        for k, v in flat_tgt.items():
+            key = k[len("index."):] if k.startswith("index.") else k
+            if v is None:
+                merged.pop(key, None)
+            else:
+                merged[key] = v
+        merged["number_of_shards"] = tgt_shards
+        # a read-only or metadata block inherited from the source also
+        # invalidates the target, as a plain 400
+        for blk in ("blocks.metadata", "blocks.read_only"):
+            if str(merged.get(blk, "false")).lower() == "true":
+                raise IllegalArgumentException(
+                    f"target index [{target}] will be blocked by "
+                    f"[index.{blk}=true], this will disable metadata "
+                    f"writes and cause the shards to be unassigned")
+        # the copied write block applies after the re-layout fills the
+        # target, or the copy itself would be refused
+        deferred_blocks = {k: merged.pop(k) for k in list(merged)
+                           if k.startswith("blocks.")}
+        self.create_index(target, {
+            "settings": Settings.from_flat(merged).as_nested(),
+            "mappings": svc.mapper_service.to_dict(),
+        })
+        tgt_svc = self.indices[target]
+        for shard in svc.shards.values():
+            snapshot = shard.acquire_searcher()
+            seen: set[str] = set()
+            for entry in shard.engine._buffer:
+                if entry is None:
+                    continue
+                parsed, _seq = entry
+                tgt_svc.shard_for(parsed.doc_id, parsed.routing) \
+                    .apply_index_on_primary(parsed.doc_id, parsed.source,
+                                            parsed.routing)
+                seen.add(parsed.doc_id)
+            for host, _dev in snapshot.segments:
+                for d in range(host.n_docs):
+                    if not host.live[d]:
+                        continue
+                    doc_id = host.doc_ids[d]
+                    if doc_id in seen:
+                        continue
+                    seen.add(doc_id)
+                    # an unrefreshed delete shows only in the version map
+                    entry = shard.engine.version_map.get(doc_id)
+                    if entry is not None and entry.deleted:
+                        continue
+                    routing = (host.doc_routings[d]
+                               if d < len(host.doc_routings) else None)
+                    tgt_svc.shard_for(doc_id, routing) \
+                        .apply_index_on_primary(
+                            doc_id, json.loads(host.sources[d]), routing)
+        for shard in tgt_svc.shards.values():
+            shard.engine.ensure_synced()
+            # the target is handed over searchable
+            shard.refresh()
+        if deferred_blocks:
+            tgt_svc.settings = _deep_merge(
+                tgt_svc.settings,
+                Settings.from_flat(deferred_blocks).as_nested())
+            tgt_svc.settings_changed()
+        self._persist_index_registry()
+        return {"acknowledged": True, "shards_acknowledged": True,
+                "index": target}
+
+    @staticmethod
+    def _analyze_stages(tokenizer_fn, filters, texts) -> list[list[dict]]:
+        """The token stream after the tokenizer and after each filter, with
+        character offsets (the _analyze API's detail). Filters apply a
+        token at a time so offsets and positions survive drops (a stopword
+        leaves a position gap)."""
+        from opensearch_tpu_torch.index.analysis import _SPAN_TOKENIZERS
+
+        stages: list[list[dict]] = [[] for _ in range(len(filters) + 1)]
+        pos_base = 0
+        char_base = 0
+        for t in texts:
+            t = str(t)
+            span_fn = _SPAN_TOKENIZERS.get(tokenizer_fn)
+            raw = (span_fn(t) if span_fn
+                   else [(tok, 0, 0) for tok in tokenizer_fn(t)])
+            text_final: list[dict] = []
+            for pos, (tok, s, e) in enumerate(raw):
+                def entry(term, s=s, e=e, pos=pos):
+                    return {
+                        "token": term,
+                        "start_offset": char_base + s,
+                        "end_offset": char_base + e,
+                        "type": "<ALPHANUM>",
+                        "position": pos_base + pos,
+                    }
+                stages[0].append(entry(tok))
+                cur = [tok]
+                for fi, f in enumerate(filters):
+                    cur = f(cur)
+                    if not cur:
+                        break
+                    target = (text_final if fi == len(filters) - 1
+                              else stages[fi + 1])
+                    target.append(entry(cur[0]))
+            if not filters:
+                text_final = []
+            # reconcile the final stage against the whole stream's
+            # filtering, so a stream-stateful filter (unique) drops here too
+            toks = [tok for tok, _s, _e in raw]
+            for f in filters:
+                toks = f(toks)
+            j = 0
+            for d in text_final:
+                if j < len(toks) and toks[j] == d["token"]:
+                    stages[-1].append(d)
+                    j += 1
+            pos_base += len(raw) + 100
+            char_base += len(t) + 1
+        return stages
+
+    def analyze(self, index: str | None, body: dict) -> dict:
+        """[/{index}]/_analyze over index/analysis.py: a named analyzer, a
+        field's analyzer, or a custom tokenizer and filter chain, with the
+        ``explain`` detail and ``index.analyze.max_token_count``."""
+        from opensearch_tpu_torch.index.analysis import (
+            TOKENIZERS,
+            build_token_filter,
+        )
+
+        body = body or {}
+        text = body.get("text")
+        if text is None:
+            raise IllegalArgumentException("[_analyze] requires [text]")
+        texts = text if isinstance(text, list) else [text]
+        explain = bool(body.get("explain"))
+        max_tokens = None
+        registry = AnalysisRegistry.from_index_settings(None)
+        if index is not None:
+            svc = self._get_index(index)
+            registry = svc.mapper_service.analysis
+            max_tokens = int(svc.setting("analyze.max_token_count", 10_000))
+        custom = (body.get("tokenizer") is not None
+                  or body.get("filter") is not None)
+        if custom:
+            tok_name = body.get("tokenizer", "standard")
+            tokenizer_fn = TOKENIZERS.get(str(tok_name))
+            if tokenizer_fn is None:
+                raise IllegalArgumentException(
+                    f"unknown tokenizer [{tok_name}]")
+            filters = []
+            filter_names = []
+            for f in body.get("filter") or []:
+                if isinstance(f, dict):
+                    ftype = f.get("type")
+                    if ftype is None:
+                        raise IllegalArgumentException(
+                            "token filter entry must have a type")
+                    filters.append(build_token_filter(str(ftype), f))
+                    filter_names.append(f"__anonymous__{ftype}")
+                else:
+                    filters.append(build_token_filter(str(f)))
+                    filter_names.append(str(f))
+            analyzer_name = None
+        else:
+            field = body.get("field")
+            if index is not None and field and not body.get("analyzer"):
+                mapper = self._get_index(index).mapper_service.field_mapper(
+                    field)
+                analyzer_name = (mapper.analyzer if mapper is not None
+                                 and mapper.type == "text" else "keyword")
+            else:
+                analyzer_name = body.get("analyzer", "standard")
+            analyzer = registry.get(str(analyzer_name))
+            tokenizer_fn = analyzer.tokenizer
+            filters = list(analyzer.filters)
+            filter_names = []
+        stages = self._analyze_stages(tokenizer_fn, filters, texts)
+        final = stages[-1]
+        if max_tokens is not None and len(final) > max_tokens:
+            raise IllegalArgumentException(
+                f"The number of tokens produced by calling _analyze has "
+                f"exceeded the allowed maximum of [{max_tokens}]. This "
+                f"limit can be set by changing the "
+                f"[index.analyze.max_token_count] index level setting.")
+        if not explain:
+            return {"tokens": final}
+        if custom:
+            return {"detail": {
+                "custom_analyzer": True,
+                "tokenizer": {"name": str(body.get("tokenizer", "standard")),
+                              "tokens": stages[0]},
+                "tokenfilters": [
+                    {"name": fname, "tokens": stages[i + 1]}
+                    for i, fname in enumerate(filter_names)],
+            }}
+        return {"detail": {
+            "custom_analyzer": False,
+            "analyzer": {"name": str(analyzer_name), "tokens": final},
+        }}
 
     # -- document APIs -------------------------------------------------------
     #
@@ -1141,7 +1718,7 @@ class TorchNode:
         with one member reads from it."""
         index, routing = self._resolve_write_alias(index, routing,
                                                    for_write=False)
-        shard = self._get_index(index).shard_for(doc_id, routing)
+        shard = self._get_open_index(index).shard_for(doc_id, routing)
         if refresh:
             shard.refresh()
         got = shard.get(doc_id, realtime=realtime)
@@ -1179,7 +1756,7 @@ class TorchNode:
                     version_type: str = "internal"
                     ) -> tuple[dict, IndexShard]:
         index, routing = self._resolve_write_alias(index, routing)
-        shard = self._get_index(index).shard_for(doc_id, routing)
+        shard = self._get_open_index(index).shard_for(doc_id, routing)
         result = shard.apply_delete_on_primary(
             doc_id, if_seq_no=if_seq_no, version=version,
             version_type=version_type)
@@ -1743,6 +2320,385 @@ class TorchNode:
 
     # -- refresh / search ----------------------------------------------------
 
+    # -- document reads and query tools: _mget, _explain, _field_caps,
+    # _termvectors, _mtermvectors, _search_shards ---------------------------
+
+    def mget(self, index: str | None, body: dict,
+             realtime: bool = True, refresh: bool = False,
+             stored_fields: list | None = None) -> dict:
+        """_mget (TransportMultiGetAction): batched realtime gets; a doc's
+        failure (missing or closed index, a bad alias) fills its own slot
+        with the error envelope."""
+        body = body or {}
+        if "docs" in body:
+            specs = body["docs"]
+            if not isinstance(specs, list):
+                raise IllegalArgumentException("[docs] must be an array")
+        elif "ids" in body:
+            if index is None:
+                raise ActionRequestValidationException(
+                    "Validation Failed: 1: index is missing;")
+            if not isinstance(body["ids"], list):
+                raise IllegalArgumentException("[ids] must be an array")
+            specs = [{"_id": i} for i in body["ids"]]
+        else:
+            raise ActionRequestValidationException(
+                "Validation Failed: 1: no documents to get;")
+        if not specs:
+            raise ActionRequestValidationException(
+                "Validation Failed: 1: no documents to get;")
+        problems = []
+        for spec in specs:
+            if not isinstance(spec, dict):
+                continue
+            if spec.get("_index", index) is None:
+                problems.append(f"{len(problems) + 1}: index is missing")
+            if spec.get("_id") is None:
+                problems.append(f"{len(problems) + 1}: id is missing")
+        if problems:
+            raise ActionRequestValidationException(
+                "Validation Failed: " + "; ".join(problems) + ";")
+        docs = []
+        for spec in specs:
+            target = spec.get("_index", index)
+            doc_id = spec.get("_id")
+            try:
+                got = self.get_doc(target, str(doc_id),
+                                   routing=spec.get("routing"),
+                                   realtime=realtime, refresh=refresh)
+            except OpenSearchTpuException as e:
+                docs.append({"_index": target, "_id": str(doc_id),
+                             "error": {"root_cause": [e.to_dict()],
+                                       **e.to_dict()}})
+                continue
+            if "_source" in spec and got.get("found"):
+                filtered = search_service._source_filter(spec["_source"])(
+                    got["_source"])
+                if filtered is None:
+                    got.pop("_source", None)
+                else:
+                    got["_source"] = filtered
+            sf = spec.get("stored_fields", stored_fields)
+            if sf and got.get("found"):
+                if isinstance(sf, str):
+                    sf = sf.split(",")
+                src = got.get("_source") or {}
+                fields = {}
+                for f in sf:
+                    if f in src:
+                        v = src[f]
+                        fields[f] = v if isinstance(v, list) else [v]
+                if fields:
+                    got = {**got, "fields": fields}
+                if "_source" not in sf:
+                    got.pop("_source", None)
+            docs.append(got)
+        return {"docs": docs}
+
+    def explain(self, index: str, doc_id: str, body: dict,
+                routing: str | None = None) -> dict:
+        """_explain (TransportExplainAction): the query phase on the doc's
+        shard restricted to the doc, ``bool(must=[query], filter=[ids])``
+        as in the reference. A ``knn`` query runs there as in any ``bool``:
+        on the per-shard route, one K1 launch through the batcher, and a
+        doc outside its top k does not match."""
+        body = body or {}
+        if body and "query" not in body:
+            raise IllegalArgumentException(
+                "request body must contain a [query] element")
+        concrete, routing = self._resolve_write_alias(index, routing,
+                                                      check_blocks=False)
+        svc = self._get_open_index(concrete)
+        shard = svc.shard_for(doc_id, routing)
+        got = shard.get(doc_id)
+        if got is None:
+            raise DocumentMissingException(
+                f"[{concrete}]: document missing [{doc_id}]")
+        node_q = query_dsl.parse_query(body.get("query"))
+        restricted = query_dsl.BoolQuery(
+            must=[node_q], filter=[query_dsl.IdsQuery(values=[doc_id])])
+        result = execute_query_phase(shard.acquire_searcher(),
+                                     svc.mapper_service, restricted, size=1)
+        matched = bool(result.hits)
+        out = {"_index": concrete, "_id": doc_id, "matched": matched}
+        if matched:
+            out["explanation"] = explain_for_hit(result.hits[0].score,
+                                                 node_q)
+        else:
+            out["explanation"] = {"value": 0.0,
+                                  "description": "no matching term",
+                                  "details": []}
+        # the GetResult rider: the fetched doc's _source
+        out["get"] = {"found": True, "_source": got.get("_source")}
+        return out
+
+    def field_caps(self, index: str | None, fields: str,
+                   include_unmapped: bool = False,
+                   index_filter: dict | None = None) -> dict:
+        """_field_caps (TransportFieldCapabilitiesAction): `index_filter`
+        drops the indices where the filter matches no document."""
+        names = self.resolve_indices(index if index is not None else "_all")
+        patterns = [p.strip() for p in fields.split(",") if p.strip()]
+        if not patterns:
+            raise IllegalArgumentException("[field_caps] requires [fields]")
+        if index_filter:
+            names = [name for name in names
+                     if self.count(name, {"query": index_filter}).get(
+                         "count", 0)]
+        return build_field_caps(
+            names, lambda n: self._get_index(n).mapper_service, patterns,
+            include_unmapped=include_unmapped)
+
+    def termvectors(self, index: str, doc_id: str, body: dict | None = None,
+                    fields: str | None = None, realtime: bool = True,
+                    routing: str | None = None) -> dict:
+        """_termvectors (TransportTermVectorsAction): the doc re-analyzed
+        (the realtime path, vectors are not stored); ``realtime=False``
+        reads through the last refresh; term and field statistics come
+        from the snapshot's host postings."""
+        body = body or {}
+        concrete, routing = self._resolve_write_alias(index, routing,
+                                                      check_blocks=False)
+        svc = self._get_open_index(concrete)
+        shard = svc.shard_for(doc_id, routing)
+        got = shard.get(doc_id, realtime=realtime)
+        if got is None:
+            return {"_index": concrete, "_id": doc_id, "found": False}
+        want = fields.split(",") if fields else body.get("fields")
+        if isinstance(want, str):
+            want = [want]
+        want_stats = bool(body.get("term_statistics"))
+        want_field_stats = body.get("field_statistics", True) is not False
+        want_offsets = body.get("offsets", True) is not False
+        want_positions = body.get("positions", True) is not False
+        ms = svc.mapper_service
+        tv: dict[str, Any] = {}
+        snapshot = shard.acquire_searcher()
+        for fname, value in _flatten_source(got["_source"]).items():
+            mapper = ms.field_mapper(fname)
+            if mapper is None or mapper.type != "text":
+                continue
+            if want and not any(fnmatch.fnmatch(fname, w.strip())
+                                for w in want):
+                continue
+            analyzer = ms.analysis.get(mapper.analyzer)
+            texts = value if isinstance(value, list) else [value]
+            # each term's occurrences with offsets; a multi-valued field
+            # continues the offset and position space with Lucene's gaps
+            # (+1 char, +100 positions)
+            occurrences: dict[str, list[dict]] = {}
+            char_base = 0
+            pos_base = 0
+            for t in texts:
+                t = str(t)
+                max_pos = -1
+                for term, s, e, pos in analyzer.analyze_with_offsets(t):
+                    tok: dict[str, Any] = {}
+                    if want_positions:
+                        tok["position"] = pos_base + pos
+                    if want_offsets:
+                        tok["start_offset"] = char_base + s
+                        tok["end_offset"] = char_base + e
+                    occurrences.setdefault(term, []).append(tok)
+                    max_pos = max(max_pos, pos)
+                char_base += len(t) + 1
+                pos_base += max_pos + 1 + 100
+            seg_fields = [host.text_fields[fname]
+                          for host, _dev in snapshot.segments
+                          if fname in host.text_fields]
+            terms_out = {}
+            for term, tokens in sorted(occurrences.items()):
+                entry: dict[str, Any] = {"term_freq": len(tokens)}
+                if want_stats:
+                    entry["doc_freq"] = sum(f.doc_freq(term)
+                                            for f in seg_fields)
+                    entry["ttf"] = sum(f.total_term_freq(term)
+                                       for f in seg_fields)
+                if tokens and tokens[0]:
+                    entry["tokens"] = tokens
+                terms_out[term] = entry
+            tv[fname] = {"terms": terms_out}
+            if want_field_stats:
+                tv[fname]["field_statistics"] = {
+                    "sum_doc_freq": sum(f.sum_doc_freq for f in seg_fields),
+                    "doc_count": sum(f.docs_with_field for f in seg_fields),
+                    "sum_ttf": sum(int(f.total_terms) for f in seg_fields),
+                }
+        return {
+            "_index": concrete, "_id": doc_id, "found": True,
+            "_version": got.get("_version", 1),
+            "took": 0, "term_vectors": tv,
+        }
+
+    def mtermvectors(self, body: dict | None = None,
+                     index: str | None = None, ids: str | None = None,
+                     term_statistics: bool = False,
+                     realtime: bool = True) -> dict:
+        """_mtermvectors: a `docs` list (each with its _index / _id and
+        the request's defaults), or an index and ids."""
+        body = body or {}
+        specs: list[dict] = []
+        if body.get("docs") is not None:
+            if not isinstance(body["docs"], list):
+                raise IllegalArgumentException("[docs] must be an array")
+            for d in body["docs"]:
+                if not isinstance(d, dict):
+                    raise IllegalArgumentException(
+                        "[docs] entries must be objects")
+                unknown = set(d) - {"_index", "_id", "_routing", "fields",
+                                    "term_statistics", "field_statistics",
+                                    "offsets", "positions", "payloads",
+                                    "version", "version_type"}
+                if unknown:
+                    raise IllegalArgumentException(
+                        f"unknown parameter {sorted(unknown)} "
+                        f"in multi term vectors doc")
+                specs.append(d)
+        elif ids is not None or body.get("ids") is not None:
+            raw = ids if ids is not None else body["ids"]
+            id_list = raw.split(",") if isinstance(raw, str) else list(raw)
+            specs.extend({"_id": i} for i in id_list)
+        docs = []
+        for spec in specs:
+            idx = spec.get("_index", index)
+            did = spec.get("_id")
+            if idx is None or did is None:
+                raise IllegalArgumentException(
+                    "multi term vectors docs require [_index] and [_id]")
+            sub_body = {
+                "term_statistics": spec.get("term_statistics",
+                                            term_statistics),
+                "field_statistics": spec.get("field_statistics", True),
+                "offsets": spec.get("offsets", True),
+                "positions": spec.get("positions", True),
+            }
+            if spec.get("fields"):
+                sub_body["fields"] = spec["fields"]
+            docs.append(self.termvectors(idx, str(did), sub_body,
+                                         realtime=realtime,
+                                         routing=spec.get("_routing")))
+        return {"docs": docs}
+
+    def _shard_routing(self, name: str, shard: int) -> dict:
+        """A started primary's routing entry (every primary is local)."""
+        return {
+            "state": "STARTED", "primary": True, "node": "node-0",
+            "relocating_node": None, "shard": shard, "index": name,
+            "allocation_id": {"id": f"{name}#{shard}"},
+        }
+
+    def search_shards(self, index: str | None = None,
+                      routing: str | None = None, body: dict | None = None,
+                      preference: str | None = None) -> dict:
+        """[/{index}]/_search_shards (ClusterSearchShardsAction): the shard
+        groups a search would fan out to, with each index's alias filter
+        rendered; `routing` narrows to the routed shard, `preference`
+        ``_shards:`` to those shards and a `slice` body to its share. No
+        launch: the answer is host metadata."""
+        body = body or {}
+        expr = index if index not in (None, "") else "_all"
+        alias_map = self._alias_map()
+        requested_aliases: dict[str, set] = {}
+        filter_routes: dict[str, list] = {}
+        names: list[str] = []
+
+        def add_index(name: str, filt):
+            if self._get_index(name).closed:
+                return
+            if name not in filter_routes:
+                names.append(name)
+                filter_routes[name] = []
+            filter_routes[name].append(filt)
+
+        def add_alias(alias: str):
+            for name in alias_map.get(alias, []):
+                conf = self.indices[name].aliases[alias]
+                requested_aliases.setdefault(name, set()).add(alias)
+                add_index(name, (conf or {}).get("filter"))
+
+        for part in str(expr).split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if part in ("_all", "*"):
+                for n in sorted(self.indices):
+                    add_index(n, None)
+            elif "*" in part or "?" in part:
+                for cand in sorted(set(self.indices) | set(alias_map)):
+                    if fnmatch.fnmatch(cand, part):
+                        if cand in alias_map:
+                            add_alias(cand)
+                        else:
+                            add_index(cand, None)
+            elif part in alias_map:
+                add_alias(part)
+            elif part in self.indices:
+                add_index(part, None)
+            else:
+                raise IndexNotFoundException(part)
+
+        def render_filter(f: dict) -> dict:
+            # the QueryBuilder toXContent shape: a term filter expands to
+            # the object form with an explicit value and boost
+            if isinstance(f, dict) and len(f) == 1 and "term" in f \
+                    and isinstance(f["term"], dict) and len(f["term"]) == 1:
+                fname, v = next(iter(f["term"].items()))
+                if not isinstance(v, dict):
+                    v = {"value": v}
+                return {"term": {fname: {"boost": 1.0, **v}}}
+            return f
+
+        indices_out: dict[str, Any] = {}
+        for name in sorted(names):
+            entry: dict[str, Any] = {}
+            aliases = sorted(requested_aliases.get(name, ()))
+            if aliases:
+                entry["aliases"] = aliases
+            routes = filter_routes[name]
+            if routes and all(f is not None for f in routes):
+                if len(routes) == 1:
+                    entry["filter"] = render_filter(routes[0])
+                else:
+                    entry["filter"] = {"bool": {
+                        "should": [render_filter(f) for f in routes],
+                        "adjust_pure_negative": True,
+                        "boost": 1.0,
+                    }}
+            indices_out[name] = entry
+
+        shard_groups = []
+        sl = body.get("slice")
+        for name in sorted(names):
+            svc = self.indices[name]
+            shard_ids = list(range(svc.num_shards))
+            if routing is not None:
+                shard_ids = [shard_id_for_routing(str(routing),
+                                                  svc.num_shards)]
+            elif str(preference or "").startswith("_shards:"):
+                want = {int(x) for x in
+                        preference[len("_shards:"):].split(",")
+                        if x.strip().isdigit()}
+                shard_ids = [x for x in shard_ids if x in want]
+            if isinstance(sl, dict) and routing is None:
+                # the slice takes positions of the candidate list, so it
+                # composes with a _shards preference
+                sl_max = int(sl.get("max", 1))
+                sl_id = int(sl.get("id", 0))
+                shard_ids = [x for i, x in enumerate(shard_ids)
+                             if i % sl_max == sl_id]
+            for x in shard_ids:
+                shard_groups.append([self._shard_routing(name, x)])
+        return {
+            "nodes": {"node-0": {
+                "name": self.node_name,
+                "ephemeral_id": self.cluster_uuid,
+                "transport_address": "127.0.0.1:9300",
+                "attributes": {},
+            }},
+            "indices": indices_out,
+            "shards": shard_groups,
+        }
+
     def refresh(self, index: str = "_all") -> dict:
         count = 0
         for name in self.resolve_indices(index):
@@ -1769,7 +2725,7 @@ class TorchNode:
         to the device), then flushes unless `flush` is false."""
         count = 0
         for name in self.resolve_indices(index):
-            for shard in self._get_index(name).shards.values():
+            for shard in self._get_open_index(name).shards.values():
                 shard.engine.force_merge(
                     max_num_segments=max_num_segments,
                     only_expunge_deletes=only_expunge_deletes)
@@ -1836,6 +2792,7 @@ class TorchNode:
         expr = index if index is not None else "_all"
         shards, shard_filters, names = self.resolve_search_shards(
             expr, ignore_unavailable=ignore_unavailable)
+        self._validate_search_request(names, body, scroll=scroll is not None)
         if body.get("indices_boost") is not None:
             body["indices_boost"] = self._resolve_indices_boost(
                 body["indices_boost"], ignore_unavailable=ignore_unavailable)
@@ -1890,6 +2847,283 @@ class TorchNode:
         if cache_key is not None:
             self.request_cache.put(cache_key, json.dumps(resp, default=str))
         return resp
+
+    def _index_int_setting(self, name: str, key: str, default: int) -> int:
+        svc = self.indices.get(name)
+        if svc is None:
+            return default
+        try:
+            return int(svc.setting(key, default))
+        except (TypeError, ValueError):
+            return default
+
+    def _validate_search_request(self, names: list, body: dict,
+                                 scroll: bool = False) -> None:
+        """Request-level limits the reference enforces in
+        SearchService.validateSearchContext / SearchRequest.validate:
+        result windows, rescore windows, field-count caps, collapse
+        combination rules."""
+        int_max = 2**31 - 1
+        for key in ("from", "size"):
+            v = body.get(key)
+            if v is None:
+                continue
+            v = int(v)
+            if v > int_max or v < -(2**31):
+                raise InputCoercionException(
+                    f"Numeric value ({v}) out of range of int "
+                    f"(-2147483648 - 2147483647)"
+                )
+        from_ = int(body.get("from") or 0)
+        size_raw = body.get("size")
+        size = int(size_raw) if size_raw is not None else search_service.DEFAULT_SIZE
+        if from_ < 0:
+            raise IllegalArgumentException(
+                f"[from] parameter cannot be negative, found [{from_}]"
+            )
+        if size_raw is not None and size < 0:
+            raise IllegalArgumentException(
+                f"[size] parameter cannot be negative, found [{size}]"
+            )
+        rescore = body.get("rescore")
+        rescore_stages = (rescore if isinstance(rescore, list)
+                          else [rescore] if rescore is not None else [])
+        dv_count = len(body.get("docvalue_fields") or [])
+        sf_count = len(body.get("script_fields") or {})
+        for n in names:
+            if n not in self.indices:
+                continue
+            mrw = self._index_int_setting(n, "max_result_window", 10000)
+            if scroll:
+                if size > mrw:
+                    raise IllegalArgumentException(
+                        f"Batch size is too large, size must be less than "
+                        f"or equal to: [{mrw}] but was [{size}]. Scroll "
+                        f"batch sizes cost as much memory as result windows "
+                        f"so they are controlled by the "
+                        f"[index.max_result_window] index level setting."
+                    )
+            elif from_ + size > mrw and body.get("search_after") is None:
+                raise IllegalArgumentException(
+                    f"Result window is too large, from + size must be less "
+                    f"than or equal to: [{mrw}] but was [{from_ + size}]. "
+                    f"See the scroll api for a more efficient way to "
+                    f"request large data sets. This limit can be set by "
+                    f"changing the [index.max_result_window] index level "
+                    f"setting."
+                )
+            max_rescore = self._index_int_setting(n, "max_rescore_window", 10000)
+            for stage in rescore_stages:
+                if not isinstance(stage, dict):
+                    continue
+                w = int(stage.get("window_size", 10))
+                if w > max_rescore:
+                    raise IllegalArgumentException(
+                        f"Rescore window [{w}] is too large. It must be "
+                        f"less than [{max_rescore}]. This prevents "
+                        f"allocating massive heaps for storing the results "
+                        f"to be rescored. This limit can be set by changing "
+                        f"the [index.max_rescore_window] index level "
+                        f"setting."
+                    )
+            max_dv = self._index_int_setting(
+                n, "max_docvalue_fields_search", 100)
+            if dv_count > max_dv:
+                raise IllegalArgumentException(
+                    f"Trying to retrieve too many docvalue_fields. Must be "
+                    f"less than or equal to: [{max_dv}] but was "
+                    f"[{dv_count}]. This limit can be set by changing the "
+                    f"[index.max_docvalue_fields_search] index level "
+                    f"setting."
+                )
+            max_sf = self._index_int_setting(n, "max_script_fields", 32)
+            if sf_count > max_sf:
+                raise IllegalArgumentException(
+                    f"Trying to retrieve too many script_fields. Must be "
+                    f"less than or equal to: [{max_sf}] but was "
+                    f"[{sf_count}]. This limit can be set by changing the "
+                    f"[index.max_script_fields] index level setting."
+                )
+        if str(self.effective_cluster_setting(
+                "search.allow_expensive_queries", True)).lower() == "false":
+            expensive = self._find_expensive_query(body.get("query"))
+            if expensive and expensive[0] == "range":
+                # ranges are expensive only over text/keyword columns
+                ftypes = set()
+                for n in names:
+                    svc_q = self.indices.get(n)
+                    m_q = (svc_q.mapper_service.field_mapper(expensive[1])
+                           if svc_q and expensive[1] else None)
+                    if m_q is not None:
+                        ftypes.add(m_q.type)
+                if not ftypes & {"text", "keyword", "flat_object"}:
+                    expensive = None
+            if expensive:
+                kind, qfield = expensive
+                msg = (f"[{kind}] queries cannot be executed when "
+                       f"'search.allow_expensive_queries' is set to false.")
+                def _field_type(fld):
+                    for n in names:
+                        svc_q = self.indices.get(n)
+                        m_q = (svc_q.mapper_service.field_mapper(fld)
+                               if svc_q and fld else None)
+                        if m_q is not None:
+                            return m_q.type
+                    return None
+
+                if kind == "prefix" and _field_type(qfield) == "text":
+                    msg += (" For optimised prefix queries on text "
+                            "fields please enable [index_prefixes].")
+                elif kind == "range":
+                    msg = ("[range] queries on [text] or [keyword] fields "
+                           "cannot be executed when "
+                           "'search.allow_expensive_queries' is set to "
+                           "false.")
+                elif kind in ("nested", "has_child", "has_parent",
+                              "parent_id"):
+                    msg = ("[joining] queries cannot be executed when "
+                           "'search.allow_expensive_queries' is set to "
+                           "false.")
+                raise IllegalArgumentException(msg)
+        # mixed-type sort across indices: unsigned_long cannot sort
+        # against other numeric types (FieldSortBuilder's validation)
+        sort_b = body.get("sort")
+        sort_list_v = ([sort_b] if isinstance(sort_b, (str, dict))
+                       else (sort_b or []))
+        for spec_v in sort_list_v:
+            fname_v = (spec_v if isinstance(spec_v, str)
+                       else next(iter(spec_v), None))
+            if not fname_v or fname_v.startswith("_"):
+                continue
+            kinds = set()
+            for n in names:
+                svc_v = self.indices.get(n)
+                if svc_v is None:
+                    continue
+                m_v = svc_v.mapper_service.field_mapper(fname_v)
+                if m_v is None:
+                    continue
+                kinds.add("unsigned_long"
+                          if m_v.original_type == "unsigned_long"
+                          else m_v.type)
+            if "unsigned_long" in kinds and len(kinds) > 1:
+                from opensearch_tpu_torch.common.errors import (
+                    SearchPhaseExecutionException,
+                )
+
+                cause_msg = (
+                    "Can't do sort across indices, as a field has "
+                    "[unsigned_long] type in one index, and different "
+                    "type in another index!"
+                )
+                e = SearchPhaseExecutionException(
+                    f"{cause_msg} (field [{fname_v}])"
+                )
+                e.status = 400
+                raise e from IllegalArgumentException(cause_msg)
+        if body.get("collapse") is not None:
+            if scroll:
+                raise IllegalArgumentException(
+                    "cannot use `collapse` in a scroll context"
+                )
+            if rescore_stages:
+                raise IllegalArgumentException(
+                    "cannot use `collapse` in conjunction with `rescore`"
+                )
+            if body.get("search_after") is not None:
+                cfield = (body["collapse"] or {}).get("field")
+                sort = body.get("sort")
+                if isinstance(sort, (str, dict)):
+                    sort = [sort]
+                sort_fields = []
+                for s in sort or []:
+                    if isinstance(s, str):
+                        sort_fields.append(s)
+                    elif isinstance(s, dict) and s:
+                        sort_fields.append(next(iter(s)))
+                if sort_fields != [cfield]:
+                    raise IllegalArgumentException(
+                        "collapse field and sort field must be the same "
+                        "when use `collapse` in conjunction with "
+                        "`search_after`"
+                    )
+
+    @staticmethod
+    def _find_expensive_query(qbody) -> str | None:
+        """First expensive clause in the raw query JSON (the set
+        ALLOW_EXPENSIVE_QUERIES gates in the reference)."""
+        expensive = {"script", "script_score", "fuzzy", "regexp", "prefix",
+                     "wildcard", "percolate", "join", "distance_feature",
+                     "nested", "has_child", "has_parent", "parent_id"}
+        # multi_match/query_string/intervals are NOT categorically expensive
+        # in the reference — only the expensive clause kinds they may expand
+        # to (fuzzy/prefix/wildcard/regexp) are gated
+        multi_term_markers = {"fuzzy", "prefix", "wildcard", "regexp"}
+
+        def contains_marker(obj) -> str | None:
+            if isinstance(obj, dict):
+                for k, v in obj.items():
+                    if k in multi_term_markers:
+                        return k
+                    found = contains_marker(v)
+                    if found:
+                        return found
+            elif isinstance(obj, list):
+                for v in obj:
+                    found = contains_marker(v)
+                    if found:
+                        return found
+            return None
+
+        def walk(obj, ms=None):
+            if isinstance(obj, dict):
+                for k, v in obj.items():
+                    if k == "range" and isinstance(v, dict):
+                        return ("range", next(iter(v), None))
+                    if k in expensive:
+                        field = (next(iter(v), None)
+                                 if isinstance(v, dict) else None)
+                        return (k, field)
+                    if k == "intervals" and isinstance(v, dict):
+                        marker = contains_marker(v)
+                        if marker:
+                            return (marker, next(iter(v), None))
+                        continue
+                    if k == "multi_match" and isinstance(v, dict):
+                        if v.get("fuzziness") is not None:
+                            return ("fuzzy", None)
+                        # phrase_prefix AND bool_prefix expand to prefix
+                        # queries on the last term
+                        if str(v.get("type", "")) in ("phrase_prefix",
+                                                      "bool_prefix"):
+                            return ("prefix", None)
+                        continue
+                    if k == "query_string" and isinstance(v, dict):
+                        qs = str(v.get("query", ""))
+                        # escaped chars are literal; quoted phrases (incl.
+                        # "…"~N proximity) compile to PhraseQuery, not a
+                        # gated multi-term query — strip both before
+                        # looking for wildcard/fuzzy/regex syntax. The
+                        # fuzziness PARAM alone gates nothing: it is only
+                        # a default for terms that use the ~ operator.
+                        stripped = re.sub(r"\\.", "", qs)
+                        stripped = re.sub(r'"[^"]*"(~\d+)?', "", stripped)
+                        if any(c in stripped for c in "*?~") or re.search(
+                            r"/[^/]*/", stripped
+                        ):
+                            return ("query_string", None)
+                        continue
+                    found = walk(v)
+                    if found:
+                        return found
+            elif isinstance(obj, list):
+                for v in obj:
+                    found = walk(v)
+                    if found:
+                        return found
+            return None
+
+        return walk(qbody)
 
     def _count_search(self, index: str | None,
                       stat_groups: list | None) -> None:

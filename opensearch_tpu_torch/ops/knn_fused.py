@@ -66,6 +66,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from opensearch_tpu_torch import backend  # noqa: F401  (pins float32)
@@ -159,6 +160,14 @@ def quantize_symmetric_int8(x: torch.Tensor):
     return q, scale.to(torch.float32)
 
 
+def int8_query_scale(vector) -> float:
+    """The scale :func:`quantize_symmetric_int8` gives one query row
+    alone (max|q| / 127 in float32, zero-guarded): a batch of rows that
+    share it quantizes each row as it would be quantized alone."""
+    peak = np.float32(np.abs(np.asarray(vector, np.float32)).max(initial=0))
+    return float(max(peak, np.float32(1e-30)) / np.float32(127.0))
+
+
 def _prep_operands(vectors, queries, score_precision: str):
     """Cast/quantize the matmul operands once, OUTSIDE the kernel, so the
     kernel and the plain version consume bit-identical inputs.
@@ -183,13 +192,19 @@ def _fused_dots(q_x, v_x, score_precision: str, scale):
     int8 contracts exactly (float64 holds every int8 dot of d < 2^37
     exactly; torch has no CUDA int32 matmul), then one scalar multiply per
     shard; bf16 products are exact in f32 and sum in f32; fp32 is full
-    float32."""
+    float32. On the CPU, where this version serves searches, the f32 sums
+    take one product a query, so a query's dots are the same bits whatever
+    batch it rides in, as the kernel's are on the card (there this version
+    is the kernel's yardstick and keeps the one batched product)."""
     if score_precision == "int8":
         dots = torch.einsum("bd,snd->sbn", q_x.to(torch.float64),
                             v_x.to(torch.float64))
         return dots.to(torch.int32).to(torch.float32) * scale[:, None, None]
-    return torch.einsum("bd,snd->sbn", q_x.to(torch.float32),
-                        v_x.to(torch.float32))
+    v_f = v_x.to(torch.float32)
+    q_f = q_x.to(torch.float32)
+    if v_f.device.type != "cpu" or q_f.shape[0] == 0:
+        return torch.einsum("bd,snd->sbn", q_f, v_f)
+    return torch.stack([torch.einsum("d,snd->sn", q, v_f) for q in q_f], 1)
 
 
 def _transform_scores(dots, qsq, nsq, similarity: str):

@@ -23,7 +23,12 @@ pipelines (`_ingest/pipeline`, with `_simulate`), index templates
 `_stats`, `_cluster/stats`, `_nodes` (info and stats by metric, with the
 `ingest`, `device`, `knn_batch`, `roofline` and `heat` sections),
 `_prometheus/metrics` and `_cat` (all but recovery, pending_tasks,
-repositories and snapshots), each stats read from host counters only.
+repositories and snapshots), each stats read from host counters only;
+index management (`_mapping` updates and `_mapping/field`, `_settings`
+updates, `_block`, `_upgrade`, `_shrink`, `_split`, `_clone`,
+`_rollover`, `_close`, `_open`, `_analyze`) and the document reads and
+query tools (`_mget`, `_explain`, `_field_caps`, `_termvectors`,
+`_mtermvectors`, `_validate/query`, `_search_shards`).
 Every other route answers through
 :func:`_not_yet_ported`, which raises "<METHOD> <path> is not yet ported
 to opensearch_tpu_torch" (the HTTP server's 500 envelope). Handlers
@@ -36,6 +41,7 @@ from __future__ import annotations
 import copy
 import difflib
 import fnmatch
+import json
 import logging
 import os
 import re
@@ -47,7 +53,9 @@ from typing import Any
 
 from opensearch_tpu_torch import __version__
 from opensearch_tpu_torch.common.errors import (
+    DocumentMissingException,
     IllegalArgumentException,
+    IndexClosedException,
     IndexNotFoundException,
     OpenSearchTpuException,
     ResourceNotFoundException,
@@ -153,6 +161,33 @@ def build_router() -> Router:
     reg("GET", "/_settings/{name}", get_settings)
     reg("GET", "/{index}/_settings", get_settings)
     reg("GET", "/{index}/_settings/{name}", get_settings)
+    reg("GET", "/_mapping/field/{fields}", get_field_mapping)
+    reg("GET", "/{index}/_mapping/field/{fields}", get_field_mapping)
+    reg("PUT", "/{index}/_mapping", put_mapping)
+    reg("POST", "/{index}/_mapping", put_mapping)
+    reg("PUT", "/{index}/_settings", put_index_settings)
+    reg("PUT", "/_settings", put_all_settings)
+    # index management: blocks, _upgrade, resize, rollover, close / open,
+    # _analyze
+    reg("PUT", "/{index}/_block/{block}", add_index_block)
+    reg("POST", "/_upgrade", indices_upgrade)
+    reg("POST", "/{index}/_upgrade", indices_upgrade)
+    reg("GET", "/_upgrade", indices_upgrade)
+    reg("GET", "/{index}/_upgrade", indices_upgrade)
+    reg("PUT", "/{index}/_shrink/{target}", shrink_index)
+    reg("POST", "/{index}/_shrink/{target}", shrink_index)
+    reg("PUT", "/{index}/_split/{target}", split_index)
+    reg("POST", "/{index}/_split/{target}", split_index)
+    reg("PUT", "/{index}/_clone/{target}", clone_index)
+    reg("POST", "/{index}/_clone/{target}", clone_index)
+    reg("POST", "/{index}/_rollover", rollover)
+    reg("POST", "/{index}/_rollover/{new_index}", rollover_named)
+    reg("POST", "/{index}/_close", close_index)
+    reg("POST", "/{index}/_open", open_index)
+    reg("GET", "/{index}/_analyze", analyze_index)
+    reg("POST", "/{index}/_analyze", analyze_index)
+    reg("GET", "/_analyze", analyze_global)
+    reg("POST", "/_analyze", analyze_global)
     # documents
     reg("PUT", "/{index}/_doc/{id}", index_doc)
     reg("POST", "/{index}/_doc/{id}", index_doc)
@@ -165,6 +200,31 @@ def build_router() -> Router:
     reg("HEAD", "/{index}/_source/{id}", source_exists)
     reg("DELETE", "/{index}/_doc/{id}", delete_doc)
     reg("POST", "/{index}/_update/{id}", update_doc)
+    # document reads and query tools
+    reg("GET", "/_mget", mget_all)
+    reg("POST", "/_mget", mget_all)
+    reg("GET", "/{index}/_mget", mget)
+    reg("POST", "/{index}/_mget", mget)
+    reg("GET", "/{index}/_explain/{id}", explain_doc)
+    reg("POST", "/{index}/_explain/{id}", explain_doc)
+    reg("GET", "/_field_caps", field_caps_all)
+    reg("POST", "/_field_caps", field_caps_all)
+    reg("GET", "/{index}/_field_caps", field_caps)
+    reg("POST", "/{index}/_field_caps", field_caps)
+    reg("GET", "/{index}/_termvectors/{id}", termvectors)
+    reg("POST", "/{index}/_termvectors/{id}", termvectors)
+    reg("GET", "/_mtermvectors", mtermvectors)
+    reg("POST", "/_mtermvectors", mtermvectors)
+    reg("GET", "/{index}/_mtermvectors", mtermvectors)
+    reg("POST", "/{index}/_mtermvectors", mtermvectors)
+    reg("GET", "/_search_shards", search_shards_handler)
+    reg("POST", "/_search_shards", search_shards_handler)
+    reg("GET", "/{index}/_search_shards", search_shards_handler)
+    reg("POST", "/{index}/_search_shards", search_shards_handler)
+    reg("GET", "/_validate/query", validate_query)
+    reg("POST", "/_validate/query", validate_query)
+    reg("GET", "/{index}/_validate/query", validate_query)
+    reg("POST", "/{index}/_validate/query", validate_query)
     reg("POST", "/_bulk", bulk)
     reg("PUT", "/_bulk", bulk)
     reg("POST", "/{index}/_bulk", bulk)
@@ -1747,9 +1807,18 @@ def _admin_indices(node: TorchNode, params, query,
 
 def indices_segments(node: TorchNode, params, query, body):
     """GET [/{index}]/_segments (IndicesSegmentsAction): the sealed
-    segment inventory per shard."""
-    # every index of the port is open (close is not ported)
-    names = _admin_indices(node, params, query)
+    segment inventory per shard; a closed index named outright is a 400
+    unless `ignore_unavailable`, one a pattern reaches is skipped."""
+    explicit = params.get("index") and not any(
+        c in str(params["index"]) for c in "*?")
+    ignore = str(query.get("ignore_unavailable", "false")) in ("true", "")
+    names = []
+    for n in _admin_indices(node, params, query):
+        if node.indices[n].closed:
+            if explicit and not ignore:
+                raise IndexClosedException(n)
+            continue
+        names.append(n)
     out_indices = {}
     n_shards = 0
     for name in names:
@@ -2478,6 +2547,11 @@ def cat_segments(node: TorchNode, params, query, body):
     for index, svc in sorted(node.indices.items()):
         if pats is not None and not any(fnmatch.fnmatch(index, p) for p in pats):
             continue
+        if svc.closed:
+            if pats is not None and not any(
+                    c in p for p in pats for c in "*?"):
+                raise IndexClosedException(f"closed index [{index}]")
+            continue
         for sid, shard in sorted(svc.shards.items()):
             for gen, (host, _dev) in enumerate(shard.engine._segments):
                 size = sum(len(x) for x in host.sources)
@@ -2607,29 +2681,30 @@ def cat_indices(node: TorchNode, params, query, body):
         health = "green" if svc.num_replicas == 0 else "yellow"
         if health_filter is not None and health != str(health_filter):
             continue
-        # every index of the port is open (close is not ported)
-        docs = sum(s.num_docs for s in svc.shards.values())
+        closed = svc.closed
+        docs = 0 if closed else sum(s.num_docs for s in svc.shards.values())
         store = 0
-        for s in svc.shards.values():
-            store += s.engine.translog.stats()["size_in_bytes"]
-            for host, _dev in s.engine._segments:
-                store += sum(len(x) for x in host.sources)
+        if not closed:
+            for s in svc.shards.values():
+                store += s.engine.translog.stats()["size_in_bytes"]
+                for host, _dev in s.engine._segments:
+                    store += sum(len(x) for x in host.sources)
         cd = svc.creation_date
         cds = datetime.fromtimestamp(cd / 1000.0, tz=timezone.utc).strftime(
             "%Y-%m-%dT%H:%M:%S.") + f"{cd % 1000:03d}Z"
         rows.append({
             "health": health,
-            "status": "open",
+            "status": "close" if closed else "open",
             "index": name,
             "uuid": svc.uuid,
             "pri": svc.num_shards,
             "rep": svc.num_replicas,
-            "docs.count": docs,
-            "docs.deleted": 0,
+            "docs.count": "" if closed else docs,
+            "docs.deleted": "" if closed else 0,
             "creation.date": cd,
             "creation.date.string": cds,
-            "store.size": _human_bytes(store),
-            "pri.store.size": _human_bytes(store),
+            "store.size": "" if closed else _human_bytes(store),
+            "pri.store.size": "" if closed else _human_bytes(store),
         })
     return 200, _cat_format(query, rows, cols=[
         "health", "status", "index", "uuid", "pri", "rep", "docs.count",
@@ -2720,54 +2795,317 @@ def cat_count(node: TorchNode, params, query, body):
 
 
 
+# -- index management (mappings, settings, blocks, resize, rollover,
+# close / open, _analyze) ---------------------------------------------------
+
+
+def put_mapping(node: TorchNode, params, query, body):
+    return 200, node.put_mapping(params["index"], body or {})
+
+
+def get_field_mapping(node: TorchNode, params, query, body):
+    """GET [/{index}]/_mapping/field/{fields}
+    (TransportGetFieldMappingsAction): per-field mapping fragments keyed
+    by full dotted name, wildcards matched against full names."""
+    fields = [f.strip() for f in str(params.get("fields", "*")).split(",")]
+    index = params.get("index")
+    names = (node.resolve_indices(index) if index
+             else sorted(node.indices))
+    include_defaults = str(query.get("include_defaults", "false")) \
+        in ("true", "")
+    out = {}
+    for name in names:
+        ms = node.indices[name].mapper_service
+        entry = {}
+        for fname, mapper in sorted(ms.mappers.items()):
+            if getattr(mapper, "synthetic", False):
+                continue
+            if not any(fname == p or fnmatch.fnmatch(fname, p)
+                       for p in fields):
+                continue
+            leaf = fname.rsplit(".", 1)[-1]
+            mdict = mapper.to_dict()
+            if include_defaults and mapper.type == "text":
+                mdict.setdefault("analyzer", "default")
+            entry[fname] = {"full_name": fname, "mapping": {leaf: mdict}}
+        out[name] = {"mappings": entry}
+    return 200, out
+
+
+def put_index_settings(node: TorchNode, params, query, body):
+    return 200, node.put_index_settings(params["index"], body or {})
+
+
+def put_all_settings(node: TorchNode, params, query, body):
+    return 200, node.put_index_settings("_all", body or {})
+
+
+def add_index_block(node: TorchNode, params, query, body):
+    """PUT /{index}/_block/{block} (AddIndexBlockAction): the block's
+    ``index.blocks.*`` setting, through the settings update."""
+    block = str(params["block"])
+    if block not in ("write", "read", "read_only", "metadata",
+                     "read_only_allow_delete"):
+        raise IllegalArgumentException(f"unknown block type [{block}]")
+    names = _admin_indices(node, params, query, expand_default="all")
+    for n in names:
+        node.put_index_settings(
+            n, {"settings": {f"index.blocks.{block}": True}})
+    return 200, {
+        "acknowledged": True,
+        "shards_acknowledged": True,
+        "indices": [{"name": n, "blocked": True} for n in names],
+    }
+
+
+def indices_upgrade(node: TorchNode, params, query, body):
+    """[/{index}]/_upgrade (UpgradeAction): the segments carry no legacy
+    codec, so the upgrade is an ack with the current segment version of
+    each open index."""
+    names = [n for n in _admin_indices(node, params, query)
+             if not node.indices[n].closed]
+    n = len(names)
+    return 200, {
+        "_shards": {"total": n, "successful": n, "failed": 0},
+        "upgraded_indices": {
+            name: {"oldest_lucene_segment_version": "10.3.0",
+                   "upgrade_version": "10.3.0"}
+            for name in names
+        },
+    }
+
+
+def _make_resize(kind: str):
+    def handler(node: TorchNode, params, query, body):
+        if str(query.get("copy_settings", "true")) == "false":
+            raise IllegalArgumentException(
+                "parameter [copy_settings] can only be set to [true]")
+        wait = str(query.get("wait_for_completion", "true")) in ("true", "")
+        description = (f"{kind} from [{params['index']}] to "
+                       f"[{params['target']}]")
+        with node.task_manager.task_scope(
+                "indices:admin/resize", description=description) as task:
+            resp = node.resize_index(kind, params["index"],
+                                     params["target"], body)
+            task_id = f"{node.node_name}:{task.id}"
+        if not wait:
+            # the work already ran; the task id lets a client poll it
+            return 200, {"task": task_id}
+        return 200, resp
+    return handler
+
+
+shrink_index = _make_resize("shrink")
+split_index = _make_resize("split")
+clone_index = _make_resize("clone")
+
+
+def rollover(node: TorchNode, params, query, body):
+    body = dict(body or {})
+    if query.get("dry_run") in ("", "true", True):
+        body["dry_run"] = True
+    return 200, node.rollover(params["index"], body)
+
+
+def rollover_named(node: TorchNode, params, query, body):
+    body = dict(body or {})
+    body["new_index"] = params["new_index"]
+    if query.get("dry_run") in ("", "true", True):
+        body["dry_run"] = True
+    return 200, node.rollover(params["index"], body)
+
+
+def close_index(node: TorchNode, params, query, body):
+    return 200, node.close_index(params["index"])
+
+
+def open_index(node: TorchNode, params, query, body):
+    return 200, node.open_index(params["index"])
+
+
+def analyze_index(node: TorchNode, params, query, body):
+    return 200, node.analyze(params["index"], body or {})
+
+
+def analyze_global(node: TorchNode, params, query, body):
+    return 200, node.analyze(None, body or {})
+
+
+# -- document reads and query tools ------------------------------------------
+
+
+def _mget_deprecated_check(body):
+    for spec in (body or {}).get("docs", []) or []:
+        if isinstance(spec, dict) and ("_type" in spec or "fields" in spec):
+            raise IllegalArgumentException(
+                f"Unsupported field [{'_type' if '_type' in spec else 'fields'}] "
+                f"used in multi get request"
+            )
+
+
+def mget(node: TorchNode, params, query, body):
+    _mget_deprecated_check(body)
+    sf = query.get("stored_fields")
+    return 200, node.mget(params["index"], body or {},
+                          realtime=_realtime_param(query),
+                          refresh=str(query.get("refresh", "false"))
+                          in ("true", ""),
+                          stored_fields=sf.split(",") if sf else None)
+
+
+def mget_all(node: TorchNode, params, query, body):
+    _mget_deprecated_check(body)
+    return 200, node.mget(None, body or {},
+                          realtime=_realtime_param(query),
+                          refresh=str(query.get("refresh", "false"))
+                          in ("true", ""))
+
+
+def explain_doc(node: TorchNode, params, query, body):
+    b = _body_with_query_params(query, body)
+    lenient = str(query.get("lenient", "false")) in ("true", "")
+    try:
+        resp = node.explain(params["index"], params["id"], b,
+                            routing=_routing_param(query))
+    except (DocumentMissingException, IndexNotFoundException):
+        raise
+    except Exception:  # noqa: BLE001 - ?lenient swallows parse failures
+        if not lenient:
+            raise
+        resp = {"_index": params["index"], "_id": params["id"],
+                "matched": False,
+                "explanation": {"value": 0.0,
+                                "description": "lenient parse failure",
+                                "details": []}}
+    # _source on the GetResult rider: false drops it, a pattern list
+    # filters it (?_source=a.b is shorthand for includes)
+    get = resp.get("get")
+    if isinstance(get, dict):
+        src_param = str(query.get("_source", "true"))
+        includes = (query.get("_source_includes")
+                    or query.get("_source_include"))
+        excludes = (query.get("_source_excludes")
+                    or query.get("_source_exclude"))
+        if src_param == "false":
+            get = {k: v for k, v in get.items() if k != "_source"}
+        else:
+            if src_param not in ("true", "") and not includes:
+                includes = src_param
+            if includes or excludes:
+                spec = {
+                    **({"includes": str(includes).split(",")}
+                       if includes else {}),
+                    **({"excludes": str(excludes).split(",")}
+                       if excludes else {}),
+                }
+                get = {**get, "_source": _source_filter(spec)(
+                    get.get("_source"))}
+        resp = {**resp, "get": get}
+    return 200, resp
+
+
+def _field_caps_of(node: TorchNode, index, query, body):
+    fields = query.get("fields") or (body or {}).get("fields", "")
+    if isinstance(fields, list):
+        fields = ",".join(fields)
+    return 200, node.field_caps(
+        index, fields,
+        include_unmapped=str(query.get("include_unmapped",
+                                       "false")) in ("true", ""),
+        index_filter=(body or {}).get("index_filter"))
+
+
+def field_caps(node: TorchNode, params, query, body):
+    return _field_caps_of(node, params["index"], query, body)
+
+
+def field_caps_all(node: TorchNode, params, query, body):
+    return _field_caps_of(node, None, query, body)
+
+
+def termvectors(node: TorchNode, params, query, body):
+    b = dict(body or {})
+    if query.get("term_statistics") in ("", "true", True):
+        b["term_statistics"] = True
+    for flag in ("field_statistics", "offsets", "positions"):
+        if str(query.get(flag, "true")) == "false":
+            b[flag] = False
+    return 200, node.termvectors(
+        params["index"], params["id"], b,
+        fields=query.get("fields"),
+        realtime=str(query.get("realtime", "true")) in ("true", ""),
+        routing=_routing_param(query))
+
+
+def mtermvectors(node: TorchNode, params, query, body):
+    return 200, node.mtermvectors(
+        body or {},
+        index=params.get("index") or query.get("index"),
+        ids=query.get("ids"),
+        term_statistics=str(query.get("term_statistics", "false"))
+        in ("true", ""),
+        realtime=str(query.get("realtime", "true")) in ("true", ""))
+
+
+def search_shards_handler(node: TorchNode, params, query, body):
+    return 200, node.search_shards(
+        index=params.get("index") or query.get("index"),
+        routing=query.get("routing"),
+        body=body,
+        preference=query.get("preference"))
+
+
+def validate_query(node: TorchNode, params, query, body):
+    """[/{index}]/_validate/query (ValidateQueryAction): the query is
+    parsed, never run; `explain` adds a rendering, the reference's
+    ApproximateScoreQuery wrapper for match_all."""
+    from opensearch_tpu_torch.search import query_dsl as qd
+
+    index = params.get("index")
+    names = node.resolve_indices(index) if index else sorted(node.indices)
+    explain = str(query.get("explain", "false")) in ("true", "")
+    body = body or {}
+    qbody = body.get("query")
+    if qbody is None and set(body):
+        # a body not wrapped in {"query": ...} is invalid; the error text
+        # shows only with explain
+        out = {"valid": False,
+               "_shards": {"total": 1, "successful": 1, "failed": 0}}
+        if explain:
+            out["error"] = (f"request does not support "
+                            f"[{next(iter(body))}]")
+        return 200, out
+    if qbody is None and query.get("q"):
+        qbody = {"query_string": {"query": str(query["q"])}}
+    try:
+        parsed = qd.parse_query(qbody)
+    except OpenSearchTpuException as e:
+        out = {"valid": False,
+               "_shards": {"total": 1, "successful": 1, "failed": 0}}
+        if explain:
+            out["error"] = f"ParsingException[{e}]"
+        return 200, out
+    out = {"valid": True,
+           "_shards": {"total": 1, "successful": 1, "failed": 0}}
+    if explain:
+        if isinstance(parsed, qd.MatchAllQuery):
+            rendering = ("ApproximateScoreQuery(originalQuery=*:*, "
+                         "approximationQuery=Approximate(*:*))")
+        else:
+            rendering = json.dumps(qbody, sort_keys=True)
+        out["explanations"] = [
+            {"index": name, "valid": True, "explanation": rendering}
+            for name in names]
+    return 200, out
+
+
 # every (method, path) of the reference's router that the port does not
 # serve yet: each answers "not yet ported" (a 500), never a 404 or 405
 UNPORTED_ROUTES = (
-    ("GET", "/_mapping/field/{fields}"),
-    ("GET", "/{index}/_mapping/field/{fields}"),
-    ("PUT", "/{index}/_mapping"),
-    ("POST", "/{index}/_mapping"),
-    ("PUT", "/{index}/_settings"),
-    ("PUT", "/_settings"),
-    ("GET", "/_mget"),
-    ("POST", "/_mget"),
-    ("GET", "/{index}/_mget"),
-    ("POST", "/{index}/_mget"),
-    ("GET", "/{index}/_explain/{id}"),
-    ("POST", "/{index}/_explain/{id}"),
-    ("GET", "/_field_caps"),
-    ("POST", "/_field_caps"),
-    ("GET", "/{index}/_field_caps"),
-    ("POST", "/{index}/_field_caps"),
-    ("GET", "/{index}/_termvectors/{id}"),
-    ("POST", "/{index}/_termvectors/{id}"),
-    ("GET", "/_mtermvectors"),
-    ("POST", "/_mtermvectors"),
-    ("GET", "/{index}/_mtermvectors"),
-    ("POST", "/{index}/_mtermvectors"),
-    ("PUT", "/{index}/_block/{block}"),
     ("GET", "/_shard_stores"),
     ("GET", "/{index}/_shard_stores"),
     ("GET", "/_recovery"),
     ("GET", "/{index}/_recovery"),
-    ("POST", "/_upgrade"),
-    ("POST", "/{index}/_upgrade"),
-    ("GET", "/_upgrade"),
-    ("GET", "/{index}/_upgrade"),
-    ("PUT", "/{index}/_shrink/{target}"),
-    ("POST", "/{index}/_shrink/{target}"),
-    ("PUT", "/{index}/_split/{target}"),
-    ("POST", "/{index}/_split/{target}"),
-    ("PUT", "/{index}/_clone/{target}"),
-    ("POST", "/{index}/_clone/{target}"),
-    ("POST", "/{index}/_rollover"),
-    ("POST", "/{index}/_rollover/{new_index}"),
-    ("POST", "/{index}/_close"),
-    ("POST", "/{index}/_open"),
-    ("GET", "/{index}/_analyze"),
-    ("POST", "/{index}/_analyze"),
-    ("GET", "/_analyze"),
-    ("POST", "/_analyze"),
     ("PUT", "/_snapshot/{repo}"),
     ("POST", "/_snapshot/{repo}"),
     ("GET", "/_snapshot"),
@@ -2796,14 +3134,6 @@ UNPORTED_ROUTES = (
     ("POST", "/_cluster/reroute"),
     ("GET", "/_cluster/allocation/explain"),
     ("POST", "/_cluster/allocation/explain"),
-    ("GET", "/_search_shards"),
-    ("POST", "/_search_shards"),
-    ("GET", "/{index}/_search_shards"),
-    ("POST", "/{index}/_search_shards"),
-    ("GET", "/_validate/query"),
-    ("POST", "/_validate/query"),
-    ("GET", "/{index}/_validate/query"),
-    ("POST", "/{index}/_validate/query"),
     ("GET", "/_remote/info"),
     ("POST", "/_remotestore/_restore"),
     ("POST", "/{index}/_remotestore/_sync"),

@@ -1,8 +1,10 @@
 """Adaptive cross-request micro-batching for kNN dispatch.
 
-Counterpart of opensearch_tpu/search/batcher.py. The per-shard dispatch
-sites (search/executor.shard_knn_selection: the fused exact, streaming,
-materializing and IVF-PQ scans) route each query through :func:`dispatch`
+Counterpart of opensearch_tpu/search/batcher.py. The dispatch sites (the
+stacked serving step, search/service._try_distributed_query_phase, and
+the per-shard route's search/executor.shard_knn_selection: the fused
+exact, streaming, materializing and IVF-PQ scans) route each query
+through :func:`dispatch`
 with a BATCH KEY, the identity of the launch they would have made: kernel
 kind, device-column identity, reader GENERATION, k bucket, similarity and
 the scan's policy and precision. Concurrent queries with the same key
@@ -44,8 +46,10 @@ entry for its kernel ``family`` in the device-residency ledger's compile
 table, and each launch records ``knn.batch.size``,
 ``knn.batch.queue_wait_ms`` and the dispatch counters into the EXECUTING
 node's metrics (``tracing.active_metrics``), else the attached
-``metrics`` sink. Left out: the cross-shard counters (no mesh-wide
-launch dispatches through the batcher yet).
+``metrics`` sink. A launch that spans several shards (the stacked
+serving step, search/service.py) is declared by ``shards=`` and counted
+on ``cross_shard_launches`` / ``cross_shard_queries`` and the
+``knn.batch.shards`` histogram.
 
 Settings (``BATCH_SETTINGS``; ``PUT /_cluster/settings`` reaches them
 through :meth:`KnnDispatchBatcher.apply_settings`, absent keys the
@@ -268,6 +272,11 @@ class KnnDispatchBatcher:
             "max_batch": 0,
             "solo_fast_path": 0,    # adaptive immediate launches
             "rejections": 0,        # queue-bound sheds (429)
+            # launches whose key spans a node's whole shard set (shards >
+            # 1): one stacked step served every shard at once, so the
+            # batcher amortized across shards and requests
+            "cross_shard_launches": 0,
+            "cross_shard_queries": 0,
             "ann_dispatches": 0,
             "exact_dispatches": 0,
             # queries served from a larger k bucket's forming batch
@@ -355,8 +364,8 @@ class KnnDispatchBatcher:
     # -- dispatch ----------------------------------------------------------
 
     def dispatch(self, key: Any, payload: Any,
-                 launch: Callable[[Sequence[Any]], list], *,
-                 kind: str = "exact", rank: int = 0,
+                 launch: Callable[[Sequence[Any]], list],
+                 shards: int = 1, *, kind: str = "exact", rank: int = 0,
                  alt_keys: Sequence[Any] = (),
                  family: str | None = None,
                  tune_key: Any = None) -> DispatchOutcome:
@@ -370,6 +379,10 @@ class KnnDispatchBatcher:
         device-resident arguments are identical. key=None means "not
         mergeable": the launch runs solo, still counted in the stats.
 
+        `shards` declares how many shards the launch covers (the stacked
+        step passes its shard count): such launches count on
+        ``cross_shard_launches`` / ``cross_shard_queries`` and the
+        ``knn.batch.shards`` histogram.
         `kind` ("exact" | "ann") splits the dispatch counters. `alt_keys`
         are larger-k-bucket variants of `key`, nearest first, that this
         request may ride if one already has a batch forming; `rank` orders
@@ -380,7 +393,7 @@ class KnnDispatchBatcher:
         wait tuner (defaults to `key`). The active priority lane
         (search/lanes.py) widens the window for background entries."""
         if key is None or not self.enabled or self.max_batch_size <= 1:
-            return self._solo(payload, launch, kind, family)
+            return self._solo(payload, launch, shards, kind, family)
         from opensearch_tpu_torch.search import lanes as lanes_mod
 
         # the lanes kill switch governs the wait widening too
@@ -432,7 +445,8 @@ class KnnDispatchBatcher:
                 batch, reason = None, ""
         while True:
             if batch is not None:
-                out = self._run_batch(key, batch, own=entry, kind=kind,
+                out = self._run_batch(key, batch, own=entry, shards=shards,
+                                      kind=kind,
                                       family=family, reason=reason)
                 if out is not None:
                     return out
@@ -453,10 +467,10 @@ class KnnDispatchBatcher:
 
     # -- internals ---------------------------------------------------------
 
-    def _solo(self, payload: Any, launch, kind: str,
+    def _solo(self, payload: Any, launch, shards: int, kind: str,
               family: str | None) -> DispatchOutcome:
         results, retraced, wall_ns = _launch_timed(launch, [payload])
-        self._record_launch(1, (0,), kind)
+        self._record_launch(1, (0,), shards, kind)
         self._after_launch(kind, family, retraced, wall_ns, merged=1,
                            reason="unbatched")
         return DispatchOutcome(results[0], 1, wall_ns, retraced, 0)
@@ -544,7 +558,7 @@ class KnnDispatchBatcher:
                     deadline = now
 
     def _run_batch(self, key: Any, batch: list[_Entry], own: _Entry,
-                   kind: str, family: str | None = None,
+                   shards: int, kind: str, family: str | None = None,
                    reason: str = "") -> DispatchOutcome | None:
         """Launch one batch; returns the outcome for `own`, or None when
         `own` was not part of this batch (its caller keeps waiting)."""
@@ -570,7 +584,7 @@ class KnnDispatchBatcher:
                 e.done = True
             self._finish_locked(key, batch)
         self._record_launch(len(batch), tuple(e.wait_ms for e in batch),
-                            kind)
+                            shards, kind)
         self._after_launch(kind, family, retraced, wall_ns,
                            merged=len(batch), reason=reason or "lead")
         if not any(e is own for e in batch):
@@ -605,7 +619,7 @@ class KnnDispatchBatcher:
         self._cond.notify_all()
 
     def _record_launch(self, merged: int, wait_ms_per_entry: Sequence[int],
-                       kind: str) -> None:
+                       shards: int, kind: str) -> None:
         with self._cond:
             self.stats["dispatches"] += 1
             self.stats["merged_queries"] += merged
@@ -616,6 +630,9 @@ class KnnDispatchBatcher:
                 self.stats["ann_dispatches"] += 1
             else:
                 self.stats["exact_dispatches"] += 1
+            if shards > 1:
+                self.stats["cross_shard_launches"] += 1
+                self.stats["cross_shard_queries"] += merged
         # the EXECUTING node's registry when a request scope is active
         # (nodes in one process share this batcher), else the attached sink
         from opensearch_tpu_torch.telemetry.tracing import active_metrics
@@ -626,6 +643,7 @@ class KnnDispatchBatcher:
             # one observation PER ENTRY with its measured queue wait
             for w in wait_ms_per_entry:
                 metrics.histogram("knn.batch.queue_wait_ms").record(w)
+            metrics.histogram("knn.batch.shards").record(shards)
             metrics.counter("knn.batch.dispatches").add(1)
             if kind == "ann":
                 metrics.counter("knn.dispatch.ann").add(1)
@@ -639,10 +657,12 @@ class KnnDispatchBatcher:
 default_batcher = KnnDispatchBatcher()
 
 
-def dispatch(key: Any, payload: Any, launch, *, kind: str = "exact",
-             rank: int = 0, alt_keys: Sequence[Any] = (),
+def dispatch(key: Any, payload: Any, launch, shards: int = 1, *,
+             kind: str = "exact", rank: int = 0,
+             alt_keys: Sequence[Any] = (),
              family: str | None = None,
              tune_key: Any = None) -> DispatchOutcome:
-    return default_batcher.dispatch(key, payload, launch, kind=kind,
+    return default_batcher.dispatch(key, payload, launch, shards=shards,
+                                    kind=kind,
                                     rank=rank, alt_keys=alt_keys,
                                     family=family, tune_key=tune_key)

@@ -35,7 +35,8 @@ The route is the reference's ``_try_distributed_query_phase`` choice: a
 bare ``knn`` query takes the stacked serving step
 (search/distributed_serving.mesh_knn_batch) unless it is switched off, a
 ``min_score``, ``sort`` or ``search_after`` is set, or the step declines
-(an ANN-indexed column); every other query, and those, take the per-shard
+(an ANN-indexed column); concurrent unfiltered ones share one launch
+through the dispatch batcher (search/batcher.py); every other query, and those, take the per-shard
 route (as does any body with aggregations, since the step returns no
 per-segment masks): ``phases.can_match`` (the rewrite step), then
 search/executor.execute_query_phase per shard (whose kNN launches go
@@ -82,9 +83,11 @@ from opensearch_tpu_torch.common.errors import (
     IllegalArgumentException,
     ParsingException,
 )
+from opensearch_tpu_torch.ops import knn_fused
 from opensearch_tpu_torch.script import default_script_service
-from opensearch_tpu_torch.search import distributed_serving, fetch, phases
+from opensearch_tpu_torch.search import batcher, distributed_serving, fetch, phases
 from opensearch_tpu_torch.search import profile as search_profile
+from opensearch_tpu_torch.search.ann import default_config as ann_config
 from opensearch_tpu_torch.search import query_dsl
 from opensearch_tpu_torch.search.aggs import compute_aggs
 from opensearch_tpu_torch.search.aggs_pipeline import (
@@ -233,22 +236,25 @@ def search(shards: list, body: dict | None,
             search_after=search_after, aggs_body=aggs_body,
             filter_nodes=filter_nodes, task=task)
         if out is not None:
-            premerged = out.premerged[0]
-            per_shard_results = list(zip(shards, snaps, out.per_query[0]))
+            results, premerged, launch = out
+            per_shard_results = list(zip(shards, snaps, results))
             if want_profile:
                 # each shard's share of the ONE stacked launch, with the
-                # shared launch_id
+                # shared launch_id; a launch that served `merged` queries
+                # gives this query wall / merged of it
                 desc = search_profile.describe_node(node)
+                query_wall_ns = launch["wall_ns"] // max(launch["merged"], 1)
                 for _ in per_shard_results:
                     prof = search_profile.ShardProfiler()
                     prof.record_sharded_launch(
                         type(node).__name__, desc, name="shard_mesh_knn",
-                        launch_id=out.launch_id, shards=out.shards,
-                        wall_ns=out.wall_ns,
+                        launch_id=launch["launch_id"],
+                        shards=launch["shards"], wall_ns=query_wall_ns,
                         transfer_bytes=4 * len(node.vector),
-                        retraced=out.retraced)
+                        retraced=launch["retraced"])
                     shard_profilers.append(prof)
-                    shard_query_ns.append(out.wall_ns // max(out.shards, 1))
+                    shard_query_ns.append(
+                        query_wall_ns // max(launch["shards"], 1))
         else:
             per_shard_results = []
             for shard_i, (shard, snap) in enumerate(zip(shards, snaps)):
@@ -1048,16 +1054,28 @@ def _try_distributed_query_phase(shards: list, snaps: list, node,
                                  search_after=None, aggs_body=None,
                                  filter_nodes: list | None = None,
                                  task=None):
-    """The stacked serving step's launch outcome for this query, or None
-    when the per-shard route must answer it: a query other than a bare
-    ``knn``, no shards, a ``min_score``, ``sort``, ``search_after`` or
-    aggregations (the step returns no per-segment masks; the reference's
-    step declines them too), the step switched off
-    (``distributed_serving.enabled``), or the step declining the shard
-    set (``distributed_serving._can_serve``: among others, an unfiltered
-    query on an ANN-indexed column). `filter_nodes`, one parsed alias
+    """(per-shard results, premerged rows, launch info) of the stacked
+    serving step for this query, or None when the per-shard route must
+    answer it: a query other than a bare ``knn``, no shards, a
+    ``min_score``, ``sort``, ``search_after`` or aggregations (the step
+    returns no per-segment masks; the reference's step declines them too),
+    the step switched off (``distributed_serving.enabled``), an unfiltered
+    query on an ANN-indexed column, or the step declining the shard set
+    (``distributed_serving._can_serve``). `filter_nodes`, one parsed alias
     filter or None a shard, narrow the launch's ``valid`` mask; `task` is
-    checked for cancellation before the launch."""
+    checked for cancellation before the launch.
+
+    As in the reference, an unfiltered query goes through the dispatch
+    batcher (search/batcher.py) under a key of (index, field, k, fetch_k,
+    engine instance ids, reader generations, segment counts; at int8 also
+    the query's quantization scale, which the reference's key lacks):
+    concurrent searches of one snapshot share ONE stacked launch, and a refresh, a
+    point in time or a scroll on other generations is another key, so no
+    query is answered from another request's snapshot. A ``knn.filter``
+    or an alias filter makes the mask the request's own: the key is None
+    and the launch runs solo. ``launch_info`` carries the launch's id,
+    wall, retrace flag, shard count and ``merged`` (the queries it
+    served)."""
     if (not isinstance(node, query_dsl.KnnQuery) or not shards
             or min_score is not None or sort or search_after is not None
             or aggs_body is not None or not distributed_serving.enabled):
@@ -1065,8 +1083,62 @@ def _try_distributed_query_phase(shards: list, snaps: list, node,
     # the same cooperative cancellation point the per-shard loop honours
     if task is not None:
         task.ensure_not_cancelled()
-    return distributed_serving.mesh_knn_batch(
-        shards, snaps, [node], fetch_k, alias_filters=filter_nodes)
+    filter_nodes = filter_nodes or [None] * len(shards)
+    filtered = (node.filter is not None
+                or any(f is not None for f in filter_nodes))
+    # an unfiltered query on an ANN column is the per-shard route's
+    # (IVF-PQ): decline before a batcher round trip, which would queue the
+    # query under the stacked key only to learn the step declines it
+    if not filtered and any(
+            (vf := dev.vector_fields.get(node.field)) is not None
+            and vf.ann is not None
+            for snap in snaps for _host, dev in snap.segments):
+        return None
+
+    def info_of(out, merged: int) -> dict:
+        return {"launch_id": out.launch_id, "wall_ns": out.wall_ns,
+                "retraced": out.retraced, "shards": out.shards,
+                "merged": merged}
+
+    if filtered:
+        out = distributed_serving.mesh_knn_batch(
+            shards, snaps, [node], fetch_k, alias_filters=filter_nodes)
+        if out is None:
+            return None
+        return out.per_query[0], out.premerged[0], info_of(out, 1)
+
+    key = (
+        "distributed_knn", shards[0].shard_id.index, node.field,
+        int(node.k), int(fetch_k),
+        tuple(sh.engine.instance_id for sh in shards),
+        tuple(snap.generation for snap in snaps),
+        tuple(len(snap.segments) for snap in snaps),
+    )
+    if ann_config.score_precision == "int8":
+        # an int8 batch is quantized with one scale, max|q| / 127 over the
+        # batch (the reference's rule), so its pools depend on the batch:
+        # only queries of one scale share a launch, and a batched search
+        # is quantized, scanned and rescored as it would be alone
+        key += (knn_fused.int8_query_scale(node.vector),)
+
+    def launch(nodes_batch):
+        out_b = distributed_serving.mesh_knn_batch(
+            shards, snaps, list(nodes_batch), fetch_k)
+        if out_b is None:  # the step declines: every member falls back
+            return [None] * len(nodes_batch), False
+        info = info_of(out_b, len(nodes_batch))
+        return [(out_b.per_query[i], out_b.premerged[i], info)
+                for i in range(len(nodes_batch))], out_b.retraced
+
+    outcome = batcher.dispatch(
+        key, node, launch, shards=len(shards),
+        # the generation-free family for the wait tuner
+        tune_key=("distributed_knn", shards[0].shard_id.index, node.field,
+                  int(node.k)))
+    if outcome.value is None:
+        return None
+    results, premerged, info = outcome.value
+    return results, premerged, dict(info, merged=outcome.merged)
 
 
 # the request keys a bare kNN msearch body may carry and still share a

@@ -11,6 +11,16 @@ sums PyTorch's CPU kernels may order by B); the pending queue sheds with a
 429 instead of growing; keys that differ in reader or build generation
 never share a launch; key=None runs solo; a small-k request rides a forming
 larger-k batch and never opens one; a frozen clock cannot hang a wait.
+
+The stacked serving step through the batcher (the reference's
+``dispatch(key, ..., shards=)``): concurrent bare kNN searches over two
+shards share launches, each counted cross-shard, and answer with the
+bits of the same searches run alone at fp32 k = 10 and 100 and at bf16
+and int8 (int8 queries of one quantization scale: queries of other
+scales never share a launch); a filtered or alias-filtered search launches alone, outside
+the batcher; a PIT's pinned generation and the live one never share a
+launch; an unfiltered query on an ANN column never queues under the
+stacked key.
 """
 
 from __future__ import annotations
@@ -442,3 +452,269 @@ def test_settings_and_stats_surface(tmp_path):
     st = batcher.snapshot_stats()
     assert {"dispatches", "mean_merged_batch", "auto_tune", "queue", "ann",
             "cross_k_served"} <= set(st)
+
+
+# ---------------------------------------------------------------------------
+# the stacked serving step through the batcher (search/service.py)
+# ---------------------------------------------------------------------------
+
+STACKED_DIM = 16
+
+
+@pytest.fixture()
+def stacked(tmp_path):
+    """Two shards on the stacked step (distributed_serving on), 600 docs
+    with a keyword for filters and an alias with a filter."""
+    n = TorchNode(tmp_path / "stacked", device="cpu")
+    n.create_index("s", {
+        "settings": {"number_of_shards": 2},
+        "mappings": {"properties": {
+            "x": {"type": "knn_vector", "dimension": STACKED_DIM,
+                  "space_type": "l2"},
+            "tag": {"type": "keyword"}}},
+    })
+    rng = np.random.default_rng(5)
+    data = rng.standard_normal((600, STACKED_DIM)).round(3)
+    n.bulk([("index", {"_index": "s", "_id": str(i)},
+             {"x": data[i].tolist(), "tag": "ab"[i % 2]})
+            for i in range(600)], refresh=True)
+    n.put_alias("s", "evens", {"filter": {"term": {"tag": "a"}}})
+    n._test_queries = [rng.standard_normal(STACKED_DIM).round(3).tolist()
+                       for _ in range(8)]
+    yield n
+    _restore(n)
+    ann_mod.default_config.configure(score_precision="fp32")
+    n.close()
+
+
+def _bits(resp):
+    return [(h["_index"], h["_id"], h["_score"])
+            for h in resp["hits"]["hits"]]
+
+
+@pytest.mark.parametrize("precision,k", [("fp32", 10), ("fp32", 100),
+                                         ("bf16", 10), ("int8", 10),
+                                         ("bf16", 100), ("int8", 100)])
+def test_stacked_concurrent_searches_merge_and_equal_solo_bits(
+        stacked, precision, k):
+    """Concurrent bare kNN searches share stacked launches through
+    batcher.dispatch(..., shards=2) and each answers with the bits of the
+    same search run alone (the list scan at k = 10, the wide tier at
+    k = 100, the reduced-precision rescore; at int8 the queries share one
+    quantization scale)."""
+    ann_mod.default_config.configure(score_precision=precision)
+    qs = stacked._test_queries
+    if precision == "int8":
+        # one int8 scale (max|q| = 2): the stacked step merges int8 queries
+        # of one scale only (the next test)
+        qs = [(np.asarray(q) * (2.0 / np.abs(q).max())).round(3).tolist()
+              for q in qs]
+    bodies = [{"query": {"knn": {"x": {"vector": q, "k": k}}}, "size": k}
+              for q in qs]
+    stacked.knn_batcher.configure(enabled=False)
+    solo = [stacked.search("s", b) for b in bodies]
+    stacked.knn_batcher.configure(enabled=True, max_batch_size=32,
+                                  max_wait_ms=2000)
+    stacked.knn_batcher.reset()
+    d0 = distributed_serving.stats["distributed_searches"]
+    out = _concurrent(stacked, "s", bodies)
+    st = stacked.knn_batcher.snapshot_stats()
+    assert st["merged_queries"] == len(qs)
+    assert st["dispatches"] < len(qs) and st["mean_merged_batch"] > 1
+    assert st["cross_shard_launches"] == st["dispatches"]
+    assert st["cross_shard_queries"] == len(qs)
+    # one stacked-step dispatch a launch
+    assert distributed_serving.stats["distributed_searches"] - d0 == \
+        st["dispatches"]
+    for got, want in zip(out, solo):
+        assert _bits(got) == _bits(want)
+        assert got["hits"]["total"] == want["hits"]["total"]
+
+
+def test_int8_queries_of_other_scales_never_merge(stacked):
+    """An int8 batch is quantized with one scale, max|q| / 127 over the
+    batch: the stacked key carries each query's own scale, so queries of
+    other scales launch apart and each answers as alone."""
+    ann_mod.default_config.configure(score_precision="int8")
+    qs = stacked._test_queries
+    assert len({knn_fused.int8_query_scale(q) for q in qs}) == len(qs)
+    bodies = [{"query": {"knn": {"x": {"vector": q, "k": 10}}}, "size": 10}
+              for q in qs]
+    stacked.knn_batcher.configure(enabled=False)
+    solo = [stacked.search("s", b) for b in bodies]
+    stacked.knn_batcher.configure(enabled=True, max_batch_size=32,
+                                  max_wait_ms=200, auto_tune=False)
+    stacked.knn_batcher.reset()
+    out = _concurrent(stacked, "s", bodies)
+    st = stacked.knn_batcher.snapshot_stats()
+    assert st["dispatches"] == len(qs) and st["coalesced_batches"] == 0
+    assert [_bits(r) for r in out] == [_bits(r) for r in solo]
+
+
+def _launched_solo(node, index, bodies):
+    node.knn_batcher.configure(enabled=True, max_batch_size=32,
+                               max_wait_ms=2000)
+    node.knn_batcher.reset()
+    _concurrent(node, index, bodies)
+    return node.knn_batcher.snapshot_stats()
+
+
+def test_filtered_and_alias_filtered_searches_never_merge(stacked):
+    """A knn.filter or an alias filter makes the valid mask the request's
+    own: as in the reference, the stacked step launches for it alone,
+    outside the batcher, one filtered launch a search."""
+    qs = stacked._test_queries[:4]
+    filtered = [{"query": {"knn": {"x": {"vector": q, "k": 5, "filter": {
+        "term": {"tag": "b"}}}}}, "size": 5} for q in qs]
+    bare = [{"query": {"knn": {"x": {"vector": q, "k": 5}}}, "size": 5}
+            for q in qs]
+    for index, bodies in (("s", filtered), ("evens", bare)):
+        d0 = dict(distributed_serving.stats)
+        st = _launched_solo(stacked, index, bodies)
+        assert st["dispatches"] == 0 and st["queue"]["total"] == 0
+        for key in ("distributed_searches", "filtered"):
+            assert distributed_serving.stats[key] - d0[key] == 4
+
+
+def test_searches_across_a_refresh_never_share_a_launch(stacked):
+    """A PIT pins the pre-refresh generations: its searches and the live
+    index's are other keys, never one launch, and each answers from its
+    own snapshot."""
+    target = [9.0] * STACKED_DIM
+    pit = stacked.open_pit("s", "1m")["pit_id"]
+    stacked.bulk([("index", {"_index": "s", "_id": "bullseye"},
+                   {"x": target, "tag": "a"})], refresh=True)
+    body = {"query": {"knn": {"x": {"vector": target, "k": 3}}}, "size": 3}
+    pit_body = {**body, "pit": {"id": pit}}
+    stacked.knn_batcher.configure(enabled=True, max_batch_size=32,
+                                  max_wait_ms=300)
+    stacked.knn_batcher.reset()
+    out = [None, None]
+    barrier = threading.Barrier(2)
+
+    def run(i, b):
+        barrier.wait()
+        out[i] = stacked.search(None if i else "s", b)
+
+    threads = [threading.Thread(target=run, args=(0, body)),
+               threading.Thread(target=run, args=(1, pit_body))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    st = stacked.knn_batcher.snapshot_stats()
+    assert st["coalesced_batches"] == 0 and st["dispatches"] == 2
+    assert out[0]["hits"]["hits"][0]["_id"] == "bullseye"
+    assert "bullseye" not in [h["_id"] for h in out[1]["hits"]["hits"]]
+    stacked.close_pit([pit])
+
+
+def test_ann_column_skips_the_stacked_batcher(ann_node):
+    """An unfiltered query on an ANN column declines the stacked step
+    before any batcher round trip: only the per-shard route's ANN
+    launches are dispatched."""
+    data = ann_node._test_data
+    ann_node.knn_batcher.reset()
+    d0 = dict(distributed_serving.stats)
+    ann_node.search("av", _body(data[0].tolist()))
+    st = ann_node.knn_batcher.snapshot_stats()
+    assert st["dispatches"] == st["ann_dispatches"] == 1
+    assert st["cross_shard_launches"] == 0
+    assert "('distributed_knn'" not in str(st["auto_tune"]["keys"])
+    assert distributed_serving.stats["distributed_searches"] == \
+        d0["distributed_searches"]
+
+
+def test_stacked_batches_over_http_on_a_small_search_pool(stacked,
+                                                          monkeypatch):
+    """8 HTTP clients on a 2-thread interactive pool: a batch's leader
+    waits out its window and launches what has queued, never a member
+    still queued behind it in the pool, so every search completes with
+    its solo bits; the lane admits and completes each search once."""
+    import http.client
+    import json
+    import os
+
+    from opensearch_tpu_torch.rest.http import HttpServer
+
+    monkeypatch.setattr(os, "cpu_count", lambda: 2)
+    srv = HttpServer(stacked, "127.0.0.1", 0)
+    srv.start_in_thread()
+    qs = stacked._test_queries
+    bodies = [{"query": {"knn": {"x": {"vector": q, "k": 10}}}, "size": 10}
+              for q in qs * 2]
+    solo = [_bits(stacked.search("s", b)) for b in bodies]
+    stacked.knn_batcher.configure(enabled=True, max_batch_size=32,
+                                  max_wait_ms=20)
+    stacked.knn_batcher.reset()
+    lanes0 = srv.lane_tracker.snapshot()["interactive"]
+    got = [None] * len(bodies)
+    errs = []
+
+    def client(t):
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        try:
+            for i in range(t, len(bodies), 8):
+                conn.request("POST", "/s/_search",
+                             body=json.dumps(bodies[i]),
+                             headers={"Content-Type": "application/json"})
+                resp = json.loads(conn.getresponse().read())
+                got[i] = [(h["_index"], h["_id"], h["_score"])
+                          for h in resp["hits"]["hits"]]
+        except Exception as e:  # noqa: BLE001 - surfaced via errs
+            errs.append(e)
+        finally:
+            conn.close()
+
+    try:
+        threads = [threading.Thread(target=client, args=(t,))
+                   for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert not errs and not any(t.is_alive() for t in threads)
+        assert got == solo
+        st = stacked.knn_batcher.snapshot_stats()
+        assert st["merged_queries"] == len(bodies)
+        assert st["cross_shard_queries"] == len(bodies)
+        lanes1 = srv.lane_tracker.snapshot()["interactive"]
+        assert lanes1["submitted"] - lanes0["submitted"] == len(bodies)
+        assert lanes1["completed"] - lanes0["completed"] == len(bodies)
+        assert lanes1["depth"] == 0
+    finally:
+        srv.stop_thread()
+
+
+def test_a_task_cancelled_in_the_batcher_leaves_its_neighbours(stacked):
+    """As in the reference, a search is checked for cancellation before
+    its dispatch, never between its dispatch and the launch's readback: a
+    task cancelled while it waits in a batch rides the launch, and its
+    neighbour in the batch gets its solo hits."""
+    qs = stacked._test_queries[:2]
+    bodies = [{"query": {"knn": {"x": {"vector": q, "k": 10}}}, "size": 10}
+              for q in qs]
+    solo = [_bits(stacked.search("s", b)) for b in bodies]
+    stacked.knn_batcher.configure(enabled=True, max_batch_size=32,
+                                  max_wait_ms=400, auto_tune=False)
+    stacked.knn_batcher.reset()
+    out = [None, None]
+
+    def run(i):
+        out[i] = stacked.search("s", bodies[i])
+
+    first = threading.Thread(target=run, args=(0,))
+    first.start()
+    deadline = time.monotonic() + 10
+    while stacked.knn_batcher.pressure.total < 1 and \
+            time.monotonic() < deadline:
+        time.sleep(0.001)
+    (task,) = stacked.task_manager.list_tasks("indices:data/read/search")
+    stacked.task_manager.cancel(task.id)
+    second = threading.Thread(target=run, args=(1,))
+    second.start()
+    first.join()
+    second.join()
+    st = stacked.knn_batcher.snapshot_stats()
+    assert st["dispatches"] == 1 and st["merged_queries"] == 2
+    assert [_bits(r) for r in out] == solo

@@ -147,6 +147,70 @@ def test_ops_slice_runs_with_jax_unimportable(tmp_path):
     assert out.stdout.split() == ["4,5,3", "8", "8"]
 
 
+# the modules the index-management, document-reads and batching slice
+# extended, each at its reference path
+ADMIN_MODULES = ("search/batcher.py", "search/service.py", "node.py",
+                 "rest/handlers.py")
+
+
+@pytest.mark.parametrize("rel", ADMIN_MODULES)
+def test_admin_modules_stand_alone(rel):
+    test_context_modules_stand_alone(rel)
+
+
+def test_admin_slice_runs_with_jax_unimportable(tmp_path):
+    """Concurrent bare kNN searches merged on the stacked step, a mapping
+    update, close / open, a split, a rollover and the document reads, with
+    jax and the JAX package unimportable."""
+    script = textwrap.dedent(f"""
+        import sys, threading
+        sys.modules["jax"] = None
+        sys.modules["opensearch_tpu"] = None
+        sys.path.insert(0, {str(PKG.parent)!r})
+        from opensearch_tpu_torch.node import TorchNode
+        from opensearch_tpu_torch.rest import handlers
+        node = TorchNode({str(tmp_path)!r}, device="cpu")
+        node.knn_batcher.reset()
+        node.create_index("a-000001", {{
+            "settings": {{"number_of_shards": 2}},
+            "aliases": {{"w": {{"is_write_index": True}}}},
+            "mappings": {{"properties": {{"v": {{
+                "type": "knn_vector", "dimension": 3}}}}}}}})
+        node.bulk([("index", {{"_index": "w", "_id": str(i)}},
+                    {{"v": [i, 1, 0]}}) for i in range(8)], refresh=True)
+        q = {{"query": {{"knn": {{"v": {{"vector": [4.1, 1, 0],
+                                         "k": 3}}}}}}, "size": 3}}
+        bar = threading.Barrier(4)
+        out = []
+        def run():
+            bar.wait()
+            out.append(node.search("a-000001", q))
+        ts = [threading.Thread(target=run) for _ in range(4)]
+        [t.start() for t in ts]; [t.join() for t in ts]
+        st = node.knn_batcher.snapshot_stats()
+        print(st["cross_shard_queries"], st["dispatches"] < 4)
+        node.put_mapping("a-000001", {{"properties": {{"t": {{
+            "type": "text"}}}}}})
+        node.close_index("a-000001")
+        node.open_index("a-000001")
+        node.put_index_settings("a-000001", {{"index.blocks.write": True}})
+        node.resize_index("split", "a-000001", "s")
+        r = node.search("s", q)
+        print(",".join(h["_id"] for h in r["hits"]["hits"]))
+        node.put_index_settings("a-000001", {{"index.blocks.write": False}})
+        print(node.rollover("w")["new_index"])
+        print(node.explain("s", "4", q)["matched"],
+              len(node.mget("s", {{"ids": ["1", "2"]}})["docs"]),
+              handlers.validate_query(node, {{}}, {{}}, q)[1]["valid"])
+        node.close()
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["4", "True", "4,5,3", "a-000002", "True",
+                                  "2", "True"]
+
+
 # an ivf_pq mapping with min_train 64 over 200 docs: the refresh builds an
 # IVF-PQ index and the search takes the per-shard ANN route
 _ANN_METHOD = {"name": "ivf_pq",

@@ -9,9 +9,12 @@ each registry member the port gained (``configure``, ``apply_settings``,
 ``evicted_bytes`` / ``invalidated_bytes`` / ``fused_launches`` counters
 and the eviction reasons).
 
-The reference's cross-shard batcher case (its stacked launch rides the
-dispatch batcher) waits for the port's stacked step to batch across
-requests; the premerged-reduce case waits for search/reduce.py.
+The reference's cross-shard batcher case runs on both nodes: the stacked
+launch rides the dispatch batcher with ``shards=``, and the batcher's
+stats section (``knn_batch`` in ``_nodes/stats``) equals the reference's
+after the same trace, less what ``test_torch_rest.knn_batch_trace``
+leaves out (the values read off a clock and the per-shard route's tuner
+keys). The premerged-reduce case waits for search/reduce.py.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from opensearch_tpu_torch.node import TorchNode
 from opensearch_tpu_torch.search import distributed_serving, query_dsl
 from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
 from opensearch_tpu_torch.telemetry.tracing import MetricsRegistry
+
+from test_torch_rest import knn_batch_trace
 
 DIMS = 8
 
@@ -293,5 +298,49 @@ def test_the_references_registry_counters_match_on_one_trace(tmp_path):
     for key in ("builds", "hits", "launches", "evictions",
                 "resident_bundles", "invalidations"):
         assert got[key] == want[key], key
+    ref.close()
+    node.close()
+
+
+# -- batcher: cross-shard launch accounting ----------------------------------
+
+
+def test_batcher_counts_cross_shard_launches(tmp_path):
+    """tests/test_shard_mesh.py's case on both nodes: a kNN over 4 shards
+    is one stacked launch the batcher counts as cross-shard."""
+    ref, node = _mk_nodes(tmp_path, n_shards=4)
+    for n in (ref, node):
+        n.knn_batcher.reset()
+        n.search("vecs", _knn([0.3] * DIMS))
+    want = ref.knn_batcher.snapshot_stats()
+    got = node.knn_batcher.snapshot_stats()
+    assert got["cross_shard_launches"] == want["cross_shard_launches"] == 1
+    assert got["cross_shard_queries"] == want["cross_shard_queries"] == 1
+    ref.close()
+    node.close()
+
+
+def test_knn_batch_stats_are_the_references_after_one_trace(tmp_path):
+    """Bare kNN searches at two k, a filtered one, a bool + kNN on the
+    per-shard route, a refresh and a search after it: the same counters
+    and tuner state on both nodes."""
+    ref, node = _mk_nodes(tmp_path, n_shards=2, n_docs=40)
+    for n in (ref, node):
+        n.knn_batcher.reset()
+        for v in ([0.1] * DIMS, [0.2] * DIMS, [0.3] * DIMS):
+            n.search("vecs", _knn(v))
+        n.search("vecs", _knn([0.1] * DIMS, k=8))
+        n.search("vecs", {"query": {"knn": {"v": {
+            "vector": [0.1] * DIMS, "k": 5,
+            "filter": {"ids": {"values": ["d1", "d2"]}}}}}})
+        n.search("vecs", {"query": {"bool": {"must": [
+            {"knn": {"v": {"vector": [0.4] * DIMS, "k": 5}}}]}}})
+        n.index_doc("vecs", "late", {"v": [0.3] * DIMS})
+        n.refresh("vecs")
+        n.search("vecs", _knn([0.3] * DIMS))
+    want = knn_batch_trace(ref.knn_batcher.snapshot_stats())
+    got = knn_batch_trace(node.knn_batcher.snapshot_stats())
+    assert got == want
+    assert want["cross_shard_launches"] == 5
     ref.close()
     node.close()

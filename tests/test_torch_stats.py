@@ -161,6 +161,9 @@ NODES_STATS_CALLS = [
                          ids=[f"{i}" for i in range(len(NODES_STATS_CALLS))])
 def test_nodes_stats_by_metric_is_the_references(pair, params):
     def scenario(node):
+        # each package's process-wide batcher: this scenario's counters
+        # alone in its `knn_batch` section
+        node.knn_batcher.reset()
         vecs = _seed(node)
         _searches(node, vecs)
         return [observe(lambda: _no_node_probes(_h(node).nodes_stats(
@@ -314,7 +317,16 @@ def test_strip_helpers_mask_only_what_they_name():
     assert _strip({"took": 3, "uuid": "u", "x": 1}) == {"x": 1}
     assert _no_timings({"query_time_in_millis": 5, "query_total": 2}) == {
         "query_total": 2}
-    body = {"nodes": {"n": {"os": 1, "ingest": 2, "knn_batch": 3,
+    batch = {"dispatches": 3, "ann": {"index_builds": {"builds": 1}},
+             "auto_tune": {"tuned_keys": 2, "keys": {
+                 "('distributed_knn', 'a', 'v', 5)": {
+                     "flushes": 2, "ewma_gap_ms": 7.5, "ewma_wait_ms": 1.0,
+                     "effective_wait_ms": 2},
+                 "('knn_fused', 1, 'v', 8)": {"flushes": 1}}}}
+    body = {"nodes": {"n": {"os": 1, "ingest": 2, "knn_batch": batch,
                             "indices": {"docs": {"count": 4}}}}}
     assert _no_node_probes(body) == {"nodes": {"n": {
+        "knn_batch": {"dispatches": 3, "ann": {}, "auto_tune": {
+            "tuned_keys": 1, "keys": {
+                "('distributed_knn', 'a', 'v', 5)": {"flushes": 2}}}},
         "indices": {"docs": {"count": 4}}}}}

@@ -85,6 +85,38 @@ def test_resolve_indices_is_the_references(pair, expr, kw):
     pair.flow(scenario)
 
 
+CLOSED_EXPRESSIONS = [
+    ("logs-*", {}), ("logs-*", {"expand_wildcards": "closed"}),
+    ("logs-*", {"expand_wildcards": "open,closed"}),
+    ("logs-*", {"expand_wildcards": "all"}), ("*", {}),
+    ("_all", {"expand_wildcards": "closed"}), ("logs-b", {}),
+    ("logs-all", {}), ("*-all", {}),
+    ("*", {"expand_wildcards": "closed", "allow_no_indices": False}),
+    ("other-*", {"expand_wildcards": "closed", "allow_no_indices": False}),
+]
+
+
+@pytest.mark.parametrize("expr,kw", CLOSED_EXPRESSIONS,
+                         ids=[f"{e}-{'-'.join(map(str, kw.values()))}"
+                              for e, kw in CLOSED_EXPRESSIONS])
+def test_expand_wildcards_closed_is_the_references(pair, expr, kw):
+    """logs-b closed: `closed` selects it, `open` (the default) skips it,
+    its name and an alias naming it still resolve; a search through the
+    name refuses, one through a pattern skips it."""
+    def scenario(node):
+        _seed(node)
+        node.close_index("logs-b")
+        q = {"query": {"knn": {"v": {"vector": [0.1] * DIM, "k": 5}}},
+             "size": 5}
+        return [observe(lambda: node.resolve_indices(expr, **kw)),
+                observe(lambda: node.search(expr or "_all", q)),
+                observe(lambda: node.get_alias(None, None, **(
+                    {"expand_wildcards": kw["expand_wildcards"]}
+                    if "expand_wildcards" in kw else {})))]
+
+    pair.flow(scenario)
+
+
 def test_reads_over_patterns_are_the_references(pair):
     def scenario(node):
         _seed(node)
@@ -216,6 +248,15 @@ def test_hidden_indices_and_expand_wildcards(tmp_path):
         with pytest.raises(IndexNotFoundException):
             node.resolve_indices("*", expand_wildcards="closed",
                                  allow_no_indices=False)
+        # a closed index: closed selects it, open skips it, a name takes it
+        node.close_index("vis")
+        assert node.resolve_indices("*", expand_wildcards="closed") == [
+            "vis"]
+        assert node.resolve_indices("*") == []
+        assert node.resolve_indices("v*", expand_wildcards="open,closed") \
+            == ["vis"]
+        assert node.resolve_indices("vis") == ["vis"]
+        assert node.resolve_indices("hidden-alias") == ["vis"]
     finally:
         node.close()
 
