@@ -418,6 +418,26 @@ library calls, logged as `large record` lines.
    _validate/query, _search_shards and _analyze with no launch. At most
    30 s. ``--phases admin`` builds cells A and B and the ops phase's
    indices on a fresh node and runs it alone.
+13. backup (with main, on the main node after admin, whose vec-2026.10
+   and vec-twin it reuses; backup_main_phase): snapshots and
+   repositories, the remote segment store, the reindex family and rank
+   evaluation, over HTTP. A snapshot of both indices (_status,
+   _cat/snapshots, _cat/repositories; a second one stores no new blob;
+   no launch); a restore renamed beside the live index (16 kNN at k = 10
+   and 16 at k = 100, one K1 launch each, the live hits bit for bit), a
+   restore after DELETE and one over a closed index (the hits of before
+   bit for bit; the ledger's resident bytes back at their level before
+   the restore, within one stacked bundle); vec-rs through the remote
+   store and back (the hits of before); _reindex into vec-copy,
+   _update_by_query tagging a range and _delete_by_query of half (16 kNN
+   after each, one K1 launch each, the tagged ones one filtered launch,
+   vec-twin's hits and the brute force, no deleted id, no scroll context
+   left); _rank_eval of 8 exact kNN requests on cell A rated by the
+   brute force's top 10 (precision and recall 1.0, 8 K1 launches each).
+   At most 30 s. In the ann phase, a _rank_eval under recall of 8 of
+   index C's queries: each metric_score the search's recall@10, 8 K2
+   launches. ``--phases backup`` builds cell A and the ops phase's
+   indices on a fresh node and runs it alone.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -4566,9 +4586,10 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         large = large_main_phase(node, kf, corpora["sift_a"][0],
                                  truths["sift_a"][0], step_inputs["sift_a"],
                                  rng)
+        cell_a: dict = {}
         contexts, node = contexts_main_phase(
             node, kf, tmp, corpora["sift_a"][0], attrs_a,
-            truths["sift_a"][0], corpora["sift_b"][0], rng)
+            truths["sift_a"][0], corpora["sift_b"][0], rng, keep=cell_a)
         # the brute-force operands this phase keeps on the card for the
         # device-step timing below: device bytes outside the ledger
         held = {"bytes": sum(t.numel() * t.element_size()
@@ -4580,7 +4601,9 @@ def main_path_phase(kf, dev, seed: int) -> dict:
         kept: dict = {}
         ops = ops_main_phase(node, kf, seed, held, keep=kept)
         admin = admin_main_phase(node, kf, seed, kept, truths["sift_a"][0],
-                                 truths["sift_b"][0])
+                                 truths["sift_b"][0], drop=False)
+        backup = backup_main_phase(node, kf, seed, kept, truths["sift_a"][0],
+                                   cell_a)
         node.close()
     # the device step of one search alone (operand prep, scan, top-k), at
     # each index's shape, beside the whole search's latency above: CUDA-event
@@ -4632,7 +4655,7 @@ def main_path_phase(kf, dev, seed: int) -> dict:
             "wide": wide, "reduced": reduced, "batched": batched,
             "msearch": msearch, "rest": rest, "filtered": filtered,
             "large": large, "contexts": contexts, "ops": ops,
-            "admin": admin}
+            "admin": admin, "backup": backup}
 
 
 def filtered_phase(kf, dev, seed: int) -> dict:
@@ -5343,7 +5366,8 @@ def _ctx_knn(qv, k: int, **extra) -> dict:
 
 def contexts_main_phase(node, kf, data_path: str, data_a: np.ndarray,
                         attrs_a: dict, queries: np.ndarray,
-                        data_b: np.ndarray, rng) -> tuple:
+                        data_b: np.ndarray, rng,
+                        keep: dict | None = None) -> tuple:
     """Search contexts, aliases and admission on cell A and B, after the
     other phases of the main node (its deletes and writes change cell A,
     so every truth is computed after the change it follows):
@@ -5388,6 +5412,9 @@ def contexts_main_phase(node, kf, data_path: str, data_a: np.ndarray,
        then a PIT on B held across _forcemerge?max_num_segments=1 (after
        200 deletes): the hits the same bits, the device memory the PIT
        holds above the ledger released by close_pit.
+
+    With `keep` (a dict), `keep` gets cell A's rows (`vecs`, the writes
+    appended) and their `live` mask as the phase leaves them.
 
     Returns (record, the reopened node)."""
     import gc
@@ -5943,6 +5970,8 @@ def contexts_main_phase(node, kf, data_path: str, data_a: np.ndarray,
         f"deletes: the same bits live and through a PIT; device bytes above "
         f"the ledger before / PIT open / closed {gap0} / {gap1} / {gap2} "
         f"(the PIT's segments {held} B)")
+    if keep is not None:
+        keep.update(vecs=vecs, live=live)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"contexts phase: {out['wall_s']:.1f} s")
     return out, node
@@ -6059,7 +6088,8 @@ def ops_main_phase(node, kf, seed: int, held: dict | None = None,
        _nodes/stats/knn_batch does.
 
     With `keep` (a dict), the vec-* indices stay for the admin phase and
-    `keep` gets the corpus (`data`, `spam`); else they are deleted."""
+    `keep` gets the corpus (`data`, `spam`, `views`); else they are
+    deleted."""
     from opensearch_tpu_torch.ops import knn_rescore as kr
     from opensearch_tpu_torch.rest.http import HttpServer
     from opensearch_tpu_torch.search import distributed_serving
@@ -6359,7 +6389,7 @@ def ops_main_phase(node, kf, seed: int, held: dict | None = None,
     if keep is None:
         node.delete_index("vec-*")
     else:
-        keep.update(data=data, spam=spam)
+        keep.update(data=data, spam=spam, views=views)
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"ops phase: {out['wall_s']:.1f} s")
     if out["wall_s"] > 45:
@@ -6394,20 +6424,28 @@ ADMIN_READS = 8              # timed reads of each document-read route
 ADMIN_WALL_S = 30
 
 
-def brute_ids(kf, rows: np.ndarray, qs: np.ndarray, k: int, ids: list,
-              dev) -> list:
-    """The top-k doc ids of each query over `rows` under the range scans'
-    own arithmetic (kernel_order_scores), ties in row order."""
+def brute_rows(kf, rows: np.ndarray, qs: np.ndarray, k: int, dev,
+               valid: np.ndarray | None = None) -> list:
+    """The top-k row numbers of each query over `rows` (where `valid`)
+    under the range scans' own arithmetic (kernel_order_scores), ties in
+    row order."""
     from opensearch_tpu_torch.ops import knn_rescore as kr
 
     v = torch.from_numpy(rows)[None].to(dev)
     nrm = (v.double() ** 2).sum(2).float()
-    ok = torch.ones(v.shape[:2], dtype=torch.bool, device=dev)
+    ok = (torch.ones(v.shape[:2], dtype=torch.bool, device=dev)
+          if valid is None else torch.from_numpy(valid)[None].to(dev))
     qt = torch.from_numpy(qs).to(dev)
     scores = kernel_order_scores(kf, v, nrm, ok, qt, kr.plain_query_sq(qt),
                                  "l2_norm")
     top = order_top(kf, scores, k)[1][0].tolist()
-    return [[ids[i] for i in row if i >= 0] for row in top]
+    return [[i for i in row if i >= 0] for row in top]
+
+
+def brute_ids(kf, rows: np.ndarray, qs: np.ndarray, k: int, ids: list,
+              dev) -> list:
+    """brute_rows' rows as doc ids."""
+    return [[ids[i] for i in row] for row in brute_rows(kf, rows, qs, k, dev)]
 
 
 def tie_swaps(label: str, got: list, want: list) -> int:
@@ -6430,7 +6468,8 @@ def tie_swaps(label: str, got: list, want: list) -> int:
 
 
 def admin_main_phase(node, kf, seed: int, corpus: dict,
-                     queries_a: np.ndarray, queries_b: np.ndarray) -> dict:
+                     queries_a: np.ndarray, queries_b: np.ndarray,
+                     drop: bool = True) -> dict:
     """Cross-request batching on the stacked step, index management and
     document reads, on the main node after the ops phase (whose vec-2026.10
     and vec-twin it reuses), or alone on a fresh node (``--phases admin``):
@@ -6471,7 +6510,8 @@ def admin_main_phase(node, kf, seed: int, corpus: dict,
        (the reference's dense_vector for v and v2), and _validate/query, _search_shards and _analyze with
        no launch and no memory_allocated() move; each route group once
        over HTTP and the p50 of _explain, _mget and _field_caps.
-    At most ADMIN_WALL_S seconds."""
+    At most ADMIN_WALL_S seconds. The vec-* indices are deleted at the
+    end, or with `drop` false kept for the backup phase."""
     from opensearch_tpu_torch.rest.http import HttpServer
     from opensearch_tpu_torch.search import ann as ann_mod
     from opensearch_tpu_torch.search import distributed_serving
@@ -6826,7 +6866,8 @@ def admin_main_phase(node, kf, seed: int, corpus: dict,
     finally:
         client.close()
         server.stop_thread()
-    node.delete_index("vec-*")
+    if drop:
+        node.delete_index("vec-*")
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"admin phase: {out['wall_s']:.1f} s ({json.dumps(out['phases'])})")
     if out["wall_s"] > ADMIN_WALL_S:
@@ -6871,6 +6912,509 @@ def admin_phase(kf, dev, seed: int) -> dict:
             ops_main_phase(node, kf, seed, keep=kept)
             return admin_main_phase(node, kf, seed, kept, queries["sift_a"],
                                     queries["sift_b"])
+        finally:
+            node.close()
+
+
+# --------------------------------------------------------------------------
+# snapshots and repositories, the remote segment store, the reindex family
+# and rank evaluation (the backup phase)
+# --------------------------------------------------------------------------
+
+BACKUP_QUERIES = 16          # kNN searches of each check
+BACKUP_RS_DOCS = 2_000       # cell A's docs in the remote-store index
+BACKUP_RANK_REQUESTS = 8     # rated kNN requests of each _rank_eval
+BACKUP_VIEWS_COPIED = 500_000   # views below this: reindexed (about half)
+BACKUP_VIEWS_PICKED = 100_000   # views below this: tagged by _update_by_query
+BACKUP_SCAN_BATCH = 5_000    # docs a scroll page of the reindex family
+BACKUP_WALL_S = 30
+
+
+def backup_main_phase(node, kf, seed: int, corpus: dict,
+                      queries_a: np.ndarray, cell_a: dict) -> dict:
+    """Snapshots, the remote segment store, the reindex family and rank
+    evaluation, on the main node after the admin phase (whose
+    vec-2026.10 and vec-twin it reuses), or alone on a fresh node after
+    the ops phase (``--phases backup``), over the port's HTTP server:
+
+    1. an fs repository under the node's data path; a snapshot of
+       vec-2026.10 and vec-twin, its _status, _cat/snapshots and
+       _cat/repositories; a second snapshot of the unchanged indices
+       stores no new blob; no launch counter moves across these steps;
+    2. a restore of vec-2026.10 renamed restored-2026.10 beside it:
+       BACKUP_QUERIES kNN at k = 10 (one K1 launch each, the list scan)
+       and at k = 100 (the wide tier), each hit list the live index's bit
+       for bit, ids and scores (the restored files are the same bytes);
+    3. DELETE vec-twin (no stacked bundle left holding its shards) and
+       its restore: BACKUP_QUERIES kNN on v2 (v when the admin phase did
+       not add it), the hits of before bit for bit;
+    4. _close vec-2026.10 and a restore over it (no stacked bundle left
+       holding the replaced shards): the kNN of step 2 bit for bit, and
+       the ledger's resident bytes after the first of them at their level
+       before the restore, within the bytes of the bundles that held the
+       replaced shards (the gap logged);
+    5. vec-rs, remote-store enabled on a second repository, with
+       BACKUP_RS_DOCS of cell A's docs; _remotestore/_sync and stats;
+       DELETE vec-rs and _remotestore/_restore: BACKUP_QUERIES kNN the
+       hits of before bit for bit;
+    6. _reindex of vec-twin's docs with views below BACKUP_VIEWS_COPIED
+       (about half) into a pre-created vec-copy (its mapping, no
+       pipeline), in scroll pages of BACKUP_SCAN_BATCH: BACKUP_QUERIES
+       kNN, one K1 launch each, vec-twin's hits under the same range (an
+       exact tie may swap two docs: tie_swaps) and the brute force over
+       the copied rows; _update_by_query tags the docs with views below
+       BACKUP_VIEWS_PICKED: BACKUP_QUERIES kNN filtered by a term on the
+       tag, one filtered K1 launch each, vec-twin's hits under that range
+       and the brute force over those docs; _delete_by_query removes the
+       half of vec-copy below its median views: BACKUP_QUERIES kNN, no
+       deleted id, vec-twin's hits over the survivors and the brute force
+       over them; no scroll context open;
+    7. _rank_eval on cell A: BACKUP_RANK_REQUESTS exact kNN requests at
+       k = 10 rated by the fp32 brute force's top 10 (over cell A's live
+       rows), under precision and under recall: every metric_score 1.0,
+       one K1 launch a request; the _rank_eval wall beside its searches'
+       p50.
+    Reports the snapshot and restore seconds, the remote restore's, the
+    reindex's host us a doc and the ledger's resident bytes at each step.
+    The vec-* and restored indices are deleted at the end. At most
+    BACKUP_WALL_S seconds."""
+    from opensearch_tpu_torch.rest.http import HttpServer
+    from opensearch_tpu_torch.search import distributed_serving
+    from opensearch_tpu_torch.telemetry import device_ledger
+
+    t_phase = time.perf_counter()
+    dev = node.device
+    ledger = device_ledger.default_ledger
+    rng = np.random.default_rng(seed + 40)
+    data, views = corpus["data"], corpus["views"]
+    qs = (data[rng.choice(len(data), BACKUP_QUERIES, replace=False)]
+          + 0.05 * rng.standard_normal((BACKUP_QUERIES, DIM)).astype(
+              np.float32))
+    out: dict = {"phases": {}, "launches": {}, "ledger_bytes": {}}
+
+    def lap(name: str, t0: float) -> None:
+        torch.cuda.synchronize()
+        out["phases"][name] = time.perf_counter() - t0
+        out["ledger_bytes"][name] = ledger.resident_bytes()
+
+    def k1_each(label: str, searches, tier: str,
+                filtered: bool = False) -> list:
+        """The searches one by one: each one stacked K1 launch on `tier`
+        (filtered ones counted filtered); returns the hit lists."""
+        counter = {"lists": kf.list_launches, "wide": kf.wide_launches}[tier]
+        kf.launches.reset()
+        counter.reset()
+        d0 = distributed_serving.stats["distributed_searches"]
+        f0 = distributed_serving.stats["filtered"]
+        got = [_ctx_hits(fn()) for fn in searches]
+        launches = {"knn_fused": kf.launches.count, tier: counter.count,
+                    "stacked": distributed_serving.stats[
+                        "distributed_searches"] - d0}
+        if filtered:
+            launches["filtered"] = distributed_serving.stats["filtered"] - f0
+        if set(launches.values()) != {len(got)}:
+            raise AssertionError(f"[backup] {label}: {launches} in "
+                                 f"{len(got)} searches (one stacked K1 "
+                                 f"launch each)")
+        out["launches"][label] = launches
+        return got
+
+    def knn_body(q, k: int, field: str = "v", **extra) -> dict:
+        return {"query": {"knn": {field: {"vector": q.tolist(), "k": k,
+                                          **extra}}},
+                "size": k, "_source": False}
+
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    client = RestClient(server.port)
+    try:
+        # -- 1. snapshots ------------------------------------------------
+        t0 = time.perf_counter()
+        live = {k: [_ctx_hits(node.search("vec-2026.10", knn_body(q, k)))
+                    for q in qs] for k in (10, 100)}
+        twin_map = node.get_mapping("vec-twin")["vec-twin"]["mappings"]
+        twin_field = "v2" if "v2" in twin_map["properties"] else "v"
+        twin_before = [_ctx_hits(node.search(
+            "vec-twin", knn_body(q, 10, twin_field))) for q in qs]
+        torch.cuda.synchronize()
+        counts0 = _launch_counts()
+        client.ok("PUT", "/_snapshot/bk", {"type": "fs", "settings": {
+            "location": "bk"}})
+        t1 = time.perf_counter()
+        snap = client.ok("PUT", "/_snapshot/bk/s1", {
+            "indices": "vec-2026.10,vec-twin"})["snapshot"]
+        out["snapshot_s"] = time.perf_counter() - t1
+        if snap["state"] != "SUCCESS" or snap["indices"] != [
+                "vec-2026.10", "vec-twin"]:
+            raise AssertionError(f"[backup] snapshot: {snap}")
+        status = client.ok("GET", "/_snapshot/bk/s1/_status")["snapshots"][0]
+        if status["shards_stats"]["done"] != snap["shards"]["total"]:
+            raise AssertionError(f"[backup] _status: {status['shards_stats']}")
+        _st, cat_snaps = _http_get(
+            client, "/_cat/snapshots/bk?h=id,status,indices,total_shards")
+        _st, cat_repos = _http_get(client, "/_cat/repositories")
+        if cat_snaps.split() != ["s1", "SUCCESS", "2",
+                                 str(snap["shards"]["total"])] or \
+                cat_repos.split() != ["bk", "fs"]:
+            raise AssertionError(f"[backup] _cat: {cat_snaps!r} "
+                                 f"{cat_repos!r}")
+        store = node.snapshots._store("bk")
+        blobs1 = len(store.list_blobs())
+        t1 = time.perf_counter()
+        client.ok("PUT", "/_snapshot/bk/s2", {
+            "indices": "vec-2026.10,vec-twin"})
+        out["snapshot2_s"] = time.perf_counter() - t1
+        blobs2 = len(store.list_blobs())
+        torch.cuda.synchronize()
+        if blobs2 != blobs1:
+            raise AssertionError(f"[backup] the second snapshot stored "
+                                 f"{blobs2 - blobs1} new blobs")
+        if _launch_counts() != counts0:
+            raise AssertionError("[backup] a launch counter moved across "
+                                 "the snapshot steps")
+        out["snapshot"] = {
+            "files": status["stats"]["total"]["file_count"],
+            "bytes": status["stats"]["total"]["size_in_bytes"],
+            "blobs": blobs1, "shards": snap["shards"]["total"]}
+        log(f"[backup] snapshot of vec-2026.10 and vec-twin: "
+            f"{out['snapshot']['files']} files, {out['snapshot']['bytes']} "
+            f"B, {blobs1} blobs in {out['snapshot_s']:.3f} s; _status, "
+            f"_cat/snapshots, _cat/repositories; a second snapshot "
+            f"{out['snapshot2_s']:.3f} s, no new blob; no launch")
+        lap("snapshot", t0)
+
+        # -- 2. a restore beside the live index ----------------------------
+        t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        client.ok("POST", "/_snapshot/bk/s1/_restore", {
+            "indices": "vec-2026.10", "rename_pattern": "vec-(.+)",
+            "rename_replacement": "restored-$1"})
+        out["restore_s"] = time.perf_counter() - t1
+        for k, tier in ((10, "lists"), (100, "wide")):
+            got = k1_each(f"restored-2026.10 k={k}", [
+                lambda q=q: node.search("restored-2026.10", knn_body(q, k))
+                for q in qs], tier)
+            if got != live[k]:
+                raise AssertionError(f"[backup] restored-2026.10 k={k}: not "
+                                     f"the live index's hits")
+        log(f"[backup] restore of vec-2026.10 as restored-2026.10 in "
+            f"{out['restore_s']:.3f} s; {BACKUP_QUERIES} kNN at k = 10 and "
+            f"at k = 100, one K1 launch each, the live index's hits bit "
+            f"for bit")
+        lap("restore_renamed", t0)
+
+        # -- 3. a restore after DELETE -------------------------------------
+        t0 = time.perf_counter()
+        registry = distributed_serving.registry
+
+        def engines_of(name: str) -> set:
+            return {sh.engine.instance_id
+                    for sh in node.indices[name].shards.values()}
+
+        def held_bundles(engines: set) -> list:
+            """The stacked bundles still holding one of `engines`' shards
+            (an index's own, or a search's over several indices)."""
+            return [k for k in registry._bundles if engines & set(k[3])]
+
+        twin_engines = engines_of("vec-twin")
+        client.ok("DELETE", "/vec-twin")
+        if held_bundles(twin_engines):
+            raise AssertionError("[backup] a stacked bundle holds the "
+                                 "deleted vec-twin's shards")
+        t1 = time.perf_counter()
+        client.ok("POST", "/_snapshot/bk/s1/_restore", {
+            "indices": "vec-twin"})
+        out["restore_after_delete_s"] = time.perf_counter() - t1
+        got = k1_each(f"vec-twin {twin_field} after the restore", [
+            lambda q=q: node.search("vec-twin", knn_body(q, 10, twin_field))
+            for q in qs], "lists")
+        if got != twin_before:
+            raise AssertionError("[backup] vec-twin after DELETE and the "
+                                 "restore: not the hits of before")
+        log(f"[backup] DELETE vec-twin (no bundle left holding its "
+            f"shards), its restore in "
+            f"{out['restore_after_delete_s']:.3f} s; {BACKUP_QUERIES} kNN on "
+            f"{twin_field}, the hits of before bit for bit")
+        lap("restore_after_delete", t0)
+
+        # -- 4. a restore over a closed index ------------------------------
+        t0 = time.perf_counter()
+        client.ok("POST", "/vec-2026.10/_close")
+        torch.cuda.synchronize()
+        resident0 = ledger.resident_bytes()
+        closed_engines = engines_of("vec-2026.10")
+        bundle = sum(registry._bundles[k].nbytes
+                     for k in held_bundles(closed_engines))
+        t1 = time.perf_counter()
+        client.ok("POST", "/_snapshot/bk/s1/_restore", {
+            "indices": "vec-2026.10"})
+        out["restore_over_closed_s"] = time.perf_counter() - t1
+        if held_bundles(closed_engines):
+            raise AssertionError("[backup] a stacked bundle holds the "
+                                 "replaced vec-2026.10's shards")
+        first = _ctx_hits(node.search("vec-2026.10", knn_body(qs[0], 10)))
+        torch.cuda.synchronize()
+        resident1 = ledger.resident_bytes()
+        got = k1_each("vec-2026.10 restored over the closed index", [
+            lambda q=q: node.search("vec-2026.10", knn_body(q, 10))
+            for q in qs], "lists")
+        if got != live[10] or first != live[10][0]:
+            raise AssertionError("[backup] the restore over the closed "
+                                 "index: not the hits of before")
+        gap = resident1 - resident0
+        if bundle == 0 or abs(gap) > bundle:
+            raise AssertionError(f"[backup] the ledger after the restore "
+                                 f"over the closed index: {resident1} B "
+                                 f"against {resident0} B before (the "
+                                 f"bundles holding it {bundle} B)")
+        out["restore_over_closed"] = {"resident_before": resident0,
+                                      "resident_after_first_knn": resident1,
+                                      "gap": gap, "bundle_bytes": bundle}
+        log(f"[backup] _close vec-2026.10 and a restore over it in "
+            f"{out['restore_over_closed_s']:.3f} s, no bundle left holding "
+            f"its shards; {BACKUP_QUERIES} kNN the hits of before bit for "
+            f"bit; the ledger {resident0} B before the restore, {resident1} "
+            f"B after the first kNN: a gap of {gap} B (the bundles that held "
+            f"the replaced shards {bundle} B)")
+        lap("restore_over_closed", t0)
+
+        # -- 5. the remote segment store -----------------------------------
+        t0 = time.perf_counter()
+        client.ok("PUT", "/_snapshot/obj", {"type": "fs", "settings": {
+            "location": str(node.data_path / "remote-objects")}})
+        client.ok("PUT", "/vec-rs", {"settings": {
+            "index.remote_store.enabled": True,
+            "index.remote_store.segment.repository": "obj",
+            "index.default_pipeline": "_none"}})
+        rows_rs = cell_a["vecs"][:BACKUP_RS_DOCS]
+        resp = node.bulk([("index", {"_index": "vec-rs", "_id": str(i)},
+                           {"v": rows_rs[i].tolist()})
+                          for i in range(BACKUP_RS_DOCS)], refresh=True)
+        if resp["errors"]:
+            raise AssertionError("[backup] the vec-rs bulk reported errors")
+        qa = queries_a[:BACKUP_QUERIES]
+        rs_before = [_ctx_hits(node.search("vec-rs", knn_body(q, 10)))
+                     for q in qa]
+        synced = client.ok("POST", "/vec-rs/_remotestore/_sync")["shards"]
+        stats = client.ok("GET", "/_remotestore/stats/vec-rs")
+        if not synced or stats["vec-rs"]["shards"]["0"][
+                "segments_uploaded"] < 1:
+            raise AssertionError(f"[backup] _remotestore: {synced} {stats}")
+        client.ok("DELETE", "/vec-rs")
+        t1 = time.perf_counter()
+        restored = client.ok("POST", "/_remotestore/_restore", {
+            "indices": ["vec-rs"]})
+        out["remote_restore_s"] = time.perf_counter() - t1
+        if restored["indices"] != ["vec-rs"]:
+            raise AssertionError(f"[backup] _remotestore/_restore: "
+                                 f"{restored}")
+        got = k1_each("vec-rs after the remote restore", [
+            lambda q=q: node.search("vec-rs", knn_body(q, 10)) for q in qa],
+            "lists")
+        if got != rs_before:
+            raise AssertionError("[backup] vec-rs after the remote restore: "
+                                 "not the hits of before")
+        out["remote_store"] = {"docs": BACKUP_RS_DOCS,
+                               "segments_uploaded": stats["vec-rs"][
+                                   "shards"]["0"]["segments_uploaded"]}
+        log(f"[backup] vec-rs ({BACKUP_RS_DOCS} of cell A's docs) synced "
+            f"to the remote store ({out['remote_store']['segments_uploaded']}"
+            f" segment(s)), deleted and restored from it in "
+            f"{out['remote_restore_s']:.3f} s; {BACKUP_QUERIES} kNN the hits "
+            f"of before bit for bit")
+        lap("remote_store", t0)
+
+        # -- 6. reindex, update by query, delete by query ------------------
+        t0 = time.perf_counter()
+        client.ok("PUT", "/vec-copy", {
+            "settings": {"index.default_pipeline": "_none"},
+            "mappings": twin_map})
+        copied_range = {"range": {"views": {"lt": BACKUP_VIEWS_COPIED}}}
+        # vec-twin's rows of `v`: the ops corpus (the admin phase's
+        # "unblocked" doc and v2's docs carry no views, so none is copied)
+        rows, ids = data, [str(i) for i in range(len(data))]
+        row_views = views.astype(np.int64)
+        copied = row_views < BACKUP_VIEWS_COPIED
+        n_copied = int(copied.sum())
+        t1 = time.perf_counter()
+        reindexed = client.ok("POST", "/_reindex?refresh=true", {
+            "source": {"index": "vec-twin", "query": copied_range,
+                       "size": BACKUP_SCAN_BATCH},
+            "dest": {"index": "vec-copy"}})
+        reindex_s = time.perf_counter() - t1
+        if reindexed["created"] != n_copied or reindexed["failures"] or \
+                node.count("vec-copy")["count"] != n_copied:
+            raise AssertionError(f"[backup] _reindex: {reindexed['created']}"
+                                 f" of {n_copied} docs created")
+        out["reindex"] = {"docs": n_copied, "s": reindex_s,
+                          "us_a_doc": reindex_s / n_copied * 1e6,
+                          "batches": reindexed["batches"]}
+
+        def twin_truth(label: str, got: list, filt, valid) -> int:
+            """vec-twin's hits under `filt` are the brute force over the
+            `valid` rows; `got` (vec-copy's) are vec-twin's, but for
+            exact ties in another doc order. Returns the tie swaps."""
+            want = [_ctx_hits(node.search("vec-twin", knn_body(
+                q, 10, **({"filter": filt} if filt else {})))) for q in qs]
+            brute = brute_rows(kf, rows, qs, 10, dev, valid)
+            if [[h for h, _s in row] for row in want] != \
+                    [[ids[i] for i in row] for row in brute]:
+                raise AssertionError(f"[backup] {label}: vec-twin's hits "
+                                     f"are not the brute force")
+            return tie_swaps(f"[backup] {label}", got, want)
+
+        got = k1_each("vec-copy", [
+            lambda q=q: node.search("vec-copy", knn_body(q, 10))
+            for q in qs], "lists")
+        ties = {"reindex": twin_truth("vec-copy", got, copied_range,
+                                      copied)}
+        t1 = time.perf_counter()
+        picked = client.ok("POST", "/vec-copy/_update_by_query?refresh=true", {
+            "query": {"range": {"views": {"lt": BACKUP_VIEWS_PICKED}}},
+            "size": BACKUP_SCAN_BATCH,
+            "script": {"source": "ctx._source.tag = 'picked'"}})
+        out["update_by_query"] = {"updated": picked["updated"],
+                                  "s": time.perf_counter() - t1}
+        in_range = row_views < BACKUP_VIEWS_PICKED
+        if picked["updated"] != int(in_range.sum()) or picked["failures"]:
+            raise AssertionError(f"[backup] _update_by_query updated "
+                                 f"{picked['updated']} of "
+                                 f"{int(in_range.sum())} docs")
+        tagged = k1_each("vec-copy filtered by the tag", [
+            lambda q=q: node.search("vec-copy", knn_body(q, 10, filter={
+                "term": {"tag": "picked"}})) for q in qs], "lists",
+            filtered=True)
+        ties["update_by_query"] = twin_truth(
+            "vec-copy filtered by the tag", tagged,
+            {"range": {"views": {"lt": BACKUP_VIEWS_PICKED}}}, in_range)
+        median = int(np.median(row_views[copied]))
+        t1 = time.perf_counter()
+        dropped = client.ok("POST", "/vec-copy/_delete_by_query?refresh=true",
+                            {"query": {"range": {"views": {"lt": median}}},
+                             "size": BACKUP_SCAN_BATCH})
+        out["delete_by_query"] = {"deleted": dropped["deleted"],
+                                  "s": time.perf_counter() - t1}
+        gone = copied & (row_views < median)
+        if dropped["deleted"] != int(gone.sum()) or dropped["failures"]:
+            raise AssertionError(f"[backup] _delete_by_query deleted "
+                                 f"{dropped['deleted']} of "
+                                 f"{int(gone.sum())} docs")
+        after = k1_each("vec-copy after the deletes", [
+            lambda q=q: node.search("vec-copy", knn_body(q, 10))
+            for q in qs], "lists")
+        gone_ids = {ids[i] for i in np.flatnonzero(gone)}
+        if any(h in gone_ids for row in after for h, _s in row):
+            raise AssertionError("[backup] a deleted doc came back from a "
+                                 "kNN on vec-copy")
+        ties["delete_by_query"] = twin_truth(
+            "vec-copy after the deletes", after,
+            {"range": {"views": {"gte": median,
+                                 "lt": BACKUP_VIEWS_COPIED}}},
+            copied & ~gone)
+        if node._reader_contexts:
+            raise AssertionError(f"[backup] {len(node._reader_contexts)} "
+                                 f"scroll contexts left open")
+        out["tie_swaps"] = ties
+        log(f"[backup] _reindex vec-twin -> vec-copy: {n_copied} docs in "
+            f"{reindex_s:.3f} s ({out['reindex']['us_a_doc']:.2f} us a doc, "
+            f"{reindexed['batches']} batches); _update_by_query tagged "
+            f"{picked['updated']} docs in "
+            f"{out['update_by_query']['s']:.3f} s; _delete_by_query removed "
+            f"{dropped['deleted']} in {out['delete_by_query']['s']:.3f} s; "
+            f"{BACKUP_QUERIES} kNN after each, one K1 launch each (filtered "
+            f"by the tag: one filtered launch), vec-twin's hits and the "
+            f"brute force ({ties} tie swaps), no deleted id, no scroll "
+            f"context open")
+        lap("reindex", t0)
+
+        # -- 7. rank evaluation on cell A ----------------------------------
+        t0 = time.perf_counter()
+        qr = queries_a[:BACKUP_RANK_REQUESTS]
+        truth = brute_rows(kf, cell_a["vecs"], qr, 10, dev, cell_a["live"])
+        requests = [{"id": f"q{i}", "request": {"query": {"knn": {"v": {
+            "vector": q.tolist(), "k": 10}}}},
+            "ratings": [{"_index": "sift_a", "_id": str(j), "rating": 1}
+                        for j in truth[i]]} for i, q in enumerate(qr)]
+        rank = {}
+        for metric in ("precision", "recall"):
+            kf.launches.reset()
+            t1 = time.perf_counter()
+            got = client.ok("POST", "/sift_a/_rank_eval", {
+                "requests": requests, "metric": {metric: {"k": 10}}})
+            wall = time.perf_counter() - t1
+            scores = [got["details"][f"q{i}"]["metric_score"]
+                      for i in range(len(qr))]
+            if got["failures"] or set(scores) != {1.0} or \
+                    got["metric_score"] != 1.0 or \
+                    kf.launches.count != len(qr):
+                raise AssertionError(f"[backup] _rank_eval {metric}: "
+                                     f"{scores} {got['failures']}, "
+                                     f"{kf.launches.count} K1 launches")
+            rank[metric] = {"wall_ms": wall * 1e3,
+                            "launches": kf.launches.count}
+        lat = []
+        for r in requests:
+            t1 = time.perf_counter()
+            client.ok("POST", "/sift_a/_search", {**r["request"],
+                                                  "size": 10})
+            lat.append(time.perf_counter() - t1)
+        rank["search_p50_ms"] = float(np.percentile(np.asarray(lat) * 1e3,
+                                                    50))
+        out["rank_eval"] = rank
+        out["launches"]["rank_eval cell A"] = {
+            "knn_fused": rank["precision"]["launches"]}
+        log(f"[backup] _rank_eval on cell A, {len(qr)} kNN requests rated "
+            f"by the brute force's top 10: precision and recall 1.0 each, "
+            f"{len(qr)} K1 launches each; wall "
+            f"{rank['precision']['wall_ms']:.3f} / "
+            f"{rank['recall']['wall_ms']:.3f} ms beside its searches' p50 "
+            f"{rank['search_p50_ms']:.3f} ms over HTTP")
+        lap("rank_eval", t0)
+    finally:
+        client.close()
+        server.stop_thread()
+    node.delete_index("vec-*,restored-*")
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"backup phase: {out['wall_s']:.1f} s ({json.dumps(out['phases'])}); "
+        f"ledger bytes {json.dumps(out['ledger_bytes'])}")
+    if out["wall_s"] > BACKUP_WALL_S:
+        raise AssertionError(f"[backup] the phase took {out['wall_s']:.1f} s"
+                             f" (at most {BACKUP_WALL_S})")
+    return out
+
+
+def backup_launches(bk: dict) -> dict:
+    """K1's launches of each backup check, counted from 0."""
+    return {key: res["knn_fused"] for key, res in bk["launches"].items()}
+
+
+def backup_phase(kf, dev, seed: int) -> dict:
+    """Cell A built as main_path_phase builds it (the same seed draws),
+    the ops phase keeping its indices, then backup_main_phase, on a fresh
+    node (``--phases backup``)."""
+    from opensearch_tpu_torch.node import TorchNode
+
+    rng = np.random.default_rng(seed + 2)
+    data_a = clustered(rng, 200_000, DIM)
+    data_b = clustered(rng, 20_000, DIM)
+    attrs = attributes(rng, 200_000)
+    queries = {}
+    for name, data in (("sift_a", data_a), ("sift_b", data_b)):
+        queries[name] = (data[rng.choice(data.shape[0], 64, replace=False)]
+                         + 0.05 * rng.standard_normal((64, DIM)).astype(
+                             np.float32))
+    with tempfile.TemporaryDirectory() as tmp:
+        node = TorchNode(tmp, device="cuda")
+        try:
+            t0 = time.perf_counter()
+            _bulk_index(node, "sift_a", data_a, 1, attrs)
+            log(f"[sift_a] 200000 docs: bulk + refresh "
+                f"{time.perf_counter() - t0:.1f} s")
+            kept: dict = {}
+            ops_main_phase(node, kf, seed, keep=kept)
+            return backup_main_phase(
+                node, kf, seed, kept, queries["sift_a"],
+                {"vecs": data_a, "live": np.ones(len(data_a), bool)})
         finally:
             node.close()
 
@@ -7543,6 +8087,44 @@ def ann_filtered_check(node, name: str, kf, ads, data: np.ndarray,
     return out
 
 
+ANN_RANK_REQUESTS = 8
+
+
+def ann_rank_eval_check(node, name: str, ads, queries: np.ndarray,
+                        hits: list, truth) -> dict:
+    """One _rank_eval under recall of ANN_RANK_REQUESTS of index C's
+    queries, each rated by its exact cosine brute force's top 10: each
+    request's metric_score is that query's recall@10 of the phase's own
+    search (the same body, so the same hits), one K2 launch a request."""
+    from opensearch_tpu_torch.search.rank_eval import rank_eval
+
+    n = ANN_RANK_REQUESTS
+    body = {"requests": [
+        {"id": f"q{i}", "request": {"query": {"knn": {"v": {
+            "vector": queries[i].tolist(), "k": 10}}}},
+         "ratings": [{"_index": name, "_id": str(int(j)), "rating": 1}
+                     for j in truth[i].tolist()]} for i in range(n)],
+        "metric": {"recall": {"k": 10}}}
+    ads.launches.reset()
+    t0 = time.perf_counter()
+    got = rank_eval(node, name, body)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = ads.launches.count
+    want = [len({h[0] for h in hits[i]} & {str(int(j)) for j in
+                                             truth[i].tolist()}) / 10
+            for i in range(n)]
+    scores = [got["details"][f"q{i}"]["metric_score"] for i in range(n)]
+    if got["failures"] or scores != want or launches != n:
+        raise AssertionError(f"[{name}] _rank_eval under recall: {scores} "
+                             f"against the searches' recall@10 {want}, "
+                             f"{launches} K2 launches, {got['failures']}")
+    log(f"[{name}] _rank_eval of {n} kNN requests under recall: each "
+        f"metric_score the search's recall@10 ({scores}), {launches} K2 "
+        f"launches, {wall_ms:.3f} ms")
+    return {"metric_scores": scores, "metric_score": got["metric_score"],
+            "launches": launches, "wall_ms": wall_ms}
+
+
 def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
     """Index C through TorchNode on the card: 200,000 clustered 100-d docs,
     cosine, ivf_pq (nlist 512, m 20, nprobe 8), 1 shard, 64 searches. Then
@@ -7605,6 +8187,17 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
         launches = ads.launches.count
         lut_launches = adc_lut.launches.count
         ann_searches = executor.knn_path_stats["ann"] - ann0
+        # the exact cosine brute force's top 10 of each query (recall@10)
+        dn = torch.from_numpy(data).to(dev)
+        dn = dn / torch.clamp(torch.linalg.norm(dn, dim=1, keepdim=True),
+                              1e-12)
+        qn = torch.from_numpy(queries).to(dev)
+        qn = qn / torch.clamp(torch.linalg.norm(qn, dim=1, keepdim=True),
+                              1e-12)
+        truth = torch.topk(qn @ dn.T, 10).indices.cpu()
+        del dn, qn
+        rank_eval = ann_rank_eval_check(node, name, ads, queries, hits,
+                                        truth)
         # where a search's time goes: device kernels under the profiler, on
         # 16 more searches after the counted window
         prof_q = iter(queries)
@@ -7690,11 +8283,6 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
             per_search={"ivfpq_adc_pallas": 1, "knn_fused_pallas": 1})
         node.close()
     # recall@10 against exact cosine brute force (reported, not gated)
-    dn = torch.from_numpy(data).to(dev)
-    dn = dn / torch.clamp(torch.linalg.norm(dn, dim=1, keepdim=True), 1e-12)
-    qn = torch.from_numpy(queries).to(dev)
-    qn = qn / torch.clamp(torch.linalg.norm(qn, dim=1, keepdim=True), 1e-12)
-    truth = torch.topk(qn @ dn.T, 10).indices.cpu()
     recall = float(np.mean([
         len({int(h[0]) for h in got} & set(truth[i].tolist())) / 10
         for i, got in enumerate(hits)]))
@@ -7705,7 +8293,7 @@ def ann_main_phase(ads, ivfpq, kf, dev, seed: int) -> dict:
            "qps": 64 / sum(lat), "mixed": mixed, "concurrent": concurrent,
            "filtered": filtered, "batch": batch,
            "lut_launches": lut_launches, "ledger": ledger,
-           "aggs": ann_aggs}
+           "aggs": ann_aggs, "rank_eval": rank_eval}
     log(f"[{name}] 64 searches equal the plain pipeline; recall@10 vs exact "
         f"cosine = {recall:.4f}; p50 {out['p50_ms']:.3f} ms, p99 "
         f"{out['p99_ms']:.3f} ms, QPS {out['qps']:.1f}")
@@ -10690,10 +11278,17 @@ def main() -> int:
         # reads: each check's K1 launches, counted from 0
         entry["admin_main_path"] = main["admin"]
         entry["admin_launches"] = admin_launches(main["admin"])
+        # snapshots, the remote store, the reindex family and rank
+        # evaluation: each check's K1 launches, counted from 0; index C's
+        # _rank_eval: its K2 launches
+        entry["backup_main_path"] = main["backup"]
+        entry["backup_launches"] = backup_launches(main["backup"])
+        entry2["rank_eval_launches"] = ann["rank_eval"]["launches"]
         phase_s["main"] = time.perf_counter() - t0
         phase_s["contexts"] = main["contexts"]["wall_s"]
         phase_s["ops"] = main["ops"]["wall_s"]
         phase_s["admin"] = main["admin"]["wall_s"]
+        phase_s["backup"] = main["backup"]["wall_s"]
     elif "filtered" in phases:
         t0 = time.perf_counter()
         fp = filtered_phase(kf, dev, args.seed)
@@ -10729,6 +11324,14 @@ def main() -> int:
         entry["launches"] = sum(entry["admin_launches"].values())
         phase_s["admin"] = adm["wall_s"]
         phase_s["admin_node"] = time.perf_counter() - t0 - adm["wall_s"]
+    elif "backup" in phases:
+        t0 = time.perf_counter()
+        bk = backup_phase(kf, dev, args.seed)
+        entry["backup_main_path"] = bk
+        entry["backup_launches"] = backup_launches(bk)
+        entry["launches"] = sum(entry["backup_launches"].values())
+        phase_s["backup"] = bk["wall_s"]
+        phase_s["backup_node"] = time.perf_counter() - t0 - bk["wall_s"]
     elif "contexts" in phases:
         t0 = time.perf_counter()
         ctx = contexts_phase(kf, dev, args.seed)

@@ -236,11 +236,16 @@ class ShardMeshRegistry:
                 (k[0], k[1]) for k in self._bundles if set(k[3]) <= ids
             })
 
-    def invalidate_index(self, index: str) -> int:
+    def invalidate_index(self, index: str, engine_ids=()) -> int:
         """Drop every bundle of `index` (its shards left this node or the
-        index was deleted); returns the number of bundles dropped."""
+        index was deleted), and every bundle holding one of `engine_ids`
+        (the index's engines): a search over several indices keys its
+        bundle by the first index's name. Returns the number of bundles
+        dropped."""
+        engines = set(engine_ids)
         with self._lock:
-            stale = [k for k in self._bundles if k[0] == index]
+            stale = [k for k in self._bundles
+                     if k[0] == index or engines & set(k[3])]
             stale_bytes = sum(
                 _bundle_nbytes(self._bundles[k]) for k in stale)
             for k in stale:

@@ -335,70 +335,55 @@ class SegmentBuilder:
         return seg
 
     def _build_text(self, fname: str, n: int) -> HostTextField | None:
-        # per-doc term -> position-list maps (tf = len(positions))
-        doc_pos: list[dict[str, list[int]] | None] = []
-        any_field = False
-        for doc in self.docs:
+        """The field's postings, sorted by (term_id, doc_id), with each
+        pair's positions ascending (tf = their count): every token is one
+        (term_id, doc, position) triple, sorted once. The same arrays as
+        the reference's per-term walk (opensearch_tpu/index/segment.py)."""
+        tok_terms: list[str] = []
+        tok_pos: list[int] = []
+        field_docs: list[int] = []
+        doc_tokens: list[int] = []
+        for d, doc in enumerate(self.docs):
             pf = doc.fields.get(fname)
             if pf is None or pf.terms is None:
-                doc_pos.append(None)
                 continue
-            any_field = True
-            tp: dict[str, list[int]] = {}
-            poss = (pf.positions if pf.positions is not None
-                    and len(pf.positions) == len(pf.terms)
-                    else range(len(pf.terms)))
-            for t, p in zip(pf.terms, poss):
-                tp.setdefault(t, []).append(p)
-            doc_pos.append(tp)
-        if not any_field:
+            field_docs.append(d)
+            doc_tokens.append(len(pf.terms))
+            tok_terms.extend(pf.terms)
+            tok_pos.extend(pf.positions if pf.positions is not None
+                           and len(pf.positions) == len(pf.terms)
+                           else range(len(pf.terms)))
+        if not field_docs:
             return None
-        terms = sorted({t for tp in doc_pos if tp for t in tp})
+        terms = sorted(set(tok_terms))
         term_dict = {t: i for i, t in enumerate(terms)}
-        # postings sorted by (term_id, doc_id): walk terms, then docs in order
-        per_term_docs: list[list[int]] = [[] for _ in terms]
-        per_term_tfs: list[list[float]] = [[] for _ in terms]
-        per_term_pos: list[list[list[int]]] = [[] for _ in terms]
-        doc_len = np.zeros(n, dtype=np.float32)
-        docs_with_field = 0
-        for d, tp in enumerate(doc_pos):
-            if tp is None:
-                continue
-            docs_with_field += 1
-            doc_len[d] = sum(len(p) for p in tp.values())
-            for t, plist in tp.items():
-                tid = term_dict[t]
-                per_term_docs[tid].append(d)
-                per_term_tfs[tid].append(float(len(plist)))
-                per_term_pos[tid].append(sorted(plist))
+        tid = np.fromiter(map(term_dict.__getitem__, tok_terms), np.int64,
+                          len(tok_terms))
+        tdoc = np.repeat(np.asarray(field_docs, np.int64),
+                         np.asarray(doc_tokens, np.int64))
+        tpos = np.asarray(tok_pos, np.int64)
+        order = np.lexsort((tpos, tdoc, tid))
+        tid, tdoc, tpos = tid[order], tdoc[order], tpos[order]
+        # one postings entry a (term, doc) run
+        first = np.ones(len(tid), bool)
+        first[1:] = (tid[1:] != tid[:-1]) | (tdoc[1:] != tdoc[:-1])
+        starts = np.flatnonzero(first)
+        pos_offsets = np.append(starts, len(tid)).astype(np.int64)
         offsets = np.zeros(len(terms) + 1, dtype=np.int64)
-        for i, docs in enumerate(per_term_docs):
-            offsets[i + 1] = offsets[i] + len(docs)
-        postings_docs = np.concatenate(
-            [np.asarray(d, dtype=np.int32) for d in per_term_docs]
-        ) if terms else np.zeros(0, np.int32)
-        postings_tfs = np.concatenate(
-            [np.asarray(t, dtype=np.float32) for t in per_term_tfs]
-        ) if terms else np.zeros(0, np.float32)
-        flat_pos: list[int] = []
-        pos_offsets = np.zeros(len(postings_docs) + 1, np.int64)
-        p = 0
-        for plists in per_term_pos:
-            for plist in plists:
-                flat_pos.extend(plist)
-                pos_offsets[p + 1] = pos_offsets[p] + len(plist)
-                p += 1
+        np.cumsum(np.bincount(tid[starts], minlength=len(terms)),
+                  out=offsets[1:])
+        doc_len = np.bincount(tdoc, minlength=n)[:n].astype(np.float32)
         return HostTextField(
             terms=terms,
             term_dict=term_dict,
             term_offsets=offsets,
-            postings_docs=postings_docs,
-            postings_tfs=postings_tfs,
+            postings_docs=tdoc[starts].astype(np.int32),
+            postings_tfs=np.diff(pos_offsets).astype(np.float32),
             doc_len=doc_len,
             total_terms=float(doc_len.sum()),
-            docs_with_field=docs_with_field,
+            docs_with_field=len(field_docs),
             pos_offsets=pos_offsets,
-            positions=np.asarray(flat_pos, np.int32),
+            positions=tpos.astype(np.int32),
         )
 
     def _build_keyword(self, fname: str, n: int) -> HostKeywordField | None:

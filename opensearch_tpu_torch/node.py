@@ -90,6 +90,17 @@ re-layout of the source's live docs through the sealed-segment path),
 doc), ``field_caps``, ``termvectors``, ``mtermvectors`` and
 ``search_shards``.
 
+Backup and data movement, as the reference's: ``snapshots``
+(snapshots/service.py: fs repositories in ``repositories.json``,
+snapshot, status, restore through ``attach_index``, which reopens the
+restored shards from their commit onto the node's device; an index
+keeps ``restored_from_snapshot`` in the registry), ``remote_store``
+(index/remote_store.py), ``persistent_tasks`` (persistent.py, kept in
+``persistent_tasks.json`` and resumed at boot) and the reindex family
+(reindex/service.py) over ``search(scroll=)``, ``bulk``, ``index_doc``
+and ``delete_doc`` inside ``_write_pressure``, whose scope accounts a
+batch's bytes once and fsyncs each shard it touched once.
+
 The device is the card unless the caller asks for the CPU::
 
     node = TorchNode(path)                 # CUDA; raises without a card
@@ -99,6 +110,7 @@ The device is the card unless the caller asks for the CPU::
 from __future__ import annotations
 
 import base64
+import contextlib
 import copy
 import difflib
 import fnmatch
@@ -106,6 +118,7 @@ import json
 import re
 import os
 import shutil
+import threading
 import time
 import uuid
 from pathlib import Path
@@ -384,6 +397,9 @@ class IndexService:
         # reference only flags it): reads and writes refuse it, reopening
         # rebuilds nothing
         self.closed = False
+        # the snapshot this index was restored from (RestoreService's
+        # recovery source), kept in the registry
+        self.restored_from_snapshot: str | None = None
         # the _stats API's index-level search totals and stat groups
         self.search_stats = {"query_total": 0, "fetch_total": 0}
         self.search_group_stats: dict[str, dict] = {}
@@ -484,6 +500,21 @@ class TorchNode:
         # the priority lanes' depths and sheds: the HTTP server submits
         # against this tracker, the `tail` stats section reads it
         self.lane_tracker = lanes.LaneTracker()
+        # the shards of the write request a thread runs, fsynced once at
+        # its end (_write_pressure); per thread, since the HTTP server
+        # writes from several
+        self._write_scope = threading.local()
+        from opensearch_tpu_torch.index.remote_store import RemoteStoreService
+        from opensearch_tpu_torch.persistent import PersistentTasksService
+        from opensearch_tpu_torch.snapshots import SnapshotsService
+
+        self.snapshots = SnapshotsService(self)
+        self.remote_store = RemoteStoreService(self)
+        # registered durably before it runs; a restart replays every task
+        # not completed
+        self.persistent_tasks = PersistentTasksService(
+            self.data_path / "persistent_tasks.json")
+        self.persistent_tasks.resume_incomplete()
         self.search_slowlog = SlowLog("search")
         self.indexing_slowlog = SlowLog("indexing")
         self._configure_slowlogs()
@@ -522,6 +553,7 @@ class TorchNode:
                 "mappings": svc.mapper_service.to_dict(),
                 "aliases": svc.aliases,
                 "closed": svc.closed,
+                "restored_from_snapshot": svc.restored_from_snapshot,
             }
             for name, svc in list(self.indices.items())
         }
@@ -541,6 +573,7 @@ class TorchNode:
                                self.device)
             svc.aliases = meta.get("aliases", {})
             svc.closed = meta.get("closed", False)
+            svc.restored_from_snapshot = meta.get("restored_from_snapshot")
             self.indices[name] = svc
 
     def create_index(self, name: str, body: dict | None = None) -> dict:
@@ -578,6 +611,21 @@ class TorchNode:
         self._persist_index_registry()
         self._configure_slowlogs()
         return {"acknowledged": True, "shards_acknowledged": True, "index": name}
+
+    def attach_index(self, name: str, settings: dict,
+                     mappings: dict | None) -> IndexService:
+        """Register an index whose shard files already exist on disk (the
+        restore path: RestoreService writes files, then each shard recovers
+        from its commit point onto the node's device, under the residency
+        ledger's upload scope, as a restart's reopen does)."""
+        if name in self.indices:
+            raise ResourceAlreadyExistsException(
+                f"index [{name}] already exists")
+        self.indices[name] = IndexService(
+            name, self._index_path(name), settings, mappings, self.device)
+        self._persist_index_registry()
+        self._configure_slowlogs()
+        return self.indices[name]
 
     def _index_path(self, name: str) -> Path:
         return self.data_path / "indices" / name
@@ -625,13 +673,21 @@ class TorchNode:
         if not matched_any and not allow_no_indices:
             raise IndexNotFoundException(expr)
         for name in dict.fromkeys(targets):
-            self._get_index(name).close()
-            del self.indices[name]
-            shard_mesh.default_registry.invalidate_index(name)
+            self._release_index(name, self.indices.pop(name))
             shutil.rmtree(self._index_path(name), ignore_errors=True)
         self._persist_index_registry()
         self._configure_slowlogs()
         return {"acknowledged": True}
+
+    @staticmethod
+    def _release_index(name: str, svc: IndexService) -> None:
+        """An index leaving the node: its engines retire their device
+        columns, and every stacked serving bundle holding one of its
+        shards (its own, and a search's over several indices) leaves
+        device memory."""
+        engines = [sh.engine.instance_id for sh in svc.shards.values()]
+        svc.close()
+        shard_mesh.default_registry.invalidate_index(name, engines)
 
     def _get_index(self, name: str) -> IndexService:
         svc = self.indices.get(name)
@@ -919,8 +975,7 @@ class TorchNode:
             # the name as an alias
             svc = self.indices.pop(name, None)
             if svc is not None:
-                svc.close()
-                shard_mesh.default_registry.invalidate_index(name)
+                self._release_index(name, svc)
                 shutil.rmtree(self._index_path(name), ignore_errors=True)
         if to_delete:
             self._configure_slowlogs()
@@ -1585,6 +1640,25 @@ class TorchNode:
     # Each public write fsyncs the translog of the shards it touched once,
     # before its response, as the reference does under durability=request.
 
+    @contextlib.contextmanager
+    def _write_pressure(self, nbytes: int, operation: str):
+        """Reentrant IndexingPressure scope, as the reference's: the
+        outermost write (a single index or delete, or a by-query batch)
+        accounts its bytes, the writes nested in it are covered, and every
+        shard they touched is fsynced once as the scope ends."""
+        scope = self._write_scope
+        if getattr(scope, "shards", None) is not None:
+            yield
+            return
+        scope.shards = set()
+        try:
+            with self.indexing_pressure.acquire(nbytes, operation):
+                yield
+        finally:
+            shards, scope.shards = scope.shards, None
+            for shard in shards:
+                shard.maybe_sync_translog()
+
     def index_doc(self, index: str, doc_id: str | None, source: dict,
                   routing: str | None = None, if_seq_no: int | None = None,
                   refresh: bool = False, op_type: str | None = "index",
@@ -1592,7 +1666,7 @@ class TorchNode:
                   version_type: str = "internal",
                   if_primary_term: int | None = None) -> dict:
         t0 = time.monotonic()
-        with self.indexing_pressure.acquire(
+        with self._write_pressure(
                 len(json.dumps(source)) if source is not None else 0,
                 "index"):
             resp, shard = self._index_doc(
@@ -1601,7 +1675,7 @@ class TorchNode:
                 pipeline=pipeline)
             if shard is None:  # an ingest drop: nothing was written
                 return resp
-            shard.maybe_sync_translog()
+            self._write_scope.shards.add(shard)
         if refresh:
             shard.refresh()
         self.indexing_slowlog.maybe_log(
@@ -1743,10 +1817,10 @@ class TorchNode:
                    version: int | None = None,
                    version_type: str = "internal") -> dict:
         # a delete carries no source: a small fixed cost is accounted
-        with self.indexing_pressure.acquire(64, "delete"):
+        with self._write_pressure(64, "delete"):
             resp, shard = self._delete_doc(index, doc_id, routing, if_seq_no,
                                            version, version_type)
-            shard.maybe_sync_translog()
+            self._write_scope.shards.add(shard)
         if refresh:
             shard.refresh()
         return resp
@@ -3967,9 +4041,7 @@ class TorchNode:
         # open scroll and PIT contexts pin snapshots: they end with the node
         self._reader_contexts.clear()
         for name, svc in self.indices.items():
-            svc.close()
-            # the stacked serving slabs of this index leave device memory
-            shard_mesh.default_registry.invalidate_index(name)
+            self._release_index(name, svc)
         self.indices.clear()
 
 

@@ -22,14 +22,17 @@ pipelines (`_ingest/pipeline`, with `_simulate`), index templates
 (`_template`, `_index_template`, `_component_template`), `_segments`,
 `_stats`, `_cluster/stats`, `_nodes` (info and stats by metric, with the
 `ingest`, `device`, `knn_batch`, `roofline` and `heat` sections),
-`_prometheus/metrics` and `_cat` (all but recovery, pending_tasks,
-repositories and snapshots), each stats read from host counters only;
+`_prometheus/metrics` and `_cat` (all but recovery and pending_tasks),
+each stats read from host counters only;
 index management (`_mapping` updates and `_mapping/field`, `_settings`
 updates, `_block`, `_upgrade`, `_shrink`, `_split`, `_clone`,
 `_rollover`, `_close`, `_open`, `_analyze`) and the document reads and
 query tools (`_mget`, `_explain`, `_field_caps`, `_termvectors`,
-`_mtermvectors`, `_validate/query`, `_search_shards`).
-Every other route answers through
+`_mtermvectors`, `_validate/query`, `_search_shards`); snapshots and
+repositories (`_snapshot`, with `_restore`, `_status` and `_cleanup`), the
+remote segment store (`_remotestore`), `_rank_eval` and the reindex family
+(`_reindex`, `_update_by_query`, `_delete_by_query`).
+Every other route (the control plane's) answers through
 :func:`_not_yet_ported`, which raises "<METHOD> <path> is not yet ported
 to opensearch_tpu_torch" (the HTTP server's 500 envelope). Handlers
 receive (node, params, query, body) and return (status, payload); the
@@ -59,6 +62,7 @@ from opensearch_tpu_torch.common.errors import (
     IndexNotFoundException,
     OpenSearchTpuException,
     ResourceNotFoundException,
+    SnapshotMissingException,
 )
 from opensearch_tpu_torch.common.settings import Settings
 from opensearch_tpu_torch.node import TorchNode
@@ -398,6 +402,35 @@ def build_router() -> Router:
     reg("GET", "/_cat/tasks", cat_tasks)
     reg("GET", "/_cat/fielddata", cat_fielddata)
     reg("GET", "/_cat/fielddata/{fields}", cat_fielddata)
+    reg("GET", "/_cat/repositories", cat_repositories)
+    reg("GET", "/_cat/snapshots", cat_snapshots)
+    reg("GET", "/_cat/snapshots/{repo}", cat_snapshots)
+    # snapshots and repositories
+    reg("PUT", "/_snapshot/{repo}", put_repository)
+    reg("POST", "/_snapshot/{repo}", put_repository)
+    reg("GET", "/_snapshot", get_repositories)
+    reg("GET", "/_snapshot/{repo}", get_repository)
+    reg("DELETE", "/_snapshot/{repo}", delete_repository)
+    reg("POST", "/_snapshot/{repo}/_cleanup", cleanup_repository)
+    reg("PUT", "/_snapshot/{repo}/{snapshot}", create_snapshot)
+    reg("POST", "/_snapshot/{repo}/{snapshot}", create_snapshot)
+    reg("GET", "/_snapshot/{repo}/{snapshot}", get_snapshot)
+    reg("DELETE", "/_snapshot/{repo}/{snapshot}", delete_snapshot)
+    reg("POST", "/_snapshot/{repo}/{snapshot}/_restore", restore_snapshot)
+    reg("GET", "/_snapshot/{repo}/{snapshot}/_status", snapshot_status)
+    # the remote segment store
+    reg("POST", "/_remotestore/_restore", remotestore_restore)
+    reg("POST", "/{index}/_remotestore/_sync", remotestore_sync)
+    reg("GET", "/_remotestore/stats/{index}", remotestore_stats)
+    # rank evaluation
+    reg("GET", "/{index}/_rank_eval", rank_eval_handler)
+    reg("POST", "/{index}/_rank_eval", rank_eval_handler)
+    reg("GET", "/_rank_eval", rank_eval_all)
+    reg("POST", "/_rank_eval", rank_eval_all)
+    # the reindex family
+    reg("POST", "/_reindex", reindex_handler)
+    reg("POST", "/{index}/_update_by_query", update_by_query_handler)
+    reg("POST", "/{index}/_delete_by_query", delete_by_query_handler)
     # the rest of the reference's surface
     for method, template in UNPORTED_ROUTES:
         reg(method, template, _not_yet_ported(method, template))
@@ -3099,32 +3132,174 @@ def validate_query(node: TorchNode, params, query, body):
     return 200, out
 
 
+# -- snapshots and repositories ---------------------------------------------
+
+
+def put_repository(node: TorchNode, params, query, body):
+    return 200, node.snapshots.put_repository(params["repo"], body or {})
+
+
+def get_repositories(node: TorchNode, params, query, body):
+    return 200, node.snapshots.get_repository(None)
+
+
+def get_repository(node: TorchNode, params, query, body):
+    return 200, node.snapshots.get_repository(params["repo"])
+
+
+def delete_repository(node: TorchNode, params, query, body):
+    return 200, node.snapshots.delete_repository(params["repo"])
+
+
+def create_snapshot(node: TorchNode, params, query, body):
+    return 200, node.snapshots.create_snapshot(
+        params["repo"], params["snapshot"], body
+    )
+
+
+def get_snapshot(node: TorchNode, params, query, body):
+    return 200, node.snapshots.get_snapshot(
+        params["repo"], params["snapshot"],
+        verbose=str(query.get("verbose", "true")) in ("true", ""),
+        ignore_unavailable=str(query.get("ignore_unavailable", "false"))
+        in ("true", ""),
+    )
+
+
+def delete_snapshot(node: TorchNode, params, query, body):
+    return 200, node.snapshots.delete_snapshot(params["repo"],
+                                               params["snapshot"])
+
+
+def restore_snapshot(node: TorchNode, params, query, body):
+    return 200, node.snapshots.restore_snapshot(
+        params["repo"], params["snapshot"], body
+    )
+
+
+def snapshot_status(node: TorchNode, params, query, body):
+    try:
+        return 200, node.snapshots.snapshot_status(params["repo"],
+                                                   params["snapshot"])
+    except SnapshotMissingException:
+        if str(query.get("ignore_unavailable", "false")) in ("true", ""):
+            return 200, {"snapshots": []}
+        raise
+
+
+def cleanup_repository(node: TorchNode, params, query, body):
+    """POST /_snapshot/{repo}/_cleanup (CleanupRepositoryAction): the
+    content-addressed store garbage-collects on delete, so cleanup finds
+    nothing stale."""
+    node.snapshots.get_repository(params["repo"])  # 404 on missing repo
+    return 200, {"results": {"deleted_bytes": 0, "deleted_blobs": 0}}
+
+
+def cat_repositories(node: TorchNode, params, query, body):
+    rows = [{"id": name, "type": conf.get("type", "fs")}
+            for name, conf in sorted(node.snapshots.repositories.items())]
+    return 200, _cat_format(query, rows, cols=["id", "type"])
+
+
+def cat_snapshots(node: TorchNode, params, query, body):
+    cols = ["id", "status", "start_epoch", "start_time", "end_epoch",
+            "end_time", "duration", "indices", "successful_shards",
+            "failed_shards", "total_shards"]
+    help_cols = cols + ["reason"]
+    repo = params.get("repo")
+    if repo is None:
+        return 200, _cat_format(query, [], cols=cols, help_cols=help_cols)
+    snaps = node.snapshots.get_snapshot(repo, "_all")
+    rows = []
+    for sn in snaps.get("snapshots", []):
+        start_s = sn.get("start_time_in_millis", 0) // 1000
+        end_s = sn.get("end_time_in_millis", 0) // 1000
+        shards = sn.get("shards") or {}
+        rows.append({
+            "id": sn.get("snapshot"),
+            "status": sn.get("state", "SUCCESS"),
+            "start_epoch": start_s,
+            "start_time": time.strftime("%H:%M:%S", time.gmtime(start_s)),
+            "end_epoch": end_s,
+            "end_time": time.strftime("%H:%M:%S", time.gmtime(end_s)),
+            "duration": f"{max(end_s - start_s, 0)}s",
+            "indices": len(sn.get("indices", [])),
+            "successful_shards": shards.get("successful", 0),
+            "failed_shards": shards.get("failed", 0),
+            "total_shards": shards.get("total", 0),
+        })
+    return 200, _cat_format(query, rows, cols=cols, help_cols=help_cols)
+
+
+# -- the remote segment store -----------------------------------------------
+
+
+def remotestore_restore(node: TorchNode, params, query, body):
+    indices = (body or {}).get("indices") or []
+    if isinstance(indices, str):
+        indices = indices.split(",")
+    if not indices:
+        raise IllegalArgumentException("[indices] is required for restore")
+    return 200, node.remote_store.restore(indices)
+
+
+def remotestore_sync(node: TorchNode, params, query, body):
+    return 200, {"shards": node.remote_store.sync_index(params["index"])}
+
+
+def remotestore_stats(node: TorchNode, params, query, body):
+    return 200, node.remote_store.stats(params.get("index"))
+
+
+# -- rank evaluation and the reindex family ---------------------------------
+
+
+def rank_eval_handler(node: TorchNode, params, query, body):
+    from opensearch_tpu_torch.search.rank_eval import rank_eval
+
+    return 200, rank_eval(node, params["index"], body or {})
+
+
+def rank_eval_all(node: TorchNode, params, query, body):
+    from opensearch_tpu_torch.search.rank_eval import rank_eval
+
+    return 200, rank_eval(node, None, body or {})
+
+
+def reindex_handler(node: TorchNode, params, query, body):
+    from opensearch_tpu_torch.reindex import reindex as do_reindex
+
+    return 200, do_reindex(node, body or {}, refresh=_refresh_param(query))
+
+
+def update_by_query_handler(node: TorchNode, params, query, body):
+    from opensearch_tpu_torch.reindex import update_by_query
+
+    return 200, update_by_query(
+        node, params["index"], body or {},
+        conflicts=query.get("conflicts"),
+        refresh=_refresh_param(query),
+    )
+
+
+def delete_by_query_handler(node: TorchNode, params, query, body):
+    from opensearch_tpu_torch.reindex import delete_by_query
+
+    return 200, delete_by_query(
+        node, params["index"], body or {},
+        conflicts=query.get("conflicts"),
+        refresh=_refresh_param(query),
+    )
+
+
 # every (method, path) of the reference's router that the port does not
-# serve yet: each answers "not yet ported" (a 500), never a 404 or 405
+# serve yet (the control plane's): each answers "not yet ported" (a 500),
+# never a 404 or 405
 UNPORTED_ROUTES = (
     ("GET", "/_shard_stores"),
     ("GET", "/{index}/_shard_stores"),
     ("GET", "/_recovery"),
     ("GET", "/{index}/_recovery"),
-    ("PUT", "/_snapshot/{repo}"),
-    ("POST", "/_snapshot/{repo}"),
-    ("GET", "/_snapshot"),
-    ("GET", "/_snapshot/{repo}"),
-    ("DELETE", "/_snapshot/{repo}"),
-    ("POST", "/_snapshot/{repo}/_cleanup"),
-    ("PUT", "/_snapshot/{repo}/{snapshot}"),
-    ("POST", "/_snapshot/{repo}/{snapshot}"),
-    ("GET", "/_snapshot/{repo}/{snapshot}"),
-    ("DELETE", "/_snapshot/{repo}/{snapshot}"),
-    ("POST", "/_snapshot/{repo}/{snapshot}/_restore"),
-    ("GET", "/_snapshot/{repo}/{snapshot}/_status"),
-    ("GET", "/{index}/_rank_eval"),
-    ("POST", "/{index}/_rank_eval"),
-    ("GET", "/_rank_eval"),
-    ("POST", "/_rank_eval"),
-    ("POST", "/_reindex"),
-    ("POST", "/{index}/_update_by_query"),
-    ("POST", "/{index}/_delete_by_query"),
     ("GET", "/_cluster/state"),
     ("GET", "/_cluster/state/{metric}"),
     ("GET", "/_cluster/state/{metric}/{index}"),
@@ -3135,13 +3310,7 @@ UNPORTED_ROUTES = (
     ("GET", "/_cluster/allocation/explain"),
     ("POST", "/_cluster/allocation/explain"),
     ("GET", "/_remote/info"),
-    ("POST", "/_remotestore/_restore"),
-    ("POST", "/{index}/_remotestore/_sync"),
-    ("GET", "/_remotestore/stats/{index}"),
     ("GET", "/_cat/recovery"),
     ("GET", "/_cat/recovery/{index}"),
     ("GET", "/_cat/pending_tasks"),
-    ("GET", "/_cat/repositories"),
-    ("GET", "/_cat/snapshots"),
-    ("GET", "/_cat/snapshots/{repo}"),
 )

@@ -226,7 +226,8 @@ def test_filtered_queries_never_merge_in_the_batcher(nodes, monkeypatch):
             t.join()
         st = port.knn_batcher.snapshot_stats()
     finally:
-        port.knn_batcher.configure(max_wait_ms=2, auto_tune=True)
+        port.knn_batcher.configure(max_batch_size=32, max_wait_ms=2,
+                                   auto_tune=True)
     # two segments a search, each its own launch
     assert st["max_batch"] == 1 and st["dispatches"] == 2 * len(bodies)
     for got, want in zip(out, solo):

@@ -211,6 +211,86 @@ def test_admin_slice_runs_with_jax_unimportable(tmp_path):
                                   "2", "True"]
 
 
+# the modules of the snapshots, remote store, reindex, rank evaluation and
+# persistent-tasks slice, each at its reference path
+BACKUP_MODULES = ("repositories/__init__.py", "repositories/blobstore.py",
+                  "persistent.py", "snapshots/__init__.py",
+                  "snapshots/service.py", "index/remote_store.py",
+                  "reindex/__init__.py", "reindex/service.py",
+                  "search/rank_eval.py")
+
+
+@pytest.mark.parametrize("rel", BACKUP_MODULES)
+def test_backup_modules_stand_alone(rel):
+    test_context_modules_stand_alone(rel)
+
+
+def test_backup_slice_runs_with_jax_unimportable(tmp_path):
+    """A kNN index snapshotted and restored under a rename, synced to the
+    remote store and restored from it, reindexed, updated and deleted by
+    query, rank-evaluated, and a persistent task resumed after a restart,
+    with jax and the JAX package unimportable."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["opensearch_tpu"] = None
+        sys.path.insert(0, {str(PKG.parent)!r})
+        from opensearch_tpu_torch import persistent
+        from opensearch_tpu_torch.node import TorchNode
+        from opensearch_tpu_torch.reindex import (
+            delete_by_query, reindex, update_by_query)
+        from opensearch_tpu_torch.search.rank_eval import rank_eval
+        runs = []
+        persistent.register_executor("t/echo", lambda p, t: runs.append(1))
+        path = {str(tmp_path / "data")!r}
+        node = TorchNode(path, device="cpu")
+        mapping = {{"properties": {{
+            "v": {{"type": "knn_vector", "dimension": 3}},
+            "n": {{"type": "long"}}}}}}
+        node.create_index("a", {{"mappings": mapping, "settings": {{
+            "index.remote_store.enabled": True,
+            "index.remote_store.segment.repository": "obj"}}}})
+        node.create_index("c", {{"mappings": mapping}})
+        node.snapshots.put_repository("bk", {{"type": "fs", "settings": {{
+            "location": {str(tmp_path / "bk")!r}}}}})
+        node.snapshots.put_repository("obj", {{"type": "fs", "settings": {{
+            "location": {str(tmp_path / "obj")!r}}}}})
+        node.bulk([("index", {{"_index": "a", "_id": str(i)}},
+                    {{"v": [i, 1, 0], "n": i}}) for i in range(8)],
+                  refresh=True)
+        q = {{"query": {{"knn": {{"v": {{"vector": [4.1, 1, 0],
+                                         "k": 3}}}}}}, "size": 3}}
+        ids = lambda r: ",".join(h["_id"] for h in r["hits"]["hits"])
+        node.snapshots.create_snapshot("bk", "s1", {{"indices": "a"}})
+        node.snapshots.restore_snapshot("bk", "s1", {{
+            "rename_pattern": "a", "rename_replacement": "r"}})
+        print(ids(node.search("r", q)))
+        node.remote_store.sync_index("a")
+        node.delete_index("a")
+        node.remote_store.restore(["a"])
+        print(ids(node.search("a", q)))
+        reindex(node, {{"source": {{"index": "a"}},
+                        "dest": {{"index": "c"}}}}, refresh=True)
+        update_by_query(node, "c", {{"script": {{
+            "source": "ctx._source.n += 10"}}}}, refresh=True)
+        delete_by_query(node, "c", {{"query": {{"term": {{
+            "n": 14}}}}}}, refresh=True)
+        print(ids(node.search("c", q)))
+        print(rank_eval(node, "c", {{"requests": [{{"id": "x",
+            "request": q, "ratings": [{{"_index": "c", "_id": "5",
+            "rating": 1}}]}}], "metric": {{"recall": {{"k": 3}}}}}})[
+            "metric_score"])
+        node.persistent_tasks.start("t/echo", {{}})
+        node.close()
+        TorchNode(path, device="cpu").close()
+        print(len(runs))
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["4,5,3", "4,5,3", "5,3,6", "1.0", "2"]
+
+
 # an ivf_pq mapping with min_train 64 over 200 docs: the refresh builds an
 # IVF-PQ index and the search takes the per-shard ANN route
 _ANN_METHOD = {"name": "ivf_pq",

@@ -35,6 +35,15 @@ auto-creates, index patterns, `_segments`, `_stats`, `_cluster/stats`,
 tables; the volatile fields each mask names (NODE_VOLATILE,
 _CAT_VOLATILE, `_no_prom_values`) are left out of the comparison.
 
+The index-management and document-read steps (`_admin_steps`) follow,
+then the backup steps (`_backup_steps`): repositories, snapshots and
+their `_status`, restores renamed, refused over an open index and over a
+closed one, `_cat/repositories` and `_cat/snapshots`, the remote store's
+sync, stats and restore, `_reindex`, `_update_by_query`,
+`_delete_by_query` and `_rank_eval`, with a kNN after each restore and
+write; snapshot clocks and the remote store's location (each server's
+own directory) are left out of the comparison.
+
 Every (method, path) of the reference's router resolves in the port's: to
 the same ported handler, or to one that answers "not yet ported" (the
 500 envelope), never to a 404 or 405.
@@ -156,9 +165,10 @@ def _knn(q, k=5, **extra) -> dict:
     return {"query": {"knn": {"v": {"vector": q, "k": k}}}, **extra}
 
 
-def _sequence(c: Client) -> list[tuple[str, int, object]]:
+def _sequence(c: Client, scratch) -> list[tuple[str, int, object]]:
     """The request sequence, run against one server: (label, status,
-    body) a step, in order."""
+    body) a step, in order. `scratch` is this server's own directory (the
+    remote store's object repository)."""
     out = []
     docs = _docs()
     rng = np.random.default_rng(11)
@@ -342,6 +352,7 @@ def _sequence(c: Client) -> list[tuple[str, int, object]]:
     _context_steps(step, docs, qs)
     _ops_steps(step, docs)
     _admin_steps(step, docs, qs)
+    _backup_steps(step, docs, qs, scratch)
     # the transport's own answers
     status, body = c.raw(b"POST /vecs/_doc/big HTTP/1.1\r\nHost: x\r\n"
                          b"Content-Length: 200000000\r\n\r\n")
@@ -1027,6 +1038,150 @@ def _admin_steps(step, docs, qs) -> None:
 
 ADMIN_STEPS: list[str] = []
 
+SNAPSHOT_CLOCKS = {"start_time_in_millis", "end_time_in_millis",
+                   "duration_in_millis", "time_in_millis"}
+
+
+def _no_snapshot_clocks(obj):
+    """A snapshot response less its wall clocks, and a repository's
+    location (the remote store's is each server's own directory)."""
+    if isinstance(obj, dict):
+        return {k: ("<location>" if k == "location"
+                    else _no_snapshot_clocks(v))
+                for k, v in obj.items() if k not in SNAPSHOT_CLOCKS}
+    if isinstance(obj, list):
+        return [_no_snapshot_clocks(v) for v in obj]
+    return obj
+
+
+CAT_SNAPSHOT_COLS = ("id,status,indices,successful_shards,failed_shards,"
+                     "total_shards")
+
+
+def _backup_steps(step, docs, qs, scratch) -> None:
+    """Snapshots and repositories, the remote segment store, the reindex
+    family and rank evaluation: one step at least for each of the 25
+    routes this slice serves, over `vecs` and the indices the steps make
+    (each deleted at the end). A kNN follows each restore, reindex and
+    by-query write. `vecs` is left as it was found."""
+    def st(label, method, path, body=None, ndjson=None,
+           norm=_no_snapshot_clocks):
+        if label not in BACKUP_STEPS:
+            BACKUP_STEPS.append(label)
+        return step(label, method, path, body, ndjson, norm)
+
+    # repositories: a relative location lands under each node's data path
+    st("bk_put_repo", "PUT", "/_snapshot/bk", {
+        "type": "fs", "settings": {"location": "bk"}})
+    st("bk_post_repo", "POST", "/_snapshot/bk2", {
+        "type": "fs", "settings": {"location": "bk2"}})
+    st("bk_put_repo_bad_type", "PUT", "/_snapshot/bad", {
+        "type": "s3", "settings": {}})
+    st("bk_put_repo_no_location", "PUT", "/_snapshot/bad", {"type": "fs"})
+    st("bk_get_repos", "GET", "/_snapshot")
+    st("bk_get_repo", "GET", "/_snapshot/bk")
+    st("bk_get_repo_missing", "GET", "/_snapshot/nope")
+    st("bk_cleanup", "POST", "/_snapshot/bk/_cleanup")
+    st("bk_cleanup_missing", "POST", "/_snapshot/nope/_cleanup")
+    st("bk_cat_repos", "GET", "/_cat/repositories?v=true")
+    # snapshots
+    st("bk_snap_put", "PUT", "/_snapshot/bk/s1", {"indices": "vecs"})
+    st("bk_snap_post", "POST", "/_snapshot/bk/s2", {
+        "indices": "vecs", "metadata": {"taken_by": "test"},
+        "include_global_state": False})
+    st("bk_snap_again", "PUT", "/_snapshot/bk/s1")
+    st("bk_snap_bad_name", "PUT", "/_snapshot/bk/S1")
+    st("bk_snap_missing_index", "PUT", "/_snapshot/bk/s3", {
+        "indices": "nope"})
+    st("bk_snap_get", "GET", "/_snapshot/bk/s1")
+    st("bk_snap_get_all", "GET", "/_snapshot/bk/_all?verbose=false")
+    st("bk_snap_get_pattern", "GET",
+       "/_snapshot/bk/s*,zz?ignore_unavailable=true")
+    st("bk_snap_get_missing", "GET", "/_snapshot/bk/zz")
+    st("bk_snap_status", "GET", "/_snapshot/bk/s1/_status")
+    st("bk_snap_status_missing", "GET", "/_snapshot/bk/zz/_status")
+    st("bk_snap_status_ignored", "GET",
+       "/_snapshot/bk/zz/_status?ignore_unavailable=true")
+    st("bk_cat_snaps", "GET",
+       f"/_cat/snapshots/bk?v=true&h={CAT_SNAPSHOT_COLS}")
+    st("bk_cat_snaps_no_repo", "GET", "/_cat/snapshots?v=true")
+    # restores: renamed beside the live index, refused over an open one,
+    # over a closed one
+    st("bk_restore_rename", "POST", "/_snapshot/bk/s1/_restore", {
+        "indices": "vecs", "rename_pattern": "v(.+)",
+        "rename_replacement": "restored-$1"})
+    st("bk_restore_rename_knn", "POST", "/restored-ecs/_search",
+       _knn(qs[1], k=6, size=6))
+    st("bk_restore_open", "POST", "/_snapshot/bk/s1/_restore")
+    st("bk_restore_missing", "POST", "/_snapshot/bk/zz/_restore")
+    st("bk_close_restored", "POST", "/restored-ecs/_close")
+    st("bk_restore_closed", "POST", "/_snapshot/bk/s2/_restore", {
+        "rename_pattern": "vecs", "rename_replacement": "restored-ecs"})
+    st("bk_restore_closed_knn", "POST", "/restored-ecs/_search",
+       _knn(qs[2], k=6, size=6))
+    st("bk_snap_delete", "DELETE", "/_snapshot/bk/s2")
+    st("bk_snap_delete_missing", "DELETE", "/_snapshot/bk/s2")
+    st("bk_repo_delete", "DELETE", "/_snapshot/bk2")
+    st("bk_repo_delete_missing", "DELETE", "/_snapshot/bk2")
+    # the remote segment store
+    st("bk_rs_repo", "PUT", "/_snapshot/obj", {
+        "type": "fs", "settings": {"location": str(scratch / "obj")}})
+    st("bk_rs_create", "PUT", "/vrs", {"settings": {
+        "number_of_shards": 2, "index.remote_store.enabled": True,
+        "index.remote_store.segment.repository": "obj"},
+        "mappings": MAPPING})
+    st("bk_rs_bulk", "POST", "/_bulk?refresh=true", ndjson=[
+        x for i in range(30) for x in (
+            {"index": {"_index": "vrs", "_id": f"r{i}"}}, docs[i])])
+    st("bk_rs_sync", "POST", "/vrs/_remotestore/_sync")
+    st("bk_rs_stats", "GET", "/_remotestore/stats/vrs")
+    st("bk_rs_delete", "DELETE", "/vrs")
+    st("bk_rs_restore", "POST", "/_remotestore/_restore", {
+        "indices": ["vrs"]})
+    st("bk_rs_restore_none", "POST", "/_remotestore/_restore", {})
+    st("bk_rs_knn", "POST", "/vrs/_search", _knn(qs[3], k=6, size=6))
+    # the reindex family
+    st("bk_copy_create", "PUT", "/vcopy", {"settings": {
+        "number_of_shards": 2}, "mappings": MAPPING})
+    st("bk_reindex", "POST", "/_reindex?refresh=true", {
+        "source": {"index": "vecs", "size": 20},
+        "dest": {"index": "vcopy"}})
+    st("bk_reindex_same", "POST", "/_reindex", {
+        "source": {"index": "vecs"}, "dest": {"index": "vecs"}})
+    st("bk_reindex_no_dest", "POST", "/_reindex", {
+        "source": {"index": "vecs"}})
+    st("bk_reindex_knn", "POST", "/vcopy/_search", _knn(qs[4], k=6, size=6))
+    st("bk_ubq", "POST", "/vcopy/_update_by_query?refresh=true", {
+        "query": {"range": {"age": {"lt": 45}}},
+        "script": {"source": "ctx._source.color = 'picked'"}})
+    st("bk_ubq_knn", "POST", "/vcopy/_search", {"query": {"knn": {"v": {
+        "vector": qs[4], "k": 6, "filter": {"term": {"color": "picked"}}}}},
+        "size": 6})
+    st("bk_dbq", "POST", "/vcopy/_delete_by_query?refresh=true", {
+        "query": {"term": {"color": "picked"}}})
+    st("bk_dbq_no_query", "POST", "/vcopy/_delete_by_query", {})
+    st("bk_dbq_knn", "POST", "/vcopy/_search", _knn(qs[4], k=6, size=6))
+    # rank evaluation: kNN requests rated by the unfiltered kNN's top 3
+    rated = [{"_index": "vecs", "_id": d, "rating": 1}
+             for d in ("a1", "7", "12")]
+    requests = [{"id": f"q{i}", "request": _knn(qs[i], k=5),
+                 "ratings": rated} for i in range(3)]
+    st("bk_rank_eval_post", "POST", "/vecs/_rank_eval", {
+        "requests": requests, "metric": {"precision": {"k": 5}}})
+    st("bk_rank_eval_get", "GET", "/vecs/_rank_eval", {
+        "requests": requests, "metric": {"dcg": {"normalize": True}}})
+    st("bk_rank_eval_all_post", "POST", "/_rank_eval", {
+        "requests": requests, "metric": {"mean_reciprocal_rank": {}}})
+    st("bk_rank_eval_all_get", "GET", "/_rank_eval", {
+        "requests": requests, "metric": {"recall": {"k": 5}}})
+    st("bk_rank_eval_bad", "POST", "/vecs/_rank_eval", {"requests": []})
+    # clean-up
+    st("bk_delete_made", "DELETE", "/restored-ecs,vrs,vcopy")
+    st("bk_cat_repos_end", "GET", "/_cat/repositories?format=json")
+
+
+BACKUP_STEPS: list[str] = []
+
 
 @pytest.fixture(scope="module")
 def transcripts(tmp_path_factory):
@@ -1041,9 +1196,11 @@ def transcripts(tmp_path_factory):
         # each package's process-wide kNN batcher starts the sequence
         # empty, so its `knn_batch` stats are this sequence's
         ref_node.knn_batcher.reset()
-        ref = _sequence(Client(ref_srv.port))
+        ref = _sequence(Client(ref_srv.port),
+                        tmp_path_factory.mktemp("ref-scratch"))
         port_node.knn_batcher.reset()
-        port = _sequence(Client(port_srv.port))
+        port = _sequence(Client(port_srv.port),
+                         tmp_path_factory.mktemp("port-scratch"))
     finally:
         port_srv.stop_thread()
         loop.call_soon_threadsafe(loop.stop)
@@ -1215,8 +1372,30 @@ ADMIN_LABELS = [
 ]
 
 
+BACKUP_LABELS = [
+    "bk_put_repo", "bk_post_repo", "bk_put_repo_bad_type",
+    "bk_put_repo_no_location", "bk_get_repos", "bk_get_repo",
+    "bk_get_repo_missing", "bk_cleanup", "bk_cleanup_missing", "bk_cat_repos",
+    "bk_snap_put", "bk_snap_post", "bk_snap_again", "bk_snap_bad_name",
+    "bk_snap_missing_index", "bk_snap_get", "bk_snap_get_all",
+    "bk_snap_get_pattern", "bk_snap_get_missing", "bk_snap_status",
+    "bk_snap_status_missing", "bk_snap_status_ignored", "bk_cat_snaps",
+    "bk_cat_snaps_no_repo", "bk_restore_rename", "bk_restore_rename_knn",
+    "bk_restore_open", "bk_restore_missing", "bk_close_restored",
+    "bk_restore_closed", "bk_restore_closed_knn", "bk_snap_delete",
+    "bk_snap_delete_missing", "bk_repo_delete", "bk_repo_delete_missing",
+    "bk_rs_repo", "bk_rs_create", "bk_rs_bulk", "bk_rs_sync", "bk_rs_stats",
+    "bk_rs_delete", "bk_rs_restore", "bk_rs_restore_none", "bk_rs_knn",
+    "bk_copy_create", "bk_reindex", "bk_reindex_same", "bk_reindex_no_dest",
+    "bk_reindex_knn", "bk_ubq", "bk_ubq_knn", "bk_dbq", "bk_dbq_no_query",
+    "bk_dbq_knn", "bk_rank_eval_post", "bk_rank_eval_get",
+    "bk_rank_eval_all_post", "bk_rank_eval_all_get", "bk_rank_eval_bad",
+    "bk_delete_made", "bk_cat_repos_end",
+]
+
+
 @pytest.mark.parametrize("label", STEPS + CONTEXT_LABELS + OPS_LABELS
-                         + ADMIN_LABELS)
+                         + ADMIN_LABELS + BACKUP_LABELS)
 def test_response_equals_the_references(transcripts, label):
     (ref_status, ref_body), (port_status, port_body) = transcripts[label]
     assert port_status == ref_status, (port_body, ref_body)
@@ -1225,10 +1404,12 @@ def test_response_equals_the_references(transcripts, label):
 
 def test_every_step_is_compared(transcripts):
     assert set(STEPS) | set(CONTEXT_LABELS) | set(OPS_LABELS) \
-        | set(ADMIN_LABELS) | {"root"} == set(transcripts)
+        | set(ADMIN_LABELS) | set(BACKUP_LABELS) | {"root"} == \
+        set(transcripts)
     assert CONTEXT_STEPS == CONTEXT_LABELS
     assert OPS_STEPS == OPS_LABELS
     assert ADMIN_STEPS == ADMIN_LABELS
+    assert BACKUP_STEPS == BACKUP_LABELS
 
 
 def test_root_info_names_the_port(transcripts):
@@ -1324,12 +1505,10 @@ def test_unported_routes_answer_the_500_envelope_and_keep_the_connection(
         c("PUT", "/v/_doc/1?refresh=true", {"v": [1.0, 0.0]})
         for method, path, body in (
                 ("GET", "/_cat/recovery", None),
-                ("POST", "/v/_update_by_query", {"script": {
-                    "source": "ctx._source.a = 1"}}),
+                ("GET", "/_cluster/state", None),
                 ("GET", "/v/_recovery", None),
                 ("GET", "/_cluster/pending_tasks", None),
-                ("POST", "/_reindex", {"source": {"index": "v"},
-                                       "dest": {"index": "w"}})):
+                ("GET", "/_recovery", None)):
             status, payload = c(method, path, body)
             assert status == 500, (path, payload)
             assert payload["status"] == 500
@@ -1462,7 +1641,7 @@ CONTEXT_ROUTES = (
 
 def test_context_routes_are_served():
     assert len(CONTEXT_ROUTES) == len(set(CONTEXT_ROUTES)) == 47
-    assert len(port_handlers.UNPORTED_ROUTES) == 42
+    assert len(port_handlers.UNPORTED_ROUTES) == 17
     assert not set(CONTEXT_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
     assert ("GET", "/_cluster/pending_tasks") in port_handlers.UNPORTED_ROUTES
     assert ("GET", "/_cat/pending_tasks") in port_handlers.UNPORTED_ROUTES
@@ -1518,12 +1697,13 @@ OPS_ROUTES = (
 
 
 def test_ops_routes_are_served():
-    """The slice's 67 routes left UNPORTED_ROUTES (158 -> 91); the four
-    `_cat` tables that need later modules stay unported."""
+    """The slice's 67 routes left UNPORTED_ROUTES (158 -> 91); the `_cat`
+    tables that need the control plane stay unported."""
     assert len(OPS_ROUTES) == len(set(OPS_ROUTES)) == 67
     assert not set(OPS_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
     for route in (("GET", "/_cat/recovery"), ("GET", "/_cat/pending_tasks"),
-                  ("GET", "/_cat/repositories"), ("GET", "/_cat/snapshots")):
+                  ("GET", "/_cat/recovery/{index}"),
+                  ("GET", "/_cluster/pending_tasks")):
         assert route in port_handlers.UNPORTED_ROUTES
     for method, template in OPS_ROUTES:
         ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
@@ -1620,7 +1800,7 @@ def test_admin_routes_are_served():
     assert len(ADMIN_ROUTES) == len(set(ADMIN_ROUTES)) == 49
     assert not set(ADMIN_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
     for route in (("GET", "/_recovery"), ("GET", "/_shard_stores"),
-                  ("POST", "/_reindex"), ("GET", "/_cluster/state")):
+                  ("GET", "/_remote/info"), ("GET", "/_cluster/state")):
         assert route in port_handlers.UNPORTED_ROUTES
     for method, template in ADMIN_ROUTES:
         ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
@@ -1662,3 +1842,89 @@ def test_admin_steps_are_not_vacuous(transcripts):
     batch = port("adm_knn_batch")[1]["nodes"]["node-0"]["knn_batch"]
     assert batch["cross_shard_launches"] > 0
     assert "('distributed_knn', 'vecs', 'v', 5)" in batch["auto_tune"]["keys"]
+
+
+BACKUP_ROUTES = (
+    ("PUT", "/_snapshot/{repo}"), ("POST", "/_snapshot/{repo}"),
+    ("GET", "/_snapshot"), ("GET", "/_snapshot/{repo}"),
+    ("DELETE", "/_snapshot/{repo}"), ("POST", "/_snapshot/{repo}/_cleanup"),
+    ("PUT", "/_snapshot/{repo}/{snapshot}"),
+    ("POST", "/_snapshot/{repo}/{snapshot}"),
+    ("GET", "/_snapshot/{repo}/{snapshot}"),
+    ("DELETE", "/_snapshot/{repo}/{snapshot}"),
+    ("POST", "/_snapshot/{repo}/{snapshot}/_restore"),
+    ("GET", "/_snapshot/{repo}/{snapshot}/_status"),
+    ("GET", "/{index}/_rank_eval"), ("POST", "/{index}/_rank_eval"),
+    ("GET", "/_rank_eval"), ("POST", "/_rank_eval"),
+    ("POST", "/_reindex"), ("POST", "/{index}/_update_by_query"),
+    ("POST", "/{index}/_delete_by_query"),
+    ("POST", "/_remotestore/_restore"),
+    ("POST", "/{index}/_remotestore/_sync"),
+    ("GET", "/_remotestore/stats/{index}"),
+    ("GET", "/_cat/repositories"), ("GET", "/_cat/snapshots"),
+    ("GET", "/_cat/snapshots/{repo}"),
+)
+
+# the control plane's routes: the only ones left unported
+CONTROL_PLANE_ROUTES = (
+    ("GET", "/_shard_stores"), ("GET", "/{index}/_shard_stores"),
+    ("GET", "/_recovery"), ("GET", "/{index}/_recovery"),
+    ("GET", "/_cluster/state"), ("GET", "/_cluster/state/{metric}"),
+    ("GET", "/_cluster/state/{metric}/{index}"),
+    ("GET", "/_cluster/pending_tasks"),
+    ("POST", "/_cluster/voting_config_exclusions"),
+    ("DELETE", "/_cluster/voting_config_exclusions"),
+    ("POST", "/_cluster/reroute"),
+    ("GET", "/_cluster/allocation/explain"),
+    ("POST", "/_cluster/allocation/explain"),
+    ("GET", "/_remote/info"),
+    ("GET", "/_cat/recovery"), ("GET", "/_cat/recovery/{index}"),
+    ("GET", "/_cat/pending_tasks"),
+)
+
+
+def test_backup_routes_are_served():
+    """The slice's 25 routes left UNPORTED_ROUTES (42 -> 17), each
+    resolving to the port handler named after the reference's; the
+    control plane's 17 stay unported."""
+    assert len(BACKUP_ROUTES) == len(set(BACKUP_ROUTES)) == 25
+    assert not set(BACKUP_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
+    assert len(port_handlers.UNPORTED_ROUTES) == 17
+    assert set(port_handlers.UNPORTED_ROUTES) == set(CONTROL_PLANE_ROUTES)
+    for method, template in BACKUP_ROUTES:
+        ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
+        handler, _ = PORT_ROUTER.resolve(method, _concrete(template))
+        assert getattr(port_handlers, _ref_name(ref_handler)) is handler
+
+
+def test_backup_steps_are_not_vacuous(transcripts):
+    """The snapshot, remote-store, reindex and rank-eval steps answered
+    what they should: each kNN after a restore, a reindex or a by-query
+    write found hits, and no deleted doc came back."""
+    def port(label):
+        return transcripts[label][1]
+
+    assert port("bk_snap_put")[1]["snapshot"]["state"] == "SUCCESS"
+    assert port("bk_snap_again")[0] == 400
+    assert port("bk_restore_rename")[1]["snapshot"]["indices"] == [
+        "restored-ecs"]
+    assert port("bk_restore_open")[0] == 400
+    assert port("bk_restore_closed")[0] == 200
+    for label in ("bk_restore_rename_knn", "bk_restore_closed_knn",
+                  "bk_rs_knn", "bk_reindex_knn", "bk_ubq_knn",
+                  "bk_dbq_knn"):
+        status, body = port(label)
+        assert status == 200 and len(body["hits"]["hits"]) == 6, label
+    assert port("bk_rs_restore")[1] == {"accepted": True,
+                                        "indices": ["vrs"]}
+    reindexed = port("bk_reindex")[1]
+    assert reindexed["created"] == reindexed["total"] > 20
+    assert reindexed["batches"] > 1
+    picked = port("bk_ubq")[1]["updated"]
+    assert picked > 0 and port("bk_dbq")[1]["deleted"] == picked
+    assert {h["_source"]["color"] for h in
+            port("bk_ubq_knn")[1]["hits"]["hits"]} == {"picked"}
+    assert "picked" not in {h["_source"]["color"] for h in
+                            port("bk_dbq_knn")[1]["hits"]["hits"]}
+    assert port("bk_rank_eval_post")[1]["metric_score"] > 0
+    assert port("bk_rank_eval_bad")[0] == 400

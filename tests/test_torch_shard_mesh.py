@@ -281,6 +281,52 @@ def test_evictions_invalidations_clear_and_reset_stats():
     assert st["resident_bundles"] == 0
 
 
+def test_invalidate_index_drops_bundles_holding_its_engines():
+    """A search over several indices keys its bundle by the first index's
+    name: invalidating another of them by its engine ids drops it too."""
+    reg = ShardMeshRegistry(hbm_budget_bytes=0)
+    own, multi, other = (_Bundle(100, "a"), _Bundle(200, "a"),
+                         _Bundle(50, "c"))
+    reg.put(_key("a", [1]), own)
+    reg.put(_key("a", [1, 2]), multi)
+    reg.put(_key("c", [3]), other)
+    assert reg.invalidate_index("b", engine_ids=[2]) == 1
+    assert multi.allocation.freed_reason == "invalidated"
+    assert own.allocation.freed is False and other.allocation.freed is False
+    assert reg.resident_bytes() == 150
+    reg.clear()
+
+
+def test_deleting_an_index_releases_a_multi_index_bundle(tmp_path):
+    """A kNN over two indices is one stacked launch over both indices'
+    shards, its bundle keyed by the first index's name; deleting the
+    second index releases that bundle (its columns are gone), and the
+    first index's own bundle stays."""
+    node = TorchNode(tmp_path, device="cpu")
+    for name, seed in (("a", 0), ("b", 1)):
+        node.create_index(name, _body(1))
+        node.bulk([(op, {**meta, "_index": name}, src)
+                   for op, meta, src in _docs(32, seed)], refresh=True)
+    registry = distributed_serving.registry
+    q = _knn([0.2] * DIMS)
+    node.search("a", q)
+    node.search("a,b", q)
+    b_engines = {sh.engine.instance_id
+                 for sh in node.indices["b"].shards.values()}
+    held = [k for k in registry._bundles if b_engines & set(k[3])]
+    assert len(held) == 1 and held[0][0] == "a"
+    multi_bytes = registry._bundles[held[0]].nbytes
+    resident = default_ledger.resident_bytes()
+    own = [k for k in registry._bundles if k[0] == "a" and k not in held]
+    node.delete_index("b")
+    assert not [k for k in registry._bundles if b_engines & set(k[3])]
+    assert [k for k in registry._bundles if k[0] == "a"] == own
+    b_columns = resident - default_ledger.resident_bytes() - multi_bytes
+    assert b_columns > 0
+    assert _hits(node.search("a", q)) == _hits(node.search("a", q))
+    node.close()
+
+
 def test_the_references_registry_counters_match_on_one_trace(tmp_path):
     """The same searches on both nodes leave the same registry counters
     (builds, hits, launches, evictions, resident bundles)."""

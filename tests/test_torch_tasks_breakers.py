@@ -377,7 +377,7 @@ def test_http_in_flight_breaker_is_released_on_every_path(node):
         assert breaker.used == 0
         assert c("POST", "/s3/_search", {"query": {"nope": {}}})[0] == 400
         assert breaker.used == 0
-        assert c("POST", "/_reindex", {"source": {}})[0] == 500
+        assert c("GET", "/_cluster/state")[0] == 500
         assert breaker.used == 0
         lines = []
         for i in range(32):
