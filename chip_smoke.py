@@ -3,7 +3,7 @@
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
                                     hybrid,large,lexical,aggs,dsl,mesh,
-                                    contexts,ops,admin]
+                                    contexts,ops,admin,backup,cluster]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -226,8 +226,9 @@ Then:
    _msearch of 32 in one K1 launch; 8 HTTP clients x 8 searches on the
    stacked step and the per-shard route, each its solo search's bits;
    "profile": true of the in-process profile's shape with its K1 launch's
-   device_time_in_nanos > 0; GET /_cluster/pending_tasks and GET
-   /_cat/recovery the 500 "not yet ported" envelope on a connection that then serves a search;
+   device_time_in_nanos > 0; a create-index key the port does not serve
+   the 500 "not yet ported" envelope, and GET /_cluster/pending_tasks and
+   GET /_cat/recovery 200, on a connection that then serves a search;
    and the in-process p50 with the profiler's hooks and without.
    ``--phases rest`` builds index A and runs this phase alone.
    Every concurrent (gated) check, of K1's paths and of index C's IVF-PQ
@@ -438,6 +439,31 @@ library calls, logged as `large record` lines.
    index C's queries: each metric_score the search's recall@10, 8 K2
    launches. ``--phases backup`` builds cell A and the ops phase's
    indices on a fresh node and runs it alone.
+14. cluster (with main, last of all, on nodes of its own; cluster_phase):
+   the cluster's core in this process. Three ClusterNodes (n0-n2) on one
+   deterministic sim (testing/sim.py: virtual time, an in-memory
+   transport that can isolate a node and heal), each on the card; index
+   vecs of 3 shards and 1 replica holds CLUSTER_DOCS 128-d l2 docs from
+   --seed, bulked through n0 in batches of 1,000 and refreshed. 16 kNN at
+   k = 10 and 16 at k = 100 through n1: the brute force's ids, scores
+   within the f32 bound, _shards.failed 0, K1 up by the node partials of
+   each search (one search[node] RPC a node holding a chosen copy, 1-3),
+   no per-shard fallback, and each serving node building its stacked
+   bundle at most once. The same searches again after the isolation of
+   the node holding shard 0's primary and the replica's promotion (a
+   search before the promotion logs its _shards), after the heal and the
+   rejoined node's peer recovery (green), after n1's drain by
+   cluster.routing.allocation.exclude._name (n1 holds no shard, no
+   resident bundle holds one of its old engines), and on vecs-restored
+   (ClusterSnapshotsService's snapshot and restore, k = 10). Then a
+   cross-cluster kNN c2:remote-vecs from a local TorchNode to a remote
+   one behind the HTTP server (CLUSTER_REMOTE_DOCS docs): the remote's
+   own hits, one K1 launch each; and the 17 control-plane routes over
+   HTTP on a small single node: 200, the reference's keys, no launch.
+   At most 45 s. ``--phases cluster`` runs it alone.
+
+Before each phase, a line names it and the wall seconds so far, so a run
+that fails names the phase it died in before the traceback.
 
 Prints the card's name and power limit, one JSON line of kernel numbers,
 and last `{"ok": true, "device": {...}}`; logs each phase's wall seconds. Exits non-zero, with no result
@@ -450,6 +476,7 @@ import argparse
 import functools
 import json
 import math
+import pathlib
 import subprocess
 import sys
 import tempfile
@@ -3396,10 +3423,11 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
        merged batch beside concurrent_phase's in-process figures;
     6. "profile": true: the operator tree of the in-process profile's
        shape, the K1 launch's device_time_in_nanos > 0;
-    7. GET /_cluster/pending_tasks and GET /_cat/recovery answer the 500
-       envelope with
-       their "not yet ported" reason, and the next search on the same
-       connection succeeds.
+    7. PUT of an index with a create-index key the port does not serve
+       answers the 500 envelope with its "not yet ported" reason, GET
+       /_cluster/pending_tasks and GET /_cat/recovery?format=json answer
+       200 (the single node's control plane), and after each the next
+       search on the same connection succeeds.
     Then DELETE /rest_b, whose stacked slabs must leave the registry. Also
     the in-process p50 at cell A with the profiler's hooks and without
     them (the decorated entry points swapped for the functions they
@@ -3633,25 +3661,33 @@ def rest_main_phase(node, kf, queries: np.ndarray, data_b: np.ndarray,
         log(f"[sift_a] profile over HTTP has the in-process shape; the K1 "
             f"launch: device_time_in_nanos {device_ns}")
 
-        # 7. not yet ported, then the same connection serves a search
+        # 7. not yet ported, then the same connection serves a search; the
+        # control plane answers 200 on it
         envelopes = {}
-        for method, path, req in (
-                ("GET", "/_cluster/pending_tasks", None),
-                ("GET", "/_cat/recovery", None)):
+        for method, path, req, want in (
+                ("PUT", "/rest_x", {"bogus": {}}, 500),
+                ("GET", "/_cluster/pending_tasks", None, 200),
+                ("GET", "/_cat/recovery?format=json", None, 200)):
             status, payload = client(method, path, req)
-            reason = (payload or {}).get("error", {}).get("reason", "")
-            if status != 500 or payload.get("status") != 500 or \
-                    "is not yet ported to opensearch_tpu_torch" not in reason:
+            if want == 500:
+                reason = (payload or {}).get("error", {}).get("reason", "")
+                if status != 500 or payload.get("status") != 500 or \
+                        "is not yet ported to opensearch_tpu_torch" \
+                        not in reason:
+                    raise AssertionError(f"{method} {path}: HTTP {status} "
+                                         f"{payload}")
+                envelopes[f"{method} {path}"] = reason
+            elif status != 200:
                 raise AssertionError(f"{method} {path}: HTTP {status} "
                                      f"{payload}")
-            envelopes[f"{method} {path}"] = reason
             after = client.ok("POST", "/sift_a/_search", {"query": {"knn": {
                 "v": {"vector": queries[1].tolist(), "k": 10}}}})
             if not after["hits"]["hits"]:
-                raise AssertionError("no search after a 500")
+                raise AssertionError(f"no search after {method} {path}")
         out["not_yet_ported"] = envelopes
-        log(f"not yet ported over HTTP: {envelopes}; the connection serves "
-            f"the next search")
+        log(f"not yet ported over HTTP: {envelopes}; GET /_cluster/"
+            f"pending_tasks and /_cat/recovery 200; the connection serves "
+            f"the next search after each")
 
         client.ok("DELETE", "/rest_b")
         if any(key[0] == "rest_b"
@@ -10910,6 +10946,494 @@ def dsl_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the cluster's core: three sim nodes in this process (cluster phase)
+# --------------------------------------------------------------------------
+
+CLUSTER_DOCS = 10_000         # index vecs (cut from SIFT-1M by the phase's
+                              # 45 s: at 20,000 it took 44.6 on the card)
+CLUSTER_BATCH = 1_000         # docs a bulk through n0
+CLUSTER_QUERIES = 16          # kNN a k (10 and 100) a stage
+CLUSTER_REMOTE_DOCS = 2_000   # the cross-cluster remote's index
+CLUSTER_DISK_PCT = 50.0       # each sim node's disk reading (see below)
+# (method, path, body, top-level keys of the reference's answer): the 17
+# control-plane routes of the single node; a _cat table's str is its first
+# line (the pending-task queue of a single node is always empty)
+CONTROL_PLANE_CALLS = (
+    ("GET", "/_cluster/state", None,
+     {"cluster_name", "cluster_uuid", "state_uuid", "version", "master_node",
+      "cluster_manager_node", "nodes", "blocks", "metadata",
+      "routing_table", "routing_nodes"}),
+    ("GET", "/_cluster/state/metadata,routing_table", None,
+     {"cluster_name", "cluster_uuid", "state_uuid", "metadata",
+      "routing_table"}),
+    ("GET", "/_cluster/state/metadata/cp", None,
+     {"cluster_name", "cluster_uuid", "state_uuid", "metadata"}),
+    ("GET", "/_cluster/pending_tasks", None, {"tasks"}),
+    ("POST", "/_cluster/voting_config_exclusions?node_names=node-1", None,
+     set()),
+    ("DELETE", "/_cluster/voting_config_exclusions", None, set()),
+    ("POST", "/_cluster/reroute?explain=true", {"commands": [{"move": {
+        "index": "cp", "shard": 0, "from_node": "node-0",
+        "to_node": "node-1"}}]}, {"acknowledged", "state", "explanations"}),
+    ("GET", "/_cluster/allocation/explain", None,
+     {"index", "shard", "primary", "current_state", "unassigned_info",
+      "can_allocate", "allocate_explanation", "node_allocation_decisions"}),
+    ("POST", "/_cluster/allocation/explain",
+     {"index": "cp", "shard": 1, "primary": True},
+     {"index", "shard", "primary", "current_state", "current_node",
+      "can_remain_on_current_node", "can_rebalance_cluster",
+      "can_rebalance_to_other_node", "rebalance_explanation"}),
+    ("GET", "/_shard_stores", None, {"indices"}),
+    ("GET", "/cp/_shard_stores", None, {"indices"}),
+    ("GET", "/_recovery", None, {"cp"}),
+    ("GET", "/cp/_recovery", None, {"cp"}),
+    ("GET", "/_remote/info", None, set()),
+    ("GET", "/_cat/recovery?v=true", None, "index shard time type stage"),
+    ("GET", "/_cat/recovery/cp?v=true", None,
+     "index shard time type stage"),
+    ("GET", "/_cat/pending_tasks?v=true", None, ""),
+)
+
+
+class _Sim:
+    """Three ClusterNodes on one deterministic sim queue, on `dev`; every
+    message the transport carries counted by action."""
+
+    def __init__(self, path, dev):
+        from opensearch_tpu_torch.cluster.cluster_node import ClusterNode
+        from opensearch_tpu_torch.testing.sim import (DeterministicTaskQueue,
+                                                      MockTransport)
+
+        self.queue = DeterministicTaskQueue(24)
+        self.transport = MockTransport(self.queue, timeout_ms=400)
+        self.sends: dict[str, int] = {}
+        self.partial_targets: list[str] = []   # each search[node]'s node
+        send = self.transport.send
+
+        def counted(sender, target, action, *a, **kw):
+            self.sends[action] = self.sends.get(action, 0) + 1
+            if action == "indices:data/read/search[node]":
+                self.partial_targets.append(target)
+            return send(sender, target, action, *a, **kw)
+
+        self.transport.send = counted
+        self.node_ids = ["n0", "n1", "n2"]
+        self.nodes = {}
+        for nid in self.node_ids:
+            node = ClusterNode(nid, path / nid, self.transport, self.queue,
+                               self.node_ids, device=dev)
+            # the disk-threshold decider reads this node's disk through its
+            # fs probe; the sim's three nodes share one host disk, whose
+            # fill is not the cluster's, so each reads a fixed 50%
+            node.disk_usage_pct = CLUSTER_DISK_PCT
+            self.nodes[nid] = node
+        for node in self.nodes.values():
+            node.bootstrap(self.node_ids)
+        for node in self.nodes.values():
+            node.start()
+
+    def run(self, ms: int) -> None:
+        self.queue.run_until(self.queue.now_ms + ms)
+
+    def call(self, fn, *args, **kw):
+        out = []
+        fn(*args, callback=out.append, **kw)
+        for _ in range(1_000_000):
+            if out:
+                return out[0]
+            if not self.queue.run_one():
+                break
+        raise AssertionError(f"{getattr(fn, '__name__', fn)}: no response")
+
+    def leader(self):
+        leaders = [n for nid, n in self.nodes.items()
+                   if nid not in self.transport.down and n.is_leader]
+        if len(leaders) != 1:
+            raise AssertionError(f"{len(leaders)} leaders")
+        return leaders[0]
+
+    def copies(self, index: str) -> list:
+        return sorted((r.shard, r.node_id or "", r.primary, r.state)
+                      for r in self.leader().applied_state.shards_for_index(
+                          index))
+
+    def green(self, index: str, want: int) -> bool:
+        """`want` copies of `index`, all STARTED, as the one leader sees
+        them (False while two nodes still lead, as after a heal)."""
+        if sum(n.is_leader for nid, n in self.nodes.items()
+               if nid not in self.transport.down) != 1:
+            return False
+        copies = self.copies(index)
+        return len(copies) == want and all(
+            node and st == "STARTED" for _s, node, _p, st in copies)
+
+    def settle(self, ok, what: str, step_ms: int = 5_000,
+               steps: int = 40) -> int:
+        """Run the sim until ok() holds; returns the virtual ms it took."""
+        for i in range(steps):
+            if ok():
+                return i * step_ms
+            self.run(step_ms)
+        if ok():
+            return steps * step_ms
+        raise AssertionError(f"{what}: not reached in {steps * step_ms} "
+                             f"virtual ms")
+
+    def put_transient(self, transient: dict) -> None:
+        leader = self.leader()
+        out = []
+        self.transport.send(
+            leader.node_id, leader.node_id, "cluster:admin/settings/update",
+            {"transient": transient}, on_response=out.append,
+            on_failure=lambda e: out.append({"error": str(e)}))
+        for _ in range(10_000):
+            if out:
+                break
+            self.queue.run_one()
+        if not out or "error" in out[0]:
+            raise AssertionError(f"cluster settings update: {out}")
+
+    def close(self) -> None:
+        for node in self.nodes.values():
+            node.close()
+
+
+def cluster_knn_stage(sim, kf, via: str, label: str, index: str,
+                      data: np.ndarray, queries: np.ndarray, truth: dict,
+                      dev, ks=(10, 100), allow_failed: bool = False) -> dict:
+    """CLUSTER_QUERIES bare kNN at each k through `via`: each one's hits the
+    brute force's ids in order, each score within the f32 bound of its
+    doc's f64 score, `_shards.failed` 0, and on the card K1's launch
+    counter up by the search's node partials (search[node] RPCs, 1-3) and
+    no search[shard] fallback. Each node serving partials builds its
+    stacked bundle at most once in the stage (a shard leaving a node drops
+    every node's bundle of the index, shard_mesh.invalidate_index, so
+    after a node loss or a drain each rebuilds once). Returns the stage's
+    counts and walls."""
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+
+    node = sim.nodes[via]
+    out = {"searches": 0, "node_partials": 0, "launches": 0, "failed": 0,
+           "builds": 0, "worst_abs_err": 0.0}
+    walls = []
+    builds0 = default_registry.stats["builds"]
+    targets0 = len(sim.partial_targets)
+    for k in ks:
+        for qi, q in enumerate(queries):
+            before = (kf.launches.count,
+                      sim.sends.get("indices:data/read/search[node]", 0),
+                      sim.sends.get("indices:data/read/search[shard]", 0))
+            t0 = time.perf_counter()
+            resp = sim.call(node.search, index, {
+                "query": {"knn": {"v": {"vector": q.tolist(), "k": k}}},
+                "size": k})
+            walls.append(time.perf_counter() - t0)
+            launches = kf.launches.count - before[0]
+            partials = (sim.sends.get("indices:data/read/search[node]", 0)
+                        - before[1])
+            fallback = (sim.sends.get("indices:data/read/search[shard]", 0)
+                        - before[2])
+            if "error" in resp:
+                raise AssertionError(f"[{label}] k={k} query {qi}: {resp}")
+            failed = resp["_shards"]["failed"]
+            if failed and not allow_failed:
+                raise AssertionError(f"[{label}] k={k} query {qi}: "
+                                     f"_shards {resp['_shards']}")
+            out["failed"] += failed
+            hits = resp["hits"]["hits"]
+            got = [h["_id"] for h in hits]
+            if got != truth[k][qi]:
+                raise AssertionError(f"[{label}] k={k} query {qi}: {got} != "
+                                     f"brute force {truth[k][qi]}")
+            rows = torch.from_numpy(data[[int(i) for i in got]]).to(dev)
+            qt = torch.from_numpy(q).to(dev)
+            lo, hi = f32_score_bounds(
+                kf, rows.double(), qt.double(),
+                kr.plain_query_sq(qt[None])[0].double(),
+                (rows.double() ** 2).sum(1).float().double(), "l2_norm")
+            scores = torch.tensor([h["_score"] for h in hits],
+                                  dtype=torch.float64, device=dev)
+            bad = (scores < lo) | (scores > hi)
+            if bool(bad.any()):
+                j = int(bad.nonzero()[0])
+                raise AssertionError(
+                    f"[{label}] k={k} query {qi}: hit {got[j]} score "
+                    f"{float(scores[j])!r} outside its f32 bound "
+                    f"[{float(lo[j])!r}, {float(hi[j])!r}]")
+            exact = 1.0 / (1.0 + ((rows.double() - qt.double()) ** 2).sum(1))
+            out["worst_abs_err"] = max(out["worst_abs_err"], float(
+                (scores - exact).abs().max()))
+            if dev.type == "cuda":
+                if fallback or not 1 <= partials <= 3 \
+                        or launches != partials:
+                    raise AssertionError(
+                        f"[{label}] k={k} query {qi}: {launches} K1 "
+                        f"launches for {partials} node partials "
+                        f"({fallback} per-shard fallbacks)")
+            out["searches"] += 1
+            out["node_partials"] += partials
+            out["launches"] += launches
+    out["builds"] = default_registry.stats["builds"] - builds0
+    out["serving_nodes"] = sorted(set(sim.partial_targets[targets0:]))
+    if not 1 <= out["builds"] <= len(out["serving_nodes"]):
+        raise AssertionError(f"[{label}] {out['builds']} bundle builds on "
+                             f"{out['serving_nodes']}")
+    out["search_ms"] = latency_summary(walls)
+    log(f"[cluster {label}] {out['searches']} kNN through {via} equal the "
+        f"brute force: {json.dumps(out)}")
+    return out
+
+
+def cluster_phase(kf, dev, seed: int, n_docs: int = CLUSTER_DOCS,
+                  remote_docs: int = CLUSTER_REMOTE_DOCS) -> dict:
+    """The cluster's core in one process (``--phases cluster``; last of
+    all by default, on nodes of its own)."""
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+    from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.rest.http import HttpServer
+    from opensearch_tpu_torch.snapshots.service import ClusterSnapshotsService
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 240)
+    data = rng.standard_normal((n_docs, DIM)).astype(np.float32)
+    queries = rng.standard_normal((CLUSTER_QUERIES, DIM)).astype(np.float32)
+    ids = [str(i) for i in range(n_docs)]
+    truth = {k: brute_ids(kf, data, queries, k, ids, dev) for k in (10, 100)}
+    out: dict = {"docs": n_docs}
+    # wall seconds of each part of the phase
+    parts = out["parts_s"] = {"truth": time.perf_counter() - t_phase}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        sim = _Sim(tmp / "sim", dev)
+        try:
+            sim.run(5_000)
+            leader = sim.leader()
+            log(f"[cluster] 3 sim nodes on {dev}, leader {leader.node_id}")
+            resp = sim.call(sim.nodes["n0"].create_index, "vecs", {
+                "settings": {"index": {
+                    "number_of_shards": 3, "number_of_replicas": 1,
+                    # the translog syncs at its interval, not at each
+                    # write: an fsync a doc on the primary and on the
+                    # replica would be most of the ingest, and no gate
+                    # reads the disk
+                    "translog": {"durability": "async"}}},
+                "mappings": {"properties": {"v": {
+                    "type": "knn_vector", "dimension": DIM,
+                    "similarity": "l2_norm"}}}})
+            if not resp.get("acknowledged"):
+                raise AssertionError(f"create [vecs]: {resp}")
+            sim.settle(lambda: sim.green("vecs", 6), "[vecs] green")
+            parts["sim_boot"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for lo in range(0, n_docs, CLUSTER_BATCH):
+                resp = sim.call(sim.nodes["n0"].bulk, [
+                    ("index", {"_index": "vecs", "_id": str(i)},
+                     {"v": data[i].tolist()})
+                    for i in range(lo, min(lo + CLUSTER_BATCH, n_docs))])
+                if resp.get("errors") or "error" in resp:
+                    raise AssertionError(f"bulk into [vecs]: "
+                                         f"{str(resp)[:300]}")
+            sim.call(sim.nodes["n0"].refresh, "vecs")
+            sim.run(1_000)
+            out["ingest_s"] = time.perf_counter() - t0
+            out["ingest_us_a_doc"] = out["ingest_s"] / n_docs * 1e6
+            counts = {nid: sum(sh.num_docs for (idx, _s), sh
+                               in node.local_shards.items() if idx == "vecs")
+                      for nid, node in sim.nodes.items()}
+            if sum(counts.values()) != 2 * n_docs:
+                raise AssertionError(f"[vecs] copies hold {counts} docs, not "
+                                     f"2 x {n_docs}")
+            log(f"[cluster] ingest of {n_docs} docs (3 shards, 1 replica) "
+                f"through n0 in bulks of {CLUSTER_BATCH}: "
+                f"{out['ingest_s']:.2f} s, {out['ingest_us_a_doc']:.1f} us a "
+                f"doc; docs a node {counts}")
+            stage = functools.partial(cluster_knn_stage, sim, kf, data=data,
+                                      queries=queries, truth=truth, dev=dev)
+            out["green"] = stage("n1", "green", "vecs")
+
+            # node loss: the node holding shard 0's primary is isolated
+            lost = sim.leader().applied_state.primary("vecs", 0).node_id
+            others = set(sim.node_ids) - {lost}
+            via = "n1" if lost != "n1" else "n0"
+            sim.transport.isolate(lost, others)
+            early = sim.call(sim.nodes[via].search, "vecs", {"query": {"knn": {
+                "v": {"vector": queries[0].tolist(), "k": 10}}}, "size": 10})
+            out["failed_before_promotion"] = early.get("_shards")
+            log(f"[cluster] {lost} isolated; a search through {via} before "
+                f"the promotion: _shards {early.get('_shards')}")
+
+            def promoted() -> bool:
+                live = [n for nid, n in sim.nodes.items()
+                        if nid in others and n.is_leader]
+                if len(live) != 1:
+                    return False
+                p = live[0].applied_state.primary("vecs", 0)
+                return p is not None and p.node_id in others \
+                    and p.state == "STARTED"
+
+            out["promotion_virtual_ms"] = sim.settle(
+                promoted, "shard 0's replica promoted", step_ms=1_000)
+            out["promoted"] = stage(via, "promoted", "vecs")
+
+            # heal: the node rejoins and its copies recover from the
+            # primaries (ops-based peer recovery)
+            sim.transport.heal()
+            out["recovery_virtual_ms"] = sim.settle(
+                lambda: sim.green("vecs", 6), "[vecs] green after heal")
+            stages = sorted({(k, getattr(p, "stage", None))
+                             for n in sim.nodes.values()
+                             for k, p in n.recoveries.items()
+                             if k[0] == "vecs"})
+            out["recoveries"] = [f"{k[0]}[{k[1]}] {st}" for k, st in stages]
+            log(f"[cluster] healed: green in {out['recovery_virtual_ms']} "
+                f"virtual ms; recoveries {out['recoveries']}")
+            sim.call(sim.nodes["n0"].refresh, "vecs")
+            sim.run(1_000)
+            out["healed"] = stage("n1", "healed", "vecs")
+
+            # drain n1 by allocation filter
+            old_engines = {sh.engine.instance_id for (idx, _s), sh
+                           in sim.nodes["n1"].local_shards.items()
+                           if idx == "vecs"}
+            sim.put_transient(
+                {"cluster.routing.allocation.exclude._name": "n1"})
+
+            def drained() -> bool:
+                return sim.green("vecs", 6) and not any(
+                    node == "n1" for _s, node, _p, _st in sim.copies("vecs")) \
+                    and not any(idx == "vecs" for idx, _s
+                                in sim.nodes["n1"].local_shards)
+
+            out["drain_virtual_ms"] = sim.settle(drained, "n1 drained")
+            out["drained"] = stage("n1", "drained", "vecs")
+            with default_registry._lock:
+                stale = [k for k in default_registry._bundles
+                         if set(k[3]) & old_engines]
+            if stale:
+                raise AssertionError(f"bundles still hold n1's old engines: "
+                                     f"{stale}")
+            log(f"[cluster] n1 drained in {out['drain_virtual_ms']} virtual "
+                f"ms: it holds no shard, and no resident bundle holds one of "
+                f"its {len(old_engines)} old engines")
+
+            # snapshot and restore under another name
+            svc = ClusterSnapshotsService(sim.nodes["n0"], tmp / "snaprepo")
+            t0 = time.perf_counter()
+            resp = sim.call(svc.create, "snap1", "vecs")
+            if resp.get("state") != "SUCCESS" or resp.get("docs") != n_docs:
+                raise AssertionError(f"snapshot [vecs]: {resp}")
+            resp = sim.call(svc.restore, "snap1", "vecs-restored")
+            if resp.get("state") != "SUCCESS" or resp.get("docs") != n_docs:
+                raise AssertionError(f"restore [vecs-restored]: {resp}")
+            sim.run(2_000)
+            sim.call(sim.nodes["n1"].refresh, "vecs-restored")
+            sim.run(1_000)
+            out["snapshot_restore_s"] = time.perf_counter() - t0
+            out["restored"] = stage("n1", "restored", "vecs-restored",
+                                    ks=(10,))
+        finally:
+            t0 = time.perf_counter()
+            sim.close()
+            parts["sim_close"] = time.perf_counter() - t0
+        parts["searches"] = sum(
+            out[s]["searches"] / out[s]["search_ms"]["qps"] for s in
+            ("green", "promoted", "healed", "drained", "restored"))
+        t0 = time.perf_counter()
+
+        # cross-cluster kNN: a remote TorchNode behind the HTTP server
+        remote = TorchNode(tmp / "remote", device=dev)
+        local = TorchNode(tmp / "local", device=dev)
+        srv = HttpServer(remote, "127.0.0.1", 0)
+        srv.start_in_thread()
+        try:
+            _bulk_index(remote, "remote-vecs", data[:remote_docs], 2)
+            local.put_cluster_settings({"persistent": {"cluster": {"remote": {
+                "c2": {"seeds": f"127.0.0.1:{srv.port}"}}}}})
+            fed_launches = []
+            for qi, q in enumerate(queries[:8]):
+                body = {"query": {"knn": {"v": {"vector": q.tolist(),
+                                                "k": 10}}}, "size": 10}
+                before = kf.launches.count
+                fed = local.search("c2:remote-vecs", body)
+                fed_launches.append(kf.launches.count - before)
+                own = remote.search("remote-vecs", body)
+                got = [(h["_id"], h["_score"]) for h in fed["hits"]["hits"]]
+                want = [(h["_id"], h["_score"]) for h in own["hits"]["hits"]]
+                if got != want or {h["_index"] for h in fed["hits"]["hits"]} \
+                        != {"c2:remote-vecs"}:
+                    raise AssertionError(f"[c2:remote-vecs] query {qi}: "
+                                         f"{got} != the remote's {want}")
+                if dev.type == "cuda" and fed_launches[-1] != 1:
+                    raise AssertionError(f"[c2:remote-vecs] query {qi}: "
+                                         f"{fed_launches[-1]} K1 launches")
+            out["cross_cluster_launches"] = fed_launches
+            log(f"[cluster] cross-cluster kNN c2:remote-vecs: 8 searches "
+                f"equal the remote's own, K1 launches {fed_launches}")
+        finally:
+            srv.stop_thread()
+            remote.close()
+            local.close()
+        parts["cross_cluster"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        # the 17 control-plane routes over HTTP on a small single node
+        single = TorchNode(tmp / "single", device=dev)
+        srv = HttpServer(single, "127.0.0.1", 0)
+        srv.start_in_thread()
+        try:
+            single.create_index("cp", {
+                "settings": {"number_of_shards": 2, "number_of_replicas": 1},
+                "mappings": {"properties": {"v": {
+                    "type": "knn_vector", "dimension": DIM}}}})
+            single.bulk([("index", {"_index": "cp", "_id": str(i)},
+                          {"v": data[i].tolist()}) for i in range(200)])
+            single.refresh("cp")
+            before = _launch_counts()
+            import http.client
+
+            conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                              timeout=60)
+            for method, path, body, keys in CONTROL_PLANE_CALLS:
+                conn.request(method, path,
+                             body=None if body is None else json.dumps(body),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                raw = resp.read()
+                if resp.status != 200:
+                    raise AssertionError(f"{method} {path}: {resp.status} "
+                                         f"{raw[:300]!r}")
+                if isinstance(keys, str):
+                    first = " ".join(raw.decode().split("\n")[0].split())
+                    if not first.startswith(keys):
+                        raise AssertionError(f"{method} {path}: {raw[:200]!r}")
+                    continue
+                got = set(json.loads(raw))
+                if got != keys:
+                    raise AssertionError(f"{method} {path}: keys "
+                                         f"{sorted(got)} != {sorted(keys)}")
+            conn.close()
+            moved = {key: n - before[key] for key, n in _launch_counts().items()
+                     if n != before[key]}
+            if moved:
+                raise AssertionError(f"the control plane launched {moved}")
+            log(f"[cluster] the 17 control-plane routes over HTTP: "
+                f"{len(CONTROL_PLANE_CALLS)} calls answer 200 with the "
+                f"reference's keys, no kernel launched")
+        finally:
+            srv.stop_thread()
+            single.close()
+        parts["control_plane"] = time.perf_counter() - t0
+    out["launches"] = sum(out[s]["launches"] for s in
+                          ("green", "promoted", "healed", "drained",
+                           "restored")) + sum(out["cross_cluster_launches"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[cluster] record: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -10944,6 +11468,14 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
     dev = torch.device("cuda", 0)
+    t_run = time.perf_counter()
+
+    def phase_start(name: str) -> None:
+        # on its own line before the phase: a run that fails names the
+        # phase it died in before the traceback
+        log(f"phase {name} starts at {time.perf_counter() - t_run:.1f} s")
+
+    phase_start("build")
     t0 = time.perf_counter()
     # one nvcc per source, all started together
     with ThreadPoolExecutor(len(KERNELS)) as pool:
@@ -11068,6 +11600,7 @@ def main() -> int:
         "lists": designs["lists"].replace("r <= 32", "k <= 32"),
         "wide": designs["wide"].replace("32 < r", "32 < k")}
     if "kernel" in phases:
+        phase_start("kernel")
         t0 = time.perf_counter()
         if "knn_fused" in chosen:
             entry["max_abs_err"] = max(kernel_phase(kf, dev, args.seed),
@@ -11112,6 +11645,7 @@ def main() -> int:
             family[name]["max_abs_err"] = e
         phase_s["kernel"] = time.perf_counter() - t0
     if "timing" in phases:
+        phase_start("timing")
         t0 = time.perf_counter()
         if "knn_fused" in chosen:
             t = timing_phase(kf, dev, args.seed)
@@ -11184,6 +11718,7 @@ def main() -> int:
                     e[f"b{b}"] = t3n[b]
         phase_s["timing"] = time.perf_counter() - t0
     if "large" in phases:
+        phase_start("large")
         # the large-r tier's checks and records alone (the quick loop)
         t0 = time.perf_counter()
         large_kernels(kf, dev, args.seed, entry, large_mma_entry,
@@ -11198,6 +11733,7 @@ def main() -> int:
 
         roofline.default_recorder.reset()
         telemetry_since = telemetry_counters()
+        phase_start("main")
         t0 = time.perf_counter()
         main = main_path_phase(kf, dev, args.seed)
         entry["launches"] = main["launches"]
@@ -11290,6 +11826,7 @@ def main() -> int:
         phase_s["admin"] = main["admin"]["wall_s"]
         phase_s["backup"] = main["backup"]["wall_s"]
     elif "filtered" in phases:
+        phase_start("filtered")
         t0 = time.perf_counter()
         fp = filtered_phase(kf, dev, args.seed)
         entry["filtered_main_path"] = fp["filtered"]
@@ -11304,10 +11841,12 @@ def main() -> int:
             for res in fp["large"].values())
         phase_s["filtered"] = time.perf_counter() - t0
     elif "rest" in phases:
+        phase_start("rest")
         t0 = time.perf_counter()
         entry["rest_main_path"] = rest_phase(kf, dev, args.seed)
         phase_s["rest"] = time.perf_counter() - t0
     elif "ops" in phases:
+        phase_start("ops")
         t0 = time.perf_counter()
         ops = ops_phase(kf, dev, args.seed)
         entry["ops_main_path"] = ops
@@ -11317,6 +11856,7 @@ def main() -> int:
         phase_s["ops"] = ops["wall_s"]
         phase_s["ops_node"] = time.perf_counter() - t0 - ops["wall_s"]
     elif "admin" in phases:
+        phase_start("admin")
         t0 = time.perf_counter()
         adm = admin_phase(kf, dev, args.seed)
         entry["admin_main_path"] = adm
@@ -11325,6 +11865,7 @@ def main() -> int:
         phase_s["admin"] = adm["wall_s"]
         phase_s["admin_node"] = time.perf_counter() - t0 - adm["wall_s"]
     elif "backup" in phases:
+        phase_start("backup")
         t0 = time.perf_counter()
         bk = backup_phase(kf, dev, args.seed)
         entry["backup_main_path"] = bk
@@ -11333,6 +11874,7 @@ def main() -> int:
         phase_s["backup"] = bk["wall_s"]
         phase_s["backup_node"] = time.perf_counter() - t0 - bk["wall_s"]
     elif "contexts" in phases:
+        phase_start("contexts")
         t0 = time.perf_counter()
         ctx = contexts_phase(kf, dev, args.seed)
         entry["contexts_main_path"] = ctx
@@ -11344,6 +11886,7 @@ def main() -> int:
     if phases & {"main", "lexical"}:
         # the lexical query phase on index L: its kNN types' K1 launches,
         # each type's counted from 0
+        phase_start("lexical")
         t0 = time.perf_counter()
         lexical = lexical_main_phase(kf, dev, args.seed, aggs=want_aggs,
                                      dsl=want_dsl)
@@ -11369,9 +11912,11 @@ def main() -> int:
     else:
         # each alone builds its own index L
         if "aggs" in phases:
+            phase_start("aggs")
             aggs = aggs_phase(kf, dev, args.seed)
             phase_s["aggs"] = aggs["wall_s"]
         if "dsl" in phases:
+            phase_start("dsl")
             dsl = dsl_phase(kf, dev, args.seed)
             phase_s["dsl"] = dsl["wall_s"]
     if want_aggs:
@@ -11391,16 +11936,19 @@ def main() -> int:
         if entry["launches"] is None:
             entry["launches"] = sum(entry["dsl_launches"].values())
     if "main" in phases:
+        phase_start("telemetry")
         t0 = time.perf_counter()
         telemetry = telemetry_phase(dev, telemetry_since)
         log(f"telemetry record: {json.dumps(telemetry)}")
         phase_s["telemetry"] = time.perf_counter() - t0
     if phases & {"main", "hybrid"}:
+        phase_start("hybrid")
         t0 = time.perf_counter()
         hybrid = hybrid_main_phase(dev, args.seed)
         log(f"hybrid program record: {json.dumps(hybrid)}")
         phase_s["hybrid"] = time.perf_counter() - t0
     if phases & {"main", "mesh"}:
+        phase_start("mesh")
         t0 = time.perf_counter()
         mesh = mesh_phase(kf, dev, args.seed)
         # the dry run's stacked search: K1's launches, counted from 0
@@ -11409,6 +11957,20 @@ def main() -> int:
             entry["launches"] = mesh["dryrun_k1_launches"]
         log(f"mesh record: {json.dumps(mesh)}")
         phase_s["mesh"] = time.perf_counter() - t0
+    if phases & {"main", "cluster"}:
+        # last of all, on three sim nodes and two TorchNodes of its own:
+        # the ClusterNodes write the process-wide batcher's, recorder's
+        # and settings consumers' state, so nothing earlier reads it
+        phase_start("cluster")
+        t0 = time.perf_counter()
+        cluster = cluster_phase(kf, dev, args.seed)
+        # K1's launches of the phase: every node partial of its 144 kNN
+        # and the cross-cluster remote's 8
+        entry["cluster_launches"] = cluster["launches"]
+        entry["cluster_main_path"] = cluster
+        if entry["launches"] is None:
+            entry["launches"] = cluster["launches"]
+        phase_s["cluster"] = time.perf_counter() - t0
     log(f"phase wall seconds: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": [entry, large_mma_entry, select_entry,
                                   entry2, lut_entry,

@@ -229,12 +229,19 @@ class Engine:
         else:
             version = 1 if created else entry.version + 1
         self._delete_from_live_segments(doc_id)
+        # the source's JSON once: the translog op below is byte for byte
+        # json.dumps({"op", "id", "seq_no", "version", "source",
+        # "routing"}), and the segment stores the same text at refresh
+        parsed.source_json = json.dumps(source)
         self._buffer_put(parsed, op_seq)
         self.version_map[doc_id] = VersionEntry(op_seq, version)
-        self.translog.add(
-            {"op": "index", "id": doc_id, "seq_no": op_seq, "version": version,
-             "source": source, "routing": routing}
-        )
+        self.translog.add_payload(
+            ('{"op": "index", "id": ' + json.dumps(doc_id)
+             + ', "seq_no": ' + json.dumps(op_seq)
+             + ', "version": ' + json.dumps(version)
+             + ', "source": ' + parsed.source_json
+             + ', "routing": ' + json.dumps(routing) + '}').encode(),
+            op_seq)
         self._sync_needed = True
         self.tracker.mark_seq_no_as_processed(op_seq)
         self.stats["index_total"] += 1

@@ -243,6 +243,9 @@ class ParsedDocument:
     # value, consumed by the completion suggester's (-weight, text) ranking
     # (the reference persists weight in the FST; we persist it per segment)
     completion_weights: dict[str, dict[str, int]] = dc_field(default_factory=dict)
+    # ``json.dumps(source)``, set by the engine when it indexes the doc: the
+    # translog op and the segment's stored source share one encoding
+    source_json: str | None = None
 
 
 # epoch range guard so dates stay in int64 millis

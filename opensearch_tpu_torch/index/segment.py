@@ -279,7 +279,8 @@ class SegmentBuilder:
             name=self.name,
             n_docs=n,
             doc_ids=[d.doc_id for d in self.docs],
-            sources=[json.dumps(d.source).encode() for d in self.docs],
+            sources=[(d.source_json if d.source_json is not None
+                      else json.dumps(d.source)).encode() for d in self.docs],
             min_seq_no=min(self.seq_nos),
             max_seq_no=max(self.seq_nos),
             doc_seq_nos=np.asarray(self.seq_nos, np.int64),

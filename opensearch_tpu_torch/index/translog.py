@@ -110,7 +110,13 @@ class Translog:
     def add(self, op: dict[str, Any]) -> int:
         """Append one op; returns its byte location. Caller syncs (per
         request by default, like index.translog.durability=REQUEST)."""
-        payload = json.dumps(op).encode()
+        return self.add_payload(json.dumps(op).encode(),
+                                int(op.get("seq_no", -1)))
+
+    def add_payload(self, payload: bytes, seq_no: int) -> int:
+        """Append one op already encoded as ``json.dumps(op).encode()``
+        (the engine encodes a document's source once, for the translog and
+        the segment)."""
         if self._native is not None:
             location = self._native.append(payload)
         else:
@@ -118,7 +124,6 @@ class Translog:
             location = self._file.tell()
             self._file.write(record)
         self.checkpoint.num_ops += 1
-        seq_no = int(op.get("seq_no", -1))
         if seq_no > self.checkpoint.max_seq_no:
             self.checkpoint.max_seq_no = seq_no
         return location

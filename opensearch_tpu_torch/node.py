@@ -101,6 +101,13 @@ keeps ``restored_from_snapshot`` in the registry), ``remote_store``
 and ``delete_doc`` inside ``_write_pressure``, whose scope accounts a
 batch's bytes once and fsyncs each shard it touched once.
 
+The control plane as the reference's single node serves it:
+``cluster_state``, ``pending_cluster_tasks``, the voting-config
+exclusions, ``cluster_reroute`` and ``allocation_explain``; and
+cross-cluster search (cluster/remote.py): an ``alias:pattern`` part of
+a search's expression is searched on the remote cluster over HTTP and
+merged with the local hits.
+
 The device is the card unless the caller asks for the CPU::
 
     node = TorchNode(path)                 # CUDA; raises without a card
@@ -444,6 +451,10 @@ class TorchNode:
         self.data_path = Path(data_path)
         self.node_name = node_name
         self.cluster_uuid = uuid.uuid4().hex[:22]
+        # cluster-coordination metadata surfaced by /_cluster/state
+        # (CoordinationMetadata.VotingConfigExclusion)
+        self._voting_config_exclusions: list[dict] = []
+        self._state_version = 1
         self.indices: dict[str, IndexService] = {}
         # scroll and PIT reader contexts (SearchService's ReaderContext
         # registry): each pins one searcher snapshot a shard
@@ -1380,6 +1391,329 @@ class TorchNode:
             "dry_run": dry_run,
             "conditions": met,
         }
+
+    # -- the control plane on the single node (the reference's TpuNode)
+
+    def add_voting_config_exclusions(self, node_ids: str | None = None,
+                                     node_names: str | None = None) -> dict:
+        provided = [p for p in (node_ids, node_names) if p]
+        if len(provided) != 1:
+            raise IllegalArgumentException(
+                "Please set node identifiers correctly. One and only one "
+                "of [node_name], [node_names] and [node_ids] has to be set"
+            )
+        if node_ids:
+            entries = [{"node_id": nid.strip(), "node_name": "_absent_"}
+                       for nid in str(node_ids).split(",") if nid.strip()]
+        else:
+            entries = [{"node_id": "_absent_", "node_name": nm.strip()}
+                       for nm in str(node_names).split(",") if nm.strip()]
+        for e in entries:
+            if e not in self._voting_config_exclusions:
+                self._voting_config_exclusions.append(e)
+        self._state_version += 1
+        return {}
+
+    def clear_voting_config_exclusions(self) -> dict:
+        self._voting_config_exclusions.clear()
+        self._state_version += 1
+        return {}
+
+    def pending_cluster_tasks(self) -> dict:
+        """GET /_cluster/pending_tasks: the single-node cluster applies
+        state synchronously, so the queue is always drained."""
+        return {"tasks": []}
+
+    def _index_blocks(self, name: str) -> dict:
+        svc = self.indices[name]
+        out = {}
+        for setting, (bid, desc, levels) in self._INDEX_BLOCKS.items():
+            if str(svc.setting(setting, "false")).lower() == "true":
+                out[str(bid)] = {"description": desc, "retryable": False,
+                                 "levels": levels}
+        return out
+
+    def _shard_routing(self, name: str, shard: int, *, primary: bool,
+                       assigned: bool) -> dict:
+        entry: dict[str, Any] = {
+            "state": "STARTED" if assigned else "UNASSIGNED",
+            "primary": primary,
+            "node": "node-0" if assigned else None,
+            "relocating_node": None,
+            "shard": shard,
+            "index": name,
+        }
+        if assigned:
+            entry["allocation_id"] = {"id": f"{name}#{shard}"}
+        else:
+            entry["recovery_source"] = {"type": "PEER"}
+            entry["unassigned_info"] = {
+                "reason": "INDEX_CREATED",
+                "at": time.strftime("%Y-%m-%dT%H:%M:%S.000Z", time.gmtime()),
+                "delayed": False,
+                "allocation_status": "no_attempt",
+            }
+        return entry
+
+    def cluster_state(self, metrics: list[str] | None = None,
+                      index: str | None = None,
+                      expand_wildcards: str = "all",
+                      ignore_unavailable: bool = False,
+                      allow_no_indices: bool = True) -> dict:
+        want = set(metrics or ["_all"])
+        everything = "_all" in want
+
+        def on(metric: str) -> bool:
+            return everything or metric in want
+
+        names = (self.resolve_indices(
+            index, expand_wildcards=expand_wildcards,
+            ignore_unavailable=ignore_unavailable,
+            allow_no_indices=allow_no_indices,
+        ) if index else sorted(self.indices))
+        out: dict[str, Any] = {
+            "cluster_name": "opensearch-tpu",
+            "cluster_uuid": self.cluster_uuid,
+        }
+        if everything or want & {"version", "master_node",
+                                 "cluster_manager_node", "nodes", "blocks",
+                                 "metadata", "routing_table", "routing_nodes"}:
+            out["state_uuid"] = f"state-{self._state_version}"
+        if on("version"):
+            out["version"] = self._state_version
+        if on("master_node"):
+            out["master_node"] = "node-0"
+        if on("cluster_manager_node"):
+            out["cluster_manager_node"] = "node-0"
+        if on("nodes"):
+            out["nodes"] = {"node-0": {
+                "name": self.node_name,
+                "ephemeral_id": self.cluster_uuid,
+                "transport_address": "127.0.0.1:9300",
+                "attributes": {},
+            }}
+        if on("blocks"):
+            blocks: dict[str, Any] = {}
+            indices_blocks = {
+                name: b for name in names
+                if (b := self._index_blocks(name))
+            }
+            if indices_blocks:
+                blocks["indices"] = indices_blocks
+            out["blocks"] = blocks
+        if on("metadata"):
+            out["metadata"] = {
+                "cluster_uuid": self.cluster_uuid,
+                "cluster_uuid_committed": True,
+                "cluster_coordination": {
+                    "term": 1,
+                    "last_committed_config": ["node-0"],
+                    "last_accepted_config": ["node-0"],
+                    "voting_config_exclusions":
+                        list(self._voting_config_exclusions),
+                },
+                "templates": {},
+                "indices": {
+                    name: {
+                        "state": ("close" if self.indices[name].closed
+                                  else "open"),
+                        "settings": self.get_settings(name)[name]["settings"],
+                        "mappings":
+                            self.indices[name].mapper_service.to_dict(),
+                        "aliases": sorted(self.indices[name].aliases),
+                    }
+                    for name in names
+                },
+            }
+        if on("routing_table"):
+            out["routing_table"] = {"indices": {
+                name: {"shards": {
+                    str(s): (
+                        [self._shard_routing(name, s, primary=True,
+                                             assigned=True)]
+                        + [self._shard_routing(name, s, primary=False,
+                                               assigned=False)
+                           for _ in range(self.indices[name].num_replicas)]
+                    )
+                    for s in range(self.indices[name].num_shards)
+                }}
+                for name in names
+            }}
+        if on("routing_nodes"):
+            assigned = []
+            unassigned = []
+            for name in names:
+                svc = self.indices[name]
+                for s in range(svc.num_shards):
+                    assigned.append(self._shard_routing(
+                        name, s, primary=True, assigned=True))
+                    for _ in range(svc.num_replicas):
+                        unassigned.append(self._shard_routing(
+                            name, s, primary=False, assigned=False))
+            out["routing_nodes"] = {
+                "unassigned": unassigned,
+                "nodes": {"node-0": assigned},
+            }
+        return out
+
+    def allocation_explain(self, body: dict | None,
+                           include_disk_info: bool = False) -> dict:
+        """POST /_cluster/allocation/explain
+        (ClusterAllocationExplainAction). With an explicit (index, shard,
+        primary) triple, explains that shard; with an empty body, explains
+        the first unassigned shard (the reference's useAnyUnassignedShard
+        path) or rejects when nothing is unassigned."""
+        body = body or {}
+        index = body.get("index")
+        if index is not None:
+            names = self.resolve_indices(index)
+            if not names:
+                raise IndexNotFoundException(str(index))
+            name = names[0]
+            shard = int(body.get("shard", 0))
+            primary = bool(body.get("primary", False))
+            svc = self.indices[name]
+            if shard >= svc.num_shards:
+                raise IllegalArgumentException(
+                    f"No shard was specified in the explain API request "
+                    f"or shard [{shard}] does not exist in [{name}]"
+                )
+            assigned = primary  # primaries local, replicas unassigned
+        else:
+            name = shard = None
+            for cname in sorted(self.indices):
+                if self.indices[cname].num_replicas > 0:
+                    name, shard, primary, assigned = cname, 0, False, False
+                    break
+            if name is None:
+                raise IllegalArgumentException(
+                    "unable to find any unassigned shards to explain "
+                    "[ClusterAllocationExplainRequest[useAnyUnassignedShard="
+                    "true,includeYesDecisions?=false]"
+                )
+        out: dict[str, Any] = {
+            "index": name,
+            "shard": shard,
+            "primary": primary,
+            "current_state": "started" if assigned else "unassigned",
+        }
+        if include_disk_info:
+            fs = self.monitor.fs_stats()
+            out["cluster_info"] = {"nodes": {"node-0": {
+                "node_name": self.node_name,
+                "least_available": fs,
+                "most_available": fs,
+            }}}
+        if assigned:
+            out["current_node"] = {
+                "id": "node-0", "name": self.node_name,
+                "transport_address": "127.0.0.1:9300",
+            }
+            out["can_remain_on_current_node"] = "yes"
+            out["can_rebalance_cluster"] = "yes"
+            out["can_rebalance_to_other_node"] = "no"
+            out["rebalance_explanation"] = (
+                "cannot rebalance as no target node exists that can both "
+                "allocate this shard and improve the cluster balance"
+            )
+        else:
+            out["unassigned_info"] = {
+                "reason": "INDEX_CREATED",
+                "at": time.strftime("%Y-%m-%dT%H:%M:%S.000Z", time.gmtime()),
+                "last_allocation_status": "no_attempt",
+            }
+            out["can_allocate"] = "no"
+            out["allocate_explanation"] = (
+                "cannot allocate because allocation is not permitted to "
+                "any of the nodes"
+            )
+            out["node_allocation_decisions"] = [{
+                "node_id": "node-0",
+                "node_name": self.node_name,
+                "transport_address": "127.0.0.1:9300",
+                "node_decision": "no",
+                "deciders": [{
+                    "decider": "same_shard",
+                    "decision": "NO",
+                    "explanation": (
+                        "a copy of this shard is already allocated to "
+                        "this node"
+                    ),
+                }],
+            }]
+        return out
+
+    def cluster_reroute(self, body: dict | None, *, explain: bool = False,
+                        dry_run: bool = False,
+                        metrics: list[str] | None = None) -> dict:
+        """POST /_cluster/reroute (TransportClusterRerouteAction). The
+        single-node allocator has nowhere to move shards, so commands only
+        produce explanations; the response carries the filtered cluster
+        state like the reference (RestClusterRerouteAction defaults to
+        everything except metadata)."""
+        body = body or {}
+        explanations = []
+        for cmd in body.get("commands", []) or []:
+            if not isinstance(cmd, dict) or len(cmd) != 1:
+                raise IllegalArgumentException(
+                    f"malformed reroute command [{cmd}]")
+            (kind, args), = cmd.items()
+            args = args or {}
+            params = {
+                "index": args.get("index"),
+                "shard": args.get("shard"),
+                "node": args.get("node"),
+            }
+            if kind in ("cancel", "allocate_replica", "allocate_stale_primary",
+                        "allocate_empty_primary"):
+                if kind == "cancel":
+                    params["allow_primary"] = bool(args.get("allow_primary",
+                                                            False))
+                if kind in ("allocate_stale_primary",
+                            "allocate_empty_primary"):
+                    params["accept_data_loss"] = bool(
+                        args.get("accept_data_loss", False))
+                decider = (f"{kind}_allocation_command"
+                           if kind == "cancel" else "allocate_command")
+                explanations.append({
+                    "command": kind,
+                    "parameters": params,
+                    "decisions": [{
+                        "decider": decider,
+                        "decision": "NO",
+                        "explanation": (
+                            f"can't {kind} [{params['index']}]["
+                            f"{params['shard']}], failed to find it on "
+                            f"node [{params['node']}]"
+                        ),
+                    }],
+                })
+            elif kind == "move":
+                params["from_node"] = args.get("from_node")
+                params["to_node"] = args.get("to_node")
+                explanations.append({
+                    "command": kind,
+                    "parameters": params,
+                    "decisions": [{
+                        "decider": "move_allocation_command",
+                        "decision": "NO",
+                        "explanation": (
+                            "shard not found on source node"
+                        ),
+                    }],
+                })
+            else:
+                raise IllegalArgumentException(
+                    f"unknown reroute command [{kind}]")
+        default_metrics = ["version", "master_node", "cluster_manager_node",
+                           "nodes", "routing_table", "routing_nodes",
+                           "blocks"]
+        state = self.cluster_state(metrics=metrics or default_metrics)
+        state.pop("cluster_name", None)
+        out: dict[str, Any] = {"acknowledged": True, "state": state}
+        if explain or body.get("commands") is not None:
+            out["explanations"] = explanations
+        return out
 
     def resize_index(self, kind: str, source: str, target: str,
                      body: dict | None = None) -> dict:
@@ -2653,14 +2987,6 @@ class TorchNode:
                                          routing=spec.get("_routing")))
         return {"docs": docs}
 
-    def _shard_routing(self, name: str, shard: int) -> dict:
-        """A started primary's routing entry (every primary is local)."""
-        return {
-            "state": "STARTED", "primary": True, "node": "node-0",
-            "relocating_node": None, "shard": shard, "index": name,
-            "allocation_id": {"id": f"{name}#{shard}"},
-        }
-
     def search_shards(self, index: str | None = None,
                       routing: str | None = None, body: dict | None = None,
                       preference: str | None = None) -> dict:
@@ -2761,7 +3087,8 @@ class TorchNode:
                 shard_ids = [x for i, x in enumerate(shard_ids)
                              if i % sl_max == sl_id]
             for x in shard_ids:
-                shard_groups.append([self._shard_routing(name, x)])
+                shard_groups.append([self._shard_routing(
+                    name, x, primary=True, assigned=True)])
         return {
             "nodes": {"node-0": {
                 "name": self.node_name,
@@ -2855,6 +3182,42 @@ class TorchNode:
                     shard_filters=ctx.get("shard_filters"), task=task)
             resp["pit_id"] = ctx["id"]
             return resp
+        expr = index if index is not None else "_all"
+        # cross-cluster expressions ("alias:pattern") fan out to remote
+        # clusters and merge coordinator-side (TransportSearchAction +
+        # SearchResponseMerger)
+        from opensearch_tpu_torch.cluster.remote import (
+            RemoteClusterService,
+            merge_cross_cluster,
+            split_index_expression,
+        )
+
+        rcs = RemoteClusterService(self)
+        remote_groups, local_parts = split_index_expression(expr)
+        registered = rcs.registered()
+        known_groups = {a: ps for a, ps in remote_groups.items()
+                        if a in registered}
+        if remote_groups and not ignore_unavailable:
+            unknown_remotes = set(remote_groups) - set(registered)
+            # a ":"-bearing part could also be a plain (odd) index name;
+            # only treat it as a remote expression when ANY alias resolves
+            if unknown_remotes and known_groups:
+                raise IllegalArgumentException(
+                    f"no such remote cluster: "
+                    f"[{sorted(unknown_remotes)[0]}]")
+        remote_groups = known_groups
+        if remote_groups and scroll is None:
+            remote_resps = {
+                alias: rcs.search_remote(alias, ",".join(patterns), body)
+                for alias, patterns in remote_groups.items()
+            }
+            local_resp = None
+            if local_parts:
+                local_resp = self.search(
+                    ",".join(local_parts), body,
+                    search_pipeline=search_pipeline,
+                    ignore_unavailable=ignore_unavailable)
+            return merge_cross_cluster(local_resp, remote_resps, body)
         sort_spec = body.get("sort")
         for spec in ([sort_spec] if isinstance(sort_spec, (str, dict))
                      else sort_spec or []):
@@ -2863,7 +3226,6 @@ class TorchNode:
                 raise ActionRequestValidationException(
                     "Validation Failed: 1: [_shard_doc] sort field is only "
                     "supported with point-in-time (PIT) searches;")
-        expr = index if index is not None else "_all"
         shards, shard_filters, names = self.resolve_search_shards(
             expr, ignore_unavailable=ignore_unavailable)
         self._validate_search_request(names, body, scroll=scroll is not None)

@@ -1,8 +1,8 @@
 """Top-k selection with the doc-id-ascending tie-break.
 
-Counterpart of opensearch_tpu/ops/topk.py, without ``merge_shard_hits``
-(the cross-node reduce; search/service.py merges one node's shards by
-(-score, shard, segment, doc)). :func:`segment_top_k` is the general query
+Counterpart of opensearch_tpu/ops/topk.py. :func:`merge_shard_hits` is the
+host k-way merge of per-shard hit lists (search/service.py merges one
+node's shards by (-score, shard, segment, doc)). :func:`segment_top_k` is the general query
 phase's cut of one segment's masked score column. The contract (reference
 ops/topk.py:3-6,81-83): among equal scores the LOWER position wins, which
 reproduces Lucene/OpenSearch's doc-id-ascending tie-break because the
@@ -18,6 +18,7 @@ same answer.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # the reference's gate: below this row count, above this k, or when the
@@ -103,3 +104,27 @@ def blockwise_topk(scores: torch.Tensor, k: int,
     vals, flat = _iterative_topk(cand.reshape(B, k * block_size), k)
     slot, off = flat // block_size, flat % block_size
     return vals, torch.gather(blk_ids, 1, slot) * block_size + off
+
+
+def merge_shard_hits(
+    per_shard: list[tuple],  # [(scores[k], docs[k]) ...], tensors or arrays
+    k: int,
+) -> list[tuple[float, int, int]]:
+    """Host k-way merge with OpenSearch tie-break: score desc, then shard
+    index asc, then doc id asc. Returns [(score, shard_idx, doc)] with
+    -inf (= no hit) entries dropped."""
+    rows: list[tuple[float, int, int]] = []
+    for shard_idx, (scores, docs) in enumerate(per_shard):
+        s = _host(scores)
+        d = _host(docs)
+        for i in range(len(s)):
+            if np.isfinite(s[i]):
+                rows.append((float(s[i]), shard_idx, int(d[i])))
+    rows.sort(key=lambda r: (-r[0], r[1], r[2]))
+    return rows[:k]
+
+
+def _host(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)

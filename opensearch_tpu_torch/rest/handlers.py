@@ -22,8 +22,8 @@ pipelines (`_ingest/pipeline`, with `_simulate`), index templates
 (`_template`, `_index_template`, `_component_template`), `_segments`,
 `_stats`, `_cluster/stats`, `_nodes` (info and stats by metric, with the
 `ingest`, `device`, `knn_batch`, `roofline` and `heat` sections),
-`_prometheus/metrics` and `_cat` (all but recovery and pending_tasks),
-each stats read from host counters only;
+`_prometheus/metrics` and `_cat`, each stats read from host counters
+only;
 index management (`_mapping` updates and `_mapping/field`, `_settings`
 updates, `_block`, `_upgrade`, `_shrink`, `_split`, `_clone`,
 `_rollover`, `_close`, `_open`, `_analyze`) and the document reads and
@@ -31,12 +31,13 @@ query tools (`_mget`, `_explain`, `_field_caps`, `_termvectors`,
 `_mtermvectors`, `_validate/query`, `_search_shards`); snapshots and
 repositories (`_snapshot`, with `_restore`, `_status` and `_cleanup`), the
 remote segment store (`_remotestore`), `_rank_eval` and the reindex family
-(`_reindex`, `_update_by_query`, `_delete_by_query`).
-Every other route (the control plane's) answers through
-:func:`_not_yet_ported`, which raises "<METHOD> <path> is not yet ported
-to opensearch_tpu_torch" (the HTTP server's 500 envelope). Handlers
-receive (node, params, query, body) and return (status, payload); the
-HTTP server is transport-only.
+(`_reindex`, `_update_by_query`, `_delete_by_query`); and the control
+plane as the reference's single node serves it (`_cluster/state`,
+`_cluster/pending_tasks`, `_cluster/voting_config_exclusions`,
+`_cluster/reroute`, `_cluster/allocation/explain`, `_shard_stores`,
+`_recovery`, `_remote/info`, `_cat/recovery`, `_cat/pending_tasks`).
+Handlers receive (node, params, query, body) and return (status, payload);
+the HTTP server is transport-only.
 """
 
 from __future__ import annotations
@@ -67,7 +68,6 @@ from opensearch_tpu_torch.common.errors import (
 from opensearch_tpu_torch.common.settings import Settings
 from opensearch_tpu_torch.node import TorchNode
 from opensearch_tpu_torch.rest.router import Router
-from opensearch_tpu_torch.search.executor import not_yet_ported
 from opensearch_tpu_torch.search.service import _source_filter
 from opensearch_tpu_torch.telemetry import device_ledger, roofline
 
@@ -431,19 +431,27 @@ def build_router() -> Router:
     reg("POST", "/_reindex", reindex_handler)
     reg("POST", "/{index}/_update_by_query", update_by_query_handler)
     reg("POST", "/{index}/_delete_by_query", delete_by_query_handler)
-    # the rest of the reference's surface
-    for method, template in UNPORTED_ROUTES:
-        reg(method, template, _not_yet_ported(method, template))
+    # the control plane on the single node
+    reg("GET", "/_shard_stores", indices_shard_stores)
+    reg("GET", "/{index}/_shard_stores", indices_shard_stores)
+    reg("GET", "/_recovery", indices_recovery)
+    reg("GET", "/{index}/_recovery", indices_recovery)
+    reg("GET", "/_cluster/state", cluster_state_metric)
+    reg("GET", "/_cluster/state/{metric}", cluster_state_metric)
+    reg("GET", "/_cluster/state/{metric}/{index}", cluster_state_metric)
+    reg("GET", "/_cluster/pending_tasks", cluster_pending_tasks)
+    reg("POST", "/_cluster/voting_config_exclusions",
+        post_voting_config_exclusions)
+    reg("DELETE", "/_cluster/voting_config_exclusions",
+        delete_voting_config_exclusions)
+    reg("POST", "/_cluster/reroute", cluster_reroute)
+    reg("GET", "/_cluster/allocation/explain", allocation_explain)
+    reg("POST", "/_cluster/allocation/explain", allocation_explain)
+    reg("GET", "/_remote/info", remote_info)
+    reg("GET", "/_cat/recovery", cat_recovery)
+    reg("GET", "/_cat/recovery/{index}", cat_recovery)
+    reg("GET", "/_cat/pending_tasks", cat_pending_tasks)
     return r
-
-
-def _not_yet_ported(method: str, template: str):
-    """The handler of a route the port does not serve yet."""
-
-    def handler(node: TorchNode, params, query, body):
-        raise not_yet_ported(f"{method} {template}")
-
-    return handler
 
 
 # -- info --------------------------------------------------------------------
@@ -3292,25 +3300,202 @@ def delete_by_query_handler(node: TorchNode, params, query, body):
     )
 
 
-# every (method, path) of the reference's router that the port does not
-# serve yet (the control plane's): each answers "not yet ported" (a 500),
-# never a 404 or 405
-UNPORTED_ROUTES = (
-    ("GET", "/_shard_stores"),
-    ("GET", "/{index}/_shard_stores"),
-    ("GET", "/_recovery"),
-    ("GET", "/{index}/_recovery"),
-    ("GET", "/_cluster/state"),
-    ("GET", "/_cluster/state/{metric}"),
-    ("GET", "/_cluster/state/{metric}/{index}"),
-    ("GET", "/_cluster/pending_tasks"),
-    ("POST", "/_cluster/voting_config_exclusions"),
-    ("DELETE", "/_cluster/voting_config_exclusions"),
-    ("POST", "/_cluster/reroute"),
-    ("GET", "/_cluster/allocation/explain"),
-    ("POST", "/_cluster/allocation/explain"),
-    ("GET", "/_remote/info"),
-    ("GET", "/_cat/recovery"),
-    ("GET", "/_cat/recovery/{index}"),
-    ("GET", "/_cat/pending_tasks"),
-)
+# -- the control plane on the single node ------------------------------------
+
+
+def cluster_state_metric(node: TorchNode, params, query, body):
+    """GET /_cluster/state[/{metric}[/{index}]] (ClusterStateAction)."""
+    metrics = str(params.get("metric", "_all")).split(",")
+    index = params.get("index") or query.get("index")
+    return 200, node.cluster_state(
+        metrics=metrics, index=index,
+        expand_wildcards=str(query.get("expand_wildcards", "all")),
+        ignore_unavailable=str(query.get("ignore_unavailable", "false"))
+        in ("true", ""),
+        allow_no_indices=str(query.get("allow_no_indices", "true"))
+        in ("true", ""),
+    )
+
+
+def cluster_pending_tasks(node: TorchNode, params, query, body):
+    return 200, node.pending_cluster_tasks()
+
+
+def post_voting_config_exclusions(node: TorchNode, params, query, body):
+    return 200, node.add_voting_config_exclusions(
+        node_ids=query.get("node_ids"), node_names=query.get("node_names")
+    )
+
+
+def delete_voting_config_exclusions(node: TorchNode, params, query, body):
+    return 200, node.clear_voting_config_exclusions()
+
+
+def cluster_reroute(node: TorchNode, params, query, body):
+    metrics = None
+    if query.get("metric"):
+        metrics = [m.strip() for m in str(query["metric"]).split(",")]
+    return 200, node.cluster_reroute(
+        body,
+        explain=str(query.get("explain", "false")) in ("true", ""),
+        dry_run=str(query.get("dry_run", "false")) in ("true", ""),
+        metrics=metrics,
+    )
+
+
+def allocation_explain(node: TorchNode, params, query, body):
+    return 200, node.allocation_explain(
+        body,
+        include_disk_info=str(query.get("include_disk_info", "false"))
+        in ("true", ""),
+    )
+
+
+def indices_shard_stores(node: TorchNode, params, query, body):
+    """GET [/{index}]/_shard_stores (IndicesShardStoresAction)."""
+    names = [n for n in _admin_indices(node, params, query)
+             if not node.indices[n].closed]
+    out_indices = {}
+    for name in names:
+        svc = node.indices[name]
+        shards_out = {}
+        for sid in range(svc.num_shards):
+            shards_out[str(sid)] = {"stores": [{
+                "node-0": {
+                    "name": node.node_name,
+                    "ephemeral_id": node.cluster_uuid,
+                    "transport_address": "127.0.0.1:9300",
+                    "attributes": {},
+                },
+                "allocation_id": f"{name}#{sid}",
+                "allocation": "primary",
+            }]}
+        out_indices[name] = {"shards": shards_out}
+    return 200, {"indices": out_indices}
+
+
+def remote_info(node: TorchNode, params, query, body):
+    from opensearch_tpu_torch.cluster.remote import RemoteClusterService
+
+    return 200, RemoteClusterService(node).info()
+
+
+def cat_pending_tasks(node: TorchNode, params, query, body):
+    return 200, _cat_format(query, [])
+
+
+def indices_recovery(node: TorchNode, params, query, body):
+    """GET [/{index}]/_recovery (RecoveryAction): per-shard recovery
+    state; local shards report their store bootstrap as a DONE
+    EMPTY_STORE/EXISTING_STORE recovery (the reference's single-node
+    branch; the cluster's records come with the cluster's REST facade)."""
+    import time as _time
+
+    names = _admin_indices(node, params, query, expand_default="all")
+    out = {}
+    for name in names:
+        svc = node.indices[name]
+        shards = []
+        for sid, shard in sorted(svc.shards.items()):
+            nfiles = len(shard.engine._segments)
+            nbytes = sum(
+                sum(len(s) for s in h.sources)
+                for h, _d in shard.engine._segments)
+            ops = shard.engine.translog.stats()["operations"] \
+                if hasattr(shard.engine.translog, "stats") else 0
+            existing = (node.data_path / "indices" / name / str(sid) /
+                        "commit.json").exists()
+            from_snap = getattr(svc, "restored_from_snapshot", None)
+            if from_snap:
+                # SNAPSHOT recovery reports the restored Lucene files —
+                # an empty index still restores its one commit point
+                nfiles = max(nfiles, 1)
+                nbytes = max(nbytes, 1)
+            recovered_files = nfiles if from_snap else 0
+            reused_files = 0 if from_snap else nfiles
+            shards.append({
+                "id": sid,
+                "type": ("SNAPSHOT" if from_snap
+                         else "EXISTING_STORE" if existing
+                         else "EMPTY_STORE"),
+                "stage": "DONE",
+                "primary": True,
+                "start_time": _time.strftime(
+                    "%Y-%m-%dT%H:%M:%S.000Z",
+                    _time.gmtime(svc.creation_date / 1000)),
+                "start_time_in_millis": svc.creation_date,
+                "total_time_in_millis": 0,
+                "source": {},
+                "target": {
+                    "id": "node-0", "host": "127.0.0.1",
+                    "transport_address": "127.0.0.1:9300",
+                    "ip": "127.0.0.1", "name": node.node_name,
+                },
+                "index": {
+                    "files": {"total": nfiles, "reused": reused_files,
+                              "recovered": recovered_files,
+                              "percent": "100.0%",
+                              **({"details": []} if str(query.get(
+                                  "detailed", "false")) in ("true", "")
+                                 else {})},
+                    "size": {"total_in_bytes": nbytes,
+                             "reused_in_bytes": 0 if from_snap else nbytes,
+                             "recovered_in_bytes":
+                                 nbytes if from_snap else 0,
+                             "percent": "100.0%"},
+                    "source_throttle_time_in_millis": 0,
+                    "target_throttle_time_in_millis": 0,
+                },
+                "translog": {"recovered": ops, "total": ops,
+                             "total_on_start": ops,
+                             "total_time_in_millis": 0, "percent": "100.0%"},
+                "verify_index": {"check_index_time_in_millis": 0,
+                                 "total_time_in_millis": 0},
+            })
+        out[name] = {"shards": shards}
+    return 200, out
+
+
+def cat_recovery(node: TorchNode, params, query, body):
+    import fnmatch as _fn
+
+    want = params.get("index")
+    pats = [p for p in str(want).split(",") if p] if want else None
+    rows = []
+    for index, svc in sorted(node.indices.items()):
+        if pats is not None and not any(_fn.fnmatch(index, p) for p in pats):
+            continue
+        from_snap = getattr(svc, "restored_from_snapshot", None)
+        for sid, shard in sorted(svc.shards.items()):
+            nfiles = len(shard.engine._segments)
+            nbytes = sum(sum(len(x) for x in h.sources)
+                         for h, _d in shard.engine._segments)
+            ops = shard.engine.translog.stats()["operations"]
+            rows.append({
+                "index": index, "shard": sid, "time": "1ms",
+                "type": ("snapshot" if from_snap
+                         else "existing_store" if svc.closed
+                         else "empty_store"),
+                "stage": "done",
+                "source_host": "-", "source_node": "-",
+                "target_host": "127.0.0.1", "target_node": node.node_name,
+                "repository": "n/a",
+                "snapshot": from_snap or "n/a",
+                "files": nfiles, "files_recovered": nfiles,
+                "files_percent": "100.0%", "files_total": nfiles,
+                "bytes": _human_bytes(nbytes),
+                "bytes_recovered": _human_bytes(nbytes),
+                "bytes_percent": "100.0%",
+                "bytes_total": _human_bytes(nbytes),
+                "translog_ops": ops, "translog_ops_recovered": ops,
+                "translog_ops_percent": "100.0%",
+            })
+    return 200, _cat_format(query, rows, aliases={
+        "i": "index", "s": "shard", "t": "time", "ty": "type",
+        "st": "stage", "shost": "source_host", "thost": "target_host",
+        "rep": "repository", "snap": "snapshot", "f": "files",
+        "fr": "files_recovered", "fp": "files_percent",
+        "tf": "files_total", "b": "bytes", "br": "bytes_recovered",
+        "bp": "bytes_percent", "tb": "bytes_total",
+        "to": "translog_ops", "tor": "translog_ops_recovered",
+        "top": "translog_ops_percent"})

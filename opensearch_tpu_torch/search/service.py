@@ -143,7 +143,9 @@ def search(shards: list, body: dict | None,
            phase_results_config: dict | None = None,
            acquired: list | None = None,
            shard_filters: list | None = None,
-           task=None) -> dict[str, Any]:
+           task=None,
+           partial: bool = False,
+           shard_numbers: list[int] | None = None) -> dict[str, Any]:
     """Run one search over `shards` (IndexShard objects).
     `acquired` pins the searcher snapshots to use, one a shard in order
     (the scroll and point-in-time path). `shard_filters`, one alias filter
@@ -154,7 +156,17 @@ def search(shards: list, body: dict | None,
     launch (:func:`try_batched_knn_msearch`): the search merges and fetches
     from it, on its snapshots, and runs no query phase.
     `phase_results_config` is the search pipeline's phase-results
-    processor, which fuses a hybrid query's sub-queries."""
+    processor, which fuses a hybrid query's sub-queries.
+
+    `partial=True` produces a per-NODE wire partial for the cluster
+    coordinator (QuerySearchResult analog, as the reference's): hits carry
+    a `_tb` tie-break triple [global_shard, segment, doc] (global shard
+    numbers supplied via `shard_numbers`), aggregations carry `_p_*`
+    reduce extras, pipeline aggregations are left to the coordinator's
+    final reduce (search/reduce.py), `_generations` stamps each shard's
+    reader generation, and `_premerged` marks a page that came straight
+    out of the stacked step's merge in the canonical (-score, _tb)
+    order."""
     t0 = time.monotonic()
     body = body or {}
     unknown = set(body) - KNOWN_KEYS
@@ -324,6 +336,7 @@ def search(shards: list, body: dict | None,
     total = 0
     max_score = None
     merged: list = []
+    used_premerged = False
     for shard_idx, (_shard, _snap, result) in enumerate(per_shard_results):
         total += result.total
         if result.max_score is not None and (
@@ -354,10 +367,16 @@ def search(shards: list, body: dict | None,
         # the device merge's rows are already in (-score, shard, segment,
         # doc) order
         merged = premerged
+        used_premerged = True
     else:
         merged.sort(key=lambda sh: (-sh[1].score, sh[0], sh[1].segment,
                                     sh[1].doc))
     collapse = None
+    if body.get("rescore") is not None or body.get("collapse") is not None:
+        # these phases re-rank / regroup after the device merge: the page
+        # no longer follows the canonical (-score, _tb) order, so the
+        # coordinator must re-sort (never stream-merge) these partials
+        used_premerged = False
     if body.get("rescore") is not None:
         if sort:
             raise ParsingException("[rescore] cannot be used with a [sort]")
@@ -373,6 +392,12 @@ def search(shards: list, body: dict | None,
     hits_json = _fetch_phase(body, node, shards, per_shard_results, page,
                              fetch_prof, sort=sort, from_=from_,
                              collapse=collapse)
+    if partial:
+        for hit, (shard_idx, h) in zip(hits_json, page):
+            shard = per_shard_results[shard_idx][0]
+            gshard = (shard_numbers[shard_idx] if shard_numbers is not None
+                      else shard.shard_id.shard)
+            hit["_tb"] = [gshard, h.segment, h.doc]
 
     sort_by_score = bool(sort) and _sort_has_score(sort)
     if sort_by_score and max_score is None and merged:
@@ -409,12 +434,24 @@ def search(shards: list, body: dict | None,
         agg_profiler = (search_profile.ShardProfiler() if want_profile
                         else None)
         response["aggregations"] = _aggregations(
-            aggs_body, shards, per_shard_results, agg_profiler)
+            aggs_body, shards, per_shard_results, agg_profiler, partial)
     if body.get("suggest"):
         response["suggest"] = compute_suggest(
             body["suggest"],
             [snap.segments for _, snap, _ in per_shard_results],
             [s.mapper_service for s in shards])
+    if partial:
+        # the reader generation each shard's result was computed from (one
+        # snapshot a shard, acquired once for the whole request)
+        response["_generations"] = {
+            str(shard_numbers[i] if shard_numbers is not None
+                else shard.shard_id.shard): snap.generation
+            for i, (shard, snap, _r) in enumerate(per_shard_results)
+        }
+        if used_premerged:
+            # the page is in the canonical (-score, _tb) order: the
+            # coordinator's reduce can stream-merge instead of re-sorting
+            response["_premerged"] = True
     if want_profile:
         response["profile"] = _profile_response(
             body, node, per_shard_results, shard_profilers, shard_query_ns,
@@ -466,7 +503,7 @@ def _hybrid_query_phase(shards: list, node, fetch_k: int,
 
 
 def _aggregations(aggs_body: dict, shards: list, per_shard_results: list,
-                  agg_profiler) -> dict:
+                  agg_profiler, partial: bool = False) -> dict:
     """The reference's aggregation reduce: every shard's segments in ONE
     ``compute_aggs`` pass over the query phase's host masks and scores,
     then the pipeline aggregations, then the ``search.max_buckets``
@@ -505,8 +542,11 @@ def _aggregations(aggs_body: dict, shards: list, per_shard_results: list,
         aggs = compute_aggs(
             all_segments, mapper_service, aggs_body, all_masks, filter_fn,
             ext={"scores": all_scores, "seg_meta": seg_meta,
-                 "partial": False})
-    apply_pipeline_aggs(aggs_body, aggs)
+                 "partial": partial})
+    # pipeline aggregations run once, at the final reduce: for a cluster
+    # partial that is the coordinator's
+    if not partial:
+        apply_pipeline_aggs(aggs_body, aggs)
     n_buckets = _count_buckets(aggs)
     if n_buckets > MAX_BUCKETS:
         raise TooManyBucketsException(n_buckets)

@@ -1,8 +1,7 @@
 """SnapshotsService: repository registry + snapshot/restore lifecycle.
 
 Counterpart of opensearch_tpu/snapshots/service.py's ``SnapshotsService``
-(the single-node service; the cluster-mode ``ClusterSnapshotsService``
-arrives with the control plane). Mirrors the reference flow (SURVEY.md
+and ``ClusterSnapshotsService``. Mirrors the reference flow (SURVEY.md
 §2.2): snapshot = per-shard upload of the committed files into a
 content-addressed blob store (SnapshotShardsService → BlobStoreRepository),
 a per-snapshot global manifest, and a repository-root generation file
@@ -15,7 +14,13 @@ cleanup.
 A restore over a closed index of the same name replaces it: its engines
 close (their device columns leave the residency ledger) and its stacked
 serving bundles are released, as ``TorchNode.delete_index`` releases
-them (a closed index keeps both in the port)."""
+them (a closed index keeps both in the port).
+
+:class:`ClusterSnapshotsService` is the cluster-mode counterpart: shard
+data lives on whichever node holds the primary, so create/restore run as
+per-shard RPCs (``internal:snapshot/shard_dump`` /
+``internal:snapshot/restore_dump``) orchestrated callback-style from a
+coordinator node."""
 
 from __future__ import annotations
 
@@ -396,3 +401,217 @@ class SnapshotsService:
             "indices": restored,
             "shards": doc["shards"],
         }}
+
+class ClusterSnapshotsService:
+    """Snapshot/restore for the CLUSTER node: shard data lives on whichever
+    node holds the primary, so create fans ``internal:snapshot/shard_dump``
+    to each primary's owner and stores the returned logical point-in-time
+    doc sets content-addressed in an fs repository; restore creates a FRESH
+    index (same shard count, zero replicas — primary-only install), waits
+    for its primaries to start, then pushes each shard's docs back via
+    ``internal:snapshot/restore_dump``.
+
+    Everything is callback-style on the node's transport/scheduler so the
+    chaos soak can interleave create/status/restore with bulk traffic and
+    topology reshapes; all timestamps come from timeutil so a seeded run
+    replays byte-identically."""
+
+    def __init__(self, node: Any, root: Path):
+        self.node = node
+        self.store = FsBlobStore(Path(root))
+
+    # -- create --------------------------------------------------------------
+
+    def create(self, name: str, index: str,
+               callback: "Callable[[dict], None]") -> None:
+        from opensearch_tpu_torch.common import timeutil
+
+        if not _SNAPSHOT_NAME.match(name):
+            callback({"error": f"invalid snapshot name [{name}]"})
+            return
+        if self.store.get_json(f"csnap-{name}") is not None:
+            callback({"error": f"snapshot [{name}] already exists"})
+            return
+        state = self.node.applied_state
+        meta = state.indices.get(index)
+        if meta is None:
+            callback({"error": f"no such index [{index}]"})
+            return
+        start_ms = timeutil.epoch_millis()
+        pending = {"n": meta.num_shards, "failed": None}
+        shards: dict[str, dict] = {}
+
+        def finish() -> None:
+            if pending["failed"] is not None:
+                callback({"error": pending["failed"]})
+                return
+            import json as _json
+
+            manifest_shards: dict[str, dict] = {}
+            for sid, dump in shards.items():
+                data = _json.dumps(dump["docs"], sort_keys=True).encode()
+                key = self.store.put_blob(data)
+                manifest_shards[sid] = {
+                    "blob": key,
+                    "docs": len(dump["docs"]),
+                    "max_seq_no": dump["max_seq_no"],
+                }
+            manifest = {
+                "snapshot": name,
+                "state": "SUCCESS",
+                "index": index,
+                "num_shards": meta.num_shards,
+                # the index's mappings ride the manifest, so a restored
+                # knn_vector field is a knn_vector again (the reference
+                # restores docs under dynamic mappings only)
+                "mappings": meta.mappings,
+                "shards": manifest_shards,
+                "start_time_in_millis": start_ms,
+                "end_time_in_millis": timeutil.epoch_millis(),
+            }
+            self.store.put_json(f"csnap-{name}", manifest)
+            root = self.store.get_json("cindex") or {"snapshots": []}
+            root["snapshots"] = sorted(set(root["snapshots"]) | {name})
+            self.store.put_json("cindex", root)
+            callback({
+                "snapshot": name,
+                "state": "SUCCESS",
+                "index": index,
+                "docs": sum(s["docs"] for s in manifest_shards.values()),
+                "shards": meta.num_shards,
+            })
+
+        def one_done(sid: int, result: dict | None, err: str | None) -> None:
+            if err is not None and pending["failed"] is None:
+                pending["failed"] = err
+            elif result is not None:
+                shards[str(sid)] = result
+            pending["n"] -= 1
+            if pending["n"] == 0:
+                finish()
+
+        for num in range(meta.num_shards):
+            entry = state.primary(index, num)
+            if entry is None or entry.node_id is None:
+                one_done(num, None, f"shard [{index}][{num}] has no primary")
+                continue
+            self.node.transport.send(
+                self.node.node_id, entry.node_id,
+                "internal:snapshot/shard_dump",
+                {"index": index, "shard": num},
+                on_response=lambda r, s=num: one_done(s, r, None),
+                on_failure=lambda e, s=num: one_done(
+                    s, None, f"shard [{index}][{s}] dump failed: {e}"),
+            )
+
+    # -- status --------------------------------------------------------------
+
+    def status(self, name: str) -> dict:
+        doc = self.store.get_json(f"csnap-{name}")
+        if doc is None:
+            return {"error": f"snapshot [{name}] missing"}
+        return {
+            "snapshot": doc["snapshot"],
+            "state": doc["state"],
+            "index": doc["index"],
+            "shards": {
+                "total": doc["num_shards"],
+                "done": len(doc["shards"]),
+                "failed": doc["num_shards"] - len(doc["shards"]),
+            },
+            "docs": sum(s["docs"] for s in doc["shards"].values()),
+            "start_time_in_millis": doc["start_time_in_millis"],
+            "end_time_in_millis": doc["end_time_in_millis"],
+        }
+
+    def list_snapshots(self) -> list[str]:
+        root = self.store.get_json("cindex") or {"snapshots": []}
+        return list(root["snapshots"])
+
+    # -- restore -------------------------------------------------------------
+
+    # restore polls the applied state waiting for the fresh index's
+    # primaries; bounded so a wedged cluster fails the restore instead of
+    # leaking the poll timer forever
+    _RESTORE_POLL_MS = 100
+    _RESTORE_MAX_POLLS = 600
+
+    def restore(self, name: str, dest: str,
+                callback: "Callable[[dict], None]") -> None:
+        doc = self.store.get_json(f"csnap-{name}")
+        if doc is None:
+            callback({"error": f"snapshot [{name}] missing"})
+            return
+        if dest in self.node.applied_state.indices:
+            callback({"error": f"index [{dest}] already exists"})
+            return
+
+        def on_created(resp: dict) -> None:
+            if resp.get("error"):
+                callback({"error": f"restore create failed: {resp['error']}"})
+                return
+            self._await_primaries(doc, dest, callback,
+                                  self._RESTORE_MAX_POLLS)
+
+        try:
+            self.node.create_index(dest, {"settings": {
+                "number_of_shards": doc["num_shards"],
+                "number_of_replicas": 0,
+            }, "mappings": doc.get("mappings") or {}}, on_created)
+        except Exception as e:  # noqa: BLE001 - no leader etc.
+            callback({"error": f"restore create failed: {e}"})
+
+    def _await_primaries(self, doc: dict, dest: str,
+                         callback: "Callable[[dict], None]",
+                         polls_left: int) -> None:
+        state = self.node.applied_state
+        entries = [state.primary(dest, n) for n in range(doc["num_shards"])]
+        if all(e is not None and e.node_id is not None
+               and e.state == "STARTED" for e in entries):
+            self._push_shards(doc, dest, callback)
+            return
+        if polls_left <= 0:
+            callback({"error": f"restore [{dest}] timed out waiting for "
+                               "primaries to start"})
+            return
+        self.node.scheduler.schedule(
+            self._RESTORE_POLL_MS,
+            lambda: self._await_primaries(doc, dest, callback,
+                                          polls_left - 1))
+
+    def _push_shards(self, doc: dict, dest: str,
+                     callback: "Callable[[dict], None]") -> None:
+        import json as _json
+
+        state = self.node.applied_state
+        pending = {"n": doc["num_shards"], "failed": None, "docs": 0}
+
+        def one_done(result: dict | None, err: str | None) -> None:
+            if err is not None and pending["failed"] is None:
+                pending["failed"] = err
+            elif result is not None:
+                pending["docs"] += int(result.get("restored", 0))
+            pending["n"] -= 1
+            if pending["n"] == 0:
+                if pending["failed"] is not None:
+                    callback({"error": pending["failed"]})
+                else:
+                    callback({"snapshot": doc["snapshot"], "index": dest,
+                              "state": "SUCCESS", "docs": pending["docs"]})
+
+        for num in range(doc["num_shards"]):
+            shard_meta = doc["shards"].get(str(num))
+            if shard_meta is None:
+                one_done(None, f"snapshot shard [{num}] missing from "
+                               "manifest")
+                continue
+            docs = _json.loads(self.store.get_blob(shard_meta["blob"]))
+            entry = state.primary(dest, num)
+            self.node.transport.send(
+                self.node.node_id, entry.node_id,
+                "internal:snapshot/restore_dump",
+                {"index": dest, "shard": num, "docs": docs},
+                on_response=lambda r: one_done(r, None),
+                on_failure=lambda e, s=num: one_done(
+                    None, f"shard [{dest}][{s}] restore failed: {e}"),
+            )

@@ -291,6 +291,72 @@ def test_backup_slice_runs_with_jax_unimportable(tmp_path):
     assert out.stdout.split() == ["4,5,3", "4,5,3", "5,3,6", "1.0", "2"]
 
 
+# the modules of the cluster slice, each at its reference path
+CLUSTER_MODULES = ("cluster/state.py", "cluster/coordination.py",
+                   "cluster/allocation.py", "cluster/coordinator.py",
+                   "gateway.py", "transport/__init__.py", "transport/base.py",
+                   "testing/__init__.py", "testing/sim.py",
+                   "index/recovery.py", "search/reduce.py",
+                   "cluster/cluster_node.py", "cluster/remote.py")
+
+
+@pytest.mark.parametrize("rel", CLUSTER_MODULES)
+def test_cluster_modules_stand_alone(rel):
+    test_context_modules_stand_alone(rel)
+
+
+def test_cluster_slice_runs_with_jax_unimportable(tmp_path):
+    """A 3-node sim cluster elects a leader, allocates a replicated kNN
+    index, takes a bulk and answers a kNN through each node, with jax and
+    the JAX package unimportable."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["opensearch_tpu"] = None
+        sys.path.insert(0, {str(PKG.parent)!r})
+        from pathlib import Path
+        from opensearch_tpu_torch.cluster.cluster_node import ClusterNode
+        from opensearch_tpu_torch.testing.sim import (
+            DeterministicTaskQueue, MockTransport)
+        queue = DeterministicTaskQueue(3)
+        transport = MockTransport(queue, timeout_ms=400)
+        ids = ["n0", "n1", "n2"]
+        nodes = [ClusterNode(i, Path({str(tmp_path)!r}) / i, transport,
+                             queue, ids, device="cpu") for i in ids]
+        for n in nodes:
+            n.disk_usage_pct = 50.0
+            n.bootstrap(ids)
+        for n in nodes:
+            n.start()
+        queue.run_until(queue.now_ms + 5000)
+        def call(fn, *args):
+            out = []
+            fn(*args, callback=out.append)
+            while not out:
+                queue.run_one()
+            return out[0]
+        call(nodes[0].create_index, "v", {{
+            "settings": {{"index": {{"number_of_shards": 2,
+                                     "number_of_replicas": 1}}}},
+            "mappings": {{"properties": {{"v": {{
+                "type": "knn_vector", "dimension": 3}}}}}}}})
+        queue.run_until(queue.now_ms + 5000)
+        call(nodes[0].bulk, [("index", {{"_index": "v", "_id": str(i)}},
+                              {{"v": [i, 1, 0]}}) for i in range(8)])
+        call(nodes[0].refresh, "v")
+        for n in nodes:
+            r = call(n.search, "v", {{"query": {{"knn": {{"v": {{
+                "vector": [4.1, 1, 0], "k": 3}}}}}}, "size": 3}})
+            print(",".join(h["_id"] for h in r["hits"]["hits"]))
+        for n in nodes:
+            n.close()
+    """)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["4,5,3"] * 3
+
+
 # an ivf_pq mapping with min_train 64 over 200 docs: the refresh builds an
 # IVF-PQ index and the search takes the per-shard ANN route
 _ANN_METHOD = {"name": "ivf_pq",

@@ -44,9 +44,8 @@ sync, stats and restore, `_reindex`, `_update_by_query`,
 write; snapshot clocks and the remote store's location (each server's
 own directory) are left out of the comparison.
 
-Every (method, path) of the reference's router resolves in the port's: to
-the same ported handler, or to one that answers "not yet ported" (the
-500 envelope), never to a 404 or 405.
+Every (method, path) of the reference's router resolves in the port's, to
+the port handler named after the reference's.
 """
 
 from __future__ import annotations
@@ -1484,17 +1483,16 @@ def test_every_reference_route_resolves_in_the_port(method, template, name):
     ref_handler, ref_params = REF_ROUTER.resolve(method, path)
     handler, params = PORT_ROUTER.resolve(method, path)
     assert params == ref_params
-    if _ref_name(ref_handler) in port_handlers.__dict__ and \
-            getattr(port_handlers, _ref_name(ref_handler)) is handler:
-        return  # a ported handler: the sequence above compares its answers
-    with pytest.raises(NotImplementedError,
-                       match=rf"^{method} .* is not yet ported to "
-                             rf"opensearch_tpu_torch$"):
-        handler(None, params, {}, None)
+    # a ported handler: the sequences above compare its answers
+    assert getattr(port_handlers, _ref_name(ref_handler)) is handler
 
 
 def test_unported_routes_answer_the_500_envelope_and_keep_the_connection(
         tmp_path):
+    """The control plane's routes, once the unported ones: each resolves
+    to the port handler named after the reference's and answers the
+    reference's 200 on one kept-alive connection, which then still serves
+    a search."""
     node = TorchNode(tmp_path, device="cpu")
     srv = HttpServer(node, "127.0.0.1", 0)
     srv.start_in_thread()
@@ -1509,12 +1507,15 @@ def test_unported_routes_answer_the_500_envelope_and_keep_the_connection(
                 ("GET", "/v/_recovery", None),
                 ("GET", "/_cluster/pending_tasks", None),
                 ("GET", "/_recovery", None)):
+            ref_handler, _ = REF_ROUTER.resolve(method, path)
+            handler, _ = PORT_ROUTER.resolve(method, path)
+            assert getattr(port_handlers, _ref_name(ref_handler)) is handler
             status, payload = c(method, path, body)
-            assert status == 500, (path, payload)
-            assert payload["status"] == 500
-            assert payload["error"]["type"] == "exception"
-            assert "not yet ported to opensearch_tpu_torch" in \
-                payload["error"]["reason"]
+            assert status == 200, (path, payload)
+            if path == "/_cluster/state":
+                assert payload["routing_table"]["indices"]["v"]["shards"]
+            if path.endswith("_recovery"):
+                assert payload["v"]["shards"][0]["stage"] == "DONE"
             # the same keep-alive connection still serves a search
             status, payload = c("POST", "/v/_search", {"query": {"knn": {
                 "v": {"vector": [1.0, 0.0], "k": 1}}}})
@@ -1641,10 +1642,9 @@ CONTEXT_ROUTES = (
 
 def test_context_routes_are_served():
     assert len(CONTEXT_ROUTES) == len(set(CONTEXT_ROUTES)) == 47
-    assert len(port_handlers.UNPORTED_ROUTES) == 17
-    assert not set(CONTEXT_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
-    assert ("GET", "/_cluster/pending_tasks") in port_handlers.UNPORTED_ROUTES
-    assert ("GET", "/_cat/pending_tasks") in port_handlers.UNPORTED_ROUTES
+    assert not hasattr(port_handlers, "UNPORTED_ROUTES")
+    _assert_served("GET", "/_cluster/pending_tasks")
+    _assert_served("GET", "/_cat/pending_tasks")
     for method, template in CONTEXT_ROUTES:
         ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
         handler, _ = PORT_ROUTER.resolve(method, _concrete(template))
@@ -1697,14 +1697,13 @@ OPS_ROUTES = (
 
 
 def test_ops_routes_are_served():
-    """The slice's 67 routes left UNPORTED_ROUTES (158 -> 91); the `_cat`
-    tables that need the control plane stay unported."""
+    """The slice's 67 routes, each resolving to the port handler named
+    after the reference's; so do the `_cat` tables of the control plane."""
     assert len(OPS_ROUTES) == len(set(OPS_ROUTES)) == 67
-    assert not set(OPS_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
     for route in (("GET", "/_cat/recovery"), ("GET", "/_cat/pending_tasks"),
                   ("GET", "/_cat/recovery/{index}"),
                   ("GET", "/_cluster/pending_tasks")):
-        assert route in port_handlers.UNPORTED_ROUTES
+        _assert_served(*route)
     for method, template in OPS_ROUTES:
         ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
         handler, _ = PORT_ROUTER.resolve(method, _concrete(template))
@@ -1795,13 +1794,13 @@ ADMIN_ROUTES = (
 
 
 def test_admin_routes_are_served():
-    """The slice's 49 routes left UNPORTED_ROUTES (91 -> 42); the routes
-    that need the control plane or later modules stay unported."""
+    """The slice's 49 routes, each resolving to the port handler named
+    after the reference's; so do the control plane's shard and state
+    routes."""
     assert len(ADMIN_ROUTES) == len(set(ADMIN_ROUTES)) == 49
-    assert not set(ADMIN_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
     for route in (("GET", "/_recovery"), ("GET", "/_shard_stores"),
                   ("GET", "/_remote/info"), ("GET", "/_cluster/state")):
-        assert route in port_handlers.UNPORTED_ROUTES
+        _assert_served(*route)
     for method, template in ADMIN_ROUTES:
         ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
         handler, _ = PORT_ROUTER.resolve(method, _concrete(template))
@@ -1883,14 +1882,22 @@ CONTROL_PLANE_ROUTES = (
 )
 
 
+def _assert_served(method: str, template: str) -> None:
+    """The route resolves to the port handler named after the
+    reference's."""
+    ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
+    handler, _ = PORT_ROUTER.resolve(method, _concrete(template))
+    assert getattr(port_handlers, _ref_name(ref_handler)) is handler
+
+
 def test_backup_routes_are_served():
-    """The slice's 25 routes left UNPORTED_ROUTES (42 -> 17), each
-    resolving to the port handler named after the reference's; the
-    control plane's 17 stay unported."""
+    """The slice's 25 routes and the control plane's 17, each resolving to
+    the port handler named after the reference's."""
     assert len(BACKUP_ROUTES) == len(set(BACKUP_ROUTES)) == 25
-    assert not set(BACKUP_ROUTES) & set(port_handlers.UNPORTED_ROUTES)
-    assert len(port_handlers.UNPORTED_ROUTES) == 17
-    assert set(port_handlers.UNPORTED_ROUTES) == set(CONTROL_PLANE_ROUTES)
+    assert len(CONTROL_PLANE_ROUTES) == len(set(CONTROL_PLANE_ROUTES)) == 17
+    assert not hasattr(port_handlers, "UNPORTED_ROUTES")
+    for route in CONTROL_PLANE_ROUTES:
+        _assert_served(*route)
     for method, template in BACKUP_ROUTES:
         ref_handler, _ = REF_ROUTER.resolve(method, _concrete(template))
         handler, _ = PORT_ROUTER.resolve(method, _concrete(template))

@@ -1,0 +1,54 @@
+"""The engine encodes an indexed document's source once: its translog op is
+``json.dumps`` of the op dict byte for byte, and the segment stores the
+same text, for sources and ids of every JSON kind."""
+
+from __future__ import annotations
+
+import json
+
+import pytest
+
+from opensearch_tpu_torch.index.engine import Engine
+from opensearch_tpu_torch.index.mapper import MapperService
+from opensearch_tpu_torch.index.translog import _HEADER
+
+SOURCES = [
+    {"v": [0.1, -2.5e-07, 3.0], "n": 7},
+    {"title": "café ☃ \"quoted\" \\ slash", "tags": ["a", "b"]},
+    {"nested": {"x": [1, {"y": None}], "ok": True}, "f": 1e30},
+    {},
+]
+
+
+@pytest.mark.parametrize("routing", [None, "ré"])
+def test_translog_ops_and_stored_sources_are_json_dumps(tmp_path, routing):
+    engine = Engine(tmp_path, MapperService(), device="cpu")
+    try:
+        ids = ["1", "déjà", "q\"x", "4"]
+        for doc_id, source in zip(ids, SOURCES):
+            engine.index(doc_id, source, routing=routing)
+        engine.index("1", {"v": [1.5]}, routing=routing)   # an update
+        engine.translog.sync()
+        tl = engine.translog
+        data = tl._gen_path(tl.checkpoint.generation).read_bytes()
+        got, pos = [], 0
+        while pos + _HEADER.size <= len(data):
+            length, _crc = _HEADER.unpack_from(data, pos)
+            pos += _HEADER.size
+            got.append(data[pos:pos + length])
+            pos += length
+        want = [json.dumps({"op": "index", "id": i, "seq_no": n,
+                            "version": 2 if n == 4 else 1, "source": s,
+                            "routing": routing}).encode()
+                for n, (i, s) in enumerate(zip(ids + ["1"],
+                                               SOURCES + [{"v": [1.5]}]))]
+        assert got == want
+        assert [op["seq_no"] for op in tl.read_ops()] == [0, 1, 2, 3, 4]
+        engine.refresh()
+        (host, _dev), = engine._segments
+        stored = dict(zip(host.doc_ids, host.sources))
+        for doc_id, source in zip(ids[1:], SOURCES[1:]):
+            assert stored[doc_id] == json.dumps(source).encode()
+        assert stored["1"] == json.dumps({"v": [1.5]}).encode()
+    finally:
+        engine.close()
