@@ -3,7 +3,8 @@
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
                                     hybrid,large,lexical,aggs,dsl,mesh,
-                                    contexts,ops,admin,backup,cluster]
+                                    contexts,ops,admin,backup,cluster,
+                                    tcp]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -267,7 +268,7 @@ library calls, logged as `large record` lines.
    QPS, device split by stage and the bound.
 
 5. lexical (also after main): the lexical query phase on index L
-   (lexical_main_phase: 200,000 docs of MS MARCO passage-shaped text over
+   (lexical_main_phase: 100,000 docs of MS MARCO passage-shaped text over
    a Zipf vocabulary, a title, a Zipf keyword tag, views, a date and cell
    A's vectors rounded to eighths, one shard by host _bulk), 64 searches
    of each of 18 types: match (or, and), match_phrase, multi_match,
@@ -439,7 +440,8 @@ library calls, logged as `large record` lines.
    index C's queries: each metric_score the search's recall@10, 8 K2
    launches. ``--phases backup`` builds cell A and the ops phase's
    indices on a fresh node and runs it alone.
-14. cluster (with main, last of all, on nodes of its own; cluster_phase):
+14. cluster (with main, after the mesh phase, on nodes of its own;
+   cluster_phase):
    the cluster's core in this process. Three ClusterNodes (n0-n2) on one
    deterministic sim (testing/sim.py: virtual time, an in-memory
    transport that can isolate a node and heal), each on the card; index
@@ -461,6 +463,31 @@ library calls, logged as `large record` lines.
    own hits, one K1 launch each; and the 17 control-plane routes over
    HTTP on a small single node: 200, the reference's keys, no launch.
    At most 45 s. ``--phases cluster`` runs it alone.
+15. tcp (with main, last of all, on servers of its own; tcp_phase): the
+   cluster over sockets. Three ClusterServers of the port (n0-n2: a
+   TcpTransport, a ClusterNode on the card and the ClusterFacade behind
+   the HTTP server) on 127.0.0.1, driven only through their REST ports;
+   each node's disk reading pinned to 50%. Index vecs of 3 shards and 1 replica holds
+   TCP_DOCS 128-d l2 docs from --seed, bulked through n0's _bulk in
+   batches of 1,000 (every item on both copies). Then, each a gate: 16
+   kNN at k = 10 and 16 at k = 100 through each of n0, n1 and n2 (the
+   brute force's ids, scores within the f32 bound, K1 up by the node
+   partials of each search, no per-shard fallback, each serving node
+   building its stacked bundle at most once); 8 HTTP clients x 8 kNN at
+   k = 10 through n1 (each its solo hits bit for bit, at least one K1
+   launch and at most one a node partial; QPS and the batcher's mean
+   merged batch); one _msearch of 32 bare kNN through n2 (each its solo
+   hits bit for bit, at most one K1 launch a data node, msearch[node]
+   RPCs counted); _nodes/stats, _cat/nodes, _cat/recovery, _recovery and
+   _prometheus/metrics?cluster=true answer 200 with no launch and
+   memory_allocated() unchanged; the elected leader's server killed: a
+   new leader, every primary active on the two left, _count the docs,
+   256 of them read back by _mget, 16 kNN at k = 10 the brute
+   force's, no stacked bundle holding one of the killed node's engines
+   and the ledger down by at least their bytes. No K1 launch and no
+   bundle build ran on the transports' event loop. At most 45 s; one
+   `tcp` line of its numbers (each stage's p50 / p99, the parts'
+   seconds). ``--phases tcp`` runs it alone.
 
 Before each phase, a line names it and the wall seconds so far, so a run
 that fails names the phase it died in before the traceback.
@@ -6042,7 +6069,10 @@ def contexts_phase(kf, dev, seed: int) -> dict:
 # surface (the ops phase)
 # --------------------------------------------------------------------------
 
-OPS_DOCS = 20_000
+# the pipeline-fed index and its twin; admin splits the fed one and backup
+# reindexes the twin, both from a REST worker thread, so this depth sets
+# those phases' seconds as well
+OPS_DOCS = 10_000
 OPS_SPAM = 0.01              # share of docs tagged spam, dropped by the pipeline
 OPS_QUERIES = 16             # kNN searches at each k through each expression
 OPS_KS = (10, 100)
@@ -8415,8 +8445,10 @@ def large_records(kf, dev, seed: int, entry: dict, large_mma_entry: dict,
 
 # index L: MS MARCO passage-shaped text (BEIR, Thakur et al. 2021, Table 1:
 # 55.98 words a passage, 5.96 a query) over a Zipf vocabulary, beside
-# cell A's clustered vectors
-LEXICAL_DOCS = 200_000
+# cell A's clustered vectors; 100,000 passages, cut from the corpus's 8.8M by
+# the default run's time (its host ingest, aggregations and DSL loops move
+# with the docs)
+LEXICAL_DOCS = 100_000
 LEXICAL_VOCAB = 100_000
 LEXICAL_ZIPF_S = 1.07
 LEXICAL_TAGS = 1_000
@@ -10950,8 +10982,10 @@ def dsl_phase(kf, dev, seed: int, n_docs: int = LEXICAL_DOCS) -> dict:
 # the cluster's core: three sim nodes in this process (cluster phase)
 # --------------------------------------------------------------------------
 
-CLUSTER_DOCS = 10_000         # index vecs (cut from SIFT-1M by the phase's
-                              # 45 s: at 20,000 it took 44.6 on the card)
+CLUSTER_DOCS = 5_000          # index vecs (cut from SIFT-1M by the phase's
+                              # 45 s: at 20,000 it took 44.6 on the card;
+                              # then by the default run's time: 10,000 took
+                              # 23.6 s of a 1,093 s run on a slow host)
 CLUSTER_BATCH = 1_000         # docs a bulk through n0
 CLUSTER_QUERIES = 16          # kNN a k (10 and 100) a stage
 CLUSTER_REMOTE_DOCS = 2_000   # the cross-cluster remote's index
@@ -11099,6 +11133,41 @@ class _Sim:
             node.close()
 
 
+def knn_hits_check(kf, label: str, resp: dict, q: np.ndarray, want: list,
+                   data: np.ndarray, dev, allow_failed: bool = False) -> tuple:
+    """A bare l2 kNN's response against the brute force: no error, no
+    failed shard (unless allowed), the ids `want` in order, each score
+    within the f32 bound of its doc's f64 score. Returns (failed shards,
+    worst |score - f64 score|)."""
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+
+    if "error" in resp:
+        raise AssertionError(f"{label}: {resp}")
+    failed = resp["_shards"]["failed"]
+    if failed and not allow_failed:
+        raise AssertionError(f"{label}: _shards {resp['_shards']}")
+    hits = resp["hits"]["hits"]
+    got = [h["_id"] for h in hits]
+    if got != want:
+        raise AssertionError(f"{label}: {got} != brute force {want}")
+    rows = torch.from_numpy(data[[int(i) for i in got]]).to(dev)
+    qt = torch.from_numpy(q).to(dev)
+    lo, hi = f32_score_bounds(
+        kf, rows.double(), qt.double(),
+        kr.plain_query_sq(qt[None])[0].double(),
+        (rows.double() ** 2).sum(1).float().double(), "l2_norm")
+    scores = torch.tensor([h["_score"] for h in hits],
+                          dtype=torch.float64, device=dev)
+    bad = (scores < lo) | (scores > hi)
+    if bool(bad.any()):
+        j = int(bad.nonzero()[0])
+        raise AssertionError(
+            f"{label}: hit {got[j]} score {float(scores[j])!r} outside its "
+            f"f32 bound [{float(lo[j])!r}, {float(hi[j])!r}]")
+    exact = 1.0 / (1.0 + ((rows.double() - qt.double()) ** 2).sum(1))
+    return failed, float((scores - exact).abs().max())
+
+
 def cluster_knn_stage(sim, kf, via: str, label: str, index: str,
                       data: np.ndarray, queries: np.ndarray, truth: dict,
                       dev, ks=(10, 100), allow_failed: bool = False) -> dict:
@@ -11112,7 +11181,6 @@ def cluster_knn_stage(sim, kf, via: str, label: str, index: str,
     after a node loss or a drain each rebuilds once). Returns the stage's
     counts and walls."""
     from opensearch_tpu_torch.cluster.shard_mesh import default_registry
-    from opensearch_tpu_torch.ops import knn_rescore as kr
 
     node = sim.nodes[via]
     out = {"searches": 0, "node_partials": 0, "launches": 0, "failed": 0,
@@ -11135,36 +11203,11 @@ def cluster_knn_stage(sim, kf, via: str, label: str, index: str,
                         - before[1])
             fallback = (sim.sends.get("indices:data/read/search[shard]", 0)
                         - before[2])
-            if "error" in resp:
-                raise AssertionError(f"[{label}] k={k} query {qi}: {resp}")
-            failed = resp["_shards"]["failed"]
-            if failed and not allow_failed:
-                raise AssertionError(f"[{label}] k={k} query {qi}: "
-                                     f"_shards {resp['_shards']}")
+            failed, err = knn_hits_check(kf, f"[{label}] k={k} query {qi}",
+                                         resp, q, truth[k][qi], data, dev,
+                                         allow_failed)
             out["failed"] += failed
-            hits = resp["hits"]["hits"]
-            got = [h["_id"] for h in hits]
-            if got != truth[k][qi]:
-                raise AssertionError(f"[{label}] k={k} query {qi}: {got} != "
-                                     f"brute force {truth[k][qi]}")
-            rows = torch.from_numpy(data[[int(i) for i in got]]).to(dev)
-            qt = torch.from_numpy(q).to(dev)
-            lo, hi = f32_score_bounds(
-                kf, rows.double(), qt.double(),
-                kr.plain_query_sq(qt[None])[0].double(),
-                (rows.double() ** 2).sum(1).float().double(), "l2_norm")
-            scores = torch.tensor([h["_score"] for h in hits],
-                                  dtype=torch.float64, device=dev)
-            bad = (scores < lo) | (scores > hi)
-            if bool(bad.any()):
-                j = int(bad.nonzero()[0])
-                raise AssertionError(
-                    f"[{label}] k={k} query {qi}: hit {got[j]} score "
-                    f"{float(scores[j])!r} outside its f32 bound "
-                    f"[{float(lo[j])!r}, {float(hi[j])!r}]")
-            exact = 1.0 / (1.0 + ((rows.double() - qt.double()) ** 2).sum(1))
-            out["worst_abs_err"] = max(out["worst_abs_err"], float(
-                (scores - exact).abs().max()))
+            out["worst_abs_err"] = max(out["worst_abs_err"], err)
             if dev.type == "cuda":
                 if fallback or not 1 <= partials <= 3 \
                         or launches != partials:
@@ -11431,6 +11474,556 @@ def cluster_phase(kf, dev, seed: int, n_docs: int = CLUSTER_DOCS,
                            "restored")) + sum(out["cross_cluster_launches"])
     out["wall_s"] = time.perf_counter() - t_phase
     log(f"[cluster] record: {json.dumps(out)}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# the cluster over sockets: three ClusterServers on loopback (tcp phase)
+# --------------------------------------------------------------------------
+
+TCP_DOCS = 5_000              # index vecs (cut from SIFT-1M by the phase's
+                              # 45 s: at 10,000 it took 45.5 on the card,
+                              # the ingest over HTTP and TCP 21.7 of it)
+TCP_BATCH = 1_000             # docs a _bulk through n0
+TCP_QUERIES = 16              # kNN a k a node, and after the leader kill
+TCP_CLIENTS = 8               # concurrent HTTP clients through n1
+TCP_PER_CLIENT = 8            # kNN a client
+TCP_MSEARCH = 32              # bare kNN in the _msearch through n2
+TCP_MGET = 256                # acked docs read back by _mget after the kill
+TCP_DISK_PCT = 50.0           # each node's disk reading (see _TcpCluster)
+TCP_WALL_S = 45
+TCP_BOOT_ATTEMPTS = 5
+TCP_ROUTES = ("/_nodes/stats", "/_cat/nodes", "/_cat/recovery", "/_recovery",
+              "/_prometheus/metrics?cluster=true")
+SEARCH_NODE = "indices:data/read/search[node]"
+MSEARCH_NODE = "indices:data/read/msearch[node]"
+SEARCH_SHARD = "indices:data/read/search[shard]"
+
+
+class _TcpCluster:
+    """Three ClusterServers of the port (n0-n2) on 127.0.0.1, on `dev`,
+    their transports' event loop on a thread of its own; every message a
+    transport sends counted by action, and each search[node] /
+    msearch[node] RPC's target kept.
+
+    Each node reads its disk as TCP_DISK_PCT: the three share one host
+    disk, whose fill is not the cluster's, and over the 90% high
+    watermark the disk-threshold decider would leave every replica
+    unassigned. A boot that meets EADDRINUSE runs again on fresh
+    ports."""
+
+    def __init__(self, path, dev):
+        import asyncio
+
+        self.asyncio = asyncio
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever,
+                                       daemon=True, name="tcp-transport")
+        self.thread.start()
+        self.node_ids = ["n0", "n1", "n2"]
+        self.servers: dict = {}
+        self.rest: dict = {}
+        self.sends: dict[str, int] = {}
+        self.partial_targets: list[str] = []
+        self._lock = threading.Lock()
+        try:
+            self.run(self._boot(path, dev))
+            self.rest = {nid: RestClient(self.http_ports[nid])
+                         for nid in self.node_ids}
+        except BaseException:
+            self.close()
+            raise
+
+    def run(self, coro, timeout: float = 120.0):
+        return self.asyncio.run_coroutine_threadsafe(coro, self.loop).result(
+            timeout)
+
+    def _count(self, transport) -> None:
+        send = transport.send
+
+        def counted(sender, target, action, *a, **kw):
+            with self._lock:
+                self.sends[action] = self.sends.get(action, 0) + 1
+                if action in (SEARCH_NODE, MSEARCH_NODE):
+                    self.partial_targets.append(target)
+            return send(sender, target, action, *a, **kw)
+
+        transport.send = counted
+
+    async def _boot(self, path, dev) -> None:
+        import errno
+
+        from opensearch_tpu_torch.server import ClusterServer
+        from opensearch_tpu_torch.testing.soak_tcp import free_ports
+
+        for attempt in range(TCP_BOOT_ATTEMPTS):
+            ports = free_ports(2 * len(self.node_ids))
+            self.seeds = {nid: ("127.0.0.1", ports[i])
+                          for i, nid in enumerate(self.node_ids)}
+            self.http_ports = {nid: ports[len(self.node_ids) + i]
+                               for i, nid in enumerate(self.node_ids)}
+            try:
+                for nid in self.node_ids:
+                    srv = ClusterServer(
+                        nid, path / f"boot{attempt}" / nid, "127.0.0.1",
+                        self.seeds[nid][1], self.http_ports[nid], self.seeds,
+                        loop=self.loop, device=dev)
+                    srv.node.disk_usage_pct = TCP_DISK_PCT
+                    self._count(srv.transport)
+                    self.servers[nid] = srv
+                    await srv.start(bootstrap=self.node_ids)
+                return
+            except OSError as e:
+                if e.errno != errno.EADDRINUSE \
+                        or attempt == TCP_BOOT_ATTEMPTS - 1:
+                    raise
+                log(f"[tcp] boot {attempt}: {e}; again on fresh ports")
+                await self._close_servers()
+
+    async def _close_servers(self) -> None:
+        for srv in self.servers.values():
+            await srv.aclose()
+        self.servers.clear()
+
+    def count(self, action: str) -> int:
+        with self._lock:
+            return self.sends.get(action, 0)
+
+    def leader(self, timeout_s: float = 60.0) -> str:
+        """The one leader every live node agrees on."""
+        deadline = time.perf_counter() + timeout_s
+        while time.perf_counter() < deadline:
+            leaders = {nid for nid, srv in self.servers.items()
+                       if srv.node.is_leader}
+            known = {srv.node.coordinator.leader_id
+                     for srv in self.servers.values()}
+            if len(leaders) == 1 and known == leaders:
+                return next(iter(leaders))
+            time.sleep(0.02)
+        raise AssertionError(f"[tcp] no stable leader in {timeout_s} s")
+
+    def health(self, via: str, ok, what: str,
+               timeout_s: float = 60.0) -> dict:
+        """Poll _cluster/health through `via` until ok(health)."""
+        deadline = time.perf_counter() + timeout_s
+        health = None
+        while time.perf_counter() < deadline:
+            status, health = self.rest[via]("GET", "/_cluster/health")
+            if status == 200 and ok(health):
+                return health
+            time.sleep(0.05)
+        raise AssertionError(f"[tcp] {what}: not reached in {timeout_s} s: "
+                             f"{health}")
+
+    def kill(self, nid: str) -> None:
+        """The node's process dies: its REST port, its transport and its
+        ClusterNode close."""
+        self.rest.pop(nid).close()
+        srv = self.servers.pop(nid)
+        self.run(srv.aclose())
+
+    def close(self) -> None:
+        for rest in self.rest.values():
+            rest.close()
+        self.rest = {}
+        try:
+            self.run(self._close_servers())
+        finally:
+            self.loop.call_soon_threadsafe(self.loop.stop)
+            self.thread.join(30)
+            self.loop.close()
+
+
+def tcp_knn_body(q: np.ndarray, k: int) -> dict:
+    return {"query": {"knn": {"v": {"vector": q.tolist(), "k": k}}},
+            "size": k}
+
+
+def tcp_phase(kf, dev, seed: int, n_docs: int = TCP_DOCS) -> dict:
+    """The cluster over sockets (``--phases tcp``; after the cluster phase
+    by default, on servers of its own): three port ClusterServers on
+    loopback TCP, driven only through their REST ports."""
+    from opensearch_tpu_torch.cluster.shard_mesh import (_bundle_nbytes,
+                                                         default_registry)
+    from opensearch_tpu_torch.search.batcher import default_batcher
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 250)
+    data = rng.standard_normal((n_docs, DIM)).astype(np.float32)
+    queries = rng.standard_normal((TCP_QUERIES + TCP_MSEARCH, DIM)).astype(
+        np.float32)
+    ids = [str(i) for i in range(n_docs)]
+    truth = {10: brute_ids(kf, data, queries, 10, ids, dev),
+             100: brute_ids(kf, data, queries[:TCP_QUERIES], 100, ids, dev)}
+    out: dict = {"docs": n_docs}
+    parts = out["parts_s"] = {"truth": time.perf_counter() - t_phase}
+    cuda = dev.type == "cuda"
+    # no K1 launch and no stacked-bundle build may run on the transports'
+    # event loop: heartbeats and elections run there
+    on_loop: list = []
+    put, add = default_registry.put, kf.launches.add
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cl = _TcpCluster(pathlib.Path(tmp), dev)
+
+        def audited_put(*a, **kw):
+            if threading.current_thread() is cl.thread:
+                on_loop.append("bundle build")
+            return put(*a, **kw)
+
+        def audited_add():
+            if threading.current_thread() is cl.thread:
+                on_loop.append("K1 launch")
+            return add()
+
+        default_registry.put = audited_put
+        kf.launches.add = audited_add
+        try:
+            leader = cl.leader()
+            out["boot_leader"] = leader
+            status, resp = cl.rest["n0"]("PUT", "/vecs", {
+                "settings": {"index": {
+                    "number_of_shards": 3, "number_of_replicas": 1,
+                    # the translog syncs at its interval, as in the
+                    # cluster phase: no gate reads the disk
+                    "translog": {"durability": "async"}}},
+                "mappings": {"properties": {"v": {
+                    "type": "knn_vector", "dimension": DIM,
+                    "similarity": "l2_norm"}}}})
+            if status != 200 or not resp.get("acknowledged"):
+                raise AssertionError(f"[tcp] create [vecs]: {status} {resp}")
+            cl.health("n0", lambda h: h["status"] == "green"
+                      and h["active_shards"] == 6, "[vecs] green")
+            parts["boot"] = time.perf_counter() - t0
+            log(f"[tcp] 3 ClusterServers on {dev} (leader {leader}): [vecs] "
+                f"green in {parts['boot']:.2f} s")
+
+            t0 = time.perf_counter()
+            for lo in range(0, n_docs, TCP_BATCH):
+                nd = [x for i in range(lo, min(lo + TCP_BATCH, n_docs))
+                      for x in ({"index": {"_index": "vecs", "_id": str(i)}},
+                                {"v": data[i].tolist()})]
+                status, resp = cl.rest["n0"]("POST", "/_bulk", ndjson=nd)
+                if status != 200 or resp.get("errors"):
+                    raise AssertionError(f"[tcp] _bulk into [vecs]: {status} "
+                                         f"{str(resp)[:300]}")
+                bad = [it for it in resp["items"]
+                       if it["index"]["_shards"]["failed"]
+                       or it["index"]["_shards"]["successful"] != 2]
+                if bad:
+                    raise AssertionError(f"[tcp] _bulk items not on both "
+                                         f"copies: {bad[:3]}")
+            status, resp = cl.rest["n0"]("POST", "/vecs/_refresh")
+            if status != 200:
+                raise AssertionError(f"[tcp] _refresh: {status} {resp}")
+            out["ingest_s"] = time.perf_counter() - t0
+            out["ingest_us_a_doc"] = out["ingest_s"] / n_docs * 1e6
+            status, resp = cl.rest["n1"]("POST", "/vecs/_count", {})
+            if status != 200 or resp["count"] != n_docs:
+                raise AssertionError(f"[tcp] _count: {status} {resp}")
+            parts["ingest"] = out["ingest_s"]
+            log(f"[tcp] ingest of {n_docs} docs (3 shards, 1 replica) through "
+                f"n0's _bulk in batches of {TCP_BATCH}: "
+                f"{out['ingest_s']:.2f} s, {out['ingest_us_a_doc']:.1f} us a "
+                f"doc")
+
+            def knn(via: str, label: str, qs, want, k: int,
+                    solo: dict | None = None) -> dict:
+                """Bare kNN through `via`'s REST port one at a time: the
+                brute force's hits, and on the card K1 up by the search's
+                node partials with no per-shard fallback."""
+                st = {"searches": 0, "node_partials": 0, "launches": 0,
+                      "worst_abs_err": 0.0}
+                walls = []
+                for qi, q in enumerate(qs):
+                    before = (kf.launches.count, cl.count(SEARCH_NODE),
+                              cl.count(SEARCH_SHARD))
+                    t1 = time.perf_counter()
+                    status, resp = cl.rest[via](
+                        "POST", "/vecs/_search", tcp_knn_body(q, k))
+                    walls.append(time.perf_counter() - t1)
+                    launches = kf.launches.count - before[0]
+                    partials = cl.count(SEARCH_NODE) - before[1]
+                    fallback = cl.count(SEARCH_SHARD) - before[2]
+                    tag = f"[tcp {label}] via {via} k={k} query {qi}"
+                    if status != 200:
+                        raise AssertionError(f"{tag}: {status} {resp}")
+                    _f, err = knn_hits_check(kf, tag, resp, q, want[qi],
+                                             data, dev)
+                    st["worst_abs_err"] = max(st["worst_abs_err"], err)
+                    if cuda and (fallback or not 1 <= partials <= 3
+                                 or launches != partials):
+                        raise AssertionError(
+                            f"{tag}: {launches} K1 launches for {partials} "
+                            f"node partials ({fallback} per-shard "
+                            f"fallbacks)")
+                    st["searches"] += 1
+                    st["node_partials"] += partials
+                    st["launches"] += launches
+                    if solo is not None:
+                        solo[(via, k, qi)] = [(h["_id"], h["_score"])
+                                              for h in resp["hits"]["hits"]]
+                st["search_ms"] = latency_summary(walls)
+                return st
+
+            # 1. every node
+            t0 = time.perf_counter()
+            solo: dict = {}
+            builds0 = default_registry.stats["builds"]
+            targets0 = len(cl.partial_targets)
+            tiers0 = (kf.list_launches.count, kf.wide_launches.count)
+            every = {}
+            for via in cl.node_ids:
+                for k in (10, 100):
+                    every[f"{via} k={k}"] = knn(
+                        via, "every node", queries[:TCP_QUERIES],
+                        truth[k], k, solo)
+            stage = out["every_node"] = {
+                "searches": sum(r["searches"] for r in every.values()),
+                "node_partials": sum(r["node_partials"]
+                                     for r in every.values()),
+                "launches": sum(r["launches"] for r in every.values()),
+                "list_launches": kf.list_launches.count - tiers0[0],
+                "wide_launches": kf.wide_launches.count - tiers0[1],
+                "builds": default_registry.stats["builds"] - builds0,
+                "serving_nodes": sorted(set(
+                    cl.partial_targets[targets0:])),
+                "worst_abs_err": max(r["worst_abs_err"]
+                                     for r in every.values()),
+                "search_ms": {key: r["search_ms"]
+                              for key, r in every.items()}}
+            if not 1 <= stage["builds"] <= len(stage["serving_nodes"]):
+                raise AssertionError(f"[tcp every node] {stage['builds']} "
+                                     f"bundle builds on "
+                                     f"{stage['serving_nodes']}")
+            if cuda and stage["list_launches"] + stage["wide_launches"] \
+                    != stage["launches"]:
+                raise AssertionError(f"[tcp every node] K1 tiers: {stage}")
+            parts["every_node"] = time.perf_counter() - t0
+            log(f"[tcp every node] {stage['searches']} kNN through n0, n1 "
+                f"and n2 equal the brute force: {json.dumps(stage)}")
+
+            # 2. concurrency: TCP_CLIENTS clients through n1
+            t0 = time.perf_counter()
+            clients = [RestClient(cl.http_ports["n1"])
+                       for _ in range(TCP_CLIENTS)]
+            gate = threading.Barrier(TCP_CLIENTS)
+            got: dict = {}
+            lat: list = []
+            errors: list = []
+
+            def client(c: int) -> None:
+                try:
+                    gate.wait()
+                    for j in range(TCP_PER_CLIENT):
+                        qi = (c * TCP_PER_CLIENT + j) % TCP_QUERIES
+                        t1 = time.perf_counter()
+                        status, resp = clients[c](
+                            "POST", "/vecs/_search",
+                            tcp_knn_body(queries[qi], 10))
+                        lat.append(time.perf_counter() - t1)
+                        if status != 200:
+                            raise AssertionError(f"{status} {resp}")
+                        got[(c, j)] = (qi, [(h["_id"], h["_score"])
+                                            for h in resp["hits"]["hits"]])
+                except BaseException as e:  # noqa: BLE001 - reported below
+                    errors.append(e)
+
+            batch0 = default_batcher.snapshot_stats()
+            before = (kf.launches.count, cl.count(SEARCH_NODE))
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(TCP_CLIENTS)]
+            t1 = time.perf_counter()
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            wall = time.perf_counter() - t1
+            for c in clients:
+                c.close()
+            if errors:
+                raise AssertionError(f"[tcp concurrent] {errors[0]!r}")
+            for (c, j), (qi, hits) in sorted(got.items()):
+                concurrent_check("tcp concurrent via n1", c * TCP_PER_CLIENT
+                                 + j, hits, solo[("n1", 10, qi)])
+            batch1 = default_batcher.snapshot_stats()
+            dispatches = batch1["dispatches"] - batch0["dispatches"]
+            stage = out["concurrent"] = {
+                "searches": len(got),
+                "launches": kf.launches.count - before[0],
+                "node_partials": cl.count(SEARCH_NODE) - before[1],
+                "dispatches": dispatches,
+                "mean_merged_batch": (
+                    (batch1["merged_queries"] - batch0["merged_queries"])
+                    / dispatches if dispatches else 0.0),
+                "search_ms": latency_summary(lat, wall)}
+            if cuda and not 1 <= stage["launches"] <= stage["node_partials"]:
+                raise AssertionError(f"[tcp concurrent] {stage}")
+            parts["concurrent"] = time.perf_counter() - t0
+            log(f"[tcp concurrent] {TCP_CLIENTS} clients x {TCP_PER_CLIENT} "
+                f"kNN through n1, each its solo hits bit for bit: "
+                f"{json.dumps(stage)}")
+
+            # 3. one _msearch of TCP_MSEARCH bare kNN through n2
+            t0 = time.perf_counter()
+            mq = queries[TCP_QUERIES:]
+            msolo: dict = {}
+            out["msearch_solo"] = knn("n2", "msearch solo", mq,
+                                      truth[10][TCP_QUERIES:], 10, msolo)
+            nd = [x for q in mq
+                  for x in ({"index": "vecs"}, tcp_knn_body(q, 10))]
+            before = (kf.launches.count, cl.count(MSEARCH_NODE),
+                      cl.count(SEARCH_NODE))
+            t1 = time.perf_counter()
+            status, resp = cl.rest["n2"]("POST", "/_msearch", ndjson=nd)
+            msearch_s = time.perf_counter() - t1
+            if status != 200 or len(resp["responses"]) != len(mq):
+                raise AssertionError(f"[tcp msearch] {status} "
+                                     f"{str(resp)[:300]}")
+            for qi, r in enumerate(resp["responses"]):
+                if "error" in r:
+                    raise AssertionError(f"[tcp msearch] query {qi}: {r}")
+                concurrent_check("tcp msearch via n2", qi,
+                                 [(h["_id"], h["_score"])
+                                  for h in r["hits"]["hits"]],
+                                 msolo[("n2", 10, qi)])
+            stage = out["msearch"] = {
+                "searches": len(mq), "ms": msearch_s * 1e3,
+                "launches": kf.launches.count - before[0],
+                "msearch_node": cl.count(MSEARCH_NODE) - before[1],
+                "search_node": cl.count(SEARCH_NODE) - before[2]}
+            if cuda and not 1 <= stage["launches"] <= stage["msearch_node"] \
+                    <= 3:
+                raise AssertionError(f"[tcp msearch] {stage}: more than one "
+                                     f"K1 launch a data node")
+            parts["msearch"] = time.perf_counter() - t0
+            log(f"[tcp msearch] {len(mq)} bare kNN in one _msearch through "
+                f"n2, each its solo hits bit for bit: {json.dumps(stage)}")
+
+            # 4. the facade's own routes: no launch, no device memory
+            t0 = time.perf_counter()
+            if cuda:
+                torch.cuda.synchronize()
+            counts0 = _launch_counts()
+            mem0 = torch.cuda.memory_allocated() if cuda else 0
+            routes = {}
+            for path in TCP_ROUTES:
+                t1 = time.perf_counter()
+                status, resp = _http_get(cl.rest["n0"], path)
+                routes[path] = (time.perf_counter() - t1) * 1e3
+                if status != 200:
+                    raise AssertionError(f"[tcp routes] GET {path}: {status} "
+                                         f"{str(resp)[:300]}")
+            moved = {key: n - counts0[key]
+                     for key, n in _launch_counts().items()
+                     if n != counts0[key]}
+            mem1 = torch.cuda.memory_allocated() if cuda else 0
+            if moved or mem1 != mem0:
+                raise AssertionError(f"[tcp routes] launched {moved}, "
+                                     f"memory_allocated {mem0} -> {mem1}")
+            out["routes_ms"] = routes
+            parts["routes"] = time.perf_counter() - t0
+            log(f"[tcp routes] {len(TCP_ROUTES)} facade routes answer 200 "
+                f"through n0 with no launch and memory_allocated() "
+                f"unchanged: {json.dumps(routes)}")
+
+            # 5. leader kill
+            t0 = time.perf_counter()
+            leader = cl.leader()
+            engines = {sh.engine.instance_id for sh
+                       in cl.servers[leader].node.local_shards.values()}
+            with default_registry._lock:
+                held = [key for key in default_registry._bundles
+                        if engines & set(key[3])]
+                held_bytes = sum(_bundle_nbytes(default_registry._bundles[key])
+                                 for key in held)
+            ledger0 = sum(default_ledger.device_totals().values())
+            cl.kill(leader)
+            with default_registry._lock:
+                stale = [key for key in default_registry._bundles
+                         if engines & set(key[3])]
+            fell = ledger0 - sum(default_ledger.device_totals().values())
+            if stale or fell < held_bytes:
+                raise AssertionError(
+                    f"[tcp kill] {leader}'s bundles left: {stale}; the "
+                    f"ledger fell {fell} bytes, its bundles held "
+                    f"{held_bytes}")
+            t1 = time.perf_counter()
+            new_leader = cl.leader()
+            election_s = time.perf_counter() - t1
+            if new_leader == leader:
+                raise AssertionError(f"[tcp kill] {leader} still leads")
+            via = new_leader
+            t1 = time.perf_counter()
+            health = cl.health(
+                via, lambda h: h["number_of_nodes"] == 2
+                and h["active_primary_shards"] == 3
+                and h["status"] in ("green", "yellow"),
+                f"{leader} gone and every primary active")
+            health_s = time.perf_counter() - t1
+            status, resp = cl.rest[via]("POST", "/vecs/_count", {})
+            if status != 200 or resp["count"] != n_docs:
+                raise AssertionError(f"[tcp kill] _count through {via}: "
+                                     f"{status} {resp}")
+            # every acked doc counted above; TCP_MGET of them read back
+            # by _mget (one get a doc on the facade), each source the one
+            # written
+            t1 = time.perf_counter()
+            sample = sorted(rng.choice(n_docs, TCP_MGET, replace=False))
+            status, resp = cl.rest[via]("POST", "/vecs/_mget", {
+                "ids": [ids[i] for i in sample]})
+            if status != 200:
+                raise AssertionError(f"[tcp kill] _mget: {status} "
+                                     f"{str(resp)[:300]}")
+            for i, doc in zip(sample, resp["docs"]):
+                if not doc.get("found") or \
+                        doc["_source"]["v"] != data[i].tolist():
+                    raise AssertionError(f"[tcp kill] acked doc {i} not "
+                                         f"read back: {str(doc)[:300]}")
+            readback_s = time.perf_counter() - t1
+            after = knn(via, "after the kill", queries[:TCP_QUERIES],
+                        truth[10], 10)
+            stage = out["leader_kill"] = {
+                "killed": leader, "new_leader": new_leader,
+                "bundles_dropped": len(held), "bundle_bytes": held_bytes,
+                "ledger_fell_bytes": fell, "election_s": election_s,
+                "health_s": health_s, "status": health["status"],
+                "readback_s": readback_s, **after}
+            parts["leader_kill"] = time.perf_counter() - t0
+            log(f"[tcp kill] {leader} killed, {new_leader} leads; every "
+                f"acked doc read back through {via}, its kNN the brute "
+                f"force's: {json.dumps(stage)}")
+        finally:
+            default_registry.put = put
+            kf.launches.add = add
+            t0 = time.perf_counter()
+            cl.close()
+            parts["close"] = time.perf_counter() - t0
+    if on_loop:
+        raise AssertionError(f"[tcp] on the transport loop: {on_loop[:5]}")
+    out["launches"] = {key: out[key]["launches"] for key in
+                       ("every_node", "concurrent", "msearch", "leader_kill")}
+    out["launches"]["msearch_solo"] = out["msearch_solo"]["launches"]
+    out["wall_s"] = time.perf_counter() - t_phase
+    summary = {
+        "wall_s": out["wall_s"], "parts_s": parts,
+        "ingest_us_a_doc": out["ingest_us_a_doc"],
+        "every_node_ms": {key: {q: v for q, v in r.items() if q != "qps"}
+                          for key, r in
+                          out["every_node"]["search_ms"].items()},
+        "concurrent_ms": out["concurrent"]["search_ms"],
+        "mean_merged_batch": out["concurrent"]["mean_merged_batch"],
+        "msearch_ms": out["msearch"]["ms"],
+        "leader_kill_ms": out["leader_kill"]["search_ms"],
+        "election_s": out["leader_kill"]["election_s"],
+        "health_s": out["leader_kill"]["health_s"],
+        "launches": out["launches"],
+        "builds": out["every_node"]["builds"]}
+    log(f"tcp {json.dumps(summary)}")
+    if out["wall_s"] > TCP_WALL_S:
+        raise AssertionError(f"[tcp] the phase took {out['wall_s']:.1f} s, "
+                             f"over its {TCP_WALL_S} s")
     return out
 
 
@@ -11958,7 +12551,8 @@ def main() -> int:
         log(f"mesh record: {json.dumps(mesh)}")
         phase_s["mesh"] = time.perf_counter() - t0
     if phases & {"main", "cluster"}:
-        # last of all, on three sim nodes and two TorchNodes of its own:
+        # last but the tcp phase, on three sim nodes and two TorchNodes of
+        # its own:
         # the ClusterNodes write the process-wide batcher's, recorder's
         # and settings consumers' state, so nothing earlier reads it
         phase_start("cluster")
@@ -11971,6 +12565,18 @@ def main() -> int:
         if entry["launches"] is None:
             entry["launches"] = cluster["launches"]
         phase_s["cluster"] = time.perf_counter() - t0
+    if phases & {"main", "tcp"}:
+        # after the cluster phase, on three ClusterServers of its own
+        phase_start("tcp")
+        t0 = time.perf_counter()
+        tcp = tcp_phase(kf, dev, args.seed)
+        # K1's launches of each stage: a launch a node partial, fewer under
+        # the concurrent clients' merges, one a data node for the _msearch
+        entry["tcp_launches"] = tcp["launches"]
+        entry["tcp_main_path"] = tcp
+        if entry["launches"] is None:
+            entry["launches"] = sum(tcp["launches"].values())
+        phase_s["tcp"] = time.perf_counter() - t0
     log(f"phase wall seconds: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": [entry, large_mma_entry, select_entry,
                                   entry2, lut_entry,

@@ -178,6 +178,14 @@ class Coordinator:
     def _become_leader(self) -> None:
         if self._stopped:
             return
+        # a publication this node began in an earlier term of its own died
+        # with that leadership (its acks carry the old term and are
+        # refused): the new term's first publication must not wait for its
+        # 30 s timeout (OpenSearch cancels the active publication when a
+        # node turns candidate; the reference keeps the flag set, and a
+        # follower race for a dead leader then holds the node's removal 30
+        # s). The stale timer is harmless: its sequence number is spent.
+        self._publishing = False
         self._cancel_timers()
         self.mode = Mode.LEADER
         self.leader_id = self.node_id

@@ -198,9 +198,12 @@ class Engine:
         seq_no: int | None = None,
         version: int | None = None,
         version_type: str = "internal",
+        source_json: str | None = None,
     ) -> OpResult:
         """Index one document (InternalEngine.index:863). `seq_no` is set
-        only on the replica/recovery replay path."""
+        only on the replica/recovery replay path. `source_json`, where the
+        caller already holds it, is ``json.dumps(source)``: the text is
+        then not encoded a second time."""
         t0 = time.monotonic()
         entry = self.version_map.get(doc_id)
         if if_seq_no is not None:
@@ -232,16 +235,16 @@ class Engine:
         # the source's JSON once: the translog op below is byte for byte
         # json.dumps({"op", "id", "seq_no", "version", "source",
         # "routing"}), and the segment stores the same text at refresh
-        parsed.source_json = json.dumps(source)
+        parsed.source_json = (source_json if source_json is not None
+                              else json.dumps(source))
         self._buffer_put(parsed, op_seq)
         self.version_map[doc_id] = VersionEntry(op_seq, version)
-        self.translog.add_payload(
-            ('{"op": "index", "id": ' + json.dumps(doc_id)
-             + ', "seq_no": ' + json.dumps(op_seq)
-             + ', "version": ' + json.dumps(version)
-             + ', "source": ' + parsed.source_json
-             + ', "routing": ' + json.dumps(routing) + '}').encode(),
-            op_seq)
+        self.translog.add_payload("".join((
+            '{"op": "index", "id": ', json.dumps(doc_id),
+            ', "seq_no": ', json.dumps(op_seq),
+            ', "version": ', json.dumps(version),
+            ', "source": ', parsed.source_json,
+            ', "routing": ', json.dumps(routing), '}')).encode(), op_seq)
         self._sync_needed = True
         self.tracker.mark_seq_no_as_processed(op_seq)
         self.stats["index_total"] += 1

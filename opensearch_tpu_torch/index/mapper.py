@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import datetime as _dt
 import math
+from itertools import repeat
 from dataclasses import dataclass, field as dc_field
 from typing import Any
 
@@ -653,7 +654,7 @@ class MapperService:
         for key, value in obj.items():
             full = f"{prefix}{key}"
             if isinstance(value, list) and any(
-                isinstance(v, dict) for v in value
+                map(isinstance, value, repeat(dict))
             ):
                 # arrays of objects: each element indexes independently
                 # (DocumentParser.parseArray — fields flatten to
@@ -1207,7 +1208,7 @@ class MapperService:
             elif mapper.type == "dense_vector":
                 if pf.vector is not None:
                     raise ValueError("multiple vectors for one field")
-                vec = [float(v) for v in values]
+                vec = list(map(float, values))
                 if len(vec) != mapper.dims:
                     raise ValueError(
                         f"vector length {len(vec)} != dims {mapper.dims}"

@@ -95,10 +95,11 @@ class IndexShard:
     def apply_index_on_primary(
         self, doc_id: str, source: dict, routing: str | None = None,
         if_seq_no: int | None = None, version: int | None = None,
-        version_type: str = "internal",
+        version_type: str = "internal", source_json: str | None = None,
     ) -> OpResult:
         return self.engine.index(doc_id, source, routing, if_seq_no=if_seq_no,
-                                 version=version, version_type=version_type)
+                                 version=version, version_type=version_type,
+                                 source_json=source_json)
 
     def apply_index_on_replica(
         self, doc_id: str, source: dict, seq_no: int, routing: str | None = None

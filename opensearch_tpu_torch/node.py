@@ -1806,7 +1806,8 @@ class TorchNode:
                 parsed, _seq = entry
                 tgt_svc.shard_for(parsed.doc_id, parsed.routing) \
                     .apply_index_on_primary(parsed.doc_id, parsed.source,
-                                            parsed.routing)
+                                            parsed.routing,
+                                            source_json=parsed.source_json)
                 seen.add(parsed.doc_id)
             for host, _dev in snapshot.segments:
                 for d in range(host.n_docs):
@@ -1822,9 +1823,13 @@ class TorchNode:
                         continue
                     routing = (host.doc_routings[d]
                                if d < len(host.doc_routings) else None)
+                    # the stored bytes are the source's json.dumps, which
+                    # the target stores as they are
+                    text = host.sources[d].decode()
                     tgt_svc.shard_for(doc_id, routing) \
                         .apply_index_on_primary(
-                            doc_id, json.loads(host.sources[d]), routing)
+                            doc_id, json.loads(text), routing,
+                            source_json=text)
         for shard in tgt_svc.shards.values():
             shard.engine.ensure_synced()
             # the target is handed over searchable
@@ -2021,12 +2026,15 @@ class TorchNode:
                    if_seq_no: int | None = None, version: int | None = None,
                    version_type: str = "internal",
                    if_primary_term: int | None = None,
-                   pipeline: str | None = None
+                   pipeline: str | None = None,
+                   source_json: str | None = None
                    ) -> tuple[dict, IndexShard | None]:
         """(response, the shard written): the write runs the ingest
         pipelines first (``_run_pipelines``), so the shard is the one the
         document landed on after an ``_index`` / ``_routing`` reroute, and
-        None when a ``drop`` discarded it."""
+        None when a ``drop`` discarded it. `source_json` is the caller's
+        ``json.dumps(source)``, kept only while no pipeline replaced the
+        source (a pipeline runs on a deep copy)."""
         if if_primary_term is not None and if_seq_no is None:
             raise ActionRequestValidationException(
                 "Validation Failed: 1: ifSeqNo is unassigned, but "
@@ -2050,6 +2058,8 @@ class TorchNode:
                 "_shards": {"total": 0, "successful": 0, "failed": 0},
                 "_seq_no": 0, "_primary_term": 0,
             }, None
+        if landed[2] is not source:
+            source_json = None
         index, doc_id, source, routing = landed
         svc = self._get_or_autocreate(index)
         doc_id = uuid.uuid4().hex[:20] if doc_id is None else str(doc_id)
@@ -2065,7 +2075,7 @@ class TorchNode:
         mappers_before = len(svc.mapper_service.mappers)
         result = shard.apply_index_on_primary(
             doc_id, source, routing, if_seq_no=if_seq_no, version=version,
-            version_type=version_type)
+            version_type=version_type, source_json=source_json)
         if len(svc.mapper_service.mappers) != mappers_before:
             # a dynamic mapping update: the registry keeps the new fields
             # for a restart
@@ -2342,10 +2352,13 @@ class TorchNode:
         HTTP body's size, else the sources serialized) count against the
         indexing pressure budget."""
         t0 = time.monotonic()
+        texts = None
         if payload_bytes is None:
-            payload_bytes = sum(len(json.dumps(source))
-                                for _, _, source in operations
-                                if source is not None)
+            # each source's JSON, kept for the engine, which stores the
+            # same text
+            texts = [json.dumps(source) if source is not None else None
+                     for _, _, source in operations]
+            payload_bytes = sum(len(t) for t in texts if t is not None)
         release_admission = self.query_groups.admit_bulk(query_group)
         try:
             with self.indexing_pressure.acquire(int(payload_bytes), "bulk"), \
@@ -2353,20 +2366,23 @@ class TorchNode:
                         "indices:data/write/bulk",
                         description=f"requests[{len(operations)}]",
                         cancellable=False):
-                return self._bulk_inner(operations, refresh, pipeline, t0)
+                return self._bulk_inner(operations, refresh, pipeline, t0,
+                                        texts)
         finally:
             release_admission()
 
     def _bulk_inner(self, operations: list, refresh: bool,
-                    pipeline: str | None, t0: float) -> dict:
+                    pipeline: str | None, t0: float,
+                    texts: list | None = None) -> dict:
         """Each item as the reference's bulk runs it; an index or create
         item takes its own ``pipeline`` over the request's. The shards
         touched are the ones the documents landed on after the pipelines'
-        reroutes, and only those are synced and refreshed."""
+        reroutes, and only those are synced and refreshed. `texts`, where
+        given, holds each item's ``json.dumps(source)``."""
         items = []
         errors = False
         touched: dict[int, IndexShard] = {}
-        for action, meta, source in operations:
+        for pos, (action, meta, source) in enumerate(operations):
             index = meta.get("_index")
             doc_id = meta.get("_id")
             if doc_id is not None and not isinstance(doc_id, str):
@@ -2397,7 +2413,8 @@ class TorchNode:
                         if_seq_no=int(m_seq) if m_seq is not None else None,
                         if_primary_term=(int(m_pt) if m_pt is not None
                                          else None),
-                        pipeline=meta.get("pipeline", pipeline))
+                        pipeline=meta.get("pipeline", pipeline),
+                        source_json=texts[pos] if texts else None)
                     status = 201 if resp["result"] == "created" else 200
                 elif action == "update":
                     if meta.get("_source") is not None and \

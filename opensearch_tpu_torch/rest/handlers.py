@@ -1576,7 +1576,11 @@ def put_cluster_settings(node: TorchNode, params, query, body):
 def otel_flush(node: TorchNode, params, query, body):
     """POST /_otel/flush: the span exporter decides every pending trace
     fragment and drains to its sink; the response carries the exporter's
-    ledger and the device-memory residency snapshot."""
+    ledger and the device-memory residency snapshot; on a cluster node
+    (cluster/facade.py) every node's."""
+    cluster_flush = getattr(node, "cluster_otel_flush", None)
+    if cluster_flush is not None:
+        return 200, cluster_flush()
     from opensearch_tpu_torch.telemetry import device_ledger
 
     exporter = node.telemetry.tracer.exporter
@@ -2106,24 +2110,46 @@ def prometheus_metrics(node: TorchNode, params, query, body):
                 f"{m}{_prom_labels({'kind': kind, 'index': index}, extra)}"
                 f" {agg[(kind, index)]}")
 
-    # one node: `?cluster=true` (the cluster's federated view) has no
-    # other node to federate, so it answers this node's series
-    lines.extend(_prom_registry_lines(
-        node.telemetry.metrics.stats(), None, declare_types=True,
-        want_exemplars=want_exemplars))
-    device_gauges(device_ledger.default_ledger.device_totals(), None)
-    roofline_gauges(roofline.stats_section(), None)
-    heat_gauges(device_ledger.heat_section(), None)
-    # task-manager liveness gauges ride along
+    cluster_metrics = getattr(node, "cluster_metrics", None)
+    federated = flag("cluster") and cluster_metrics is not None
+    if federated:
+        # a cluster node's federated view (cluster/facade.py): per-node
+        # sample series distinguished by a {node=...} label; TYPE comments
+        # are omitted (several nodes carry the same family and duplicate
+        # declarations are invalid)
+        per_node = cluster_metrics()
+        for nid in sorted(per_node):
+            lines.extend(_prom_registry_lines(
+                per_node[nid], {"node": nid}, declare_types=False,
+                want_exemplars=want_exemplars))
+            device_gauges(per_node[nid].get("device", {}), {"node": nid})
+            roofline_gauges(per_node[nid].get("roofline", {}),
+                            {"node": nid})
+            heat_gauges(per_node[nid].get("heat", {}), {"node": nid})
+    else:
+        # one node: `?cluster=true` has no other node to federate, so it
+        # answers this node's series
+        lines.extend(_prom_registry_lines(
+            node.telemetry.metrics.stats(), None, declare_types=True,
+            want_exemplars=want_exemplars))
+        device_gauges(device_ledger.default_ledger.device_totals(), None)
+        roofline_gauges(roofline.stats_section(), None)
+        heat_gauges(device_ledger.heat_section(), None)
+    # task-manager liveness gauges ride along. They are LOCAL to the
+    # serving node: the federated view labels them, so scrapes of
+    # different nodes never emit the same unlabeled series
     tm = node.task_manager
+    task_labels = ({"node": getattr(node, "node_name", "node-0")}
+                   if federated else None)
     for gname, gval in (
         ("tasks_running", len(tm.list_tasks())),
         ("tasks_completed", tm.completed),
         ("tasks_cancelled", tm.cancelled_count),
     ):
         m = f"opensearch_tpu_{gname}"
-        lines.append(f"# TYPE {m} gauge")
-        lines.append(f"{m} {gval}")
+        if not federated:
+            lines.append(f"# TYPE {m} gauge")
+        lines.append(f"{m}{_prom_labels(task_labels)} {gval}")
     return 200, "\n".join(lines) + "\n"
 
 
@@ -2203,15 +2229,21 @@ def _tail_section(node) -> dict:
     no replicas to route, so routing stays an empty shape here."""
     from opensearch_tpu_torch.search import lanes as lanes_mod
 
+    tracker = getattr(node, "lane_tracker", None)
+    groups = getattr(node, "query_groups", None)
+    tail_stats = getattr(node, "tail_stats", None)
+    if callable(tail_stats):
+        return tail_stats()
     return {
         "lanes": {
             "enabled": lanes_mod.default_config.enabled,
             "background_max_queue":
                 lanes_mod.default_config.background_max_queue,
-            **node.lane_tracker.snapshot(),
+            **(tracker.snapshot() if tracker is not None else {}),
         },
         "routing": {},
-        "wlm_search": node.query_groups.search_slot_stats(),
+        "wlm_search": (groups.search_slot_stats()
+                       if groups is not None else {}),
     }
 
 
@@ -2230,6 +2262,21 @@ def nodes_stats(node: TorchNode, params, query, body):
             raise IllegalArgumentException(
                 f"request [/_nodes/stats/{raw_metric}] contains "
                 f"unrecognized metric: [{m}]{hint}")
+    # a cluster node (cluster/facade.py) fans ONE stats RPC to every node
+    # and merges the rings: every node's telemetry (spans + exporter
+    # accounting), knn-batch, shard-mesh and request-cache stats in one
+    # response
+    cluster_stats = getattr(node, "cluster_nodes_stats", None)
+    if cluster_stats is not None:
+        resp = cluster_stats(metrics)
+        if "_all" not in metrics:
+            base = {"name", "roles"}
+            keep = set(metrics) | base
+            resp["nodes"] = {
+                nid: {k: v for k, v in entry.items() if k in keep}
+                for nid, entry in resp["nodes"].items()
+            }
+        return 200, resp
     raw_im = params.get("index_metric") or query.get("index_metric")
     index_metrics = ([m.strip() for m in str(raw_im).split(",")
                       if m.strip()] if raw_im else ["_all"])
@@ -2268,6 +2315,7 @@ def nodes_stats(node: TorchNode, params, query, body):
         aliases = {"merge": "merges"}
         want = {aliases.get(m, m) for m in index_metrics}
         indices_all = {k: v for k, v in indices_all.items() if k in want}
+    t_stats = getattr(node, "transport_stats", None)
     entry = {
         "name": node.node_name,
         "roles": ["cluster_manager", "data", "ingest"],
@@ -2285,7 +2333,7 @@ def nodes_stats(node: TorchNode, params, query, body):
                                             "used_in_bytes": 0}},
                 "gc": {"collectors": {}}},
         "fs": node.monitor.fs_stats(),
-        "transport": {
+        "transport": t_stats() if callable(t_stats) else {
             "server_open": 0, "total_outbound_connections": 0,
             "rx_count": 0, "tx_count": 0,
             "rx_size_in_bytes": 0, "tx_size_in_bytes": 0,
@@ -2462,7 +2510,8 @@ def cat_nodes(node: TorchNode, params, query, body):
     total_b = fs["total_in_bytes"]
     avail_b = fs["available_in_bytes"]
     used_b = max(total_b - avail_b, 0)
-    node_id = f"{abs(hash(node.node_name)) % (36**8):08x}"
+    node_id = getattr(node, "node_uuid", None) or \
+        f"{abs(hash(node.node_name)) % (36**8):08x}"
     short = str(query.get("full_id", "false")) not in ("true", "")
     load1 = st["os"]["cpu"]["load_average"]["1m"]
     row = {
@@ -3384,12 +3433,81 @@ def cat_pending_tasks(node: TorchNode, params, query, body):
     return 200, _cat_format(query, [])
 
 
+def _recovery_record_stats(p: dict) -> tuple[str, str, str]:
+    """(bytes_percent, ops_percent, api_type) for one RecoveryProgress
+    record — the shared shaping for /_recovery and _cat/recovery.
+    Relocation transfers are peer recoveries wearing a different routing
+    hat (the reference reports them as PEER too)."""
+    pct_bytes = (100.0 * p["bytes_recovered"] / p["bytes_total"]
+                 if p["bytes_total"] else 100.0)
+    pct_ops = (100.0 * p["ops_recovered"] / p["ops_total"]
+               if p["ops_total"] else 100.0)
+    api_type = {"RELOCATION": "PEER"}.get(p["type"], p["type"])
+    return f"{pct_bytes:.1f}%", f"{pct_ops:.1f}%", api_type
+
+
+def _cluster_recovery_shards(node, index_expr):
+    """Shape cluster-wide RecoveryProgress records (facade.recovery_records)
+    into the /_recovery per-shard entries."""
+    import time as _time
+
+    out: dict[str, list] = {}
+    for p in node.recovery_records(index_expr):
+        pct_bytes, pct_ops, api_type = _recovery_record_stats(p)
+        out.setdefault(p["index"], []).append({
+            "id": p["shard"],
+            "type": api_type,
+            "stage": p["stage"],
+            "primary": p["type"] in ("EMPTY_STORE", "EXISTING_STORE"),
+            "start_time": _time.strftime(
+                "%Y-%m-%dT%H:%M:%S.000Z",
+                _time.gmtime(p["start_ms"] / 1000)),
+            "start_time_in_millis": p["start_ms"],
+            "total_time_in_millis": p["total_time_ms"],
+            "source": ({"id": p["source_node"], "name": p["source_node"]}
+                       if p.get("source_node") else {}),
+            "target": {"id": p["target_node"], "name": p["target_node"]},
+            "index": {
+                "files": {"total": p["files_total"],
+                          "reused": 0,
+                          "recovered": p["files_recovered"],
+                          "percent": pct_bytes},
+                "size": {"total_in_bytes": p["bytes_total"],
+                         "reused_in_bytes": 0,
+                         "recovered_in_bytes": p["bytes_recovered"],
+                         "percent": pct_bytes},
+                "source_throttle_time_in_millis": 0,
+                "target_throttle_time_in_millis": 0,
+            },
+            "translog": {"recovered": p["ops_recovered"],
+                         "total": p["ops_total"],
+                         "total_on_start": p["ops_total"],
+                         "total_time_in_millis": 0,
+                         "percent": pct_ops},
+            "verify_index": {"check_index_time_in_millis": 0,
+                             "total_time_in_millis": 0},
+            "retries": p.get("retries", 0),
+        })
+    return out
+
 def indices_recovery(node: TorchNode, params, query, body):
     """GET [/{index}]/_recovery (RecoveryAction): per-shard recovery
     state; local shards report their store bootstrap as a DONE
-    EMPTY_STORE/EXISTING_STORE recovery (the reference's single-node
-    branch; the cluster's records come with the cluster's REST facade)."""
+    EMPTY_STORE/EXISTING_STORE recovery. On a cluster node (the
+    ClusterFacade of cluster/facade.py) the REAL peer-recovery and
+    relocation progress records are aggregated from every node."""
     import time as _time
+
+    if hasattr(node, "recovery_records"):
+        active_only = str(query.get("active_only", "false")) in ("true", "")
+        shards_by_index = _cluster_recovery_shards(node, params.get("index"))
+        return 200, {
+            name: {"shards": [
+                s for s in shards
+                if not active_only or s["stage"] not in ("DONE", "FAILED")
+            ]}
+            for name, shards in sorted(shards_by_index.items())
+        }
 
     names = _admin_indices(node, params, query, expand_default="all")
     out = {}
@@ -3462,6 +3580,41 @@ def cat_recovery(node: TorchNode, params, query, body):
     want = params.get("index")
     pats = [p for p in str(want).split(",") if p] if want else None
     rows = []
+    if hasattr(node, "recovery_records"):
+        # cluster mode: real recovery/relocation progress from every node
+        for p in node.recovery_records(want):
+            pct_b, pct_o, api_type = _recovery_record_stats(p)
+            rows.append({
+                "index": p["index"], "shard": p["shard"],
+                "time": f"{p['total_time_ms']}ms",
+                "type": api_type.lower(),
+                "stage": p["stage"].lower(),
+                "source_host": p.get("source_node") or "-",
+                "source_node": p.get("source_node") or "-",
+                "target_host": p["target_node"],
+                "target_node": p["target_node"],
+                "repository": "n/a", "snapshot": "n/a",
+                "files": p["files_total"],
+                "files_recovered": p["files_recovered"],
+                "files_percent": pct_b,
+                "files_total": p["files_total"],
+                "bytes": _human_bytes(p["bytes_total"]),
+                "bytes_recovered": _human_bytes(p["bytes_recovered"]),
+                "bytes_percent": pct_b,
+                "bytes_total": _human_bytes(p["bytes_total"]),
+                "translog_ops": p["ops_total"],
+                "translog_ops_recovered": p["ops_recovered"],
+                "translog_ops_percent": pct_o,
+            })
+        return 200, _cat_format(query, rows, aliases={
+            "i": "index", "s": "shard", "t": "time", "ty": "type",
+            "st": "stage", "shost": "source_host", "thost": "target_host",
+            "rep": "repository", "snap": "snapshot", "f": "files",
+            "fr": "files_recovered", "fp": "files_percent",
+            "tf": "files_total", "b": "bytes", "br": "bytes_recovered",
+            "bp": "bytes_percent", "tb": "bytes_total",
+            "to": "translog_ops", "tor": "translog_ops_recovered",
+            "top": "translog_ops_percent"})
     for index, svc in sorted(node.indices.items()):
         if pats is not None and not any(_fn.fnmatch(index, p) for p in pats):
             continue

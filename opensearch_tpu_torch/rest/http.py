@@ -17,7 +17,9 @@ together; the lane rides a contextvar into the batcher. Each request is one
 a handler's spans parent. Each request's body bytes are charged to the
 node's in-flight request breaker (``node.breakers``, common/breaker.py)
 before it is dispatched, and released once on every way out: a response,
-the bounded background lane's 429, an error, or an exception.
+the bounded background lane's 429, an error, or an exception. The server
+also fronts a cluster node's ClusterFacade (server.py), which has no
+breakers: its requests are charged to none.
 
 Run (on the card; ``--device cpu`` runs it on the CPU)::
 
@@ -45,6 +47,7 @@ from opensearch_tpu_torch.common.errors import OpenSearchTpuException
 from opensearch_tpu_torch.node import TorchNode
 from opensearch_tpu_torch.rest.handlers import apply_filter_path, build_router
 from opensearch_tpu_torch.search import lanes as lanes_mod
+from opensearch_tpu_torch.telemetry import default_telemetry
 
 MAX_BODY = 100 * 1024 * 1024  # the reference's http.max_content_length default
 
@@ -264,9 +267,10 @@ class HttpServer:
                 query["_payload_bytes"] = len(raw_body)
             # in-flight request bytes against the breaker (the reference's
             # in_flight_requests child tracks transport payload bytes); a
-            # trip raises CircuitBreakingException (429) with nothing held
-            breakers = self.node.breakers
-            charged = len(raw_body)
+            # trip raises CircuitBreakingException (429) with nothing held.
+            # A ClusterFacade has no breakers: nothing is charged there.
+            breakers = getattr(self.node, "breakers", None)
+            charged = len(raw_body) if breakers is not None else 0
             if charged:
                 breakers.in_flight_requests.add_estimate_and_maybe_break(
                     charged, "<http_request>")
@@ -303,7 +307,7 @@ class HttpServer:
         search pool of the request's priority lane, or the serial data
         worker) and run the handler there under an ``http_request`` span.
         The bounded background lane sheds with a 429 instead of queueing."""
-        telemetry = self.node.telemetry
+        telemetry = getattr(self.node, "telemetry", default_telemetry)
         metrics = telemetry.metrics
         lane_cfg = lanes_mod.default_config
         lane = (lanes_mod.classify_rest(path, query)

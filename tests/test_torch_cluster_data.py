@@ -25,7 +25,8 @@ the two runs' observations must be equal (:class:`Recorder`):
 Each node's disk-usage reading is pinned to 50% (``disk_usage_pct``, the
 reference's hook for its fs probe) unless a case sets its own, so the
 disk-threshold decider reads the same number in both runs whatever the
-host's disk holds.
+host's disk holds. The reference runs with the port's one change to its
+coordinator (:func:`publication_fix`).
 
 Then the slice's own kNN case: 3 shards, 1 replica, d = 16, 600 docs; a
 bare ``knn`` through each node as coordinator, again after ``isolate`` of
@@ -71,7 +72,8 @@ def volatile(key) -> bool:
 
 
 class _ToPort(ast.NodeTransformer):
-    """Reference imports to the port's; ``ClusterNode(...)`` on the CPU."""
+    """Reference imports to the port's; ``ClusterNode(...)``,
+    ``ClusterServer(...)`` and ``TcpSoak(...)`` on the CPU."""
 
     @staticmethod
     def _module(name: str) -> str:
@@ -98,7 +100,7 @@ class _ToPort(ast.NodeTransformer):
         f = node.func
         name = f.id if isinstance(f, ast.Name) else (
             f.attr if isinstance(f, ast.Attribute) else None)
-        if name == "ClusterNode" and not any(
+        if name in ("ClusterNode", "ClusterServer", "TcpSoak") and not any(
                 k.arg == "device" for k in node.keywords):
             node.keywords.append(
                 ast.keyword(arg="device", value=ast.Constant("cpu")))
@@ -216,6 +218,28 @@ def run_case(mod: types.ModuleType, case, tmp_path: Path) -> None:
             fin()
 
 
+# -- the port's one departure from the reference's coordinator ---------------
+
+
+def publication_fix(mp: pytest.MonkeyPatch) -> None:
+    """The reference's ``Coordinator._become_leader`` with the port's one
+    change (opensearch_tpu_torch/cluster/coordinator.py): a node that wins
+    a later term drops the publication it began in an earlier one. The
+    reference keeps that publication's flag set, so the new term's first
+    publication waits for the old one's 30 s timeout (over TCP: about one
+    leader kill in two on the card). The parity suites hold the port to
+    the reference with that change, step for step."""
+    coord = importlib.import_module("opensearch_tpu.cluster.coordinator")
+    become = coord.Coordinator._become_leader
+
+    def become_leader(c, __become=become):
+        if not c._stopped:
+            c._publishing = False
+        return __become(c)
+
+    mp.setattr(coord.Coordinator, "_become_leader", become_leader)
+
+
 # -- what the two runs must agree on ------------------------------------------
 
 
@@ -240,6 +264,8 @@ class Recorder:
         self._cluster_node = cnode.ClusterNode
         mp = pytest.MonkeyPatch()
         self._stack.callback(mp.undo)
+        if p == "opensearch_tpu":
+            publication_fix(mp)
         rec = self
 
         queue = sim.DeterministicTaskQueue

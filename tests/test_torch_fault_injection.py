@@ -7,8 +7,8 @@ reference wrote it and as the port's copy
 (:func:`test_torch_cluster_data.port_module`), through
 :func:`test_torch_cluster_data.run_both`: both runs pass the reference's
 assertions, and their steps, transport messages and client responses are
-equal. The three cases of the TCP transport
-(``test_tcp_send_*``) wait for the port's ``transport/tcp.py``.
+equal. The three cases of the TCP transport (``test_tcp_send_*``) run in
+tests/test_torch_tcp_transport.py.
 """
 
 from __future__ import annotations
