@@ -4,7 +4,7 @@
                           [--phases kernel,timing,main|filtered|rest,
                                     hybrid,large,lexical,aggs,dsl,mesh,
                                     contexts,ops,admin,backup,cluster,
-                                    tcp]
+                                    tcp,soak]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -488,6 +488,27 @@ library calls, logged as `large record` lines.
    bundle build ran on the transports' event loop. At most 45 s; one
    `tcp` line of its numbers (each stage's p50 / p99, the parts'
    seconds). ``--phases tcp`` runs it alone.
+16. soak (with main, after tcp, on sim nodes of its own; soak_phase): the
+   chaos soak (testing/soak.run_soak) on the card, seed SOAK_SEED, 2
+   cycles of 30 ops with chaos, cycle 1 the topology reshape (a node
+   joins, the router rebalances, a disk ramp evacuates a replica-holder,
+   a founding node drains and departs), all under
+   testing/race_probe.probe_scope. run_soak forces the kernel policy to
+   the hand-written kernels: K1 serves the exact kNN of indices vec and
+   hyb, K2 the IVF-PQ searches of annvec. Every kNN body (a top-level
+   knn clause, or one among a hybrid query's) is counted by its index's
+   kind once, where a node runs it: its search over local shards or a
+   per-shard query; the launch counters start from 0 just before the
+   soak. Gates: every invariant
+   holds and every op completes; K1's and K2's launches above 0 and no
+   more than the searches of their kind; the probe confirms no unlocked
+   cross-role write; once the soak's nodes close, no stacked bundle of
+   its indices and no device allocation made during it is left; at most
+   45 s. One `soak` line (ops, faults, invariants, digest, searches and
+   launches, the probe's findings, the bytes the cyclic collector frees
+   after the soak and memory_allocated()'s change after it, seconds);
+   K1's and K2's entries gain `soak_launches`. ``--phases soak`` runs it
+   alone.
 
 Before each phase, a line names it and the wall seconds so far, so a run
 that fails names the phase it died in before the traceback.
@@ -501,6 +522,7 @@ from __future__ import annotations
 
 import argparse
 import functools
+import gc
 import json
 import math
 import pathlib
@@ -12027,6 +12049,157 @@ def tcp_phase(kf, dev, seed: int, n_docs: int = TCP_DOCS) -> dict:
     return out
 
 
+SOAK_SEED = 7
+SOAK_CYCLES = 2
+SOAK_OPS = 30                 # ops a cycle
+SOAK_TOPOLOGY_CYCLE = 1       # the reshape: join, rebalance, disk ramp and
+                              # evacuation, drain
+SOAK_EXACT = ("vec", "hyb")   # the soak's exact kNN indices (K1)
+SOAK_ANN = ("annvec",)        # its IVF-PQ index (K2)
+SOAK_INDICES = ("logs", *SOAK_EXACT, *SOAK_ANN)
+SOAK_WALL_S = 45
+
+
+def _knn_body(body) -> bool:
+    """Whether a search body's query is a kNN clause, or a hybrid query
+    with one among its sub-queries (the soak's search_knn, search_ann,
+    msearch and search_hybrid bodies)."""
+    query = (body or {}).get("query")
+    if not isinstance(query, dict):
+        return False
+    subs = (query.get("hybrid") or {}).get("queries") or []
+    return "knn" in query or any(isinstance(q, dict) and "knn" in q
+                                 for q in subs)
+
+
+def soak_phase(kf, ads, dev, seed: int = SOAK_SEED) -> dict:
+    """The chaos soak on the card (``--phases soak``; after tcp by default,
+    on nodes of its own): testing/soak.run_soak on ``dev`` under
+    testing/race_probe.probe_scope, its kNN searches counted by kind once
+    each, where a node runs them."""
+    from opensearch_tpu_torch.cluster import cluster_node as cn
+    from opensearch_tpu_torch.cluster.shard_mesh import default_registry
+    from opensearch_tpu_torch.ops import adc_lut, knn_rescore
+    from opensearch_tpu_torch.search import service as search_service
+    from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
+    from opensearch_tpu_torch.testing import race_probe, soak
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    kind_of = {**{i: "exact" for i in SOAK_EXACT},
+               **{i: "ann" for i in SOAK_ANN}}
+    # each kNN body a node executes, by the kind of its index, counted
+    # where the kernels run: a node's search over its local shards (a
+    # node partial, an msearch body, a pinned context's page) or a
+    # per-shard query. A request that fails before it runs counts nothing;
+    # a partial the coordinator retries shard by shard counts each run.
+    searches = {"exact": 0, "ann": 0, "other": 0}
+    saved = {"search": (search_service, search_service.search),
+             "_shard_search_local": (cn.ClusterNode,
+                                     cn.ClusterNode._shard_search_local)}
+
+    def count(index, body):
+        if _knn_body(body):
+            searches[kind_of.get(index, "other")] += 1
+
+    def node_search(shards, body, *a, **kw):
+        count(shards[0].shard_id.index if shards else None, body)
+        return saved["search"][1](shards, body, *a, **kw)
+
+    def shard_search(node, payload):
+        count(payload.get("index"), payload.get("body"))
+        return saved["_shard_search_local"][1](node, payload)
+
+    start_id = default_ledger.current_id()
+    search_service.search = node_search
+    cn.ClusterNode._shard_search_local = shard_search
+    counters = (kf.launches, kf.list_launches, kf.wide_launches,
+                kf.mma_launches, kf.large_launches, kf.large_mma_launches,
+                kf.large_select_launches, kf.tile_launches, ads.launches,
+                adc_lut.launches, knn_rescore.launches,
+                knn_rescore.sq_launches)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # every count from 0, just before the soak drives the path
+            for c in counters:
+                c.reset()
+            t0 = time.perf_counter()
+            with race_probe.probe_scope() as probe:
+                report = soak.run_soak(
+                    seed, tmp, cycles=SOAK_CYCLES, ops_per_cycle=SOAK_OPS,
+                    topology_cycle=SOAK_TOPOLOGY_CYCLE, device=str(dev))
+            soak_s = time.perf_counter() - t0
+            launches = {"knn_fused": kf.launches.count,
+                        "knn_fused_list": kf.list_launches.count,
+                        "knn_fused_wide": kf.wide_launches.count,
+                        "adc_scan": ads.launches.count,
+                        "adc_lut": adc_lut.launches.count,
+                        "knn_rescore": knn_rescore.launches.count,
+                        "knn_query_sq": knn_rescore.sq_launches.count}
+    finally:
+        for name, (owner, fn) in saved.items():
+            setattr(owner, name, fn)
+    torch.cuda.synchronize()
+    # the closed nodes' objects hold one another: the device copies of
+    # their segments that only such cycles keep alive are freed by the
+    # collector, not at close (scripts/soak_memory_probe.py names them)
+    mem_closed = torch.cuda.memory_allocated()
+    gc.collect()
+    freed_by_gc = mem_closed - torch.cuda.memory_allocated()
+    probe_report = probe.report()
+    # run_soak closed its nodes: none of the soak's stacked bundles and
+    # none of its device allocations may stay
+    bundles = [r for r in default_registry.resident()
+               if r["index"] in SOAK_INDICES]
+    left = [a.row() for a in default_ledger.live_allocations()
+            if a.alloc_id > start_id]
+    out = {
+        "seed": seed, "cycles": SOAK_CYCLES, "ops_per_cycle": SOAK_OPS,
+        "topology_cycle": SOAK_TOPOLOGY_CYCLE,
+        "ops_issued": report.ops_issued,
+        "ops_completed": report.ops_completed,
+        "ops_degraded": report.ops_degraded, "sheds": report.sheds,
+        "faults_injected": report.faults_injected,
+        "invariants_checked": report.invariants_checked,
+        "topology": [m["event"] for m in report.topology],
+        "digest": report.digest,
+        "searches": searches, "launches": launches,
+        "probe": {"findings": len(probe_report["findings"]),
+                  "confirmed": probe_report["confirmed"],
+                  "verdicts": sorted({f["verdict"] for f in
+                                      probe_report["findings"]})},
+        "memory_allocated_delta": torch.cuda.memory_allocated() - mem0,
+        "memory_freed_by_gc": freed_by_gc,
+        "bundles_left": bundles, "allocations_left": left[:5],
+        "soak_s": soak_s,
+    }
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"soak {json.dumps(out)}")
+    if report.ops_completed != report.ops_issued:
+        raise AssertionError(f"[soak] {report.ops_completed} of "
+                             f"{report.ops_issued} ops completed")
+    if report.cycles_completed != SOAK_CYCLES:
+        raise AssertionError(f"[soak] {report.cycles_completed} cycles")
+    if not report.invariants_checked:
+        raise AssertionError("[soak] no invariant was checked")
+    for name, kind in (("knn_fused", "exact"), ("adc_scan", "ann")):
+        if not 0 < launches[name] <= searches[kind]:
+            raise AssertionError(
+                f"[soak] {name}: {launches[name]} launches for "
+                f"{searches[kind]} {kind} searches")
+    if probe_report["confirmed"]:
+        raise AssertionError(f"[soak] the race probe confirmed "
+                             f"{probe_report['confirmed']}")
+    if bundles or left:
+        raise AssertionError(f"[soak] left on the card: bundles {bundles}, "
+                             f"allocations {left[:5]}")
+    if out["wall_s"] > SOAK_WALL_S:
+        raise AssertionError(f"[soak] the phase took {out['wall_s']:.1f} s, "
+                             f"over its {SOAK_WALL_S} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -12577,6 +12750,22 @@ def main() -> int:
         if entry["launches"] is None:
             entry["launches"] = sum(tcp["launches"].values())
         phase_s["tcp"] = time.perf_counter() - t0
+    if phases & {"main", "soak"}:
+        # last of all, on sim nodes of its own: the chaos soak, K1 serving
+        # its exact kNN and K2 its IVF-PQ searches
+        phase_start("soak")
+        t0 = time.perf_counter()
+        sk = soak_phase(kf, ads, dev, SOAK_SEED)
+        entry["soak_launches"] = sk["launches"]["knn_fused"]
+        entry2["soak_launches"] = sk["launches"]["adc_scan"]
+        entry["soak_main_path"] = entry2["soak_main_path"] = {
+            key: sk[key] for key in ("seed", "searches", "digest",
+                                     "wall_s")}
+        if entry["launches"] is None:
+            entry["launches"] = sk["launches"]["knn_fused"]
+        if entry2["launches"] is None:
+            entry2["launches"] = sk["launches"]["adc_scan"]
+        phase_s["soak"] = time.perf_counter() - t0
     log(f"phase wall seconds: {json.dumps(phase_s)}")
     print(json.dumps({"kernels": [entry, large_mma_entry, select_entry,
                                   entry2, lut_entry,

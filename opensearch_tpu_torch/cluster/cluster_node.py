@@ -48,6 +48,7 @@ from opensearch_tpu_torch.cluster.state import (
     DiscoveryNode,
     IndexMeta,
     ShardRoutingEntry,
+    routing_health,
 )
 from opensearch_tpu_torch.index.mapper import MapperService
 from opensearch_tpu_torch.index.shard import IndexShard, ShardId
@@ -297,6 +298,7 @@ class ClusterNode:
         reg(node_id, "indices:data/write[p][bulk]", self._on_primary_bulk)
         reg(node_id, "indices:data/write[r][bulk]", self._on_replica_bulk)
         reg(node_id, "indices:data/read/get", self._on_get)
+        reg(node_id, "indices:data/read/explain", self._on_explain)
         reg(node_id, "indices:data/read/search[shard]", self._on_shard_search)
         reg(node_id, "indices:data/read/search[node]", self._on_node_search)
         reg(node_id, "indices:data/read/msearch[node]", self._on_node_msearch)
@@ -1337,6 +1339,12 @@ class ClusterNode:
         body = payload["body"]
         settings = body.get("settings") or {}
         index_settings = settings.get("index", settings)
+        # the create body's aliases ride the index metadata, where the
+        # REST facade reads them (``_aliases``, kept out of _settings)
+        aliases = {a: dict(conf or {})
+                   for a, conf in (body.get("aliases") or {}).items()}
+        if aliases:
+            index_settings = {**index_settings, "_aliases": aliases}
 
         def task(state: ClusterState) -> ClusterState:
             if name in state.indices:
@@ -1611,15 +1619,9 @@ class ClusterNode:
             1 for r in state.routing
             if r.state == "INITIALIZING" and not r.is_relocation_target
         )
-        primaries_down = any(
-            r.primary and r.state not in ("STARTED", "RELOCATING")
-            for r in state.routing
-        )
-        status = ("red" if primaries_down
-                  else "yellow" if unassigned or initializing else "green")
         return {
             "cluster_name": "opensearch-tpu",
-            "status": status,
+            "status": routing_health(state.routing),
             "number_of_nodes": len(state.nodes),
             "number_of_data_nodes": sum(
                 1 for nd in state.nodes.values() if nd.is_data
@@ -2043,6 +2045,32 @@ class ClusterNode:
             return {"_index": payload["index"], "_id": payload["id"],
                     "found": True, "_source": got["_source"],
                     "_seq_no": got["_seq_no"], "_version": got["_version"]}
+
+        return self._offload(run)
+
+    def explain(self, index: str, doc_id: str, body: dict,
+                callback: Callable[[dict], None],
+                routing: str | None = None) -> None:
+        """_explain on the node holding the doc's shard, routed as a GET
+        is (to the primary); a failure reaches `callback` as
+        ``{"error": exception}``."""
+        shard_num, primary = self._routing_for_doc(index, doc_id, routing)
+        self.transport.send(
+            self.node_id, primary.node_id, "indices:data/read/explain",
+            {"index": index, "shard": shard_num, "id": doc_id,
+             "body": body},
+            on_response=callback,
+            on_failure=lambda e: callback({"error": e, "status": 500}),
+        )
+
+    def _on_explain(self, sender: str, payload: dict):
+        def run() -> dict:
+            from opensearch_tpu_torch.node import explain_on_shard
+
+            shard = self._local_shard(payload["index"], payload["shard"])
+            return explain_on_shard(payload["index"], payload["id"], shard,
+                                    shard.mapper_service,
+                                    payload.get("body") or {})
 
         return self._offload(run)
 
@@ -2970,6 +2998,13 @@ class ClusterNode:
                 "primary": bool(shard.primary),
                 "docs": shard.num_docs,
             }
+            if payload.get("store"):
+                # the copy's bytes as a single node's _cat/indices counts
+                # them: its translog and every stored source
+                out[f"{index}#{num}"]["store_bytes"] = \
+                    shard.engine.translog.stats()["size_in_bytes"] + sum(
+                        sum(len(x) for x in host.sources)
+                        for host, _dev in shard.engine._segments)
         resp: dict[str, Any] = {
             "shards": out,
             "shard_mesh": self.shard_mesh.snapshot_stats(),

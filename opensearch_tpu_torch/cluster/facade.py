@@ -47,6 +47,7 @@ from opensearch_tpu_torch.common.settings import (
     setting_str,
     settings_section as _settings_section,
 )
+from opensearch_tpu_torch.cluster.state import routing_health
 from opensearch_tpu_torch.index.mapper import MapperService
 
 logger = logging.getLogger(__name__)
@@ -99,6 +100,25 @@ class _IndexView:
             (meta.settings or {}).get("_aliases", {})
         )
         self.shards: dict[int, Any] = {}
+        self.closed = False  # a cluster has no close / open yet
+        # the cluster state keeps neither an index's uuid nor its creation
+        # date: _cat/indices shows these stand-ins
+        self.uuid = "_na_"
+        self.creation_date = 0
+        self._flat_settings: dict | None = None
+
+    def setting(self, key: str, default=None):
+        """An index setting by dotted key, bare or "index."-prefixed, as
+        the single node's IndexService answers it; the metadata's own
+        ``_``-keys (aliases) are not settings."""
+        if self._flat_settings is None:
+            self._flat_settings = Settings.from_nested(
+                {k: v for k, v in self.settings.items()
+                 if not k.startswith("_")}).as_dict()
+        flat = self._flat_settings
+        if key in flat:
+            return flat[key]
+        return flat.get(f"index.{key}", default)
 
 
 class ClusterFacade:
@@ -290,6 +310,41 @@ class ClusterFacade:
                 if part not in out:
                     out.append(part)
         return out
+
+    def get_alias(self, index_expr: str | None = None,
+                  alias_expr: str | None = None,
+                  expand_wildcards: str = "all") -> dict:
+        """GET [/{index}]/_alias[/{name}] as TorchNode.get_alias answers
+        it, over the aliases in the cluster state's index metadata (a
+        cluster has no closed index, so `expand_wildcards` selects all)."""
+        from opensearch_tpu_torch.node import get_alias_response
+
+        names = (self.resolve_indices(index_expr) if index_expr
+                 else sorted(self.state.indices))
+        views = self.indices
+        return get_alias_response(names, lambda n: views[n].aliases,
+                                  alias_expr)
+
+    def explain(self, index: str, doc_id: str, body: dict,
+                routing: str | None = None) -> dict:
+        """_explain as TorchNode.explain answers it, run by the node
+        holding the doc's shard, which a GET of the doc would reach."""
+        from opensearch_tpu_torch.node import write_target
+
+        body = body or {}
+        if body and "query" not in body:
+            raise IllegalArgumentException(
+                "request body must contain a [query] element")
+        views = self.indices
+        concrete = write_target(index, [
+            (name, view.aliases[index])
+            for name, view in sorted(views.items()) if index in view.aliases])
+        if concrete != index and routing is None:
+            conf = views[concrete].aliases.get(index) or {}
+            routing = conf.get("index_routing", conf.get("routing"))
+        self._meta(concrete)
+        return self._on_loop(lambda cb: self.node.explain(
+            concrete, doc_id, body, cb, routing=routing))
 
     # ------------------------------------------------------------------ #
     # index lifecycle (leader-routed)
@@ -1361,6 +1416,33 @@ class ClusterFacade:
                 for key, s in (r.get("shards") or {}).items():
                     if s.get("primary") or key not in out:
                         out[key] = s
+        return out
+
+    def cat_index_summary(self) -> dict[str, dict]:
+        """_cat/indices' cluster columns of each index: its health from
+        the routing table (by cluster_health's rule, ``routing_health``),
+        its docs from the primaries' shard stats, and its store bytes from
+        every copy's (``store``) and the primaries' (``pri_store``)."""
+        state = self.state
+        out: dict[str, dict] = {
+            name: {"health": routing_health(state.shards_for_index(name)),
+                   "docs": 0, "store": 0, "pri_store": 0}
+            for name in state.indices}
+        nodes = sorted(state.nodes)
+        results = self._rpc_many([
+            (nid, "indices:monitor/stats[node]", {"store": True})
+            for nid in nodes])
+        for r in results:
+            if not isinstance(r, dict):
+                continue
+            for s in (r.get("shards") or {}).values():
+                row = out.get(s["index"])
+                if row is None:
+                    continue
+                row["store"] += s.get("store_bytes", 0)
+                if s.get("primary"):
+                    row["docs"] += s["docs"]
+                    row["pri_store"] += s.get("store_bytes", 0)
         return out
 
     def index_stats(self, index: str = "_all", **_kw) -> dict:

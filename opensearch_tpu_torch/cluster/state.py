@@ -204,6 +204,25 @@ class ClusterState:
         )
 
 
+
+ACTIVE_STATES = ("STARTED", "RELOCATING")
+
+
+def routing_health(copies) -> str:
+    """ClusterStateHealth's status of a set of shard copies: red while a
+    primary is not active (a RELOCATING copy is active: a started copy
+    that is moving), yellow while a copy is unassigned or initializing
+    (a relocation target aside: it is the moving copy's shadow, not a
+    missing copy), else green."""
+    copies = list(copies)
+    if any(r.primary and r.state not in ACTIVE_STATES for r in copies):
+        return "red"
+    if any(r.state == "UNASSIGNED"
+           or (r.state == "INITIALIZING" and not r.is_relocation_target)
+           for r in copies):
+        return "yellow"
+    return "green"
+
 def diff_states(prev: ClusterState, new: ClusterState) -> dict:
     """Version-to-version delta (Diffable machinery analog). Receivers that
     have `prev.version` apply the diff; others request the full state."""

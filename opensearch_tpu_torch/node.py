@@ -443,6 +443,130 @@ class IndexService:
             shard.close()
 
 
+def get_alias_response(names: list[str], aliases_of,
+                       alias_expr: str | None) -> dict:
+    """The body of GET [/{index}]/_alias[/{name}] over the indices `names`
+    (``aliases_of(name)``: an index's {alias: conf}); a single node and a
+    cluster's facade answer through it."""
+
+    def echo(conf: dict) -> dict:
+        # "routing" renders as index_routing + search_routing
+        # (AliasMetadata's response shape); routing values are strings
+        conf = dict(conf or {})
+        if "routing" in conf:
+            conf.setdefault("index_routing", str(conf["routing"]))
+            conf.setdefault("search_routing", str(conf["routing"]))
+            del conf["routing"]
+        for k in ("index_routing", "search_routing"):
+            if k in conf:
+                conf[k] = str(conf[k])
+        return conf
+
+    all_alias_names = {a for name in names for a in aliases_of(name)}
+    if alias_expr in ("_all", "*"):
+        alias_expr = "*"  # explicit catch-all: alias-less indices drop
+    parts = ([p.strip() for p in str(alias_expr).split(",") if p.strip()]
+             if alias_expr not in (None, "") else None)
+    missing: list[str] = []
+    selected: set | None = None
+    if parts is not None:
+        selected = set()
+        # a leading "-name" with nothing selected yet is a LITERAL
+        # alias request (dash included) and 404s; once any wildcard or
+        # plain part appeared, "-x" is a plain exclusion
+        active = False
+        for part in parts:
+            wildcard = "*" in part or "?" in part
+            if part.startswith("-"):
+                pat = part[1:]
+                hits = {a for a in selected if fnmatch.fnmatch(a, pat)}
+                if hits:
+                    selected -= hits
+                elif not wildcard and not active:
+                    missing.append(part)
+                if wildcard:
+                    active = True
+            elif wildcard:
+                selected |= {a for a in all_alias_names
+                             if fnmatch.fnmatch(a, part)}
+                active = True
+            else:
+                active = True
+                if part in all_alias_names:
+                    selected.add(part)
+                else:
+                    missing.append(part)
+    out: dict[str, Any] = {}
+    for name in names:
+        matched = {a: echo(c) for a, c in aliases_of(name).items()
+                   if selected is None or a in selected}
+        if matched or parts is None:
+            out[name] = {"aliases": matched}
+    if missing:
+        missing.sort()
+        label = "aliases" if len(missing) > 1 else "alias"
+        out["error"] = f"{label} [{','.join(missing)}] missing"
+        out["status"] = 404
+    return out
+
+
+def explain_on_shard(index: str, doc_id: str, shard, mapper_service,
+                     body: dict) -> dict:
+    """_explain's answer from the shard holding the doc: a single node and
+    a cluster's data node answer through it."""
+    got = shard.get(doc_id)
+    if got is None:
+        raise DocumentMissingException(
+            f"[{index}]: document missing [{doc_id}]")
+    node_q = query_dsl.parse_query(body.get("query"))
+    restricted = query_dsl.BoolQuery(
+        must=[node_q], filter=[query_dsl.IdsQuery(values=[doc_id])])
+    result = execute_query_phase(shard.acquire_searcher(), mapper_service,
+                                 restricted, size=1)
+    matched = bool(result.hits)
+    out = {"_index": index, "_id": doc_id, "matched": matched}
+    if matched:
+        out["explanation"] = explain_for_hit(result.hits[0].score, node_q)
+    else:
+        out["explanation"] = {"value": 0.0,
+                              "description": "no matching term",
+                              "details": []}
+    # the GetResult rider: the fetched doc's _source
+    out["get"] = {"found": True, "_source": got.get("_source")}
+    return out
+
+
+def write_target(name: str, targets: list[tuple[str, dict]],
+                 for_write: bool = True) -> str:
+    """The index a write (or, with `for_write` false, a read by id) to
+    `name` reaches, given the (index, alias conf) pairs of the alias
+    `name` (none: `name` is an index); a single node and a cluster's
+    facade resolve through it."""
+    if not targets:
+        return name
+    if len(targets) == 1:
+        if for_write and targets[0][1].get("is_write_index") is False:
+            raise IllegalArgumentException(
+                f"no write index is defined for alias [{name}]. The "
+                f"write index may be explicitly disabled using "
+                f"is_write_index=false or the alias points to multiple "
+                f"indices without one being designated as a write index")
+        return targets[0][0]
+    writes = [n for n, c in targets if c.get("is_write_index")]
+    if not for_write and len(writes) != 1:
+        names_l = ", ".join(sorted(n for n, _c in targets))
+        raise IllegalArgumentException(
+            f"alias [{name}] has more than one index associated with "
+            f"it [{names_l}], can't execute a single index op")
+    if len(writes) != 1:
+        raise IllegalArgumentException(
+            f"no write index is defined for alias [{name}]. The write "
+            f"index may be explicitly disabled using is_write_index="
+            f"false or the alias points to multiple indices without one "
+            f"being designated as a write index")
+    return writes[0]
+
+
 class TorchNode:
     def __init__(self, data_path: str | Path,
                  device: torch.device | str = "cuda",
@@ -1032,97 +1156,14 @@ class TorchNode:
                 n for n in self.indices
                 if "closed" in expand_wildcards or "all" in expand_wildcards
                 or not self.indices[n].closed))
-
-        def echo(conf: dict) -> dict:
-            # "routing" renders as index_routing + search_routing
-            # (AliasMetadata's response shape); routing values are strings
-            conf = dict(conf or {})
-            if "routing" in conf:
-                conf.setdefault("index_routing", str(conf["routing"]))
-                conf.setdefault("search_routing", str(conf["routing"]))
-                del conf["routing"]
-            for k in ("index_routing", "search_routing"):
-                if k in conf:
-                    conf[k] = str(conf[k])
-            return conf
-
-        all_alias_names = {
-            a for name in names for a in self._get_index(name).aliases}
-        if alias_expr in ("_all", "*"):
-            alias_expr = "*"  # explicit catch-all: alias-less indices drop
-        parts = ([p.strip() for p in str(alias_expr).split(",") if p.strip()]
-                 if alias_expr not in (None, "") else None)
-        missing: list[str] = []
-        selected: set | None = None
-        if parts is not None:
-            selected = set()
-            # a leading "-name" with nothing selected yet is a LITERAL
-            # alias request (dash included) and 404s; once any wildcard or
-            # plain part appeared, "-x" is a plain exclusion
-            active = False
-            for part in parts:
-                wildcard = "*" in part or "?" in part
-                if part.startswith("-"):
-                    pat = part[1:]
-                    hits = {a for a in selected if fnmatch.fnmatch(a, pat)}
-                    if hits:
-                        selected -= hits
-                    elif not wildcard and not active:
-                        missing.append(part)
-                    if wildcard:
-                        active = True
-                elif wildcard:
-                    selected |= {a for a in all_alias_names
-                                 if fnmatch.fnmatch(a, part)}
-                    active = True
-                else:
-                    active = True
-                    if part in all_alias_names:
-                        selected.add(part)
-                    else:
-                        missing.append(part)
-        out: dict[str, Any] = {}
-        for name in names:
-            svc = self._get_index(name)
-            matched = {a: echo(c) for a, c in svc.aliases.items()
-                       if selected is None or a in selected}
-            if matched or parts is None:
-                out[name] = {"aliases": matched}
-        if missing:
-            missing.sort()
-            label = "aliases" if len(missing) > 1 else "alias"
-            out["error"] = f"{label} [{','.join(missing)}] missing"
-            out["status"] = 404
-        return out
+        return get_alias_response(
+            names, lambda name: self._get_index(name).aliases, alias_expr)
 
     def resolve_write_target(self, name: str, for_write: bool = True) -> str:
         """Alias -> its write index (TransportBulkAction's write-alias
         resolution); a concrete name passes through (and may autocreate).
         Reads (`for_write=False`) ignore write-index designations."""
-        targets = self._alias_targets(name)
-        if not targets:
-            return name
-        if len(targets) == 1:
-            if for_write and targets[0][1].get("is_write_index") is False:
-                raise IllegalArgumentException(
-                    f"no write index is defined for alias [{name}]. The "
-                    f"write index may be explicitly disabled using "
-                    f"is_write_index=false or the alias points to multiple "
-                    f"indices without one being designated as a write index")
-            return targets[0][0]
-        writes = [n for n, c in targets if c.get("is_write_index")]
-        if not for_write and len(writes) != 1:
-            names_l = ", ".join(sorted(n for n, _c in targets))
-            raise IllegalArgumentException(
-                f"alias [{name}] has more than one index associated with "
-                f"it [{names_l}], can't execute a single index op")
-        if len(writes) != 1:
-            raise IllegalArgumentException(
-                f"no write index is defined for alias [{name}]. The write "
-                f"index may be explicitly disabled using is_write_index="
-                f"false or the alias points to multiple indices without one "
-                f"being designated as a write index")
-        return writes[0]
+        return write_target(name, self._alias_targets(name), for_write)
 
     def _resolve_write_alias(self, index: str, routing: str | None,
                              for_write: bool = True,
@@ -2834,28 +2875,9 @@ class TorchNode:
         concrete, routing = self._resolve_write_alias(index, routing,
                                                       check_blocks=False)
         svc = self._get_open_index(concrete)
-        shard = svc.shard_for(doc_id, routing)
-        got = shard.get(doc_id)
-        if got is None:
-            raise DocumentMissingException(
-                f"[{concrete}]: document missing [{doc_id}]")
-        node_q = query_dsl.parse_query(body.get("query"))
-        restricted = query_dsl.BoolQuery(
-            must=[node_q], filter=[query_dsl.IdsQuery(values=[doc_id])])
-        result = execute_query_phase(shard.acquire_searcher(),
-                                     svc.mapper_service, restricted, size=1)
-        matched = bool(result.hits)
-        out = {"_index": concrete, "_id": doc_id, "matched": matched}
-        if matched:
-            out["explanation"] = explain_for_hit(result.hits[0].score,
-                                                 node_q)
-        else:
-            out["explanation"] = {"value": 0.0,
-                                  "description": "no matching term",
-                                  "details": []}
-        # the GetResult rider: the fetched doc's _source
-        out["get"] = {"found": True, "_source": got.get("_source")}
-        return out
+        return explain_on_shard(concrete, doc_id,
+                                svc.shard_for(doc_id, routing),
+                                svc.mapper_service, body)
 
     def field_caps(self, index: str | None, fields: str,
                    include_unmapped: bool = False,
@@ -3961,6 +3983,27 @@ class TorchNode:
         return search_service.try_batched_knn_msearch(shards, bodies, snaps)
 
     # -- cluster -------------------------------------------------------------
+
+    def cat_index_summary(self) -> dict[str, dict]:
+        """_cat/indices' node columns of each index: its health (every
+        configured replica is unassigned on a single node, so replicas > 0
+        is yellow, as cluster_health reads it), its docs, and its store
+        bytes (translog plus segment sources; a single node's primaries
+        are all its copies, so ``pri_store`` equals ``store``). A closed
+        index has no docs or bytes to read."""
+        out: dict[str, dict] = {}
+        for name, svc in self.indices.items():
+            docs = store = 0
+            if not svc.closed:
+                for s in svc.shards.values():
+                    docs += s.num_docs
+                    store += s.engine.translog.stats()["size_in_bytes"]
+                    for host, _dev in s.engine._segments:
+                        store += sum(len(x) for x in host.sources)
+            out[name] = {
+                "health": "green" if svc.num_replicas == 0 else "yellow",
+                "docs": docs, "store": store, "pri_store": store}
+        return out
 
     def cluster_health(self, index: str | None = None,
                        level: str = "cluster",

@@ -2745,9 +2745,13 @@ def cat_indices(node: TorchNode, params, query, body):
     if isinstance(ew, str):
         ew = ew.split(",")
     show_hidden = any(e in ("all", "hidden") for e in ew)
+    # each index's health, docs and bytes: the single node's own, or a
+    # cluster's across its nodes (ClusterFacade.cat_index_summary)
+    summary = node.cat_index_summary()
     rows = []
-    for name in sorted(node.indices):
-        svc = node.indices[name]
+    indices = node.indices
+    for name in sorted(indices):
+        svc = indices[name]
         hidden = str(svc.setting("hidden", False)).lower() == "true"
         targets = {name} | set(svc.aliases)
         if pats is not None:
@@ -2767,18 +2771,13 @@ def cat_indices(node: TorchNode, params, query, body):
                     continue
         elif hidden and not show_hidden:
             continue  # hidden indices excluded from bare listings
-        # unassigned replicas on a single node = yellow (ClusterStateHealth)
-        health = "green" if svc.num_replicas == 0 else "yellow"
+        health = summary[name]["health"]
         if health_filter is not None and health != str(health_filter):
             continue
         closed = svc.closed
-        docs = 0 if closed else sum(s.num_docs for s in svc.shards.values())
-        store = 0
-        if not closed:
-            for s in svc.shards.values():
-                store += s.engine.translog.stats()["size_in_bytes"]
-                for host, _dev in s.engine._segments:
-                    store += sum(len(x) for x in host.sources)
+        docs = summary[name]["docs"]
+        store = summary[name]["store"]
+        pri_store = summary[name]["pri_store"]
         cd = svc.creation_date
         cds = datetime.fromtimestamp(cd / 1000.0, tz=timezone.utc).strftime(
             "%Y-%m-%dT%H:%M:%S.") + f"{cd % 1000:03d}Z"
@@ -2794,7 +2793,7 @@ def cat_indices(node: TorchNode, params, query, body):
             "creation.date": cd,
             "creation.date.string": cds,
             "store.size": "" if closed else _human_bytes(store),
-            "pri.store.size": "" if closed else _human_bytes(store),
+            "pri.store.size": "" if closed else _human_bytes(pri_store),
         })
     return 200, _cat_format(query, rows, cols=[
         "health", "status", "index", "uuid", "pri", "rep", "docs.count",

@@ -447,3 +447,11 @@ def mesh_knn_batch(
         out.append(results)
         premerged.append(rows)
     return MeshLaunchOutcome(out, premerged, launch_id, wall_ns, retraced, s)
+
+
+def clear_caches() -> None:
+    """Drop every stacked bundle (freeing its device memory) and every
+    cached program key."""
+    registry.clear()
+    with _CACHE_LOCK:
+        _PROGRAM_CACHE.clear()

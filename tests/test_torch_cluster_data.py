@@ -25,8 +25,11 @@ the two runs' observations must be equal (:class:`Recorder`):
 Each node's disk-usage reading is pinned to 50% (``disk_usage_pct``, the
 reference's hook for its fs probe) unless a case sets its own, so the
 disk-threshold decider reads the same number in both runs whatever the
-host's disk holds. The reference runs with the port's one change to its
-coordinator (:func:`publication_fix`).
+host's disk holds. Each run starts with no kernel signature seen
+(``search/profile._seen_kernel_signatures``), so a profile's
+``jit_retrace`` is the case's own, whatever ran before in the process.
+The reference runs with the port's one change to its coordinator
+(:func:`publication_fix`).
 
 Then the slice's own kNN case: 3 shards, 1 replica, d = 16, 600 docs; a
 bare ``knn`` through each node as coordinator, again after ``isolate`` of
@@ -71,9 +74,15 @@ def volatile(key) -> bool:
 # -- the port's copy of a reference test module ------------------------------
 
 
+# the port's entry points a reference test calls, each given
+# ``device="cpu"`` in the port's copy
+ON_THE_CPU = ("ClusterNode", "ClusterServer", "TcpSoak", "run_soak",
+              "run_suites")
+
+
 class _ToPort(ast.NodeTransformer):
-    """Reference imports to the port's; ``ClusterNode(...)``,
-    ``ClusterServer(...)`` and ``TcpSoak(...)`` on the CPU."""
+    """Reference imports to the port's; the calls of :data:`ON_THE_CPU`
+    on the CPU."""
 
     @staticmethod
     def _module(name: str) -> str:
@@ -100,7 +109,7 @@ class _ToPort(ast.NodeTransformer):
         f = node.func
         name = f.id if isinstance(f, ast.Name) else (
             f.attr if isinstance(f, ast.Attribute) else None)
-        if name in ("ClusterNode", "ClusterServer", "TcpSoak") and not any(
+        if name in ON_THE_CPU and not any(
                 k.arg == "device" for k in node.keywords):
             node.keywords.append(
                 ast.keyword(arg="device", value=ast.Constant("cpu")))
@@ -308,6 +317,11 @@ class Recorder:
             node.disk_usage_pct = DISK_PCT
 
         mp.setattr(cnode.ClusterNode, "__init__", pinned_init)
+        # a profile's jit_retrace says whether this process launched the
+        # signature before: each run starts from none, so the flag is the
+        # case's own and not the worker's history
+        profile = importlib.import_module(f"{p}.search.profile")
+        mp.setattr(profile, "_seen_kernel_signatures", set())
         for name, fn in inspect.getmembers(cnode.ClusterNode,
                                            inspect.isfunction):
             if name.startswith("_"):

@@ -314,3 +314,222 @@ def test_federated_prometheus_answers_as_reference(rest_clusters):
               for p in PACKAGES}
     for text in single.values():
         assert "# TYPE opensearch_tpu_tasks_running gauge" in text
+
+
+# -- three routes that answered 500 through a cluster -------------------------
+#
+# ``_cat/indices``, ``GET [/{index}]/_alias[/{name}]`` and ``_explain``
+# through the port's 3-node cluster equal a single TorchNode's answers on
+# the same indices and docs: two indices of this section's own, created
+# through the cluster and on the single node alike (the fixture's
+# ``items`` is left alone: the reference's cases above write to it). The
+# reference's cluster still answers each with a 500 (its facade has no
+# ``get_alias`` / ``explain`` and its index view no ``setting``): a stated
+# difference, asserted below.
+
+ALIASED = "aliased"
+EXPLAINED = "explained"
+MINE = (ALIASED, EXPLAINED)
+BODIES = {
+    ALIASED: {
+        "settings": {"number_of_shards": 2, "number_of_replicas": 1},
+        "mappings": {"properties": {"title": {"type": "text"}}},
+        "aliases": {"read-a": {}, "write-a": {"is_write_index": True},
+                    "routed-a": {"routing": "7"}},
+    },
+    EXPLAINED: {
+        "settings": {"number_of_shards": 3, "number_of_replicas": 1},
+        "mappings": {"properties": {
+            "title": {"type": "text"}, "n": {"type": "long"},
+            "tag": {"type": "keyword"}}},
+    },
+}
+DOCS = {
+    ALIASED: [(f"a{i}", {"title": f"{w} doc"})
+              for i, w in enumerate(("first", "second", "third"))],
+    EXPLAINED: [(f"e{i}", {"title": f"doc number {i} "
+                           + ("alpha" if i % 3 == 0 else "beta"),
+                           "n": i, "tag": ["red", "green", "blue"][i % 3]})
+                for i in range(30)],
+}
+# what a single node and a cluster hold alike: health and the store's
+# bytes are each deployment's own (a single node leaves replicas
+# unassigned; a cluster's copies and segments are its own)
+CAT_INDICES_COLUMNS = ("index", "status", "pri", "rep", "docs.count",
+                       "docs.deleted")
+# paths naming no index list every index of the cluster, the reference
+# cases' too: their answers are compared on this section's indices
+ALIAS_PATHS = ("/_alias", f"/{EXPLAINED}/_alias", f"/{ALIASED}/_alias",
+               f"/{ALIASED}/_alias/read-a", f"/{ALIASED}/_alias/read-*,-r*",
+               "/_alias/write-a,routed-a", f"/{ALIASED}/_alias/missing",
+               "/_alias/read-a,missing", f"/{ALIASED},{EXPLAINED}/_alias")
+EXPLAIN_BODIES = (
+    (EXPLAINED, "e3", {"query": {"match": {"title": "alpha"}}}),
+    (EXPLAINED, "e4", {"query": {"match": {"title": "alpha"}}}),
+    (EXPLAINED, "e5", {"query": {"term": {"tag": "blue"}}}),
+    (EXPLAINED, "e20", {"query": {"range": {"n": {"gte": 10}}}}),
+    (EXPLAINED, "nope", {"query": {"match_all": {}}}),
+    (EXPLAINED, "e1", {"size": 1}),
+    (ALIASED, "a1", {"query": {"match": {"title": "first"}}}),
+    ("write-a", "a2", {"query": {"match_all": {}}}),
+)
+
+
+@pytest.fixture(scope="module")
+def single_items(rest_clusters, tmp_path_factory):
+    """This section's indices on a single TorchNode on the CPU, behind the
+    port's HttpServer, and through the port's cluster."""
+    from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.rest.http import HttpServer
+
+    node = TorchNode(tmp_path_factory.mktemp("single_items"), device="cpu")
+    port = "opensearch_tpu_torch"
+    cluster = rest_clusters.clusters[port]
+    for name in MINE:
+        node.create_index(name, BODIES[name])
+        node.bulk([("index", {"_index": name, "_id": i}, d)
+                   for i, d in DOCS[name]])
+        status, resp = rest_clusters.req(port, "n0", "PUT", f"/{name}",
+                                         BODIES[name])
+        assert status == 200, resp
+        rest_clusters.loop.run_until_complete(
+            cluster.wait_health(cluster.http_ports["n0"], "green"))
+        nd = "".join(json.dumps(x) + "\n" for i, d in DOCS[name]
+                     for x in ({"index": {"_index": name, "_id": i}}, d))
+        status, resp = rest_clusters.req(port, "n1", "POST",
+                                         "/_bulk?refresh=true", nd)
+        assert status == 200 and not resp["errors"], resp
+    node.refresh("_all")
+    server = HttpServer(node, "127.0.0.1", 0)
+    server.start_in_thread()
+    try:
+        yield server.port
+    finally:
+        server.stop_thread()
+        node.close()
+
+
+def _single(rest_clusters, port, method, path, body=None):
+    return rest_clusters.loop.run_until_complete(
+        rest_clusters.ref.http(port, method, path, body))
+
+
+@pytest.mark.parametrize("nid", ["n0", "n1", "n2"])
+def test_cat_indices_through_cluster_equals_single_node(rest_clusters,
+                                                        single_items, nid):
+    path = "/_cat/indices?format=json"
+    single = _single(rest_clusters, single_items, "GET", path)
+    got = rest_clusters.req("opensearch_tpu_torch", nid, "GET", path)
+    assert single[0] == got[0] == 200, (single, got)
+
+    def rows(payload):
+        return sorted(tuple(r[c] for c in CAT_INDICES_COLUMNS)
+                      for r in payload if r["index"] in MINE)
+
+    assert rows(got[1]) == rows(single[1]) and len(rows(single[1])) == 2
+    # every index of the cluster, each green on three nodes
+    status, state = rest_clusters.req("opensearch_tpu_torch", nid, "GET",
+                                      "/_cluster/state/metadata")
+    assert status == 200, state
+    assert sorted(r["index"] for r in got[1]) == \
+        sorted(state["metadata"]["indices"])
+    assert {r["health"] for r in got[1]} == {"green"}
+
+
+@pytest.mark.parametrize("path", ALIAS_PATHS)
+def test_get_alias_through_cluster_equals_single_node(rest_clusters,
+                                                      single_items, path):
+    single = _single(rest_clusters, single_items, "GET", path)
+    for nid in ("n0", "n1", "n2"):
+        status, body = rest_clusters.req("opensearch_tpu_torch", nid, "GET",
+                                         path)
+        if path.startswith("/_alias"):
+            # the other indices of the cluster hold no alias
+            assert all(body[k] == {"aliases": {}} for k in body
+                       if k not in MINE and k not in ("error", "status"))
+            body = {k: v for k, v in body.items()
+                    if k in MINE or k in ("error", "status")}
+        assert (status, body) == single, (nid, path, status, body, single)
+
+
+@pytest.mark.parametrize("index,doc_id,body", EXPLAIN_BODIES,
+                         ids=[f"{i}-{d}" for i, d, _b in EXPLAIN_BODIES])
+def test_explain_through_cluster_equals_single_node(rest_clusters,
+                                                    single_items, index,
+                                                    doc_id, body):
+    path = f"/{index}/_explain/{doc_id}"
+    single = _single(rest_clusters, single_items, "POST", path, body)
+    for nid in ("n0", "n1", "n2"):
+        got = rest_clusters.req("opensearch_tpu_torch", nid, "POST", path,
+                                body)
+        assert got[0] == single[0], (nid, got, single)
+        assert_same_body(single[1], got[1], f"{nid} {path}")
+
+
+def test_reference_cluster_still_answers_500(rest_clusters):
+    """The stated difference: the reference's facade keeps the three
+    faults the port's repairs."""
+    for method, path, body in (
+            ("GET", "/_cat/indices?format=json", None),
+            ("GET", "/_alias", None),
+            ("POST", "/items/_explain/i3",
+             {"query": {"match": {"title": "alpha"}}})):
+        status, _resp = rest_clusters.req("opensearch_tpu", "n1", method,
+                                          path, body)
+        assert status == 500, (path, status)
+
+
+def _routing(*copies):
+    from opensearch_tpu_torch.cluster.state import ShardRoutingEntry
+
+    return tuple(ShardRoutingEntry("items", shard, node, primary, st, reloc)
+                 for shard, node, primary, st, reloc in copies)
+
+
+# the routing of one 2-shard x 1-replica index at moments the cluster goes
+# through, and the health both reads must give it: a replica moving
+# (rebalance, drain, disk evacuation) is a started copy and its shadow
+HEALTH_MOMENTS = {
+    "started": ("green", _routing(
+        (0, "n0", True, "STARTED", None), (0, "n1", False, "STARTED", None),
+        (1, "n1", True, "STARTED", None), (1, "n2", False, "STARTED", None))),
+    "replica_relocating": ("green", _routing(
+        (0, "n0", True, "STARTED", None),
+        (0, "n1", False, "RELOCATING", "n2"),
+        (0, "n2", False, "INITIALIZING", "n1"),
+        (1, "n1", True, "STARTED", None), (1, "n2", False, "STARTED", None))),
+    "replica_recovering": ("yellow", _routing(
+        (0, "n0", True, "STARTED", None),
+        (0, "n1", False, "INITIALIZING", None),
+        (1, "n1", True, "STARTED", None), (1, "n2", False, "STARTED", None))),
+    "replica_unassigned": ("yellow", _routing(
+        (0, "n0", True, "STARTED", None), (0, None, False, "UNASSIGNED", None),
+        (1, "n1", True, "STARTED", None),
+        (1, "n1", False, "RELOCATING", "n2"),
+        (1, "n2", False, "INITIALIZING", "n1"))),
+    "primary_unassigned": ("red", _routing(
+        (0, None, True, "UNASSIGNED", None), (0, "n1", False, "STARTED", None),
+        (1, "n1", True, "STARTED", None), (1, "n2", False, "STARTED", None))),
+}
+
+
+@pytest.mark.parametrize("moment", sorted(HEALTH_MOMENTS))
+def test_cat_indices_health_is_cluster_healths(moment):
+    """``_cat/indices`` through a cluster (``cat_index_summary``) reads an
+    index's health by ``_cluster/health``'s rule at every moment of its
+    routing, a relocation's included: a relocation target is the moving
+    copy's shadow, not a missing copy."""
+    from types import SimpleNamespace
+
+    from opensearch_tpu_torch.cluster.cluster_node import ClusterNode
+    from opensearch_tpu_torch.cluster.facade import ClusterFacade
+    from opensearch_tpu_torch.cluster.state import ClusterState, IndexMeta
+
+    want, routing = HEALTH_MOMENTS[moment]
+    state = ClusterState(indices={"items": IndexMeta("items", 2, 1)},
+                         routing=routing)
+    node = SimpleNamespace(applied_state=state)
+    facade = SimpleNamespace(state=state,
+                             _rpc_many=lambda calls: [None] * len(calls))
+    assert ClusterNode.cluster_health(node)["status"] == want
+    assert ClusterFacade.cat_index_summary(facade)["items"]["health"] == want
