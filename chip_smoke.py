@@ -4,7 +4,7 @@
                           [--phases kernel,timing,main|filtered|rest,
                                     hybrid,large,lexical,aggs,dsl,mesh,
                                     contexts,ops,admin,backup,cluster,
-                                    tcp,soak]
+                                    tcp,soak,lint]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -503,12 +503,25 @@ library calls, logged as `large record` lines.
    holds and every op completes; K1's and K2's launches above 0 and no
    more than the searches of their kind; the probe confirms no unlocked
    cross-role write; once the soak's nodes close, no stacked bundle of
-   its indices and no device allocation made during it is left; at most
-   45 s. One `soak` line (ops, faults, invariants, digest, searches and
-   launches, the probe's findings, the bytes the cyclic collector frees
-   after the soak and memory_allocated()'s change after it, seconds);
-   K1's and K2's entries gain `soak_launches`. ``--phases soak`` runs it
-   alone.
+   its indices and no device allocation made during it is left, and
+   memory_allocated() is back at its value before the soak with the
+   cyclic collector off from the soak's start until that reading (so a
+   closed node frees its device tensors at close, not at a collection);
+   at most 45 s. One `soak` line (ops, faults, invariants, digest,
+   searches and launches, the probe's findings, memory_allocated()'s
+   change after close, the bytes one collection then frees and the
+   change after it, seconds); K1's and K2's entries gain
+   `soak_launches`. ``--phases soak`` runs it alone.
+17. lint (with main, or ``--phases lint``; first of all, before the
+   build; lint_phase): the port's linter over opensearch_tpu_torch/, as
+   ``python -m opensearch_tpu_torch.lint opensearch_tpu_torch --fix
+   --dry-run`` runs it, against the port's baseline
+   (opensearch_tpu_torch/lint_baseline.json, empty). Gates: its exit
+   code 0, no finding, no pending rewrite, all 19 rules run, and neither
+   jax nor opensearch_tpu among the modules of the linter's process or
+   of this one afterwards. One `lint` line (files checked, findings,
+   pending fixes, seconds). The phase is not caught: a failure ends the
+   run.
 
 Before each phase, a line names it and the wall seconds so far, so a run
 that fails names the phase it died in before the traceback.
@@ -12081,10 +12094,17 @@ def soak_phase(kf, ads, dev, seed: int = SOAK_SEED) -> dict:
     from opensearch_tpu_torch.cluster.shard_mesh import default_registry
     from opensearch_tpu_torch.ops import adc_lut, knn_rescore
     from opensearch_tpu_torch.search import service as search_service
+    from opensearch_tpu_torch.telemetry import roofline
     from opensearch_tpu_torch.telemetry.device_ledger import default_ledger
     from opensearch_tpu_torch.testing import race_probe, soak
 
     t_phase = time.perf_counter()
+    # what the soak may make once per process comes first: the roofline's
+    # peak probe (cuBLAS's workspace at its first product); and what
+    # earlier phases' closed nodes left to the collector goes before the
+    # reading, so the phase's memory is the soak's own
+    roofline.ensure_peaks(dev)
+    gc.collect()
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     kind_of = {**{i: "exact" for i in SOAK_EXACT},
@@ -12119,6 +12139,9 @@ def soak_phase(kf, ads, dev, seed: int = SOAK_SEED) -> dict:
                 kf.large_select_launches, kf.tile_launches, ads.launches,
                 adc_lut.launches, knn_rescore.launches,
                 knn_rescore.sq_launches)
+    # the collector stays off through the soak and its close: what the
+    # closed nodes leave must be freed by their close, not by a collection
+    gc.disable()
     try:
         with tempfile.TemporaryDirectory() as tmp:
             # every count from 0, just before the soak drives the path
@@ -12137,14 +12160,16 @@ def soak_phase(kf, ads, dev, seed: int = SOAK_SEED) -> dict:
                         "adc_lut": adc_lut.launches.count,
                         "knn_rescore": knn_rescore.launches.count,
                         "knn_query_sq": knn_rescore.sq_launches.count}
+        torch.cuda.synchronize()
+        # read before any collection: the closed nodes' objects hold one
+        # another in cycles, and their engines' close drops the device
+        # segments those cycles would otherwise keep
+        # (scripts/soak_memory_probe.py names what stays)
+        mem_closed = torch.cuda.memory_allocated()
     finally:
+        gc.enable()
         for name, (owner, fn) in saved.items():
             setattr(owner, name, fn)
-    torch.cuda.synchronize()
-    # the closed nodes' objects hold one another: the device copies of
-    # their segments that only such cycles keep alive are freed by the
-    # collector, not at close (scripts/soak_memory_probe.py names them)
-    mem_closed = torch.cuda.memory_allocated()
     gc.collect()
     freed_by_gc = mem_closed - torch.cuda.memory_allocated()
     probe_report = probe.report()
@@ -12169,6 +12194,7 @@ def soak_phase(kf, ads, dev, seed: int = SOAK_SEED) -> dict:
                   "confirmed": probe_report["confirmed"],
                   "verdicts": sorted({f["verdict"] for f in
                                       probe_report["findings"]})},
+        "memory_after_close_delta": mem_closed - mem0,
         "memory_allocated_delta": torch.cuda.memory_allocated() - mem0,
         "memory_freed_by_gc": freed_by_gc,
         "bundles_left": bundles, "allocations_left": left[:5],
@@ -12191,12 +12217,77 @@ def soak_phase(kf, ads, dev, seed: int = SOAK_SEED) -> dict:
     if probe_report["confirmed"]:
         raise AssertionError(f"[soak] the race probe confirmed "
                              f"{probe_report['confirmed']}")
+    if mem_closed != mem0:
+        raise AssertionError(
+            f"[soak] {mem_closed - mem0} bytes allocated after the nodes "
+            f"closed, before any collection ({freed_by_gc} freed by one)")
     if bundles or left:
         raise AssertionError(f"[soak] left on the card: bundles {bundles}, "
                              f"allocations {left[:5]}")
     if out["wall_s"] > SOAK_WALL_S:
         raise AssertionError(f"[soak] the phase took {out['wall_s']:.1f} s, "
                              f"over its {SOAK_WALL_S} s")
+    return out
+
+
+# the linter's process: its CLI, then the modules it imported
+_LINT_RUNNER = """\
+import json
+import sys
+
+from opensearch_tpu_torch.lint import cli
+
+rc = cli.main(sys.argv[1:])
+print(json.dumps({"rc": rc, "refused": sorted(
+    m for m in sys.modules
+    if m.split(".")[0] in ("jax", "jaxlib", "opensearch_tpu"))}))
+"""
+_REFUSED = ("jax", "jaxlib", "opensearch_tpu")
+
+
+def lint_phase() -> dict:
+    """The port's linter over its own package (``--phases lint``; first
+    of the default run): ``python -m opensearch_tpu_torch.lint
+    opensearch_tpu_torch --fix --dry-run --format json`` with the port's
+    baseline, in a process of its own (its worker pool then spawns from a
+    process that has not imported torch), which reports the modules it
+    imported. Host work, first of all: a finding fails the run before the
+    build."""
+    root = pathlib.Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _LINT_RUNNER, str(root / "opensearch_tpu_torch"),
+         "--fix", "--dry-run", "--format", "json"],
+        capture_output=True, text=True, cwd=root, timeout=600)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"[lint] the linter's process exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    report_text, _, tail = proc.stdout.rstrip().rpartition("\n")
+    report, ran = json.loads(report_text), json.loads(tail)
+    refused = sorted(set(ran["refused"]) | {
+        m for m in sys.modules if m.split(".")[0] in _REFUSED})
+    baseline = report["baseline"]
+    out = {"files_checked": report["files_checked"],
+           "findings": report["total_violations"],
+           "regressions": len(report["regressions"]),
+           "pending_fixes": len(report["pending_fixes"]),
+           "rules": len(report["rules"]),
+           "baseline": (str(pathlib.Path(baseline).relative_to(root))
+                        if baseline else None),
+           "refused_modules": refused, "rc": ran["rc"],
+           "lint_s": report["elapsed_seconds"], "seconds": seconds}
+    log(f"lint {json.dumps(out)}")
+    if ran["rc"] != 0 or out["findings"] or out["regressions"] or \
+            out["pending_fixes"]:
+        raise AssertionError(
+            f"[lint] rc {ran['rc']}: {report['violations'][:5]} "
+            f"{report['pending_fixes'][:5]}")
+    if out["baseline"] != "opensearch_tpu_torch/lint_baseline.json" or \
+            out["rules"] != 19 or out["files_checked"] < 100:
+        raise AssertionError(f"[lint] {out}")
+    if refused:
+        raise AssertionError(f"[lint] imported {refused}")
     return out
 
 
@@ -12226,6 +12317,14 @@ def main() -> int:
     from opensearch_tpu_torch.ops import knn_fused as kf
     from opensearch_tpu_torch.ops import knn_rescore as kr
 
+    t_run = time.perf_counter()
+    lint_s = None
+    if phases & {"main", "lint"}:
+        # first of all: a finding fails the run before the build
+        log("phase lint starts at 0.0 s")
+        t0 = time.perf_counter()
+        lint_phase()
+        lint_s = time.perf_counter() - t0
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -12234,7 +12333,6 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
     dev = torch.device("cuda", 0)
-    t_run = time.perf_counter()
 
     def phase_start(name: str) -> None:
         # on its own line before the phase: a run that fails names the
@@ -12249,6 +12347,8 @@ def main() -> int:
     log(f"built {', '.join(KERNELS)} in {time.perf_counter() - t0:.1f} s")
     # wall seconds of each phase, logged at the end
     phase_s = {"build": time.perf_counter() - t0}
+    if lint_s is not None:
+        phase_s["lint"] = lint_s
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     designs = {"lists": "opensearch_tpu_torch/csrc/knn_pool.cuh: the list "

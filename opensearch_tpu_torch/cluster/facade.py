@@ -361,8 +361,20 @@ class ClusterFacade:
         self._wait_active_primaries(name)
         return resp
 
-    def delete_index(self, name: str) -> dict:
-        for n in self.resolve_indices(name):
+    def delete_index(self, name: str, *, ignore_unavailable: bool = False,
+                     allow_no_indices: bool = True) -> dict:
+        """DELETE /{index} with TorchNode.delete_index's resolution
+        (node.delete_targets) over the cluster state's indices and their
+        aliases; each target is one leader-routed delete."""
+        from opensearch_tpu_torch.node import delete_targets
+
+        aliases: dict[str, list[str]] = {}
+        for idx, view in sorted(self.indices.items()):
+            for alias in view.aliases:
+                aliases.setdefault(alias, []).append(idx)
+        for n in delete_targets(name, sorted(self.state.indices), aliases,
+                                ignore_unavailable=ignore_unavailable,
+                                allow_no_indices=allow_no_indices):
             self._rpc(self._leader(), "cluster:admin/delete_index",
                       {"name": n})
         return {"acknowledged": True}

@@ -326,7 +326,7 @@ class ShardMeshRegistry:
                 _free_bundle(bundle, reason="cleared")
             self._bundles.clear()
             # fixed-key accounting cell, not a growing buffer
-            self._mem["resident_bytes"] = 0
+            self._mem["resident_bytes"] = 0  # tpulint: disable=TPU009
 
     def reset_stats(self) -> None:
         """Test hook: zero the counters (never the resident bundles)."""

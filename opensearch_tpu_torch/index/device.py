@@ -231,14 +231,14 @@ def _maybe_build_ann(vf, device: torch.device | str,
 
 def vector_field_from_numpy(vectors: np.ndarray, present: np.ndarray, *,
                             similarity: str, n_pad: int,
-                            device: torch.device | str) -> DeviceVectorField:
-    """One vector column on `device`, padded to n_pad rows."""
+                            put) -> DeviceVectorField:
+    """One vector column, padded to n_pad rows, each array uploaded by
+    ``put`` (numpy -> device tensor), which the caller accounts."""
     vecs = _pad1(np.asarray(vectors, np.float32), n_pad)
     return DeviceVectorField(
-        vectors=torch.from_numpy(np.ascontiguousarray(vecs)).to(device),
-        norms_sq=torch.from_numpy(vector_norms_sq(vecs)).to(device),
-        present=torch.from_numpy(
-            _pad1(np.asarray(present, bool), n_pad, fill=False)).to(device),
+        vectors=put(vecs),
+        norms_sq=put(vector_norms_sq(vecs)),
+        present=put(_pad1(np.asarray(present, bool), n_pad, fill=False)),
         dims=int(vecs.shape[1]),
         similarity=similarity,
     )
@@ -306,7 +306,7 @@ def to_device(seg: HostSegment, device: torch.device | str) -> DeviceSegment:
     for fname, vf in seg.vector_fields.items():
         dvf = vector_field_from_numpy(
             vf.vectors, vf.present, similarity=vf.similarity, n_pad=n_pad,
-            device=device,
+            put=put,
         )
         dvf.ann, dvf.nprobe_default = _maybe_build_ann(vf, device,
                                                        field=fname)

@@ -774,3 +774,10 @@ class Engine:
         # release the published set's device-residency entries (shard
         # removal, index delete, node shutdown all land here)
         self._retire_devices(self._segments, reason="closed")
+        # and drop the device tensors themselves: a closed node's objects
+        # hold one another in reference cycles (the coordinator's
+        # on_state_applied hook and the transport's handler table are bound
+        # methods of the node that owns the coordinator), so whatever a
+        # closed engine still pointed at would wait for the cyclic collector
+        self._segments = []
+        self._searcher = SearcherSnapshot([], self._refresh_generation)

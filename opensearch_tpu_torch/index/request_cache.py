@@ -112,11 +112,11 @@ class RequestCache:
         Every caller holds self._lock — the lexical lock-discipline scan
         can't see a caller-held lock, hence the line suppressions."""
         while self._entries and (
-            self._total_bytes > self.max_bytes
+            self._total_bytes > self.max_bytes  # tpulint: disable=TPU003
             or len(self._entries) > self.max_entries
         ):
-            victim, _v = self._entries.popitem(last=False)
-            self._total_bytes -= self._sizes.pop(victim, 0)
+            victim, _v = self._entries.popitem(last=False)  # tpulint: disable=TPU003
+            self._total_bytes -= self._sizes.pop(victim, 0)  # tpulint: disable=TPU003
             self.evictions += 1
 
     def clear(self, index: str | None = None) -> int:

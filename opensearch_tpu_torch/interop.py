@@ -45,7 +45,8 @@ def segment_vectors_from_numpy(vectors: np.ndarray, present: np.ndarray, *,
     vectors = np.asarray(vectors, np.float32)
     return vector_field_from_numpy(
         vectors, present, similarity=similarity,
-        n_pad=vectors.shape[0] if n_pad is None else n_pad, device=device)
+        n_pad=vectors.shape[0] if n_pad is None else n_pad,
+        put=lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device))
 
 
 def ivfpq_index_from_numpy(coarse: np.ndarray, codebooks: np.ndarray,

@@ -266,15 +266,16 @@ def _lint_file(f: str, checkers: Iterable[Checker],
     return lint_source(f, source, checkers, external_roles=external_roles)
 
 
-def _rule_registry() -> tuple[list[Checker], dict[str, Checker]]:
-    """``(ALL_CHECKERS, RULES)`` of ``lint/rules.py``, which comes to the
-    port with the rest of the linter (its CLI, CFG, explain, fixes and
-    baseline). Until then every caller that needs the registry raises:
-    linting with no rules must never read as "no findings"."""
-    raise NotImplementedError(
-        "opensearch_tpu_torch.lint.rules (the rule registry) is not "
-        "ported yet: it comes with the linter's last slice (rules, "
-        "cli, cfg, explain, fixes, baseline); pass checkers explicitly")
+def _lint_file_by_rules(args: tuple) -> list[Violation]:
+    """Process-pool worker: files are dispatched with RULE IDS (picklable)
+    and each worker resolves them against its own module-level registry.
+    The per-file external-role slice rides along so the whole-program
+    fixpoint runs ONCE in the parent, never per worker."""
+    f, rule_ids, external_roles = args
+    from opensearch_tpu_torch.lint.rules import RULES
+
+    return _lint_file(f, [RULES[r] for r in rule_ids],
+                      external_roles=external_roles)
 
 
 def _program_pass(files: list[str], use_cache: bool):
@@ -306,9 +307,11 @@ def lint_paths(
 ) -> tuple[list[Violation], int]:
     """Lint every .py file under `paths`. Returns (violations, files_checked).
 
-    ``jobs`` is the reference's process-pool width, which dispatches
-    registry checkers by rule id; with no registry in the port yet every
-    checker is a custom one, and custom checkers run serially there too.
+    ``jobs > 1`` parses/checks files in a process pool (per-file work is
+    independent by construction — every checker gets a fresh FileContext).
+    Parallel dispatch requires registry checkers (rule ids are what
+    crosses the process boundary); custom checker instances fall back to
+    serial, as does any pool failure.
 
     When the checker set includes the thread-role rules, a whole-program
     pre-pass (lint/callgraph.py) runs first and each file is linted with
@@ -316,7 +319,9 @@ def lint_paths(
     the on-disk summary cache.
     """
     if checkers is None:
-        checkers, _rules = _rule_registry()
+        from opensearch_tpu_torch.lint.rules import ALL_CHECKERS
+
+        checkers = ALL_CHECKERS
     checkers = list(checkers)
     files = list(iter_py_files(paths))
     violations: list[Violation] = []
@@ -327,6 +332,35 @@ def lint_paths(
 
     def external(f: str) -> dict:
         return roles_for(f) if roles_for is not None else {}
+
+    if jobs is not None and jobs > 1 and len(files) >= 2 * jobs:
+        from opensearch_tpu_torch.lint.rules import RULES
+
+        rule_ids = tuple(sorted(
+            c.rule_id for c in checkers
+            if RULES.get(c.rule_id) is c
+        ))
+        if len(rule_ids) == len(checkers):
+            try:
+                import concurrent.futures as _cf
+                import multiprocessing as _mp
+
+                # spawned, not forked: the caller may have threads (a test
+                # runner's, a server's), and a fork copies their locks
+                with _cf.ProcessPoolExecutor(
+                        max_workers=jobs,
+                        mp_context=_mp.get_context("spawn")) as pool:
+                    for batch in pool.map(
+                        _lint_file_by_rules,
+                        [(f, rule_ids, external(f)) for f in files],
+                        chunksize=max(1, len(files) // (jobs * 4)),
+                    ):
+                        violations.extend(batch)
+                violations.sort(key=Violation.sort_key)
+                return violations, len(files)
+            except (OSError, RuntimeError,
+                    ImportError):  # pragma: no cover - env-specific
+                violations = []  # pool unavailable: fall through to serial
 
     for f in files:
         violations.extend(_lint_file(f, checkers, external_roles=external(f)))

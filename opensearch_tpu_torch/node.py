@@ -226,6 +226,50 @@ def _has_wildcard(part: str) -> bool:
     return "*" in part or "?" in part
 
 
+def delete_targets(expr: str, names: list[str], alias_map: dict, *,
+                   ignore_unavailable: bool = False,
+                   allow_no_indices: bool = True) -> list[str]:
+    """The concrete indices DELETE /{expr} removes, in order, from the
+    index ``names`` and the ``alias_map`` (alias -> member indices) that
+    hold it: every index for `_all` and `*`, the indices a pattern matches,
+    less a later "-" exclusion; an alias is refused (strict concrete-index
+    resolution). Shared by a single node and a cluster's facade."""
+    targets: list[str] = []
+    matched_any = False
+    wildcard_seen = False
+    for part in expr.split(","):
+        part = part.strip()
+        if part in ("_all", "*"):
+            targets.extend(names)
+            matched_any = True
+        elif part.startswith("-") and wildcard_seen:
+            # an exclusion after a pattern drops what it names
+            targets = [n for n in targets
+                       if not fnmatch.fnmatch(n, part[1:])]
+        elif _has_wildcard(part):
+            wildcard_seen = True
+            hits = [n for n in names if fnmatch.fnmatch(n, part)]
+            targets.extend(hits)
+            matched_any = matched_any or bool(hits)
+            if not hits and not allow_no_indices:
+                # per expression: an empty pattern fails fast
+                raise IndexNotFoundException(part)
+        elif part in alias_map:
+            if ignore_unavailable:
+                continue
+            raise IllegalArgumentException(
+                f"The provided expression [{part}] matches an alias, "
+                f"specify the corresponding concrete indices instead.")
+        elif part in names:
+            targets.append(part)
+            matched_any = True
+        elif not ignore_unavailable:
+            raise IndexNotFoundException(part)
+    if not matched_any and not allow_no_indices:
+        raise IndexNotFoundException(expr)
+    return list(dict.fromkeys(targets))
+
+
 def index_settings_entry(raw_settings: dict, *, num_shards: int,
                          num_replicas: int, name: str | None = None,
                          flat: bool = False, include_defaults: bool = False,
@@ -772,42 +816,10 @@ class TorchNode:
         exclusion) closes, leaves the node, has its stacked serving slabs
         released from device memory and its files removed; an alias name
         is refused (strict concrete-index resolution)."""
-        alias_map = self._alias_map()
-        targets: list[str] = []
-        matched_any = False
-        wildcard_seen = False
-        for part in expr.split(","):
-            part = part.strip()
-            if part in ("_all", "*"):
-                targets.extend(list(self.indices))
-                matched_any = True
-            elif part.startswith("-") and wildcard_seen:
-                # an exclusion after a pattern drops what it names
-                targets = [n for n in targets
-                           if not fnmatch.fnmatch(n, part[1:])]
-            elif _has_wildcard(part):
-                wildcard_seen = True
-                hits = [n for n in list(self.indices)
-                        if fnmatch.fnmatch(n, part)]
-                targets.extend(hits)
-                matched_any = matched_any or bool(hits)
-                if not hits and not allow_no_indices:
-                    # per expression: an empty pattern fails fast
-                    raise IndexNotFoundException(part)
-            elif part in alias_map:
-                if ignore_unavailable:
-                    continue
-                raise IllegalArgumentException(
-                    f"The provided expression [{part}] matches an alias, "
-                    f"specify the corresponding concrete indices instead.")
-            elif part in self.indices:
-                targets.append(part)
-                matched_any = True
-            elif not ignore_unavailable:
-                raise IndexNotFoundException(part)
-        if not matched_any and not allow_no_indices:
-            raise IndexNotFoundException(expr)
-        for name in dict.fromkeys(targets):
+        targets = delete_targets(expr, list(self.indices), self._alias_map(),
+                                 ignore_unavailable=ignore_unavailable,
+                                 allow_no_indices=allow_no_indices)
+        for name in targets:
             self._release_index(name, self.indices.pop(name))
             shutil.rmtree(self._index_path(name), ignore_errors=True)
         self._persist_index_registry()

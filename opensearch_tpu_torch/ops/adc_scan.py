@@ -293,7 +293,7 @@ def probes_on(probes, nlist: int, device) -> torch.Tensor:
     probes = np.asarray(probes)
     if probes.size and (probes.min() < 0 or probes.max() >= nlist):
         raise ValueError(f"probe ids outside [0, {nlist})")
-    return torch.from_numpy(
+    return torch.from_numpy(  # tpulint: disable=TPU014 - per-search probe table
         np.ascontiguousarray(probes, np.int32)).to(device)
 
 

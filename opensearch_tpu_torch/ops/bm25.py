@@ -43,7 +43,8 @@ def idf(doc_freq: int, doc_count: int) -> float:
 def _as_tensor(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(x, dtype=dtype).to(device)
+    return torch.as_tensor(  # tpulint: disable=TPU014 - per-query operand
+        x, dtype=dtype).to(device)
 
 
 def postings_window(postings_docs: torch.Tensor, offsets, lengths, *,

@@ -42,8 +42,10 @@ def range_mask_f32(values: torch.Tensor, present: torch.Tensor, gte: float,
     """Range over f32 values [n_pad]; strict bounds where gt_open / lt_open.
     The bounds are rounded to f32 first, as the reference's jnp.float32
     scalars are."""
-    lo = torch.tensor(gte, dtype=torch.float32, device=values.device)
-    hi = torch.tensor(lte, dtype=torch.float32, device=values.device)
+    lo = torch.tensor(  # tpulint: disable=TPU014 - per-launch scalar bound
+        gte, dtype=torch.float32, device=values.device)
+    hi = torch.tensor(  # tpulint: disable=TPU014 - per-launch scalar bound
+        lte, dtype=torch.float32, device=values.device)
     lower = values > lo if gt_open else values >= lo
     upper = values < hi if lt_open else values <= hi
     return present & lower & upper

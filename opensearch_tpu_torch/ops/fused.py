@@ -94,9 +94,10 @@ def lexical_scores(postings_docs, postings_tfs, doc_len, offsets, lengths,
     update order from 0, the same bits on the CPU and the card)."""
     idx, docs, valid = bm25.postings_window(postings_docs, offsets, lengths,
                                             n_pad=n_pad, window=window)
-    avgdl = torch.clamp(torch.as_tensor(avgdl, dtype=torch.float32,
-                                        device=postings_docs.device),
-                        min=1e-6)
+    avgdl = torch.clamp(
+        torch.as_tensor(  # tpulint: disable=TPU014 - per-launch scalar
+            avgdl, dtype=torch.float32, device=postings_docs.device),
+        min=1e-6)
     contrib = bm25.bm25_contributions(postings_tfs, doc_len, idx, docs,
                                       valid, idfs, avgdl, k1, b)
     return bm25.doc_sums(docs, contrib, valid, n_pad)[0]

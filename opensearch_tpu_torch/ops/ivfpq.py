@@ -185,6 +185,16 @@ def train(
         _seed_points(rng, int(sample.shape[0]), ks)).to(device)
     pq_init = res_sub[:, pq_seed, :]                         # [m, ks, dsub]
     codebooks = _train_pq(res_sub, pq_init, iters=iters)
+    # the sample and the seed points are build-time uploads the training
+    # consumes: counted as traffic, never resident (build registers the
+    # trained coarse centroids and codebooks with the slab)
+    from opensearch_tpu_torch.telemetry.device_ledger import (
+        KIND_IVFPQ,
+        default_ledger,
+    )
+
+    default_ledger.record_transient(
+        KIND_IVFPQ, sample.nbytes + coarse_init.nbytes + pq_seed.nbytes)
     return IVFPQParams(coarse=coarse, codebooks=codebooks, nlist=nlist, m=m,
                        ks=ks, d=d)
 
@@ -204,6 +214,11 @@ def encode(vectors: np.ndarray, params: IVFPQParams, *,
            chunk: int = ENCODE_CHUNK):
     """Stream-encode the full corpus in chunks: (list_ids [n] int32,
     codes [n, m] uint8) as numpy arrays on the host."""
+    from opensearch_tpu_torch.telemetry.device_ledger import (
+        KIND_IVFPQ,
+        default_ledger,
+    )
+
     n = vectors.shape[0]
     device = params.coarse.device
     lists_out = np.empty(n, np.int32)
@@ -212,6 +227,8 @@ def encode(vectors: np.ndarray, params: IVFPQParams, *,
         hi = min(lo + chunk, n)
         block = torch.from_numpy(
             np.ascontiguousarray(vectors[lo:hi], np.float32)).to(device)
+        # a chunk the encoder consumes: traffic, never resident
+        default_ledger.record_transient(KIND_IVFPQ, block.nbytes)
         lists, codes = _encode_chunk(block, params.coarse, params.codebooks,
                                      params.m)
         lists_out[lo:hi] = lists.cpu().numpy()
@@ -554,12 +571,14 @@ def search_index(
             index.params.coarse, index.params.codebooks,
             index.codes, index.ids, index.mask,
             vectors, norms_sq, valid,
-            torch.from_numpy(np.ascontiguousarray(qh)).to(device), probes,
+            torch.from_numpy(  # tpulint: disable=TPU014 - per-search query rows
+                np.ascontiguousarray(qh)).to(device), probes,
             k=k, rerank=rerank, similarity=similarity,
             adc_precision=adc_precision, impl="pallas")
     if kernel != "xla":
         raise ValueError(f"unknown ANN kernel [{kernel}] (pallas or xla)")
-    q = torch.as_tensor(queries, dtype=torch.float32).to(device)
+    q = torch.as_tensor(  # tpulint: disable=TPU014 - per-search query rows
+        queries, dtype=torch.float32).to(device)
     if index.normalized:
         q_norm = torch.linalg.norm(q, dim=-1, keepdim=True)
         q = q / torch.clamp(q_norm, min=1e-12)

@@ -234,8 +234,8 @@ def _launch_block(vectors, norms_sq, valid, queries, *, k: int,
     return vals[0], ids[0]
 
 
-def _launch_block_tile(vectors, norms_sq, valid, queries, *, k: int,
-                       similarity: str):
+def _launch_block_tile(  # tpulint: disable=TPU016 - timing yardstick, CUDA only
+        vectors, norms_sq, valid, queries, *, k: int, similarity: str):
     """Launch K3's tile scan (csrc/knn_tile.cuh), at any k <= 1024: no
     longer chosen by :func:`block_tier`, it is the yardstick the wide tier
     is timed against. Counted on ``block_launches``."""

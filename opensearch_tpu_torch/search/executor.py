@@ -81,6 +81,7 @@ from __future__ import annotations
 
 import copy
 import json
+import logging
 import math
 import re
 import threading
@@ -116,6 +117,8 @@ from opensearch_tpu_torch.telemetry.device_ledger import (
     KIND_QUERY_BATCH,
     default_ledger,
 )
+
+logger = logging.getLogger(__name__)
 
 I64_MIN = -(2**63)
 I64_MAX = 2**63 - 1
@@ -218,14 +221,14 @@ class HostNodeResult:
     @property
     def scores(self) -> torch.Tensor:
         if self._dev_scores is None:
-            self._dev_scores = torch.from_numpy(
+            self._dev_scores = torch.from_numpy(  # tpulint: disable=TPU014 - per-query result column
                 np.ascontiguousarray(self.host_scores)).to(self.device)
         return self._dev_scores
 
     @property
     def mask(self) -> torch.Tensor:
         if self._dev_mask is None:
-            self._dev_mask = torch.from_numpy(
+            self._dev_mask = torch.from_numpy(  # tpulint: disable=TPU014 - per-query result column
                 np.ascontiguousarray(self.host_mask)).to(self.device)
         return self._dev_mask
 
@@ -409,8 +412,11 @@ class ShardContext:
                         r = tmp_ex.execute(q.parse_query(stored))
                         if bool(host_mask(r)[: tmp_host.n_docs].any()):
                             mask[d] = True
-                    except Exception:  # noqa: BLE001
+                    except Exception as e:  # noqa: BLE001
                         # a stored query that cannot run never matches
+                        logger.debug(
+                            "percolate: stored query for doc %d unusable: %s",
+                            d, e)
                         continue
                 masks.append(mask)
         finally:
@@ -665,8 +671,8 @@ class ShardContext:
                         exact_kernel)
 
             def launch_fused(rows):
-                q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
-                    vf.vectors.device)
+                q_batch = torch.from_numpy(  # tpulint: disable=TPU014 - counted
+                    _pad_query_batch(rows)).to(vf.vectors.device)
                 t0 = time.perf_counter_ns()
                 with profile.profiling(None):
                     b_vals, b_ids = knn_fused.knn_fused_auto(
@@ -708,8 +714,8 @@ class ShardContext:
                 return ("knn_topk_streaming", id(vf), gen, kb, sim, chunk)
 
             def launch_streaming(rows):
-                q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
-                    vf.vectors.device)
+                q_batch = torch.from_numpy(  # tpulint: disable=TPU014 - counted
+                    _pad_query_batch(rows)).to(vf.vectors.device)
                 t0 = time.perf_counter_ns()
                 with profile.profiling(None):
                     b_vals, b_ids = scan(vf.vectors, vf.norms_sq, valid,
@@ -737,8 +743,8 @@ class ShardContext:
         else:
 
             def launch_exact(rows):
-                q_batch = torch.from_numpy(_pad_query_batch(rows)).to(
-                    vf.vectors.device)
+                q_batch = torch.from_numpy(  # tpulint: disable=TPU014 - counted
+                    _pad_query_batch(rows)).to(vf.vectors.device)
                 t0 = time.perf_counter_ns()
                 with profile.profiling(None):
                     b_scores = knn_ops.exact_knn_scores(
@@ -836,7 +842,8 @@ class NodeResult:
 
 def _f32(x: float, device) -> torch.Tensor:
     """A float32 scalar on `device`: the reference's jnp.float32(x)."""
-    return torch.tensor(np.float32(x), dtype=torch.float32, device=device)
+    return torch.tensor(  # tpulint: disable=TPU014 - per-launch scalar
+        np.float32(x), dtype=torch.float32, device=device)
 
 
 def _const_result(mask: torch.Tensor, boost: float,
@@ -865,7 +872,8 @@ class SegmentExecutor:
         self.device = dev.live.device
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return torch.from_numpy(  # tpulint: disable=TPU014 - per-query operand
+            np.ascontiguousarray(a)).to(self.device)
 
     # -- text scoring ------------------------------------------------------
 

@@ -74,6 +74,7 @@ from __future__ import annotations
 
 import fnmatch
 import json
+import logging
 import time
 from typing import Any
 
@@ -107,6 +108,8 @@ from opensearch_tpu_torch.search.executor import (
 )
 from opensearch_tpu_torch.search.pipeline import fuse_hybrid_results
 from opensearch_tpu_torch.search.suggest import compute_suggest
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_SIZE = 10
 # request keys the reference knows (opensearch_tpu/search/service.py:91-98)
@@ -1243,7 +1246,8 @@ def try_batched_knn_msearch(shards: list, bodies: list[dict],
             return None
         try:
             node = query_dsl.parse_query(body.get("query"))
-        except Exception:  # noqa: BLE001 - the serial path reports it
+        except Exception as e:  # noqa: BLE001 - the serial path reports it
+            logger.debug("msearch batch probe: body not batchable: %s", e)
             return None
         if not isinstance(node, query_dsl.KnnQuery) or node.filter is not None:
             return None

@@ -467,7 +467,7 @@ def test_explain_through_cluster_equals_single_node(rest_clusters,
 
 
 def test_reference_cluster_still_answers_500(rest_clusters):
-    """The stated difference: the reference's facade keeps the three
+    """The stated difference: the reference's facade keeps the four
     faults the port's repairs."""
     for method, path, body in (
             ("GET", "/_cat/indices?format=json", None),
@@ -476,6 +476,12 @@ def test_reference_cluster_still_answers_500(rest_clusters):
              {"query": {"match": {"title": "alpha"}}})):
         status, _resp = rest_clusters.req("opensearch_tpu", "n1", method,
                                           path, body)
+        assert status == 500, (path, status)
+    # DELETE /{index}: the reference's facade takes neither
+    # ignore_unavailable nor allow_no_indices, which its handler passes
+    for path in ("/no-such-index", "/no-such-*"):
+        status, _resp = rest_clusters.req("opensearch_tpu", "n1", "DELETE",
+                                          path)
         assert status == 500, (path, status)
 
 
@@ -533,3 +539,43 @@ def test_cat_indices_health_is_cluster_healths(moment):
                              _rpc_many=lambda calls: [None] * len(calls))
     assert ClusterNode.cluster_health(node)["status"] == want
     assert ClusterFacade.cat_index_summary(facade)["items"]["health"] == want
+
+
+DOOMED = "doomed"
+# DELETE /{index} through a cluster and on a single node: an existing
+# index, a missing one with and without ignore_unavailable, a pattern that
+# matches nothing with and without allow_no_indices, and an alias
+DELETES = (
+    f"/{DOOMED}", "/no-such-index", "/no-such-index?ignore_unavailable=true",
+    "/no-such-*", "/no-such-*?allow_no_indices=false", "/read-a",
+    f"/{DOOMED},no-such-index?ignore_unavailable=true",
+)
+CAT = "/_cat/indices?format=json"
+
+
+@pytest.mark.parametrize("path", DELETES)
+def test_delete_index_through_cluster_equals_single_node(rest_clusters,
+                                                         single_items, path):
+    """Each node of the port's 3-node cluster answers DELETE /{index} as a
+    single TorchNode does on the same indices (status and body), and an
+    index it deletes is gone from both."""
+    port = "opensearch_tpu_torch"
+    body = {"settings": {"number_of_shards": 2, "number_of_replicas": 1}}
+    for nid in ("n0", "n1", "n2"):
+        if DOOMED in path:
+            assert _single(rest_clusters, single_items, "PUT", f"/{DOOMED}",
+                           body)[0] == 200
+            status, resp = rest_clusters.req(port, "n0", "PUT", f"/{DOOMED}",
+                                             body)
+            assert status == 200, resp
+        single = _single(rest_clusters, single_items, "DELETE", path)
+        got = rest_clusters.req(port, nid, "DELETE", path)
+        assert got == single, (nid, path, got, single)
+        for status, rows in (
+                _single(rest_clusters, single_items, "GET", CAT),
+                rest_clusters.req(port, nid, "GET", CAT)):
+            assert status == 200, rows
+            assert DOOMED not in {r["index"] for r in rows}, (nid, path)
+    assert single[0] == (404 if path in ("/no-such-index",
+                                         "/no-such-*?allow_no_indices=false")
+                         else 400 if path == "/read-a" else 200), single

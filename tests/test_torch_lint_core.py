@@ -11,9 +11,9 @@ against the reference's.
   ``parse_suppressions`` and ``lint_source`` agree on every fixture under
   tests/lint_fixtures/, with the thread-role rules' in-file roles
   (``callgraph.extract_module`` / ``compute_program_roles``) equal too.
-- The rule registry (``lint/rules.py``) comes with the linter's last
-  slice: until then the port's ``lint_paths`` raises when asked for it
-  and never answers "no findings".
+- The rule registry (``lint/rules.py``) holds the reference's 19 rule
+  ids, and ``lint_paths`` with no checkers runs them all, serially or in
+  a process pool (tests/test_torch_lint.py holds the rules themselves).
 
 Each pass here runs with ``use_cache=False`` or a cache file under the
 test's own directory.
@@ -160,15 +160,23 @@ def test_lint_source_and_paths_agree_on_the_fixtures():
 
 
 def test_the_rule_registry_is_not_quietly_empty(tmp_path):
-    core = lint("opensearch_tpu_torch", "core")
-    with pytest.raises(NotImplementedError, match="last slice"):
-        core.lint_paths([str(FIXTURES)])
-    with pytest.raises(NotImplementedError, match="last slice"):
-        core.lint_paths([str(FIXTURES)], jobs=4)
+    """The port's registry holds the reference's 19 rule ids, and
+    ``lint_paths`` with no checkers runs them all: over the fixtures it
+    finds violations of the reference's shared rules, serially and in a
+    process pool alike."""
+    ref_rules = lint("opensearch_tpu", "rules")
     import opensearch_tpu_torch.lint as port_lint
 
-    assert not hasattr(port_lint, "RULES")
-    assert not hasattr(port_lint, "ALL_CHECKERS")
+    assert list(port_lint.RULES) == list(ref_rules.RULES)
+    assert len(port_lint.RULES) == 19
+    core = lint("opensearch_tpu_torch", "core")
+    serial, n = core.lint_paths([str(FIXTURES)], use_cache=False)
+    pooled, n2 = core.lint_paths([str(FIXTURES)], jobs=4, use_cache=False)
+    assert (serial, n) == (pooled, n2) and n >= 40
+    found = {v.rule for v in serial}
+    # every rule the reference keeps as it is finds its bad fixture
+    assert found == set(port_lint.RULES) - {
+        "TPU001", "TPU007", "TPU014", "TPU016"}
     # a custom checker with jobs > 1 runs serially, as the reference runs
     # a checker its registry does not hold
     checker = attr_chains("opensearch_tpu_torch")
