@@ -3,8 +3,8 @@
     python3 chip_smoke.py [--seed N]
                           [--phases kernel,timing,main|filtered|rest,
                                     hybrid,large,lexical,aggs,dsl,mesh,
-                                    contexts,ops,admin,backup,cluster,
-                                    tcp,soak,lint]
+                                    devices,contexts,ops,admin,backup,
+                                    cluster,tcp,soak,lint]
                           [--kernels knn_fused,adc_scan,knn_block,knn_pb,
                                      knn_sbmax,knn_rescore,adc_lut]
 
@@ -299,7 +299,8 @@ library calls, logged as `large record` lines.
    printed.
 
 7. mesh (also after main; mesh_phase): graft_entry.dryrun_multichip(8)
-   with one K1 launch, then the tensor-parallel hybrid program
+   over 8 slots on the card, one K1 launch on each of its search's 4
+   slots, then the tensor-parallel hybrid program
    (parallel/distributed.build_distributed_search) at row 4's width:
    hybrid_main_phase's segment in 4 data shards of 262,144 slots, 4
    batches of 200, n_model 1 and 2, each with the all-gather and the
@@ -308,6 +309,23 @@ library calls, logged as `large record` lines.
    a copy in eighths every run's values hybrid_score_topk's bit for bit;
    the CUDA-event ms of a batch, the device ms by stage and the peak
    memory beside hybrid_score_topk's. ``--phases mesh`` runs it alone.
+
+7b. devices (also after mesh; devices_phase): the shard mesh over device
+   slots. 100,000 of cell A's docs (128-d, l2, with the filtering specs'
+   color; depth cut from 200,000 by the phase's 60 s) bulked into 4
+   shards; the same traffic (64 kNN _search at k = 10, 16 at k = 100, 16
+   filtered by a color term, an _msearch of 32) over the serving devices
+   (1) [cuda:0], (2) [cuda:0] * 4 and (3), where there are two cards or
+   more, every card (the log says when form 3 did not run). Gates: form
+   1's k = 10 hits the brute force's; every form's hits, scores and
+   totals form 1's bit for bit; one K1 launch a slot a search (the
+   _msearch one a slot in all), distributed_searches one a search,
+   filtered 16; one ledger allocation a slot, labelled with its card,
+   summing to form 1's bytes; each card's memory_allocated() grown by its
+   slots' slabs; every card's memory_allocated() back at its start once
+   the index is deleted. A `devices record` line: each form's k = 10 p50
+   and QPS, the device ms of each slot's K1 scan and of the step's
+   gather and merge, seconds. ``--phases devices`` runs it alone.
 
 8. aggs (with main, on index L after the lexical phase and before its
    ledger gate; aggs_main_phase): 16 searches at size 0 of each of six
@@ -2839,17 +2857,21 @@ def ring_tie_check(label: str, vals, ids, want_vals, want_ids) -> int:
     return len(differ)
 
 
-def mesh_stage_profiles(segs, q, n_model: int, ring: bool) -> dict:
-    """The profiler's device ms of one batch by stage: the partial products
-    (each slice's product, their rank-order sum and |q|^2), the score
+def mesh_stage_profiles(segs, q, ring: bool) -> dict:
+    """The profiler's device ms of one batch by stage over segments laid
+    out on the mesh (shard_arrays_to_mesh): the partial products (each
+    slice's product, their rank-order sum and |q|^2), the score
     transforms, the lexical sums, the per-shard blend and top-k, and the
     merge."""
     from opensearch_tpu_torch.parallel import distributed as tp
 
-    s_n = segs.vectors.shape[0]
-    shards = range(s_n)
-    dots = [tp._vector_dots(q.query_vectors, segs.vectors[s], n_model)
-            for s in shards]
+    shards = range(len(segs.vectors))
+
+    def partials():
+        return [tp._partial_sums(q.query_vectors, segs.vectors[s],
+                                 segs.norms_sq[s].device) for s in shards]
+
+    dots = partials()
     vecs = [tp._vector_scores(d_s, qsq, segs.norms_sq[s], "l2_norm")
             for s, (d_s, qsq) in enumerate(dots)]
     del dots
@@ -2864,26 +2886,23 @@ def mesh_stage_profiles(segs, q, n_model: int, ring: bool) -> dict:
             out.append(tp.blockwise_topk(sc, HYBRID_K))
         return out
 
-    pools = topk()
+    n_pad = segs.norms_sq[0].shape[-1]
+    pools = [(v, i + s * n_pad) for s, (v, i) in enumerate(topk())]
     tv = torch.stack([v for v, _i in pools])
-    ti = torch.stack([i + s * segs.vectors.shape[1]
-                      for s, (_v, i) in enumerate(pools)])
+    ti = torch.stack([i for _v, i in pools])
     profs = {
-        "partial_products": device_profile(lambda: [
-            tp._vector_dots(q.query_vectors, segs.vectors[s], n_model)
-            for s in shards], 3),
+        "partial_products": device_profile(partials, 3),
         "transforms": None,
         "lexical": device_profile(lambda: [
             tp._shard_lexical(segs, q, s, window=HYBRID_WINDOW)
             for s in shards], 3),
         "per_shard_topk": device_profile(topk, 3),
         "merge": device_profile(
-            (lambda: tp._ring_merge(tv, ti, HYBRID_K, s_n)) if ring else
+            (lambda: tp._ring_merge(pools, HYBRID_K)) if ring else
             (lambda: tp._allgather_merge(tv, ti, HYBRID_K)), 3),
     }
     del vecs
-    dots = [tp._vector_dots(q.query_vectors, segs.vectors[s], n_model)
-            for s in shards]
+    dots = partials()
     profs["transforms"] = device_profile(lambda: [
         tp._vector_scores(d_s, qsq, segs.norms_sq[s], "l2_norm")
         for s, (d_s, qsq) in enumerate(dots)], 3)
@@ -2894,9 +2913,10 @@ def mesh_stage_profiles(segs, q, n_model: int, ring: bool) -> dict:
 def mesh_phase(kf, dev, seed: int, n_docs: int = HYBRID_DOCS) -> dict:
     """The mesh (``--phases mesh``; after main by default):
 
-    1. graft_entry.dryrun_multichip(8) on the card: its 4-shard kNN
-       _search must take the stacked serving step (distributed_searches up
-       by one, which the dry run gates) and launch K1 once (its counter set
+    1. graft_entry.dryrun_multichip(8) on the card's slot form (serving
+       devices [cuda:0] * 8): its 4-shard kNN _search must take the
+       stacked serving step (distributed_searches up by one, which the dry
+       run gates) over 4 slots and launch K1 once a slot (its counter set
        to 0 just before), then the tensor-parallel program on the
        reference's tiny mesh of 4 x 2 slots.
     2. The tensor-parallel hybrid program at BASELINE.md row 4's width:
@@ -2905,8 +2925,11 @@ def mesh_phase(kf, dev, seed: int, n_docs: int = HYBRID_DOCS) -> dict:
        128, k = 10, l2) split into 4 data shards of 262,144 slots (views of
        the one-shard tensors; each shard's postings the slice of each
        query term's window that falls in it, in order; every shard the
-       one-shard IDFs and avgdl), 4 batches of 200 queries, run at n_model
-       1 and 2, each with the all-gather and the ring. Gates: each run's
+       one-shard IDFs and avgdl), laid out slot by slot on a mesh of 4 x
+       n_model slots, every slot the card (shard_arrays_to_mesh: the
+       layout, copies and slot ring a mesh over several cards runs), 4
+       batches of 200 queries, run at n_model 1 and 2, each with the
+       all-gather and the ring. Gates: each run's
        ids, mapped back to docs, are hybrid_score_topk's over the one-shard
        tensors but at logged f32 ties (f32_tie_gate, the fp64 host hybrid
        of the two docs); the ring gives the all-gather's values bit for bit
@@ -2923,15 +2946,25 @@ def mesh_phase(kf, dev, seed: int, n_docs: int = HYBRID_DOCS) -> dict:
     from opensearch_tpu_torch.parallel import distributed as tp
     from opensearch_tpu_torch.parallel.mesh import build_mesh
 
+    from opensearch_tpu_torch import backend
+
     out: dict = {}
-    # (1) the dry run
-    kf.launches.reset()
-    graft_entry.dryrun_multichip(8)
+    # (1) the dry run, on its slot form: eight serving devices, every one
+    # the card, so the 4-shard search has four slots and the program's
+    # 4 x 2 mesh eight
+    prev = backend.set_serving_devices([dev] * 8)
+    try:
+        kf.launches.reset()
+        graft_entry.dryrun_multichip(8)
+    finally:
+        backend.set_serving_devices(prev)
     out["dryrun_k1_launches"] = kf.launches.count
-    if kf.launches.count != 1:
+    if kf.launches.count != 4:
         raise AssertionError(f"dryrun_multichip launched K1 "
-                             f"{kf.launches.count} times, not once")
-    log(f"[mesh] dryrun_multichip(8): both OK lines, one K1 launch")
+                             f"{kf.launches.count} times, not once on "
+                             f"each of its 4 slots")
+    log(f"[mesh] dryrun_multichip(8) over 8 slots on {dev}: both OK "
+        f"lines, one K1 launch a slot (4)")
 
     # (2) the tensor-parallel program at row 4's width
     rng = np.random.default_rng(seed + 60)
@@ -2958,14 +2991,27 @@ def mesh_phase(kf, dev, seed: int, n_docs: int = HYBRID_DOCS) -> dict:
 
     # the query rows are made once; a batch swaps its query vectors in
     base_q = mesh_query_args(inp, rows, qdev[:HYBRID_BATCH], dev)
+    # each n_model's mesh of slots on the card, and the segments laid out
+    # on it slot by slot (n_model 1: views of the one-shard tensors; 2:
+    # each shard's two column slices copied)
+    meshes = {n_model: build_mesh(MESH_SHARDS, n_model,
+                                  devices=[dev] * (MESH_SHARDS * n_model))
+              for n_model in dict.fromkeys(n for n, _ring in MESH_RUNS)}
+
+    def lay_out() -> dict:
+        return {n_model: tp.shard_arrays_to_mesh(mesh, segs)
+                for n_model, mesh in meshes.items()}
+
+    laid = lay_out()
     programs = {
         (n_model, ring): tp.build_distributed_search(
-            build_mesh(MESH_SHARDS, n_model, devices=[dev]), k=HYBRID_K,
-            window=HYBRID_WINDOW, similarity="l2_norm", ring=ring)
+            meshes[n_model], k=HYBRID_K, window=HYBRID_WINDOW,
+            similarity="l2_norm", ring=ring)
         for n_model, ring in MESH_RUNS}
 
     def run(key, qb):
-        return programs[key](segs, base_q._replace(query_vectors=qb))
+        return programs[key](laid[key[0]],
+                             base_q._replace(query_vectors=qb))
 
     def measure(fn) -> dict:
         for qb in batches(qdev):
@@ -3043,7 +3089,7 @@ def mesh_phase(kf, dev, seed: int, n_docs: int = HYBRID_DOCS) -> dict:
         name = f"n_model={n_model} " + ("ring" if ring else "all-gather")
         runs[name] = measure(lambda qb, key=key: run(key, qb))
         runs[name]["device_ms_by_stage"] = mesh_stage_profiles(
-            segs, base_q, n_model, ring)
+            laid[n_model], base_q, ring)
     whole = device_profile(lambda: one_shard(qdev[:HYBRID_BATCH]), 3)
     runs["hybrid_score_topk"]["device_ms"] = whole and whole["device_ms"]
     out["runs"] = runs
@@ -3059,15 +3105,277 @@ def mesh_phase(kf, dev, seed: int, n_docs: int = HYBRID_DOCS) -> dict:
     vectors.mul_(8.0).round_().div_(8.0)
     args[4] = (vectors * vectors).sum(1)
     segs = segs._replace(norms_sq=args[4].view(MESH_SHARDS, n_shard))
+    laid = lay_out()
     qdev = torch.round(qdev * 8.0) / 8.0
     base_q = base_q._replace(query_vectors=qdev[:HYBRID_BATCH])
     out["eighths"] = check_runs("eighths", exact=True)
     log(f"[mesh] eighths: every run hybrid_score_topk's values bit for bit "
         f"and the all-gather's ids too, the ring's but at logged equal "
         f"scores: {json.dumps(out['eighths'])}")
-    del args, segs, qdev, vectors, base_q
+    del args, segs, laid, qdev, vectors, base_q
     torch.cuda.empty_cache()
     return out
+
+
+# the devices phase: cell A's vectors (SIFT-1M's width) in 4 shards, over
+# one slot, four slots on one card and, where there are several, every
+# card. 100,000 docs: depth cut from cell A's 200,000 (and SIFT-1M's 1M)
+# by the phase's 60 s, a bulk of 200,000 taking 56-82 s of host ingest
+DEVICES_DOCS = 100_000
+DEVICES_SHARDS = 4
+DEVICES_TRAFFIC = (("k10", 10, 64), ("k100", 100, 16), ("filtered", 10, 16))
+DEVICES_MSEARCH = 32
+# the caching allocator's block: a tensor's memory_allocated() rounds up
+ALLOC_BLOCK = 512
+
+
+def devices_phase(kf, dev, seed: int, n_docs: int = DEVICES_DOCS) -> dict:
+    """The shard mesh over device slots (``--phases devices``; after mesh
+    by default, on a TorchNode of its own): cell A's generator (clustered,
+    128-d, l2, the filtering specs' color and taste) makes n_docs docs,
+    bulked into a 4-shard index. Then the same traffic in each form of
+    the node's serving devices (backend.set_serving_devices): (1) one slot
+    ([cuda:0]: one K1 launch a search, the yardstick), (2) four slots on
+    cuda:0, (3) where torch.cuda.device_count() >= 2, every card (the
+    shards over the largest divisor of 4 no greater than the cards). The
+    traffic: 64 kNN _search at k = 10, 16 at k = 100, 16 at k = 10
+    filtered by a color term, one _msearch of 32 k = 10 bodies. Gates:
+    form 1's k = 10 hits are the brute force's (the plain version on the
+    card, docs in id order); every form's hits, scores and totals are form
+    1's bit for bit; each search makes one K1 launch a slot (counted from
+    0 before it) and the _msearch one a slot in all; distributed_searches
+    rises by one a search and by one for the _msearch, filtered by 16;
+    the bundle holds one ledger allocation a slot, labelled with its
+    slot's card, their bytes summing to form 1's; each card's
+    memory_allocated() grows by its slots' slabs (up to the allocator's
+    512-byte blocks); after the index is deleted and the node closed,
+    every card's memory_allocated() is back at its start. Reports per
+    form, beside the card's name and power limit: the k = 10 p50 and QPS
+    on the host clock, the profiler's device ms of each slot's K1 scan
+    and of the whole step (the gather and merge its rest), and the
+    phase's seconds. On one card it logs that form 3 did not run."""
+    from opensearch_tpu_torch import backend
+    from opensearch_tpu_torch.node import TorchNode
+    from opensearch_tpu_torch.ops import knn_rescore as kr
+    from opensearch_tpu_torch.search import distributed_serving
+    from opensearch_tpu_torch.telemetry import roofline
+    from opensearch_tpu_torch.telemetry.device_ledger import (
+        KIND_MESH_BUNDLE,
+        default_ledger,
+    )
+
+    t_phase = time.perf_counter()
+    name = "vec-devices"
+    rng = np.random.default_rng(seed + 80)
+    data = clustered(rng, n_docs, DIM)
+    attrs = attributes(rng, n_docs)
+    n_q = sum(n for _key, _k, n in DEVICES_TRAFFIC) + DEVICES_MSEARCH
+    queries = (data[rng.choice(n_docs, n_q, replace=False)]
+               + 0.05 * rng.standard_normal((n_q, DIM)).astype(np.float32))
+    color = COLORS[0]
+    bodies = {}
+    at = 0
+    for key, k, n in DEVICES_TRAFFIC:
+        knn = {"vector": None, "k": k}
+        if key == "filtered":
+            knn["filter"] = {"term": {"color": color}}
+        bodies[key] = [{"query": {"knn": {"v": {**knn, "vector":
+                                                qv.tolist()}}}, "size": k}
+                       for qv in queries[at:at + n]]
+        at += n
+    msearch = [({"index": name}, {"query": {"knn": {"v": {
+        "vector": qv.tolist(), "k": 10}}}, "size": 10})
+        for qv in queries[at:at + DEVICES_MSEARCH]]
+    # the brute force of the k = 10 queries, before the memory reading
+    v = torch.from_numpy(data)[None].to(dev)
+    nrm = torch.from_numpy((data.astype(np.float64) ** 2).sum(1).astype(
+        np.float32))[None].to(dev)
+    ok = torch.ones((1, n_docs), dtype=torch.bool, device=dev)
+    q = torch.from_numpy(queries[:64]).to(dev)
+    _tv, ti = kf.plain_pool(v, nrm, ok, q, kr.plain_query_sq(q),
+                            torch.ones(1, device=dev), r=10,
+                            similarity="l2_norm", score_precision="fp32")
+    truth = [[str(int(i)) for i in row] for row in ti[0].cpu()]
+    del v, nrm, ok, q, _tv, ti
+    n_cards = torch.cuda.device_count()
+    cards = [torch.device("cuda", i) for i in range(n_cards)]
+    forms = {"one slot": [dev], "four slots on cuda:0": [dev] * 4}
+    if n_cards >= 2:
+        forms["every card"] = cards
+    else:
+        log("[devices] 1 card: form 3 not run (torch.cuda.device_count() "
+            "is 1); forms 1 and 2 gate")
+    # what the phase may make once per process goes before the reading
+    roofline.ensure_peaks(dev)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = [torch.cuda.memory_allocated(c) for c in cards]
+
+    def hits(resp) -> tuple:
+        return (resp["hits"]["total"]["value"],
+                [(h["_id"], h["_score"]) for h in resp["hits"]["hits"]])
+
+    prev = backend.set_serving_devices(None)
+    out: dict = {"docs": n_docs, "shards": DEVICES_SHARDS,
+                 "card": torch.cuda.get_device_name(0), "forms": {}}
+    answers: dict = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            node = TorchNode(tmp, device="cuda")
+            try:
+                t0 = time.perf_counter()
+                _bulk_index(node, name, data, DEVICES_SHARDS, attrs)
+                out["ingest_s"] = time.perf_counter() - t0
+                log(f"[devices] {n_docs} docs in {DEVICES_SHARDS} shards: "
+                    f"bulk + refresh {out['ingest_s']:.1f} s")
+                for form, devices in forms.items():
+                    out["forms"][form] = devices_form(
+                        kf, node, name, form, devices, bodies, msearch,
+                        answers, hits, truth if form == "one slot" else None,
+                        distributed_serving, default_ledger,
+                        KIND_MESH_BUNDLE, backend)
+                node.delete_index(name)
+            finally:
+                node.close()
+    finally:
+        backend.set_serving_devices(prev)
+        distributed_serving.clear_caches()
+    torch.cuda.synchronize()
+    mem1 = [torch.cuda.memory_allocated(c) for c in cards]
+    if mem1 != mem0:
+        raise AssertionError(f"[devices] after the index was deleted, "
+                             f"memory_allocated() by card is {mem1}, not "
+                             f"{mem0}")
+    out["memory_allocated_after"] = mem1
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"[devices] the index deleted: memory_allocated() back at its "
+        f"start on every card ({mem1}); phase {out['wall_s']:.1f} s")
+    return out
+
+
+def devices_form(kf, node, name: str, form: str, devices: list,
+                 bodies: dict, msearch: list, answers: dict, hits, truth,
+                 distributed_serving, ledger, kind: str, backend) -> dict:
+    """One form of devices_phase: the serving devices set to `devices`,
+    the index's bundle dropped, then the traffic and its gates. The first
+    form's answers are the others' yardstick (`answers`)."""
+    backend.set_serving_devices(devices)
+    distributed_serving.registry.invalidate_index(name)
+    slots = distributed_serving._largest_divisor_at_most(
+        DEVICES_SHARDS, len(devices))
+    cards = sorted({d.index for d in devices[:slots]})
+    torch.cuda.synchronize()
+    before = {c: torch.cuda.memory_allocated(c) for c in cards}
+    res: dict = {"slots": slots, "cards": [f"cuda:{c}" for c in cards],
+                 "launches": {}}
+    got: dict = {}
+    lat: list = []
+    stats = distributed_serving.stats
+    filtered0 = stats["filtered"]
+    for key, bods in bodies.items():
+        got[key] = []
+        launches = 0
+        for body in bods:
+            kf.launches.reset()
+            n0 = stats["distributed_searches"]
+            t0 = time.perf_counter()
+            resp = node.search(name, body)
+            if key == "k10":
+                lat.append(time.perf_counter() - t0)
+            if kf.launches.count != slots or \
+                    stats["distributed_searches"] != n0 + 1:
+                raise AssertionError(
+                    f"[devices] {form} {key}: a search launched K1 "
+                    f"{kf.launches.count} times (want {slots}, one a slot) "
+                    f"and moved distributed_searches by "
+                    f"{stats['distributed_searches'] - n0} (want 1)")
+            launches += kf.launches.count
+            got[key].append(hits(resp))
+        res["launches"][key] = launches
+        if key == "k10" and truth is not None:
+            ids = [[i for i, _s in h] for _t, h in got[key]]
+            if ids != truth:
+                bad = next(i for i, (a, b) in enumerate(zip(ids, truth))
+                           if a != b)
+                raise AssertionError(f"[devices] {form} k=10 query {bad}: "
+                                     f"{ids[bad]} != brute force "
+                                     f"{truth[bad]}")
+    if stats["filtered"] - filtered0 != len(bodies["filtered"]):
+        raise AssertionError(f"[devices] {form}: filtered rose by "
+                             f"{stats['filtered'] - filtered0}, want "
+                             f"{len(bodies['filtered'])}")
+    kf.launches.reset()
+    n0 = stats["distributed_searches"]
+    resp = node.msearch(msearch)
+    if kf.launches.count != slots or stats["distributed_searches"] != n0 + 1:
+        raise AssertionError(
+            f"[devices] {form} _msearch of {len(msearch)}: K1 "
+            f"{kf.launches.count} launches (want {slots}), "
+            f"distributed_searches +{stats['distributed_searches'] - n0}")
+    res["launches"]["msearch"] = kf.launches.count
+    got["msearch"] = [hits(r) for r in resp["responses"]]
+    want = answers.setdefault("hits", got)
+    if got != want:
+        key = next(k for k in got if got[k] != want[k])
+        i = next(i for i, (a, b) in enumerate(zip(got[key], want[key]))
+                 if a != b)
+        raise AssertionError(f"[devices] {form} {key} #{i}: {got[key][i]} "
+                             f"is not one slot's {want[key][i]}")
+    allocs = [a for a in ledger.live_allocations()
+              if a.kind == kind and a.index == name]
+    (bundle,) = [b for k, b in distributed_serving.registry._bundles.items()
+                 if k[0] == name]
+    if len(allocs) != slots or \
+            sorted(a.device for a in allocs) != \
+            sorted(str(d) for d in bundle.devices) or \
+            sum(a.bytes for a in allocs) != bundle.nbytes:
+        raise AssertionError(f"[devices] {form}: ledger allocations "
+                             f"{[a.row() for a in allocs]} are not one a "
+                             f"slot of the bundle's {bundle.nbytes} B")
+    res["allocations"] = [{"device": a.device, "bytes": a.bytes}
+                          for a in allocs]
+    res["bundle_bytes"] = bundle.nbytes
+    if "bundle_bytes" in answers and answers["bundle_bytes"] != bundle.nbytes:
+        raise AssertionError(f"[devices] {form}: the slots' slabs hold "
+                             f"{bundle.nbytes} B, one slot's "
+                             f"{answers['bundle_bytes']}")
+    answers.setdefault("bundle_bytes", bundle.nbytes)
+    torch.cuda.synchronize()
+    grew = {c: torch.cuda.memory_allocated(c) - before[c] for c in cards}
+    for c in cards:
+        slab = sum(bundle.slot_nbytes(i) for i, d in enumerate(bundle.devices)
+                   if d.index == c)
+        if not 0 <= grew[c] - slab < 3 * ALLOC_BLOCK * slots:
+            raise AssertionError(f"[devices] {form}: cuda:{c}'s "
+                                 f"memory_allocated() grew by {grew[c]} B, "
+                                 f"its slots' slabs are {slab} B")
+    res["memory_grew"] = {f"cuda:{c}": grew[c] for c in cards}
+    lat_ms = np.asarray(lat) * 1e3
+    res["k10_p50_ms"] = float(np.percentile(lat_ms, 50))
+    res["k10_qps"] = len(lat) / sum(lat)
+    # the device step of one k = 10 search by slot: each slot's K1 scan
+    # alone, and the whole step (its rest: the copies, gather and merge)
+    qv = torch.tensor([bodies["k10"][0]["query"]["knn"]["v"]["vector"]],
+                      dtype=torch.float32, device=bundle.devices[0])
+    step = distributed_serving.build_knn_serving_step(
+        k_shard=10, k_final=10, similarity="l2_norm", kernel="pallas")
+    args = (bundle.slot_vectors, bundle.slot_norms_sq, bundle.slot_valid)
+    whole = device_profile(lambda: step(*args, qv), 10)
+    res["step_device_ms"] = whole and whole["device_ms"]
+    res["scan_device_ms"] = whole and kernel_ms(whole, "knn_")
+    res["gather_merge_device_ms"] = whole and (
+        whole["device_ms"] - kernel_ms(whole, "knn_"))
+    res["slot_scan_device_ms"] = []
+    for v, nrm, ok in zip(*args):
+        prof = device_profile(lambda v=v, nrm=nrm, ok=ok: kf.knn_fused_stacked(
+            v, nrm, ok, qv.to(v.device), k=10, similarity="l2_norm"), 10)
+        res["slot_scan_device_ms"].append(prof and kernel_ms(prof, "knn_"))
+    log(f"[devices] {form}: {slots} slot(s) on {res['cards']}; every "
+        f"search {slots} K1 launch(es), hits, scores and totals one slot's "
+        f"bits; k = 10 p50 {res['k10_p50_ms']:.3f} ms, QPS "
+        f"{res['k10_qps']:.1f}; device ms {json.dumps({k: res[k] for k in ('step_device_ms', 'scan_device_ms', 'gather_merge_device_ms', 'slot_scan_device_ms')})}; "
+        f"memory grew {res['memory_grew']} B")
+    return res
 
 
 # --------------------------------------------------------------------------
@@ -4969,10 +5277,12 @@ def reduced_main_phase(node, kf, queries: np.ndarray,
     if len(bundles) != 1:
         raise AssertionError(f"[sift_a] {len(bundles)} serving bundles")
     bundle = bundles[0]
-    slab = (bundle.vectors, bundle.norms_sq, bundle.valid)
+    # a one-card node's bundle: one slot
+    slab = (bundle.slot_vectors[0], bundle.slot_norms_sq[0],
+            bundle.slot_valid[0])
     # flat slot i of the one-segment bundle is doc "i"
-    if not torch.equal(bundle.vectors[0, :n], v[0]) or \
-            int(bundle.valid[0].sum()) != n:
+    if not torch.equal(slab[0][0, :n], v[0]) or \
+            int(slab[2][0].sum()) != n:
         raise AssertionError("[sift_a] the bundle is not the docs in id order")
     dev = v.device
     qt = torch.from_numpy(queries).to(dev)
@@ -5239,9 +5549,10 @@ def filtered_main_phase(node, kf, attrs: dict, queries: np.ndarray,
             eligible = int(mask.sum())
             eligible_ids = {str(int(x)) for x in mask.nonzero()[:, 0].tolist()}
             valid_f = ok & mask[None]
-            slab_valid = bundle.valid.clone()
+            slab_valid = bundle.slot_valid[0].clone()
             slab_valid[0, :n] &= mask
-            slab = (bundle.vectors, bundle.norms_sq, slab_valid)
+            slab = (bundle.slot_vectors[0], bundle.slot_norms_sq[0],
+                    slab_valid)
             scores = kernel_order_scores(kf, v, nrm, valid_f, qt, qsq,
                                          "l2_norm")
             for prec, k in fkeys:
@@ -5320,15 +5631,18 @@ def filtered_main_phase(node, kf, attrs: dict, queries: np.ndarray,
         flt = query_dsl.parse_query(filters_[fname][0])
         mask_prof = device_profile(functools.partial(
             distributed_serving._filter_valid_mask, [shard], snaps, flt,
-            None, bundle.n_flat, dev), 10)
-        fvalid = bundle.valid & distributed_serving._filter_valid_mask(
-            [shard], snaps, flt, None, bundle.n_flat, dev)
+            None, bundle.n_flat, [dev]), 10)
+        (fmask,) = distributed_serving._filter_valid_mask(
+            [shard], snaps, flt, None, bundle.n_flat, [dev])
+        fvalid = bundle.slot_valid[0] & fmask
         step_f = device_profile(functools.partial(
-            kf.knn_fused_stacked, bundle.vectors, bundle.norms_sq, fvalid, q1,
-            k=10, similarity="l2_norm"), 10)
+            kf.knn_fused_stacked, bundle.slot_vectors[0],
+            bundle.slot_norms_sq[0], fvalid, q1, k=10,
+            similarity="l2_norm"), 10)
         step_u = device_profile(functools.partial(
-            kf.knn_fused_stacked, bundle.vectors, bundle.norms_sq,
-            bundle.valid, q1, k=10, similarity="l2_norm"), 10)
+            kf.knn_fused_stacked, bundle.slot_vectors[0],
+            bundle.slot_norms_sq[0], bundle.slot_valid[0], q1, k=10,
+            similarity="l2_norm"), 10)
         out[f"{fname} device"] = {
             "mask_device_ms": mask_prof and mask_prof["device_ms"],
             "mask_wall_ms": mask_prof and mask_prof["wall_ms"],
@@ -7528,7 +7842,9 @@ def bundle_slab(name: str) -> tuple:
                if key[0] == name]
     if len(bundles) != 1:
         raise AssertionError(f"[{name}] {len(bundles)} serving bundles")
-    return bundles[0].vectors, bundles[0].norms_sq, bundles[0].valid
+    # a one-card node's bundle: one slot
+    b = bundles[0]
+    return b.slot_vectors[0], b.slot_norms_sq[0], b.slot_valid[0]
 
 
 def large_reduced_main(node, kf, q768: np.ndarray, qa: np.ndarray) -> dict:
@@ -12333,6 +12649,12 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
     dev = torch.device("cuda", 0)
+    # every phase's gates count one K1 launch a stacked search: the node
+    # serves from this card alone, whatever else the host holds; the
+    # devices phase sets its own serving devices
+    from opensearch_tpu_torch import backend
+
+    backend.set_serving_devices([dev])
 
     def phase_start(name: str) -> None:
         # on its own line before the phase: a run that fails names the
@@ -12823,6 +13145,23 @@ def main() -> int:
             entry["launches"] = mesh["dryrun_k1_launches"]
         log(f"mesh record: {json.dumps(mesh)}")
         phase_s["mesh"] = time.perf_counter() - t0
+    if phases & {"main", "devices"}:
+        # after the mesh, on a TorchNode of its own: the 4-shard index over
+        # one slot, four slots on one card and, where there are several,
+        # every card
+        phase_start("devices")
+        t0 = time.perf_counter()
+        devices = devices_phase(kf, dev, args.seed)
+        # K1's launches of each form's traffic, counted from 0 a search
+        entry["devices_launches"] = {
+            form: res["launches"] for form, res in devices["forms"].items()}
+        entry["devices_main_path"] = devices
+        if entry["launches"] is None:
+            entry["launches"] = sum(
+                sum(res["launches"].values())
+                for res in devices["forms"].values())
+        log(f"devices record ({smi}): {json.dumps(devices)}")
+        phase_s["devices"] = time.perf_counter() - t0
     if phases & {"main", "cluster"}:
         # last but the tcp phase, on three sim nodes and two TorchNodes of
         # its own:

@@ -290,26 +290,21 @@ class ClusterFacade:
             for name, meta in self.state.indices.items()
         }
 
-    def resolve_indices(self, expr: str) -> list[str]:
-        import fnmatch as _fn
+    def resolve_indices(self, expr: str | None, *,
+                        ignore_unavailable: bool = False,
+                        allow_no_indices: bool = True,
+                        expand_wildcards: str = "open") -> list[str]:
+        """The single node's resolution (node.resolve_index_names:
+        `ignore_unavailable`, `allow_no_indices`, `expand_wildcards`, "-"
+        exclusions, aliases expanded to their members, hidden indices)
+        over the cluster state's index views."""
+        from opensearch_tpu_torch.node import resolve_index_names
 
-        names = sorted(self.state.indices)
-        if expr in ("_all", "*", "", None):
-            return names
-        out: list[str] = []
-        for part in str(expr).split(","):
-            part = part.strip()
-            if not part:
-                continue
-            if "*" in part or "?" in part:
-                out.extend(n for n in names
-                           if _fn.fnmatch(n, part) and n not in out)
-            else:
-                if part not in self.state.indices:
-                    raise IndexNotFoundException(part)
-                if part not in out:
-                    out.append(part)
-        return out
+        return resolve_index_names(
+            "" if expr is None else str(expr), self.indices,
+            ignore_unavailable=ignore_unavailable,
+            allow_no_indices=allow_no_indices,
+            expand_wildcards=expand_wildcards)
 
     def get_alias(self, index_expr: str | None = None,
                   alias_expr: str | None = None,
@@ -396,19 +391,26 @@ class ClusterFacade:
                      flat: bool = False, include_defaults: bool = False,
                      expand_wildcards: str = "all") -> dict:
         """Same contract as TorchNode.get_settings (name filter, flat vs
-        nested shape, defaults section) over the replicated metadata,
-        via the shared index_settings_entry shaping."""
+        nested shape, defaults section, the index's creation date, uuid
+        and provided name) over the replicated metadata, via the shared
+        index_settings_entry shaping. The cluster state keeps neither a
+        uuid nor a creation date: the index view's stand-ins, as
+        _cat/indices shows them."""
         from opensearch_tpu_torch.node import index_settings_entry
 
         out = {}
         for idx_name in self.resolve_indices(index):
             meta = self._meta(idx_name)
+            view = _IndexView(meta, None)
             raw = {k: v for k, v in (meta.settings or {}).items()
                    if not k.startswith("_")}
             out[idx_name] = index_settings_entry(
                 raw, num_shards=meta.num_shards,
                 num_replicas=meta.num_replicas,
                 name=name, flat=flat, include_defaults=include_defaults,
+                extra={"index.creation_date": str(view.creation_date),
+                       "index.uuid": view.uuid,
+                       "index.provided_name": idx_name},
             )
         return out
 

@@ -20,9 +20,10 @@ with LRU-by-bytes eviction. Every eviction frees the bundle's
 device-residency-ledger allocation (telemetry/device_ledger.py) and lands
 a ``mesh.evict`` span EVENT on whichever request triggered it.
 
-The registry is process-wide (one process == one device), and nodes
-sharing an interpreter share it safely because engine instance ids keep
-their keys disjoint.
+The registry is process-wide (one process, its serving devices: a
+bundle's slabs may lie on several cards, one a slot, and an eviction
+frees every slot's allocation), and nodes sharing an interpreter share it
+safely because engine instance ids keep their keys disjoint.
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ def _bundle_nbytes(bundle: Any) -> int:
 
 
 def _free_bundle(bundle: Any, reason: str) -> None:
-    alloc = getattr(bundle, "allocation", None)
-    if alloc is not None:
+    """Free every slot's ledger allocation of `bundle` (one a slot)."""
+    for alloc in bundle.allocations:
         alloc.free(reason=reason)
 
 

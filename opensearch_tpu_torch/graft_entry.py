@@ -10,13 +10,17 @@ queries) as tensors on the card, or on the CPU where ``device="cpu"`` is
 passed. With no device it is the card, and it raises where there is none.
 
 ``dryrun_multichip(n_devices, device=None)`` is the reference's dry run
-of its two mesh programs, on one device: (1) the serving path, a
-``min(4, n_devices)``-shard kNN ``_search`` through TorchNode that must
-take the stacked serving step (on the card: one launch of K1), and (2)
-the tensor-parallel hybrid program (parallel/distributed.
-build_distributed_search) over a [n_data, n_model] mesh of slots, n_model
-2 where n_devices is even and at least 4. It prints the reference's two
-"OK" lines.
+of its two mesh programs over the node's serving devices
+(``backend.serving_devices``: every card, or the list
+``backend.set_serving_devices`` set, such as ``[cuda:0] * 8``, the slot
+form on one card): (1) the serving path, a ``min(4, n_devices)``-shard kNN
+``_search`` through TorchNode that must take the stacked serving step, its
+shards over the largest divisor of the shard count no greater than the
+serving devices (on the card: one launch of K1 a slot), and (2) the
+tensor-parallel hybrid program (parallel/distributed.
+build_distributed_search) over a [n_data, n_model] mesh of those devices,
+n_model 2 where n_devices is even and at least 4. It prints the
+reference's two "OK" lines.
 """
 
 from __future__ import annotations
@@ -103,6 +107,9 @@ def dryrun_multichip(n_devices: int,
                  {"v": rng.standard_normal(16).round(3).tolist()})
                 for i in range(64)
             ], refresh=True)
+            serving = backend.serving_devices(dev)
+            slots = distributed_serving._largest_divisor_at_most(
+                n_shards, len(serving))
             before = distributed_serving.stats["distributed_searches"]
             k1_before = knn_fused.launches.count
             resp = node.search("vecs", {
@@ -119,16 +126,20 @@ def dryrun_multichip(n_devices: int,
         "serving search did not take the stacked serving step"
     assert len(resp["hits"]["hits"]) == 5
     if dev.type == "cuda":
-        assert k1_launches == 1, \
-            f"the serving search launched K1 {k1_launches} times, not once"
+        assert k1_launches == slots, \
+            (f"the serving search launched K1 {k1_launches} times, not "
+             f"once on each of its {slots} slots")
+    used = ", ".join(str(d) for d in dict.fromkeys(serving[:slots]))
     print(f"serving path OK: {n_shards}-shard knn _search merged "
-          f"on-device over 1 device ({dev})")
+          f"on-device over {slots} device{'s' if slots > 1 else ''} "
+          f"({used})")
 
     # ---- 2) the TP/hybrid program: model-axis partial sums + data-axis
     # merge ----
     n_model = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
     n_data = n_devices // n_model
-    mesh = build_mesh(n_data=n_data, n_model=n_model, devices=[dev])
+    mesh = build_mesh(n_data=n_data, n_model=n_model,
+                      devices=backend.serving_devices(dev))
 
     rng = np.random.default_rng(0)
     n_pad, d, p_pad, Q, B, k, window = 128, 16, 256, 4, 2, 5, 16
@@ -149,6 +160,7 @@ def dryrun_multichip(n_devices: int,
     fn = build_distributed_search(mesh, k=k, window=window,
                                   similarity="l2_norm")
     vals, ids = fn(segs, qargs)
+    assert vals.device == mesh.device
     assert tuple(vals.shape) == (B, k) and tuple(ids.shape) == (B, k)
     assert bool(torch.isfinite(vals).all())
     print(

@@ -22,16 +22,17 @@ from opensearch_tpu_torch.search.distributed_serving import _IndexBundle
 def bundle_from_numpy(vectors: np.ndarray, norms_sq: np.ndarray,
                       valid: np.ndarray, device: torch.device | str,
                       seg_offsets: list | None = None) -> _IndexBundle:
-    """The serving bundle for stacked shards: vectors [S, n, d] f32,
-    norms_sq [S, n] f32, valid [S, n] bool. `seg_offsets` defaults to one
-    segment per shard covering all n rows."""
+    """The one-slot serving bundle for stacked shards: vectors [S, n, d]
+    f32, norms_sq [S, n] f32, valid [S, n] bool. `seg_offsets` defaults to
+    one segment per shard covering all n rows."""
     vectors = np.ascontiguousarray(vectors, np.float32)
     s, n, _d = vectors.shape
     return _IndexBundle(
-        vectors=torch.from_numpy(vectors).to(device),
-        norms_sq=torch.from_numpy(
-            np.ascontiguousarray(norms_sq, np.float32)).to(device),
-        valid=torch.from_numpy(np.ascontiguousarray(valid, bool)).to(device),
+        vectors=[torch.from_numpy(vectors).to(device)],
+        norms_sq=[torch.from_numpy(
+            np.ascontiguousarray(norms_sq, np.float32)).to(device)],
+        valid=[torch.from_numpy(
+            np.ascontiguousarray(valid, bool)).to(device)],
         n_flat=n,
         seg_offsets=seg_offsets or [[(0, 0, n)] for _ in range(s)],
     )

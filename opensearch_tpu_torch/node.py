@@ -270,6 +270,184 @@ def delete_targets(expr: str, names: list[str], alias_map: dict, *,
     return list(dict.fromkeys(targets))
 
 
+def alias_map_of(indices: dict) -> dict[str, list[str]]:
+    """alias name -> sorted member index names of `indices` (name -> an
+    index service or a cluster's index view), over a list() snapshot:
+    searches resolve aliases on the parallel pool while the serial data
+    worker may be inserting or deleting indices."""
+    out: dict[str, list[str]] = {}
+    for name, svc in list(indices.items()):
+        for alias in list(svc.aliases):
+            out.setdefault(alias, []).append(name)
+    return {a: sorted(ns) for a, ns in out.items()}
+
+
+def resolve_date_math_name(name: str) -> str:
+    """"<logstash-{now/M}>" -> "logstash-2026.07.01"
+    (IndexNameExpressionResolver.DateMathExpressionResolver; default
+    format uuuu.MM.dd, rounding by the date-math unit)."""
+    if not (name.startswith("<") and name.endswith(">")):
+        return name
+    import datetime as _dt
+
+    inner = name[1:-1]
+
+    def repl(m):
+        expr = m.group(1)
+        fmt = "%Y.%m.%d"
+        if "{" in expr:  # a custom format: {now/M{yyyy.MM}}
+            expr, _, f = expr.partition("{")
+            f = f.rstrip("}")
+            fmt = (f.replace("yyyy", "%Y").replace("uuuu", "%Y")
+                   .replace("MM", "%m").replace("dd", "%d"))
+        now = _dt.datetime.now(_dt.timezone.utc)
+        rest = expr[3:] if expr.startswith("now") else ""
+        while rest:
+            m2 = re.match(r"([+-]\d+[yMwdhHms]|/[yMwdhHms])", rest)
+            if not m2:
+                break
+            op = m2.group(1)
+            rest = rest[len(op):]
+            if op.startswith("/"):
+                unit = op[1:]
+                if unit == "M":
+                    now = now.replace(day=1, hour=0, minute=0,
+                                      second=0, microsecond=0)
+                elif unit == "d":
+                    now = now.replace(hour=0, minute=0, second=0,
+                                      microsecond=0)
+                elif unit == "y":
+                    now = now.replace(month=1, day=1, hour=0, minute=0,
+                                      second=0, microsecond=0)
+            else:
+                sign = 1 if op[0] == "+" else -1
+                n_, unit = int(op[1:-1]), op[-1]
+                delta = {"d": _dt.timedelta(days=n_),
+                         "w": _dt.timedelta(weeks=n_),
+                         "h": _dt.timedelta(hours=n_),
+                         "H": _dt.timedelta(hours=n_),
+                         "m": _dt.timedelta(minutes=n_),
+                         "s": _dt.timedelta(seconds=n_)}.get(
+                    unit, _dt.timedelta())
+                now = now + sign * delta
+        return now.strftime(fmt)
+
+    return re.sub(r"\{([^}]*(?:\{[^}]*\})?)\}", repl, inner)
+
+
+def _index_hidden(indices: dict, name: str) -> bool:
+    return str(indices[name].setting("hidden", False)).lower() == "true"
+
+
+def _hidden_name(indices: dict, name: str, alias_map: dict) -> bool:
+    if name in alias_map:
+        return any(str((indices[m].aliases.get(name) or {}).get(
+            "is_hidden", False)).lower() == "true"
+            for m in alias_map[name] if m in indices)
+    return _index_hidden(indices, name)
+
+
+def expression_names(expr: str, indices: dict, alias_map: dict,
+                     expand: set[str], *, ignore_unavailable: bool,
+                     allow_no_indices: bool
+                     ) -> list[tuple[str, bool, set[str]]]:
+    """(index or alias name, named explicitly, its member indices an
+    exclusion dropped) for each part of a comma expression over `indices`
+    and their `alias_map`, in order (IndexNameExpressionResolver): a
+    concrete name or alias as it stands (a missing one 404s unless
+    `ignore_unavailable`), a `*` / `?` pattern over index and alias names,
+    and after a pattern a "-name" or "-pattern" exclusion of the concrete
+    indices it names from everything selected before it. A pattern skips
+    an `index.hidden` index (or an `is_hidden` alias) unless `expand` holds
+    hidden or all; a dot pattern still reaches a dot-prefixed hidden
+    index."""
+    wildcards_on = "none" not in expand
+    show_hidden = bool(expand & {"hidden", "all"})
+    candidates = sorted(set(indices) | set(alias_map))
+    selected: dict[str, tuple[bool, set[str]]] = {}
+    wildcard_seen = False
+    for part in expr.split(","):
+        part = resolve_date_math_name(part.strip())
+        if part.startswith("-") and wildcard_seen:
+            pat = part[1:]
+            dropped = {m for n in candidates
+                       if fnmatch.fnmatch(n, pat)
+                       for m in alias_map.get(n, [n])}
+            for _explicit, drops in selected.values():
+                drops |= dropped
+            continue
+        if _has_wildcard(part):
+            wildcard_seen = True
+            if not wildcards_on:
+                continue
+            matched = False
+            for n in candidates:
+                if not fnmatch.fnmatch(n, part):
+                    continue
+                if not show_hidden and _hidden_name(
+                        indices, n, alias_map) and not (
+                        part.startswith(".") and n.startswith(".")):
+                    continue
+                selected[n] = (selected.get(n, (False,))[0], set())
+                matched = True
+            if not matched and not allow_no_indices:
+                raise IndexNotFoundException(part)
+        elif part in alias_map or part in indices:
+            selected[part] = (True, set())
+        elif not ignore_unavailable:
+            raise IndexNotFoundException(part)
+    return [(n, explicit, drops)
+            for n, (explicit, drops) in selected.items()]
+
+
+def resolve_index_names(expr: str, indices: dict, *,
+                        ignore_unavailable: bool = False,
+                        allow_no_indices: bool = True,
+                        expand_wildcards: str = "open") -> list[str]:
+    """Index name, pattern and alias resolution over `indices` (name -> an
+    index service or a cluster's index view: each has ``setting``,
+    ``aliases`` and ``closed``; comma lists, `*` / `?` patterns over index
+    AND alias names, "-" exclusions, date math, `_all`); aliases expand to
+    their member indices, as the reference's IndexNameExpressionResolver
+    does. `ignore_unavailable` drops missing concrete names instead of a
+    404; `expand_wildcards=none` turns patterns off, `hidden` / `all` lets
+    them reach hidden indices, and `open` / `closed` / `all` select by
+    state what a pattern reaches (a concrete name is taken whatever its
+    state); an empty result 404s when `allow_no_indices` is false. Shared
+    by a single node and a cluster's facade."""
+    alias_map = alias_map_of(indices)
+    expand = {w.strip() for w in str(expand_wildcards).split(",")}
+    if "all" in expand:
+        expand |= {"open", "closed"}
+
+    def state_ok(name: str) -> bool:
+        # wildcard expansion honours the open / closed selection
+        # (IndicesOptions.expandWildcards*)
+        if indices[name].closed:
+            return "closed" in expand
+        return "open" in expand or not (expand & {"open", "closed"})
+
+    if expr in ("_all", "*", ""):
+        names = ([n for n in sorted(indices)
+                  if state_ok(n) and (not _index_hidden(indices, n)
+                                      or expand & {"hidden", "all"})]
+                 if "none" not in expand else [])
+        if not names and not allow_no_indices:
+            raise IndexNotFoundException(expr or "_all")
+        return names
+    names: list[str] = []
+    for name, explicit, dropped in expression_names(
+            expr, indices, alias_map, expand,
+            ignore_unavailable=ignore_unavailable,
+            allow_no_indices=allow_no_indices):
+        names.extend(m for m in alias_map.get(name, [name])
+                     if m not in dropped
+                     and (explicit or state_ok(m)))
+    if not names and not allow_no_indices:
+        raise IndexNotFoundException(expr)
+    return list(dict.fromkeys(names))
+
+
 def index_settings_entry(raw_settings: dict, *, num_shards: int,
                          num_replicas: int, name: str | None = None,
                          flat: bool = False, include_defaults: bool = False,
@@ -847,178 +1025,20 @@ class TorchNode:
             self.create_index(name, {})
         return self.indices[name]
 
-    @staticmethod
-    def _resolve_date_math_name(name: str) -> str:
-        """"<logstash-{now/M}>" -> "logstash-2026.07.01"
-        (IndexNameExpressionResolver.DateMathExpressionResolver; default
-        format uuuu.MM.dd, rounding by the date-math unit)."""
-        if not (name.startswith("<") and name.endswith(">")):
-            return name
-        import datetime as _dt
-
-        inner = name[1:-1]
-
-        def repl(m):
-            expr = m.group(1)
-            fmt = "%Y.%m.%d"
-            if "{" in expr:  # a custom format: {now/M{yyyy.MM}}
-                expr, _, f = expr.partition("{")
-                f = f.rstrip("}")
-                fmt = (f.replace("yyyy", "%Y").replace("uuuu", "%Y")
-                       .replace("MM", "%m").replace("dd", "%d"))
-            now = _dt.datetime.now(_dt.timezone.utc)
-            rest = expr[3:] if expr.startswith("now") else ""
-            while rest:
-                m2 = re.match(r"([+-]\d+[yMwdhHms]|/[yMwdhHms])", rest)
-                if not m2:
-                    break
-                op = m2.group(1)
-                rest = rest[len(op):]
-                if op.startswith("/"):
-                    unit = op[1:]
-                    if unit == "M":
-                        now = now.replace(day=1, hour=0, minute=0,
-                                          second=0, microsecond=0)
-                    elif unit == "d":
-                        now = now.replace(hour=0, minute=0, second=0,
-                                          microsecond=0)
-                    elif unit == "y":
-                        now = now.replace(month=1, day=1, hour=0, minute=0,
-                                          second=0, microsecond=0)
-                else:
-                    sign = 1 if op[0] == "+" else -1
-                    n_, unit = int(op[1:-1]), op[-1]
-                    delta = {"d": _dt.timedelta(days=n_),
-                             "w": _dt.timedelta(weeks=n_),
-                             "h": _dt.timedelta(hours=n_),
-                             "H": _dt.timedelta(hours=n_),
-                             "m": _dt.timedelta(minutes=n_),
-                             "s": _dt.timedelta(seconds=n_)}.get(
-                        unit, _dt.timedelta())
-                    now = now + sign * delta
-            return now.strftime(fmt)
-
-        return re.sub(r"\{([^}]*(?:\{[^}]*\})?)\}", repl, inner)
-
-    def _is_hidden(self, name: str) -> bool:
-        return str(self.indices[name].setting("hidden", False)).lower() \
-            == "true"
-
-    def _expression_names(self, expr: str, alias_map: dict,
-                          expand: set[str], *, ignore_unavailable: bool,
-                          allow_no_indices: bool
-                          ) -> list[tuple[str, bool, set[str]]]:
-        """(index or alias name, named explicitly, its member indices an
-        exclusion dropped) for each part of a comma expression, in order
-        (IndexNameExpressionResolver): a concrete name or alias as it
-        stands (a missing one 404s unless `ignore_unavailable`), a `*` /
-        `?` pattern over index and alias names, and after a pattern a
-        "-name" or "-pattern" exclusion of the concrete indices it names
-        from everything selected before it. A pattern skips an
-        `index.hidden` index (or an `is_hidden` alias) unless `expand`
-        holds hidden or all; a dot pattern still reaches a dot-prefixed
-        hidden index."""
-        wildcards_on = "none" not in expand
-        show_hidden = bool(expand & {"hidden", "all"})
-        candidates = sorted(set(self.indices) | set(alias_map))
-        selected: dict[str, tuple[bool, set[str]]] = {}
-        wildcard_seen = False
-        for part in expr.split(","):
-            part = self._resolve_date_math_name(part.strip())
-            if part.startswith("-") and wildcard_seen:
-                pat = part[1:]
-                dropped = {m for n in candidates
-                           if fnmatch.fnmatch(n, pat)
-                           for m in alias_map.get(n, [n])}
-                for _explicit, drops in selected.values():
-                    drops |= dropped
-                continue
-            if _has_wildcard(part):
-                wildcard_seen = True
-                if not wildcards_on:
-                    continue
-                matched = False
-                for n in candidates:
-                    if not fnmatch.fnmatch(n, part):
-                        continue
-                    if not show_hidden and self._hidden_name(
-                            n, alias_map) and not (
-                            part.startswith(".") and n.startswith(".")):
-                        continue
-                    selected[n] = (selected.get(n, (False,))[0], set())
-                    matched = True
-                if not matched and not allow_no_indices:
-                    raise IndexNotFoundException(part)
-            elif part in alias_map or part in self.indices:
-                selected[part] = (True, set())
-            elif not ignore_unavailable:
-                raise IndexNotFoundException(part)
-        return [(n, explicit, drops)
-                for n, (explicit, drops) in selected.items()]
-
-    def _hidden_name(self, name: str, alias_map: dict) -> bool:
-        if name in alias_map:
-            return any(str((self.indices[m].aliases.get(name) or {}).get(
-                "is_hidden", False)).lower() == "true"
-                for m in alias_map[name] if m in self.indices)
-        return self._is_hidden(name)
-
     def resolve_indices(self, expr: str, *, ignore_unavailable: bool = False,
                         allow_no_indices: bool = True,
                         expand_wildcards: str = "open") -> list[str]:
-        """Index name, pattern and alias resolution (comma lists, `*` / `?`
-        patterns over index AND alias names, "-" exclusions, date math,
-        `_all`); aliases expand to their member indices, as the
-        reference's IndexNameExpressionResolver does.
-        `ignore_unavailable` drops missing concrete names instead of a
-        404; `expand_wildcards=none` turns patterns off, `hidden` / `all`
-        lets them reach hidden indices, and `open` / `closed` / `all`
-        select by state what a pattern reaches (a concrete name is taken
-        whatever its state); an empty result 404s when
-        `allow_no_indices` is false."""
-        alias_map = self._alias_map()
-        expand = {w.strip() for w in str(expand_wildcards).split(",")}
-        if "all" in expand:
-            expand |= {"open", "closed"}
-
-        def state_ok(name: str) -> bool:
-            # wildcard expansion honours the open / closed selection
-            # (IndicesOptions.expandWildcards*)
-            if self.indices[name].closed:
-                return "closed" in expand
-            return "open" in expand or not (expand & {"open", "closed"})
-
-        if expr in ("_all", "*", ""):
-            names = ([n for n in sorted(self.indices)
-                      if state_ok(n) and (not self._is_hidden(n)
-                                          or expand & {"hidden", "all"})]
-                     if "none" not in expand else [])
-            if not names and not allow_no_indices:
-                raise IndexNotFoundException(expr or "_all")
-            return names
-        names: list[str] = []
-        for name, explicit, dropped in self._expression_names(
-                expr, alias_map, expand,
-                ignore_unavailable=ignore_unavailable,
-                allow_no_indices=allow_no_indices):
-            names.extend(m for m in alias_map.get(name, [name])
-                         if m not in dropped
-                         and (explicit or state_ok(m)))
-        if not names and not allow_no_indices:
-            raise IndexNotFoundException(expr)
-        return list(dict.fromkeys(names))
+        """:func:`resolve_index_names` over this node's indices."""
+        return resolve_index_names(
+            expr, self.indices, ignore_unavailable=ignore_unavailable,
+            allow_no_indices=allow_no_indices,
+            expand_wildcards=expand_wildcards)
 
     # -- aliases (AliasMetadata + TransportIndicesAliasesAction) -------------
 
     def _alias_map(self) -> dict[str, list[str]]:
-        """alias name -> sorted member index names, over a list() snapshot:
-        searches resolve aliases on the parallel pool while the serial
-        data worker may be inserting or deleting indices."""
-        out: dict[str, list[str]] = {}
-        for name, svc in list(self.indices.items()):
-            for alias in list(svc.aliases):
-                out.setdefault(alias, []).append(name)
-        return {a: sorted(ns) for a, ns in out.items()}
+        """:func:`alias_map_of` this node's indices."""
+        return alias_map_of(self.indices)
 
     def update_aliases(self, body: dict) -> dict:
         """POST /_aliases: add, remove and remove_index actions, validated
@@ -1242,8 +1262,8 @@ class TorchNode:
             for name in self.resolve_indices(expr):
                 add_index(name, None)
         else:
-            for name, explicit, dropped in self._expression_names(
-                    expr, alias_map, {"open"},
+            for name, explicit, dropped in expression_names(
+                    expr, self.indices, alias_map, {"open"},
                     ignore_unavailable=ignore_unavailable,
                     allow_no_indices=True):
                 if name in alias_map:

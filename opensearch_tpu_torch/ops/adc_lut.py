@@ -93,10 +93,11 @@ def lut(queries, coarse, codebooks, probes) -> torch.Tensor:
                                               probes))
     out = torch.empty((B, P, m, ks), dtype=torch.float32,
                       device=queries.device)
-    err = _library().adc_lut_launch(
-        q.data_ptr(), c.data_ptr(), cb.data_ptr(), pr.data_ptr(),
-        out.data_ptr(), B, P, d, m, ks, dsub,
-        torch.cuda.current_stream(queries.device).cuda_stream)
+    with torch.cuda.device(queries.device):
+        err = _library().adc_lut_launch(
+            q.data_ptr(), c.data_ptr(), cb.data_ptr(), pr.data_ptr(),
+            out.data_ptr(), B, P, d, m, ks, dsub,
+            torch.cuda.current_stream(queries.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"adc_lut launch failed: cudaError {err}")
     launches.add()

@@ -237,12 +237,13 @@ def launch(lib, lut, codes, ids, mask, probes, *, r: int,
     out_ids = torch.empty((B, r), dtype=torch.int32, device=dev)
     operands = [t.data_ptr() for t in (lut, codes, mask, ids, probes)]
     part_k, part_i, part_n, *merge_scratch = bufs
-    err = lib.adc_scan_launch(
-        *operands, part_k, part_i, part_n, vals.data_ptr(),
-        out_ids.data_ptr(), *merge_scratch, B, P, nlist, l_pad, m, ks, r,
-        span, _PREC_CODE[lut.dtype], scan_smem, plan.off_at, plan.cand_at,
-        plan.cand_cap, plan.sort_at, plan.smem,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.adc_scan_launch(
+            *operands, part_k, part_i, part_n, vals.data_ptr(),
+            out_ids.data_ptr(), *merge_scratch, B, P, nlist, l_pad, m, ks,
+            r, span, _PREC_CODE[lut.dtype], scan_smem, plan.off_at,
+            plan.cand_at, plan.cand_cap, plan.sort_at, plan.smem,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"adc_scan launch failed: cudaError {err}")
     return vals, out_ids

@@ -253,11 +253,12 @@ def _launch_block_tile(  # tpulint: disable=TPU016 - timing yardstick, CUDA only
     part_i = torch.empty((n_split, B, k), dtype=torch.int32, device=dev)
     vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    err = lib.knn_block_launch(
-        vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
-        queries.data_ptr(), qsq.data_ptr(), part_v.data_ptr(),
-        part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-        n, d, B, k, _SIM_CODE[similarity], chunk, n_split, _stream(dev))
+    with torch.cuda.device(dev):
+        err = lib.knn_block_launch(
+            vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+            queries.data_ptr(), qsq.data_ptr(), part_v.data_ptr(),
+            part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
+            n, d, B, k, _SIM_CODE[similarity], chunk, n_split, _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn_block launch failed: cudaError {err}")
     block_launches.add()
@@ -363,11 +364,12 @@ def _launch_pb(vectors, norms_sq, valid, queries, *, k: int, similarity: str,
     dev = vectors.device
     vals = torch.empty((nb, B, k), dtype=torch.float32, device=dev)
     ids = torch.empty((nb, B, k), dtype=torch.int32, device=dev)
-    err = lib.knn_pb_launch(
-        vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
-        queries.data_ptr(), qsq.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-        n, d, B, rows, nb, k, qt, tier, _SIM_CODE[similarity], int(exact),
-        _stream(dev))
+    with torch.cuda.device(dev):
+        err = lib.knn_pb_launch(
+            vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+            queries.data_ptr(), qsq.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), n, d, B, rows, nb, k, qt, tier,
+            _SIM_CODE[similarity], int(exact), _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn_pb launch failed: cudaError {err}")
     pb_launches.add()
@@ -409,9 +411,10 @@ def _launch_pb_merge(vals, ids, k: int, rows: int):
     dev = vals.device
     top_vals = torch.empty((B, k), dtype=torch.float32, device=dev)
     top_ids = torch.empty((B, k), dtype=torch.int32, device=dev)
-    err = lib.knn_pb_merge_launch(vals.data_ptr(), ids.data_ptr(),
-                                  top_vals.data_ptr(), top_ids.data_ptr(),
-                                  B, rows, nb, k, row, _stream(dev))
+    with torch.cuda.device(dev):
+        err = lib.knn_pb_merge_launch(vals.data_ptr(), ids.data_ptr(),
+                                      top_vals.data_ptr(), top_ids.data_ptr(),
+                                      B, rows, nb, k, row, _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn_pb merge launch failed: cudaError {err}")
     pb_merge_launches.add()
@@ -492,10 +495,11 @@ def _launch_sbmax(vectors, norms_sq, valid, queries, qsq, *, similarity: str,
     dev = vectors.device
     out = torch.empty((nb, B, PB_BLOCK // SUB), dtype=torch.float32,
                       device=dev)
-    err = lib.knn_sbmax_launch(
-        vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
-        queries.data_ptr(), qsq.data_ptr(), out.data_ptr(),
-        n, d, B, nb, qt, _SIM_CODE[similarity], int(exact), _stream(dev))
+    with torch.cuda.device(dev):
+        err = lib.knn_sbmax_launch(
+            vectors.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+            queries.data_ptr(), qsq.data_ptr(), out.data_ptr(),
+            n, d, B, nb, qt, _SIM_CODE[similarity], int(exact), _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn_sbmax launch failed: cudaError {err}")
     sbmax_launches.add()
@@ -543,12 +547,14 @@ def _launch_sbmax_select(submax, vectors, norms_sq, valid, queries, qsq, *,
         scratch = (torch.empty((B, k), dtype=torch.int32, device=dev),
                    torch.empty((B, k * SUB), dtype=torch.float32, device=dev),
                    torch.empty((B, k), dtype=torch.int32, device=dev))
-    err = lib.knn_sbmax_select_launch(
-        submax.data_ptr(), vectors.data_ptr(), norms_sq.data_ptr(),
-        valid.data_ptr(), queries.data_ptr(), qsq.data_ptr(), vals.data_ptr(),
-        ids.data_ptr(), *(t.data_ptr() if t is not None else None
-                          for t in scratch),
-        n, d, B, nb, k, _SIM_CODE[similarity], int(exact), row, _stream(dev))
+    with torch.cuda.device(dev):
+        err = lib.knn_sbmax_select_launch(
+            submax.data_ptr(), vectors.data_ptr(), norms_sq.data_ptr(),
+            valid.data_ptr(), queries.data_ptr(), qsq.data_ptr(),
+            vals.data_ptr(), ids.data_ptr(),
+            *(t.data_ptr() if t is not None else None for t in scratch),
+            n, d, B, nb, k, _SIM_CODE[similarity], int(exact), row,
+            _stream(dev))
     if err != 0:
         raise RuntimeError(f"knn_sbmax selection launch failed: cudaError "
                            f"{err}")

@@ -194,8 +194,11 @@ def _fused_dots(q_x, v_x, score_precision: str, scale):
     shard; bf16 products are exact in f32 and sum in f32; fp32 is full
     float32. On the CPU, where this version serves searches, the f32 sums
     take one product a query, so a query's dots are the same bits whatever
-    batch it rides in, as the kernel's are on the card (there this version
-    is the kernel's yardstick and keeps the one batched product)."""
+    batch it rides in, and a shard's dots are one product of its own
+    [n, d] rows, the same bits whatever shards it is stacked with (a
+    mesh slot's group or the whole node's), as the kernel's are on the
+    card (there this version is the kernel's yardstick and keeps the one
+    batched product)."""
     if score_precision == "int8":
         dots = torch.einsum("bd,snd->sbn", q_x.to(torch.float64),
                             v_x.to(torch.float64))
@@ -204,7 +207,8 @@ def _fused_dots(q_x, v_x, score_precision: str, scale):
     q_f = q_x.to(torch.float32)
     if v_f.device.type != "cpu" or q_f.shape[0] == 0:
         return torch.einsum("bd,snd->sbn", q_f, v_f)
-    return torch.stack([torch.einsum("d,snd->sn", q, v_f) for q in q_f], 1)
+    return torch.stack([torch.stack([torch.mv(v_s, q) for v_s in v_f])
+                        for q in q_f], 1)
 
 
 def _transform_scores(dots, qsq, nsq, similarity: str):
@@ -486,12 +490,13 @@ def _launch_ranges(launch, what: str, v, norms_sq, valid, q, qsq, *, r: int,
     part_i = torch.empty((S, n_split, B, r), dtype=torch.int32, device=dev)
     vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
     ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
-    err = launch(
-        v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(), q.data_ptr(),
-        qsq.data_ptr(), part_v.data_ptr(), part_i.data_ptr(),
-        vals.data_ptr(), ids.data_ptr(), S, n, d, B, r,
-        _SIM_CODE[similarity], *plan, chunk, n_split,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = launch(
+            v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+            q.data_ptr(), qsq.data_ptr(), part_v.data_ptr(),
+            part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(), S, n, d, B,
+            r, _SIM_CODE[similarity], *plan, chunk, n_split,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err}")
     return vals, ids
@@ -595,11 +600,12 @@ def large_keys(lib, v, norms_sq, valid, q, qsq, scale=None, *,
     chunk, n_split = list_geometry(S, n, -(-B // WIDE_QUERY_TILE),
                                    sm_count(dev))
     keys = torch.empty((S, B, n), dtype=torch.int32, device=dev)
-    err = launch(
-        v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(), q.data_ptr(),
-        qsq.data_ptr(), keys.data_ptr(), S, n, d, B, _SIM_CODE[similarity],
-        stages, words, chunk, n_split,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = launch(
+            v.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+            q.data_ptr(), qsq.data_ptr(), keys.data_ptr(), S, n, d, B,
+            _SIM_CODE[similarity], stages, words, chunk, n_split,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"large-r tier scan failed: cudaError {err}")
     return keys
@@ -641,14 +647,15 @@ def large_select(lib, keys, r: int, sort: str | None = None):
         tmp = torch.empty((S, B, r), dtype=torch.int64, device=dev)
     vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
     ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
-    err = lib.knn_fused_large_select_launch(
-        keys.data_ptr(), state.data_ptr(), last_bins.data_ptr(),
-        win.data_ptr(),
-        tmp.data_ptr() if tmp is not None else None,
-        rank.data_ptr() if rank is not None else None,
-        vals.data_ptr(), ids.data_ptr(), S, n, B, r, G, chunk,
-        LARGE_SORTS.index(sort), n_slices,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.knn_fused_large_select_launch(
+            keys.data_ptr(), state.data_ptr(), last_bins.data_ptr(),
+            win.data_ptr(),
+            tmp.data_ptr() if tmp is not None else None,
+            rank.data_ptr() if rank is not None else None,
+            vals.data_ptr(), ids.data_ptr(), S, n, B, r, G, chunk,
+            LARGE_SORTS.index(sort), n_slices,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"large-r tier select failed: cudaError {err}")
     large_select_launches.add()
@@ -672,12 +679,13 @@ def large_select_yardstick(lib, keys, r: int):
         sort_i = torch.empty((S, B, slots), dtype=torch.int32, device=dev)
     vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
     ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
-    err = lib.knn_fused_large_yardstick_launch(
-        keys.data_ptr(),
-        sort_v.data_ptr() if sort_v is not None else None,
-        sort_i.data_ptr() if sort_i is not None else None,
-        vals.data_ptr(), ids.data_ptr(), S, n, B, r,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):
+        err = lib.knn_fused_large_yardstick_launch(
+            keys.data_ptr(),
+            sort_v.data_ptr() if sort_v is not None else None,
+            sort_i.data_ptr() if sort_i is not None else None,
+            vals.data_ptr(), ids.data_ptr(), S, n, B, r,
+            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"yardstick select failed: cudaError {err}")
     yardstick_launches.add()
@@ -759,12 +767,14 @@ def _launch_tile(  # tpulint: disable=TPU016 - timing yardstick, CUDA only
     vals = torch.empty((S, B, r), dtype=torch.float32, device=dev)
     ids = torch.empty((S, B, r), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.knn_fused_launch(
-        v_x.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
-        q_x.data_ptr(), qsq.data_ptr(), scale.data_ptr(),
-        part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(), ids.data_ptr(),
-        S, n, d, B, r, prec, _SIM_CODE[similarity], chunk, n_split, stream,
-    )
+    with torch.cuda.device(dev):
+        err = lib.knn_fused_launch(
+            v_x.data_ptr(), norms_sq.data_ptr(), valid.data_ptr(),
+            q_x.data_ptr(), qsq.data_ptr(), scale.data_ptr(),
+            part_v.data_ptr(), part_i.data_ptr(), vals.data_ptr(),
+            ids.data_ptr(), S, n, d, B, r, prec, _SIM_CODE[similarity],
+            chunk, n_split, stream,
+        )
     if err != 0:
         raise RuntimeError(f"knn_fused launch failed: cudaError {err}")
     tile_launches.add()

@@ -96,9 +96,10 @@ def query_sq(queries: torch.Tensor) -> torch.Tensor:
     q = queries.contiguous()
     B, d = q.shape
     out = torch.empty(B, dtype=torch.float32, device=q.device)
-    err = _library().knn_query_sq_launch(
-        q.data_ptr(), out.data_ptr(), B, d,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with torch.cuda.device(q.device):
+        err = _library().knn_query_sq_launch(
+            q.data_ptr(), out.data_ptr(), B, d,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_query_sq launch failed: cudaError {err}")
     sq_launches.add()
@@ -164,10 +165,11 @@ def rescore(queries, qsq, vectors, norms_sq, valid, cand, *,
     args = [t.contiguous() for t in (queries, qsq, vectors, norms_sq, valid,
                                      cand)]
     out = torch.empty((S, B, R), dtype=torch.float32, device=vectors.device)
-    err = _library().knn_rescore_launch(
-        *(t.data_ptr() for t in args), out.data_ptr(), S, n, d, B, R,
-        _SIM_CODE[similarity],
-        torch.cuda.current_stream(vectors.device).cuda_stream)
+    with torch.cuda.device(vectors.device):
+        err = _library().knn_rescore_launch(
+            *(t.data_ptr() for t in args), out.data_ptr(), S, n, d, B, R,
+            _SIM_CODE[similarity],
+            torch.cuda.current_stream(vectors.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_rescore launch failed: cudaError {err}")
     launches.add()
@@ -209,10 +211,11 @@ def rescore_dots(queries, vectors, cand) -> torch.Tensor:
         raise ValueError(f"unsupported shape S={S} B={B} d={d}")
     q, v, c = (t.contiguous() for t in (queries, vectors, cand))
     out = torch.empty((S, B, R), dtype=torch.float32, device=vectors.device)
-    err = _library().knn_rescore_launch(
-        q.data_ptr(), None, v.data_ptr(), None, None, c.data_ptr(),
-        out.data_ptr(), S, n, d, B, R, _RAW_DOTS,
-        torch.cuda.current_stream(vectors.device).cuda_stream)
+    with torch.cuda.device(vectors.device):
+        err = _library().knn_rescore_launch(
+            q.data_ptr(), None, v.data_ptr(), None, None, c.data_ptr(),
+            out.data_ptr(), S, n, d, B, R, _RAW_DOTS,
+            torch.cuda.current_stream(vectors.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_rescore launch failed: cudaError {err}")
     launches.add()

@@ -1,25 +1,33 @@
 """The tensor-parallel hybrid search program and the exact-kNN serving
-step: per-shard scan + on-device cross-shard merge.
+step: per-shard scan + cross-shard merge over a mesh of device slots.
 
 Counterpart of opensearch_tpu/parallel/distributed.py. The reference runs
 each as one ``shard_map`` program over a device mesh; the port runs the
-same arithmetic on one card (parallel/mesh.py):
+same arithmetic slot by slot (parallel/mesh.py), each slot's work on its
+slot's device, and copies what the reference's collectives carry to the
+device that consumes it:
 
 - :func:`build_distributed_search` is the hybrid BM25 + kNN program over a
   [n_data, n_model] mesh. The data axis is the leading [S] dim of every
   array (S = n_data); the model axis splits d into n_model equal slices,
-  each slice's partial product one fp32 ``torch.matmul`` (TF32 off), the
-  partials added in rank order from rank 0, as the reference's ``psum``.
+  each slice's partial product one fp32 ``torch.matmul`` (TF32 off) on its
+  slot's device, the partials copied to the data row's first slot and
+  added there in rank order from rank 0, as the reference's ``psum``.
   Each shard's BM25 is ops/bm25.py's deterministic sum (``doc_sums``) in
   place of the reference's float scatter-add, which on the card gives other
   bits from run to run. The merge is the reference's all-gather (the
-  per-shard pools in shard order, one stable top-k) or its ring (S - 1
-  steps, each slot merging its left neighbour's buffer into its running
-  top-k); the ring's answer is data slot 0's, which is how the reference's
-  replicated output reads.
-- :func:`build_knn_serving_step` is exact kNN over S stacked shards: every
-  shard's scan in one launch over a [S, n_flat, d] batch, merged on the
-  device with no host round-trip in between.
+  per-shard pools in shard order on slot (0, 0)'s device, one stable
+  top-k) or its ring (S - 1 steps, each slot merging its left neighbour's
+  buffer, copied to its device, into its running top-k); the ring's answer
+  is data slot 0's, which is how the reference's replicated output reads.
+- :func:`build_knn_serving_step` is exact kNN over S stacked shards on n
+  slots: each slot's S / n shards scanned in one launch on its device,
+  then each slot's pools, ids and counts copied to slot 0's device and
+  merged there (the reference's all-gather + ``top_k``), with no host
+  round-trip in between. The merged rows are the one-slot step's bits.
+
+A mesh whose slots all name one device (a one-device list, or a device
+repeated) runs every slot there, and the copies are no-ops.
 """
 
 from __future__ import annotations
@@ -39,7 +47,10 @@ _NEG_INF = float("-inf")
 
 
 class ShardedSegments(NamedTuple):
-    """Per-shard segment arrays stacked along a leading shard axis [S, ...]."""
+    """Per-shard segment arrays stacked along a leading shard axis [S, ...]
+    (the shapes below). :func:`shard_arrays_to_mesh` lays them out on a
+    mesh: each field becomes a tuple of the S shards' rows, and vectors
+    of each shard's n_model column slices, each on its slot's device."""
 
     vectors: torch.Tensor        # [S, n_pad, d] f32
     norms_sq: torch.Tensor       # [S, n_pad] f32
@@ -74,22 +85,21 @@ def _merge_topk(vals_a, ids_a, vals_b, ids_b, k: int):
     return top_vals, torch.gather(ids, -1, pos)
 
 
-def _vector_dots(queries, vectors, n_model: int):
-    """(dots [B, n], |q|^2 [B, 1]) of one shard with d split into n_model
-    slices: each slice's partial product is one fp32 matmul and the
-    partials, like each slice's partial |q|^2, are added in rank order
-    from rank 0 (the reference's psum over the model axis)."""
-    d = vectors.shape[-1]
-    if d % n_model:
-        raise ValueError(f"d [{d}] is not a multiple of the model axis "
-                         f"[{n_model}]")
-    width = d // n_model
+def _partial_sums(queries, parts, home):
+    """(dots [B, n], |q|^2 [B, 1]) on device `home` of one shard whose
+    vectors are the model ranks' [n, d / n_model] column slices `parts`,
+    each on its slot's device: each slice's partial product is one fp32
+    matmul on that device and the partials, like each slice's partial
+    |q|^2, are copied to `home` and added there in rank order from rank 0
+    (the reference's psum over the model axis)."""
     dots = q_sq = None
-    for rank in range(n_model):
-        q_r = queries[:, rank * width:(rank + 1) * width]
-        partial = torch.matmul(q_r, vectors[:, rank * width:
-                                            (rank + 1) * width].T)
-        part_sq = (q_r * q_r).sum(dim=-1, keepdim=True)
+    col = 0
+    for part in parts:
+        width = part.shape[-1]
+        q_r = queries[:, col:col + width].to(part.device)
+        col += width
+        partial = torch.matmul(q_r, part.T).to(home)
+        part_sq = (q_r * q_r).sum(dim=-1, keepdim=True).to(home)
         dots = partial if dots is None else dots + partial
         q_sq = part_sq if q_sq is None else q_sq + part_sq
     return dots, q_sq
@@ -115,8 +125,8 @@ def _shard_lexical(segs: ShardedSegments, q: QueryArgs, s: int, *,
     IDFs and avgdl (clamped at 1e-6): ops/bm25.py's window gather and
     per-slot scores, summed by ``doc_sums`` in the reference's update
     order."""
-    n_pad = segs.doc_len.shape[1]
-    device = segs.doc_len.device
+    n_pad = segs.doc_len[s].shape[-1]
+    device = segs.doc_len[s].device
     idx, docs, live = bm25.postings_window(
         segs.postings_docs[s], q.term_offsets[s], q.term_lengths[s],
         n_pad=n_pad, window=window)
@@ -129,14 +139,17 @@ def _shard_lexical(segs: ShardedSegments, q: QueryArgs, s: int, *,
 
 
 def _shard_query_phase(segs: ShardedSegments, q: QueryArgs, s: int,
-                       lex: torch.Tensor, *, k: int, similarity: str,
-                       n_model: int):
-    """Data slot s's query phase given its BM25 column `lex` [n_pad]: the
-    hybrid scores of its shard and their top-k, as (vals [B, k], global
-    ids [B, k] = shard id + s * n_pad)."""
-    n_pad = segs.vectors.shape[1]
-    dots, q_sq = _vector_dots(q.query_vectors, segs.vectors[s], n_model)
-    vec = _vector_scores(dots, q_sq, segs.norms_sq[s], similarity)
+                       lex: torch.Tensor, parts: list, *, k: int,
+                       similarity: str):
+    """Data slot s's query phase on its first slot's device (where its
+    norms, validity and BM25 column `lex` [n_pad] live), its vectors the
+    model ranks' column slices `parts`: the hybrid scores of its shard and
+    their top-k, as (vals [B, k], global ids [B, k] = shard id + s *
+    n_pad)."""
+    norms = segs.norms_sq[s]
+    n_pad = norms.shape[-1]
+    dots, q_sq = _partial_sums(q.query_vectors, parts, norms.device)
+    vec = _vector_scores(dots, q_sq, norms, similarity)
     del dots
     scores = q.vector_weight * vec + q.lexical_weight * lex[None, :]
     del vec
@@ -156,59 +169,69 @@ def _allgather_merge(top_vals, global_ids, k: int):
     return vals, torch.gather(all_ids, 1, pos)
 
 
-def _ring_merge(top_vals, global_ids, k: int, n_shards: int):
-    """S - 1 ring steps over the [S, B, k] pools: at each, every slot
-    receives its left neighbour's send buffer (a roll along the shard
-    axis), merges [running, received] by a stable top-k and passes the
-    received buffer on. Returns data slot 0's running top-k."""
-    vals, ids = top_vals, global_ids
-    send_vals, send_ids = top_vals, global_ids
-    for _step in range(n_shards - 1):
-        recv_vals = torch.roll(send_vals, 1, dims=0)
-        recv_ids = torch.roll(send_ids, 1, dims=0)
-        vals, ids = _merge_topk(vals, ids, recv_vals, recv_ids, k)
-        send_vals, send_ids = recv_vals, recv_ids
-    return vals[0], ids[0]
+def _ring_merge(pools: list, k: int):
+    """S - 1 ring steps over the data slots' pools [(vals [B, k], ids [B,
+    k])], each on its slot's device: at each, slot j receives its left
+    neighbour's send buffer (copied to slot j's device), merges [running,
+    received] by a stable top-k and passes the received buffer on.
+    Returns data slot 0's running top-k."""
+    n = len(pools)
+    running = list(pools)
+    send = list(pools)
+    for _step in range(n - 1):
+        recv = [tuple(t.to(running[j][0].device) for t in send[j - 1])
+                for j in range(n)]
+        running = [_merge_topk(*running[j], *recv[j], k) for j in range(n)]
+        send = recv
+    return running[0]
 
 
 def _on(x, device) -> torch.Tensor:
+    """`x` (a tensor, a numpy array or a scalar) as a tensor on `device`."""
+    if isinstance(x, np.ndarray):
+        x = np.ascontiguousarray(x)
     return torch.as_tensor(x).to(device)
 
 
 def build_distributed_search(mesh: Mesh, *, k: int, window: int,
                              similarity: str = "l2_norm", ring: bool = False):
     """fn(segments: ShardedSegments, q: QueryArgs) -> (scores [B, k],
-    global doc ids [B, k]) over the mesh's [n_data, n_model] slots on its
-    device. The segments must have n_data shards (see
-    :func:`shard_arrays_to_mesh`) and d a multiple of n_model (else
-    ValueError). Every shard's BM25 column comes first: the sum's sort
-    waits for its run lengths on the host, which costs little while the
-    card's queue is short, and the shards' products and passes then queue
-    with no wait between them. The shards are scored one after another,
-    so one shard's [B, n_pad] score matrix is live at a time."""
+    global doc ids [B, k]) on slot (0, 0)'s device, over the mesh's
+    [n_data, n_model] slots. The segments are laid out on the mesh by
+    :func:`shard_arrays_to_mesh` (n_data shards, n_model column slices
+    each; else ValueError). Every shard's BM25 column comes first: the
+    sum's sort waits for its run lengths on the host, which costs little
+    while the card's queue is short, and the shards' products and passes
+    then queue with no wait between them. The shards are scored one after
+    another, so one shard's [B, n_pad] score matrix is live at a time."""
     n_shards = mesh.shape[DATA_AXIS]
     n_model = mesh.shape[MODEL_AXIS]
 
     def step(segs: ShardedSegments, q: QueryArgs):
-        if segs.vectors.shape[0] != n_shards:
+        if len(segs.vectors) != n_shards:
             raise ValueError(
-                f"segments have {segs.vectors.shape[0]} shards, the mesh's "
+                f"segments have {len(segs.vectors)} shards, the mesh's "
                 f"data axis has {n_shards}")
-        if segs.vectors.shape[-1] % n_model:
-            raise ValueError(
-                f"d [{segs.vectors.shape[-1]}] is not a multiple of the "
-                f"model axis [{n_model}]")
-        device = segs.vectors.device
-        q = QueryArgs(*(_on(x, device) for x in q))
-        lexs = [_shard_lexical(segs, q, s, window=window)
+        if any(isinstance(row, torch.Tensor) or len(row) != n_model
+               for row in segs.vectors):
+            raise ValueError(f"segments are not laid out on the mesh's "
+                             f"model axis [{n_model}]: see "
+                             f"shard_arrays_to_mesh")
+        homes = [segs.norms_sq[s].device for s in range(n_shards)]
+        # the query's arrays, replicated: one copy on each data row's device
+        q_on = {}
+        for dev in dict.fromkeys(homes):
+            q_on[dev] = QueryArgs(*(_on(x, dev) for x in q))
+        lexs = [_shard_lexical(segs, q_on[homes[s]], s, window=window)
                 for s in range(n_shards)]
-        pools = [_shard_query_phase(segs, q, s, lexs[s], k=k,
-                                    similarity=similarity, n_model=n_model)
+        pools = [_shard_query_phase(segs, q_on[homes[s]], s, lexs[s],
+                                    segs.vectors[s], k=k,
+                                    similarity=similarity)
                  for s in range(n_shards)]
-        top_vals = torch.stack([v for v, _i in pools])       # [S, B, k]
-        global_ids = torch.stack([i for _v, i in pools])
         if ring:
-            return _ring_merge(top_vals, global_ids, k, n_shards)
+            return _ring_merge(pools, k)
+        top_vals = torch.stack([v.to(homes[0]) for v, _i in pools])
+        global_ids = torch.stack([i.to(homes[0]) for _v, i in pools])
         return _allgather_merge(top_vals, global_ids, k)
 
     return step
@@ -216,13 +239,32 @@ def build_distributed_search(mesh: Mesh, *, k: int, window: int,
 
 def shard_arrays_to_mesh(mesh: Mesh,
                          segments: ShardedSegments) -> ShardedSegments:
-    """Every array on the mesh's device (numpy arrays are converted); the
-    [S] axis is the data axis, d is sliced by the program. Registers
-    nothing in the residency ledger, as in the reference."""
-    return ShardedSegments(*(
-        torch.from_numpy(np.ascontiguousarray(a)).to(mesh.device)
-        if isinstance(a, np.ndarray) else a.to(mesh.device)
-        for a in segments))
+    """The stacked [S, ...] segments laid out slot by slot on the mesh
+    (numpy arrays are converted), as the reference's
+    ``P(DATA_AXIS, None, MODEL_AXIS)``: vectors become, for each shard s,
+    the tuple of its n_model column slices [n_pad, d / n_model], each on
+    slot (s, m)'s device; every other array the tuple of its shards' rows,
+    row s on slot (s, 0)'s device. Where a slot's device is the array's
+    own, a row is a view and a column slice a copy only for n_model > 1.
+    Registers nothing in the residency ledger, as in the reference."""
+    n_data, n_model = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+    vectors = segments.vectors
+    if vectors.shape[0] != n_data:
+        raise ValueError(f"segments have {vectors.shape[0]} shards, the "
+                         f"mesh's data axis has {n_data}")
+    d = vectors.shape[-1]
+    if d % n_model:
+        raise ValueError(f"d [{d}] is not a multiple of the model axis "
+                         f"[{n_model}]")
+    width = d // n_model
+    slots = tuple(
+        tuple(_on(vectors[s, :, r * width:(r + 1) * width],
+                  mesh.slot(s, r)).contiguous()
+              for r in range(n_model))
+        for s in range(n_data))
+    rows = [tuple(_on(a[s], mesh.slot(s)) for s in range(n_data))
+            for a in segments[1:]]
+    return ShardedSegments(slots, *rows)
 
 
 def _einsum_scan(vectors, norms_sq, valid, queries, *, k_shard: int,
@@ -247,45 +289,69 @@ def _einsum_scan(vectors, norms_sq, valid, queries, *, k_shard: int,
 
 def build_knn_serving_step(*, k_shard: int, k_final: int, similarity: str,
                            kernel: str = "xla", score_precision: str = "fp32"):
-    """Exact k-NN over S stacked shards on one device.
+    """Exact k-NN over S stacked shards on n slots.
 
-    fn(vectors [S, n, d], norms_sq [S, n], valid [S, n], queries [B, d])
+    fn(vectors, norms_sq, valid, queries [B, d])
       -> (scores [B, k_final], global_ids [B, k_final], counts [S, B])
 
-    global id = shard_idx * n + flat_doc; counts[s, b] = number of finite
-    per-shard winners (<= k_shard). At (kernel="xla", score_precision=
-    "fp32") scoring is the plain einsum branch; any other combination runs
-    every shard's scan through ops/knn_fused.knn_fused_stacked in ONE scan
-    (the hand-written kernel for kernel="pallas" on the card, its plain
-    version for "xla" or on the CPU), with explicit -1 global ids for empty
-    fused slots. The merge orders candidates (shard asc, rank asc) and takes
-    a stable top-k, which reproduces the host merge's
-    (-score, shard, segment, doc) order exactly."""
+    vectors, norms_sq and valid are lists of n slot groups (the serving
+    bundle's slabs): slot i's [S / n, n_flat, d], [S / n, n_flat] and
+    [S / n, n_flat] tensors on its device, S / n consecutive shards. A
+    device may repeat (several slots on one card); one group is one slot.
+    The results lie on slot 0's device.
+
+    global id = shard_idx * n_flat + flat_doc, the first shard of slot i
+    being i * S / n; counts[s, b] = number of finite per-shard winners (<=
+    k_shard). At (kernel="xla", score_precision="fp32") scoring is the
+    plain einsum branch; any other combination runs each slot's shards
+    through ops/knn_fused.knn_fused_stacked in ONE scan on its device (the
+    hand-written kernel for kernel="pallas" on the card, its plain version
+    for "xla" or on the CPU), with explicit -1 global ids for empty fused
+    slots. Each slot's pools, ids and counts are copied to slot 0's device
+    and merged there: the merge orders candidates (shard asc, rank asc) and
+    takes a stable top-k, which reproduces the host merge's
+    (-score, shard, segment, doc) order exactly, so the result is the
+    one-slot step's bits."""
     fused = (kernel, score_precision) != ("xla", "fp32")
 
-    def step(vectors, norms_sq, valid, queries):
-        s, n_flat, _d = vectors.shape
+    def scan(vectors, norms_sq, valid, queries):
         if fused:
-            vals, ids = knn_fused_mod.knn_fused_stacked(
+            return knn_fused_mod.knn_fused_stacked(
                 vectors, norms_sq, valid, queries, k=k_shard,
                 similarity=similarity, score_precision=score_precision,
                 impl=kernel,
             )
-        else:
-            vals, ids = _einsum_scan(vectors, norms_sq, valid, queries,
-                                     k_shard=k_shard, similarity=similarity)
-        counts = torch.isfinite(vals).sum(dim=-1)               # [S, B]
-        offsets = (torch.arange(s, device=vectors.device) * n_flat)[:, None, None]
-        ids = ids.long()
-        if fused:
-            # fused scans mark empty slots id -1: keep them explicit
-            # instead of wrapping them into a neighbouring shard's range
-            gids = torch.where(ids >= 0, ids + offsets, -1)
-        else:
-            gids = ids + offsets
+        return _einsum_scan(vectors, norms_sq, valid, queries,
+                            k_shard=k_shard, similarity=similarity)
+
+    def step(vectors, norms_sq, valid, queries):
+        if not len(vectors) == len(norms_sq) == len(valid) >= 1:
+            raise ValueError(f"slot groups: {len(vectors)} vectors, "
+                             f"{len(norms_sq)} norms, {len(valid)} valid")
+        home = vectors[0].device
+        parts = []
+        shard0 = 0
+        for v, nrm, ok in zip(vectors, norms_sq, valid):
+            dev = v.device
+            s_local, n_flat, _d = v.shape
+            vals, ids = scan(v, nrm, ok, queries.to(dev))
+            counts = torch.isfinite(vals).sum(dim=-1)           # [s, B]
+            offsets = ((shard0 + torch.arange(s_local, device=dev))
+                       * n_flat)[:, None, None]
+            ids = ids.long()
+            if fused:
+                # fused scans mark empty slots id -1: keep them explicit
+                # instead of wrapping them into a neighbouring shard's range
+                gids = torch.where(ids >= 0, ids + offsets, -1)
+            else:
+                gids = ids + offsets
+            parts.append(tuple(t.to(home) for t in (vals, gids, counts)))
+            shard0 += s_local
+        vals, gids, counts = (parts[0] if len(parts) == 1 else
+                              [torch.cat(ts) for ts in zip(*parts)])
         b = vals.shape[1]
-        all_vals = vals.permute(1, 0, 2).reshape(b, s * k_shard)
-        all_ids = gids.permute(1, 0, 2).reshape(b, s * k_shard)
+        all_vals = vals.permute(1, 0, 2).reshape(b, shard0 * k_shard)
+        all_ids = gids.permute(1, 0, 2).reshape(b, shard0 * k_shard)
         top_vals, pos = stable_topk(all_vals, k_final)
         return top_vals, torch.gather(all_ids, 1, pos), counts
 

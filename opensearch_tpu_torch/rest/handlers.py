@@ -66,7 +66,7 @@ from opensearch_tpu_torch.common.errors import (
     SnapshotMissingException,
 )
 from opensearch_tpu_torch.common.settings import Settings
-from opensearch_tpu_torch.node import TorchNode
+from opensearch_tpu_torch.node import TorchNode, alias_map_of
 from opensearch_tpu_torch.rest.router import Router
 from opensearch_tpu_torch.search.service import _source_filter
 from opensearch_tpu_torch.telemetry import device_ledger, roofline
@@ -562,7 +562,7 @@ def _check_require_alias(node: TorchNode, index: str, query) -> None:
     (or auto-created) index (RestIndexAction / DocWriteRequest)."""
     if query.get("require_alias") not in ("true", ""):
         return
-    if index not in node._alias_map():
+    if index not in alias_map_of(node.indices):
         raise IndexNotFoundException(
             f"[{index}] is not an alias and require_alias is set")
 

@@ -3,15 +3,20 @@ _search.
 
 Counterpart of opensearch_tpu/search/distributed_serving.py. A kNN query
 over S shards runs ONE serving step (parallel/distributed.
-build_knn_serving_step): every shard's scan in one launch over a stacked
-[S, n_flat, d] slab, then the on-device merge, replacing the host-side
-k-way merge of the reference's SearchPhaseController.mergeTopDocs.
+build_knn_serving_step) over n slots, n the largest divisor of S no
+greater than the node's serving devices (``backend.serving_devices``, the
+counterpart of ``jax.devices()``): each slot's S / n shards scanned in one
+launch on its slot's device over a stacked [S / n, n_flat, d] slab, then
+the merge on slot 0's device, replacing the host-side k-way merge of the
+reference's SearchPhaseController.mergeTopDocs. A one-card node has one
+slot: one launch a search.
 
 Layout: at first use after a refresh, each shard's segment vector columns
 are flattened into one [n_flat, d] slab (segment-ascending, doc-ascending —
-the host merge's tie-break order), stacked to [S, n_flat, d] and copied to
-the shards' device. The slabs are cached per (index, field, per-shard
-segment generations) in the shard-mesh registry; a refresh makes a new key.
+the host merge's tie-break order), stacked by slot to [S / n, n_flat, d]
+and copied to the slot's device. The slabs are cached per (index, field,
+per-shard segment generations) in the shard-mesh registry; a refresh
+makes a new key.
 
 The step declines (``mesh_knn_batch`` returns None, and the service runs
 the per-shard route of search/executor.py) where the reference declines:
@@ -21,23 +26,25 @@ maps the field, or mixed similarities or dims); each decline counts in
 ``stats["fallbacks"]``.
 
 Filtered kNN: the filter's mask is built on the device by the per-shard
-route's own SegmentExecutor (:func:`_filter_valid_mask`), laid out like
-the bundle's slabs, and ANDed into ``valid``, so K1 scans the narrower
-set; a filtered query serves ANN-indexed columns exactly, as the
-per-shard route does under a filter; ``stats["filtered"]`` counts such
-launches. A batch's queries share their filter by identity. A filtered
-alias gives each shard its own filter (``alias_filters``, one parsed node
-or None a shard): the mask ANDs each shard's alias filter with the kNN
-filter, so a kNN through a filtered alias is one K1 launch, counted in
-``stats["filtered"]`` like a body filter.
+route's own SegmentExecutor (:func:`_filter_valid_mask`), each slot's part
+on its slot's device, laid out like the bundle's slabs, and ANDed into
+``valid``, so K1 scans the narrower set; a filtered query serves
+ANN-indexed columns exactly, as the per-shard route does under a filter;
+``stats["filtered"]`` counts such launches. A batch's queries share their
+filter by identity. A filtered alias gives each shard its own filter
+(``alias_filters``, one parsed node or None a shard): the mask ANDs each
+shard's alias filter with the kNN filter, so a kNN through a filtered
+alias is one mesh launch, counted in ``stats["filtered"]`` like a body
+filter.
 
-Telemetry, as in the reference: a bundle's slabs are one
-device-residency-ledger allocation (freed by the shard-mesh registry on
-eviction), the query batch and a filter mask are transient uploads, and
-each launch feeds the registry's launch wall, the roofline (family
-``mesh_knn`` for the plain einsum branch, ``mesh_knn_fused[<precision>]``
-for K1), a heat touch of the bundle and, on a program-cache miss, the
-ledger's compile table.
+Telemetry, as in the reference: each slot's slab is one
+device-residency-ledger allocation labelled with its device (all freed by
+the shard-mesh registry on eviction), the query batch and a filter mask
+are transient uploads, and each launch feeds the registry's launch wall,
+the roofline (family ``mesh_knn`` for the plain einsum branch,
+``mesh_knn_fused[<precision>]`` for K1, bounded by the peaks of the
+distinct cards the slots name), a heat touch of the bundle and, on a
+program-cache miss, the ledger's compile table.
 """
 
 from __future__ import annotations
@@ -49,9 +56,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from opensearch_tpu_torch import backend
 from opensearch_tpu_torch.cluster.shard_mesh import default_registry as registry
 from opensearch_tpu_torch.index.device import vector_norms_sq
 from opensearch_tpu_torch.parallel.distributed import build_knn_serving_step
+from opensearch_tpu_torch.parallel.mesh import Mesh, build_mesh
 from opensearch_tpu_torch.search.executor import (
     ShardHit,
     ShardQueryResult,
@@ -104,31 +113,66 @@ class MeshLaunchOutcome:
 
 
 class _IndexBundle:
-    """[S, n_flat, d] device slabs + host-side flat->segment maps."""
+    """One [S / n, n_flat, d] device slab a slot (n slots, each on its
+    slot's device; S / n consecutive shards each) + host-side flat->segment
+    maps."""
 
-    def __init__(self, vectors, norms_sq, valid, n_flat: int,
-                 seg_offsets: list[list[tuple[int, int, int]]],
-                 allocation=None):
-        self.vectors = vectors          # torch [S, n_flat, d] on the device
-        self.norms_sq = norms_sq        # torch [S, n_flat]
-        self.valid = valid              # torch [S, n_flat] bool
+    def __init__(self, vectors: list, norms_sq: list, valid: list,
+                 n_flat: int, seg_offsets: list[list[tuple[int, int, int]]],
+                 allocations: list | None = None):
+        # per slot: torch [S / n, n_flat, d], [S / n, n_flat], bool
+        self.slot_vectors = list(vectors)
+        self.slot_norms_sq = list(norms_sq)
+        self.slot_valid = list(valid)
         self.n_flat = n_flat
         # per shard: [(flat_start, seg_idx, n_docs)] in segment order
         self.seg_offsets = seg_offsets
-        # device-residency ledger handle; the ShardMeshRegistry frees it
-        # on eviction/invalidation (and on a lost duplicate-build race)
-        self.allocation = allocation
+        # device-residency ledger handles, one a slot; the
+        # ShardMeshRegistry frees them on eviction/invalidation (and on a
+        # lost duplicate-build race)
+        self.allocations = list(allocations or [])
+
+    @property
+    def devices(self) -> list[torch.device]:
+        return [v.device for v in self.slot_vectors]
+
+    def slot_nbytes(self, i: int) -> int:
+        return sum(a.numel() * a.element_size() for a in (
+            self.slot_vectors[i], self.slot_norms_sq[i], self.slot_valid[i]))
 
     @property
     def nbytes(self) -> int:
-        return sum(a.numel() * a.element_size()
-                   for a in (self.vectors, self.norms_sq, self.valid))
+        return sum(self.slot_nbytes(i) for i in range(len(self.slot_vectors)))
 
     def locate(self, shard_idx: int, flat: int) -> tuple[int, int]:
         for start, seg_idx, n_docs in self.seg_offsets[shard_idx]:
             if start <= flat < start + n_docs:
                 return seg_idx, flat - start
         raise IndexError(f"flat doc {flat} out of range for shard {shard_idx}")
+
+
+def _largest_divisor_at_most(s: int, cap: int) -> int:
+    """The number of slots S shards spread over: the largest divisor of S
+    no greater than the number of serving devices, as in the reference."""
+    for d in range(min(s, cap), 0, -1):
+        if s % d == 0:
+            return d
+    return 1
+
+
+_MESH_CACHE: dict[tuple, Mesh] = {}
+
+
+def _serving_mesh(n_devices: int, serving: list) -> Mesh:
+    """The [n_devices, 1] mesh over the first n_devices serving devices,
+    cached by its slots."""
+    slots = tuple(serving[:n_devices])
+    with _CACHE_LOCK:
+        mesh = _MESH_CACHE.get(slots)
+        if mesh is None:
+            mesh = _MESH_CACHE[slots] = build_mesh(n_devices, 1,
+                                                   devices=list(slots))
+    return mesh
 
 
 def _can_serve(snaps: list, field: str, *,
@@ -160,9 +204,13 @@ def _can_serve(snaps: list, field: str, *,
     return similarity, dims
 
 
-def _build_bundle(snaps: list, field: str, dims: int, device: torch.device,
+def _build_bundle(snaps: list, field: str, dims: int, devices: list,
                   index_name: str = "_unattributed",
                   generations: tuple = ()) -> _IndexBundle:
+    """The bundle of `snaps` over the slots `devices` names: one slab a
+    slot of S / n consecutive shards, uploaded to its slot's device and
+    registered in the residency ledger as one allocation labelled with
+    that device."""
     per_shard_vecs: list[np.ndarray] = []
     per_shard_norms: list[np.ndarray] = []
     per_shard_valid: list[np.ndarray] = []
@@ -208,38 +256,47 @@ def _build_bundle(snaps: list, field: str, dims: int, device: torch.device,
     # that grows a shard slightly keeps the slab shape
     n_flat = 1 << max(int(max_docs - 1).bit_length(), 3)
 
-    def stack(arrays: list[np.ndarray], fill=0) -> torch.Tensor:
-        out = np.full((len(arrays), n_flat, *arrays[0].shape[1:]), fill,
-                      dtype=arrays[0].dtype)
-        for i, a in enumerate(arrays):
+    s_local = len(snaps) // len(devices)
+
+    def stack(arrays: list[np.ndarray], slot: int, fill=0) -> torch.Tensor:
+        group = arrays[slot * s_local:(slot + 1) * s_local]
+        out = np.full((s_local, n_flat, *group[0].shape[1:]), fill,
+                      dtype=group[0].dtype)
+        for i, a in enumerate(group):
             out[i, : a.shape[0]] = a
-        return torch.from_numpy(out).to(device)
+        return torch.from_numpy(out).to(devices[slot])
 
     bundle = _IndexBundle(
-        vectors=stack(per_shard_vecs),
-        norms_sq=stack(per_shard_norms),
-        valid=stack(per_shard_valid, fill=False),
+        vectors=[stack(per_shard_vecs, i) for i in range(len(devices))],
+        norms_sq=[stack(per_shard_norms, i) for i in range(len(devices))],
+        valid=[stack(per_shard_valid, i, fill=False)
+               for i in range(len(devices))],
         n_flat=n_flat,
         seg_offsets=seg_offsets,
     )
-    # device residency: the slab stays on the device until the registry
-    # evicts it (superseded generation, byte budget, invalidation)
+    # device residency: each slot's slab stays on its device until the
+    # registry evicts the bundle (superseded generation, byte budget,
+    # invalidation), which frees every slot's allocation
     from opensearch_tpu_torch.telemetry.device_ledger import (
         KIND_MESH_BUNDLE,
         default_ledger,
     )
 
-    bundle.allocation = default_ledger.register(
-        KIND_MESH_BUNDLE, bundle.nbytes, index=index_name, field=field,
-        generation=tuple(generations), device=str(torch.device(device)))
+    bundle.allocations = [
+        default_ledger.register(
+            KIND_MESH_BUNDLE, bundle.slot_nbytes(i), index=index_name,
+            field=field, generation=tuple(generations),
+            device=str(torch.device(dev)))
+        for i, dev in enumerate(devices)]
     return bundle
 
 
 def _filter_valid_mask(shards: list, snaps: list, knn_filter,
                        alias_filters: list | None, n_flat: int,
-                       device: torch.device) -> torch.Tensor:
-    """[S, n_flat] bool on the device: the docs the kNN filter and each
-    shard's alias filter admit, laid out like the bundle's slabs
+                       devices: list) -> list[torch.Tensor]:
+    """One [S / n, n_flat] bool part a slot of `devices` (the bundle's
+    slot devices), built on its slot's device: the docs the kNN filter and
+    each shard's alias filter admit, laid out like the bundle's slabs
     (segment-ascending, doc-ascending, padding False). Each segment's mask
     comes from the SegmentExecutor the per-shard route runs for the same
     filter, so both routes filter alike."""
@@ -248,8 +305,11 @@ def _filter_valid_mask(shards: list, snaps: list, knn_filter,
         ShardContext,
     )
 
-    out = torch.zeros((len(snaps), n_flat), dtype=torch.bool, device=device)
+    s_local = len(snaps) // len(devices)
+    parts = [torch.zeros((s_local, n_flat), dtype=torch.bool, device=d)
+             for d in devices]
     for si, (shard, snap) in enumerate(zip(shards, snaps)):
+        device = devices[si // s_local]
         fnodes = [f for f in (knn_filter,
                               alias_filters[si] if alias_filters else None)
                   if f is not None]
@@ -261,9 +321,9 @@ def _filter_valid_mask(shards: list, snaps: list, knn_filter,
             for fnode in fnodes:
                 mask &= SegmentExecutor(ctx, host, dev).execute(
                     fnode).mask[:n].to(device)
-            out[si, pos:pos + n] = mask
+            parts[si // s_local][si % s_local, pos:pos + n] = mask
             pos += n
-    return out
+    return parts
 
 
 def try_distributed_knn_batch(shards: list, snaps: list, nodes: list,
@@ -313,34 +373,45 @@ def mesh_knn_batch(
                 f"query vector has {len(node.vector)} dims, field "
                 f"[{first.field}] has {dims}")
 
-    device = shards[0].engine.device
+    # the slots: S shards over the largest divisor of S no greater than
+    # the node's serving devices (one slot on a one-card node)
+    serving = backend.serving_devices(shards[0].engine.device)
+    n_devices = _largest_divisor_at_most(s, len(serving))
+    slots = list(_serving_mesh(n_devices, serving).devices[:, 0])
     index_name = shards[0].shard_id.index
     # generation-pinned residency key: a refresh mid-flight is a different
-    # key, so no query is ever merged against another snapshot's slab
-    cache_key = registry.residency_key(index_name, first.field, shards, snaps)
+    # key, so no query is ever merged against another snapshot's slab; the
+    # slots close the key, so a bundle laid out over other slots is
+    # another key, which supersedes it
+    cache_key = (registry.residency_key(index_name, first.field, shards,
+                                        snaps)
+                 + (tuple(str(d) for d in slots),))
     bundle = registry.get(cache_key)
     if bundle is None:
         # built outside the registry lock; a same-key race wastes one
         # upload at worst, and registry.put frees the loser's allocation
         bundle = registry.put(
-            cache_key, _build_bundle(snaps, first.field, dims, device,
+            cache_key, _build_bundle(snaps, first.field, dims, slots,
                                      index_name=index_name,
                                      generations=cache_key[4]))
 
     from opensearch_tpu_torch.telemetry.device_ledger import (
         KIND_QUERY_BATCH,
         default_ledger,
+        group_key,
     )
 
-    valid = bundle.valid
+    valid = bundle.slot_valid
     if filtered:
-        fmask = _filter_valid_mask(shards, snaps, first.filter,
-                                   alias_filters, bundle.n_flat, device)
+        fmasks = _filter_valid_mask(shards, snaps, first.filter,
+                                    alias_filters, bundle.n_flat,
+                                    bundle.devices)
         # per-request mask, consumed by this launch: transient in the
         # residency ledger (allocated and freed in one step)
-        default_ledger.record_transient(KIND_QUERY_BATCH,
-                                        fmask.numel() * fmask.element_size())
-        valid = valid & fmask
+        default_ledger.record_transient(
+            KIND_QUERY_BATCH,
+            sum(m.numel() * m.element_size() for m in fmasks))
+        valid = [ok & m for ok, m in zip(valid, fmasks)]
 
     b = len(nodes)
     q_host = np.zeros((b, dims), np.float32)
@@ -360,7 +431,7 @@ def mesh_knn_batch(
     score_precision = ann_config.score_precision
     fused = (exact_kernel, score_precision) != ("xla", "fp32")
     prog_key = (s, bundle.n_flat, dims, k_shard, k_final, similarity,
-                exact_kernel, score_precision)
+                exact_kernel, score_precision, tuple(bundle.devices))
     with _CACHE_LOCK:
         program = _PROGRAM_CACHE.get(prog_key)
         retraced = program is None
@@ -371,10 +442,10 @@ def mesh_knn_batch(
             )
             _PROGRAM_CACHE[prog_key] = program
 
-    queries = torch.from_numpy(q_host).to(device)
+    queries = torch.from_numpy(q_host).to(bundle.devices[0])
     t0 = time.perf_counter_ns()
     vals, gids, counts = program(
-        bundle.vectors, bundle.norms_sq, valid, queries)
+        bundle.slot_vectors, bundle.slot_norms_sq, valid, queries)
     # copying the results to the host is the fence for this launch
     vals = vals.cpu().numpy()            # [b, k_final]
     gids = gids.cpu().numpy()
@@ -383,12 +454,14 @@ def mesh_knn_batch(
     launch_id = registry.next_launch_id()
     registry.record_launch_wall(wall_ns)
     registry.record_launch_kernel(exact_kernel, score_precision)
-    # roofline accounting: ONE stacked launch against the mesh cost model
-    # (every shard's scan + the on-device merge; one device)
+    # roofline accounting: ONE mesh launch against the mesh cost model
+    # (every shard's scan + the merge over the slots), bounded by the
+    # peaks of the distinct cards it ran on
     from opensearch_tpu_torch.telemetry import roofline
 
+    cards = len(set(bundle.devices))
     launch_params = dict(b=b, s=s, n_flat=bundle.n_flat, d=dims,
-                         k_shard=k_shard, devices=1)
+                         k_shard=k_shard, devices=n_devices)
     if fused:
         from opensearch_tpu_torch.ops.knn_fused import fused_pool_width
 
@@ -398,16 +471,20 @@ def mesh_knn_batch(
             kernel=exact_kernel,
         )
         mesh_family = "mesh_knn_fused"
-        roofline.record_launch(
-            f"mesh_knn_fused[{score_precision}]", wall_ns, **launch_params)
+        roofline.default_recorder.record(
+            f"mesh_knn_fused[{score_precision}]", wall_ns,
+            params=launch_params, cards=cards)
     else:
         mesh_family = "mesh_knn"
-        roofline.record_launch("mesh_knn", wall_ns, **launch_params)
+        roofline.default_recorder.record("mesh_knn", wall_ns,
+                                         params=launch_params, cards=cards)
     default_ledger.record_transient(KIND_QUERY_BATCH, q_host.nbytes)
     # heat touch against the bundle this launch scanned, bytes from the
-    # same cost model the roofline fold used
-    default_ledger.touch([bundle.allocation], family=mesh_family,
-                         params=launch_params)
+    # same cost model the roofline fold used: one touch a structure (the
+    # slots' allocations on one device are one structure)
+    default_ledger.touch(
+        list({group_key(a): a for a in bundle.allocations}.values()),
+        family=mesh_family, params=launch_params)
     if retraced:
         # program-cache miss: a fresh entry for the mesh kernel family; the
         # first launch wall includes any kernel build
@@ -455,3 +532,4 @@ def clear_caches() -> None:
     registry.clear()
     with _CACHE_LOCK:
         _PROGRAM_CACHE.clear()
+        _MESH_CACHE.clear()

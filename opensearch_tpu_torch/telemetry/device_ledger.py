@@ -23,8 +23,12 @@ consults the profiler's first-signature oracle
 entry and its first-launch wall here (on the card the first launch of a
 hand-written kernel includes its build).
 
-The ledger is process-wide (one process == one device, the scope of the
-kNN dispatch batcher and the shard-mesh registry).
+The ledger is process-wide (one process, the scope of the kNN dispatch
+batcher and the shard-mesh registry). Its structures may lie on several
+devices (a mesh bundle registers one allocation a slot, labelled with the
+slot's device), and its bytes can be read per device
+(:meth:`DeviceResidencyLedger.resident_bytes` with a device,
+:meth:`~DeviceResidencyLedger.device_totals`).
 
 TOUCH ACCOUNTING: every launch that reads a ledger-registered structure
 records a :meth:`DeviceResidencyLedger.touch` against its allocations:
@@ -618,9 +622,15 @@ class DeviceResidencyLedger:
 
     # -- introspection -------------------------------------------------------
 
-    def resident_bytes(self) -> int:
+    def resident_bytes(self, device: Any = None) -> int:
+        """The resident bytes, of every device or of one (a device label
+        such as ``"cuda:1"``, or a ``torch.device``)."""
         with self._lock:
-            return self._resident_bytes
+            if device is None:
+                return self._resident_bytes
+            label = str(device)
+            return sum(a.bytes for a in self._live.values()
+                       if a.device == label)
 
     def current_id(self) -> int:
         """High-water allocation id: a leak check scoped to 'allocations
@@ -722,7 +732,7 @@ class DeviceResidencyLedger:
 
 
 # process-wide default: upload sites are module-level code with no node
-# handle (the batcher/registry pattern); one process == one device.
+# handle (the batcher/registry pattern); one ledger a process.
 default_ledger = DeviceResidencyLedger()
 
 

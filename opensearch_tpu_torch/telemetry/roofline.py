@@ -564,14 +564,17 @@ def ensure_peaks(device=None) -> PlatformPeaks:
 
 
 class _FamilyStats:
-    __slots__ = ("launches", "flops", "bytes", "wall_ns", "ewma_flops_s",
-                 "ewma_bytes_s", "seq")
+    __slots__ = ("launches", "flops", "bytes", "wall_ns", "card_wall_ns",
+                 "ewma_flops_s", "ewma_bytes_s", "seq")
 
     def __init__(self) -> None:
         self.launches = 0
         self.flops = 0
         self.bytes = 0
         self.wall_ns = 0
+        # the wall each launch held its cards, summed: a launch over c
+        # distinct cards had c times one card's peaks
+        self.card_wall_ns = 0
         self.ewma_flops_s = 0.0
         self.ewma_bytes_s = 0.0
         self.seq = 0  # update sequence: "most recently fed" tie-break
@@ -626,10 +629,13 @@ class RooflineRecorder:
     # -- producer side -------------------------------------------------------
 
     def record(self, family: str, wall_ns: int, params: dict | None = None,
-               flops: int | None = None, nbytes: int | None = None) -> None:
+               flops: int | None = None, nbytes: int | None = None,
+               cards: int = 1) -> None:
         """Fold one fenced launch into the family's row. `flops`/`nbytes`
         may be passed precomputed; otherwise the registry model for
-        ``base_family(family)`` computes them from `params`."""
+        ``base_family(family)`` computes them from `params`. `cards` is the
+        number of distinct cards the launch ran on (a mesh launch over
+        several): its bound is the per-card peaks times that number."""
         if flops is None or nbytes is None:
             model = COST_MODELS.get(base_family(family))
             if model is None or params is None:
@@ -653,6 +659,7 @@ class RooflineRecorder:
             fam.flops += flops
             fam.bytes += nbytes
             fam.wall_ns += wall_ns
+            fam.card_wall_ns += wall_ns * max(int(cards), 1)
             if fam.ewma_flops_s <= 0.0:
                 fam.ewma_flops_s = inst_flops_s
                 fam.ewma_bytes_s = inst_bytes_s
@@ -686,8 +693,14 @@ class RooflineRecorder:
         achieved_flops_s = fam.flops / wall_s
         achieved_bytes_s = fam.bytes / wall_s
         intensity = fam.flops / max(fam.bytes, 1)
+        # the peaks of the cards the launches held, weighted by wall
+        cards = fam.card_wall_ns / max(fam.wall_ns, 1)
+        if cards != 1:
+            peaks = PlatformPeaks(peaks.platform, peaks.flops_per_s * cards,
+                                  peaks.bytes_per_s * cards, peaks.source,
+                                  peaks.calibrated_at_ms)
         ceiling, frac, bound = _fraction(achieved_flops_s, intensity, peaks)
-        return {
+        row = {
             "family": name,
             "launches": fam.launches,
             "flops": fam.flops,
@@ -703,6 +716,9 @@ class RooflineRecorder:
             # the report's ranking key: wall spent × gap to the roofline
             "lost_ms": round((fam.wall_ns / 1e6) * (1.0 - frac), 3),
         }
+        if cards != 1:
+            row["cards"] = _sig(cards)
+        return row
 
     def family_names(self) -> list[str]:
         with self._lock:
@@ -809,7 +825,7 @@ class RooflineRecorder:
 
 
 # process-wide default: launch sites are module-level code with no node
-# handle (the batcher/ledger pattern); one process == one device set.
+# handle (the batcher/ledger pattern); one recorder a process.
 default_recorder = RooflineRecorder()
 
 

@@ -604,8 +604,8 @@ class DeviceLedgerBounded(Invariant):
         with default_registry._lock:
             bundles = list(default_registry._bundles.values())
         for bundle in bundles:
-            alloc = getattr(bundle, "allocation", None)
-            if alloc is not None:
+            # one allocation a slot of the bundle
+            for alloc in getattr(bundle, "allocations", ()):
                 reachable.add(alloc.alloc_id)
         leaked = [
             a for a in default_ledger.live_allocations()
@@ -684,8 +684,7 @@ class HeatBounded(Invariant):
         with default_registry._lock:
             bundles = list(default_registry._bundles.values())
         for bundle in bundles:
-            alloc = getattr(bundle, "allocation", None)
-            if alloc is not None:
+            for alloc in getattr(bundle, "allocations", ()):
                 reachable.add(group_key(alloc))
         # groups with at least one allocation made DURING this soak: a
         # pre-existing same-named structure (another test's engine in

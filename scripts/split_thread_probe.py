@@ -2,12 +2,14 @@
 and on a worker thread of the same process.
 
     python3 scripts/split_thread_probe.py [--docs 20000] [--device cuda]
+        [--threads main,worker,main,worker]
 
 Builds one index of `--docs` clustered 128-d docs shaped like chip_smoke's
 vec-2026.10 (a knn_vector, a keyword, a long, a date and a derived long),
 write-blocks it, then runs ``TorchNode.resize_index("split", ...)`` into 2
-shards four times, alternating the main thread and a fresh worker thread
-(as the REST layer runs `_split` and `_reindex`), and prints each run's
+shards once for each entry of `--threads` (by default four times,
+alternating the main thread and a fresh worker thread, as the REST layer
+runs `_split` and `_reindex`), and prints each run's
 seconds and microseconds a doc beside the `_bulk`'s and the card's name
 and power limit. Before that it times the translog op's text built by
 ``+`` and by one ``join``, and ``json.loads`` of one doc's source, on both
@@ -67,7 +69,7 @@ def payload_benches() -> None:
               f"{in_thread(bench):.2f} us", flush=True)
 
 
-def split_runs(device: str, n: int) -> None:
+def split_runs(device: str, n: int, threads: list[str]) -> None:
     node = TorchNode(tempfile.mkdtemp(), device=device)
     rng = np.random.default_rng(1)
     data = cs.clustered(rng, n, 128)
@@ -87,7 +89,7 @@ def split_runs(device: str, n: int) -> None:
           f"a doc", flush=True)
     node.refresh("src")
     node.put_index_settings("src", {"index.blocks.write": True})
-    for i, where in enumerate(("main", "worker", "main", "worker")):
+    for i, where in enumerate(threads):
         name = f"dst-{i}"
 
         def split(name=name):
@@ -107,14 +109,20 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--docs", type=int, default=20_000)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--threads", default="main,worker,main,worker",
+                    help="the thread of each split, in order: main or "
+                         "worker")
     args = ap.parse_args()
+    threads = args.threads.split(",")
+    if not set(threads) <= {"main", "worker"}:
+        ap.error("--threads takes main and worker")
     if args.device != "cpu":
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"],
                              capture_output=True, text=True)
         print(smi.stdout.strip(), flush=True)
     payload_benches()
-    split_runs(args.device, args.docs)
+    split_runs(args.device, args.docs, threads)
     return 0
 
 

@@ -579,3 +579,45 @@ def test_delete_index_through_cluster_equals_single_node(rest_clusters,
     assert single[0] == (404 if path in ("/no-such-index",
                                          "/no-such-*?allow_no_indices=false")
                          else 400 if path == "/read-a" else 200), single
+
+
+# GET /{index} through a cluster and on a single node: each index of this
+# section, both by a comma list, a pattern, an alias, and a missing name
+# with and without ignore_unavailable (and beside an existing one)
+GET_INDEX_PATHS = (
+    f"/{ALIASED}", f"/{EXPLAINED}", f"/{ALIASED},{EXPLAINED}", "/alias*",
+    "/expl*,aliased", "/read-a", "/no-such-index",
+    "/no-such-index?ignore_unavailable=true",
+    f"/{EXPLAINED},no-such-index?ignore_unavailable=true",
+    "/no-such-*?allow_no_indices=false",
+)
+
+
+@pytest.mark.parametrize("path", GET_INDEX_PATHS)
+def test_get_index_through_cluster_equals_single_node(rest_clusters,
+                                                      single_items, path):
+    """Each node of the port's 3-node cluster answers GET /{index} as a
+    single TorchNode does on the same indices (status and body). The
+    reference's cluster answers 500: its facade's resolve_indices takes
+    neither ignore_unavailable nor allow_no_indices, which its handler
+    passes (a stated difference)."""
+    single = _single(rest_clusters, single_items, "GET", path)
+
+    def own(body):
+        # an index's uuid and creation date are each deployment's own (a
+        # cluster's state keeps neither: its stand-ins); the keys stay
+        for entry in (body.values() if single[0] == 200 else ()):
+            idx = entry["settings"]["index"]
+            for key in ("uuid", "creation_date"):
+                idx[key] = type(idx[key]).__name__
+        return body
+
+    for nid in ("n0", "n1", "n2"):
+        got = rest_clusters.req("opensearch_tpu_torch", nid, "GET", path)
+        assert got[0] == single[0], (nid, path, got, single)
+        assert_same_body(own(single[1]), own(got[1]), f"{nid} {path}")
+    assert single[0] == (404 if path.startswith("/no-such-index")
+                         and "ignore_unavailable" not in path
+                         or "allow_no_indices=false" in path else 200), single
+    status, _resp = rest_clusters.req("opensearch_tpu", "n1", "GET", path)
+    assert status == 500, (path, status)

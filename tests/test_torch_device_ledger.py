@@ -246,6 +246,8 @@ class _FakeBundle:
         self.allocation = led.register(
             "mesh_bundle", nbytes, index=name, field="v", generation=(1,),
             device="mesh[1]")
+        # the registry frees a bundle's allocations, one a slot
+        self.allocations = [self.allocation]
 
 
 def _key(name, engine):

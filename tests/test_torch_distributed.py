@@ -301,12 +301,22 @@ def test_mesh_is_a_grid_of_slots_on_one_device():
     assert mesh.devices.shape == (4, 2) and mesh.size == 8
     assert all(d == torch.device("cpu") for d in mesh.devices.flat)
     assert shard_spec(mesh, DATA_AXIS, None).spec == (DATA_AXIS, None)
-    with pytest.raises(ValueError, match="one device"):
-        build_mesh(2, 1, devices=["cpu:0", "cpu:1"])
+    # a list of several devices is the reference's rule: the first N
+    # devices reshaped, and a list too short raises
+    with pytest.raises(ValueError, match="needs 8 devices, have 2"):
+        build_mesh(4, 2, devices=["cpu", "cpu"])
+    two = build_mesh(2, 1, devices=["cpu:0", "cpu:1"])
+    assert [str(d) for d in two.devices.flat] == ["cpu:0", "cpu:1"]
+    # laid out slot by slot: each shard's two column slices, the other
+    # arrays' rows, every one a tensor on its slot's device
     segs = port_dist.shard_arrays_to_mesh(mesh, port_dist.ShardedSegments(
-        *(np.zeros((2, 4), np.float32) for _ in range(6))))
+        np.zeros((4, 3, 4), np.float32),
+        *(np.zeros((4, 3), np.float32) for _ in range(5))))
+    assert [[tuple(t.shape) for t in row] for row in segs.vectors] == \
+        [[(3, 2), (3, 2)]] * 4
     assert all(isinstance(a, torch.Tensor) and a.device.type == "cpu"
-               for a in segs)
+               for a in [*(t for row in segs.vectors for t in row),
+                         *(t for field in segs[1:] for t in field)])
 
 
 def test_default_device_is_the_card():

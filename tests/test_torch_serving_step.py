@@ -52,8 +52,8 @@ def _torch_step(kernel, precision, similarity, arrays):
     step = torch_dist.build_knn_serving_step(
         k_shard=8, k_final=min(10, 8 * len(vectors)), similarity=similarity,
         kernel=kernel, score_precision=precision)
-    vals, gids, counts = step(bundle.vectors, bundle.norms_sq, bundle.valid,
-                              torch.from_numpy(queries))
+    vals, gids, counts = step(bundle.slot_vectors, bundle.slot_norms_sq,
+                              bundle.slot_valid, torch.from_numpy(queries))
     return vals.numpy(), gids.numpy(), counts.numpy()
 
 

@@ -205,6 +205,8 @@ class _Bundle:
         self.allocation = default_ledger.register(
             "mesh_bundle", nbytes, index=name, field="v", generation=(1,),
             device="cpu")
+        # the registry frees a bundle's allocations, one a slot
+        self.allocations = [self.allocation]
 
 
 def _key(index, engines, gen=0, field="v"):
